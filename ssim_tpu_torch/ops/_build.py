@@ -1,0 +1,119 @@
+"""Build and load the port's CUDA kernels (nvcc into a plain C shared
+library, bound with ctypes).
+
+No counterpart in the JAX package: there Mosaic compiles the Pallas
+kernels at trace time. Here `nvcc` compiles `ssim_tpu_torch/csrc/*.cu`
+for `sm_90a` at first use, into `ssim_tpu_torch/_build/`, keyed by a hash
+of the sources and flags, so an edited source is rebuilt and an
+unchanged one is loaded as it is. Nothing runs at import time: this
+module is imported on machines without `nvcc` or a GPU, and only
+`load_library` needs them.
+"""
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import tempfile
+import threading
+
+_PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+CSRC_DIR = os.path.join(_PKG_DIR, "csrc")
+BUILD_DIR = os.path.join(_PKG_DIR, "_build")
+
+#: No --use_fast_math: it flushes subnormals and approximates division.
+#: --fmad=false keeps every multiply and add rounded on its own, as the
+#: plain twin's PyTorch operations round them, so the kernel's per-pixel
+#: values can be held against the twin's bit for bit (built both ways, the
+#: kernel ran no faster with fused multiply-adds on an H100).
+NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a",
+    "-std=c++17", "-O3", "--fmad=false", "-shared", "-Xcompiler", "-fPIC",
+    "-Xptxas", "-v",
+)
+
+_lock = threading.Lock()
+_lib = None
+
+
+def sources():
+    """The kernel sources, sorted, as absolute paths."""
+    return sorted(
+        os.path.join(CSRC_DIR, f) for f in os.listdir(CSRC_DIR)
+        if f.endswith((".cu", ".cuh"))
+    )
+
+
+def find_nvcc() -> str:
+    """nvcc from CUDA_HOME, /usr/local/cuda or PATH; raises if absent."""
+    candidates = []
+    for var in ("CUDA_HOME", "CUDA_PATH"):
+        if os.environ.get(var):
+            candidates.append(os.path.join(os.environ[var], "bin", "nvcc"))
+    candidates.append("/usr/local/cuda/bin/nvcc")
+    for c in candidates:
+        if os.path.isfile(c) and os.access(c, os.X_OK):
+            return c
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    raise RuntimeError(
+        "nvcc not found (set CUDA_HOME): the CUDA kernels are built from "
+        "source at first use"
+    )
+
+
+def _digest() -> str:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for path in sources():
+        h.update(os.path.basename(path).encode())
+        with open(path, "rb") as f:
+            h.update(f.read())
+    return h.hexdigest()[:16]
+
+
+def library_path() -> str:
+    return os.path.join(BUILD_DIR, f"libssim_kernels_{_digest()}.so")
+
+
+def build() -> str:
+    """Compile the sources unless this digest is already built; returns
+    the library's path. The compiler's output (ptxas register and
+    shared-memory report) is kept beside it as `<lib>.log`."""
+    out = library_path()
+    if os.path.isfile(out):
+        return out
+    os.makedirs(BUILD_DIR, exist_ok=True)
+    # Build under a temporary name and rename: concurrent builders never
+    # load a half-written library.
+    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
+    os.close(fd)
+    cmd = [find_nvcc(), *NVCC_FLAGS, "-o", tmp, *sources()]
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    if proc.returncode != 0:
+        os.unlink(tmp)
+        raise RuntimeError(
+            f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}\n"
+            f"{proc.stdout}{proc.stderr}"
+        )
+    with open(out + ".log", "w") as f:
+        f.write(proc.stdout + proc.stderr)
+    os.replace(tmp, out)
+    return out
+
+
+def load_library() -> ctypes.CDLL:
+    """Build if needed, load once per process, and declare the C entry
+    points' signatures."""
+    global _lib
+    with _lock:
+        if _lib is None:
+            lib = ctypes.CDLL(build())
+            p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+            lib.ssim_fwd_launch.argtypes = [
+                i, p, p, p, p, i, i, i, i, i, i, p, f, f, f, p,
+            ]
+            lib.ssim_fwd_launch.restype = i
+            _lib = lib
+        return _lib
