@@ -7,19 +7,32 @@ Phases, each of which raises on failure (the script then exits non-zero):
 
 1. the card: CUDA must be available; prints the name and power limit;
 2. build: compiles ssim_tpu_torch/csrc/*.cu with nvcc for sm_90a from
-   this checkout and prints the build time and the ptxas report;
-3. kernel against its plain PyTorch twin on the card, score and map, at
-   tiny, ragged, 1080p, over-16384-wide, float-with-NaN, radius 1/16 and
-   small-image-batch shapes, and against the f64 oracle on the small ones;
-4. the main path: `compute_ssim` and `compute_ssim_map` on uint8 batches
-   at 1080p x4, 4K x4 and 16K UHD x1, which must go through the kernel
-   (its launch counter must rise) and give finite scores and maps that
-   agree with the twin; then times the kernel and the twin with CUDA
-   events and the whole call with the host clock.
+   this checkout (one nvcc per source, in parallel) and prints the build
+   time and the ptxas report;
+3. forward kernel against its plain PyTorch twin on the card, score and
+   map, at tiny, ragged, 1080p, over-16384-wide, float-with-NaN, radius
+   1/16 and small-image-batch shapes, and against the f64 oracle on the
+   small ones;
+4. the main path: one `compute_ssim` on NumPy input with no `device`
+   (it must run on the card), then `compute_ssim` and `compute_ssim_map`
+   on uint8 batches at 1080p x4, 4K x4 and 16K UHD x1, which must go
+   through the kernel (its launch counter must rise) and give finite
+   scores and maps that agree with the twin; then times the kernel and
+   the twin with CUDA events and the whole call with the host clock;
+5. training: the backward kernel against its plain twin with score,
+   g_map and w_cs cotangents and per-image weights at tiny, ragged,
+   1080p x4, 20480-wide, radius 1/16 and float-with-NaN shapes, and
+   against autograd of the plain path at 1080p x4; five Adam steps on
+   `ssim_loss` at 1080p x4 (the loss must fall, each kernel must launch
+   exactly five times) and one `ssim_and_map` step with a map cotangent
+   at 4K (it must launch the backward kernel with g_map); then times the
+   backward kernel and its twin with CUDA events and a whole training
+   step with the host clock.
 
-Prints the kernel record as one JSON line, the card's name and power
-limit, and last `{"ok": true, "device": {...}}`. Inputs are random,
-made on the device from a fixed seed. Imports no JAX.
+Prints the kernel records as one JSON line (with each kernel's roofline
+bound), the card's name and power limit, and last
+`{"ok": true, "device": {...}}`. Inputs are random, made on the device
+from a fixed seed. Imports no JAX.
 """
 
 import json
@@ -44,7 +57,48 @@ if HERE not in sys.path:
 # rule of tests/test_pallas.py) and 1e-3 per pixel.
 TWIN_GLOBAL, TWIN_PIXEL, TWIN_PIXEL_R1 = 2e-7, 1e-5, 5e-5
 ORACLE_GLOBAL, ORACLE_PIXEL = 2e-6, 1e-3
+# Backward kernel against its twin: 1e-6 * max(1, max|g|) (both round
+# alike, so they are expected to agree exactly); against autograd of the
+# plain path, an independent formulation: 2e-5 * max(1, max|g|), the
+# bound of tests/test_torch_port_grad.py.
+GRAD_TWIN, GRAD_AUTOGRAD = 1e-6, 2e-5
 SEED = 0x55
+
+# Roofline bound: the least time the card could take for the same work,
+# the larger of the bytes over 3.35 TB/s and the f32 operations over
+# 67 TFLOP/s (NVIDIA H100 SXM data sheet, at 700 W). Bytes: each input
+# read once, each output written once. Operations per output pixel,
+# counted from the sources at radius r (multiplies, adds, divisions;
+# compares and selects not counted):
+# - csrc/ssim_fwd.cu: horizontal pass 20r + 12 (per tap pair 4 for the
+#   sums and differences, 3 + 3 + 5 + 5 for the four signals; the centre
+#   tap 12), vertical pass 12r + 8, SSIM formula and tile sum 23:
+#   32r + 43;
+# - csrc/ssim_bwd.cu: stage 1a 20r + 12, stage 1b 12r + 8 plus 66 for
+#   the weight maps (one more with g_map), stage 2a 12r + 8, stage 2b
+#   12r + 8 plus 14 for da/db: 56r + 116.
+HBM_BYTES_PER_S, F32_OPS_PER_S = 3.35e12, 67e12
+
+
+def bound_ms(nbytes, ops):
+    """(bound in ms, "bytes" or "operations")."""
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / F32_OPS_PER_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def fwd_bound(shape, itemsize, radius=5):
+    bsz, h, w = shape
+    npix = bsz * h * w
+    tiles = bsz * -(-h // 32) * -(-w // 64)
+    return bound_ms(2 * itemsize * npix + 4 * tiles, (32 * radius + 43) * npix)
+
+
+def bwd_bound(shape, with_g, radius=5):
+    bsz, h, w = shape
+    npix = bsz * h * w
+    return bound_ms((16 + 4 * with_g) * npix + 8 * bsz,
+                    (56 * radius + 116 + with_g) * npix)
 
 
 def check(cond, msg):
@@ -198,6 +252,15 @@ def phase_main(gen, label):
     inputs = {name: pair(gen, shape) for name, shape in MAIN_CONFIGS}
     torch.cuda.synchronize()
 
+    # NumPy input with no device runs on the card.
+    a_np, b_np = (x.cpu().numpy() for x in inputs["1080p_b4"])
+    ssim_cuda.LAUNCHES = 0
+    s_np = ssim_tpu_torch.compute_ssim(a_np, b_np)
+    check(ssim_cuda.LAUNCHES == 1,
+          f"NumPy compute_ssim launched the kernel {ssim_cuda.LAUNCHES} times")
+    check(s_np.shape == (4,) and np.isfinite(s_np).all(), f"NumPy scores {s_np}")
+    print(f"  NumPy input, no device: 1 launch, scores {s_np}", flush=True)
+
     ssim_cuda.LAUNCHES = 0
     results = {}
     for name, shape in MAIN_CONFIGS:
@@ -262,6 +325,212 @@ def phase_main(gen, label):
     return launches, records
 
 
+def grad_twin(a, b, w_s, w_cs, g_map, data_range=1.0, radius=5, sigma=1.5,
+              k1=0.01, k2=0.03):
+    from ssim_tpu_torch.ops import ssim_grad
+
+    tile_h, tile_w = ssim_grad.default_tile(radius)
+    return ssim_grad.ssim_grad_plain(
+        a, b, w_s, w_cs, g_map,
+        taps=ssim_grad.gaussian_taps(np.float32, radius, sigma),
+        c1=float((k1 * data_range) ** 2), c2=float((k2 * data_range) ** 2),
+        clip_bound=max(131072.0, 4.0 * data_range), tile_h=tile_h, tile_w=tile_w,
+    )
+
+
+def compare_grad_to_twin(name, a, b, w_s, w_cs, g_map, **kw):
+    """Backward kernel and twin on the same card tensors; returns the max
+    abs error and the kernel's (da, db)."""
+    from ssim_tpu_torch.ops.ssim_grad import ssim_grad_cuda
+
+    kw.setdefault("data_range", 1.0)
+    da, db = ssim_grad_cuda(a, b, w_s, w_cs, g_map, **kw)
+    torch.cuda.synchronize()
+    pa, pb = grad_twin(a, b, w_s, w_cs, g_map, **kw)
+    err, scale = 0.0, 1.0
+    for k, p in ((da, pa), (db, pb)):
+        check(torch.equal(k.isnan(), p.isnan()), f"{name}: NaN gradients differ")
+        fin = ~p.isnan()
+        if fin.any():
+            err = max(err, float((k[fin] - p[fin]).abs().max()))
+            scale = max(scale, float(p[fin].abs().max()))
+    check(err <= GRAD_TWIN * scale,
+          f"{name}: backward kernel vs twin {err:.3g} (tol {GRAD_TWIN * scale:.3g})")
+    print(f"  {name}: backward kernel vs twin {err:.3g} (max|g| {scale:.3g})",
+          flush=True)
+    del pa, pb
+    return err, da, db
+
+
+def phase_train(gen, label):
+    import ssim_tpu_torch
+    from ssim_tpu_torch.ops import ssim_cuda, ssim_grad
+    from ssim_tpu_torch.ops.ssim_torch import ssim_parts_torch
+
+    print("phase 5: training (ssim_loss / ssim_and_map, backward kernel)",
+          flush=True)
+
+    def weights(bsz):
+        w_s = torch.rand(bsz, generator=gen, device="cuda") + 0.5
+        w_cs = torch.rand(bsz, generator=gen, device="cuda") * 0.3
+        return w_s, w_cs
+
+    # (a) The backward kernel against its twin: score (per-image w_s), w_cs
+    # and g_map cotangents.
+    max_err = 0.0
+    cases = [((1, 255, 63), {}), ((1, 257, 65), {}), ((2, 7, 9), {}),
+             ((4, 1080, 1920), {}), ((1, 1024, 20480), {}),
+             ((2, 300, 500), dict(radius=1, sigma=0.8, k1=0.02, k2=0.05)),
+             ((2, 300, 500), dict(radius=16, sigma=3.0, k1=0.015, k2=0.04))]
+    for shape, win in cases:
+        a, b = pair(gen, shape, torch.float32, 1.0)
+        w_s, w_cs = weights(shape[0])
+        g = torch.randn(shape, generator=gen, device="cuda")
+        for g_map in (None, g):
+            tag = f"f32 {shape} {win}" + (" g_map" if g_map is not None else "")
+            e, _, _ = compare_grad_to_twin(tag, a, b, w_s, w_cs, g_map, **win)
+            max_err = max(max_err, e)
+    # f32, one NaN in image 0 of 2: NaN at the pixel, image 1 finite and
+    # equal to image 1 alone.
+    a, b = pair(gen, (2, 300, 500), torch.float32, 1.0)
+    a[0, 123, 321] = float("nan")
+    w_s, w_cs = weights(2)
+    e, da, db = compare_grad_to_twin("f32 NaN in image 0 of 2", a, b, w_s, w_cs, None)
+    d1, e1 = ssim_grad.ssim_grad_cuda(a[1:].contiguous(), b[1:].contiguous(),
+                                      w_s[1:], w_cs[1:], data_range=1.0)
+    check(bool(da[0, 123, 321].isnan()) and bool(db[0, 123, 321].isnan())
+          and bool(torch.isfinite(da[1]).all()) and bool(torch.isfinite(db[1]).all()),
+          "NaN isolation: gradients")
+    check(torch.equal(da[1], d1[0]) and torch.equal(db[1], e1[0]),
+          "NaN isolation: image 1 differs from image 1 alone")
+    print("  NaN isolated to image 0; image 1 equals image 1 alone", flush=True)
+    max_err = max(max_err, e)
+    # Against autograd of the plain path, an independent formulation.
+    shape = (4, 1080, 1920)
+    a, b = pair(gen, shape, torch.float32, 1.0)
+    w_s, _ = weights(4)
+    g = torch.randn(shape, generator=gen, device="cuda")
+    at, bt = a.clone().requires_grad_(), b.clone().requires_grad_()
+    _, m = ssim_parts_torch(at, bt, with_map=True, data_range=1.0)
+    ga, gb = torch.autograd.grad(((w_s[:, None, None] + g) * m).sum(), (at, bt))
+    da, db = ssim_grad.ssim_grad_cuda(a, b, w_s, 0.0, g, data_range=1.0)
+    err = max(float((da - ga).abs().max()), float((db - gb).abs().max()))
+    scale = max(1.0, float(ga.abs().max()))
+    check(err <= GRAD_AUTOGRAD * scale,
+          f"backward kernel vs autograd {err:.3g} (tol {GRAD_AUTOGRAD * scale:.3g})")
+    print(f"  f32 {shape} g_map: backward kernel vs autograd of ssim_parts_torch "
+          f"{err:.3g} (max|g| {scale:.3g})", flush=True)
+    del at, bt, m, ga, gb, da, db
+
+    # (b) The training path at full width: examples/training.py's Adam
+    # denoising on 1 - SSIM, five steps.
+    clean = torch.rand(shape, generator=gen, device="cuda")
+    noisy = (clean + 0.15 * torch.randn(shape, generator=gen, device="cuda")).clamp_(0, 1)
+    x = noisy.clone().requires_grad_()
+    opt = torch.optim.Adam([x], lr=0.02)
+
+    def step():
+        opt.zero_grad(set_to_none=True)
+        loss = ssim_tpu_torch.ssim_loss(x, clean)
+        loss.backward()
+        finite = torch.isfinite(x.grad).all()
+        opt.step()
+        with torch.no_grad():
+            x.clamp_(0.0, 1.0)
+        return loss.detach(), finite
+
+    torch.cuda.synchronize()
+    ssim_cuda.LAUNCHES = 0
+    ssim_grad.LAUNCHES = 0
+    results = [step() for _ in range(5)]
+    fwd_launches, bwd_launches = ssim_cuda.LAUNCHES, ssim_grad.LAUNCHES
+    losses = [float(loss) for loss, _ in results]
+    check(fwd_launches == 5 and bwd_launches == 5,
+          f"5 training steps launched the forward kernel {fwd_launches} and "
+          f"the backward kernel {bwd_launches} times, expected 5 and 5")
+    check(all(bool(f) for _, f in results), "non-finite gradients in training")
+    check(all(np.isfinite(losses)) and losses[-1] < losses[0],
+          f"the loss did not fall: {losses}")
+    print(f"  5 Adam steps on ssim_loss {shape}: 1-SSIM {losses}; launches "
+          f"forward {fwd_launches}, backward {bwd_launches}", flush=True)
+
+    # One ssim_and_map step with a map cotangent: K3 with g_map.
+    a4, b4 = pair(gen, (1, 2160, 3840), torch.float32, 1.0)
+    xm = a4.clone().requires_grad_()
+    seen = []
+    real = ssim_grad.ssim_grad_cuda
+
+    def spy(*args, **kwargs):
+        seen.append(len(args) > 4 and args[4] is not None)
+        return real(*args, **kwargs)
+
+    ssim_grad.ssim_grad_cuda = spy
+    try:
+        before = ssim_grad.LAUNCHES
+        score, m = ssim_tpu_torch.ssim_and_map(xm, b4, data_range=1.0)
+        (score.sum() + (m * m).sum()).backward()
+        torch.cuda.synchronize()
+        map_launches = ssim_grad.LAUNCHES - before
+    finally:
+        ssim_grad.ssim_grad_cuda = real
+    check(map_launches == 1 and seen == [True],
+          f"ssim_and_map backward: {map_launches} launches, g_map passed {seen}")
+    check(bool(torch.isfinite(xm.grad).all()), "ssim_and_map: non-finite gradient")
+    print(f"  ssim_and_map (1, 2160, 3840), score + map cotangent: 1 launch with "
+          f"g_map, score {score.item():.6f}", flush=True)
+    del a4, b4, xm, m
+
+    # (c) Times: the kernel at grad_1080_b4 (bench.py's training config:
+    # w_s = 1, w_cs = 0, data_range 255, u8-valued f32) and at 4K x4, each
+    # with and without g_map; the twin at the same shapes; a whole step.
+    records = {}
+    for name, tshape in (("grad_1080_b4", (4, 1080, 1920)),
+                         ("grad_4k_b4", (4, 2160, 3840))):
+        au, bu = pair(gen, tshape)
+        a, b = au.float(), bu.float()
+        del au, bu
+        g = torch.randn(tshape, generator=gen, device="cuda")
+        ones = torch.ones(tshape[0], device="cuda")
+        zeros = torch.zeros(tshape[0], device="cuda")
+        kern = lambda gm: ssim_grad.ssim_grad_cuda(a, b, ones, zeros, gm,
+                                                   data_range=255.0)
+        plain = lambda gm: grad_twin(a, b, ones, zeros, gm, data_range=255.0)
+        t_plain = cuda_ms(lambda: plain(None), 5)
+        t_k = cuda_ms(lambda: kern(None), 20)
+        t_kg = cuda_ms(lambda: kern(g), 20)
+        t_plain_g = cuda_ms(lambda: plain(g), 5)
+        mpix = tshape[0] * tshape[1] * tshape[2] / 1e6
+        bnd, by = bwd_bound(tshape, False)
+        bnd_g, by_g = bwd_bound(tshape, True)
+        records[name] = dict(
+            shape=list(tshape), kernel_ms=t_k, kernel_gmap_ms=t_kg,
+            plain_ms=t_plain, plain_gmap_ms=t_plain_g, bound_ms=bnd, bound_by=by,
+            bound_gmap_ms=bnd_g, bound_gmap_by=by_g,
+        )
+        print(f"  {name} {tshape}: kernel {t_k:.4f} ms ({mpix / t_k * 1e3:.1f} "
+              f"Mpix/s), kernel+g_map {t_kg:.4f} ms ({mpix / t_kg * 1e3:.1f} "
+              f"Mpix/s), plain twin {t_plain:.3f} ms ({mpix / t_plain * 1e3:.1f} "
+              f"Mpix/s), twin+g_map {t_plain_g:.3f} ms; bound {bnd:.4f} ms "
+              f"({by}), {bnd_g:.4f} ms with g_map | {label}", flush=True)
+        del a, b, g
+        torch.cuda.empty_cache()
+    t_step = host_ms(step, 10)
+    # The step's parts on the device: the forward kernel on the f32 pair,
+    # and one Adam update (the backward kernel is timed above).
+    x_now = x.detach()
+    t_fwd = cuda_ms(lambda: ssim_cuda.ssim_parts_cuda(
+        x_now, clean, allow_float=True, data_range=1.0), 20)
+    t_adam = cuda_ms(opt.step, 20)
+    mpix = shape[0] * shape[1] * shape[2] / 1e6
+    records["train_step"] = dict(shape=list(shape), step_ms=t_step,
+                                 fwd_kernel_ms=t_fwd, adam_ms=t_adam)
+    print(f"  training step (ssim_loss forward + backward + Adam) {shape}: "
+          f"{t_step:.3f} ms ({mpix / t_step * 1e3:.1f} Mpix/s); forward kernel "
+          f"on f32 {t_fwd:.4f} ms, Adam update {t_adam:.4f} ms | {label}",
+          flush=True)
+    return fwd_launches, bwd_launches, max_err, records
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this script needs a GPU",
@@ -282,7 +551,7 @@ def main():
           flush=True)
     with open(lib_path + ".log") as f:
         for line in f.read().splitlines():
-            if "ssim_fwd" in line or "registers" in line or "spill" in line:
+            if "ssim_" in line or "registers" in line or "spill" in line:
                 print("  " + line.strip())
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -291,19 +560,42 @@ def main():
     gen.manual_seed(SEED)
     max_err = phase_kernel(gen)
     launches, records = phase_main(gen, label)
+    train_fwd, train_bwd, grad_err, train = phase_train(gen, label)
     check("jax" not in sys.modules, "JAX was imported")
 
     ref = records["4k_b4"]
+    fwd_b, fwd_by = fwd_bound(tuple(ref["shape"]), 1)
+    bwd = train["grad_1080_b4"]
     print(json.dumps({"kernels": [{
         "name": "ssim_fwd",
         "route": "cuda",
         "source": "ssim_tpu_torch/csrc/ssim_fwd.cu",
         "replaces": "ssim_tpu/ops/ssim_pallas.py:710, ssim_tpu/ops/ssim_pallas.py:1364",
         "launches": launches,
+        "launches_training": train_fwd,
         "max_abs_err": max_err,
         "ms": ref["kernel_ms"],
         "plain_ms": ref["plain_ms"],
+        "bound_ms": fwd_b,
+        "bound_by": fwd_by,
+        "library_ms": None,
         "shape": ref["shape"],
+    }, {
+        "name": "ssim_bwd",
+        "route": "cuda",
+        "source": "ssim_tpu_torch/csrc/ssim_bwd.cu",
+        "replaces": "ssim_tpu/ops/ssim_grad.py:278",
+        "launches": train_bwd,
+        "max_abs_err": grad_err,
+        "ms": bwd["kernel_ms"],
+        "plain_ms": bwd["plain_ms"],
+        "bound_ms": bwd["bound_ms"],
+        "bound_by": bwd["bound_by"],
+        "library_ms": None,
+        "shape": bwd["shape"],
+        "ms_gmap": bwd["kernel_gmap_ms"],
+        "ms_4k_b4": train["grad_4k_b4"]["kernel_ms"],
+        "train_step_ms": train["train_step"]["step_ms"],
     }]}))
     print(label)
     print(json.dumps({"ok": True, "device": {

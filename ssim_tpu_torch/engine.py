@@ -7,10 +7,12 @@ the host (the reference's always-double accumulation, src/ssim.cpp:594).
 
 What differs from the JAX engine:
 
-- `compute` takes `device`: by default the input tensor's own device, or
-  for NumPy input `cuda` when `torch.cuda.is_available()`, else `cpu`
-  (the counterpart of JAX's default backend). An explicit `cuda` on a
-  machine without a GPU raises.
+- `compute` takes `device`: by default the input tensor's own device (the
+  caller's choice, as in any PyTorch op), and for NumPy input `cuda`. On a
+  machine without a GPU, NumPy input with no `device`, or an explicit
+  `cuda`, raises UnsupportedError: the CPU is used only when asked for
+  (`device="cpu"`, or CPU tensors). The host oracle (`impl="reference"`,
+  `precision="f64"`) needs no device.
 - Interim: `precision="f64"` routes to the f64 oracle for every
   implementation (the JAX engine does so for every impl that lacks its
   compensated kernel; the port has no f64 kernel yet), and
@@ -156,12 +158,18 @@ def box_decimate(x: np.ndarray, k: int) -> np.ndarray:
 
 def resolve_device(device, a=None, b=None) -> torch.device:
     """The compute device: `device` if given, else the first input
-    tensor's device, else cuda when available, else cpu."""
+    tensor's own device, else cuda. Raises UnsupportedError for cuda on a
+    machine without a GPU."""
     if device is None:
         for x in (a, b):
             if isinstance(x, torch.Tensor):
                 return x.device
-        return torch.device("cuda" if torch.cuda.is_available() else "cpu")
+        if not torch.cuda.is_available():
+            raise UnsupportedError(
+                "NumPy input computes on the GPU by default and no GPU is "
+                'available; pass device="cpu" to compute on the CPU'
+            )
+        return torch.device("cuda")
     device = torch.device(device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise UnsupportedError(f"device {device} requested but no GPU is available")
@@ -242,7 +250,6 @@ def compute(
             'accuracy="relaxed" contradicts precision="f64" — pick one tier'
         )
     impl = select_impl(impl)
-    dev = resolve_device(device, a, b)
     if precision == "f64":
         impl = Implementation.REFERENCE
 
@@ -262,6 +269,7 @@ def compute(
             return np.float64(g), m
         return np.asarray(g, dtype=np.float64), m
 
+    dev = resolve_device(device, a, b)
     a = _as_tensor(a, dev)
     b = _as_tensor(b, dev)
     if downsample > 1:

@@ -1,12 +1,14 @@
-"""Numeric paths: the plain PyTorch path and the fused CUDA kernel.
+"""Numeric paths: the plain PyTorch path and the fused CUDA kernels
+(forward and backward).
 
-Counterpart of `ssim_tpu/ops/`. The CUDA kernel is built from
+Counterpart of `ssim_tpu/ops/`. The CUDA kernels are built from
 `ssim_tpu_torch/csrc/` at first launch, never at import.
 """
 
 from .ssim_torch import ssim_parts_torch, blur_separable
 from .ssim_cuda import ssim_parts_cuda, ssim_parts_plain
 from .routing import ssim_parts_auto, pallas_routable
+from .ssim_grad import grad_cuda_supported, ssim_grad_cuda, ssim_grad_plain
 
 __all__ = [
     "ssim_parts_torch",
@@ -15,4 +17,7 @@ __all__ = [
     "ssim_parts_plain",
     "ssim_parts_auto",
     "pallas_routable",
+    "grad_cuda_supported",
+    "ssim_grad_cuda",
+    "ssim_grad_plain",
 ]

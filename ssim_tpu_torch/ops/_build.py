@@ -3,8 +3,9 @@ library, bound with ctypes).
 
 No counterpart in the JAX package: there Mosaic compiles the Pallas
 kernels at trace time. Here `nvcc` compiles `ssim_tpu_torch/csrc/*.cu`
-for `sm_90a` at first use, into `ssim_tpu_torch/_build/`, keyed by a hash
-of the sources and flags, so an edited source is rebuilt and an
+for `sm_90a` at first use, one process per source, all started together,
+and links them into one library in `ssim_tpu_torch/_build/`, keyed by a
+hash of the sources and flags, so an edited source is rebuilt and an
 unchanged one is loaded as it is. Nothing runs at import time: this
 module is imported on machines without `nvcc` or a GPU, and only
 `load_library` needs them.
@@ -27,9 +28,9 @@ BUILD_DIR = os.path.join(_PKG_DIR, "_build")
 #: plain twin's PyTorch operations round them, so the kernel's per-pixel
 #: values can be held against the twin's bit for bit (built both ways, the
 #: kernel ran no faster with fused multiply-adds on an H100).
-NVCC_FLAGS = (
-    "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "--fmad=false", "-shared", "-Xcompiler", "-fPIC",
+ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
+NVCC_FLAGS = ARCH_FLAGS + (
+    "-std=c++17", "-O3", "--fmad=false", "-Xcompiler", "-fPIC",
     "-Xptxas", "-v",
 )
 
@@ -77,6 +78,20 @@ def library_path() -> str:
     return os.path.join(BUILD_DIR, f"libssim_kernels_{_digest()}.so")
 
 
+def _run_all(cmds):
+    """Run the commands in parallel; raise with the output of the first
+    that fails; return their outputs joined."""
+    procs = [subprocess.Popen(c, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                              text=True) for c in cmds]
+    outs = [p.communicate()[0] for p in procs]
+    for cmd, proc, text in zip(cmds, procs, outs):
+        if proc.returncode != 0:
+            raise RuntimeError(
+                f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}\n{text}"
+            )
+    return "".join(outs)
+
+
 def build() -> str:
     """Compile the sources unless this digest is already built; returns
     the library's path. The compiler's output (ptxas register and
@@ -84,22 +99,20 @@ def build() -> str:
     out = library_path()
     if os.path.isfile(out):
         return out
+    nvcc = find_nvcc()
     os.makedirs(BUILD_DIR, exist_ok=True)
-    # Build under a temporary name and rename: concurrent builders never
-    # load a half-written library.
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    cmd = [find_nvcc(), *NVCC_FLAGS, "-o", tmp, *sources()]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        os.unlink(tmp)
-        raise RuntimeError(
-            f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}\n"
-            f"{proc.stdout}{proc.stderr}"
-        )
-    with open(out + ".log", "w") as f:
-        f.write(proc.stdout + proc.stderr)
-    os.replace(tmp, out)
+    # Objects go to a private directory and the library is linked there
+    # and renamed: concurrent builds never load a half-written library.
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as work:
+        objs = [os.path.join(work, os.path.basename(src) + ".o")
+                for src in sources()]
+        log = _run_all([[nvcc, *NVCC_FLAGS, "-c", "-o", obj, src]
+                        for src, obj in zip(sources(), objs)])
+        tmp = os.path.join(work, "lib.so")
+        log += _run_all([[nvcc, *ARCH_FLAGS, "-shared", "-o", tmp, *objs]])
+        with open(out + ".log", "w") as f:
+            f.write(log)
+        os.replace(tmp, out)
     return out
 
 
@@ -115,5 +128,9 @@ def load_library() -> ctypes.CDLL:
                 i, p, p, p, p, i, i, i, i, i, i, p, f, f, f, p,
             ]
             lib.ssim_fwd_launch.restype = i
+            lib.ssim_bwd_launch.argtypes = [
+                p, p, p, p, p, p, p, i, i, i, i, i, i, p, p, f, f, f, p,
+            ]
+            lib.ssim_bwd_launch.restype = i
             _lib = lib
         return _lib

@@ -67,6 +67,48 @@ def _tile_reduce(x: torch.Tensor, tile_h: int, tile_w: int, op) -> torch.Tensor:
     return op(x.reshape(bsz, nty, tile_h, ntx, tile_w))
 
 
+def sym_blur(x: torch.Tensor, t, dim: int, n: int) -> torch.Tensor:
+    """Symmetric tap pairs along `dim`, smallest taps first, as the
+    kernels add them: output k reads input k .. k + 2r (n outputs)."""
+    r = len(t) // 2
+    acc = None
+    for d in range(r, 0, -1):
+        term = t[r - d] * (x.narrow(dim, r - d, n) + x.narrow(dim, r + d, n))
+        acc = term if acc is None else acc + term
+    return acc + t[r] * x.narrow(dim, r, n)
+
+
+def hpass4(ap: torch.Tensor, bp: torch.Tensor, t, n: int):
+    """The kernels' horizontal pass of the four signals a, b, (a+b)^2 and
+    (a-b)^2 over inputs padded by r columns: n output columns each, in
+    the kernels' order of operations."""
+    r = len(t) // 2
+
+    def cols(x, k):
+        return x[..., k : k + n]
+
+    ma = mb = ss = dd = None
+    for d in range(r, 0, -1):
+        tk = t[r - d]
+        al, ah = cols(ap, r - d), cols(ap, r + d)
+        bl, bh = cols(bp, r - d), cols(bp, r + d)
+        sl, sh, dl, dh = al + bl, ah + bh, al - bl, ah - bh
+        terms = (
+            tk * (al + ah), tk * (bl + bh),
+            tk * (sl * sl + sh * sh), tk * (dl * dl + dh * dh),
+        )
+        if ma is None:
+            ma, mb, ss, dd = terms
+        else:
+            ma, mb, ss, dd = (x + y for x, y in zip((ma, mb, ss, dd), terms))
+    ac, bc = cols(ap, r), cols(bp, r)
+    sc, dc = ac + bc, ac - bc
+    return (
+        ma + t[r] * ac, mb + t[r] * bc,
+        ss + t[r] * (sc * sc), dd + t[r] * (dc * dc),
+    )
+
+
 def ssim_parts_plain(
     a: torch.Tensor,
     b: torch.Tensor,
@@ -91,43 +133,9 @@ def ssim_parts_plain(
         bad = ~(torch.isfinite(af) & torch.isfinite(bf))
         af = torch.nan_to_num(af, nan=0.0).clamp(-clip_bound, clip_bound)
         bf = torch.nan_to_num(bf, nan=0.0).clamp(-clip_bound, clip_bound)
-    ap = _pad_edge(af, r)
-    bp = _pad_edge(bf, r)
-
-    # Horizontal pass over all H + 2r rows, four signals at once.
-    def cols(x, k):
-        return x[..., k : k + w]
-
-    ma = mb = ss = dd = None
-    for d in range(r, 0, -1):
-        tk = t[r - d]
-        al, ah = cols(ap, r - d), cols(ap, r + d)
-        bl, bh = cols(bp, r - d), cols(bp, r + d)
-        sl, sh, dl, dh = al + bl, ah + bh, al - bl, ah - bh
-        terms = (
-            tk * (al + ah), tk * (bl + bh),
-            tk * (sl * sl + sh * sh), tk * (dl * dl + dh * dh),
-        )
-        if ma is None:
-            ma, mb, ss, dd = terms
-        else:
-            ma, mb, ss, dd = (x + y for x, y in zip((ma, mb, ss, dd), terms))
-    ac, bc = cols(ap, r), cols(bp, r)
-    sc, dc = ac + bc, ac - bc
-    planes = (
-        ma + t[r] * ac, mb + t[r] * bc,
-        ss + t[r] * (sc * sc), dd + t[r] * (dc * dc),
-    )
-
-    # Vertical pass.
-    def vpass(p):
-        acc = None
-        for d in range(r, 0, -1):
-            term = t[r - d] * (p[:, r - d : r - d + h] + p[:, r + d : r + d + h])
-            acc = term if acc is None else acc + term
-        return acc + t[r] * p[:, r : r + h]
-
-    mu_a, mu_b, s_ss, s_dd = (vpass(p) for p in planes)
+    # Horizontal pass over all H + 2r rows, then the vertical pass.
+    planes = hpass4(_pad_edge(af, r), _pad_edge(bf, r), t, w)
+    mu_a, mu_b, s_ss, s_dd = (sym_blur(p, t, 1, h) for p in planes)
     mu_a2 = mu_a * mu_a
     mu_b2 = mu_b * mu_b
     mu_ab = mu_a * mu_b

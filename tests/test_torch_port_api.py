@@ -1,7 +1,8 @@
 """The port's slice as a whole: ssim_tpu_torch's eager API against
-ssim_tpu's with impl="xla", on the same NumPy inputs. On the CPU the
-port's default route is the fused kernel's plain twin. Tolerances:
-tests/torch_port_util.py."""
+ssim_tpu's with impl="xla", on the same NumPy inputs. NumPy input computes
+on the GPU unless the caller asks for the CPU, so every call here passes
+device="cpu"; there the port's default route is the fused kernel's plain
+twin. Tolerances: tests/torch_port_util.py."""
 
 import errno
 
@@ -21,7 +22,7 @@ from ssim_tpu_torch.errors import InvalidArgumentError, UnsupportedError
 
 
 def _both(fn_name, *args, **kw):
-    got = getattr(ssim_tpu_torch, fn_name)(*args, **kw)
+    got = getattr(ssim_tpu_torch, fn_name)(*args, device="cpu", **kw)
     want = getattr(ssim_tpu, fn_name)(*args, impl="xla", **kw)
     return got, want
 
@@ -67,9 +68,10 @@ def test_compute_ssim_legacy_matches_jax(rng):
     got, want = _both("compute_ssim_legacy", a, b)
     assert type(got) is float
     assert_close(got, want, a.size)
-    bad = ssim_tpu_torch.compute_ssim_legacy(a, b[:-1])
+    bad = ssim_tpu_torch.compute_ssim_legacy(a, b[:-1], device="cpu")
     assert bad == ssim_tpu.compute_ssim_legacy(a, b[:-1]) == -float(errno.EINVAL)
-    assert ssim_tpu_torch.compute_ssim_legacy(a, b, impl="host") == -float(errno.ENOSYS)
+    assert ssim_tpu_torch.compute_ssim_legacy(
+        a, b, impl="host", device="cpu") == -float(errno.ENOSYS)
 
 
 @pytest.mark.parametrize(
@@ -107,7 +109,7 @@ def test_invalid_arguments_raise_einval_like_jax(args, kw):
     }
     x, y = pairs[args]
     with pytest.raises(InvalidArgumentError) as got:
-        ssim_tpu_torch.compute_ssim(x, y, **kw)
+        ssim_tpu_torch.compute_ssim(x, y, device="cpu", **kw)
     with pytest.raises(ssim_tpu.InvalidArgumentError) as want:
         ssim_tpu.compute_ssim(x, y, impl="xla", **kw)
     assert got.value.errno == want.value.errno == errno.EINVAL
@@ -117,7 +119,7 @@ def test_unknown_and_unported_impls_raise_enosys(rng):
     a, b = random_pair(rng, 12, 12)
     for impl in ("xla", "pallas", "host", "avx512"):
         with pytest.raises(UnsupportedError) as e:
-            ssim_tpu_torch.compute_ssim(a, b, impl=impl)
+            ssim_tpu_torch.compute_ssim(a, b, impl=impl, device="cpu")
         assert e.value.errno == errno.ENOSYS
 
 
@@ -162,7 +164,8 @@ def test_params_input_and_map_buffer(rng):
     pj = ssim_tpu.Params(ssim_tpu.ImageView.from_gray(a),
                          ssim_tpu.ImageView.from_gray(b), with_map=True,
                          implementation="xla", map_buffer=buf_j, map_step=2)
-    (g, m), (gj, mj) = ssim_tpu_torch.compute_ssim(pt), ssim_tpu.compute_ssim(pj)
+    g, m = ssim_tpu_torch.compute_ssim(pt, device="cpu")
+    gj, mj = ssim_tpu.compute_ssim(pj)
     assert_close(g, gj, a.size, m, mj)
     assert np.abs(buf_t - buf_j).max() <= 1e-5
 
@@ -170,7 +173,8 @@ def test_params_input_and_map_buffer(rng):
 @pytest.mark.parametrize("impl", ["cuda", "torch", "reference", "auto"])
 def test_every_impl_agrees_with_oracle(rng, impl):
     a, b = random_pair(rng, 37, 53)
-    g, m = ssim_tpu_torch.compute_ssim(a, b, with_map=True, impl=impl)
+    g, m = ssim_tpu_torch.compute_ssim(a, b, with_map=True, impl=impl,
+                                       device="cpu")
     want, want_map = ssim_tpu_torch.reference.compute_ssim(a, b, with_map=True)
     assert_close(g, want, a.size, m, want_map, base=ORACLE_GLOBAL,
                  pixel=ORACLE_PIXEL)
@@ -179,9 +183,9 @@ def test_every_impl_agrees_with_oracle(rng, impl):
 def test_precision_f64_and_relaxed_interim_routes(rng):
     a, b = random_pair(rng, 37, 53)
     want, _ = ssim_tpu_torch.reference.compute_ssim(a, b)
-    assert ssim_tpu_torch.compute_ssim(a, b, precision="f64") == want
-    std = ssim_tpu_torch.compute_ssim(a, b)
-    assert ssim_tpu_torch.compute_ssim(a, b, accuracy="relaxed") == std
+    assert ssim_tpu_torch.compute_ssim(a, b, precision="f64", device="cpu") == want
+    std = ssim_tpu_torch.compute_ssim(a, b, device="cpu")
+    assert ssim_tpu_torch.compute_ssim(a, b, accuracy="relaxed", device="cpu") == std
 
 
 def test_large_radius_takes_torch_path(rng):
@@ -192,7 +196,7 @@ def test_large_radius_takes_torch_path(rng):
 
 def test_tensor_inputs_match_numpy(rng):
     a, b = random_pair(rng, 40, 56)
-    want = ssim_tpu_torch.compute_ssim(a, b)
+    want = ssim_tpu_torch.compute_ssim(a, b, device="cpu")
     got = ssim_tpu_torch.compute_ssim(torch.from_numpy(a), torch.from_numpy(b))
     assert got == want
     got_bf = ssim_tpu_torch.compute_ssim(
@@ -200,13 +204,26 @@ def test_tensor_inputs_match_numpy(rng):
     assert_close(got_bf, want, a.size)
 
 
-def test_device_resolution():
+def test_device_resolution(monkeypatch):
+    """A tensor keeps its own device; NumPy input with no `device` goes to
+    cuda, and on a machine without a GPU raises rather than falling back
+    to the CPU. The GPU's presence is pinned both ways."""
     a = np.zeros((4, 4), np.uint8)
     t = torch.zeros((4, 4), dtype=torch.uint8)
     assert engine.resolve_device(None, t, t) == t.device
+    assert engine.resolve_device(None, a, t) == t.device
     assert engine.resolve_device("cpu", a, a) == torch.device("cpu")
-    want = "cuda" if torch.cuda.is_available() else "cpu"
-    assert engine.resolve_device(None, a, a).type == want
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    assert engine.resolve_device(None, a, a) == torch.device("cuda")
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(UnsupportedError, match='device="cpu"'):
+        engine.resolve_device(None, a, a)
+    for fn in (ssim_tpu_torch.compute_ssim, ssim_tpu_torch.ssim,
+               ssim_tpu_torch.ssim_loss):
+        with pytest.raises(UnsupportedError):
+            fn(a, a)
+    # The host oracle needs no device.
+    assert ssim_tpu_torch.compute_ssim(a, a, impl="reference") == 1.0
 
 
 def test_explicit_cuda_without_gpu_raises():

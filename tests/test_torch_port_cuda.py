@@ -1,4 +1,5 @@
-"""The fused CUDA kernel against its plain twin, on the card.
+"""The fused CUDA kernels (forward and backward) against their plain
+twins, on the card, and the training path's launches.
 
 Marked `cuda`: it skips without a CUDA device (here, on the CPU). This
 file imports neither JAX nor the repo's conftest, so it also runs on a
@@ -8,14 +9,17 @@ GPU machine that has no JAX:
 
 Tolerances (the port-against-counterpart tier of torch_port_util.py):
 2e-7 global, never tighter than 2e-5 / sqrt(npix), and 1e-5 per pixel,
-5e-5 at radius 1.
+5e-5 at radius 1. The backward kernel against its twin: 1e-6 * max(1,
+max|g|); both are built to round alike, so they are expected to agree
+exactly.
 """
 
 import numpy as np
 import pytest
 import torch
 
-from ssim_tpu_torch.ops import ssim_cuda
+import ssim_tpu_torch
+from ssim_tpu_torch.ops import ssim_cuda, ssim_grad
 from ssim_tpu_torch.windows import gaussian_taps
 
 
@@ -58,3 +62,51 @@ def test_kernel_matches_twin_on_card(shape, window):
     assert np.abs(gk - gp).max() <= max(2e-7, 2e-5 / npix**0.5)
     pixel = 5e-5 if window["radius"] == 1 else 1e-5
     assert (mk - mp).abs().max().item() <= pixel
+
+
+def _need_card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device and nvcc (run on the GPU machine)")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("with_g", [False, True])
+def test_backward_kernel_matches_twin_on_card(with_g):
+    _need_card()
+    rng = np.random.default_rng(0x56)
+    shape = (2, 257, 65)
+    a = rng.random(shape, dtype=np.float32)
+    b = np.clip(a + rng.normal(0, 0.05, shape), 0, 1).astype(np.float32)
+    at, bt = torch.from_numpy(a).cuda(), torch.from_numpy(b).cuda()
+    ws = torch.tensor([0.7, -0.3], device="cuda")
+    wcs = torch.tensor([0.1, 0.25], device="cuda")
+    g = torch.from_numpy(rng.normal(0, 1, shape).astype(np.float32)).cuda() if with_g else None
+    before = ssim_grad.LAUNCHES
+    da, db = ssim_grad.ssim_grad_cuda(at, bt, ws, wcs, g, data_range=1.0)
+    torch.cuda.synchronize()
+    assert ssim_grad.LAUNCHES == before + 1
+    tile = ssim_grad.default_tile(5)
+    pa, pb = ssim_grad.ssim_grad_plain(
+        at, bt, ws, wcs, g, taps=gaussian_taps(np.float32, 5, 1.5),
+        c1=1e-4, c2=9e-4, clip_bound=131072.0, tile_h=tile[0], tile_w=tile[1],
+    )
+    tol = 1e-6 * max(1.0, pa.abs().max().item())
+    assert (da - pa).abs().max().item() <= tol
+    assert (db - pb).abs().max().item() <= tol
+
+
+@pytest.mark.cuda
+def test_ssim_loss_backward_launches_the_kernel():
+    _need_card()
+    rng = np.random.default_rng(0x57)
+    a = torch.from_numpy(rng.random((2, 96, 130), dtype=np.float32)).cuda()
+    x = torch.from_numpy(rng.random((2, 96, 130), dtype=np.float32)).cuda()
+    x.requires_grad_()
+    fwd, bwd = ssim_cuda.LAUNCHES, ssim_grad.LAUNCHES
+    ssim_tpu_torch.ssim_loss(x, a).backward()
+    torch.cuda.synchronize()
+    assert ssim_cuda.LAUNCHES == fwd + 1 and ssim_grad.LAUNCHES == bwd + 1
+    assert x.grad.is_cuda and torch.isfinite(x.grad).all()
+    y = x.detach().cpu().requires_grad_()
+    ssim_tpu_torch.ssim_loss(y, a.cpu()).backward()
+    assert (x.grad.cpu() - y.grad).abs().max().item() <= 1e-6
