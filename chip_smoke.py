@@ -27,7 +27,8 @@ Phases, each of which raises on failure (the script then exits non-zero):
    exactly five times) and one `ssim_and_map` step with a map cotangent
    at 4K (it must launch the backward kernel with g_map); then times the
    backward kernel and its twin with CUDA events and a whole training
-   step with the host clock.
+   step with the host clock, and traces five steps with torch.profiler
+   for the device's busy time per step.
 
 Prints the kernel records as one JSON line (with each kernel's roofline
 bound), the card's name and power limit, and last
@@ -67,16 +68,18 @@ SEED = 0x55
 # Roofline bound: the least time the card could take for the same work,
 # the larger of the bytes over 3.35 TB/s and the f32 operations over
 # 67 TFLOP/s (NVIDIA H100 SXM data sheet, at 700 W). Bytes: each input
-# read once, each output written once. Operations per output pixel,
-# counted from the sources at radius r (multiplies, adds, divisions;
-# compares and selects not counted):
-# - csrc/ssim_fwd.cu: horizontal pass 20r + 12 (per tap pair 4 for the
-#   sums and differences, 3 + 3 + 5 + 5 for the four signals; the centre
-#   tap 12), vertical pass 12r + 8, SSIM formula and tile sum 23:
-#   32r + 43;
-# - csrc/ssim_bwd.cu: stage 1a 20r + 12, stage 1b 12r + 8 plus 66 for
-#   the weight maps (one more with g_map), stage 2a 12r + 8, stage 2b
-#   12r + 8 plus 14 for da/db: 56r + 116.
+# read once, each output written once. Operations per output pixel that
+# the function needs at radius r (multiplies, adds, divisions; compares
+# and selects not counted; the product signals (a+b)^2 and (a-b)^2 formed
+# once per pixel, not once per tap pair as the kernels recompute them;
+# halo recompute not counted):
+# - forward (csrc/ssim_fwd.cu): the four signals 4, then horizontal pass
+#   12r + 8 (per tap pair and signal an add, a multiply and an
+#   accumulate; the centre tap 2 per signal), vertical pass 12r + 8,
+#   SSIM formula and tile sum 23: 24r + 43;
+# - backward (csrc/ssim_bwd.cu): forward blurs 24r + 20, 66 for the
+#   weight maps (one more with g_map), vertical and horizontal adjoints
+#   12r + 8 each, 14 for da/db: 48r + 116.
 HBM_BYTES_PER_S, F32_OPS_PER_S = 3.35e12, 67e12
 
 
@@ -91,14 +94,14 @@ def fwd_bound(shape, itemsize, radius=5):
     bsz, h, w = shape
     npix = bsz * h * w
     tiles = bsz * -(-h // 32) * -(-w // 64)
-    return bound_ms(2 * itemsize * npix + 4 * tiles, (32 * radius + 43) * npix)
+    return bound_ms(2 * itemsize * npix + 4 * tiles, (24 * radius + 43) * npix)
 
 
 def bwd_bound(shape, with_g, radius=5):
     bsz, h, w = shape
     npix = bsz * h * w
     return bound_ms((16 + 4 * with_g) * npix + 8 * bsz,
-                    (56 * radius + 116 + with_g) * npix)
+                    (48 * radius + 116 + with_g) * npix)
 
 
 def check(cond, msg):
@@ -212,23 +215,29 @@ def phase_kernel(gen):
 
 
 def cuda_ms(fn, reps):
-    """Median device time of fn() in ms over reps launches (CUDA events,
-    after two warm-up calls)."""
+    """Device time of one fn() call in ms: CUDA events around reps
+    back-to-back calls, so the host's launch work overlaps the device's
+    (events around a single call would also count the device idling while
+    the host launches); the median of three such runs, after two warm-up
+    calls."""
     fn()
     fn()
-    times = []
-    for _ in range(reps):
+    runs = []
+    for _ in range(3):
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
-        fn()
+        for _ in range(reps):
+            fn()
         end.record()
         end.synchronize()
-        times.append(start.elapsed_time(end))
-    return statistics.median(times)
+        runs.append(start.elapsed_time(end) / reps)
+    return statistics.median(runs)
 
 
-def host_ms(fn, reps):
+def host_times(fn, reps):
+    """Host-clock times of fn() in ms, each ending in a synchronize
+    (after one warm-up call)."""
     fn()
     times = []
     for _ in range(reps):
@@ -237,7 +246,48 @@ def host_ms(fn, reps):
         fn()
         torch.cuda.synchronize()
         times.append((time.perf_counter() - t0) * 1e3)
-    return statistics.median(times)
+    return times
+
+
+def host_ms(fn, reps):
+    return statistics.median(host_times(fn, reps))
+
+
+def device_trace(fn, reps):
+    """One torch.profiler trace of reps calls of fn(). Returns the device's
+    busy ms per call (the union of its kernel and copy intervals), the
+    traced window's host-clock ms per call, the device operations per
+    call, and the ms per call of each operation name, largest first; the
+    busy time is None when the trace holds no device activity."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+        window = (time.perf_counter() - t0) * 1e3 / reps
+    spans, by_name = [], {}
+    for e in prof.events():
+        # Ranges that annotate the device timeline (Optimizer.step) span
+        # kernels listed on their own, and the gaps between them.
+        if (e.device_type != torch.autograd.DeviceType.CUDA
+                or getattr(e, "is_user_annotation", False)):
+            continue
+        spans.append((e.time_range.start, e.time_range.end))
+        us = e.time_range.end - e.time_range.start
+        by_name[e.name] = by_name.get(e.name, 0.0) + us / 1e3 / reps
+    if not spans:
+        return None, window, 0, []
+    busy_us, end = 0.0, float("-inf")
+    for start, stop in sorted(spans):
+        if stop > end:
+            busy_us += stop - max(start, end)
+            end = stop
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])
+    return busy_us / 1e3 / reps, window, len(spans) / reps, top
 
 
 MAIN_CONFIGS = [("1080p_b4", (4, 1080, 1920)), ("4k_b4", (4, 2160, 3840)),
@@ -303,8 +353,10 @@ def phase_main(gen, label):
         t_plain = min(t_plain_a, t_plain_b)
         e2e = host_ms(lambda: ssim_tpu_torch.compute_ssim(a, b), 10)
         e2e_map = host_ms(lambda: ssim_tpu_torch.compute_ssim_map(a, b), 5)
+        bnd, by = fwd_bound(shape, 1)
         rec = dict(
             shape=list(shape), kernel_ms=t_k, kernel_map_ms=t_km,
+            bound_ms=bnd, bound_by=by,
             plain_ms=t_plain, plain_ms_runs=[t_plain_a, t_plain_b],
             kernel_mpix_s=mpix / t_k * 1e3, kernel_map_mpix_s=mpix / t_km * 1e3,
             plain_mpix_s=mpix / t_plain * 1e3,
@@ -319,7 +371,8 @@ def phase_main(gen, label):
               f"Mpix/s), plain twin {t_plain:.4f} ms ({rec['plain_mpix_s']:.1f} "
               f"Mpix/s); compute_ssim {e2e:.3f} ms ({rec['compute_ssim_mpix_s']:.1f} "
               f"Mpix/s), compute_ssim_map {e2e_map:.3f} ms "
-              f"({rec['compute_ssim_map_mpix_s']:.1f} Mpix/s) | {label}", flush=True)
+              f"({rec['compute_ssim_map_mpix_s']:.1f} Mpix/s); bound {bnd:.4f} ms "
+              f"({by}) | {label}", flush=True)
         del inputs[name]
         torch.cuda.empty_cache()
     return launches, records
@@ -329,12 +382,11 @@ def grad_twin(a, b, w_s, w_cs, g_map, data_range=1.0, radius=5, sigma=1.5,
               k1=0.01, k2=0.03):
     from ssim_tpu_torch.ops import ssim_grad
 
-    tile_h, tile_w = ssim_grad.default_tile(radius)
     return ssim_grad.ssim_grad_plain(
         a, b, w_s, w_cs, g_map,
         taps=ssim_grad.gaussian_taps(np.float32, radius, sigma),
         c1=float((k1 * data_range) ** 2), c2=float((k2 * data_range) ** 2),
-        clip_bound=max(131072.0, 4.0 * data_range), tile_h=tile_h, tile_w=tile_w,
+        clip_bound=max(131072.0, 4.0 * data_range),
     )
 
 
@@ -514,7 +566,8 @@ def phase_train(gen, label):
               f"({by}), {bnd_g:.4f} ms with g_map | {label}", flush=True)
         del a, b, g
         torch.cuda.empty_cache()
-    t_step = host_ms(step, 10)
+    steps = host_times(step, 10)
+    t_step = statistics.median(steps)
     # The step's parts on the device: the forward kernel on the f32 pair,
     # and one Adam update (the backward kernel is timed above).
     x_now = x.detach()
@@ -522,12 +575,26 @@ def phase_train(gen, label):
         x_now, clean, allow_float=True, data_range=1.0), 20)
     t_adam = cuda_ms(opt.step, 20)
     mpix = shape[0] * shape[1] * shape[2] / 1e6
-    records["train_step"] = dict(shape=list(shape), step_ms=t_step,
-                                 fwd_kernel_ms=t_fwd, adam_ms=t_adam)
     print(f"  training step (ssim_loss forward + backward + Adam) {shape}: "
-          f"{t_step:.3f} ms ({mpix / t_step * 1e3:.1f} Mpix/s); forward kernel "
-          f"on f32 {t_fwd:.4f} ms, Adam update {t_adam:.4f} ms | {label}",
-          flush=True)
+          f"{t_step:.3f} ms median of 10 ({min(steps):.3f}-{max(steps):.3f}; "
+          f"{mpix / t_step * 1e3:.1f} Mpix/s); forward kernel on f32 "
+          f"{t_fwd:.4f} ms, Adam update {t_adam:.4f} ms | {label}", flush=True)
+    # One profiler trace of five steps: the device's busy time per step.
+    busy, window, n_ops, top = device_trace(step, 5)
+    if busy is None:
+        print("  trace: the profiler recorded no device activity", flush=True)
+    else:
+        print(f"  trace of 5 steps: device busy {busy:.4f} ms per step, "
+              f"{busy / t_step:.1%} of the untraced step, {busy / window:.1%} "
+              f"of the traced window ({window:.3f} ms per step); "
+              f"{n_ops:.0f} device operations per step", flush=True)
+        for name, ms in top[:8]:
+            print(f"    {ms:.4f} ms  {name[:90]}", flush=True)
+    records["train_step"] = dict(
+        shape=list(shape), step_ms=t_step, step_ms_runs=steps,
+        fwd_kernel_ms=t_fwd, adam_ms=t_adam, trace_busy_ms=busy,
+        trace_window_ms=window, trace_ops_per_step=n_ops,
+        trace_top=top[:8])
     return fwd_launches, bwd_launches, max_err, records
 
 
@@ -564,7 +631,6 @@ def main():
     check("jax" not in sys.modules, "JAX was imported")
 
     ref = records["4k_b4"]
-    fwd_b, fwd_by = fwd_bound(tuple(ref["shape"]), 1)
     bwd = train["grad_1080_b4"]
     print(json.dumps({"kernels": [{
         "name": "ssim_fwd",
@@ -576,8 +642,8 @@ def main():
         "max_abs_err": max_err,
         "ms": ref["kernel_ms"],
         "plain_ms": ref["plain_ms"],
-        "bound_ms": fwd_b,
-        "bound_by": fwd_by,
+        "bound_ms": ref["bound_ms"],
+        "bound_by": ref["bound_by"],
         "library_ms": None,
         "shape": ref["shape"],
     }, {

@@ -15,11 +15,15 @@
 // TH x TW output tiles (batch folded into blockIdx.x) covers every width.
 //
 // What bounds it on this card: per output pixel it reads 8 bytes (a, b),
-// writes 8 (da, db) and reads 4 more with g_map, while it does
-// 56r + 116 f32 operations (396 at radius 5, one more with g_map; counted
-// stage by stage in chip_smoke.py) before any halo recompute. At
-// 67 TFLOP/s against 3.35 TB/s the operations bound it, slightly (0.049
-// against 0.040 ms at 4 x 1080 x 1920). In practice the bound is on chip:
+// writes 8 (da, db) and reads 4 more with g_map, while the function needs
+// 48r + 116 f32 operations (356 at radius 5, one more with g_map; counted
+// stage by stage in chip_smoke.py, with the product signals formed once
+// per pixel and no halo recompute). At 67 TFLOP/s against 3.35 TB/s the
+// two bounds nearly meet (0.044 ms of operations against 0.040 ms of
+// bytes at 4 x 1080 x 1920; with g_map the bytes bound it, 0.050 ms). This
+// kernel does more: it forms (a+b)^2 and (a-b)^2 again for every tap pair
+// (20r + 12 in its horizontal pass, not 12r + 12) and recomputes the
+// stage-1 halo of each tile. In practice the bound is on chip:
 // each stage streams its four planes through shared memory (~220 32-bit
 // accesses per output pixel at radius 5, counting the halo recompute), the
 // runtime-radius loops cost instruction slots, and a block holds ~111 KB

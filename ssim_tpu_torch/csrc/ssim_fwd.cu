@@ -8,10 +8,11 @@
 // of output tiles covers every width.
 //
 // What bounds it on this card: per output pixel it reads 2 input values
-// (u8 or f32) and writes at most one f32 map value, while it does about
-// 4 signals x 2 passes x (3r + 1) f32 operations plus the formula (~150
-// at radius 5). Device memory (3.35 TB/s) would allow ~1 Tpix/s for u8
-// without a map, so the kernel is bound on chip, not by HBM: by the
+// (u8 or f32) and writes at most one f32 map value, while the function
+// needs 24r + 43 f32 operations (163 at radius 5: 4 signals x 2 passes x
+// (3r + 2), the signals and the formula; counted in chip_smoke.py).
+// Device memory (3.35 TB/s) would allow ~1 Tpix/s for u8 without a map
+// and the f32 peak ~410 Gpix/s, so the kernel is bound on chip: by the
 // blurs' shared-memory traffic (~80 32-bit accesses per output pixel at
 // radius 5) and instruction issue. It measured 30-39 Gpix/s on an H100,
 // the same with and without FMA contraction, and the same with the L2

@@ -147,13 +147,12 @@ def ssim_grad_plain(
     c1: float,
     c2: float,
     clip_bound: float,
-    tile_h: int,
-    tile_w: int,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """The kernel's plain twin on (B, H, W) f32 tensors, on any device.
     w_s, w_cs: (B,) f32; g_map: (B, H, W) f32 or None. Returns (da, db)."""
     bsz, h, w = a.shape
     r = len(taps) // 2
+    tile_h, tile_w = default_tile(r)
     t = [float(v) for v in taps]
     cl = [float(v) for v in fold_coefficients(taps)]
     bad = ~(torch.isfinite(a) & torch.isfinite(b))
@@ -199,20 +198,22 @@ def ssim_grad_plain(
     return torch.where(px_bad, nan, da), torch.where(px_bad, nan, db)
 
 
-def _launch(a, b, w_s, w_cs, g_map, *, taps, c1, c2, clip_bound, tile_h, tile_w):
+def _launch(a, b, w_s, w_cs, g_map, *, taps, c1, c2, clip_bound):
     """Launch the CUDA kernel on (B, H, W) contiguous f32 tensors on one
-    CUDA device; no synchronisation."""
+    CUDA device, with the tile default_tile(radius); no synchronisation."""
     global LAUNCHES
     from . import _build
 
     lib = _build.load_library()
     bsz, h, w = a.shape
+    r = len(taps) // 2
+    tile_h, tile_w = default_tile(r)
+    assert smem_bytes(tile_h, tile_w, r) <= _MAX_DYNAMIC_SMEM
     nty, ntx = -(-h // tile_h), -(-w // tile_w)
     if bsz * nty * ntx > 0x7FFFFFFF:
         raise ValueError(f"{bsz * nty * ntx} tiles exceed one launch's grid")
     da = torch.empty_like(a)
     db = torch.empty_like(a)
-    r = len(taps) // 2
     taps_c = (ctypes.c_float * len(taps))(*[float(v) for v in taps])
     fold_c = (ctypes.c_float * r)(*[float(v) for v in fold_coefficients(taps)])
     with torch.cuda.device(a.device):
@@ -253,8 +254,6 @@ def ssim_grad_cuda(
     sigma: float = SIGMA,
     k1: float = 0.01,
     k2: float = 0.03,
-    tile_h: Optional[int] = None,
-    tile_w: Optional[int] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Fused-kernel SSIM gradients: (dL/da, dL/db) for
     L = sum_p (w_s + g_map(p)) * SSIM(p) + w_cs * sum_p cs(p), per image.
@@ -263,8 +262,9 @@ def ssim_grad_cuda(
     w_s, w_cs: scalars or (B,) per-image weights (fold any 1/n in); g_map:
     optional per-pixel cotangent of the SSIM map, a's shape. The image must
     satisfy grad_cuda_supported. On a CUDA tensor the kernel is launched;
-    on a CPU tensor the plain twin runs. tile_h / tile_w pin the tile
-    (default: default_tile(radius)).
+    on a CPU tensor the plain twin runs. Both use the tile
+    default_tile(radius), which also sets how far a non-finite pixel
+    poisons the gradients.
     """
     if a.dtype != torch.float32 or b.dtype != torch.float32:
         raise ValueError(
@@ -295,17 +295,6 @@ def ssim_grad_cuda(
             f"k1/k2 too small for data_range {data_range}: c1*c2 = "
             f"{c1 * c2:g} degenerates in f32 (needs >= 9e-32)"
         )
-    th, tw = default_tile(radius)
-    tile_h = th if tile_h is None else int(tile_h)
-    tile_w = tw if tile_w is None else int(tile_w)
-    if tile_h < 1 or tile_w < 1:
-        raise ValueError(f"tile {tile_h}x{tile_w}: both sides must be >= 1")
-    if smem_bytes(tile_h, tile_w, radius) > _MAX_DYNAMIC_SMEM:
-        raise ValueError(
-            f"tile {tile_h}x{tile_w} at radius {radius} needs "
-            f"{smem_bytes(tile_h, tile_w, radius)} bytes of shared memory "
-            f"(at most {_MAX_DYNAMIC_SMEM})"
-        )
     devices = {a.device, b.device} | ({g_map.device} if g_map is not None else set())
     if len(devices) != 1:
         raise ValueError(f"inputs on different devices: {sorted(map(str, devices))}")
@@ -320,8 +309,7 @@ def ssim_grad_cuda(
     ws = _per_image(w_s, bsz, a.device, "w_s")
     wcs = _per_image(w_cs, bsz, a.device, "w_cs")
     kw = dict(taps=taps, c1=c1, c2=c2,
-              clip_bound=max(131072.0, 4.0 * float(data_range)),
-              tile_h=tile_h, tile_w=tile_w)
+              clip_bound=max(131072.0, 4.0 * float(data_range)))
     if a.device.type == "cuda":
         da, db = _launch(a, b, ws, wcs, g_map, **kw)
     elif a.device.type == "cpu":

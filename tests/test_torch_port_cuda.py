@@ -85,10 +85,9 @@ def test_backward_kernel_matches_twin_on_card(with_g):
     da, db = ssim_grad.ssim_grad_cuda(at, bt, ws, wcs, g, data_range=1.0)
     torch.cuda.synchronize()
     assert ssim_grad.LAUNCHES == before + 1
-    tile = ssim_grad.default_tile(5)
     pa, pb = ssim_grad.ssim_grad_plain(
         at, bt, ws, wcs, g, taps=gaussian_taps(np.float32, 5, 1.5),
-        c1=1e-4, c2=9e-4, clip_bound=131072.0, tile_h=tile[0], tile_w=tile[1],
+        c1=1e-4, c2=9e-4, clip_bound=131072.0,
     )
     tol = 1e-6 * max(1.0, pa.abs().max().item())
     assert (da - pa).abs().max().item() <= tol

@@ -309,10 +309,17 @@ def test_argument_guards():
         ((f32[:, :4], f32[:, :4], 1.0, 0.0), {}),
         ((f32, f32, torch.ones(3), 0.0), {}),
         ((f32, f32, 1.0, 0.0), dict(data_range=1.0, k1=1e-9, k2=1e-9)),
-        ((f32, f32, 1.0, 0.0), dict(tile_h=0)),
-        ((f32, f32, 1.0, 0.0), dict(tile_h=256, tile_w=256)),
         ((torch.zeros((16, 64))[::2], f32, 1.0, 0.0), {}),
     ]
     for args, kw in cases:
         with pytest.raises(ValueError):
             ssim_grad_cuda(*args, **kw)
+
+
+@pytest.mark.parametrize("radius", [1, 5, 15, 16])
+def test_default_tile_fits_shared_memory(radius):
+    """The kernel's one tile per radius fits a block's shared memory: 32x64
+    up to radius 15, 16x64 at radius 16."""
+    tile_h, tile_w = ssim_grad.default_tile(radius)
+    assert (tile_h, tile_w) == ((16, 64) if radius == 16 else (32, 64))
+    assert ssim_grad.smem_bytes(tile_h, tile_w, radius) <= ssim_grad._MAX_DYNAMIC_SMEM
