@@ -28,7 +28,25 @@ Phases, each of which raises on failure (the script then exits non-zero):
    at 4K (it must launch the backward kernel with g_map); then times the
    backward kernel and its twin with CUDA events and a whole training
    step with the host clock, and traces five steps with torch.profiler
-   for the device's busy time per step.
+   for the device's busy time per step;
+6. MS-SSIM: the forward kernel's components and pooled-components modes
+   against their plain twins (pooled images bit for bit, and for uint8
+   equal to an exact 2x2 mean computed on the host; per-image [sum cs,
+   sum ssim] within the twin tolerance) at tiny and ragged, 1080p x4,
+   1x1024x20480, float-with-NaN (the NaN reaches only its own image and
+   pooled pixel) and custom sigma/k1/k2 shapes; one `compute_ms_ssim` on
+   NumPy uint8 (4, 1080, 1920) with no `device` (exactly 4 pooled and 1
+   components launch, no standard-mode launch, scores within 2e-5 of
+   `impl="torch"`), with every scale of its pyramid held against the
+   twins at its own shape; the gradient of 1 - `ms_ssim` at (4, 1080,
+   1920) f32 against autograd of `impl="torch"` (2e-5 of max|g|); five
+   Adam steps on 1 - `ms_ssim` there (the loss must fall; exactly 25
+   components and 25 backward launches), and the components mode against
+   its twin on the trained pair; then times each mode and its twin at the
+   pyramid's shapes with CUDA events, the whole `compute_ms_ssim` call
+   and a training step with the host clock, traces five steps, and times
+   `torch.nn.functional.pad(mode="replicate")`, the library call of the
+   unported pad kernel (K4), with the bounds of K4 and K5.
 
 Prints the kernel records as one JSON line (with each kernel's roofline
 bound), the card's name and power limit, and last
@@ -79,7 +97,20 @@ SEED = 0x55
 #   SSIM formula and tile sum 23: 24r + 43;
 # - backward (csrc/ssim_bwd.cu): forward blurs 24r + 20, 66 for the
 #   weight maps (one more with g_map), vertical and horizontal adjoints
-#   12r + 8 each, 14 for da/db: 48r + 116.
+#   12r + 8 each, 14 for da/db: 48r + 116;
+# - MS-SSIM components (the forward's kComponents mode): the forward's
+#   24r + 43 less the standard formula's two products num and den, which
+#   the function does not need, plus the second division, the l * cs
+#   product and the second tile sum (2): 24r + 45; two f32 partials per
+#   tile;
+# - pooled components (kPooled): 24r + 45, plus 2 operations per input
+#   pixel for the pool (3 adds and a multiply per 2x2 block of each of
+#   the two images) and 2 bytes written per input pixel (two f32 images
+#   of a quarter of the pixels): 24r + 47;
+# - K4, the unported pad kernel (ssim_tpu/ops/pad.py): bytes only, one
+#   read of (B, H, W) and one write of (B, hp, wp);
+# - K5, the unported small-image probe (tools/probe_bpack.py): the
+#   forward's 24r + 43 per pixel, u8 inputs, one f32 partial per image.
 HBM_BYTES_PER_S, F32_OPS_PER_S = 3.35e12, 67e12
 
 
@@ -102,6 +133,15 @@ def bwd_bound(shape, with_g, radius=5):
     npix = bsz * h * w
     return bound_ms((16 + 4 * with_g) * npix + 8 * bsz,
                     (48 * radius + 116 + with_g) * npix)
+
+
+def comp_bound(shape, itemsize, pooled, radius=5):
+    bsz, h, w = shape
+    npix = bsz * h * w
+    tiles = bsz * -(-h // 32) * -(-w // 64)
+    pooled_px = bsz * (h // 2) * (w // 2) if pooled else 0
+    return bound_ms(2 * itemsize * npix + 8 * tiles + 8 * pooled_px,
+                    (24 * radius + 45) * npix + 8 * pooled_px)
 
 
 def check(cond, msg):
@@ -288,6 +328,25 @@ def device_trace(fn, reps):
             end = stop
     top = sorted(by_name.items(), key=lambda kv: -kv[1])
     return busy_us / 1e3 / reps, window, len(spans) / reps, top
+
+
+def kernel_trace_ms(fn, reps, name):
+    """Device ms per fn() call of the kernels whose name holds `name`, from
+    one torch.profiler trace of reps calls: the kernel alone. Where a
+    launch is shorter than the wrapper's host work, events around
+    back-to-back calls (cuda_ms) measure the host instead. None when the
+    trace holds no such kernel."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    us = [e.time_range.end - e.time_range.start for e in prof.events()
+          if e.device_type == torch.autograd.DeviceType.CUDA and name in e.name]
+    return sum(us) / 1e3 / reps if us else None
 
 
 MAIN_CONFIGS = [("1080p_b4", (4, 1080, 1920)), ("4k_b4", (4, 2160, 3840)),
@@ -598,6 +657,270 @@ def phase_train(gen, label):
     return fwd_launches, bwd_launches, max_err, records
 
 
+def comp_twin(a, b, pooled, data_range=255.0, sigma=1.5, k1=0.01, k2=0.03):
+    """The plain twin of the pooled-components mode, (parts, pooled_a,
+    pooled_b), or of the components mode, parts."""
+    from ssim_tpu_torch.ops import ssim_cuda
+
+    fn = (ssim_cuda.ssim_components_pooled_plain if pooled
+          else ssim_cuda.ssim_components_plain)
+    return fn(
+        a, b, taps=ssim_cuda.gaussian_taps(np.float32, 5, sigma),
+        c1=float((k1 * data_range) ** 2), c2=float((k2 * data_range) ** 2),
+        clip_bound=max(131072.0, 4.0 * data_range),
+    )
+
+
+def same(x, y):
+    """Equal bit for bit, NaN where NaN."""
+    return torch.equal(x.isnan(), y.isnan()) and torch.equal(x.nan_to_num(), y.nan_to_num())
+
+
+def host_pool(x):
+    """The exact 2x2 mean of a (B, H, W) uint8 tensor, computed on the
+    host in integers (a sum of four u8 over 4 is exact in f32)."""
+    v = x.cpu().numpy().astype(np.int64)
+    h2, w2 = v.shape[1] // 2, v.shape[2] // 2
+    v = v[:, : 2 * h2, : 2 * w2]
+    s = v[:, 0::2, 0::2] + v[:, 1::2, 0::2] + v[:, 0::2, 1::2] + v[:, 1::2, 1::2]
+    return torch.from_numpy((s / 4.0).astype(np.float32))
+
+
+def compare_components(name, a, b, **kw):
+    """Both components modes and the twin on the same card tensors. Returns
+    the max abs error of the per-image [mean cs, mean ssim], the kernel's
+    means, and its pooled images."""
+    from ssim_tpu_torch.ops.ssim_cuda import (
+        ssim_components_cuda, ssim_components_pooled_cuda,
+    )
+
+    ck = ssim_components_cuda(a, b, **kw)
+    pk, pak, pbk = ssim_components_pooled_cuda(a, b, **kw)
+    torch.cuda.synchronize()
+    ct, pat, pbt = comp_twin(a, b, True, **kw)
+    check(same(ck, pk), f"{name}: the pooled mode's partials differ from the "
+          f"components mode's")
+    check(same(pak, pat) and same(pbk, pbt), f"{name}: pooled images differ from the twin's")
+    if a.dtype == torch.uint8:
+        check(torch.equal(pak.cpu(), host_pool(a)) and torch.equal(pbk.cpu(), host_pool(b)),
+              f"{name}: pooled images differ from the exact 2x2 mean")
+    npix = a.shape[-1] * a.shape[-2]
+    mk = ck.double().sum(-2).cpu().numpy() / npix
+    mt = ct.double().sum(-2).cpu().numpy() / npix
+    check(np.array_equal(np.isnan(mk), np.isnan(mt)), f"{name}: NaN means differ")
+    err = float(np.nanmax(np.abs(mk - mt), initial=0.0))
+    tol = max(TWIN_GLOBAL, 2 * TWIN_PIXEL / npix**0.5)
+    check(err <= tol, f"{name}: components kernel vs twin {err:.3g} (tol {tol:.3g})")
+    print(f"  {name}: [mean cs, mean ssim] kernel vs twin {err:.3g}; pooled images "
+          f"equal the twin's bit for bit" + (" and the exact mean" if a.dtype == torch.uint8
+                                            else ""), flush=True)
+    return err, mk, (pak, pbk)
+
+
+def launch_counts():
+    from ssim_tpu_torch.ops import ssim_cuda, ssim_grad
+
+    return dict(standard=ssim_cuda.LAUNCHES, components=ssim_cuda.COMPONENTS_LAUNCHES,
+                pooled=ssim_cuda.POOLED_LAUNCHES, backward=ssim_grad.LAUNCHES)
+
+
+def zero_counts():
+    from ssim_tpu_torch.ops import ssim_cuda, ssim_grad
+
+    ssim_cuda.LAUNCHES = ssim_cuda.COMPONENTS_LAUNCHES = ssim_cuda.POOLED_LAUNCHES = 0
+    ssim_grad.LAUNCHES = 0
+
+
+def phase_msssim(gen, label):
+    import ssim_tpu_torch
+    from ssim_tpu_torch.ops.ssim_cuda import (
+        ssim_components_cuda, ssim_components_pooled_cuda,
+    )
+
+    print("phase 6: MS-SSIM (components and pooled-components modes)", flush=True)
+    # (a) Both modes against their twins.
+    err = 0.0
+    for shape in [(1, 255, 63), (1, 257, 65), (2, 7, 9), (1, 1024, 20480)]:
+        a, b = pair(gen, shape)
+        e, _, _ = compare_components(f"u8 {shape}", a, b)
+        err = max(err, e)
+    wide = (a, b, 255.0)  # wider than K2's 16384 lanes
+    shape = (4, 1080, 1920)
+    a, b = pair(gen, shape)
+    e, _, (pa, pb) = compare_components(f"u8 {shape} (scale 0)", a, b)
+    e1, _, _ = compare_components(f"f32 {tuple(pa.shape)} (scale 1)", pa, pb)
+    err = max(err, e, e1)
+    del pa, pb
+    a, b = pair(gen, (2, 300, 500), torch.float32, 1.0)
+    a[0, 123, 321] = float("nan")
+    e, m, (pa, _) = compare_components("f32 NaN in image 0 of 2", a, b, data_range=1.0)
+    nan_px = torch.nonzero(pa.isnan()).tolist()
+    check(np.isnan(m[0]).all() and np.isfinite(m[1]).all() and nan_px == [[0, 61, 160]],
+          f"NaN isolation: means {m}, NaN pooled pixels {nan_px}")
+    print("  NaN reaches only image 0 and its own pooled pixel", flush=True)
+    err = max(err, e)
+    a, b = pair(gen, (2, 300, 500))
+    e, _, _ = compare_components("u8 (2, 300, 500) sigma 2.0, k1 0.02, k2 0.05", a, b,
+                                 sigma=2.0, k1=0.02, k2=0.05)
+    err = max(err, e)
+
+    # (b) The inference path: compute_ms_ssim on NumPy uint8, no device.
+    a, b = pair(gen, shape)
+    a_np, b_np = a.cpu().numpy(), b.cpu().numpy()
+    torch.cuda.synchronize()
+    zero_counts()
+    s_np = ssim_tpu_torch.compute_ms_ssim(a_np, b_np)
+    infer = launch_counts()
+    check(infer == dict(standard=0, components=1, pooled=4, backward=0),
+          f"compute_ms_ssim launches {infer}, expected 4 pooled and 1 components")
+    s_plain = ssim_tpu_torch.compute_ms_ssim(a_np, b_np, impl="torch")
+    d = float(np.abs(s_np - s_plain).max())
+    check(s_np.shape == shape[:1] and np.isfinite(s_np).all() and d <= 2e-5,
+          f"compute_ms_ssim {s_np} vs impl=torch {s_plain} ({d:.3g})")
+    print(f"  compute_ms_ssim NumPy u8 {shape}, no device: launches {infer}; "
+          f"scores {s_np}; vs impl=\"torch\" on the card {d:.3g}", flush=True)
+    # Each scale of that call's pyramid against the twins at its own shape:
+    # the pooled f32 scales 1-3 (scale 1 is held in (a)) and the last.
+    scales = [(a, b, 255.0)]
+    for _ in range(4):
+        _, pa, pb = ssim_components_pooled_cuda(*scales[-1][:2])
+        scales.append((pa, pb, 255.0))
+    for lvl in (2, 3, 4):
+        e, _, _ = compare_components(f"f32 {tuple(scales[lvl][0].shape)} (scale {lvl})",
+                                     scales[lvl][0], scales[lvl][1])
+        err = max(err, e)
+
+    # (c) Training: five Adam steps on 1 - ms_ssim at full width.
+    clean = torch.rand(shape, generator=gen, device="cuda")
+    noisy = (clean + 0.15 * torch.randn(shape, generator=gen, device="cuda")).clamp_(0, 1)
+    x = noisy.clone().requires_grad_()
+    opt = torch.optim.Adam([x], lr=0.02)
+
+    def step():
+        opt.zero_grad(set_to_none=True)
+        loss = 1.0 - ssim_tpu_torch.ms_ssim(x, clean, data_range=1.0).mean()
+        loss.backward()
+        finite = torch.isfinite(x.grad).all()
+        opt.step()
+        with torch.no_grad():
+            x.clamp_(0.0, 1.0)
+        return loss.detach(), finite
+
+    # The first step's gradient against autograd of the plain pyramid on
+    # the same tensors. The loss is a mean over pixels, so |g| is far below
+    # 1: the tolerance scales with max|g| alone.
+    xk = x.detach().clone().requires_grad_()
+    (1.0 - ssim_tpu_torch.ms_ssim(xk, clean, data_range=1.0).mean()).backward()
+    xt = x.detach().clone().requires_grad_()
+    (gt,) = torch.autograd.grad(
+        1.0 - ssim_tpu_torch.ms_ssim(xt, clean, data_range=1.0, impl="torch").mean(), xt)
+    grad_err = float((xk.grad - gt).abs().max())
+    grad_scale = float(gt.abs().max())
+    check(bool(torch.isfinite(xk.grad).all()) and grad_err <= GRAD_AUTOGRAD * grad_scale,
+          f"MS-SSIM gradient vs autograd of impl=\"torch\" {grad_err:.3g} "
+          f"(tol {GRAD_AUTOGRAD * grad_scale:.3g})")
+    print(f"  f32 {shape} gradient of 1 - ms_ssim: kernels vs autograd of "
+          f"impl=\"torch\" {grad_err:.3g} (max|g| {grad_scale:.3g}, "
+          f"{grad_err / grad_scale:.3g} of it)", flush=True)
+    del xk, xt, gt
+
+    torch.cuda.synchronize()
+    zero_counts()
+    results = [step() for _ in range(5)]
+    train = launch_counts()
+    losses = [float(loss) for loss, _ in results]
+    check(train == dict(standard=0, components=25, pooled=0, backward=25),
+          f"5 MS-SSIM training steps launched {train}, expected 25 components and "
+          f"25 backward")
+    check(all(bool(f) for _, f in results), "non-finite gradients in MS-SSIM training")
+    check(all(np.isfinite(losses)) and losses[-1] < losses[0],
+          f"the MS-SSIM loss did not fall: {losses}")
+    print(f"  5 Adam steps on 1 - ms_ssim {shape}: losses {losses}; launches {train}",
+          flush=True)
+    e, _, _ = compare_components(f"f32 {shape} data_range 1 (training scale 0)",
+                                 x.detach(), clean, data_range=1.0)
+    err = max(err, e)
+
+    # (d) Times at the pyramid's shapes: pooled u8 at scale 0, pooled f32
+    # at scale 1, components at the last scale (u8 pyramid) and at scale 0
+    # of the training pyramid, and components at width 20480 (the width
+    # JAX serves with K2); each mode's twin beside it. Kernel times by
+    # CUDA events around back-to-back calls and, from a profiler trace, of
+    # the kernel alone (at the last scale the events measure the wrapper's
+    # host work, longer than the kernel).
+    modes = [
+        ("pooled_u8_scale0", True, scales[0]),
+        ("pooled_f32_scale1", True, scales[1]),
+        ("components_f32_scale4", False, scales[4]),
+        ("components_f32_train_scale0", False, (x.detach(), clean, 1.0)),
+        ("components_u8_wide", False, wide),
+    ]
+    times = {}
+    for name, pooled, (ta, tb, dr) in modes:
+        fn = ssim_components_pooled_cuda if pooled else ssim_components_cuda
+        t_k = cuda_ms(lambda: fn(ta, tb, data_range=dr), 20)
+        t_dev = kernel_trace_ms(lambda: fn(ta, tb, data_range=dr), 20, "ssim_fwd_kernel")
+        t_p = cuda_ms(lambda: comp_twin(ta, tb, pooled, data_range=dr), 5)
+        bnd, by = comp_bound(tuple(ta.shape), ta.element_size(), pooled)
+        mpix = ta.numel() / 1e6
+        times[name] = dict(shape=list(ta.shape), ms=t_k, device_ms=t_dev, plain_ms=t_p,
+                           bound_ms=bnd, bound_by=by, mpix_s=mpix / t_k * 1e3)
+        dev = "not recorded" if t_dev is None else f"{t_dev:.4f} ms"
+        print(f"  {name} {tuple(ta.shape)} {ta.dtype}: kernel {t_k:.4f} ms "
+              f"({mpix / t_k * 1e3:.1f} Mpix/s), in the trace {dev}; plain twin "
+              f"{t_p:.4f} ms; bound {bnd:.4f} ms ({by}) | {label}", flush=True)
+    del scales, wide
+    e2e = host_times(lambda: ssim_tpu_torch.compute_ms_ssim(a, b), 10)
+    steps = host_times(step, 10)
+    mpix = a.numel() / 1e6
+    print(f"  compute_ms_ssim u8 {shape} on the card: {statistics.median(e2e):.3f} ms "
+          f"median of 10 ({min(e2e):.3f}-{max(e2e):.3f}; "
+          f"{mpix / statistics.median(e2e) * 1e3:.1f} Mpix/s) | {label}", flush=True)
+    print(f"  MS-SSIM training step (forward + backward + Adam) {shape}: "
+          f"{statistics.median(steps):.3f} ms median of 10 ({min(steps):.3f}-"
+          f"{max(steps):.3f}) | {label}", flush=True)
+    busy, window, n_ops, top = device_trace(step, 5)
+    if busy is None:
+        print("  trace: the profiler recorded no device activity", flush=True)
+    else:
+        t_step = statistics.median(steps)
+        print(f"  trace of 5 MS-SSIM steps: device busy {busy:.4f} ms per step, "
+              f"{busy / t_step:.1%} of the untraced step, {busy / window:.1%} of the "
+              f"traced window ({window:.3f} ms per step); {n_ops:.0f} device "
+              f"operations per step", flush=True)
+        for name, ms in top[:8]:
+            print(f"    {ms:.4f} ms  {name[:90]}", flush=True)
+
+    # (e) K4's library call, torch.nn.functional.pad(mode="replicate"), at
+    # 4K x4 into pad.py's (8, 128)-aligned layout (f32: the card's
+    # replicate pad takes floating types), and the bounds of K4 and K5.
+    kb, kh, kw_ = 4, 2160, 3840
+    hp, wp = -(-(kh + 8) // 32) * 32, -(-(kw_ + 128 + 5) // 128) * 128
+    img = torch.rand((kb, kh, kw_), generator=gen, device="cuda")
+    pad = lambda: torch.nn.functional.pad(img, (128, wp - kw_ - 128, 8, hp - kh - 8),
+                                          mode="replicate")
+    check(tuple(pad().shape) == (kb, hp, wp), "replicate pad shape")
+    t_pad = cuda_ms(pad, 20)
+    k4_bound = bound_ms(4 * kb * kh * kw_ + 4 * kb * hp * wp, 0)
+    k4_u8_bound = bound_ms(kb * kh * kw_ + kb * hp * wp, 0)
+    k5 = {}
+    for bsz, side in ((1024, 128), (4096, 64)):
+        npix = bsz * side * side
+        k5[f"{side}x{side}x{bsz}"] = bound_ms(2 * npix + 4 * bsz, (24 * 5 + 43) * npix)
+    print(f"  K4 library call F.pad(replicate) f32 ({kb}, {kh}, {kw_}) -> ({kb}, {hp}, "
+          f"{wp}): {t_pad:.4f} ms; K4 bound {k4_bound[0]:.4f} ms f32, "
+          f"{k4_u8_bound[0]:.4f} ms u8 (bytes); K5 bounds "
+          + ", ".join(f"{k} {v[0]:.4f} ms ({v[1]})" for k, v in k5.items())
+          + f" | {label}", flush=True)
+    records = dict(times=times, infer=infer, train=train, losses=losses,
+                   grad_err=grad_err, grad_scale=grad_scale,
+                   compute_ms_ssim_ms=e2e, train_step_ms=steps, trace_busy_ms=busy,
+                   trace_window_ms=window, trace_ops_per_step=n_ops,
+                   trace_top=top[:8], k4_library_ms=t_pad, k4_bound=k4_bound,
+                   k5_bounds=k5)
+    return err, records
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this script needs a GPU",
@@ -628,6 +951,7 @@ def main():
     max_err = phase_kernel(gen)
     launches, records = phase_main(gen, label)
     train_fwd, train_bwd, grad_err, train = phase_train(gen, label)
+    comp_err, ms = phase_msssim(gen, label)
     check("jax" not in sys.modules, "JAX was imported")
 
     ref = records["4k_b4"]
@@ -662,6 +986,39 @@ def main():
         "ms_gmap": bwd["kernel_gmap_ms"],
         "ms_4k_b4": train["grad_4k_b4"]["kernel_ms"],
         "train_step_ms": train["train_step"]["step_ms"],
+        "launches_msssim_training": ms["train"]["backward"],
+        "msssim_grad_vs_autograd": ms["grad_err"],
+        "msssim_grad_max": ms["grad_scale"],
+    }, {
+        "name": "ssim_fwd_components",
+        "route": "cuda",
+        "source": "ssim_tpu_torch/csrc/ssim_fwd.cu",
+        "replaces": "ssim_tpu/ops/ssim_pallas.py:1957 (K1 mode c), "
+                    "ssim_tpu/ops/ssim_pallas.py:1364 (K2 components)",
+        "launches": ms["infer"]["components"],
+        "launches_training": ms["train"]["components"],
+        "max_abs_err": comp_err,
+        **{k: ms["times"]["components_f32_train_scale0"][k]
+           for k in ("ms", "device_ms", "plain_ms", "bound_ms", "bound_by", "shape")},
+        "library_ms": None,
+        **{f"{k}_last_scale": ms["times"]["components_f32_scale4"][k]
+           for k in ("ms", "device_ms", "plain_ms", "bound_ms", "shape")},
+        "ms_wide": ms["times"]["components_u8_wide"]["ms"],
+        "shape_wide": ms["times"]["components_u8_wide"]["shape"],
+    }, {
+        "name": "ssim_fwd_pooled",
+        "route": "cuda",
+        "source": "ssim_tpu_torch/csrc/ssim_fwd.cu",
+        "replaces": "ssim_tpu/ops/ssim_pallas.py:2066 (K1 mode d)",
+        "launches": ms["infer"]["pooled"],
+        "max_abs_err": comp_err,
+        **{k: ms["times"]["pooled_u8_scale0"][k]
+           for k in ("ms", "device_ms", "plain_ms", "bound_ms", "bound_by", "shape")},
+        "library_ms": None,
+        "ms_f32_scale1": ms["times"]["pooled_f32_scale1"]["ms"],
+        "device_ms_f32_scale1": ms["times"]["pooled_f32_scale1"]["device_ms"],
+        "compute_ms_ssim_ms": statistics.median(ms["compute_ms_ssim_ms"]),
+        "msssim_train_step_ms": statistics.median(ms["train_step_ms"]),
     }]}))
     print(label)
     print(json.dumps({"ok": True, "device": {

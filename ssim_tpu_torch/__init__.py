@@ -6,10 +6,13 @@ Counterpart of `ssim_tpu/__init__.py` for the slices ported so far:
   on uint8 and float images, single or batched, at the standard f32 tier
   with or without the per-pixel map;
 - training: the differentiable tensor functions `ssim`, `ssim_and_map`
-  and `ssim_loss`.
+  and `ssim_loss`;
+- multi-scale SSIM, `ms_ssim` and `compute_ms_ssim`, for inference and
+  training (`models/`).
 
 They run through two hand-written CUDA kernels for Hopper, built with nvcc
-at first use: the fused forward (`csrc/ssim_fwd.cu`) and the fused analytic
+at first use: the fused forward (`csrc/ssim_fwd.cu`; standard, map,
+MS-SSIM components and pooled-components modes) and the fused analytic
 backward (`csrc/ssim_bwd.cu`), on CUDA tensors, and through each kernel's
 plain PyTorch twin on CPU tensors. This package imports torch and NumPy,
 never JAX or ssim_tpu.
@@ -23,6 +26,7 @@ from .api import (
     compute_ssim, compute_ssim_legacy, compute_ssim_map, ssim, ssim_and_map,
     ssim_loss,
 )
+from .models import MS_SSIM_WEIGHTS, compute_ms_ssim, ms_ssim
 from .dispatch import Implementation, select_impl, available_impls
 from .config import Config, get_config, set_config
 from . import reference
@@ -48,6 +52,9 @@ __all__ = [
     "ssim",
     "ssim_and_map",
     "ssim_loss",
+    "ms_ssim",
+    "compute_ms_ssim",
+    "MS_SSIM_WEIGHTS",
     "Implementation",
     "select_impl",
     "available_impls",

@@ -1,22 +1,46 @@
 // Fused SSIM forward for NVIDIA Hopper (sm_90a), standard f32 tier.
 //
-// Replaces the two TPU forward kernels of the JAX package in their
-// standard and map modes: ssim_tpu/ops/ssim_pallas.py::_nopad_overlap_call
-// (full-width row tiles, widths up to 16384 lanes) and
-// ::_chunked_overlap_call (the same over lane chunks for wider images).
-// That split exists only for TPU lane widths and VMEM; here one 2-D grid
-// of output tiles covers every width.
+// Replaces the two TPU forward kernels of the JAX package:
+// ssim_tpu/ops/ssim_pallas.py::_nopad_overlap_call (:710; full-width row
+// tiles, widths up to 16384 lanes) in its modes a (standard, with or
+// without the map), c (components) and d (pool_out, u8 and f32), and
+// ::_chunked_overlap_call (:1364; the same over lane chunks for wider
+// images) in its standard, map and components modes. That split exists
+// only for TPU lane widths and VMEM; here one 2-D grid of output tiles
+// covers every width, so K2's components mode needs no kernel of its own.
+//
+// Modes (compile time, one copy of the halo load and the two blurs):
+// - kScore / kMap: one f32 partial per tile, sum(ssim - 1) + n_valid, with
+//   the SSIM formula of _ssim_from_blurs; kMap also writes the map.
+// - kComponents (MS-SSIM, _l_cs_from_blurs, ssim_pallas.py:480-490 and
+//   :1196-1199): lum and cs from the four blurs, ssim = lum * cs (not the
+//   standard num / den, so the last bits differ from kScore), and two
+//   partials per tile, sum(cs - 1) + n_valid and sum(ssim - 1) + n_valid.
+// - kPooled: kComponents plus the 2x2-mean images (B, H/2, W/2) f32 of a
+//   and b, the MS-SSIM pyramid's next scale (ssim_pallas.py:1100-1174).
+//   Each tile pools its own pixels (TH and TW even), from the raw inputs
+//   in device memory, not the sanitised halo: a u8 value converts
+//   exactly, and a NaN in f32 input reaches its own pooled pixel as
+//   _downsample2's reduce_window carries it. Vertical pairs are added
+//   first, then horizontal, then * 0.25; only pooled rows < H/2 and
+//   columns < W/2 are written, so an odd last row or column is dropped
+//   and no row past the image is read. (The Pallas f32 pool fed the
+//   unmasked rows of a ragged tile into a matrix product, which made its
+//   pooled images NaN; reading only rows inside the image repairs that.)
 //
 // What bounds it on this card: per output pixel it reads 2 input values
-// (u8 or f32) and writes at most one f32 map value, while the function
-// needs 24r + 43 f32 operations (163 at radius 5: 4 signals x 2 passes x
-// (3r + 2), the signals and the formula; counted in chip_smoke.py).
-// Device memory (3.35 TB/s) would allow ~1 Tpix/s for u8 without a map
-// and the f32 peak ~410 Gpix/s, so the kernel is bound on chip: by the
-// blurs' shared-memory traffic (~80 32-bit accesses per output pixel at
-// radius 5) and instruction issue. It measured 30-39 Gpix/s on an H100,
-// the same with and without FMA contraction, and the same with the L2
-// flushed between launches.
+// (u8 or f32) and writes at most one f32 map value (kPooled: half an f32
+// per input pixel), while the function needs 24r + 43 f32 operations
+// (163 at radius 5: 4 signals x 2 passes x (3r + 2), the signals and the
+// formula; kComponents 24r + 45, kPooled 24r + 47; counted in
+// chip_smoke.py). Device memory (3.35 TB/s) would allow ~1 Tpix/s for u8
+// without a map and the f32 peak ~410 Gpix/s, so the kernel is bound on
+// chip: by the blurs' shared-memory traffic (~80 32-bit accesses per
+// output pixel at radius 5) and instruction issue. It measured 30-39
+// Gpix/s in mode kScore on an H100, the same with and without FMA
+// contraction, and the same with the L2 flushed between launches. The
+// pool adds 2 operations and reads the tile's inputs once more, from L1
+// or L2, where the halo load has just brought them.
 // What the design does about it: each pixel of the halo tile is read from
 // device memory once and converted to f32 on load; both blur passes run
 // out of shared memory with symmetric tap pairs (r + 1 multiplies per
@@ -27,15 +51,15 @@
 // Numerics follow the JAX kernel: clamp-to-edge borders (indices are
 // clamped as the halo tile is loaded; nothing is padded in device
 // memory), nan_to_num + clip of float inputs with NaN poisoning of the
-// tile when one of its own pixels is not finite, the four-signal formula
-// of _ssim_from_blurs, and one f32 partial per tile holding
-// sum(ssim - 1) + n_valid. One partial per block, no atomics: the result
-// is deterministic. Build without --use_fast_math (it would flush
-// subnormals and approximate the division) and with --fmad=false: each
-// multiply and add then rounds as in the plain PyTorch twin
-// (ops/ssim_cuda.py::ssim_parts_plain), which does the same operations
-// in the same order, so per-pixel values match the twin bit for bit and
-// only the order of the tile sums differs.
+// tile (its ssim and cs alike) when one of its own pixels is not finite,
+// the four-signal formulas, and per-tile f32 partials of x - 1 plus
+// n_valid. One partial per block and value, no atomics: the result is
+// deterministic. Build without --use_fast_math (it would flush subnormals
+// and approximate the division) and with --fmad=false: each multiply and
+// add then rounds as in the plain PyTorch twins (ops/ssim_cuda.py), which
+// do the same operations in the same order, so per-pixel values and
+// pooled images match the twins bit for bit and only the order of the
+// tile sums differs.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -44,6 +68,8 @@ namespace {
 
 constexpr int kThreads = 256;
 constexpr int kMaxTaps = 33;  // radius <= 16
+
+enum Mode { kScore = 0, kMap = 1, kComponents = 2, kPooled = 3 };
 
 struct Taps {
   float t[kMaxTaps];
@@ -63,17 +89,19 @@ __device__ __forceinline__ float sanitize(float v, float bound) {
   return fminf(fmaxf(v, -bound), bound);
 }
 
-template <typename T, bool kMap>
+template <typename T, int kMode>
 __global__ void __launch_bounds__(kThreads)
 ssim_fwd_kernel(const T* __restrict__ a, const T* __restrict__ b,
                 float* __restrict__ partials, float* __restrict__ map,
+                float* __restrict__ pool_a, float* __restrict__ pool_b,
                 int H, int W, int r, int TH, int TW, int ntx,
                 int tiles_per_image, Taps taps, float c1, float c2,
                 float clip_bound) {
   constexpr bool kFloat = sizeof(T) == 4;
+  constexpr bool kComp = kMode == kComponents || kMode == kPooled;
   extern __shared__ float smem[];
   __shared__ float s_taps[kMaxTaps];
-  __shared__ float s_warp[kThreads / 32];
+  __shared__ float s_warp[2][kThreads / 32];  // [0]: ssim, [1]: cs
 
   const int HR = TH + 2 * r;  // halo rows
   const int HW = TW + 2 * r;  // halo columns
@@ -154,8 +182,8 @@ ssim_fwd_kernel(const T* __restrict__ a, const T* __restrict__ b,
   }
   __syncthreads();
 
-  // Vertical pass, the SSIM formula, the map and the tile sum.
-  float local = 0.0f;
+  // Vertical pass, the SSIM formula, the map and the tile sums.
+  float local = 0.0f, local_cs = 0.0f;
   for (int ly = ty; ly < vh; ly += ystep) {
     for (int lx = tx; lx < vw; lx += TW) {
       const float* c = hp + (ly + r) * TW + lx;
@@ -173,42 +201,93 @@ ssim_fwd_kernel(const T* __restrict__ a, const T* __restrict__ b,
       const float mu_b = m1 + tc * c[plane];
       const float s_ss = m2 + tc * c[2 * plane];
       const float s_dd = m3 + tc * c[3 * plane];
-      // _ssim_from_blurs (ssim_pallas.py:465-477).
+      // _ssim_from_blurs (ssim_pallas.py:465-477) or, for the
+      // components, _l_cs_from_blurs (:480-490).
       const float mu_a2 = mu_a * mu_a;
       const float mu_b2 = mu_b * mu_b;
       const float mu_ab = mu_a * mu_b;
       const float sigma_ab_x4 = (s_ss - s_dd) - 4.0f * mu_ab;
       const float sigma_sum_x2 = (s_ss + s_dd) - 2.0f * (mu_a2 + mu_b2);
-      const float num = (2.0f * mu_ab + c1) * (0.5f * sigma_ab_x4 + c2);
-      const float den = (mu_a2 + mu_b2 + c1) * (0.5f * sigma_sum_x2 + c2);
-      float v = num / den;
-      if (kFloat && bad) v = __int_as_float(0x7fc00000);  // NaN
-      if (kMap) {
+      float v, cs = 0.0f;
+      if (kComp) {
+        const float lum = (2.0f * mu_ab + c1) / (mu_a2 + mu_b2 + c1);
+        cs = (0.5f * sigma_ab_x4 + c2) / (0.5f * sigma_sum_x2 + c2);
+        v = lum * cs;
+      } else {
+        const float num = (2.0f * mu_ab + c1) * (0.5f * sigma_ab_x4 + c2);
+        const float den = (mu_a2 + mu_b2 + c1) * (0.5f * sigma_sum_x2 + c2);
+        v = num / den;
+      }
+      if (kFloat && bad) {
+        v = __int_as_float(0x7fc00000);  // NaN
+        cs = v;
+      }
+      if (kMode == kMap) {
         map[base + (size_t)(y0 + ly) * (size_t)W + (size_t)(x0 + lx)] = v;
       }
       local += v - 1.0f;
+      if (kComp) local_cs += cs - 1.0f;
     }
   }
 
 #pragma unroll
   for (int off = 16; off > 0; off >>= 1) {
     local += __shfl_down_sync(0xffffffffu, local, off);
+    if (kComp) local_cs += __shfl_down_sync(0xffffffffu, local_cs, off);
   }
-  if ((tid & 31) == 0) s_warp[tid >> 5] = local;
+  if ((tid & 31) == 0) {
+    s_warp[0][tid >> 5] = local;
+    s_warp[1][tid >> 5] = local_cs;
+  }
   __syncthreads();
   if (tid == 0) {
-    float s = 0.0f;
+    const float n_valid = (float)(vh * vw);
+    float s = 0.0f, s_cs = 0.0f;
 #pragma unroll
-    for (int w = 0; w < kThreads / 32; ++w) s += s_warp[w];
-    partials[tile] = s + (float)(vh * vw);
+    for (int w = 0; w < kThreads / 32; ++w) {
+      s += s_warp[0][w];
+      s_cs += s_warp[1][w];
+    }
+    if (kComp) {
+      partials[2 * (size_t)tile] = s_cs + n_valid;
+      partials[2 * (size_t)tile + 1] = s + n_valid;
+    } else {
+      partials[tile] = s + n_valid;
+    }
+  }
+
+  if (kMode == kPooled) {
+    // The tile's own 2x2 blocks: pooled rows y0/2 .. and columns x0/2 ..,
+    // TW/2 threads (a power of two in [16, 128]) across a pooled row.
+    const int H2 = H / 2, W2 = W / 2;
+    const int py0 = y0 / 2, px0 = x0 / 2;
+    const int ph = min(TH / 2, H2 - py0);
+    const int pw = min(TW / 2, W2 - px0);
+    const int PW = TW / 2;
+    const int px = tid % PW;
+    const size_t pbase = (size_t)img * (size_t)H2 * (size_t)W2;
+    for (int py = tid / PW; py < ph && px < pw; py += kThreads / PW) {
+      const size_t r0 =
+          base + (size_t)(2 * (py0 + py)) * (size_t)W + (size_t)(2 * (px0 + px));
+      const size_t r1 = r0 + (size_t)W;
+      const size_t o =
+          pbase + (size_t)(py0 + py) * (size_t)W2 + (size_t)(px0 + px);
+      const float ya0 = to_f32(a[r0]) + to_f32(a[r1]);
+      const float ya1 = to_f32(a[r0 + 1]) + to_f32(a[r1 + 1]);
+      pool_a[o] = (ya0 + ya1) * 0.25f;
+      const float yb0 = to_f32(b[r0]) + to_f32(b[r1]);
+      const float yb1 = to_f32(b[r0 + 1]) + to_f32(b[r1 + 1]);
+      pool_b[o] = (yb0 + yb1) * 0.25f;
+    }
   }
 }
 
-template <typename T, bool kMap>
+template <typename T, int kMode>
 cudaError_t launch(const void* a, const void* b, void* partials, void* map,
-                   int B, int H, int W, int r, int TH, int TW,
-                   const float* taps_host, float c1, float c2,
+                   void* pool_a, void* pool_b, int B, int H, int W, int r,
+                   int TH, int TW, const float* taps_host, float c1, float c2,
                    float clip_bound, cudaStream_t stream) {
+  if (kMode == kPooled && ((TH | TW) & 1)) return cudaErrorInvalidValue;
   Taps taps;
   for (int k = 0; k < kMaxTaps; ++k) {
     taps.t[k] = k < 2 * r + 1 ? taps_host[k] : 0.0f;
@@ -222,35 +301,71 @@ cudaError_t launch(const void* a, const void* b, void* partials, void* map,
       sizeof(float) * ((size_t)2 * (TH + 2 * r) * (TW + 2 * r) +
                        (size_t)4 * (TH + 2 * r) * TW);
   cudaError_t err = cudaFuncSetAttribute(
-      ssim_fwd_kernel<T, kMap>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      ssim_fwd_kernel<T, kMode>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)smem);
   if (err != cudaSuccess) return err;
-  ssim_fwd_kernel<T, kMap><<<(unsigned)blocks, kThreads, smem, stream>>>(
+  ssim_fwd_kernel<T, kMode><<<(unsigned)blocks, kThreads, smem, stream>>>(
       static_cast<const T*>(a), static_cast<const T*>(b),
-      static_cast<float*>(partials), static_cast<float*>(map), H, W, r, TH,
+      static_cast<float*>(partials), static_cast<float*>(map),
+      static_cast<float*>(pool_a), static_cast<float*>(pool_b), H, W, r, TH,
       TW, ntx, tiles_per_image, taps, c1, c2, clip_bound);
   return cudaGetLastError();
 }
 
+template <int kMode>
+cudaError_t launch_typed(int is_float, const void* a, const void* b,
+                         void* partials, void* map, void* pool_a,
+                         void* pool_b, int B, int H, int W, int r, int TH,
+                         int TW, const float* taps_host, float c1, float c2,
+                         float clip_bound, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return is_float
+             ? launch<float, kMode>(a, b, partials, map, pool_a, pool_b, B, H,
+                                    W, r, TH, TW, taps_host, c1, c2,
+                                    clip_bound, s)
+             : launch<uint8_t, kMode>(a, b, partials, map, pool_a, pool_b, B,
+                                      H, W, r, TH, TW, taps_host, c1, c2,
+                                      clip_bound, s);
+}
+
 }  // namespace
 
-// C entry for ctypes. is_float: 0 = uint8 inputs, 1 = float32 inputs.
-// partials: (B, ceil(H/TH) * ceil(W/TW)) f32; map: (B, H, W) f32 or NULL.
-// taps_host: 2r+1 floats in host memory. Returns the launch's cudaError_t.
-extern "C" int ssim_fwd_launch(int is_float, const void* a, const void* b,
-                               void* partials, void* map, int B, int H, int W,
-                               int r, int TH, int TW, const float* taps_host,
-                               float c1, float c2, float clip_bound,
-                               void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (is_float) {
-    return map ? launch<float, true>(a, b, partials, map, B, H, W, r, TH, TW,
-                                     taps_host, c1, c2, clip_bound, s)
-               : launch<float, false>(a, b, partials, map, B, H, W, r, TH, TW,
-                                      taps_host, c1, c2, clip_bound, s);
+// The C entry for ctypes. mode: 0 = kScore, 1 = kMap, 2 = kComponents,
+// 3 = kPooled. is_float: 0 = uint8 inputs, 1 = float32 inputs. partials:
+// (B, ceil(H/TH) * ceil(W/TW)) f32, with a trailing 2 of [cs, ssim] in
+// the components modes. map: (B, H, W) f32 in kMap, else NULL. pool_a,
+// pool_b: (B, H/2, W/2) f32 each in kPooled (TH and TW even), else NULL.
+// taps_host: 2r+1 floats in host memory. Returns the launch's
+// cudaError_t.
+extern "C" int ssim_fwd_launch(int mode, int is_float, const void* a,
+                               const void* b, void* partials, void* map,
+                               void* pool_a, void* pool_b, int B, int H,
+                               int W, int r, int TH, int TW,
+                               const float* taps_host, float c1, float c2,
+                               float clip_bound, void* stream) {
+  if ((map != nullptr) != (mode == kMap) ||
+      (pool_a != nullptr) != (mode == kPooled) ||
+      (pool_b != nullptr) != (mode == kPooled)) {
+    return cudaErrorInvalidValue;
   }
-  return map ? launch<uint8_t, true>(a, b, partials, map, B, H, W, r, TH, TW,
-                                     taps_host, c1, c2, clip_bound, s)
-             : launch<uint8_t, false>(a, b, partials, map, B, H, W, r, TH, TW,
-                                      taps_host, c1, c2, clip_bound, s);
+  switch (mode) {
+    case kScore:
+      return launch_typed<kScore>(is_float, a, b, partials, map, pool_a,
+                                  pool_b, B, H, W, r, TH, TW, taps_host, c1,
+                                  c2, clip_bound, stream);
+    case kMap:
+      return launch_typed<kMap>(is_float, a, b, partials, map, pool_a, pool_b,
+                                B, H, W, r, TH, TW, taps_host, c1, c2,
+                                clip_bound, stream);
+    case kComponents:
+      return launch_typed<kComponents>(is_float, a, b, partials, map, pool_a,
+                                       pool_b, B, H, W, r, TH, TW, taps_host,
+                                       c1, c2, clip_bound, stream);
+    case kPooled:
+      return launch_typed<kPooled>(is_float, a, b, partials, map, pool_a,
+                                   pool_b, B, H, W, r, TH, TW, taps_host, c1,
+                                   c2, clip_bound, stream);
+    default:
+      return cudaErrorInvalidValue;
+  }
 }

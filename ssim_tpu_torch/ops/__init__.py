@@ -6,7 +6,10 @@ Counterpart of `ssim_tpu/ops/`. The CUDA kernels are built from
 """
 
 from .ssim_torch import ssim_parts_torch, blur_separable
-from .ssim_cuda import ssim_parts_cuda, ssim_parts_plain
+from .ssim_cuda import (
+    ssim_components_cuda, ssim_components_plain, ssim_components_pooled_cuda,
+    ssim_components_pooled_plain, ssim_parts_cuda, ssim_parts_plain,
+)
 from .routing import ssim_parts_auto, pallas_routable
 from .ssim_grad import grad_cuda_supported, ssim_grad_cuda, ssim_grad_plain
 
@@ -15,6 +18,10 @@ __all__ = [
     "blur_separable",
     "ssim_parts_cuda",
     "ssim_parts_plain",
+    "ssim_components_cuda",
+    "ssim_components_plain",
+    "ssim_components_pooled_cuda",
+    "ssim_components_pooled_plain",
     "ssim_parts_auto",
     "pallas_routable",
     "grad_cuda_supported",

@@ -125,7 +125,7 @@ def load_library() -> ctypes.CDLL:
             lib = ctypes.CDLL(build())
             p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
             lib.ssim_fwd_launch.argtypes = [
-                i, p, p, p, p, i, i, i, i, i, i, p, f, f, f, p,
+                i, i, p, p, p, p, p, p, i, i, i, i, i, i, p, f, f, f, p,
             ]
             lib.ssim_fwd_launch.restype = i
             lib.ssim_bwd_launch.argtypes = [

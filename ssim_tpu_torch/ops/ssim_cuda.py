@@ -1,19 +1,31 @@
-"""Fused SSIM forward: the hand-written CUDA kernel's wrapper and its
-plain PyTorch twin.
+"""Fused SSIM forward: the hand-written CUDA kernel's wrappers and their
+plain PyTorch twins.
 
-Counterpart of `ssim_tpu/ops/ssim_pallas.py` (`ssim_parts_pallas` over
-`_nopad_overlap_call` and `_chunked_overlap_call`, standard tier, with or
-without the map). The kernel is `ssim_tpu_torch/csrc/ssim_fwd.cu`: one
-2-D grid of TILE_H x TILE_W output tiles, one CUDA block per tile, that
-covers every width, so the TPU's split at 16384 lanes has no counterpart.
+Counterpart of `ssim_tpu/ops/ssim_pallas.py` over `_nopad_overlap_call`
+and `_chunked_overlap_call`, in three of their modes:
 
-`ssim_parts_cuda` launches the kernel for CUDA tensors and runs the plain
-twin `ssim_parts_plain` for CPU tensors, the counterpart of "compiled on
-TPU, interpreted elsewhere". The twin uses the same tile grid, the same
-clamp-to-edge rule, the four blurred signals a, b, (a+b)^2, (a-b)^2 with
-the kernel's order of operations, the float sanitise and per-tile NaN
-poison, and one sum(ssim - 1) + n_valid partial per tile. It is what the
-CPU tests run and what the kernel is held against on the card.
+- standard tier, with or without the map: `ssim_parts_cuda`
+  (`ssim_parts_pallas`), twin `ssim_parts_plain`;
+- MS-SSIM components, per-tile [sum cs, sum ssim]:
+  `ssim_components_cuda` (`ssim_components_pallas`), twin
+  `ssim_components_plain`;
+- components plus the 2x2-mean images of the next pyramid scale:
+  `ssim_components_pooled_cuda` (`ssim_components_pooled_pallas`), twin
+  `ssim_components_pooled_plain`.
+
+The kernel is `ssim_tpu_torch/csrc/ssim_fwd.cu`: one 2-D grid of TILE_H x
+TILE_W output tiles, one CUDA block per tile, that covers every width, so
+the TPU's split at 16384 lanes and `pooled_components_ok`'s VMEM limits
+have no counterpart.
+
+Each wrapper launches the kernel for CUDA tensors and runs its plain twin
+for CPU tensors, the counterpart of "compiled on TPU, interpreted
+elsewhere"; any other device raises. The twins use the same tile grid,
+the same clamp-to-edge rule, the four blurred signals a, b, (a+b)^2,
+(a-b)^2 with the kernel's order of operations, the float sanitise and
+per-tile NaN poison, and per-tile partials of x - 1 plus n_valid. They
+are what the CPU tests run and what the kernel is held against on the
+card.
 """
 
 import ctypes
@@ -23,6 +35,7 @@ import numpy as np
 import torch
 
 from ..windows import RADIUS, SIGMA, gaussian_taps
+from .pool import downsample2
 from .ssim_torch import _pad_edge
 
 #: Largest window radius the kernel serves (its taps live in a 33-float
@@ -40,10 +53,14 @@ _MAX_TILE_H = 256
 #: kernel's static taps and warp-sum arrays.
 _MAX_DYNAMIC_SMEM = 232448 - 256
 
-#: Kernel launches made by ssim_parts_cuda in this process. The wrapper
-#: adds one per launch and nowhere else, so a caller can show that a run
-#: went through the kernel.
+#: Kernel launches made in this process by ssim_parts_cuda (standard
+#: tier, with or without the map), ssim_components_cuda and
+#: ssim_components_pooled_cuda, one counter per mode. Each wrapper adds one
+#: per launch and nowhere else, so a caller can show which modes a run
+#: went through.
 LAUNCHES = 0
+COMPONENTS_LAUNCHES = 0
+POOLED_LAUNCHES = 0
 
 
 def smem_bytes(tile_h: int, tile_w: int, radius: int) -> int:
@@ -109,6 +126,61 @@ def hpass4(ap: torch.Tensor, bp: torch.Tensor, t, n: int):
     )
 
 
+def _blurs_plain(a, b, taps, clip_bound):
+    """The four blurred signals mu_a, mu_b, s_ss, s_dd of (B, H, W) u8 or
+    f32 inputs in the kernel's order of operations, and for f32 the mask
+    of non-finite input pixels (None for u8)."""
+    h, w = a.shape[-2], a.shape[-1]
+    r = len(taps) // 2
+    t = [float(v) for v in taps]
+    af = a.to(torch.float32)
+    bf = b.to(torch.float32)
+    bad = None
+    if a.dtype == torch.float32:
+        bad = ~(torch.isfinite(af) & torch.isfinite(bf))
+        af = torch.nan_to_num(af, nan=0.0).clamp(-clip_bound, clip_bound)
+        bf = torch.nan_to_num(bf, nan=0.0).clamp(-clip_bound, clip_bound)
+    # Horizontal pass over all H + 2r rows, then the vertical pass.
+    planes = hpass4(_pad_edge(af, r), _pad_edge(bf, r), t, w)
+    return tuple(sym_blur(p, t, 1, h) for p in planes), bad
+
+
+def _sigmas(mu_a, mu_b, s_ss, s_dd):
+    """mu_a^2, mu_b^2, mu_a*mu_b, 4*sigma_ab and 2*(sigma_a^2 + sigma_b^2)
+    from the four blurs (ssim_pallas.py:470-474)."""
+    mu_a2 = mu_a * mu_a
+    mu_b2 = mu_b * mu_b
+    mu_ab = mu_a * mu_b
+    sigma_ab_x4 = (s_ss - s_dd) - 4.0 * mu_ab
+    sigma_sum_x2 = (s_ss + s_dd) - 2.0 * (mu_a2 + mu_b2)
+    return mu_a2, mu_b2, mu_ab, sigma_ab_x4, sigma_sum_x2
+
+
+def _poison(x, bad, tile_h, tile_w):
+    """x with NaN over every tile that holds a non-finite input pixel of
+    its own (bad None: x as it is)."""
+    if bad is None:
+        return x
+    h, w = x.shape[-2], x.shape[-1]
+    tile_bad = _tile_reduce(bad.to(torch.float32), tile_h, tile_w,
+                            lambda v: v.amax(dim=(2, 4))) > 0
+    px_bad = tile_bad.repeat_interleave(tile_h, 1).repeat_interleave(
+        tile_w, 2)[:, :h, :w]
+    return torch.where(px_bad, torch.full_like(x, float("nan")), x)
+
+
+def _tile_partials(x, tile_h, tile_w):
+    """(B, K) per-tile sum(x - 1) + n_valid of a (B, H, W) f32 map."""
+    bsz, h, w = x.shape
+    sums = _tile_reduce(x - 1.0, tile_h, tile_w, lambda v: v.sum(dim=(2, 4)))
+    nty, ntx = tile_grid(h, w, tile_h, tile_w)
+    vrows = [min(tile_h, h - i * tile_h) for i in range(nty)]
+    vcols = [min(tile_w, w - j * tile_w) for j in range(ntx)]
+    n_valid = torch.tensor(np.outer(vrows, vcols), dtype=torch.float32,
+                           device=x.device)
+    return (sums + n_valid).reshape(bsz, nty * ntx)
+
+
 def ssim_parts_plain(
     a: torch.Tensor,
     b: torch.Tensor,
@@ -121,52 +193,64 @@ def ssim_parts_plain(
     tile_h: int = TILE_H,
     tile_w: int = TILE_W,
 ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
-    """The kernel's plain twin on (B, H, W) u8 or f32 tensors, on any
-    device. Returns (partials (B, nty*ntx) f32, map (B, H, W) f32 or None)."""
-    float_mode = a.dtype == torch.float32
-    bsz, h, w = a.shape
-    r = len(taps) // 2
-    t = [float(v) for v in taps]
-    af = a.to(torch.float32)
-    bf = b.to(torch.float32)
-    if float_mode:
-        bad = ~(torch.isfinite(af) & torch.isfinite(bf))
-        af = torch.nan_to_num(af, nan=0.0).clamp(-clip_bound, clip_bound)
-        bf = torch.nan_to_num(bf, nan=0.0).clamp(-clip_bound, clip_bound)
-    # Horizontal pass over all H + 2r rows, then the vertical pass.
-    planes = hpass4(_pad_edge(af, r), _pad_edge(bf, r), t, w)
-    mu_a, mu_b, s_ss, s_dd = (sym_blur(p, t, 1, h) for p in planes)
-    mu_a2 = mu_a * mu_a
-    mu_b2 = mu_b * mu_b
-    mu_ab = mu_a * mu_b
-    sigma_ab_x4 = (s_ss - s_dd) - 4.0 * mu_ab
-    sigma_sum_x2 = (s_ss + s_dd) - 2.0 * (mu_a2 + mu_b2)
+    """The standard mode's plain twin on (B, H, W) u8 or f32 tensors, on
+    any device. Returns (partials (B, nty*ntx) f32, map (B, H, W) f32 or
+    None)."""
+    blurs, bad = _blurs_plain(a, b, taps, clip_bound)
+    mu_a2, mu_b2, mu_ab, sigma_ab_x4, sigma_sum_x2 = _sigmas(*blurs)
     num = (2.0 * mu_ab + c1) * (0.5 * sigma_ab_x4 + c2)
     den = (mu_a2 + mu_b2 + c1) * (0.5 * sigma_sum_x2 + c2)
-    ssim = num / den
-
-    if float_mode:
-        # A tile with a non-finite pixel of its own is NaN, map and partial.
-        tile_bad = _tile_reduce(bad.to(torch.float32), tile_h, tile_w,
-                                lambda x: x.amax(dim=(2, 4))) > 0
-        px_bad = tile_bad.repeat_interleave(tile_h, 1).repeat_interleave(
-            tile_w, 2)[:, :h, :w]
-        ssim = torch.where(px_bad, torch.full_like(ssim, float("nan")), ssim)
-
-    sums = _tile_reduce(ssim - 1.0, tile_h, tile_w, lambda x: x.sum(dim=(2, 4)))
-    nty, ntx = tile_grid(h, w, tile_h, tile_w)
-    vrows = [min(tile_h, h - i * tile_h) for i in range(nty)]
-    vcols = [min(tile_w, w - j * tile_w) for j in range(ntx)]
-    n_valid = torch.tensor(np.outer(vrows, vcols), dtype=torch.float32,
-                           device=a.device)
-    partials = (sums + n_valid).reshape(bsz, nty * ntx)
+    ssim = _poison(num / den, bad, tile_h, tile_w)
+    partials = _tile_partials(ssim, tile_h, tile_w)
     return partials, (ssim if with_map else None)
 
 
-def _launch(a, b, *, with_map, taps, c1, c2, clip_bound, tile_h, tile_w):
-    """Launch the CUDA kernel on (B, H, W) contiguous tensors on one
-    CUDA device; no synchronisation."""
-    global LAUNCHES
+def ssim_components_plain(
+    a: torch.Tensor,
+    b: torch.Tensor,
+    *,
+    taps: np.ndarray,
+    c1: float,
+    c2: float,
+    clip_bound: float,
+    tile_h: int = TILE_H,
+    tile_w: int = TILE_W,
+) -> torch.Tensor:
+    """The components mode's plain twin on (B, H, W) u8 or f32 tensors, on
+    any device: lum and cs from the four blurs (_l_cs_from_blurs), ssim =
+    lum * cs. Returns (B, nty*ntx, 2) f32 per-tile [sum(cs - 1) + n_valid,
+    sum(ssim - 1) + n_valid]; a tile with a non-finite input pixel of its
+    own has NaN in both."""
+    blurs, bad = _blurs_plain(a, b, taps, clip_bound)
+    mu_a2, mu_b2, mu_ab, sigma_ab_x4, sigma_sum_x2 = _sigmas(*blurs)
+    lum = (2.0 * mu_ab + c1) / (mu_a2 + mu_b2 + c1)
+    cs = (0.5 * sigma_ab_x4 + c2) / (0.5 * sigma_sum_x2 + c2)
+    ssim = lum * cs
+    return torch.stack([
+        _tile_partials(_poison(cs, bad, tile_h, tile_w), tile_h, tile_w),
+        _tile_partials(_poison(ssim, bad, tile_h, tile_w), tile_h, tile_w),
+    ], dim=-1)
+
+
+def ssim_components_pooled_plain(
+    a: torch.Tensor, b: torch.Tensor, **kw,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The pooled mode's plain twin: (ssim_components_plain(a, b, **kw),
+    downsample2(a), downsample2(b)), the pooled images (B, H//2, W//2) f32
+    from the raw inputs in the kernel's order of additions."""
+    return ssim_components_plain(a, b, **kw), downsample2(a), downsample2(b)
+
+
+#: The kernel's modes, in the order of the C entry's `mode` argument.
+_MODES = ("score", "map", "components", "pooled")
+
+
+def _launch(a, b, *, mode, taps, c1, c2, clip_bound, tile_h, tile_w):
+    """Launch the CUDA kernel in `mode` ("score", "map", "components" or
+    "pooled") on (B, H, W) contiguous tensors on one CUDA device; no
+    synchronisation. Returns the mode's outputs: (partials, map or None),
+    (B, K, 2) partials, or (partials, pooled_a, pooled_b)."""
+    global LAUNCHES, COMPONENTS_LAUNCHES, POOLED_LAUNCHES
     from . import _build
 
     lib = _build.load_library()
@@ -174,26 +258,78 @@ def _launch(a, b, *, with_map, taps, c1, c2, clip_bound, tile_h, tile_w):
     nty, ntx = tile_grid(h, w, tile_h, tile_w)
     if bsz * nty * ntx > 0x7FFFFFFF:
         raise ValueError(f"{bsz * nty * ntx} tiles exceed one launch's grid")
-    partials = torch.empty((bsz, nty * ntx), dtype=torch.float32, device=a.device)
-    ssim_map = (
-        torch.empty((bsz, h, w), dtype=torch.float32, device=a.device)
-        if with_map else None
-    )
+    comp = mode in ("components", "pooled")
+    new = lambda *shape: torch.empty(shape, dtype=torch.float32, device=a.device)
+    partials = new(bsz, nty * ntx, 2) if comp else new(bsz, nty * ntx)
+    ssim_map = new(bsz, h, w) if mode == "map" else None
+    pooled = (new(bsz, h // 2, w // 2), new(bsz, h // 2, w // 2)) \
+        if mode == "pooled" else (None, None)
+    ptr = lambda x: None if x is None else x.data_ptr()
     r = len(taps) // 2
     taps_c = (ctypes.c_float * len(taps))(*[float(v) for v in taps])
     with torch.cuda.device(a.device):
         err = lib.ssim_fwd_launch(
-            int(a.dtype == torch.float32), a.data_ptr(), b.data_ptr(),
-            partials.data_ptr(),
-            None if ssim_map is None else ssim_map.data_ptr(),
-            bsz, h, w, r, tile_h, tile_w,
+            _MODES.index(mode), int(a.dtype == torch.float32), a.data_ptr(),
+            b.data_ptr(), partials.data_ptr(), ptr(ssim_map), ptr(pooled[0]),
+            ptr(pooled[1]), bsz, h, w, r, tile_h, tile_w,
             ctypes.cast(taps_c, ctypes.c_void_p), c1, c2, clip_bound,
-            torch.cuda.current_stream(a.device).cuda_stream,
-        )
+            torch.cuda.current_stream(a.device).cuda_stream)
     if err != 0:
-        raise RuntimeError(f"ssim_fwd_launch failed with CUDA error {err}")
+        raise RuntimeError(f"ssim_fwd kernel ({mode}) failed with CUDA error {err}")
+    if mode == "pooled":
+        POOLED_LAUNCHES += 1
+        return partials, pooled[0], pooled[1]
+    if comp:
+        COMPONENTS_LAUNCHES += 1
+        return partials
     LAUNCHES += 1
     return partials, ssim_map
+
+
+def _prepare(a, b, *, data_range, radius, sigma, k1, k2, tile_h, tile_w):
+    """Check what every mode of the kernel needs of its arguments (dtypes
+    are each wrapper's own check) and return the launch's keyword
+    arguments: taps, c1, c2, clip_bound, tile_h, tile_w."""
+    if not 1 <= radius <= MAX_FUSED_RADIUS:
+        raise ValueError(
+            f"the fused kernel serves radius 1..{MAX_FUSED_RADIUS}; got "
+            f"{radius} — use ssim_parts_torch for larger windows"
+        )
+    if data_range < 1e-6:
+        raise ValueError(f"data_range {data_range} too small (must be >= 1e-6)")
+    taps = gaussian_taps(np.float32, radius, sigma)
+    c1 = float((k1 * data_range) ** 2)
+    c2 = float((k2 * data_range) ** 2)
+    if c1 * c2 < 9e-32:
+        raise ValueError(
+            f"k1/k2 too small for data_range {data_range}: c1*c2 = "
+            f"{c1 * c2:g} degenerates in f32 (needs >= 9e-32)"
+        )
+    if tile_w not in _TILE_WIDTHS or not 1 <= tile_h <= _MAX_TILE_H:
+        raise ValueError(
+            f"tile {tile_h}x{tile_w}: tile_w must be one of {_TILE_WIDTHS} "
+            f"and tile_h in 1..{_MAX_TILE_H}"
+        )
+    if smem_bytes(tile_h, tile_w, radius) > _MAX_DYNAMIC_SMEM:
+        raise ValueError(
+            f"tile {tile_h}x{tile_w} at radius {radius} needs "
+            f"{smem_bytes(tile_h, tile_w, radius)} bytes of shared memory "
+            f"(at most {_MAX_DYNAMIC_SMEM})"
+        )
+    if a.shape != b.shape or a.dim() not in (2, 3) or 0 in a.shape:
+        raise ValueError(
+            f"expected matching non-empty (H, W) or (B, H, W) tensors, got "
+            f"{tuple(a.shape)} and {tuple(b.shape)}"
+        )
+    if a.device != b.device:
+        raise ValueError(f"inputs on different devices: {a.device}, {b.device}")
+    if a.device.type not in ("cuda", "cpu"):
+        raise ValueError(f"no fused kernel for device {a.device}")
+    if not (a.is_contiguous() and b.is_contiguous()):
+        raise ValueError("the fused kernel takes contiguous tensors")
+    return dict(taps=taps, c1=c1, c2=c2,
+                clip_bound=max(131072.0, 4.0 * float(data_range)),
+                tile_h=tile_h, tile_w=tile_w)
 
 
 def ssim_parts_cuda(
@@ -225,13 +361,6 @@ def ssim_parts_cuda(
     NaN partial and NaN map values, so an invalid input shows in its own
     image's score and no other's.
     """
-    if not 1 <= radius <= MAX_FUSED_RADIUS:
-        raise ValueError(
-            f"the fused kernel serves radius 1..{MAX_FUSED_RADIUS}; got "
-            f"{radius} — use ssim_parts_torch for larger windows"
-        )
-    if data_range < 1e-6:
-        raise ValueError(f"data_range {data_range} too small (must be >= 1e-6)")
     float_ok = (
         allow_float and a.dtype == torch.float32 and b.dtype == torch.float32
     )
@@ -241,49 +370,91 @@ def ssim_parts_cuda(
             f"{a.dtype}/{b.dtype} — use allow_float=True for float32 "
             f"images or ssim_parts_torch for wider integer dtypes"
         )
-    taps = gaussian_taps(np.float32, radius, sigma)
-    c1 = float((k1 * data_range) ** 2)
-    c2 = float((k2 * data_range) ** 2)
-    if c1 * c2 < 9e-32:
-        raise ValueError(
-            f"k1/k2 too small for data_range {data_range}: c1*c2 = "
-            f"{c1 * c2:g} degenerates in f32 (needs >= 9e-32)"
-        )
-    tile_h = TILE_H if tile_h is None else int(tile_h)
-    tile_w = TILE_W if tile_w is None else int(tile_w)
-    if tile_w not in _TILE_WIDTHS or not 1 <= tile_h <= _MAX_TILE_H:
-        raise ValueError(
-            f"tile {tile_h}x{tile_w}: tile_w must be one of {_TILE_WIDTHS} "
-            f"and tile_h in 1..{_MAX_TILE_H}"
-        )
-    if smem_bytes(tile_h, tile_w, radius) > _MAX_DYNAMIC_SMEM:
-        raise ValueError(
-            f"tile {tile_h}x{tile_w} at radius {radius} needs "
-            f"{smem_bytes(tile_h, tile_w, radius)} bytes of shared memory "
-            f"(at most {_MAX_DYNAMIC_SMEM})"
-        )
-    if a.shape != b.shape or a.dim() not in (2, 3) or 0 in a.shape:
-        raise ValueError(
-            f"expected matching non-empty (H, W) or (B, H, W) tensors, got "
-            f"{tuple(a.shape)} and {tuple(b.shape)}"
-        )
-    if a.device != b.device:
-        raise ValueError(f"inputs on different devices: {a.device}, {b.device}")
-    if not (a.is_contiguous() and b.is_contiguous()):
-        raise ValueError("the fused kernel takes contiguous tensors")
+    kw = _prepare(a, b, data_range=data_range, radius=radius, sigma=sigma,
+                  k1=k1, k2=k2,
+                  tile_h=TILE_H if tile_h is None else int(tile_h),
+                  tile_w=TILE_W if tile_w is None else int(tile_w))
     squeeze = a.dim() == 2
     if squeeze:
         a, b = a[None], b[None]
-    clip_bound = max(131072.0, 4.0 * float(data_range))
-    kw = dict(with_map=with_map, taps=taps, c1=c1, c2=c2,
-              clip_bound=clip_bound, tile_h=tile_h, tile_w=tile_w)
     if a.device.type == "cuda":
-        partials, ssim_map = _launch(a, b, **kw)
-    elif a.device.type == "cpu":
-        partials, ssim_map = ssim_parts_plain(a, b, **kw)
+        partials, ssim_map = _launch(a, b, mode="map" if with_map else "score", **kw)
     else:
-        raise ValueError(f"no fused kernel for device {a.device}")
+        partials, ssim_map = ssim_parts_plain(a, b, with_map=with_map, **kw)
     if squeeze:
         partials = partials[0]
         ssim_map = None if ssim_map is None else ssim_map[0]
     return partials, ssim_map
+
+
+def _components_args(a, b, data_range, radius, sigma, k1, k2):
+    if a.dtype != b.dtype or a.dtype not in (torch.uint8, torch.float32):
+        raise ValueError(
+            f"the components kernel takes uint8 or float32 pairs, got "
+            f"{a.dtype}/{b.dtype}"
+        )
+    return _prepare(a, b, data_range=data_range, radius=radius, sigma=sigma,
+                    k1=k1, k2=k2, tile_h=TILE_H, tile_w=TILE_W)
+
+
+def ssim_components_cuda(
+    a: torch.Tensor,
+    b: torch.Tensor,
+    *,
+    data_range: float = 255.0,
+    radius: int = RADIUS,
+    sigma: float = SIGMA,
+    k1: float = 0.01,
+    k2: float = 0.03,
+) -> torch.Tensor:
+    """Fused-kernel MS-SSIM components. a, b: (H, W) or (B, H, W)
+    contiguous uint8 or float32 pairs (float32 as sanitised and poisoned as
+    in ssim_parts_cuda).
+
+    Returns (..., K, 2) f32 per-tile sums, [..., 0] of cs and [..., 1] of
+    ssim = lum * cs, each as sum(x - 1) + n_valid over the tile's valid
+    pixels; means follow by summing over K and dividing by H*W. On a CUDA
+    tensor the kernel is launched; on a CPU tensor the plain twin runs.
+    """
+    kw = _components_args(a, b, data_range, radius, sigma, k1, k2)
+    squeeze = a.dim() == 2
+    if squeeze:
+        a, b = a[None], b[None]
+    if a.device.type == "cuda":
+        parts = _launch(a, b, mode="components", **kw)
+    else:
+        parts = ssim_components_plain(a, b, **kw)
+    return parts[0] if squeeze else parts
+
+
+def ssim_components_pooled_cuda(
+    a: torch.Tensor,
+    b: torch.Tensor,
+    *,
+    data_range: float = 255.0,
+    radius: int = RADIUS,
+    sigma: float = SIGMA,
+    k1: float = 0.01,
+    k2: float = 0.03,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """ssim_components_cuda fused with the MS-SSIM pyramid's 2x2-mean
+    downsample of the inputs: one launch returns the per-tile [cs, ssim]
+    sums and the pooled next-scale images. a, b as in
+    ssim_components_cuda, with H, W >= 2.
+
+    Returns (parts (..., K, 2), pooled_a, pooled_b), the pooled images f32
+    (..., H//2, W//2): (a[2i, 2j] + a[2i+1, 2j]) + (a[2i, 2j+1] +
+    a[2i+1, 2j+1]), times 0.25, from the raw inputs (a NaN reaches its own
+    pooled pixel), with an odd last row or column dropped. Exact for uint8.
+    """
+    kw = _components_args(a, b, data_range, radius, sigma, k1, k2)
+    if a.shape[-2] < 2 or a.shape[-1] < 2:
+        raise ValueError(f"pooling needs H, W >= 2, got {tuple(a.shape)}")
+    squeeze = a.dim() == 2
+    if squeeze:
+        a, b = a[None], b[None]
+    if a.device.type == "cuda":
+        out = _launch(a, b, mode="pooled", **kw)
+    else:
+        out = ssim_components_pooled_plain(a, b, **kw)
+    return tuple(x[0] for x in out) if squeeze else out

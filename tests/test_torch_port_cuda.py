@@ -1,5 +1,6 @@
-"""The fused CUDA kernels (forward and backward) against their plain
-twins, on the card, and the training path's launches.
+"""The fused CUDA kernels (forward in its standard, components and
+pooled-components modes, and backward) against their plain twins, on the
+card, and the launches of the training and MS-SSIM paths.
 
 Marked `cuda`: it skips without a CUDA device (here, on the CPU). This
 file imports neither JAX nor the repo's conftest, so it also runs on a
@@ -11,7 +12,7 @@ Tolerances (the port-against-counterpart tier of torch_port_util.py):
 2e-7 global, never tighter than 2e-5 / sqrt(npix), and 1e-5 per pixel,
 5e-5 at radius 1. The backward kernel against its twin: 1e-6 * max(1,
 max|g|); both are built to round alike, so they are expected to agree
-exactly.
+exactly. Pooled images: equal to the twin's bit for bit.
 """
 
 import numpy as np
@@ -109,3 +110,66 @@ def test_ssim_loss_backward_launches_the_kernel():
     y = x.detach().cpu().requires_grad_()
     ssim_tpu_torch.ssim_loss(y, a.cpu()).backward()
     assert (x.grad.cpu() - y.grad).abs().max().item() <= 1e-6
+
+
+def _twin_kw(data_range):
+    return dict(taps=gaussian_taps(np.float32, 5, 1.5),
+                c1=(0.01 * data_range) ** 2, c2=(0.03 * data_range) ** 2,
+                clip_bound=max(131072.0, 4.0 * data_range))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,shape", [("u8", (2, 257, 65)), ("u8", (1, 7, 9)),
+                                         ("f32", (2, 131, 301))])
+def test_components_modes_match_twins_on_card(dtype, shape):
+    _need_card()
+    rng = np.random.default_rng(0x58)
+    if dtype == "u8":
+        a, b = _pair(rng, shape)
+        data_range = 255.0
+    else:
+        a = rng.random(shape, dtype=np.float32)
+        b = np.clip(a + rng.normal(0, 0.05, shape), 0, 1).astype(np.float32)
+        a[0, 100, 200] = np.nan
+        data_range = 1.0
+    at, bt = torch.from_numpy(a).cuda(), torch.from_numpy(b).cuda()
+    before = (ssim_cuda.COMPONENTS_LAUNCHES, ssim_cuda.POOLED_LAUNCHES)
+    ck = ssim_cuda.ssim_components_cuda(at, bt, data_range=data_range)
+    pk, pak, pbk = ssim_cuda.ssim_components_pooled_cuda(at, bt, data_range=data_range)
+    torch.cuda.synchronize()
+    assert (ssim_cuda.COMPONENTS_LAUNCHES, ssim_cuda.POOLED_LAUNCHES) == (
+        before[0] + 1, before[1] + 1)
+    assert torch.equal(ck.isnan(), pk.isnan())
+    assert torch.equal(ck.nan_to_num(), pk.nan_to_num())
+    ct, pat, pbt = ssim_cuda.ssim_components_pooled_plain(at, bt, **_twin_kw(data_range))
+    for got, want in ((pak, pat), (pbk, pbt)):
+        assert torch.equal(got.isnan(), want.isnan())
+        assert torch.equal(got.nan_to_num(), want.nan_to_num())
+    npix = shape[1] * shape[2]
+    mk = ck.double().sum(-2).cpu().numpy() / npix
+    mt = ct.double().sum(-2).cpu().numpy() / npix
+    assert np.array_equal(np.isnan(mk), np.isnan(mt))
+    assert np.nanmax(np.abs(mk - mt), initial=0.0) <= max(2e-7, 2e-5 / npix**0.5)
+    if dtype == "f32":
+        assert np.isnan(mk[0]).all() and np.isfinite(mk[1]).all()
+
+
+@pytest.mark.cuda
+def test_ms_ssim_launches_the_kernels():
+    _need_card()
+    rng = np.random.default_rng(0x59)
+    a, b = _pair(rng, (2, 176, 192))
+    counts = lambda: np.array([ssim_cuda.LAUNCHES, ssim_cuda.COMPONENTS_LAUNCHES,
+                               ssim_cuda.POOLED_LAUNCHES, ssim_grad.LAUNCHES])
+    before = counts()
+    got = ssim_tpu_torch.compute_ms_ssim(a, b)
+    after = counts()
+    assert (after - before).tolist() == [0, 1, 4, 0]
+    want = ssim_tpu_torch.compute_ms_ssim(a, b, device="cpu")
+    assert np.abs(got - want).max() <= 2e-5
+    x = torch.from_numpy(a.astype(np.float32) / 255).cuda().requires_grad_()
+    y = torch.from_numpy(b.astype(np.float32) / 255).cuda()
+    (1 - ssim_tpu_torch.ms_ssim(x, y, data_range=1.0)).sum().backward()
+    torch.cuda.synchronize()
+    assert (counts() - after).tolist() == [0, 5, 0, 5]
+    assert torch.isfinite(x.grad).all()
