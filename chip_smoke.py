@@ -46,7 +46,20 @@ Phases, each of which raises on failure (the script then exits non-zero):
    pyramid's shapes with CUDA events, the whole `compute_ms_ssim` call
    and a training step with the host clock, traces five steps, and times
    `torch.nn.functional.pad(mode="replicate")`, the library call of the
-   unported pad kernel (K4), with the bounds of K4 and K5.
+   unported pad kernel (K4), with the bounds of K4 and K5;
+7. the precise tier (`precision="f64"`): the forward kernel's precise
+   modes, with and without the map, against their plain twin (maps bit
+   for bit, per-image fp64 scores within 1e-12 relative) at tiny and
+   ragged, 1080p x4, 1x1024x20480, float-with-NaN, radius 1/16 with
+   custom sigma/k1/k2 and uint16 shapes, and against the f64 oracle on
+   the small ones; one `compute_ssim(precision="f64")` on NumPy uint8
+   (4, 1080, 1920) with no `device` (exactly one precise launch, no
+   other launch, no call of the oracle), then `compute_ssim` at the three
+   main-path shapes and `compute_ssim_map` under the f64 default; then
+   times the precise modes, the standard mode beside them and the twin
+   with CUDA events at those shapes and at 1x1024x20480,
+   `compute_ssim(precision="f64")` with the host clock, and once the
+   oracle route it replaced at (1, 1080, 1920).
 
 Prints the kernel records as one JSON line (with each kernel's roofline
 bound), the card's name and power limit, and last
@@ -81,6 +94,15 @@ ORACLE_GLOBAL, ORACLE_PIXEL = 2e-6, 1e-3
 # plain path, an independent formulation: 2e-5 * max(1, max|g|), the
 # bound of tests/test_torch_port_grad.py.
 GRAD_TWIN, GRAD_AUTOGRAD = 1e-6, 2e-5
+# The precise tier. Kernel against twin: maps bit for bit, per-image fp64
+# scores within 1e-12 relative (only the order of the tile sums differs).
+# Against the f64 oracle: 5e-9 global and 5e-7 per pixel, the JAX
+# package's regression bounds (tests/test_precision.py:27-28); with a
+# custom window the reference double build's tier, 5e-7 and 1e-5 (the f32
+# blurs cancel more at radius 1: 3.4e-6 per pixel on the CPU twin).
+PRECISE_REL = 1e-12
+PRECISE_GLOBAL, PRECISE_PIXEL = 5e-9, 5e-7
+DOUBLE_GLOBAL, DOUBLE_PIXEL = 5e-7, 1e-5
 SEED = 0x55
 
 # Roofline bound: the least time the card could take for the same work,
@@ -110,8 +132,14 @@ SEED = 0x55
 # - K4, the unported pad kernel (ssim_tpu/ops/pad.py): bytes only, one
 #   read of (B, H, W) and one write of (B, hp, wp);
 # - K5, the unported small-image probe (tools/probe_bpack.py): the
-#   forward's 24r + 43 per pixel, u8 inputs, one f32 partial per image.
-HBM_BYTES_PER_S, F32_OPS_PER_S = 3.35e12, 67e12
+#   forward's 24r + 43 per pixel, u8 inputs, one f32 partial per image;
+# - precise (the forward's kPrecise mode): the f32 blurs, 24r + 20 at the
+#   f32 rate, plus in fp64 the four widenings of the blurred signals and
+#   the formula and tile sum (23, as counted for the forward): 27 at
+#   34 TFLOP/s (FP64 outside the tensor cores, H100 SXM data sheet), the
+#   two times added; one f64 partial (8 bytes) per tile, and with the map
+#   4 bytes per pixel.
+HBM_BYTES_PER_S, F32_OPS_PER_S, F64_OPS_PER_S = 3.35e12, 67e12, 34e12
 
 
 def bound_ms(nbytes, ops):
@@ -133,6 +161,17 @@ def bwd_bound(shape, with_g, radius=5):
     npix = bsz * h * w
     return bound_ms((16 + 4 * with_g) * npix + 8 * bsz,
                     (48 * radius + 116 + with_g) * npix)
+
+
+def precise_bound(shape, itemsize, with_map=False, radius=5):
+    bsz, h, w = shape
+    npix = bsz * h * w
+    tiles = bsz * -(-h // 32) * -(-w // 64)
+    t_bytes = (2 * itemsize * npix + 8 * tiles + 4 * npix * with_map) \
+        / HBM_BYTES_PER_S * 1e3
+    t_ops = ((24 * radius + 20) * npix / F32_OPS_PER_S
+             + 27 * npix / F64_OPS_PER_S) * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
 def comp_bound(shape, itemsize, pooled, radius=5):
@@ -720,14 +759,16 @@ def compare_components(name, a, b, **kw):
 def launch_counts():
     from ssim_tpu_torch.ops import ssim_cuda, ssim_grad
 
-    return dict(standard=ssim_cuda.LAUNCHES, components=ssim_cuda.COMPONENTS_LAUNCHES,
+    return dict(standard=ssim_cuda.LAUNCHES, precise=ssim_cuda.PRECISE_LAUNCHES,
+                components=ssim_cuda.COMPONENTS_LAUNCHES,
                 pooled=ssim_cuda.POOLED_LAUNCHES, backward=ssim_grad.LAUNCHES)
 
 
 def zero_counts():
     from ssim_tpu_torch.ops import ssim_cuda, ssim_grad
 
-    ssim_cuda.LAUNCHES = ssim_cuda.COMPONENTS_LAUNCHES = ssim_cuda.POOLED_LAUNCHES = 0
+    ssim_cuda.LAUNCHES = ssim_cuda.PRECISE_LAUNCHES = 0
+    ssim_cuda.COMPONENTS_LAUNCHES = ssim_cuda.POOLED_LAUNCHES = 0
     ssim_grad.LAUNCHES = 0
 
 
@@ -771,7 +812,7 @@ def phase_msssim(gen, label):
     zero_counts()
     s_np = ssim_tpu_torch.compute_ms_ssim(a_np, b_np)
     infer = launch_counts()
-    check(infer == dict(standard=0, components=1, pooled=4, backward=0),
+    check(infer == dict(standard=0, precise=0, components=1, pooled=4, backward=0),
           f"compute_ms_ssim launches {infer}, expected 4 pooled and 1 components")
     s_plain = ssim_tpu_torch.compute_ms_ssim(a_np, b_np, impl="torch")
     d = float(np.abs(s_np - s_plain).max())
@@ -829,7 +870,7 @@ def phase_msssim(gen, label):
     results = [step() for _ in range(5)]
     train = launch_counts()
     losses = [float(loss) for loss, _ in results]
-    check(train == dict(standard=0, components=25, pooled=0, backward=25),
+    check(train == dict(standard=0, precise=0, components=25, pooled=0, backward=25),
           f"5 MS-SSIM training steps launched {train}, expected 25 components and "
           f"25 backward")
     check(all(bool(f) for _, f in results), "non-finite gradients in MS-SSIM training")
@@ -921,6 +962,228 @@ def phase_msssim(gen, label):
     return err, records
 
 
+def precise_twin(a, b, with_map, data_range=255.0, radius=5, sigma=1.5, k1=0.01,
+                 k2=0.03):
+    from ssim_tpu_torch.ops import ssim_cuda
+
+    return ssim_cuda.ssim_parts_precise_plain(
+        a, b, with_map=with_map,
+        taps=ssim_cuda.gaussian_taps(np.float32, radius, sigma),
+        c1=float((k1 * data_range) ** 2), c2=float((k2 * data_range) ** 2),
+        clip_bound=max(131072.0, 4.0 * data_range),
+    )
+
+
+def compare_precise(name, a, b, *, oracle=None, **kw):
+    """Both precise modes (through ops.routing.ssim_parts_auto, which casts
+    u16 to f32 as the engine's route does) and the twin on the same card
+    tensors; with oracle=(global, pixel), also the f64 oracle. Returns the
+    largest score or map difference from the twin, the kernel's per-image
+    scores and the twin's."""
+    from ssim_tpu_torch import reference
+    from ssim_tpu_torch.ops.routing import ssim_parts_auto
+
+    npix = a.shape[-1] * a.shape[-2]
+    pk, none = ssim_parts_auto(a, b, precise=True, **kw)
+    pkm, mk = ssim_parts_auto(a, b, with_map=True, precise=True, **kw)
+    torch.cuda.synchronize()
+    check(none is None and pk.dtype == pkm.dtype == torch.float64,
+          f"{name}: partials {pk.dtype}/{pkm.dtype}")
+    af, bf = (a, b) if a.dtype == torch.uint8 else (a.float(), b.float())
+    pp, mp = precise_twin(af, bf, True, **kw)
+    check(same(mk, mp), f"{name}: the precise map differs from the twin's")
+    check(same(pk, pkm), f"{name}: kPrecise and kPreciseMap partials differ")
+    gk, gp = scores(pk, npix), scores(pp, npix)
+    check(np.array_equal(np.isnan(gk), np.isnan(gp)), f"{name}: NaN scores differ")
+    rel = float(np.nanmax(np.abs(gk - gp) / np.abs(gp), initial=0.0))
+    err = float(np.nanmax(np.abs(gk - gp), initial=0.0))
+    check(rel <= PRECISE_REL, f"{name}: precise kernel vs twin {rel:.3g} relative "
+          f"(tol {PRECISE_REL:g})")
+    line = (f"  {name}: precise kernel vs twin: maps bit for bit, scores "
+            f"{rel:.3g} relative")
+    if oracle is not None:
+        wo, mo = reference.compute_ssim(
+            a.cpu().numpy().astype(np.float64), b.cpu().numpy().astype(np.float64),
+            with_map=True, **kw)
+        o_g = float(np.abs(gk - np.asarray(wo)).max())
+        o_p = float(np.abs(mk.cpu().numpy().astype(np.float64) - mo).max())
+        # A score is a mean of pixels: on a tiny image (1x1, 7x5) it is no
+        # more accurate than one (the rule of tests/test_pallas.py::_check).
+        o_tol = max(oracle[0], 2 * oracle[1] / npix**0.5) if npix < 64 else oracle[0]
+        check(o_g <= o_tol and o_p <= oracle[1],
+              f"{name}: precise kernel vs oracle global {o_g:.3g} (tol {o_tol:.3g}), "
+              f"pixel {o_p:.3g} (tol {oracle[1]:g})")
+        line += f"; vs f64 oracle global {o_g:.3g} pixel {o_p:.3g}"
+    print(line, flush=True)
+    return err, gk, gp
+
+
+def phase_precise(gen, label):
+    import dataclasses
+
+    import ssim_tpu_torch
+    from ssim_tpu_torch import config, reference
+    from ssim_tpu_torch.ops import ssim_cuda
+
+    print('phase 7: the precise tier (precision="f64", kPrecise / kPreciseMap)',
+          flush=True)
+    # (a) Both modes against the twin at every shape they are launched at.
+    err = 0.0
+    for shape in [(1, 255, 63), (1, 257, 65), (2, 1, 1), (2, 7, 5)]:
+        a, b = pair(gen, shape)
+        e, _, _ = compare_precise(f"u8 {shape}", a, b,
+                                  oracle=(PRECISE_GLOBAL, PRECISE_PIXEL))
+        err = max(err, e)
+    # The main-path shapes are held in (c), where they are timed.
+    a, b = pair(gen, (1, 1024, 20480))
+    e, _, _ = compare_precise("u8 (1, 1024, 20480)", a, b)
+    err = max(err, e)
+    del a, b
+    a, b = pair(gen, (2, 300, 500), torch.float32, 1.0)
+    a[0, 123, 321] = float("nan")
+    e, g, _ = compare_precise("f32 NaN in image 0 of 2", a, b, data_range=1.0)
+    check(np.isnan(g[0]) and np.isfinite(g[1]), f"NaN isolation: scores {g}")
+    e1, g1, _ = compare_precise("f32 image 1 alone", a[1:].contiguous(),
+                                b[1:].contiguous(), data_range=1.0,
+                                oracle=(PRECISE_GLOBAL, PRECISE_PIXEL))
+    check(abs(g1[0] - g[1]) <= PRECISE_REL, f"image 1 alone {g1[0]} vs in batch {g[1]}")
+    err = max(err, e, e1)
+    for win in (dict(radius=1, sigma=0.8, k1=0.02, k2=0.05),
+                dict(radius=16, sigma=3.0, k1=0.015, k2=0.04)):
+        a, b = pair(gen, (2, 300, 500))
+        e, _, _ = compare_precise(f"u8 (2, 300, 500) {win}", a, b,
+                                  oracle=(DOUBLE_GLOBAL, DOUBLE_PIXEL), **win)
+        err = max(err, e)
+    rng = np.random.default_rng(SEED)
+    a16 = rng.integers(0, 65536, (2, 300, 500)).astype(np.uint16)
+    b16 = np.clip(a16 + rng.normal(0, 2000, a16.shape), 0, 65535).astype(np.uint16)
+    e, _, _ = compare_precise("u16 (2, 300, 500) data_range 65535",
+                              torch.from_numpy(a16).cuda(), torch.from_numpy(b16).cuda(),
+                              data_range=65535.0, oracle=(PRECISE_GLOBAL, PRECISE_PIXEL))
+    err = max(err, e)
+
+    # (b) The main path: compute_ssim(precision="f64") on NumPy u8 with no
+    # device must launch kPrecise once and call neither the oracle nor any
+    # other mode; then card tensors at the three main-path shapes, and
+    # compute_ssim_map under the f64 default (SSIM_TPU_TORCH_PRECISION).
+    inputs = {name: pair(gen, shape) for name, shape in MAIN_CONFIGS}
+    a_np, b_np = (x.cpu().numpy() for x in inputs["1080p_b4"])
+    oracle_calls = []
+    real_oracle = reference.compute_ssim
+
+    def counted_oracle(*args, **kw):
+        oracle_calls.append(args[0].shape)
+        return real_oracle(*args, **kw)
+
+    torch.cuda.synchronize()
+    reference.compute_ssim = counted_oracle
+    try:
+        zero_counts()
+        s_np = ssim_tpu_torch.compute_ssim(a_np, b_np, precision="f64")
+        first = launch_counts()
+        results = {name: ssim_tpu_torch.compute_ssim(*inputs[name], precision="f64")
+                   for name, _ in MAIN_CONFIGS}
+        old_cfg = config.get_config()
+        config.set_config(dataclasses.replace(old_cfg, precision="f64"))
+        try:
+            s_map, m_map = ssim_tpu_torch.compute_ssim_map(*inputs["1080p_b4"])
+        finally:
+            config.set_config(old_cfg)
+        counts = launch_counts()
+    finally:
+        reference.compute_ssim = real_oracle
+    check(first == dict(standard=0, precise=1, components=0, pooled=0, backward=0),
+          f'NumPy compute_ssim(precision="f64") launches {first}, expected 1 precise')
+    expected = dict(standard=0, precise=2 + len(MAIN_CONFIGS), components=0, pooled=0,
+                    backward=0)
+    check(counts == expected, f"precise main path launches {counts}, expected {expected}")
+    check(oracle_calls == [], f"the f64 oracle was called: {oracle_calls}")
+    launches = counts["precise"]
+    a, b = inputs["1080p_b4"]
+    pp, mp = precise_twin(a, b, True)
+    g_twin = scores(pp, a.shape[-1] * a.shape[-2])
+    for got in (s_np, results["1080p_b4"], s_map):
+        got = np.asarray(got, np.float64)
+        check(got.shape == (4,) and np.isfinite(got).all()
+              and np.abs(got - g_twin).max() <= PRECISE_REL * np.abs(g_twin).max(),
+              f'compute_ssim(precision="f64") {got} vs the twin {g_twin}')
+    check(torch.equal(torch.from_numpy(m_map), mp.cpu()),
+          "compute_ssim_map under the f64 default: map differs from the twin's")
+    del pp, mp
+    print(f'  compute_ssim(precision="f64") NumPy u8 (4, 1080, 1920), no device: '
+          f"launches {first}, oracle calls 0, scores {s_np}; then {launches} precise "
+          f"launches in all (3 main-path shapes, compute_ssim_map under the f64 "
+          f"default), no other mode, no oracle call", flush=True)
+
+    # (c) At each main-path shape: both precise modes and the main path's
+    # scores held against the twin; then times of the precise modes, the
+    # standard mode beside them (in turns: standard, precise, precise +
+    # map, standard), the twin, and compute_ssim(precision="f64") end to end.
+    records = {}
+    for name, shape in MAIN_CONFIGS:
+        a, b = inputs[name]
+        e, _, g_twin = compare_precise(f"u8 {shape}", a, b)
+        err = max(err, e)
+        s = np.atleast_1d(np.asarray(results[name], np.float64))
+        check(s.shape == (shape[0],) and np.isfinite(s).all()
+              and np.abs(s - g_twin).max() <= PRECISE_REL * np.abs(g_twin).max(),
+              f'{name}: compute_ssim(precision="f64") {s} vs the twin {g_twin}')
+        mpix = shape[0] * shape[1] * shape[2] / 1e6
+        t_std_a = cuda_ms(lambda: ssim_cuda.ssim_parts_cuda(a, b), 20)
+        t_p = cuda_ms(lambda: ssim_cuda.ssim_parts_cuda(a, b, precise=True), 20)
+        t_pm = cuda_ms(lambda: ssim_cuda.ssim_parts_cuda(a, b, with_map=True,
+                                                         precise=True), 20)
+        t_std_b = cuda_ms(lambda: ssim_cuda.ssim_parts_cuda(a, b), 20)
+        t_plain = cuda_ms(lambda: precise_twin(a, b, False), 5)
+        e2e = host_times(lambda: ssim_tpu_torch.compute_ssim(a, b, precision="f64"), 10)
+        bnd, by = precise_bound(shape, 1)
+        bnd_m, _ = precise_bound(shape, 1, with_map=True)
+        records[name] = dict(
+            shape=list(shape), ms=t_p, map_ms=t_pm, standard_ms=[t_std_a, t_std_b],
+            plain_ms=t_plain, bound_ms=bnd, bound_by=by, bound_map_ms=bnd_m,
+            compute_ssim_f64_ms=statistics.median(e2e), compute_ssim_f64_runs=e2e,
+        )
+        print(f"  {name} {shape}: precise {t_p:.4f} ms ({mpix / t_p * 1e3:.1f} Mpix/s), "
+              f"precise + map {t_pm:.4f} ms, standard {t_std_a:.4f} / {t_std_b:.4f} ms "
+              f"(precise / standard {t_p / min(t_std_a, t_std_b):.3f}); twin "
+              f"{t_plain:.3f} ms; compute_ssim(precision=\"f64\") "
+              f"{statistics.median(e2e):.3f} ms median of 10 ({min(e2e):.3f}-"
+              f"{max(e2e):.3f}); bound {bnd:.4f} ms ({by}), {bnd_m:.4f} ms with the "
+              f"map | {label}", flush=True)
+        del inputs[name]
+        torch.cuda.empty_cache()
+    # Wider than the 16384 lanes of K1's fast path: the JAX package's K2.
+    shape = (1, 1024, 20480)
+    a, b = pair(gen, shape)
+    t_p = cuda_ms(lambda: ssim_cuda.ssim_parts_cuda(a, b, precise=True), 20)
+    t_plain = cuda_ms(lambda: precise_twin(a, b, False), 5)
+    bnd, by = precise_bound(shape, 1)
+    records["wide"] = dict(shape=list(shape), ms=t_p, plain_ms=t_plain, bound_ms=bnd,
+                           bound_by=by)
+    print(f"  wide {shape}: precise {t_p:.4f} ms; twin {t_plain:.3f} ms; bound "
+          f"{bnd:.4f} ms ({by}) | {label}", flush=True)
+    del a, b
+
+    # (d) The route the kernel replaced, the host f64 oracle, once at
+    # (1, 1080, 1920), beside the card route on the same NumPy input.
+    a1, b1 = (x[:1].copy() for x in (a_np, b_np))
+    t0 = time.perf_counter()
+    s_oracle = ssim_tpu_torch.compute_ssim(a1, b1, precision="f64", impl="reference")
+    t_oracle = (time.perf_counter() - t0) * 1e3
+    card = host_times(lambda: ssim_tpu_torch.compute_ssim(a1, b1, precision="f64"), 10)
+    s_card = ssim_tpu_torch.compute_ssim(a1, b1, precision="f64")
+    d = float(np.abs(np.asarray(s_card) - np.asarray(s_oracle)).max())
+    check(d <= PRECISE_GLOBAL, f"(1, 1080, 1920): card route vs oracle {d:.3g}")
+    print(f"  (1, 1080, 1920) NumPy u8: the oracle route (host NumPy f64) "
+          f"{t_oracle:.1f} ms once; the card route {statistics.median(card):.3f} ms "
+          f"median of 10 ({min(card):.3f}-{max(card):.3f}); scores {d:.3g} apart "
+          f"| {label}", flush=True)
+    records["oracle_1080p_b1_ms"] = t_oracle
+    records["card_1080p_b1_ms"] = statistics.median(card)
+    records["card_vs_oracle_1080p_b1"] = d
+    return launches, err, records
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this script needs a GPU",
@@ -952,6 +1215,7 @@ def main():
     launches, records = phase_main(gen, label)
     train_fwd, train_bwd, grad_err, train = phase_train(gen, label)
     comp_err, ms = phase_msssim(gen, label)
+    prec_launches, prec_err, prec = phase_precise(gen, label)
     check("jax" not in sys.modules, "JAX was imported")
 
     ref = records["4k_b4"]
@@ -1019,6 +1283,28 @@ def main():
         "device_ms_f32_scale1": ms["times"]["pooled_f32_scale1"]["device_ms"],
         "compute_ms_ssim_ms": statistics.median(ms["compute_ms_ssim_ms"]),
         "msssim_train_step_ms": statistics.median(ms["train_step_ms"]),
+    }, {
+        "name": "ssim_fwd_precise",
+        "route": "cuda",
+        "source": "ssim_tpu_torch/csrc/ssim_fwd.cu",
+        "replaces": "ssim_tpu/ops/ssim_pallas.py:710 (K1 mode b), "
+                    "ssim_tpu/ops/ssim_pallas.py:1364 (K2 precise)",
+        "launches": prec_launches,
+        "max_abs_err": prec_err,
+        **{k: prec["4k_b4"][k]
+           for k in ("ms", "plain_ms", "bound_ms", "bound_by", "shape")},
+        "library_ms": None,
+        "map_ms": prec["4k_b4"]["map_ms"],
+        "standard_ms": prec["4k_b4"]["standard_ms"],
+        "ms_1080p_b4": prec["1080p_b4"]["ms"],
+        "ms_16k_b1": prec["16k_b1"]["ms"],
+        "ms_wide": prec["wide"]["ms"],
+        "plain_ms_wide": prec["wide"]["plain_ms"],
+        "bound_ms_wide": prec["wide"]["bound_ms"],
+        "shape_wide": prec["wide"]["shape"],
+        "compute_ssim_f64_ms": prec["4k_b4"]["compute_ssim_f64_ms"],
+        "oracle_route_ms_1080p_b1": prec["oracle_1080p_b1_ms"],
+        "card_route_ms_1080p_b1": prec["card_1080p_b1_ms"],
     }]}))
     print(label)
     print(json.dumps({"ok": True, "device": {

@@ -4,7 +4,8 @@ Counterpart of `ssim_tpu/__init__.py` for the slices ported so far:
 
 - the eager API (`compute_ssim`, `compute_ssim_map`, `compute_ssim_legacy`)
   on uint8 and float images, single or batched, at the standard f32 tier
-  with or without the per-pixel map;
+  and the precise tier (`precision="f64"`), with or without the per-pixel
+  map;
 - training: the differentiable tensor functions `ssim`, `ssim_and_map`
   and `ssim_loss`;
 - multi-scale SSIM, `ms_ssim` and `compute_ms_ssim`, for inference and
@@ -12,7 +13,8 @@ Counterpart of `ssim_tpu/__init__.py` for the slices ported so far:
 
 They run through two hand-written CUDA kernels for Hopper, built with nvcc
 at first use: the fused forward (`csrc/ssim_fwd.cu`; standard, map,
-MS-SSIM components and pooled-components modes) and the fused analytic
+precise fp64, MS-SSIM components and pooled-components modes) and the
+fused analytic
 backward (`csrc/ssim_bwd.cu`), on CUDA tensors, and through each kernel's
 plain PyTorch twin on CPU tensors. This package imports torch and NumPy,
 never JAX or ssim_tpu.

@@ -61,7 +61,10 @@ def compute_ssim(
     Accepts either (a, b) as arrays/tensors/ImageViews, or a single
     `Params`. Returns `float` (or (B,) float64 array), or `(score, map)`
     when `with_map`. Keyword arguments as in `ssim_tpu.compute_ssim`,
-    plus `device` (see engine.compute).
+    plus `device` (see engine.compute). precision="f64" (or the
+    SSIM_TPU_TORCH_PRECISION=f64 default) runs the forward kernel's fp64
+    mode on the card, and the f64 oracle only for the inputs the JAX
+    package sends there too (engine.compute).
     """
     params = None
     if isinstance(a, Params):
@@ -102,7 +105,8 @@ def compute_ssim(
 
 
 def compute_ssim_map(a, b, *, impl="auto", data_range: float = 255.0, device=None):
-    """Convenience: return (global_ssim, per-pixel map)."""
+    """Convenience: return (global_ssim, per-pixel map), at the
+    configured default precision (Config.precision)."""
     return compute_ssim(a, b, with_map=True, impl=impl, data_range=data_range,
                         device=device)
 

@@ -1,17 +1,33 @@
-// Fused SSIM forward for NVIDIA Hopper (sm_90a), standard f32 tier.
+// Fused SSIM forward for NVIDIA Hopper (sm_90a): the standard f32 tier,
+// the precise (fp64) tier, and the MS-SSIM components modes.
 //
 // Replaces the two TPU forward kernels of the JAX package:
 // ssim_tpu/ops/ssim_pallas.py::_nopad_overlap_call (:710; full-width row
 // tiles, widths up to 16384 lanes) in its modes a (standard, with or
-// without the map), c (components) and d (pool_out, u8 and f32), and
-// ::_chunked_overlap_call (:1364; the same over lane chunks for wider
-// images) in its standard, map and components modes. That split exists
-// only for TPU lane widths and VMEM; here one 2-D grid of output tiles
-// covers every width, so K2's components mode needs no kernel of its own.
+// without the map), b (precise), c (components) and d (pool_out, u8 and
+// f32), and ::_chunked_overlap_call (:1364; the same over lane chunks for
+// wider images) in its standard, map, precise and components modes. That
+// split exists only for TPU lane widths and VMEM; here one 2-D grid of
+// output tiles covers every width, so K2's modes need no kernel of their
+// own.
 //
 // Modes (compile time, one copy of the halo load and the two blurs):
 // - kScore / kMap: one f32 partial per tile, sum(ssim - 1) + n_valid, with
 //   the SSIM formula of _ssim_from_blurs; kMap also writes the map.
+// - kPrecise / kPreciseMap (precision="f64", the counterpart of the
+//   reference's RMGR_SSIM_USE_DOUBLE build): the same f32 blurs, bit for
+//   bit the standard modes', then the four blurred signals widened to
+//   double and the formula of _ssim_from_blurs evaluated in native fp64
+//   (num / den, the algebra the TPU kernel compensates in df32,
+//   _ssim_from_blurs_df32, ssim_pallas.py:621-644), the tile's
+//   sum(ssim - 1) accumulated in double, and ONE fp64 partial per tile,
+//   sum(ssim - 1) + n_valid. The TPU kernel writes two f32 partials per
+//   tile (the df32 hi and lo + e, :1188-1195); both are summed in f64 by
+//   engine.finalize_mean, so the score is the same quantity. kPreciseMap
+//   also writes the map as the f32 rounding of the fp64 value (the TPU
+//   map is the df32 hi). c1 and c2 arrive as doubles, so the precise
+//   formula sees them unrounded; the f32 modes take them rounded to
+//   float on the host (c1f, c2f), as before the precise modes existed.
 // - kComponents (MS-SSIM, _l_cs_from_blurs, ssim_pallas.py:480-490 and
 //   :1196-1199): lum and cs from the four blurs, ssim = lum * cs (not the
 //   standard num / den, so the last bits differ from kScore), and two
@@ -32,15 +48,18 @@
 // (u8 or f32) and writes at most one f32 map value (kPooled: half an f32
 // per input pixel), while the function needs 24r + 43 f32 operations
 // (163 at radius 5: 4 signals x 2 passes x (3r + 2), the signals and the
-// formula; kComponents 24r + 45, kPooled 24r + 47; counted in
-// chip_smoke.py). Device memory (3.35 TB/s) would allow ~1 Tpix/s for u8
-// without a map and the f32 peak ~410 Gpix/s, so the kernel is bound on
-// chip: by the blurs' shared-memory traffic (~80 32-bit accesses per
-// output pixel at radius 5) and instruction issue. It measured 30-39
-// Gpix/s in mode kScore on an H100, the same with and without FMA
-// contraction, and the same with the L2 flushed between launches. The
-// pool adds 2 operations and reads the tile's inputs once more, from L1
-// or L2, where the halo load has just brought them.
+// formula; kComponents 24r + 45, kPooled 24r + 47; kPrecise 24r + 20 in
+// f32 and 27 in fp64; counted in chip_smoke.py). Device memory (3.35
+// TB/s) would allow ~1 Tpix/s for u8 without a map and the f32 peak ~410
+// Gpix/s, so the kernel is bound on chip: by the blurs' shared-memory
+// traffic (~80 32-bit accesses per output pixel at radius 5) and
+// instruction issue. It measured 30-39 Gpix/s in mode kScore on an H100,
+// the same with and without FMA contraction, and the same with the L2
+// flushed between launches. The pool adds 2 operations and reads the
+// tile's inputs once more, from L1 or L2, where the halo load has just
+// brought them. The precise formula is ~27 fp64 operations, one of them a
+// division (a short software sequence), against ~140 f32 blur operations
+// per pixel.
 // What the design does about it: each pixel of the halo tile is read from
 // device memory once and converted to f32 on load; both blur passes run
 // out of shared memory with symmetric tap pairs (r + 1 multiplies per
@@ -52,24 +71,33 @@
 // clamped as the halo tile is loaded; nothing is padded in device
 // memory), nan_to_num + clip of float inputs with NaN poisoning of the
 // tile (its ssim and cs alike) when one of its own pixels is not finite,
-// the four-signal formulas, and per-tile f32 partials of x - 1 plus
-// n_valid. One partial per block and value, no atomics: the result is
+// the four-signal formulas, and per-tile partials of x - 1 plus n_valid.
+// One partial per block and value, no atomics: the result is
 // deterministic. Build without --use_fast_math (it would flush subnormals
 // and approximate the division) and with --fmad=false: each multiply and
-// add then rounds as in the plain PyTorch twins (ops/ssim_cuda.py), which
-// do the same operations in the same order, so per-pixel values and
-// pooled images match the twins bit for bit and only the order of the
-// tile sums differs.
+// add, f32 or fp64, then rounds as in the plain PyTorch twins
+// (ops/ssim_cuda.py), which do the same operations in the same order, and
+// fp64 division is IEEE, so per-pixel values and pooled images match the
+// twins bit for bit and only the order of the tile sums differs.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 namespace {
 
 constexpr int kThreads = 256;
 constexpr int kMaxTaps = 33;  // radius <= 16
 
-enum Mode { kScore = 0, kMap = 1, kComponents = 2, kPooled = 3 };
+enum Mode {
+  kScore = 0,
+  kMap = 1,
+  kComponents = 2,
+  kPooled = 3,
+  kPrecise = 4,
+  kPreciseMap = 5,
+};
 
 struct Taps {
   float t[kMaxTaps];
@@ -92,16 +120,20 @@ __device__ __forceinline__ float sanitize(float v, float bound) {
 template <typename T, int kMode>
 __global__ void __launch_bounds__(kThreads)
 ssim_fwd_kernel(const T* __restrict__ a, const T* __restrict__ b,
-                float* __restrict__ partials, float* __restrict__ map,
+                void* __restrict__ partials, float* __restrict__ map,
                 float* __restrict__ pool_a, float* __restrict__ pool_b,
                 int H, int W, int r, int TH, int TW, int ntx,
-                int tiles_per_image, Taps taps, float c1, float c2,
-                float clip_bound) {
+                int tiles_per_image, Taps taps, float c1f, float c2f,
+                double c1, double c2, float clip_bound) {
   constexpr bool kFloat = sizeof(T) == 4;
   constexpr bool kComp = kMode == kComponents || kMode == kPooled;
+  constexpr bool kPrec = kMode == kPrecise || kMode == kPreciseMap;
+  constexpr bool kWithMap = kMode == kMap || kMode == kPreciseMap;
+  // The tile sums' type: double in the precise modes, else float.
+  using Acc = typename std::conditional<kPrec, double, float>::type;
   extern __shared__ float smem[];
   __shared__ float s_taps[kMaxTaps];
-  __shared__ float s_warp[2][kThreads / 32];  // [0]: ssim, [1]: cs
+  __shared__ Acc s_warp[kComp ? 2 : 1][kThreads / 32];  // [0]: ssim, [1]: cs
 
   const int HR = TH + 2 * r;  // halo rows
   const int HW = TW + 2 * r;  // halo columns
@@ -183,7 +215,7 @@ ssim_fwd_kernel(const T* __restrict__ a, const T* __restrict__ b,
   __syncthreads();
 
   // Vertical pass, the SSIM formula, the map and the tile sums.
-  float local = 0.0f, local_cs = 0.0f;
+  Acc local = 0, local_cs = 0;
   for (int ly = ty; ly < vh; ly += ystep) {
     for (int lx = tx; lx < vw; lx += TW) {
       const float* c = hp + (ly + r) * TW + lx;
@@ -201,32 +233,48 @@ ssim_fwd_kernel(const T* __restrict__ a, const T* __restrict__ b,
       const float mu_b = m1 + tc * c[plane];
       const float s_ss = m2 + tc * c[2 * plane];
       const float s_dd = m3 + tc * c[3 * plane];
-      // _ssim_from_blurs (ssim_pallas.py:465-477) or, for the
-      // components, _l_cs_from_blurs (:480-490).
-      const float mu_a2 = mu_a * mu_a;
-      const float mu_b2 = mu_b * mu_b;
-      const float mu_ab = mu_a * mu_b;
-      const float sigma_ab_x4 = (s_ss - s_dd) - 4.0f * mu_ab;
-      const float sigma_sum_x2 = (s_ss + s_dd) - 2.0f * (mu_a2 + mu_b2);
-      float v, cs = 0.0f;
-      if (kComp) {
-        const float lum = (2.0f * mu_ab + c1) / (mu_a2 + mu_b2 + c1);
-        cs = (0.5f * sigma_ab_x4 + c2) / (0.5f * sigma_sum_x2 + c2);
-        v = lum * cs;
-      } else {
-        const float num = (2.0f * mu_ab + c1) * (0.5f * sigma_ab_x4 + c2);
-        const float den = (mu_a2 + mu_b2 + c1) * (0.5f * sigma_sum_x2 + c2);
+      Acc v, cs = 0;
+      if constexpr (kPrec) {
+        // _ssim_from_blurs (ssim_pallas.py:465-477) in fp64 on the
+        // widened f32 blurs.
+        const double da = mu_a, db = mu_b, dss = s_ss, ddd = s_dd;
+        const double mu_a2 = da * da;
+        const double mu_b2 = db * db;
+        const double mu_ab = da * db;
+        const double sigma_ab_x4 = (dss - ddd) - 4.0 * mu_ab;
+        const double sigma_sum_x2 = (dss + ddd) - 2.0 * (mu_a2 + mu_b2);
+        const double num = (2.0 * mu_ab + c1) * (0.5 * sigma_ab_x4 + c2);
+        const double den = (mu_a2 + mu_b2 + c1) * (0.5 * sigma_sum_x2 + c2);
         v = num / den;
+      } else {
+        // _ssim_from_blurs (ssim_pallas.py:465-477) or, for the
+        // components, _l_cs_from_blurs (:480-490).
+        const float mu_a2 = mu_a * mu_a;
+        const float mu_b2 = mu_b * mu_b;
+        const float mu_ab = mu_a * mu_b;
+        const float sigma_ab_x4 = (s_ss - s_dd) - 4.0f * mu_ab;
+        const float sigma_sum_x2 = (s_ss + s_dd) - 2.0f * (mu_a2 + mu_b2);
+        if (kComp) {
+          const float lum = (2.0f * mu_ab + c1f) / (mu_a2 + mu_b2 + c1f);
+          cs = (0.5f * sigma_ab_x4 + c2f) / (0.5f * sigma_sum_x2 + c2f);
+          v = lum * cs;
+        } else {
+          const float num = (2.0f * mu_ab + c1f) * (0.5f * sigma_ab_x4 + c2f);
+          const float den =
+              (mu_a2 + mu_b2 + c1f) * (0.5f * sigma_sum_x2 + c2f);
+          v = num / den;
+        }
       }
       if (kFloat && bad) {
-        v = __int_as_float(0x7fc00000);  // NaN
+        v = (Acc)__int_as_float(0x7fc00000);  // NaN
         cs = v;
       }
-      if (kMode == kMap) {
-        map[base + (size_t)(y0 + ly) * (size_t)W + (size_t)(x0 + lx)] = v;
+      if (kWithMap) {
+        map[base + (size_t)(y0 + ly) * (size_t)W + (size_t)(x0 + lx)] =
+            (float)v;
       }
-      local += v - 1.0f;
-      if (kComp) local_cs += cs - 1.0f;
+      local += v - (Acc)1;
+      if (kComp) local_cs += cs - (Acc)1;
     }
   }
 
@@ -237,22 +285,23 @@ ssim_fwd_kernel(const T* __restrict__ a, const T* __restrict__ b,
   }
   if ((tid & 31) == 0) {
     s_warp[0][tid >> 5] = local;
-    s_warp[1][tid >> 5] = local_cs;
+    if constexpr (kComp) s_warp[1][tid >> 5] = local_cs;
   }
   __syncthreads();
   if (tid == 0) {
-    const float n_valid = (float)(vh * vw);
-    float s = 0.0f, s_cs = 0.0f;
+    const Acc n_valid = (Acc)(vh * vw);
+    Acc s = 0, s_cs = 0;
 #pragma unroll
     for (int w = 0; w < kThreads / 32; ++w) {
       s += s_warp[0][w];
-      s_cs += s_warp[1][w];
+      if constexpr (kComp) s_cs += s_warp[1][w];
     }
-    if (kComp) {
-      partials[2 * (size_t)tile] = s_cs + n_valid;
-      partials[2 * (size_t)tile + 1] = s + n_valid;
+    if constexpr (kComp) {
+      float* p = static_cast<float*>(partials);
+      p[2 * (size_t)tile] = s_cs + n_valid;
+      p[2 * (size_t)tile + 1] = s + n_valid;
     } else {
-      partials[tile] = s + n_valid;
+      static_cast<Acc*>(partials)[tile] = s + n_valid;
     }
   }
 
@@ -285,8 +334,8 @@ ssim_fwd_kernel(const T* __restrict__ a, const T* __restrict__ b,
 template <typename T, int kMode>
 cudaError_t launch(const void* a, const void* b, void* partials, void* map,
                    void* pool_a, void* pool_b, int B, int H, int W, int r,
-                   int TH, int TW, const float* taps_host, float c1, float c2,
-                   float clip_bound, cudaStream_t stream) {
+                   int TH, int TW, const float* taps_host, double c1,
+                   double c2, float clip_bound, cudaStream_t stream) {
   if (kMode == kPooled && ((TH | TW) & 1)) return cudaErrorInvalidValue;
   Taps taps;
   for (int k = 0; k < kMaxTaps; ++k) {
@@ -305,10 +354,10 @@ cudaError_t launch(const void* a, const void* b, void* partials, void* map,
       (int)smem);
   if (err != cudaSuccess) return err;
   ssim_fwd_kernel<T, kMode><<<(unsigned)blocks, kThreads, smem, stream>>>(
-      static_cast<const T*>(a), static_cast<const T*>(b),
-      static_cast<float*>(partials), static_cast<float*>(map),
-      static_cast<float*>(pool_a), static_cast<float*>(pool_b), H, W, r, TH,
-      TW, ntx, tiles_per_image, taps, c1, c2, clip_bound);
+      static_cast<const T*>(a), static_cast<const T*>(b), partials,
+      static_cast<float*>(map), static_cast<float*>(pool_a),
+      static_cast<float*>(pool_b), H, W, r, TH, TW, ntx, tiles_per_image, taps,
+      (float)c1, (float)c2, c1, c2, clip_bound);
   return cudaGetLastError();
 }
 
@@ -316,7 +365,7 @@ template <int kMode>
 cudaError_t launch_typed(int is_float, const void* a, const void* b,
                          void* partials, void* map, void* pool_a,
                          void* pool_b, int B, int H, int W, int r, int TH,
-                         int TW, const float* taps_host, float c1, float c2,
+                         int TW, const float* taps_host, double c1, double c2,
                          float clip_bound, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   return is_float
@@ -331,19 +380,22 @@ cudaError_t launch_typed(int is_float, const void* a, const void* b,
 }  // namespace
 
 // The C entry for ctypes. mode: 0 = kScore, 1 = kMap, 2 = kComponents,
-// 3 = kPooled. is_float: 0 = uint8 inputs, 1 = float32 inputs. partials:
-// (B, ceil(H/TH) * ceil(W/TW)) f32, with a trailing 2 of [cs, ssim] in
-// the components modes. map: (B, H, W) f32 in kMap, else NULL. pool_a,
-// pool_b: (B, H/2, W/2) f32 each in kPooled (TH and TW even), else NULL.
-// taps_host: 2r+1 floats in host memory. Returns the launch's
-// cudaError_t.
+// 3 = kPooled, 4 = kPrecise, 5 = kPreciseMap; any other value is refused
+// (the precise tier has no components or pooled mode). is_float: 0 =
+// uint8 inputs, 1 = float32 inputs. partials: (B, ceil(H/TH) *
+// ceil(W/TW)) f32, with a trailing 2 of [cs, ssim] in the components
+// modes, and f64 in the precise modes. map: (B, H, W) f32 in kMap and
+// kPreciseMap, else NULL. pool_a, pool_b: (B, H/2, W/2) f32 each in
+// kPooled (TH and TW even), else NULL. taps_host: 2r+1 floats in host
+// memory. c1, c2: the stabilising constants (rounded to float by the f32
+// modes). Returns the launch's cudaError_t.
 extern "C" int ssim_fwd_launch(int mode, int is_float, const void* a,
                                const void* b, void* partials, void* map,
                                void* pool_a, void* pool_b, int B, int H,
                                int W, int r, int TH, int TW,
-                               const float* taps_host, float c1, float c2,
+                               const float* taps_host, double c1, double c2,
                                float clip_bound, void* stream) {
-  if ((map != nullptr) != (mode == kMap) ||
+  if ((map != nullptr) != (mode == kMap || mode == kPreciseMap) ||
       (pool_a != nullptr) != (mode == kPooled) ||
       (pool_b != nullptr) != (mode == kPooled)) {
     return cudaErrorInvalidValue;
@@ -365,6 +417,14 @@ extern "C" int ssim_fwd_launch(int mode, int is_float, const void* a,
       return launch_typed<kPooled>(is_float, a, b, partials, map, pool_a,
                                    pool_b, B, H, W, r, TH, TW, taps_host, c1,
                                    c2, clip_bound, stream);
+    case kPrecise:
+      return launch_typed<kPrecise>(is_float, a, b, partials, map, pool_a,
+                                    pool_b, B, H, W, r, TH, TW, taps_host, c1,
+                                    c2, clip_bound, stream);
+    case kPreciseMap:
+      return launch_typed<kPreciseMap>(is_float, a, b, partials, map, pool_a,
+                                       pool_b, B, H, W, r, TH, TW, taps_host,
+                                       c1, c2, clip_bound, stream);
     default:
       return cudaErrorInvalidValue;
   }

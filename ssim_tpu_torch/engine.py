@@ -11,12 +11,19 @@ What differs from the JAX engine:
   caller's choice, as in any PyTorch op), and for NumPy input `cuda`. On a
   machine without a GPU, NumPy input with no `device`, or an explicit
   `cuda`, raises UnsupportedError: the CPU is used only when asked for
-  (`device="cpu"`, or CPU tensors). The host oracle (`impl="reference"`,
-  `precision="f64"`) needs no device.
-- Interim: `precision="f64"` routes to the f64 oracle for every
-  implementation (the JAX engine does so for every impl that lacks its
-  compensated kernel; the port has no f64 kernel yet), and
-  `accuracy="relaxed"` is validated but computes the standard tier.
+  (`device="cpu"`, or CPU tensors). Only the host oracle needs no device:
+  `impl="reference"`, and the `precision="f64"` calls the kernel does not
+  serve (below).
+- `precision="f64"` is routed as the JAX engine routes it
+  (ssim_tpu/engine.py:277-292): impl `cuda`/`auto`, radius <= 16 and a
+  pair of one dtype that embeds exactly in f32 (u8, u16, f16, bf16, f32)
+  run the forward kernel's precise mode, which evaluates the formula and
+  the tile sums in native fp64 where the TPU kernel uses compensated
+  df32; f64 inputs (the f32 cast would round them before the formula),
+  mixed dtypes, radius > 16, `impl="torch"` and `impl="reference"` take
+  the f64 oracle, as in the JAX package.
+- Interim: `accuracy="relaxed"` is validated but computes the standard
+  tier.
 """
 
 from typing import Optional, Tuple
@@ -219,12 +226,17 @@ def compute(
 ) -> Tuple[np.ndarray, Optional[np.ndarray]]:
     """Run SSIM end to end on NumPy arrays or torch tensors.
 
-    a, b: (H, W) or (B, H, W). precision: "f32" or "f64" (interim: the
-    f64 oracle). accuracy: "standard" or "relaxed" (interim: both compute
-    the standard tier). downsample: None, "auto" or an int k >= 1 (k x k
-    box-mean prefilter, on the compute device). radius/sigma/k1/k2: the
-    window; radius > 16 takes the plain PyTorch path. device: see the
-    module docstring.
+    a, b: (H, W) or (B, H, W). precision: "f32" or "f64" (the
+    reference's RMGR_SSIM_USE_DOUBLE build: the kernel's fp64 mode, or
+    the f64 oracle for the inputs listed in the module docstring).
+    accuracy: "standard" or "relaxed" (interim: both compute the standard
+    tier). downsample: None, "auto" or an int k >= 1 (k x k box-mean
+    prefilter, on the compute device; with precision="f64" on the
+    kernel's route too, in f32 before the fp64 formula, as the JAX
+    engine pools; the oracle pools on the host in f64).
+    radius/sigma/k1/k2: the window; radius > 16 takes the plain PyTorch
+    path (with precision="f64", the oracle). device: see the module
+    docstring.
     Returns (global_ssim float64 scalar or (B,), map f32 NumPy or None).
     """
     from .config import get_config
@@ -250,8 +262,15 @@ def compute(
             'accuracy="relaxed" contradicts precision="f64" — pick one tier'
         )
     impl = select_impl(impl)
-    if precision == "f64":
-        impl = Implementation.REFERENCE
+    precise = precision == "f64"
+    if precise:
+        from .ops.routing import precise_routable
+
+        if not (impl == Implementation.CUDA and precise_routable(a, b, radius)):
+            # What the kernel's fp64 mode cannot serve exactly: f64 inputs
+            # (the f32 cast would round them first), mixed dtypes,
+            # radius > 16 and the other impls.
+            impl = Implementation.REFERENCE
 
     if impl == Implementation.REFERENCE:
         from . import reference
@@ -289,8 +308,8 @@ def compute(
         if cfg.max_tile_w is not None:
             tile_kwargs["tile_w"] = cfg.max_tile_w
         partials, ssim_map = ssim_parts_auto(
-            a, b, with_map=with_map, data_range=data_range, **window,
-            **tile_kwargs,
+            a, b, with_map=with_map, data_range=data_range, precise=precise,
+            **window, **tile_kwargs,
         )
     else:
         from .ops.ssim_torch import ssim_parts_torch

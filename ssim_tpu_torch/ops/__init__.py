@@ -9,6 +9,7 @@ from .ssim_torch import ssim_parts_torch, blur_separable
 from .ssim_cuda import (
     ssim_components_cuda, ssim_components_plain, ssim_components_pooled_cuda,
     ssim_components_pooled_plain, ssim_parts_cuda, ssim_parts_plain,
+    ssim_parts_precise_plain,
 )
 from .routing import ssim_parts_auto, pallas_routable
 from .ssim_grad import grad_cuda_supported, ssim_grad_cuda, ssim_grad_plain
@@ -18,6 +19,7 @@ __all__ = [
     "blur_separable",
     "ssim_parts_cuda",
     "ssim_parts_plain",
+    "ssim_parts_precise_plain",
     "ssim_components_cuda",
     "ssim_components_plain",
     "ssim_components_pooled_cuda",

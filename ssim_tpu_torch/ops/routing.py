@@ -9,6 +9,13 @@ Counterpart of `ssim_tpu/ops/routing.py`, with the same policy:
 - radius > MAX_FUSED_RADIUS and everything else (mixed dtypes, other
   integers): `ssim_parts_torch`.
 
+`precise=True` (the precise tier) passes to the kernel's fp64 modes on
+both kernel routes. It never runs `ssim_parts_torch`, whose formula is
+f32: with a radius over MAX_FUSED_RADIUS, a pair the kernel does not
+take, or float64 inputs (the f32 cast would round them before the fp64
+formula) it raises, and the caller takes the f64 oracle
+(`engine.compute(precision="f64")` routes those cases there).
+
 The JAX package's lane-packed branch for batches of small images is TPU
 lane machinery; here such batches take the same kernel, whose grid holds
 one block per tile of every image, with the same one-score-per-image
@@ -22,6 +29,35 @@ import torch
 from .ssim_cuda import MAX_FUSED_RADIUS, ssim_parts_cuda
 from .ssim_torch import ssim_parts_torch
 
+_EXACT_F32 = ("uint8", "uint16", "float16", "bfloat16", "float32")
+
+
+def _dtype_name(dt) -> str:
+    """A NumPy (ml_dtypes included) or torch dtype's name without the
+    "torch." prefix, so the two kinds compare."""
+    return str(dt).removeprefix("torch.")
+
+
+def _exact_f32_cast(dt) -> bool:
+    """Dtypes that embed exactly in float32, so the precise tier loses
+    nothing casting to the kernel's f32 input: u8 (native), u16, f16,
+    bf16, f32 itself. f64 inputs would round before the fp64 formula
+    could see the low bits; those keep the host f64 oracle. NumPy and
+    torch dtypes alike (the port's copy of ssim_tpu/engine.py:102)."""
+    return _dtype_name(dt) in _EXACT_F32
+
+
+def precise_routable(a, b, radius: int) -> bool:
+    """Whether the kernel's fp64 modes serve this pair exactly: one dtype
+    that embeds exactly in f32 and radius <= MAX_FUSED_RADIUS. a, b:
+    NumPy arrays or tensors. The rest (f64 inputs, mixed dtypes, larger
+    radii) take the f64 oracle, as in ssim_tpu/engine.py:277-292."""
+    return (
+        radius <= MAX_FUSED_RADIUS
+        and _dtype_name(a.dtype) == _dtype_name(b.dtype)
+        and _exact_f32_cast(a.dtype)
+    )
+
 
 def _is_float_routable(dt: torch.dtype) -> bool:
     return dt.is_floating_point or dt == torch.uint16
@@ -33,6 +69,7 @@ def ssim_parts_auto(
     *,
     with_map: bool = False,
     data_range: float = 255.0,
+    precise: bool = False,
     radius: int = 5,
     sigma: float = 1.5,
     k1: float = 0.01,
@@ -40,8 +77,17 @@ def ssim_parts_auto(
     **tile_kwargs,
 ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
     """Fused kernel when the dtype allows it, ssim_parts_torch otherwise.
-    tile_kwargs (tile_h, tile_w) pin the kernel's tile."""
+    precise: the kernel's precise tier (f64 partials); raises where the
+    kernel cannot serve it. tile_kwargs (tile_h, tile_w) pin the kernel's
+    tile."""
     window = dict(radius=radius, sigma=sigma, k1=k1, k2=k2)
+    if precise and not precise_routable(a, b, radius):
+        raise ValueError(
+            f"precise=True takes radius <= {MAX_FUSED_RADIUS} and pairs of "
+            "one dtype that embeds exactly in f32 (u8, u16, f16, bf16, f32), "
+            f"got {a.dtype}/{b.dtype} at radius {radius} — use the f64 "
+            "oracle (engine.compute(precision='f64'))"
+        )
     if radius > MAX_FUSED_RADIUS or not pallas_routable(a, b):
         return ssim_parts_torch(
             a, b, with_map=with_map, data_range=data_range, **window
@@ -49,12 +95,12 @@ def ssim_parts_auto(
     if a.dtype == torch.uint8:
         return ssim_parts_cuda(
             a.contiguous(), b.contiguous(), with_map=with_map,
-            data_range=data_range, **window, **tile_kwargs,
+            data_range=data_range, precise=precise, **window, **tile_kwargs,
         )
     return ssim_parts_cuda(
         a.to(torch.float32).contiguous(), b.to(torch.float32).contiguous(),
         with_map=with_map, data_range=data_range, allow_float=True,
-        **window, **tile_kwargs,
+        precise=precise, **window, **tile_kwargs,
     )
 
 

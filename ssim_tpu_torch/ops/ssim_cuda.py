@@ -2,10 +2,15 @@
 plain PyTorch twins.
 
 Counterpart of `ssim_tpu/ops/ssim_pallas.py` over `_nopad_overlap_call`
-and `_chunked_overlap_call`, in three of their modes:
+and `_chunked_overlap_call`, in four of their modes:
 
 - standard tier, with or without the map: `ssim_parts_cuda`
   (`ssim_parts_pallas`), twin `ssim_parts_plain`;
+- precise tier (precision="f64"), with or without the map:
+  `ssim_parts_cuda(precise=True)` (`ssim_parts_pallas(precise=True)`),
+  twin `ssim_parts_precise_plain`: the standard f32 blurs, the SSIM
+  formula in native fp64 where the TPU kernel compensates it in df32, and
+  one fp64 partial per tile where the TPU kernel writes two f32 ones;
 - MS-SSIM components, per-tile [sum cs, sum ssim]:
   `ssim_components_cuda` (`ssim_components_pallas`), twin
   `ssim_components_plain`;
@@ -25,7 +30,8 @@ the same clamp-to-edge rule, the four blurred signals a, b, (a+b)^2,
 (a-b)^2 with the kernel's order of operations, the float sanitise and
 per-tile NaN poison, and per-tile partials of x - 1 plus n_valid. They
 are what the CPU tests run and what the kernel is held against on the
-card.
+card. A wrapper never gives way to its twin on a CUDA tensor: if the
+kernel does not build or launch, it raises.
 """
 
 import ctypes
@@ -39,7 +45,8 @@ from .pool import downsample2
 from .ssim_torch import _pad_edge
 
 #: Largest window radius the kernel serves (its taps live in a 33-float
-#: array); larger radii route to ssim_parts_torch.
+#: array); larger radii route to ssim_parts_torch (precision="f64": the
+#: f64 oracle).
 MAX_FUSED_RADIUS = 16
 
 #: Default output tile. TILE_W must be a power of two in [32, 256]: the
@@ -54,11 +61,12 @@ _MAX_TILE_H = 256
 _MAX_DYNAMIC_SMEM = 232448 - 256
 
 #: Kernel launches made in this process by ssim_parts_cuda (standard
-#: tier, with or without the map), ssim_components_cuda and
-#: ssim_components_pooled_cuda, one counter per mode. Each wrapper adds one
-#: per launch and nowhere else, so a caller can show which modes a run
-#: went through.
+#: tier, with or without the map; PRECISE_LAUNCHES: the precise tier),
+#: ssim_components_cuda and ssim_components_pooled_cuda, one counter per
+#: mode. Each is added to in one place, per launch, and nowhere else, so
+#: a caller can show which modes a run went through.
 LAUNCHES = 0
+PRECISE_LAUNCHES = 0
 COMPONENTS_LAUNCHES = 0
 POOLED_LAUNCHES = 0
 
@@ -170,15 +178,28 @@ def _poison(x, bad, tile_h, tile_w):
 
 
 def _tile_partials(x, tile_h, tile_w):
-    """(B, K) per-tile sum(x - 1) + n_valid of a (B, H, W) f32 map."""
+    """(B, K) per-tile sum(x - 1) + n_valid of a (B, H, W) map, in the
+    map's dtype (f32, or f64 in the precise tier)."""
     bsz, h, w = x.shape
     sums = _tile_reduce(x - 1.0, tile_h, tile_w, lambda v: v.sum(dim=(2, 4)))
     nty, ntx = tile_grid(h, w, tile_h, tile_w)
     vrows = [min(tile_h, h - i * tile_h) for i in range(nty)]
     vcols = [min(tile_w, w - j * tile_w) for j in range(ntx)]
-    n_valid = torch.tensor(np.outer(vrows, vcols), dtype=torch.float32,
+    n_valid = torch.tensor(np.outer(vrows, vcols), dtype=x.dtype,
                            device=x.device)
     return (sums + n_valid).reshape(bsz, nty * ntx)
+
+
+def _ssim_map_plain(a, b, dtype, taps, c1, c2, clip_bound, tile_h, tile_w):
+    """Per-pixel SSIM of the standard and precise modes: the f32 blurs,
+    then the formula of _ssim_from_blurs in `dtype` (f32, or f64 on the
+    widened blurs), with NaN over the tiles of non-finite inputs."""
+    blurs, bad = _blurs_plain(a, b, taps, clip_bound)
+    mu_a2, mu_b2, mu_ab, sigma_ab_x4, sigma_sum_x2 = _sigmas(
+        *(x.to(dtype) for x in blurs))
+    num = (2.0 * mu_ab + c1) * (0.5 * sigma_ab_x4 + c2)
+    den = (mu_a2 + mu_b2 + c1) * (0.5 * sigma_sum_x2 + c2)
+    return _poison(num / den, bad, tile_h, tile_w)
 
 
 def ssim_parts_plain(
@@ -196,13 +217,33 @@ def ssim_parts_plain(
     """The standard mode's plain twin on (B, H, W) u8 or f32 tensors, on
     any device. Returns (partials (B, nty*ntx) f32, map (B, H, W) f32 or
     None)."""
-    blurs, bad = _blurs_plain(a, b, taps, clip_bound)
-    mu_a2, mu_b2, mu_ab, sigma_ab_x4, sigma_sum_x2 = _sigmas(*blurs)
-    num = (2.0 * mu_ab + c1) * (0.5 * sigma_ab_x4 + c2)
-    den = (mu_a2 + mu_b2 + c1) * (0.5 * sigma_sum_x2 + c2)
-    ssim = _poison(num / den, bad, tile_h, tile_w)
+    ssim = _ssim_map_plain(a, b, torch.float32, taps, c1, c2, clip_bound,
+                           tile_h, tile_w)
     partials = _tile_partials(ssim, tile_h, tile_w)
     return partials, (ssim if with_map else None)
+
+
+def ssim_parts_precise_plain(
+    a: torch.Tensor,
+    b: torch.Tensor,
+    *,
+    with_map: bool,
+    taps: np.ndarray,
+    c1: float,
+    c2: float,
+    clip_bound: float,
+    tile_h: int = TILE_H,
+    tile_w: int = TILE_W,
+) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+    """The precise mode's plain twin on (B, H, W) u8 or f32 tensors, on
+    any device: the standard mode's f32 blurs widened to f64, the SSIM
+    formula in f64 in the kernel's order, the per-tile NaN poison, and f64
+    tile sums over the same grid. Returns (partials (B, nty*ntx) f64,
+    map (B, H, W) f32, the f64 values rounded, or None)."""
+    ssim = _ssim_map_plain(a, b, torch.float64, taps, c1, c2, clip_bound,
+                           tile_h, tile_w)
+    partials = _tile_partials(ssim, tile_h, tile_w)
+    return partials, (ssim.to(torch.float32) if with_map else None)
 
 
 def ssim_components_plain(
@@ -241,16 +282,19 @@ def ssim_components_pooled_plain(
     return ssim_components_plain(a, b, **kw), downsample2(a), downsample2(b)
 
 
-#: The kernel's modes, in the order of the C entry's `mode` argument.
-_MODES = ("score", "map", "components", "pooled")
+#: The kernel's modes, in the order of the C entry's `mode` argument. The
+#: precise tier has no components or pooled mode (nor has the TPU
+#: kernel's): the C entry refuses any other mode number.
+_MODES = ("score", "map", "components", "pooled", "precise", "precise_map")
 
 
 def _launch(a, b, *, mode, taps, c1, c2, clip_bound, tile_h, tile_w):
-    """Launch the CUDA kernel in `mode` ("score", "map", "components" or
-    "pooled") on (B, H, W) contiguous tensors on one CUDA device; no
-    synchronisation. Returns the mode's outputs: (partials, map or None),
-    (B, K, 2) partials, or (partials, pooled_a, pooled_b)."""
-    global LAUNCHES, COMPONENTS_LAUNCHES, POOLED_LAUNCHES
+    """Launch the CUDA kernel in `mode` (one of _MODES) on (B, H, W)
+    contiguous tensors on one CUDA device; no synchronisation. Returns
+    the mode's outputs: (partials, map or None) (partials f64 in the
+    precise modes), (B, K, 2) partials, or (partials, pooled_a,
+    pooled_b)."""
+    global LAUNCHES, PRECISE_LAUNCHES, COMPONENTS_LAUNCHES, POOLED_LAUNCHES
     from . import _build
 
     lib = _build.load_library()
@@ -259,9 +303,14 @@ def _launch(a, b, *, mode, taps, c1, c2, clip_bound, tile_h, tile_w):
     if bsz * nty * ntx > 0x7FFFFFFF:
         raise ValueError(f"{bsz * nty * ntx} tiles exceed one launch's grid")
     comp = mode in ("components", "pooled")
+    precise = mode in ("precise", "precise_map")
     new = lambda *shape: torch.empty(shape, dtype=torch.float32, device=a.device)
-    partials = new(bsz, nty * ntx, 2) if comp else new(bsz, nty * ntx)
-    ssim_map = new(bsz, h, w) if mode == "map" else None
+    if comp:
+        partials = new(bsz, nty * ntx, 2)
+    else:
+        partials = torch.empty((bsz, nty * ntx), device=a.device,
+                               dtype=torch.float64 if precise else torch.float32)
+    ssim_map = new(bsz, h, w) if mode in ("map", "precise_map") else None
     pooled = (new(bsz, h // 2, w // 2), new(bsz, h // 2, w // 2)) \
         if mode == "pooled" else (None, None)
     ptr = lambda x: None if x is None else x.data_ptr()
@@ -282,7 +331,10 @@ def _launch(a, b, *, mode, taps, c1, c2, clip_bound, tile_h, tile_w):
     if comp:
         COMPONENTS_LAUNCHES += 1
         return partials
-    LAUNCHES += 1
+    if precise:
+        PRECISE_LAUNCHES += 1
+    else:
+        LAUNCHES += 1
     return partials, ssim_map
 
 
@@ -343,6 +395,7 @@ def ssim_parts_cuda(
     k1: float = 0.01,
     k2: float = 0.03,
     allow_float: bool = False,
+    precise: bool = False,
     tile_h: Optional[int] = None,
     tile_w: Optional[int] = None,
 ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
@@ -355,6 +408,13 @@ def ssim_parts_cuda(
     (..., H, W) f32. On a CUDA tensor the kernel is launched; on a CPU
     tensor the plain twin runs. tile_h / tile_w pin the tile (defaults
     TILE_H x TILE_W).
+
+    precise=True is the precise tier (precision="f64", the reference's
+    RMGR_SSIM_USE_DOUBLE build): the same f32 blurs, the SSIM formula and
+    the tile sums in native fp64, and partials (..., K) f64, one per tile.
+    The JAX kernel's precise mode writes 2K f32 partials (df32 hi, lo +
+    e); engine.finalize_mean sums either in f64, so the score is the same
+    quantity. The map is the f32 rounding of the fp64 values.
 
     Float inputs are sanitised (NaN -> 0, clip to +-max(131072,
     4*data_range)); a tile whose own pixels include a NaN or inf gets a
@@ -378,9 +438,14 @@ def ssim_parts_cuda(
     if squeeze:
         a, b = a[None], b[None]
     if a.device.type == "cuda":
-        partials, ssim_map = _launch(a, b, mode="map" if with_map else "score", **kw)
+        if precise:
+            mode = "precise_map" if with_map else "precise"
+        else:
+            mode = "map" if with_map else "score"
+        partials, ssim_map = _launch(a, b, mode=mode, **kw)
     else:
-        partials, ssim_map = ssim_parts_plain(a, b, with_map=with_map, **kw)
+        plain = ssim_parts_precise_plain if precise else ssim_parts_plain
+        partials, ssim_map = plain(a, b, with_map=with_map, **kw)
     if squeeze:
         partials = partials[0]
         ssim_map = None if ssim_map is None else ssim_map[0]

@@ -12,7 +12,7 @@ import torch
 
 from conftest import random_pair
 from torch_port_util import (
-    ORACLE_GLOBAL, ORACLE_PIXEL, assert_close, float_pair,
+    ORACLE_GLOBAL, ORACLE_PIXEL, PRECISE_GLOBAL, assert_close, float_pair,
 )
 
 import ssim_tpu
@@ -181,9 +181,14 @@ def test_every_impl_agrees_with_oracle(rng, impl):
 
 
 def test_precision_f64_and_relaxed_interim_routes(rng):
+    """u8 with precision="f64" runs the kernel's precise mode (its twin on
+    the CPU), within the precise tier of the oracle; relaxed is still the
+    standard tier (interim)."""
     a, b = random_pair(rng, 37, 53)
     want, _ = ssim_tpu_torch.reference.compute_ssim(a, b)
-    assert ssim_tpu_torch.compute_ssim(a, b, precision="f64", device="cpu") == want
+    got = ssim_tpu_torch.compute_ssim(a, b, precision="f64", device="cpu")
+    assert type(got) is float
+    assert abs(got - want) <= PRECISE_GLOBAL
     std = ssim_tpu_torch.compute_ssim(a, b, device="cpu")
     assert ssim_tpu_torch.compute_ssim(a, b, accuracy="relaxed", device="cpu") == std
 

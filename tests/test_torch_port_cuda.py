@@ -1,6 +1,6 @@
-"""The fused CUDA kernels (forward in its standard, components and
-pooled-components modes, and backward) against their plain twins, on the
-card, and the launches of the training and MS-SSIM paths.
+"""The fused CUDA kernels (forward in its standard, precise, components
+and pooled-components modes, and backward) against their plain twins, on
+the card, and the launches of the training and MS-SSIM paths.
 
 Marked `cuda`: it skips without a CUDA device (here, on the CPU). This
 file imports neither JAX nor the repo's conftest, so it also runs on a
@@ -12,7 +12,8 @@ Tolerances (the port-against-counterpart tier of torch_port_util.py):
 2e-7 global, never tighter than 2e-5 / sqrt(npix), and 1e-5 per pixel,
 5e-5 at radius 1. The backward kernel against its twin: 1e-6 * max(1,
 max|g|); both are built to round alike, so they are expected to agree
-exactly. Pooled images: equal to the twin's bit for bit.
+exactly. Pooled images, and the precise modes' maps: equal to the twin's
+bit for bit; precise scores within 1e-12 relative.
 """
 
 import numpy as np
@@ -152,6 +153,48 @@ def test_components_modes_match_twins_on_card(dtype, shape):
     assert np.nanmax(np.abs(mk - mt), initial=0.0) <= max(2e-7, 2e-5 / npix**0.5)
     if dtype == "f32":
         assert np.isnan(mk[0]).all() and np.isfinite(mk[1]).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,with_map", [("u8", False), ("u8", True),
+                                            ("f32", False), ("f32", True)])
+def test_precise_kernel_matches_twin_on_card(dtype, with_map):
+    """The precise modes (kPrecise, kPreciseMap) against their twin: maps
+    bit for bit (both built to round alike), per-image fp64 scores within
+    1e-12 relative (only the order of the tile sums differs)."""
+    _need_card()
+    rng = np.random.default_rng(0x5A)
+    shape = (2, 257, 301)
+    if dtype == "u8":
+        a, b = _pair(rng, shape)
+        data_range = 255.0
+    else:
+        a = rng.random(shape, dtype=np.float32)
+        b = np.clip(a + rng.normal(0, 0.05, shape), 0, 1).astype(np.float32)
+        a[0, 100, 200] = np.nan
+        data_range = 1.0
+    at, bt = torch.from_numpy(a).cuda(), torch.from_numpy(b).cuda()
+    before = (ssim_cuda.LAUNCHES, ssim_cuda.PRECISE_LAUNCHES)
+    pk, mk = ssim_cuda.ssim_parts_cuda(at, bt, with_map=with_map, precise=True,
+                                       data_range=data_range,
+                                       allow_float=dtype == "f32")
+    torch.cuda.synchronize()
+    assert (ssim_cuda.LAUNCHES, ssim_cuda.PRECISE_LAUNCHES) == (before[0], before[1] + 1)
+    assert pk.dtype == torch.float64 and pk.is_cuda
+    pp, mp = ssim_cuda.ssim_parts_precise_plain(at, bt, with_map=with_map,
+                                                **_twin_kw(data_range))
+    if with_map:
+        assert torch.equal(mk.isnan(), mp.isnan())
+        assert torch.equal(mk.nan_to_num(), mp.nan_to_num())
+    else:
+        assert mk is None
+    npix = shape[1] * shape[2]
+    gk = pk.sum(-1).cpu().numpy() / npix
+    gp = pp.sum(-1).cpu().numpy() / npix
+    assert np.array_equal(np.isnan(gk), np.isnan(gp))
+    assert np.nanmax(np.abs(gk - gp) / np.abs(gp), initial=0.0) <= 1e-12
+    if dtype == "f32":
+        assert np.isnan(gk[0]) and np.isfinite(gk[1])
 
 
 @pytest.mark.cuda
