@@ -59,12 +59,32 @@ Phases, each of which raises on failure (the script then exits non-zero):
    times the precise modes, the standard mode beside them and the twin
    with CUDA events at those shapes and at 1x1024x20480,
    `compute_ssim(precision="f64")` with the host clock, and once the
-   oracle route it replaced at (1, 1080, 1920).
+   oracle route it replaced at (1, 1080, 1920);
+8. batches of small images (the JAX package's packed route): the forward
+   kernel's batch modes (kBatch, kBatchPrecise; one partial pair per
+   image) against their twin, against the tile modes' per-image scores
+   and, on the small shapes, against the f64 oracle, at the JAX package's
+   packed-path test shapes, (5, 16, 2048), a tall (2, 8192, 64), (2, 1, 1)
+   and (2, 7, 5), f32 with a NaN in one image (only that image's score is
+   NaN), radius 1 / 16 with custom sigma/k1/k2, and the routed shapes of
+   (c); the route: one `compute_ssim` on NumPy uint8 (4096, 64, 64) with
+   no `device` (exactly one kBatch launch and no other), the same with
+   `precision="f64"` (exactly one kBatchPrecise launch, no call of the
+   oracle), the same with a tile pin in the config (exactly one standard
+   launch), and one Adam step of `ssim_loss` on f32 (256, 64, 64) (one
+   kBatch and one backward launch, the kBatch partials held against the
+   twin; the loss falls); then at 32x32 x8192, 64x64 x4096, 128x128
+   x1024, 192x192 x512 (u8) and precise 64x64 x4096, the batch mode
+   against the tile grid on the same inputs with CUDA events (in turns:
+   tile, batch, batch, tile), `compute_ssim` on both routes (the tile
+   route by a tile pin; in turns) with the host clock, and the twin.
 
 Prints the kernel records as one JSON line (with each kernel's roofline
 bound), the card's name and power limit, and last
 `{"ok": true, "device": {...}}`. Inputs are random, made on the device
-from a fixed seed. Imports no JAX.
+from a fixed seed. Imports no JAX. Where it cannot start (no CUDA, or no
+`ssim_tpu_torch` package beside it) it prints one line
+`{"ok": false, "error": ...}` and exits non-zero.
 """
 
 import json
@@ -131,8 +151,9 @@ SEED = 0x55
 #   of a quarter of the pixels): 24r + 47;
 # - K4, the unported pad kernel (ssim_tpu/ops/pad.py): bytes only, one
 #   read of (B, H, W) and one write of (B, hp, wp);
-# - K5, the unported small-image probe (tools/probe_bpack.py): the
-#   forward's 24r + 43 per pixel, u8 inputs, one f32 partial per image;
+# - the batch modes (kBatch, kBatchPrecise: K1e, and the contract of K5,
+#   tools/probe_bpack.py): per pixel the standard (precise) forward's
+#   operations, u8 inputs, and two f32 (f64) partials per image;
 # - precise (the forward's kPrecise mode): the f32 blurs, 24r + 20 at the
 #   f32 rate, plus in fp64 the four widenings of the blurred signals and
 #   the formula and tile sum (23, as counted for the forward): 27 at
@@ -149,11 +170,13 @@ def bound_ms(nbytes, ops):
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def fwd_bound(shape, itemsize, radius=5):
+def fwd_bound(shape, itemsize, radius=5, out_bytes=None):
+    """out_bytes: the bytes written (default one f32 partial per tile)."""
     bsz, h, w = shape
     npix = bsz * h * w
     tiles = bsz * -(-h // 32) * -(-w // 64)
-    return bound_ms(2 * itemsize * npix + 4 * tiles, (24 * radius + 43) * npix)
+    out = 4 * tiles if out_bytes is None else out_bytes
+    return bound_ms(2 * itemsize * npix + out, (24 * radius + 43) * npix)
 
 
 def bwd_bound(shape, with_g, radius=5):
@@ -163,11 +186,13 @@ def bwd_bound(shape, with_g, radius=5):
                     (48 * radius + 116 + with_g) * npix)
 
 
-def precise_bound(shape, itemsize, with_map=False, radius=5):
+def precise_bound(shape, itemsize, with_map=False, radius=5, out_bytes=None):
+    """out_bytes: the partials' bytes (default one f64 partial per tile)."""
     bsz, h, w = shape
     npix = bsz * h * w
     tiles = bsz * -(-h // 32) * -(-w // 64)
-    t_bytes = (2 * itemsize * npix + 8 * tiles + 4 * npix * with_map) \
+    out = 8 * tiles if out_bytes is None else out_bytes
+    t_bytes = (2 * itemsize * npix + out + 4 * npix * with_map) \
         / HBM_BYTES_PER_S * 1e3
     t_ops = ((24 * radius + 20) * npix / F32_OPS_PER_S
              + 27 * npix / F64_OPS_PER_S) * 1e3
@@ -761,7 +786,14 @@ def launch_counts():
 
     return dict(standard=ssim_cuda.LAUNCHES, precise=ssim_cuda.PRECISE_LAUNCHES,
                 components=ssim_cuda.COMPONENTS_LAUNCHES,
-                pooled=ssim_cuda.POOLED_LAUNCHES, backward=ssim_grad.LAUNCHES)
+                pooled=ssim_cuda.POOLED_LAUNCHES, batch=ssim_cuda.BATCH_LAUNCHES,
+                batch_precise=ssim_cuda.BATCH_PRECISE_LAUNCHES,
+                backward=ssim_grad.LAUNCHES)
+
+
+def counts_of(**nonzero):
+    """The launch counts with every mode at 0 but those given."""
+    return dict(dict.fromkeys(launch_counts(), 0), **nonzero)
 
 
 def zero_counts():
@@ -769,6 +801,7 @@ def zero_counts():
 
     ssim_cuda.LAUNCHES = ssim_cuda.PRECISE_LAUNCHES = 0
     ssim_cuda.COMPONENTS_LAUNCHES = ssim_cuda.POOLED_LAUNCHES = 0
+    ssim_cuda.BATCH_LAUNCHES = ssim_cuda.BATCH_PRECISE_LAUNCHES = 0
     ssim_grad.LAUNCHES = 0
 
 
@@ -812,7 +845,7 @@ def phase_msssim(gen, label):
     zero_counts()
     s_np = ssim_tpu_torch.compute_ms_ssim(a_np, b_np)
     infer = launch_counts()
-    check(infer == dict(standard=0, precise=0, components=1, pooled=4, backward=0),
+    check(infer == counts_of(components=1, pooled=4),
           f"compute_ms_ssim launches {infer}, expected 4 pooled and 1 components")
     s_plain = ssim_tpu_torch.compute_ms_ssim(a_np, b_np, impl="torch")
     d = float(np.abs(s_np - s_plain).max())
@@ -870,7 +903,7 @@ def phase_msssim(gen, label):
     results = [step() for _ in range(5)]
     train = launch_counts()
     losses = [float(loss) for loss, _ in results]
-    check(train == dict(standard=0, precise=0, components=25, pooled=0, backward=25),
+    check(train == counts_of(components=25, backward=25),
           f"5 MS-SSIM training steps launched {train}, expected 25 components and "
           f"25 backward")
     check(all(bool(f) for _, f in results), "non-finite gradients in MS-SSIM training")
@@ -979,13 +1012,17 @@ def compare_precise(name, a, b, *, oracle=None, **kw):
     u16 to f32 as the engine's route does) and the twin on the same card
     tensors; with oracle=(global, pixel), also the f64 oracle. Returns the
     largest score or map difference from the twin, the kernel's per-image
-    scores and the twin's."""
+    scores and the twin's. The default tile is pinned, so that the router
+    keeps a batch of small images, which it would send to the batch modes
+    (phase 8), on the tile modes held here."""
     from ssim_tpu_torch import reference
+    from ssim_tpu_torch.ops import ssim_cuda
     from ssim_tpu_torch.ops.routing import ssim_parts_auto
 
     npix = a.shape[-1] * a.shape[-2]
-    pk, none = ssim_parts_auto(a, b, precise=True, **kw)
-    pkm, mk = ssim_parts_auto(a, b, with_map=True, precise=True, **kw)
+    tile = dict(tile_h=ssim_cuda.TILE_H, tile_w=ssim_cuda.TILE_W)
+    pk, none = ssim_parts_auto(a, b, precise=True, **tile, **kw)
+    pkm, mk = ssim_parts_auto(a, b, with_map=True, precise=True, **tile, **kw)
     torch.cuda.synchronize()
     check(none is None and pk.dtype == pkm.dtype == torch.float64,
           f"{name}: partials {pk.dtype}/{pkm.dtype}")
@@ -1092,10 +1129,9 @@ def phase_precise(gen, label):
         counts = launch_counts()
     finally:
         reference.compute_ssim = real_oracle
-    check(first == dict(standard=0, precise=1, components=0, pooled=0, backward=0),
+    check(first == counts_of(precise=1),
           f'NumPy compute_ssim(precision="f64") launches {first}, expected 1 precise')
-    expected = dict(standard=0, precise=2 + len(MAIN_CONFIGS), components=0, pooled=0,
-                    backward=0)
+    expected = counts_of(precise=2 + len(MAIN_CONFIGS))
     check(counts == expected, f"precise main path launches {counts}, expected {expected}")
     check(oracle_calls == [], f"the f64 oracle was called: {oracle_calls}")
     launches = counts["precise"]
@@ -1184,13 +1220,276 @@ def phase_precise(gen, label):
     return launches, err, records
 
 
+def batch_twin(a, b, precise, data_range=255.0, radius=5, sigma=1.5, k1=0.01,
+               k2=0.03):
+    from ssim_tpu_torch.ops import ssim_cuda
+
+    return ssim_cuda.ssim_parts_batch_plain(
+        a, b, precise, taps=ssim_cuda.gaussian_taps(np.float32, radius, sigma),
+        c1=float((k1 * data_range) ** 2), c2=float((k2 * data_range) ** 2),
+        clip_bound=max(131072.0, 4.0 * data_range),
+    )
+
+
+def compare_batch(name, a, b, *, oracle=None, **kw):
+    """Both batch modes against their twin and against the tile modes'
+    per-image scores on the same card tensors; with oracle=(standard
+    global, precise global), also the f64 oracle. Returns the largest
+    score difference from the twin and each mode's per-image scores."""
+    from ssim_tpu_torch import reference
+    from ssim_tpu_torch.ops import ssim_cuda
+
+    bsz, h, w = a.shape
+    npix = h * w
+    allow = a.dtype == torch.float32
+    err, got, parts = 0.0, {}, []
+    for precise in (False, True):
+        pk = ssim_cuda.ssim_parts_batch_cuda(a, b, precise=precise, allow_float=allow, **kw)
+        tk, _ = ssim_cuda.ssim_parts_cuda(a, b, precise=precise, allow_float=allow, **kw)
+        torch.cuda.synchronize()
+        tag = "kBatchPrecise" if precise else "kBatch"
+        check(tuple(pk.shape) == (bsz, 2)
+              and pk.dtype == (torch.float64 if precise else torch.float32),
+              f"{name}: {tag} partials {tuple(pk.shape)} {pk.dtype}")
+        check(bool((pk[:, 1] == npix).all()), f"{name}: {tag} count column is not {npix}")
+        gk = scores(pk, npix)
+        for label, ref in (("twin", batch_twin(a, b, precise, **kw)), ("tile modes", tk)):
+            gr = scores(ref, npix)
+            check(np.array_equal(np.isnan(gk), np.isnan(gr)), f"{name}: {tag} NaN vs {label}")
+            diff = np.abs(gk - gr)
+            e = float(np.nanmax(diff / np.abs(gr) if precise else diff, initial=0.0))
+            tol = PRECISE_REL if precise else TWIN_GLOBAL
+            check(e <= tol, f"{name}: {tag} vs {label} {e:.3g} (tol {tol:g})")
+            if label == "twin":
+                err = max(err, float(np.nanmax(diff, initial=0.0)))
+            parts.append(f"{tag} vs {label} {e:.3g}")
+        got[precise] = gk
+    if oracle is not None:
+        wo, _ = reference.compute_ssim(a.cpu().numpy().astype(np.float64),
+                                       b.cpu().numpy().astype(np.float64), **kw)
+        wo = np.atleast_1d(np.asarray(wo))
+        for precise, base in ((False, oracle[0]), (True, oracle[1])):
+            pixel = PRECISE_PIXEL if precise else ORACLE_PIXEL
+            tol = max(base, 2 * pixel / npix**0.5) if (npix < 64 or not precise) else base
+            o = float(np.abs(got[precise] - wo).max())
+            check(o <= tol, f"{name}: {'precise' if precise else 'standard'} batch vs "
+                  f"oracle {o:.3g} (tol {tol:.3g})")
+            parts.append(f"{'precise' if precise else 'standard'} vs f64 oracle {o:.3g}")
+    print(f"  {name}: " + ", ".join(parts) + " (precise relative)", flush=True)
+    return err, got
+
+
+BATCH_CONFIGS = [("32x32_b8192", (8192, 32, 32), False),
+                 ("64x64_b4096", (4096, 64, 64), False),
+                 ("128x128_b1024", (1024, 128, 128), False),
+                 ("192x192_b512", (512, 192, 192), False),
+                 ("64x64_b4096_f64", (4096, 64, 64), True)]
+
+
+def phase_batch(gen, label):
+    import dataclasses
+
+    import ssim_tpu_torch
+    from ssim_tpu_torch import config, reference
+    from ssim_tpu_torch.ops import routing, ssim_cuda
+
+    print("phase 8: batches of small images (kBatch / kBatchPrecise)", flush=True)
+    # (a) Both modes against the twin, the tile modes and the oracle. The
+    # routed shapes of (c) are held there, before they are timed.
+    err = 0.0
+    std_oracle = (ORACLE_GLOBAL, PRECISE_GLOBAL)
+    for shape in [(4, 64, 64), (3, 33, 47), (2, 30, 200), (5, 11, 11), (3, 50, 1),
+                  (5, 16, 2048), (2, 8192, 64), (2, 1, 1), (2, 7, 5)]:
+        a, b = pair(gen, shape)
+        e, _ = compare_batch(f"u8 {shape}", a, b, oracle=std_oracle)
+        err = max(err, e)
+    a, b = pair(gen, (64, 64, 64), torch.float32, 1.0)
+    a[5, 40, 17] = float("nan")
+    e, got = compare_batch("f32 (64, 64, 64) NaN in image 5", a, b, data_range=1.0)
+    for precise, g in got.items():
+        check(np.isnan(g[5]) and np.isfinite(np.delete(g, 5)).all(),
+              f"NaN isolation (precise={precise}): scores {g}")
+    e1, g1 = compare_batch("f32 image 6 alone", a[6:7].contiguous(), b[6:7].contiguous(),
+                           data_range=1.0, oracle=std_oracle)
+    check(g1[False][0] == got[False][6] and g1[True][0] == got[True][6],
+          "image 6 alone differs from image 6 in the batch")
+    print("  NaN reaches only image 5; image 6 alone equals image 6 in the batch",
+          flush=True)
+    err = max(err, e, e1)
+    for win in (dict(radius=1, sigma=0.8, k1=0.02, k2=0.05),
+                dict(radius=16, sigma=3.0, k1=0.015, k2=0.04)):
+        a, b = pair(gen, (4, 64, 64))
+        e, _ = compare_batch(f"u8 (4, 64, 64) {win}", a, b,
+                             oracle=(ORACLE_GLOBAL, DOUBLE_GLOBAL), **win)
+        err = max(err, e)
+
+    # (b) The route: compute_ssim on NumPy u8 with no device, in both
+    # tiers and with a tile pin; one ssim_loss step on an f32 batch.
+    a, b = pair(gen, (4096, 64, 64))
+    a_np, b_np = a.cpu().numpy(), b.cpu().numpy()
+    oracle_calls = []
+    real_oracle = reference.compute_ssim
+
+    def counted_oracle(*args, **kw):
+        oracle_calls.append(args[0].shape)
+        return real_oracle(*args, **kw)
+
+    route = {}
+    old_cfg = config.get_config()
+    torch.cuda.synchronize()
+    reference.compute_ssim = counted_oracle
+    try:
+        zero_counts()
+        s = ssim_tpu_torch.compute_ssim(a_np, b_np)
+        route["compute_ssim"] = launch_counts()
+        zero_counts()
+        s64 = ssim_tpu_torch.compute_ssim(a_np, b_np, precision="f64")
+        route["compute_ssim_f64"] = launch_counts()
+        config.set_config(dataclasses.replace(old_cfg, max_tile_h=32, max_tile_w=64))
+        try:
+            zero_counts()
+            s_tile = ssim_tpu_torch.compute_ssim(a_np, b_np)
+            route["compute_ssim_tile_pin"] = launch_counts()
+        finally:
+            config.set_config(old_cfg)
+    finally:
+        reference.compute_ssim = real_oracle
+    check(route["compute_ssim"] == counts_of(batch=1),
+          f"compute_ssim launches {route['compute_ssim']}, expected 1 kBatch")
+    check(route["compute_ssim_f64"] == counts_of(batch_precise=1),
+          f'compute_ssim(precision="f64") launches {route["compute_ssim_f64"]}, '
+          f"expected 1 kBatchPrecise")
+    check(oracle_calls == [], f"the f64 oracle was called: {oracle_calls}")
+    check(route["compute_ssim_tile_pin"] == counts_of(standard=1),
+          f"compute_ssim with a tile pin launches {route['compute_ssim_tile_pin']}, "
+          f"expected 1 standard")
+    npix = 64 * 64
+    g_twin = scores(batch_twin(a, b, False), npix)
+    g_twin64 = scores(batch_twin(a, b, True), npix)
+    check(s.shape == (4096,) and np.isfinite(s).all()
+          and np.abs(s - g_twin).max() <= TWIN_GLOBAL
+          and np.abs(s_tile - g_twin).max() <= TWIN_GLOBAL,
+          "compute_ssim on the batch or the tile route differs from the twin")
+    check(np.isfinite(s64).all()
+          and (np.abs(s64 - g_twin64) / np.abs(g_twin64)).max() <= PRECISE_REL,
+          'compute_ssim(precision="f64") differs from the twin')
+    shape = (256, 64, 64)
+    clean = torch.rand(shape, generator=gen, device="cuda")
+    noisy = (clean + 0.15 * torch.randn(shape, generator=gen, device="cuda")).clamp_(0, 1)
+    x = noisy.clone().requires_grad_()
+    opt = torch.optim.Adam([x], lr=0.02)
+    # The step's own batch launch is held against the twin: a spy keeps
+    # its inputs and partials.
+    seen = []
+    real_batch = routing.ssim_parts_batch_cuda
+
+    def spy(*args, **kw):
+        out = real_batch(*args, **kw)
+        seen.append((args[0].detach().clone(), args[1].detach().clone(), out.clone()))
+        return out
+
+    torch.cuda.synchronize()
+    routing.ssim_parts_batch_cuda = spy
+    try:
+        zero_counts()
+        loss = ssim_tpu_torch.ssim_loss(x, clean)
+        loss.backward()
+        finite = bool(torch.isfinite(x.grad).all())
+        opt.step()
+        route["ssim_loss_step"] = launch_counts()
+    finally:
+        routing.ssim_parts_batch_cuda = real_batch
+    with torch.no_grad():
+        after = ssim_tpu_torch.ssim_loss(x.clamp(0.0, 1.0), clean)
+    losses = [loss.detach().item(), after.item()]
+    check(route["ssim_loss_step"] == counts_of(batch=1, backward=1) and len(seen) == 1,
+          f"ssim_loss step launches {route['ssim_loss_step']}, expected 1 kBatch "
+          f"and 1 backward")
+    sa, sb, sp = seen[0]
+    step_err = float(np.abs(scores(sp, npix) - scores(
+        batch_twin(sa, sb, False, data_range=1.0), npix)).max())
+    check(step_err <= TWIN_GLOBAL, f"ssim_loss step: kBatch vs twin {step_err:.3g}")
+    err = max(err, step_err)
+    del seen, sa, sb, sp
+    check(finite and all(np.isfinite(losses)) and losses[1] < losses[0],
+          f"ssim_loss step: losses {losses}, finite gradient {finite}")
+    launches = sum(c["batch"] + c["batch_precise"] for c in route.values())
+    print(f"  compute_ssim NumPy u8 (4096, 64, 64), no device: {route['compute_ssim']}; "
+          f"precision=\"f64\": {route['compute_ssim_f64']}, oracle calls 0; tile pin: "
+          f"{route['compute_ssim_tile_pin']}; scores on both routes within "
+          f"{float(np.abs(s - s_tile).max()):.3g}", flush=True)
+    print(f"  ssim_loss Adam step f32 {shape}: {route['ssim_loss_step']}; its kBatch "
+          f"partials vs twin {step_err:.3g}; 1-SSIM {losses[0]:.6f} -> "
+          f"{losses[1]:.6f}", flush=True)
+    del x, opt, clean, noisy
+
+    # (c) At the routed shapes: both modes held against the twin and the
+    # tile modes, then the batch mode and the tile grid on the same inputs
+    # (tile, batch, batch, tile), compute_ssim on both routes, the twin.
+    times = {}
+    for name, shape, precise in BATCH_CONFIGS:
+        a, b = pair(gen, shape)
+        e, _ = compare_batch(f"u8 {shape}", a, b)
+        err = max(err, e)
+        prec = dict(precision="f64") if precise else {}
+        batch_fn = lambda: ssim_cuda.ssim_parts_batch_cuda(a, b, precise=precise)
+        tile_fn = lambda: ssim_cuda.ssim_parts_cuda(a, b, precise=precise)
+        t_tile_a = cuda_ms(tile_fn, 20)
+        t_batch_a = cuda_ms(batch_fn, 20)
+        t_batch_b = cuda_ms(batch_fn, 20)
+        t_tile_b = cuda_ms(tile_fn, 20)
+        t_plain = cuda_ms(lambda: batch_twin(a, b, precise), 3)
+        # compute_ssim on both routes in turns: batch, tile, batch, tile.
+        e2e, e2e_tile = [], []
+        for _ in range(2):
+            e2e += host_times(lambda: ssim_tpu_torch.compute_ssim(a, b, **prec), 10)
+            config.set_config(dataclasses.replace(old_cfg, max_tile_h=32, max_tile_w=64))
+            try:
+                e2e_tile += host_times(lambda: ssim_tpu_torch.compute_ssim(a, b, **prec), 10)
+            finally:
+                config.set_config(old_cfg)
+        if precise:
+            bnd, by = precise_bound(shape, 1, out_bytes=16 * shape[0])
+        else:
+            bnd, by = fwd_bound(shape, 1, out_bytes=8 * shape[0])
+        t_batch, t_tile = min(t_batch_a, t_batch_b), min(t_tile_a, t_tile_b)
+        mpix = shape[0] * shape[1] * shape[2] / 1e6
+        times[name] = dict(
+            shape=list(shape), precise=precise, ms=t_batch, ms_runs=[t_batch_a, t_batch_b],
+            tile_ms=t_tile, tile_ms_runs=[t_tile_a, t_tile_b], plain_ms=t_plain,
+            bound_ms=bnd, bound_by=by,
+            compute_ssim_ms=statistics.median(e2e), compute_ssim_runs=e2e,
+            compute_ssim_tile_ms=statistics.median(e2e_tile),
+            compute_ssim_tile_runs=e2e_tile,
+        )
+        print(f"  {name} {shape}{' precise' if precise else ''}: batch {t_batch_a:.4f} / "
+              f"{t_batch_b:.4f} ms ({mpix / t_batch * 1e3:.1f} Mpix/s), tile grid "
+              f"{t_tile_a:.4f} / {t_tile_b:.4f} ms ({mpix / t_tile * 1e3:.1f} Mpix/s), "
+              f"batch / tile {t_batch / t_tile:.3f}; twin {t_plain:.3f} ms; compute_ssim "
+              f"{statistics.median(e2e):.3f} ms on the batch route, "
+              f"{statistics.median(e2e_tile):.3f} ms on the tile route (medians of 20); "
+              f"bound {bnd:.4f} ms ({by}) | {label}", flush=True)
+        del a, b
+        torch.cuda.empty_cache()
+    return dict(err=err, route=route, launches=launches, losses=losses, times=times)
+
+
+def fail_line(error):
+    """The one line printed when the script cannot start, before its
+    nonzero exit."""
+    print(json.dumps({"ok": False, "error": error}), flush=True)
+
+
 def main():
     if not torch.cuda.is_available():
-        print("chip_smoke: CUDA is not available; this script needs a GPU",
-              file=sys.stderr)
+        fail_line("CUDA is not available: this script needs a GPU")
         return 2
-    # Outside a checkout of the repo this import fails before any output.
-    from ssim_tpu_torch.ops import _build
+    try:
+        from ssim_tpu_torch.ops import _build
+    except ImportError as e:
+        fail_line(f"cannot import the ssim_tpu_torch package ({e}): run the "
+                  f"script from a checkout of the repo")
+        return 1
 
     label = gpu_label()
     print(f"phase 1: card {label}; torch {torch.__version__}, CUDA "
@@ -1216,6 +1515,7 @@ def main():
     train_fwd, train_bwd, grad_err, train = phase_train(gen, label)
     comp_err, ms = phase_msssim(gen, label)
     prec_launches, prec_err, prec = phase_precise(gen, label)
+    batch = phase_batch(gen, label)
     check("jax" not in sys.modules, "JAX was imported")
 
     ref = records["4k_b4"]
@@ -1305,6 +1605,21 @@ def main():
         "compute_ssim_f64_ms": prec["4k_b4"]["compute_ssim_f64_ms"],
         "oracle_route_ms_1080p_b1": prec["oracle_1080p_b1_ms"],
         "card_route_ms_1080p_b1": prec["card_1080p_b1_ms"],
+    }, {
+        "name": "ssim_fwd_batch",
+        "route": "cuda",
+        "source": "ssim_tpu_torch/csrc/ssim_fwd.cu",
+        "replaces": "ssim_tpu/ops/ssim_pallas.py:710 (K1 mode e, colsum/pchunk), "
+                    "tools/probe_bpack.py:56 (K5)",
+        "launches": batch["launches"],
+        "launches_by_call": batch["route"],
+        "max_abs_err": batch["err"],
+        **{k: batch["times"]["64x64_b4096"][k]
+           for k in ("ms", "plain_ms", "bound_ms", "bound_by", "shape")},
+        "library_ms": None,
+        "tile_grid_ms": batch["times"]["64x64_b4096"]["tile_ms"],
+        "times": batch["times"],
+        "loss": batch["losses"],
     }]}))
     print(label)
     print(json.dumps({"ok": True, "device": {

@@ -26,7 +26,9 @@ class Config:
     #: Default pixel precision ("f32" or "f64").
     precision: str = "f32"
     #: Pin the CUDA kernel's output tile (None = ops.ssim_cuda.TILE_H x
-    #: TILE_W); tile_w must be a power of two in [32, 256].
+    #: TILE_W). Any value >= 1: engine.compute clamps it into the range the
+    #: kernel takes (ops.ssim_cuda.fit_tile), and a pin keeps batches of
+    #: small images on the tile grid.
     max_tile_h: Optional[int] = None
     max_tile_w: Optional[int] = None
 

@@ -1,15 +1,19 @@
 // Fused SSIM forward for NVIDIA Hopper (sm_90a): the standard f32 tier,
-// the precise (fp64) tier, and the MS-SSIM components modes.
+// the precise (fp64) tier, the MS-SSIM components modes, and one score per
+// image for batches of small images.
 //
 // Replaces the two TPU forward kernels of the JAX package:
 // ssim_tpu/ops/ssim_pallas.py::_nopad_overlap_call (:710; full-width row
 // tiles, widths up to 16384 lanes) in its modes a (standard, with or
-// without the map), b (precise), c (components) and d (pool_out, u8 and
-// f32), and ::_chunked_overlap_call (:1364; the same over lane chunks for
+// without the map), b (precise), c (components), d (pool_out, u8 and
+// f32) and e (colsum + pchunk, as ssim_parts_pallas_bpacked drives it,
+// :2334), and ::_chunked_overlap_call (:1364; the same over lane chunks for
 // wider images) in its standard, map, precise and components modes. That
 // split exists only for TPU lane widths and VMEM; here one 2-D grid of
 // output tiles covers every width, so K2's modes need no kernel of their
-// own.
+// own. Mode e also serves the contract of tools/probe_bpack.py::bpack_parts
+// (K5, :56), a probe's 3-D batch-block kernel: per image sum(ssim - 1) +
+// h*w.
 //
 // Modes (compile time, one copy of the halo load and the two blurs):
 // - kScore / kMap: one f32 partial per tile, sum(ssim - 1) + n_valid, with
@@ -43,6 +47,24 @@
 //   and no row past the image is read. (The Pallas f32 pool fed the
 //   unmasked rows of a ragged tile into a matrix product, which made its
 //   pooled images NaN; reading only rows inside the image repairs that.)
+// - kBatch / kBatchPrecise (the small-image batch route): one partial
+//   pair per image, [sum(ssim - 1), n = H*W], f32 in kBatch (the JAX
+//   contract's (B, 2)) and f64 in kBatchPrecise (where the TPU writes
+//   (B, 3) [hi, lo, n]; both are summed in f64 by the finalize). Each
+//   pixel's SSIM is kScore's (kPrecise's) bit for bit: the same tile body
+//   runs over each image's own grid of tiles, with a tile width the
+//   wrapper picks from the image width (8..64), so a narrow image leaves
+//   few threads idle. A block walks its tiles in series: `ipb` whole
+//   images, or one of `groups` runs of one image's tiles (so a tall image
+//   or a short batch still spreads over the SMs). Each tile's sum is
+//   reduced over the block in the tile modes' type and added to a double
+//   in thread 0; with groups > 1 the runs' doubles go to a scratch array
+//   and batch_reduce_kernel adds each image's runs in order. No atomics:
+//   the partials are deterministic. The TPU packs p images along one lane
+//   row and folds their borders into block-diagonal tap matrices; here the
+//   clamped halo load keeps each image's own borders, a non-finite pixel
+//   poisons its own tile and so its own image's sum, and there are no
+//   padding slots to drop.
 //
 // What bounds it on this card: per output pixel it reads 2 input values
 // (u8 or f32) and writes at most one f32 map value (kPooled: half an f32
@@ -60,6 +82,9 @@
 // brought them. The precise formula is ~27 fp64 operations, one of them a
 // division (a short software sequence), against ~140 f32 blur operations
 // per pixel.
+// The batch modes do the same work per pixel; at widths under 64 the tile
+// grid's 64-wide tiles leave threads idle in both blur passes, which the
+// narrower batch tiles do not.
 // What the design does about it: each pixel of the halo tile is read from
 // device memory once and converted to f32 on load; both blur passes run
 // out of shared memory with symmetric tap pairs (r + 1 multiplies per
@@ -97,6 +122,8 @@ enum Mode {
   kPooled = 3,
   kPrecise = 4,
   kPreciseMap = 5,
+  kBatch = 6,
+  kBatchPrecise = 7,
 };
 
 struct Taps {
@@ -122,13 +149,16 @@ __global__ void __launch_bounds__(kThreads)
 ssim_fwd_kernel(const T* __restrict__ a, const T* __restrict__ b,
                 void* __restrict__ partials, float* __restrict__ map,
                 float* __restrict__ pool_a, float* __restrict__ pool_b,
-                int H, int W, int r, int TH, int TW, int ntx,
-                int tiles_per_image, Taps taps, float c1f, float c2f,
-                double c1, double c2, float clip_bound) {
+                double* __restrict__ scratch, int B, int H, int W, int r,
+                int TH, int TW, int ntx, int tiles_per_image, int ipb,
+                int groups, Taps taps, float c1f, float c2f, double c1,
+                double c2, float clip_bound) {
   constexpr bool kFloat = sizeof(T) == 4;
   constexpr bool kComp = kMode == kComponents || kMode == kPooled;
-  constexpr bool kPrec = kMode == kPrecise || kMode == kPreciseMap;
+  constexpr bool kPrec =
+      kMode == kPrecise || kMode == kPreciseMap || kMode == kBatchPrecise;
   constexpr bool kWithMap = kMode == kMap || kMode == kPreciseMap;
+  constexpr bool kBatchMode = kMode == kBatch || kMode == kBatchPrecise;
   // The tile sums' type: double in the precise modes, else float.
   using Acc = typename std::conditional<kPrec, double, float>::type;
   extern __shared__ float smem[];
@@ -148,194 +178,249 @@ ssim_fwd_kernel(const T* __restrict__ a, const T* __restrict__ b,
     for (int k = 0; k < kMaxTaps; ++k) s_taps[k] = taps.t[k];
   }
 
-  const int tile = blockIdx.x;
-  const int img = tile / tiles_per_image;
-  const int rem = tile - img * tiles_per_image;
-  const int y0 = (rem / ntx) * TH;
-  const int x0 = (rem % ntx) * TW;
-  const int vh = min(TH, H - y0);  // valid output rows of this tile
-  const int vw = min(TW, W - x0);  // valid output columns
-  const size_t base = (size_t)img * (size_t)H * (size_t)W;
-
-  // TW is a power of two in [32, 256], so TW threads cover a row.
-  const int tx = tid % TW;
-  const int ty = tid / TW;
-  const int ystep = kThreads / TW;
-
-  // Load the halo tile with clamped indices, converting to f32.
-  int bad = 0;
-  for (int ly = ty; ly < vh + 2 * r; ly += ystep) {
-    const int uy = y0 - r + ly;
-    const int gy = min(max(uy, 0), H - 1);
-    const size_t row = base + (size_t)gy * (size_t)W;
-    for (int lx = tx; lx < vw + 2 * r; lx += TW) {
-      const int ux = x0 - r + lx;
-      const int gx = min(max(ux, 0), W - 1);
-      float va = to_f32(a[row + gx]);
-      float vb = to_f32(b[row + gx]);
-      if (kFloat) {
-        // Poison source: the tile's own valid pixels, unsanitised.
-        const bool own = ly >= r && ly < r + vh && lx >= r && lx < r + vw;
-        if (own && !(finite_f32(va) && finite_f32(vb))) bad = 1;
-        va = sanitize(va, clip_bound);
-        vb = sanitize(vb, clip_bound);
-      }
-      sa[ly * HW + lx] = va;
-      sb[ly * HW + lx] = vb;
-    }
-  }
-  bad = __syncthreads_or(bad);
-
-  // Horizontal pass over every halo row: four signals, symmetric pairs,
-  // smallest taps first.
-  for (int ly = ty; ly < vh + 2 * r; ly += ystep) {
-    for (int lx = tx; lx < vw; lx += TW) {
-      const float* ra = sa + ly * HW + lx + r;
-      const float* rb = sb + ly * HW + lx + r;
-      float ma = 0.0f, mb = 0.0f, ss = 0.0f, dd = 0.0f;
-      for (int d = r; d >= 1; --d) {
-        const float t = s_taps[r - d];
-        const float al = ra[-d], ah = ra[d], bl = rb[-d], bh = rb[d];
-        const float sl = al + bl, sh = ah + bh, dl = al - bl, dh = ah - bh;
-        ma += t * (al + ah);
-        mb += t * (bl + bh);
-        ss += t * (sl * sl + sh * sh);
-        dd += t * (dl * dl + dh * dh);
-      }
-      const float tc = s_taps[r];
-      const float ac = ra[0], bc = rb[0];
-      const float sc = ac + bc, dc = ac - bc;
-      const int o = ly * TW + lx;
-      hp[o] = ma + tc * ac;
-      hp[plane + o] = mb + tc * bc;
-      hp[2 * plane + o] = ss + tc * (sc * sc);
-      hp[3 * plane + o] = dd + tc * (dc * dc);
-    }
-  }
-  __syncthreads();
-
-  // Vertical pass, the SSIM formula, the map and the tile sums.
-  Acc local = 0, local_cs = 0;
-  for (int ly = ty; ly < vh; ly += ystep) {
-    for (int lx = tx; lx < vw; lx += TW) {
-      const float* c = hp + (ly + r) * TW + lx;
-      float m0 = 0.0f, m1 = 0.0f, m2 = 0.0f, m3 = 0.0f;
-      for (int d = r; d >= 1; --d) {
-        const float t = s_taps[r - d];
-        const int o = d * TW;
-        m0 += t * (c[-o] + c[o]);
-        m1 += t * (c[plane - o] + c[plane + o]);
-        m2 += t * (c[2 * plane - o] + c[2 * plane + o]);
-        m3 += t * (c[3 * plane - o] + c[3 * plane + o]);
-      }
-      const float tc = s_taps[r];
-      const float mu_a = m0 + tc * c[0];
-      const float mu_b = m1 + tc * c[plane];
-      const float s_ss = m2 + tc * c[2 * plane];
-      const float s_dd = m3 + tc * c[3 * plane];
-      Acc v, cs = 0;
-      if constexpr (kPrec) {
-        // _ssim_from_blurs (ssim_pallas.py:465-477) in fp64 on the
-        // widened f32 blurs.
-        const double da = mu_a, db = mu_b, dss = s_ss, ddd = s_dd;
-        const double mu_a2 = da * da;
-        const double mu_b2 = db * db;
-        const double mu_ab = da * db;
-        const double sigma_ab_x4 = (dss - ddd) - 4.0 * mu_ab;
-        const double sigma_sum_x2 = (dss + ddd) - 2.0 * (mu_a2 + mu_b2);
-        const double num = (2.0 * mu_ab + c1) * (0.5 * sigma_ab_x4 + c2);
-        const double den = (mu_a2 + mu_b2 + c1) * (0.5 * sigma_sum_x2 + c2);
-        v = num / den;
-      } else {
-        // _ssim_from_blurs (ssim_pallas.py:465-477) or, for the
-        // components, _l_cs_from_blurs (:480-490).
-        const float mu_a2 = mu_a * mu_a;
-        const float mu_b2 = mu_b * mu_b;
-        const float mu_ab = mu_a * mu_b;
-        const float sigma_ab_x4 = (s_ss - s_dd) - 4.0f * mu_ab;
-        const float sigma_sum_x2 = (s_ss + s_dd) - 2.0f * (mu_a2 + mu_b2);
-        if (kComp) {
-          const float lum = (2.0f * mu_ab + c1f) / (mu_a2 + mu_b2 + c1f);
-          cs = (0.5f * sigma_ab_x4 + c2f) / (0.5f * sigma_sum_x2 + c2f);
-          v = lum * cs;
-        } else {
-          const float num = (2.0f * mu_ab + c1f) * (0.5f * sigma_ab_x4 + c2f);
-          const float den =
-              (mu_a2 + mu_b2 + c1f) * (0.5f * sigma_sum_x2 + c2f);
-          v = num / den;
-        }
-      }
-      if (kFloat && bad) {
-        v = (Acc)__int_as_float(0x7fc00000);  // NaN
-        cs = v;
-      }
-      if (kWithMap) {
-        map[base + (size_t)(y0 + ly) * (size_t)W + (size_t)(x0 + lx)] =
-            (float)v;
-      }
-      local += v - (Acc)1;
-      if (kComp) local_cs += cs - (Acc)1;
-    }
-  }
-
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1) {
-    local += __shfl_down_sync(0xffffffffu, local, off);
-    if (kComp) local_cs += __shfl_down_sync(0xffffffffu, local_cs, off);
-  }
-  if ((tid & 31) == 0) {
-    s_warp[0][tid >> 5] = local;
-    if constexpr (kComp) s_warp[1][tid >> 5] = local_cs;
-  }
-  __syncthreads();
-  if (tid == 0) {
-    const Acc n_valid = (Acc)(vh * vw);
-    Acc s = 0, s_cs = 0;
-#pragma unroll
-    for (int w = 0; w < kThreads / 32; ++w) {
-      s += s_warp[0][w];
-      if constexpr (kComp) s_cs += s_warp[1][w];
-    }
-    if constexpr (kComp) {
-      float* p = static_cast<float*>(partials);
-      p[2 * (size_t)tile] = s_cs + n_valid;
-      p[2 * (size_t)tile + 1] = s + n_valid;
+  // The block's tiles [w0, w1) in the order of the tile modes' grid: one
+  // tile in the tile modes; in the batch modes ipb whole images, or run g
+  // of `groups` runs of one image's tiles (as even as whole tiles allow),
+  // whose last tile is t1 - 1 of its image.
+  int w0 = blockIdx.x, w1 = w0 + 1, g = 0, t1 = tiles_per_image;
+  if constexpr (kBatchMode) {
+    if (groups == 1) {
+      const int i0 = blockIdx.x * ipb;
+      w0 = i0 * tiles_per_image;
+      w1 = min(B, i0 + ipb) * tiles_per_image;
     } else {
-      static_cast<Acc*>(partials)[tile] = s + n_valid;
+      const int i0 = blockIdx.x / groups;
+      g = blockIdx.x - i0 * groups;
+      t1 = (int)((long long)(g + 1) * tiles_per_image / groups);
+      w0 = i0 * tiles_per_image + (int)((long long)g * tiles_per_image / groups);
+      w1 = i0 * tiles_per_image + t1;
     }
   }
+  // Batch modes: the image's sum over this block's tiles, in double, so a
+  // tall image keeps the tile sums' ulp.
+  double acc = 0.0;
 
-  if (kMode == kPooled) {
-    // The tile's own 2x2 blocks: pooled rows y0/2 .. and columns x0/2 ..,
-    // TW/2 threads (a power of two in [16, 128]) across a pooled row.
-    const int H2 = H / 2, W2 = W / 2;
-    const int py0 = y0 / 2, px0 = x0 / 2;
-    const int ph = min(TH / 2, H2 - py0);
-    const int pw = min(TW / 2, W2 - px0);
-    const int PW = TW / 2;
-    const int px = tid % PW;
-    const size_t pbase = (size_t)img * (size_t)H2 * (size_t)W2;
-    for (int py = tid / PW; py < ph && px < pw; py += kThreads / PW) {
-      const size_t r0 =
-          base + (size_t)(2 * (py0 + py)) * (size_t)W + (size_t)(2 * (px0 + px));
-      const size_t r1 = r0 + (size_t)W;
-      const size_t o =
-          pbase + (size_t)(py0 + py) * (size_t)W2 + (size_t)(px0 + px);
-      const float ya0 = to_f32(a[r0]) + to_f32(a[r1]);
-      const float ya1 = to_f32(a[r0 + 1]) + to_f32(a[r1 + 1]);
-      pool_a[o] = (ya0 + ya1) * 0.25f;
-      const float yb0 = to_f32(b[r0]) + to_f32(b[r1]);
-      const float yb1 = to_f32(b[r0 + 1]) + to_f32(b[r1 + 1]);
-      pool_b[o] = (yb0 + yb1) * 0.25f;
+  // A block that walks several tiles reuses its shared memory at once:
+  // every read of the halo and the planes comes before a tile's last
+  // barrier, and thread 0 reads s_warp before the next tile's first.
+  for (int tile = w0; tile < w1; ++tile) {
+    const int img = tile / tiles_per_image;
+    const int rem = tile - img * tiles_per_image;
+    const int y0 = (rem / ntx) * TH;
+    const int x0 = (rem % ntx) * TW;
+    const int vh = min(TH, H - y0);  // valid output rows of this tile
+    const int vw = min(TW, W - x0);  // valid output columns
+    const size_t base = (size_t)img * (size_t)H * (size_t)W;
+
+    // TW is a power of two in [8, 256], so TW threads cover a row.
+    const int tx = tid % TW;
+    const int ty = tid / TW;
+    const int ystep = kThreads / TW;
+
+    // Load the halo tile with clamped indices, converting to f32.
+    int bad = 0;
+    for (int ly = ty; ly < vh + 2 * r; ly += ystep) {
+      const int uy = y0 - r + ly;
+      const int gy = min(max(uy, 0), H - 1);
+      const size_t row = base + (size_t)gy * (size_t)W;
+      for (int lx = tx; lx < vw + 2 * r; lx += TW) {
+        const int ux = x0 - r + lx;
+        const int gx = min(max(ux, 0), W - 1);
+        float va = to_f32(a[row + gx]);
+        float vb = to_f32(b[row + gx]);
+        if (kFloat) {
+          // Poison source: the tile's own valid pixels, unsanitised.
+          const bool own = ly >= r && ly < r + vh && lx >= r && lx < r + vw;
+          if (own && !(finite_f32(va) && finite_f32(vb))) bad = 1;
+          va = sanitize(va, clip_bound);
+          vb = sanitize(vb, clip_bound);
+        }
+        sa[ly * HW + lx] = va;
+        sb[ly * HW + lx] = vb;
+      }
     }
-  }
+    bad = __syncthreads_or(bad);
+
+    // Horizontal pass over every halo row: four signals, symmetric pairs,
+    // smallest taps first.
+    for (int ly = ty; ly < vh + 2 * r; ly += ystep) {
+      for (int lx = tx; lx < vw; lx += TW) {
+        const float* ra = sa + ly * HW + lx + r;
+        const float* rb = sb + ly * HW + lx + r;
+        float ma = 0.0f, mb = 0.0f, ss = 0.0f, dd = 0.0f;
+        for (int d = r; d >= 1; --d) {
+          const float t = s_taps[r - d];
+          const float al = ra[-d], ah = ra[d], bl = rb[-d], bh = rb[d];
+          const float sl = al + bl, sh = ah + bh, dl = al - bl, dh = ah - bh;
+          ma += t * (al + ah);
+          mb += t * (bl + bh);
+          ss += t * (sl * sl + sh * sh);
+          dd += t * (dl * dl + dh * dh);
+        }
+        const float tc = s_taps[r];
+        const float ac = ra[0], bc = rb[0];
+        const float sc = ac + bc, dc = ac - bc;
+        const int o = ly * TW + lx;
+        hp[o] = ma + tc * ac;
+        hp[plane + o] = mb + tc * bc;
+        hp[2 * plane + o] = ss + tc * (sc * sc);
+        hp[3 * plane + o] = dd + tc * (dc * dc);
+      }
+    }
+    __syncthreads();
+
+    // Vertical pass, the SSIM formula, the map and the tile sums.
+    Acc local = 0, local_cs = 0;
+    for (int ly = ty; ly < vh; ly += ystep) {
+      for (int lx = tx; lx < vw; lx += TW) {
+        const float* c = hp + (ly + r) * TW + lx;
+        float m0 = 0.0f, m1 = 0.0f, m2 = 0.0f, m3 = 0.0f;
+        for (int d = r; d >= 1; --d) {
+          const float t = s_taps[r - d];
+          const int o = d * TW;
+          m0 += t * (c[-o] + c[o]);
+          m1 += t * (c[plane - o] + c[plane + o]);
+          m2 += t * (c[2 * plane - o] + c[2 * plane + o]);
+          m3 += t * (c[3 * plane - o] + c[3 * plane + o]);
+        }
+        const float tc = s_taps[r];
+        const float mu_a = m0 + tc * c[0];
+        const float mu_b = m1 + tc * c[plane];
+        const float s_ss = m2 + tc * c[2 * plane];
+        const float s_dd = m3 + tc * c[3 * plane];
+        Acc v, cs = 0;
+        if constexpr (kPrec) {
+          // _ssim_from_blurs (ssim_pallas.py:465-477) in fp64 on the
+          // widened f32 blurs.
+          const double da = mu_a, db = mu_b, dss = s_ss, ddd = s_dd;
+          const double mu_a2 = da * da;
+          const double mu_b2 = db * db;
+          const double mu_ab = da * db;
+          const double sigma_ab_x4 = (dss - ddd) - 4.0 * mu_ab;
+          const double sigma_sum_x2 = (dss + ddd) - 2.0 * (mu_a2 + mu_b2);
+          const double num = (2.0 * mu_ab + c1) * (0.5 * sigma_ab_x4 + c2);
+          const double den = (mu_a2 + mu_b2 + c1) * (0.5 * sigma_sum_x2 + c2);
+          v = num / den;
+        } else {
+          // _ssim_from_blurs (ssim_pallas.py:465-477) or, for the
+          // components, _l_cs_from_blurs (:480-490).
+          const float mu_a2 = mu_a * mu_a;
+          const float mu_b2 = mu_b * mu_b;
+          const float mu_ab = mu_a * mu_b;
+          const float sigma_ab_x4 = (s_ss - s_dd) - 4.0f * mu_ab;
+          const float sigma_sum_x2 = (s_ss + s_dd) - 2.0f * (mu_a2 + mu_b2);
+          if (kComp) {
+            const float lum = (2.0f * mu_ab + c1f) / (mu_a2 + mu_b2 + c1f);
+            cs = (0.5f * sigma_ab_x4 + c2f) / (0.5f * sigma_sum_x2 + c2f);
+            v = lum * cs;
+          } else {
+            const float num = (2.0f * mu_ab + c1f) * (0.5f * sigma_ab_x4 + c2f);
+            const float den =
+                (mu_a2 + mu_b2 + c1f) * (0.5f * sigma_sum_x2 + c2f);
+            v = num / den;
+          }
+        }
+        if (kFloat && bad) {
+          v = (Acc)__int_as_float(0x7fc00000);  // NaN
+          cs = v;
+        }
+        if (kWithMap) {
+          map[base + (size_t)(y0 + ly) * (size_t)W + (size_t)(x0 + lx)] =
+              (float)v;
+        }
+        local += v - (Acc)1;
+        if (kComp) local_cs += cs - (Acc)1;
+      }
+    }
+
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1) {
+      local += __shfl_down_sync(0xffffffffu, local, off);
+      if (kComp) local_cs += __shfl_down_sync(0xffffffffu, local_cs, off);
+    }
+    if ((tid & 31) == 0) {
+      s_warp[0][tid >> 5] = local;
+      if constexpr (kComp) s_warp[1][tid >> 5] = local_cs;
+    }
+    __syncthreads();
+    if (tid == 0) {
+      const Acc n_valid = (Acc)(vh * vw);
+      Acc s = 0, s_cs = 0;
+#pragma unroll
+      for (int w = 0; w < kThreads / 32; ++w) {
+        s += s_warp[0][w];
+        if constexpr (kComp) s_cs += s_warp[1][w];
+      }
+      if constexpr (kBatchMode) {
+        acc += (double)s;
+        if (rem == t1 - 1) {  // the image's last tile in this block
+          if (groups == 1) {
+            Acc* p = static_cast<Acc*>(partials);
+            p[2 * (size_t)img] = (Acc)acc;
+            p[2 * (size_t)img + 1] = (Acc)((double)H * (double)W);
+          } else {
+            scratch[(size_t)img * groups + g] = acc;
+          }
+          acc = 0.0;
+        }
+      } else if constexpr (kComp) {
+        float* p = static_cast<float*>(partials);
+        p[2 * (size_t)tile] = s_cs + n_valid;
+        p[2 * (size_t)tile + 1] = s + n_valid;
+      } else {
+        static_cast<Acc*>(partials)[tile] = s + n_valid;
+      }
+    }
+
+    if (kMode == kPooled) {
+      // The tile's own 2x2 blocks: pooled rows y0/2 .. and columns x0/2 ..,
+      // TW/2 threads (a power of two in [16, 128]) across a pooled row.
+      const int H2 = H / 2, W2 = W / 2;
+      const int py0 = y0 / 2, px0 = x0 / 2;
+      const int ph = min(TH / 2, H2 - py0);
+      const int pw = min(TW / 2, W2 - px0);
+      const int PW = TW / 2;
+      const int px = tid % PW;
+      const size_t pbase = (size_t)img * (size_t)H2 * (size_t)W2;
+      for (int py = tid / PW; py < ph && px < pw; py += kThreads / PW) {
+        const size_t r0 =
+            base + (size_t)(2 * (py0 + py)) * (size_t)W + (size_t)(2 * (px0 + px));
+        const size_t r1 = r0 + (size_t)W;
+        const size_t o =
+            pbase + (size_t)(py0 + py) * (size_t)W2 + (size_t)(px0 + px);
+        const float ya0 = to_f32(a[r0]) + to_f32(a[r1]);
+        const float ya1 = to_f32(a[r0 + 1]) + to_f32(a[r1 + 1]);
+        pool_a[o] = (ya0 + ya1) * 0.25f;
+        const float yb0 = to_f32(b[r0]) + to_f32(b[r1]);
+        const float yb1 = to_f32(b[r0 + 1]) + to_f32(b[r1 + 1]);
+        pool_b[o] = (yb0 + yb1) * 0.25f;
+      }
+    }
+  }  // tiles
+}
+
+// The batch modes' second pass where one image's tiles were split over
+// `groups` blocks: each image's runs added in order, in double, then its
+// partial pair [sum(ssim - 1), n]. One thread per image.
+template <typename Out>
+__global__ void batch_reduce_kernel(const double* __restrict__ scratch,
+                                    Out* __restrict__ partials, int B,
+                                    int groups, double n) {
+  const int img = blockIdx.x * blockDim.x + threadIdx.x;
+  if (img >= B) return;
+  double s = 0.0;
+  for (int g = 0; g < groups; ++g) s += scratch[(size_t)img * groups + g];
+  partials[2 * (size_t)img] = (Out)s;
+  partials[2 * (size_t)img + 1] = (Out)n;
 }
 
 template <typename T, int kMode>
 cudaError_t launch(const void* a, const void* b, void* partials, void* map,
-                   void* pool_a, void* pool_b, int B, int H, int W, int r,
-                   int TH, int TW, const float* taps_host, double c1,
-                   double c2, float clip_bound, cudaStream_t stream) {
+                   void* pool_a, void* pool_b, void* scratch, int B, int H,
+                   int W, int r, int TH, int TW, int ipb, int groups,
+                   const float* taps_host, double c1, double c2,
+                   float clip_bound, cudaStream_t stream) {
+  constexpr bool kBatchMode = kMode == kBatch || kMode == kBatchPrecise;
   if (kMode == kPooled && ((TH | TW) & 1)) return cudaErrorInvalidValue;
   Taps taps;
   for (int k = 0; k < kMaxTaps; ++k) {
@@ -344,7 +429,10 @@ cudaError_t launch(const void* a, const void* b, void* partials, void* map,
   const int ntx = (W + TW - 1) / TW;
   const int nty = (H + TH - 1) / TH;
   const int tiles_per_image = ntx * nty;
-  const long long blocks = (long long)B * tiles_per_image;
+  long long blocks = (long long)B * tiles_per_image;
+  if (kBatchMode) {
+    blocks = groups > 1 ? (long long)B * groups : ((long long)B + ipb - 1) / ipb;
+  }
   if (blocks < 1 || blocks > 0x7fffffffLL) return cudaErrorInvalidConfiguration;
   const size_t smem =
       sizeof(float) * ((size_t)2 * (TH + 2 * r) * (TW + 2 * r) +
@@ -356,76 +444,88 @@ cudaError_t launch(const void* a, const void* b, void* partials, void* map,
   ssim_fwd_kernel<T, kMode><<<(unsigned)blocks, kThreads, smem, stream>>>(
       static_cast<const T*>(a), static_cast<const T*>(b), partials,
       static_cast<float*>(map), static_cast<float*>(pool_a),
-      static_cast<float*>(pool_b), H, W, r, TH, TW, ntx, tiles_per_image, taps,
-      (float)c1, (float)c2, c1, c2, clip_bound);
+      static_cast<float*>(pool_b), static_cast<double*>(scratch), B, H, W, r,
+      TH, TW, ntx, tiles_per_image, ipb, groups, taps, (float)c1, (float)c2,
+      c1, c2, clip_bound);
+  err = cudaGetLastError();
+  if (err != cudaSuccess || !kBatchMode || groups == 1) return err;
+  using Acc = typename std::conditional<kMode == kBatchPrecise, double, float>::type;
+  batch_reduce_kernel<Acc><<<(B + kThreads - 1) / kThreads, kThreads, 0,
+                             stream>>>(static_cast<const double*>(scratch),
+                                       static_cast<Acc*>(partials), B, groups,
+                                       (double)H * (double)W);
   return cudaGetLastError();
 }
 
 template <int kMode>
 cudaError_t launch_typed(int is_float, const void* a, const void* b,
                          void* partials, void* map, void* pool_a,
-                         void* pool_b, int B, int H, int W, int r, int TH,
-                         int TW, const float* taps_host, double c1, double c2,
+                         void* pool_b, void* scratch, int B, int H, int W,
+                         int r, int TH, int TW, int ipb, int groups,
+                         const float* taps_host, double c1, double c2,
                          float clip_bound, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   return is_float
-             ? launch<float, kMode>(a, b, partials, map, pool_a, pool_b, B, H,
-                                    W, r, TH, TW, taps_host, c1, c2,
-                                    clip_bound, s)
-             : launch<uint8_t, kMode>(a, b, partials, map, pool_a, pool_b, B,
-                                      H, W, r, TH, TW, taps_host, c1, c2,
-                                      clip_bound, s);
+             ? launch<float, kMode>(a, b, partials, map, pool_a, pool_b,
+                                    scratch, B, H, W, r, TH, TW, ipb, groups,
+                                    taps_host, c1, c2, clip_bound, s)
+             : launch<uint8_t, kMode>(a, b, partials, map, pool_a, pool_b,
+                                      scratch, B, H, W, r, TH, TW, ipb,
+                                      groups, taps_host, c1, c2, clip_bound,
+                                      s);
 }
 
 }  // namespace
 
 // The C entry for ctypes. mode: 0 = kScore, 1 = kMap, 2 = kComponents,
-// 3 = kPooled, 4 = kPrecise, 5 = kPreciseMap; any other value is refused
-// (the precise tier has no components or pooled mode). is_float: 0 =
-// uint8 inputs, 1 = float32 inputs. partials: (B, ceil(H/TH) *
-// ceil(W/TW)) f32, with a trailing 2 of [cs, ssim] in the components
-// modes, and f64 in the precise modes. map: (B, H, W) f32 in kMap and
+// 3 = kPooled, 4 = kPrecise, 5 = kPreciseMap, 6 = kBatch, 7 =
+// kBatchPrecise; any other value is refused (the precise tier has no
+// components or pooled mode). is_float: 0 = uint8 inputs, 1 = float32
+// inputs. partials: (B, ceil(H/TH) * ceil(W/TW)) f32 in the tile modes,
+// with a trailing 2 of [cs, ssim] in the components modes, and f64 in the
+// precise modes; (B, 2) [sum(ssim - 1), H*W] in the batch modes, f32 in
+// kBatch and f64 in kBatchPrecise. map: (B, H, W) f32 in kMap and
 // kPreciseMap, else NULL. pool_a, pool_b: (B, H/2, W/2) f32 each in
-// kPooled (TH and TW even), else NULL. taps_host: 2r+1 floats in host
-// memory. c1, c2: the stabilising constants (rounded to float by the f32
-// modes). Returns the launch's cudaError_t.
+// kPooled (TH and TW even), else NULL. TW: a power of two in [8, 256].
+// ipb, groups (batch modes only; 1 and 1 elsewhere): each block takes ipb
+// whole images, or one of `groups` runs of one image's tiles, not both.
+// scratch: (B, groups) f64 in the batch modes when groups > 1, else NULL.
+// taps_host: 2r+1 floats in host memory. c1, c2: the stabilising
+// constants (rounded to float by the f32 modes). Returns the launch's
+// cudaError_t.
 extern "C" int ssim_fwd_launch(int mode, int is_float, const void* a,
                                const void* b, void* partials, void* map,
-                               void* pool_a, void* pool_b, int B, int H,
-                               int W, int r, int TH, int TW,
-                               const float* taps_host, double c1, double c2,
-                               float clip_bound, void* stream) {
+                               void* pool_a, void* pool_b, void* scratch,
+                               int B, int H, int W, int r, int TH, int TW,
+                               int ipb, int groups, const float* taps_host,
+                               double c1, double c2, float clip_bound,
+                               void* stream) {
+  const bool batch = mode == kBatch || mode == kBatchPrecise;
   if ((map != nullptr) != (mode == kMap || mode == kPreciseMap) ||
       (pool_a != nullptr) != (mode == kPooled) ||
-      (pool_b != nullptr) != (mode == kPooled)) {
+      (pool_b != nullptr) != (mode == kPooled) ||
+      (scratch != nullptr) != (batch && groups > 1) || ipb < 1 ||
+      groups < 1 || (ipb > 1 && groups > 1) ||
+      (!batch && (ipb != 1 || groups != 1)) || TW < 1 || TW > 256 ||
+      (TW & (TW - 1)) != 0 || TH < 1) {
     return cudaErrorInvalidValue;
   }
+#define SSIM_FWD_CASE(M)                                                    \
+  case M:                                                                  \
+    return launch_typed<M>(is_float, a, b, partials, map, pool_a, pool_b, \
+                           scratch, B, H, W, r, TH, TW, ipb, groups,       \
+                           taps_host, c1, c2, clip_bound, stream);
   switch (mode) {
-    case kScore:
-      return launch_typed<kScore>(is_float, a, b, partials, map, pool_a,
-                                  pool_b, B, H, W, r, TH, TW, taps_host, c1,
-                                  c2, clip_bound, stream);
-    case kMap:
-      return launch_typed<kMap>(is_float, a, b, partials, map, pool_a, pool_b,
-                                B, H, W, r, TH, TW, taps_host, c1, c2,
-                                clip_bound, stream);
-    case kComponents:
-      return launch_typed<kComponents>(is_float, a, b, partials, map, pool_a,
-                                       pool_b, B, H, W, r, TH, TW, taps_host,
-                                       c1, c2, clip_bound, stream);
-    case kPooled:
-      return launch_typed<kPooled>(is_float, a, b, partials, map, pool_a,
-                                   pool_b, B, H, W, r, TH, TW, taps_host, c1,
-                                   c2, clip_bound, stream);
-    case kPrecise:
-      return launch_typed<kPrecise>(is_float, a, b, partials, map, pool_a,
-                                    pool_b, B, H, W, r, TH, TW, taps_host, c1,
-                                    c2, clip_bound, stream);
-    case kPreciseMap:
-      return launch_typed<kPreciseMap>(is_float, a, b, partials, map, pool_a,
-                                       pool_b, B, H, W, r, TH, TW, taps_host,
-                                       c1, c2, clip_bound, stream);
+    SSIM_FWD_CASE(kScore)
+    SSIM_FWD_CASE(kMap)
+    SSIM_FWD_CASE(kComponents)
+    SSIM_FWD_CASE(kPooled)
+    SSIM_FWD_CASE(kPrecise)
+    SSIM_FWD_CASE(kPreciseMap)
+    SSIM_FWD_CASE(kBatch)
+    SSIM_FWD_CASE(kBatchPrecise)
     default:
       return cudaErrorInvalidValue;
   }
+#undef SSIM_FWD_CASE
 }

@@ -22,6 +22,9 @@ What differs from the JAX engine:
   df32; f64 inputs (the f32 cast would round them before the formula),
   mixed dtypes, radius > 16, `impl="torch"` and `impl="reference"` take
   the f64 oracle, as in the JAX package.
+- The tile settings (`Config.max_tile_h/_w`) pin the kernel's tile after
+  `ops.ssim_cuda.fit_tile` brings them into the range it takes; a
+  setting below 1 raises InvalidArgumentError.
 - Interim: `accuracy="relaxed"` is validated but computes the standard
   tier.
 """
@@ -122,7 +125,11 @@ def finalize_mean(partials: np.ndarray, npix: int) -> np.ndarray:
     """f64 host reduction of f32 partial sums -> global SSIM. partials:
     (..., K) per-row or per-tile f32 sums; returns (...) float64."""
     ps = np.asarray(partials, dtype=np.float64)
-    return ps.sum(axis=-1) / np.float64(npix)
+    # einsum, not ps.sum(axis=-1): NumPy's reduction over a short last axis
+    # runs one small loop per row, which cost the batch route's (B, 2)
+    # partials more host time at B = 8192 than its kernel saved (PERF.md).
+    # Its other order of the f64 adds moves a score by a few ulps at most.
+    return np.einsum("...k->...", ps) / np.float64(npix)
 
 
 def downsample_factor(h: int, w: int) -> int:
@@ -303,10 +310,17 @@ def compute(
         from .ops.routing import ssim_parts_auto
 
         tile_kwargs = {}
-        if cfg.max_tile_h is not None:
-            tile_kwargs["tile_h"] = cfg.max_tile_h
-        if cfg.max_tile_w is not None:
-            tile_kwargs["tile_w"] = cfg.max_tile_w
+        if cfg.max_tile_h is not None or cfg.max_tile_w is not None:
+            from .ops.ssim_cuda import fit_tile
+
+            for name, v in (("max_tile_h", cfg.max_tile_h),
+                            ("max_tile_w", cfg.max_tile_w)):
+                if v is not None and v < 1:
+                    raise InvalidArgumentError(f"{name} must be >= 1, got {v}")
+            # Clamped into the kernel's range as the JAX engine clamps; any
+            # setting keeps a batch of small images on the tile grid.
+            tile_kwargs["tile_h"], tile_kwargs["tile_w"] = fit_tile(
+                cfg.max_tile_h, cfg.max_tile_w, radius)
         partials, ssim_map = ssim_parts_auto(
             a, b, with_map=with_map, data_range=data_range, precise=precise,
             **window, **tile_kwargs,

@@ -8,7 +8,8 @@ Counterpart of `ssim_tpu/ops/`. The CUDA kernels are built from
 from .ssim_torch import ssim_parts_torch, blur_separable
 from .ssim_cuda import (
     ssim_components_cuda, ssim_components_plain, ssim_components_pooled_cuda,
-    ssim_components_pooled_plain, ssim_parts_cuda, ssim_parts_plain,
+    ssim_components_pooled_plain, ssim_parts_batch_cuda,
+    ssim_parts_batch_plain, ssim_parts_cuda, ssim_parts_plain,
     ssim_parts_precise_plain,
 )
 from .routing import ssim_parts_auto, pallas_routable
@@ -20,6 +21,8 @@ __all__ = [
     "ssim_parts_cuda",
     "ssim_parts_plain",
     "ssim_parts_precise_plain",
+    "ssim_parts_batch_cuda",
+    "ssim_parts_batch_plain",
     "ssim_components_cuda",
     "ssim_components_plain",
     "ssim_components_pooled_cuda",

@@ -125,11 +125,12 @@ def load_library() -> ctypes.CDLL:
             lib = ctypes.CDLL(build())
             p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
             d = ctypes.c_double
-            # partials is untyped: f32 in the standard and components
-            # modes, f64 in the precise modes. c1 and c2 are doubles, so
-            # the precise formula sees them unrounded.
+            # partials is untyped: f32 in the standard, components and
+            # batch modes, f64 in the precise modes. c1 and c2 are
+            # doubles, so the precise formula sees them unrounded.
             lib.ssim_fwd_launch.argtypes = [
-                i, i, p, p, p, p, p, p, i, i, i, i, i, i, p, d, d, f, p,
+                i, i, p, p, p, p, p, p, p, i, i, i, i, i, i, i, i, p, d, d,
+                f, p,
             ]
             lib.ssim_fwd_launch.restype = i
             lib.ssim_bwd_launch.argtypes = [

@@ -16,17 +16,23 @@ take, or float64 inputs (the f32 cast would round them before the fp64
 formula) it raises, and the caller takes the f64 oracle
 (`engine.compute(precision="f64")` routes those cases there).
 
-The JAX package's lane-packed branch for batches of small images is TPU
-lane machinery; here such batches take the same kernel, whose grid holds
-one block per tile of every image, with the same one-score-per-image
-output contract.
+Batches of small images take the batch route where the JAX package
+takes its lane-packed one (`batch_routable`, the gate of
+ssim_tpu/ops/routing.py:74-87 letter for letter): the kernel's batch
+modes, one partial pair per image, (B, 2) [sum(ssim - 1), H*W], for
+uint8 and for the floats cast to f32, in both tiers. The packing itself
+is TPU lane machinery and has no counterpart: only the route and the
+per-image output contract carry over. A map, a pinned tile, a single
+image or a width over PACK_MAX_W keep the tile grid, as in JAX.
 """
 
 from typing import Optional, Tuple
 
 import torch
 
-from .ssim_cuda import MAX_FUSED_RADIUS, ssim_parts_cuda
+from .ssim_cuda import (
+    MAX_FUSED_RADIUS, pack_preferred, ssim_parts_batch_cuda, ssim_parts_cuda,
+)
 from .ssim_torch import ssim_parts_torch
 
 _EXACT_F32 = ("uint8", "uint16", "float16", "bfloat16", "float32")
@@ -63,6 +69,23 @@ def _is_float_routable(dt: torch.dtype) -> bool:
     return dt.is_floating_point or dt == torch.uint16
 
 
+def batch_routable(shape, *, with_map: bool, data_range: float,
+                   itemsize: int, tile_kwargs) -> bool:
+    """Whether a (B, H, W) input of the kernel's route takes the batch
+    modes: the JAX package's pack_routable (ssim_tpu/ops/routing.py:74-87)
+    letter for letter. No map, no pinned tile, a 3-D batch, data_range >=
+    1e-6, pack_preferred(W, B, itemsize) (itemsize 1 for uint8, 4 for the
+    f32 cast) and H * W < 2^24 (the count rides as an exact f32)."""
+    return (
+        not with_map
+        and not tile_kwargs
+        and len(shape) == 3
+        and data_range >= 1e-6
+        and pack_preferred(shape[-1], shape[0], itemsize=itemsize)
+        and shape[-2] * shape[-1] < 1 << 24
+    )
+
+
 def ssim_parts_auto(
     a: torch.Tensor,
     b: torch.Tensor,
@@ -76,11 +99,14 @@ def ssim_parts_auto(
     k2: float = 0.03,
     **tile_kwargs,
 ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
-    """Fused kernel when the dtype allows it, ssim_parts_torch otherwise.
-    precise: the kernel's precise tier (f64 partials); raises where the
-    kernel cannot serve it. tile_kwargs (tile_h, tile_w) pin the kernel's
-    tile."""
+    """Fused kernel when the dtype allows it, ssim_parts_torch otherwise;
+    of the kernel's routes, the batch modes ((B, 2) partials per image, no
+    map) where batch_routable, else the tile grid. precise: the kernel's
+    precise tier (f64 partials); raises where the kernel cannot serve it.
+    tile_kwargs (tile_h, tile_w) pin the tile grid's tile."""
     window = dict(radius=radius, sigma=sigma, k1=k1, k2=k2)
+    gate = dict(with_map=with_map, data_range=data_range,
+                tile_kwargs=tile_kwargs)
     if precise and not precise_routable(a, b, radius):
         raise ValueError(
             f"precise=True takes radius <= {MAX_FUSED_RADIUS} and pairs of "
@@ -93,13 +119,24 @@ def ssim_parts_auto(
             a, b, with_map=with_map, data_range=data_range, **window
         )
     if a.dtype == torch.uint8:
+        a, b = a.contiguous(), b.contiguous()
+        if batch_routable(a.shape, itemsize=1, **gate):
+            return ssim_parts_batch_cuda(
+                a, b, data_range=data_range, precise=precise, **window,
+            ), None
         return ssim_parts_cuda(
-            a.contiguous(), b.contiguous(), with_map=with_map,
-            data_range=data_range, precise=precise, **window, **tile_kwargs,
+            a, b, with_map=with_map, data_range=data_range, precise=precise,
+            **window, **tile_kwargs,
         )
+    af = a.to(torch.float32).contiguous()
+    bf = b.to(torch.float32).contiguous()
+    if batch_routable(af.shape, itemsize=4, **gate):
+        return ssim_parts_batch_cuda(
+            af, bf, data_range=data_range, allow_float=True, precise=precise,
+            **window,
+        ), None
     return ssim_parts_cuda(
-        a.to(torch.float32).contiguous(), b.to(torch.float32).contiguous(),
-        with_map=with_map, data_range=data_range, allow_float=True,
+        af, bf, with_map=with_map, data_range=data_range, allow_float=True,
         precise=precise, **window, **tile_kwargs,
     )
 

@@ -2,7 +2,7 @@
 plain PyTorch twins.
 
 Counterpart of `ssim_tpu/ops/ssim_pallas.py` over `_nopad_overlap_call`
-and `_chunked_overlap_call`, in four of their modes:
+and `_chunked_overlap_call`, in five of their modes:
 
 - standard tier, with or without the map: `ssim_parts_cuda`
   (`ssim_parts_pallas`), twin `ssim_parts_plain`;
@@ -16,12 +16,17 @@ and `_chunked_overlap_call`, in four of their modes:
   `ssim_components_plain`;
 - components plus the 2x2-mean images of the next pyramid scale:
   `ssim_components_pooled_cuda` (`ssim_components_pooled_pallas`), twin
-  `ssim_components_pooled_plain`.
+  `ssim_components_pooled_plain`;
+- one partial pair per image for batches of small images, standard and
+  precise: `ssim_parts_batch_cuda` (`ssim_parts_pallas_bpacked`, whose
+  lane packing has no counterpart here), twin `ssim_parts_batch_plain`;
+  the same mode serves the contract of `tools/probe_bpack.py::bpack_parts`.
 
 The kernel is `ssim_tpu_torch/csrc/ssim_fwd.cu`: one 2-D grid of TILE_H x
 TILE_W output tiles, one CUDA block per tile, that covers every width, so
 the TPU's split at 16384 lanes and `pooled_components_ok`'s VMEM limits
-have no counterpart.
+have no counterpart. The batch modes walk each image's own grid of
+narrower tiles inside a block (`batch_geometry`).
 
 Each wrapper launches the kernel for CUDA tensors and runs its plain twin
 for CPU tensors, the counterpart of "compiled on TPU, interpreted
@@ -62,13 +67,36 @@ _MAX_DYNAMIC_SMEM = 232448 - 256
 
 #: Kernel launches made in this process by ssim_parts_cuda (standard
 #: tier, with or without the map; PRECISE_LAUNCHES: the precise tier),
-#: ssim_components_cuda and ssim_components_pooled_cuda, one counter per
-#: mode. Each is added to in one place, per launch, and nowhere else, so
-#: a caller can show which modes a run went through.
+#: ssim_components_cuda, ssim_components_pooled_cuda and
+#: ssim_parts_batch_cuda (BATCH_LAUNCHES, and BATCH_PRECISE_LAUNCHES for
+#: its precise tier), one counter per mode. Each is added to in one place,
+#: per launch, and nowhere else, so a caller can show which modes a run
+#: went through.
 LAUNCHES = 0
 PRECISE_LAUNCHES = 0
 COMPONENTS_LAUNCHES = 0
 POOLED_LAUNCHES = 0
+BATCH_LAUNCHES = 0
+BATCH_PRECISE_LAUNCHES = 0
+
+#: The JAX package's gate for its small-image batch route
+#: (ssim_tpu/ops/ssim_pallas.py:2141-2158 and :2303-2326), copied so that
+#: both packages send the same batches there. On the TPU, bpack_count's p
+#: images share one lane row of BPACK_LANES (u8) or FLOAT_BPACK_LANES
+#: (f32, ssim_pallas._FLOAT_FAST_PATH_BUDGET // 32) lanes; on the card p
+#: only decides the route.
+PACK_MAX_W = 192
+BPACK_LANES = 4096
+FLOAT_BPACK_LANES = 3072
+
+#: The batch modes' tile area, the tile grid's: its shared memory (68 KB
+#: at radius 5) lets three blocks share an SM.
+_BATCH_TILE_AREA = TILE_H * TILE_W
+#: The batch modes aim at about _BATCH_BLOCKS blocks (some ten waves of
+#: three blocks on 132 SMs), each walking at most _BATCH_MAX_RUN tiles:
+#: enough blocks that the last wave's tail stays short (PERF.md).
+_BATCH_BLOCKS = 4096
+_BATCH_MAX_RUN = 8
 
 
 def smem_bytes(tile_h: int, tile_w: int, radius: int) -> int:
@@ -81,6 +109,62 @@ def smem_bytes(tile_h: int, tile_w: int, radius: int) -> int:
 def tile_grid(h: int, w: int, tile_h: int = TILE_H, tile_w: int = TILE_W):
     """(rows of tiles, columns of tiles) covering an h x w image."""
     return -(-h // tile_h), -(-w // tile_w)
+
+
+def fit_tile(tile_h: Optional[int], tile_w: Optional[int], radius: int):
+    """A tile setting (each >= 1, or None for TILE_H / TILE_W) brought into
+    the range the kernel takes, as the JAX engine clamps its max_tile_h
+    (ssim_pallas.py:728): tile_h to a multiple of 32 in [32, 256], tile_w
+    to the power of two in [32, 256] at or below it; then tile_h, and
+    where that is not enough tile_w, shrunk until a block's shared memory
+    fits at this radius. Returns (tile_h, tile_w)."""
+    th = TILE_H if tile_h is None else max(32, min(int(tile_h), _MAX_TILE_H) // 32 * 32)
+    tw = TILE_W if tile_w is None else min(
+        _TILE_WIDTHS[-1], max(_TILE_WIDTHS[0], 1 << (int(tile_w).bit_length() - 1)))
+    while smem_bytes(th, tw, radius) > _MAX_DYNAMIC_SMEM:
+        if th > 32:
+            th -= 32
+        else:
+            tw //= 2
+    return th, tw
+
+
+def bpack_count(w: int, batch: int, itemsize: int = 1) -> int:
+    """How many w-wide images the JAX package's packed path lays side by
+    side in one row (a copy of ssim_pallas.bpack_count): the largest p up
+    to the row budget over w whose row p * w is a multiple of 128 lanes,
+    else at most 2048 // w."""
+    budget = FLOAT_BPACK_LANES if itemsize > 1 else BPACK_LANES
+    cap = max(1, min(batch, budget // w))
+    for p in range(cap, 0, -1):
+        if (p * w) % 128 == 0:
+            return p
+    return max(1, min(cap, max(1, 2048 // w)))
+
+
+def pack_preferred(w: int, batch: int, itemsize: int = 1) -> bool:
+    """The JAX package's width policy for the small-image batch route (a
+    copy of ssim_pallas.pack_preferred): at least two images to a packed
+    row and w <= PACK_MAX_W."""
+    return bpack_count(w, batch, itemsize) >= 2 and w <= PACK_MAX_W
+
+
+def batch_geometry(batch: int, h: int, w: int):
+    """The batch modes' launch for a (batch, h, w) input: (tile_h, tile_w,
+    images per block, runs per image). The tile is as wide as the image
+    rounded up to a power of two in [8, TILE_W], so a narrow image leaves
+    few of a block's threads idle, and holds _BATCH_TILE_AREA pixels (fewer
+    for a short image). A block walks about batch * tiles / _BATCH_BLOCKS
+    tiles (1.._BATCH_MAX_RUN): whole images where an image has fewer
+    tiles, else one of the runs an image's tiles are split into."""
+    tile_w = min(TILE_W, max(8, 1 << (w - 1).bit_length()))
+    tile_h = min(h, _BATCH_TILE_AREA // tile_w)
+    nty, ntx = tile_grid(h, w, tile_h, tile_w)
+    tiles = nty * ntx
+    run = max(1, min(_BATCH_MAX_RUN, batch * tiles // _BATCH_BLOCKS))
+    if tiles >= run:
+        return tile_h, tile_w, 1, -(-tiles // run)
+    return tile_h, tile_w, run // tiles, 1
 
 
 def _tile_reduce(x: torch.Tensor, tile_h: int, tile_w: int, op) -> torch.Tensor:
@@ -246,6 +330,28 @@ def ssim_parts_precise_plain(
     return partials, (ssim.to(torch.float32) if with_map else None)
 
 
+def ssim_parts_batch_plain(
+    a: torch.Tensor,
+    b: torch.Tensor,
+    precise: bool = False,
+    *,
+    taps: np.ndarray,
+    c1: float,
+    c2: float,
+    clip_bound: float,
+) -> torch.Tensor:
+    """The batch modes' plain twin on (B, H, W) u8 or f32 tensors, on any
+    device: the standard (precise) tier's per-pixel SSIM, NaN over each
+    image that holds a non-finite input pixel, and each image's
+    sum(ssim - 1) in f64. Returns (B, 2) [sum(ssim - 1), H*W], f32 (f64
+    with precise)."""
+    h, w = a.shape[-2], a.shape[-1]
+    dtype = torch.float64 if precise else torch.float32
+    ssim = _ssim_map_plain(a, b, dtype, taps, c1, c2, clip_bound, h, w)
+    sums = (ssim - 1.0).to(torch.float64).sum(dim=(1, 2))
+    return torch.stack([sums, torch.full_like(sums, h * w)], dim=1).to(dtype)
+
+
 def ssim_components_plain(
     a: torch.Tensor,
     b: torch.Tensor,
@@ -285,16 +391,20 @@ def ssim_components_pooled_plain(
 #: The kernel's modes, in the order of the C entry's `mode` argument. The
 #: precise tier has no components or pooled mode (nor has the TPU
 #: kernel's): the C entry refuses any other mode number.
-_MODES = ("score", "map", "components", "pooled", "precise", "precise_map")
+_MODES = ("score", "map", "components", "pooled", "precise", "precise_map",
+          "batch", "batch_precise")
 
 
-def _launch(a, b, *, mode, taps, c1, c2, clip_bound, tile_h, tile_w):
+def _launch(a, b, *, mode, taps, c1, c2, clip_bound, tile_h, tile_w, ipb=1,
+            groups=1):
     """Launch the CUDA kernel in `mode` (one of _MODES) on (B, H, W)
-    contiguous tensors on one CUDA device; no synchronisation. Returns
-    the mode's outputs: (partials, map or None) (partials f64 in the
-    precise modes), (B, K, 2) partials, or (partials, pooled_a,
-    pooled_b)."""
+    contiguous tensors on one CUDA device; no synchronisation. ipb, groups:
+    the batch modes' images per block and runs per image. Returns the
+    mode's outputs: (partials, map or None) (partials f64 in the precise
+    modes), (B, K, 2) partials, (partials, pooled_a, pooled_b), or the
+    batch modes' (B, 2) partials."""
     global LAUNCHES, PRECISE_LAUNCHES, COMPONENTS_LAUNCHES, POOLED_LAUNCHES
+    global BATCH_LAUNCHES, BATCH_PRECISE_LAUNCHES
     from . import _build
 
     lib = _build.load_library()
@@ -302,17 +412,21 @@ def _launch(a, b, *, mode, taps, c1, c2, clip_bound, tile_h, tile_w):
     nty, ntx = tile_grid(h, w, tile_h, tile_w)
     if bsz * nty * ntx > 0x7FFFFFFF:
         raise ValueError(f"{bsz * nty * ntx} tiles exceed one launch's grid")
+    batch = mode in ("batch", "batch_precise")
     comp = mode in ("components", "pooled")
-    precise = mode in ("precise", "precise_map")
+    precise = mode in ("precise", "precise_map", "batch_precise")
     new = lambda *shape: torch.empty(shape, dtype=torch.float32, device=a.device)
     if comp:
         partials = new(bsz, nty * ntx, 2)
     else:
-        partials = torch.empty((bsz, nty * ntx), device=a.device,
+        partials = torch.empty((bsz, 2) if batch else (bsz, nty * ntx),
+                               device=a.device,
                                dtype=torch.float64 if precise else torch.float32)
     ssim_map = new(bsz, h, w) if mode in ("map", "precise_map") else None
     pooled = (new(bsz, h // 2, w // 2), new(bsz, h // 2, w // 2)) \
         if mode == "pooled" else (None, None)
+    scratch = torch.empty((bsz, groups), dtype=torch.float64, device=a.device) \
+        if groups > 1 else None
     ptr = lambda x: None if x is None else x.data_ptr()
     r = len(taps) // 2
     taps_c = (ctypes.c_float * len(taps))(*[float(v) for v in taps])
@@ -320,11 +434,17 @@ def _launch(a, b, *, mode, taps, c1, c2, clip_bound, tile_h, tile_w):
         err = lib.ssim_fwd_launch(
             _MODES.index(mode), int(a.dtype == torch.float32), a.data_ptr(),
             b.data_ptr(), partials.data_ptr(), ptr(ssim_map), ptr(pooled[0]),
-            ptr(pooled[1]), bsz, h, w, r, tile_h, tile_w,
-            ctypes.cast(taps_c, ctypes.c_void_p), c1, c2, clip_bound,
+            ptr(pooled[1]), ptr(scratch), bsz, h, w, r, tile_h, tile_w, ipb,
+            groups, ctypes.cast(taps_c, ctypes.c_void_p), c1, c2, clip_bound,
             torch.cuda.current_stream(a.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"ssim_fwd kernel ({mode}) failed with CUDA error {err}")
+    if batch:
+        if precise:
+            BATCH_PRECISE_LAUNCHES += 1
+        else:
+            BATCH_LAUNCHES += 1
+        return partials
     if mode == "pooled":
         POOLED_LAUNCHES += 1
         return partials, pooled[0], pooled[1]
@@ -338,10 +458,10 @@ def _launch(a, b, *, mode, taps, c1, c2, clip_bound, tile_h, tile_w):
     return partials, ssim_map
 
 
-def _prepare(a, b, *, data_range, radius, sigma, k1, k2, tile_h, tile_w):
+def _prepare(a, b, *, data_range, radius, sigma, k1, k2):
     """Check what every mode of the kernel needs of its arguments (dtypes
-    are each wrapper's own check) and return the launch's keyword
-    arguments: taps, c1, c2, clip_bound, tile_h, tile_w."""
+    and the tile are each wrapper's own check) and return the launch's
+    keyword arguments: taps, c1, c2, clip_bound."""
     if not 1 <= radius <= MAX_FUSED_RADIUS:
         raise ValueError(
             f"the fused kernel serves radius 1..{MAX_FUSED_RADIUS}; got "
@@ -357,17 +477,6 @@ def _prepare(a, b, *, data_range, radius, sigma, k1, k2, tile_h, tile_w):
             f"k1/k2 too small for data_range {data_range}: c1*c2 = "
             f"{c1 * c2:g} degenerates in f32 (needs >= 9e-32)"
         )
-    if tile_w not in _TILE_WIDTHS or not 1 <= tile_h <= _MAX_TILE_H:
-        raise ValueError(
-            f"tile {tile_h}x{tile_w}: tile_w must be one of {_TILE_WIDTHS} "
-            f"and tile_h in 1..{_MAX_TILE_H}"
-        )
-    if smem_bytes(tile_h, tile_w, radius) > _MAX_DYNAMIC_SMEM:
-        raise ValueError(
-            f"tile {tile_h}x{tile_w} at radius {radius} needs "
-            f"{smem_bytes(tile_h, tile_w, radius)} bytes of shared memory "
-            f"(at most {_MAX_DYNAMIC_SMEM})"
-        )
     if a.shape != b.shape or a.dim() not in (2, 3) or 0 in a.shape:
         raise ValueError(
             f"expected matching non-empty (H, W) or (B, H, W) tensors, got "
@@ -380,8 +489,35 @@ def _prepare(a, b, *, data_range, radius, sigma, k1, k2, tile_h, tile_w):
     if not (a.is_contiguous() and b.is_contiguous()):
         raise ValueError("the fused kernel takes contiguous tensors")
     return dict(taps=taps, c1=c1, c2=c2,
-                clip_bound=max(131072.0, 4.0 * float(data_range)),
-                tile_h=tile_h, tile_w=tile_w)
+                clip_bound=max(131072.0, 4.0 * float(data_range)))
+
+
+def _check_tile(tile_h, tile_w, radius):
+    """A pinned tile the tile modes can take at this radius, or raise."""
+    if tile_w not in _TILE_WIDTHS or not 1 <= tile_h <= _MAX_TILE_H:
+        raise ValueError(
+            f"tile {tile_h}x{tile_w}: tile_w must be one of {_TILE_WIDTHS} "
+            f"and tile_h in 1..{_MAX_TILE_H}"
+        )
+    if smem_bytes(tile_h, tile_w, radius) > _MAX_DYNAMIC_SMEM:
+        raise ValueError(
+            f"tile {tile_h}x{tile_w} at radius {radius} needs "
+            f"{smem_bytes(tile_h, tile_w, radius)} bytes of shared memory "
+            f"(at most {_MAX_DYNAMIC_SMEM})"
+        )
+
+
+def _check_dtypes(a, b, allow_float):
+    """uint8 pairs, or float32 pairs with allow_float."""
+    float_ok = (
+        allow_float and a.dtype == torch.float32 and b.dtype == torch.float32
+    )
+    if not float_ok and (a.dtype != torch.uint8 or b.dtype != torch.uint8):
+        raise ValueError(
+            f"the fused kernel is specialized to uint8 inputs; got "
+            f"{a.dtype}/{b.dtype} — use allow_float=True for float32 "
+            f"images or ssim_parts_torch for wider integer dtypes"
+        )
 
 
 def ssim_parts_cuda(
@@ -421,19 +557,12 @@ def ssim_parts_cuda(
     NaN partial and NaN map values, so an invalid input shows in its own
     image's score and no other's.
     """
-    float_ok = (
-        allow_float and a.dtype == torch.float32 and b.dtype == torch.float32
-    )
-    if not float_ok and (a.dtype != torch.uint8 or b.dtype != torch.uint8):
-        raise ValueError(
-            f"the fused kernel is specialized to uint8 inputs; got "
-            f"{a.dtype}/{b.dtype} — use allow_float=True for float32 "
-            f"images or ssim_parts_torch for wider integer dtypes"
-        )
+    _check_dtypes(a, b, allow_float)
     kw = _prepare(a, b, data_range=data_range, radius=radius, sigma=sigma,
-                  k1=k1, k2=k2,
-                  tile_h=TILE_H if tile_h is None else int(tile_h),
-                  tile_w=TILE_W if tile_w is None else int(tile_w))
+                  k1=k1, k2=k2)
+    kw["tile_h"] = TILE_H if tile_h is None else int(tile_h)
+    kw["tile_w"] = TILE_W if tile_w is None else int(tile_w)
+    _check_tile(kw["tile_h"], kw["tile_w"], radius)
     squeeze = a.dim() == 2
     if squeeze:
         a, b = a[None], b[None]
@@ -458,8 +587,9 @@ def _components_args(a, b, data_range, radius, sigma, k1, k2):
             f"the components kernel takes uint8 or float32 pairs, got "
             f"{a.dtype}/{b.dtype}"
         )
-    return _prepare(a, b, data_range=data_range, radius=radius, sigma=sigma,
-                    k1=k1, k2=k2, tile_h=TILE_H, tile_w=TILE_W)
+    return dict(_prepare(a, b, data_range=data_range, radius=radius,
+                         sigma=sigma, k1=k1, k2=k2),
+                tile_h=TILE_H, tile_w=TILE_W)
 
 
 def ssim_components_cuda(
@@ -523,3 +653,48 @@ def ssim_components_pooled_cuda(
     else:
         out = ssim_components_pooled_plain(a, b, **kw)
     return tuple(x[0] for x in out) if squeeze else out
+
+
+def ssim_parts_batch_cuda(
+    a: torch.Tensor,
+    b: torch.Tensor,
+    *,
+    data_range: float = 255.0,
+    precise: bool = False,
+    allow_float: bool = False,
+    radius: int = RADIUS,
+    sigma: float = SIGMA,
+    k1: float = 0.01,
+    k2: float = 0.03,
+) -> torch.Tensor:
+    """Fused-kernel SSIM with one partial pair per image, for batches of
+    small images. a, b: (B, H, W) contiguous tensors, uint8 (or, with
+    allow_float=True, float32 in [0, data_range]), H * W < 2^24.
+
+    Returns (B, 2) partials [sum(ssim - 1), H*W] (finalize with
+    engine.finalize_mean), f32 as in ssim_parts_pallas_bpacked. With
+    precise=True the precise tier: the same f32 blurs, the formula and the
+    sums in fp64, and (B, 2) f64 where the JAX kernel writes (B, 3) f32
+    [df32 hi, lo, H*W]; engine.finalize_mean and api._device_finalize sum
+    the last axis in f64, so the score is the same quantity. Each pixel's
+    SSIM is the tile modes' bit for bit; only the order of the sums
+    differs. Float inputs are sanitised as in ssim_parts_cuda, and an image
+    with a NaN or inf pixel gets a NaN sum, no other image does; the count
+    stays H*W. On a CUDA tensor the kernel is launched; on a CPU tensor
+    the plain twin runs.
+    """
+    _check_dtypes(a, b, allow_float)
+    if a.dim() != 3:
+        raise ValueError(f"the batch modes take a (B, H, W) batch, got {tuple(a.shape)}")
+    if a.shape[-2] * a.shape[-1] >= 1 << 24:
+        raise ValueError(
+            f"the batch modes need H*W < 2^24 for an exact f32 count, got "
+            f"{a.shape[-2]}x{a.shape[-1]}"
+        )
+    kw = _prepare(a, b, data_range=data_range, radius=radius, sigma=sigma,
+                  k1=k1, k2=k2)
+    if a.device.type == "cuda":
+        tile_h, tile_w, ipb, groups = batch_geometry(*a.shape)
+        return _launch(a, b, mode="batch_precise" if precise else "batch",
+                       tile_h=tile_h, tile_w=tile_w, ipb=ipb, groups=groups, **kw)
+    return ssim_parts_batch_plain(a, b, precise, **kw)

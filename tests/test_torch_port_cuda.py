@@ -1,6 +1,7 @@
-"""The fused CUDA kernels (forward in its standard, precise, components
-and pooled-components modes, and backward) against their plain twins, on
-the card, and the launches of the training and MS-SSIM paths.
+"""The fused CUDA kernels (forward in its standard, precise, components,
+pooled-components and batch modes, and backward) against their plain
+twins, on the card, and the launches of the training, MS-SSIM and
+small-image batch paths.
 
 Marked `cuda`: it skips without a CUDA device (here, on the CPU). This
 file imports neither JAX nor the repo's conftest, so it also runs on a
@@ -103,10 +104,13 @@ def test_ssim_loss_backward_launches_the_kernel():
     a = torch.from_numpy(rng.random((2, 96, 130), dtype=np.float32)).cuda()
     x = torch.from_numpy(rng.random((2, 96, 130), dtype=np.float32)).cuda()
     x.requires_grad_()
-    fwd, bwd = ssim_cuda.LAUNCHES, ssim_grad.LAUNCHES
+    # A batch of two 130-wide images: the forward takes the batch mode, as
+    # the JAX package's router packs it.
+    fwd, batch, bwd = ssim_cuda.LAUNCHES, ssim_cuda.BATCH_LAUNCHES, ssim_grad.LAUNCHES
     ssim_tpu_torch.ssim_loss(x, a).backward()
     torch.cuda.synchronize()
-    assert ssim_cuda.LAUNCHES == fwd + 1 and ssim_grad.LAUNCHES == bwd + 1
+    assert ssim_cuda.LAUNCHES == fwd and ssim_cuda.BATCH_LAUNCHES == batch + 1
+    assert ssim_grad.LAUNCHES == bwd + 1
     assert x.grad.is_cuda and torch.isfinite(x.grad).all()
     y = x.detach().cpu().requires_grad_()
     ssim_tpu_torch.ssim_loss(y, a.cpu()).backward()
@@ -215,4 +219,70 @@ def test_ms_ssim_launches_the_kernels():
     (1 - ssim_tpu_torch.ms_ssim(x, y, data_range=1.0)).sum().backward()
     torch.cuda.synchronize()
     assert (counts() - after).tolist() == [0, 5, 0, 5]
+    assert torch.isfinite(x.grad).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,precise", [("u8", False), ("u8", True),
+                                           ("f32", False), ("f32", True)])
+def test_batch_modes_match_twin_on_card(dtype, precise):
+    """The batch modes (kBatch, kBatchPrecise) against their twin and the
+    tile modes: one partial pair per image, scores within 2e-7 (precise
+    1e-12 relative), the count exact; whole images to a block (64x32x40)
+    and one image's tiles split over blocks (3x300x64)."""
+    _need_card()
+    rng = np.random.default_rng(0x5B)
+    for shape in ((64, 32, 40), (3, 300, 64)):
+        if dtype == "u8":
+            a, b = _pair(rng, shape)
+            data_range = 255.0
+        else:
+            a = rng.random(shape, dtype=np.float32)
+            b = np.clip(a + rng.normal(0, 0.05, shape), 0, 1).astype(np.float32)
+            a[1, 20, 30] = np.nan
+            data_range = 1.0
+        at, bt = torch.from_numpy(a).cuda(), torch.from_numpy(b).cuda()
+        counter = "BATCH_PRECISE_LAUNCHES" if precise else "BATCH_LAUNCHES"
+        before = getattr(ssim_cuda, counter)
+        pk = ssim_cuda.ssim_parts_batch_cuda(at, bt, data_range=data_range,
+                                             precise=precise, allow_float=dtype == "f32")
+        torch.cuda.synchronize()
+        assert getattr(ssim_cuda, counter) == before + 1
+        assert pk.shape == (shape[0], 2) and pk.is_cuda
+        assert pk.dtype == (torch.float64 if precise else torch.float32)
+        npix = shape[1] * shape[2]
+        assert bool((pk[:, 1] == npix).all())
+        pp = ssim_cuda.ssim_parts_batch_plain(at, bt, precise, **_twin_kw(data_range))
+        tk, _ = ssim_cuda.ssim_parts_cuda(at, bt, data_range=data_range, precise=precise,
+                                          allow_float=dtype == "f32")
+        gk = pk.double().sum(-1).cpu().numpy() / npix
+        for want in (pp, tk):
+            gw = want.double().sum(-1).cpu().numpy() / npix
+            assert np.array_equal(np.isnan(gk), np.isnan(gw))
+            err = np.nanmax(np.abs(gk - gw) / (np.abs(gw) if precise else 1.0), initial=0.0)
+            assert err <= (1e-12 if precise else 2e-7)
+        if dtype == "f32":
+            assert np.isnan(gk[1]) and np.isfinite(np.delete(gk, 1)).all()
+
+
+@pytest.mark.cuda
+def test_small_batches_launch_the_batch_modes():
+    _need_card()
+    rng = np.random.default_rng(0x5C)
+    a, b = _pair(rng, (64, 32, 40))
+    counts = lambda: np.array([ssim_cuda.LAUNCHES, ssim_cuda.PRECISE_LAUNCHES,
+                               ssim_cuda.BATCH_LAUNCHES, ssim_cuda.BATCH_PRECISE_LAUNCHES,
+                               ssim_grad.LAUNCHES])
+    before = counts()
+    got = ssim_tpu_torch.compute_ssim(a, b)
+    got64 = ssim_tpu_torch.compute_ssim(a, b, precision="f64")
+    assert (counts() - before).tolist() == [0, 0, 1, 1, 0]
+    want = ssim_tpu_torch.compute_ssim(a, b, device="cpu")
+    assert np.abs(got - want).max() <= 2e-7 and np.abs(got64 - want).max() <= 2e-7
+    x = torch.from_numpy(a.astype(np.float32) / 255).cuda().requires_grad_()
+    y = torch.from_numpy(b.astype(np.float32) / 255).cuda()
+    before = counts()
+    ssim_tpu_torch.ssim_loss(x, y).backward()
+    torch.cuda.synchronize()
+    assert (counts() - before).tolist() == [0, 0, 1, 0, 1]
     assert torch.isfinite(x.grad).all()

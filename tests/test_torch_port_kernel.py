@@ -130,8 +130,9 @@ def test_tile_shapes_agree(rng, tile):
 
 
 def test_small_image_batch_matches_jax_route(rng):
-    """Batches of small images: the JAX route packs lanes, the port runs
-    the same kernel's grid; both give one score per image."""
+    """Batches of small images: both routers take their batch routes (the
+    JAX package packs lanes, the port runs the kernel's per-image batch
+    mode); both give one score per image."""
     a, b = _stack_pairs(rng, 24, 9, 12)
     pt, _ = ssim_parts_auto(torch.from_numpy(a), torch.from_numpy(b))
     pj, _ = jax_parts_auto(a, b, interpret=True)
