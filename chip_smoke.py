@@ -77,7 +77,29 @@ Phases, each of which raises on failure (the script then exits non-zero):
    x1024, 192x192 x512 (u8) and precise 64x64 x4096, the batch mode
    against the tile grid on the same inputs with CUDA events (in turns:
    tile, batch, batch, tile), `compute_ssim` on both routes (the tile
-   route by a tile pin; in turns) with the host clock, and the twin.
+   route by a tile pin; in turns) with the host clock, and the twin;
+9. spatial sharding (ssim_tpu_torch.parallel): (a) the forward kernel's
+   row modes with halo operands (kRowsum, kRowsumMap) and the backward
+   kernel's halo mode against their twins band by band, each band with
+   the rows a mesh ring delivers (the other end's rows at the image's
+   edges, which the kernels must replace on their flags), at 4K x4 in 4
+   bands (u8 and f32), 1080p x4 in 3 bands and in bands of 523, 20, 35
+   and 502 rows, radius 1 / 16 with custom sigma/k1/k2, f32 with a NaN
+   in a neighbour's rows, and NaN-filled operands under a set flag (not
+   read); the bands concatenated against the unsharded kernels (the same
+   map and the same rows as kMap and kRowsum; gradients against the
+   unsharded backward); (b) on a one-rank nccl mesh (a file:// store in a
+   temporary directory): `ssim_spatial_sharded` on one u8 (8640, 15360)
+   pair, score and map (exactly one kRowsum / kRowsumMap launch with halo
+   operands each, the mean of the rows within 2e-7 of `compute_ssim`, the
+   map bit for bit `compute_ssim_map`'s), one `mean_ssim_spatial`
+   forward and backward on an f32 (8640, 15360) pair (one kRowsum and one
+   backward halo launch; value and gradient against `ssim`'s) and the
+   batched (4, 2160, 3840) call on a (1, 1) data x space mesh; the plain
+   twins are made to raise there; (c) each new mode and its twin with
+   CUDA events, the unsharded kernel beside it, the public calls and a
+   `mean_ssim_spatial` step with the host clock, and one trace of the
+   step.
 
 Prints the kernel records as one JSON line (with each kernel's roofline
 bound), the card's name and power limit, and last
@@ -87,6 +109,7 @@ from a fixed seed. Imports no JAX. Where it cannot start (no CUDA, or no
 `{"ok": false, "error": ...}` and exits non-zero.
 """
 
+import contextlib
 import json
 import os
 import statistics
@@ -502,14 +525,15 @@ def phase_main(gen, label):
 
 
 def grad_twin(a, b, w_s, w_cs, g_map, data_range=1.0, radius=5, sigma=1.5,
-              k1=0.01, k2=0.03):
+              k1=0.01, k2=0.03, **halo):
+    """halo: vhalo and vmask of the backward's halo mode, if any."""
     from ssim_tpu_torch.ops import ssim_grad
 
     return ssim_grad.ssim_grad_plain(
         a, b, w_s, w_cs, g_map,
         taps=ssim_grad.gaussian_taps(np.float32, radius, sigma),
         c1=float((k1 * data_range) ** 2), c2=float((k2 * data_range) ** 2),
-        clip_bound=max(131072.0, 4.0 * data_range),
+        clip_bound=max(131072.0, 4.0 * data_range), **halo,
     )
 
 
@@ -788,7 +812,10 @@ def launch_counts():
                 components=ssim_cuda.COMPONENTS_LAUNCHES,
                 pooled=ssim_cuda.POOLED_LAUNCHES, batch=ssim_cuda.BATCH_LAUNCHES,
                 batch_precise=ssim_cuda.BATCH_PRECISE_LAUNCHES,
-                backward=ssim_grad.LAUNCHES)
+                rowsum=ssim_cuda.ROWSUM_LAUNCHES,
+                rowsum_map=ssim_cuda.ROWSUM_MAP_LAUNCHES,
+                backward=ssim_grad.LAUNCHES,
+                backward_vhalo=ssim_grad.VHALO_LAUNCHES)
 
 
 def counts_of(**nonzero):
@@ -802,7 +829,8 @@ def zero_counts():
     ssim_cuda.LAUNCHES = ssim_cuda.PRECISE_LAUNCHES = 0
     ssim_cuda.COMPONENTS_LAUNCHES = ssim_cuda.POOLED_LAUNCHES = 0
     ssim_cuda.BATCH_LAUNCHES = ssim_cuda.BATCH_PRECISE_LAUNCHES = 0
-    ssim_grad.LAUNCHES = 0
+    ssim_cuda.ROWSUM_LAUNCHES = ssim_cuda.ROWSUM_MAP_LAUNCHES = 0
+    ssim_grad.LAUNCHES = ssim_grad.VHALO_LAUNCHES = 0
 
 
 def phase_msssim(gen, label):
@@ -1474,6 +1502,567 @@ def phase_batch(gen, label):
     return dict(err=err, route=route, launches=launches, losses=losses, times=times)
 
 
+def ring_halo(x, lo, hi, rows, first, last):
+    """The `rows` rows above and below the band [lo, hi) of x (..., H, W) as
+    a mesh ring delivers them: the neighbouring rows, and at the image's
+    first (last) band the other end's rows, which the kernels must replace
+    on their flags. Contiguous, on the card."""
+    top = x[..., -rows:, :] if first else x[..., lo - rows:lo, :]
+    bot = x[..., :rows, :] if last else x[..., hi:hi + rows, :]
+    return top.contiguous(), bot.contiguous()
+
+
+def band_operands(a, b, lo, hi, rows, first, last):
+    a_top, a_bot = ring_halo(a, lo, hi, rows, first, last)
+    b_top, b_bot = ring_halo(b, lo, hi, rows, first, last)
+    return a_top, a_bot, b_top, b_bot
+
+
+def rows_twin(a, b, vhalo, vmask, data_range=255.0, radius=5, sigma=1.5, k1=0.01,
+              k2=0.03):
+    from ssim_tpu_torch.ops import ssim_cuda
+
+    return ssim_cuda.ssim_rows_plain(
+        a, b, with_map=True,
+        taps=ssim_cuda.gaussian_taps(np.float32, radius, sigma),
+        c1=float((k1 * data_range) ** 2), c2=float((k2 * data_range) ** 2),
+        clip_bound=max(131072.0, 4.0 * data_range), vhalo=vhalo, vmask=vmask,
+    )
+
+
+def finite_err(x, y, what):
+    """Max |x - y| where both are finite, after checking that NaN sits at
+    the same places."""
+    check(torch.equal(x.isnan(), y.isnan()), f"{what}: NaN positions differ")
+    fin = ~y.isnan()
+    return float((x[fin] - y[fin]).abs().max()) if fin.any() else 0.0
+
+
+def bands_fwd(name, a, b, splits, **win):
+    """9a forward: each band of a (B, H, W) pair, with its ring operands
+    and flags, through kRowsum and kRowsumMap against the row twin; then
+    the bands' rows and maps, concatenated, against the unsharded kMap
+    (its map; its rows as the twin reduces them) and kRowsum, and the
+    unsharded kRowsum against the twin. A NaN in the input: only where the
+    unsharded map is NaN too, or the rows that hold it, may differ.
+    Returns (max abs error against the twin, the bands' rows
+    concatenated)."""
+    from ssim_tpu_torch.ops import ssim_cuda
+
+    r = win.get("radius", 5)
+    w = a.shape[-1]
+    allow = a.dtype == torch.float32
+    row_tol = TWIN_PIXEL_R1 * w if r == 1 else TWIN_PIXEL * w
+    pix_tol = TWIN_PIXEL_R1 if r == 1 else TWIN_PIXEL
+    err, rows_all, maps_all = 0.0, [], []
+    for i, (lo, hi) in enumerate(splits):
+        flags = (i == 0, i == len(splits) - 1)
+        a_s, b_s = a[:, lo:hi].contiguous(), b[:, lo:hi].contiguous()
+        vh = band_operands(a, b, lo, hi, r, *flags)
+        kw = dict(vhalo=vh, vmask=flags, allow_float=allow, **win)
+        rows_k, _ = ssim_cuda.ssim_rows_cuda(a_s, b_s, **kw)
+        rows_m, map_k = ssim_cuda.ssim_rows_cuda(a_s, b_s, with_map=True, **kw)
+        torch.cuda.synchronize()
+        rows_p, map_p = rows_twin(a_s, b_s, vh, flags, **win)
+        check(torch.equal(rows_k.isnan(), rows_m.isnan())
+              and torch.equal(rows_k[~rows_k.isnan()], rows_m[~rows_m.isnan()]),
+              f"{name} band {i}: kRowsum and kRowsumMap rows differ")
+        e_map = finite_err(map_k, map_p, f"{name} band {i} map")
+        e_rows = finite_err(rows_k, rows_p, f"{name} band {i} rows")
+        check(e_map <= pix_tol and e_rows <= row_tol,
+              f"{name} band {i} [{lo}, {hi}): kernel vs twin map {e_map:.3g} "
+              f"(tol {pix_tol:.3g}), rows {e_rows:.3g} (tol {row_tol:.3g})")
+        err = max(err, e_map, e_rows / w)
+        rows_all.append(rows_k)
+        maps_all.append(map_k)
+        del map_p, rows_p
+    rows = torch.cat(rows_all, dim=1)
+    smap = torch.cat(maps_all, dim=1)
+    _, map_u = ssim_cuda.ssim_parts_cuda(a, b, with_map=True, allow_float=allow, **win)
+    rows_rs, _ = ssim_cuda.ssim_rows_cuda(a, b, allow_float=allow, **win)
+    rows_u = ssim_cuda.row_sums_plain(map_u)
+    torch.cuda.synchronize()
+    rows_tw, _ = rows_twin(a, b, None, (False, False), **win)
+    e_whole = finite_err(rows_rs, rows_tw, f"{name} unsharded kRowsum")
+    check(e_whole <= row_tol,
+          f"{name}: unsharded kRowsum vs twin {e_whole:.3g} (tol {row_tol:.3g})")
+    err = max(err, e_whole / w)
+    del rows_tw
+    if not bool(map_u.isnan().any()):
+        e_cat_map = float((smap - map_u).abs().max())
+        e_cat_rows = float((rows - rows_u).abs().max())
+        same_rs = torch.equal(rows, rows_rs)
+    else:
+        # Tiles start at each band's row 0: a NaN poisons other rows than
+        # in the unsharded grid. The rows that hold it are NaN in both;
+        # where both are finite they agree.
+        bad_rows = (a.isnan() | b.isnan()).any(dim=-1)
+        check(bool(rows[bad_rows].isnan().all() and rows_u[bad_rows].isnan().all()),
+              f"{name}: a row holding a NaN pixel is finite")
+        fin = ~(rows.isnan() | rows_u.isnan())
+        e_cat_rows = float((rows[fin] - rows_u[fin]).abs().max())
+        fin_m = ~(smap.isnan() | map_u.isnan())
+        e_cat_map = float((smap[fin_m] - map_u[fin_m]).abs().max())
+        fin_rs = ~(rows.isnan() | rows_rs.isnan())
+        same_rs = torch.equal(rows[fin_rs], rows_rs[fin_rs])
+    check(e_cat_map <= pix_tol and e_cat_rows <= row_tol,
+          f"{name}: bands vs unsharded kMap map {e_cat_map:.3g}, rows {e_cat_rows:.3g}")
+    print(f"  {name} {tuple(a.shape)} {a.dtype} bands {[hi - lo for lo, hi in splits]}"
+          f"{' ' + str(win) if win else ''}: kernel vs twin {err:.3g} (map, rows / W); "
+          f"bands vs unsharded kMap: map {e_cat_map:.3g}, rows {e_cat_rows:.3g}; "
+          f"rows {'equal' if same_rs else 'NOT equal'} to the unsharded kRowsum's; "
+          f"unsharded kRowsum vs twin {e_whole:.3g}", flush=True)
+    check(same_rs, f"{name}: the bands' rows differ from the unsharded kRowsum's")
+    del map_u, smap
+    return err, rows
+
+
+def bands_bwd(name, a, b, splits, w_s, w_cs, **win):
+    """9a backward: each band of an f32 pair with its 2r-row ring operands
+    and flags through the backward kernel's halo mode against its twin;
+    then the bands' gradients, concatenated, against the unsharded
+    backward kernel (where both are finite, with NaN at the input's NaN
+    pixels in both). Returns the max abs error against the twin over
+    max(1, max|g|)."""
+    from ssim_tpu_torch.ops import ssim_grad
+
+    r = win.get("radius", 5)
+    dr = win.setdefault("data_range", 1.0)
+    err, das, dbs, scale = 0.0, [], [], 1.0
+    taps = ssim_grad.gaussian_taps(np.float32, r, win.get("sigma", 1.5))
+    tw = dict(taps=taps, c1=float((win.get("k1", 0.01) * dr) ** 2),
+              c2=float((win.get("k2", 0.03) * dr) ** 2),
+              clip_bound=max(131072.0, 4.0 * dr))
+    ws = torch.full((a.shape[0],), w_s, device=a.device)
+    wcs = torch.full((a.shape[0],), w_cs, device=a.device)
+    for i, (lo, hi) in enumerate(splits):
+        flags = (i == 0, i == len(splits) - 1)
+        a_s, b_s = a[:, lo:hi].contiguous(), b[:, lo:hi].contiguous()
+        vh = band_operands(a, b, lo, hi, 2 * r, *flags)
+        da, db = ssim_grad.ssim_grad_cuda(a_s, b_s, w_s, w_cs, vhalo=vh, vmask=flags,
+                                          **win)
+        torch.cuda.synchronize()
+        pa, pb = ssim_grad.ssim_grad_plain(a_s, b_s, ws, wcs, None, vhalo=vh,
+                                           vmask=flags, **tw)
+        for k, p in ((da, pa), (db, pb)):
+            e = finite_err(k, p, f"{name} band {i} gradient")
+            fin = ~p.isnan()
+            s = max(1.0, float(p[fin].abs().max())) if fin.any() else 1.0
+            check(e <= GRAD_TWIN * s,
+                  f"{name} band {i}: backward halo mode vs twin {e:.3g} (tol "
+                  f"{GRAD_TWIN * s:.3g})")
+            err = max(err, e / s)
+            scale = max(scale, s)
+        das.append(da)
+        dbs.append(db)
+        del pa, pb
+    da, db = torch.cat(das, dim=1), torch.cat(dbs, dim=1)
+    ua, ub = ssim_grad.ssim_grad_cuda(a, b, w_s, w_cs, **win)
+    torch.cuda.synchronize()
+    bad = a.isnan() | b.isnan()
+    e_cat = 0.0
+    for k, u in ((da, ua), (db, ub)):
+        check(bool(k[bad].isnan().all() and u[bad].isnan().all()),
+              f"{name}: a NaN pixel's gradient is finite")
+        fin = ~(k.isnan() | u.isnan())
+        e_cat = max(e_cat, float((k[fin] - u[fin]).abs().max()))
+    check(e_cat <= GRAD_TWIN * scale,
+          f"{name}: bands vs the unsharded backward {e_cat:.3g}")
+    print(f"  {name} {tuple(a.shape)} bands {[hi - lo for lo, hi in splits]}"
+          f"{' ' + str(win) if win else ''}: backward halo mode vs twin "
+          f"{err:.3g} x max(1, max|g|); bands vs unsharded backward {e_cat:.3g} "
+          f"(max|g| {scale:.3g})", flush=True)
+    return err, da
+
+
+def even_splits(h, n):
+    step = h // n
+    return [(i * step, h if i == n - 1 else (i + 1) * step) for i in range(n)]
+
+
+def phase_spatial_kernels(gen):
+    """9a: the row modes with halo operands and the backward kernel's halo
+    mode against their twins on the card, band by band, and the bands
+    against the unsharded kernels."""
+    from ssim_tpu_torch.ops import ssim_cuda, ssim_grad
+
+    print("phase 9a: row modes and halo operands (K1f, K1g, K3 vhalo) against "
+          "their twins", flush=True)
+    fwd_err, bwd_err = 0.0, 0.0
+    for dtype, dr in ((torch.uint8, 255.0), (torch.float32, 1.0)):
+        a, b = pair(gen, (4, 2160, 3840), dtype, dr)
+        e, _ = bands_fwd(f"4K x4 {dtype} in 4 bands", a, b, even_splits(2160, 4),
+                         data_range=dr)
+        fwd_err = max(fwd_err, e)
+        if dtype == torch.float32:
+            e, _ = bands_bwd("4K x4 f32 in 4 bands", a, b, even_splits(2160, 4),
+                             1.3, 0.0)
+            bwd_err = max(bwd_err, e)
+        del a, b
+        torch.cuda.empty_cache()
+    # Wider than the TPU kernel's 16384 lanes (K2's rowsum there): a band
+    # at the top edge, one inside and one at the bottom edge.
+    wide = [(0, 400), (400, 700), (700, 1024)]
+    for dtype, dr in ((torch.uint8, 255.0), (torch.float32, 1.0)):
+        a, b = pair(gen, (1, 1024, 20480), dtype, dr)
+        e, _ = bands_fwd(f"wide {dtype}", a, b, wide, data_range=dr)
+        fwd_err = max(fwd_err, e)
+        if dtype == torch.float32:
+            e, _ = bands_bwd("wide f32", a, b, wide, 1.0, 0.0)
+            bwd_err = max(bwd_err, e)
+        del a, b
+        torch.cuda.empty_cache()
+    a, b = pair(gen, (4, 1080, 1920))
+    for splits in (even_splits(1080, 3),
+                   [(0, 523), (523, 543), (543, 578), (578, 1080)]):
+        e, _ = bands_fwd("1080p x4 u8", a, b, splits)
+        fwd_err = max(fwd_err, e)
+    af, bf = pair(gen, (4, 1080, 1920), torch.float32, 1.0)
+    e, _ = bands_bwd("1080p x4 f32 in 3 bands, w_cs", af, bf, even_splits(1080, 3),
+                     1.0, 0.2)
+    bwd_err = max(bwd_err, e)
+    for win in (dict(radius=1, sigma=0.8, k1=0.02, k2=0.05),
+                dict(radius=16, sigma=3.0, k1=0.015, k2=0.04)):
+        a2, b2 = pair(gen, (2, 540, 1000))
+        e, _ = bands_fwd("u8", a2, b2, even_splits(540, 3), **win)
+        fwd_err = max(fwd_err, e)
+        a2, b2 = pair(gen, (2, 540, 1000), torch.float32, 1.0)
+        e, _ = bands_bwd("f32", a2, b2, even_splits(540, 3), 1.0, 0.0, **win)
+        bwd_err = max(bwd_err, e)
+    # NaN in a neighbour's rows: row 361 is band 1's second row, inside band
+    # 0's bottom operand (the forward reads r = 5 rows, the backward 2r).
+    an = af.clone()
+    an[1, 361, 700] = float("nan")
+    e, rows = bands_fwd("f32 NaN at (1, 361, 700)", an, bf, even_splits(1080, 3),
+                        data_range=1.0)
+    fwd_err = max(fwd_err, e)
+    check(bool(rows[1, 361].isnan()) and not bool(rows[0].isnan().any()),
+          "the NaN reached another image's rows")
+    e, da = bands_bwd("f32 NaN at (1, 361, 700)", an, bf, even_splits(1080, 3), 1.0, 0.0)
+    bwd_err = max(bwd_err, e)
+    # NaN-filled operands under a set flag are never read.
+    lo, hi = 0, 360
+    a_s, b_s = af[:, lo:hi].contiguous(), bf[:, lo:hi].contiguous()
+    vh = band_operands(af, bf, lo, hi, 5, True, False)
+    nan_vh = (torch.full_like(vh[0], float("nan")),) + vh[1:2] \
+        + (torch.full_like(vh[2], float("nan")),) + vh[3:]
+    kw = dict(vmask=(True, False), allow_float=True, data_range=1.0)
+    r1, m1 = ssim_cuda.ssim_rows_cuda(a_s, b_s, with_map=True, vhalo=vh, **kw)
+    r2, m2 = ssim_cuda.ssim_rows_cuda(a_s, b_s, with_map=True, vhalo=nan_vh, **kw)
+    vh2 = band_operands(af, bf, lo, hi, 10, True, False)
+    nan_vh2 = (torch.full_like(vh2[0], float("nan")),) + vh2[1:2] \
+        + (torch.full_like(vh2[2], float("nan")),) + vh2[3:]
+    g1 = ssim_grad.ssim_grad_cuda(a_s, b_s, 1.0, 0.0, vhalo=vh2, vmask=(1, 0))
+    g2 = ssim_grad.ssim_grad_cuda(a_s, b_s, 1.0, 0.0, vhalo=nan_vh2, vmask=(1, 0))
+    torch.cuda.synchronize()
+    check(torch.equal(r1, r2) and torch.equal(m1, m2) and bool(torch.isfinite(r2).all())
+          and all(torch.equal(x, y) and bool(torch.isfinite(y).all())
+                  for x, y in zip(g1, g2)),
+          "NaN-filled operands under a set flag changed the result")
+    print("  NaN-filled operands under a set flag: rows, map and gradients "
+          "equal to those with the ring's operands, finite", flush=True)
+    del a, b, af, bf, an, a2, b2
+    torch.cuda.empty_cache()
+    return fwd_err, bwd_err
+
+
+def phase_spatial(gen, label):
+    """9b and 9c on a one-rank nccl process group (a file:// store in a
+    temporary directory), destroyed at the end."""
+    import shutil
+    import tempfile
+
+    import torch.distributed as dist
+
+    store = tempfile.mkdtemp(prefix="ssim_spatial_store_")
+    torch.cuda.set_device(0)
+    dist.init_process_group("nccl", init_method=f"file://{store}/store",
+                            world_size=1, rank=0)
+    try:
+        return spatial_path(gen, label)
+    finally:
+        dist.destroy_process_group()
+        shutil.rmtree(store)
+
+
+@contextlib.contextmanager
+def no_twins():
+    """Within it, the row and backward twins raise: the calls must stay on
+    the card."""
+    from ssim_tpu_torch.ops import ssim_cuda, ssim_grad
+
+    real = (ssim_cuda.ssim_rows_plain, ssim_grad.ssim_grad_plain)
+
+    def no_twin(*args, **kw):
+        raise RuntimeError("a plain twin ran on the spatial path")
+
+    ssim_cuda.ssim_rows_plain = ssim_grad.ssim_grad_plain = no_twin
+    try:
+        yield
+    finally:
+        ssim_cuda.ssim_rows_plain, ssim_grad.ssim_grad_plain = real
+
+
+def spatial_path(gen, label):
+    """9b: the three public functions at full width through the kernels
+    (exact launch counts, the twins made to raise); 9c: times."""
+    from ssim_tpu_torch.parallel import make_mesh
+
+    print("phase 9b: spatial sharding (ssim_spatial_sharded, mean_ssim_spatial, "
+          "ssim_grad_spatial_sharded) on a one-rank nccl mesh", flush=True)
+    mesh = make_mesh((1,), ("space",))
+    with no_twins():
+        calls, launches, errs, (a, b, fa, fb, grad) = spatial_calls(gen, mesh)
+    times = spatial_times(gen, label, mesh, a, b, fa, fb, grad)
+    return dict(launches=launches, calls=calls, times=times, errs=errs)
+
+
+def spatial_calls(gen, mesh):
+    """9b's calls and checks; returns the launch counts by call and in
+    all, the largest value and gradient errors against `ssim`, and the
+    16K u8 and f32 pairs and the f32 pair's gradient, for 9c."""
+    import ssim_tpu_torch
+    from ssim_tpu_torch.parallel import make_mesh, mean_ssim_spatial, ssim_spatial_sharded
+
+    calls = {}
+    shape = (1, 8640, 15360)
+    h, w = shape[1:]
+    npix = h * w
+    a, b = pair(gen, shape)
+    a2, b2 = a[0], b[0]
+    torch.cuda.synchronize()
+    zero_counts()
+    rows, none = ssim_spatial_sharded(a2, b2, mesh)
+    torch.cuda.synchronize()
+    calls["score"] = launch_counts()
+    zero_counts()
+    rows_m, smap = ssim_spatial_sharded(a2, b2, mesh, with_map=True)
+    torch.cuda.synchronize()
+    calls["map"] = launch_counts()
+    check(calls["score"] == counts_of(rowsum=1),
+          f"ssim_spatial_sharded launches {calls['score']}, expected 1 kRowsum with halo")
+    check(calls["map"] == counts_of(rowsum_map=1),
+          f"ssim_spatial_sharded(with_map=True) launches {calls['map']}, expected 1 "
+          f"kRowsumMap with halo")
+    check(none is None and rows.is_cuda and rows.shape == (h,) and smap.is_cuda
+          and smap.shape == (h, w), "ssim_spatial_sharded: outputs")
+    s_ref = float(ssim_tpu_torch.compute_ssim(a, b)[0])
+    s_rows = float(rows.double().sum()) / npix
+    _, m_ref = ssim_tpu_torch.compute_ssim_map(a2, b2)
+    m_ref = torch.from_numpy(np.asarray(m_ref))
+    same_map = torch.equal(smap.cpu(), m_ref)
+    check(abs(s_rows - s_ref) <= TWIN_GLOBAL and torch.equal(rows, rows_m) and same_map,
+          f"ssim_spatial_sharded: mean of rows {s_rows} vs compute_ssim {s_ref}; map "
+          f"equal to compute_ssim_map's: {same_map}")
+    print(f"  u8 {h}x{w}: score 1 kRowsum (halo), map 1 kRowsumMap (halo), no other "
+          f"launch; mean of row sums {s_rows:.9f} vs compute_ssim {s_ref:.9f} "
+          f"({abs(s_rows - s_ref):.3g}); map equal to compute_ssim_map's bit for bit",
+          flush=True)
+    del smap, m_ref, rows_m
+
+    # mean_ssim_spatial forward and backward on one f32 pair.
+    fa, fb = pair(gen, (h, w), torch.float32, 1.0)
+    x = fa.clone().requires_grad_()
+    torch.cuda.synchronize()
+    zero_counts()
+    val = mean_ssim_spatial(x, fb, mesh, data_range=1.0)
+    (1.0 - val).backward()
+    torch.cuda.synchronize()
+    calls["mean_step"] = launch_counts()
+    check(calls["mean_step"] == counts_of(rowsum=1, backward_vhalo=1),
+          f"mean_ssim_spatial step launches {calls['mean_step']}, expected 1 kRowsum "
+          f"(halo) and 1 backward (halo)")
+    y = fa.clone().requires_grad_()
+    ref = ssim_tpu_torch.ssim(y, fb, data_range=1.0)
+    (1.0 - ref).backward()
+    g_scale = float(y.grad.abs().max())
+    g_err = float((x.grad - y.grad).abs().max())
+    v_err = abs(val.detach().item() - ref.detach().item())
+    check(bool(torch.isfinite(x.grad).all()) and v_err <= TWIN_GLOBAL
+          and g_err <= GRAD_TWIN * g_scale,
+          f"mean_ssim_spatial vs ssim: value {v_err:.3g}, gradient {g_err:.3g} "
+          f"(max|g| {g_scale:.3g})")
+    print(f"  f32 {h}x{w} mean_ssim_spatial step: 1 kRowsum (halo) + 1 backward "
+          f"(halo); value {val.detach().item():.9f} vs ssim {ref.detach().item():.9f}; gradient vs "
+          f"ssim's K3 gradient {g_err:.3g} (max|g| {g_scale:.3g})", flush=True)
+    del y, ref
+
+    # The batched call on a (1, 1) data x space mesh.
+    mesh2 = make_mesh((1, 1), ("data", "space"))
+    ba, bb = pair(gen, (4, 2160, 3840), torch.float32, 1.0)
+    xb = ba.clone().requires_grad_()
+    torch.cuda.synchronize()
+    zero_counts()
+    vb = mean_ssim_spatial(xb, bb, mesh2, axis="space", batch_axis="data", data_range=1.0)
+    (1.0 - vb).backward()
+    torch.cuda.synchronize()
+    calls["mean_batched_step"] = launch_counts()
+    check(calls["mean_batched_step"] == counts_of(rowsum=1, backward_vhalo=1),
+          f"batched mean_ssim_spatial step launches {calls['mean_batched_step']}")
+    yb = ba.clone().requires_grad_()
+    refb = ssim_tpu_torch.ssim(yb, bb, data_range=1.0).mean()
+    (1.0 - refb).backward()
+    gb_scale = float(yb.grad.abs().max())
+    gb_err = float((xb.grad - yb.grad).abs().max())
+    vb_err = abs(vb.detach().item() - refb.detach().item())
+    check(vb_err <= TWIN_GLOBAL and gb_err <= GRAD_TWIN * gb_scale,
+          f"batched mean_ssim_spatial vs ssim: value {vb_err:.3g}, gradient {gb_err:.3g}")
+    print(f"  f32 (4, 2160, 3840) on a (1, 1) data x space mesh: 1 kRowsum (halo) + 1 "
+          f"backward (halo); value {vb.detach().item():.9f} vs ssim {refb.detach().item():.9f}; gradient "
+          f"{gb_err:.3g} (max|g| {gb_scale:.3g})", flush=True)
+    launches = {k: sum(c[k] for c in calls.values())
+                for k in ("rowsum", "rowsum_map", "backward_vhalo")}
+    grad = x.grad.detach()
+    del yb, refb, xb, ba, bb, x
+    torch.cuda.empty_cache()
+    errs = dict(value=max(v_err, vb_err), grad=max(g_err, gb_err))
+    return calls, launches, errs, (a, b, fa, fb, grad)
+
+
+def spatial_times(gen, label, mesh, a, b, fa, fb, grad):
+    """9c: the modes on one band of the whole image (both flags set, the
+    band's own rows as operands, as on one rank), the unsharded kernel
+    beside them and the twins, with CUDA events, each mode held against
+    its twin on the inputs it is timed on, and 9b's mean_ssim_spatial
+    gradient `grad` of (fa, fb) against the backward twin; then the
+    public calls and a mean_ssim_spatial step with the host clock, and
+    one trace."""
+    import ssim_tpu_torch
+    from ssim_tpu_torch.ops import ssim_cuda, ssim_grad
+    from ssim_tpu_torch.parallel import mean_ssim_spatial, ssim_spatial_sharded
+
+    print("phase 9c: times", flush=True)
+    a2, b2 = a[0], b[0]
+    h, w = a2.shape
+    times = {}
+    zero = (True, True)
+    for name, (xa, xb_) in (("16k_b1", (a, b)), ("4k_b4", pair(gen, (4, 2160, 3840))),
+                            ("wide_b1", pair(gen, (1, 1024, 20480)))):
+        vh = (xa[..., -5:, :].contiguous(), xa[..., :5, :].contiguous(),
+              xb_[..., -5:, :].contiguous(), xb_[..., :5, :].contiguous())
+        kw = dict(vhalo=vh, vmask=zero)
+        t_rows = cuda_ms(lambda: ssim_cuda.ssim_rows_cuda(xa, xb_, **kw), 20)
+        t_rmap = cuda_ms(lambda: ssim_cuda.ssim_rows_cuda(xa, xb_, with_map=True, **kw), 20)
+        t_std = cuda_ms(lambda: ssim_cuda.ssim_parts_cuda(xa, xb_), 20)
+        t_map = cuda_ms(lambda: ssim_cuda.ssim_parts_cuda(xa, xb_, with_map=True), 20)
+        t_rows2 = cuda_ms(lambda: ssim_cuda.ssim_rows_cuda(xa, xb_, **kw), 20)
+        t_plain = cuda_ms(lambda: rows_twin(xa, xb_, vh, zero), 3)
+        # The timed modes against the twin on the same inputs and operands.
+        rows_k, _ = ssim_cuda.ssim_rows_cuda(xa, xb_, **kw)
+        rows_mk, map_k = ssim_cuda.ssim_rows_cuda(xa, xb_, with_map=True, **kw)
+        torch.cuda.synchronize()
+        rows_p, map_p = rows_twin(xa, xb_, vh, zero)
+        shp = tuple(xa.shape)
+        e_map = finite_err(map_k, map_p, f"9c {name} map")
+        e_rows = max(finite_err(rows_k, rows_p, f"9c {name} kRowsum rows"),
+                     finite_err(rows_mk, rows_p, f"9c {name} kRowsumMap rows"))
+        check(e_map <= TWIN_PIXEL and e_rows <= TWIN_PIXEL * shp[2],
+              f"9c {name}: kRowsumMap map vs twin {e_map:.3g} (tol {TWIN_PIXEL:.3g}), "
+              f"rows {e_rows:.3g} (tol {TWIN_PIXEL * shp[2]:.3g})")
+        del rows_k, rows_mk, map_k, rows_p, map_p
+        bnd, by = fwd_bound(shp, 1, out_bytes=4 * shp[0] * shp[1] + 4 * 5 * shp[0] * shp[2])
+        bnd_m, by_m = fwd_bound(shp, 1, out_bytes=4 * shp[0] * shp[1] * (1 + shp[2])
+                                + 4 * 5 * shp[0] * shp[2])
+        times[name] = dict(shape=list(shp), rowsum_ms=min(t_rows, t_rows2),
+                           rowsum_ms_runs=[t_rows, t_rows2], rowsum_map_ms=t_rmap,
+                           standard_ms=t_std, standard_map_ms=t_map, plain_ms=t_plain,
+                           bound_ms=bnd, bound_by=by, bound_map_ms=bnd_m,
+                           bound_map_by=by_m, twin_err_map=e_map, twin_err_rows=e_rows)
+        mpix = shp[0] * shp[1] * shp[2] / 1e6
+        print(f"  {name} u8 {shp}: kRowsum (halo) {t_rows:.4f} / {t_rows2:.4f} ms "
+              f"({mpix / min(t_rows, t_rows2) * 1e3:.1f} Mpix/s), kRowsumMap (halo) "
+              f"{t_rmap:.4f} ms; unsharded kScore {t_std:.4f} ms, kMap {t_map:.4f} ms; "
+              f"row twin {t_plain:.3f} ms; bound {bnd:.4f} ms ({by}), with the map "
+              f"{bnd_m:.4f} ms ({by_m}); vs twin: map {e_map:.3g}, rows {e_rows:.3g} "
+              f"| {label}", flush=True)
+    del vh, xa, xb_
+    torch.cuda.empty_cache()
+    for name, gshape in (("16k_b1", (1, 8640, 15360)), ("4k_b4", (4, 2160, 3840))):
+        ga, gb = (fa[None], fb[None]) if name == "16k_b1" else pair(
+            gen, gshape, torch.float32, 1.0)
+        vh = (ga[..., -10:, :].contiguous(), ga[..., :10, :].contiguous(),
+              gb[..., -10:, :].contiguous(), gb[..., :10, :].contiguous())
+        # At 16K the cotangent of 9b's step, -1 over the pixel count, so the
+        # twin's gradient also holds 9b's.
+        w_s = -1.0 / (ga.shape[-2] * ga.shape[-1]) if name == "16k_b1" else 1.0
+        kw = dict(vhalo=vh, vmask=zero, data_range=1.0)
+        t_v = cuda_ms(lambda: ssim_grad.ssim_grad_cuda(ga, gb, w_s, 0.0, **kw), 10)
+        t_u = cuda_ms(lambda: ssim_grad.ssim_grad_cuda(ga, gb, w_s, 0.0,
+                                                       data_range=1.0), 10)
+        t_v2 = cuda_ms(lambda: ssim_grad.ssim_grad_cuda(ga, gb, w_s, 0.0, **kw), 10)
+        ws = torch.full((gshape[0],), w_s, device=ga.device)
+        zeros = torch.zeros(gshape[0], device=ga.device)
+        t_p = cuda_ms(lambda: grad_twin(ga, gb, ws, zeros, None, vhalo=vh, vmask=zero),
+                      1 if name == "16k_b1" else 3)
+        # The timed mode against the twin on the same inputs and operands.
+        got = ssim_grad.ssim_grad_cuda(ga, gb, w_s, 0.0, **kw)
+        torch.cuda.synchronize()
+        want = grad_twin(ga, gb, ws, zeros, None, vhalo=vh, vmask=zero)
+        g_max = max(float(x.abs().max()) for x in want)
+        # With w_s = 1 the gradients are of order 1: max(1, max|g|) as in
+        # phase 5; at 16K's tiny cotangent, relative to max|g|.
+        tol = GRAD_TWIN * (g_max if name == "16k_b1" else max(1.0, g_max))
+        e_twin = max(finite_err(k, p, f"9c {name} backward") for k, p in zip(got, want))
+        check(e_twin <= tol, f"9c {name}: backward (halo) vs twin {e_twin:.3g} "
+              f"(tol {tol:.3g})")
+        extra = ""
+        if name == "16k_b1":
+            e_9b = finite_err(grad, want[0][0], "9b gradient")
+            check(e_9b <= tol, f"9b mean_ssim_spatial gradient vs the backward twin "
+                  f"{e_9b:.3g} (tol {tol:.3g})")
+            extra = f"; 9b's mean_ssim_spatial gradient vs twin {e_9b:.3g}"
+        del got, want
+        bnd, by = bwd_bound(gshape, False)
+        times[f"bwd_{name}"] = dict(shape=list(gshape), vhalo_ms=min(t_v, t_v2),
+                                    vhalo_ms_runs=[t_v, t_v2], standard_ms=t_u,
+                                    plain_ms=t_p, bound_ms=bnd, bound_by=by,
+                                    twin_err=e_twin, twin_scale=g_max)
+        print(f"  {name} f32 {gshape}: backward (halo) {t_v:.4f} / {t_v2:.4f} ms, "
+              f"unsharded backward {t_u:.4f} ms, twin {t_p:.3f} ms; bound {bnd:.4f} ms "
+              f"({by}); vs twin {e_twin:.3g} (max|g| {g_max:.3g}){extra} | {label}",
+              flush=True)
+        del vh, ga, gb
+    torch.cuda.empty_cache()
+    # The public calls with the host clock, and one training step traced.
+    t_score = host_times(lambda: ssim_spatial_sharded(a2, b2, mesh), 10)
+    t_smap = host_times(lambda: ssim_spatial_sharded(a2, b2, mesh, with_map=True), 5)
+    t_cs = host_times(lambda: ssim_tpu_torch.compute_ssim(a, b), 10)
+    x = fa.clone().requires_grad_()
+
+    def step():
+        x.grad = None
+        v = mean_ssim_spatial(x, fb, mesh, data_range=1.0)
+        (1.0 - v).backward()
+        return v
+
+    t_step = host_times(step, 10)
+    busy, window, n_ops, top = device_trace(step, 5)
+    times["public"] = dict(
+        spatial_score_ms=statistics.median(t_score), spatial_score_runs=t_score,
+        spatial_map_ms=statistics.median(t_smap), spatial_map_runs=t_smap,
+        compute_ssim_ms=statistics.median(t_cs), step_ms=statistics.median(t_step),
+        step_runs=t_step, trace_busy_ms=busy, trace_window_ms=window,
+        trace_ops_per_step=n_ops, trace_top=top[:8])
+    print(f"  u8 {h}x{w}: ssim_spatial_sharded {statistics.median(t_score):.3f} ms "
+          f"(median of 10, {min(t_score):.3f}-{max(t_score):.3f}), with the map "
+          f"{statistics.median(t_smap):.3f} ms (median of 5); compute_ssim "
+          f"{statistics.median(t_cs):.3f} ms | {label}", flush=True)
+    print(f"  f32 {h}x{w} mean_ssim_spatial step (forward + backward): "
+          f"{statistics.median(t_step):.3f} ms median of 10 ({min(t_step):.3f}-"
+          f"{max(t_step):.3f}) | {label}", flush=True)
+    if busy is None:
+        print("  trace: the profiler recorded no device activity", flush=True)
+    else:
+        print(f"  trace of 5 steps: device busy {busy:.4f} ms per step, "
+              f"{busy / window:.1%} of the traced window ({window:.3f} ms per step); "
+              f"{n_ops:.0f} device operations per step", flush=True)
+        for name, ms in top[:6]:
+            print(f"    {ms:.4f} ms  {name[:90]}", flush=True)
+    del a, b, a2, b2, fa, fb, x
+    torch.cuda.empty_cache()
+    return times
+
+
 def fail_line(error):
     """The one line printed when the script cannot start, before its
     nonzero exit."""
@@ -1516,6 +2105,8 @@ def main():
     comp_err, ms = phase_msssim(gen, label)
     prec_launches, prec_err, prec = phase_precise(gen, label)
     batch = phase_batch(gen, label)
+    halo_fwd_err, halo_bwd_err = phase_spatial_kernels(gen)
+    spatial = phase_spatial(gen, label)
     check("jax" not in sys.modules, "JAX was imported")
 
     ref = records["4k_b4"]
@@ -1620,6 +2211,69 @@ def main():
         "tile_grid_ms": batch["times"]["64x64_b4096"]["tile_ms"],
         "times": batch["times"],
         "loss": batch["losses"],
+    }, {
+        "name": "ssim_fwd_rowsum",
+        "route": "cuda",
+        "source": "ssim_tpu_torch/csrc/ssim_fwd.cu",
+        "replaces": "ssim_tpu/ops/ssim_pallas.py:1080 (K1 mode f, rowsum), "
+                    "ssim_tpu/ops/ssim_pallas.py:1641 (K2 rowsum)",
+        "launches": spatial["launches"]["rowsum"],
+        "max_abs_err": halo_fwd_err,
+        "ms": spatial["times"]["16k_b1"]["rowsum_ms"],
+        "plain_ms": spatial["times"]["16k_b1"]["plain_ms"],
+        "bound_ms": spatial["times"]["16k_b1"]["bound_ms"],
+        "bound_by": spatial["times"]["16k_b1"]["bound_by"],
+        "library_ms": None,
+        "shape": spatial["times"]["16k_b1"]["shape"],
+        "standard_ms": spatial["times"]["16k_b1"]["standard_ms"],
+        "ms_4k_b4": spatial["times"]["4k_b4"]["rowsum_ms"],
+        "plain_ms_4k_b4": spatial["times"]["4k_b4"]["plain_ms"],
+        "bound_ms_4k_b4": spatial["times"]["4k_b4"]["bound_ms"],
+        "standard_ms_4k_b4": spatial["times"]["4k_b4"]["standard_ms"],
+        **{f"{k}_wide": spatial["times"]["wide_b1"][k]
+           for k in ("rowsum_ms", "rowsum_map_ms", "plain_ms", "bound_ms", "standard_ms",
+                     "shape")},
+        "launches_by_call": spatial["calls"],
+    }, {
+        "name": "ssim_fwd_halo",
+        "route": "cuda",
+        "source": "ssim_tpu_torch/csrc/ssim_fwd.cu",
+        "replaces": "ssim_tpu/ops/ssim_pallas.py:884 (K1 mode g, vhalo/vmask "
+                    "operands; halo_band_matrices :681)",
+        "launches": spatial["launches"]["rowsum"] + spatial["launches"]["rowsum_map"],
+        "launches_map": spatial["launches"]["rowsum_map"],
+        "max_abs_err": halo_fwd_err,
+        "ms": spatial["times"]["16k_b1"]["rowsum_map_ms"],
+        "plain_ms": spatial["times"]["16k_b1"]["plain_ms"],
+        "bound_ms": spatial["times"]["16k_b1"]["bound_map_ms"],
+        "bound_by": spatial["times"]["16k_b1"]["bound_map_by"],
+        "library_ms": None,
+        "shape": spatial["times"]["16k_b1"]["shape"],
+        "standard_map_ms": spatial["times"]["16k_b1"]["standard_map_ms"],
+        "spatial_score_ms": spatial["times"]["public"]["spatial_score_ms"],
+        "spatial_map_ms": spatial["times"]["public"]["spatial_map_ms"],
+    }, {
+        "name": "ssim_bwd_vhalo",
+        "route": "cuda",
+        "source": "ssim_tpu_torch/csrc/ssim_bwd.cu",
+        "replaces": "ssim_tpu/ops/ssim_grad.py:278 (vhalo/vmask: "
+                    "_fwd_mid_band_matrices_vhalo :149, "
+                    "_transpose_band_matrices_vhalo :179)",
+        "launches": spatial["launches"]["backward_vhalo"],
+        "max_abs_err": halo_bwd_err,
+        "ms": spatial["times"]["bwd_16k_b1"]["vhalo_ms"],
+        "plain_ms": spatial["times"]["bwd_16k_b1"]["plain_ms"],
+        "bound_ms": spatial["times"]["bwd_16k_b1"]["bound_ms"],
+        "bound_by": spatial["times"]["bwd_16k_b1"]["bound_by"],
+        "library_ms": None,
+        "shape": spatial["times"]["bwd_16k_b1"]["shape"],
+        "standard_ms": spatial["times"]["bwd_16k_b1"]["standard_ms"],
+        "ms_4k_b4": spatial["times"]["bwd_4k_b4"]["vhalo_ms"],
+        "plain_ms_4k_b4": spatial["times"]["bwd_4k_b4"]["plain_ms"],
+        "bound_ms_4k_b4": spatial["times"]["bwd_4k_b4"]["bound_ms"],
+        "step_ms": spatial["times"]["public"]["step_ms"],
+        "step_trace_busy_ms": spatial["times"]["public"]["trace_busy_ms"],
+        "spatial_vs_ssim": spatial["errs"],
     }]}))
     print(label)
     print(json.dumps({"ok": True, "device": {

@@ -9,7 +9,10 @@ Counterpart of `ssim_tpu/__init__.py` for the slices ported so far:
 - training: the differentiable tensor functions `ssim`, `ssim_and_map`
   and `ssim_loss`;
 - multi-scale SSIM, `ms_ssim` and `compute_ms_ssim`, for inference and
-  training (`models/`).
+  training (`models/`);
+- spatial sharding on torch.distributed (`parallel/`): one large image
+  split by rows over a mesh axis, `ssim_spatial_sharded`,
+  `mean_ssim_spatial` and `ssim_grad_spatial_sharded`.
 
 They run through two hand-written CUDA kernels for Hopper, built with nvcc
 at first use: the fused forward (`csrc/ssim_fwd.cu`; standard, map,

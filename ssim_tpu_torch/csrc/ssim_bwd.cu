@@ -1,9 +1,9 @@
 // Fused analytic SSIM backward for NVIDIA Hopper (sm_90a), standard f32 tier.
 //
 // Replaces the JAX package's backward TPU kernel
-// ssim_tpu/ops/ssim_grad.py::_grad_call in its scalar w_s, per-pixel g_map
-// and w_cs modes: for L = sum_p (w_s + g_map(p)) * S(p) + w_cs * sum_p cs(p)
-// per image it writes dL/da and dL/db. The math is that module's docstring
+// ssim_tpu/ops/ssim_grad.py::_grad_call in its scalar w_s, per-pixel g_map,
+// w_cs and vhalo / vmask modes: for L = sum_p (w_s + g_map(p)) * S(p) +
+// w_cs * sum_p cs(p) per image it writes dL/da and dL/db. The math is that module's docstring
 // (ssim_grad.py:10-40): with s = a + b, d = a - b and the clamped blur G,
 //
 //     dL/da = G^T[W_u] + 2 s . G^T[W_ss] + 2 d . G^T[W_dd]
@@ -52,6 +52,20 @@
 //     0 and W-1 (the fold between the two passes, ssim_grad.py:204-275);
 //     then da/db, NaN for the whole tile when stage 0 saw a non-finite pixel.
 //
+// Halo operands (the vhalo / vmask mode, ssim_grad.py:149-202 and :391-470,
+// for a row band of a taller image in spatial sharding): virtual rows
+// [-2r, 0) and [H, H + 2r) are read in stage 0 from four (B, 2r, W)
+// operands instead of clamped, unless is_top (is_bot) is set, where the
+// band holds the image's edge row: then the clamp applies and the operand
+// is never read (the in-kernel replica substitution). Loss rows then span
+// the band plus r rows each side: stage 1 zeroes the weight maps at mid
+// rows above 0 (below H - 1) only where is_top (is_bot) is set, the
+// runtime loss-row mask of ssim_grad.py:462-470, and stage 2a adds the
+// vertical clamp fold at rows 0 (H - 1) only there, between the vertical
+// and horizontal adjoints (cl_v, ssim_grad.py:570-590). Elsewhere the
+// neighbour's loss rows reach the band's edge rows through the plain
+// symmetric part, the true adjoint. Only the band's own rows are written.
+//
 // Build without --use_fast_math and with --fmad=false: every multiply and
 // add rounds on its own, in the order of the plain twin
 // (ops/ssim_grad.py::ssim_grad_plain), so the kernel's gradients can be held
@@ -70,6 +84,18 @@ constexpr int kMaxRadius = 16;
 struct Coeffs {
   float t[kMaxTaps];     // Gaussian taps, 2r + 1 used
   float cl[kMaxRadius];  // clamp-fold mass: cl[x] = sum_{k > r + x} t[k]
+};
+
+// The halo operands of a row band: virtual rows [-2r, 0) in at / bt and
+// [H, H + 2r) in ab / bb, each (B, 2r, W) f32; all NULL without them.
+// is_top / is_bot: the band holds the image's first / last row.
+struct Halo {
+  const float* at;
+  const float* ab;
+  const float* bt;
+  const float* bb;
+  int is_top;
+  int is_bot;
 };
 
 __device__ __forceinline__ bool finite_f32(float v) {
@@ -100,9 +126,9 @@ __global__ void __launch_bounds__(kThreads)
 ssim_bwd_kernel(const float* __restrict__ a, const float* __restrict__ b,
                 const float* __restrict__ w_s, const float* __restrict__ w_cs,
                 const float* __restrict__ gmap, float* __restrict__ da,
-                float* __restrict__ db, int H, int W, int r, int TH, int TW,
-                int ntx, int tiles_per_image, Coeffs co, float c1, float c2,
-                float clip_bound) {
+                float* __restrict__ db, Halo halo, int H, int W, int r, int TH,
+                int TW, int ntx, int tiles_per_image, Coeffs co, float c1,
+                float c2, float clip_bound) {
   extern __shared__ float smem[];
   __shared__ float s_t[kMaxTaps];
   __shared__ float s_cl[kMaxRadius];
@@ -133,19 +159,39 @@ ssim_bwd_kernel(const float* __restrict__ a, const float* __restrict__ b,
   const size_t base = (size_t)img * (size_t)H * (size_t)W;
   const float ws = w_s[img];
   const float wcs = w_cs[img];
+  const bool vhalo = halo.at != nullptr;
+  // Loss rows above 0 / below H - 1 exist (and carry no clamp fold) only
+  // in a band with a neighbour there.
+  const bool edge_top = !vhalo || halo.is_top;
+  const bool edge_bot = !vhalo || halo.is_bot;
 
-  // Stage 0: the halo tile, clamped, sanitised.
+  // Stage 0: the halo tile, each row from the image (clamped) or from a
+  // halo operand, each column clamped; sanitised.
   const int lr = vh + 4 * r;
   const int lc = vw + 4 * r;
   int bad = 0;
   for (int i = tid; i < lr * lc; i += kThreads) {
     const int ly = i / lc;
     const int lx = i - ly * lc;
-    const int gy = min(max(y0 - 2 * r + ly, 0), H - 1);
+    const int uy = y0 - 2 * r + ly;
     const int gx = min(max(x0 - 2 * r + lx, 0), W - 1);
-    const size_t p = base + (size_t)gy * (size_t)W + (size_t)gx;
-    const float va = a[p];
-    const float vb = b[p];
+    const float* pa = a;
+    const float* pb = b;
+    size_t p;
+    if (uy < 0 && !edge_top) {
+      p = ((size_t)img * 2 * r + (size_t)(uy + 2 * r)) * (size_t)W + (size_t)gx;
+      pa = halo.at;
+      pb = halo.bt;
+    } else if (uy >= H && !edge_bot) {
+      p = ((size_t)img * 2 * r + (size_t)(uy - H)) * (size_t)W + (size_t)gx;
+      pa = halo.ab;
+      pb = halo.bb;
+    } else {
+      const int gy = min(max(uy, 0), H - 1);
+      p = base + (size_t)gy * (size_t)W + (size_t)gx;
+    }
+    const float va = pa[p];
+    const float vb = pb[p];
     if (!(finite_f32(va) && finite_f32(vb))) bad = 1;
     sa[ly * HC + lx] = sanitize(va, clip_bound);
     sb[ly * HC + lx] = sanitize(vb, clip_bound);
@@ -189,7 +235,7 @@ ssim_bwd_kernel(const float* __restrict__ a, const float* __restrict__ b,
     const int gy = y0 - r + my;
     const int gx = x0 - r + mx;
     const int o = my * MC + mx;
-    if (gy < 0 || gy >= H || gx < 0 || gx >= W) {
+    if ((gy < 0 && edge_top) || (gy >= H && edge_bot) || gx < 0 || gx >= W) {
       wm[o] = 0.0f;
       wm[mid_plane + o] = 0.0f;
       wm[2 * mid_plane + o] = 0.0f;
@@ -256,12 +302,12 @@ ssim_bwd_kernel(const float* __restrict__ a, const float* __restrict__ b,
         acc += s_t[r - d] * (c[-d * MC] + c[d * MC]);
       }
       acc = acc + s_t[r] * c[0];
-      if (gy == 0) {  // mid row of image row g is g + r here
+      if (gy == 0 && edge_top) {  // mid row of image row g is g + r here
         float corr = 0.0f;
         for (int g = 0; g < r; ++g) corr += s_cl[g] * plane[(r + g) * MC + mx];
         acc += corr;
       }
-      if (gy == H - 1) {  // image row H-1-x sits at mid row H-1-x-y0+r
+      if (gy == H - 1 && edge_bot) {  // row H-1-x at mid row H-1-x-y0+r
         float corr = 0.0f;
         for (int x = 0; x < r; ++x) {
           corr += s_cl[x] * plane[(H - 1 - x - y0 + r) * MC + mx];
@@ -318,7 +364,7 @@ ssim_bwd_kernel(const float* __restrict__ a, const float* __restrict__ b,
 template <bool kGmap>
 cudaError_t launch(const float* a, const float* b, const float* w_s,
                    const float* w_cs, const float* gmap, float* da, float* db,
-                   int B, int H, int W, int r, int TH, int TW,
+                   const Halo& halo, int B, int H, int W, int r, int TH, int TW,
                    const float* taps_host, const float* fold_host, float c1,
                    float c2, float clip_bound, cudaStream_t stream) {
   if (r < 1 || r > kMaxRadius || TH < 1 || TW < 1) {
@@ -339,20 +385,24 @@ cudaError_t launch(const float* a, const float* b, const float* w_s,
       (int)smem);
   if (err != cudaSuccess) return err;
   ssim_bwd_kernel<kGmap><<<(unsigned)blocks, kThreads, smem, stream>>>(
-      a, b, w_s, w_cs, gmap, da, db, H, W, r, TH, TW, ntx, tiles_per_image, co,
-      c1, c2, clip_bound);
+      a, b, w_s, w_cs, gmap, da, db, halo, H, W, r, TH, TW, ntx,
+      tiles_per_image, co, c1, c2, clip_bound);
   return cudaGetLastError();
 }
 
 }  // namespace
 
 // C entry for ctypes. a, b, da, db: (B, H, W) f32; w_s, w_cs: (B,) f32 on the
-// device; gmap: (B, H, W) f32 or NULL. taps_host: 2r+1 floats and fold_host:
-// r floats, in host memory. Returns the launch's cudaError_t.
+// device; gmap: (B, H, W) f32 or NULL. a_top, a_bot, b_top, b_bot: the halo
+// operands, (B, 2r, W) f32, all four or none, never with gmap; is_top,
+// is_bot: their flags (0 or 1). taps_host: 2r+1 floats and fold_host: r
+// floats, in host memory. Returns the launch's cudaError_t.
 extern "C" int ssim_bwd_launch(const void* a, const void* b, const void* w_s,
                                const void* w_cs, const void* gmap, void* da,
-                               void* db, int B, int H, int W, int r, int TH,
-                               int TW, const float* taps_host,
+                               void* db, const void* a_top, const void* a_bot,
+                               const void* b_top, const void* b_bot,
+                               int is_top, int is_bot, int B, int H, int W,
+                               int r, int TH, int TW, const float* taps_host,
                                const float* fold_host, float c1, float c2,
                                float clip_bound, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
@@ -363,10 +413,19 @@ extern "C" int ssim_bwd_launch(const void* a, const void* b, const void* w_s,
   const float* fg = static_cast<const float*>(gmap);
   float* fda = static_cast<float*>(da);
   float* fdb = static_cast<float*>(db);
-  if (fg) {
-    return launch<true>(fa, fb, fws, fwcs, fg, fda, fdb, B, H, W, r, TH, TW,
-                        taps_host, fold_host, c1, c2, clip_bound, s);
+  const Halo halo{static_cast<const float*>(a_top),
+                  static_cast<const float*>(a_bot),
+                  static_cast<const float*>(b_top),
+                  static_cast<const float*>(b_bot), is_top, is_bot};
+  const int n_halo = (a_top != nullptr) + (a_bot != nullptr) +
+                     (b_top != nullptr) + (b_bot != nullptr);
+  if (n_halo != 0 && (n_halo != 4 || fg != nullptr)) {
+    return cudaErrorInvalidValue;
   }
-  return launch<false>(fa, fb, fws, fwcs, fg, fda, fdb, B, H, W, r, TH, TW,
-                       taps_host, fold_host, c1, c2, clip_bound, s);
+  if (fg) {
+    return launch<true>(fa, fb, fws, fwcs, fg, fda, fdb, halo, B, H, W, r, TH,
+                        TW, taps_host, fold_host, c1, c2, clip_bound, s);
+  }
+  return launch<false>(fa, fb, fws, fwcs, fg, fda, fdb, halo, B, H, W, r, TH,
+                       TW, taps_host, fold_host, c1, c2, clip_bound, s);
 }

@@ -1,14 +1,16 @@
 // Fused SSIM forward for NVIDIA Hopper (sm_90a): the standard f32 tier,
-// the precise (fp64) tier, the MS-SSIM components modes, and one score per
-// image for batches of small images.
+// the precise (fp64) tier, the MS-SSIM components modes, one score per
+// image for batches of small images, and per-row sums of a row band with
+// halo operands for spatial sharding.
 //
 // Replaces the two TPU forward kernels of the JAX package:
 // ssim_tpu/ops/ssim_pallas.py::_nopad_overlap_call (:710; full-width row
 // tiles, widths up to 16384 lanes) in its modes a (standard, with or
 // without the map), b (precise), c (components), d (pool_out, u8 and
-// f32) and e (colsum + pchunk, as ssim_parts_pallas_bpacked drives it,
-// :2334), and ::_chunked_overlap_call (:1364; the same over lane chunks for
-// wider images) in its standard, map, precise and components modes. That
+// f32), e (colsum + pchunk, as ssim_parts_pallas_bpacked drives it,
+// :2334), f (rowsum) and g (vhalo / vmask halo operands), and
+// ::_chunked_overlap_call (:1364; the same over lane chunks for wider
+// images) in its standard, map, precise, components and rowsum modes. That
 // split exists only for TPU lane widths and VMEM; here one 2-D grid of
 // output tiles covers every width, so K2's modes need no kernel of their
 // own. Mode e also serves the contract of tools/probe_bpack.py::bpack_parts
@@ -65,6 +67,28 @@
 //   clamped halo load keeps each image's own borders, a non-finite pixel
 //   poisons its own tile and so its own image's sum, and there are no
 //   padding slots to drop.
+//
+// - kRowsum / kRowsumMap (score-only and map spatial sharding,
+//   ssim_tpu_torch/parallel/spatial.py; K1f and K2's rowsum mode, :1080-1090
+//   and :1641-1690): per-row sum(ssim - 1) instead of tile partials, and in
+//   kRowsumMap also the map. A row spans ntx tiles of the 2-D grid, so each
+//   tile reduces its rows' pieces (each warp's segment by shuffles, the
+//   segments in order) into a (B, ntx, H) f32 scratch array, and
+//   rowsum_reduce_kernel adds each row's ntx pieces in order, in double,
+//   rounds to f32 and adds W in f32 (the JAX contract, rows + w). No
+//   atomics: the row sums are deterministic. The TPU writes per-row sums
+//   of one full-width tile; the map is never summed (F2).
+// - Halo operands (K1g, ssim_pallas.py:884-958; the row modes take them,
+//   the modes JAX offers them to; the other modes compile without them):
+//   the inputs are a row band of a taller image, and virtual rows [-r, 0)
+//   and [H, H + r) are read from four (B, r, W) operands (a_top, a_bot,
+//   b_top, b_bot) instead of clamped to the band's edge rows. With is_top (is_bot) set, rows
+//   above 0 (below H - 1) are clamped to the band's own edge row and the
+//   operand is never read: the in-kernel replica substitution of the JAX
+//   vmask mode, so the caller may pass raw ring outputs. Columns keep the
+//   clamp. A row's source is chosen once per halo row, so the column loop
+//   is the clamped mode's; operand rows never poison a tile (only its own
+//   pixels do, as in the JAX kernel).
 //
 // What bounds it on this card: per output pixel it reads 2 input values
 // (u8 or f32) and writes at most one f32 map value (kPooled: half an f32
@@ -124,6 +148,22 @@ enum Mode {
   kPreciseMap = 5,
   kBatch = 6,
   kBatchPrecise = 7,
+  kRowsum = 8,
+  kRowsumMap = 9,
+};
+
+// The halo operands of a row band: virtual rows [-r, 0) in at / bt and
+// [H, H + r) in ab / bb, each (B, r, W); all NULL without them. is_top /
+// is_bot: the band holds the image's first / last row, so the clamp
+// applies there and the operand is not read.
+template <typename T>
+struct Halo {
+  const T* at;
+  const T* ab;
+  const T* bt;
+  const T* bb;
+  int is_top;
+  int is_bot;
 };
 
 struct Taps {
@@ -149,16 +189,18 @@ __global__ void __launch_bounds__(kThreads)
 ssim_fwd_kernel(const T* __restrict__ a, const T* __restrict__ b,
                 void* __restrict__ partials, float* __restrict__ map,
                 float* __restrict__ pool_a, float* __restrict__ pool_b,
-                double* __restrict__ scratch, int B, int H, int W, int r,
-                int TH, int TW, int ntx, int tiles_per_image, int ipb,
+                void* __restrict__ scratch, Halo<T> halo, int B, int H, int W,
+                int r, int TH, int TW, int ntx, int tiles_per_image, int ipb,
                 int groups, Taps taps, float c1f, float c2f, double c1,
                 double c2, float clip_bound) {
   constexpr bool kFloat = sizeof(T) == 4;
   constexpr bool kComp = kMode == kComponents || kMode == kPooled;
   constexpr bool kPrec =
       kMode == kPrecise || kMode == kPreciseMap || kMode == kBatchPrecise;
-  constexpr bool kWithMap = kMode == kMap || kMode == kPreciseMap;
+  constexpr bool kWithMap =
+      kMode == kMap || kMode == kPreciseMap || kMode == kRowsumMap;
   constexpr bool kBatchMode = kMode == kBatch || kMode == kBatchPrecise;
+  constexpr bool kRows = kMode == kRowsum || kMode == kRowsumMap;
   // The tile sums' type: double in the precise modes, else float.
   using Acc = typename std::conditional<kPrec, double, float>::type;
   extern __shared__ float smem[];
@@ -217,17 +259,33 @@ ssim_fwd_kernel(const T* __restrict__ a, const T* __restrict__ b,
     const int ty = tid / TW;
     const int ystep = kThreads / TW;
 
-    // Load the halo tile with clamped indices, converting to f32.
+    // Load the halo tile, converting to f32: each row from the band
+    // (clamped) or, in the row modes, from a halo operand; each column
+    // clamped. The other modes compile to the clamped load alone.
     int bad = 0;
     for (int ly = ty; ly < vh + 2 * r; ly += ystep) {
       const int uy = y0 - r + ly;
-      const int gy = min(max(uy, 0), H - 1);
-      const size_t row = base + (size_t)gy * (size_t)W;
+      const T* ra;
+      const T* rb;
+      if (kRows && uy < 0 && halo.at != nullptr && !halo.is_top) {
+        const size_t row = ((size_t)img * r + (size_t)(uy + r)) * (size_t)W;
+        ra = halo.at + row;
+        rb = halo.bt + row;
+      } else if (kRows && uy >= H && halo.ab != nullptr && !halo.is_bot) {
+        const size_t row = ((size_t)img * r + (size_t)(uy - H)) * (size_t)W;
+        ra = halo.ab + row;
+        rb = halo.bb + row;
+      } else {
+        const int gy = min(max(uy, 0), H - 1);
+        const size_t row = base + (size_t)gy * (size_t)W;
+        ra = a + row;
+        rb = b + row;
+      }
       for (int lx = tx; lx < vw + 2 * r; lx += TW) {
         const int ux = x0 - r + lx;
         const int gx = min(max(ux, 0), W - 1);
-        float va = to_f32(a[row + gx]);
-        float vb = to_f32(b[row + gx]);
+        float va = to_f32(ra[gx]);
+        float vb = to_f32(rb[gx]);
         if (kFloat) {
           // Poison source: the tile's own valid pixels, unsanitised.
           const bool own = ly >= r && ly < r + vh && lx >= r && lx < r + vw;
@@ -272,6 +330,7 @@ ssim_fwd_kernel(const T* __restrict__ a, const T* __restrict__ b,
     // Vertical pass, the SSIM formula, the map and the tile sums.
     Acc local = 0, local_cs = 0;
     for (int ly = ty; ly < vh; ly += ystep) {
+      [[maybe_unused]] float row_acc = 0.0f;  // kRows: this thread's part of row ly
       for (int lx = tx; lx < vw; lx += TW) {
         const float* c = hp + (ly + r) * TW + lx;
         float m0 = 0.0f, m1 = 0.0f, m2 = 0.0f, m3 = 0.0f;
@@ -328,72 +387,99 @@ ssim_fwd_kernel(const T* __restrict__ a, const T* __restrict__ b,
           map[base + (size_t)(y0 + ly) * (size_t)W + (size_t)(x0 + lx)] =
               (float)v;
         }
-        local += v - (Acc)1;
-        if (kComp) local_cs += cs - (Acc)1;
-      }
-    }
-
-#pragma unroll
-    for (int off = 16; off > 0; off >>= 1) {
-      local += __shfl_down_sync(0xffffffffu, local, off);
-      if (kComp) local_cs += __shfl_down_sync(0xffffffffu, local_cs, off);
-    }
-    if ((tid & 31) == 0) {
-      s_warp[0][tid >> 5] = local;
-      if constexpr (kComp) s_warp[1][tid >> 5] = local_cs;
-    }
-    __syncthreads();
-    if (tid == 0) {
-      const Acc n_valid = (Acc)(vh * vw);
-      Acc s = 0, s_cs = 0;
-#pragma unroll
-      for (int w = 0; w < kThreads / 32; ++w) {
-        s += s_warp[0][w];
-        if constexpr (kComp) s_cs += s_warp[1][w];
-      }
-      if constexpr (kBatchMode) {
-        acc += (double)s;
-        if (rem == t1 - 1) {  // the image's last tile in this block
-          if (groups == 1) {
-            Acc* p = static_cast<Acc*>(partials);
-            p[2 * (size_t)img] = (Acc)acc;
-            p[2 * (size_t)img + 1] = (Acc)((double)H * (double)W);
-          } else {
-            scratch[(size_t)img * groups + g] = acc;
-          }
-          acc = 0.0;
+        if constexpr (kRows) {
+          row_acc += (float)v - 1.0f;
+        } else {
+          local += v - (Acc)1;
+          if (kComp) local_cs += cs - (Acc)1;
         }
-      } else if constexpr (kComp) {
-        float* p = static_cast<float*>(partials);
-        p[2 * (size_t)tile] = s_cs + n_valid;
-        p[2 * (size_t)tile + 1] = s + n_valid;
-      } else {
-        static_cast<Acc*>(partials)[tile] = s + n_valid;
+      }
+      if constexpr (kRows) {
+        // TW >= 32: a warp holds one 32-column segment of row ly (every
+        // lane the same ly), reduced by shuffles into lane 0 and kept in
+        // the halo tile's shared memory, which no thread reads any more.
+#pragma unroll
+        for (int off = 16; off > 0; off >>= 1) {
+          row_acc += __shfl_down_sync(0xffffffffu, row_acc, off);
+        }
+        if ((tid & 31) == 0) sa[ly * (TW / 32) + tx / 32] = row_acc;
       }
     }
 
-    if (kMode == kPooled) {
-      // The tile's own 2x2 blocks: pooled rows y0/2 .. and columns x0/2 ..,
-      // TW/2 threads (a power of two in [16, 128]) across a pooled row.
-      const int H2 = H / 2, W2 = W / 2;
-      const int py0 = y0 / 2, px0 = x0 / 2;
-      const int ph = min(TH / 2, H2 - py0);
-      const int pw = min(TW / 2, W2 - px0);
-      const int PW = TW / 2;
-      const int px = tid % PW;
-      const size_t pbase = (size_t)img * (size_t)H2 * (size_t)W2;
-      for (int py = tid / PW; py < ph && px < pw; py += kThreads / PW) {
-        const size_t r0 =
-            base + (size_t)(2 * (py0 + py)) * (size_t)W + (size_t)(2 * (px0 + px));
-        const size_t r1 = r0 + (size_t)W;
-        const size_t o =
-            pbase + (size_t)(py0 + py) * (size_t)W2 + (size_t)(px0 + px);
-        const float ya0 = to_f32(a[r0]) + to_f32(a[r1]);
-        const float ya1 = to_f32(a[r0 + 1]) + to_f32(a[r1 + 1]);
-        pool_a[o] = (ya0 + ya1) * 0.25f;
-        const float yb0 = to_f32(b[r0]) + to_f32(b[r1]);
-        const float yb1 = to_f32(b[r0 + 1]) + to_f32(b[r1 + 1]);
-        pool_b[o] = (yb0 + yb1) * 0.25f;
+    if constexpr (kRows) {
+      // The tile's piece of each of its rows: its segments in order.
+      __syncthreads();
+      const int nseg = TW / 32;
+      float* pieces = static_cast<float*>(scratch);
+      const size_t prow = ((size_t)img * ntx + (size_t)(rem % ntx)) * (size_t)H;
+      for (int ly = tid; ly < vh; ly += kThreads) {
+        float s = 0.0f;
+        for (int k = 0; k < nseg; ++k) s += sa[ly * nseg + k];
+        pieces[prow + (size_t)(y0 + ly)] = s;
+      }
+    } else {
+#pragma unroll
+      for (int off = 16; off > 0; off >>= 1) {
+        local += __shfl_down_sync(0xffffffffu, local, off);
+        if (kComp) local_cs += __shfl_down_sync(0xffffffffu, local_cs, off);
+      }
+      if ((tid & 31) == 0) {
+        s_warp[0][tid >> 5] = local;
+        if constexpr (kComp) s_warp[1][tid >> 5] = local_cs;
+      }
+      __syncthreads();
+      if (tid == 0) {
+        const Acc n_valid = (Acc)(vh * vw);
+        Acc s = 0, s_cs = 0;
+#pragma unroll
+        for (int w = 0; w < kThreads / 32; ++w) {
+          s += s_warp[0][w];
+          if constexpr (kComp) s_cs += s_warp[1][w];
+        }
+        if constexpr (kBatchMode) {
+          acc += (double)s;
+          if (rem == t1 - 1) {  // the image's last tile in this block
+            if (groups == 1) {
+              Acc* p = static_cast<Acc*>(partials);
+              p[2 * (size_t)img] = (Acc)acc;
+              p[2 * (size_t)img + 1] = (Acc)((double)H * (double)W);
+            } else {
+              static_cast<double*>(scratch)[(size_t)img * groups + g] = acc;
+            }
+            acc = 0.0;
+          }
+        } else if constexpr (kComp) {
+          float* p = static_cast<float*>(partials);
+          p[2 * (size_t)tile] = s_cs + n_valid;
+          p[2 * (size_t)tile + 1] = s + n_valid;
+        } else {
+          static_cast<Acc*>(partials)[tile] = s + n_valid;
+        }
+      }
+
+      if (kMode == kPooled) {
+        // The tile's own 2x2 blocks: pooled rows y0/2 .. and columns x0/2 ..,
+        // TW/2 threads (a power of two in [16, 128]) across a pooled row.
+        const int H2 = H / 2, W2 = W / 2;
+        const int py0 = y0 / 2, px0 = x0 / 2;
+        const int ph = min(TH / 2, H2 - py0);
+        const int pw = min(TW / 2, W2 - px0);
+        const int PW = TW / 2;
+        const int px = tid % PW;
+        const size_t pbase = (size_t)img * (size_t)H2 * (size_t)W2;
+        for (int py = tid / PW; py < ph && px < pw; py += kThreads / PW) {
+          const size_t r0 =
+              base + (size_t)(2 * (py0 + py)) * (size_t)W + (size_t)(2 * (px0 + px));
+          const size_t r1 = r0 + (size_t)W;
+          const size_t o =
+              pbase + (size_t)(py0 + py) * (size_t)W2 + (size_t)(px0 + px);
+          const float ya0 = to_f32(a[r0]) + to_f32(a[r1]);
+          const float ya1 = to_f32(a[r0 + 1]) + to_f32(a[r1 + 1]);
+          pool_a[o] = (ya0 + ya1) * 0.25f;
+          const float yb0 = to_f32(b[r0]) + to_f32(b[r1]);
+          const float yb1 = to_f32(b[r0 + 1]) + to_f32(b[r1 + 1]);
+          pool_b[o] = (yb0 + yb1) * 0.25f;
+        }
       }
     }
   }  // tiles
@@ -414,13 +500,31 @@ __global__ void batch_reduce_kernel(const double* __restrict__ scratch,
   partials[2 * (size_t)img + 1] = (Out)n;
 }
 
+// The row modes' second pass: each row's ntx pieces added in order, in
+// double, rounded to f32, plus W in f32 (rows + w, ssim_pallas.py:1328-1330).
+// One thread per row.
+__global__ void rowsum_reduce_kernel(const float* __restrict__ pieces,
+                                     float* __restrict__ rows, int B, int ntx,
+                                     int H, float w) {
+  const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= (long long)B * H) return;
+  const int img = (int)(i / H);
+  const int y = (int)(i - (long long)img * H);
+  const float* p = pieces + (size_t)img * ntx * (size_t)H + (size_t)y;
+  double s = 0.0;
+  for (int t = 0; t < ntx; ++t) s += p[(size_t)t * H];
+  rows[i] = (float)s + w;
+}
+
 template <typename T, int kMode>
 cudaError_t launch(const void* a, const void* b, void* partials, void* map,
-                   void* pool_a, void* pool_b, void* scratch, int B, int H,
-                   int W, int r, int TH, int TW, int ipb, int groups,
-                   const float* taps_host, double c1, double c2,
-                   float clip_bound, cudaStream_t stream) {
+                   void* pool_a, void* pool_b, void* scratch,
+                   const Halo<T>& halo, int B, int H, int W, int r, int TH,
+                   int TW, int ipb, int groups, const float* taps_host,
+                   double c1, double c2, float clip_bound,
+                   cudaStream_t stream) {
   constexpr bool kBatchMode = kMode == kBatch || kMode == kBatchPrecise;
+  constexpr bool kRows = kMode == kRowsum || kMode == kRowsumMap;
   if (kMode == kPooled && ((TH | TW) & 1)) return cudaErrorInvalidValue;
   Taps taps;
   for (int k = 0; k < kMaxTaps; ++k) {
@@ -444,11 +548,20 @@ cudaError_t launch(const void* a, const void* b, void* partials, void* map,
   ssim_fwd_kernel<T, kMode><<<(unsigned)blocks, kThreads, smem, stream>>>(
       static_cast<const T*>(a), static_cast<const T*>(b), partials,
       static_cast<float*>(map), static_cast<float*>(pool_a),
-      static_cast<float*>(pool_b), static_cast<double*>(scratch), B, H, W, r,
-      TH, TW, ntx, tiles_per_image, ipb, groups, taps, (float)c1, (float)c2,
-      c1, c2, clip_bound);
+      static_cast<float*>(pool_b), scratch, halo, B, H, W, r, TH, TW, ntx,
+      tiles_per_image, ipb, groups, taps, (float)c1, (float)c2, c1, c2,
+      clip_bound);
   err = cudaGetLastError();
-  if (err != cudaSuccess || !kBatchMode || groups == 1) return err;
+  if (err != cudaSuccess) return err;
+  if (kRows) {
+    const long long n = (long long)B * H;
+    rowsum_reduce_kernel<<<(unsigned)((n + kThreads - 1) / kThreads), kThreads,
+                           0, stream>>>(static_cast<const float*>(scratch),
+                                        static_cast<float*>(partials), B, ntx,
+                                        H, (float)W);
+    return cudaGetLastError();
+  }
+  if (!kBatchMode || groups == 1) return err;
   using Acc = typename std::conditional<kMode == kBatchPrecise, double, float>::type;
   batch_reduce_kernel<Acc><<<(B + kThreads - 1) / kThreads, kThreads, 0,
                              stream>>>(static_cast<const double*>(scratch),
@@ -457,64 +570,88 @@ cudaError_t launch(const void* a, const void* b, void* partials, void* map,
   return cudaGetLastError();
 }
 
+template <typename T>
+Halo<T> make_halo(const void* const* halo, int is_top, int is_bot) {
+  return Halo<T>{static_cast<const T*>(halo[0]), static_cast<const T*>(halo[1]),
+                 static_cast<const T*>(halo[2]), static_cast<const T*>(halo[3]),
+                 is_top, is_bot};
+}
+
 template <int kMode>
 cudaError_t launch_typed(int is_float, const void* a, const void* b,
                          void* partials, void* map, void* pool_a,
-                         void* pool_b, void* scratch, int B, int H, int W,
-                         int r, int TH, int TW, int ipb, int groups,
+                         void* pool_b, void* scratch, const void* const* halo,
+                         int is_top, int is_bot, int B, int H, int W, int r,
+                         int TH, int TW, int ipb, int groups,
                          const float* taps_host, double c1, double c2,
                          float clip_bound, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   return is_float
              ? launch<float, kMode>(a, b, partials, map, pool_a, pool_b,
-                                    scratch, B, H, W, r, TH, TW, ipb, groups,
-                                    taps_host, c1, c2, clip_bound, s)
+                                    scratch,
+                                    make_halo<float>(halo, is_top, is_bot), B,
+                                    H, W, r, TH, TW, ipb, groups, taps_host,
+                                    c1, c2, clip_bound, s)
              : launch<uint8_t, kMode>(a, b, partials, map, pool_a, pool_b,
-                                      scratch, B, H, W, r, TH, TW, ipb,
-                                      groups, taps_host, c1, c2, clip_bound,
-                                      s);
+                                      scratch,
+                                      make_halo<uint8_t>(halo, is_top, is_bot),
+                                      B, H, W, r, TH, TW, ipb, groups,
+                                      taps_host, c1, c2, clip_bound, s);
 }
 
 }  // namespace
 
 // The C entry for ctypes. mode: 0 = kScore, 1 = kMap, 2 = kComponents,
 // 3 = kPooled, 4 = kPrecise, 5 = kPreciseMap, 6 = kBatch, 7 =
-// kBatchPrecise; any other value is refused (the precise tier has no
-// components or pooled mode). is_float: 0 = uint8 inputs, 1 = float32
-// inputs. partials: (B, ceil(H/TH) * ceil(W/TW)) f32 in the tile modes,
-// with a trailing 2 of [cs, ssim] in the components modes, and f64 in the
-// precise modes; (B, 2) [sum(ssim - 1), H*W] in the batch modes, f32 in
-// kBatch and f64 in kBatchPrecise. map: (B, H, W) f32 in kMap and
-// kPreciseMap, else NULL. pool_a, pool_b: (B, H/2, W/2) f32 each in
-// kPooled (TH and TW even), else NULL. TW: a power of two in [8, 256].
-// ipb, groups (batch modes only; 1 and 1 elsewhere): each block takes ipb
-// whole images, or one of `groups` runs of one image's tiles, not both.
-// scratch: (B, groups) f64 in the batch modes when groups > 1, else NULL.
-// taps_host: 2r+1 floats in host memory. c1, c2: the stabilising
-// constants (rounded to float by the f32 modes). Returns the launch's
-// cudaError_t.
+// kBatchPrecise, 8 = kRowsum, 9 = kRowsumMap; any other value is refused
+// (the precise tier has no components or pooled mode). is_float: 0 = uint8
+// inputs, 1 = float32 inputs. partials: (B, ceil(H/TH) * ceil(W/TW)) f32
+// in the tile modes, with a trailing 2 of [cs, ssim] in the components
+// modes, and f64 in the precise modes; (B, 2) [sum(ssim - 1), H*W] in the
+// batch modes, f32 in kBatch and f64 in kBatchPrecise; (B, H) f32 row
+// sums of ssim in the row modes. map: (B, H, W) f32 in kMap, kPreciseMap
+// and kRowsumMap, else NULL. pool_a, pool_b: (B, H/2, W/2) f32 each in
+// kPooled (TH and TW even), else NULL. TW: a power of two in [8, 256]
+// (>= 32 in the row modes). ipb, groups (batch modes only; 1 and 1
+// elsewhere): each block takes ipb whole images, or one of `groups` runs
+// of one image's tiles, not both. scratch: (B, groups) f64 in the batch
+// modes when groups > 1, (B, ceil(W/TW), H) f32 in the row modes, else
+// NULL. a_top, a_bot, b_top, b_bot: the halo operands, (B, r, W) of the
+// inputs' type, all four or none, in the row modes only; is_top, is_bot:
+// their flags (0 or 1). taps_host: 2r+1 floats in host memory. c1, c2:
+// the stabilising constants (rounded to float by the f32 modes). Returns
+// the launch's cudaError_t.
 extern "C" int ssim_fwd_launch(int mode, int is_float, const void* a,
                                const void* b, void* partials, void* map,
                                void* pool_a, void* pool_b, void* scratch,
-                               int B, int H, int W, int r, int TH, int TW,
-                               int ipb, int groups, const float* taps_host,
-                               double c1, double c2, float clip_bound,
-                               void* stream) {
+                               const void* a_top, const void* a_bot,
+                               const void* b_top, const void* b_bot,
+                               int is_top, int is_bot, int B, int H, int W,
+                               int r, int TH, int TW, int ipb, int groups,
+                               const float* taps_host, double c1, double c2,
+                               float clip_bound, void* stream) {
   const bool batch = mode == kBatch || mode == kBatchPrecise;
-  if ((map != nullptr) != (mode == kMap || mode == kPreciseMap) ||
+  const bool rows = mode == kRowsum || mode == kRowsumMap;
+  const void* halo[4] = {a_top, a_bot, b_top, b_bot};
+  const int n_halo = (a_top != nullptr) + (a_bot != nullptr) +
+                     (b_top != nullptr) + (b_bot != nullptr);
+  if ((map != nullptr) !=
+          (mode == kMap || mode == kPreciseMap || mode == kRowsumMap) ||
       (pool_a != nullptr) != (mode == kPooled) ||
       (pool_b != nullptr) != (mode == kPooled) ||
-      (scratch != nullptr) != (batch && groups > 1) || ipb < 1 ||
+      (scratch != nullptr) != ((batch && groups > 1) || rows) || ipb < 1 ||
       groups < 1 || (ipb > 1 && groups > 1) ||
       (!batch && (ipb != 1 || groups != 1)) || TW < 1 || TW > 256 ||
-      (TW & (TW - 1)) != 0 || TH < 1) {
+      (TW & (TW - 1)) != 0 || TH < 1 || (rows && TW < 32) ||
+      (n_halo != 0 && (n_halo != 4 || !rows))) {
     return cudaErrorInvalidValue;
   }
 #define SSIM_FWD_CASE(M)                                                    \
   case M:                                                                  \
     return launch_typed<M>(is_float, a, b, partials, map, pool_a, pool_b, \
-                           scratch, B, H, W, r, TH, TW, ipb, groups,       \
-                           taps_host, c1, c2, clip_bound, stream);
+                           scratch, halo, is_top, is_bot, B, H, W, r, TH,  \
+                           TW, ipb, groups, taps_host, c1, c2, clip_bound, \
+                           stream);
   switch (mode) {
     SSIM_FWD_CASE(kScore)
     SSIM_FWD_CASE(kMap)
@@ -524,6 +661,8 @@ extern "C" int ssim_fwd_launch(int mode, int is_float, const void* a,
     SSIM_FWD_CASE(kPreciseMap)
     SSIM_FWD_CASE(kBatch)
     SSIM_FWD_CASE(kBatchPrecise)
+    SSIM_FWD_CASE(kRowsum)
+    SSIM_FWD_CASE(kRowsumMap)
     default:
       return cudaErrorInvalidValue;
   }

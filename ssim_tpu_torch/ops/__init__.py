@@ -10,7 +10,7 @@ from .ssim_cuda import (
     ssim_components_cuda, ssim_components_plain, ssim_components_pooled_cuda,
     ssim_components_pooled_plain, ssim_parts_batch_cuda,
     ssim_parts_batch_plain, ssim_parts_cuda, ssim_parts_plain,
-    ssim_parts_precise_plain,
+    ssim_parts_precise_plain, ssim_rows_cuda, ssim_rows_plain,
 )
 from .routing import ssim_parts_auto, pallas_routable
 from .ssim_grad import grad_cuda_supported, ssim_grad_cuda, ssim_grad_plain
@@ -21,6 +21,8 @@ __all__ = [
     "ssim_parts_cuda",
     "ssim_parts_plain",
     "ssim_parts_precise_plain",
+    "ssim_rows_cuda",
+    "ssim_rows_plain",
     "ssim_parts_batch_cuda",
     "ssim_parts_batch_plain",
     "ssim_components_cuda",

@@ -125,16 +125,19 @@ def load_library() -> ctypes.CDLL:
             lib = ctypes.CDLL(build())
             p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
             d = ctypes.c_double
-            # partials is untyped: f32 in the standard, components and
-            # batch modes, f64 in the precise modes. c1 and c2 are
-            # doubles, so the precise formula sees them unrounded.
+            # partials is untyped: f32 in the standard, components,
+            # batch and row modes, f64 in the precise modes. c1 and c2
+            # are doubles, so the precise formula sees them unrounded.
+            # Both entries take four halo-operand pointers (NULL without
+            # them) and the is_top / is_bot flags.
             lib.ssim_fwd_launch.argtypes = [
-                i, i, p, p, p, p, p, p, p, i, i, i, i, i, i, i, i, p, d, d,
-                f, p,
+                i, i, p, p, p, p, p, p, p, p, p, p, p, i, i, i, i, i, i, i,
+                i, i, i, p, d, d, f, p,
             ]
             lib.ssim_fwd_launch.restype = i
             lib.ssim_bwd_launch.argtypes = [
-                p, p, p, p, p, p, p, i, i, i, i, i, i, p, p, f, f, f, p,
+                p, p, p, p, p, p, p, p, p, p, p, i, i, i, i, i, i, i, i, p,
+                p, f, f, f, p,
             ]
             lib.ssim_bwd_launch.restype = i
             _lib = lib

@@ -2,7 +2,7 @@
 plain PyTorch twins.
 
 Counterpart of `ssim_tpu/ops/ssim_pallas.py` over `_nopad_overlap_call`
-and `_chunked_overlap_call`, in five of their modes:
+and `_chunked_overlap_call`, in these of their modes:
 
 - standard tier, with or without the map: `ssim_parts_cuda`
   (`ssim_parts_pallas`), twin `ssim_parts_plain`;
@@ -20,7 +20,14 @@ and `_chunked_overlap_call`, in five of their modes:
 - one partial pair per image for batches of small images, standard and
   precise: `ssim_parts_batch_cuda` (`ssim_parts_pallas_bpacked`, whose
   lane packing has no counterpart here), twin `ssim_parts_batch_plain`;
-  the same mode serves the contract of `tools/probe_bpack.py::bpack_parts`.
+  the same mode serves the contract of `tools/probe_bpack.py::bpack_parts`;
+- per-row sums of SSIM, with or without the map, of an image or of a row
+  band of a taller image whose halo rows arrive as operands (spatial
+  sharding, `parallel/spatial.py`): `ssim_rows_cuda`, also reached through
+  `ssim_parts_cuda(rowsum=True)` and `ssim_parts_cuda(vhalo=...,
+  vmask=...)` (the same keywords of `ssim_parts_pallas`), twin
+  `ssim_rows_plain`, which splices (or, at a flagged edge, replicates) the
+  operands and runs the plain blur algebra.
 
 The kernel is `ssim_tpu_torch/csrc/ssim_fwd.cu`: one 2-D grid of TILE_H x
 TILE_W output tiles, one CUDA block per tile, that covers every width, so
@@ -66,8 +73,9 @@ _MAX_TILE_H = 256
 _MAX_DYNAMIC_SMEM = 232448 - 256
 
 #: Kernel launches made in this process by ssim_parts_cuda (standard
-#: tier, with or without the map; PRECISE_LAUNCHES: the precise tier),
-#: ssim_components_cuda, ssim_components_pooled_cuda and
+#: tier, with or without the map; PRECISE_LAUNCHES: the precise tier;
+#: ROWSUM_LAUNCHES and ROWSUM_MAP_LAUNCHES: ssim_rows_cuda without and
+#: with the map), ssim_components_cuda, ssim_components_pooled_cuda and
 #: ssim_parts_batch_cuda (BATCH_LAUNCHES, and BATCH_PRECISE_LAUNCHES for
 #: its precise tier), one counter per mode. Each is added to in one place,
 #: per launch, and nowhere else, so a caller can show which modes a run
@@ -78,6 +86,8 @@ COMPONENTS_LAUNCHES = 0
 POOLED_LAUNCHES = 0
 BATCH_LAUNCHES = 0
 BATCH_PRECISE_LAUNCHES = 0
+ROWSUM_LAUNCHES = 0
+ROWSUM_MAP_LAUNCHES = 0
 
 #: The JAX package's gate for its small-image batch route
 #: (ssim_tpu/ops/ssim_pallas.py:2141-2158 and :2303-2326), copied so that
@@ -218,22 +228,58 @@ def hpass4(ap: torch.Tensor, bp: torch.Tensor, t, n: int):
     )
 
 
-def _blurs_plain(a, b, taps, clip_bound):
+def _sanitize(x: torch.Tensor, clip_bound: float) -> torch.Tensor:
+    """f32 of x; for float input nan_to_num and a clip to +-clip_bound,
+    as the kernels load every value."""
+    xf = x.to(torch.float32)
+    if x.dtype != torch.float32:
+        return xf
+    return torch.nan_to_num(xf, nan=0.0).clamp(-clip_bound, clip_bound)
+
+
+def _pad_cols(x: torch.Tensor, n: int) -> torch.Tensor:
+    """Clamp-to-edge padding of the last dim by n."""
+    w = x.shape[-1]
+    cols = torch.arange(-n, w + n, device=x.device).clamp_(0, w - 1)
+    return x.index_select(-1, cols)
+
+
+def splice_rows(x, top, bot, is_top, is_bot):
+    """(..., H, W) rows with n rows above from `top` and below from `bot`
+    (each (..., n, W)); at a flagged edge the band's own edge row
+    replicated instead, the operand unread: the kernels' halo-operand row
+    rule as one tensor of H + 2n rows."""
+    n = top.shape[-2]
+    if is_top:
+        top = x[..., :1, :].expand(*x.shape[:-2], n, x.shape[-1])
+    if is_bot:
+        bot = x[..., -1:, :].expand(*x.shape[:-2], n, x.shape[-1])
+    return torch.cat([top, x, bot], dim=-2)
+
+
+def _blurs_plain(a, b, taps, clip_bound, vhalo=None, vmask=(False, False)):
     """The four blurred signals mu_a, mu_b, s_ss, s_dd of (B, H, W) u8 or
     f32 inputs in the kernel's order of operations, and for f32 the mask
-    of non-finite input pixels (None for u8)."""
+    of non-finite input pixels (None for u8). vhalo: the four (B, r, W)
+    halo operands (a_top, a_bot, b_top, b_bot) with their vmask flags, in
+    place of the clamp at the top and bottom rows."""
     h, w = a.shape[-2], a.shape[-1]
     r = len(taps) // 2
     t = [float(v) for v in taps]
-    af = a.to(torch.float32)
-    bf = b.to(torch.float32)
     bad = None
     if a.dtype == torch.float32:
-        bad = ~(torch.isfinite(af) & torch.isfinite(bf))
-        af = torch.nan_to_num(af, nan=0.0).clamp(-clip_bound, clip_bound)
-        bf = torch.nan_to_num(bf, nan=0.0).clamp(-clip_bound, clip_bound)
+        bad = ~(torch.isfinite(a) & torch.isfinite(b))
+    af = _sanitize(a, clip_bound)
+    bf = _sanitize(b, clip_bound)
+    if vhalo is None:
+        ap, bp = _pad_edge(af, r), _pad_edge(bf, r)
+    else:
+        at, ab, bt, bb = (_sanitize(x, clip_bound) for x in vhalo)
+        flags = tuple(bool(f) for f in vmask)
+        ap = _pad_cols(splice_rows(af, at, ab, *flags), r)
+        bp = _pad_cols(splice_rows(bf, bt, bb, *flags), r)
     # Horizontal pass over all H + 2r rows, then the vertical pass.
-    planes = hpass4(_pad_edge(af, r), _pad_edge(bf, r), t, w)
+    planes = hpass4(ap, bp, t, w)
     return tuple(sym_blur(p, t, 1, h) for p in planes), bad
 
 
@@ -274,11 +320,12 @@ def _tile_partials(x, tile_h, tile_w):
     return (sums + n_valid).reshape(bsz, nty * ntx)
 
 
-def _ssim_map_plain(a, b, dtype, taps, c1, c2, clip_bound, tile_h, tile_w):
+def _ssim_map_plain(a, b, dtype, taps, c1, c2, clip_bound, tile_h, tile_w,
+                    vhalo=None, vmask=(False, False)):
     """Per-pixel SSIM of the standard and precise modes: the f32 blurs,
     then the formula of _ssim_from_blurs in `dtype` (f32, or f64 on the
     widened blurs), with NaN over the tiles of non-finite inputs."""
-    blurs, bad = _blurs_plain(a, b, taps, clip_bound)
+    blurs, bad = _blurs_plain(a, b, taps, clip_bound, vhalo, vmask)
     mu_a2, mu_b2, mu_ab, sigma_ab_x4, sigma_sum_x2 = _sigmas(
         *(x.to(dtype) for x in blurs))
     num = (2.0 * mu_ab + c1) * (0.5 * sigma_ab_x4 + c2)
@@ -305,6 +352,42 @@ def ssim_parts_plain(
                            tile_h, tile_w)
     partials = _tile_partials(ssim, tile_h, tile_w)
     return partials, (ssim if with_map else None)
+
+
+def row_sums_plain(ssim: torch.Tensor, tile_w: int = TILE_W) -> torch.Tensor:
+    """(B, H) row sums of a (B, H, W) f32 SSIM map as the row modes form
+    them: each tile's f32 sum of its columns' ssim - 1, the row's tiles
+    added in f64 and rounded to f32, then W added in f32."""
+    bsz, h, w = ssim.shape
+    ntx = -(-w // tile_w)
+    x = torch.nn.functional.pad(ssim - 1.0, (0, ntx * tile_w - w))
+    pieces = x.reshape(bsz, h, ntx, tile_w).sum(dim=-1)
+    return pieces.to(torch.float64).sum(dim=-1).to(torch.float32) + float(w)
+
+
+def ssim_rows_plain(
+    a: torch.Tensor,
+    b: torch.Tensor,
+    *,
+    with_map: bool,
+    taps: np.ndarray,
+    c1: float,
+    c2: float,
+    clip_bound: float,
+    tile_h: int = TILE_H,
+    tile_w: int = TILE_W,
+    vhalo=None,
+    vmask=(False, False),
+) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+    """The row modes' plain twin on (B, H, W) u8 or f32 tensors, on any
+    device: the standard mode's per-pixel SSIM (with the halo operands
+    spliced, or the band's edge rows replicated at a flagged edge, where
+    vhalo is given), NaN over each tile of the band's own grid that holds
+    a non-finite pixel of its own, then row_sums_plain. Returns (rows
+    (B, H) f32, map (B, H, W) f32 or None)."""
+    ssim = _ssim_map_plain(a, b, torch.float32, taps, c1, c2, clip_bound,
+                           tile_h, tile_w, vhalo, vmask)
+    return row_sums_plain(ssim, tile_w), (ssim if with_map else None)
 
 
 def ssim_parts_precise_plain(
@@ -392,19 +475,22 @@ def ssim_components_pooled_plain(
 #: precise tier has no components or pooled mode (nor has the TPU
 #: kernel's): the C entry refuses any other mode number.
 _MODES = ("score", "map", "components", "pooled", "precise", "precise_map",
-          "batch", "batch_precise")
+          "batch", "batch_precise", "rowsum", "rowsum_map")
 
 
 def _launch(a, b, *, mode, taps, c1, c2, clip_bound, tile_h, tile_w, ipb=1,
-            groups=1):
+            groups=1, vhalo=None, vmask=(False, False)):
     """Launch the CUDA kernel in `mode` (one of _MODES) on (B, H, W)
     contiguous tensors on one CUDA device; no synchronisation. ipb, groups:
-    the batch modes' images per block and runs per image. Returns the
-    mode's outputs: (partials, map or None) (partials f64 in the precise
-    modes), (B, K, 2) partials, (partials, pooled_a, pooled_b), or the
-    batch modes' (B, 2) partials."""
+    the batch modes' images per block and runs per image. vhalo, vmask:
+    the row modes' four (B, r, W) halo operands and their two flags.
+    Returns the mode's outputs: (partials, map or None) (partials f64 in
+    the precise modes, (B, H) row sums in the row modes), (B, K, 2)
+    partials, (partials, pooled_a, pooled_b), or the batch modes' (B, 2)
+    partials."""
     global LAUNCHES, PRECISE_LAUNCHES, COMPONENTS_LAUNCHES, POOLED_LAUNCHES
-    global BATCH_LAUNCHES, BATCH_PRECISE_LAUNCHES
+    global BATCH_LAUNCHES, BATCH_PRECISE_LAUNCHES, ROWSUM_LAUNCHES
+    global ROWSUM_MAP_LAUNCHES
     from . import _build
 
     lib = _build.load_library()
@@ -414,31 +500,46 @@ def _launch(a, b, *, mode, taps, c1, c2, clip_bound, tile_h, tile_w, ipb=1,
         raise ValueError(f"{bsz * nty * ntx} tiles exceed one launch's grid")
     batch = mode in ("batch", "batch_precise")
     comp = mode in ("components", "pooled")
+    rows = mode in ("rowsum", "rowsum_map")
     precise = mode in ("precise", "precise_map", "batch_precise")
     new = lambda *shape: torch.empty(shape, dtype=torch.float32, device=a.device)
     if comp:
         partials = new(bsz, nty * ntx, 2)
+    elif rows:
+        partials = new(bsz, h)
     else:
         partials = torch.empty((bsz, 2) if batch else (bsz, nty * ntx),
                                device=a.device,
                                dtype=torch.float64 if precise else torch.float32)
-    ssim_map = new(bsz, h, w) if mode in ("map", "precise_map") else None
+    ssim_map = new(bsz, h, w) if mode in ("map", "precise_map", "rowsum_map") else None
     pooled = (new(bsz, h // 2, w // 2), new(bsz, h // 2, w // 2)) \
         if mode == "pooled" else (None, None)
-    scratch = torch.empty((bsz, groups), dtype=torch.float64, device=a.device) \
-        if groups > 1 else None
+    if rows:
+        scratch = new(bsz, ntx, h)
+    elif groups > 1:
+        scratch = torch.empty((bsz, groups), dtype=torch.float64, device=a.device)
+    else:
+        scratch = None
     ptr = lambda x: None if x is None else x.data_ptr()
+    halo = (None,) * 4 if vhalo is None else tuple(x.data_ptr() for x in vhalo)
     r = len(taps) // 2
     taps_c = (ctypes.c_float * len(taps))(*[float(v) for v in taps])
     with torch.cuda.device(a.device):
         err = lib.ssim_fwd_launch(
             _MODES.index(mode), int(a.dtype == torch.float32), a.data_ptr(),
             b.data_ptr(), partials.data_ptr(), ptr(ssim_map), ptr(pooled[0]),
-            ptr(pooled[1]), ptr(scratch), bsz, h, w, r, tile_h, tile_w, ipb,
-            groups, ctypes.cast(taps_c, ctypes.c_void_p), c1, c2, clip_bound,
+            ptr(pooled[1]), ptr(scratch), *halo, int(vmask[0]), int(vmask[1]),
+            bsz, h, w, r, tile_h, tile_w, ipb, groups,
+            ctypes.cast(taps_c, ctypes.c_void_p), c1, c2, clip_bound,
             torch.cuda.current_stream(a.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"ssim_fwd kernel ({mode}) failed with CUDA error {err}")
+    if rows:
+        if mode == "rowsum":
+            ROWSUM_LAUNCHES += 1
+        else:
+            ROWSUM_MAP_LAUNCHES += 1
+        return partials, ssim_map
     if batch:
         if precise:
             BATCH_PRECISE_LAUNCHES += 1
@@ -507,6 +608,43 @@ def _check_tile(tile_h, tile_w, radius):
         )
 
 
+def _tile_kw(a, b, allow_float, tile_h, tile_w, **win):
+    """The tile modes' checks and launch keywords (the tile pinned or the
+    default TILE_H x TILE_W)."""
+    _check_dtypes(a, b, allow_float)
+    kw = _prepare(a, b, **win)
+    kw["tile_h"] = TILE_H if tile_h is None else int(tile_h)
+    kw["tile_w"] = TILE_W if tile_w is None else int(tile_w)
+    _check_tile(kw["tile_h"], kw["tile_w"], win["radius"])
+    return kw
+
+
+def _check_halo(a, radius, vhalo, vmask):
+    """The JAX package's checks of the halo operands and their flags
+    (ssim_pallas.py:1834-1853); returns (vhalo tuple or None, (is_top,
+    is_bot) bools)."""
+    if vmask is not None and vhalo is None:
+        raise ValueError("vmask requires vhalo (it flags the halo operands)")
+    if vhalo is None:
+        return None, (False, False)
+    vhalo = tuple(vhalo)
+    want = tuple(a.shape[:-2]) + (radius, a.shape[-1])
+    if len(vhalo) != 4 or any(
+        not isinstance(x, torch.Tensor) or tuple(x.shape) != want
+        or x.dtype != a.dtype or x.device != a.device or not x.is_contiguous()
+        for x in vhalo
+    ):
+        raise ValueError(
+            f"vhalo must be 4 contiguous tensors (a_top, a_bot, b_top, "
+            f"b_bot) of shape {want}, dtype {a.dtype} on {a.device}; got "
+            f"{[(tuple(getattr(x, 'shape', ())), getattr(x, 'dtype', None)) for x in vhalo]}"
+        )
+    flags = (False, False) if vmask is None else tuple(float(x) > 0 for x in vmask)
+    if len(flags) != 2:
+        raise ValueError(f"vmask must be (is_top, is_bot), got {vmask!r}")
+    return vhalo, flags
+
+
 def _check_dtypes(a, b, allow_float):
     """uint8 pairs, or float32 pairs with allow_float."""
     float_ok = (
@@ -534,6 +672,9 @@ def ssim_parts_cuda(
     precise: bool = False,
     tile_h: Optional[int] = None,
     tile_w: Optional[int] = None,
+    rowsum: bool = False,
+    vhalo=None,
+    vmask=None,
 ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
     """Fused-kernel SSIM. a, b: (H, W) or (B, H, W) contiguous tensors,
     uint8 (or, with allow_float=True, float32 in [0, data_range]).
@@ -556,13 +697,39 @@ def ssim_parts_cuda(
     4*data_range)); a tile whose own pixels include a NaN or inf gets a
     NaN partial and NaN map values, so an invalid input shows in its own
     image's score and no other's.
+
+    rowsum=True returns ((..., H) f32 row sums of SSIM, None) in place of
+    the tile partials (ssim_parts_pallas's rowsum; ssim_rows_cuda). It
+    excludes with_map and precise.
+
+    vhalo=(a_top, a_bot, b_top, b_bot) and vmask=(is_top, is_bot) mark a,
+    b as a row band of a taller image whose halo rows arrive as operands
+    (see ssim_rows_cuda). They serve rowsum and with_map, the standard tier
+    only, as in the JAX package; with with_map they return (None, map of
+    the band's own rows): the tiles' partials over a halo'd band are not
+    exposed, and the sharded layer takes the row sums and the map of one
+    launch from ssim_rows_cuda.
     """
-    _check_dtypes(a, b, allow_float)
-    kw = _prepare(a, b, data_range=data_range, radius=radius, sigma=sigma,
-                  k1=k1, k2=k2)
-    kw["tile_h"] = TILE_H if tile_h is None else int(tile_h)
-    kw["tile_w"] = TILE_W if tile_w is None else int(tile_w)
-    _check_tile(kw["tile_h"], kw["tile_w"], radius)
+    if rowsum and (with_map or precise):
+        raise ValueError(
+            "rowsum emits per-row sums INSTEAD of the map/partials — "
+            "incompatible with with_map and precise"
+        )
+    if vhalo is not None and not (rowsum or with_map):
+        raise ValueError(
+            "vhalo serves the sharded layers' rowsum/map modes only "
+            "(per-tile partials over a halo'd window are not exposed)"
+        )
+    if vhalo is not None and precise:
+        raise ValueError("vhalo serves the standard tier only, not precise")
+    if rowsum or vhalo is not None or vmask is not None:
+        rows, ssim_map = ssim_rows_cuda(
+            a, b, with_map=with_map, data_range=data_range, radius=radius,
+            sigma=sigma, k1=k1, k2=k2, allow_float=allow_float, tile_h=tile_h,
+            tile_w=tile_w, vhalo=vhalo, vmask=vmask)
+        return (rows, None) if rowsum else (None, ssim_map)
+    kw = _tile_kw(a, b, allow_float, tile_h, tile_w, data_range=data_range,
+                  radius=radius, sigma=sigma, k1=k1, k2=k2)
     squeeze = a.dim() == 2
     if squeeze:
         a, b = a[None], b[None]
@@ -579,6 +746,62 @@ def ssim_parts_cuda(
         partials = partials[0]
         ssim_map = None if ssim_map is None else ssim_map[0]
     return partials, ssim_map
+
+
+def ssim_rows_cuda(
+    a: torch.Tensor,
+    b: torch.Tensor,
+    *,
+    with_map: bool = False,
+    data_range: float = 255.0,
+    radius: int = RADIUS,
+    sigma: float = SIGMA,
+    k1: float = 0.01,
+    k2: float = 0.03,
+    allow_float: bool = False,
+    tile_h: Optional[int] = None,
+    tile_w: Optional[int] = None,
+    vhalo=None,
+    vmask=None,
+) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+    """Fused-kernel SSIM per row: the kernel's row modes. a, b as in
+    ssim_parts_cuda (standard tier).
+
+    Returns ((..., H) f32 row sums of SSIM, map (..., H, W) f32 or None)
+    (finalize with engine.finalize_mean(rows, H*W)): each row's
+    sum(ssim - 1), its tiles added in order in f64 and rounded to f32,
+    plus W in f32. With the map, both come from one launch, so the map is
+    never summed for a score.
+
+    vhalo=(a_top, a_bot, b_top, b_bot), each (..., radius, W) of the
+    inputs' dtype, marks a, b as a row band of a taller image whose r
+    rows above and below arrive as operands (spatial sharding,
+    parallel/spatial.py); the kernel reads them in place of the clamp and
+    the outputs cover the band's own rows. vmask=(is_top, is_bot) (0/1
+    numbers; requires vhalo) flags a band that holds the image's first /
+    last row: there the band's edge row is replicated and the operand is
+    never read, so raw ring outputs may be passed. Without vmask the
+    operands are read at both edges. On a CUDA tensor the kernel is
+    launched; on a CPU tensor the plain twin runs.
+    """
+    kw = _tile_kw(a, b, allow_float, tile_h, tile_w, data_range=data_range,
+                  radius=radius, sigma=sigma, k1=k1, k2=k2)
+    vhalo, vmask = _check_halo(a, radius, vhalo, vmask)
+    squeeze = a.dim() == 2
+    if squeeze:
+        a, b = a[None], b[None]
+        if vhalo is not None:
+            vhalo = tuple(x[None] for x in vhalo)
+    if a.device.type == "cuda":
+        rows, ssim_map = _launch(a, b, mode="rowsum_map" if with_map else "rowsum",
+                                 vhalo=vhalo, vmask=vmask, **kw)
+    else:
+        rows, ssim_map = ssim_rows_plain(a, b, with_map=with_map, vhalo=vhalo,
+                                         vmask=vmask, **kw)
+    if squeeze:
+        rows = rows[0]
+        ssim_map = None if ssim_map is None else ssim_map[0]
+    return rows, ssim_map
 
 
 def _components_args(a, b, data_range, radius, sigma, k1, k2):

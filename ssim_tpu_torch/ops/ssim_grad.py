@@ -2,7 +2,8 @@
 its plain PyTorch twin.
 
 Counterpart of `ssim_tpu/ops/ssim_grad.py` (`ssim_grad_pallas` over
-`_grad_call`) in its scalar `w_s`, per-pixel `g_map` and `w_cs` modes. For
+`_grad_call`) in its scalar `w_s`, per-pixel `g_map`, `w_cs` and
+`vhalo` / `vmask` (a row band of spatial sharding) modes. For
 L = sum_p (w_s + g_map(p)) * SSIM(p) + w_cs * sum_p cs(p), per image, it
 returns (dL/da, dL/db). The kernel is `ssim_tpu_torch/csrc/ssim_bwd.cu`:
 one 2-D grid of output tiles, one CUDA block per tile, so the TPU's column
@@ -19,7 +20,10 @@ CPU tests, and is what the kernel is held against on the card.
 
 A non-finite input pixel makes NaN the gradients of every tile within 2r
 of it (every gradient that depends on it, and so a superset of autograd's
-NaN region, as in the JAX kernel), and never reaches another image.
+NaN region, as in the JAX kernel), and never reaches another image. In the
+vhalo mode that holds for the operand rows the kernel reads, too; an
+operand at a flagged edge is not read, so it poisons nothing (the JAX
+kernel poisons the edge blocks with any non-finite operand value there).
 """
 
 import ctypes
@@ -30,7 +34,8 @@ import torch
 
 from ..windows import RADIUS, SIGMA, gaussian_taps
 from .ssim_cuda import (
-    _MAX_DYNAMIC_SMEM, MAX_FUSED_RADIUS, _tile_reduce, hpass4, sym_blur,
+    _MAX_DYNAMIC_SMEM, MAX_FUSED_RADIUS, _pad_cols, _tile_reduce, hpass4,
+    splice_rows, sym_blur,
 )
 from .ssim_torch import _pad_edge
 
@@ -39,10 +44,12 @@ from .ssim_torch import _pad_edge
 TILE_H = 32
 TILE_W = 64
 
-#: Kernel launches made by ssim_grad_cuda in this process. The wrapper adds
-#: one per launch and nowhere else, so a caller can show that a run went
-#: through the kernel.
+#: Kernel launches made by ssim_grad_cuda in this process (VHALO_LAUNCHES:
+#: those with halo operands). The wrapper adds one per launch to one of the
+#: two and nowhere else, so a caller can show that a run went through the
+#: kernel in that mode.
 LAUNCHES = 0
+VHALO_LAUNCHES = 0
 
 
 def grad_cuda_supported(h: int, w: int, radius: int = RADIUS) -> bool:
@@ -83,12 +90,14 @@ def fold_coefficients(taps: np.ndarray) -> np.ndarray:
     )
 
 
-def _adjoint(x: torch.Tensor, t, cl, dim: int, n: int) -> torch.Tensor:
+def _adjoint(x: torch.Tensor, t, cl, dim: int, n: int, fold_lo: bool = True,
+             fold_hi: bool = True) -> torch.Tensor:
     """Transpose of the clamped 1-D blur along `dim`: x holds the weights on
     the image plus an r margin that is zero outside the image (n + 2r
     entries); returns the n image positions. The plain part is the
     zero-extended symmetric blur; positions 0 and n-1 add the folded clamp
-    mass sum_{x<r} cl[x] * w(x) and sum_{x<r} cl[x] * w(n-1-x)."""
+    mass sum_{x<r} cl[x] * w(x) and sum_{x<r} cl[x] * w(n-1-x) (only where
+    fold_lo / fold_hi: a band's edge without a neighbour)."""
     r = len(t) // 2
     acc = sym_blur(x, t, dim, n)
     corr_lo = corr_hi = None
@@ -101,8 +110,11 @@ def _adjoint(x: torch.Tensor, t, cl, dim: int, n: int) -> torch.Tensor:
     shape[dim] = n
     pos = torch.arange(n, device=x.device).reshape(shape)
     zero = x.new_zeros(())
-    acc = acc + torch.where(pos == 0, corr_lo, zero)
-    return acc + torch.where(pos == n - 1, corr_hi, zero)
+    if fold_lo:
+        acc = acc + torch.where(pos == 0, corr_lo, zero)
+    if fold_hi:
+        acc = acc + torch.where(pos == n - 1, corr_hi, zero)
+    return acc
 
 
 def _weight_maps(u, v, ss, dd, coeff, w_cs, c1, c2):
@@ -147,21 +159,38 @@ def ssim_grad_plain(
     c1: float,
     c2: float,
     clip_bound: float,
+    vhalo=None,
+    vmask=(False, False),
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """The kernel's plain twin on (B, H, W) f32 tensors, on any device.
-    w_s, w_cs: (B,) f32; g_map: (B, H, W) f32 or None. Returns (da, db)."""
+    w_s, w_cs: (B,) f32; g_map: (B, H, W) f32 or None. vhalo: four
+    (B, 2r, W) f32 operands (a_top, a_bot, b_top, b_bot) spliced above and
+    below the band (at a flagged edge of vmask, the band's edge row
+    replicated instead), with the loss rows and the vertical clamp fold of
+    the kernel's vhalo mode; no g_map with them. Returns (da, db)."""
     bsz, h, w = a.shape
     r = len(taps) // 2
     tile_h, tile_w = default_tile(r)
     t = [float(v) for v in taps]
     cl = [float(v) for v in fold_coefficients(taps)]
-    bad = ~(torch.isfinite(a) & torch.isfinite(b))
-    af = torch.nan_to_num(a, nan=0.0).clamp(-clip_bound, clip_bound)
-    bf = torch.nan_to_num(b, nan=0.0).clamp(-clip_bound, clip_bound)
+    is_top, is_bot = (True, True) if vhalo is None else (bool(f) for f in vmask)
+    if vhalo is None:
+        ae, be = _pad_edge(a, 2 * r), _pad_edge(b, 2 * r)
+    else:
+        at, ab, bt, bb = vhalo
+        ae = _pad_cols(splice_rows(a, at, ab, is_top, is_bot), 2 * r)
+        be = _pad_cols(splice_rows(b, bt, bb, is_top, is_bot), 2 * r)
+    # Every value the kernel loads for a tile: the band and what it reads
+    # above and below it, (B, H + 4r, W + 4r).
+    bad_ext = ~(torch.isfinite(ae) & torch.isfinite(be))
+    ae = torch.nan_to_num(ae, nan=0.0).clamp(-clip_bound, clip_bound)
+    be = torch.nan_to_num(be, nan=0.0).clamp(-clip_bound, clip_bound)
+    af = ae[:, 2 * r : 2 * r + h, 2 * r : 2 * r + w]
+    bf = be[:, 2 * r : 2 * r + h, 2 * r : 2 * r + w]
 
     # Stage 1: the forward blurs on the mid grid (the image plus an r
-    # margin), horizontal then vertical, from a 2r clamp-padded input.
-    planes = hpass4(_pad_edge(af, 2 * r), _pad_edge(bf, 2 * r), t, w + 2 * r)
+    # margin), horizontal then vertical, from the 2r-padded input.
+    planes = hpass4(ae, be, t, w + 2 * r)
     u, v, s2, d2 = (sym_blur(p, t, 1, h + 2 * r) for p in planes)
 
     w_s = w_s.reshape(bsz, 1, 1)
@@ -171,25 +200,28 @@ def ssim_grad_plain(
         coeff = w_s + torch.nn.functional.pad(g_map, (r, r, r, r))
     maps = _weight_maps(u, v, s2, d2, coeff, w_cs, c1, c2)
 
-    # Mid positions outside the image carry zero weight, by index.
+    # Mid positions outside the image carry zero weight, by index (rows
+    # above and below a band only at its flagged edges).
     gy = torch.arange(-r, h + r, device=a.device)
     gx = torch.arange(-r, w + r, device=a.device)
-    inside = ((gy >= 0) & (gy < h))[:, None] & ((gx >= 0) & (gx < w))[None, :]
+    rows_in = ~(((gy < 0) & is_top) | ((gy >= h) & is_bot))
+    inside = rows_in[:, None] & ((gx >= 0) & (gx < w))[None, :]
     zero = a.new_zeros(())
     maps = [torch.where(inside, m, zero) for m in maps]
 
     # Stage 2: the transposed clamped blur, vertical then horizontal.
     tu, tv, tss, tdd = (
-        _adjoint(_adjoint(m, t, cl, 1, h), t, cl, 2, w) for m in maps
+        _adjoint(_adjoint(m, t, cl, 1, h, is_top, is_bot), t, cl, 2, w)
+        for m in maps
     )
     s = af + bf
     dif = af - bf
     da = tu + 2.0 * s * tss + 2.0 * dif * tdd
     db = tv + 2.0 * s * tss - 2.0 * dif * tdd
 
-    # A tile is NaN when any input pixel within 2r of it is not finite.
+    # A tile is NaN when any value loaded within 2r of it is not finite.
     near = torch.nn.functional.max_pool2d(
-        bad.to(torch.float32)[:, None], 4 * r + 1, stride=1, padding=2 * r
+        bad_ext.to(torch.float32)[:, None], 4 * r + 1, stride=1
     )[:, 0]
     tile_bad = _tile_reduce(near, tile_h, tile_w, lambda x: x.amax(dim=(2, 4))) > 0
     px_bad = tile_bad.repeat_interleave(tile_h, 1).repeat_interleave(
@@ -198,10 +230,11 @@ def ssim_grad_plain(
     return torch.where(px_bad, nan, da), torch.where(px_bad, nan, db)
 
 
-def _launch(a, b, w_s, w_cs, g_map, *, taps, c1, c2, clip_bound):
+def _launch(a, b, w_s, w_cs, g_map, *, taps, c1, c2, clip_bound, vhalo=None,
+            vmask=(False, False)):
     """Launch the CUDA kernel on (B, H, W) contiguous f32 tensors on one
     CUDA device, with the tile default_tile(radius); no synchronisation."""
-    global LAUNCHES
+    global LAUNCHES, VHALO_LAUNCHES
     from . import _build
 
     lib = _build.load_library()
@@ -220,14 +253,19 @@ def _launch(a, b, w_s, w_cs, g_map, *, taps, c1, c2, clip_bound):
         err = lib.ssim_bwd_launch(
             a.data_ptr(), b.data_ptr(), w_s.data_ptr(), w_cs.data_ptr(),
             None if g_map is None else g_map.data_ptr(),
-            da.data_ptr(), db.data_ptr(), bsz, h, w, r, tile_h, tile_w,
+            da.data_ptr(), db.data_ptr(),
+            *((None,) * 4 if vhalo is None else (x.data_ptr() for x in vhalo)),
+            int(vmask[0]), int(vmask[1]), bsz, h, w, r, tile_h, tile_w,
             ctypes.cast(taps_c, ctypes.c_void_p),
             ctypes.cast(fold_c, ctypes.c_void_p), c1, c2, clip_bound,
             torch.cuda.current_stream(a.device).cuda_stream,
         )
     if err != 0:
         raise RuntimeError(f"ssim_bwd_launch failed with CUDA error {err}")
-    LAUNCHES += 1
+    if vhalo is None:
+        LAUNCHES += 1
+    else:
+        VHALO_LAUNCHES += 1
     return da, db
 
 
@@ -254,6 +292,8 @@ def ssim_grad_cuda(
     sigma: float = SIGMA,
     k1: float = 0.01,
     k2: float = 0.03,
+    vhalo=None,
+    vmask=None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Fused-kernel SSIM gradients: (dL/da, dL/db) for
     L = sum_p (w_s + g_map(p)) * SSIM(p) + w_cs * sum_p cs(p), per image.
@@ -265,6 +305,19 @@ def ssim_grad_cuda(
     on a CPU tensor the plain twin runs. Both use the tile
     default_tile(radius), which also sets how far a non-finite pixel
     poisons the gradients.
+
+    vhalo / vmask (the sharded-training mode, parallel/spatial.py): a, b
+    are one row band of a taller image; vhalo = (a_top, a_bot, b_top,
+    b_bot), each (..., 2*radius, W) float32, holds the 2r rows above and
+    below it, and vmask = (is_top, is_bot) (0/1 numbers, required) flags
+    the band's rows 0 / H-1 as the image's own edges. There the kernel
+    replicates the band's edge row in place of the operand (which it does
+    not read, so raw ring outputs, even non-finite ones, may be passed),
+    drops the loss rows beyond the edge and folds the clamp's tap mass onto
+    the edge row. L is then w_s * the band's loss rows plus the
+    neighbours' rows within r (summed over the bands, the global loss); the
+    gradients are those of the band's own rows. Scalar cotangents only
+    (g_map=None); bands of at least 2*radius rows.
     """
     if a.dtype != torch.float32 or b.dtype != torch.float32:
         raise ValueError(
@@ -282,6 +335,36 @@ def ssim_grad_cuda(
             f"got {g_map.dtype} {tuple(g_map.shape)}"
         )
     h, w = a.shape[-2], a.shape[-1]
+    flags = (False, False)
+    if vhalo is not None:
+        if g_map is not None:
+            raise ValueError(
+                "vhalo mode takes scalar cotangents only (g_map=None): "
+                "per-pixel cotangents for virtual loss rows would need "
+                "their own halo exchange"
+            )
+        if vmask is None:
+            raise ValueError("vhalo requires vmask=(is_top, is_bot)")
+        vhalo = tuple(vhalo)
+        want = tuple(a.shape[:-2]) + (2 * radius, w)
+        if len(vhalo) != 4 or any(
+            not isinstance(x, torch.Tensor) or tuple(x.shape) != want
+            or x.dtype != torch.float32 or x.device != a.device
+            or not x.is_contiguous() for x in vhalo
+        ):
+            raise ValueError(
+                f"vhalo must be 4 contiguous float32 tensors (a_top, a_bot, "
+                f"b_top, b_bot) of shape {want} on {a.device}, got "
+                f"{[tuple(getattr(x, 'shape', ())) for x in vhalo]}"
+            )
+        if h < 2 * radius:
+            raise ValueError(
+                f"vhalo shards must be >= 2*radius = {2 * radius} rows "
+                f"tall, got {h}"
+            )
+        flags = tuple(float(x) > 0 for x in vmask)
+    elif vmask is not None:
+        raise ValueError("vmask requires vhalo (it flags the halo operands)")
     if not grad_cuda_supported(h, w, radius):
         raise ValueError(
             f"ssim_grad_cuda needs w > radius, h >= 1, and radius in "
@@ -305,11 +388,14 @@ def ssim_grad_cuda(
     if squeeze:
         a, b = a[None], b[None]
         g_map = None if g_map is None else g_map[None]
+        vhalo = None if vhalo is None else tuple(x[None] for x in vhalo)
     bsz = a.shape[0]
     ws = _per_image(w_s, bsz, a.device, "w_s")
     wcs = _per_image(w_cs, bsz, a.device, "w_cs")
     kw = dict(taps=taps, c1=c1, c2=c2,
               clip_bound=max(131072.0, 4.0 * float(data_range)))
+    if vhalo is not None:
+        kw.update(vhalo=vhalo, vmask=flags)
     if a.device.type == "cuda":
         da, db = _launch(a, b, ws, wcs, g_map, **kw)
     elif a.device.type == "cpu":

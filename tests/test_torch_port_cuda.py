@@ -1,7 +1,8 @@
 """The fused CUDA kernels (forward in its standard, precise, components,
-pooled-components and batch modes, and backward) against their plain
-twins, on the card, and the launches of the training, MS-SSIM and
-small-image batch paths.
+pooled-components, batch and row modes, with and without halo operands,
+and backward, with and without them) against their plain twins, on the
+card, and the launches of the training, MS-SSIM and small-image batch
+paths.
 
 Marked `cuda`: it skips without a CUDA device (here, on the CPU). This
 file imports neither JAX nor the repo's conftest, so it also runs on a
@@ -286,3 +287,91 @@ def test_small_batches_launch_the_batch_modes():
     torch.cuda.synchronize()
     assert (counts() - before).tolist() == [0, 0, 1, 0, 1]
     assert torch.isfinite(x.grad).all()
+
+
+def _halo(x, lo, hi, rows, flags):
+    """The rows above [lo, hi) and below it as a mesh ring would send them
+    (the other end's rows at a flagged edge), contiguous on the card."""
+    top = x[..., lo - rows:lo, :] if not flags[0] else x[..., -rows:, :]
+    bot = x[..., hi:hi + rows, :] if not flags[1] else x[..., :rows, :]
+    return top.contiguous(), bot.contiguous()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,flags", [("u8", (0, 0)), ("u8", (1, 0)),
+                                         ("u8", (0, 1)), ("f32", (1, 1))])
+def test_row_modes_with_halo_match_twin_on_card(dtype, flags):
+    """kRowsum and kRowsumMap with halo operands against the row twin:
+    maps bit for bit (the same per-pixel arithmetic), row sums within W *
+    1e-5 (other orders of the adds; the f32 rounding of W + sum)."""
+    _need_card()
+    rng = np.random.default_rng(0x5D)
+    if dtype == "u8":
+        a, b = _pair(rng, (2, 301, 517))
+    else:
+        a = rng.random((2, 301, 517)).astype(np.float32)
+        b = np.clip(a + rng.normal(0, 0.05, a.shape), 0, 1).astype(np.float32)
+        a[1, 120, 40] = np.nan
+    at, bt = torch.from_numpy(a).cuda(), torch.from_numpy(b).cuda()
+    lo, hi = 100, 237  # a ragged band of 137 rows
+    band_a, band_b = at[:, lo:hi].contiguous(), bt[:, lo:hi].contiguous()
+    a_top, a_bot = _halo(at, lo, hi, 5, flags)
+    b_top, b_bot = _halo(bt, lo, hi, 5, flags)
+    vh = (a_top, a_bot, b_top, b_bot)
+    dr = 255.0 if dtype == "u8" else 1.0
+    kw = dict(vhalo=vh, vmask=flags, data_range=dr, allow_float=dtype == "f32")
+    before = (ssim_cuda.ROWSUM_LAUNCHES, ssim_cuda.ROWSUM_MAP_LAUNCHES)
+    rows, _ = ssim_cuda.ssim_parts_cuda(band_a, band_b, rowsum=True, **kw)
+    rows_m, smap = ssim_cuda.ssim_rows_cuda(band_a, band_b, with_map=True, **kw)
+    none, pmap = ssim_cuda.ssim_parts_cuda(band_a, band_b, with_map=True, **kw)
+    torch.cuda.synchronize()
+    assert (ssim_cuda.ROWSUM_LAUNCHES,
+            ssim_cuda.ROWSUM_MAP_LAUNCHES) == (before[0] + 1, before[1] + 2)
+    want_rows, want_map = ssim_cuda.ssim_rows_plain(
+        band_a, band_b, with_map=True, vhalo=vh, vmask=flags, **_twin_kw(dr))
+    assert none is None
+    for got_map in (smap, pmap):
+        assert torch.equal(got_map.isnan(), want_map.isnan())
+        fin = ~want_map.isnan()
+        assert torch.equal(got_map[fin], want_map[fin])
+    for got in (rows, rows_m):
+        assert torch.equal(got.isnan(), want_rows.isnan())
+        ok = ~want_rows.isnan()
+        assert (got[ok] - want_rows[ok]).abs().max().item() <= 517 * 1e-5
+    if dtype == "f32":
+        assert rows[1, 120 - lo].isnan() and not rows[0].isnan().any()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("flags", [(0, 0), (1, 0), (0, 1), (1, 1)])
+def test_backward_halo_mode_matches_twin_on_card(flags):
+    """The backward kernel with 2r-row halo operands against its twin, at
+    interior and edge flags (1e-6 * max(1, max|g|); both round alike);
+    NaN-filled operands at a flagged edge are not read."""
+    _need_card()
+    rng = np.random.default_rng(0x5E)
+    a = rng.random((2, 300, 517)).astype(np.float32)
+    b = np.clip(a + rng.normal(0, 0.05, a.shape), 0, 1).astype(np.float32)
+    at, bt = torch.from_numpy(a).cuda(), torch.from_numpy(b).cuda()
+    lo, hi = 100, 237
+    band_a, band_b = at[:, lo:hi].contiguous(), bt[:, lo:hi].contiguous()
+    a_top, a_bot = _halo(at, lo, hi, 10, flags)
+    b_top, b_bot = _halo(bt, lo, hi, 10, flags)
+    if flags[0]:
+        a_top.fill_(float("nan"))
+    if flags[1]:
+        b_bot.fill_(float("nan"))
+    vh = (a_top, a_bot, b_top, b_bot)
+    before = (ssim_grad.LAUNCHES, ssim_grad.VHALO_LAUNCHES)
+    da, db = ssim_grad.ssim_grad_cuda(band_a, band_b, 1.0 / band_a.numel(), 0.2,
+                                      vhalo=vh, vmask=flags, data_range=1.0)
+    torch.cuda.synchronize()
+    assert (ssim_grad.LAUNCHES, ssim_grad.VHALO_LAUNCHES) == (before[0], before[1] + 1)
+    n = band_a.shape[0]
+    w_s = torch.full((n,), 1.0 / band_a.numel(), device="cuda")
+    w_cs = torch.full((n,), 0.2, device="cuda")
+    pa, pb = ssim_grad.ssim_grad_plain(
+        band_a, band_b, w_s, w_cs, None, vhalo=vh, vmask=flags, **_twin_kw(1.0))
+    assert torch.isfinite(da).all() and torch.isfinite(db).all()
+    tol = 1e-6 * max(1.0, pa.abs().max().item())
+    assert (da - pa).abs().max().item() <= tol and (db - pb).abs().max().item() <= tol
