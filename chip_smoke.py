@@ -99,7 +99,25 @@ Phases, each of which raises on failure (the script then exits non-zero):
    twins are made to raise there; (c) each new mode and its twin with
    CUDA events, the unsharded kernel beside it, the public calls and a
    `mean_ssim_spatial` step with the host clock, and one trace of the
-   step.
+   step;
+10. the relaxed tier (`accuracy="relaxed"`: the heavy blurs as bf16x3
+   band products on the tensor cores): (a) the forward kernel's relaxed
+   kScore / kMap, kComponents, kPooled and kBatch and the backward
+   kernel's relaxed mode (± g_map) against their relaxed twins at u8
+   1080p x4 and 4K x4, f32 1080p x4, 1x1024x20480 (K2's widths), f32
+   (4, 1080, 1920), u8 64x64 x4096 and grad_1080_b4, each also against
+   the standard mode (it must differ); the forward against the f64 oracle
+   at the JAX tests' envelope on independent random pairs (the tier's
+   worst content), custom windows and a NaN; below 512 columns a relaxed
+   call must launch the standard modes and equal them; (b) the public
+   path, each call's launches counted from 0: `compute_ssim(accuracy=
+   "relaxed")` at 1080p x4, 4K x4 and 16K x1 (one relaxed launch each,
+   against the twin), two Adam steps on `ssim_loss(accuracy="relaxed")`
+   and on 1 - `ms_ssim(accuracy="relaxed")` at (4, 1080, 1920) and one
+   `compute_ms_ssim(accuracy="relaxed")` at msssim_1080_b4 (relaxed at
+   the scales >= 512 wide, standard below; within 1e-4 of
+   `impl="torch"`); (c) each relaxed mode beside the standard mode on
+   the same input with CUDA events (in turns), its twin and its bound.
 
 Prints the kernel records as one JSON line (with each kernel's roofline
 bound), the card's name and power limit, and last
@@ -261,11 +279,12 @@ def scores(partials, npix):
     return partials.double().sum(-1).cpu().numpy() / npix
 
 
-def twin(a, b, with_map, data_range=255.0, radius=5, sigma=1.5, k1=0.01, k2=0.03):
+def twin(a, b, with_map, data_range=255.0, radius=5, sigma=1.5, k1=0.01, k2=0.03,
+         relaxed=False):
     from ssim_tpu_torch.ops import ssim_cuda
 
     return ssim_cuda.ssim_parts_plain(
-        a, b, with_map=with_map,
+        a, b, with_map=with_map, relaxed=relaxed,
         taps=ssim_cuda.gaussian_taps(np.float32, radius, sigma),
         c1=float((k1 * data_range) ** 2), c2=float((k2 * data_range) ** 2),
         clip_bound=max(131072.0, 4.0 * data_range),
@@ -526,7 +545,8 @@ def phase_main(gen, label):
 
 def grad_twin(a, b, w_s, w_cs, g_map, data_range=1.0, radius=5, sigma=1.5,
               k1=0.01, k2=0.03, **halo):
-    """halo: vhalo and vmask of the backward's halo mode, if any."""
+    """halo: vhalo and vmask of the backward's halo mode, if any (and
+    relaxed, the relaxed mode's twin)."""
     from ssim_tpu_torch.ops import ssim_grad
 
     return ssim_grad.ssim_grad_plain(
@@ -745,7 +765,8 @@ def phase_train(gen, label):
     return fwd_launches, bwd_launches, max_err, records
 
 
-def comp_twin(a, b, pooled, data_range=255.0, sigma=1.5, k1=0.01, k2=0.03):
+def comp_twin(a, b, pooled, data_range=255.0, sigma=1.5, k1=0.01, k2=0.03,
+              relaxed=False):
     """The plain twin of the pooled-components mode, (parts, pooled_a,
     pooled_b), or of the components mode, parts."""
     from ssim_tpu_torch.ops import ssim_cuda
@@ -753,7 +774,7 @@ def comp_twin(a, b, pooled, data_range=255.0, sigma=1.5, k1=0.01, k2=0.03):
     fn = (ssim_cuda.ssim_components_pooled_plain if pooled
           else ssim_cuda.ssim_components_plain)
     return fn(
-        a, b, taps=ssim_cuda.gaussian_taps(np.float32, 5, sigma),
+        a, b, relaxed=relaxed, taps=ssim_cuda.gaussian_taps(np.float32, 5, sigma),
         c1=float((k1 * data_range) ** 2), c2=float((k2 * data_range) ** 2),
         clip_bound=max(131072.0, 4.0 * data_range),
     )
@@ -814,8 +835,10 @@ def launch_counts():
                 batch_precise=ssim_cuda.BATCH_PRECISE_LAUNCHES,
                 rowsum=ssim_cuda.ROWSUM_LAUNCHES,
                 rowsum_map=ssim_cuda.ROWSUM_MAP_LAUNCHES,
+                relaxed=ssim_cuda.RELAXED_LAUNCHES,
                 backward=ssim_grad.LAUNCHES,
-                backward_vhalo=ssim_grad.VHALO_LAUNCHES)
+                backward_vhalo=ssim_grad.VHALO_LAUNCHES,
+                backward_relaxed=ssim_grad.RELAXED_LAUNCHES)
 
 
 def counts_of(**nonzero):
@@ -830,7 +853,8 @@ def zero_counts():
     ssim_cuda.COMPONENTS_LAUNCHES = ssim_cuda.POOLED_LAUNCHES = 0
     ssim_cuda.BATCH_LAUNCHES = ssim_cuda.BATCH_PRECISE_LAUNCHES = 0
     ssim_cuda.ROWSUM_LAUNCHES = ssim_cuda.ROWSUM_MAP_LAUNCHES = 0
-    ssim_grad.LAUNCHES = ssim_grad.VHALO_LAUNCHES = 0
+    ssim_cuda.RELAXED_LAUNCHES = 0
+    ssim_grad.LAUNCHES = ssim_grad.VHALO_LAUNCHES = ssim_grad.RELAXED_LAUNCHES = 0
 
 
 def phase_msssim(gen, label):
@@ -1249,11 +1273,12 @@ def phase_precise(gen, label):
 
 
 def batch_twin(a, b, precise, data_range=255.0, radius=5, sigma=1.5, k1=0.01,
-               k2=0.03):
+               k2=0.03, relaxed=False):
     from ssim_tpu_torch.ops import ssim_cuda
 
     return ssim_cuda.ssim_parts_batch_plain(
-        a, b, precise, taps=ssim_cuda.gaussian_taps(np.float32, radius, sigma),
+        a, b, precise, relaxed=relaxed,
+        taps=ssim_cuda.gaussian_taps(np.float32, radius, sigma),
         c1=float((k1 * data_range) ** 2), c2=float((k2 * data_range) ** 2),
         clip_bound=max(131072.0, 4.0 * data_range),
     )
@@ -2063,6 +2088,430 @@ def spatial_times(gen, label, mesh, a, b, fa, fb, grad):
     return times
 
 
+# The relaxed tier (phase 10). Kernel against its relaxed twin: 2e-6
+# global (never tighter than twice the per-pixel bound over sqrt(npix))
+# and 2e-5 per pixel; the backward 1e-4 * max|g|. Kernel and twin add the
+# same three exact bf16 products per band pass, the kernel on the tensor
+# cores (mma.sync, in its own order of f32 adds), the twin in f32 matrix
+# products (TF32 off): they agree to the last few f32 roundings of each
+# blur, which the SSIM formula and the gradient's cancellations amplify,
+# so the bounds sit well above what phase 10 prints and far inside the
+# tier's own error. Against the f64 oracle: the JAX tests' envelope, 1e-4
+# global and 5e-3 per interior pixel (tests/test_pallas.py:361-373); the
+# relaxed gradient within 1e-3 * max|g| of the standard one
+# (tests/test_grad.py:335-379), and different from it.
+RELAXED_TWIN_GLOBAL, RELAXED_TWIN_PIXEL, RELAXED_GRAD_TWIN = 2e-6, 2e-5, 1e-4
+RELAXED_ORACLE_GLOBAL, RELAXED_ORACLE_PIXEL, RELAXED_GRAD_STD = 1e-4, 5e-3, 1e-3
+# bf16 tensor cores, dense (H100 SXM data sheet, at 700 W).
+BF16_OPS_PER_S = 989e12
+
+
+def split_bound(nbytes, f32_ops, tc_ops):
+    """The relaxed modes' bound: the larger of the bytes at 3.35 TB/s and
+    the f32 operations left on the CUDA cores at 67 TFLOP/s plus the split
+    products' operations (2 per multiply-add) at the bf16 rate."""
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = (f32_ops / F32_OPS_PER_S + tc_ops / BF16_OPS_PER_S) * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def relaxed_fwd_bound(shape, itemsize, radius=5, extra_ops=0, out_bytes=None):
+    """The relaxed forward (kScore; kComponents / kPooled with extra_ops 2
+    / 4, their out_bytes): the standard count 24r + 43 less the two heavy
+    horizontal passes, 2 (3r + 2), on the CUDA cores, and the two split
+    blurs' 3 (2r + 1) multiply-adds per pixel each on the tensor cores."""
+    bsz, h, w = shape
+    npix = bsz * h * w
+    tiles = bsz * -(-h // 32) * -(-w // 64)
+    out = 4 * tiles if out_bytes is None else out_bytes
+    return split_bound(2 * itemsize * npix + out,
+                       (18 * radius + 39 + extra_ops) * npix,
+                       2 * 2 * 3 * (2 * radius + 1) * npix)
+
+
+def relaxed_bwd_bound(shape, with_g, radius=5):
+    """The relaxed backward: the standard count 48r + 116 less its sixteen
+    band passes (48r + 32) on the CUDA cores, 84 (85 with g_map), and the
+    sixteen split blurs' 3 (2r + 1) multiply-adds per pixel each."""
+    bsz, h, w = shape
+    npix = bsz * h * w
+    return split_bound((16 + 4 * with_g) * npix + 8 * bsz, (84 + with_g) * npix,
+                       2 * 16 * 3 * (2 * radius + 1) * npix)
+
+
+def indep_pair(gen, shape, dtype=torch.uint8):
+    """Independent random images: the relaxed tier's worst content (the
+    squared signals are as large and as varied as they get)."""
+    a = torch.randint(0, 256, shape, generator=gen, device="cuda", dtype=torch.int32)
+    b = torch.randint(0, 256, shape, generator=gen, device="cuda", dtype=torch.int32)
+    if dtype == torch.uint8:
+        return a.to(torch.uint8), b.to(torch.uint8)
+    return a.float() / 255.0, b.float() / 255.0
+
+
+def max_finite(x, y):
+    fin = ~(x.isnan() | y.isnan())
+    return float((x[fin] - y[fin]).abs().max()) if fin.any() else 0.0
+
+
+def compare_relaxed(name, a, b, oracle=False, **win):
+    """kScore and kMap relaxed against the relaxed twin on the same card
+    tensors, and the map against the standard mode's (it must differ);
+    with oracle, also the f64 oracle at the JAX envelope. Returns (max
+    kernel-vs-twin error, max |relaxed - standard| per pixel)."""
+    from ssim_tpu_torch import reference
+    from ssim_tpu_torch.ops.ssim_cuda import ssim_parts_cuda
+
+    f32 = a.dtype == torch.float32
+    npix = a.shape[-1] * a.shape[-2]
+    sk, _ = ssim_parts_cuda(a, b, relaxed=True, allow_float=f32, **win)
+    pk, mk = ssim_parts_cuda(a, b, with_map=True, relaxed=True, allow_float=f32, **win)
+    _, ms = ssim_parts_cuda(a, b, with_map=True, allow_float=f32, **win)
+    torch.cuda.synchronize()
+    pp, mp = twin(a, b, True, relaxed=True, **win)
+    gs, gk, gp = scores(sk, npix), scores(pk, npix), scores(pp, npix)
+    check(torch.equal(mk.isnan(), mp.isnan()), f"{name}: NaN map pixels differ")
+    check(np.array_equal(np.isnan(gk), np.isnan(gp)), f"{name}: NaN scores differ")
+    g_err = float(max(np.nanmax(np.abs(gk - gp), initial=0.0),
+                      np.nanmax(np.abs(gs - gp), initial=0.0)))
+    p_err = max_finite(mk, mp)
+    g_tol = max(RELAXED_TWIN_GLOBAL, 2 * RELAXED_TWIN_PIXEL / npix**0.5)
+    check(g_err <= g_tol and p_err <= RELAXED_TWIN_PIXEL,
+          f"{name}: relaxed kernel vs twin global {g_err:.3g} (tol {g_tol:.3g}), "
+          f"pixel {p_err:.3g} (tol {RELAXED_TWIN_PIXEL:.3g})")
+    d_std = max_finite(mk, ms)
+    check(d_std > 0, f"{name}: the relaxed map equals the standard one")
+    line = (f"  {name}: relaxed kScore / kMap vs twin global {g_err:.3g} pixel "
+            f"{p_err:.3g}; vs the standard map {d_std:.3g}")
+    if oracle:
+        r = win.get("radius", 5)
+        wo, mo = reference.compute_ssim(a.cpu().numpy(), b.cpu().numpy(), with_map=True,
+                                        **{k: v for k, v in win.items()})
+        o_g = float(np.abs(gk - np.asarray(wo)).max())
+        inner = (Ellipsis, slice(r, -r), slice(r, -r))
+        o_p = float(np.abs(mk.cpu().numpy()[inner].astype(np.float64) - mo[inner]).max())
+        check(o_g <= RELAXED_ORACLE_GLOBAL and o_p <= RELAXED_ORACLE_PIXEL,
+              f"{name}: relaxed vs f64 oracle global {o_g:.3g}, interior pixel {o_p:.3g}")
+        line += f"; vs f64 oracle global {o_g:.3g}, interior pixel {o_p:.3g}"
+    print(line, flush=True)
+    return max(g_err, p_err), d_std
+
+
+def compare_relaxed_grad(name, a, b, w_s, w_cs, g_map):
+    """K3 relaxed against its twin and against the standard K3 on the same
+    card tensors; returns the max abs kernel-vs-twin error."""
+    from ssim_tpu_torch.ops.ssim_grad import ssim_grad_cuda
+
+    rk = ssim_grad_cuda(a, b, w_s, w_cs, g_map, data_range=1.0, relaxed=True)
+    sk = ssim_grad_cuda(a, b, w_s, w_cs, g_map, data_range=1.0)
+    torch.cuda.synchronize()
+    rp = grad_twin(a, b, w_s, w_cs, g_map, relaxed=True)
+    scale = max(float(x.abs().max()) for x in sk)
+    e_twin = max(max_finite(x, y) for x, y in zip(rk, rp))
+    e_std = max(max_finite(x, y) for x, y in zip(rk, sk))
+    check(e_twin <= RELAXED_GRAD_TWIN * scale,
+          f"{name}: relaxed K3 vs twin {e_twin:.3g} (tol {RELAXED_GRAD_TWIN * scale:.3g})")
+    check(0 < e_std <= RELAXED_GRAD_STD * scale,
+          f"{name}: relaxed K3 vs standard {e_std:.3g} (tol {RELAXED_GRAD_STD * scale:.3g})")
+    print(f"  {name}: relaxed K3 vs twin {e_twin / scale:.3g} x max|g|, vs the "
+          f"standard K3 {e_std / scale:.3g} x max|g| (max|g| {scale:.3g})", flush=True)
+    del rp, sk, rk
+    return e_twin
+
+
+def phase_relaxed_kernels(gen):
+    """10a: every relaxed mode against its twin on the card; the forward
+    against the f64 oracle on independent random pairs; the standard mode
+    below MXU_MIN_W."""
+    from ssim_tpu_torch.ops import ssim_cuda, ssim_grad
+
+    print('phase 10a: relaxed modes (accuracy="relaxed") against their twins',
+          flush=True)
+    err, d_std = 0.0, 0.0
+    # The f64 oracle, on independent (and one correlated) pairs, custom
+    # windows and a NaN, all at least MXU_MIN_W wide.
+    for name, (a, b), win in [
+        ("u8 independent (2, 256, 1024)", indep_pair(gen, (2, 256, 1024)), {}),
+        ("u8 correlated (2, 257, 650)", pair(gen, (2, 257, 650)), {}),
+        ("f32 independent (1, 300, 640)", indep_pair(gen, (1, 300, 640), torch.float32),
+         dict(data_range=1.0)),
+        ("u8 independent (1, 200, 700) radius 1", indep_pair(gen, (1, 200, 700)),
+         dict(radius=1, sigma=0.8, k1=0.02, k2=0.05)),
+        ("u8 independent (1, 200, 1000) radius 16", indep_pair(gen, (1, 200, 1000)),
+         dict(radius=16, sigma=3.0, k1=0.015, k2=0.04)),
+    ]:
+        e, d = compare_relaxed(name, a, b, oracle=True, **win)
+        err, d_std = max(err, e), max(d_std, d)
+    a, b = pair(gen, (2, 300, 600), torch.float32, 1.0)
+    a[0, 123, 321] = float("nan")
+    e, _ = compare_relaxed("f32 NaN in image 0 of 2 (2, 300, 600)", a, b, data_range=1.0)
+    err = max(err, e)
+    inputs = {}
+    for name, shape, dtype in [("1080p_b4", (4, 1080, 1920), torch.uint8),
+                               ("4k_b4", (4, 2160, 3840), torch.uint8),
+                               ("1080p_b4_f32", (4, 1080, 1920), torch.float32),
+                               ("wide_b1", (1, 1024, 20480), torch.uint8)]:
+        inputs[name] = pair(gen, shape, dtype, 1.0 if dtype == torch.float32 else 255.0)
+        win = dict(data_range=1.0) if dtype == torch.float32 else {}
+        e, d = compare_relaxed(f"{name} {shape}", *inputs[name], **win)
+        err, d_std = max(err, e), max(d_std, d)
+
+    # Components (f32) and pooled components (u8) at (4, 1080, 1920).
+    shape = (4, 1080, 1920)
+    npix = shape[1] * shape[2]
+    for pooled, dtype in ((False, torch.float32), (True, torch.uint8)):
+        a, b = pair(gen, shape, dtype, 1.0 if dtype == torch.float32 else 255.0)
+        dr = 1.0 if dtype == torch.float32 else 255.0
+        fn = (ssim_cuda.ssim_components_pooled_cuda if pooled
+              else ssim_cuda.ssim_components_cuda)
+        rk, sk = fn(a, b, data_range=dr, relaxed=True), fn(a, b, data_range=dr)
+        torch.cuda.synchronize()
+        rp = comp_twin(a, b, pooled, data_range=dr, relaxed=True)
+        parts = (lambda x: x[0] if pooled else x)
+        means = [parts(x).double().sum(-2) / npix for x in (rk, sk, rp)]
+        e = float((means[0] - means[2]).abs().max())
+        d = float((means[0] - means[1]).abs().max())
+        check(e <= RELAXED_TWIN_GLOBAL and d > 0,
+              f"{'kPooled' if pooled else 'kComponents'} relaxed: vs twin {e:.3g}, "
+              f"vs standard {d:.3g}")
+        if pooled:
+            check(same(rk[1], sk[1]) and same(rk[2], sk[2]) and same(rk[1], rp[1]),
+                  "kPooled relaxed: pooled images differ from the standard mode's")
+        print(f"  {'kPooled u8' if pooled else 'kComponents f32'} {shape}: per-image "
+              f"[mean cs, mean ssim] relaxed vs twin {e:.3g}, vs the standard mode "
+              f"{d:.3g}" + ("; pooled images equal the standard mode's bit for bit"
+                            if pooled else ""), flush=True)
+        err = max(err, e)
+        inputs["pooled" if pooled else "components"] = (a, b)
+
+    # kBatch at 64^2 x4096 (independent images), against its twin, the
+    # standard kBatch and, for 32 of the images, the f64 oracle.
+    from ssim_tpu_torch import reference
+
+    a, b = indep_pair(gen, (4096, 64, 64))
+    rk = ssim_cuda.ssim_parts_batch_cuda(a, b, relaxed=True)
+    sk = ssim_cuda.ssim_parts_batch_cuda(a, b)
+    torch.cuda.synchronize()
+    rp = batch_twin(a, b, False, relaxed=True)
+    gk, gs, gp = (x[:, 0].double() / 4096 for x in (rk, sk, rp))
+    e, d = float((gk - gp).abs().max()), float((gk - gs).abs().max())
+    an, bn = a[:32].cpu().numpy(), b[:32].cpu().numpy()
+    o = max(abs(float(gk[i]) + 1.0 - reference.compute_ssim(an[i], bn[i])[0])
+            for i in range(32))
+    check(e <= RELAXED_TWIN_GLOBAL and d > 0 and o <= RELAXED_ORACLE_GLOBAL,
+          f"kBatch relaxed: vs twin {e:.3g}, vs standard {d:.3g}, vs oracle {o:.3g}")
+    print(f"  kBatch u8 independent (4096, 64, 64): per-image score relaxed vs twin "
+          f"{e:.3g}, vs standard kBatch {d:.3g}; 32 images vs the f64 oracle {o:.3g}",
+          flush=True)
+    err = max(err, e)
+    inputs["batch"] = (a, b)
+
+    # Below MXU_MIN_W the relaxed call launches the standard mode and equals it.
+    a, b = pair(gen, (1, 256, 448))
+    fa, fb = pair(gen, (1, 256, 448), torch.float32, 1.0)
+    zero_counts()
+    _, m1 = ssim_cuda.ssim_parts_cuda(a, b, with_map=True, relaxed=True)
+    g1 = ssim_grad.ssim_grad_cuda(fa, fb, 1.0, 0.0, data_range=1.0, relaxed=True)
+    counts = launch_counts()
+    _, m0 = ssim_cuda.ssim_parts_cuda(a, b, with_map=True)
+    g0 = ssim_grad.ssim_grad_cuda(fa, fb, 1.0, 0.0, data_range=1.0)
+    check(counts == counts_of(standard=1, backward=1),
+          f"(1, 256, 448) relaxed calls launched {counts}, expected the standard modes")
+    check(torch.equal(m0, m1) and all(torch.equal(x, y) for x, y in zip(g0, g1)),
+          "(1, 256, 448): the relaxed call differs from the standard one")
+    print("  (1, 256, 448) below MXU_MIN_W: relaxed calls launched the standard "
+          "kMap and K3 (no relaxed launch) and equal them bit for bit", flush=True)
+
+    # K3 relaxed at grad_1080_b4, with and without g_map.
+    shape = (4, 1080, 1920)
+    fa, fb = pair(gen, shape, torch.float32, 1.0)
+    w_s = torch.rand(4, generator=gen, device="cuda") / (shape[1] * shape[2])
+    w_cs = torch.rand(4, generator=gen, device="cuda") * 0.3 / (shape[1] * shape[2])
+    g_map = torch.randn(shape, generator=gen, device="cuda") * 1e-7
+    e1 = compare_relaxed_grad(f"grad_1080_b4 {shape}", fa, fb, w_s, w_cs, None)
+    e2 = compare_relaxed_grad(f"grad_1080_b4 {shape} g_map", fa, fb, w_s, w_cs, g_map)
+    inputs["grad"] = (fa, fb, w_s, w_cs, g_map)
+    return err, max(e1, e2), d_std, inputs
+
+
+def phase_relaxed_path(gen, inputs):
+    """10b: the public entry points with accuracy="relaxed", each call's
+    launches counted from 0."""
+    import ssim_tpu_torch
+    from ssim_tpu_torch.ops import ssim_cuda
+
+    print('phase 10b: the public path with accuracy="relaxed"', flush=True)
+    fwd = bwd = 0
+    by_call = {}
+
+    def counted(name, fn):
+        nonlocal fwd, bwd
+        torch.cuda.synchronize()
+        zero_counts()
+        out = fn()
+        torch.cuda.synchronize()
+        counts = launch_counts()
+        by_call[name] = {k: v for k, v in counts.items() if v}
+        fwd += counts["relaxed"]
+        bwd += counts["backward_relaxed"]
+        return out, counts
+
+    big = pair(gen, (1, 8640, 15360))
+    for name, (a, b) in (("1080p_b4", inputs["1080p_b4"]), ("4k_b4", inputs["4k_b4"]),
+                         ("16k_b1", big)):
+        s, counts = counted(f"compute_ssim {name}",
+                            lambda: ssim_tpu_torch.compute_ssim(a, b, accuracy="relaxed"))
+        check(counts == counts_of(relaxed=1),
+              f"compute_ssim(accuracy='relaxed') {name}: launches {counts}")
+        pp, _ = twin(a, b, False, relaxed=True)
+        g_twin = scores(pp, a.shape[-1] * a.shape[-2])
+        s = np.atleast_1d(np.asarray(s, np.float64))
+        check(np.isfinite(s).all() and np.abs(s - g_twin).max() <= RELAXED_TWIN_GLOBAL,
+              f"compute_ssim(accuracy='relaxed') {name}: {s} vs the twin {g_twin}")
+        print(f"  compute_ssim(accuracy=\"relaxed\") {name} {tuple(a.shape)}: launches "
+              f"{by_call[f'compute_ssim {name}']}, scores {s} (twin "
+              f"{float(np.abs(s - g_twin).max()):.3g} apart)", flush=True)
+        del pp
+    del big
+
+    # Training: two Adam steps on ssim_loss(accuracy="relaxed").
+    shape = (4, 1080, 1920)
+    clean = torch.rand(shape, generator=gen, device="cuda")
+    noisy = (clean + 0.15 * torch.randn(shape, generator=gen, device="cuda")).clamp_(0, 1)
+
+    def train(loss_fn, steps=2):
+        x = noisy.clone().requires_grad_()
+        opt = torch.optim.Adam([x], lr=0.02)
+        losses = []
+        for _ in range(steps):
+            opt.zero_grad(set_to_none=True)
+            loss = loss_fn(x)
+            loss.backward()
+            check(bool(torch.isfinite(x.grad).all()), "non-finite relaxed gradient")
+            opt.step()
+            with torch.no_grad():
+                x.clamp_(0.0, 1.0)
+            losses.append(float(loss.detach()))
+        final = float(loss_fn(x.detach()))
+        check(np.isfinite(losses).all() and final < losses[0], f"the loss did not fall: "
+              f"{losses} then {final}")
+        return losses + [final]
+
+    losses, counts = counted("ssim_loss step", lambda: train(
+        lambda x: ssim_tpu_torch.ssim_loss(x, clean, accuracy="relaxed")))
+    check(counts == counts_of(relaxed=3, backward_relaxed=2),
+          f"2 relaxed ssim_loss steps (and the final loss) launched {counts}")
+    print(f"  2 Adam steps on ssim_loss(accuracy=\"relaxed\") {shape}: 1-SSIM {losses}; "
+          f"launches {by_call['ssim_loss step']}", flush=True)
+
+    # MS-SSIM: scales 0 (1920) and 1 (960) are relaxed, 2-4 standard.
+    a, b = inputs["pooled"]
+    ms, counts = counted("compute_ms_ssim", lambda: ssim_tpu_torch.compute_ms_ssim(
+        a, b, accuracy="relaxed"))
+    check(counts == counts_of(relaxed=2, pooled=2, components=1),
+          f"compute_ms_ssim(accuracy='relaxed') launches {counts}")
+    want = ssim_tpu_torch.compute_ms_ssim(a, b, impl="torch")
+    d = float(np.abs(np.asarray(ms) - np.asarray(want)).max())
+    check(d <= RELAXED_ORACLE_GLOBAL, f"compute_ms_ssim relaxed vs impl='torch' {d:.3g}")
+    print(f"  compute_ms_ssim(accuracy=\"relaxed\") msssim_1080_b4: launches "
+          f"{by_call['compute_ms_ssim']}; {d:.3g} from impl=\"torch\"", flush=True)
+    losses, counts = counted("ms_ssim step", lambda: train(
+        lambda x: 1.0 - ssim_tpu_torch.ms_ssim(x, clean, data_range=1.0,
+                                               accuracy="relaxed").mean()))
+    check(counts == counts_of(relaxed=6, components=9, backward_relaxed=4, backward=6),
+          f"2 relaxed MS-SSIM steps (and the final loss) launched {counts}")
+    print(f"  2 Adam steps on 1 - ms_ssim(accuracy=\"relaxed\") {shape}: {losses}; "
+          f"launches {by_call['ms_ssim step']}", flush=True)
+    return fwd, bwd, by_call
+
+
+def phase_relaxed_times(gen, label, inputs):
+    """10c: each relaxed mode beside the standard mode on the same input,
+    in turns (standard, relaxed, relaxed, standard), the twin and the
+    bound."""
+    from ssim_tpu_torch.ops import ssim_cuda, ssim_grad
+
+    print("phase 10c: times, relaxed beside standard", flush=True)
+    fw = lambda **kw: (lambda a, b, relaxed: ssim_cuda.ssim_parts_cuda(
+        a, b, relaxed=relaxed, **kw))
+    cases = [
+        ("kScore 4k_b4", inputs["4k_b4"], fw(), False, relaxed_fwd_bound((4, 2160, 3840), 1)),
+        ("kMap 4k_b4", inputs["4k_b4"], fw(with_map=True), True,
+         relaxed_fwd_bound((4, 2160, 3840), 1, out_bytes=4 * 4 * 2160 * 3840)),
+        ("kScore 1080p_b4", inputs["1080p_b4"], fw(), False,
+         relaxed_fwd_bound((4, 1080, 1920), 1)),
+        ("kScore 1080p_b4 f32", inputs["1080p_b4_f32"], fw(allow_float=True, data_range=1.0),
+         False, relaxed_fwd_bound((4, 1080, 1920), 4)),
+        ("kScore wide_b1 (K2)", inputs["wide_b1"], fw(), False,
+         relaxed_fwd_bound((1, 1024, 20480), 1)),
+        ("kComponents f32 1080p_b4", inputs["components"],
+         lambda a, b, relaxed: ssim_cuda.ssim_components_cuda(
+             a, b, data_range=1.0, relaxed=relaxed), None,
+         relaxed_fwd_bound((4, 1080, 1920), 4, extra_ops=2,
+                           out_bytes=8 * 4 * 34 * 30)),
+        ("kPooled u8 1080p_b4", inputs["pooled"],
+         lambda a, b, relaxed: ssim_cuda.ssim_components_pooled_cuda(a, b, relaxed=relaxed),
+         None, relaxed_fwd_bound((4, 1080, 1920), 1, extra_ops=4,
+                                 out_bytes=8 * 4 * 34 * 30 + 8 * 4 * 540 * 960)),
+        ("kBatch u8 64x64_b4096", inputs["batch"],
+         lambda a, b, relaxed: ssim_cuda.ssim_parts_batch_cuda(a, b, relaxed=relaxed),
+         None, relaxed_fwd_bound((4096, 64, 64), 1, out_bytes=8 * 4096)),
+    ]
+    times = {}
+    for name, (a, b), fn, with_map, (bnd, by) in cases:
+        t_s1 = cuda_ms(lambda: fn(a, b, False), 20)
+        t_r1 = cuda_ms(lambda: fn(a, b, True), 20)
+        t_r2 = cuda_ms(lambda: fn(a, b, True), 20)
+        t_s2 = cuda_ms(lambda: fn(a, b, False), 20)
+        if name.startswith("kComponents"):
+            plain = lambda: comp_twin(a, b, False, data_range=1.0, relaxed=True)
+        elif name.startswith("kPooled"):
+            plain = lambda: comp_twin(a, b, True, relaxed=True)
+        elif name.startswith("kBatch"):
+            plain = lambda: batch_twin(a, b, False, relaxed=True)
+        else:
+            dr = 1.0 if a.dtype == torch.float32 else 255.0
+            plain = lambda: twin(a, b, bool(with_map), data_range=dr, relaxed=True)
+        t_plain = cuda_ms(plain, 3)
+        shape = list(a.shape)
+        times[name] = dict(shape=shape, ms=min(t_r1, t_r2), relaxed_ms=[t_r1, t_r2],
+                           standard_ms=[t_s1, t_s2], plain_ms=t_plain, bound_ms=bnd,
+                           bound_by=by)
+        print(f"  {name} {tuple(shape)}: relaxed {t_r1:.4f} / {t_r2:.4f} ms, standard "
+              f"{t_s1:.4f} / {t_s2:.4f} ms (relaxed / standard "
+              f"{min(t_r1, t_r2) / min(t_s1, t_s2):.3f}); twin {t_plain:.3f} ms; bound "
+              f"{bnd:.4f} ms ({by}) | {label}", flush=True)
+    fa, fb, w_s, w_cs, g_map = inputs["grad"]
+    shape = tuple(fa.shape)
+    for name, g in (("K3 grad_1080_b4", None), ("K3 grad_1080_b4 g_map", g_map)):
+        fn = lambda relaxed: ssim_grad.ssim_grad_cuda(fa, fb, w_s, w_cs, g, data_range=1.0,
+                                                      relaxed=relaxed)
+        t_s1 = cuda_ms(lambda: fn(False), 10)
+        t_r1 = cuda_ms(lambda: fn(True), 10)
+        t_r2 = cuda_ms(lambda: fn(True), 10)
+        t_s2 = cuda_ms(lambda: fn(False), 10)
+        t_plain = cuda_ms(lambda: grad_twin(fa, fb, w_s, w_cs, g, relaxed=True), 3)
+        bnd, by = relaxed_bwd_bound(shape, g is not None)
+        times[name] = dict(shape=list(shape), ms=min(t_r1, t_r2), relaxed_ms=[t_r1, t_r2],
+                           standard_ms=[t_s1, t_s2], plain_ms=t_plain, bound_ms=bnd,
+                           bound_by=by)
+        print(f"  {name} {shape}: relaxed {t_r1:.4f} / {t_r2:.4f} ms, standard "
+              f"{t_s1:.4f} / {t_s2:.4f} ms (relaxed / standard "
+              f"{min(t_r1, t_r2) / min(t_s1, t_s2):.3f}); twin {t_plain:.3f} ms; bound "
+              f"{bnd:.4f} ms ({by}) | {label}", flush=True)
+    return times
+
+
+def phase_relaxed(gen, label):
+    err_fwd, err_bwd, d_std, inputs = phase_relaxed_kernels(gen)
+    fwd, bwd, by_call = phase_relaxed_path(gen, inputs)
+    times = phase_relaxed_times(gen, label, inputs)
+    del inputs
+    torch.cuda.empty_cache()
+    return dict(err_fwd=err_fwd, err_bwd=err_bwd, d_std=d_std, launches_fwd=fwd,
+                launches_bwd=bwd, by_call=by_call, times=times)
+
+
 def fail_line(error):
     """The one line printed when the script cannot start, before its
     nonzero exit."""
@@ -2107,6 +2556,7 @@ def main():
     batch = phase_batch(gen, label)
     halo_fwd_err, halo_bwd_err = phase_spatial_kernels(gen)
     spatial = phase_spatial(gen, label)
+    relaxed = phase_relaxed(gen, label)
     check("jax" not in sys.modules, "JAX was imported")
 
     ref = records["4k_b4"]
@@ -2274,6 +2724,35 @@ def main():
         "step_ms": spatial["times"]["public"]["step_ms"],
         "step_trace_busy_ms": spatial["times"]["public"]["trace_busy_ms"],
         "spatial_vs_ssim": spatial["errs"],
+    }, {
+        "name": "ssim_fwd_relaxed",
+        "route": "cuda",
+        "source": "ssim_tpu_torch/csrc/ssim_fwd.cu",
+        "header": "ssim_tpu_torch/csrc/band_mma.cuh",
+        "replaces": "ssim_tpu/ops/ssim_pallas.py:118, ssim_tpu/ops/ssim_pallas.py:168 "
+                    "(K1 mode h, mxu3x), ssim_tpu/ops/ssim_pallas.py:1409 (K2 relaxed)",
+        "launches": relaxed["launches_fwd"],
+        "launches_by_call": relaxed["by_call"],
+        "max_abs_err": relaxed["err_fwd"],
+        **{k: relaxed["times"]["kScore 4k_b4"][k]
+           for k in ("ms", "plain_ms", "bound_ms", "bound_by", "shape", "standard_ms")},
+        "library_ms": None,
+        "relaxed_vs_standard_pixel": relaxed["d_std"],
+        "times": {k: v for k, v in relaxed["times"].items() if not k.startswith("K3")},
+    }, {
+        "name": "ssim_bwd_relaxed",
+        "route": "cuda",
+        "source": "ssim_tpu_torch/csrc/ssim_bwd.cu",
+        "header": "ssim_tpu_torch/csrc/band_mma.cuh",
+        "replaces": "ssim_tpu/ops/ssim_grad.py:278 (relaxed: :324-328, :500-516, "
+                    ":522-529, :563-567)",
+        "launches": relaxed["launches_bwd"],
+        "max_abs_err": relaxed["err_bwd"],
+        **{k: relaxed["times"]["K3 grad_1080_b4"][k]
+           for k in ("ms", "plain_ms", "bound_ms", "bound_by", "shape", "standard_ms")},
+        "library_ms": None,
+        "ms_gmap": relaxed["times"]["K3 grad_1080_b4 g_map"]["ms"],
+        "standard_ms_gmap": relaxed["times"]["K3 grad_1080_b4 g_map"]["standard_ms"],
     }]}))
     print(label)
     print(json.dumps({"ok": True, "device": {

@@ -143,26 +143,26 @@ class _FusedSsim(torch.autograd.Function):
     ssim_parts_torch (_pallas_forward_with_xla_vjp)."""
 
     @staticmethod
-    def forward(ctx, a, b, with_map, data_range, window, kernel_vjp):
+    def forward(ctx, a, b, with_map, data_range, window, kernel_vjp, relaxed):
         from .ops.routing import ssim_parts_auto
 
         n = a.shape[-1] * a.shape[-2]
         out = _finish(
             ssim_parts_auto(a, b, with_map=with_map, data_range=data_range,
-                            **window),
+                            relaxed=relaxed, **window),
             n, with_map,
         )
         ctx.save_for_backward(a, b)
         ctx.set_materialize_grads(False)
         ctx.n, ctx.with_map, ctx.data_range = n, with_map, data_range
-        ctx.window, ctx.kernel_vjp = window, kernel_vjp
+        ctx.window, ctx.kernel_vjp, ctx.relaxed = window, kernel_vjp, relaxed
         return out
 
     @staticmethod
     def backward(ctx, *grads):
         a, b = ctx.saved_tensors
         g_score, g_map = grads if ctx.with_map else (grads[0], None)
-        none = (None,) * 4
+        none = (None,) * 5
         if g_score is None and g_map is None:
             return (None, None) + none
         if ctx.kernel_vjp:
@@ -173,7 +173,7 @@ class _FusedSsim(torch.autograd.Function):
                 g_map = g_map.to(torch.float32).contiguous()
             da, db = ssim_grad.ssim_grad_cuda(
                 a.contiguous(), b.contiguous(), w_s, 0.0, g_map,
-                data_range=ctx.data_range, **ctx.window,
+                data_range=ctx.data_range, relaxed=ctx.relaxed, **ctx.window,
             )
         else:
             from .ops.ssim_torch import ssim_parts_torch
@@ -211,8 +211,9 @@ def _run_metric(a, b, impl, data_range, with_map, accuracy, radius, sigma,
     - other routable floats (f64, f16, bf16, u16): the fused forward with
       autograd of ssim_parts_torch as its gradient.
 
-    accuracy is validated; "relaxed" computes the standard tier (interim,
-    as in compute_ssim)."""
+    accuracy="relaxed" reaches the forward kernel and the backward kernel
+    (JAX api.py:284, :304), whose gates apply it at W >= 512 (and on the
+    batch route); the plain path computes the standard tier."""
     from .ops.routing import pallas_routable, ssim_parts_auto
     from .ops.ssim_cuda import MAX_FUSED_RADIUS
     from .ops.ssim_grad import grad_cuda_supported
@@ -224,7 +225,7 @@ def _run_metric(a, b, impl, data_range, with_map, accuracy, radius, sigma,
         b = np.asarray(b)
     engine.validate_pair(a, b)
     engine.validate_window(radius, sigma, k1, k2, data_range)
-    engine.accuracy_is_relaxed(accuracy)
+    relaxed = engine.accuracy_is_relaxed(accuracy)
     window = dict(radius=int(radius), sigma=sigma, k1=k1, k2=k2)
     resolved = select_impl(impl)
     dev = engine.resolve_device(device, a, b)
@@ -245,12 +246,13 @@ def _run_metric(a, b, impl, data_range, with_map, accuracy, radius, sigma,
     if a.dtype == torch.uint8:
         return _finish(
             ssim_parts_auto(a, b, with_map=with_map, data_range=data_range,
-                            **window),
+                            relaxed=relaxed, **window),
             n, with_map,
         )
     kernel_vjp = a.dtype == torch.float32 and grad_cuda_supported(
         h, w, window["radius"])
-    return _FusedSsim.apply(a, b, with_map, data_range, window, kernel_vjp)
+    return _FusedSsim.apply(a, b, with_map, data_range, window, kernel_vjp,
+                            relaxed)
 
 
 def ssim(

@@ -1,9 +1,11 @@
-// Fused analytic SSIM backward for NVIDIA Hopper (sm_90a), standard f32 tier.
+// Fused analytic SSIM backward for NVIDIA Hopper (sm_90a), standard f32 and
+// relaxed tiers.
 //
 // Replaces the JAX package's backward TPU kernel
 // ssim_tpu/ops/ssim_grad.py::_grad_call in its scalar w_s, per-pixel g_map,
-// w_cs and vhalo / vmask modes: for L = sum_p (w_s + g_map(p)) * S(p) +
-// w_cs * sum_p cs(p) per image it writes dL/da and dL/db. The math is that module's docstring
+// w_cs, vhalo / vmask and relaxed modes: for
+// L = sum_p (w_s + g_map(p)) * S(p) + w_cs * sum_p cs(p) per image it
+// writes dL/da and dL/db. The math is that module's docstring
 // (ssim_grad.py:10-40): with s = a + b, d = a - b and the clamped blur G,
 //
 //     dL/da = G^T[W_u] + 2 s . G^T[W_ss] + 2 d . G^T[W_dd]
@@ -66,6 +68,18 @@
 // neighbour's loss rows reach the band's edge rows through the plain
 // symmetric part, the true adjoint. Only the band's own rows are written.
 //
+// Relaxed (kSplit > 0, accuracy="relaxed"; ssim_grad.py:324-328,
+// :500-516, :522-529, :563-567): every band pass of stages 1a-2b, the four
+// horizontal and four vertical blurs and their eight adjoints, runs as a
+// bf16x3 band product on the tensor cores (band_mma.cuh; kSplit = its
+// k-steps at this radius), four planes per sweep, each output's epilogue
+// (the weight maps, the clamp folds in f32 between the two adjoints, da/db)
+// the standard pass's. The wrapper launches it at W >= 512, the JAX gate
+// (use_mxu). It takes no shared memory beyond the standard mode's; with
+// four planes per sweep it holds 128 registers and spills ~0.1 KB a
+// thread, within the two blocks per SM that the shared memory allows.
+// Orthogonal to the halo operands, as in the JAX kernel.
+//
 // Build without --use_fast_math and with --fmad=false: every multiply and
 // add rounds on its own, in the order of the plain twin
 // (ops/ssim_grad.py::ssim_grad_plain), so the kernel's gradients can be held
@@ -74,6 +88,8 @@
 
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "band_mma.cuh"
 
 namespace {
 
@@ -108,6 +124,37 @@ __device__ __forceinline__ float sanitize(float v, float bound) {
   return fminf(fmaxf(v, -bound), bound);
 }
 
+// The weight maps W_u, W_v, W_ss, W_dd at mid position o from the four
+// blurred signals, in the order of ssim_grad.py:536-560.
+__device__ __forceinline__ void store_weights(float* wm, int mid_plane, int o,
+                                              float u, float v, float ss,
+                                              float dd, float coeff, float wcs,
+                                              float c1, float c2) {
+  const float uv = u * v;
+  const float usq = u * u + v * v;
+  const float a1 = 2.0f * uv + c1;
+  const float a2 = 0.5f * (ss - dd) - 2.0f * uv + c2;
+  const float b1 = usq + c1;
+  const float b2 = 0.5f * (ss + dd) - usq + c2;
+  const float rb1 = 1.0f / b1;
+  const float rb2 = 1.0f / b2;
+  const float lum = a1 * rb1;
+  const float cs = a2 * rb2;
+  const float s_val = lum * cs;
+  const float half_rb2 = 0.5f * rb2;
+  const float d_ss_c = half_rb2 * (1.0f - cs);
+  const float d_dd_c = -half_rb2 * (1.0f + cs);
+  const float q = a2 - a1;
+  const float rb12 = rb1 * rb2;
+  const float drb = rb1 - rb2;
+  wm[o] = coeff * (2.0f * v * q * rb12 - 2.0f * u * s_val * drb) +
+          wcs * ((2.0f * u * cs - 2.0f * v) * rb2);
+  wm[mid_plane + o] = coeff * (2.0f * u * q * rb12 - 2.0f * v * s_val * drb) +
+                      wcs * ((2.0f * v * cs - 2.0f * u) * rb2);
+  wm[2 * mid_plane + o] = (coeff * lum + wcs) * d_ss_c;
+  wm[3 * mid_plane + o] = (coeff * lum + wcs) * d_dd_c;
+}
+
 // Shared-memory floats of one block: region X holds the a/b halo tile, then
 // the four weight-map planes; region Y holds the four horizontally blurred
 // planes, then the four vertical-adjoint planes. Mirrored by smem_bytes in
@@ -121,7 +168,7 @@ __host__ __device__ inline int region_y_floats(int TH, int TW, int r) {
   return 4 * (TH + 4 * r) * (TW + 2 * r);
 }
 
-template <bool kGmap>
+template <bool kGmap, int kSplit>
 __global__ void __launch_bounds__(kThreads)
 ssim_bwd_kernel(const float* __restrict__ a, const float* __restrict__ b,
                 const float* __restrict__ w_s, const float* __restrict__ w_cs,
@@ -129,6 +176,8 @@ ssim_bwd_kernel(const float* __restrict__ a, const float* __restrict__ b,
                 float* __restrict__ db, Halo halo, int H, int W, int r, int TH,
                 int TW, int ntx, int tiles_per_image, Coeffs co, float c1,
                 float c2, float clip_bound) {
+  // The relaxed mode: kSplit = band_mma::ksteps(r), 0 in the standard one.
+  constexpr bool kRelaxed = kSplit > 0;
   extern __shared__ float smem[];
   __shared__ float s_t[kMaxTaps];
   __shared__ float s_cl[kMaxRadius];
@@ -198,154 +247,235 @@ ssim_bwd_kernel(const float* __restrict__ a, const float* __restrict__ b,
   }
   bad = __syncthreads_or(bad);
 
+  // The relaxed mode runs every band pass of stages 1a-2b as bf16x3 band
+  // products on the tensor cores (band_mma::sweep, all four planes at
+  // once): the horizontal passes with columns along the sweep and rows
+  // across it, the vertical ones with rows along and columns across. Each
+  // output's epilogue is the standard pass's.
+  // This thread's place in the fragments (lane = 4 grp + tig).
+  [[maybe_unused]] const int grp = (tid & 31) >> 2, tig = tid & 3;
+
   // Stage 1a: horizontal blur of the four signals over every halo row, at
   // the mid columns (symmetric pairs, smallest taps first).
   const int mc = vw + 2 * r;
-  for (int i = tid; i < lr * mc; i += kThreads) {
-    const int ly = i / mc;
-    const int mx = i - ly * mc;
-    const float* ra = sa + ly * HC + mx + r;
-    const float* rb = sb + ly * HC + mx + r;
-    float ma = 0.0f, mb = 0.0f, ss = 0.0f, dd = 0.0f;
-    for (int d = r; d >= 1; --d) {
-      const float t = s_t[r - d];
-      const float al = ra[-d], ah = ra[d], bl = rb[-d], bh = rb[d];
-      const float sl = al + bl, sh = ah + bh, dl = al - bl, dh = ah - bh;
-      ma += t * (al + ah);
-      mb += t * (bl + bh);
-      ss += t * (sl * sl + sh * sh);
-      dd += t * (dl * dl + dh * dh);
+  if constexpr (kRelaxed) {
+    band_mma::for_jobs(lr, (mc + 15) >> 4, [&](int strip, int t0, int t1) {
+      const int row = min(8 * strip + grp, lr - 1) * HC;
+      band_mma::sweep<4, kSplit>(
+          s_t, r, t0, t1,
+          [&](int c, float(&v)[4]) {
+            float x = 0.0f, y = 0.0f;
+            if (c < lc) {
+              x = sa[row + c];
+              y = sb[row + c];
+            }
+            const float s = x + y, d = x - y;
+            v[0] = x;
+            v[1] = y;
+            v[2] = s * s;
+            v[3] = d * d;
+          },
+          [&](int ti, const float(&acc)[4][4]) {
+#pragma unroll
+            for (int e = 0; e < 4; ++e) {
+              const int mx = 16 * ti + grp + 8 * (e >> 1);
+              const int ly = 8 * strip + 2 * tig + (e & 1);
+              if (ly < lr && mx < mc) {
+#pragma unroll
+                for (int k = 0; k < 4; ++k) {
+                  hp[k * hp_plane + ly * MC + mx] = acc[k][e];
+                }
+              }
+            }
+          });
+    });
+  } else {
+    for (int i = tid; i < lr * mc; i += kThreads) {
+      const int ly = i / mc;
+      const int mx = i - ly * mc;
+      const float* ra = sa + ly * HC + mx + r;
+      const float* rb = sb + ly * HC + mx + r;
+      float ma = 0.0f, mb = 0.0f, ss = 0.0f, dd = 0.0f;
+      for (int d = r; d >= 1; --d) {
+        const float t = s_t[r - d];
+        const float al = ra[-d], ah = ra[d], bl = rb[-d], bh = rb[d];
+        const float sl = al + bl, sh = ah + bh, dl = al - bl, dh = ah - bh;
+        ma += t * (al + ah);
+        mb += t * (bl + bh);
+        ss += t * (sl * sl + sh * sh);
+        dd += t * (dl * dl + dh * dh);
+      }
+      const float tc = s_t[r];
+      const float ac = ra[0], bc = rb[0];
+      const float sc = ac + bc, dc = ac - bc;
+      const int o = ly * MC + mx;
+      hp[o] = ma + tc * ac;
+      hp[hp_plane + o] = mb + tc * bc;
+      hp[2 * hp_plane + o] = ss + tc * (sc * sc);
+      hp[3 * hp_plane + o] = dd + tc * (dc * dc);
     }
-    const float tc = s_t[r];
-    const float ac = ra[0], bc = rb[0];
-    const float sc = ac + bc, dc = ac - bc;
-    const int o = ly * MC + mx;
-    hp[o] = ma + tc * ac;
-    hp[hp_plane + o] = mb + tc * bc;
-    hp[2 * hp_plane + o] = ss + tc * (sc * sc);
-    hp[3 * hp_plane + o] = dd + tc * (dc * dc);
   }
   __syncthreads();
 
   // Stage 1b: vertical blur at the mid rows, then the weight maps.
   const int mr = vh + 2 * r;
-  for (int i = tid; i < mr * mc; i += kThreads) {
-    const int my = i / mc;
-    const int mx = i - my * mc;
-    const int gy = y0 - r + my;
-    const int gx = x0 - r + mx;
-    const int o = my * MC + mx;
-    if ((gy < 0 && edge_top) || (gy >= H && edge_bot) || gx < 0 || gx >= W) {
-      wm[o] = 0.0f;
-      wm[mid_plane + o] = 0.0f;
-      wm[2 * mid_plane + o] = 0.0f;
-      wm[3 * mid_plane + o] = 0.0f;
-      continue;
-    }
-    const float* c = hp + (my + r) * MC + mx;
-    float m0 = 0.0f, m1 = 0.0f, m2 = 0.0f, m3 = 0.0f;
-    for (int d = r; d >= 1; --d) {
-      const float t = s_t[r - d];
-      const int off = d * MC;
-      m0 += t * (c[-off] + c[off]);
-      m1 += t * (c[hp_plane - off] + c[hp_plane + off]);
-      m2 += t * (c[2 * hp_plane - off] + c[2 * hp_plane + off]);
-      m3 += t * (c[3 * hp_plane - off] + c[3 * hp_plane + off]);
-    }
-    const float tc = s_t[r];
-    const float u = m0 + tc * c[0];
-    const float v = m1 + tc * c[hp_plane];
-    const float ss = m2 + tc * c[2 * hp_plane];
-    const float dd = m3 + tc * c[3 * hp_plane];
+  // Mid positions outside the image (rows beyond a flagged edge) carry
+  // zero weight, set by index.
+  auto outside = [&](int gy, int gx) {
+    return (gy < 0 && edge_top) || (gy >= H && edge_bot) || gx < 0 || gx >= W;
+  };
+  auto coeff_at = [&](int gy, int gx) {
     float coeff = ws;
     if (kGmap) coeff = ws + gmap[base + (size_t)gy * (size_t)W + (size_t)gx];
-    // Pointwise partials, in the order of ssim_grad.py:536-560.
-    const float uv = u * v;
-    const float usq = u * u + v * v;
-    const float a1 = 2.0f * uv + c1;
-    const float a2 = 0.5f * (ss - dd) - 2.0f * uv + c2;
-    const float b1 = usq + c1;
-    const float b2 = 0.5f * (ss + dd) - usq + c2;
-    const float rb1 = 1.0f / b1;
-    const float rb2 = 1.0f / b2;
-    const float lum = a1 * rb1;
-    const float cs = a2 * rb2;
-    const float s_val = lum * cs;
-    const float half_rb2 = 0.5f * rb2;
-    const float d_ss_c = half_rb2 * (1.0f - cs);
-    const float d_dd_c = -half_rb2 * (1.0f + cs);
-    const float q = a2 - a1;
-    const float rb12 = rb1 * rb2;
-    const float drb = rb1 - rb2;
-    wm[o] = coeff * (2.0f * v * q * rb12 - 2.0f * u * s_val * drb) +
-            wcs * ((2.0f * u * cs - 2.0f * v) * rb2);
-    wm[mid_plane + o] = coeff * (2.0f * u * q * rb12 - 2.0f * v * s_val * drb) +
-                        wcs * ((2.0f * v * cs - 2.0f * u) * rb2);
-    wm[2 * mid_plane + o] = (coeff * lum + wcs) * d_ss_c;
-    wm[3 * mid_plane + o] = (coeff * lum + wcs) * d_dd_c;
+    return coeff;
+  };
+  if constexpr (kRelaxed) {
+    band_mma::for_jobs(mc, (mr + 15) >> 4, [&](int strip, int t0, int t1) {
+      const int col = min(8 * strip + grp, mc - 1);
+      band_mma::sweep<4, kSplit>(
+          s_t, r, t0, t1,
+          [&](int ly, float(&v)[4]) {
+            const float* c = hp + ly * MC + col;
+#pragma unroll
+            for (int p = 0; p < 4; ++p) v[p] = ly < lr ? c[p * hp_plane] : 0.0f;
+          },
+          [&](int ti, const float(&acc)[4][4]) {
+#pragma unroll
+            for (int e = 0; e < 4; ++e) {
+              const int my = 16 * ti + grp + 8 * (e >> 1);
+              const int mx = 8 * strip + 2 * tig + (e & 1);
+              if (my >= mr || mx >= mc) continue;
+              const int gy = y0 - r + my;
+              const int gx = x0 - r + mx;
+              const int o = my * MC + mx;
+              if (outside(gy, gx)) {
+#pragma unroll
+                for (int p = 0; p < 4; ++p) wm[p * mid_plane + o] = 0.0f;
+                continue;
+              }
+              store_weights(wm, mid_plane, o, acc[0][e], acc[1][e], acc[2][e],
+                            acc[3][e], coeff_at(gy, gx), wcs, c1, c2);
+            }
+          });
+    });
+  } else {
+    for (int i = tid; i < mr * mc; i += kThreads) {
+      const int my = i / mc;
+      const int mx = i - my * mc;
+      const int gy = y0 - r + my;
+      const int gx = x0 - r + mx;
+      const int o = my * MC + mx;
+      if (outside(gy, gx)) {
+        wm[o] = 0.0f;
+        wm[mid_plane + o] = 0.0f;
+        wm[2 * mid_plane + o] = 0.0f;
+        wm[3 * mid_plane + o] = 0.0f;
+        continue;
+      }
+      const float* c = hp + (my + r) * MC + mx;
+      float m0 = 0.0f, m1 = 0.0f, m2 = 0.0f, m3 = 0.0f;
+      for (int d = r; d >= 1; --d) {
+        const float t = s_t[r - d];
+        const int off = d * MC;
+        m0 += t * (c[-off] + c[off]);
+        m1 += t * (c[hp_plane - off] + c[hp_plane + off]);
+        m2 += t * (c[2 * hp_plane - off] + c[2 * hp_plane + off]);
+        m3 += t * (c[3 * hp_plane - off] + c[3 * hp_plane + off]);
+      }
+      const float tc = s_t[r];
+      const float u = m0 + tc * c[0];
+      const float v = m1 + tc * c[hp_plane];
+      const float ss = m2 + tc * c[2 * hp_plane];
+      const float dd = m3 + tc * c[3 * hp_plane];
+      store_weights(wm, mid_plane, o, u, v, ss, dd, coeff_at(gy, gx), wcs, c1,
+                    c2);
+    }
   }
   __syncthreads();
 
   // Stage 2a: vertical adjoint onto the tile's own rows, at the mid
   // columns. Zeroed out-of-image weights make the plain part the
   // zero-extended symmetric blur; rows 0 and H-1 add the folded clamp mass.
-  for (int i = tid; i < vh * mc; i += kThreads) {
-    const int y = i / mc;
-    const int mx = i - y * mc;
-    const int gy = y0 + y;
+  // vfold: that fold, for tile row y (image row gy) at mid column mx.
+  auto vfold = [&](float acc, const float* plane, int gy, int mx) {
+    if (gy == 0 && edge_top) {  // mid row of image row g is g + r here
+      float corr = 0.0f;
+      for (int g = 0; g < r; ++g) corr += s_cl[g] * plane[(r + g) * MC + mx];
+      acc += corr;
+    }
+    if (gy == H - 1 && edge_bot) {  // row H-1-x at mid row H-1-x-y0+r
+      float corr = 0.0f;
+      for (int x = 0; x < r; ++x) {
+        corr += s_cl[x] * plane[(H - 1 - x - y0 + r) * MC + mx];
+      }
+      acc += corr;
+    }
+    return acc;
+  };
+  if constexpr (kRelaxed) {
+    band_mma::for_jobs(mc, (vh + 15) >> 4, [&](int strip, int t0, int t1) {
+      const int col = min(8 * strip + grp, mc - 1);
+      band_mma::sweep<4, kSplit>(
+          s_t, r, t0, t1,
+          [&](int my, float(&v)[4]) {
+            const float* c = wm + my * MC + col;
 #pragma unroll
-    for (int k = 0; k < 4; ++k) {
-      const float* plane = wm + k * mid_plane;
-      const float* c = plane + (y + r) * MC + mx;
-      float acc = 0.0f;
-      for (int d = r; d >= 1; --d) {
-        acc += s_t[r - d] * (c[-d * MC] + c[d * MC]);
-      }
-      acc = acc + s_t[r] * c[0];
-      if (gy == 0 && edge_top) {  // mid row of image row g is g + r here
-        float corr = 0.0f;
-        for (int g = 0; g < r; ++g) corr += s_cl[g] * plane[(r + g) * MC + mx];
-        acc += corr;
-      }
-      if (gy == H - 1 && edge_bot) {  // row H-1-x at mid row H-1-x-y0+r
-        float corr = 0.0f;
-        for (int x = 0; x < r; ++x) {
-          corr += s_cl[x] * plane[(H - 1 - x - y0 + r) * MC + mx];
+            for (int p = 0; p < 4; ++p) {
+              v[p] = my < mr ? c[p * mid_plane] : 0.0f;
+            }
+          },
+          [&](int ti, const float(&acc)[4][4]) {
+#pragma unroll
+            for (int e = 0; e < 4; ++e) {
+              const int y = 16 * ti + grp + 8 * (e >> 1);
+              const int mx = 8 * strip + 2 * tig + (e & 1);
+              if (y >= vh || mx >= mc) continue;
+#pragma unroll
+              for (int k = 0; k < 4; ++k) {
+                vt[k * vt_plane + y * MC + mx] =
+                    vfold(acc[k][e], wm + k * mid_plane, y0 + y, mx);
+              }
+            }
+          });
+    });
+  } else {
+    for (int i = tid; i < vh * mc; i += kThreads) {
+      const int y = i / mc;
+      const int mx = i - y * mc;
+#pragma unroll
+      for (int k = 0; k < 4; ++k) {
+        const float* plane = wm + k * mid_plane;
+        const float* c = plane + (y + r) * MC + mx;
+        float acc = 0.0f;
+        for (int d = r; d >= 1; --d) {
+          acc += s_t[r - d] * (c[-d * MC] + c[d * MC]);
         }
-        acc += corr;
+        acc = acc + s_t[r] * c[0];
+        vt[k * vt_plane + y * MC + mx] = vfold(acc, plane, y0 + y, mx);
       }
-      vt[k * vt_plane + y * MC + mx] = acc;
     }
   }
   __syncthreads();
 
   // Stage 2b: horizontal adjoint onto the tile's own columns, with the
-  // fold at columns 0 and W-1, then da/db.
-  for (int i = tid; i < vh * vw; i += kThreads) {
-    const int y = i / vw;
-    const int x = i - y * vw;
+  // fold at columns 0 and W-1 (hfold, for tile column x of a row of vt),
+  // then da/db (store_grads).
+  auto hfold = [&](float acc, const float* row, int x) {
     const int gx = x0 + x;
-    float g4[4];
-#pragma unroll
-    for (int k = 0; k < 4; ++k) {
-      const float* row = vt + k * vt_plane + y * MC;
-      const float* c = row + x + r;
-      float acc = 0.0f;
-      for (int d = r; d >= 1; --d) acc += s_t[r - d] * (c[-d] + c[d]);
-      acc = acc + s_t[r] * c[0];
-      if (gx == 0) {
-        float corr = 0.0f;
-        for (int g = 0; g < r; ++g) corr += s_cl[g] * row[r + g];
-        acc += corr;
-      }
-      if (gx == W - 1) {
-        float corr = 0.0f;
-        for (int q = 0; q < r; ++q) corr += s_cl[q] * row[W - 1 - q - x0 + r];
-        acc += corr;
-      }
-      g4[k] = acc;
+    if (gx == 0) {
+      float corr = 0.0f;
+      for (int g = 0; g < r; ++g) corr += s_cl[g] * row[r + g];
+      acc += corr;
     }
-    const size_t p = base + (size_t)(y0 + y) * (size_t)W + (size_t)gx;
+    if (gx == W - 1) {
+      float corr = 0.0f;
+      for (int q = 0; q < r; ++q) corr += s_cl[q] * row[W - 1 - q - x0 + r];
+      acc += corr;
+    }
+    return acc;
+  };
+  auto store_grads = [&](const float (&g4)[4], int y, int x) {
+    const size_t p = base + (size_t)(y0 + y) * (size_t)W + (size_t)(x0 + x);
     const float av = sanitize(a[p], clip_bound);
     const float bv = sanitize(b[p], clip_bound);
     const float s = av + bv;
@@ -358,10 +488,54 @@ ssim_bwd_kernel(const float* __restrict__ a, const float* __restrict__ b,
     }
     da[p] = ga;
     db[p] = gb;
+  };
+  if constexpr (kRelaxed) {
+    band_mma::for_jobs(vh, (vw + 15) >> 4, [&](int strip, int t0, int t1) {
+      const int row = min(8 * strip + grp, vh - 1) * MC;
+      band_mma::sweep<4, kSplit>(
+          s_t, r, t0, t1,
+          [&](int c, float(&v)[4]) {
+            const float* src = vt + row + c;
+#pragma unroll
+            for (int p = 0; p < 4; ++p) {
+              v[p] = c < mc ? src[p * vt_plane] : 0.0f;
+            }
+          },
+          [&](int ti, const float(&acc)[4][4]) {
+#pragma unroll
+            for (int e = 0; e < 4; ++e) {
+              const int x = 16 * ti + grp + 8 * (e >> 1);
+              const int y = 8 * strip + 2 * tig + (e & 1);
+              if (y >= vh || x >= vw) continue;
+              float g4[4];
+#pragma unroll
+              for (int k = 0; k < 4; ++k) {
+                g4[k] = hfold(acc[k][e], vt + k * vt_plane + y * MC, x);
+              }
+              store_grads(g4, y, x);
+            }
+          });
+    });
+  } else {
+    for (int i = tid; i < vh * vw; i += kThreads) {
+      const int y = i / vw;
+      const int x = i - y * vw;
+      float g4[4];
+#pragma unroll
+      for (int k = 0; k < 4; ++k) {
+        const float* row = vt + k * vt_plane + y * MC;
+        const float* c = row + x + r;
+        float acc = 0.0f;
+        for (int d = r; d >= 1; --d) acc += s_t[r - d] * (c[-d] + c[d]);
+        acc = acc + s_t[r] * c[0];
+        g4[k] = hfold(acc, row, x);
+      }
+      store_grads(g4, y, x);
+    }
   }
 }
 
-template <bool kGmap>
+template <bool kGmap, int kSplit>
 cudaError_t launch(const float* a, const float* b, const float* w_s,
                    const float* w_cs, const float* gmap, float* da, float* db,
                    const Halo& halo, int B, int H, int W, int r, int TH, int TW,
@@ -381,10 +555,10 @@ cudaError_t launch(const float* a, const float* b, const float* w_s,
   const size_t smem = sizeof(float) * ((size_t)region_x_floats(TH, TW, r) +
                                        (size_t)region_y_floats(TH, TW, r));
   cudaError_t err = cudaFuncSetAttribute(
-      ssim_bwd_kernel<kGmap>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
+      ssim_bwd_kernel<kGmap, kSplit>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
-  ssim_bwd_kernel<kGmap><<<(unsigned)blocks, kThreads, smem, stream>>>(
+  ssim_bwd_kernel<kGmap, kSplit><<<(unsigned)blocks, kThreads, smem, stream>>>(
       a, b, w_s, w_cs, gmap, da, db, halo, H, W, r, TH, TW, ntx,
       tiles_per_image, co, c1, c2, clip_bound);
   return cudaGetLastError();
@@ -392,13 +566,15 @@ cudaError_t launch(const float* a, const float* b, const float* w_s,
 
 }  // namespace
 
-// C entry for ctypes. a, b, da, db: (B, H, W) f32; w_s, w_cs: (B,) f32 on the
-// device; gmap: (B, H, W) f32 or NULL. a_top, a_bot, b_top, b_bot: the halo
-// operands, (B, 2r, W) f32, all four or none, never with gmap; is_top,
-// is_bot: their flags (0 or 1). taps_host: 2r+1 floats and fold_host: r
-// floats, in host memory. Returns the launch's cudaError_t.
-extern "C" int ssim_bwd_launch(const void* a, const void* b, const void* w_s,
-                               const void* w_cs, const void* gmap, void* da,
+// C entry for ctypes. relaxed: 1 for the relaxed mode, else 0. a, b, da,
+// db: (B, H, W) f32; w_s, w_cs: (B,) f32 on the device; gmap: (B, H, W)
+// f32 or NULL. a_top, a_bot, b_top, b_bot: the halo operands, (B, 2r, W)
+// f32, all four or none, never with gmap; is_top, is_bot: their flags (0
+// or 1). taps_host: 2r+1 floats and fold_host: r floats, in host memory.
+// Returns the launch's cudaError_t.
+extern "C" int ssim_bwd_launch(int relaxed, const void* a, const void* b,
+                               const void* w_s, const void* w_cs,
+                               const void* gmap, void* da,
                                void* db, const void* a_top, const void* a_bot,
                                const void* b_top, const void* b_bot,
                                int is_top, int is_bot, int B, int H, int W,
@@ -422,10 +598,18 @@ extern "C" int ssim_bwd_launch(const void* a, const void* b, const void* w_s,
   if (n_halo != 0 && (n_halo != 4 || fg != nullptr)) {
     return cudaErrorInvalidValue;
   }
+#define SSIM_BWD_LAUNCH(G, S)                                                 \
+  return launch<G, S>(fa, fb, fws, fwcs, fg, fda, fdb, halo, B, H, W, r, TH, \
+                      TW, taps_host, fold_host, c1, c2, clip_bound, s)
+  if (r < 1 || r > kMaxRadius) return cudaErrorInvalidValue;
+  const int split = relaxed ? band_mma::ksteps(r) : 0;
   if (fg) {
-    return launch<true>(fa, fb, fws, fwcs, fg, fda, fdb, halo, B, H, W, r, TH,
-                        TW, taps_host, fold_host, c1, c2, clip_bound, s);
+    if (split == 2) SSIM_BWD_LAUNCH(true, 2);
+    if (split == 3) SSIM_BWD_LAUNCH(true, 3);
+    SSIM_BWD_LAUNCH(true, 0);
   }
-  return launch<false>(fa, fb, fws, fwcs, fg, fda, fdb, halo, B, H, W, r, TH,
-                       TW, taps_host, fold_host, c1, c2, clip_bound, s);
+  if (split == 2) SSIM_BWD_LAUNCH(false, 2);
+  if (split == 3) SSIM_BWD_LAUNCH(false, 3);
+  SSIM_BWD_LAUNCH(false, 0);
+#undef SSIM_BWD_LAUNCH
 }

@@ -1,16 +1,17 @@
 // Fused SSIM forward for NVIDIA Hopper (sm_90a): the standard f32 tier,
-// the precise (fp64) tier, the MS-SSIM components modes, one score per
-// image for batches of small images, and per-row sums of a row band with
-// halo operands for spatial sharding.
+// the precise (fp64) tier, the relaxed tier, the MS-SSIM components modes,
+// one score per image for batches of small images, and per-row sums of a
+// row band with halo operands for spatial sharding.
 //
 // Replaces the two TPU forward kernels of the JAX package:
 // ssim_tpu/ops/ssim_pallas.py::_nopad_overlap_call (:710; full-width row
 // tiles, widths up to 16384 lanes) in its modes a (standard, with or
 // without the map), b (precise), c (components), d (pool_out, u8 and
 // f32), e (colsum + pchunk, as ssim_parts_pallas_bpacked drives it,
-// :2334), f (rowsum) and g (vhalo / vmask halo operands), and
-// ::_chunked_overlap_call (:1364; the same over lane chunks for wider
-// images) in its standard, map, precise, components and rowsum modes. That
+// :2334), f (rowsum), g (vhalo / vmask halo operands) and h (relaxed,
+// lane_mode "mxu3x", :118, :168, :288), and ::_chunked_overlap_call
+// (:1364; the same over lane chunks for wider images) in its standard,
+// map, precise, components, rowsum and relaxed (:1409) modes. That
 // split exists only for TPU lane widths and VMEM; here one 2-D grid of
 // output tiles covers every width, so K2's modes need no kernel of their
 // own. Mode e also serves the contract of tools/probe_bpack.py::bpack_parts
@@ -78,6 +79,28 @@
 //   rounds to f32 and adds W in f32 (the JAX contract, rows + w). No
 //   atomics: the row sums are deterministic. The TPU writes per-row sums
 //   of one full-width tile; the map is never summed (F2).
+// - Relaxed (kSplit > 0: accuracy="relaxed", K1h and K2's relaxed mode;
+//   instantiated for kScore, kMap, kComponents, kPooled and kBatch, the
+//   modes the JAX package runs relaxed): the two heavy horizontal blurs,
+//   of (a+b)^2 and (a-b)^2, run as bf16x3 band products on the tensor
+//   cores (band_mma.cuh; kSplit = its k-steps at this radius); the mu
+//   blurs, the vertical pass, the formula, the NaN poison and the partials
+//   are the standard modes'. The wrapper launches it at W >= 512 (and
+//   always on the batch route), the JAX gate. The TPU's per-chunk
+//   clamp-folded tap matrices (packed_chunk_matrices) are lane machinery:
+//   the halo tile already holds the clamped columns, so one band serves
+//   every tile. What bounds it: per pixel the standard modes' f32 work
+//   less the heavy passes' 6r + 4 operations, plus 3 (2r + 1)
+//   multiply-adds per split blur at the bf16 tensor-core rate (counted in
+//   chip_smoke.py); in practice, as in the standard modes, the blurs'
+//   shared-memory traffic and instruction slots. The design adds no shared
+//   memory (the split is made in registers as each k-step of data is
+//   loaded, once per sweep, which keeps the standard modes' three blocks
+//   per SM) and keeps every relaxed line behind `if constexpr`, so the
+//   standard instantiations compile as before. The relaxed mu pass loads
+//   as many shared-memory values as the standard modes' four-signal pass,
+//   so the relaxed modes read a few percent slower than the standard ones
+//   (PERF.md): making the mu pass load less is later work.
 // - Halo operands (K1g, ssim_pallas.py:884-958; the row modes take them,
 //   the modes JAX offers them to; the other modes compile without them):
 //   the inputs are a row band of a taller image, and virtual rows [-r, 0)
@@ -134,6 +157,8 @@
 
 #include <type_traits>
 
+#include "band_mma.cuh"
+
 namespace {
 
 constexpr int kThreads = 256;
@@ -184,7 +209,7 @@ __device__ __forceinline__ float sanitize(float v, float bound) {
   return fminf(fmaxf(v, -bound), bound);
 }
 
-template <typename T, int kMode>
+template <typename T, int kMode, int kSplit>
 __global__ void __launch_bounds__(kThreads)
 ssim_fwd_kernel(const T* __restrict__ a, const T* __restrict__ b,
                 void* __restrict__ partials, float* __restrict__ map,
@@ -201,6 +226,8 @@ ssim_fwd_kernel(const T* __restrict__ a, const T* __restrict__ b,
       kMode == kMap || kMode == kPreciseMap || kMode == kRowsumMap;
   constexpr bool kBatchMode = kMode == kBatch || kMode == kBatchPrecise;
   constexpr bool kRows = kMode == kRowsum || kMode == kRowsumMap;
+  // The relaxed modes: kSplit = band_mma::ksteps(r), 0 in the others.
+  constexpr bool kRelaxed = kSplit > 0;
   // The tile sums' type: double in the precise modes, else float.
   using Acc = typename std::conditional<kPrec, double, float>::type;
   extern __shared__ float smem[];
@@ -299,30 +326,81 @@ ssim_fwd_kernel(const T* __restrict__ a, const T* __restrict__ b,
     }
     bad = __syncthreads_or(bad);
 
-    // Horizontal pass over every halo row: four signals, symmetric pairs,
-    // smallest taps first.
-    for (int ly = ty; ly < vh + 2 * r; ly += ystep) {
-      for (int lx = tx; lx < vw; lx += TW) {
-        const float* ra = sa + ly * HW + lx + r;
-        const float* rb = sb + ly * HW + lx + r;
-        float ma = 0.0f, mb = 0.0f, ss = 0.0f, dd = 0.0f;
-        for (int d = r; d >= 1; --d) {
-          const float t = s_taps[r - d];
-          const float al = ra[-d], ah = ra[d], bl = rb[-d], bh = rb[d];
-          const float sl = al + bl, sh = ah + bh, dl = al - bl, dh = ah - bh;
-          ma += t * (al + ah);
-          mb += t * (bl + bh);
-          ss += t * (sl * sl + sh * sh);
-          dd += t * (dl * dl + dh * dh);
+    if constexpr (kRelaxed) {
+      // The mu blurs as in the standard modes; the heavy (a+b)^2 and
+      // (a-b)^2 blurs as bf16x3 band products on the tensor cores
+      // (band_mma::sweep, both planes at once).
+      for (int ly = ty; ly < vh + 2 * r; ly += ystep) {
+        for (int lx = tx; lx < vw; lx += TW) {
+          const float* ra = sa + ly * HW + lx + r;
+          const float* rb = sb + ly * HW + lx + r;
+          float ma = 0.0f, mb = 0.0f;
+          for (int d = r; d >= 1; --d) {
+            const float t = s_taps[r - d];
+            ma += t * (ra[-d] + ra[d]);
+            mb += t * (rb[-d] + rb[d]);
+          }
+          const float tc = s_taps[r];
+          const int o = ly * TW + lx;
+          hp[o] = ma + tc * ra[0];
+          hp[plane + o] = mb + tc * rb[0];
         }
-        const float tc = s_taps[r];
-        const float ac = ra[0], bc = rb[0];
-        const float sc = ac + bc, dc = ac - bc;
-        const int o = ly * TW + lx;
-        hp[o] = ma + tc * ac;
-        hp[plane + o] = mb + tc * bc;
-        hp[2 * plane + o] = ss + tc * (sc * sc);
-        hp[3 * plane + o] = dd + tc * (dc * dc);
+      }
+      // Columns along the pass, halo rows across it in strips of 8.
+      const int nrows = vh + 2 * r, ncols = vw + 2 * r;
+      const int grp = (tid & 31) >> 2, tig = tid & 3;  // lane = 4 grp + tig
+      band_mma::for_jobs(nrows, (vw + 15) >> 4, [&](int strip, int t0, int t1) {
+        const int row = min(8 * strip + grp, nrows - 1) * HW;
+        band_mma::sweep<2, kSplit>(
+            s_taps, r, t0, t1,
+            [&](int c, float(&v)[2]) {
+              float x = 0.0f, y = 0.0f;
+              if (c < ncols) {
+                x = sa[row + c];
+                y = sb[row + c];
+              }
+              const float s = x + y, d = x - y;
+              v[0] = s * s;
+              v[1] = d * d;
+            },
+            [&](int ti, const float(&acc)[2][4]) {
+#pragma unroll
+              for (int e = 0; e < 4; ++e) {
+                const int lx = 16 * ti + grp + 8 * (e >> 1);
+                const int ly = 8 * strip + 2 * tig + (e & 1);
+                if (ly < nrows && lx < vw) {
+                  hp[2 * plane + ly * TW + lx] = acc[0][e];
+                  hp[3 * plane + ly * TW + lx] = acc[1][e];
+                }
+              }
+            });
+      });
+    } else {
+      // Horizontal pass over every halo row: four signals, symmetric pairs,
+      // smallest taps first.
+      for (int ly = ty; ly < vh + 2 * r; ly += ystep) {
+        for (int lx = tx; lx < vw; lx += TW) {
+          const float* ra = sa + ly * HW + lx + r;
+          const float* rb = sb + ly * HW + lx + r;
+          float ma = 0.0f, mb = 0.0f, ss = 0.0f, dd = 0.0f;
+          for (int d = r; d >= 1; --d) {
+            const float t = s_taps[r - d];
+            const float al = ra[-d], ah = ra[d], bl = rb[-d], bh = rb[d];
+            const float sl = al + bl, sh = ah + bh, dl = al - bl, dh = ah - bh;
+            ma += t * (al + ah);
+            mb += t * (bl + bh);
+            ss += t * (sl * sl + sh * sh);
+            dd += t * (dl * dl + dh * dh);
+          }
+          const float tc = s_taps[r];
+          const float ac = ra[0], bc = rb[0];
+          const float sc = ac + bc, dc = ac - bc;
+          const int o = ly * TW + lx;
+          hp[o] = ma + tc * ac;
+          hp[plane + o] = mb + tc * bc;
+          hp[2 * plane + o] = ss + tc * (sc * sc);
+          hp[3 * plane + o] = dd + tc * (dc * dc);
+        }
       }
     }
     __syncthreads();
@@ -516,7 +594,7 @@ __global__ void rowsum_reduce_kernel(const float* __restrict__ pieces,
   rows[i] = (float)s + w;
 }
 
-template <typename T, int kMode>
+template <typename T, int kMode, int kSplit>
 cudaError_t launch(const void* a, const void* b, void* partials, void* map,
                    void* pool_a, void* pool_b, void* scratch,
                    const Halo<T>& halo, int B, int H, int W, int r, int TH,
@@ -542,10 +620,10 @@ cudaError_t launch(const void* a, const void* b, void* partials, void* map,
       sizeof(float) * ((size_t)2 * (TH + 2 * r) * (TW + 2 * r) +
                        (size_t)4 * (TH + 2 * r) * TW);
   cudaError_t err = cudaFuncSetAttribute(
-      ssim_fwd_kernel<T, kMode>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
+      ssim_fwd_kernel<T, kMode, kSplit>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
-  ssim_fwd_kernel<T, kMode><<<(unsigned)blocks, kThreads, smem, stream>>>(
+  ssim_fwd_kernel<T, kMode, kSplit><<<(unsigned)blocks, kThreads, smem, stream>>>(
       static_cast<const T*>(a), static_cast<const T*>(b), partials,
       static_cast<float*>(map), static_cast<float*>(pool_a),
       static_cast<float*>(pool_b), scratch, halo, B, H, W, r, TH, TW, ntx,
@@ -577,7 +655,7 @@ Halo<T> make_halo(const void* const* halo, int is_top, int is_bot) {
                  is_top, is_bot};
 }
 
-template <int kMode>
+template <int kMode, int kSplit>
 cudaError_t launch_typed(int is_float, const void* a, const void* b,
                          void* partials, void* map, void* pool_a,
                          void* pool_b, void* scratch, const void* const* halo,
@@ -587,12 +665,12 @@ cudaError_t launch_typed(int is_float, const void* a, const void* b,
                          float clip_bound, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   return is_float
-             ? launch<float, kMode>(a, b, partials, map, pool_a, pool_b,
+             ? launch<float, kMode, kSplit>(a, b, partials, map, pool_a, pool_b,
                                     scratch,
                                     make_halo<float>(halo, is_top, is_bot), B,
                                     H, W, r, TH, TW, ipb, groups, taps_host,
                                     c1, c2, clip_bound, s)
-             : launch<uint8_t, kMode>(a, b, partials, map, pool_a, pool_b,
+             : launch<uint8_t, kMode, kSplit>(a, b, partials, map, pool_a, pool_b,
                                       scratch,
                                       make_halo<uint8_t>(halo, is_top, is_bot),
                                       B, H, W, r, TH, TW, ipb, groups,
@@ -604,7 +682,9 @@ cudaError_t launch_typed(int is_float, const void* a, const void* b,
 // The C entry for ctypes. mode: 0 = kScore, 1 = kMap, 2 = kComponents,
 // 3 = kPooled, 4 = kPrecise, 5 = kPreciseMap, 6 = kBatch, 7 =
 // kBatchPrecise, 8 = kRowsum, 9 = kRowsumMap; any other value is refused
-// (the precise tier has no components or pooled mode). is_float: 0 = uint8
+// (the precise tier has no components or pooled mode). relaxed: 1 for the
+// relaxed instantiation of modes 0, 1, 2, 3 and 6 (refused with the
+// others), else 0. is_float: 0 = uint8
 // inputs, 1 = float32 inputs. partials: (B, ceil(H/TH) * ceil(W/TW)) f32
 // in the tile modes, with a trailing 2 of [cs, ssim] in the components
 // modes, and f64 in the precise modes; (B, 2) [sum(ssim - 1), H*W] in the
@@ -621,8 +701,9 @@ cudaError_t launch_typed(int is_float, const void* a, const void* b,
 // their flags (0 or 1). taps_host: 2r+1 floats in host memory. c1, c2:
 // the stabilising constants (rounded to float by the f32 modes). Returns
 // the launch's cudaError_t.
-extern "C" int ssim_fwd_launch(int mode, int is_float, const void* a,
-                               const void* b, void* partials, void* map,
+extern "C" int ssim_fwd_launch(int mode, int relaxed, int is_float,
+                               const void* a, const void* b, void* partials,
+                               void* map,
                                void* pool_a, void* pool_b, void* scratch,
                                const void* a_top, const void* a_bot,
                                const void* b_top, const void* b_bot,
@@ -646,23 +727,37 @@ extern "C" int ssim_fwd_launch(int mode, int is_float, const void* a,
       (n_halo != 0 && (n_halo != 4 || !rows))) {
     return cudaErrorInvalidValue;
   }
-#define SSIM_FWD_CASE(M)                                                    \
+#define SSIM_FWD_CASE(M, S)                                                 \
   case M:                                                                  \
-    return launch_typed<M>(is_float, a, b, partials, map, pool_a, pool_b, \
-                           scratch, halo, is_top, is_bot, B, H, W, r, TH,  \
-                           TW, ipb, groups, taps_host, c1, c2, clip_bound, \
-                           stream);
+    return launch_typed<M, S>(is_float, a, b, partials, map, pool_a,      \
+                              pool_b, scratch, halo, is_top, is_bot, B, H, \
+                              W, r, TH, TW, ipb, groups, taps_host, c1,    \
+                              c2, clip_bound, stream);
+#define SSIM_FWD_RELAXED(S)               \
+  switch (mode) {                         \
+    SSIM_FWD_CASE(kScore, S)              \
+    SSIM_FWD_CASE(kMap, S)                \
+    SSIM_FWD_CASE(kComponents, S)         \
+    SSIM_FWD_CASE(kPooled, S)             \
+    SSIM_FWD_CASE(kBatch, S)              \
+    default:                              \
+      return cudaErrorInvalidValue;       \
+  }
+  if (relaxed && (r < 1 || r > kMaxTaps / 2)) return cudaErrorInvalidValue;
+  if (relaxed && band_mma::ksteps(r) == 2) SSIM_FWD_RELAXED(2)
+  if (relaxed) SSIM_FWD_RELAXED(3)
+#undef SSIM_FWD_RELAXED
   switch (mode) {
-    SSIM_FWD_CASE(kScore)
-    SSIM_FWD_CASE(kMap)
-    SSIM_FWD_CASE(kComponents)
-    SSIM_FWD_CASE(kPooled)
-    SSIM_FWD_CASE(kPrecise)
-    SSIM_FWD_CASE(kPreciseMap)
-    SSIM_FWD_CASE(kBatch)
-    SSIM_FWD_CASE(kBatchPrecise)
-    SSIM_FWD_CASE(kRowsum)
-    SSIM_FWD_CASE(kRowsumMap)
+    SSIM_FWD_CASE(kScore, 0)
+    SSIM_FWD_CASE(kMap, 0)
+    SSIM_FWD_CASE(kComponents, 0)
+    SSIM_FWD_CASE(kPooled, 0)
+    SSIM_FWD_CASE(kPrecise, 0)
+    SSIM_FWD_CASE(kPreciseMap, 0)
+    SSIM_FWD_CASE(kBatch, 0)
+    SSIM_FWD_CASE(kBatchPrecise, 0)
+    SSIM_FWD_CASE(kRowsum, 0)
+    SSIM_FWD_CASE(kRowsumMap, 0)
     default:
       return cudaErrorInvalidValue;
   }

@@ -25,8 +25,9 @@ What differs from the JAX engine:
 - The tile settings (`Config.max_tile_h/_w`) pin the kernel's tile after
   `ops.ssim_cuda.fit_tile` brings them into the range it takes; a
   setting below 1 raises InvalidArgumentError.
-- Interim: `accuracy="relaxed"` is validated but computes the standard
-  tier.
+- `accuracy="relaxed"` reaches the kernel as the JAX engine passes it
+  (ssim_tpu/engine.py:359): its relaxed modes at W >= 512 and on the
+  batch route; the plain path computes the standard tier.
 """
 
 from typing import Optional, Tuple
@@ -236,8 +237,8 @@ def compute(
     a, b: (H, W) or (B, H, W). precision: "f32" or "f64" (the
     reference's RMGR_SSIM_USE_DOUBLE build: the kernel's fp64 mode, or
     the f64 oracle for the inputs listed in the module docstring).
-    accuracy: "standard" or "relaxed" (interim: both compute the standard
-    tier). downsample: None, "auto" or an int k >= 1 (k x k box-mean
+    accuracy: "standard" or "relaxed" (the kernel's bf16x3 tensor-core
+    blurs at W >= 512 and on the batch route; standard elsewhere). downsample: None, "auto" or an int k >= 1 (k x k box-mean
     prefilter, on the compute device; with precision="f64" on the
     kernel's route too, in f32 before the fp64 formula, as the JAX
     engine pools; the oracle pools on the host in f64).
@@ -323,7 +324,7 @@ def compute(
                 cfg.max_tile_h, cfg.max_tile_w, radius)
         partials, ssim_map = ssim_parts_auto(
             a, b, with_map=with_map, data_range=data_range, precise=precise,
-            **window, **tile_kwargs,
+            relaxed=relaxed, **window, **tile_kwargs,
         )
     else:
         from .ops.ssim_torch import ssim_parts_torch

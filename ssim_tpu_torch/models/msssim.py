@@ -21,6 +21,8 @@ Two pyramids, routed as the JAX package routes them:
   every scale through `_CsSsimSums`, whose backward is the fused backward
   kernel (w_s + w_cs), with `downsample2` between scales as a plain
   differentiable op (XLA's reduce_window in the JAX package);
+  accuracy="relaxed" passes to every kernel, forward and backward, whose
+  gates apply it at the scales with W >= 512 (JAX msssim.py:73-148);
 - the plain pyramid `_ms_torch_forward` (every other impl, dtype or mixed
   pair), differentiated by autograd.
 
@@ -86,11 +88,11 @@ class _CsSsimSums(torch.autograd.Function):
     [..., 0] is w_cs, its [..., 1] w_s."""
 
     @staticmethod
-    def forward(ctx, xa, xb, data_range, window):
+    def forward(ctx, xa, xb, data_range, window, relaxed):
         parts = ssim_cuda.ssim_components_cuda(xa, xb, data_range=data_range,
-                                               **window)
+                                               relaxed=relaxed, **window)
         ctx.save_for_backward(xa, xb)
-        ctx.data_range, ctx.window = data_range, window
+        ctx.data_range, ctx.window, ctx.relaxed = data_range, window, relaxed
         return parts.to(torch.float64).sum(-2)
 
     @staticmethod
@@ -98,15 +100,16 @@ class _CsSsimSums(torch.autograd.Function):
         xa, xb = ctx.saved_tensors
         da, db = ssim_grad.ssim_grad_cuda(
             xa, xb, g[..., 1], g[..., 0], data_range=ctx.data_range,
-            **ctx.window,
+            relaxed=ctx.relaxed, **ctx.window,
         )
         return (da if ctx.needs_input_grad[0] else None,
-                db if ctx.needs_input_grad[1] else None, None, None)
+                db if ctx.needs_input_grad[1] else None, None, None, None)
 
 
-def _ms_cuda_forward(a, b, data_range, weights, window):
+def _ms_cuda_forward(a, b, data_range, weights, window, relaxed=False):
     """The kernels' pyramid (counterpart of _ms_pallas_forward) on a
-    uint8 or float32 pair; returns f32 (...)."""
+    uint8 or float32 pair; returns f32 (...). relaxed: the kernels'
+    relaxed tier at every scale (each kernel's gate decides)."""
     levels = len(weights)
     diff = a.dtype == torch.float32
     x_a, x_b = a.contiguous(), b.contiguous()
@@ -115,14 +118,14 @@ def _ms_cuda_forward(a, b, data_range, weights, window):
         n = x_a.shape[-2] * x_a.shape[-1]
         last = lvl == levels - 1
         if diff:
-            sums = _CsSsimSums.apply(x_a, x_b, data_range, window)
+            sums = _CsSsimSums.apply(x_a, x_b, data_range, window, relaxed)
         elif last:
             sums = ssim_cuda.ssim_components_cuda(
-                x_a, x_b, data_range=data_range, **window,
+                x_a, x_b, data_range=data_range, relaxed=relaxed, **window,
             ).to(torch.float64).sum(-2)
         else:
             parts, pool_a, pool_b = ssim_cuda.ssim_components_pooled_cuda(
-                x_a, x_b, data_range=data_range, **window,
+                x_a, x_b, data_range=data_range, relaxed=relaxed, **window,
             )
             sums = parts.to(torch.float64).sum(-2)
         term = _term(sums[..., 1 if last else 0] / n, w)
@@ -183,11 +186,12 @@ def ms_ssim(
     the fused backward kernel at every scale; the plain pyramid is
     differentiated by autograd. impl: "auto" or "cuda" (the kernels),
     "torch" (the plain pyramid). accuracy: "standard" or "relaxed" (the
-    relaxed tier computes the standard one until it is ported).
+    kernels' bf16x3 tensor-core blurs at the scales with W >= 512; the
+    plain pyramid computes the standard tier).
     sigma/k1/k2: custom window spread and constants at every scale (the
     radius stays 5). device: see engine.resolve_device.
     """
-    engine.accuracy_is_relaxed(accuracy)
+    relaxed = engine.accuracy_is_relaxed(accuracy)
     if not isinstance(a, torch.Tensor):
         a = np.asarray(a)
     if not isinstance(b, torch.Tensor):
@@ -202,7 +206,7 @@ def ms_ssim(
     b = engine._as_tensor(b, dev)
     if resolved == Implementation.CUDA and _kernel_eligible(a, b):
         window = dict(radius=RADIUS, sigma=sigma, k1=k1, k2=k2)
-        return _ms_cuda_forward(a, b, data_range, weights, window)
+        return _ms_cuda_forward(a, b, data_range, weights, window, relaxed)
     return _ms_torch_forward(a, b, data_range, weights, sigma, k1, k2)
 
 

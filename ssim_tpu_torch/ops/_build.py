@@ -3,7 +3,8 @@ library, bound with ctypes).
 
 No counterpart in the JAX package: there Mosaic compiles the Pallas
 kernels at trace time. Here `nvcc` compiles `ssim_tpu_torch/csrc/*.cu`
-for `sm_90a` at first use, one process per source, all started together,
+(which include the shared `*.cuh` headers) for `sm_90a` at first use, one
+process per `.cu` file, all started together,
 and links them into one library in `ssim_tpu_torch/_build/`, keyed by a
 hash of the sources and flags, so an edited source is rebuilt and an
 unchanged one is loaded as it is. Nothing runs at import time: this
@@ -39,11 +40,19 @@ _lib = None
 
 
 def sources():
-    """The kernel sources, sorted, as absolute paths."""
+    """The kernel sources, sorted, as absolute paths: the translation
+    units (`.cu`) and the headers they include (`.cuh`). All are hashed
+    into the library's name, so an edited header rebuilds."""
     return sorted(
         os.path.join(CSRC_DIR, f) for f in os.listdir(CSRC_DIR)
         if f.endswith((".cu", ".cuh"))
     )
+
+
+def translation_units():
+    """The sources nvcc compiles, one object each: the `.cu` files only (a
+    header is compiled as part of each file that includes it)."""
+    return [src for src in sources() if src.endswith(".cu")]
 
 
 def find_nvcc() -> str:
@@ -104,10 +113,11 @@ def build() -> str:
     # Objects go to a private directory and the library is linked there
     # and renamed: concurrent builds never load a half-written library.
     with tempfile.TemporaryDirectory(dir=BUILD_DIR) as work:
+        units = translation_units()
         objs = [os.path.join(work, os.path.basename(src) + ".o")
-                for src in sources()]
+                for src in units]
         log = _run_all([[nvcc, *NVCC_FLAGS, "-c", "-o", obj, src]
-                        for src, obj in zip(sources(), objs)])
+                        for src, obj in zip(units, objs)])
         tmp = os.path.join(work, "lib.so")
         log += _run_all([[nvcc, *ARCH_FLAGS, "-shared", "-o", tmp, *objs]])
         with open(out + ".log", "w") as f:
@@ -128,16 +138,16 @@ def load_library() -> ctypes.CDLL:
             # partials is untyped: f32 in the standard, components,
             # batch and row modes, f64 in the precise modes. c1 and c2
             # are doubles, so the precise formula sees them unrounded.
-            # Both entries take four halo-operand pointers (NULL without
-            # them) and the is_top / is_bot flags.
+            # Both entries take the relaxed flag, four halo-operand
+            # pointers (NULL without them) and the is_top / is_bot flags.
             lib.ssim_fwd_launch.argtypes = [
-                i, i, p, p, p, p, p, p, p, p, p, p, p, i, i, i, i, i, i, i,
-                i, i, i, p, d, d, f, p,
+                i, i, i, p, p, p, p, p, p, p, p, p, p, p, i, i, i, i, i, i,
+                i, i, i, i, p, d, d, f, p,
             ]
             lib.ssim_fwd_launch.restype = i
             lib.ssim_bwd_launch.argtypes = [
-                p, p, p, p, p, p, p, p, p, p, p, i, i, i, i, i, i, i, i, p,
-                p, f, f, f, p,
+                i, p, p, p, p, p, p, p, p, p, p, p, i, i, i, i, i, i, i, i,
+                p, p, f, f, f, p,
             ]
             lib.ssim_bwd_launch.restype = i
             _lib = lib

@@ -9,6 +9,12 @@ Counterpart of `ssim_tpu/ops/routing.py`, with the same policy:
 - radius > MAX_FUSED_RADIUS and everything else (mixed dtypes, other
   integers): `ssim_parts_torch`.
 
+`relaxed=True` (the relaxed tier, accuracy="relaxed") passes to the
+kernel on both of its routes, whose wrappers apply it at W >= 512 on the
+tile grid and always on the batch route (ssim_tpu/ops/routing.py:43-55);
+`ssim_parts_torch` computes the standard tier regardless, as the JAX
+package's XLA fallback does.
+
 `precise=True` (the precise tier) passes to the kernel's fp64 modes on
 both kernel routes. It never runs `ssim_parts_torch`, whose formula is
 f32: with a radius over MAX_FUSED_RADIUS, a pair the kernel does not
@@ -93,6 +99,7 @@ def ssim_parts_auto(
     with_map: bool = False,
     data_range: float = 255.0,
     precise: bool = False,
+    relaxed: bool = False,
     radius: int = 5,
     sigma: float = 1.5,
     k1: float = 0.01,
@@ -103,7 +110,8 @@ def ssim_parts_auto(
     of the kernel's routes, the batch modes ((B, 2) partials per image, no
     map) where batch_routable, else the tile grid. precise: the kernel's
     precise tier (f64 partials); raises where the kernel cannot serve it.
-    tile_kwargs (tile_h, tile_w) pin the tile grid's tile."""
+    relaxed: the kernel's relaxed tier (an accuracy hint; the plain path
+    ignores it). tile_kwargs (tile_h, tile_w) pin the tile grid's tile."""
     window = dict(radius=radius, sigma=sigma, k1=k1, k2=k2)
     gate = dict(with_map=with_map, data_range=data_range,
                 tile_kwargs=tile_kwargs)
@@ -122,22 +130,23 @@ def ssim_parts_auto(
         a, b = a.contiguous(), b.contiguous()
         if batch_routable(a.shape, itemsize=1, **gate):
             return ssim_parts_batch_cuda(
-                a, b, data_range=data_range, precise=precise, **window,
+                a, b, data_range=data_range, precise=precise, relaxed=relaxed,
+                **window,
             ), None
         return ssim_parts_cuda(
             a, b, with_map=with_map, data_range=data_range, precise=precise,
-            **window, **tile_kwargs,
+            relaxed=relaxed, **window, **tile_kwargs,
         )
     af = a.to(torch.float32).contiguous()
     bf = b.to(torch.float32).contiguous()
     if batch_routable(af.shape, itemsize=4, **gate):
         return ssim_parts_batch_cuda(
             af, bf, data_range=data_range, allow_float=True, precise=precise,
-            **window,
+            relaxed=relaxed, **window,
         ), None
     return ssim_parts_cuda(
         af, bf, with_map=with_map, data_range=data_range, allow_float=True,
-        precise=precise, **window, **tile_kwargs,
+        precise=precise, relaxed=relaxed, **window, **tile_kwargs,
     )
 
 

@@ -27,7 +27,13 @@ and `_chunked_overlap_call`, in these of their modes:
   `ssim_parts_cuda(rowsum=True)` and `ssim_parts_cuda(vhalo=...,
   vmask=...)` (the same keywords of `ssim_parts_pallas`), twin
   `ssim_rows_plain`, which splices (or, at a flagged edge, replicates) the
-  operands and runs the plain blur algebra.
+  operands and runs the plain blur algebra;
+- the relaxed accuracy tier (accuracy="relaxed", the JAX "mxu3x" lane
+  mode): `relaxed=True` on the standard, components, pooled and batch
+  wrappers, where `relaxed_applies` (W >= MXU_MIN_W on the tile grid,
+  always on the batch route). The two heavy horizontal blurs, of
+  (a+b)^2 and (a-b)^2, run as bf16x3 band products on the tensor cores;
+  their twin is `band_bf16x3_plain`, the rest of each twin as it is.
 
 The kernel is `ssim_tpu_torch/csrc/ssim_fwd.cu`: one 2-D grid of TILE_H x
 TILE_W output tiles, one CUDA block per tile, that covers every width, so
@@ -47,6 +53,7 @@ kernel does not build or launch, it raises.
 """
 
 import ctypes
+import functools
 from typing import Optional, Tuple
 
 import numpy as np
@@ -77,9 +84,10 @@ _MAX_DYNAMIC_SMEM = 232448 - 256
 #: ROWSUM_LAUNCHES and ROWSUM_MAP_LAUNCHES: ssim_rows_cuda without and
 #: with the map), ssim_components_cuda, ssim_components_pooled_cuda and
 #: ssim_parts_batch_cuda (BATCH_LAUNCHES, and BATCH_PRECISE_LAUNCHES for
-#: its precise tier), one counter per mode. Each is added to in one place,
-#: per launch, and nowhere else, so a caller can show which modes a run
-#: went through.
+#: its precise tier), one counter per mode; RELAXED_LAUNCHES counts the
+#: relaxed launches of every mode, which add to no other counter. Each is
+#: added to in one place, per launch, and nowhere else, so a caller can
+#: show which modes a run went through.
 LAUNCHES = 0
 PRECISE_LAUNCHES = 0
 COMPONENTS_LAUNCHES = 0
@@ -88,6 +96,13 @@ BATCH_LAUNCHES = 0
 BATCH_PRECISE_LAUNCHES = 0
 ROWSUM_LAUNCHES = 0
 ROWSUM_MAP_LAUNCHES = 0
+RELAXED_LAUNCHES = 0
+
+#: The JAX package's width gate of the relaxed tier (ssim_pallas.py:115,
+#: copied): the tile grid runs the relaxed mode at widths >= MXU_MIN_W and
+#: the standard one below it; the batch route always runs it (JAX applies
+#: it to the packed row, at least MXU_MIN_W wide, ssim_pallas.py:2284-2291).
+MXU_MIN_W = 512
 
 #: The JAX package's gate for its small-image batch route
 #: (ssim_tpu/ops/ssim_pallas.py:2141-2158 and :2303-2326), copied so that
@@ -228,6 +243,54 @@ def hpass4(ap: torch.Tensor, bp: torch.Tensor, t, n: int):
     )
 
 
+def relaxed_applies(relaxed: bool, w: int, batch: bool = False) -> bool:
+    """Whether a relaxed call runs the relaxed arithmetic: on the batch
+    route always, on the tile grid at widths w >= MXU_MIN_W. Below that
+    the wrappers run the standard mode, bit for bit the standard tier's,
+    as the JAX kernels do (ssim_pallas.py:151, ssim_grad.py:324)."""
+    return relaxed and (batch or w >= MXU_MIN_W)
+
+
+#: Output columns of one band product in band_bf16x3_plain.
+_BAND_OUT = 64
+
+
+def _bf16_split(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(x1, x2) with x1 = bf16(x) and x2 = bf16(x - x1), each rounded to
+    nearest even and returned as f32 (the kernels' band_mma::split2)."""
+    hi = x.to(torch.bfloat16).to(torch.float32)
+    return hi, (x - hi).to(torch.bfloat16).to(torch.float32)
+
+
+@functools.lru_cache(maxsize=None)
+def _band_matrix(t: tuple) -> torch.Tensor:
+    """The (64 + 2r, 64) f32 band: H[j + d, j] = t[d]."""
+    r = len(t) // 2
+    m = np.zeros((_BAND_OUT + 2 * r, _BAND_OUT), np.float32)
+    for j in range(_BAND_OUT):
+        m[j : j + 2 * r + 1, j] = t
+    return torch.from_numpy(m)
+
+
+def band_bf16x3_plain(x: torch.Tensor, t, n: int, dim: int = -1) -> torch.Tensor:
+    """The relaxed tier's band pass: out[k] = sum_j t[j] * x[k + j] along
+    `dim` (n outputs from n + 2r inputs), as band products of 64 + 2r input
+    columns into 64 output columns with both operands split into bf16
+    parts, x1 @ h1 + (x1 @ h2 + x2 @ h1) in f32: the fourth product x2 @ h2
+    is dropped (ssim_pallas.py:_make_hpass_mxu(exact=False), :205-219;
+    the kernels' band_mma.cuh). The matrix products need TF32 off on a
+    card (torch.backends.cuda.matmul.allow_tf32 = False), or the lo parts
+    round away."""
+    r = len(t) // 2
+    x = x.movedim(dim, -1)
+    nch = -(-n // _BAND_OUT)
+    x = torch.nn.functional.pad(x, (0, nch * _BAND_OUT - n))
+    h1, h2 = _bf16_split(_band_matrix(tuple(float(v) for v in t)).to(x.device))
+    x1, x2 = _bf16_split(x.unfold(-1, _BAND_OUT + 2 * r, _BAND_OUT))
+    out = x1 @ h1 + (x1 @ h2 + x2 @ h1)
+    return out.flatten(-2)[..., :n].movedim(-1, dim)
+
+
 def _sanitize(x: torch.Tensor, clip_bound: float) -> torch.Tensor:
     """f32 of x; for float input nan_to_num and a clip to +-clip_bound,
     as the kernels load every value."""
@@ -257,12 +320,17 @@ def splice_rows(x, top, bot, is_top, is_bot):
     return torch.cat([top, x, bot], dim=-2)
 
 
-def _blurs_plain(a, b, taps, clip_bound, vhalo=None, vmask=(False, False)):
+def _blurs_plain(a, b, taps, clip_bound, vhalo=None, vmask=(False, False),
+                 relaxed=False):
     """The four blurred signals mu_a, mu_b, s_ss, s_dd of (B, H, W) u8 or
     f32 inputs in the kernel's order of operations, and for f32 the mask
     of non-finite input pixels (None for u8). vhalo: the four (B, r, W)
     halo operands (a_top, a_bot, b_top, b_bot) with their vmask flags, in
-    place of the clamp at the top and bottom rows."""
+    place of the clamp at the top and bottom rows. relaxed: the relaxed
+    modes' horizontal pass, the heavy (a+b)^2 and (a-b)^2 blurs as
+    band_bf16x3_plain (the mu blurs and the vertical pass as they are).
+    The kernels blur horizontally first and the JAX kernel vertically
+    first; either order is inside the tier's error."""
     h, w = a.shape[-2], a.shape[-1]
     r = len(taps) // 2
     t = [float(v) for v in taps]
@@ -279,7 +347,12 @@ def _blurs_plain(a, b, taps, clip_bound, vhalo=None, vmask=(False, False)):
         ap = _pad_cols(splice_rows(af, at, ab, *flags), r)
         bp = _pad_cols(splice_rows(bf, bt, bb, *flags), r)
     # Horizontal pass over all H + 2r rows, then the vertical pass.
-    planes = hpass4(ap, bp, t, w)
+    if relaxed:
+        s, d = ap + bp, ap - bp
+        planes = (sym_blur(ap, t, -1, w), sym_blur(bp, t, -1, w),
+                  band_bf16x3_plain(s * s, t, w), band_bf16x3_plain(d * d, t, w))
+    else:
+        planes = hpass4(ap, bp, t, w)
     return tuple(sym_blur(p, t, 1, h) for p in planes), bad
 
 
@@ -321,11 +394,11 @@ def _tile_partials(x, tile_h, tile_w):
 
 
 def _ssim_map_plain(a, b, dtype, taps, c1, c2, clip_bound, tile_h, tile_w,
-                    vhalo=None, vmask=(False, False)):
-    """Per-pixel SSIM of the standard and precise modes: the f32 blurs,
-    then the formula of _ssim_from_blurs in `dtype` (f32, or f64 on the
-    widened blurs), with NaN over the tiles of non-finite inputs."""
-    blurs, bad = _blurs_plain(a, b, taps, clip_bound, vhalo, vmask)
+                    vhalo=None, vmask=(False, False), relaxed=False):
+    """Per-pixel SSIM of the standard, relaxed and precise modes: the f32
+    blurs, then the formula of _ssim_from_blurs in `dtype` (f32, or f64 on
+    the widened blurs), with NaN over the tiles of non-finite inputs."""
+    blurs, bad = _blurs_plain(a, b, taps, clip_bound, vhalo, vmask, relaxed)
     mu_a2, mu_b2, mu_ab, sigma_ab_x4, sigma_sum_x2 = _sigmas(
         *(x.to(dtype) for x in blurs))
     num = (2.0 * mu_ab + c1) * (0.5 * sigma_ab_x4 + c2)
@@ -344,12 +417,13 @@ def ssim_parts_plain(
     clip_bound: float,
     tile_h: int = TILE_H,
     tile_w: int = TILE_W,
+    relaxed: bool = False,
 ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
     """The standard mode's plain twin on (B, H, W) u8 or f32 tensors, on
-    any device. Returns (partials (B, nty*ntx) f32, map (B, H, W) f32 or
-    None)."""
+    any device (relaxed: the relaxed mode's). Returns (partials
+    (B, nty*ntx) f32, map (B, H, W) f32 or None)."""
     ssim = _ssim_map_plain(a, b, torch.float32, taps, c1, c2, clip_bound,
-                           tile_h, tile_w)
+                           tile_h, tile_w, relaxed=relaxed)
     partials = _tile_partials(ssim, tile_h, tile_w)
     return partials, (ssim if with_map else None)
 
@@ -422,15 +496,17 @@ def ssim_parts_batch_plain(
     c1: float,
     c2: float,
     clip_bound: float,
+    relaxed: bool = False,
 ) -> torch.Tensor:
     """The batch modes' plain twin on (B, H, W) u8 or f32 tensors, on any
-    device: the standard (precise) tier's per-pixel SSIM, NaN over each
-    image that holds a non-finite input pixel, and each image's
+    device: the standard (precise, relaxed) tier's per-pixel SSIM, NaN
+    over each image that holds a non-finite input pixel, and each image's
     sum(ssim - 1) in f64. Returns (B, 2) [sum(ssim - 1), H*W], f32 (f64
     with precise)."""
     h, w = a.shape[-2], a.shape[-1]
     dtype = torch.float64 if precise else torch.float32
-    ssim = _ssim_map_plain(a, b, dtype, taps, c1, c2, clip_bound, h, w)
+    ssim = _ssim_map_plain(a, b, dtype, taps, c1, c2, clip_bound, h, w,
+                           relaxed=relaxed)
     sums = (ssim - 1.0).to(torch.float64).sum(dim=(1, 2))
     return torch.stack([sums, torch.full_like(sums, h * w)], dim=1).to(dtype)
 
@@ -445,13 +521,14 @@ def ssim_components_plain(
     clip_bound: float,
     tile_h: int = TILE_H,
     tile_w: int = TILE_W,
+    relaxed: bool = False,
 ) -> torch.Tensor:
     """The components mode's plain twin on (B, H, W) u8 or f32 tensors, on
-    any device: lum and cs from the four blurs (_l_cs_from_blurs), ssim =
-    lum * cs. Returns (B, nty*ntx, 2) f32 per-tile [sum(cs - 1) + n_valid,
-    sum(ssim - 1) + n_valid]; a tile with a non-finite input pixel of its
-    own has NaN in both."""
-    blurs, bad = _blurs_plain(a, b, taps, clip_bound)
+    any device (relaxed: the relaxed mode's): lum and cs from the four
+    blurs (_l_cs_from_blurs), ssim = lum * cs. Returns (B, nty*ntx, 2) f32
+    per-tile [sum(cs - 1) + n_valid, sum(ssim - 1) + n_valid]; a tile with
+    a non-finite input pixel of its own has NaN in both."""
+    blurs, bad = _blurs_plain(a, b, taps, clip_bound, relaxed=relaxed)
     mu_a2, mu_b2, mu_ab, sigma_ab_x4, sigma_sum_x2 = _sigmas(*blurs)
     lum = (2.0 * mu_ab + c1) / (mu_a2 + mu_b2 + c1)
     cs = (0.5 * sigma_ab_x4 + c2) / (0.5 * sigma_sum_x2 + c2)
@@ -479,18 +556,20 @@ _MODES = ("score", "map", "components", "pooled", "precise", "precise_map",
 
 
 def _launch(a, b, *, mode, taps, c1, c2, clip_bound, tile_h, tile_w, ipb=1,
-            groups=1, vhalo=None, vmask=(False, False)):
+            groups=1, vhalo=None, vmask=(False, False), relaxed=False):
     """Launch the CUDA kernel in `mode` (one of _MODES) on (B, H, W)
     contiguous tensors on one CUDA device; no synchronisation. ipb, groups:
     the batch modes' images per block and runs per image. vhalo, vmask:
     the row modes' four (B, r, W) halo operands and their two flags.
+    relaxed: the mode's relaxed instantiation (score, map, components,
+    pooled and batch; the C entry refuses the others).
     Returns the mode's outputs: (partials, map or None) (partials f64 in
     the precise modes, (B, H) row sums in the row modes), (B, K, 2)
     partials, (partials, pooled_a, pooled_b), or the batch modes' (B, 2)
     partials."""
     global LAUNCHES, PRECISE_LAUNCHES, COMPONENTS_LAUNCHES, POOLED_LAUNCHES
     global BATCH_LAUNCHES, BATCH_PRECISE_LAUNCHES, ROWSUM_LAUNCHES
-    global ROWSUM_MAP_LAUNCHES
+    global ROWSUM_MAP_LAUNCHES, RELAXED_LAUNCHES
     from . import _build
 
     lib = _build.load_library()
@@ -526,36 +605,43 @@ def _launch(a, b, *, mode, taps, c1, c2, clip_bound, tile_h, tile_w, ipb=1,
     taps_c = (ctypes.c_float * len(taps))(*[float(v) for v in taps])
     with torch.cuda.device(a.device):
         err = lib.ssim_fwd_launch(
-            _MODES.index(mode), int(a.dtype == torch.float32), a.data_ptr(),
+            _MODES.index(mode), int(relaxed), int(a.dtype == torch.float32),
+            a.data_ptr(),
             b.data_ptr(), partials.data_ptr(), ptr(ssim_map), ptr(pooled[0]),
             ptr(pooled[1]), ptr(scratch), *halo, int(vmask[0]), int(vmask[1]),
             bsz, h, w, r, tile_h, tile_w, ipb, groups,
             ctypes.cast(taps_c, ctypes.c_void_p), c1, c2, clip_bound,
             torch.cuda.current_stream(a.device).cuda_stream)
     if err != 0:
-        raise RuntimeError(f"ssim_fwd kernel ({mode}) failed with CUDA error {err}")
-    if rows:
+        raise RuntimeError(
+            f"ssim_fwd kernel ({mode}{', relaxed' if relaxed else ''}) failed "
+            f"with CUDA error {err}")
+    if relaxed:
+        RELAXED_LAUNCHES += 1
+    elif rows:
         if mode == "rowsum":
             ROWSUM_LAUNCHES += 1
         else:
             ROWSUM_MAP_LAUNCHES += 1
-        return partials, ssim_map
-    if batch:
+    elif batch:
         if precise:
             BATCH_PRECISE_LAUNCHES += 1
         else:
             BATCH_LAUNCHES += 1
-        return partials
-    if mode == "pooled":
+    elif mode == "pooled":
         POOLED_LAUNCHES += 1
-        return partials, pooled[0], pooled[1]
-    if comp:
+    elif comp:
         COMPONENTS_LAUNCHES += 1
-        return partials
-    if precise:
+    elif precise:
         PRECISE_LAUNCHES += 1
     else:
         LAUNCHES += 1
+    if batch:
+        return partials
+    if mode == "pooled":
+        return partials, pooled[0], pooled[1]
+    if comp:
+        return partials
     return partials, ssim_map
 
 
@@ -675,6 +761,7 @@ def ssim_parts_cuda(
     rowsum: bool = False,
     vhalo=None,
     vmask=None,
+    relaxed: bool = False,
 ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
     """Fused-kernel SSIM. a, b: (H, W) or (B, H, W) contiguous tensors,
     uint8 (or, with allow_float=True, float32 in [0, data_range]).
@@ -709,7 +796,22 @@ def ssim_parts_cuda(
     the band's own rows): the tiles' partials over a halo'd band are not
     exposed, and the sharded layer takes the row sums and the map of one
     launch from ssim_rows_cuda.
+
+    relaxed=True is the relaxed tier (accuracy="relaxed"): at W >=
+    MXU_MIN_W the heavy (a+b)^2 and (a-b)^2 horizontal blurs run as bf16x3
+    band products on the tensor cores (RELAXED_LAUNCHES counts the
+    launch), ~2^-17 relative per blur, inside the JAX tests' envelope of
+    1e-4 global and 5e-3 per pixel against the f64 oracle; below it the
+    standard mode runs, bit for bit. It excludes precise and the row
+    modes (rowsum, vhalo), as the sharded layer never asks for it.
     """
+    if relaxed and precise:
+        raise ValueError(
+            "relaxed (bf16-split blurs) contradicts precise (fp64 formula) "
+            "— pick one accuracy tier"
+        )
+    if relaxed and (rowsum or vhalo is not None or vmask is not None):
+        raise ValueError("relaxed serves the tile and batch modes, not the row modes")
     if rowsum and (with_map or precise):
         raise ValueError(
             "rowsum emits per-row sums INSTEAD of the map/partials — "
@@ -733,15 +835,18 @@ def ssim_parts_cuda(
     squeeze = a.dim() == 2
     if squeeze:
         a, b = a[None], b[None]
+    relaxed = relaxed_applies(relaxed, a.shape[-1])
     if a.device.type == "cuda":
         if precise:
             mode = "precise_map" if with_map else "precise"
         else:
             mode = "map" if with_map else "score"
-        partials, ssim_map = _launch(a, b, mode=mode, **kw)
+        partials, ssim_map = _launch(a, b, mode=mode, relaxed=relaxed, **kw)
+    elif precise:
+        partials, ssim_map = ssim_parts_precise_plain(a, b, with_map=with_map, **kw)
     else:
-        plain = ssim_parts_precise_plain if precise else ssim_parts_plain
-        partials, ssim_map = plain(a, b, with_map=with_map, **kw)
+        partials, ssim_map = ssim_parts_plain(a, b, with_map=with_map,
+                                              relaxed=relaxed, **kw)
     if squeeze:
         partials = partials[0]
         ssim_map = None if ssim_map is None else ssim_map[0]
@@ -824,10 +929,11 @@ def ssim_components_cuda(
     sigma: float = SIGMA,
     k1: float = 0.01,
     k2: float = 0.03,
+    relaxed: bool = False,
 ) -> torch.Tensor:
     """Fused-kernel MS-SSIM components. a, b: (H, W) or (B, H, W)
     contiguous uint8 or float32 pairs (float32 as sanitised and poisoned as
-    in ssim_parts_cuda).
+    in ssim_parts_cuda; relaxed as there, at W >= MXU_MIN_W).
 
     Returns (..., K, 2) f32 per-tile sums, [..., 0] of cs and [..., 1] of
     ssim = lum * cs, each as sum(x - 1) + n_valid over the tile's valid
@@ -838,6 +944,7 @@ def ssim_components_cuda(
     squeeze = a.dim() == 2
     if squeeze:
         a, b = a[None], b[None]
+    kw["relaxed"] = relaxed_applies(relaxed, a.shape[-1])
     if a.device.type == "cuda":
         parts = _launch(a, b, mode="components", **kw)
     else:
@@ -854,11 +961,13 @@ def ssim_components_pooled_cuda(
     sigma: float = SIGMA,
     k1: float = 0.01,
     k2: float = 0.03,
+    relaxed: bool = False,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """ssim_components_cuda fused with the MS-SSIM pyramid's 2x2-mean
     downsample of the inputs: one launch returns the per-tile [cs, ssim]
-    sums and the pooled next-scale images. a, b as in
-    ssim_components_cuda, with H, W >= 2.
+    sums and the pooled next-scale images. a, b and relaxed as in
+    ssim_components_cuda, with H, W >= 2 (the pool is exact in either
+    tier).
 
     Returns (parts (..., K, 2), pooled_a, pooled_b), the pooled images f32
     (..., H//2, W//2): (a[2i, 2j] + a[2i+1, 2j]) + (a[2i, 2j+1] +
@@ -871,6 +980,7 @@ def ssim_components_pooled_cuda(
     squeeze = a.dim() == 2
     if squeeze:
         a, b = a[None], b[None]
+    kw["relaxed"] = relaxed_applies(relaxed, a.shape[-1])
     if a.device.type == "cuda":
         out = _launch(a, b, mode="pooled", **kw)
     else:
@@ -889,6 +999,7 @@ def ssim_parts_batch_cuda(
     sigma: float = SIGMA,
     k1: float = 0.01,
     k2: float = 0.03,
+    relaxed: bool = False,
 ) -> torch.Tensor:
     """Fused-kernel SSIM with one partial pair per image, for batches of
     small images. a, b: (B, H, W) contiguous tensors, uint8 (or, with
@@ -903,9 +1014,15 @@ def ssim_parts_batch_cuda(
     SSIM is the tile modes' bit for bit; only the order of the sums
     differs. Float inputs are sanitised as in ssim_parts_cuda, and an image
     with a NaN or inf pixel gets a NaN sum, no other image does; the count
-    stays H*W. On a CUDA tensor the kernel is launched; on a CPU tensor
-    the plain twin runs.
+    stays H*W. relaxed=True runs the relaxed tier at every width (the JAX
+    package applies it to the packed row); it excludes precise. On a CUDA
+    tensor the kernel is launched; on a CPU tensor the plain twin runs.
     """
+    if relaxed and precise:
+        raise ValueError(
+            "relaxed (bf16-split blurs) contradicts precise (fp64 formula) "
+            "— pick one accuracy tier"
+        )
     _check_dtypes(a, b, allow_float)
     if a.dim() != 3:
         raise ValueError(f"the batch modes take a (B, H, W) batch, got {tuple(a.shape)}")
@@ -919,5 +1036,6 @@ def ssim_parts_batch_cuda(
     if a.device.type == "cuda":
         tile_h, tile_w, ipb, groups = batch_geometry(*a.shape)
         return _launch(a, b, mode="batch_precise" if precise else "batch",
-                       tile_h=tile_h, tile_w=tile_w, ipb=ipb, groups=groups, **kw)
-    return ssim_parts_batch_plain(a, b, precise, **kw)
+                       tile_h=tile_h, tile_w=tile_w, ipb=ipb, groups=groups,
+                       relaxed=relaxed, **kw)
+    return ssim_parts_batch_plain(a, b, precise, relaxed=relaxed, **kw)

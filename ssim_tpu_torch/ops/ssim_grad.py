@@ -2,8 +2,10 @@
 its plain PyTorch twin.
 
 Counterpart of `ssim_tpu/ops/ssim_grad.py` (`ssim_grad_pallas` over
-`_grad_call`) in its scalar `w_s`, per-pixel `g_map`, `w_cs` and
-`vhalo` / `vmask` (a row band of spatial sharding) modes. For
+`_grad_call`) in its scalar `w_s`, per-pixel `g_map`, `w_cs`,
+`vhalo` / `vmask` (a row band of spatial sharding) and `relaxed` (the
+accuracy="relaxed" tier: every band pass a bf16x3 band product on the
+tensor cores, at W >= MXU_MIN_W) modes. For
 L = sum_p (w_s + g_map(p)) * SSIM(p) + w_cs * sum_p cs(p), per image, it
 returns (dL/da, dL/db). The kernel is `ssim_tpu_torch/csrc/ssim_bwd.cu`:
 one 2-D grid of output tiles, one CUDA block per tile, so the TPU's column
@@ -34,8 +36,8 @@ import torch
 
 from ..windows import RADIUS, SIGMA, gaussian_taps
 from .ssim_cuda import (
-    _MAX_DYNAMIC_SMEM, MAX_FUSED_RADIUS, _pad_cols, _tile_reduce, hpass4,
-    splice_rows, sym_blur,
+    _MAX_DYNAMIC_SMEM, MAX_FUSED_RADIUS, _pad_cols, _tile_reduce,
+    band_bf16x3_plain, hpass4, relaxed_applies, splice_rows, sym_blur,
 )
 from .ssim_torch import _pad_edge
 
@@ -45,11 +47,13 @@ TILE_H = 32
 TILE_W = 64
 
 #: Kernel launches made by ssim_grad_cuda in this process (VHALO_LAUNCHES:
-#: those with halo operands). The wrapper adds one per launch to one of the
-#: two and nowhere else, so a caller can show that a run went through the
-#: kernel in that mode.
+#: those with halo operands; RELAXED_LAUNCHES: the relaxed mode's, with or
+#: without them). The wrapper adds one per launch to one of the three and
+#: nowhere else, so a caller can show that a run went through the kernel
+#: in that mode.
 LAUNCHES = 0
 VHALO_LAUNCHES = 0
+RELAXED_LAUNCHES = 0
 
 
 def grad_cuda_supported(h: int, w: int, radius: int = RADIUS) -> bool:
@@ -91,15 +95,16 @@ def fold_coefficients(taps: np.ndarray) -> np.ndarray:
 
 
 def _adjoint(x: torch.Tensor, t, cl, dim: int, n: int, fold_lo: bool = True,
-             fold_hi: bool = True) -> torch.Tensor:
+             fold_hi: bool = True, relaxed: bool = False) -> torch.Tensor:
     """Transpose of the clamped 1-D blur along `dim`: x holds the weights on
     the image plus an r margin that is zero outside the image (n + 2r
     entries); returns the n image positions. The plain part is the
-    zero-extended symmetric blur; positions 0 and n-1 add the folded clamp
-    mass sum_{x<r} cl[x] * w(x) and sum_{x<r} cl[x] * w(n-1-x) (only where
-    fold_lo / fold_hi: a band's edge without a neighbour)."""
+    zero-extended symmetric blur (relaxed: band_bf16x3_plain); positions 0
+    and n-1 add the folded clamp mass sum_{x<r} cl[x] * w(x) and
+    sum_{x<r} cl[x] * w(n-1-x) in f32 (only where fold_lo / fold_hi: a
+    band's edge without a neighbour)."""
     r = len(t) // 2
-    acc = sym_blur(x, t, dim, n)
+    acc = band_bf16x3_plain(x, t, n, dim) if relaxed else sym_blur(x, t, dim, n)
     corr_lo = corr_hi = None
     for g in range(r):
         lo = cl[g] * x.narrow(dim, r + g, 1)
@@ -161,13 +166,17 @@ def ssim_grad_plain(
     clip_bound: float,
     vhalo=None,
     vmask=(False, False),
+    relaxed: bool = False,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """The kernel's plain twin on (B, H, W) f32 tensors, on any device.
     w_s, w_cs: (B,) f32; g_map: (B, H, W) f32 or None. vhalo: four
     (B, 2r, W) f32 operands (a_top, a_bot, b_top, b_bot) spliced above and
     below the band (at a flagged edge of vmask, the band's edge row
     replicated instead), with the loss rows and the vertical clamp fold of
-    the kernel's vhalo mode; no g_map with them. Returns (da, db)."""
+    the kernel's vhalo mode; no g_map with them. relaxed: the relaxed
+    mode's, every band pass (stage 1's four horizontal and four vertical
+    blurs, stage 2's four vertical and four horizontal adjoints) as
+    band_bf16x3_plain, the clamp folds in f32. Returns (da, db)."""
     bsz, h, w = a.shape
     r = len(taps) // 2
     tile_h, tile_w = default_tile(r)
@@ -190,8 +199,15 @@ def ssim_grad_plain(
 
     # Stage 1: the forward blurs on the mid grid (the image plus an r
     # margin), horizontal then vertical, from the 2r-padded input.
-    planes = hpass4(ae, be, t, w + 2 * r)
-    u, v, s2, d2 = (sym_blur(p, t, 1, h + 2 * r) for p in planes)
+    if relaxed:
+        s, dif = ae + be, ae - be
+        u, v, s2, d2 = (
+            band_bf16x3_plain(band_bf16x3_plain(x, t, w + 2 * r), t, h + 2 * r, 1)
+            for x in (ae, be, s * s, dif * dif)
+        )
+    else:
+        planes = hpass4(ae, be, t, w + 2 * r)
+        u, v, s2, d2 = (sym_blur(p, t, 1, h + 2 * r) for p in planes)
 
     w_s = w_s.reshape(bsz, 1, 1)
     w_cs = w_cs.reshape(bsz, 1, 1)
@@ -211,7 +227,8 @@ def ssim_grad_plain(
 
     # Stage 2: the transposed clamped blur, vertical then horizontal.
     tu, tv, tss, tdd = (
-        _adjoint(_adjoint(m, t, cl, 1, h, is_top, is_bot), t, cl, 2, w)
+        _adjoint(_adjoint(m, t, cl, 1, h, is_top, is_bot, relaxed), t, cl, 2,
+                 w, relaxed=relaxed)
         for m in maps
     )
     s = af + bf
@@ -231,10 +248,10 @@ def ssim_grad_plain(
 
 
 def _launch(a, b, w_s, w_cs, g_map, *, taps, c1, c2, clip_bound, vhalo=None,
-            vmask=(False, False)):
+            vmask=(False, False), relaxed=False):
     """Launch the CUDA kernel on (B, H, W) contiguous f32 tensors on one
     CUDA device, with the tile default_tile(radius); no synchronisation."""
-    global LAUNCHES, VHALO_LAUNCHES
+    global LAUNCHES, VHALO_LAUNCHES, RELAXED_LAUNCHES
     from . import _build
 
     lib = _build.load_library()
@@ -251,7 +268,7 @@ def _launch(a, b, w_s, w_cs, g_map, *, taps, c1, c2, clip_bound, vhalo=None,
     fold_c = (ctypes.c_float * r)(*[float(v) for v in fold_coefficients(taps)])
     with torch.cuda.device(a.device):
         err = lib.ssim_bwd_launch(
-            a.data_ptr(), b.data_ptr(), w_s.data_ptr(), w_cs.data_ptr(),
+            int(relaxed), a.data_ptr(), b.data_ptr(), w_s.data_ptr(), w_cs.data_ptr(),
             None if g_map is None else g_map.data_ptr(),
             da.data_ptr(), db.data_ptr(),
             *((None,) * 4 if vhalo is None else (x.data_ptr() for x in vhalo)),
@@ -261,8 +278,12 @@ def _launch(a, b, w_s, w_cs, g_map, *, taps, c1, c2, clip_bound, vhalo=None,
             torch.cuda.current_stream(a.device).cuda_stream,
         )
     if err != 0:
-        raise RuntimeError(f"ssim_bwd_launch failed with CUDA error {err}")
-    if vhalo is None:
+        raise RuntimeError(
+            f"ssim_bwd_launch{' (relaxed)' if relaxed else ''} failed with "
+            f"CUDA error {err}")
+    if relaxed:
+        RELAXED_LAUNCHES += 1
+    elif vhalo is None:
         LAUNCHES += 1
     else:
         VHALO_LAUNCHES += 1
@@ -294,6 +315,7 @@ def ssim_grad_cuda(
     k2: float = 0.03,
     vhalo=None,
     vmask=None,
+    relaxed: bool = False,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Fused-kernel SSIM gradients: (dL/da, dL/db) for
     L = sum_p (w_s + g_map(p)) * SSIM(p) + w_cs * sum_p cs(p), per image.
@@ -318,6 +340,12 @@ def ssim_grad_cuda(
     neighbours' rows within r (summed over the bands, the global loss); the
     gradients are those of the band's own rows. Scalar cotangents only
     (g_map=None); bands of at least 2*radius rows.
+
+    relaxed=True (accuracy="relaxed"): at W >= MXU_MIN_W every band pass
+    runs as a bf16x3 band product on the tensor cores (RELAXED_LAUNCHES
+    counts the launch), the gradient within ~1e-3 x max|g| of the standard
+    tier's; below it the standard kernel runs, bit for bit (JAX use_mxu,
+    ssim_grad.py:324). It combines with vhalo as in the JAX kernel.
     """
     if a.dtype != torch.float32 or b.dtype != torch.float32:
         raise ValueError(
@@ -393,7 +421,8 @@ def ssim_grad_cuda(
     ws = _per_image(w_s, bsz, a.device, "w_s")
     wcs = _per_image(w_cs, bsz, a.device, "w_cs")
     kw = dict(taps=taps, c1=c1, c2=c2,
-              clip_bound=max(131072.0, 4.0 * float(data_range)))
+              clip_bound=max(131072.0, 4.0 * float(data_range)),
+              relaxed=relaxed_applies(relaxed, w))
     if vhalo is not None:
         kw.update(vhalo=vhalo, vmask=flags)
     if a.device.type == "cuda":

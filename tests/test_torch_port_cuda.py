@@ -1,8 +1,8 @@
 """The fused CUDA kernels (forward in its standard, precise, components,
 pooled-components, batch and row modes, with and without halo operands,
-and backward, with and without them) against their plain twins, on the
-card, and the launches of the training, MS-SSIM and small-image batch
-paths.
+and backward, with and without them; both in their relaxed modes) against
+their plain twins, on the card, and the launches of the training, MS-SSIM
+and small-image batch paths.
 
 Marked `cuda`: it skips without a CUDA device (here, on the CPU). This
 file imports neither JAX nor the repo's conftest, so it also runs on a
@@ -375,3 +375,89 @@ def test_backward_halo_mode_matches_twin_on_card(flags):
     assert torch.isfinite(da).all() and torch.isfinite(db).all()
     tol = 1e-6 * max(1.0, pa.abs().max().item())
     assert (da - pa).abs().max().item() <= tol and (db - pb).abs().max().item() <= tol
+
+
+# The relaxed tier: kernel against its relaxed twin. Both add the same
+# three exact bf16 products per band pass, the kernel in the tensor cores'
+# order, the twin in f32 matrix products (TF32 off), so they agree to a
+# few f32 roundings per blur: 2e-6 global (never tighter than 2e-5 /
+# sqrt(npix)) and 2e-5 per pixel, the backward 1e-4 * max|g| (chip_smoke.py
+# phase 10 prints what they measure, several times below these).
+_RELAXED_GLOBAL, _RELAXED_PIXEL, _RELAXED_GRAD = 2e-6, 2e-5, 1e-4
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["score", "map", "components", "pooled", "batch"])
+def test_relaxed_modes_match_twins_on_card(mode):
+    """Each relaxed forward mode (W >= 512, or the batch route) against its
+    relaxed twin, one RELAXED_LAUNCHES each; the result differs from the
+    standard mode's."""
+    _need_card()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    rng = np.random.default_rng(0x60)
+    shape = (64, 40, 48) if mode == "batch" else (2, 130, 700)
+    a, b = (rng.integers(0, 256, shape, dtype=np.uint8) for _ in range(2))
+    at, bt = torch.from_numpy(a).cuda(), torch.from_numpy(b).cuda()
+    npix = shape[1] * shape[2]
+    kw = _twin_kw(255.0)
+    before = ssim_cuda.RELAXED_LAUNCHES
+    if mode in ("score", "map"):
+        with_map = mode == "map"
+        pk, mk = ssim_cuda.ssim_parts_cuda(at, bt, with_map=with_map, relaxed=True)
+        _, ms = ssim_cuda.ssim_parts_cuda(at, bt, with_map=True)
+        pp, mp = ssim_cuda.ssim_parts_plain(at, bt, with_map=True, relaxed=True, **kw)
+        if with_map:
+            assert (mk - mp).abs().max().item() <= _RELAXED_PIXEL
+            assert (mk - ms).abs().max().item() > 0
+        got, want = pk.double().sum(-1), pp.double().sum(-1)
+    elif mode == "batch":
+        pk = ssim_cuda.ssim_parts_batch_cuda(at, bt, relaxed=True)
+        pp = ssim_cuda.ssim_parts_batch_plain(at, bt, relaxed=True, **kw)
+        got, want = pk[:, 0].double(), pp[:, 0].double()
+        assert not torch.equal(pk, ssim_cuda.ssim_parts_batch_cuda(at, bt))
+    else:
+        pooled = mode == "pooled"
+        fn = (ssim_cuda.ssim_components_pooled_cuda if pooled
+              else ssim_cuda.ssim_components_cuda)
+        out = fn(at, bt, relaxed=True)
+        std = fn(at, bt)
+        twin = (ssim_cuda.ssim_components_pooled_plain if pooled
+                else ssim_cuda.ssim_components_plain)(at, bt, relaxed=True, **kw)
+        if pooled:
+            assert torch.equal(out[1], std[1]) and torch.equal(out[2], std[2])
+            out, std, twin = out[0], std[0], twin[0]
+        got, want = out.double().sum(-2), twin.double().sum(-2)
+        assert not torch.equal(out, std)
+    torch.cuda.synchronize()
+    assert ssim_cuda.RELAXED_LAUNCHES == before + 1
+    tol = max(_RELAXED_GLOBAL, 2 * _RELAXED_PIXEL / npix**0.5)
+    assert (got - want).abs().max().item() / npix <= tol
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("with_g", [False, True])
+def test_relaxed_backward_matches_twin_on_card(with_g):
+    """The backward kernel's relaxed mode (every band pass split) against
+    its twin, and within 1e-3 * max|g| of the standard kernel."""
+    _need_card()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    rng = np.random.default_rng(0x61)
+    shape = (2, 150, 600)
+    a = rng.random(shape, dtype=np.float32)
+    b = np.clip(a + rng.normal(0, 0.05, shape), 0, 1).astype(np.float32)
+    at, bt = torch.from_numpy(a).cuda(), torch.from_numpy(b).cuda()
+    g_map = torch.from_numpy(rng.normal(0, 1e-5, shape).astype(np.float32)).cuda() \
+        if with_g else None
+    w_s = torch.full((2,), 1.0 / a[0].size, device="cuda")
+    w_cs = torch.full((2,), 0.2 / a[0].size, device="cuda")
+    before = (ssim_grad.LAUNCHES, ssim_grad.RELAXED_LAUNCHES)
+    rk = ssim_grad.ssim_grad_cuda(at, bt, w_s, w_cs, g_map, data_range=1.0, relaxed=True)
+    torch.cuda.synchronize()
+    assert (ssim_grad.LAUNCHES, ssim_grad.RELAXED_LAUNCHES) == (before[0], before[1] + 1)
+    sk = ssim_grad.ssim_grad_cuda(at, bt, w_s, w_cs, g_map, data_range=1.0)
+    rp = ssim_grad.ssim_grad_plain(at, bt, w_s, w_cs, g_map, relaxed=True, **_twin_kw(1.0))
+    scale = max(x.abs().max().item() for x in sk)
+    for k, p, s in zip(rk, rp, sk):
+        assert torch.isfinite(k).all()
+        assert (k - p).abs().max().item() <= _RELAXED_GRAD * scale
+        assert 0 < (k - s).abs().max().item() <= 1e-3 * scale
