@@ -44,9 +44,8 @@ Phases, each of which raises on failure (the script then exits non-zero):
    components and 25 backward launches), and the components mode against
    its twin on the trained pair; then times each mode and its twin at the
    pyramid's shapes with CUDA events, the whole `compute_ms_ssim` call
-   and a training step with the host clock, traces five steps, and times
-   `torch.nn.functional.pad(mode="replicate")`, the library call of the
-   unported pad kernel (K4), with the bounds of K4 and K5;
+   and a training step with the host clock, traces five steps, and prints
+   the bounds of K5;
 7. the precise tier (`precision="f64"`): the forward kernel's precise
    modes, with and without the map, against their plain twin (maps bit
    for bit, per-image fp64 scores within 1e-12 relative) at tiny and
@@ -117,7 +116,20 @@ Phases, each of which raises on failure (the script then exits non-zero):
    `compute_ms_ssim(accuracy="relaxed")` at msssim_1080_b4 (relaxed at
    the scales >= 512 wide, standard below; within 1e-4 of
    `impl="torch"`); (c) each relaxed mode beside the standard mode on
-   the same input with CUDA events (in turns), its twin and its bound.
+   the same input with CUDA events (in turns), its twin and its bound;
+11. the edge-pad-and-align kernel (K4, csrc/pad.cu): (a) against its twin
+   byte for byte (NaN payloads and -0.0 count), and on the small inputs
+   against np.pad on the host, at the JAX pad tests' 13 geometries, u8
+   and f32 4K x4 -> (4, 2176, 4096), u8 1080p x4 -> (4, 1088, 2176), f32
+   and f64 with NaN, -0.0 and +-inf at the edges, u16, unaligned layouts
+   (source, destination or both), H = 1, W = 1, and one u8 (16, 8640,
+   15360) -> (16, 8672, 15616), an output past 2^31 elements; (b)
+   `pad_align` on CUDA tensors at 4K x4 (u8, f32) and 1080p x4, each call
+   counted from 0 (exactly one pad launch, no other) with the twin made to
+   raise; (c) at 4K x4 the kernel (u8 and f32) with CUDA events and in a
+   trace, its twin, and `torch.nn.functional.pad(mode="replicate")` on the
+   same f32 input in turns with the kernel (its library call; equal to the
+   kernel's output), each beside the bound.
 
 Prints the kernel records as one JSON line (with each kernel's roofline
 bound), the card's name and power limit, and last
@@ -190,18 +202,21 @@ SEED = 0x55
 #   pixel for the pool (3 adds and a multiply per 2x2 block of each of
 #   the two images) and 2 bytes written per input pixel (two f32 images
 #   of a quarter of the pixels): 24r + 47;
-# - K4, the unported pad kernel (ssim_tpu/ops/pad.py): bytes only, one
-#   read of (B, H, W) and one write of (B, hp, wp);
+# - K4, the pad kernel (csrc/pad.cu, phase 11): bytes only, one read of
+#   (B, H, W) and one write of (B, hp, wp);
 # - the batch modes (kBatch, kBatchPrecise: K1e, and the contract of K5,
 #   tools/probe_bpack.py): per pixel the standard (precise) forward's
 #   operations, u8 inputs, and two f32 (f64) partials per image;
-# - precise (the forward's kPrecise mode): the f32 blurs, 24r + 20 at the
-#   f32 rate, plus in fp64 the four widenings of the blurred signals and
-#   the formula and tile sum (23, as counted for the forward): 27 at
-#   34 TFLOP/s (FP64 outside the tensor cores, H100 SXM data sheet), the
-#   two times added; one f64 partial (8 bytes) per tile, and with the map
-#   4 bytes per pixel.
+# - precise (the forward's kPrecise mode), all in fp64: as the relaxed
+#   bound counts its band products (split_bound), the eight band blurs (4
+#   signals x 2 passes) as (2r + 1) multiply-adds each, 2 operations per
+#   multiply-add, at the FP64 tensor-core rate of 67 TFLOP/s, and the
+#   four signals plus the formula and tile sum, 27, at 34 TFLOP/s (FP64
+#   outside the tensor cores; both H100 SXM data sheet), the two times
+#   added; one f64 partial (8 bytes) per tile, and with the map 4 bytes
+#   per pixel.
 HBM_BYTES_PER_S, F32_OPS_PER_S, F64_OPS_PER_S = 3.35e12, 67e12, 34e12
+F64_TC_OPS_PER_S = 67e12
 
 
 def bound_ms(nbytes, ops):
@@ -235,8 +250,8 @@ def precise_bound(shape, itemsize, with_map=False, radius=5, out_bytes=None):
     out = 8 * tiles if out_bytes is None else out_bytes
     t_bytes = (2 * itemsize * npix + out + 4 * npix * with_map) \
         / HBM_BYTES_PER_S * 1e3
-    t_ops = ((24 * radius + 20) * npix / F32_OPS_PER_S
-             + 27 * npix / F64_OPS_PER_S) * 1e3
+    t_ops = (2 * 8 * (2 * radius + 1) / F64_TC_OPS_PER_S
+             + 27 / F64_OPS_PER_S) * npix * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -827,7 +842,7 @@ def compare_components(name, a, b, **kw):
 
 
 def launch_counts():
-    from ssim_tpu_torch.ops import ssim_cuda, ssim_grad
+    from ssim_tpu_torch.ops import pad, ssim_cuda, ssim_grad
 
     return dict(standard=ssim_cuda.LAUNCHES, precise=ssim_cuda.PRECISE_LAUNCHES,
                 components=ssim_cuda.COMPONENTS_LAUNCHES,
@@ -838,7 +853,8 @@ def launch_counts():
                 relaxed=ssim_cuda.RELAXED_LAUNCHES,
                 backward=ssim_grad.LAUNCHES,
                 backward_vhalo=ssim_grad.VHALO_LAUNCHES,
-                backward_relaxed=ssim_grad.RELAXED_LAUNCHES)
+                backward_relaxed=ssim_grad.RELAXED_LAUNCHES,
+                pad=pad.PAD_LAUNCHES)
 
 
 def counts_of(**nonzero):
@@ -847,7 +863,7 @@ def counts_of(**nonzero):
 
 
 def zero_counts():
-    from ssim_tpu_torch.ops import ssim_cuda, ssim_grad
+    from ssim_tpu_torch.ops import pad, ssim_cuda, ssim_grad
 
     ssim_cuda.LAUNCHES = ssim_cuda.PRECISE_LAUNCHES = 0
     ssim_cuda.COMPONENTS_LAUNCHES = ssim_cuda.POOLED_LAUNCHES = 0
@@ -855,6 +871,7 @@ def zero_counts():
     ssim_cuda.ROWSUM_LAUNCHES = ssim_cuda.ROWSUM_MAP_LAUNCHES = 0
     ssim_cuda.RELAXED_LAUNCHES = 0
     ssim_grad.LAUNCHES = ssim_grad.VHALO_LAUNCHES = ssim_grad.RELAXED_LAUNCHES = 0
+    pad.PAD_LAUNCHES = 0
 
 
 def phase_msssim(gen, label):
@@ -1017,33 +1034,18 @@ def phase_msssim(gen, label):
         for name, ms in top[:8]:
             print(f"    {ms:.4f} ms  {name[:90]}", flush=True)
 
-    # (e) K4's library call, torch.nn.functional.pad(mode="replicate"), at
-    # 4K x4 into pad.py's (8, 128)-aligned layout (f32: the card's
-    # replicate pad takes floating types), and the bounds of K4 and K5.
-    kb, kh, kw_ = 4, 2160, 3840
-    hp, wp = -(-(kh + 8) // 32) * 32, -(-(kw_ + 128 + 5) // 128) * 128
-    img = torch.rand((kb, kh, kw_), generator=gen, device="cuda")
-    pad = lambda: torch.nn.functional.pad(img, (128, wp - kw_ - 128, 8, hp - kh - 8),
-                                          mode="replicate")
-    check(tuple(pad().shape) == (kb, hp, wp), "replicate pad shape")
-    t_pad = cuda_ms(pad, 20)
-    k4_bound = bound_ms(4 * kb * kh * kw_ + 4 * kb * hp * wp, 0)
-    k4_u8_bound = bound_ms(kb * kh * kw_ + kb * hp * wp, 0)
+    # (e) The bounds of K5 (K4's, and its library call, are phase 11's).
     k5 = {}
     for bsz, side in ((1024, 128), (4096, 64)):
         npix = bsz * side * side
         k5[f"{side}x{side}x{bsz}"] = bound_ms(2 * npix + 4 * bsz, (24 * 5 + 43) * npix)
-    print(f"  K4 library call F.pad(replicate) f32 ({kb}, {kh}, {kw_}) -> ({kb}, {hp}, "
-          f"{wp}): {t_pad:.4f} ms; K4 bound {k4_bound[0]:.4f} ms f32, "
-          f"{k4_u8_bound[0]:.4f} ms u8 (bytes); K5 bounds "
-          + ", ".join(f"{k} {v[0]:.4f} ms ({v[1]})" for k, v in k5.items())
+    print("  K5 bounds " + ", ".join(f"{k} {v[0]:.4f} ms ({v[1]})" for k, v in k5.items())
           + f" | {label}", flush=True)
     records = dict(times=times, infer=infer, train=train, losses=losses,
                    grad_err=grad_err, grad_scale=grad_scale,
                    compute_ms_ssim_ms=e2e, train_step_ms=steps, trace_busy_ms=busy,
                    trace_window_ms=window, trace_ops_per_step=n_ops,
-                   trace_top=top[:8], k4_library_ms=t_pad, k4_bound=k4_bound,
-                   k5_bounds=k5)
+                   trace_top=top[:8], k5_bounds=k5)
     return err, records
 
 
@@ -1053,7 +1055,7 @@ def precise_twin(a, b, with_map, data_range=255.0, radius=5, sigma=1.5, k1=0.01,
 
     return ssim_cuda.ssim_parts_precise_plain(
         a, b, with_map=with_map,
-        taps=ssim_cuda.gaussian_taps(np.float32, radius, sigma),
+        taps=ssim_cuda.gaussian_taps(np.float64, radius, sigma),
         c1=float((k1 * data_range) ** 2), c2=float((k2 * data_range) ** 2),
         clip_bound=max(131072.0, 4.0 * data_range),
     )
@@ -1278,7 +1280,8 @@ def batch_twin(a, b, precise, data_range=255.0, radius=5, sigma=1.5, k1=0.01,
 
     return ssim_cuda.ssim_parts_batch_plain(
         a, b, precise, relaxed=relaxed,
-        taps=ssim_cuda.gaussian_taps(np.float32, radius, sigma),
+        taps=ssim_cuda.gaussian_taps(np.float64 if precise else np.float32,
+                                     radius, sigma),
         c1=float((k1 * data_range) ** 2), c2=float((k2 * data_range) ** 2),
         clip_bound=max(131072.0, 4.0 * data_range),
     )
@@ -2512,6 +2515,233 @@ def phase_relaxed(gen, label):
                 launches_bwd=bwd, by_call=by_call, times=times)
 
 
+# Phase 11: the edge-pad-and-align kernel (K4, csrc/pad.cu). It moves
+# bytes, so the kernel is held against its twin byte for byte (the values
+# viewed as integers of their size: NaN payloads and -0.0 count).
+# Bound: bytes only, one read of (B, H, W) and one write of (B, hp, wp).
+PAD_4K = ((4, 2160, 3840), 2176, 4096)  # pad.py's layout: hp % 32, wp % 128
+PAD_1080 = ((4, 1080, 1920), 1088, 2176)
+PAD_BIG = ((16, 8640, 15360), 8672, 15616)  # 2.17e9 output elements > 2^31
+_BITS = {1: torch.int8, 2: torch.int16, 4: torch.int32, 8: torch.int64}
+
+
+def raw(x):
+    """x's bits, as a signed integer tensor of its itemsize."""
+    return x.view(_BITS[x.element_size()])
+
+
+def pad_bound(shape, hp, wp, itemsize):
+    return bound_ms(pad_bytes(shape, hp, wp, itemsize), 0)
+
+
+def pad_bytes(shape, hp, wp, itemsize):
+    """The bytes the pad must move: one read of (B, H, W), one write of
+    (B, hp, wp)."""
+    bsz, h, w = shape
+    return itemsize * bsz * (h * w + hp * wp)
+
+
+def pad_input(gen, shape, dtype, specials=False):
+    """A random (B, H, W) input on the card; with specials, NaN (quiet and
+    with a payload), -0.0 and +-inf at the image's corners and edges."""
+    if dtype == torch.uint8:
+        return torch.randint(0, 256, shape, generator=gen, device="cuda", dtype=dtype)
+    if dtype == torch.uint16:
+        return torch.randint(-32768, 32768, shape, generator=gen, device="cuda",
+                             dtype=torch.int16).view(dtype)
+    x = torch.randn(shape, generator=gen, device="cuda", dtype=dtype)
+    if specials:
+        h, w = shape[1], shape[2]
+        x[:, 0, 0] = float("nan")
+        x[:, 0, w - 1] = -0.0
+        x[:, h - 1, 0] = float("inf")
+        x[:, h // 2, 0] = float("-inf")
+        x[:, 0, w // 2] = -0.0
+        payload = 0x7FC0ABCD if dtype == torch.float32 else 0x7FF8000000ABCDEF
+        raw(x)[:, h - 1, w - 1] = payload
+        raw(x)[:, h // 2, w - 1] = payload
+    return x
+
+
+def host_pad(x, hp, wp):
+    """np.pad(mode="edge") of x on the host, an independent reference."""
+    a = x.cpu().numpy()
+    return np.pad(a, ((0, 0), (8, hp - a.shape[1] - 8), (128, wp - a.shape[2] - 128)),
+                  mode="edge")
+
+
+def compare_pad(name, x, hp, wp):
+    """pad_align_cuda against pad_align_plain on x, byte for byte (on small
+    inputs also against np.pad on the host); returns the largest |value
+    difference| of the elements that differ, 0.0 where none does."""
+    from ssim_tpu_torch.ops.pad import pad_align_cuda, pad_align_plain
+
+    k = pad_align_cuda(x, hp=hp, wp=wp)
+    p = pad_align_plain(x, hp, wp)
+    torch.cuda.synchronize()
+    check(k.dtype == x.dtype and tuple(k.shape) == (x.shape[0], hp, wp),
+          f"pad {name}: {k.dtype} {tuple(k.shape)}")
+    diff = raw(k) != raw(p)
+    n_diff = int(diff.sum())
+    err = 0.0 if n_diff == 0 else float((k[diff].double() - p[diff].double()).abs().max())
+    del diff
+    check(n_diff == 0, f"pad {name}: {n_diff} elements differ from the twin "
+                       f"(max |d| {err:.3g})")
+    host = ""
+    if k.numel() <= 1 << 24:
+        want = host_pad(x, hp, wp)
+        got = k.cpu().numpy()
+        check(np.array_equal(got.view(np.uint8), want.view(np.uint8)),
+              f"pad {name}: the kernel differs from np.pad on the host")
+        host = ", and np.pad's on the host"
+    print(f"  {name} {tuple(x.shape)} {str(x.dtype)[6:]} -> ({hp}, {wp}): byte for "
+          f"byte the twin's{host}", flush=True)
+    return err
+
+
+def jax_test_geometries():
+    """The geometries of tests/test_pad.py (the five of
+    test_pad_pallas_matches_jnp, then test_pad_fuzz's eight)."""
+    geos = [((2, 64, 128), 96, 384), ((1, 1080, 1920), 1120, 2176),
+            ((3, 40, 256), 96, 512), ((1, 88, 128), 96, 384), ((1, 32, 128), 96, 384)]
+    for seed in range(8):
+        r = np.random.default_rng(500 + seed)
+        h = max(32, int(r.integers(4, 40)) * 8)
+        w = int(r.integers(1, 18)) * 128
+        hp = ((h + 8 + 31) // 32 + int(r.integers(0, 3))) * 32
+        wp = ((w + 128 + 5 + 127) // 128 + int(r.integers(0, 3))) * 128
+        geos.append(((2, h, w), hp, wp))
+    return geos
+
+
+def phase_pad_kernel(gen):
+    print("phase 11a: the pad kernel (K4) against its twin, byte for byte", flush=True)
+    u8, u16, f32, f64 = torch.uint8, torch.uint16, torch.float32, torch.float64
+    err = 0.0
+    for shape, hp, wp in jax_test_geometries():
+        err = max(err, compare_pad("u8 (JAX test)", pad_input(gen, shape, u8), hp, wp))
+    cases = [
+        ("u8 4K x4", PAD_4K, u8, False),
+        ("f32 4K x4", PAD_4K, f32, False),
+        ("u8 1080p x4", PAD_1080, u8, False),
+        ("f32 NaN/-0.0/inf", ((2, 64, 128), 96, 384), f32, True),
+        ("f32 NaN/-0.0/inf, unaligned", ((3, 37, 200), 96, 512), f32, True),
+        ("u16 1080p x2", ((2, 1080, 1920), 1088, 2176), u16, False),
+        ("u16, unaligned store", ((2, 37, 37), 50, 171), u16, False),
+        ("f64 NaN/-0.0/inf", ((2, 540, 960), 552, 1152), f64, True),
+        ("u8 unaligned", ((3, 37, 200), 96, 512), u8, False),
+        ("u8 unaligned store", ((2, 64, 128), 72, 300), u8, False),
+        ("u8 H = 1", ((2, 1, 300), 9, 450), u8, False),
+        ("u8 W = 1", ((2, 20, 1), 40, 129), u8, False),
+        ("f32 H = 1, W = 1", ((3, 1, 1), 9, 129), f32, True),
+    ]
+    for name, (shape, hp, wp), dtype, specials in cases:
+        x = pad_input(gen, shape, dtype, specials)
+        err = max(err, compare_pad(name, x, hp, wp))
+    shape, hp, wp = PAD_BIG
+    x = pad_input(gen, shape, u8)
+    err = max(err, compare_pad(f"u8, {x.shape[0] * hp * wp} output elements", x, hp, wp))
+    del x
+    torch.cuda.empty_cache()
+    return err
+
+
+def phase_pad_path(gen):
+    """pad_align on CUDA tensors, each call's launches counted from 0 with
+    the twin made to raise."""
+    from ssim_tpu_torch.ops import pad
+
+    print("phase 11b: pad_align on CUDA tensors (the twin patched to raise)", flush=True)
+    inputs = [(pad_input(gen, PAD_4K[0], torch.uint8),) + PAD_4K[1:],
+              (pad_input(gen, PAD_4K[0], torch.float32),) + PAD_4K[1:],
+              (pad_input(gen, PAD_1080[0], torch.uint8),) + PAD_1080[1:]]
+    twin = pad.pad_align_plain
+
+    def no_twin(*args, **kw):
+        raise RuntimeError("pad_align ran its plain twin on a CUDA tensor")
+
+    outs, launches = [], 0
+    pad.pad_align_plain = no_twin
+    try:
+        for x, hp, wp in inputs:
+            torch.cuda.synchronize()
+            zero_counts()
+            outs.append(pad.pad_align(x, hp, wp))
+            torch.cuda.synchronize()
+            got = launch_counts()
+            check(got == counts_of(pad=1),
+                  f"pad_align {tuple(x.shape)} launched {got}, expected one pad launch")
+            launches += got["pad"]
+    finally:
+        pad.pad_align_plain = twin
+    for (x, hp, wp), out in zip(inputs, outs):
+        check(torch.equal(raw(out), raw(twin(x, hp, wp))),
+              f"pad_align {tuple(x.shape)} differs from the twin")
+        print(f"  pad_align {tuple(x.shape)} {str(x.dtype)[6:]} -> ({hp}, {wp}): one "
+              f"pad launch, no other, no twin call; byte for byte the twin's", flush=True)
+    return launches
+
+
+def phase_pad_times(gen, label):
+    """The kernel (u8, f32), its twin and F.pad(mode="replicate") (f32; the
+    card's replicate pad takes floating types) at 4K x4, CUDA events around
+    20 back-to-back launches, median of 3; the kernel and F.pad in turns.
+    The u8 kernel is shorter than the wrapper's host work, so its time is
+    the trace's (events_ms keeps the events' reading of the host)."""
+    from ssim_tpu_torch.ops.pad import pad_align_cuda, pad_align_plain
+
+    print("phase 11c: times at 4K x4", flush=True)
+    shape, hp, wp = PAD_4K
+    h, w = shape[1], shape[2]
+    spec = (128, wp - w - 128, 8, hp - h - 8)
+    out = {}
+    for dtype in (torch.uint8, torch.float32):
+        x = pad_input(gen, shape, dtype)
+        kern = lambda: pad_align_cuda(x, hp=hp, wp=wp)
+        t_twin = cuda_ms(lambda: pad_align_plain(x, hp, wp), 5)
+        t_trace = kernel_trace_ms(kern, 20, "pad_align_kernel")
+        bnd, by = pad_bound(shape, hp, wp, x.element_size())
+        rec = dict(shape=[*shape], out_shape=[shape[0], hp, wp], plain_ms=t_twin,
+                   device_ms=t_trace, bound_ms=bnd, bound_by=by)
+        if dtype == torch.float32:
+            lib = lambda: torch.nn.functional.pad(x, spec, mode="replicate")
+            check(torch.equal(raw(lib()), raw(kern())),
+                  "F.pad(replicate) differs from the kernel")
+            turns = [cuda_ms(kern, 20), cuda_ms(lib, 20), cuda_ms(lib, 20),
+                     cuda_ms(kern, 20)]
+            rec.update(ms=min(turns[0], turns[3]), library_ms=min(turns[1], turns[2]),
+                       turns=turns)
+            lib_txt = (f"; F.pad(replicate) {turns[1]:.4f} / {turns[2]:.4f} ms (in turns "
+                       f"kernel, F.pad, F.pad, kernel), "
+                       f"{rec['library_ms'] / rec['ms']:.2f}x the kernel's time, "
+                       f"{bnd / rec['library_ms']:.1%} of the bound")
+            ktxt = f"{turns[0]:.4f} / {turns[3]:.4f}"
+        else:
+            check(t_trace is not None, "the trace holds no u8 pad_align_kernel")
+            rec.update(ms=t_trace, events_ms=cuda_ms(kern, 20), library_ms=None)
+            lib_txt = "; no library call (the card's replicate pad takes no u8)"
+            ktxt = (f"{t_trace:.4f} (trace; CUDA events {rec['events_ms']:.4f}, "
+                    f"the wrapper's host work)")
+        dev = "not recorded" if t_trace is None else f"{t_trace:.4f} ms"
+        print(f"  {str(dtype)[6:]} {shape} -> ({hp}, {wp}): kernel {ktxt} ms "
+              f"({bnd / rec['ms']:.1%} of the bound, "
+              f"{pad_bytes(shape, hp, wp, x.element_size()) / 1e6 / rec['ms']:.1f} GB/s), "
+              f"in the trace {dev}; "
+              f"twin {t_twin:.4f} ms; bound {bnd:.4f} ms ({by}){lib_txt} | {label}",
+              flush=True)
+        out[str(dtype)[6:]] = rec
+        del x
+    return out
+
+
+def phase_pad(gen, label):
+    err = phase_pad_kernel(gen)
+    launches = phase_pad_path(gen)
+    times = phase_pad_times(gen, label)
+    torch.cuda.empty_cache()
+    return dict(err=err, launches=launches, times=times)
+
+
 def fail_line(error):
     """The one line printed when the script cannot start, before its
     nonzero exit."""
@@ -2557,6 +2787,7 @@ def main():
     halo_fwd_err, halo_bwd_err = phase_spatial_kernels(gen)
     spatial = phase_spatial(gen, label)
     relaxed = phase_relaxed(gen, label)
+    pad = phase_pad(gen, label)
     check("jax" not in sys.modules, "JAX was imported")
 
     ref = records["4k_b4"]
@@ -2753,6 +2984,21 @@ def main():
         "library_ms": None,
         "ms_gmap": relaxed["times"]["K3 grad_1080_b4 g_map"]["ms"],
         "standard_ms_gmap": relaxed["times"]["K3 grad_1080_b4 g_map"]["standard_ms"],
+    }, {
+        "name": "pad_align",
+        "route": "cuda",
+        "source": "ssim_tpu_torch/csrc/pad.cu",
+        "replaces": "ssim_tpu/ops/pad.py:55",
+        "launches": pad["launches"],
+        "max_abs_err": pad["err"],
+        **{k: pad["times"]["float32"][k]
+           for k in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "shape",
+                     "out_shape", "device_ms")},
+        "turns_ms": pad["times"]["float32"]["turns"],  # kernel, F.pad, F.pad, kernel
+        "ms_u8": pad["times"]["uint8"]["ms"],  # the trace's
+        "events_ms_u8": pad["times"]["uint8"]["events_ms"],
+        "plain_ms_u8": pad["times"]["uint8"]["plain_ms"],
+        "bound_ms_u8": pad["times"]["uint8"]["bound_ms"],
     }]}))
     print(label)
     print(json.dumps({"ok": True, "device": {

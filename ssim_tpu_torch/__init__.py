@@ -12,15 +12,20 @@ Counterpart of `ssim_tpu/__init__.py` for the slices ported so far:
   training (`models/`);
 - spatial sharding on torch.distributed (`parallel/`): one large image
   split by rows over a mesh axis, `ssim_spatial_sharded`,
-  `mean_ssim_spatial` and `ssim_grad_spatial_sharded`.
+  `mean_ssim_spatial` and `ssim_grad_spatial_sharded`;
+- the relaxed accuracy tier (`accuracy="relaxed"`) of the eager,
+  training and MS-SSIM functions: the heavy blurs as bf16x3 band
+  products on the tensor cores;
+- the edge-pad-and-align op, `ops.pad_align`, which no SSIM path calls
+  (as in the JAX package).
 
-They run through two hand-written CUDA kernels for Hopper, built with nvcc
-at first use: the fused forward (`csrc/ssim_fwd.cu`; standard, map,
-precise fp64, MS-SSIM components and pooled-components modes) and the
-fused analytic
-backward (`csrc/ssim_bwd.cu`), on CUDA tensors, and through each kernel's
-plain PyTorch twin on CPU tensors. This package imports torch and NumPy,
-never JAX or ssim_tpu.
+They run through three hand-written CUDA kernels for Hopper, built with
+nvcc at first use: the fused forward (`csrc/ssim_fwd.cu`; standard, map,
+precise fp64, MS-SSIM components and pooled-components, small-image
+batch and row modes, and relaxed instantiations), the fused analytic
+backward (`csrc/ssim_bwd.cu`, also relaxed) and the pad (`csrc/pad.cu`),
+on CUDA tensors, and through each kernel's plain PyTorch twin on CPU
+tensors. This package imports torch and NumPy, never JAX or ssim_tpu.
 """
 
 from .version import __version__, get_version

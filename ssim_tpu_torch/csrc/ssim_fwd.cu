@@ -22,11 +22,17 @@
 // - kScore / kMap: one f32 partial per tile, sum(ssim - 1) + n_valid, with
 //   the SSIM formula of _ssim_from_blurs; kMap also writes the map.
 // - kPrecise / kPreciseMap (precision="f64", the counterpart of the
-//   reference's RMGR_SSIM_USE_DOUBLE build): the same f32 blurs, bit for
-//   bit the standard modes', then the four blurred signals widened to
-//   double and the formula of _ssim_from_blurs evaluated in native fp64
-//   (num / den, the algebra the TPU kernel compensates in df32,
-//   _ssim_from_blurs_df32, ssim_pallas.py:621-644), the tile's
+//   reference's RMGR_SSIM_USE_DOUBLE build): the standard modes' blurs in
+//   their order of operations, but in fp64 with the f64 taps (the f32
+//   halo tiles widen exactly; the planes are double), then the formula of
+//   _ssim_from_blurs in native fp64 (num / den, the algebra the TPU
+//   kernel compensates in df32, _ssim_from_blurs_df32,
+//   ssim_pallas.py:621-644). The TPU kernel blurs in f32 with f32 taps;
+//   on a flat window (a 1x1 image, or any constant region) sigma =
+//   E[x^2] - mu^2 then cancels to f32 rounding, up to 5e-5 per pixel
+//   against the f64 oracle. fp64 blurs with the f32 taps still leave
+//   8e-7 there (the f32 taps do not sum to 1, so a flat window keeps a
+//   variance of mu^2 (1 - sum)); with the f64 taps ~1e-12. Then the tile's
 //   sum(ssim - 1) accumulated in double, and ONE fp64 partial per tile,
 //   sum(ssim - 1) + n_valid. The TPU kernel writes two f32 partials per
 //   tile (the df32 hi and lo + e, :1188-1195); both are summed in f64 by
@@ -117,18 +123,21 @@
 // (u8 or f32) and writes at most one f32 map value (kPooled: half an f32
 // per input pixel), while the function needs 24r + 43 f32 operations
 // (163 at radius 5: 4 signals x 2 passes x (3r + 2), the signals and the
-// formula; kComponents 24r + 45, kPooled 24r + 47; kPrecise 24r + 20 in
-// f32 and 27 in fp64; counted in chip_smoke.py). Device memory (3.35
-// TB/s) would allow ~1 Tpix/s for u8 without a map and the f32 peak ~410
-// Gpix/s, so the kernel is bound on chip: by the blurs' shared-memory
+// formula; kComponents 24r + 45, kPooled 24r + 47; kPrecise in fp64 the
+// eight band blurs as 8 (2r + 1) multiply-adds, which the FP64 tensor
+// cores could run, and 27 other operations; counted in chip_smoke.py).
+// Device memory (3.35 TB/s) would allow ~1 Tpix/s for u8 without a map
+// and the f32 peak ~410 Gpix/s, so the kernel is bound on chip: by the
+// blurs' shared-memory
 // traffic (~80 32-bit accesses per output pixel at radius 5) and
 // instruction issue. It measured 30-39 Gpix/s in mode kScore on an H100,
 // the same with and without FMA contraction, and the same with the L2
 // flushed between launches. The pool adds 2 operations and reads the
 // tile's inputs once more, from L1 or L2, where the halo load has just
-// brought them. The precise formula is ~27 fp64 operations, one of them a
-// division (a short software sequence), against ~140 f32 blur operations
-// per pixel.
+// brought them. The precise modes run the ~140 blur operations per pixel
+// in fp64 (half the f32 rate on an H100) and keep twice the planes' bytes
+// in shared memory, plus the ~27 fp64 operations of the formula, one of
+// them a division (a short software sequence).
 // The batch modes do the same work per pixel; at widths under 64 the tile
 // grid's 64-wide tiles leave threads idle in both blur passes, which the
 // narrower batch tiles do not.
@@ -191,8 +200,16 @@ struct Halo {
   int is_bot;
 };
 
+// The precise modes blur in fp64 with the f64 taps; the others in f32.
+template <int kMode>
+constexpr bool kIsPrecise =
+    kMode == kPrecise || kMode == kPreciseMap || kMode == kBatchPrecise;
+template <int kMode>
+using Blur = typename std::conditional<kIsPrecise<kMode>, double, float>::type;
+
+template <typename P>
 struct Taps {
-  float t[kMaxTaps];
+  P t[kMaxTaps];
 };
 
 __device__ __forceinline__ float to_f32(uint8_t v) { return (float)v; }
@@ -216,29 +233,32 @@ ssim_fwd_kernel(const T* __restrict__ a, const T* __restrict__ b,
                 float* __restrict__ pool_a, float* __restrict__ pool_b,
                 void* __restrict__ scratch, Halo<T> halo, int B, int H, int W,
                 int r, int TH, int TW, int ntx, int tiles_per_image, int ipb,
-                int groups, Taps taps, float c1f, float c2f, double c1,
+                int groups, Taps<Blur<kMode>> taps, float c1f, float c2f, double c1,
                 double c2, float clip_bound) {
   constexpr bool kFloat = sizeof(T) == 4;
   constexpr bool kComp = kMode == kComponents || kMode == kPooled;
-  constexpr bool kPrec =
-      kMode == kPrecise || kMode == kPreciseMap || kMode == kBatchPrecise;
+  constexpr bool kPrec = kIsPrecise<kMode>;
   constexpr bool kWithMap =
       kMode == kMap || kMode == kPreciseMap || kMode == kRowsumMap;
   constexpr bool kBatchMode = kMode == kBatch || kMode == kBatchPrecise;
   constexpr bool kRows = kMode == kRowsum || kMode == kRowsumMap;
   // The relaxed modes: kSplit = band_mma::ksteps(r), 0 in the others.
   constexpr bool kRelaxed = kSplit > 0;
-  // The tile sums' type: double in the precise modes, else float.
-  using Acc = typename std::conditional<kPrec, double, float>::type;
+  // The blurs' type (the taps and planes too) and the tile sums': double
+  // in the precise modes, else float; the halo tiles hold the f32 inputs,
+  // which widen exactly.
+  using P = Blur<kMode>;
+  using Acc = P;
   extern __shared__ float smem[];
-  __shared__ float s_taps[kMaxTaps];
+  __shared__ P s_taps[kMaxTaps];
   __shared__ Acc s_warp[kComp ? 2 : 1][kThreads / 32];  // [0]: ssim, [1]: cs
 
   const int HR = TH + 2 * r;  // halo rows
   const int HW = TW + 2 * r;  // halo columns
   float* sa = smem;           // HR x HW
   float* sb = sa + HR * HW;   // HR x HW
-  float* hp = sb + HR * HW;   // 4 planes of HR x TW: mu_a, mu_b, ss, dd
+  // 4 planes of HR x TW: mu_a, mu_b, ss, dd (8-byte aligned: 2 HR HW floats).
+  P* hp = reinterpret_cast<P*>(sb + HR * HW);
   const int plane = HR * TW;
 
   const int tid = threadIdx.x;
@@ -382,19 +402,19 @@ ssim_fwd_kernel(const T* __restrict__ a, const T* __restrict__ b,
         for (int lx = tx; lx < vw; lx += TW) {
           const float* ra = sa + ly * HW + lx + r;
           const float* rb = sb + ly * HW + lx + r;
-          float ma = 0.0f, mb = 0.0f, ss = 0.0f, dd = 0.0f;
+          P ma = 0, mb = 0, ss = 0, dd = 0;
           for (int d = r; d >= 1; --d) {
-            const float t = s_taps[r - d];
-            const float al = ra[-d], ah = ra[d], bl = rb[-d], bh = rb[d];
-            const float sl = al + bl, sh = ah + bh, dl = al - bl, dh = ah - bh;
+            const P t = s_taps[r - d];
+            const P al = ra[-d], ah = ra[d], bl = rb[-d], bh = rb[d];
+            const P sl = al + bl, sh = ah + bh, dl = al - bl, dh = ah - bh;
             ma += t * (al + ah);
             mb += t * (bl + bh);
             ss += t * (sl * sl + sh * sh);
             dd += t * (dl * dl + dh * dh);
           }
-          const float tc = s_taps[r];
-          const float ac = ra[0], bc = rb[0];
-          const float sc = ac + bc, dc = ac - bc;
+          const P tc = s_taps[r];
+          const P ac = ra[0], bc = rb[0];
+          const P sc = ac + bc, dc = ac - bc;
           const int o = ly * TW + lx;
           hp[o] = ma + tc * ac;
           hp[plane + o] = mb + tc * bc;
@@ -410,25 +430,25 @@ ssim_fwd_kernel(const T* __restrict__ a, const T* __restrict__ b,
     for (int ly = ty; ly < vh; ly += ystep) {
       [[maybe_unused]] float row_acc = 0.0f;  // kRows: this thread's part of row ly
       for (int lx = tx; lx < vw; lx += TW) {
-        const float* c = hp + (ly + r) * TW + lx;
-        float m0 = 0.0f, m1 = 0.0f, m2 = 0.0f, m3 = 0.0f;
+        const P* c = hp + (ly + r) * TW + lx;
+        P m0 = 0, m1 = 0, m2 = 0, m3 = 0;
         for (int d = r; d >= 1; --d) {
-          const float t = s_taps[r - d];
+          const P t = s_taps[r - d];
           const int o = d * TW;
           m0 += t * (c[-o] + c[o]);
           m1 += t * (c[plane - o] + c[plane + o]);
           m2 += t * (c[2 * plane - o] + c[2 * plane + o]);
           m3 += t * (c[3 * plane - o] + c[3 * plane + o]);
         }
-        const float tc = s_taps[r];
-        const float mu_a = m0 + tc * c[0];
-        const float mu_b = m1 + tc * c[plane];
-        const float s_ss = m2 + tc * c[2 * plane];
-        const float s_dd = m3 + tc * c[3 * plane];
+        const P tc = s_taps[r];
+        const P mu_a = m0 + tc * c[0];
+        const P mu_b = m1 + tc * c[plane];
+        const P s_ss = m2 + tc * c[2 * plane];
+        const P s_dd = m3 + tc * c[3 * plane];
         Acc v, cs = 0;
         if constexpr (kPrec) {
           // _ssim_from_blurs (ssim_pallas.py:465-477) in fp64 on the
-          // widened f32 blurs.
+          // fp64 blurs.
           const double da = mu_a, db = mu_b, dss = s_ss, ddd = s_dd;
           const double mu_a2 = da * da;
           const double mu_b2 = db * db;
@@ -598,15 +618,16 @@ template <typename T, int kMode, int kSplit>
 cudaError_t launch(const void* a, const void* b, void* partials, void* map,
                    void* pool_a, void* pool_b, void* scratch,
                    const Halo<T>& halo, int B, int H, int W, int r, int TH,
-                   int TW, int ipb, int groups, const float* taps_host,
+                   int TW, int ipb, int groups, const double* taps_host,
                    double c1, double c2, float clip_bound,
                    cudaStream_t stream) {
+  using P = Blur<kMode>;
   constexpr bool kBatchMode = kMode == kBatch || kMode == kBatchPrecise;
   constexpr bool kRows = kMode == kRowsum || kMode == kRowsumMap;
   if (kMode == kPooled && ((TH | TW) & 1)) return cudaErrorInvalidValue;
-  Taps taps;
+  Taps<P> taps;
   for (int k = 0; k < kMaxTaps; ++k) {
-    taps.t[k] = k < 2 * r + 1 ? taps_host[k] : 0.0f;
+    taps.t[k] = k < 2 * r + 1 ? (P)taps_host[k] : P(0);
   }
   const int ntx = (W + TW - 1) / TW;
   const int nty = (H + TH - 1) / TH;
@@ -616,9 +637,9 @@ cudaError_t launch(const void* a, const void* b, void* partials, void* map,
     blocks = groups > 1 ? (long long)B * groups : ((long long)B + ipb - 1) / ipb;
   }
   if (blocks < 1 || blocks > 0x7fffffffLL) return cudaErrorInvalidConfiguration;
-  const size_t smem =
-      sizeof(float) * ((size_t)2 * (TH + 2 * r) * (TW + 2 * r) +
-                       (size_t)4 * (TH + 2 * r) * TW);
+  // The halo tiles in f32, the planes in the blurs' type (ssim_cuda.smem_bytes).
+  const size_t smem = sizeof(float) * (size_t)2 * (TH + 2 * r) * (TW + 2 * r) +
+                      sizeof(P) * (size_t)4 * (TH + 2 * r) * TW;
   cudaError_t err = cudaFuncSetAttribute(
       ssim_fwd_kernel<T, kMode, kSplit>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
@@ -661,7 +682,7 @@ cudaError_t launch_typed(int is_float, const void* a, const void* b,
                          void* pool_b, void* scratch, const void* const* halo,
                          int is_top, int is_bot, int B, int H, int W, int r,
                          int TH, int TW, int ipb, int groups,
-                         const float* taps_host, double c1, double c2,
+                         const double* taps_host, double c1, double c2,
                          float clip_bound, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   return is_float
@@ -698,7 +719,9 @@ cudaError_t launch_typed(int is_float, const void* a, const void* b,
 // modes when groups > 1, (B, ceil(W/TW), H) f32 in the row modes, else
 // NULL. a_top, a_bot, b_top, b_bot: the halo operands, (B, r, W) of the
 // inputs' type, all four or none, in the row modes only; is_top, is_bot:
-// their flags (0 or 1). taps_host: 2r+1 floats in host memory. c1, c2:
+// their flags (0 or 1). taps_host: 2r+1 doubles in host memory: the f32
+// taps widened, or in the precise modes the f64 taps (ssim_cuda._prepare;
+// the other modes round them to float). c1, c2:
 // the stabilising constants (rounded to float by the f32 modes). Returns
 // the launch's cudaError_t.
 extern "C" int ssim_fwd_launch(int mode, int relaxed, int is_float,
@@ -709,7 +732,7 @@ extern "C" int ssim_fwd_launch(int mode, int relaxed, int is_float,
                                const void* b_top, const void* b_bot,
                                int is_top, int is_bot, int B, int H, int W,
                                int r, int TH, int TW, int ipb, int groups,
-                               const float* taps_host, double c1, double c2,
+                               const double* taps_host, double c1, double c2,
                                float clip_bound, void* stream) {
   const bool batch = mode == kBatch || mode == kBatchPrecise;
   const bool rows = mode == kRowsum || mode == kRowsumMap;

@@ -17,10 +17,10 @@ What differs from the JAX engine:
 - `precision="f64"` is routed as the JAX engine routes it
   (ssim_tpu/engine.py:277-292): impl `cuda`/`auto`, radius <= 16 and a
   pair of one dtype that embeds exactly in f32 (u8, u16, f16, bf16, f32)
-  run the forward kernel's precise mode, which evaluates the formula and
-  the tile sums in native fp64 where the TPU kernel uses compensated
-  df32; f64 inputs (the f32 cast would round them before the formula),
-  mixed dtypes, radius > 16, `impl="torch"` and `impl="reference"` take
+  run the forward kernel's precise mode, which evaluates the blurs, the
+  formula and the tile sums in native fp64 where the TPU kernel blurs in
+  f32 and uses compensated df32; f64 inputs (the f32 cast would round
+  them before the formula), mixed dtypes, radius > 16, `impl="torch"` and `impl="reference"` take
   the f64 oracle, as in the JAX package.
 - The tile settings (`Config.max_tile_h/_w`) pin the kernel's tile after
   `ops.ssim_cuda.fit_tile` brings them into the range it takes; a
@@ -321,7 +321,7 @@ def compute(
             # Clamped into the kernel's range as the JAX engine clamps; any
             # setting keeps a batch of small images on the tile grid.
             tile_kwargs["tile_h"], tile_kwargs["tile_w"] = fit_tile(
-                cfg.max_tile_h, cfg.max_tile_w, radius)
+                cfg.max_tile_h, cfg.max_tile_w, radius, precise)
         partials, ssim_map = ssim_parts_auto(
             a, b, with_map=with_map, data_range=data_range, precise=precise,
             relaxed=relaxed, **window, **tile_kwargs,

@@ -1,5 +1,5 @@
-"""Numeric paths: the plain PyTorch path and the fused CUDA kernels
-(forward and backward).
+"""Numeric paths: the plain PyTorch path, the fused CUDA kernels (forward
+and backward) and the edge-pad-and-align kernel (`pad_align`).
 
 Counterpart of `ssim_tpu/ops/`. The CUDA kernels are built from
 `ssim_tpu_torch/csrc/` at first launch, never at import.
@@ -14,6 +14,7 @@ from .ssim_cuda import (
 )
 from .routing import ssim_parts_auto, pallas_routable
 from .ssim_grad import grad_cuda_supported, ssim_grad_cuda, ssim_grad_plain
+from .pad import pad_align, pad_align_cuda, pad_align_plain
 
 __all__ = [
     "ssim_parts_torch",
@@ -34,4 +35,7 @@ __all__ = [
     "grad_cuda_supported",
     "ssim_grad_cuda",
     "ssim_grad_plain",
+    "pad_align",
+    "pad_align_cuda",
+    "pad_align_plain",
 ]

@@ -150,5 +150,8 @@ def load_library() -> ctypes.CDLL:
                 p, p, f, f, f, p,
             ]
             lib.ssim_bwd_launch.restype = i
+            # x, out, itemsize, B, H, W, hp, wp, stream.
+            lib.pad_align_launch.argtypes = [p, p, i, i, i, i, i, i, p]
+            lib.pad_align_launch.restype = i
             _lib = lib
         return _lib

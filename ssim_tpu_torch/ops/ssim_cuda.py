@@ -8,9 +8,11 @@ and `_chunked_overlap_call`, in these of their modes:
   (`ssim_parts_pallas`), twin `ssim_parts_plain`;
 - precise tier (precision="f64"), with or without the map:
   `ssim_parts_cuda(precise=True)` (`ssim_parts_pallas(precise=True)`),
-  twin `ssim_parts_precise_plain`: the standard f32 blurs, the SSIM
-  formula in native fp64 where the TPU kernel compensates it in df32, and
-  one fp64 partial per tile where the TPU kernel writes two f32 ones;
+  twin `ssim_parts_precise_plain`: the standard blurs in fp64 with the
+  f64 taps where the TPU kernel blurs in f32 with f32 taps (which cancels
+  to f32 rounding on flat windows), the SSIM formula in native fp64 where
+  the TPU kernel compensates it in df32, and one fp64 partial per tile
+  where the TPU kernel writes two f32 ones;
 - MS-SSIM components, per-tile [sum cs, sum ssim]:
   `ssim_components_cuda` (`ssim_components_pallas`), twin
   `ssim_components_plain`;
@@ -124,11 +126,11 @@ _BATCH_BLOCKS = 4096
 _BATCH_MAX_RUN = 8
 
 
-def smem_bytes(tile_h: int, tile_w: int, radius: int) -> int:
-    """Dynamic shared memory of one block: the a and b halo tiles plus
-    four horizontally blurred planes."""
+def smem_bytes(tile_h: int, tile_w: int, radius: int, precise: bool = False) -> int:
+    """Dynamic shared memory of one block: the a and b halo tiles (f32)
+    plus four horizontally blurred planes (f64 in the precise modes)."""
     hr = tile_h + 2 * radius
-    return 4 * (2 * hr * (tile_w + 2 * radius) + 4 * hr * tile_w)
+    return 4 * 2 * hr * (tile_w + 2 * radius) + (8 if precise else 4) * 4 * hr * tile_w
 
 
 def tile_grid(h: int, w: int, tile_h: int = TILE_H, tile_w: int = TILE_W):
@@ -136,17 +138,19 @@ def tile_grid(h: int, w: int, tile_h: int = TILE_H, tile_w: int = TILE_W):
     return -(-h // tile_h), -(-w // tile_w)
 
 
-def fit_tile(tile_h: Optional[int], tile_w: Optional[int], radius: int):
+def fit_tile(tile_h: Optional[int], tile_w: Optional[int], radius: int,
+             precise: bool = False):
     """A tile setting (each >= 1, or None for TILE_H / TILE_W) brought into
     the range the kernel takes, as the JAX engine clamps its max_tile_h
     (ssim_pallas.py:728): tile_h to a multiple of 32 in [32, 256], tile_w
     to the power of two in [32, 256] at or below it; then tile_h, and
     where that is not enough tile_w, shrunk until a block's shared memory
-    fits at this radius. Returns (tile_h, tile_w)."""
+    fits at this radius (with the precise modes' f64 planes where
+    precise). Returns (tile_h, tile_w)."""
     th = TILE_H if tile_h is None else max(32, min(int(tile_h), _MAX_TILE_H) // 32 * 32)
     tw = TILE_W if tile_w is None else min(
         _TILE_WIDTHS[-1], max(_TILE_WIDTHS[0], 1 << (int(tile_w).bit_length() - 1)))
-    while smem_bytes(th, tw, radius) > _MAX_DYNAMIC_SMEM:
+    while smem_bytes(th, tw, radius, precise) > _MAX_DYNAMIC_SMEM:
         if th > 32:
             th -= 32
         else:
@@ -321,14 +325,16 @@ def splice_rows(x, top, bot, is_top, is_bot):
 
 
 def _blurs_plain(a, b, taps, clip_bound, vhalo=None, vmask=(False, False),
-                 relaxed=False):
+                 relaxed=False, dtype=torch.float32):
     """The four blurred signals mu_a, mu_b, s_ss, s_dd of (B, H, W) u8 or
-    f32 inputs in the kernel's order of operations, and for f32 the mask
-    of non-finite input pixels (None for u8). vhalo: the four (B, r, W)
-    halo operands (a_top, a_bot, b_top, b_bot) with their vmask flags, in
-    place of the clamp at the top and bottom rows. relaxed: the relaxed
-    modes' horizontal pass, the heavy (a+b)^2 and (a-b)^2 blurs as
-    band_bf16x3_plain (the mu blurs and the vertical pass as they are).
+    f32 inputs in the kernel's order of operations, in `dtype` (f32, or
+    f64 in the precise modes: the sanitised f32 inputs widened exactly),
+    and for f32 the mask of non-finite input pixels (None for u8). vhalo:
+    the four (B, r, W) halo operands (a_top, a_bot, b_top, b_bot) with
+    their vmask flags, in place of the clamp at the top and bottom rows.
+    relaxed: the relaxed modes' horizontal pass, the heavy (a+b)^2 and
+    (a-b)^2 blurs as band_bf16x3_plain (the mu blurs and the vertical
+    pass as they are).
     The kernels blur horizontally first and the JAX kernel vertically
     first; either order is inside the tier's error."""
     h, w = a.shape[-2], a.shape[-1]
@@ -346,6 +352,7 @@ def _blurs_plain(a, b, taps, clip_bound, vhalo=None, vmask=(False, False),
         flags = tuple(bool(f) for f in vmask)
         ap = _pad_cols(splice_rows(af, at, ab, *flags), r)
         bp = _pad_cols(splice_rows(bf, bt, bb, *flags), r)
+    ap, bp = ap.to(dtype), bp.to(dtype)
     # Horizontal pass over all H + 2r rows, then the vertical pass.
     if relaxed:
         s, d = ap + bp, ap - bp
@@ -393,14 +400,25 @@ def _tile_partials(x, tile_h, tile_w):
     return (sums + n_valid).reshape(bsz, nty * ntx)
 
 
+def _check_taps(taps, precise):
+    """The precise modes take the f64 taps, the others the f32 taps
+    (_prepare), so that kernel and twin blur with the same ones."""
+    want = np.float64 if precise else np.float32
+    if np.asarray(taps).dtype != want:
+        raise ValueError(
+            f"the {'precise' if precise else 'f32'} modes take "
+            f"{np.dtype(want).name} taps, got {np.asarray(taps).dtype}")
+
+
 def _ssim_map_plain(a, b, dtype, taps, c1, c2, clip_bound, tile_h, tile_w,
                     vhalo=None, vmask=(False, False), relaxed=False):
-    """Per-pixel SSIM of the standard, relaxed and precise modes: the f32
-    blurs, then the formula of _ssim_from_blurs in `dtype` (f32, or f64 on
-    the widened blurs), with NaN over the tiles of non-finite inputs."""
-    blurs, bad = _blurs_plain(a, b, taps, clip_bound, vhalo, vmask, relaxed)
-    mu_a2, mu_b2, mu_ab, sigma_ab_x4, sigma_sum_x2 = _sigmas(
-        *(x.to(dtype) for x in blurs))
+    """Per-pixel SSIM of the standard, relaxed and precise modes: the blurs
+    and the formula of _ssim_from_blurs in `dtype` (f32, or f64 with the
+    f64 taps in the precise modes), with NaN over the tiles of non-finite
+    inputs."""
+    _check_taps(taps, dtype == torch.float64)
+    blurs, bad = _blurs_plain(a, b, taps, clip_bound, vhalo, vmask, relaxed, dtype)
+    mu_a2, mu_b2, mu_ab, sigma_ab_x4, sigma_sum_x2 = _sigmas(*blurs)
     num = (2.0 * mu_ab + c1) * (0.5 * sigma_ab_x4 + c2)
     den = (mu_a2 + mu_b2 + c1) * (0.5 * sigma_sum_x2 + c2)
     return _poison(num / den, bad, tile_h, tile_w)
@@ -477,9 +495,10 @@ def ssim_parts_precise_plain(
     tile_w: int = TILE_W,
 ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
     """The precise mode's plain twin on (B, H, W) u8 or f32 tensors, on
-    any device: the standard mode's f32 blurs widened to f64, the SSIM
-    formula in f64 in the kernel's order, the per-tile NaN poison, and f64
-    tile sums over the same grid. Returns (partials (B, nty*ntx) f64,
+    any device: the standard mode's blurs in f64 with the f64 taps (the
+    inputs widened exactly), the SSIM formula in f64, both in the kernel's
+    order, the
+    per-tile NaN poison, and f64 tile sums over the same grid. Returns (partials (B, nty*ntx) f64,
     map (B, H, W) f32, the f64 values rounded, or None)."""
     ssim = _ssim_map_plain(a, b, torch.float64, taps, c1, c2, clip_bound,
                            tile_h, tile_w)
@@ -601,8 +620,9 @@ def _launch(a, b, *, mode, taps, c1, c2, clip_bound, tile_h, tile_w, ipb=1,
         scratch = None
     ptr = lambda x: None if x is None else x.data_ptr()
     halo = (None,) * 4 if vhalo is None else tuple(x.data_ptr() for x in vhalo)
+    _check_taps(taps, precise)
     r = len(taps) // 2
-    taps_c = (ctypes.c_float * len(taps))(*[float(v) for v in taps])
+    taps_c = (ctypes.c_double * len(taps))(*[float(v) for v in taps])
     with torch.cuda.device(a.device):
         err = lib.ssim_fwd_launch(
             _MODES.index(mode), int(relaxed), int(a.dtype == torch.float32),
@@ -645,10 +665,11 @@ def _launch(a, b, *, mode, taps, c1, c2, clip_bound, tile_h, tile_w, ipb=1,
     return partials, ssim_map
 
 
-def _prepare(a, b, *, data_range, radius, sigma, k1, k2):
+def _prepare(a, b, *, data_range, radius, sigma, k1, k2, precise=False):
     """Check what every mode of the kernel needs of its arguments (dtypes
     and the tile are each wrapper's own check) and return the launch's
-    keyword arguments: taps, c1, c2, clip_bound."""
+    keyword arguments: taps (f32, or f64 for the precise modes), c1, c2,
+    clip_bound."""
     if not 1 <= radius <= MAX_FUSED_RADIUS:
         raise ValueError(
             f"the fused kernel serves radius 1..{MAX_FUSED_RADIUS}; got "
@@ -656,7 +677,7 @@ def _prepare(a, b, *, data_range, radius, sigma, k1, k2):
         )
     if data_range < 1e-6:
         raise ValueError(f"data_range {data_range} too small (must be >= 1e-6)")
-    taps = gaussian_taps(np.float32, radius, sigma)
+    taps = gaussian_taps(np.float64 if precise else np.float32, radius, sigma)
     c1 = float((k1 * data_range) ** 2)
     c2 = float((k2 * data_range) ** 2)
     if c1 * c2 < 9e-32:
@@ -679,29 +700,30 @@ def _prepare(a, b, *, data_range, radius, sigma, k1, k2):
                 clip_bound=max(131072.0, 4.0 * float(data_range)))
 
 
-def _check_tile(tile_h, tile_w, radius):
-    """A pinned tile the tile modes can take at this radius, or raise."""
+def _check_tile(tile_h, tile_w, radius, precise=False):
+    """A pinned tile the tile modes (precise: the precise modes) can take
+    at this radius, or raise."""
     if tile_w not in _TILE_WIDTHS or not 1 <= tile_h <= _MAX_TILE_H:
         raise ValueError(
             f"tile {tile_h}x{tile_w}: tile_w must be one of {_TILE_WIDTHS} "
             f"and tile_h in 1..{_MAX_TILE_H}"
         )
-    if smem_bytes(tile_h, tile_w, radius) > _MAX_DYNAMIC_SMEM:
+    if smem_bytes(tile_h, tile_w, radius, precise) > _MAX_DYNAMIC_SMEM:
         raise ValueError(
             f"tile {tile_h}x{tile_w} at radius {radius} needs "
-            f"{smem_bytes(tile_h, tile_w, radius)} bytes of shared memory "
+            f"{smem_bytes(tile_h, tile_w, radius, precise)} bytes of shared memory "
             f"(at most {_MAX_DYNAMIC_SMEM})"
         )
 
 
-def _tile_kw(a, b, allow_float, tile_h, tile_w, **win):
+def _tile_kw(a, b, allow_float, tile_h, tile_w, precise=False, **win):
     """The tile modes' checks and launch keywords (the tile pinned or the
     default TILE_H x TILE_W)."""
     _check_dtypes(a, b, allow_float)
-    kw = _prepare(a, b, **win)
+    kw = _prepare(a, b, precise=precise, **win)
     kw["tile_h"] = TILE_H if tile_h is None else int(tile_h)
     kw["tile_w"] = TILE_W if tile_w is None else int(tile_w)
-    _check_tile(kw["tile_h"], kw["tile_w"], win["radius"])
+    _check_tile(kw["tile_h"], kw["tile_w"], win["radius"], precise)
     return kw
 
 
@@ -774,8 +796,9 @@ def ssim_parts_cuda(
     TILE_H x TILE_W).
 
     precise=True is the precise tier (precision="f64", the reference's
-    RMGR_SSIM_USE_DOUBLE build): the same f32 blurs, the SSIM formula and
-    the tile sums in native fp64, and partials (..., K) f64, one per tile.
+    RMGR_SSIM_USE_DOUBLE build): the blurs (with the f64 taps), the SSIM
+    formula and the tile sums in native fp64 (the JAX kernel blurs in f32
+    with f32 taps), and partials (..., K) f64, one per tile.
     The JAX kernel's precise mode writes 2K f32 partials (df32 hi, lo +
     e); engine.finalize_mean sums either in f64, so the score is the same
     quantity. The map is the f32 rounding of the fp64 values.
@@ -830,7 +853,7 @@ def ssim_parts_cuda(
             sigma=sigma, k1=k1, k2=k2, allow_float=allow_float, tile_h=tile_h,
             tile_w=tile_w, vhalo=vhalo, vmask=vmask)
         return (rows, None) if rowsum else (None, ssim_map)
-    kw = _tile_kw(a, b, allow_float, tile_h, tile_w, data_range=data_range,
+    kw = _tile_kw(a, b, allow_float, tile_h, tile_w, precise, data_range=data_range,
                   radius=radius, sigma=sigma, k1=k1, k2=k2)
     squeeze = a.dim() == 2
     if squeeze:
@@ -1007,8 +1030,8 @@ def ssim_parts_batch_cuda(
 
     Returns (B, 2) partials [sum(ssim - 1), H*W] (finalize with
     engine.finalize_mean), f32 as in ssim_parts_pallas_bpacked. With
-    precise=True the precise tier: the same f32 blurs, the formula and the
-    sums in fp64, and (B, 2) f64 where the JAX kernel writes (B, 3) f32
+    precise=True the precise tier: the blurs (with the f64 taps), the
+    formula and the sums in fp64, and (B, 2) f64 where the JAX kernel writes (B, 3) f32
     [df32 hi, lo, H*W]; engine.finalize_mean and api._device_finalize sum
     the last axis in f64, so the score is the same quantity. Each pixel's
     SSIM is the tile modes' bit for bit; only the order of the sums
@@ -1032,7 +1055,7 @@ def ssim_parts_batch_cuda(
             f"{a.shape[-2]}x{a.shape[-1]}"
         )
     kw = _prepare(a, b, data_range=data_range, radius=radius, sigma=sigma,
-                  k1=k1, k2=k2)
+                  k1=k1, k2=k2, precise=precise)
     if a.device.type == "cuda":
         tile_h, tile_w, ipb, groups = batch_geometry(*a.shape)
         return _launch(a, b, mode="batch_precise" if precise else "batch",

@@ -371,6 +371,8 @@ def test_batch_geometry(shape):
     assert tile_w in (8, 16, 32, 64) and (tile_w >= w or tile_w == 64)
     assert 1 <= tile_h <= h and ipb >= 1 and groups >= 1 and min(ipb, groups) == 1
     assert ssim_cuda.smem_bytes(tile_h, tile_w, 16) <= ssim_cuda._MAX_DYNAMIC_SMEM
+    assert (ssim_cuda.smem_bytes(tile_h, tile_w, 16, precise=True)
+            <= ssim_cuda._MAX_DYNAMIC_SMEM)
     nty, ntx = ssim_cuda.tile_grid(h, w, tile_h, tile_w)
     tiles = nty * ntx
     # The kernel's runs: tiles [g * tiles // groups, (g + 1) * tiles // groups).

@@ -1,8 +1,8 @@
 """The fused CUDA kernels (forward in its standard, precise, components,
 pooled-components, batch and row modes, with and without halo operands,
-and backward, with and without them; both in their relaxed modes) against
-their plain twins, on the card, and the launches of the training, MS-SSIM
-and small-image batch paths.
+and backward, with and without them; both in their relaxed modes) and the
+pad kernel against their plain twins, on the card, and the launches of the
+training, MS-SSIM, small-image batch and pad paths.
 
 Marked `cuda`: it skips without a CUDA device (here, on the CPU). This
 file imports neither JAX nor the repo's conftest, so it also runs on a
@@ -15,7 +15,8 @@ Tolerances (the port-against-counterpart tier of torch_port_util.py):
 5e-5 at radius 1. The backward kernel against its twin: 1e-6 * max(1,
 max|g|); both are built to round alike, so they are expected to agree
 exactly. Pooled images, and the precise modes' maps: equal to the twin's
-bit for bit; precise scores within 1e-12 relative.
+bit for bit; precise scores within 1e-12 relative. The pad kernel moves
+bytes: equal to its twin's byte for byte.
 """
 
 import numpy as np
@@ -23,7 +24,7 @@ import pytest
 import torch
 
 import ssim_tpu_torch
-from ssim_tpu_torch.ops import ssim_cuda, ssim_grad
+from ssim_tpu_torch.ops import pad, ssim_cuda, ssim_grad
 from ssim_tpu_torch.windows import gaussian_taps
 
 
@@ -118,8 +119,9 @@ def test_ssim_loss_backward_launches_the_kernel():
     assert (x.grad.cpu() - y.grad).abs().max().item() <= 1e-6
 
 
-def _twin_kw(data_range):
-    return dict(taps=gaussian_taps(np.float32, 5, 1.5),
+def _twin_kw(data_range, precise=False):
+    """The twins' keywords; the precise twins take the f64 taps."""
+    return dict(taps=gaussian_taps(np.float64 if precise else np.float32, 5, 1.5),
                 c1=(0.01 * data_range) ** 2, c2=(0.03 * data_range) ** 2,
                 clip_bound=max(131072.0, 4.0 * data_range))
 
@@ -187,7 +189,7 @@ def test_precise_kernel_matches_twin_on_card(dtype, with_map):
     assert (ssim_cuda.LAUNCHES, ssim_cuda.PRECISE_LAUNCHES) == (before[0], before[1] + 1)
     assert pk.dtype == torch.float64 and pk.is_cuda
     pp, mp = ssim_cuda.ssim_parts_precise_plain(at, bt, with_map=with_map,
-                                                **_twin_kw(data_range))
+                                                **_twin_kw(data_range, True))
     if with_map:
         assert torch.equal(mk.isnan(), mp.isnan())
         assert torch.equal(mk.nan_to_num(), mp.nan_to_num())
@@ -253,7 +255,8 @@ def test_batch_modes_match_twin_on_card(dtype, precise):
         assert pk.dtype == (torch.float64 if precise else torch.float32)
         npix = shape[1] * shape[2]
         assert bool((pk[:, 1] == npix).all())
-        pp = ssim_cuda.ssim_parts_batch_plain(at, bt, precise, **_twin_kw(data_range))
+        pp = ssim_cuda.ssim_parts_batch_plain(at, bt, precise,
+                                              **_twin_kw(data_range, precise))
         tk, _ = ssim_cuda.ssim_parts_cuda(at, bt, data_range=data_range, precise=precise,
                                           allow_float=dtype == "f32")
         gk = pk.double().sum(-1).cpu().numpy() / npix
@@ -461,3 +464,41 @@ def test_relaxed_backward_matches_twin_on_card(with_g):
         assert torch.isfinite(k).all()
         assert (k - p).abs().max().item() <= _RELAXED_GRAD * scale
         assert 0 < (k - s).abs().max().item() <= 1e-3 * scale
+
+
+def _pad_input(dtype, shape):
+    rng = np.random.default_rng(0x5B)
+    if dtype == "u8":
+        return rng.integers(0, 256, shape, dtype=np.uint8)
+    if dtype == "u16":
+        return rng.integers(0, 65536, shape, dtype=np.uint16)
+    x = rng.standard_normal(shape).astype(np.float32 if dtype == "f32" else np.float64)
+    x[:, 0, 0] = np.nan
+    x[:, -1, -1] = -0.0
+    x[:, 0, -1] = np.inf
+    return x
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["u8", "u16", "f32", "f64"])
+@pytest.mark.parametrize("shape,hp,wp", [((2, 64, 128), 96, 384),
+                                         ((3, 37, 200), 96, 512)])
+def test_pad_kernel_matches_twin_on_card(dtype, shape, hp, wp):
+    _need_card()
+    xt = torch.from_numpy(_pad_input(dtype, shape)).cuda()
+    got = pad.pad_align_cuda(xt, hp=hp, wp=wp)
+    want = pad.pad_align_plain(xt, hp, wp)
+    torch.cuda.synchronize()
+    assert got.dtype == xt.dtype and got.shape == (shape[0], hp, wp)
+    assert torch.equal(got.view(torch.uint8), want.view(torch.uint8))
+
+
+@pytest.mark.cuda
+def test_pad_align_launches_the_kernel():
+    _need_card()
+    xt = torch.from_numpy(_pad_input("u8", (2, 64, 128))).cuda()
+    before = pad.PAD_LAUNCHES
+    out = pad.pad_align(xt, 96, 384)
+    torch.cuda.synchronize()
+    assert pad.PAD_LAUNCHES == before + 1
+    assert out.is_cuda and torch.equal(out, pad.pad_align_plain(xt, 96, 384))

@@ -127,6 +127,39 @@ def test_twin_matches_pallas_precise(shape, kw):
     assert (np.abs(mt - mj) <= 2 * ulp).all()
 
 
+@pytest.mark.parametrize("offset", [-128, -37, -5, 5, 20, 128, 255])
+def test_flat_windows_match_oracle(offset):
+    """1x1 images, every u8 value a with b = a + offset (clipped): under
+    the clamp each window is flat, so sigma = E[x^2] - mu^2 cancels to the
+    blurs' rounding. The fp64 blurs with the f64 taps keep every pixel
+    within the oracle bound, where f32 blurs (the JAX kernel's) reached
+    4e-5, and fp64 blurs with the f32 taps (whose sum is not exactly 1)
+    8e-7 at the offsets of +-128 and 255. A 1x1 score is one pixel, so it
+    is held to the pixel bound (the rule of
+    tests/test_pallas.py::_check)."""
+    a = np.arange(256, dtype=np.uint8).reshape(256, 1, 1)
+    b = np.clip(a.astype(np.int32) + offset, 0, 255).astype(np.uint8)
+    p, m = _twin(a, b, tile_h=ssim_cuda.TILE_H, tile_w=ssim_cuda.TILE_W)
+    want = [reference.compute_ssim(x, y, with_map=True) for x, y in zip(a, b)]
+    assert np.abs(_scores(p, 1) - [g for g, _ in want]).max() <= PRECISE_PIXEL
+    want_map = np.stack([wm for _, wm in want])
+    assert np.abs(m.astype(np.float64) - want_map).max() <= PRECISE_PIXEL
+
+
+@pytest.mark.parametrize("setting,radius,want", [((1000, 100), 5, (64, 64)),
+                                                 ((None, None), 16, (32, 64)),
+                                                 ((128, 256), 1, (32, 128))])
+def test_fit_tile_precise(setting, radius, want):
+    """The precise modes keep their blurred planes in f64, so a pinned tile
+    is shrunk further than the f32 modes' to fit shared memory."""
+    got = ssim_cuda.fit_tile(*setting, radius, precise=True)
+    assert got == want
+    ssim_cuda._check_tile(*got, radius, precise=True)
+    assert all(f >= p for f, p in zip(ssim_cuda.fit_tile(*setting, radius), got))
+    with pytest.raises(ValueError, match="shared memory"):
+        ssim_cuda._check_tile(want[0] + 32, want[1], radius, precise=True)
+
+
 def test_precise_beats_f32():
     """The fp64 formula, not a relabel of the standard tier: per pixel
     under a fifth of the standard mode's error (tests/test_precision.py:
