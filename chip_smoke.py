@@ -28,7 +28,8 @@ Phases, each of which raises on failure (the script then exits non-zero):
    at 4K (it must launch the backward kernel with g_map); then times the
    backward kernel and its twin with CUDA events and a whole training
    step with the host clock, and traces five steps with torch.profiler
-   for the device's busy time per step;
+   for the device's busy time per step and the backward kernel's part of
+   it (phases 6 and 9 likewise for their steps);
 6. MS-SSIM: the forward kernel's components and pooled-components modes
    against their plain twins (pooled images bit for bit, and for uint8
    equal to an exact 2x2 mean computed on the host; per-image [sum cs,
@@ -451,6 +452,13 @@ def device_trace(fn, reps):
     return busy_us / 1e3 / reps, window, len(spans) / reps, top
 
 
+def k3_ms(top):
+    """The backward kernel's ms per call in a trace's operations (every
+    instantiation of ssim_bwd.cu: the standard tier's stream kernel, the
+    relaxed tile kernel)."""
+    return sum(ms for name, ms in top if "ssim_bwd" in name)
+
+
 def kernel_trace_ms(fn, reps, name):
     """Device ms per fn() call of the kernels whose name holds `name`, from
     one torch.profiler trace of reps calls: the kernel alone. Where a
@@ -769,14 +777,15 @@ def phase_train(gen, label):
         print(f"  trace of 5 steps: device busy {busy:.4f} ms per step, "
               f"{busy / t_step:.1%} of the untraced step, {busy / window:.1%} "
               f"of the traced window ({window:.3f} ms per step); "
-              f"{n_ops:.0f} device operations per step", flush=True)
+              f"{n_ops:.0f} device operations per step; K3 {k3_ms(top):.4f} ms per "
+              f"step, {k3_ms(top) / busy:.1%} of the device busy", flush=True)
         for name, ms in top[:8]:
             print(f"    {ms:.4f} ms  {name[:90]}", flush=True)
     records["train_step"] = dict(
         shape=list(shape), step_ms=t_step, step_ms_runs=steps,
         fwd_kernel_ms=t_fwd, adam_ms=t_adam, trace_busy_ms=busy,
         trace_window_ms=window, trace_ops_per_step=n_ops,
-        trace_top=top[:8])
+        trace_k3_ms=k3_ms(top), trace_top=top[:8])
     return fwd_launches, bwd_launches, max_err, records
 
 
@@ -1030,7 +1039,8 @@ def phase_msssim(gen, label):
         print(f"  trace of 5 MS-SSIM steps: device busy {busy:.4f} ms per step, "
               f"{busy / t_step:.1%} of the untraced step, {busy / window:.1%} of the "
               f"traced window ({window:.3f} ms per step); {n_ops:.0f} device "
-              f"operations per step", flush=True)
+              f"operations per step; K3 {k3_ms(top):.4f} ms per step, "
+              f"{k3_ms(top) / t_step:.1%} of the untraced step", flush=True)
         for name, ms in top[:8]:
             print(f"    {ms:.4f} ms  {name[:90]}", flush=True)
 
@@ -1045,7 +1055,7 @@ def phase_msssim(gen, label):
                    grad_err=grad_err, grad_scale=grad_scale,
                    compute_ms_ssim_ms=e2e, train_step_ms=steps, trace_busy_ms=busy,
                    trace_window_ms=window, trace_ops_per_step=n_ops,
-                   trace_top=top[:8], k5_bounds=k5)
+                   trace_k3_ms=k3_ms(top), trace_top=top[:8], k5_bounds=k5)
     return err, records
 
 
@@ -2070,7 +2080,7 @@ def spatial_times(gen, label, mesh, a, b, fa, fb, grad):
         spatial_map_ms=statistics.median(t_smap), spatial_map_runs=t_smap,
         compute_ssim_ms=statistics.median(t_cs), step_ms=statistics.median(t_step),
         step_runs=t_step, trace_busy_ms=busy, trace_window_ms=window,
-        trace_ops_per_step=n_ops, trace_top=top[:8])
+        trace_ops_per_step=n_ops, trace_k3_ms=k3_ms(top), trace_top=top[:8])
     print(f"  u8 {h}x{w}: ssim_spatial_sharded {statistics.median(t_score):.3f} ms "
           f"(median of 10, {min(t_score):.3f}-{max(t_score):.3f}), with the map "
           f"{statistics.median(t_smap):.3f} ms (median of 5); compute_ssim "
@@ -2082,8 +2092,10 @@ def spatial_times(gen, label, mesh, a, b, fa, fb, grad):
         print("  trace: the profiler recorded no device activity", flush=True)
     else:
         print(f"  trace of 5 steps: device busy {busy:.4f} ms per step, "
+              f"{busy / statistics.median(t_step):.1%} of the untraced step, "
               f"{busy / window:.1%} of the traced window ({window:.3f} ms per step); "
-              f"{n_ops:.0f} device operations per step", flush=True)
+              f"{n_ops:.0f} device operations per step; K3 {k3_ms(top):.4f} ms per "
+              f"step, {k3_ms(top) / busy:.1%} of the device busy", flush=True)
         for name, ms in top[:6]:
             print(f"    {ms:.4f} ms  {name[:90]}", flush=True)
     del a, b, a2, b2, fa, fb, x
@@ -2821,7 +2833,13 @@ def main():
         "shape": bwd["shape"],
         "ms_gmap": bwd["kernel_gmap_ms"],
         "ms_4k_b4": train["grad_4k_b4"]["kernel_ms"],
+        "ms_4k_b4_gmap": train["grad_4k_b4"]["kernel_gmap_ms"],
         "train_step_ms": train["train_step"]["step_ms"],
+        "train_step_trace_busy_ms": train["train_step"]["trace_busy_ms"],
+        "train_step_trace_k3_ms": train["train_step"]["trace_k3_ms"],
+        "msssim_train_step_ms": statistics.median(ms["train_step_ms"]),
+        "msssim_step_trace_busy_ms": ms["trace_busy_ms"],
+        "msssim_step_trace_k3_ms": ms["trace_k3_ms"],
         "launches_msssim_training": ms["train"]["backward"],
         "msssim_grad_vs_autograd": ms["grad_err"],
         "msssim_grad_max": ms["grad_scale"],
@@ -2954,6 +2972,7 @@ def main():
         "bound_ms_4k_b4": spatial["times"]["bwd_4k_b4"]["bound_ms"],
         "step_ms": spatial["times"]["public"]["step_ms"],
         "step_trace_busy_ms": spatial["times"]["public"]["trace_busy_ms"],
+        "step_trace_k3_ms": spatial["times"]["public"]["trace_k3_ms"],
         "spatial_vs_ssim": spatial["errs"],
     }, {
         "name": "ssim_fwd_relaxed",

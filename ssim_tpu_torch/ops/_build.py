@@ -145,11 +145,16 @@ def load_library() -> ctypes.CDLL:
                 i, i, i, i, p, d, d, f, p,
             ]
             lib.ssim_fwd_launch.restype = i
+            # The backward entry takes the NaN tile (TH, TW) and the
+            # standard kernel's segment rows S.
             lib.ssim_bwd_launch.argtypes = [
-                i, p, p, p, p, p, p, p, p, p, p, p, i, i, i, i, i, i, i, i,
+                i, p, p, p, p, p, p, p, p, p, p, p, i, i, i, i, i, i, i, i, i,
                 p, p, f, f, f, p,
             ]
             lib.ssim_bwd_launch.restype = i
+            # r, gmap, out: blocks per SM of the standard kernel.
+            lib.ssim_bwd_stream_occupancy.argtypes = [i, i, ctypes.POINTER(i)]
+            lib.ssim_bwd_stream_occupancy.restype = i
             # x, out, itemsize, B, H, W, hp, wp, stream.
             lib.pad_align_launch.argtypes = [p, p, i, i, i, i, i, i, p]
             lib.pad_align_launch.restype = i

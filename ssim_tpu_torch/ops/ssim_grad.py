@@ -7,9 +7,12 @@ Counterpart of `ssim_tpu/ops/ssim_grad.py` (`ssim_grad_pallas` over
 accuracy="relaxed" tier: every band pass a bf16x3 band product on the
 tensor cores, at W >= MXU_MIN_W) modes. For
 L = sum_p (w_s + g_map(p)) * SSIM(p) + w_cs * sum_p cs(p), per image, it
-returns (dL/da, dL/db). The kernel is `ssim_tpu_torch/csrc/ssim_bwd.cu`:
-one 2-D grid of output tiles, one CUDA block per tile, so the TPU's column
-chunking at GRAD_MAX_W = 7680 lanes has no counterpart.
+returns (dL/da, dL/db). The kernel is `ssim_tpu_torch/csrc/ssim_bwd.cu`.
+Its standard tier streams: one CUDA block per strip of STRIP_W output
+columns and segment of rows (stream_segment picks the segment's length to
+fill the card; stream_blocks lists the blocks), so the TPU's column
+chunking at GRAD_MAX_W = 7680 lanes has no counterpart. The relaxed tier
+keeps one block per default_tile output tile.
 
 `ssim_grad_cuda` launches the kernel for CUDA tensors and runs the plain
 twin `ssim_grad_plain` for CPU tensors. The twin is the same algebra in
@@ -29,7 +32,8 @@ kernel poisons the edge blocks with any non-finite operand value there).
 """
 
 import ctypes
-from typing import Optional, Tuple
+import functools
+from typing import List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -41,10 +45,21 @@ from .ssim_cuda import (
 )
 from .ssim_torch import _pad_edge
 
-#: Default output tile; shrunk at large radii until the block's shared
-#: memory fits (default_tile).
+#: Default output tile of the relaxed kernel, shrunk at large radii until
+#: its block's shared memory fits (default_tile). It is also the NaN tile of
+#: both tiers: a non-finite input poisons the gradients of the tiles within
+#: 2r of it.
 TILE_H = 32
 TILE_W = 64
+
+#: The standard kernel's block: a strip of STRIP_W output columns (two NaN
+#: tiles) walking down a segment of at most MAX_SEG_TILES NaN tiles' rows
+#: (ssim_bwd.cu kStripW, kMaxSegTiles).
+STRIP_W = 128
+MAX_SEG_TILES = 16
+#: Rows' worth of fixed cost per block in stream_segment's model (launch,
+#: prologue and the NaN check).
+_BLOCK_OVERHEAD_ROWS = 8
 
 #: Kernel launches made by ssim_grad_cuda in this process (VHALO_LAUNCHES:
 #: those with halo operands; RELAXED_LAUNCHES: the relaxed mode's, with or
@@ -85,6 +100,40 @@ def default_tile(radius: int) -> Tuple[int, int]:
     return tile_h, TILE_W
 
 
+@functools.lru_cache(maxsize=256)
+def stream_segment(bsz: int, h: int, w: int, radius: int, resident: int) -> int:
+    """The standard kernel's segment rows for (bsz, h, w) at this radius,
+    with `resident` blocks on the card at once (its SMs times the kernel's
+    occupancy): the multiple of the NaN tile's height (1 to MAX_SEG_TILES
+    tiles) that minimises the modelled time, the waves of resident blocks
+    (a last wave of at most a twentieth of them runs beside the others,
+    measured so on an H100) times a block's rows, the segment plus its
+    4r-row prologue and a fixed cost. Short segments fill the card, long
+    ones recompute fewer halo rows."""
+    tile_h, _ = default_tile(radius)
+    nstrip = -(-w // STRIP_W)
+    best = None
+    for k in range(1, MAX_SEG_TILES + 1):
+        seg = k * tile_h
+        full, rest = divmod(bsz * nstrip * -(-h // seg), resident)
+        waves = full + (1 if full == 0 or rest > resident // 20 else 0)
+        cost = waves * (min(seg, h) + 4 * radius + _BLOCK_OVERHEAD_ROWS)
+        if best is None or cost < best[0]:
+            best = (cost, seg)
+        if seg >= h:
+            break
+    return best[1]
+
+
+def stream_blocks(h: int, w: int, seg: int) -> List[Tuple[int, int, int, int]]:
+    """The output rectangles (y0, y1, x0, x1) that the standard kernel's
+    blocks write in one image, in its block order (strips fastest): the
+    ssim_bwd.cu kernel's own decoding of blockIdx.x."""
+    nstrip, nseg = -(-w // STRIP_W), -(-h // seg)
+    return [(j * seg, min(h, (j + 1) * seg), i * STRIP_W, min(w, (i + 1) * STRIP_W))
+            for j in range(nseg) for i in range(nstrip)]
+
+
 def fold_coefficients(taps: np.ndarray) -> np.ndarray:
     """The clamp-to-edge adjoint's folded tap mass, as float32:
     cl[x] = sum_{k > r + x} t[k] for x < r (ssim_grad.py:239)."""
@@ -92,6 +141,38 @@ def fold_coefficients(taps: np.ndarray) -> np.ndarray:
     return np.array(
         [sum(float(v) for v in taps[r + x + 1:]) for x in range(r)], np.float32
     )
+
+
+@functools.lru_cache(maxsize=64)
+def _c_window(key: bytes):
+    """The f32 taps whose bytes are `key`, and their fold mass, as the C
+    entry's ctypes float arrays, once per window."""
+    taps = np.frombuffer(key, np.float32)
+    return ((ctypes.c_float * len(taps))(*[float(v) for v in taps]),
+            (ctypes.c_float * (len(taps) // 2))(
+                *[float(v) for v in fold_coefficients(taps)]))
+
+
+@functools.lru_cache(maxsize=64)
+def _taps(radius: int, sigma: float) -> np.ndarray:
+    return gaussian_taps(np.float32, radius, sigma)
+
+
+@functools.lru_cache(maxsize=64)
+def _resident(index: int, radius: int, gmap: bool) -> int:
+    """Standard-kernel blocks that card `index` holds at once at this
+    radius: its SMs times the CUDA runtime's occupancy for the
+    instantiation (ssim_bwd_stream_occupancy)."""
+    from . import _build
+
+    n = ctypes.c_int(0)
+    with torch.cuda.device(index):
+        err = _build.load_library().ssim_bwd_stream_occupancy(
+            radius, int(gmap), ctypes.byref(n))
+    if err != 0 or n.value < 1:
+        raise RuntimeError(f"ssim_bwd_stream_occupancy failed (cudaError {err}, "
+                           f"{n.value} blocks per SM)")
+    return torch.cuda.get_device_properties(index).multi_processor_count * n.value
 
 
 def _adjoint(x: torch.Tensor, t, cl, dim: int, n: int, fold_lo: bool = True,
@@ -248,9 +329,10 @@ def ssim_grad_plain(
 
 
 def _launch(a, b, w_s, w_cs, g_map, *, taps, c1, c2, clip_bound, vhalo=None,
-            vmask=(False, False), relaxed=False):
+            vmask=(False, False), relaxed=False, segment=None):
     """Launch the CUDA kernel on (B, H, W) contiguous f32 tensors on one
-    CUDA device, with the tile default_tile(radius); no synchronisation."""
+    CUDA device; no synchronisation. segment: the standard kernel's segment
+    rows (stream_segment's choice if None)."""
     global LAUNCHES, VHALO_LAUNCHES, RELAXED_LAUNCHES
     from . import _build
 
@@ -258,21 +340,28 @@ def _launch(a, b, w_s, w_cs, g_map, *, taps, c1, c2, clip_bound, vhalo=None,
     bsz, h, w = a.shape
     r = len(taps) // 2
     tile_h, tile_w = default_tile(r)
-    assert smem_bytes(tile_h, tile_w, r) <= _MAX_DYNAMIC_SMEM
-    nty, ntx = -(-h // tile_h), -(-w // tile_w)
-    if bsz * nty * ntx > 0x7FFFFFFF:
-        raise ValueError(f"{bsz * nty * ntx} tiles exceed one launch's grid")
+    if relaxed:
+        assert smem_bytes(tile_h, tile_w, r) <= _MAX_DYNAMIC_SMEM
+        seg, blocks = 0, bsz * -(-h // tile_h) * -(-w // tile_w)
+    else:
+        seg = segment or stream_segment(
+            bsz, h, w, r, _resident(a.device.index, r, g_map is not None))
+        if seg % tile_h or not tile_h <= seg <= MAX_SEG_TILES * tile_h:
+            raise ValueError(f"segment {seg} is not 1-{MAX_SEG_TILES} tiles of "
+                             f"{tile_h} rows")
+        blocks = bsz * -(-h // seg) * -(-w // STRIP_W)
+    if blocks > 0x7FFFFFFF:
+        raise ValueError(f"{blocks} blocks exceed one launch's grid")
+    taps_c, fold_c = _c_window(np.asarray(taps, np.float32).tobytes())
     da = torch.empty_like(a)
     db = torch.empty_like(a)
-    taps_c = (ctypes.c_float * len(taps))(*[float(v) for v in taps])
-    fold_c = (ctypes.c_float * r)(*[float(v) for v in fold_coefficients(taps)])
     with torch.cuda.device(a.device):
         err = lib.ssim_bwd_launch(
             int(relaxed), a.data_ptr(), b.data_ptr(), w_s.data_ptr(), w_cs.data_ptr(),
             None if g_map is None else g_map.data_ptr(),
             da.data_ptr(), db.data_ptr(),
             *((None,) * 4 if vhalo is None else (x.data_ptr() for x in vhalo)),
-            int(vmask[0]), int(vmask[1]), bsz, h, w, r, tile_h, tile_w,
+            int(vmask[0]), int(vmask[1]), bsz, h, w, r, tile_h, tile_w, seg,
             ctypes.cast(taps_c, ctypes.c_void_p),
             ctypes.cast(fold_c, ctypes.c_void_p), c1, c2, clip_bound,
             torch.cuda.current_stream(a.device).cuda_stream,
@@ -398,7 +487,7 @@ def ssim_grad_cuda(
             f"ssim_grad_cuda needs w > radius, h >= 1, and radius in "
             f"1..{MAX_FUSED_RADIUS}; got {h}x{w} at radius {radius}"
         )
-    taps = gaussian_taps(np.float32, radius, sigma)
+    taps = _taps(radius, float(sigma))
     c1 = float((k1 * data_range) ** 2)
     c2 = float((k2 * data_range) ** 2)
     if c1 * c2 < 9e-32:

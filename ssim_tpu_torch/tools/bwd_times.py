@@ -1,0 +1,102 @@
+"""Times the backward kernel's standard tier on the card, by radius.
+
+    python -m ssim_tpu_torch.tools.bwd_times [--segments]
+
+Times `ssim_grad_cuda` (CUDA events around 20 back-to-back calls, median
+of 3) at (4, 1080, 1920) f32 for radii 4, 5, 6 and 16, with and without a
+g_map cotangent, and prints the card's name and power limit, then one JSON
+line {"card": ..., "package": ..., "ms": {"r=5": ..., "r=5 g_map": ...}}.
+It calls only `ssim_grad_cuda`'s public arguments, so it also times another
+checkout's kernel when run as a file with that checkout's root on
+PYTHONPATH:
+
+    PYTHONPATH=/path/to/checkout python ssim_tpu_torch/tools/bwd_times.py
+
+--segments also times each radius without g_map at every segment length
+the kernel takes up to 512 rows, beside the wrapper's own choice
+(`ssim_grad.stream_segment`).
+"""
+
+import argparse
+import json
+import statistics
+import subprocess
+import sys
+
+import numpy as np
+import torch
+
+from ssim_tpu_torch.ops import ssim_grad
+
+SHAPE = (4, 1080, 1920)
+RADII = (4, 5, 6, 16)
+
+
+def card_label():
+    try:
+        out = subprocess.run(
+            ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+            capture_output=True, text=True, timeout=30).stdout.strip()
+    except OSError:
+        out = ""
+    return out or torch.cuda.get_device_name(0)
+
+
+def cuda_ms(fn, reps=20, runs=3):
+    fn()
+    torch.cuda.synchronize()
+    out = []
+    for _ in range(runs):
+        t0 = torch.cuda.Event(enable_timing=True)
+        t1 = torch.cuda.Event(enable_timing=True)
+        t0.record()
+        for _ in range(reps):
+            fn()
+        t1.record()
+        torch.cuda.synchronize()
+        out.append(t0.elapsed_time(t1) / reps)
+    return statistics.median(out)
+
+
+def main():
+    parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    parser.add_argument("--segments", action="store_true")
+    args = parser.parse_args()
+    if not torch.cuda.is_available():
+        print("needs a CUDA card", file=sys.stderr)
+        return 2
+    label = card_label()
+    print(label, flush=True)
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(1234)
+    a = 255 * torch.rand(SHAPE, generator=gen, device="cuda")
+    b = (a + 12.0 * torch.randn(SHAPE, generator=gen, device="cuda")).clamp_(0, 255)
+    g = torch.randn(SHAPE, generator=gen, device="cuda")
+    w_s = torch.full((SHAPE[0],), 1.0 / (SHAPE[1] * SHAPE[2]), device="cuda")
+    w_cs = torch.zeros(SHAPE[0], device="cuda")
+    ms = {}
+    for radius in RADII:
+        for name, gmap in ((f"r={radius}", None), (f"r={radius} g_map", g)):
+            ms[name] = cuda_ms(lambda: ssim_grad.ssim_grad_cuda(
+                a, b, w_s, w_cs, gmap, data_range=255.0, radius=radius, sigma=1.5))
+            print(f"  {name}: {ms[name]:.4f} ms", flush=True)
+    if args.segments:
+        from ssim_tpu_torch.windows import gaussian_taps
+
+        for radius in RADII:
+            tile_h = ssim_grad.default_tile(radius)[0]
+            kw = dict(taps=gaussian_taps(np.float32, radius, 1.5),
+                      c1=(0.01 * 255) ** 2, c2=(0.03 * 255) ** 2, clip_bound=131072.0)
+            resident = ssim_grad._resident(a.device.index, radius, False)
+            parts = [f"auto {ssim_grad.stream_segment(*SHAPE, radius, resident)}"]
+            for seg in range(tile_h, min(512, ssim_grad.MAX_SEG_TILES * tile_h) + 1, tile_h):
+                t = cuda_ms(lambda: ssim_grad._launch(a, b, w_s, w_cs, None,
+                                                      segment=seg, **kw))
+                parts.append(f"{seg}: {t:.4f}")
+            print(f"  segments r={radius}: " + ", ".join(parts) + " ms", flush=True)
+    print(json.dumps({"card": label, "package": ssim_grad.__file__, "ms": ms}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -4,6 +4,10 @@ and backward, with and without them; both in their relaxed modes) and the
 pad kernel against their plain twins, on the card, and the launches of the
 training, MS-SSIM, small-image batch and pad paths.
 
+The backward kernel's standard tier streams rows down column strips: its
+cases pin the segment length (two NaN tiles) to put H, W, the halo
+operands and non-finite pixels on the segment and strip boundaries.
+
 Marked `cuda`: it skips without a CUDA device (here, on the CPU). This
 file imports neither JAX nor the repo's conftest, so it also runs on a
 GPU machine that has no JAX:
@@ -378,6 +382,115 @@ def test_backward_halo_mode_matches_twin_on_card(flags):
     assert torch.isfinite(da).all() and torch.isfinite(db).all()
     tol = 1e-6 * max(1.0, pa.abs().max().item())
     assert (da - pa).abs().max().item() <= tol and (db - pb).abs().max().item() <= tol
+
+
+def _hold_backward(da, db, pa, pb):
+    """Kernel against twin: NaN masks equal, finite values within 1e-6 *
+    max(1, max|g|) (both round alike)."""
+    scale = 1.0
+    for k, p in ((da, pa), (db, pb)):
+        assert torch.equal(k.isnan(), p.isnan())
+        fin = ~p.isnan()
+        if fin.any():
+            scale = max(scale, p[fin].abs().max().item())
+    for k, p in ((da, pa), (db, pb)):
+        fin = ~p.isnan()
+        if fin.any():
+            assert (k[fin] - p[fin]).abs().max().item() <= 1e-6 * scale
+
+
+def _stream_launch(at, bt, w_s, w_cs, g_map, radius, sigma, seg, **halo):
+    """The standard backward kernel at a pinned segment length, and its
+    twin, on the same card tensors (data_range 1)."""
+    kw = dict(taps=gaussian_taps(np.float32, radius, sigma), c1=1e-4, c2=9e-4,
+              clip_bound=131072.0, **halo)
+    before = (ssim_grad.LAUNCHES, ssim_grad.VHALO_LAUNCHES)
+    got = ssim_grad._launch(at, bt, w_s, w_cs, g_map, segment=seg, **kw)
+    torch.cuda.synchronize()
+    want = (before[0], before[1] + 1) if halo else (before[0] + 1, before[1])
+    assert (ssim_grad.LAUNCHES, ssim_grad.VHALO_LAUNCHES) == want
+    return got, ssim_grad.ssim_grad_plain(at, bt, w_s, w_cs, g_map, **kw)
+
+
+_SIGMA = {1: 0.8, 5: 1.5, 16: 3.0}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("radius", [1, 5, 16])
+@pytest.mark.parametrize("case", ["seg-1", "seg", "seg+1", "2seg+1", "ragged_w", "w=r+1"])
+def test_backward_stream_geometry_on_card(radius, case):
+    """The standard kernel's row streaming at a segment of two NaN tiles:
+    H one short of, equal to and one past the segment and 2S + 1; W not a
+    multiple of the 128-column strip and W = r + 1; two images, g_map and
+    w_cs; radius 5 (register windows) and 1, 16 (shared-memory rings)."""
+    _need_card()
+    seg = 2 * ssim_grad.default_tile(radius)[0]
+    h, w = {"seg-1": (seg - 1, 300), "seg": (seg, 300), "seg+1": (seg + 1, 300),
+            "2seg+1": (2 * seg + 1, 300), "ragged_w": (seg + 1, 517),
+            "w=r+1": (seg + 1, radius + 1)}[case]
+    rng = np.random.default_rng(0x62 + radius)
+    a = rng.random((2, h, w), dtype=np.float32)
+    b = np.clip(a + rng.normal(0, 0.05, a.shape), 0, 1).astype(np.float32)
+    at, bt = torch.from_numpy(a).cuda(), torch.from_numpy(b).cuda()
+    g = torch.from_numpy(rng.normal(0, 1, a.shape).astype(np.float32)).cuda()
+    w_s = torch.tensor([0.7, -0.3], device="cuda")
+    w_cs = torch.tensor([0.1, 0.25], device="cuda")
+    (da, db), (pa, pb) = _stream_launch(at, bt, w_s, w_cs, g, radius,
+                                        _SIGMA[radius], seg)
+    assert torch.isfinite(da).all() and torch.isfinite(db).all()
+    _hold_backward(da, db, pa, pb)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("radius", [1, 16])
+@pytest.mark.parametrize("flags", [(0, 0), (1, 0), (0, 1), (1, 1)])
+def test_backward_stream_halo_radii_on_card(radius, flags):
+    """The halo operands at radius 1 and 16 (the rings) with each flag
+    pair, a band of 137 rows in segments of two NaN tiles."""
+    _need_card()
+    rng = np.random.default_rng(0x63 + radius)
+    a = rng.random((2, 300, 517)).astype(np.float32)
+    b = np.clip(a + rng.normal(0, 0.05, a.shape), 0, 1).astype(np.float32)
+    at, bt = torch.from_numpy(a).cuda(), torch.from_numpy(b).cuda()
+    lo, hi = 100, 237
+    band_a, band_b = at[:, lo:hi].contiguous(), bt[:, lo:hi].contiguous()
+    a_top, a_bot = _halo(at, lo, hi, 2 * radius, flags)
+    b_top, b_bot = _halo(bt, lo, hi, 2 * radius, flags)
+    w_s = torch.full((2,), 1.0 / band_a[0].numel(), device="cuda")
+    w_cs = torch.full((2,), 0.2, device="cuda")
+    seg = 2 * ssim_grad.default_tile(radius)[0]
+    (da, db), (pa, pb) = _stream_launch(
+        band_a, band_b, w_s, w_cs, None, radius, _SIGMA[radius], seg,
+        vhalo=(a_top, a_bot, b_top, b_bot), vmask=flags)
+    assert torch.isfinite(da).all() and torch.isfinite(db).all()
+    _hold_backward(da, db, pa, pb)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("radius", [5, 16])
+def test_backward_stream_nonfinite_on_boundaries_on_card(radius):
+    """Non-finite pixels on a segment's first and last rows, 2r rows above
+    a segment's first row (the first row its block loads, staged before the
+    block's first step) and on a strip's first and last columns: NaN over
+    exactly the twin's tiles (the tiles within 2r), in their own image
+    only."""
+    _need_card()
+    seg = 2 * ssim_grad.default_tile(radius)[0]
+    rng = np.random.default_rng(0x64 + radius)
+    a = rng.random((3, 2 * seg + 7, 400)).astype(np.float32)
+    b = np.clip(a + rng.normal(0, 0.05, a.shape), 0, 1).astype(np.float32)
+    a[0, seg, 200] = np.nan       # first row of segment 1
+    a[0, seg - 2 * radius, 40] = np.nan  # segment 1's first stream row, strip 0
+    a[1, seg - 1, 127] = np.inf   # last row of segment 0, last column of strip 0
+    b[1, 3, 128] = -np.inf        # first column of strip 1
+    at, bt = torch.from_numpy(a).cuda(), torch.from_numpy(b).cuda()
+    w_s = torch.full((3,), 0.5, device="cuda")
+    w_cs = torch.full((3,), 0.1, device="cuda")
+    (da, db), (pa, pb) = _stream_launch(at, bt, w_s, w_cs, None, radius,
+                                        _SIGMA[radius], seg)
+    _hold_backward(da, db, pa, pb)
+    assert da[0, seg, 0].isnan() and da[1].isnan().any()
+    assert torch.isfinite(da[2]).all() and torch.isfinite(db[2]).all()
 
 
 # The relaxed tier: kernel against its relaxed twin. Both add the same

@@ -323,3 +323,51 @@ def test_default_tile_fits_shared_memory(radius):
     tile_h, tile_w = ssim_grad.default_tile(radius)
     assert (tile_h, tile_w) == ((16, 64) if radius == 16 else (32, 64))
     assert ssim_grad.smem_bytes(tile_h, tile_w, radius) <= ssim_grad._MAX_DYNAMIC_SMEM
+
+
+@pytest.mark.parametrize("radius", [1, 5, 16])
+def test_stream_blocks_hold_whole_nan_tiles(radius):
+    """The standard kernel's blocks (a strip of STRIP_W columns down a
+    segment of rows, the segment stream_segment's choice for the shape on a
+    card that holds 132 or 528 blocks at once) cover every image pixel
+    exactly once, and every default_tile(radius) NaN tile lies in one block,
+    so a block alone decides its tiles' NaN."""
+    tile_h, tile_w = ssim_grad.default_tile(radius)
+    assert ssim_grad.STRIP_W == 2 * tile_w  # the kernel's 2-column tile mask
+    shapes = [(1, 1, radius + 1), (2, 7, 9 + radius), (4, 67, 120), (3, 257, 300),
+              (2, 1080, 1920), (256, 64, 64), (1, 4097, 200), (1, 33, 8000)]
+    for resident in (132, 528):
+        for bsz, h, w in shapes:
+            seg = ssim_grad.stream_segment(bsz, h, w, radius, resident)
+            assert seg % tile_h == 0
+            assert tile_h <= seg <= ssim_grad.MAX_SEG_TILES * tile_h
+            blocks = ssim_grad.stream_blocks(h, w, seg)
+            assert len(blocks) == -(-h // seg) * -(-w // ssim_grad.STRIP_W)
+            owner = np.full((h, w), -1, np.int32)
+            cover = np.zeros((h, w), np.int32)
+            for i, (y0, y1, x0, x1) in enumerate(blocks):
+                assert y1 - y0 <= seg and x1 - x0 <= ssim_grad.STRIP_W
+                owner[y0:y1, x0:x1] = i
+                cover[y0:y1, x0:x1] += 1
+            assert (cover == 1).all(), (bsz, h, w, seg)
+            tiles = owner[::tile_h, ::tile_w]
+            for ty in range(0, h, tile_h):
+                for tx in range(0, w, tile_w):
+                    assert (owner[ty:ty + tile_h, tx:tx + tile_w]
+                            == tiles[ty // tile_h, tx // tile_w]).all()
+
+
+@pytest.mark.parametrize("radius", [1, 5, 16])
+def test_stream_segment_fills_the_card(radius):
+    """Where the shortest segment (one NaN tile) gives no more blocks than
+    the card holds at once, stream_segment takes it; no segment reaches a
+    whole tile past the image's last row."""
+    tile_h, _ = ssim_grad.default_tile(radius)
+    for resident in (132, 396, 528):
+        for bsz, h, w in [(1, 1, radius + 1), (4, 135, 240), (4, 270, 480),
+                          (4, 540, 960), (4, 1080, 1920), (4, 2160, 3840),
+                          (1, 8640, 15360), (256, 64, 64)]:
+            seg = ssim_grad.stream_segment(bsz, h, w, radius, resident)
+            assert seg < h + tile_h
+            if bsz * -(-h // tile_h) * -(-w // ssim_grad.STRIP_W) <= resident:
+                assert seg == tile_h, (bsz, h, w, resident, seg)
