@@ -16,15 +16,18 @@ Phases, each of which raises on failure (the script then exits non-zero):
 4. the main path: one `compute_ssim` on NumPy input with no `device`
    (it must run on the card), then `compute_ssim` and `compute_ssim_map`
    on uint8 batches at 1080p x4, 4K x4 and 16K UHD x1, which must go
-   through the kernel (its launch counter must rise) and give finite
-   scores and maps that agree with the twin; then times the kernel and
-   the twin with CUDA events and the whole call with the host clock;
+   through the kernel's row-streaming design (ssim_fwd_stream_kernel: its
+   launch counter and the streaming counter must both rise by one per
+   call) and give finite scores and maps that agree with the twin; then
+   times the kernel and the twin with CUDA events and the whole call with
+   the host clock;
 5. training: the backward kernel against its plain twin with score,
    g_map and w_cs cotangents and per-image weights at tiny, ragged,
    1080p x4, 20480-wide, radius 1/16 and float-with-NaN shapes, and
    against autograd of the plain path at 1080p x4; five Adam steps on
    `ssim_loss` at 1080p x4 (the loss must fall, each kernel must launch
-   exactly five times) and one `ssim_and_map` step with a map cotangent
+   exactly five times, the forward through its streaming design) and one
+   `ssim_and_map` step with a map cotangent
    at 4K (it must launch the backward kernel with g_map); then times the
    backward kernel and its twin with CUDA events and a whole training
    step with the host clock, and traces five steps with torch.profiler
@@ -91,7 +94,8 @@ Phases, each of which raises on failure (the script then exits non-zero):
    unsharded backward); (b) on a one-rank nccl mesh (a file:// store in a
    temporary directory): `ssim_spatial_sharded` on one u8 (8640, 15360)
    pair, score and map (exactly one kRowsum / kRowsumMap launch with halo
-   operands each, the mean of the rows within 2e-7 of `compute_ssim`, the
+   operands each, through the streaming design, the mean of the rows
+   within 2e-7 of `compute_ssim`, the
    map bit for bit `compute_ssim_map`'s), one `mean_ssim_spatial`
    forward and backward on an f32 (8640, 15360) pair (one kRowsum and one
    backward halo launch; value and gradient against `ssim`'s) and the
@@ -133,7 +137,8 @@ Phases, each of which raises on failure (the script then exits non-zero):
    kernel's output), each beside the bound.
 
 Prints the kernel records as one JSON line (with each kernel's roofline
-bound), the card's name and power limit, and last
+bound; each forward entry names the design that ran, STREAM_DESIGN or
+TILE_DESIGN), the card's name and power limit, and last
 `{"ok": true, "device": {...}}`. Inputs are random, made on the device
 from a fixed seed. Imports no JAX. Where it cannot start (no CUDA, or no
 `ssim_tpu_torch` package beside it) it prints one line
@@ -481,6 +486,14 @@ def kernel_trace_ms(fn, reps, name):
 MAIN_CONFIGS = [("1080p_b4", (4, 1080, 1920)), ("4k_b4", (4, 2160, 3840)),
                 ("16k_b1", (1, 8640, 15360))]
 
+#: The forward kernel's two designs, named in the kernels line: the score,
+#: map and row modes at radius 5 stream rows (ssim_cuda.stream_applies,
+#: counted by ssim_cuda.STREAM_LAUNCHES); every other mode keeps the tile
+#: body.
+STREAM_DESIGN = ("row-streaming column strips (ssim_fwd_stream_kernel: 128 columns, "
+                 "one thread each, a register window of 2r + 1 rows)")
+TILE_DESIGN = "one block per output tile (ssim_fwd_kernel)"
+
 
 def phase_main(gen, label):
     import ssim_tpu_torch
@@ -492,24 +505,26 @@ def phase_main(gen, label):
 
     # NumPy input with no device runs on the card.
     a_np, b_np = (x.cpu().numpy() for x in inputs["1080p_b4"])
-    ssim_cuda.LAUNCHES = 0
+    ssim_cuda.LAUNCHES = ssim_cuda.STREAM_LAUNCHES = 0
     s_np = ssim_tpu_torch.compute_ssim(a_np, b_np)
-    check(ssim_cuda.LAUNCHES == 1,
-          f"NumPy compute_ssim launched the kernel {ssim_cuda.LAUNCHES} times")
+    check(ssim_cuda.LAUNCHES == 1 and ssim_cuda.STREAM_LAUNCHES == 1,
+          f"NumPy compute_ssim launched the kernel {ssim_cuda.LAUNCHES} times, "
+          f"{ssim_cuda.STREAM_LAUNCHES} of them the streaming kernel")
     check(s_np.shape == (4,) and np.isfinite(s_np).all(), f"NumPy scores {s_np}")
-    print(f"  NumPy input, no device: 1 launch, scores {s_np}", flush=True)
+    print(f"  NumPy input, no device: 1 launch (the streaming kernel), scores {s_np}",
+          flush=True)
 
-    ssim_cuda.LAUNCHES = 0
+    ssim_cuda.LAUNCHES = ssim_cuda.STREAM_LAUNCHES = 0
     results = {}
     for name, shape in MAIN_CONFIGS:
         a, b = inputs[name]
         s = ssim_tpu_torch.compute_ssim(a, b)
         s_map, m = ssim_tpu_torch.compute_ssim_map(a, b)
         results[name] = (s, s_map, m)
-    launches = ssim_cuda.LAUNCHES
-    check(launches == 2 * len(MAIN_CONFIGS),
-          f"main path launched the kernel {launches} times, expected "
-          f"{2 * len(MAIN_CONFIGS)}")
+    launches, stream = ssim_cuda.LAUNCHES, ssim_cuda.STREAM_LAUNCHES
+    check(launches == 2 * len(MAIN_CONFIGS) and stream == launches,
+          f"main path launched the kernel {launches} times ({stream} the streaming "
+          f"kernel), expected {2 * len(MAIN_CONFIGS)}, all streaming")
 
     records = {}
     for name, shape in MAIN_CONFIGS:
@@ -563,7 +578,7 @@ def phase_main(gen, label):
               f"({by}) | {label}", flush=True)
         del inputs[name]
         torch.cuda.empty_cache()
-    return launches, records
+    return launches, stream, records
 
 
 def grad_twin(a, b, w_s, w_cs, g_map, data_range=1.0, radius=5, sigma=1.5,
@@ -682,19 +697,22 @@ def phase_train(gen, label):
         return loss.detach(), finite
 
     torch.cuda.synchronize()
-    ssim_cuda.LAUNCHES = 0
+    ssim_cuda.LAUNCHES = ssim_cuda.STREAM_LAUNCHES = 0
     ssim_grad.LAUNCHES = 0
     results = [step() for _ in range(5)]
     fwd_launches, bwd_launches = ssim_cuda.LAUNCHES, ssim_grad.LAUNCHES
+    fwd_stream = ssim_cuda.STREAM_LAUNCHES
     losses = [float(loss) for loss, _ in results]
-    check(fwd_launches == 5 and bwd_launches == 5,
-          f"5 training steps launched the forward kernel {fwd_launches} and "
-          f"the backward kernel {bwd_launches} times, expected 5 and 5")
+    check(fwd_launches == 5 and fwd_stream == 5 and bwd_launches == 5,
+          f"5 training steps launched the forward kernel {fwd_launches} ({fwd_stream} "
+          f"streaming) and the backward kernel {bwd_launches} times, expected 5 "
+          f"(all streaming) and 5")
     check(all(bool(f) for _, f in results), "non-finite gradients in training")
     check(all(np.isfinite(losses)) and losses[-1] < losses[0],
           f"the loss did not fall: {losses}")
     print(f"  5 Adam steps on ssim_loss {shape}: 1-SSIM {losses}; launches "
-          f"forward {fwd_launches}, backward {bwd_launches}", flush=True)
+          f"forward {fwd_launches} (streaming kernel), backward {bwd_launches}",
+          flush=True)
 
     # One ssim_and_map step with a map cotangent: K3 with g_map.
     a4, b4 = pair(gen, (1, 2160, 3840), torch.float32, 1.0)
@@ -863,7 +881,7 @@ def launch_counts():
                 backward=ssim_grad.LAUNCHES,
                 backward_vhalo=ssim_grad.VHALO_LAUNCHES,
                 backward_relaxed=ssim_grad.RELAXED_LAUNCHES,
-                pad=pad.PAD_LAUNCHES)
+                pad=pad.PAD_LAUNCHES, stream=ssim_cuda.STREAM_LAUNCHES)
 
 
 def counts_of(**nonzero):
@@ -878,7 +896,7 @@ def zero_counts():
     ssim_cuda.COMPONENTS_LAUNCHES = ssim_cuda.POOLED_LAUNCHES = 0
     ssim_cuda.BATCH_LAUNCHES = ssim_cuda.BATCH_PRECISE_LAUNCHES = 0
     ssim_cuda.ROWSUM_LAUNCHES = ssim_cuda.ROWSUM_MAP_LAUNCHES = 0
-    ssim_cuda.RELAXED_LAUNCHES = 0
+    ssim_cuda.RELAXED_LAUNCHES = ssim_cuda.STREAM_LAUNCHES = 0
     ssim_grad.LAUNCHES = ssim_grad.VHALO_LAUNCHES = ssim_grad.RELAXED_LAUNCHES = 0
     pad.PAD_LAUNCHES = 0
 
@@ -1426,9 +1444,9 @@ def phase_batch(gen, label):
           f'compute_ssim(precision="f64") launches {route["compute_ssim_f64"]}, '
           f"expected 1 kBatchPrecise")
     check(oracle_calls == [], f"the f64 oracle was called: {oracle_calls}")
-    check(route["compute_ssim_tile_pin"] == counts_of(standard=1),
+    check(route["compute_ssim_tile_pin"] == counts_of(standard=1, stream=1),
           f"compute_ssim with a tile pin launches {route['compute_ssim_tile_pin']}, "
-          f"expected 1 standard")
+          f"expected 1 standard (the streaming kernel)")
     npix = 64 * 64
     g_twin = scores(batch_twin(a, b, False), npix)
     g_twin64 = scores(batch_twin(a, b, True), npix)
@@ -1877,11 +1895,12 @@ def spatial_calls(gen, mesh):
     rows_m, smap = ssim_spatial_sharded(a2, b2, mesh, with_map=True)
     torch.cuda.synchronize()
     calls["map"] = launch_counts()
-    check(calls["score"] == counts_of(rowsum=1),
-          f"ssim_spatial_sharded launches {calls['score']}, expected 1 kRowsum with halo")
-    check(calls["map"] == counts_of(rowsum_map=1),
+    check(calls["score"] == counts_of(rowsum=1, stream=1),
+          f"ssim_spatial_sharded launches {calls['score']}, expected 1 kRowsum with "
+          f"halo (the streaming kernel)")
+    check(calls["map"] == counts_of(rowsum_map=1, stream=1),
           f"ssim_spatial_sharded(with_map=True) launches {calls['map']}, expected 1 "
-          f"kRowsumMap with halo")
+          f"kRowsumMap with halo (the streaming kernel)")
     check(none is None and rows.is_cuda and rows.shape == (h,) and smap.is_cuda
           and smap.shape == (h, w), "ssim_spatial_sharded: outputs")
     s_ref = float(ssim_tpu_torch.compute_ssim(a, b)[0])
@@ -1907,9 +1926,9 @@ def spatial_calls(gen, mesh):
     (1.0 - val).backward()
     torch.cuda.synchronize()
     calls["mean_step"] = launch_counts()
-    check(calls["mean_step"] == counts_of(rowsum=1, backward_vhalo=1),
+    check(calls["mean_step"] == counts_of(rowsum=1, stream=1, backward_vhalo=1),
           f"mean_ssim_spatial step launches {calls['mean_step']}, expected 1 kRowsum "
-          f"(halo) and 1 backward (halo)")
+          f"(halo, the streaming kernel) and 1 backward (halo)")
     y = fa.clone().requires_grad_()
     ref = ssim_tpu_torch.ssim(y, fb, data_range=1.0)
     (1.0 - ref).backward()
@@ -1935,7 +1954,7 @@ def spatial_calls(gen, mesh):
     (1.0 - vb).backward()
     torch.cuda.synchronize()
     calls["mean_batched_step"] = launch_counts()
-    check(calls["mean_batched_step"] == counts_of(rowsum=1, backward_vhalo=1),
+    check(calls["mean_batched_step"] == counts_of(rowsum=1, stream=1, backward_vhalo=1),
           f"batched mean_ssim_spatial step launches {calls['mean_batched_step']}")
     yb = ba.clone().requires_grad_()
     refb = ssim_tpu_torch.ssim(yb, bb, data_range=1.0).mean()
@@ -1949,7 +1968,7 @@ def spatial_calls(gen, mesh):
           f"backward (halo); value {vb.detach().item():.9f} vs ssim {refb.detach().item():.9f}; gradient "
           f"{gb_err:.3g} (max|g| {gb_scale:.3g})", flush=True)
     launches = {k: sum(c[k] for c in calls.values())
-                for k in ("rowsum", "rowsum_map", "backward_vhalo")}
+                for k in ("rowsum", "rowsum_map", "backward_vhalo", "stream")}
     grad = x.grad.detach()
     del yb, refb, xb, ba, bb, x
     torch.cuda.empty_cache()
@@ -2330,7 +2349,7 @@ def phase_relaxed_kernels(gen):
     counts = launch_counts()
     _, m0 = ssim_cuda.ssim_parts_cuda(a, b, with_map=True)
     g0 = ssim_grad.ssim_grad_cuda(fa, fb, 1.0, 0.0, data_range=1.0)
-    check(counts == counts_of(standard=1, backward=1),
+    check(counts == counts_of(standard=1, stream=1, backward=1),
           f"(1, 256, 448) relaxed calls launched {counts}, expected the standard modes")
     check(torch.equal(m0, m1) and all(torch.equal(x, y) for x, y in zip(g0, g1)),
           "(1, 256, 448): the relaxed call differs from the standard one")
@@ -2791,7 +2810,7 @@ def main():
     gen = torch.Generator(device="cuda")
     gen.manual_seed(SEED)
     max_err = phase_kernel(gen)
-    launches, records = phase_main(gen, label)
+    launches, stream_launches, records = phase_main(gen, label)
     train_fwd, train_bwd, grad_err, train = phase_train(gen, label)
     comp_err, ms = phase_msssim(gen, label)
     prec_launches, prec_err, prec = phase_precise(gen, label)
@@ -2809,7 +2828,9 @@ def main():
         "route": "cuda",
         "source": "ssim_tpu_torch/csrc/ssim_fwd.cu",
         "replaces": "ssim_tpu/ops/ssim_pallas.py:710, ssim_tpu/ops/ssim_pallas.py:1364",
+        "design": STREAM_DESIGN,
         "launches": launches,
+        "launches_stream": stream_launches,
         "launches_training": train_fwd,
         "max_abs_err": max_err,
         "ms": ref["kernel_ms"],
@@ -2847,6 +2868,7 @@ def main():
         "name": "ssim_fwd_components",
         "route": "cuda",
         "source": "ssim_tpu_torch/csrc/ssim_fwd.cu",
+        "design": TILE_DESIGN,
         "replaces": "ssim_tpu/ops/ssim_pallas.py:1957 (K1 mode c), "
                     "ssim_tpu/ops/ssim_pallas.py:1364 (K2 components)",
         "launches": ms["infer"]["components"],
@@ -2863,6 +2885,7 @@ def main():
         "name": "ssim_fwd_pooled",
         "route": "cuda",
         "source": "ssim_tpu_torch/csrc/ssim_fwd.cu",
+        "design": TILE_DESIGN,
         "replaces": "ssim_tpu/ops/ssim_pallas.py:2066 (K1 mode d)",
         "launches": ms["infer"]["pooled"],
         "max_abs_err": comp_err,
@@ -2877,6 +2900,7 @@ def main():
         "name": "ssim_fwd_precise",
         "route": "cuda",
         "source": "ssim_tpu_torch/csrc/ssim_fwd.cu",
+        "design": TILE_DESIGN,
         "replaces": "ssim_tpu/ops/ssim_pallas.py:710 (K1 mode b), "
                     "ssim_tpu/ops/ssim_pallas.py:1364 (K2 precise)",
         "launches": prec_launches,
@@ -2899,6 +2923,7 @@ def main():
         "name": "ssim_fwd_batch",
         "route": "cuda",
         "source": "ssim_tpu_torch/csrc/ssim_fwd.cu",
+        "design": TILE_DESIGN,
         "replaces": "ssim_tpu/ops/ssim_pallas.py:710 (K1 mode e, colsum/pchunk), "
                     "tools/probe_bpack.py:56 (K5)",
         "launches": batch["launches"],
@@ -2916,7 +2941,9 @@ def main():
         "source": "ssim_tpu_torch/csrc/ssim_fwd.cu",
         "replaces": "ssim_tpu/ops/ssim_pallas.py:1080 (K1 mode f, rowsum), "
                     "ssim_tpu/ops/ssim_pallas.py:1641 (K2 rowsum)",
+        "design": STREAM_DESIGN,
         "launches": spatial["launches"]["rowsum"],
+        "launches_stream": spatial["launches"]["stream"],
         "max_abs_err": halo_fwd_err,
         "ms": spatial["times"]["16k_b1"]["rowsum_ms"],
         "plain_ms": spatial["times"]["16k_b1"]["plain_ms"],
@@ -2939,7 +2966,9 @@ def main():
         "source": "ssim_tpu_torch/csrc/ssim_fwd.cu",
         "replaces": "ssim_tpu/ops/ssim_pallas.py:884 (K1 mode g, vhalo/vmask "
                     "operands; halo_band_matrices :681)",
+        "design": STREAM_DESIGN,
         "launches": spatial["launches"]["rowsum"] + spatial["launches"]["rowsum_map"],
+        "launches_stream": spatial["launches"]["stream"],
         "launches_map": spatial["launches"]["rowsum_map"],
         "max_abs_err": halo_fwd_err,
         "ms": spatial["times"]["16k_b1"]["rowsum_map_ms"],
@@ -2978,6 +3007,7 @@ def main():
         "name": "ssim_fwd_relaxed",
         "route": "cuda",
         "source": "ssim_tpu_torch/csrc/ssim_fwd.cu",
+        "design": TILE_DESIGN,
         "header": "ssim_tpu_torch/csrc/band_mma.cuh",
         "replaces": "ssim_tpu/ops/ssim_pallas.py:118, ssim_tpu/ops/ssim_pallas.py:168 "
                     "(K1 mode h, mxu3x), ssim_tpu/ops/ssim_pallas.py:1409 (K2 relaxed)",

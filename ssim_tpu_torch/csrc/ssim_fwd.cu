@@ -130,9 +130,9 @@
 // and the f32 peak ~410 Gpix/s, so the kernel is bound on chip: by the
 // blurs' shared-memory
 // traffic (~80 32-bit accesses per output pixel at radius 5) and
-// instruction issue. It measured 30-39 Gpix/s in mode kScore on an H100,
-// the same with and without FMA contraction, and the same with the L2
-// flushed between launches. The pool adds 2 operations and reads the
+// instruction issue. The tile body measured 30-39 Gpix/s in mode kScore on
+// an H100, the same with and without FMA contraction, and the same with the
+// L2 flushed between launches; the streaming kernel below 62-81 Gpix/s. The pool adds 2 operations and reads the
 // tile's inputs once more, from L1 or L2, where the halo load has just
 // brought them. The precise modes run the ~140 blur operations per pixel
 // in fp64 (half the f32 rate on an H100) and keep twice the planes' bytes
@@ -141,12 +141,51 @@
 // The batch modes do the same work per pixel; at widths under 64 the tile
 // grid's 64-wide tiles leave threads idle in both blur passes, which the
 // narrower batch tiles do not.
-// What the design does about it: each pixel of the halo tile is read from
-// device memory once and converted to f32 on load; both blur passes run
-// out of shared memory with symmetric tap pairs (r + 1 multiplies per
-// pass), warp-contiguous addresses (no bank conflicts) and the four
-// signals a, b, (a+b)^2, (a-b)^2 computed in one sweep. Later work: a
-// compile-time radius, register-resident vertical passes and TMA loads.
+// What the tile body (ssim_fwd_kernel) does about it: each pixel of the
+// halo tile is read from device memory once and converted to f32 on load;
+// both blur passes run out of shared memory with symmetric tap pairs (r + 1
+// multiplies per pass), warp-contiguous addresses (no bank conflicts) and
+// the four signals a, b, (a+b)^2, (a-b)^2 computed in one sweep. That is
+// still ~70 scalar shared-memory accesses per output pixel with a runtime
+// radius (every tap a load), and the horizontal pass runs over all TH + 2r
+// halo rows of a TH-row tile.
+//
+// The main-path modes stream rows instead (ssim_fwd_stream_kernel):
+// kScore, kMap, kRowsum and kRowsumMap (with or without halo operands) at
+// radius kStreamR = 5 (windows.RADIUS, every main-path shape) and tiles up
+// to kStripW columns wide; every other mode, radius and tile keeps the tile
+// body (ops/ssim_cuda.py::stream_applies states the rule). A block owns a
+// strip of kStripW output columns and walks down a segment of S output rows
+// (a multiple of TH, at most kMaxSegTiles tiles, chosen by the wrapper to
+// fill the card), one input row per step, one thread per output column.
+// Each step, with one __syncthreads:
+//  (a) the warp sums of the step before combined into tile partials or row
+//      pieces (one thread per tile);
+//  (b) the horizontal blur of the staged input row, a shared-memory row of
+//      float4 {a, b, (a+b)^2, (a-b)^2} over the strip plus r columns each
+//      side (the product signals formed once per pixel, the same floats
+//      as the twin's per-pair products): 11 float4 loads per pixel;
+//  (c) the four results pushed into a register window of the last 2r + 1
+//      rows (44 floats; the step loop is unrolled by 2r + 1 so each row
+//      keeps its register), the vertical blur down the column, the formula,
+//      the map store and the sums;
+//  (d) the next input row staged from registers loaded one step earlier
+//      (sanitised, its own pixels' finiteness noted in a per-block tile
+//      mask) and the row after it loaded, so device-memory latency
+//      overlaps a step's work.
+// The taps are kernel parameters (constant operands once the loops
+// unroll). Vertical recompute falls to (S + 2r) / S. What bounds it: issue
+// (per step and warp of 32 pixels ~200 f32 operations, built without FMA
+// contraction, and ~150 loads, stores, address and control instructions)
+// and latency (one barrier a row): time fell with each block per SM up to
+// 8 (64 registers, a few spilled). Two columns per thread (12 float4 loads
+// for two pixels from even/odd planes, a window of 88 floats) spilled at 7
+// blocks per SM and measured 10-15% slower (PERF.md). A non-finite own
+// pixel poisons its TH x TW tile: the tile's map rows are overwritten with
+// NaN after its last row and its partial or row pieces are NaN, as in the
+// tile body. Row pieces are formed as the tile body forms them (each
+// warp's 32 columns by shuffles, the tile's warps in order), so a row's
+// piece depends on its own columns alone, never on S or the band.
 //
 // Numerics follow the JAX kernel: clamp-to-edge borders (indices are
 // clamped as the halo tile is loaded; nothing is padded in device
@@ -199,6 +238,13 @@ struct Halo {
   int is_top;
   int is_bot;
 };
+
+template <typename T>
+Halo<T> make_halo(const void* const* halo, int is_top, int is_bot) {
+  return Halo<T>{static_cast<const T*>(halo[0]), static_cast<const T*>(halo[1]),
+                 static_cast<const T*>(halo[2]), static_cast<const T*>(halo[3]),
+                 is_top, is_bot};
+}
 
 // The precise modes blur in fp64 with the f64 taps; the others in f32.
 template <int kMode>
@@ -614,6 +660,365 @@ __global__ void rowsum_reduce_kernel(const float* __restrict__ pieces,
   rows[i] = (float)s + w;
 }
 
+// ---------------------------------------------------------------------------
+// The main-path modes: row-streaming column strips.
+
+// The streaming block: kStripW output columns, one thread each; segments of
+// at most kMaxSegTiles tiles (the tile mask holds one word per tile row, a
+// bit per tile column); the register window's radius; blocks per SM asked
+// of ptxas: 8 (64 registers, a few spilled) measured fastest at every
+// main-path shape, against 4 (no spills) to 7 (PERF.md).
+constexpr int kStripW = 128;
+constexpr int kStreamThreads = kStripW;
+constexpr int kMaxSegTiles = 16;
+constexpr int kStreamR = 5;
+constexpr int kStreamBlocks = 8;
+
+struct StreamTaps {
+  float t[2 * kStreamR + 1];
+};
+
+// Symmetric taps over 2r + 1 float4s: sum_{d=r..1} t[r-d] (v(-d) + v(d)) +
+// t[r] v(0), per component, v(i) the value at offset i from the centre; the
+// sum starts at the d = r term, as the twin's.
+template <typename V>
+__device__ __forceinline__ void sym4(const StreamTaps& tp, V&& v, float (&acc)[4]) {
+  constexpr int r = kStreamR;
+  {
+    const float t = tp.t[0];
+    const float4 lo = v(-r), hi = v(r);
+    acc[0] = t * (lo.x + hi.x);
+    acc[1] = t * (lo.y + hi.y);
+    acc[2] = t * (lo.z + hi.z);
+    acc[3] = t * (lo.w + hi.w);
+  }
+#pragma unroll
+  for (int d = r - 1; d >= 1; --d) {
+    const float t = tp.t[r - d];
+    const float4 lo = v(-d), hi = v(d);
+    acc[0] += t * (lo.x + hi.x);
+    acc[1] += t * (lo.y + hi.y);
+    acc[2] += t * (lo.z + hi.z);
+    acc[3] += t * (lo.w + hi.w);
+  }
+  const float tc = tp.t[r];
+  const float4 ce = v(0);
+  acc[0] = acc[0] + tc * ce.x;
+  acc[1] = acc[1] + tc * ce.y;
+  acc[2] = acc[2] + tc * ce.z;
+  acc[3] = acc[3] + tc * ce.w;
+}
+
+// The sum of v over a warp's lanes, in lane 0: shuffles down by 16 .. 1.
+__device__ __forceinline__ float warp_sum(float v) {
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) v += __shfl_down_sync(0xffffffffu, v, off);
+  return v;
+}
+
+// kScore / kMap: partials (B, nty * ntx) f32 as the tile body writes them;
+// kRowsum / kRowsumMap: pieces (B, ntx, H) f32, each tile's piece of each of
+// its rows, for rowsum_reduce_kernel. TH x TW: the tile (TW a power of two
+// in [32, kStripW]); S: the segment's rows (a multiple of TH, at most
+// kMaxSegTiles tiles).
+template <typename T, int kMode>
+__global__ void __launch_bounds__(kStreamThreads, kStreamBlocks)
+ssim_fwd_stream_kernel(const T* __restrict__ a, const T* __restrict__ b,
+                       float* __restrict__ partials, float* __restrict__ map,
+                       float* __restrict__ pieces, Halo<T> halo, int H, int W,
+                       int TH, int TW, int S, int nstrip, int nseg, int ntx,
+                       int nty, StreamTaps tp, float c1, float c2,
+                       float clip_bound) {
+  constexpr int r = kStreamR;
+  constexpr int kP = 2 * r + 1;  // window rows = steps unrolled
+  constexpr int kNT = kStreamThreads;
+  constexpr int kInW = kStripW + 2 * r;  // staged columns
+  constexpr int kLoads = (kInW + kNT - 1) / kNT;
+  constexpr bool kFloat = sizeof(T) == 4;
+  constexpr bool kWithMap = kMode == kMap || kMode == kRowsumMap;
+  constexpr bool kRows = kMode == kRowsum || kMode == kRowsumMap;
+  static_assert(kMode == kScore || kMode == kMap || kRows, "main-path modes only");
+
+  __shared__ float4 s_in[2][kInW];          // staged rows, by step parity
+  __shared__ float s_red[2][kNT / 32];      // warp sums, by step parity
+  __shared__ unsigned s_bad[kMaxSegTiles];  // bit per tile column, word per tile row
+
+  const int tid = threadIdx.x;
+  if (tid < kMaxSegTiles) s_bad[tid] = 0u;
+  // Before the prologue's stage(0), which may mark tiles in s_bad.
+  __syncthreads();
+
+  int blk = blockIdx.x;
+  const int strip = blk % nstrip;
+  blk /= nstrip;
+  const int seg = blk % nseg;
+  const int img = blk / nseg;
+  const int x0 = strip * kStripW;
+  const int y0 = seg * S;
+  const int vw = min(kStripW, W - x0);  // valid output columns
+  const int vh = min(S, H - y0);        // valid output rows
+  const size_t base = (size_t)img * (size_t)H * (size_t)W;
+  const int n = vh + 2 * r;  // stream rows: virtual row y0 - r + q
+  const bool col_on = tid < vw;  // this thread's output column x0 + tid
+  const int tcol = tid / TW;     // its tile column in the strip
+  const bool lead = tid == tcol * TW && col_on;  // combines its tile's sums
+  const int txg = x0 / TW + tcol;  // its tile column in the image
+  const int ty_base = y0 / TH;     // the segment's first tile row
+
+  // Staging: stream row q loaded into registers (fetch), then staged
+  // (stage). Staged column j is image column x0 - r + j, clamped.
+  T pa[kLoads], pb[kLoads];
+  int gxl[kLoads];
+#pragma unroll
+  for (int q = 0; q < kLoads; ++q) {
+    gxl[q] = min(max(x0 - r + tid + q * kNT, 0), W - 1);
+  }
+  auto fetch = [&](int q) {
+    const int vi = y0 - r + q;
+    const T* ra;
+    const T* rb;
+    if (kRows && vi < 0 && halo.at != nullptr && !halo.is_top) {
+      const size_t o = ((size_t)img * r + (size_t)(vi + r)) * (size_t)W;
+      ra = halo.at + o;
+      rb = halo.bt + o;
+    } else if (kRows && vi >= H && halo.ab != nullptr && !halo.is_bot) {
+      const size_t o = ((size_t)img * r + (size_t)(vi - H)) * (size_t)W;
+      ra = halo.ab + o;
+      rb = halo.bb + o;
+    } else {
+      const size_t o = base + (size_t)min(max(vi, 0), H - 1) * (size_t)W;
+      ra = a + o;
+      rb = b + o;
+    }
+#pragma unroll
+    for (int k = 0; k < kLoads; ++k) {
+      if (tid + k * kNT < vw + 2 * r) {
+        pa[k] = __ldg(ra + gxl[k]);
+        pb[k] = __ldg(rb + gxl[k]);
+      }
+    }
+  };
+  auto stage = [&](int q) {
+    const int ly = q - r;  // the segment's output row this input row is
+#pragma unroll
+    for (int k = 0; k < kLoads; ++k) {
+      const int j = tid + k * kNT;
+      if (j < vw + 2 * r) {
+        float va = to_f32(pa[k]);
+        float vb = to_f32(pb[k]);
+        if (kFloat) {
+          // Poison source: the segment's own pixels, unsanitised (rare path).
+          if (!(finite_f32(va) && finite_f32(vb))) {
+            const int xo = j - r;
+            if (ly >= 0 && ly < vh && xo >= 0 && xo < vw) {
+              atomicOr(&s_bad[ly / TH], 1u << (xo / TW));
+            }
+          }
+          va = sanitize(va, clip_bound);
+          vb = sanitize(vb, clip_bound);
+        }
+        const float sm = va + vb, df = va - vb;
+        s_in[q & 1][j] = make_float4(va, vb, sm * sm, df * df);
+      }
+    }
+  };
+
+  // The window: the horizontal blurs of the last 2r + 1 stream rows, per
+  // signal, the row of stream index q in slot q mod kP. acc: this column's
+  // sum(ssim - 1) over the current tile's rows (kScore / kMap).
+  float win[4][kP];
+  float acc = 0.0f;
+  int trow = 0;  // row within the current tile
+  int kt = 0;    // the current tile's row in the segment
+  // Warp sums waiting in s_red[(s - 1) & 1] for step s to combine: the
+  // tile row (kScore / kMap) or the output row (row modes), else -1; and in
+  // the row modes the tile row that ended there, else -1.
+  int pend = -1, pend_end = -1;
+
+  auto tile_bad = [&](int t) -> bool {
+    return kFloat && ((s_bad[t] >> tcol) & 1u);
+  };
+  // Step s's combine of the warp sums written in step s - 1: the tile's
+  // warps in order.
+  auto combine = [&](int s) {
+    if (pend < 0) return;
+    const float* red = s_red[(s - 1) & 1] + tid / 32;
+    if (lead) {
+      float sum = 0.0f;
+      for (int k = 0; k < TW / 32; ++k) sum += red[k];
+      if constexpr (kRows) {
+        const size_t prow = ((size_t)img * ntx + (size_t)txg) * (size_t)H;
+        pieces[prow + (size_t)(y0 + pend)] = sum;
+        if (pend_end >= 0 && tile_bad(pend_end)) {
+          // The tile ended at this row and holds a non-finite pixel: NaN
+          // over its rows' pieces, after their finite writes (this thread's).
+          const int ty0 = y0 + pend_end * TH;
+          for (int y = ty0; y <= y0 + pend; ++y) {
+            pieces[prow + (size_t)y] = __int_as_float(0x7fc00000);
+          }
+        }
+      } else {
+        const int tyg = ty_base + pend;
+        const int vth = min(TH, H - tyg * TH);
+        const int vtw = min(TW, W - txg * TW);
+        const float nan = __int_as_float(0x7fc00000);
+        partials[((size_t)img * nty + (size_t)tyg) * (size_t)ntx + (size_t)txg] =
+            tile_bad(pend) ? nan : sum + (float)(vth * vtw);
+      }
+    }
+    pend = -1;
+    pend_end = -1;
+  };
+
+  // Prologue: stream row 0 staged, row 1 loading.
+  fetch(0);
+  stage(0);
+  if (n > 1) fetch(1);
+  __syncthreads();
+
+  for (int s0 = 0; s0 < n; s0 += kP) {
+#pragma unroll
+    for (int k = 0; k < kP; ++k) {
+      const int s = s0 + k;
+      if (s < n) {
+        // (a) The warp sums of the step before.
+        combine(s);
+
+        // (b) Stream row s: horizontal blur into the window's slot k.
+        if (col_on) {
+          const float4* row = s_in[s & 1] + tid + r;  // centre row[0]
+          float h[4];
+          sym4(tp, [&](int i) { return row[i]; }, h);
+#pragma unroll
+          for (int p = 0; p < 4; ++p) win[p][k] = h[p];
+        }
+
+        // (c) Output row ly = s - 2r from stream rows s - 2r .. s (ages 2r
+        // .. 0: the row of age j in slot (k - j) mod kP).
+        if (s >= 2 * r) {
+          const int ly = s - 2 * r;
+          float v = 0.0f;
+          if (col_on) {
+            float m[4];
+            sym4(tp,
+                 [&](int i) {
+                   const int sl = (k - r + i + 2 * kP) % kP;
+                   return make_float4(win[0][sl], win[1][sl], win[2][sl], win[3][sl]);
+                 },
+                 m);
+            // _ssim_from_blurs (ssim_pallas.py:465-477), as the tile body.
+            const float mu_a = m[0], mu_b = m[1], s_ss = m[2], s_dd = m[3];
+            const float mu_a2 = mu_a * mu_a;
+            const float mu_b2 = mu_b * mu_b;
+            const float mu_ab = mu_a * mu_b;
+            const float sigma_ab_x4 = (s_ss - s_dd) - 4.0f * mu_ab;
+            const float sigma_sum_x2 = (s_ss + s_dd) - 2.0f * (mu_a2 + mu_b2);
+            const float num = (2.0f * mu_ab + c1) * (0.5f * sigma_ab_x4 + c2);
+            const float den = (mu_a2 + mu_b2 + c1) * (0.5f * sigma_sum_x2 + c2);
+            v = num / den;
+            if (kWithMap) {
+              map[base + (size_t)(y0 + ly) * (size_t)W + (size_t)(x0 + tid)] = v;
+            }
+          }
+          const bool tile_end = ++trow == TH || ly == vh - 1;
+          if constexpr (kRows) {
+            // The tile body's row piece: (ssim - 1) of each column, each
+            // warp's 32 columns by shuffles (idle columns add 0).
+            const float w = warp_sum(col_on ? v - 1.0f : 0.0f);
+            if ((tid & 31) == 0) s_red[s & 1][tid / 32] = w;
+            pend = ly;
+            pend_end = tile_end ? kt : -1;
+          } else {
+            if (col_on) acc += v - 1.0f;
+            if (tile_end) {
+              const float w = warp_sum(acc);
+              if ((tid & 31) == 0) s_red[s & 1][tid / 32] = w;
+              acc = 0.0f;
+              pend = kt;
+            }
+          }
+          if (tile_end) {
+            if (kWithMap && kFloat && col_on && tile_bad(kt)) {
+              // NaN over the tile's map rows in this column, after their
+              // finite writes (rare path).
+              for (int y = y0 + kt * TH; y <= y0 + ly; ++y) {
+                map[base + (size_t)y * (size_t)W + (size_t)(x0 + tid)] =
+                    __int_as_float(0x7fc00000);
+              }
+            }
+            trow = 0;
+            ++kt;
+          }
+        }
+
+        // (d) Stream row s + 1 staged from the registers loaded last step;
+        // row s + 2 loaded.
+        if (s + 1 < n) {
+          stage(s + 1);
+          if (s + 2 < n) fetch(s + 2);
+        }
+        __syncthreads();
+      }
+    }
+  }
+  combine(n);
+}
+
+template <typename T, int kMode>
+cudaError_t launch_stream(const void* a, const void* b, void* partials,
+                          void* map, void* scratch, const Halo<T>& halo, int B,
+                          int H, int W, int TH, int TW, int S,
+                          const double* taps_host, double c1, double c2,
+                          float clip_bound, cudaStream_t stream) {
+  constexpr bool kRows = kMode == kRowsum || kMode == kRowsumMap;
+  StreamTaps tp;
+  for (int k = 0; k < 2 * kStreamR + 1; ++k) tp.t[k] = (float)taps_host[k];
+  const int nstrip = (W + kStripW - 1) / kStripW;
+  const int nseg = (H + S - 1) / S;
+  const int ntx = (W + TW - 1) / TW;
+  const int nty = (H + TH - 1) / TH;
+  const long long blocks = (long long)B * nseg * nstrip;
+  if (blocks < 1 || blocks > 0x7fffffffLL) return cudaErrorInvalidConfiguration;
+  ssim_fwd_stream_kernel<T, kMode><<<(unsigned)blocks, kStreamThreads, 0, stream>>>(
+      static_cast<const T*>(a), static_cast<const T*>(b),
+      static_cast<float*>(partials), static_cast<float*>(map),
+      static_cast<float*>(scratch), halo, H, W, TH, TW, S, nstrip, nseg, ntx,
+      nty, tp, (float)c1, (float)c2, clip_bound);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess || !kRows) return err;
+  const long long n = (long long)B * H;
+  rowsum_reduce_kernel<<<(unsigned)((n + kThreads - 1) / kThreads), kThreads, 0,
+                         stream>>>(static_cast<const float*>(scratch),
+                                   static_cast<float*>(partials), B, ntx, H,
+                                   (float)W);
+  return cudaGetLastError();
+}
+
+template <int kMode>
+cudaError_t launch_stream_typed(int is_float, const void* a, const void* b,
+                                void* partials, void* map, void* scratch,
+                                const void* const* halo, int is_top, int is_bot,
+                                int B, int H, int W, int TH, int TW, int S,
+                                const double* taps_host, double c1, double c2,
+                                float clip_bound, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return is_float
+             ? launch_stream<float, kMode>(a, b, partials, map, scratch,
+                                           make_halo<float>(halo, is_top, is_bot),
+                                           B, H, W, TH, TW, S, taps_host, c1,
+                                           c2, clip_bound, s)
+             : launch_stream<uint8_t, kMode>(
+                   a, b, partials, map, scratch,
+                   make_halo<uint8_t>(halo, is_top, is_bot), B, H, W, TH, TW,
+                   S, taps_host, c1, c2, clip_bound, s);
+}
+
+template <typename T, int kMode>
+cudaError_t stream_occupancy(int* blocks_per_sm) {
+  return cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      blocks_per_sm, ssim_fwd_stream_kernel<T, kMode>, kStreamThreads, 0);
+}
+
 template <typename T, int kMode, int kSplit>
 cudaError_t launch(const void* a, const void* b, void* partials, void* map,
                    void* pool_a, void* pool_b, void* scratch,
@@ -669,13 +1074,6 @@ cudaError_t launch(const void* a, const void* b, void* partials, void* map,
   return cudaGetLastError();
 }
 
-template <typename T>
-Halo<T> make_halo(const void* const* halo, int is_top, int is_bot) {
-  return Halo<T>{static_cast<const T*>(halo[0]), static_cast<const T*>(halo[1]),
-                 static_cast<const T*>(halo[2]), static_cast<const T*>(halo[3]),
-                 is_top, is_bot};
-}
-
 template <int kMode, int kSplit>
 cudaError_t launch_typed(int is_float, const void* a, const void* b,
                          void* partials, void* map, void* pool_a,
@@ -722,8 +1120,11 @@ cudaError_t launch_typed(int is_float, const void* a, const void* b,
 // their flags (0 or 1). taps_host: 2r+1 doubles in host memory: the f32
 // taps widened, or in the precise modes the f64 taps (ssim_cuda._prepare;
 // the other modes round them to float). c1, c2:
-// the stabilising constants (rounded to float by the f32 modes). Returns
-// the launch's cudaError_t.
+// the stabilising constants (rounded to float by the f32 modes). seg: 0
+// for the tile body, or the streaming kernel's segment rows (modes 0, 1, 8
+// and 9, not relaxed, r = 5, TW in [32, 128], seg a multiple of TH of at
+// most 16 tiles; anything else is refused). Returns the launch's
+// cudaError_t.
 extern "C" int ssim_fwd_launch(int mode, int relaxed, int is_float,
                                const void* a, const void* b, void* partials,
                                void* map,
@@ -732,8 +1133,8 @@ extern "C" int ssim_fwd_launch(int mode, int relaxed, int is_float,
                                const void* b_top, const void* b_bot,
                                int is_top, int is_bot, int B, int H, int W,
                                int r, int TH, int TW, int ipb, int groups,
-                               const double* taps_host, double c1, double c2,
-                               float clip_bound, void* stream) {
+                               int seg, const double* taps_host, double c1,
+                               double c2, float clip_bound, void* stream) {
   const bool batch = mode == kBatch || mode == kBatchPrecise;
   const bool rows = mode == kRowsum || mode == kRowsumMap;
   const void* halo[4] = {a_top, a_bot, b_top, b_bot};
@@ -749,6 +1150,26 @@ extern "C" int ssim_fwd_launch(int mode, int relaxed, int is_float,
       (TW & (TW - 1)) != 0 || TH < 1 || (rows && TW < 32) ||
       (n_halo != 0 && (n_halo != 4 || !rows))) {
     return cudaErrorInvalidValue;
+  }
+  if (seg != 0) {
+    if (relaxed || r != kStreamR || TW < 32 || TW > kStripW || seg < TH ||
+        seg % TH != 0 || seg / TH > kMaxSegTiles || H < 1 || W < 1) {
+      return cudaErrorInvalidValue;
+    }
+#define SSIM_FWD_STREAM(M)                                                   \
+  case M:                                                                    \
+    return launch_stream_typed<M>(is_float, a, b, partials, map, scratch,    \
+                                  halo, is_top, is_bot, B, H, W, TH, TW, seg, \
+                                  taps_host, c1, c2, clip_bound, stream);
+    switch (mode) {
+      SSIM_FWD_STREAM(kScore)
+      SSIM_FWD_STREAM(kMap)
+      SSIM_FWD_STREAM(kRowsum)
+      SSIM_FWD_STREAM(kRowsumMap)
+      default:
+        return cudaErrorInvalidValue;
+    }
+#undef SSIM_FWD_STREAM
   }
 #define SSIM_FWD_CASE(M, S)                                                 \
   case M:                                                                  \
@@ -785,4 +1206,24 @@ extern "C" int ssim_fwd_launch(int mode, int relaxed, int is_float,
       return cudaErrorInvalidValue;
   }
 #undef SSIM_FWD_CASE
+}
+
+// Blocks of the streaming kernel that one SM of the current device holds at
+// once in `mode` (0, 1, 8 or 9) for uint8 (is_float = 0) or float32 inputs:
+// the CUDA runtime's occupancy for the instantiation that ssim_fwd_launch
+// takes with seg > 0. Returns a cudaError_t.
+extern "C" int ssim_fwd_stream_occupancy(int mode, int is_float, int* blocks_per_sm) {
+#define SSIM_FWD_OCC(M)                                                   \
+  case M:                                                                 \
+    return is_float ? stream_occupancy<float, M>(blocks_per_sm)           \
+                    : stream_occupancy<uint8_t, M>(blocks_per_sm);
+  switch (mode) {
+    SSIM_FWD_OCC(kScore)
+    SSIM_FWD_OCC(kMap)
+    SSIM_FWD_OCC(kRowsum)
+    SSIM_FWD_OCC(kRowsumMap)
+    default:
+      return cudaErrorInvalidValue;
+  }
+#undef SSIM_FWD_OCC
 }

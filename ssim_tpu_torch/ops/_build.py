@@ -139,12 +139,16 @@ def load_library() -> ctypes.CDLL:
             # batch and row modes, f64 in the precise modes. c1 and c2
             # are doubles, so the precise formula sees them unrounded.
             # Both entries take the relaxed flag, four halo-operand
-            # pointers (NULL without them) and the is_top / is_bot flags.
+            # pointers (NULL without them) and the is_top / is_bot flags;
+            # the forward's seg (after groups) picks the streaming kernel.
             lib.ssim_fwd_launch.argtypes = [
                 i, i, i, p, p, p, p, p, p, p, p, p, p, p, i, i, i, i, i, i,
-                i, i, i, i, p, d, d, f, p,
+                i, i, i, i, i, p, d, d, f, p,
             ]
             lib.ssim_fwd_launch.restype = i
+            # mode, is_float, out: blocks per SM of the streaming forward.
+            lib.ssim_fwd_stream_occupancy.argtypes = [i, i, ctypes.POINTER(i)]
+            lib.ssim_fwd_stream_occupancy.restype = i
             # The backward entry takes the NaN tile (TH, TW) and the
             # standard kernel's segment rows S.
             lib.ssim_bwd_launch.argtypes = [

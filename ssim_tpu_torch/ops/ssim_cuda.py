@@ -37,11 +37,17 @@ and `_chunked_overlap_call`, in these of their modes:
   (a+b)^2 and (a-b)^2, run as bf16x3 band products on the tensor cores;
   their twin is `band_bf16x3_plain`, the rest of each twin as it is.
 
-The kernel is `ssim_tpu_torch/csrc/ssim_fwd.cu`: one 2-D grid of TILE_H x
-TILE_W output tiles, one CUDA block per tile, that covers every width, so
-the TPU's split at 16384 lanes and `pooled_components_ok`'s VMEM limits
-have no counterpart. The batch modes walk each image's own grid of
-narrower tiles inside a block (`batch_geometry`).
+The kernel is `ssim_tpu_torch/csrc/ssim_fwd.cu`. Its partials and NaN
+poison follow one 2-D grid of TILE_H x TILE_W output tiles that covers
+every width, so the TPU's split at 16384 lanes and
+`pooled_components_ok`'s VMEM limits have no counterpart. The main-path
+modes (score, map and the row modes, at radius STREAM_RADIUS, tiles up to
+STRIP_W wide: `stream_applies`) run a row-streaming kernel, one CUDA block
+per strip of STRIP_W columns and segment of rows (`stream_segment` picks
+the segment's length to fill the card, `stream_blocks` lists the blocks);
+every other mode, radius and tile runs the tile body, one block per tile.
+The batch modes walk each image's own grid of narrower tiles inside a
+block (`batch_geometry`).
 
 Each wrapper launches the kernel for CUDA tensors and runs its plain twin
 for CPU tensors, the counterpart of "compiled on TPU, interpreted
@@ -87,9 +93,12 @@ _MAX_DYNAMIC_SMEM = 232448 - 256
 #: with the map), ssim_components_cuda, ssim_components_pooled_cuda and
 #: ssim_parts_batch_cuda (BATCH_LAUNCHES, and BATCH_PRECISE_LAUNCHES for
 #: its precise tier), one counter per mode; RELAXED_LAUNCHES counts the
-#: relaxed launches of every mode, which add to no other counter. Each is
-#: added to in one place, per launch, and nowhere else, so a caller can
-#: show which modes a run went through.
+#: relaxed launches of every mode, which add to no other counter.
+#: STREAM_LAUNCHES counts the launches that ran the row-streaming kernel
+#: (stream_applies), beside their mode's counter; the mode's other
+#: launches ran the tile body. Each is added to in one place, per launch,
+#: and nowhere else, so a caller can show which modes, and which design,
+#: a run went through.
 LAUNCHES = 0
 PRECISE_LAUNCHES = 0
 COMPONENTS_LAUNCHES = 0
@@ -99,6 +108,19 @@ BATCH_PRECISE_LAUNCHES = 0
 ROWSUM_LAUNCHES = 0
 ROWSUM_MAP_LAUNCHES = 0
 RELAXED_LAUNCHES = 0
+STREAM_LAUNCHES = 0
+
+#: The row-streaming kernel (ssim_fwd.cu kStripW, kMaxSegTiles, kStreamR):
+#: a block owns a strip of STRIP_W output columns and walks down a segment
+#: of at most MAX_SEG_TILES tiles' rows; its window radius is
+#: STREAM_RADIUS (windows.RADIUS) and it serves the modes STREAM_MODES.
+STRIP_W = 128
+MAX_SEG_TILES = 16
+STREAM_RADIUS = 5
+STREAM_MODES = ("score", "map", "rowsum", "rowsum_map")
+#: Rows' worth of fixed cost per block in stream_segment's model (launch,
+#: prologue and the NaN check).
+_BLOCK_OVERHEAD_ROWS = 8
 
 #: The JAX package's width gate of the relaxed tier (ssim_pallas.py:115,
 #: copied): the tile grid runs the relaxed mode at widths >= MXU_MIN_W and
@@ -194,6 +216,72 @@ def batch_geometry(batch: int, h: int, w: int):
     if tiles >= run:
         return tile_h, tile_w, 1, -(-tiles // run)
     return tile_h, tile_w, run // tiles, 1
+
+
+def stream_applies(mode: str, radius: int, tile_w: int, relaxed: bool = False) -> bool:
+    """Whether a launch in `mode` runs the row-streaming kernel, else the
+    tile body: the standard tier's score, map and row modes (with or
+    without halo operands; STREAM_MODES) at radius STREAM_RADIUS with a
+    tile 32 to STRIP_W columns wide. The components, pooled, batch and
+    precise modes, every relaxed launch, the other radii and a tile_w of
+    256 run the tile body."""
+    return (mode in STREAM_MODES and radius == STREAM_RADIUS
+            and 32 <= tile_w <= STRIP_W and not relaxed)
+
+
+@functools.lru_cache(maxsize=256)
+def stream_segment(bsz: int, h: int, w: int, tile_h: int, prologue: int,
+                   resident: int, tail: float = 0.0) -> int:
+    """A row-streaming kernel's segment rows for (bsz, h, w) with tile
+    height tile_h, `prologue` input rows read above the segment's first
+    output row before it (2r in the forward, 4r in the backward) and
+    `resident` blocks on the card at once (its SMs times the kernel's
+    occupancy): the multiple of tile_h (1 to MAX_SEG_TILES tiles) that
+    minimises the modelled time, the waves of resident blocks times a
+    block's rows, the segment plus its prologue and a fixed cost. A last
+    partial wave costs a whole one, unless it holds at most `tail` of the
+    resident blocks: then it runs beside the others (the backward, 1/20,
+    measured so on an H100; the forward's sweeps fit no such allowance,
+    PERF.md). Short segments fill the card, long ones recompute fewer halo
+    rows."""
+    nstrip = -(-w // STRIP_W)
+    best = None
+    for k in range(1, MAX_SEG_TILES + 1):
+        seg = k * tile_h
+        full, rest = divmod(bsz * nstrip * -(-h // seg), resident)
+        waves = full + (1 if full == 0 or rest > resident * tail else 0)
+        cost = waves * (min(seg, h) + prologue + _BLOCK_OVERHEAD_ROWS)
+        if best is None or cost < best[0]:
+            best = (cost, seg)
+        if seg >= h:
+            break
+    return best[1]
+
+
+def stream_blocks(h: int, w: int, seg: int):
+    """The output rectangles (y0, y1, x0, x1) that a row-streaming kernel's
+    blocks write in one image, in its block order (strips fastest): the
+    kernels' own decoding of blockIdx.x."""
+    nstrip, nseg = -(-w // STRIP_W), -(-h // seg)
+    return [(j * seg, min(h, (j + 1) * seg), i * STRIP_W, min(w, (i + 1) * STRIP_W))
+            for j in range(nseg) for i in range(nstrip)]
+
+
+@functools.lru_cache(maxsize=64)
+def _stream_resident(index: int, mode: str, is_float: bool) -> int:
+    """Streaming-kernel blocks that card `index` holds at once in `mode`:
+    its SMs times the CUDA runtime's occupancy for the instantiation
+    (ssim_fwd_stream_occupancy)."""
+    from . import _build
+
+    n = ctypes.c_int(0)
+    with torch.cuda.device(index):
+        err = _build.load_library().ssim_fwd_stream_occupancy(
+            _MODES.index(mode), int(is_float), ctypes.byref(n))
+    if err != 0 or n.value < 1:
+        raise RuntimeError(f"ssim_fwd_stream_occupancy failed (cudaError {err}, "
+                           f"{n.value} blocks per SM)")
+    return torch.cuda.get_device_properties(index).multi_processor_count * n.value
 
 
 def _tile_reduce(x: torch.Tensor, tile_h: int, tile_w: int, op) -> torch.Tensor:
@@ -575,20 +663,24 @@ _MODES = ("score", "map", "components", "pooled", "precise", "precise_map",
 
 
 def _launch(a, b, *, mode, taps, c1, c2, clip_bound, tile_h, tile_w, ipb=1,
-            groups=1, vhalo=None, vmask=(False, False), relaxed=False):
+            groups=1, vhalo=None, vmask=(False, False), relaxed=False,
+            segment=None):
     """Launch the CUDA kernel in `mode` (one of _MODES) on (B, H, W)
     contiguous tensors on one CUDA device; no synchronisation. ipb, groups:
     the batch modes' images per block and runs per image. vhalo, vmask:
     the row modes' four (B, r, W) halo operands and their two flags.
     relaxed: the mode's relaxed instantiation (score, map, components,
-    pooled and batch; the C entry refuses the others).
+    pooled and batch; the C entry refuses the others). Where
+    stream_applies, the row-streaming kernel runs, with `segment` rows per
+    block (stream_segment's choice if None); the tile body takes no
+    segment.
     Returns the mode's outputs: (partials, map or None) (partials f64 in
     the precise modes, (B, H) row sums in the row modes), (B, K, 2)
     partials, (partials, pooled_a, pooled_b), or the batch modes' (B, 2)
     partials."""
     global LAUNCHES, PRECISE_LAUNCHES, COMPONENTS_LAUNCHES, POOLED_LAUNCHES
     global BATCH_LAUNCHES, BATCH_PRECISE_LAUNCHES, ROWSUM_LAUNCHES
-    global ROWSUM_MAP_LAUNCHES, RELAXED_LAUNCHES
+    global ROWSUM_MAP_LAUNCHES, RELAXED_LAUNCHES, STREAM_LAUNCHES
     from . import _build
 
     lib = _build.load_library()
@@ -596,6 +688,20 @@ def _launch(a, b, *, mode, taps, c1, c2, clip_bound, tile_h, tile_w, ipb=1,
     nty, ntx = tile_grid(h, w, tile_h, tile_w)
     if bsz * nty * ntx > 0x7FFFFFFF:
         raise ValueError(f"{bsz * nty * ntx} tiles exceed one launch's grid")
+    r = len(taps) // 2
+    stream = stream_applies(mode, r, tile_w, relaxed)
+    if stream:
+        seg = segment or stream_segment(
+            bsz, h, w, tile_h, 2 * r,
+            _stream_resident(a.device.index, mode, a.dtype == torch.float32))
+        if seg % tile_h or not tile_h <= seg <= MAX_SEG_TILES * tile_h:
+            raise ValueError(f"segment {seg} is not 1-{MAX_SEG_TILES} tiles of "
+                             f"{tile_h} rows")
+    elif segment is not None:
+        raise ValueError(f"the tile body ({mode}, radius {r}, tile_w {tile_w}"
+                         f"{', relaxed' if relaxed else ''}) takes no segment")
+    else:
+        seg = 0
     batch = mode in ("batch", "batch_precise")
     comp = mode in ("components", "pooled")
     rows = mode in ("rowsum", "rowsum_map")
@@ -621,7 +727,6 @@ def _launch(a, b, *, mode, taps, c1, c2, clip_bound, tile_h, tile_w, ipb=1,
     ptr = lambda x: None if x is None else x.data_ptr()
     halo = (None,) * 4 if vhalo is None else tuple(x.data_ptr() for x in vhalo)
     _check_taps(taps, precise)
-    r = len(taps) // 2
     taps_c = (ctypes.c_double * len(taps))(*[float(v) for v in taps])
     with torch.cuda.device(a.device):
         err = lib.ssim_fwd_launch(
@@ -629,13 +734,16 @@ def _launch(a, b, *, mode, taps, c1, c2, clip_bound, tile_h, tile_w, ipb=1,
             a.data_ptr(),
             b.data_ptr(), partials.data_ptr(), ptr(ssim_map), ptr(pooled[0]),
             ptr(pooled[1]), ptr(scratch), *halo, int(vmask[0]), int(vmask[1]),
-            bsz, h, w, r, tile_h, tile_w, ipb, groups,
+            bsz, h, w, r, tile_h, tile_w, ipb, groups, seg,
             ctypes.cast(taps_c, ctypes.c_void_p), c1, c2, clip_bound,
             torch.cuda.current_stream(a.device).cuda_stream)
     if err != 0:
         raise RuntimeError(
-            f"ssim_fwd kernel ({mode}{', relaxed' if relaxed else ''}) failed "
+            f"ssim_fwd kernel ({mode}{', relaxed' if relaxed else ''}"
+            f"{f', streaming, segment {seg}' if stream else ''}) failed "
             f"with CUDA error {err}")
+    if stream:
+        STREAM_LAUNCHES += 1
     if relaxed:
         RELAXED_LAUNCHES += 1
     elif rows:

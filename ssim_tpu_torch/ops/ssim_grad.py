@@ -33,15 +33,17 @@ kernel poisons the edge blocks with any non-finite operand value there).
 
 import ctypes
 import functools
-from typing import List, Optional, Tuple
+from typing import Optional, Tuple
 
 import numpy as np
 import torch
 
 from ..windows import RADIUS, SIGMA, gaussian_taps
+from . import ssim_cuda
 from .ssim_cuda import (
-    _MAX_DYNAMIC_SMEM, MAX_FUSED_RADIUS, _pad_cols, _tile_reduce,
-    band_bf16x3_plain, hpass4, relaxed_applies, splice_rows, sym_blur,
+    _MAX_DYNAMIC_SMEM, MAX_FUSED_RADIUS, MAX_SEG_TILES, STRIP_W, _pad_cols,
+    _tile_reduce, band_bf16x3_plain, hpass4, relaxed_applies, splice_rows,
+    stream_blocks, sym_blur,
 )
 from .ssim_torch import _pad_edge
 
@@ -52,14 +54,10 @@ from .ssim_torch import _pad_edge
 TILE_H = 32
 TILE_W = 64
 
-#: The standard kernel's block: a strip of STRIP_W output columns (two NaN
-#: tiles) walking down a segment of at most MAX_SEG_TILES NaN tiles' rows
-#: (ssim_bwd.cu kStripW, kMaxSegTiles).
-STRIP_W = 128
-MAX_SEG_TILES = 16
-#: Rows' worth of fixed cost per block in stream_segment's model (launch,
-#: prologue and the NaN check).
-_BLOCK_OVERHEAD_ROWS = 8
+#: The standard kernel's block is the forward streaming kernel's: a strip of
+#: STRIP_W output columns (two NaN tiles) walking down a segment of at most
+#: MAX_SEG_TILES NaN tiles' rows (ssim_bwd.cu kStripW, kMaxSegTiles), whose
+#: blocks stream_blocks lists.
 
 #: Kernel launches made by ssim_grad_cuda in this process (VHALO_LAUNCHES:
 #: those with halo operands; RELAXED_LAUNCHES: the relaxed mode's, with or
@@ -100,38 +98,14 @@ def default_tile(radius: int) -> Tuple[int, int]:
     return tile_h, TILE_W
 
 
-@functools.lru_cache(maxsize=256)
 def stream_segment(bsz: int, h: int, w: int, radius: int, resident: int) -> int:
     """The standard kernel's segment rows for (bsz, h, w) at this radius,
-    with `resident` blocks on the card at once (its SMs times the kernel's
-    occupancy): the multiple of the NaN tile's height (1 to MAX_SEG_TILES
-    tiles) that minimises the modelled time, the waves of resident blocks
-    (a last wave of at most a twentieth of them runs beside the others,
-    measured so on an H100) times a block's rows, the segment plus its
-    4r-row prologue and a fixed cost. Short segments fill the card, long
-    ones recompute fewer halo rows."""
-    tile_h, _ = default_tile(radius)
-    nstrip = -(-w // STRIP_W)
-    best = None
-    for k in range(1, MAX_SEG_TILES + 1):
-        seg = k * tile_h
-        full, rest = divmod(bsz * nstrip * -(-h // seg), resident)
-        waves = full + (1 if full == 0 or rest > resident // 20 else 0)
-        cost = waves * (min(seg, h) + 4 * radius + _BLOCK_OVERHEAD_ROWS)
-        if best is None or cost < best[0]:
-            best = (cost, seg)
-        if seg >= h:
-            break
-    return best[1]
-
-
-def stream_blocks(h: int, w: int, seg: int) -> List[Tuple[int, int, int, int]]:
-    """The output rectangles (y0, y1, x0, x1) that the standard kernel's
-    blocks write in one image, in its block order (strips fastest): the
-    ssim_bwd.cu kernel's own decoding of blockIdx.x."""
-    nstrip, nseg = -(-w // STRIP_W), -(-h // seg)
-    return [(j * seg, min(h, (j + 1) * seg), i * STRIP_W, min(w, (i + 1) * STRIP_W))
-            for j in range(nseg) for i in range(nstrip)]
+    with `resident` blocks on the card at once: ssim_cuda.stream_segment's
+    model with the NaN tile's height, the 4r-row prologue and a last wave
+    of at most a twentieth of the resident blocks running beside the
+    others."""
+    return ssim_cuda.stream_segment(bsz, h, w, default_tile(radius)[0], 4 * radius,
+                                    resident, 1 / 20)
 
 
 def fold_coefficients(taps: np.ndarray) -> np.ndarray:

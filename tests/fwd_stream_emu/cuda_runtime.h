@@ -1,0 +1,30 @@
+// Host stand-ins for the CUDA names the forward streaming kernel uses, so
+// that g++ can build its source for tests/test_torch_port_fwd_stream.py:
+// each CUDA thread of a block is a std::thread (harness.cpp), shared
+// arrays are statics shared by the block's threads, __syncthreads is a
+// std::barrier and a warp shuffle goes through a per-warp buffer.
+#pragma once
+#include <algorithm>
+#include <cstdint>
+#include <cstring>
+#include <cmath>
+#define __global__
+#define __device__
+#define __host__
+#define __forceinline__ inline
+#define __shared__ static
+#define __launch_bounds__(...)
+struct dim3x { unsigned x, y, z; };
+extern thread_local dim3x threadIdx, blockIdx;
+struct float4 { float x, y, z, w; };
+inline float4 make_float4(float a, float b, float c, float d) { return {a, b, c, d}; }
+using std::max;
+using std::min;
+inline unsigned __float_as_uint(float f) { unsigned u; std::memcpy(&u, &f, 4); return u; }
+inline float __int_as_float(int i) { float f; std::memcpy(&f, &i, 4); return f; }
+template <class T> inline T __ldg(const T* p) { return *p; }
+void __syncthreads();
+float __shfl_down_sync(unsigned mask, float v, int offset);
+unsigned atomicOr(unsigned* p, unsigned v);
+typedef int cudaError_t;
+typedef void* cudaStream_t;

@@ -1,0 +1,123 @@
+// Runs ssim_fwd_stream_kernel's source on the host (see cuda_runtime.h):
+//   harness IN OUT
+// IN holds int32 [mode, is_float, B, H, W, TH, TW, S, has_halo, is_top,
+// is_bot], f32 taps[11], f32 [c1, c2, clip_bound], a, b (B*H*W of u8 or
+// f32) and, with has_halo, a_top, a_bot, b_top, b_bot (B*5*W each). OUT
+// receives the partials (B, nty*ntx) or the row sums (B, H) f32, then the
+// map (B, H, W) f32 in the map modes. The blocks run one after another,
+// each with one std::thread per CUDA thread.
+#include "cuda_runtime.h"
+
+#include <barrier>
+#include <cstdio>
+#include <cstdlib>
+#include <mutex>
+#include <thread>
+#include <vector>
+
+thread_local dim3x threadIdx, blockIdx;
+static std::barrier<>* g_block;
+static std::barrier<>* g_warp[32];
+static float g_lane[32][32];
+static std::mutex g_atomic;
+
+void __syncthreads() { g_block->arrive_and_wait(); }
+float __shfl_down_sync(unsigned, float v, int offset) {
+  const int w = threadIdx.x / 32, l = threadIdx.x % 32;
+  g_lane[w][l] = v;
+  g_warp[w]->arrive_and_wait();
+  const float r = l + offset < 32 ? g_lane[w][l + offset] : v;
+  g_warp[w]->arrive_and_wait();
+  return r;
+}
+unsigned atomicOr(unsigned* p, unsigned v) {
+  std::lock_guard<std::mutex> lock(g_atomic);
+  const unsigned old = *p;
+  *p |= v;
+  return old;
+}
+
+#include "ssim_fwd_stream.cu"  // the kernel's source, cut by the test
+
+template <class T> static std::vector<T> take(FILE* f, size_t n) {
+  std::vector<T> v(n);
+  if (n && fread(v.data(), sizeof(T), n, f) != n) {
+    fprintf(stderr, "short input\n");
+    exit(1);
+  }
+  return v;
+}
+
+template <class T, int M>
+static void run(FILE* f, FILE* o, const std::vector<int>& h) {
+  const int B = h[2], H = h[3], W = h[4], TH = h[5], TW = h[6], S = h[7];
+  const auto taps = take<float>(f, 2 * kStreamR + 1);
+  const auto cc = take<float>(f, 3);
+  const size_t np = (size_t)B * H * W;
+  const auto a = take<T>(f, np), b = take<T>(f, np);
+  std::vector<T> ops[4];
+  if (h[8]) for (auto& x : ops) x = take<T>(f, (size_t)B * kStreamR * W);
+  const Halo<T> halo{h[8] ? ops[0].data() : nullptr, h[8] ? ops[1].data() : nullptr,
+                     h[8] ? ops[2].data() : nullptr, h[8] ? ops[3].data() : nullptr,
+                     h[9], h[10]};
+  StreamTaps tp;
+  for (int k = 0; k < 2 * kStreamR + 1; ++k) tp.t[k] = taps[k];
+  const int nstrip = (W + kStripW - 1) / kStripW, nseg = (H + S - 1) / S;
+  const int ntx = (W + TW - 1) / TW, nty = (H + TH - 1) / TH;
+  constexpr bool kRows = M == kRowsum || M == kRowsumMap;
+  constexpr bool kWithMap = M == kMap || M == kRowsumMap;
+  std::vector<float> partials((size_t)B * nty * ntx), map(np), pieces((size_t)B * ntx * H);
+  g_block = new std::barrier<>(kStreamThreads);
+  for (auto& w : g_warp) w = new std::barrier<>(32);
+  for (int blk = 0; blk < B * nseg * nstrip; ++blk) {
+    std::vector<std::thread> threads;
+    for (int t = 0; t < kStreamThreads; ++t) {
+      threads.emplace_back([&, t] {
+        threadIdx = {(unsigned)t, 0, 0};
+        blockIdx = {(unsigned)blk, 0, 0};
+        ssim_fwd_stream_kernel<T, M>(a.data(), b.data(), partials.data(),
+                                     kWithMap ? map.data() : nullptr, pieces.data(),
+                                     halo, H, W, TH, TW, S, nstrip, nseg, ntx, nty,
+                                     tp, cc[0], cc[1], cc[2]);
+      });
+    }
+    for (auto& t : threads) t.join();
+  }
+  if (kRows) {  // rowsum_reduce_kernel's arithmetic
+    std::vector<float> rows((size_t)B * H);
+    for (int i = 0; i < B; ++i) {
+      for (int y = 0; y < H; ++y) {
+        double s = 0.0;
+        for (int t = 0; t < ntx; ++t) s += pieces[((size_t)i * ntx + t) * H + y];
+        rows[(size_t)i * H + y] = (float)s + (float)W;
+      }
+    }
+    fwrite(rows.data(), 4, rows.size(), o);
+  } else {
+    fwrite(partials.data(), 4, partials.size(), o);
+  }
+  if (kWithMap) fwrite(map.data(), 4, map.size(), o);
+}
+
+int main(int argc, char** argv) {
+  if (argc != 3) return 2;
+  FILE* f = fopen(argv[1], "rb");
+  FILE* o = fopen(argv[2], "wb");
+  if (!f || !o) return 2;
+  const auto h = take<int>(f, 11);
+#define SSIM_EMU_RUN(M)                         \
+  case M:                                       \
+    if (h[1]) run<float, M>(f, o, h);           \
+    else run<uint8_t, M>(f, o, h);              \
+    break;
+  switch (h[0]) {
+    SSIM_EMU_RUN(kScore)
+    SSIM_EMU_RUN(kMap)
+    SSIM_EMU_RUN(kRowsum)
+    SSIM_EMU_RUN(kRowsumMap)
+    default:
+      return 2;
+  }
+  fclose(o);
+  return 0;
+}

@@ -4,9 +4,10 @@ and backward, with and without them; both in their relaxed modes) and the
 pad kernel against their plain twins, on the card, and the launches of the
 training, MS-SSIM, small-image batch and pad paths.
 
-The backward kernel's standard tier streams rows down column strips: its
-cases pin the segment length (two NaN tiles) to put H, W, the halo
-operands and non-finite pixels on the segment and strip boundaries.
+The forward kernel's main-path modes and the backward kernel's standard
+tier stream rows down column strips: their cases pin the segment length
+(two tiles) to put H, W, the tiles, the halo operands and non-finite
+pixels on the segment, strip and tile boundaries.
 
 Marked `cuda`: it skips without a CUDA device (here, on the CPU). This
 file imports neither JAX nor the repo's conftest, so it also runs on a
@@ -491,6 +492,187 @@ def test_backward_stream_nonfinite_on_boundaries_on_card(radius):
     _hold_backward(da, db, pa, pb)
     assert da[0, seg, 0].isnan() and da[1].isnan().any()
     assert torch.isfinite(da[2]).all() and torch.isfinite(db[2]).all()
+
+
+def _float_pair(rng, shape):
+    a = rng.random(shape).astype(np.float32)
+    b = np.clip(a + rng.normal(0, 0.05, shape), 0, 1).astype(np.float32)
+    return a, b
+
+
+def _fwd_stream(at, bt, mode, tile, seg, **halo):
+    """The forward kernel in `mode` through the row-streaming instantiation
+    at a pinned segment and tile, and the twin, on the same card tensors.
+    Returns ((partials or rows, map or None) of the kernel, of the twin)."""
+    dr = 1.0 if at.dtype == torch.float32 else 255.0
+    kw = dict(_twin_kw(dr), tile_h=tile[0], tile_w=tile[1])
+    assert ssim_cuda.stream_applies(mode, 5, tile[1])
+    before = ssim_cuda.STREAM_LAUNCHES
+    got = ssim_cuda._launch(at, bt, mode=mode, segment=seg, **halo, **kw)
+    torch.cuda.synchronize()
+    assert ssim_cuda.STREAM_LAUNCHES == before + 1
+    if mode in ("rowsum", "rowsum_map"):
+        want = ssim_cuda.ssim_rows_plain(at, bt, with_map=mode == "rowsum_map",
+                                         **halo, **kw)
+    else:
+        want = ssim_cuda.ssim_parts_plain(at, bt, with_map=mode == "map", **kw)
+    return got, want
+
+
+def _hold_forward(got, want, shape, rows):
+    """Kernel against twin on a (B, H, W) input: maps bit for bit (NaN at
+    the same pixels); row sums within W * 1e-5, per-image scores within
+    2e-7 (never tighter than 2e-5 / sqrt(npix)); NaN at the same rows or
+    tiles."""
+    (pk, mk), (pp, mp) = got, want
+    assert (mk is None) == (mp is None)
+    if mp is not None:
+        assert torch.equal(mk.isnan(), mp.isnan())
+        assert torch.equal(mk[~mp.isnan()], mp[~mp.isnan()])
+    assert torch.equal(pk.isnan(), pp.isnan())
+    if rows:
+        ok = ~pp.isnan()
+        if ok.any():
+            assert (pk[ok] - pp[ok]).abs().max().item() <= 1e-5 * shape[-1]
+        return
+    npix = shape[-2] * shape[-1]
+    gk = pk.double().sum(-1).cpu().numpy() / npix
+    gp = pp.double().sum(-1).cpu().numpy() / npix
+    assert np.array_equal(np.isnan(gk), np.isnan(gp))
+    assert np.nanmax(np.abs(gk - gp), initial=0.0) <= max(2e-7, 2e-5 / npix**0.5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["u8", "f32"])
+@pytest.mark.parametrize("tile", [(32, 32), (32, 64), (64, 128)])
+@pytest.mark.parametrize("case", ["seg-1", "seg", "seg+1", "2seg+1", "ragged_w",
+                                  "w<=2r", "h=1", "b=3"])
+def test_forward_stream_geometry_on_card(case, tile, dtype):
+    """The main-path modes' row streaming at a segment of two tiles: H one
+    short of, equal to and one past the segment and 2S + 1; W not a
+    multiple of the 128-column strip (the last strip ragged, u8 rows not
+    a multiple of 4 or 16 bytes), W <= 2r, H = 1, three images; pinned
+    tiles 32x32, 32x64, 64x128; u8 and f32. Maps (kMap, kRowsumMap) bit for
+    bit the twin's, partials and row sums within the twin tolerance."""
+    _need_card()
+    seg = 2 * tile[0]
+    bsz, h, w = {"seg-1": (2, seg - 1, 300), "seg": (2, seg, 300),
+                 "seg+1": (2, seg + 1, 300), "2seg+1": (2, 2 * seg + 1, 300),
+                 "ragged_w": (2, seg + 1, 517), "w<=2r": (2, seg + 1, 9),
+                 "h=1": (2, 1, 301), "b=3": (3, seg + 3, 259)}[case]
+    rng = np.random.default_rng(0x70 + len(case) + tile[1])
+    a, b = (_pair if dtype == "u8" else _float_pair)(rng, (bsz, h, w))
+    at, bt = torch.from_numpy(a).cuda(), torch.from_numpy(b).cuda()
+    for mode in ("score", "map", "rowsum", "rowsum_map"):
+        got, want = _fwd_stream(at, bt, mode, tile, seg)
+        if got[1] is not None:
+            assert torch.isfinite(got[1]).all()
+        _hold_forward(got, want, at.shape, rows=mode.startswith("rowsum"))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["map", "rowsum_map"])
+@pytest.mark.parametrize("tile", [(32, 64), (32, 32), (16, 128)])
+def test_forward_stream_nonfinite_on_boundaries_on_card(mode, tile):
+    """Non-finite pixels on a tile edge, a strip's last and first column, a
+    segment's first and last row, 2r rows above an interior segment's first
+    row (the first row its block loads, staged before its first step: the
+    P5 case) and the image's last pixel: NaN over exactly the twin's tiles,
+    in the map and the partials or rows, in their own image only."""
+    _need_card()
+    seg = 2 * tile[0]
+    rng = np.random.default_rng(0x74 + tile[1])
+    a, b = _float_pair(rng, (3, 2 * seg + 7, 400))
+    a[0, seg, 200] = np.nan
+    a[0, seg - 10, 40] = np.nan
+    a[1, seg - 1, 127] = np.inf
+    b[1, 3, 128] = -np.inf
+    a[2, tile[0] - 1, tile[1]] = np.nan
+    b[2, 2 * seg + 6, 399] = np.nan
+    at, bt = torch.from_numpy(a).cuda(), torch.from_numpy(b).cuda()
+    got, want = _fwd_stream(at, bt, mode, tile, seg)
+    _hold_forward(got, want, at.shape, rows=mode == "rowsum_map")
+    m = got[1]
+    assert m[0, seg, 200].isnan() and m[0, seg - 10, 40].isnan()
+    assert m[1, seg - 1, 127].isnan() and m[1, 3, 128].isnan()
+    # Each NaN tile is whole, and holds a planted pixel.
+    bad = m.isnan().cpu().numpy()
+    th, tw = tile
+    for i in range(3):
+        for y in range(0, bad.shape[1], th):
+            for x in range(0, bad.shape[2], tw):
+                blk = bad[i, y:y + th, x:x + tw]
+                assert blk.all() or not blk.any()
+                planted = ~np.isfinite(a[i, y:y + th, x:x + tw]) | ~np.isfinite(
+                    b[i, y:y + th, x:x + tw])
+                assert blk.any() == planted.any()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["u8", "f32"])
+@pytest.mark.parametrize("flags", [(0, 0), (1, 0), (0, 1), (1, 1)])
+def test_forward_stream_row_modes_with_halo_on_card(flags, dtype):
+    """kRowsum and kRowsumMap at radius 5 with halo operands through the
+    streaming kernel, a band of 137 rows in segments of two tiles, each
+    flag pair, against ssim_rows_plain (map bit for bit, rows within W *
+    1e-5); operands under a set flag NaN-filled (never read); in f32 a NaN
+    in the band and one in the top operand (operand rows poison nothing)."""
+    _need_card()
+    rng = np.random.default_rng(0x78 + 2 * flags[0] + flags[1])
+    a, b = (_pair if dtype == "u8" else _float_pair)(rng, (2, 301, 517))
+    if dtype == "f32":
+        a[1, 120, 40] = np.nan
+        a[0, 97, 30] = np.nan
+    at, bt = torch.from_numpy(a).cuda(), torch.from_numpy(b).cuda()
+    lo, hi = 100, 237
+    band_a, band_b = at[:, lo:hi].contiguous(), bt[:, lo:hi].contiguous()
+    a_top, a_bot = _halo(at, lo, hi, 5, flags)
+    b_top, b_bot = _halo(bt, lo, hi, 5, flags)
+    if dtype == "f32":
+        if flags[0]:
+            a_top.fill_(float("nan"))
+        if flags[1]:
+            b_bot.fill_(float("nan"))
+    halo = dict(vhalo=(a_top, a_bot, b_top, b_bot), vmask=flags)
+    for mode in ("rowsum", "rowsum_map"):
+        got, want = _fwd_stream(band_a, band_b, mode, (32, 64), 64, **halo)
+        _hold_forward(got, want, band_a.shape, rows=True)
+    rows = got[0]
+    if dtype == "f32":
+        assert rows[1, 120 - lo].isnan() and not rows[0].isnan().any()
+    else:
+        assert torch.isfinite(rows).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["u8", "f32"])
+@pytest.mark.parametrize("mode", ["map", "rowsum_map"])
+def test_forward_stream_matches_tile_body_on_card(mode, dtype):
+    """The streaming kernel's map against the tile body's, which a pinned
+    16x256 tile reaches (STREAM_LAUNCHES does not rise there; 32x256 does
+    not fit a block's shared memory at radius 5), bit for bit; scores and
+    row sums within the twin tolerance of each other."""
+    _need_card()
+    rng = np.random.default_rng(0x7C)
+    a, b = (_pair if dtype == "u8" else _float_pair)(rng, (2, 300, 700))
+    at, bt = torch.from_numpy(a).cuda(), torch.from_numpy(b).cuda()
+    kw = dict(data_range=1.0 if dtype == "f32" else 255.0, allow_float=dtype == "f32")
+    call = ssim_cuda.ssim_rows_cuda if mode == "rowsum_map" else ssim_cuda.ssim_parts_cuda
+    before = ssim_cuda.STREAM_LAUNCHES
+    p_tile, m_tile = call(at, bt, with_map=True, tile_h=16, tile_w=256, **kw)
+    torch.cuda.synchronize()
+    assert ssim_cuda.STREAM_LAUNCHES == before
+    p_str, m_str = call(at, bt, with_map=True, **kw)
+    torch.cuda.synchronize()
+    assert ssim_cuda.STREAM_LAUNCHES == before + 1
+    assert torch.equal(m_str, m_tile)
+    if mode == "rowsum_map":
+        assert (p_str - p_tile).abs().max().item() <= 700 * 1e-5
+    else:
+        npix = 300 * 700
+        g_str = p_str.double().sum(-1) / npix
+        g_tile = p_tile.double().sum(-1) / npix
+        assert (g_str - g_tile).abs().max().item() <= 2e-7
 
 
 # The relaxed tier: kernel against its relaxed twin. Both add the same

@@ -1,0 +1,293 @@
+"""The forward kernel's row-streaming instantiation, as far as the CPU can
+hold it: which launches it serves (ops.ssim_cuda.stream_applies), the
+segment its wrapper picks (stream_segment), the blocks it decodes
+(stream_blocks), and its source built for the host by g++
+(tests/fwd_stream_emu: one std::thread per CUDA thread, a std::barrier for
+__syncthreads, no FMA contraction, as nvcc builds it with --fmad=false)
+against the twins, maps bit for bit. The kernel itself runs only on a
+card: tests/test_torch_port_cuda.py holds it against the twins there
+(test_forward_stream_*). On the CPU every wrapper runs its twin, whose
+per-pixel values and partials the JAX package's kernel holds in
+tests/test_torch_port_kernel.py and tests/test_torch_port_spatial.py.
+"""
+
+import os
+import shutil
+import subprocess
+
+import numpy as np
+import pytest
+import torch
+
+from ssim_tpu_torch.ops import _build, ssim_cuda, ssim_grad
+from ssim_tpu_torch.windows import gaussian_taps
+
+#: The main-path shapes (chip_smoke.py phase 4) and phase 9's bands:
+#: 1080p x4 in 3 bands and in bands of 523, 20, 35 and 502 rows, 4K x4 in 4
+#: bands, 1x1024x20480 in bands of 400, 300 and 324 rows, and the 16K frame
+#: as one band.
+SHAPES = [(4, 1080, 1920), (4, 2160, 3840), (1, 8640, 15360), (4, 360, 1920),
+          (4, 523, 1920), (4, 20, 1920), (4, 35, 1920), (4, 502, 1920),
+          (4, 540, 3840), (1, 400, 20480), (1, 300, 20480), (1, 324, 20480),
+          (1, 1024, 20480)]
+
+
+#: Streaming blocks an H100 holds at once: 8 per SM (64 registers a
+#: thread, ssim_fwd_stream_occupancy) on each of its 132 SMs.
+H100_RESIDENT = 132 * 8
+
+
+def _blocks(bsz, h, w, seg):
+    return bsz * -(-w // ssim_cuda.STRIP_W) * -(-h // seg)
+
+
+@pytest.mark.parametrize("shape", SHAPES)
+def test_stream_segment_fills_the_card(shape):
+    """At the main-path shapes and phase 9's band heights, on an H100: the
+    segment is 1 to MAX_SEG_TILES whole tiles and ends less than a tile
+    past the image; where the one-tile segment gives no more blocks than
+    the card holds, it is taken; else the blocks fill at least 75% of the
+    slots of the waves they take, and 95% at the main-path shapes."""
+    bsz, h, w = shape
+    tile_h = ssim_cuda.TILE_H
+    res = H100_RESIDENT
+    seg = ssim_cuda.stream_segment(bsz, h, w, tile_h, 2 * ssim_cuda.STREAM_RADIUS, res)
+    assert seg % tile_h == 0
+    assert tile_h <= seg <= ssim_cuda.MAX_SEG_TILES * tile_h
+    assert seg < h + tile_h
+    if _blocks(bsz, h, w, tile_h) <= res:
+        assert seg == tile_h, (shape, seg)
+        return
+    blocks = _blocks(bsz, h, w, seg)
+    fill = blocks / (-(-blocks // res) * res)
+    assert fill >= (0.95 if shape in SHAPES[:3] else 0.75), (shape, seg, fill)
+
+
+def test_stream_segment_tail_allowance():
+    """The forward's model charges a whole wave for any partial last wave
+    (its sweeps on an H100, PERF.md); the backward's lets a last wave of at
+    most a twentieth of the resident blocks run beside the others, and is
+    otherwise the same model with the NaN tile's height and a 4r prologue."""
+    for bsz, h, w in SHAPES:
+        for radius in (1, 5, 16):
+            tile_h = ssim_grad.default_tile(radius)[0]
+            assert ssim_grad.stream_segment(bsz, h, w, radius, 528) == \
+                ssim_cuda.stream_segment(bsz, h, w, tile_h, 4 * radius, 528, 1 / 20)
+    # 16K at 8 blocks per SM: a segment of 480 rows leaves 48 blocks (under a
+    # twentieth) past two full waves, measured 18% slower than 512 rows.
+    assert ssim_cuda.stream_segment(1, 8640, 15360, 32, 10, H100_RESIDENT) == 512
+    assert ssim_cuda.stream_segment(1, 8640, 15360, 32, 10, H100_RESIDENT, 1 / 20) == 480
+
+
+@pytest.mark.parametrize("tile", [(32, 32), (32, 64), (64, 128), (7, 64), (1, 32),
+                                  (256, 128)])
+def test_stream_blocks_cover_each_pixel_once_with_whole_tiles(tile):
+    """The streaming kernel's blocks (a strip of STRIP_W columns down a
+    segment of rows, every segment the kernel takes up to MAX_SEG_TILES
+    tiles) cover each output pixel of an image exactly once, and every
+    TH x TW tile lies in one block, so a block alone writes each tile's
+    partial, row pieces and NaN poison."""
+    tile_h, tile_w = tile
+    assert ssim_cuda.STRIP_W % tile_w == 0
+    shapes = [(1, 1), (7, 5), (255, 63), (1, 64), (65, 131), (300, 517), (129, 300),
+              (1080, 300), (40, 1000)]
+    for h, w in shapes:
+        for k in (1, 2, 3, ssim_cuda.MAX_SEG_TILES):
+            seg = k * tile_h
+            blocks = ssim_cuda.stream_blocks(h, w, seg)
+            assert len(blocks) == -(-h // seg) * -(-w // ssim_cuda.STRIP_W)
+            owner = np.full((h, w), -1, np.int32)
+            cover = np.zeros((h, w), np.int32)
+            for i, (y0, y1, x0, x1) in enumerate(blocks):
+                assert y1 - y0 <= seg and x1 - x0 <= ssim_cuda.STRIP_W
+                owner[y0:y1, x0:x1] = i
+                cover[y0:y1, x0:x1] += 1
+            assert (cover == 1).all(), (h, w, seg)
+            for ty in range(0, h, tile_h):
+                for tx in range(0, w, tile_w):
+                    blk = owner[ty:ty + tile_h, tx:tx + tile_w]
+                    assert (blk == blk[0, 0]).all(), (h, w, seg, ty, tx)
+
+
+@pytest.mark.parametrize("mode", ssim_cuda._MODES)
+def test_stream_applies_to_the_documented_launches(mode):
+    """The streaming kernel takes exactly the score, map and row modes at
+    radius 5 with tiles 32 to 128 wide, never relaxed; every other mode,
+    radius, tile width and the relaxed tier keep the tile body."""
+    main = mode in ("score", "map", "rowsum", "rowsum_map")
+    assert ssim_cuda.STREAM_MODES == ("score", "map", "rowsum", "rowsum_map")
+    for radius in (1, 4, 5, 6, 16):
+        for tile_w in (8, 16, 32, 64, 128, 256):
+            for relaxed in (False, True):
+                want = main and radius == 5 and 32 <= tile_w <= 128 and not relaxed
+                assert ssim_cuda.stream_applies(mode, radius, tile_w, relaxed) == want
+
+
+def test_main_path_defaults_take_the_streaming_kernel():
+    """The defaults every main-path call uses (windows.RADIUS, TILE_W, the
+    standard tier) take the streaming kernel, in all four of its modes;
+    the batch route's tiles (8 to 64 wide) never reach it, as the batch
+    modes keep the tile body."""
+    from ssim_tpu_torch.windows import RADIUS
+
+    assert RADIUS == ssim_cuda.STREAM_RADIUS
+    for mode in ssim_cuda.STREAM_MODES:
+        assert ssim_cuda.stream_applies(mode, RADIUS, ssim_cuda.TILE_W)
+    for bsz, h, w in [(4096, 64, 64), (8192, 32, 32), (512, 192, 192)]:
+        _, tile_w, _, _ = ssim_cuda.batch_geometry(bsz, h, w)
+        assert not ssim_cuda.stream_applies("batch", RADIUS, tile_w)
+
+
+EMU_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "fwd_stream_emu")
+_EMU_MODES = {"score": 0, "map": 1, "rowsum": 8, "rowsum_map": 9}
+
+
+@pytest.fixture(scope="module")
+def stream_emulator(tmp_path_factory):
+    """The streaming kernel's source (csrc/ssim_fwd.cu without the tile
+    body and the launchers) built with g++ into a host program; its path."""
+    gxx = shutil.which("g++")
+    if gxx is None:
+        pytest.skip("needs g++ to build the kernel's source for the host")
+    src = open(os.path.join(_build.CSRC_DIR, "ssim_fwd.cu")).read()
+    a = src.index("template <typename T, int kMode, int kSplit>\n__global__")
+    b = src.index("// ---------------------------------------------------------------------------\n"
+                  "// The main-path modes: row-streaming column strips.")
+    c = src.index("template <typename T, int kMode>\ncudaError_t launch_stream(")
+    out = tmp_path_factory.mktemp("fwd_stream_emu")
+    (out / "ssim_fwd_stream.cu").write_text(src[:a] + src[b:c] + "}  // namespace\n")
+    exe = out / "harness"
+    subprocess.run([gxx, "-std=c++20", "-O1", "-ffp-contract=off", "-pthread",
+                    "-I", str(out), "-I", EMU_DIR, "-o", str(exe),
+                    os.path.join(EMU_DIR, "harness.cpp")],
+                   check=True, capture_output=True, timeout=600)
+    return exe
+
+
+def _emulate(exe, mode, a, b, tile, seg, vhalo=None, vmask=(0, 0)):
+    """The host build of the kernel in `mode` on NumPy (B, H, W) inputs:
+    (partials (B, nty*ntx) or row sums (B, H), map or None)."""
+    bsz, h, w = a.shape
+    f32 = a.dtype == np.float32
+    dr = 1.0 if f32 else 255.0
+    head = np.array([_EMU_MODES[mode], int(f32), bsz, h, w, tile[0], tile[1], seg,
+                     vhalo is not None, *vmask], np.int32)
+    consts = np.array([(0.01 * dr) ** 2, (0.03 * dr) ** 2, max(131072.0, 4.0 * dr)],
+                      np.float32)
+    parts = [head, gaussian_taps(np.float32, 5, 1.5), consts, a, b, *(vhalo or ())]
+    path_in, path_out = f"{exe}.{os.getpid()}.in", f"{exe}.{os.getpid()}.out"
+    with open(path_in, "wb") as f:
+        for x in parts:
+            f.write(np.ascontiguousarray(x).tobytes())
+    subprocess.run([str(exe), path_in, path_out], check=True, timeout=600)
+    got = np.fromfile(path_out, np.float32)
+    n = bsz * h if mode.startswith("rowsum") else bsz * (-(-h // tile[0])) * (-(-w // tile[1]))
+    first = torch.from_numpy(got[:n].reshape(bsz, -1).copy())
+    smap = torch.from_numpy(got[n:].reshape(a.shape).copy()) if mode.endswith("map") else None
+    return first, smap
+
+
+def _emu_pair(rng, shape, f32):
+    if f32:
+        a = rng.random(shape).astype(np.float32)
+        return a, np.clip(a + rng.normal(0, 0.05, shape), 0, 1).astype(np.float32)
+    a = rng.integers(0, 256, shape, dtype=np.uint8)
+    noise = rng.normal(0, 12, shape).astype(np.int32)
+    return a, np.clip(a.astype(np.int32) + noise, 0, 255).astype(np.uint8)
+
+
+_EMU_CASES = {
+    # name: (f32, shape, tile, segment)
+    "u8 ragged": (False, (2, 65, 131), (32, 64), 64),
+    "u8 2S+1, 32x32 tiles": (False, (2, 129, 300), (32, 32), 64),
+    "f32 64x128 tiles": (True, (2, 129, 300), (64, 128), 128),
+    "u8 W <= 2r": (False, (2, 33, 9), (32, 64), 64),
+    "u8 H = 1": (False, (3, 1, 130), (32, 64), 32),
+    "f32 7x64 tiles": (True, (2, 30, 200), (7, 64), 14),
+    "f32 non-finite on boundaries": (True, (3, 135, 400), (32, 64), 64),
+}
+
+
+@pytest.mark.parametrize("case", list(_EMU_CASES))
+def test_stream_kernel_source_matches_twin_on_the_host(stream_emulator, case):
+    """The streaming kernel's own source, built for the host, in its four
+    modes against the twins: H one past a segment and 2S + 1, a ragged last
+    strip, W <= 2r, H = 1, tiles 32x32 to 64x128 and 7x64; non-finite
+    pixels on a tile edge, a strip's last and first column, a segment's
+    first and last row, 2r rows above an interior segment and the image's
+    last pixel. Maps bit for bit (NaN over exactly the twin's tiles), row
+    sums within W * 1e-5, per-image scores within 2e-7."""
+    f32, shape, tile, seg = _EMU_CASES[case]
+    rng = np.random.default_rng(0x5EED + len(case))
+    a, b = _emu_pair(rng, shape, f32)
+    if case.startswith("f32 non-finite"):
+        a[0, seg, 200] = np.nan
+        a[0, seg - 10, 40] = np.nan
+        a[1, seg - 1, 127] = np.inf
+        b[1, 3, 128] = -np.inf
+        a[2, tile[0] - 1, tile[1]] = np.nan
+        b[2, -1, -1] = np.nan
+    _hold_emulated(stream_emulator, a, b, tile, seg)
+
+
+@pytest.mark.parametrize("flags", [(0, 0), (1, 0), (0, 1), (1, 1)])
+def test_stream_kernel_source_row_modes_with_halo_on_the_host(stream_emulator, flags):
+    """The row modes with halo operands, each flag pair, a band of 137 rows
+    of a 301-row image in segments of two tiles: in f32 a NaN in the band,
+    one in the rows the top operand holds (operand rows poison nothing)
+    and NaN-filled operands under a set flag (never read)."""
+    f32 = flags[0] == flags[1]
+    rng = np.random.default_rng(0x5EEF + 2 * flags[0] + flags[1])
+    a, b = _emu_pair(rng, (2, 301, 517), f32)
+    if f32:
+        a[1, 120, 40] = np.nan
+        a[0, 97, 30] = np.nan
+    lo, hi = 100, 237
+
+    def ring(x):
+        top = x[:, -5:] if flags[0] else x[:, lo - 5:lo]
+        bot = x[:, :5] if flags[1] else x[:, hi:hi + 5]
+        return np.ascontiguousarray(top), np.ascontiguousarray(bot)
+
+    (a_top, a_bot), (b_top, b_bot) = ring(a), ring(b)
+    if f32 and flags[0]:
+        a_top = np.full_like(a_top, np.nan)
+    if f32 and flags[1]:
+        b_bot = np.full_like(b_bot, np.nan)
+    _hold_emulated(stream_emulator, np.ascontiguousarray(a[:, lo:hi]),
+                   np.ascontiguousarray(b[:, lo:hi]), (32, 64), 64,
+                   vhalo=(a_top, a_bot, b_top, b_bot), vmask=flags)
+
+
+def _hold_emulated(exe, a, b, tile, seg, vhalo=None, vmask=(0, 0)):
+    """Each of the kernel's modes (only the row modes with halo operands)
+    against its twin on the same inputs."""
+    dr = 1.0 if a.dtype == np.float32 else 255.0
+    kw = dict(taps=gaussian_taps(np.float32, 5, 1.5), c1=(0.01 * dr) ** 2,
+              c2=(0.03 * dr) ** 2, clip_bound=max(131072.0, 4.0 * dr),
+              tile_h=tile[0], tile_w=tile[1])
+    at, bt = torch.from_numpy(a), torch.from_numpy(b)
+    halo = {} if vhalo is None else dict(
+        vhalo=tuple(torch.from_numpy(x) for x in vhalo), vmask=vmask)
+    npix = a.shape[1] * a.shape[2]
+    for mode in ("rowsum", "rowsum_map") if vhalo else tuple(_EMU_MODES):
+        got, got_map = _emulate(exe, mode, a, b, tile, seg, vhalo, vmask)
+        if mode.startswith("rowsum"):
+            want, want_map = ssim_cuda.ssim_rows_plain(at, bt, with_map=True, **halo, **kw)
+        else:
+            want, want_map = ssim_cuda.ssim_parts_plain(at, bt, with_map=True, **kw)
+        if got_map is not None:
+            assert torch.equal(got_map.isnan(), want_map.isnan()), mode
+            fin = ~want_map.isnan()
+            assert torch.equal(got_map[fin], want_map[fin]), mode
+        assert torch.equal(got.isnan(), want.isnan()), mode
+        ok = ~want.isnan()
+        if mode.startswith("rowsum"):
+            if ok.any():
+                assert (got[ok] - want[ok]).abs().max().item() <= 1e-5 * a.shape[2], mode
+        else:
+            gk = got.double().sum(-1) / npix
+            gp = want.double().sum(-1) / npix
+            fin = ~gp.isnan()
+            if fin.any():
+                assert (gk[fin] - gp[fin]).abs().max().item() <= max(2e-7, 2e-5 / npix**0.5)
