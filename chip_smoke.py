@@ -55,10 +55,13 @@ Phases, each of which raises on failure (the script then exits non-zero):
    for bit, per-image fp64 scores within 1e-12 relative) at tiny and
    ragged, 1080p x4, 1x1024x20480, float-with-NaN, radius 1/16 with
    custom sigma/k1/k2 and uint16 shapes, and against the f64 oracle on
-   the small ones; one `compute_ssim(precision="f64")` on NumPy uint8
-   (4, 1080, 1920) with no `device` (exactly one precise launch, no
+   the small ones (each radius-5 launch through the fp64 streaming
+   kernel, the radius 1/16 ones through the tile body); one
+   `compute_ssim(precision="f64")` on NumPy uint8 (4, 1080, 1920) with
+   no `device` (exactly one precise launch, the streaming kernel's, no
    other launch, no call of the oracle), then `compute_ssim` at the three
-   main-path shapes and `compute_ssim_map` under the f64 default; then
+   main-path shapes and `compute_ssim_map` under the f64 default (all
+   streaming); then
    times the precise modes, the standard mode beside them and the twin
    with CUDA events at those shapes and at 1x1024x20480,
    `compute_ssim(precision="f64")` with the host clock, and once the
@@ -259,6 +262,19 @@ def precise_bound(shape, itemsize, with_map=False, radius=5, out_bytes=None):
     t_ops = (2 * 8 * (2 * radius + 1) / F64_TC_OPS_PER_S
              + 27 / F64_OPS_PER_S) * npix * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def precise_dp_floor(shape, radius=5):
+    """The precise modes' floor on the FP64 pipe, a second figure beside
+    precise_bound: the kernel is built without FMA contraction (so its maps
+    stay bit for bit the twin's), so each fp64 add and multiply is one
+    DADD or DMUL, and the pipe issues 64 of them a clock on each SM: 17e12
+    a second, half the data sheet's 34 TFLOP/s, which counts a fused
+    multiply-add as two. Per pixel 24r + 44: the eight blurs 8 (3r + 1),
+    the staged signals 4, the formula with its IEEE division ~30, the
+    tile sum 2 (164 at radius 5). Returns ms."""
+    bsz, h, w = shape
+    return (24 * radius + 44) * bsz * h * w / (F64_OPS_PER_S / 2) * 1e3
 
 
 def comp_bound(shape, itemsize, pooled, radius=5):
@@ -486,13 +502,18 @@ def kernel_trace_ms(fn, reps, name):
 MAIN_CONFIGS = [("1080p_b4", (4, 1080, 1920)), ("4k_b4", (4, 2160, 3840)),
                 ("16k_b1", (1, 8640, 15360))]
 
-#: The forward kernel's two designs, named in the kernels line: the score,
+#: The forward kernel's designs, named in the kernels line: the score,
 #: map and row modes at radius 5 stream rows (ssim_cuda.stream_applies,
-#: counted by ssim_cuda.STREAM_LAUNCHES); every other mode keeps the tile
-#: body.
+#: counted by ssim_cuda.STREAM_LAUNCHES), and so do the precise modes in
+#: fp64 (PRECISE_STREAM_DESIGN); every other mode keeps the tile body.
 STREAM_DESIGN = ("row-streaming column strips (ssim_fwd_stream_kernel: 128 columns, "
                  "one thread each, a register window of 2r + 1 rows)")
 TILE_DESIGN = "one block per output tile (ssim_fwd_kernel)"
+PRECISE_STREAM_DESIGN = (
+    "row-streaming column strips in fp64 (ssim_fwd_stream_kernel<T, kPrecise>: 128 "
+    "columns, one thread each; a staged row of two double2 planes, blurred across by "
+    "thread pairs, two columns each; a window of 2r + 1 rows, mu_a, mu_b and s_ss in "
+    "registers, s_dd in a shared-memory ring; 4 blocks/SM)")
 
 
 def phase_main(gen, label):
@@ -1092,20 +1113,27 @@ def precise_twin(a, b, with_map, data_range=255.0, radius=5, sigma=1.5, k1=0.01,
 def compare_precise(name, a, b, *, oracle=None, **kw):
     """Both precise modes (through ops.routing.ssim_parts_auto, which casts
     u16 to f32 as the engine's route does) and the twin on the same card
-    tensors; with oracle=(global, pixel), also the f64 oracle. Returns the
-    largest score or map difference from the twin, the kernel's per-image
-    scores and the twin's. The default tile is pinned, so that the router
-    keeps a batch of small images, which it would send to the batch modes
-    (phase 8), on the tile modes held here."""
+    tensors; with oracle=(global, pixel), also the f64 oracle. Both
+    launches must take the fp64 streaming kernel at radius 5 and the tile
+    body at other radii (STREAM_LAUNCHES). Returns the largest score or
+    map difference from the twin, the kernel's per-image scores and the
+    twin's. The default tile is pinned, so that the router keeps a batch
+    of small images, which it would send to the batch modes (phase 8), on
+    the tile modes held here."""
     from ssim_tpu_torch import reference
     from ssim_tpu_torch.ops import ssim_cuda
     from ssim_tpu_torch.ops.routing import ssim_parts_auto
 
     npix = a.shape[-1] * a.shape[-2]
     tile = dict(tile_h=ssim_cuda.TILE_H, tile_w=ssim_cuda.TILE_W)
+    stream = ssim_cuda.STREAM_LAUNCHES
     pk, none = ssim_parts_auto(a, b, precise=True, **tile, **kw)
     pkm, mk = ssim_parts_auto(a, b, with_map=True, precise=True, **tile, **kw)
     torch.cuda.synchronize()
+    want = 2 if kw.get("radius", 5) == ssim_cuda.STREAM_RADIUS else 0
+    check(ssim_cuda.STREAM_LAUNCHES - stream == want,
+          f"{name}: {ssim_cuda.STREAM_LAUNCHES - stream} of 2 precise launches took the "
+          f"streaming kernel, expected {want}")
     check(none is None and pk.dtype == pkm.dtype == torch.float64,
           f"{name}: partials {pk.dtype}/{pkm.dtype}")
     af, bf = (a, b) if a.dtype == torch.uint8 else (a.float(), b.float())
@@ -1118,8 +1146,8 @@ def compare_precise(name, a, b, *, oracle=None, **kw):
     err = float(np.nanmax(np.abs(gk - gp), initial=0.0))
     check(rel <= PRECISE_REL, f"{name}: precise kernel vs twin {rel:.3g} relative "
           f"(tol {PRECISE_REL:g})")
-    line = (f"  {name}: precise kernel vs twin: maps bit for bit, scores "
-            f"{rel:.3g} relative")
+    line = (f"  {name}: precise kernel ({'streaming' if want else 'tile body'}) vs "
+            f"twin: maps bit for bit, scores {rel:.3g} relative")
     if oracle is not None:
         wo, mo = reference.compute_ssim(
             a.cpu().numpy().astype(np.float64), b.cpu().numpy().astype(np.float64),
@@ -1211,10 +1239,13 @@ def phase_precise(gen, label):
         counts = launch_counts()
     finally:
         reference.compute_ssim = real_oracle
-    check(first == counts_of(precise=1),
-          f'NumPy compute_ssim(precision="f64") launches {first}, expected 1 precise')
-    expected = counts_of(precise=2 + len(MAIN_CONFIGS))
-    check(counts == expected, f"precise main path launches {counts}, expected {expected}")
+    check(first == counts_of(precise=1, stream=1),
+          f'NumPy compute_ssim(precision="f64") launches {first}, expected 1 precise, '
+          f"the streaming kernel")
+    n_main = 2 + len(MAIN_CONFIGS)
+    expected = counts_of(precise=n_main, stream=n_main)
+    check(counts == expected, f"precise main path launches {counts}, expected {expected}, "
+          f"all streaming")
     check(oracle_calls == [], f"the f64 oracle was called: {oracle_calls}")
     launches = counts["precise"]
     a, b = inputs["1080p_b4"]
@@ -1231,7 +1262,8 @@ def phase_precise(gen, label):
     print(f'  compute_ssim(precision="f64") NumPy u8 (4, 1080, 1920), no device: '
           f"launches {first}, oracle calls 0, scores {s_np}; then {launches} precise "
           f"launches in all (3 main-path shapes, compute_ssim_map under the f64 "
-          f"default), no other mode, no oracle call", flush=True)
+          f"default), {counts['stream']} of them streaming, no other mode, no oracle "
+          f"call", flush=True)
 
     # (c) At each main-path shape: both precise modes and the main path's
     # scores held against the twin; then times of the precise modes, the
@@ -1256,9 +1288,11 @@ def phase_precise(gen, label):
         e2e = host_times(lambda: ssim_tpu_torch.compute_ssim(a, b, precision="f64"), 10)
         bnd, by = precise_bound(shape, 1)
         bnd_m, _ = precise_bound(shape, 1, with_map=True)
+        floor = precise_dp_floor(shape)
         records[name] = dict(
             shape=list(shape), ms=t_p, map_ms=t_pm, standard_ms=[t_std_a, t_std_b],
             plain_ms=t_plain, bound_ms=bnd, bound_by=by, bound_map_ms=bnd_m,
+            dp_floor_ms=floor,
             compute_ssim_f64_ms=statistics.median(e2e), compute_ssim_f64_runs=e2e,
         )
         print(f"  {name} {shape}: precise {t_p:.4f} ms ({mpix / t_p * 1e3:.1f} Mpix/s), "
@@ -1267,7 +1301,7 @@ def phase_precise(gen, label):
               f"{t_plain:.3f} ms; compute_ssim(precision=\"f64\") "
               f"{statistics.median(e2e):.3f} ms median of 10 ({min(e2e):.3f}-"
               f"{max(e2e):.3f}); bound {bnd:.4f} ms ({by}), {bnd_m:.4f} ms with the "
-              f"map | {label}", flush=True)
+              f"map; FP64-pipe floor {floor:.4f} ms | {label}", flush=True)
         del inputs[name]
         torch.cuda.empty_cache()
     # Wider than the 16384 lanes of K1's fast path: the JAX package's K2.
@@ -1276,10 +1310,11 @@ def phase_precise(gen, label):
     t_p = cuda_ms(lambda: ssim_cuda.ssim_parts_cuda(a, b, precise=True), 20)
     t_plain = cuda_ms(lambda: precise_twin(a, b, False), 5)
     bnd, by = precise_bound(shape, 1)
+    floor = precise_dp_floor(shape)
     records["wide"] = dict(shape=list(shape), ms=t_p, plain_ms=t_plain, bound_ms=bnd,
-                           bound_by=by)
+                           bound_by=by, dp_floor_ms=floor)
     print(f"  wide {shape}: precise {t_p:.4f} ms; twin {t_plain:.3f} ms; bound "
-          f"{bnd:.4f} ms ({by}) | {label}", flush=True)
+          f"{bnd:.4f} ms ({by}); FP64-pipe floor {floor:.4f} ms | {label}", flush=True)
     del a, b
 
     # (d) The route the kernel replaced, the host f64 oracle, once at
@@ -1299,6 +1334,7 @@ def phase_precise(gen, label):
     records["oracle_1080p_b1_ms"] = t_oracle
     records["card_1080p_b1_ms"] = statistics.median(card)
     records["card_vs_oracle_1080p_b1"] = d
+    records["launches_stream"] = counts["stream"]
     return launches, err, records
 
 
@@ -2900,22 +2936,31 @@ def main():
         "name": "ssim_fwd_precise",
         "route": "cuda",
         "source": "ssim_tpu_torch/csrc/ssim_fwd.cu",
-        "design": TILE_DESIGN,
+        "design": PRECISE_STREAM_DESIGN,
         "replaces": "ssim_tpu/ops/ssim_pallas.py:710 (K1 mode b), "
                     "ssim_tpu/ops/ssim_pallas.py:1364 (K2 precise)",
         "launches": prec_launches,
+        "launches_stream": prec["launches_stream"],
         "max_abs_err": prec_err,
         **{k: prec["4k_b4"][k]
            for k in ("ms", "plain_ms", "bound_ms", "bound_by", "shape")},
         "library_ms": None,
+        "dp_floor_ms": prec["4k_b4"]["dp_floor_ms"],
         "map_ms": prec["4k_b4"]["map_ms"],
         "standard_ms": prec["4k_b4"]["standard_ms"],
         "ms_1080p_b4": prec["1080p_b4"]["ms"],
+        "map_ms_1080p_b4": prec["1080p_b4"]["map_ms"],
         "ms_16k_b1": prec["16k_b1"]["ms"],
+        "map_ms_16k_b1": prec["16k_b1"]["map_ms"],
+        "bound_ms_16k_b1": prec["16k_b1"]["bound_ms"],
+        "dp_floor_ms_16k_b1": prec["16k_b1"]["dp_floor_ms"],
         "ms_wide": prec["wide"]["ms"],
         "plain_ms_wide": prec["wide"]["plain_ms"],
         "bound_ms_wide": prec["wide"]["bound_ms"],
+        "dp_floor_ms_wide": prec["wide"]["dp_floor_ms"],
         "shape_wide": prec["wide"]["shape"],
+        "compute_ssim_f64_ms_1080p_b4": prec["1080p_b4"]["compute_ssim_f64_ms"],
+        "compute_ssim_f64_ms_16k_b1": prec["16k_b1"]["compute_ssim_f64_ms"],
         "compute_ssim_f64_ms": prec["4k_b4"]["compute_ssim_f64_ms"],
         "oracle_route_ms_1080p_b1": prec["oracle_1080p_b1_ms"],
         "card_route_ms_1080p_b1": prec["card_1080p_b1_ms"],

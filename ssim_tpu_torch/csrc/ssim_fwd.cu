@@ -134,10 +134,11 @@
 // an H100, the same with and without FMA contraction, and the same with the
 // L2 flushed between launches; the streaming kernel below 62-81 Gpix/s. The pool adds 2 operations and reads the
 // tile's inputs once more, from L1 or L2, where the halo load has just
-// brought them. The precise modes run the ~140 blur operations per pixel
-// in fp64 (half the f32 rate on an H100) and keep twice the planes' bytes
-// in shared memory, plus the ~27 fp64 operations of the formula, one of
-// them a division (a short software sequence).
+// brought them. The precise modes run the ~130 blur operations per pixel
+// in fp64 (half the f32 rate on an H100; the tile body, which still serves
+// kBatchPrecise and other radii, keeps twice the planes' bytes in shared
+// memory), plus the ~30 fp64 operations of the formula, one of them a
+// division (a short software sequence).
 // The batch modes do the same work per pixel; at widths under 64 the tile
 // grid's 64-wide tiles leave threads idle in both blur passes, which the
 // narrower batch tiles do not.
@@ -151,9 +152,11 @@
 // halo rows of a TH-row tile.
 //
 // The main-path modes stream rows instead (ssim_fwd_stream_kernel):
-// kScore, kMap, kRowsum and kRowsumMap (with or without halo operands) at
-// radius kStreamR = 5 (windows.RADIUS, every main-path shape) and tiles up
-// to kStripW columns wide; every other mode, radius and tile keeps the tile
+// kScore, kMap, kRowsum and kRowsumMap (with or without halo operands) in
+// f32, and kPrecise and kPreciseMap in fp64 (the same body with the blurs'
+// type Blur<kMode>), at radius kStreamR = 5 (windows.RADIUS, every
+// main-path shape) and tiles up to kStripW columns wide; every other mode
+// (components, pooled, both batch modes), radius and tile keeps the tile
 // body (ops/ssim_cuda.py::stream_applies states the rule). A block owns a
 // strip of kStripW output columns and walks down a segment of S output rows
 // (a multiple of TH, at most kMaxSegTiles tiles, chosen by the wrapper to
@@ -162,25 +165,38 @@
 //  (a) the warp sums of the step before combined into tile partials or row
 //      pieces (one thread per tile);
 //  (b) the horizontal blur of the staged input row, a shared-memory row of
-//      float4 {a, b, (a+b)^2, (a-b)^2} over the strip plus r columns each
-//      side (the product signals formed once per pixel, the same floats
-//      as the twin's per-pair products): 11 float4 loads per pixel;
-//  (c) the four results pushed into a register window of the last 2r + 1
-//      rows (44 floats; the step loop is unrolled by 2r + 1 so each row
-//      keeps its register), the vertical blur down the column, the formula,
-//      the map store and the sums;
+//      {a, b, (a+b)^2, (a-b)^2} over the strip plus r columns each side
+//      (the product signals formed once per pixel, the same values as the
+//      twin's per-pair products). In f32 one float4 a column, 11 float4
+//      loads per pixel. In fp64 two double2 planes, {a, b} and {(a+b)^2,
+//      (a-b)^2}: a thread pair blurs two adjacent columns, the even thread
+//      the first plane and the odd one the second, each from 2r + 2 loads,
+//      and the two swap halves with one shuffle (12 16-byte loads for two
+//      pixels' four signals, where one column per thread needs 22 for one);
+//  (c) the four results pushed into a window of the last 2r + 1 rows (f32:
+//      44 floats in registers; fp64: mu_a, mu_b and s_ss in 66 registers'
+//      worth of doubles, s_dd in a per-thread shared-memory ring; the step
+//      loop is unrolled by 2r + 1 so each row keeps its register or slot),
+//      the vertical blur down the column, the formula, the map store and
+//      the sums (double in the precise modes);
 //  (d) the next input row staged from registers loaded one step earlier
 //      (sanitised, its own pixels' finiteness noted in a per-block tile
 //      mask) and the row after it loaded, so device-memory latency
 //      overlaps a step's work.
 // The taps are kernel parameters (constant operands once the loops
-// unroll). Vertical recompute falls to (S + 2r) / S. What bounds it: issue
-// (per step and warp of 32 pixels ~200 f32 operations, built without FMA
+// unroll; the f64 taps and unrounded c1, c2 in the precise modes). Vertical
+// recompute falls to (S + 2r) / S. What bounds it, f32: issue (per step
+// and warp of 32 pixels ~200 f32 operations, built without FMA
 // contraction, and ~150 loads, stores, address and control instructions)
 // and latency (one barrier a row): time fell with each block per SM up to
 // 8 (64 registers, a few spilled). Two columns per thread (12 float4 loads
 // for two pixels from even/odd planes, a window of 88 floats) spilled at 7
-// blocks per SM and measured 10-15% slower (PERF.md). A non-finite own
+// blocks per SM and measured 10-15% slower (PERF.md). fp64: per pixel ~164
+// DADD/DMUL (no FMA contraction; 2.6 SM clocks at 64 a clock) and ~340
+// bytes of shared-memory traffic (192 for the staged planes, 96 for the
+// ring, the staging stores and the shuffle; 2.7 clocks at 128 bytes a
+// clock), at 4 blocks per SM, which the window's registers bound (PERF.md
+// lists the windows and passes measured). A non-finite own
 // pixel poisons its TH x TW tile: the tile's map rows are overwritten with
 // NaN after its last row and its partial or row pieces are NaN, as in the
 // tile body. Row pieces are formed as the tile body forms them (each
@@ -666,27 +682,79 @@ __global__ void rowsum_reduce_kernel(const float* __restrict__ pieces,
 // The streaming block: kStripW output columns, one thread each; segments of
 // at most kMaxSegTiles tiles (the tile mask holds one word per tile row, a
 // bit per tile column); the register window's radius; blocks per SM asked
-// of ptxas: 8 (64 registers, a few spilled) measured fastest at every
-// main-path shape, against 4 (no spills) to 7 (PERF.md).
+// of ptxas: in the f32 modes 8 (64 registers, a few spilled) measured
+// fastest at every main-path shape, against 4 (no spills) to 7; in the
+// precise modes 4 (128 registers), with the last kStreamPreciseRing of the
+// window's four signals (s_dd) in a per-thread shared-memory ring, the
+// fastest of the windows measured (PERF.md): all four in registers (176
+// registers of window) fits only 2-3 blocks per SM, and each signal moved
+// to the ring adds 11 shared-memory loads a pixel.
 constexpr int kStripW = 128;
 constexpr int kStreamThreads = kStripW;
 constexpr int kMaxSegTiles = 16;
 constexpr int kStreamR = 5;
+constexpr int kStreamInW = kStripW + 2 * kStreamR;  // staged columns
 constexpr int kStreamBlocks = 8;
+constexpr int kStreamPreciseBlocks = 4;
+constexpr int kStreamPreciseRing = 1;
 
+template <int kMode>
+constexpr int kStreamBlocksOf = kIsPrecise<kMode> ? kStreamPreciseBlocks : kStreamBlocks;
+template <int kMode>
+constexpr int kStreamRingOf = kIsPrecise<kMode> ? kStreamPreciseRing : 0;
+
+template <typename P>
 struct StreamTaps {
-  float t[2 * kStreamR + 1];
+  P t[2 * kStreamR + 1];
 };
 
-// Symmetric taps over 2r + 1 float4s: sum_{d=r..1} t[r-d] (v(-d) + v(d)) +
-// t[r] v(0), per component, v(i) the value at offset i from the centre; the
-// sum starts at the d = r term, as the twin's.
-template <typename V>
-__device__ __forceinline__ void sym4(const StreamTaps& tp, V&& v, float (&acc)[4]) {
+// The four signals of one column, in the blur's type.
+template <typename P>
+struct Vec4 {
+  P x, y, z, w;
+};
+
+// A staged row, {a, b, (a+b)^2, (a-b)^2} per staged column: one float4 in
+// the f32 modes; two double2 planes in the precise modes, so that a warp's
+// 16-byte loads of consecutive columns stay conflict-free.
+template <typename P>
+struct StagedRow;
+template <>
+struct StagedRow<float> {
+  float4 v[kStreamInW];
+  __device__ __forceinline__ void put(int j, float va, float vb) {
+    const float sm = va + vb, df = va - vb;
+    v[j] = make_float4(va, vb, sm * sm, df * df);
+  }
+  __device__ __forceinline__ Vec4<float> get(int j) const {
+    const float4 q = v[j];
+    return {q.x, q.y, q.z, q.w};
+  }
+};
+template <>
+struct StagedRow<double> {
+  // One padding column puts sd 16 bytes off ab's banks (mod 32 bytes), so
+  // that a warp reading both planes at every other column is conflict-free.
+  double2 ab[kStreamInW + 1];
+  double2 sd[kStreamInW];
+  // The f32 values widen exactly; the products are formed in double.
+  __device__ __forceinline__ void put(int j, float va, float vb) {
+    const double da = va, db = vb;
+    const double sm = da + db, df = da - db;
+    ab[j] = make_double2(da, db);
+    sd[j] = make_double2(sm * sm, df * df);
+  }
+};
+
+// Symmetric taps over 2r + 1 four-signal values: sum_{d=r..1} t[r-d]
+// (v(-d) + v(d)) + t[r] v(0), per component, v(i) the value at offset i
+// from the centre; the sum starts at the d = r term, as the twin's.
+template <typename P, typename V>
+__device__ __forceinline__ void sym4(const StreamTaps<P>& tp, V&& v, P (&acc)[4]) {
   constexpr int r = kStreamR;
   {
-    const float t = tp.t[0];
-    const float4 lo = v(-r), hi = v(r);
+    const P t = tp.t[0];
+    const Vec4<P> lo = v(-r), hi = v(r);
     acc[0] = t * (lo.x + hi.x);
     acc[1] = t * (lo.y + hi.y);
     acc[2] = t * (lo.z + hi.z);
@@ -694,54 +762,108 @@ __device__ __forceinline__ void sym4(const StreamTaps& tp, V&& v, float (&acc)[4
   }
 #pragma unroll
   for (int d = r - 1; d >= 1; --d) {
-    const float t = tp.t[r - d];
-    const float4 lo = v(-d), hi = v(d);
+    const P t = tp.t[r - d];
+    const Vec4<P> lo = v(-d), hi = v(d);
     acc[0] += t * (lo.x + hi.x);
     acc[1] += t * (lo.y + hi.y);
     acc[2] += t * (lo.z + hi.z);
     acc[3] += t * (lo.w + hi.w);
   }
-  const float tc = tp.t[r];
-  const float4 ce = v(0);
+  const P tc = tp.t[r];
+  const Vec4<P> ce = v(0);
   acc[0] = acc[0] + tc * ce.x;
   acc[1] = acc[1] + tc * ce.y;
   acc[2] = acc[2] + tc * ce.z;
   acc[3] = acc[3] + tc * ce.w;
 }
+// sym4's sums of two signals (one double2 plane) for two adjacent columns:
+// v points at the staged column 2r to the left of the first, o0 and o1 the
+// results for it and the next, each in sym4's order of operations.
+__device__ __forceinline__ void sym2x2(const StreamTaps<double>& tp, const double2* v,
+                                       double2& o0, double2& o1) {
+  constexpr int r = kStreamR;
+  double2 w[2 * r + 2];
+#pragma unroll
+  for (int i = 0; i < 2 * r + 2; ++i) w[i] = v[i];
+  {
+    const double t = tp.t[0];
+    o0.x = t * (w[0].x + w[2 * r].x);
+    o0.y = t * (w[0].y + w[2 * r].y);
+    o1.x = t * (w[1].x + w[2 * r + 1].x);
+    o1.y = t * (w[1].y + w[2 * r + 1].y);
+  }
+#pragma unroll
+  for (int d = r - 1; d >= 1; --d) {
+    const double t = tp.t[r - d];
+    o0.x += t * (w[r - d].x + w[r + d].x);
+    o0.y += t * (w[r - d].y + w[r + d].y);
+    o1.x += t * (w[r + 1 - d].x + w[r + 1 + d].x);
+    o1.y += t * (w[r + 1 - d].y + w[r + 1 + d].y);
+  }
+  const double tc = tp.t[r];
+  o0.x = o0.x + tc * w[r].x;
+  o0.y = o0.y + tc * w[r].y;
+  o1.x = o1.x + tc * w[r + 1].x;
+  o1.y = o1.y + tc * w[r + 1].y;
+}
 
 // The sum of v over a warp's lanes, in lane 0: shuffles down by 16 .. 1.
-__device__ __forceinline__ float warp_sum(float v) {
+template <typename P>
+__device__ __forceinline__ P warp_sum(P v) {
 #pragma unroll
   for (int off = 16; off > 0; off >>= 1) v += __shfl_down_sync(0xffffffffu, v, off);
   return v;
 }
 
+// _ssim_from_blurs (ssim_pallas.py:465-477), as the tile body: in f32, or in
+// native fp64 with c1 and c2 unrounded in the precise modes.
+template <typename P>
+__device__ __forceinline__ P ssim_of(const P (&m)[4], P c1, P c2) {
+  const P mu_a = m[0], mu_b = m[1], s_ss = m[2], s_dd = m[3];
+  const P mu_a2 = mu_a * mu_a;
+  const P mu_b2 = mu_b * mu_b;
+  const P mu_ab = mu_a * mu_b;
+  const P sigma_ab_x4 = (s_ss - s_dd) - (P)4 * mu_ab;
+  const P sigma_sum_x2 = (s_ss + s_dd) - (P)2 * (mu_a2 + mu_b2);
+  const P num = ((P)2 * mu_ab + c1) * ((P)0.5 * sigma_ab_x4 + c2);
+  const P den = (mu_a2 + mu_b2 + c1) * ((P)0.5 * sigma_sum_x2 + c2);
+  return num / den;
+}
+
 // kScore / kMap: partials (B, nty * ntx) f32 as the tile body writes them;
-// kRowsum / kRowsumMap: pieces (B, ntx, H) f32, each tile's piece of each of
-// its rows, for rowsum_reduce_kernel. TH x TW: the tile (TW a power of two
-// in [32, kStripW]); S: the segment's rows (a multiple of TH, at most
-// kMaxSegTiles tiles).
+// kPrecise / kPreciseMap: the same in f64, the blurs, formula and sums in
+// fp64 (Blur<kMode>); kRowsum / kRowsumMap: pieces (B, ntx, H) f32, each
+// tile's piece of each of its rows, for rowsum_reduce_kernel. TH x TW: the
+// tile (TW a power of two in [32, kStripW]); S: the segment's rows (a
+// multiple of TH, at most kMaxSegTiles tiles).
 template <typename T, int kMode>
-__global__ void __launch_bounds__(kStreamThreads, kStreamBlocks)
+__global__ void __launch_bounds__(kStreamThreads, kStreamBlocksOf<kMode>)
 ssim_fwd_stream_kernel(const T* __restrict__ a, const T* __restrict__ b,
-                       float* __restrict__ partials, float* __restrict__ map,
+                       Blur<kMode>* __restrict__ partials, float* __restrict__ map,
                        float* __restrict__ pieces, Halo<T> halo, int H, int W,
                        int TH, int TW, int S, int nstrip, int nseg, int ntx,
-                       int nty, StreamTaps tp, float c1, float c2,
-                       float clip_bound) {
+                       int nty, StreamTaps<Blur<kMode>> tp, Blur<kMode> c1,
+                       Blur<kMode> c2, float clip_bound) {
+  using P = Blur<kMode>;
   constexpr int r = kStreamR;
   constexpr int kP = 2 * r + 1;  // window rows = steps unrolled
   constexpr int kNT = kStreamThreads;
-  constexpr int kInW = kStripW + 2 * r;  // staged columns
+  constexpr int kInW = kStreamInW;
   constexpr int kLoads = (kInW + kNT - 1) / kNT;
   constexpr bool kFloat = sizeof(T) == 4;
-  constexpr bool kWithMap = kMode == kMap || kMode == kRowsumMap;
+  constexpr bool kWithMap = kMode == kMap || kMode == kRowsumMap || kMode == kPreciseMap;
   constexpr bool kRows = kMode == kRowsum || kMode == kRowsumMap;
-  static_assert(kMode == kScore || kMode == kMap || kRows, "main-path modes only");
+  constexpr int kRing = kStreamRingOf<kMode>;  // signals in the shared ring
+  constexpr int kRegS = 4 - kRing;             // signals in registers
+  static_assert(kMode == kScore || kMode == kMap || kRows || kMode == kPrecise ||
+                    kMode == kPreciseMap,
+                "main-path and precise modes only");
 
-  __shared__ float4 s_in[2][kInW];          // staged rows, by step parity
-  __shared__ float s_red[2][kNT / 32];      // warp sums, by step parity
+  __shared__ StagedRow<P> s_in[2];          // staged rows, by step parity
+  __shared__ P s_red[2][kNT / 32];          // warp sums, by step parity
   __shared__ unsigned s_bad[kMaxSegTiles];  // bit per tile column, word per tile row
+  // The window's ring: slot k, signal kRegS + p, this thread's column.
+  __shared__ P s_ring[kRing > 0 ? kRing * kP * kNT : 1];
 
   const int tid = threadIdx.x;
   if (tid < kMaxSegTiles) s_bad[tid] = 0u;
@@ -817,21 +939,31 @@ ssim_fwd_stream_kernel(const T* __restrict__ a, const T* __restrict__ b,
           va = sanitize(va, clip_bound);
           vb = sanitize(vb, clip_bound);
         }
-        const float sm = va + vb, df = va - vb;
-        s_in[q & 1][j] = make_float4(va, vb, sm * sm, df * df);
+        s_in[q & 1].put(j, va, vb);
       }
     }
   };
 
   // The window: the horizontal blurs of the last 2r + 1 stream rows, per
-  // signal, the row of stream index q in slot q mod kP. acc: this column's
-  // sum(ssim - 1) over the current tile's rows (kScore / kMap).
-  float win[4][kP];
-  float acc = 0.0f;
+  // signal, the row of stream index q in slot q mod kP; signals kRegS..3 in
+  // the shared ring where it has them. acc: this column's sum(ssim - 1) over
+  // the current tile's rows (kScore / kMap / the precise modes).
+  P win[kRegS > 0 ? kRegS : 1][kP];
+  auto win_put = [&](int p, int k, P v) {
+    if (p >= kRegS) {
+      s_ring[(k * kRing + (p - kRegS)) * kNT + tid] = v;
+    } else {
+      win[p][k] = v;
+    }
+  };
+  auto win_get = [&](int p, int k) -> P {
+    return p >= kRegS ? s_ring[(k * kRing + (p - kRegS)) * kNT + tid] : win[p][k];
+  };
+  P acc = 0;
   int trow = 0;  // row within the current tile
   int kt = 0;    // the current tile's row in the segment
   // Warp sums waiting in s_red[(s - 1) & 1] for step s to combine: the
-  // tile row (kScore / kMap) or the output row (row modes), else -1; and in
+  // tile row (tile modes) or the output row (row modes), else -1; and in
   // the row modes the tile row that ended there, else -1.
   int pend = -1, pend_end = -1;
 
@@ -842,9 +974,9 @@ ssim_fwd_stream_kernel(const T* __restrict__ a, const T* __restrict__ b,
   // warps in order.
   auto combine = [&](int s) {
     if (pend < 0) return;
-    const float* red = s_red[(s - 1) & 1] + tid / 32;
+    const P* red = s_red[(s - 1) & 1] + tid / 32;
     if (lead) {
-      float sum = 0.0f;
+      P sum = 0;
       for (int k = 0; k < TW / 32; ++k) sum += red[k];
       if constexpr (kRows) {
         const size_t prow = ((size_t)img * ntx + (size_t)txg) * (size_t)H;
@@ -861,9 +993,9 @@ ssim_fwd_stream_kernel(const T* __restrict__ a, const T* __restrict__ b,
         const int tyg = ty_base + pend;
         const int vth = min(TH, H - tyg * TH);
         const int vtw = min(TW, W - txg * TW);
-        const float nan = __int_as_float(0x7fc00000);
+        const P nan = (P)__int_as_float(0x7fc00000);
         partials[((size_t)img * nty + (size_t)tyg) * (size_t)ntx + (size_t)txg] =
-            tile_bad(pend) ? nan : sum + (float)(vth * vtw);
+            tile_bad(pend) ? nan : sum + (P)(vth * vtw);
       }
     }
     pend = -1;
@@ -885,39 +1017,50 @@ ssim_fwd_stream_kernel(const T* __restrict__ a, const T* __restrict__ b,
         combine(s);
 
         // (b) Stream row s: horizontal blur into the window's slot k.
-        if (col_on) {
-          const float4* row = s_in[s & 1] + tid + r;  // centre row[0]
-          float h[4];
-          sym4(tp, [&](int i) { return row[i]; }, h);
+        if constexpr (kIsPrecise<kMode>) {
+          // A thread pair blurs two columns: the even thread the (a, b)
+          // plane, the odd one the ((a+b)^2, (a-b)^2) plane, each for both
+          // columns; then each passes the other its column's half (every
+          // lane takes part in the shuffle).
+          const StagedRow<P>& row = s_in[s & 1];
+          const bool odd = tid & 1;
+          double2 o0, o1;
+          sym2x2(tp, (odd ? row.sd : row.ab) + (tid & ~1), o0, o1);
+          const double2 give = odd ? o0 : o1;
+          const double2 got = make_double2(__shfl_xor_sync(0xffffffffu, give.x, 1),
+                                           __shfl_xor_sync(0xffffffffu, give.y, 1));
+          const double2 ab = odd ? got : o0, sd = odd ? o1 : got;
+          if (col_on) {
+            win_put(0, k, ab.x);
+            win_put(1, k, ab.y);
+            win_put(2, k, sd.x);
+            win_put(3, k, sd.y);
+          }
+        } else if (col_on) {
+          const StagedRow<P>& row = s_in[s & 1];
+          P h[4];
+          sym4(tp, [&](int i) { return row.get(tid + r + i); }, h);
 #pragma unroll
-          for (int p = 0; p < 4; ++p) win[p][k] = h[p];
+          for (int p = 0; p < 4; ++p) win_put(p, k, h[p]);
         }
 
         // (c) Output row ly = s - 2r from stream rows s - 2r .. s (ages 2r
         // .. 0: the row of age j in slot (k - j) mod kP).
         if (s >= 2 * r) {
           const int ly = s - 2 * r;
-          float v = 0.0f;
+          P v = 0;
           if (col_on) {
-            float m[4];
+            P m[4];
             sym4(tp,
                  [&](int i) {
                    const int sl = (k - r + i + 2 * kP) % kP;
-                   return make_float4(win[0][sl], win[1][sl], win[2][sl], win[3][sl]);
+                   return Vec4<P>{win_get(0, sl), win_get(1, sl), win_get(2, sl),
+                                  win_get(3, sl)};
                  },
                  m);
-            // _ssim_from_blurs (ssim_pallas.py:465-477), as the tile body.
-            const float mu_a = m[0], mu_b = m[1], s_ss = m[2], s_dd = m[3];
-            const float mu_a2 = mu_a * mu_a;
-            const float mu_b2 = mu_b * mu_b;
-            const float mu_ab = mu_a * mu_b;
-            const float sigma_ab_x4 = (s_ss - s_dd) - 4.0f * mu_ab;
-            const float sigma_sum_x2 = (s_ss + s_dd) - 2.0f * (mu_a2 + mu_b2);
-            const float num = (2.0f * mu_ab + c1) * (0.5f * sigma_ab_x4 + c2);
-            const float den = (mu_a2 + mu_b2 + c1) * (0.5f * sigma_sum_x2 + c2);
-            v = num / den;
+            v = ssim_of(m, c1, c2);
             if (kWithMap) {
-              map[base + (size_t)(y0 + ly) * (size_t)W + (size_t)(x0 + tid)] = v;
+              map[base + (size_t)(y0 + ly) * (size_t)W + (size_t)(x0 + tid)] = (float)v;
             }
           }
           const bool tile_end = ++trow == TH || ly == vh - 1;
@@ -929,11 +1072,11 @@ ssim_fwd_stream_kernel(const T* __restrict__ a, const T* __restrict__ b,
             pend = ly;
             pend_end = tile_end ? kt : -1;
           } else {
-            if (col_on) acc += v - 1.0f;
+            if (col_on) acc += v - (P)1;
             if (tile_end) {
-              const float w = warp_sum(acc);
+              const P w = warp_sum(acc);
               if ((tid & 31) == 0) s_red[s & 1][tid / 32] = w;
-              acc = 0.0f;
+              acc = 0;
               pend = kt;
             }
           }
@@ -970,9 +1113,12 @@ cudaError_t launch_stream(const void* a, const void* b, void* partials,
                           int H, int W, int TH, int TW, int S,
                           const double* taps_host, double c1, double c2,
                           float clip_bound, cudaStream_t stream) {
+  using P = Blur<kMode>;
   constexpr bool kRows = kMode == kRowsum || kMode == kRowsumMap;
-  StreamTaps tp;
-  for (int k = 0; k < 2 * kStreamR + 1; ++k) tp.t[k] = (float)taps_host[k];
+  // The f32 modes round the taps and c1, c2 to float; the precise modes
+  // keep the f64 taps and the unrounded constants.
+  StreamTaps<P> tp;
+  for (int k = 0; k < 2 * kStreamR + 1; ++k) tp.t[k] = (P)taps_host[k];
   const int nstrip = (W + kStripW - 1) / kStripW;
   const int nseg = (H + S - 1) / S;
   const int ntx = (W + TW - 1) / TW;
@@ -980,10 +1126,9 @@ cudaError_t launch_stream(const void* a, const void* b, void* partials,
   const long long blocks = (long long)B * nseg * nstrip;
   if (blocks < 1 || blocks > 0x7fffffffLL) return cudaErrorInvalidConfiguration;
   ssim_fwd_stream_kernel<T, kMode><<<(unsigned)blocks, kStreamThreads, 0, stream>>>(
-      static_cast<const T*>(a), static_cast<const T*>(b),
-      static_cast<float*>(partials), static_cast<float*>(map),
-      static_cast<float*>(scratch), halo, H, W, TH, TW, S, nstrip, nseg, ntx,
-      nty, tp, (float)c1, (float)c2, clip_bound);
+      static_cast<const T*>(a), static_cast<const T*>(b), static_cast<P*>(partials),
+      static_cast<float*>(map), static_cast<float*>(scratch), halo, H, W, TH, TW, S,
+      nstrip, nseg, ntx, nty, tp, (P)c1, (P)c2, clip_bound);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess || !kRows) return err;
   const long long n = (long long)B * H;
@@ -1121,9 +1266,9 @@ cudaError_t launch_typed(int is_float, const void* a, const void* b,
 // taps widened, or in the precise modes the f64 taps (ssim_cuda._prepare;
 // the other modes round them to float). c1, c2:
 // the stabilising constants (rounded to float by the f32 modes). seg: 0
-// for the tile body, or the streaming kernel's segment rows (modes 0, 1, 8
-// and 9, not relaxed, r = 5, TW in [32, 128], seg a multiple of TH of at
-// most 16 tiles; anything else is refused). Returns the launch's
+// for the tile body, or the streaming kernel's segment rows (modes 0, 1, 4,
+// 5, 8 and 9, not relaxed, r = 5, TW in [32, 128], seg a multiple of TH of
+// at most 16 tiles; anything else is refused). Returns the launch's
 // cudaError_t.
 extern "C" int ssim_fwd_launch(int mode, int relaxed, int is_float,
                                const void* a, const void* b, void* partials,
@@ -1166,6 +1311,8 @@ extern "C" int ssim_fwd_launch(int mode, int relaxed, int is_float,
       SSIM_FWD_STREAM(kMap)
       SSIM_FWD_STREAM(kRowsum)
       SSIM_FWD_STREAM(kRowsumMap)
+      SSIM_FWD_STREAM(kPrecise)
+      SSIM_FWD_STREAM(kPreciseMap)
       default:
         return cudaErrorInvalidValue;
     }
@@ -1209,7 +1356,7 @@ extern "C" int ssim_fwd_launch(int mode, int relaxed, int is_float,
 }
 
 // Blocks of the streaming kernel that one SM of the current device holds at
-// once in `mode` (0, 1, 8 or 9) for uint8 (is_float = 0) or float32 inputs:
+// once in `mode` (0, 1, 4, 5, 8 or 9) for uint8 (is_float = 0) or float32 inputs:
 // the CUDA runtime's occupancy for the instantiation that ssim_fwd_launch
 // takes with seg > 0. Returns a cudaError_t.
 extern "C" int ssim_fwd_stream_occupancy(int mode, int is_float, int* blocks_per_sm) {
@@ -1222,6 +1369,8 @@ extern "C" int ssim_fwd_stream_occupancy(int mode, int is_float, int* blocks_per
     SSIM_FWD_OCC(kMap)
     SSIM_FWD_OCC(kRowsum)
     SSIM_FWD_OCC(kRowsumMap)
+    SSIM_FWD_OCC(kPrecise)
+    SSIM_FWD_OCC(kPreciseMap)
     default:
       return cudaErrorInvalidValue;
   }

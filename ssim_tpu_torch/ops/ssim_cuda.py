@@ -41,8 +41,9 @@ The kernel is `ssim_tpu_torch/csrc/ssim_fwd.cu`. Its partials and NaN
 poison follow one 2-D grid of TILE_H x TILE_W output tiles that covers
 every width, so the TPU's split at 16384 lanes and
 `pooled_components_ok`'s VMEM limits have no counterpart. The main-path
-modes (score, map and the row modes, at radius STREAM_RADIUS, tiles up to
-STRIP_W wide: `stream_applies`) run a row-streaming kernel, one CUDA block
+modes (score, map, the row modes and the precise modes, at radius
+STREAM_RADIUS, tiles up to STRIP_W wide: `stream_applies`) run a
+row-streaming kernel, one CUDA block
 per strip of STRIP_W columns and segment of rows (`stream_segment` picks
 the segment's length to fill the card, `stream_blocks` lists the blocks);
 every other mode, radius and tile runs the tile body, one block per tile.
@@ -113,11 +114,13 @@ STREAM_LAUNCHES = 0
 #: The row-streaming kernel (ssim_fwd.cu kStripW, kMaxSegTiles, kStreamR):
 #: a block owns a strip of STRIP_W output columns and walks down a segment
 #: of at most MAX_SEG_TILES tiles' rows; its window radius is
-#: STREAM_RADIUS (windows.RADIUS) and it serves the modes STREAM_MODES.
+#: STREAM_RADIUS (windows.RADIUS) and it serves the modes STREAM_MODES:
+#: the standard tier's score, map and row modes in f32, and the precise
+#: tier's two modes in fp64 (the same body with double blurs).
 STRIP_W = 128
 MAX_SEG_TILES = 16
 STREAM_RADIUS = 5
-STREAM_MODES = ("score", "map", "rowsum", "rowsum_map")
+STREAM_MODES = ("score", "map", "rowsum", "rowsum_map", "precise", "precise_map")
 #: Rows' worth of fixed cost per block in stream_segment's model (launch,
 #: prologue and the NaN check).
 _BLOCK_OVERHEAD_ROWS = 8
@@ -221,10 +224,11 @@ def batch_geometry(batch: int, h: int, w: int):
 def stream_applies(mode: str, radius: int, tile_w: int, relaxed: bool = False) -> bool:
     """Whether a launch in `mode` runs the row-streaming kernel, else the
     tile body: the standard tier's score, map and row modes (with or
-    without halo operands; STREAM_MODES) at radius STREAM_RADIUS with a
-    tile 32 to STRIP_W columns wide. The components, pooled, batch and
-    precise modes, every relaxed launch, the other radii and a tile_w of
-    256 run the tile body."""
+    without halo operands) and the precise tier's score and map modes
+    (STREAM_MODES) at radius STREAM_RADIUS with a tile 32 to STRIP_W
+    columns wide. The components, pooled and both batch modes (their 8-64
+    wide batch tiles), every relaxed launch, the other radii and a tile_w
+    of 256 run the tile body."""
     return (mode in STREAM_MODES and radius == STREAM_RADIUS
             and 32 <= tile_w <= STRIP_W and not relaxed)
 
@@ -906,7 +910,9 @@ def ssim_parts_cuda(
     precise=True is the precise tier (precision="f64", the reference's
     RMGR_SSIM_USE_DOUBLE build): the blurs (with the f64 taps), the SSIM
     formula and the tile sums in native fp64 (the JAX kernel blurs in f32
-    with f32 taps), and partials (..., K) f64, one per tile.
+    with f32 taps), and partials (..., K) f64, one per tile. Like the
+    standard tier it runs the row-streaming kernel where stream_applies
+    (radius 5, tiles 32 to 128 wide), else the tile body.
     The JAX kernel's precise mode writes 2K f32 partials (df32 hi, lo +
     e); engine.finalize_mean sums either in f64, so the score is the same
     quantity. The map is the f32 rounding of the fp64 values.

@@ -3,11 +3,12 @@
     python -m ssim_tpu_torch.tools.fwd_times [--segments]
 
 Times (CUDA events around 20 back-to-back calls, median of 3) the
-main-path modes kScore, kMap, kRowsum and kRowsumMap (the row modes with
-halo operands, both flags set, as on one rank) on u8 pairs at 1080p x4,
-4K x4 and 16K x1, and beside them the tile body's modes: components and
-pooled components, batch, precise, relaxed score and kScore at radius 1
-and 16 at 1080p x4, batch at 64x64 x4096. Prints the card's name and power
+streaming kernel's modes kScore, kMap, kRowsum and kRowsumMap (the row
+modes with halo operands, both flags set, as on one rank), kPrecise and
+kPreciseMap on u8 pairs at 1080p x4, 4K x4, 16K x1 and 1x1024x20480, and
+beside them the tile body's modes: components and pooled components,
+batch, relaxed score, kScore and precise at radius 1 and 16 at 1080p x4,
+batch and batch precise at 64x64 x4096. Prints the card's name and power
 limit, then one JSON line {"card": ..., "package": ..., "ms": {...}}. It
 calls only the wrappers' public arguments, so it also times another
 checkout's kernel when run as a file with that checkout's root on
@@ -15,8 +16,8 @@ PYTHONPATH:
 
     PYTHONPATH=/path/to/checkout python ssim_tpu_torch/tools/fwd_times.py
 
---segments also times kScore and kRowsum at each shape at every segment
-length the streaming kernel takes, beside the wrapper's own choice
+--segments also times kScore, kRowsum and kPrecise at each shape at every
+segment length the streaming kernel takes, beside the wrapper's own choice
 (`ssim_cuda.stream_segment`).
 """
 
@@ -32,7 +33,7 @@ import torch
 from ssim_tpu_torch.ops import ssim_cuda
 
 SHAPES = (("1080p_b4", (4, 1080, 1920)), ("4k_b4", (4, 2160, 3840)),
-          ("16k_b1", (1, 8640, 15360)))
+          ("16k_b1", (1, 8640, 15360)), ("wide_b1", (1, 1024, 20480)))
 
 
 def card_label():
@@ -68,7 +69,7 @@ def u8_pair(gen, shape):
 
 
 def main_path_modes(a, b):
-    """The four main-path modes on one pair: name -> call."""
+    """The streaming kernel's six modes on one pair: name -> call."""
     h = a.shape[-2]
     vh = (a[..., h - 5:, :].contiguous(), a[..., :5, :].contiguous(),
           b[..., h - 5:, :].contiguous(), b[..., :5, :].contiguous())
@@ -78,6 +79,8 @@ def main_path_modes(a, b):
         "kMap": lambda: ssim_cuda.ssim_parts_cuda(a, b, with_map=True),
         "kRowsum": lambda: ssim_cuda.ssim_rows_cuda(a, b, **rows),
         "kRowsumMap": lambda: ssim_cuda.ssim_rows_cuda(a, b, with_map=True, **rows),
+        "kPrecise": lambda: ssim_cuda.ssim_parts_cuda(a, b, precise=True),
+        "kPreciseMap": lambda: ssim_cuda.ssim_parts_cuda(a, b, with_map=True, precise=True),
     }
 
 
@@ -89,25 +92,34 @@ def tile_body_modes(gen, a, b):
     return {
         "components f32": lambda: ssim_cuda.ssim_components_cuda(fa, fb, data_range=1.0),
         "pooled u8": lambda: ssim_cuda.ssim_components_pooled_cuda(a, b),
-        "precise": lambda: ssim_cuda.ssim_parts_cuda(a, b, precise=True),
         "relaxed kScore": lambda: ssim_cuda.ssim_parts_cuda(a, b, relaxed=True),
         "kScore r=1": lambda: ssim_cuda.ssim_parts_cuda(a, b, radius=1, sigma=0.8),
         "kScore r=16": lambda: ssim_cuda.ssim_parts_cuda(a, b, radius=16, sigma=3.0),
+        "precise r=1": lambda: ssim_cuda.ssim_parts_cuda(a, b, precise=True, radius=1,
+                                                         sigma=0.8),
+        "precise r=16": lambda: ssim_cuda.ssim_parts_cuda(a, b, precise=True, radius=16,
+                                                          sigma=3.0),
         "batch 64x64_b4096": lambda: ssim_cuda.ssim_parts_batch_cuda(sa, sb),
+        "batch precise 64x64_b4096": lambda: ssim_cuda.ssim_parts_batch_cuda(
+            sa, sb, precise=True),
     }
 
 
 def segment_sweep(name, a, b):
-    """kScore and kRowsum at every segment the streaming kernel takes."""
+    """kScore, kRowsum and kPrecise at every segment the streaming kernel
+    takes (kPrecise where it streams)."""
     from ssim_tpu_torch.windows import gaussian_taps
 
     bsz, h, w = a.shape
-    kw = dict(taps=gaussian_taps(np.float32, 5, 1.5), c1=(0.01 * 255) ** 2,
-              c2=(0.03 * 255) ** 2, clip_bound=131072.0, tile_h=ssim_cuda.TILE_H,
-              tile_w=ssim_cuda.TILE_W)
+    kw = dict(c1=(0.01 * 255) ** 2, c2=(0.03 * 255) ** 2, clip_bound=131072.0,
+              tile_h=ssim_cuda.TILE_H, tile_w=ssim_cuda.TILE_W)
     vh = (a[..., h - 5:, :].contiguous(), a[..., :5, :].contiguous(),
           b[..., h - 5:, :].contiguous(), b[..., :5, :].contiguous())
-    for mode, extra in (("score", {}), ("rowsum", dict(vhalo=vh, vmask=(1, 1)))):
+    f32_taps = dict(taps=gaussian_taps(np.float32, 5, 1.5))
+    runs = [("score", f32_taps), ("rowsum", dict(vhalo=vh, vmask=(1, 1), **f32_taps))]
+    if ssim_cuda.stream_applies("precise", 5, ssim_cuda.TILE_W):
+        runs.append(("precise", dict(taps=gaussian_taps(np.float64, 5, 1.5))))
+    for mode, extra in runs:
         resident = ssim_cuda._stream_resident(a.device.index, mode, False)
         auto = ssim_cuda.stream_segment(bsz, h, w, ssim_cuda.TILE_H, 10, resident)
         parts = [f"auto {auto} ({resident} resident)"]

@@ -17,7 +17,9 @@
 struct dim3x { unsigned x, y, z; };
 extern thread_local dim3x threadIdx, blockIdx;
 struct float4 { float x, y, z, w; };
+struct alignas(16) double2 { double x, y; };
 inline float4 make_float4(float a, float b, float c, float d) { return {a, b, c, d}; }
+inline double2 make_double2(double a, double b) { return {a, b}; }
 using std::max;
 using std::min;
 inline unsigned __float_as_uint(float f) { unsigned u; std::memcpy(&u, &f, 4); return u; }
@@ -25,6 +27,8 @@ inline float __int_as_float(int i) { float f; std::memcpy(&f, &i, 4); return f; 
 template <class T> inline T __ldg(const T* p) { return *p; }
 void __syncthreads();
 float __shfl_down_sync(unsigned mask, float v, int offset);
+double __shfl_down_sync(unsigned mask, double v, int offset);
+double __shfl_xor_sync(unsigned mask, double v, int lane_mask);
 unsigned atomicOr(unsigned* p, unsigned v);
 typedef int cudaError_t;
 typedef void* cudaStream_t;

@@ -1,11 +1,13 @@
 // Runs ssim_fwd_stream_kernel's source on the host (see cuda_runtime.h):
 //   harness IN OUT
 // IN holds int32 [mode, is_float, B, H, W, TH, TW, S, has_halo, is_top,
-// is_bot], f32 taps[11], f32 [c1, c2, clip_bound], a, b (B*H*W of u8 or
-// f32) and, with has_halo, a_top, a_bot, b_top, b_bot (B*5*W each). OUT
-// receives the partials (B, nty*ntx) or the row sums (B, H) f32, then the
-// map (B, H, W) f32 in the map modes. The blocks run one after another,
-// each with one std::thread per CUDA thread.
+// is_bot, precise], the taps[11] and [c1, c2, clip_bound] (f64 with
+// precise, else f32), a, b (B*H*W of u8 or f32) and, with has_halo, a_top,
+// a_bot, b_top, b_bot (B*5*W each). OUT receives the partials (B, nty*ntx)
+// (f64 with precise, else f32) or the row sums (B, H) f32, then the map
+// (B, H, W) f32 in the map modes. precise must be 1 exactly in the precise
+// modes. The blocks run one after another, each with one std::thread per
+// CUDA thread.
 #include "cuda_runtime.h"
 
 #include <barrier>
@@ -18,15 +20,25 @@
 thread_local dim3x threadIdx, blockIdx;
 static std::barrier<>* g_block;
 static std::barrier<>* g_warp[32];
-static float g_lane[32][32];
+static double g_lane[32][32];
 static std::mutex g_atomic;
 
 void __syncthreads() { g_block->arrive_and_wait(); }
-float __shfl_down_sync(unsigned, float v, int offset) {
+template <class V> static V shfl_down(V v, int offset) {
   const int w = threadIdx.x / 32, l = threadIdx.x % 32;
   g_lane[w][l] = v;
   g_warp[w]->arrive_and_wait();
-  const float r = l + offset < 32 ? g_lane[w][l + offset] : v;
+  const V r = l + offset < 32 ? (V)g_lane[w][l + offset] : v;
+  g_warp[w]->arrive_and_wait();
+  return r;
+}
+float __shfl_down_sync(unsigned, float v, int offset) { return shfl_down(v, offset); }
+double __shfl_down_sync(unsigned, double v, int offset) { return shfl_down(v, offset); }
+double __shfl_xor_sync(unsigned, double v, int lane_mask) {
+  const int w = threadIdx.x / 32, l = threadIdx.x % 32;
+  g_lane[w][l] = v;
+  g_warp[w]->arrive_and_wait();
+  const double r = g_lane[w][l ^ lane_mask];
   g_warp[w]->arrive_and_wait();
   return r;
 }
@@ -50,9 +62,10 @@ template <class T> static std::vector<T> take(FILE* f, size_t n) {
 
 template <class T, int M>
 static void run(FILE* f, FILE* o, const std::vector<int>& h) {
+  using P = Blur<M>;
   const int B = h[2], H = h[3], W = h[4], TH = h[5], TW = h[6], S = h[7];
-  const auto taps = take<float>(f, 2 * kStreamR + 1);
-  const auto cc = take<float>(f, 3);
+  const auto taps = take<P>(f, 2 * kStreamR + 1);
+  const auto cc = take<P>(f, 3);
   const size_t np = (size_t)B * H * W;
   const auto a = take<T>(f, np), b = take<T>(f, np);
   std::vector<T> ops[4];
@@ -60,13 +73,14 @@ static void run(FILE* f, FILE* o, const std::vector<int>& h) {
   const Halo<T> halo{h[8] ? ops[0].data() : nullptr, h[8] ? ops[1].data() : nullptr,
                      h[8] ? ops[2].data() : nullptr, h[8] ? ops[3].data() : nullptr,
                      h[9], h[10]};
-  StreamTaps tp;
+  StreamTaps<P> tp;
   for (int k = 0; k < 2 * kStreamR + 1; ++k) tp.t[k] = taps[k];
   const int nstrip = (W + kStripW - 1) / kStripW, nseg = (H + S - 1) / S;
   const int ntx = (W + TW - 1) / TW, nty = (H + TH - 1) / TH;
   constexpr bool kRows = M == kRowsum || M == kRowsumMap;
-  constexpr bool kWithMap = M == kMap || M == kRowsumMap;
-  std::vector<float> partials((size_t)B * nty * ntx), map(np), pieces((size_t)B * ntx * H);
+  constexpr bool kWithMap = M == kMap || M == kRowsumMap || M == kPreciseMap;
+  std::vector<P> partials((size_t)B * nty * ntx);
+  std::vector<float> map(np), pieces((size_t)B * ntx * H);
   g_block = new std::barrier<>(kStreamThreads);
   for (auto& w : g_warp) w = new std::barrier<>(32);
   for (int blk = 0; blk < B * nseg * nstrip; ++blk) {
@@ -78,7 +92,7 @@ static void run(FILE* f, FILE* o, const std::vector<int>& h) {
         ssim_fwd_stream_kernel<T, M>(a.data(), b.data(), partials.data(),
                                      kWithMap ? map.data() : nullptr, pieces.data(),
                                      halo, H, W, TH, TW, S, nstrip, nseg, ntx, nty,
-                                     tp, cc[0], cc[1], cc[2]);
+                                     tp, cc[0], cc[1], (float)cc[2]);
       });
     }
     for (auto& t : threads) t.join();
@@ -94,7 +108,7 @@ static void run(FILE* f, FILE* o, const std::vector<int>& h) {
     }
     fwrite(rows.data(), 4, rows.size(), o);
   } else {
-    fwrite(partials.data(), 4, partials.size(), o);
+    fwrite(partials.data(), sizeof(P), partials.size(), o);
   }
   if (kWithMap) fwrite(map.data(), 4, map.size(), o);
 }
@@ -104,7 +118,8 @@ int main(int argc, char** argv) {
   FILE* f = fopen(argv[1], "rb");
   FILE* o = fopen(argv[2], "wb");
   if (!f || !o) return 2;
-  const auto h = take<int>(f, 11);
+  const auto h = take<int>(f, 12);
+  if (h[11] != (h[0] == kPrecise || h[0] == kPreciseMap)) return 2;
 #define SSIM_EMU_RUN(M)                         \
   case M:                                       \
     if (h[1]) run<float, M>(f, o, h);           \
@@ -113,6 +128,8 @@ int main(int argc, char** argv) {
   switch (h[0]) {
     SSIM_EMU_RUN(kScore)
     SSIM_EMU_RUN(kMap)
+    SSIM_EMU_RUN(kPrecise)
+    SSIM_EMU_RUN(kPreciseMap)
     SSIM_EMU_RUN(kRowsum)
     SSIM_EMU_RUN(kRowsumMap)
     default:

@@ -675,6 +675,136 @@ def test_forward_stream_matches_tile_body_on_card(mode, dtype):
         assert (g_str - g_tile).abs().max().item() <= 2e-7
 
 
+
+def _precise_stream(at, bt, mode, tile, seg):
+    """A precise mode through the row-streaming instantiation at a pinned
+    segment and tile, and the precise twin, on the same card tensors; the
+    launch adds one to STREAM_LAUNCHES and to PRECISE_LAUNCHES. Returns
+    ((partials, map or None) of the kernel, of the twin)."""
+    dr = 1.0 if at.dtype == torch.float32 else 255.0
+    kw = dict(_twin_kw(dr, True), tile_h=tile[0], tile_w=tile[1])
+    assert ssim_cuda.stream_applies(mode, 5, tile[1])
+    before = (ssim_cuda.STREAM_LAUNCHES, ssim_cuda.PRECISE_LAUNCHES)
+    got = ssim_cuda._launch(at, bt, mode=mode, segment=seg, **kw)
+    torch.cuda.synchronize()
+    assert (ssim_cuda.STREAM_LAUNCHES, ssim_cuda.PRECISE_LAUNCHES) == (
+        before[0] + 1, before[1] + 1)
+    want = ssim_cuda.ssim_parts_precise_plain(at, bt, with_map=mode == "precise_map",
+                                              **kw)
+    return got, want
+
+
+def _hold_precise(got, want, shape):
+    """Precise kernel against twin: maps bit for bit (NaN at the same
+    pixels), f64 partials, NaN at the same tiles, per-image scores within
+    1e-12 relative (only the order of the tile sums differs)."""
+    (pk, mk), (pp, mp) = got, want
+    assert pk.dtype == torch.float64 and (mk is None) == (mp is None)
+    if mp is not None:
+        assert torch.equal(mk.isnan(), mp.isnan())
+        assert torch.equal(mk[~mp.isnan()], mp[~mp.isnan()])
+    assert torch.equal(pk.isnan(), pp.isnan())
+    npix = shape[-2] * shape[-1]
+    gk = pk.sum(-1).cpu().numpy() / npix
+    gp = pp.sum(-1).cpu().numpy() / npix
+    assert np.array_equal(np.isnan(gk), np.isnan(gp))
+    assert np.nanmax(np.abs(gk - gp) / np.abs(gp), initial=0.0) <= 1e-12
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["u8", "f32"])
+@pytest.mark.parametrize("tile", [(32, 32), (32, 64), (64, 128)])
+@pytest.mark.parametrize("case", ["seg-1", "seg", "seg+1", "2seg+1", "ragged_w",
+                                  "w<=2r", "h=1", "b=3"])
+def test_precise_stream_geometry_on_card(case, tile, dtype):
+    """The precise modes' row streaming (fp64 blurs with the f64 taps) at a
+    segment of two tiles: H one short of, equal to and one past the
+    segment and 2S + 1; a ragged last strip, W <= 2r, H = 1, three images;
+    pinned tiles 32x32, 32x64, 64x128; u8 and f32. kPreciseMap's map bit
+    for bit the twin's, both modes' scores within 1e-12 relative."""
+    _need_card()
+    seg = 2 * tile[0]
+    bsz, h, w = {"seg-1": (2, seg - 1, 300), "seg": (2, seg, 300),
+                 "seg+1": (2, seg + 1, 300), "2seg+1": (2, 2 * seg + 1, 300),
+                 "ragged_w": (2, seg + 1, 517), "w<=2r": (2, seg + 1, 9),
+                 "h=1": (2, 1, 301), "b=3": (3, seg + 3, 259)}[case]
+    rng = np.random.default_rng(0x90 + len(case) + tile[1])
+    a, b = (_pair if dtype == "u8" else _float_pair)(rng, (bsz, h, w))
+    at, bt = torch.from_numpy(a).cuda(), torch.from_numpy(b).cuda()
+    for mode in ("precise", "precise_map"):
+        got, want = _precise_stream(at, bt, mode, tile, seg)
+        if got[1] is not None:
+            assert torch.isfinite(got[1]).all()
+        _hold_precise(got, want, at.shape)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("tile", [(32, 64), (32, 32), (16, 128)])
+def test_precise_stream_nonfinite_on_boundaries_on_card(tile):
+    """The precise modes' NaN contract through the stream: non-finite pixels
+    on a tile edge, a strip's last and first column, a segment's first and
+    last row, 2r rows above an interior segment's first row (staged before
+    its first step: the P5 case) and the image's last pixel. NaN over
+    exactly the twin's tiles, in the map and the f64 partials, in their own
+    image only; each NaN tile whole and holding a planted pixel."""
+    _need_card()
+    seg = 2 * tile[0]
+    rng = np.random.default_rng(0x94 + tile[1])
+    a, b = _float_pair(rng, (4, 2 * seg + 7, 400))
+    a[0, seg, 200] = np.nan
+    a[0, seg - 10, 40] = np.nan
+    a[1, seg - 1, 127] = np.inf
+    b[1, 3, 128] = -np.inf
+    a[2, tile[0] - 1, tile[1]] = np.nan
+    b[2, 2 * seg + 6, 399] = np.nan
+    at, bt = torch.from_numpy(a).cuda(), torch.from_numpy(b).cuda()
+    for mode in ("precise", "precise_map"):
+        got, want = _precise_stream(at, bt, mode, tile, seg)
+        _hold_precise(got, want, at.shape)
+    pk, m = got
+    assert pk[:3].isnan().any(dim=-1).all() and not pk[3].isnan().any()
+    assert m[0, seg, 200].isnan() and m[0, seg - 10, 40].isnan()
+    assert m[1, seg - 1, 127].isnan() and m[1, 3, 128].isnan()
+    assert torch.isfinite(m[3]).all()
+    bad = m.isnan().cpu().numpy()
+    th, tw = tile
+    for i in range(4):
+        for y in range(0, bad.shape[1], th):
+            for x in range(0, bad.shape[2], tw):
+                blk = bad[i, y:y + th, x:x + tw]
+                assert blk.all() or not blk.any()
+                planted = ~np.isfinite(a[i, y:y + th, x:x + tw]) | ~np.isfinite(
+                    b[i, y:y + th, x:x + tw])
+                assert blk.any() == planted.any()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["u8", "f32"])
+def test_precise_stream_matches_tile_body_on_card(dtype):
+    """The streaming precise map against the tile body's, which a pinned
+    tile_w of 256 reaches (8x256: the widest tile whose f64 planes fit a
+    block's shared memory at radius 5), bit for bit; scores within 1e-12
+    relative of each other. Each call adds one to
+    PRECISE_LAUNCHES, and only the default tile's to STREAM_LAUNCHES."""
+    _need_card()
+    rng = np.random.default_rng(0x98)
+    a, b = (_pair if dtype == "u8" else _float_pair)(rng, (2, 300, 700))
+    at, bt = torch.from_numpy(a).cuda(), torch.from_numpy(b).cuda()
+    kw = dict(data_range=1.0 if dtype == "f32" else 255.0, allow_float=dtype == "f32",
+              precise=True, with_map=True)
+    stream, precise = ssim_cuda.STREAM_LAUNCHES, ssim_cuda.PRECISE_LAUNCHES
+    p_tile, m_tile = ssim_cuda.ssim_parts_cuda(at, bt, tile_h=8, tile_w=256, **kw)
+    torch.cuda.synchronize()
+    assert (ssim_cuda.STREAM_LAUNCHES, ssim_cuda.PRECISE_LAUNCHES) == (stream, precise + 1)
+    p_str, m_str = ssim_cuda.ssim_parts_cuda(at, bt, **kw)
+    torch.cuda.synchronize()
+    assert (ssim_cuda.STREAM_LAUNCHES, ssim_cuda.PRECISE_LAUNCHES) == (
+        stream + 1, precise + 2)
+    assert torch.isfinite(m_str).all() and torch.equal(m_str, m_tile)
+    g_str = p_str.sum(-1).cpu().numpy() / (300 * 700)
+    g_tile = p_tile.sum(-1).cpu().numpy() / (300 * 700)
+    assert np.abs(g_str - g_tile).max() <= 1e-12 * np.abs(g_tile).max()
+
 # The relaxed tier: kernel against its relaxed twin. Both add the same
 # three exact bf16 products per band pass, the kernel in the tensor cores'
 # order, the twin in f32 matrix products (TF32 off), so they agree to a

@@ -6,7 +6,7 @@ segment its wrapper picks (stream_segment), the blocks it decodes
 __syncthreads, no FMA contraction, as nvcc builds it with --fmad=false)
 against the twins, maps bit for bit. The kernel itself runs only on a
 card: tests/test_torch_port_cuda.py holds it against the twins there
-(test_forward_stream_*). On the CPU every wrapper runs its twin, whose
+(test_forward_stream_*, test_precise_stream_*). On the CPU every wrapper runs its twin, whose
 per-pixel values and partials the JAX package's kernel holds in
 tests/test_torch_port_kernel.py and tests/test_torch_port_spatial.py.
 """
@@ -79,6 +79,29 @@ def test_stream_segment_tail_allowance():
     assert ssim_cuda.stream_segment(1, 8640, 15360, 32, 10, H100_RESIDENT, 1 / 20) == 480
 
 
+#: Precise streaming blocks an H100 holds at once: 4 per SM (128 registers,
+#: ssim_fwd_stream_occupancy in modes 4 and 5) on each of its 132 SMs.
+H100_PRECISE_RESIDENT = 132 * 4
+
+
+@pytest.mark.parametrize("shape,want", [((4, 1080, 1920), 64), ((4, 2160, 3840), 128),
+                                        ((1, 8640, 15360), 512), ((1, 1024, 20480), 352)])
+def test_stream_segment_at_the_precise_occupancy(shape, want):
+    """The segment the precise modes' launches get at the H100's precise
+    occupancy, half the f32 modes': at the main-path shapes the fastest,
+    or within 1% of the fastest, of the --segments sweeps of the shipped
+    kernel on an H100 (PERF.md), at 1x1024x20480 within 5.4%; the
+    same model as the f32 modes (no correction needed), which fills at
+    least 90% of the slots of the waves it takes."""
+    bsz, h, w = shape
+    res = H100_PRECISE_RESIDENT
+    seg = ssim_cuda.stream_segment(bsz, h, w, ssim_cuda.TILE_H, 2 * ssim_cuda.STREAM_RADIUS,
+                                   res)
+    assert seg == want
+    blocks = _blocks(bsz, h, w, seg)
+    assert blocks / (-(-blocks // res) * res) >= 0.9
+
+
 @pytest.mark.parametrize("tile", [(32, 32), (32, 64), (64, 128), (7, 64), (1, 32),
                                   (256, 128)])
 def test_stream_blocks_cover_each_pixel_once_with_whole_tiles(tile):
@@ -111,11 +134,14 @@ def test_stream_blocks_cover_each_pixel_once_with_whole_tiles(tile):
 
 @pytest.mark.parametrize("mode", ssim_cuda._MODES)
 def test_stream_applies_to_the_documented_launches(mode):
-    """The streaming kernel takes exactly the score, map and row modes at
-    radius 5 with tiles 32 to 128 wide, never relaxed; every other mode,
-    radius, tile width and the relaxed tier keep the tile body."""
-    main = mode in ("score", "map", "rowsum", "rowsum_map")
-    assert ssim_cuda.STREAM_MODES == ("score", "map", "rowsum", "rowsum_map")
+    """The streaming kernel takes exactly the score, map and row modes and
+    the precise modes (kPrecise, kPreciseMap) at radius 5 with tiles 32 to
+    128 wide, never relaxed; every other mode (components, pooled, both
+    batch modes), radius, tile width and the relaxed tier keep the tile
+    body."""
+    main = mode in ("score", "map", "rowsum", "rowsum_map", "precise", "precise_map")
+    assert ssim_cuda.STREAM_MODES == ("score", "map", "rowsum", "rowsum_map",
+                                      "precise", "precise_map")
     for radius in (1, 4, 5, 6, 16):
         for tile_w in (8, 16, 32, 64, 128, 256):
             for relaxed in (False, True):
@@ -125,21 +151,25 @@ def test_stream_applies_to_the_documented_launches(mode):
 
 def test_main_path_defaults_take_the_streaming_kernel():
     """The defaults every main-path call uses (windows.RADIUS, TILE_W, the
-    standard tier) take the streaming kernel, in all four of its modes;
-    the batch route's tiles (8 to 64 wide) never reach it, as the batch
-    modes keep the tile body."""
+    standard and the precise tier) take the streaming kernel, in all six of
+    its modes; the batch route's tiles (8 to 64 wide) never reach it, as
+    both batch modes keep the tile body."""
     from ssim_tpu_torch.windows import RADIUS
 
     assert RADIUS == ssim_cuda.STREAM_RADIUS
     for mode in ssim_cuda.STREAM_MODES:
         assert ssim_cuda.stream_applies(mode, RADIUS, ssim_cuda.TILE_W)
+    assert ssim_cuda.fit_tile(None, None, RADIUS, precise=True) == (
+        ssim_cuda.TILE_H, ssim_cuda.TILE_W)
     for bsz, h, w in [(4096, 64, 64), (8192, 32, 32), (512, 192, 192)]:
         _, tile_w, _, _ = ssim_cuda.batch_geometry(bsz, h, w)
         assert not ssim_cuda.stream_applies("batch", RADIUS, tile_w)
+        assert not ssim_cuda.stream_applies("batch_precise", RADIUS, tile_w)
 
 
 EMU_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "fwd_stream_emu")
 _EMU_MODES = {"score": 0, "map": 1, "rowsum": 8, "rowsum_map": 9}
+_EMU_PRECISE_MODES = {"precise": 4, "precise_map": 5}
 
 
 @pytest.fixture(scope="module")
@@ -166,24 +196,32 @@ def stream_emulator(tmp_path_factory):
 
 def _emulate(exe, mode, a, b, tile, seg, vhalo=None, vmask=(0, 0)):
     """The host build of the kernel in `mode` on NumPy (B, H, W) inputs:
-    (partials (B, nty*ntx) or row sums (B, H), map or None)."""
+    (partials (B, nty*ntx), f64 in the precise modes, or row sums (B, H),
+    map or None). The precise modes get the f64 taps and c1, c2 unrounded,
+    as the wrapper passes them."""
     bsz, h, w = a.shape
     f32 = a.dtype == np.float32
+    precise = mode in _EMU_PRECISE_MODES
     dr = 1.0 if f32 else 255.0
-    head = np.array([_EMU_MODES[mode], int(f32), bsz, h, w, tile[0], tile[1], seg,
-                     vhalo is not None, *vmask], np.int32)
+    head = np.array([{**_EMU_MODES, **_EMU_PRECISE_MODES}[mode], int(f32), bsz, h, w,
+                     tile[0], tile[1], seg, vhalo is not None, *vmask, int(precise)],
+                    np.int32)
+    ftype = np.float64 if precise else np.float32
     consts = np.array([(0.01 * dr) ** 2, (0.03 * dr) ** 2, max(131072.0, 4.0 * dr)],
-                      np.float32)
-    parts = [head, gaussian_taps(np.float32, 5, 1.5), consts, a, b, *(vhalo or ())]
+                      ftype)
+    parts = [head, gaussian_taps(ftype, 5, 1.5), consts, a, b, *(vhalo or ())]
     path_in, path_out = f"{exe}.{os.getpid()}.in", f"{exe}.{os.getpid()}.out"
     with open(path_in, "wb") as f:
         for x in parts:
             f.write(np.ascontiguousarray(x).tobytes())
     subprocess.run([str(exe), path_in, path_out], check=True, timeout=600)
-    got = np.fromfile(path_out, np.float32)
+    raw = np.fromfile(path_out, np.uint8)
     n = bsz * h if mode.startswith("rowsum") else bsz * (-(-h // tile[0])) * (-(-w // tile[1]))
-    first = torch.from_numpy(got[:n].reshape(bsz, -1).copy())
-    smap = torch.from_numpy(got[n:].reshape(a.shape).copy()) if mode.endswith("map") else None
+    size = np.dtype(np.float64 if precise else np.float32).itemsize * n
+    first = raw[:size].view(np.float64 if precise else np.float32)
+    first = torch.from_numpy(first.reshape(bsz, -1).copy())
+    smap = torch.from_numpy(raw[size:].view(np.float32).reshape(a.shape).copy()) \
+        if mode.endswith("map") else None
     return first, smap
 
 
@@ -291,3 +329,61 @@ def _hold_emulated(exe, a, b, tile, seg, vhalo=None, vmask=(0, 0)):
             fin = ~gp.isnan()
             if fin.any():
                 assert (gk[fin] - gp[fin]).abs().max().item() <= max(2e-7, 2e-5 / npix**0.5)
+
+
+_EMU_PRECISE_CASES = ["u8 ragged", "u8 2S+1, 32x32 tiles", "f32 non-finite on boundaries",
+                      "u8 W <= 2r", "u8 H = 1", "f32 64x128 tiles", "u8 1x1 flat"]
+
+
+@pytest.mark.parametrize("case", _EMU_PRECISE_CASES)
+def test_stream_kernel_source_precise_matches_twin_on_the_host(stream_emulator, case):
+    """The streaming kernel's precise modes (kPrecise, kPreciseMap: fp64
+    blurs with the f64 taps, the formula and the tile sums in fp64), built
+    for the host, against ssim_parts_precise_plain on the geometries of
+    _EMU_CASES: maps bit for bit (NaN over exactly the twin's tiles),
+    per-image scores within 1e-12 relative. The 1x1 pair is a flat window,
+    where f32 taps would leave ~8e-7 against the f64 oracle (P4): its map
+    equals the twin's and lies within 5e-7 of the oracle."""
+    from ssim_tpu_torch import reference
+
+    if case == "u8 1x1 flat":
+        f32, shape, tile, seg = False, (2, 1, 1), (32, 64), 32
+    else:
+        f32, shape, tile, seg = _EMU_CASES[case]
+    rng = np.random.default_rng(0x5EF0 + len(case))
+    a, b = _emu_pair(rng, shape, f32)
+    if case.startswith("f32 non-finite"):
+        a[0, seg, 200] = np.nan
+        a[0, seg - 10, 40] = np.nan
+        a[1, seg - 1, 127] = np.inf
+        b[1, 3, 128] = -np.inf
+        a[2, tile[0] - 1, tile[1]] = np.nan
+        b[2, -1, -1] = np.nan
+    dr = 1.0 if f32 else 255.0
+    kw = dict(taps=gaussian_taps(np.float64, 5, 1.5), c1=(0.01 * dr) ** 2,
+              c2=(0.03 * dr) ** 2, clip_bound=max(131072.0, 4.0 * dr),
+              tile_h=tile[0], tile_w=tile[1])
+    at, bt = torch.from_numpy(a), torch.from_numpy(b)
+    npix = a.shape[1] * a.shape[2]
+    for mode in _EMU_PRECISE_MODES:
+        got, got_map = _emulate(stream_emulator, mode, a, b, tile, seg)
+        want, want_map = ssim_cuda.ssim_parts_precise_plain(
+            at, bt, with_map=mode == "precise_map", **kw)
+        assert got.dtype == want.dtype == torch.float64
+        if mode == "precise_map":
+            assert torch.equal(got_map.isnan(), want_map.isnan())
+            fin = ~want_map.isnan()
+            assert torch.equal(got_map[fin], want_map[fin])
+        else:
+            assert got_map is None
+        assert torch.equal(got.isnan(), want.isnan())
+        gk = got.sum(-1).numpy() / npix
+        gp = want.sum(-1).numpy() / npix
+        assert np.array_equal(np.isnan(gk), np.isnan(gp))
+        assert np.nanmax(np.abs(gk - gp) / np.abs(gp), initial=0.0) <= 1e-12, mode
+    if case.startswith("f32 non-finite"):
+        assert got.isnan().any() and not got.isnan().all()  # only the planted tiles
+    if case == "u8 1x1 flat":
+        _, oracle_map = reference.compute_ssim(a.astype(np.float64), b.astype(np.float64),
+                                               with_map=True, data_range=255.0)
+        assert np.abs(got_map.numpy().astype(np.float64) - oracle_map).max() <= 5e-7
