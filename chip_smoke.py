@@ -115,16 +115,22 @@ Phases, each of which raises on failure (the script then exits non-zero):
    (4, 1080, 1920), u8 64x64 x4096 and grad_1080_b4, each also against
    the standard mode (it must differ); the forward against the f64 oracle
    at the JAX tests' envelope on independent random pairs (the tier's
-   worst content), custom windows and a NaN; below 512 columns a relaxed
+   worst content), custom windows and a NaN; every relaxed kScore / kMap
+   launch at radius 5 through the row-streaming kernel, those at radius
+   1 and 16 and every relaxed components, pooled and batch launch
+   through the tile body (by STREAM_LAUNCHES); below 512 columns a relaxed
    call must launch the standard modes and equal them; (b) the public
    path, each call's launches counted from 0: `compute_ssim(accuracy=
    "relaxed")` at 1080p x4, 4K x4 and 16K x1 (one relaxed launch each,
-   against the twin), two Adam steps on `ssim_loss(accuracy="relaxed")`
-   and on 1 - `ms_ssim(accuracy="relaxed")` at (4, 1080, 1920) and one
-   `compute_ms_ssim(accuracy="relaxed")` at msssim_1080_b4 (relaxed at
-   the scales >= 512 wide, standard below; within 1e-4 of
-   `impl="torch"`); (c) each relaxed mode beside the standard mode on
-   the same input with CUDA events (in turns), its twin and its bound;
+   streaming, against the twin), two Adam steps on
+   `ssim_loss(accuracy="relaxed")` (every relaxed forward launch
+   streaming) and on 1 - `ms_ssim(accuracy="relaxed")` at (4, 1080,
+   1920) and one `compute_ms_ssim(accuracy="relaxed")` at msssim_1080_b4
+   (relaxed at the scales >= 512 wide, standard below, none streaming;
+   within 1e-4 of `impl="torch"`); (c) each relaxed mode beside the
+   standard mode on the same input with CUDA events (in turns), its twin
+   and its bound: kScore and kMap at 1080p x4, 4K x4, 16K x1 and
+   1x1024x20480 beside the standard streaming modes;
 11. the edge-pad-and-align kernel (K4, csrc/pad.cu): (a) against its twin
    byte for byte (NaN payloads and -0.0 count), and on the small inputs
    against np.pad on the host, at the JAX pad tests' 13 geometries, u8
@@ -514,6 +520,13 @@ PRECISE_STREAM_DESIGN = (
     "columns, one thread each; a staged row of two double2 planes, blurred across by "
     "thread pairs, two columns each; a window of 2r + 1 rows, mu_a, mu_b and s_ss in "
     "registers, s_dd in a shared-memory ring; 4 blocks/SM)")
+RELAXED_STREAM_DESIGN = (
+    "row-streaming column strips, relaxed (ssim_fwd_stream_kernel<T, kScore|kMap, 2>: "
+    "128 columns, one thread each; the heavy horizontal blurs as bf16x3 mma.sync band "
+    "products over the strip's 8 tiles, one plane of one row per warp, every other step "
+    "two rows by the block's 4 warps; mu_a, mu_b in a register window, (a+b)^2 and "
+    "(a-b)^2 blurs in a shared-memory ring of 2 (2r + 1) rows; 7 blocks/SM); the "
+    "components, pooled and batch modes: the tile body")
 
 
 def phase_main(gen, label):
@@ -2234,8 +2247,16 @@ def compare_relaxed(name, a, b, oracle=False, **win):
 
     f32 = a.dtype == torch.float32
     npix = a.shape[-1] * a.shape[-2]
+    torch.cuda.synchronize()
+    zero_counts()
     sk, _ = ssim_parts_cuda(a, b, relaxed=True, allow_float=f32, **win)
     pk, mk = ssim_parts_cuda(a, b, with_map=True, relaxed=True, allow_float=f32, **win)
+    torch.cuda.synchronize()
+    counts = launch_counts()
+    # At radius 5 both relaxed launches stream; radii 1 and 16 keep the tile body.
+    streamed = 2 if win.get("radius", 5) == 5 else 0
+    check(counts == counts_of(relaxed=2, stream=streamed),
+          f"{name}: relaxed kScore / kMap launched {counts}, expected {streamed} streaming")
     _, ms = ssim_parts_cuda(a, b, with_map=True, allow_float=f32, **win)
     torch.cuda.synchronize()
     pp, mp = twin(a, b, True, relaxed=True, **win)
@@ -2251,8 +2272,8 @@ def compare_relaxed(name, a, b, oracle=False, **win):
           f"pixel {p_err:.3g} (tol {RELAXED_TWIN_PIXEL:.3g})")
     d_std = max_finite(mk, ms)
     check(d_std > 0, f"{name}: the relaxed map equals the standard one")
-    line = (f"  {name}: relaxed kScore / kMap vs twin global {g_err:.3g} pixel "
-            f"{p_err:.3g}; vs the standard map {d_std:.3g}")
+    line = (f"  {name}: relaxed kScore / kMap ({'streaming' if streamed else 'tile body'}) "
+            f"vs twin global {g_err:.3g} pixel {p_err:.3g}; vs the standard map {d_std:.3g}")
     if oracle:
         r = win.get("radius", 5)
         wo, mo = reference.compute_ssim(a.cpu().numpy(), b.cpu().numpy(), with_map=True,
@@ -2334,7 +2355,14 @@ def phase_relaxed_kernels(gen):
         dr = 1.0 if dtype == torch.float32 else 255.0
         fn = (ssim_cuda.ssim_components_pooled_cuda if pooled
               else ssim_cuda.ssim_components_cuda)
-        rk, sk = fn(a, b, data_range=dr, relaxed=True), fn(a, b, data_range=dr)
+        torch.cuda.synchronize()
+        zero_counts()
+        rk = fn(a, b, data_range=dr, relaxed=True)
+        torch.cuda.synchronize()
+        check(launch_counts() == counts_of(relaxed=1),
+              f"{'kPooled' if pooled else 'kComponents'} relaxed launched {launch_counts()}, "
+              f"expected the tile body")
+        sk = fn(a, b, data_range=dr)
         torch.cuda.synchronize()
         rp = comp_twin(a, b, pooled, data_range=dr, relaxed=True)
         parts = (lambda x: x[0] if pooled else x)
@@ -2359,7 +2387,12 @@ def phase_relaxed_kernels(gen):
     from ssim_tpu_torch import reference
 
     a, b = indep_pair(gen, (4096, 64, 64))
+    torch.cuda.synchronize()
+    zero_counts()
     rk = ssim_cuda.ssim_parts_batch_cuda(a, b, relaxed=True)
+    torch.cuda.synchronize()
+    check(launch_counts() == counts_of(relaxed=1),
+          f"kBatch relaxed launched {launch_counts()}, expected the tile body")
     sk = ssim_cuda.ssim_parts_batch_cuda(a, b)
     torch.cuda.synchronize()
     rp = batch_twin(a, b, False, relaxed=True)
@@ -2411,11 +2444,11 @@ def phase_relaxed_path(gen, inputs):
     from ssim_tpu_torch.ops import ssim_cuda
 
     print('phase 10b: the public path with accuracy="relaxed"', flush=True)
-    fwd = bwd = 0
+    fwd = bwd = streamed = 0
     by_call = {}
 
     def counted(name, fn):
-        nonlocal fwd, bwd
+        nonlocal fwd, bwd, streamed
         torch.cuda.synchronize()
         zero_counts()
         out = fn()
@@ -2424,14 +2457,16 @@ def phase_relaxed_path(gen, inputs):
         by_call[name] = {k: v for k, v in counts.items() if v}
         fwd += counts["relaxed"]
         bwd += counts["backward_relaxed"]
+        streamed += counts["stream"]
         return out, counts
 
     big = pair(gen, (1, 8640, 15360))
+    inputs["16k_b1"] = big
     for name, (a, b) in (("1080p_b4", inputs["1080p_b4"]), ("4k_b4", inputs["4k_b4"]),
                          ("16k_b1", big)):
         s, counts = counted(f"compute_ssim {name}",
                             lambda: ssim_tpu_torch.compute_ssim(a, b, accuracy="relaxed"))
-        check(counts == counts_of(relaxed=1),
+        check(counts == counts_of(relaxed=1, stream=1),
               f"compute_ssim(accuracy='relaxed') {name}: launches {counts}")
         pp, _ = twin(a, b, False, relaxed=True)
         g_twin = scores(pp, a.shape[-1] * a.shape[-2])
@@ -2442,7 +2477,7 @@ def phase_relaxed_path(gen, inputs):
               f"{by_call[f'compute_ssim {name}']}, scores {s} (twin "
               f"{float(np.abs(s - g_twin).max()):.3g} apart)", flush=True)
         del pp
-    del big
+    del big  # kept in inputs for 10c
 
     # Training: two Adam steps on ssim_loss(accuracy="relaxed").
     shape = (4, 1080, 1920)
@@ -2469,7 +2504,7 @@ def phase_relaxed_path(gen, inputs):
 
     losses, counts = counted("ssim_loss step", lambda: train(
         lambda x: ssim_tpu_torch.ssim_loss(x, clean, accuracy="relaxed")))
-    check(counts == counts_of(relaxed=3, backward_relaxed=2),
+    check(counts == counts_of(relaxed=3, backward_relaxed=2, stream=3),
           f"2 relaxed ssim_loss steps (and the final loss) launched {counts}")
     print(f"  2 Adam steps on ssim_loss(accuracy=\"relaxed\") {shape}: 1-SSIM {losses}; "
           f"launches {by_call['ssim_loss step']}", flush=True)
@@ -2492,7 +2527,9 @@ def phase_relaxed_path(gen, inputs):
           f"2 relaxed MS-SSIM steps (and the final loss) launched {counts}")
     print(f"  2 Adam steps on 1 - ms_ssim(accuracy=\"relaxed\") {shape}: {losses}; "
           f"launches {by_call['ms_ssim step']}", flush=True)
-    return fwd, bwd, by_call
+    check(streamed == 6, f"{streamed} of the public path's relaxed launches streamed, "
+          f"expected the 6 kScore / kMap ones")
+    return fwd, bwd, streamed, by_call
 
 
 def phase_relaxed_times(gen, label, inputs):
@@ -2504,16 +2541,25 @@ def phase_relaxed_times(gen, label, inputs):
     print("phase 10c: times, relaxed beside standard", flush=True)
     fw = lambda **kw: (lambda a, b, relaxed: ssim_cuda.ssim_parts_cuda(
         a, b, relaxed=relaxed, **kw))
+    map_bytes = lambda shape: 4 * shape[0] * shape[1] * shape[2]
     cases = [
         ("kScore 4k_b4", inputs["4k_b4"], fw(), False, relaxed_fwd_bound((4, 2160, 3840), 1)),
         ("kMap 4k_b4", inputs["4k_b4"], fw(with_map=True), True,
-         relaxed_fwd_bound((4, 2160, 3840), 1, out_bytes=4 * 4 * 2160 * 3840)),
+         relaxed_fwd_bound((4, 2160, 3840), 1, out_bytes=map_bytes((4, 2160, 3840)))),
         ("kScore 1080p_b4", inputs["1080p_b4"], fw(), False,
          relaxed_fwd_bound((4, 1080, 1920), 1)),
+        ("kMap 1080p_b4", inputs["1080p_b4"], fw(with_map=True), True,
+         relaxed_fwd_bound((4, 1080, 1920), 1, out_bytes=map_bytes((4, 1080, 1920)))),
+        ("kScore 16k_b1", inputs["16k_b1"], fw(), False,
+         relaxed_fwd_bound((1, 8640, 15360), 1)),
+        ("kMap 16k_b1", inputs["16k_b1"], fw(with_map=True), True,
+         relaxed_fwd_bound((1, 8640, 15360), 1, out_bytes=map_bytes((1, 8640, 15360)))),
         ("kScore 1080p_b4 f32", inputs["1080p_b4_f32"], fw(allow_float=True, data_range=1.0),
          False, relaxed_fwd_bound((4, 1080, 1920), 4)),
         ("kScore wide_b1 (K2)", inputs["wide_b1"], fw(), False,
          relaxed_fwd_bound((1, 1024, 20480), 1)),
+        ("kMap wide_b1 (K2)", inputs["wide_b1"], fw(with_map=True), True,
+         relaxed_fwd_bound((1, 1024, 20480), 1, out_bytes=map_bytes((1, 1024, 20480)))),
         ("kComponents f32 1080p_b4", inputs["components"],
          lambda a, b, relaxed: ssim_cuda.ssim_components_cuda(
              a, b, data_range=1.0, relaxed=relaxed), None,
@@ -2574,12 +2620,12 @@ def phase_relaxed_times(gen, label, inputs):
 
 def phase_relaxed(gen, label):
     err_fwd, err_bwd, d_std, inputs = phase_relaxed_kernels(gen)
-    fwd, bwd, by_call = phase_relaxed_path(gen, inputs)
+    fwd, bwd, streamed, by_call = phase_relaxed_path(gen, inputs)
     times = phase_relaxed_times(gen, label, inputs)
     del inputs
     torch.cuda.empty_cache()
     return dict(err_fwd=err_fwd, err_bwd=err_bwd, d_std=d_std, launches_fwd=fwd,
-                launches_bwd=bwd, by_call=by_call, times=times)
+                launches_bwd=bwd, launches_stream=streamed, by_call=by_call, times=times)
 
 
 # Phase 11: the edge-pad-and-align kernel (K4, csrc/pad.cu). It moves
@@ -3052,11 +3098,12 @@ def main():
         "name": "ssim_fwd_relaxed",
         "route": "cuda",
         "source": "ssim_tpu_torch/csrc/ssim_fwd.cu",
-        "design": TILE_DESIGN,
+        "design": RELAXED_STREAM_DESIGN,
         "header": "ssim_tpu_torch/csrc/band_mma.cuh",
         "replaces": "ssim_tpu/ops/ssim_pallas.py:118, ssim_tpu/ops/ssim_pallas.py:168 "
                     "(K1 mode h, mxu3x), ssim_tpu/ops/ssim_pallas.py:1409 (K2 relaxed)",
         "launches": relaxed["launches_fwd"],
+        "launches_stream": relaxed["launches_stream"],
         "launches_by_call": relaxed["by_call"],
         "max_abs_err": relaxed["err_fwd"],
         **{k: relaxed["times"]["kScore 4k_b4"][k]

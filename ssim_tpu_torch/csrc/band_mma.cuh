@@ -20,14 +20,19 @@
 // r = 8, 3 up to r = 16); the next tile starts one k-step later, so a
 // sweep loads and splits each k-step of data once and keeps it in
 // registers for the tiles that read it. The data comes from the caller's
-// f32 planes in shared memory and is split in registers as it is loaded,
-// so the relaxed modes use no shared memory beyond the standard modes'
-// (and keep their blocks per SM); the caller's loader zeroes inputs past
-// the valid ones (a NaN or inf there, times a zero of the band, would
-// poison the sum) and clamps lines past the valid ones, whose outputs it
-// drops. The mma adds in another order than a chain of IEEE f32 adds, so
-// the kernels are held against their PyTorch twins (band_bf16x3_plain in
-// ops/ssim_cuda.py) at a stated tolerance, not bit for bit.
+// f32 values in shared memory, two adjacent inputs of a line at a time,
+// and is split in registers as it is loaded, so the tile kernels use no
+// shared memory beyond their standard modes' (and keep their blocks per
+// SM); the caller's loader zeroes inputs past the valid ones (a NaN or inf
+// there, times a zero of the band, would poison the sum) and clamps lines
+// past the valid ones, whose outputs it drops. The band's fragments are
+// made from the taps at the sweep's start, or once per block by a caller
+// that keeps them (the forward's streaming kernel, in shared memory). The
+// mma adds in another order than a chain of IEEE f32 adds, so the kernels
+// are held against their PyTorch twins (band_bf16x3_plain in
+// ops/ssim_cuda.py) at a stated tolerance, not bit for bit. A host build
+// (tests/fwd_stream_emu) defines BAND_MMA_HOST_MODEL and supplies its own
+// model of mma, the one PTX instruction here.
 
 #pragma once
 
@@ -38,7 +43,7 @@ namespace band_mma {
 
 // k-steps of 16 inputs feeding a tile of 16 outputs at radius r: 2 up to
 // r = 8, 3 up to r = 16 (the kernels' largest radius).
-__host__ __device__ inline int ksteps(int r) { return (16 + 2 * r + 15) / 16; }
+__host__ __device__ constexpr int ksteps(int r) { return (16 + 2 * r + 15) / 16; }
 
 // x0, x1 into packed bf16x2 hi = bf16(x) and lo = bf16(x - hi), both
 // rounded to nearest even (as torch's .to(torch.bfloat16)); x0 in the low
@@ -54,6 +59,9 @@ __device__ __forceinline__ void split2(float x0, float x1, uint32_t& hi,
 
 // d += a * b for one m16n8k16 tile: a 4 registers (16 x 16 bf16, row major),
 // b 2 registers (16 x 8 bf16, column major), d 16 x 8 f32.
+#ifdef BAND_MMA_HOST_MODEL
+void mma(float (&d)[4], const uint32_t (&a)[4], uint32_t b0, uint32_t b1);
+#else
 __device__ __forceinline__ void mma(float (&d)[4], const uint32_t (&a)[4],
                                     uint32_t b0, uint32_t b1) {
   asm volatile(
@@ -62,6 +70,7 @@ __device__ __forceinline__ void mma(float (&d)[4], const uint32_t (&a)[4],
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
+#endif
 
 // The band's A fragments, hi and lo, per k-step: A[m][16 ks + k] =
 // taps[16 ks + k - m] (zero outside 0..2r) for the 16 outputs m of a tile
@@ -92,32 +101,31 @@ __device__ __forceinline__ Band<NKS> make_band(const float* taps, int r) {
   return bd;
 }
 
-// One warp's sweep along a pass at radius r (NKS = ksteps(r), a template
-// parameter so that each kernel holds the registers of one sweep only):
-// output tiles T in [t0, t1) of 16 outputs along it (out[16 T + m] =
-// sum_j taps[j] in[16 T + m + j]) for one strip of 8 lines across it, P
-// planes at once. Tile T reads the k-steps of 16 inputs T .. T + NKS - 1,
-// so each k-step's B fragments (the data, split in registers) are loaded
-// once and kept for the NKS tiles that read them; the band's fragments
-// are made from the taps (in shared memory) at the sweep's start and live
-// only during it. load(i, v) fills v[0..P) with the planes' inputs at
-// index i along the pass on this thread's line g of the strip; store(T,
-// acc) takes the tile's fragments, whose element e is output
-// 16 T + g + 8 (e >> 1) along the pass on line 2t + (e & 1) of the strip.
-template <int P, int NKS, typename Load, typename Store>
-__device__ __forceinline__ void sweep(const float* taps, int r, int t0, int t1,
-                                      Load&& load, Store&& store) {
+// One warp's sweep along a pass (NKS = ksteps(r), a template parameter so
+// that each kernel holds the registers of one sweep only): output tiles T
+// in [t0, t1) of 16 outputs along it (out[16 T + m] = sum_j taps[j]
+// in[16 T + m + j]) for one strip of 8 lines across it, P planes at once,
+// with the band's fragments bd. Tile T reads the k-steps of 16 inputs
+// T .. T + NKS - 1, so each k-step's B fragments (the data, split in
+// registers) are loaded once and kept for the NKS tiles that read them.
+// load2(i, v) fills v[0][0..P) and v[1][0..P) with the planes' inputs at
+// indices i and i + 1 (i even) along the pass on this thread's line g of
+// the strip; store(T, acc) takes the tile's fragments, whose element e is
+// output 16 T + g + 8 (e >> 1) along the pass on line 2t + (e & 1) of the
+// strip.
+template <int P, int NKS, typename Load2, typename Store>
+__device__ __forceinline__ void sweep(const Band<NKS>& bd, int t0, int t1,
+                                      Load2&& load2, Store&& store) {
   const int t = threadIdx.x & 3;
-  const Band<NKS> bd = make_band<NKS>(taps, r);
   uint32_t win[NKS][P][4];  // [k-step][plane][b0 hi, b1 hi, b0 lo, b1 lo]
   auto fetch = [&](uint32_t(&w)[P][4], int j) {
-    float v[4][P];
-#pragma unroll
-    for (int e = 0; e < 4; ++e) load(16 * j + 2 * t + (e & 1) + 8 * (e >> 1), v[e]);
+    float lo[2][P], hi[2][P];  // inputs 2t, 2t + 1 and 2t + 8, 2t + 9
+    load2(16 * j + 2 * t, lo);
+    load2(16 * j + 2 * t + 8, hi);
 #pragma unroll
     for (int p = 0; p < P; ++p) {
-      split2(v[0][p], v[1][p], w[p][0], w[p][2]);
-      split2(v[2][p], v[3][p], w[p][1], w[p][3]);
+      split2(lo[0][p], lo[1][p], w[p][0], w[p][2]);
+      split2(hi[0][p], hi[1][p], w[p][1], w[p][3]);
     }
   };
 #pragma unroll
@@ -145,6 +153,21 @@ __device__ __forceinline__ void sweep(const float* taps, int r, int t0, int t1,
       }
     }
   }
+}
+
+// The same sweep with the band made from the taps (in shared memory) at its
+// start, living only during it, and the data loaded one input at a time:
+// load(i, v) fills v[0..P) with the planes' inputs at index i.
+template <int P, int NKS, typename Load, typename Store>
+__device__ __forceinline__ void sweep(const float* taps, int r, int t0, int t1,
+                                      Load&& load, Store&& store) {
+  sweep<P, NKS>(
+      make_band<NKS>(taps, r), t0, t1,
+      [&](int i, float(&v)[2][P]) {
+        load(i, v[0]);
+        load(i + 1, v[1]);
+      },
+      store);
 }
 
 // Warp jobs of a pass: `lines` lines across it in strips of 8, each strip's

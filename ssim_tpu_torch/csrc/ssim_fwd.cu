@@ -94,19 +94,18 @@
 //   are the standard modes'. The wrapper launches it at W >= 512 (and
 //   always on the batch route), the JAX gate. The TPU's per-chunk
 //   clamp-folded tap matrices (packed_chunk_matrices) are lane machinery:
-//   the halo tile already holds the clamped columns, so one band serves
-//   every tile. What bounds it: per pixel the standard modes' f32 work
-//   less the heavy passes' 6r + 4 operations, plus 3 (2r + 1)
-//   multiply-adds per split blur at the bf16 tensor-core rate (counted in
-//   chip_smoke.py); in practice, as in the standard modes, the blurs'
-//   shared-memory traffic and instruction slots. The design adds no shared
-//   memory (the split is made in registers as each k-step of data is
-//   loaded, once per sweep, which keeps the standard modes' three blocks
-//   per SM) and keeps every relaxed line behind `if constexpr`, so the
-//   standard instantiations compile as before. The relaxed mu pass loads
-//   as many shared-memory values as the standard modes' four-signal pass,
-//   so the relaxed modes read a few percent slower than the standard ones
-//   (PERF.md): making the mu pass load less is later work.
+//   the clamped columns are staged, so one band serves every tile. What
+//   bounds it: per pixel the standard modes' f32 work less the heavy
+//   passes' 6r + 4 operations, plus 3 (2r + 1) multiply-adds per split blur
+//   at the bf16 tensor-core rate (counted in chip_smoke.py). kScore and
+//   kMap at radius 5 stream rows (ssim_fwd_stream_kernel, below); the
+//   other relaxed modes, radii and tiles run the tile body, which makes
+//   the split in registers as each k-step of data is loaded, once per
+//   sweep, and so adds no shared memory (three blocks per SM, as the
+//   standard modes), and whose relaxed mu pass loads as many shared-memory
+//   values as the standard four-signal pass. Every relaxed line is behind
+//   `if constexpr`, so the standard and precise instantiations compile to
+//   the same SASS as without them.
 // - Halo operands (K1g, ssim_pallas.py:884-958; the row modes take them,
 //   the modes JAX offers them to; the other modes compile without them):
 //   the inputs are a row band of a taller image, and virtual rows [-r, 0)
@@ -153,11 +152,12 @@
 //
 // The main-path modes stream rows instead (ssim_fwd_stream_kernel):
 // kScore, kMap, kRowsum and kRowsumMap (with or without halo operands) in
-// f32, and kPrecise and kPreciseMap in fp64 (the same body with the blurs'
-// type Blur<kMode>), at radius kStreamR = 5 (windows.RADIUS, every
-// main-path shape) and tiles up to kStripW columns wide; every other mode
-// (components, pooled, both batch modes), radius and tile keeps the tile
-// body (ops/ssim_cuda.py::stream_applies states the rule). A block owns a
+// f32, kPrecise and kPreciseMap in fp64 (the same body with the blurs'
+// type Blur<kMode>), and relaxed kScore and kMap (kSplit > 0, below), at
+// radius kStreamR = 5 (windows.RADIUS, every main-path shape) and tiles up
+// to kStripW columns wide; every other mode (components, pooled, both
+// batch modes, relaxed or not), radius and tile keeps the tile body
+// (ops/ssim_cuda.py::stream_applies states the rule). A block owns a
 // strip of kStripW output columns and walks down a segment of S output rows
 // (a multiple of TH, at most kMaxSegTiles tiles, chosen by the wrapper to
 // fill the card), one input row per step, one thread per output column.
@@ -196,7 +196,21 @@
 // bytes of shared-memory traffic (192 for the staged planes, 96 for the
 // ring, the staging stores and the shuffle; 2.7 clocks at 128 bytes a
 // clock), at 4 blocks per SM, which the window's registers bound (PERF.md
-// lists the windows and passes measured). A non-finite own
+// lists the windows and passes measured). The relaxed modes: step (b)
+// blurs only a and b across (the f32 symmetric pass of two signals from a
+// staged {a, b} row, 11 8-byte loads a pixel), and the window holds mu_a
+// and mu_b in registers; the heavy blurs of (a+b)^2 and (a-b)^2 are
+// computed ahead, every other step for the next two rows, each row and
+// plane by one warp as a bf16x3 band product whose 8 lines are the strip's
+// 8 column tiles of 16 (12 mma.sync a row), into a shared-memory ring of
+// 2 (2r + 1) blurred rows that the vertical pass reads at static offsets.
+// What bounds it: the mma. Measured on an H100, the mma a warp issues in a
+// step hold its block at the step's barrier, in proportion to their number
+// rather than to the chains' depth; so the 24 mma of two steps' rows go to
+// all four warps at once, and a block stages rows three ahead
+// (29.1 KB of shared memory, 7 blocks per SM, 72 registers: a window of
+// all four signals in registers beside the mma's fragments spilled most
+// of it to local memory at 8 blocks, PERF.md). A non-finite own
 // pixel poisons its TH x TW tile: the tile's map rows are overwritten with
 // NaN after its last row and its partial or row pieces are NaN, as in the
 // tile body. Row pieces are formed as the tile body forms them (each
@@ -697,9 +711,31 @@ constexpr int kStreamInW = kStripW + 2 * kStreamR;  // staged columns
 constexpr int kStreamBlocks = 8;
 constexpr int kStreamPreciseBlocks = 4;
 constexpr int kStreamPreciseRing = 1;
+// The relaxed modes (kSplit = band_mma::ksteps(kStreamR)): the heavy
+// horizontal blurs of a row as band products whose 8 lines are the strip's
+// 8 column tiles of 16 (kStripW / 16 == 8), one plane by one warp; every
+// other step the block's four warps blur the next two rows, so that no warp
+// issues more than one plane's 6 mma in a step (measured on an H100: the
+// mma cost grows with the number a warp issues in a step, whatever the
+// chains' depth); the window keeps mu_a and mu_b in registers and reads
+// (a+b)^2 and (a-b)^2 from a ring of kStreamRing blurred rows in shared
+// memory (row q in slot q mod kStreamRing: twice the window's rows, so that
+// with s = kP m + k each row's slot is k's and m's parity's). Shared memory:
+// kStreamStaged staged {a, b} rows (one past the staged columns is read, as
+// a product with a zero of the band, from the next row or the ring, all
+// finite), the ring's two planes, the band's fragments and the taps, 29.1 KB
+// a block: 7 blocks on an SM (1 KB reserved each), 72 registers, no spills.
+constexpr int kStreamSplit = band_mma::ksteps(kStreamR);
+constexpr int kStreamRelaxedBlocks = 7;
+constexpr int kStreamStaged = 4;
+constexpr int kStreamRing = 2 * (2 * kStreamR + 1);
+static_assert(kStripW == 16 * 8, "the row's band product takes 8 tiles of 16 columns");
+static_assert((kStreamStaged & (kStreamStaged - 1)) == 0, "a power of two");
 
-template <int kMode>
-constexpr int kStreamBlocksOf = kIsPrecise<kMode> ? kStreamPreciseBlocks : kStreamBlocks;
+template <int kMode, int kSplit = 0>
+constexpr int kStreamBlocksOf = kSplit > 0              ? kStreamRelaxedBlocks
+                                : kIsPrecise<kMode> ? kStreamPreciseBlocks
+                                                        : kStreamBlocks;
 template <int kMode>
 constexpr int kStreamRingOf = kIsPrecise<kMode> ? kStreamPreciseRing : 0;
 
@@ -807,6 +843,71 @@ __device__ __forceinline__ void sym2x2(const StreamTaps<double>& tp, const doubl
   o1.y = o1.y + tc * w[r + 1].y;
 }
 
+// sym4's sums of the two signals {a, b} of one column of the relaxed modes'
+// staged rows: v points at the centre.
+__device__ __forceinline__ void sym2(const StreamTaps<float>& tp, const float2* v,
+                                     float (&acc)[2]) {
+  constexpr int r = kStreamR;
+  {
+    const float t = tp.t[0];
+    const float2 lo = v[-r], hi = v[r];
+    acc[0] = t * (lo.x + hi.x);
+    acc[1] = t * (lo.y + hi.y);
+  }
+#pragma unroll
+  for (int d = r - 1; d >= 1; --d) {
+    const float t = tp.t[r - d];
+    const float2 lo = v[-d], hi = v[d];
+    acc[0] += t * (lo.x + hi.x);
+    acc[1] += t * (lo.y + hi.y);
+  }
+  const float tc = tp.t[r];
+  const float2 ce = v[0];
+  acc[0] = acc[0] + tc * ce.x;
+  acc[1] = acc[1] + tc * ce.y;
+}
+
+// The ring's column of output column c: c with bits 3-4 XORed by its warp
+// (c / 32 mod 4), so that row_pass's stores (8 columns on each of 4 tiles
+// 32 apart) and a warp's reads of its 32 columns are conflict-free.
+__device__ __forceinline__ int ring_col(int c) { return c ^ (8 * ((c >> 5) & 3)); }
+
+// One of the relaxed modes' heavy horizontal blurs of one staged row
+// (kStreamInW {a, b} columns at row) by one warp: band_mma::sweep over one
+// tile of 16 outputs with its 8 lines the strip's 8 tiles (line g reads
+// staged columns 16 g + i, all inside the row or one past it), of (a+b)^2
+// (plane 0) or (a-b)^2 (plane 1), formed as the columns are loaded; the
+// blur of output column c to out[ring_col(c)].
+template <int kSplit>
+__device__ __forceinline__ void row_pass(const float2* row, float* out, int plane,
+                                         const uint4* s_band) {
+  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+  band_mma::Band<kSplit> bd;
+#pragma unroll
+  for (int ks = 0; ks < kSplit; ++ks) {
+    const uint4 h = s_band[ks * 32 + lane], l = s_band[(kSplit + ks) * 32 + lane];
+    bd.hi[ks][0] = h.x, bd.hi[ks][1] = h.y, bd.hi[ks][2] = h.z, bd.hi[ks][3] = h.w;
+    bd.lo[ks][0] = l.x, bd.lo[ks][1] = l.y, bd.lo[ks][2] = l.z, bd.lo[ks][3] = l.w;
+  }
+  const float2* line = row + 16 * g;
+  band_mma::sweep<1>(
+      bd, 0, 1,
+      [&](int i, float(&v)[2][1]) {
+        // Columns i and i + 1 of the line: {a, b} each, one 16-byte load.
+        const float4 q = *reinterpret_cast<const float4*>(line + i);
+        const float x0 = plane ? q.x - q.y : q.x + q.y;
+        const float x1 = plane ? q.z - q.w : q.z + q.w;
+        v[0][0] = x0 * x0;
+        v[1][0] = x1 * x1;
+      },
+      [&](int, const float(&acc)[1][4]) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          out[ring_col(16 * (2 * t + (e & 1)) + g + 8 * (e >> 1))] = acc[0][e];
+        }
+      });
+}
+
 // The sum of v over a warp's lanes, in lane 0: shuffles down by 16 .. 1.
 template <typename P>
 __device__ __forceinline__ P warp_sum(P v) {
@@ -830,14 +931,15 @@ __device__ __forceinline__ P ssim_of(const P (&m)[4], P c1, P c2) {
   return num / den;
 }
 
-// kScore / kMap: partials (B, nty * ntx) f32 as the tile body writes them;
-// kPrecise / kPreciseMap: the same in f64, the blurs, formula and sums in
-// fp64 (Blur<kMode>); kRowsum / kRowsumMap: pieces (B, ntx, H) f32, each
-// tile's piece of each of its rows, for rowsum_reduce_kernel. TH x TW: the
-// tile (TW a power of two in [32, kStripW]); S: the segment's rows (a
-// multiple of TH, at most kMaxSegTiles tiles).
-template <typename T, int kMode>
-__global__ void __launch_bounds__(kStreamThreads, kStreamBlocksOf<kMode>)
+// kScore / kMap: partials (B, nty * ntx) f32 as the tile body writes them
+// (kSplit > 0: the relaxed modes, kSplit = kStreamSplit); kPrecise /
+// kPreciseMap: the same in f64, the blurs, formula and sums in fp64
+// (Blur<kMode>); kRowsum / kRowsumMap: pieces (B, ntx, H) f32, each tile's
+// piece of each of its rows, for rowsum_reduce_kernel. TH x TW: the tile (TW
+// a power of two in [32, kStripW]); S: the segment's rows (a multiple of TH,
+// at most kMaxSegTiles tiles).
+template <typename T, int kMode, int kSplit = 0>
+__global__ void __launch_bounds__(kStreamThreads, kStreamBlocksOf<kMode, kSplit>)
 ssim_fwd_stream_kernel(const T* __restrict__ a, const T* __restrict__ b,
                        Blur<kMode>* __restrict__ partials, float* __restrict__ map,
                        float* __restrict__ pieces, Halo<T> halo, int H, int W,
@@ -854,21 +956,61 @@ ssim_fwd_stream_kernel(const T* __restrict__ a, const T* __restrict__ b,
   constexpr bool kWithMap = kMode == kMap || kMode == kRowsumMap || kMode == kPreciseMap;
   constexpr bool kRows = kMode == kRowsum || kMode == kRowsumMap;
   constexpr int kRing = kStreamRingOf<kMode>;  // signals in the shared ring
-  constexpr int kRegS = 4 - kRing;             // signals in registers
-  static_assert(kMode == kScore || kMode == kMap || kRows || kMode == kPrecise ||
-                    kMode == kPreciseMap,
-                "main-path and precise modes only");
+  constexpr bool kRelaxed = kSplit > 0;
+  // Signals in registers (relaxed: mu_a and mu_b; the other two are read
+  // from the blurred rows' ring).
+  constexpr int kRegS = kRelaxed ? 2 : 4 - kRing;
+  // Rows staged ahead of the step that blurs them.
+  constexpr int kLead = kRelaxed ? 3 : 1;
+  static_assert(kMode == kScore || kMode == kMap ||
+                    (!kRelaxed && (kRows || kMode == kPrecise || kMode == kPreciseMap)),
+                "main-path and precise modes only; relaxed: kScore and kMap");
+  static_assert(!kRelaxed || kSplit == kStreamSplit, "the band's k-steps at kStreamR");
 
   __shared__ StagedRow<P> s_in[2];          // staged rows, by step parity
   __shared__ P s_red[2][kNT / 32];          // warp sums, by step parity
   __shared__ unsigned s_bad[kMaxSegTiles];  // bit per tile column, word per tile row
   // The window's ring: slot k, signal kRegS + p, this thread's column.
   __shared__ P s_ring[kRing > 0 ? kRing * kP * kNT : 1];
+  // Relaxed (instead of s_in): staged row q in slot q mod kStreamStaged of
+  // s_ab, followed by the ring, s_hres: the horizontal blurs of (a+b)^2,
+  // then of (a-b)^2, of row q in slot q mod kStreamRing, kStripW columns
+  // (ring_col) a slot; the band's fragments, per lane (hi then lo, one
+  // uint4 per k-step); the taps, for make_band.
+  constexpr int kAbFloats = 2 * kStreamStaged * kStreamInW;
+  constexpr int kRingFloats = 2 * kStreamRing * kStripW;
+  __shared__ __align__(16) float s_rel[kRelaxed ? kAbFloats + kRingFloats : 1];
+  [[maybe_unused]] float2* s_ab = reinterpret_cast<float2*>(s_rel);
+  [[maybe_unused]] float* s_hres = s_rel + kAbFloats;
+  __shared__ uint4 s_band[kRelaxed ? 2 * kSplit * 32 : 1];
+  __shared__ float s_taps[kRelaxed ? kP : 1];
 
   const int tid = threadIdx.x;
   if (tid < kMaxSegTiles) s_bad[tid] = 0u;
+  if constexpr (kRelaxed) {
+    // Zeros in the columns no row is staged to and in the ring, which
+    // row_pass reads past a row's staged columns (times zeros of the band:
+    // they must be finite).
+    for (int i = tid; i < kAbFloats + kRingFloats; i += kNT) s_rel[i] = 0.0f;
+    if (tid == 0) {
+#pragma unroll
+      for (int k = 0; k < kP; ++k) s_taps[k] = tp.t[k];
+    }
+  }
   // Before the prologue's stage(0), which may mark tiles in s_bad.
   __syncthreads();
+  if constexpr (kRelaxed) {
+    if (tid < 32) {
+      const band_mma::Band<kSplit> bd = band_mma::make_band<kSplit>(s_taps, r);
+#pragma unroll
+      for (int ks = 0; ks < kSplit; ++ks) {
+        s_band[ks * 32 + tid] = make_uint4(bd.hi[ks][0], bd.hi[ks][1], bd.hi[ks][2],
+                                           bd.hi[ks][3]);
+        s_band[(kSplit + ks) * 32 + tid] = make_uint4(bd.lo[ks][0], bd.lo[ks][1],
+                                                      bd.lo[ks][2], bd.lo[ks][3]);
+      }
+    }
+  }
 
   int blk = blockIdx.x;
   const int strip = blk % nstrip;
@@ -939,7 +1081,11 @@ ssim_fwd_stream_kernel(const T* __restrict__ a, const T* __restrict__ b,
           va = sanitize(va, clip_bound);
           vb = sanitize(vb, clip_bound);
         }
-        s_in[q & 1].put(j, va, vb);
+        if constexpr (kRelaxed) {
+          s_ab[(q & (kStreamStaged - 1)) * kStreamInW + j] = make_float2(va, vb);
+        } else {
+          s_in[q & 1].put(j, va, vb);
+        }
       }
     }
   };
@@ -1002,17 +1148,57 @@ ssim_fwd_stream_kernel(const T* __restrict__ a, const T* __restrict__ b,
     pend_end = -1;
   };
 
-  // Prologue: stream row 0 staged, row 1 loading.
+  // Prologue: stream rows 0 .. kLead - 1 staged, row kLead loading (n >=
+  // 2r + 1 rows).
   fetch(0);
   stage(0);
-  if (n > 1) fetch(1);
+  if constexpr (kRelaxed) {
+#pragma unroll
+    for (int q = 1; q < kLead; ++q) {
+      fetch(q);
+      stage(q);
+    }
+  }
+  if (n > kLead) fetch(kLead);
   __syncthreads();
+  if constexpr (kRelaxed) {
+    // Row 0's heavy blurs, warp p plane p; each even step s then blurs rows
+    // s + 1 and s + 2.
+    if (tid < 64) {
+      const int plane = tid >> 5;
+      row_pass<kSplit>(s_ab, s_hres + plane * kStreamRing * kStripW, plane, s_band);
+    }
+    __syncthreads();
+  }
 
   for (int s0 = 0; s0 < n; s0 += kP) {
+    // Relaxed: the ring's slots of rows s0 + d, d >= 0 in hr0 + d, d < 0 in
+    // hr1 + d (kStripW floats a slot, this thread's column).
+    [[maybe_unused]] const float* hr0 = nullptr;
+    [[maybe_unused]] const float* hr1 = nullptr;
+    if constexpr (kRelaxed) {
+      const int par = (s0 / kP) & 1;
+      hr0 = s_hres + (par ? kP : 0) * kStripW + ring_col(tid);
+      hr1 = s_hres + (par ? kP : 2 * kP) * kStripW + ring_col(tid);
+    }
 #pragma unroll
     for (int k = 0; k < kP; ++k) {
       const int s = s0 + k;
       if (s < n) {
+        if constexpr (kRelaxed) {
+          // Even steps: rows s + 1 and s + 2's heavy blurs into their ring
+          // slots, row s + 1 + w / 2's plane w % 2 by warp w. Both rows were
+          // staged before the last barrier; steps from s + 1 read them, and
+          // each slot's last reader was step s - 2r or earlier.
+          if ((s & 1) == 0) {
+            const int q = s + 1 + (tid >> 6), plane = (tid >> 5) & 1;
+            if (q < n) {
+              row_pass<kSplit>(s_ab + (q & (kStreamStaged - 1)) * kStreamInW,
+                               s_hres + (plane * kStreamRing + q % kStreamRing) * kStripW,
+                               plane, s_band);
+            }
+          }
+        }
         // (a) The warp sums of the step before.
         combine(s);
 
@@ -1037,11 +1223,20 @@ ssim_fwd_stream_kernel(const T* __restrict__ a, const T* __restrict__ b,
             win_put(3, k, sd.y);
           }
         } else if (col_on) {
-          const StagedRow<P>& row = s_in[s & 1];
-          P h[4];
-          sym4(tp, [&](int i) { return row.get(tid + r + i); }, h);
+          if constexpr (kRelaxed) {
+            // mu_a, mu_b by the f32 symmetric pass ((a+b)^2 and (a-b)^2:
+            // row_pass, in the ring).
+            float h[2];
+            sym2(tp, s_ab + (s & (kStreamStaged - 1)) * kStreamInW + tid + r, h);
+            win_put(0, k, h[0]);
+            win_put(1, k, h[1]);
+          } else {
+            const StagedRow<P>& row = s_in[s & 1];
+            P h[4];
+            sym4(tp, [&](int i) { return row.get(tid + r + i); }, h);
 #pragma unroll
-          for (int p = 0; p < 4; ++p) win_put(p, k, h[p]);
+            for (int p = 0; p < 4; ++p) win_put(p, k, h[p]);
+          }
         }
 
         // (c) Output row ly = s - 2r from stream rows s - 2r .. s (ages 2r
@@ -1051,13 +1246,25 @@ ssim_fwd_stream_kernel(const T* __restrict__ a, const T* __restrict__ b,
           P v = 0;
           if (col_on) {
             P m[4];
-            sym4(tp,
-                 [&](int i) {
-                   const int sl = (k - r + i + 2 * kP) % kP;
-                   return Vec4<P>{win_get(0, sl), win_get(1, sl), win_get(2, sl),
-                                  win_get(3, sl)};
-                 },
-                 m);
+            if constexpr (kRelaxed) {
+              sym4(tp,
+                   [&](int i) {
+                     const int sl = (k - r + i + 2 * kP) % kP;
+                     const int d = k - r + i;  // row s0 + d
+                     const float* h = (d >= 0 ? hr0 : hr1) + d * kStripW;
+                     return Vec4<P>{win_get(0, sl), win_get(1, sl), h[0],
+                                    h[kStreamRing * kStripW]};
+                   },
+                   m);
+            } else {
+              sym4(tp,
+                   [&](int i) {
+                     const int sl = (k - r + i + 2 * kP) % kP;
+                     return Vec4<P>{win_get(0, sl), win_get(1, sl), win_get(2, sl),
+                                    win_get(3, sl)};
+                   },
+                   m);
+            }
             v = ssim_of(m, c1, c2);
             if (kWithMap) {
               map[base + (size_t)(y0 + ly) * (size_t)W + (size_t)(x0 + tid)] = (float)v;
@@ -1094,11 +1301,11 @@ ssim_fwd_stream_kernel(const T* __restrict__ a, const T* __restrict__ b,
           }
         }
 
-        // (d) Stream row s + 1 staged from the registers loaded last step;
-        // row s + 2 loaded.
-        if (s + 1 < n) {
-          stage(s + 1);
-          if (s + 2 < n) fetch(s + 2);
+        // (d) Stream row s + kLead staged from the registers loaded last
+        // step; row s + kLead + 1 loaded.
+        if (s + kLead < n) {
+          stage(s + kLead);
+          if (s + (kLead + 1) < n) fetch(s + (kLead + 1));
         }
         __syncthreads();
       }
@@ -1107,7 +1314,7 @@ ssim_fwd_stream_kernel(const T* __restrict__ a, const T* __restrict__ b,
   combine(n);
 }
 
-template <typename T, int kMode>
+template <typename T, int kMode, int kSplit>
 cudaError_t launch_stream(const void* a, const void* b, void* partials,
                           void* map, void* scratch, const Halo<T>& halo, int B,
                           int H, int W, int TH, int TW, int S,
@@ -1125,7 +1332,7 @@ cudaError_t launch_stream(const void* a, const void* b, void* partials,
   const int nty = (H + TH - 1) / TH;
   const long long blocks = (long long)B * nseg * nstrip;
   if (blocks < 1 || blocks > 0x7fffffffLL) return cudaErrorInvalidConfiguration;
-  ssim_fwd_stream_kernel<T, kMode><<<(unsigned)blocks, kStreamThreads, 0, stream>>>(
+  ssim_fwd_stream_kernel<T, kMode, kSplit><<<(unsigned)blocks, kStreamThreads, 0, stream>>>(
       static_cast<const T*>(a), static_cast<const T*>(b), static_cast<P*>(partials),
       static_cast<float*>(map), static_cast<float*>(scratch), halo, H, W, TH, TW, S,
       nstrip, nseg, ntx, nty, tp, (P)c1, (P)c2, clip_bound);
@@ -1139,7 +1346,7 @@ cudaError_t launch_stream(const void* a, const void* b, void* partials,
   return cudaGetLastError();
 }
 
-template <int kMode>
+template <int kMode, int kSplit>
 cudaError_t launch_stream_typed(int is_float, const void* a, const void* b,
                                 void* partials, void* map, void* scratch,
                                 const void* const* halo, int is_top, int is_bot,
@@ -1148,20 +1355,20 @@ cudaError_t launch_stream_typed(int is_float, const void* a, const void* b,
                                 float clip_bound, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   return is_float
-             ? launch_stream<float, kMode>(a, b, partials, map, scratch,
+             ? launch_stream<float, kMode, kSplit>(a, b, partials, map, scratch,
                                            make_halo<float>(halo, is_top, is_bot),
                                            B, H, W, TH, TW, S, taps_host, c1,
                                            c2, clip_bound, s)
-             : launch_stream<uint8_t, kMode>(
+             : launch_stream<uint8_t, kMode, kSplit>(
                    a, b, partials, map, scratch,
                    make_halo<uint8_t>(halo, is_top, is_bot), B, H, W, TH, TW,
                    S, taps_host, c1, c2, clip_bound, s);
 }
 
-template <typename T, int kMode>
+template <typename T, int kMode, int kSplit>
 cudaError_t stream_occupancy(int* blocks_per_sm) {
   return cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      blocks_per_sm, ssim_fwd_stream_kernel<T, kMode>, kStreamThreads, 0);
+      blocks_per_sm, ssim_fwd_stream_kernel<T, kMode, kSplit>, kStreamThreads, 0);
 }
 
 template <typename T, int kMode, int kSplit>
@@ -1267,9 +1474,9 @@ cudaError_t launch_typed(int is_float, const void* a, const void* b,
 // the other modes round them to float). c1, c2:
 // the stabilising constants (rounded to float by the f32 modes). seg: 0
 // for the tile body, or the streaming kernel's segment rows (modes 0, 1, 4,
-// 5, 8 and 9, not relaxed, r = 5, TW in [32, 128], seg a multiple of TH of
-// at most 16 tiles; anything else is refused). Returns the launch's
-// cudaError_t.
+// 5, 8 and 9, relaxed only modes 0 and 1, r = 5, TW in [32, 128], seg a
+// multiple of TH of at most 16 tiles; anything else is refused). Returns the
+// launch's cudaError_t.
 extern "C" int ssim_fwd_launch(int mode, int relaxed, int is_float,
                                const void* a, const void* b, void* partials,
                                void* map,
@@ -1297,22 +1504,31 @@ extern "C" int ssim_fwd_launch(int mode, int relaxed, int is_float,
     return cudaErrorInvalidValue;
   }
   if (seg != 0) {
-    if (relaxed || r != kStreamR || TW < 32 || TW > kStripW || seg < TH ||
-        seg % TH != 0 || seg / TH > kMaxSegTiles || H < 1 || W < 1) {
+    if ((relaxed && mode != kScore && mode != kMap) || r != kStreamR || TW < 32 ||
+        TW > kStripW || seg < TH || seg % TH != 0 || seg / TH > kMaxSegTiles ||
+        H < 1 || W < 1) {
       return cudaErrorInvalidValue;
     }
-#define SSIM_FWD_STREAM(M)                                                   \
-  case M:                                                                    \
-    return launch_stream_typed<M>(is_float, a, b, partials, map, scratch,    \
-                                  halo, is_top, is_bot, B, H, W, TH, TW, seg, \
-                                  taps_host, c1, c2, clip_bound, stream);
+#define SSIM_FWD_STREAM(M, S)                                                   \
+  case M:                                                                       \
+    return launch_stream_typed<M, S>(is_float, a, b, partials, map, scratch,    \
+                                     halo, is_top, is_bot, B, H, W, TH, TW, seg, \
+                                     taps_host, c1, c2, clip_bound, stream);
+    if (relaxed) {
+      switch (mode) {
+        SSIM_FWD_STREAM(kScore, kStreamSplit)
+        SSIM_FWD_STREAM(kMap, kStreamSplit)
+        default:
+          return cudaErrorInvalidValue;
+      }
+    }
     switch (mode) {
-      SSIM_FWD_STREAM(kScore)
-      SSIM_FWD_STREAM(kMap)
-      SSIM_FWD_STREAM(kRowsum)
-      SSIM_FWD_STREAM(kRowsumMap)
-      SSIM_FWD_STREAM(kPrecise)
-      SSIM_FWD_STREAM(kPreciseMap)
+      SSIM_FWD_STREAM(kScore, 0)
+      SSIM_FWD_STREAM(kMap, 0)
+      SSIM_FWD_STREAM(kRowsum, 0)
+      SSIM_FWD_STREAM(kRowsumMap, 0)
+      SSIM_FWD_STREAM(kPrecise, 0)
+      SSIM_FWD_STREAM(kPreciseMap, 0)
       default:
         return cudaErrorInvalidValue;
     }
@@ -1356,21 +1572,31 @@ extern "C" int ssim_fwd_launch(int mode, int relaxed, int is_float,
 }
 
 // Blocks of the streaming kernel that one SM of the current device holds at
-// once in `mode` (0, 1, 4, 5, 8 or 9) for uint8 (is_float = 0) or float32 inputs:
-// the CUDA runtime's occupancy for the instantiation that ssim_fwd_launch
-// takes with seg > 0. Returns a cudaError_t.
-extern "C" int ssim_fwd_stream_occupancy(int mode, int is_float, int* blocks_per_sm) {
-#define SSIM_FWD_OCC(M)                                                   \
+// once in `mode` (0, 1, 4, 5, 8 or 9; relaxed = 1: 0 or 1) for uint8
+// (is_float = 0) or float32 inputs: the CUDA runtime's occupancy for the
+// instantiation that ssim_fwd_launch takes with seg > 0. Returns a
+// cudaError_t.
+extern "C" int ssim_fwd_stream_occupancy(int mode, int relaxed, int is_float,
+                                         int* blocks_per_sm) {
+#define SSIM_FWD_OCC(M, S)                                                \
   case M:                                                                 \
-    return is_float ? stream_occupancy<float, M>(blocks_per_sm)           \
-                    : stream_occupancy<uint8_t, M>(blocks_per_sm);
+    return is_float ? stream_occupancy<float, M, S>(blocks_per_sm)        \
+                    : stream_occupancy<uint8_t, M, S>(blocks_per_sm);
+  if (relaxed) {
+    switch (mode) {
+      SSIM_FWD_OCC(kScore, kStreamSplit)
+      SSIM_FWD_OCC(kMap, kStreamSplit)
+      default:
+        return cudaErrorInvalidValue;
+    }
+  }
   switch (mode) {
-    SSIM_FWD_OCC(kScore)
-    SSIM_FWD_OCC(kMap)
-    SSIM_FWD_OCC(kRowsum)
-    SSIM_FWD_OCC(kRowsumMap)
-    SSIM_FWD_OCC(kPrecise)
-    SSIM_FWD_OCC(kPreciseMap)
+    SSIM_FWD_OCC(kScore, 0)
+    SSIM_FWD_OCC(kMap, 0)
+    SSIM_FWD_OCC(kRowsum, 0)
+    SSIM_FWD_OCC(kRowsumMap, 0)
+    SSIM_FWD_OCC(kPrecise, 0)
+    SSIM_FWD_OCC(kPreciseMap, 0)
     default:
       return cudaErrorInvalidValue;
   }

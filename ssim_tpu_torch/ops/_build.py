@@ -146,8 +146,9 @@ def load_library() -> ctypes.CDLL:
                 i, i, i, i, i, p, d, d, f, p,
             ]
             lib.ssim_fwd_launch.restype = i
-            # mode, is_float, out: blocks per SM of the streaming forward.
-            lib.ssim_fwd_stream_occupancy.argtypes = [i, i, ctypes.POINTER(i)]
+            # mode, relaxed, is_float, out: blocks per SM of the streaming
+            # forward.
+            lib.ssim_fwd_stream_occupancy.argtypes = [i, i, i, ctypes.POINTER(i)]
             lib.ssim_fwd_stream_occupancy.restype = i
             # The backward entry takes the NaN tile (TH, TW) and the
             # standard kernel's segment rows S.

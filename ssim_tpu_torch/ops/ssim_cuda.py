@@ -36,13 +36,15 @@ and `_chunked_overlap_call`, in these of their modes:
   always on the batch route). The two heavy horizontal blurs, of
   (a+b)^2 and (a-b)^2, run as bf16x3 band products on the tensor cores;
   their twin is `band_bf16x3_plain`, the rest of each twin as it is.
+  The relaxed score and map modes stream rows like the standard ones.
 
 The kernel is `ssim_tpu_torch/csrc/ssim_fwd.cu`. Its partials and NaN
 poison follow one 2-D grid of TILE_H x TILE_W output tiles that covers
 every width, so the TPU's split at 16384 lanes and
 `pooled_components_ok`'s VMEM limits have no counterpart. The main-path
-modes (score, map, the row modes and the precise modes, at radius
-STREAM_RADIUS, tiles up to STRIP_W wide: `stream_applies`) run a
+modes (score, map, the row modes and the precise modes, and the relaxed
+score and map modes, at radius STREAM_RADIUS, tiles up to STRIP_W wide:
+`stream_applies`) run a
 row-streaming kernel, one CUDA block
 per strip of STRIP_W columns and segment of rows (`stream_segment` picks
 the segment's length to fill the card, `stream_blocks` lists the blocks);
@@ -116,11 +118,14 @@ STREAM_LAUNCHES = 0
 #: of at most MAX_SEG_TILES tiles' rows; its window radius is
 #: STREAM_RADIUS (windows.RADIUS) and it serves the modes STREAM_MODES:
 #: the standard tier's score, map and row modes in f32, and the precise
-#: tier's two modes in fp64 (the same body with double blurs).
+#: tier's two modes in fp64 (the same body with double blurs); relaxed, the
+#: modes STREAM_RELAXED_MODES (the heavy horizontal blurs as band products,
+#: a chunk of stream rows at a time).
 STRIP_W = 128
 MAX_SEG_TILES = 16
 STREAM_RADIUS = 5
 STREAM_MODES = ("score", "map", "rowsum", "rowsum_map", "precise", "precise_map")
+STREAM_RELAXED_MODES = ("score", "map")
 #: Rows' worth of fixed cost per block in stream_segment's model (launch,
 #: prologue and the NaN check).
 _BLOCK_OVERHEAD_ROWS = 8
@@ -224,13 +229,14 @@ def batch_geometry(batch: int, h: int, w: int):
 def stream_applies(mode: str, radius: int, tile_w: int, relaxed: bool = False) -> bool:
     """Whether a launch in `mode` runs the row-streaming kernel, else the
     tile body: the standard tier's score, map and row modes (with or
-    without halo operands) and the precise tier's score and map modes
-    (STREAM_MODES) at radius STREAM_RADIUS with a tile 32 to STRIP_W
-    columns wide. The components, pooled and both batch modes (their 8-64
-    wide batch tiles), every relaxed launch, the other radii and a tile_w
-    of 256 run the tile body."""
-    return (mode in STREAM_MODES and radius == STREAM_RADIUS
-            and 32 <= tile_w <= STRIP_W and not relaxed)
+    without halo operands), the precise tier's score and map modes
+    (STREAM_MODES) and the relaxed tier's score and map modes
+    (STREAM_RELAXED_MODES) at radius STREAM_RADIUS with a tile 32 to
+    STRIP_W columns wide. The components, pooled and both batch modes
+    (their 8-64 wide batch tiles), relaxed or not, the other radii and a
+    tile_w of 256 run the tile body."""
+    return (mode in (STREAM_RELAXED_MODES if relaxed else STREAM_MODES)
+            and radius == STREAM_RADIUS and 32 <= tile_w <= STRIP_W)
 
 
 @functools.lru_cache(maxsize=256)
@@ -272,16 +278,16 @@ def stream_blocks(h: int, w: int, seg: int):
 
 
 @functools.lru_cache(maxsize=64)
-def _stream_resident(index: int, mode: str, is_float: bool) -> int:
-    """Streaming-kernel blocks that card `index` holds at once in `mode`:
-    its SMs times the CUDA runtime's occupancy for the instantiation
-    (ssim_fwd_stream_occupancy)."""
+def _stream_resident(index: int, mode: str, is_float: bool, relaxed: bool = False) -> int:
+    """Streaming-kernel blocks that card `index` holds at once in `mode`
+    (relaxed: its relaxed instantiation): its SMs times the CUDA runtime's
+    occupancy for the instantiation (ssim_fwd_stream_occupancy)."""
     from . import _build
 
     n = ctypes.c_int(0)
     with torch.cuda.device(index):
         err = _build.load_library().ssim_fwd_stream_occupancy(
-            _MODES.index(mode), int(is_float), ctypes.byref(n))
+            _MODES.index(mode), int(relaxed), int(is_float), ctypes.byref(n))
     if err != 0 or n.value < 1:
         raise RuntimeError(f"ssim_fwd_stream_occupancy failed (cudaError {err}, "
                            f"{n.value} blocks per SM)")
@@ -697,7 +703,7 @@ def _launch(a, b, *, mode, taps, c1, c2, clip_bound, tile_h, tile_w, ipb=1,
     if stream:
         seg = segment or stream_segment(
             bsz, h, w, tile_h, 2 * r,
-            _stream_resident(a.device.index, mode, a.dtype == torch.float32))
+            _stream_resident(a.device.index, mode, a.dtype == torch.float32, relaxed))
         if seg % tile_h or not tile_h <= seg <= MAX_SEG_TILES * tile_h:
             raise ValueError(f"segment {seg} is not 1-{MAX_SEG_TILES} tiles of "
                              f"{tile_h} rows")
@@ -939,8 +945,10 @@ def ssim_parts_cuda(
     band products on the tensor cores (RELAXED_LAUNCHES counts the
     launch), ~2^-17 relative per blur, inside the JAX tests' envelope of
     1e-4 global and 5e-3 per pixel against the f64 oracle; below it the
-    standard mode runs, bit for bit. It excludes precise and the row
-    modes (rowsum, vhalo), as the sharded layer never asks for it.
+    standard mode runs, bit for bit. Like the standard tier it runs the
+    row-streaming kernel where stream_applies (radius 5, tiles 32 to 128
+    wide), else the tile body. It excludes precise and the row modes
+    (rowsum, vhalo), as the sharded layer never asks for it.
     """
     if relaxed and precise:
         raise ValueError(

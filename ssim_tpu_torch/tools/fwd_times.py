@@ -4,11 +4,12 @@
 
 Times (CUDA events around 20 back-to-back calls, median of 3) the
 streaming kernel's modes kScore, kMap, kRowsum and kRowsumMap (the row
-modes with halo operands, both flags set, as on one rank), kPrecise and
-kPreciseMap on u8 pairs at 1080p x4, 4K x4, 16K x1 and 1x1024x20480, and
-beside them the tile body's modes: components and pooled components,
-batch, relaxed score, kScore and precise at radius 1 and 16 at 1080p x4,
-batch and batch precise at 64x64 x4096. Prints the card's name and power
+modes with halo operands, both flags set, as on one rank), kPrecise,
+kPreciseMap and relaxed kScore and kMap on u8 pairs at 1080p x4, 4K x4,
+16K x1 and 1x1024x20480, and beside them the tile body's modes:
+components and pooled components, relaxed and not, kScore and precise at
+radius 1 and 16 at 1080p x4, batch, relaxed batch and batch precise at
+64x64 x4096. Prints the card's name and power
 limit, then one JSON line {"card": ..., "package": ..., "ms": {...}}. It
 calls only the wrappers' public arguments, so it also times another
 checkout's kernel when run as a file with that checkout's root on
@@ -16,8 +17,9 @@ PYTHONPATH:
 
     PYTHONPATH=/path/to/checkout python ssim_tpu_torch/tools/fwd_times.py
 
---segments also times kScore, kRowsum and kPrecise at each shape at every
-segment length the streaming kernel takes, beside the wrapper's own choice
+--segments also times kScore, kRowsum, kPrecise and relaxed kScore at each
+shape at every segment length the streaming kernel takes (the last two
+where they stream), beside the wrapper's own choice
 (`ssim_cuda.stream_segment`).
 """
 
@@ -69,7 +71,9 @@ def u8_pair(gen, shape):
 
 
 def main_path_modes(a, b):
-    """The streaming kernel's six modes on one pair: name -> call."""
+    """The streaming kernel's modes on one pair: name -> call (relaxed
+    kScore and kMap stream where this package's stream_applies says so, else
+    they time the tile body)."""
     h = a.shape[-2]
     vh = (a[..., h - 5:, :].contiguous(), a[..., :5, :].contiguous(),
           b[..., h - 5:, :].contiguous(), b[..., :5, :].contiguous())
@@ -81,6 +85,8 @@ def main_path_modes(a, b):
         "kRowsumMap": lambda: ssim_cuda.ssim_rows_cuda(a, b, with_map=True, **rows),
         "kPrecise": lambda: ssim_cuda.ssim_parts_cuda(a, b, precise=True),
         "kPreciseMap": lambda: ssim_cuda.ssim_parts_cuda(a, b, with_map=True, precise=True),
+        "relaxed kScore": lambda: ssim_cuda.ssim_parts_cuda(a, b, relaxed=True),
+        "relaxed kMap": lambda: ssim_cuda.ssim_parts_cuda(a, b, with_map=True, relaxed=True),
     }
 
 
@@ -92,7 +98,9 @@ def tile_body_modes(gen, a, b):
     return {
         "components f32": lambda: ssim_cuda.ssim_components_cuda(fa, fb, data_range=1.0),
         "pooled u8": lambda: ssim_cuda.ssim_components_pooled_cuda(a, b),
-        "relaxed kScore": lambda: ssim_cuda.ssim_parts_cuda(a, b, relaxed=True),
+        "relaxed components f32": lambda: ssim_cuda.ssim_components_cuda(
+            fa, fb, data_range=1.0, relaxed=True),
+        "relaxed pooled u8": lambda: ssim_cuda.ssim_components_pooled_cuda(a, b, relaxed=True),
         "kScore r=1": lambda: ssim_cuda.ssim_parts_cuda(a, b, radius=1, sigma=0.8),
         "kScore r=16": lambda: ssim_cuda.ssim_parts_cuda(a, b, radius=16, sigma=3.0),
         "precise r=1": lambda: ssim_cuda.ssim_parts_cuda(a, b, precise=True, radius=1,
@@ -100,14 +108,16 @@ def tile_body_modes(gen, a, b):
         "precise r=16": lambda: ssim_cuda.ssim_parts_cuda(a, b, precise=True, radius=16,
                                                           sigma=3.0),
         "batch 64x64_b4096": lambda: ssim_cuda.ssim_parts_batch_cuda(sa, sb),
+        "relaxed batch 64x64_b4096": lambda: ssim_cuda.ssim_parts_batch_cuda(
+            sa, sb, relaxed=True),
         "batch precise 64x64_b4096": lambda: ssim_cuda.ssim_parts_batch_cuda(
             sa, sb, precise=True),
     }
 
 
 def segment_sweep(name, a, b):
-    """kScore, kRowsum and kPrecise at every segment the streaming kernel
-    takes (kPrecise where it streams)."""
+    """kScore, kRowsum, kPrecise and relaxed kScore at every segment the
+    streaming kernel takes (the last two where they stream)."""
     from ssim_tpu_torch.windows import gaussian_taps
 
     bsz, h, w = a.shape
@@ -119,8 +129,12 @@ def segment_sweep(name, a, b):
     runs = [("score", f32_taps), ("rowsum", dict(vhalo=vh, vmask=(1, 1), **f32_taps))]
     if ssim_cuda.stream_applies("precise", 5, ssim_cuda.TILE_W):
         runs.append(("precise", dict(taps=gaussian_taps(np.float64, 5, 1.5))))
+    if ssim_cuda.stream_applies("score", 5, ssim_cuda.TILE_W, relaxed=True):
+        runs.append(("score", dict(relaxed=True, **f32_taps)))
     for mode, extra in runs:
-        resident = ssim_cuda._stream_resident(a.device.index, mode, False)
+        relaxed = extra.get("relaxed", False)
+        resident = (ssim_cuda._stream_resident(a.device.index, mode, False, True) if relaxed
+                    else ssim_cuda._stream_resident(a.device.index, mode, False))
         auto = ssim_cuda.stream_segment(bsz, h, w, ssim_cuda.TILE_H, 10, resident)
         parts = [f"auto {auto} ({resident} resident)"]
         for k in range(1, ssim_cuda.MAX_SEG_TILES + 1):
@@ -130,7 +144,8 @@ def segment_sweep(name, a, b):
             parts.append(f"{seg}: {t:.4f}")
             if seg >= h:
                 break
-        print(f"  segments {name} {mode}: " + ", ".join(parts) + " ms", flush=True)
+        label = f"relaxed {mode}" if relaxed else mode
+        print(f"  segments {name} {label}: " + ", ".join(parts) + " ms", flush=True)
 
 
 def main():

@@ -1,13 +1,14 @@
 // Runs ssim_fwd_stream_kernel's source on the host (see cuda_runtime.h):
 //   harness IN OUT
 // IN holds int32 [mode, is_float, B, H, W, TH, TW, S, has_halo, is_top,
-// is_bot, precise], the taps[11] and [c1, c2, clip_bound] (f64 with
+// is_bot, precise, relaxed], the taps[11] and [c1, c2, clip_bound] (f64 with
 // precise, else f32), a, b (B*H*W of u8 or f32) and, with has_halo, a_top,
 // a_bot, b_top, b_bot (B*5*W each). OUT receives the partials (B, nty*ntx)
 // (f64 with precise, else f32) or the row sums (B, H) f32, then the map
 // (B, H, W) f32 in the map modes. precise must be 1 exactly in the precise
-// modes. The blocks run one after another, each with one std::thread per
-// CUDA thread.
+// modes; relaxed (kScore and kMap only) runs the relaxed instantiation,
+// its band products through band_mma.cuh's host model of mma. The blocks
+// run one after another, each with one std::thread per CUDA thread.
 #include "cuda_runtime.h"
 
 #include <barrier>
@@ -17,13 +18,14 @@
 #include <thread>
 #include <vector>
 
-thread_local dim3x threadIdx, blockIdx;
+thread_local dim3x threadIdx, blockIdx, blockDim;
 static std::barrier<>* g_block;
 static std::barrier<>* g_warp[32];
 static double g_lane[32][32];
 static std::mutex g_atomic;
 
 void __syncthreads() { g_block->arrive_and_wait(); }
+void __syncwarp(unsigned) { g_warp[threadIdx.x / 32]->arrive_and_wait(); }
 template <class V> static V shfl_down(V v, int offset) {
   const int w = threadIdx.x / 32, l = threadIdx.x % 32;
   g_lane[w][l] = v;
@@ -60,10 +62,10 @@ template <class T> static std::vector<T> take(FILE* f, size_t n) {
   return v;
 }
 
-template <class T, int M>
+template <class T, int M, int S>
 static void run(FILE* f, FILE* o, const std::vector<int>& h) {
   using P = Blur<M>;
-  const int B = h[2], H = h[3], W = h[4], TH = h[5], TW = h[6], S = h[7];
+  const int B = h[2], H = h[3], W = h[4], TH = h[5], TW = h[6], seg = h[7];
   const auto taps = take<P>(f, 2 * kStreamR + 1);
   const auto cc = take<P>(f, 3);
   const size_t np = (size_t)B * H * W;
@@ -75,7 +77,7 @@ static void run(FILE* f, FILE* o, const std::vector<int>& h) {
                      h[9], h[10]};
   StreamTaps<P> tp;
   for (int k = 0; k < 2 * kStreamR + 1; ++k) tp.t[k] = taps[k];
-  const int nstrip = (W + kStripW - 1) / kStripW, nseg = (H + S - 1) / S;
+  const int nstrip = (W + kStripW - 1) / kStripW, nseg = (H + seg - 1) / seg;
   const int ntx = (W + TW - 1) / TW, nty = (H + TH - 1) / TH;
   constexpr bool kRows = M == kRowsum || M == kRowsumMap;
   constexpr bool kWithMap = M == kMap || M == kRowsumMap || M == kPreciseMap;
@@ -89,10 +91,11 @@ static void run(FILE* f, FILE* o, const std::vector<int>& h) {
       threads.emplace_back([&, t] {
         threadIdx = {(unsigned)t, 0, 0};
         blockIdx = {(unsigned)blk, 0, 0};
-        ssim_fwd_stream_kernel<T, M>(a.data(), b.data(), partials.data(),
-                                     kWithMap ? map.data() : nullptr, pieces.data(),
-                                     halo, H, W, TH, TW, S, nstrip, nseg, ntx, nty,
-                                     tp, cc[0], cc[1], (float)cc[2]);
+        blockDim = {(unsigned)kStreamThreads, 1, 1};
+        ssim_fwd_stream_kernel<T, M, S>(a.data(), b.data(), partials.data(),
+                                        kWithMap ? map.data() : nullptr, pieces.data(),
+                                        halo, H, W, TH, TW, seg, nstrip, nseg, ntx, nty,
+                                        tp, cc[0], cc[1], (float)cc[2]);
       });
     }
     for (auto& t : threads) t.join();
@@ -118,22 +121,31 @@ int main(int argc, char** argv) {
   FILE* f = fopen(argv[1], "rb");
   FILE* o = fopen(argv[2], "wb");
   if (!f || !o) return 2;
-  const auto h = take<int>(f, 12);
+  const auto h = take<int>(f, 13);
   if (h[11] != (h[0] == kPrecise || h[0] == kPreciseMap)) return 2;
-#define SSIM_EMU_RUN(M)                         \
+#define SSIM_EMU_RUN(M, S)                      \
   case M:                                       \
-    if (h[1]) run<float, M>(f, o, h);           \
-    else run<uint8_t, M>(f, o, h);              \
+    if (h[1]) run<float, M, S>(f, o, h);        \
+    else run<uint8_t, M, S>(f, o, h);           \
     break;
-  switch (h[0]) {
-    SSIM_EMU_RUN(kScore)
-    SSIM_EMU_RUN(kMap)
-    SSIM_EMU_RUN(kPrecise)
-    SSIM_EMU_RUN(kPreciseMap)
-    SSIM_EMU_RUN(kRowsum)
-    SSIM_EMU_RUN(kRowsumMap)
-    default:
-      return 2;
+  if (h[12]) {
+    switch (h[0]) {
+      SSIM_EMU_RUN(kScore, kStreamSplit)
+      SSIM_EMU_RUN(kMap, kStreamSplit)
+      default:
+        return 2;
+    }
+  } else {
+    switch (h[0]) {
+      SSIM_EMU_RUN(kScore, 0)
+      SSIM_EMU_RUN(kMap, 0)
+      SSIM_EMU_RUN(kPrecise, 0)
+      SSIM_EMU_RUN(kPreciseMap, 0)
+      SSIM_EMU_RUN(kRowsum, 0)
+      SSIM_EMU_RUN(kRowsumMap, 0)
+      default:
+        return 2;
+    }
   }
   fclose(o);
   return 0;

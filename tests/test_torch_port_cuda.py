@@ -862,6 +862,126 @@ def test_relaxed_modes_match_twins_on_card(mode):
     assert (got - want).abs().max().item() / npix <= tol
 
 
+def _hold_relaxed(pk, mk, pp, mp, npix):
+    """A relaxed kernel's partials (and map) against the relaxed twin's: NaN
+    at the same tiles and pixels, per-image scores within 2e-6 (never
+    tighter than 2 * 2e-5 / sqrt(npix)), pixels within 2e-5."""
+    assert torch.equal(pk.isnan(), pp.isnan())
+    gk, gp = pk.double().sum(-1) / npix, pp.double().sum(-1) / npix
+    fin = ~gp.isnan()
+    tol = max(_RELAXED_GLOBAL, 2 * _RELAXED_PIXEL / npix**0.5)
+    if fin.any():
+        assert (gk[fin] - gp[fin]).abs().max().item() <= tol
+    if mk is not None:
+        assert torch.equal(mk.isnan(), mp.isnan())
+        ok = ~mp.isnan()
+        assert (mk[ok] - mp[ok]).abs().max().item() <= _RELAXED_PIXEL
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["1080p_b4", "ragged_nan", "f32_1080p_b4"])
+def test_relaxed_stream_matches_twin_on_card(case):
+    """Relaxed kScore and kMap through the row-streaming kernel (the heavy
+    horizontal blurs as bf16x3 band products) against the relaxed twin at
+    1080p x4 (u8 and f32) and a ragged (2, 300, 600) f32 pair with a NaN:
+    within the tier's 2e-6 global and 2e-5 per pixel, NaN over exactly the
+    twin's tiles, one STREAM_LAUNCHES and one RELAXED_LAUNCHES each, and a
+    map that differs from the standard tier's."""
+    _need_card()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    rng = np.random.default_rng(0x62 + len(case))
+    shape = (2, 300, 600) if case == "ragged_nan" else (4, 1080, 1920)
+    f32 = case != "1080p_b4"
+    a, b = (_float_pair if f32 else _pair)(rng, shape)
+    if case == "ragged_nan":
+        a[0, 123, 321] = np.nan
+    at, bt = torch.from_numpy(a).cuda(), torch.from_numpy(b).cuda()
+    dr = 1.0 if f32 else 255.0
+    kw = dict(data_range=dr, allow_float=f32)
+    before = (ssim_cuda.STREAM_LAUNCHES, ssim_cuda.RELAXED_LAUNCHES, ssim_cuda.LAUNCHES)
+    pk, _ = ssim_cuda.ssim_parts_cuda(at, bt, relaxed=True, **kw)
+    pm, mk = ssim_cuda.ssim_parts_cuda(at, bt, with_map=True, relaxed=True, **kw)
+    torch.cuda.synchronize()
+    assert (ssim_cuda.STREAM_LAUNCHES, ssim_cuda.RELAXED_LAUNCHES, ssim_cuda.LAUNCHES) == (
+        before[0] + 2, before[1] + 2, before[2])
+    _, ms = ssim_cuda.ssim_parts_cuda(at, bt, with_map=True, **kw)
+    pp, mp = ssim_cuda.ssim_parts_plain(at, bt, with_map=True, relaxed=True, **_twin_kw(dr))
+    npix = shape[1] * shape[2]
+    _hold_relaxed(pk, None, pp, mp, npix)
+    _hold_relaxed(pm, mk, pp, mp, npix)
+    ok = ~mp.isnan()
+    assert (mk[ok] - ms[ok]).abs().max().item() > 0
+    if case == "ragged_nan":
+        assert mk[0, 123, 321].isnan() and torch.isfinite(mk[1]).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("tile", [(32, 64), (7, 32), (32, 128)])
+@pytest.mark.parametrize("case", ["seg-1", "seg+1", "2seg+1", "ragged_w", "h=1", "nan"])
+def test_relaxed_stream_geometry_on_card(case, tile):
+    """The relaxed streaming instantiation at a pinned segment of two tiles
+    (ssim_cuda._launch(segment=...)): H one short of and one past the
+    segment and 2S + 1, a ragged last strip, H = 1, tiles 32x64, 7x32 and
+    32x128, and f32 NaN / inf pixels on a segment's first row and a strip's
+    last and first column; kScore and kMap against the relaxed twin."""
+    _need_card()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    seg = 2 * tile[0]
+    bsz, h, w = {"seg-1": (2, seg - 1, 520), "seg+1": (2, seg + 1, 520),
+                 "2seg+1": (1, 2 * seg + 1, 640), "ragged_w": (2, seg + 1, 777),
+                 "h=1": (2, 1, 530), "nan": (3, 2 * seg + 7, 600)}[case]
+    rng = np.random.default_rng(0x76 + len(case) + tile[1])
+    f32 = case == "nan"
+    a, b = (_float_pair if f32 else _pair)(rng, (bsz, h, w))
+    if f32:
+        a[0, seg, 300] = np.nan
+        a[1, seg - 1, 127] = np.inf
+        b[2, 3, 128] = -np.inf
+    at, bt = torch.from_numpy(a).cuda(), torch.from_numpy(b).cuda()
+    dr = 1.0 if f32 else 255.0
+    kw = dict(_twin_kw(dr), tile_h=tile[0], tile_w=tile[1])
+    assert ssim_cuda.stream_applies("map", 5, tile[1], relaxed=True)
+    pp, mp = ssim_cuda.ssim_parts_plain(at, bt, with_map=True, relaxed=True, **kw)
+    for mode in ("score", "map"):
+        before = ssim_cuda.STREAM_LAUNCHES
+        pk, mk = ssim_cuda._launch(at, bt, mode=mode, relaxed=True, segment=seg, **kw)
+        torch.cuda.synchronize()
+        assert ssim_cuda.STREAM_LAUNCHES == before + 1
+        _hold_relaxed(pk, mk, pp, mp, h * w)
+    if f32:
+        assert mk[0, seg, 300].isnan() and mk[1, seg - 1, 127].isnan()
+        assert mk[2, 3, 128].isnan()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["components", "pooled", "batch"])
+def test_relaxed_stream_leaves_other_modes_on_tile_body_on_card(mode):
+    """The relaxed components, pooled and batch modes keep the tile body:
+    one RELAXED_LAUNCHES each and no STREAM_LAUNCHES, as do relaxed score
+    and map at radius 1 and 16 and with a 256-wide tile."""
+    _need_card()
+    rng = np.random.default_rng(0x63)
+    shape = (64, 40, 48) if mode == "batch" else (2, 130, 700)
+    a, b = _pair(rng, shape)
+    at, bt = torch.from_numpy(a).cuda(), torch.from_numpy(b).cuda()
+    fn = {"components": ssim_cuda.ssim_components_cuda,
+          "pooled": ssim_cuda.ssim_components_pooled_cuda,
+          "batch": ssim_cuda.ssim_parts_batch_cuda}[mode]
+    before = (ssim_cuda.STREAM_LAUNCHES, ssim_cuda.RELAXED_LAUNCHES)
+    fn(at, bt, relaxed=True)
+    torch.cuda.synchronize()
+    assert (ssim_cuda.STREAM_LAUNCHES, ssim_cuda.RELAXED_LAUNCHES) == (
+        before[0], before[1] + 1)
+    wa, wb = (torch.from_numpy(x).cuda() for x in _pair(rng, (1, 130, 700)))
+    for window in (dict(radius=1, sigma=0.8), dict(radius=16, sigma=3.0),
+                   dict(tile_h=8, tile_w=256)):
+        before = (ssim_cuda.STREAM_LAUNCHES, ssim_cuda.RELAXED_LAUNCHES)
+        ssim_cuda.ssim_parts_cuda(wa, wb, with_map=True, relaxed=True, **window)
+        torch.cuda.synchronize()
+        assert (ssim_cuda.STREAM_LAUNCHES, ssim_cuda.RELAXED_LAUNCHES) == (
+            before[0], before[1] + 1)
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("with_g", [False, True])
 def test_relaxed_backward_matches_twin_on_card(with_g):

@@ -4,9 +4,11 @@ segment its wrapper picks (stream_segment), the blocks it decodes
 (stream_blocks), and its source built for the host by g++
 (tests/fwd_stream_emu: one std::thread per CUDA thread, a std::barrier for
 __syncthreads, no FMA contraction, as nvcc builds it with --fmad=false)
-against the twins, maps bit for bit. The kernel itself runs only on a
-card: tests/test_torch_port_cuda.py holds it against the twins there
-(test_forward_stream_*, test_precise_stream_*). On the CPU every wrapper runs its twin, whose
+against the twins, maps bit for bit (the relaxed modes, whose band
+products go through a host model of mma.sync, within the relaxed tier's
+tolerance). The kernel itself runs only on a card:
+tests/test_torch_port_cuda.py holds it against the twins there
+(test_forward_stream_*, test_precise_stream_*, test_relaxed_stream_*). On the CPU every wrapper runs its twin, whose
 per-pixel values and partials the JAX package's kernel holds in
 tests/test_torch_port_kernel.py and tests/test_torch_port_spatial.py.
 """
@@ -102,6 +104,33 @@ def test_stream_segment_at_the_precise_occupancy(shape, want):
     assert blocks / (-(-blocks // res) * res) >= 0.9
 
 
+#: Relaxed streaming blocks an H100 holds at once: 7 per SM (72 registers,
+#: 29.1 KB of shared memory, ssim_fwd_stream_occupancy(relaxed=1)) on each
+#: of its 132 SMs.
+H100_RELAXED_RESIDENT = 132 * 7
+
+
+@pytest.mark.parametrize("shape,want,best", [((4, 1080, 1920), 96, 128),
+                                             ((4, 2160, 3840), 320, 96),
+                                             ((1, 8640, 15360), 384, 416),
+                                             ((1, 1024, 20480), 96, 96)])
+def test_stream_segment_at_the_relaxed_occupancy(shape, want, best):
+    """The segment the relaxed kScore / kMap launches get at the H100's
+    relaxed occupancy: the model shared with the standard and precise modes
+    (not tuned for this instantiation), whose pick filled at least 75% of
+    the slots of the waves it takes; against a --segments sweep of the
+    relaxed kernel on an H100 (PERF.md), the pick was the fastest at
+    1x1024x20480 and within 0.2% at 16K, and 8.8% and 5.9% slower than the
+    fastest (`best`) at 1080p x4 and 4K x4."""
+    bsz, h, w = shape
+    res = H100_RELAXED_RESIDENT
+    seg = ssim_cuda.stream_segment(bsz, h, w, ssim_cuda.TILE_H, 2 * ssim_cuda.STREAM_RADIUS,
+                                   res)
+    assert seg == want and best % ssim_cuda.TILE_H == 0
+    blocks = _blocks(bsz, h, w, seg)
+    assert blocks / (-(-blocks // res) * res) >= 0.75
+
+
 @pytest.mark.parametrize("tile", [(32, 32), (32, 64), (64, 128), (7, 64), (1, 32),
                                   (256, 128)])
 def test_stream_blocks_cover_each_pixel_once_with_whole_tiles(tile):
@@ -136,29 +165,33 @@ def test_stream_blocks_cover_each_pixel_once_with_whole_tiles(tile):
 def test_stream_applies_to_the_documented_launches(mode):
     """The streaming kernel takes exactly the score, map and row modes and
     the precise modes (kPrecise, kPreciseMap) at radius 5 with tiles 32 to
-    128 wide, never relaxed; every other mode (components, pooled, both
-    batch modes), radius, tile width and the relaxed tier keep the tile
-    body."""
+    128 wide, and relaxed only the score and map modes; every other mode
+    (components, pooled, both batch modes), radius and tile width keeps
+    the tile body."""
     main = mode in ("score", "map", "rowsum", "rowsum_map", "precise", "precise_map")
     assert ssim_cuda.STREAM_MODES == ("score", "map", "rowsum", "rowsum_map",
                                       "precise", "precise_map")
+    assert ssim_cuda.STREAM_RELAXED_MODES == ("score", "map")
     for radius in (1, 4, 5, 6, 16):
         for tile_w in (8, 16, 32, 64, 128, 256):
             for relaxed in (False, True):
-                want = main and radius == 5 and 32 <= tile_w <= 128 and not relaxed
+                served = mode in ("score", "map") if relaxed else main
+                want = served and radius == 5 and 32 <= tile_w <= 128
                 assert ssim_cuda.stream_applies(mode, radius, tile_w, relaxed) == want
 
 
 def test_main_path_defaults_take_the_streaming_kernel():
     """The defaults every main-path call uses (windows.RADIUS, TILE_W, the
-    standard and the precise tier) take the streaming kernel, in all six of
-    its modes; the batch route's tiles (8 to 64 wide) never reach it, as
-    both batch modes keep the tile body."""
+    standard, precise and relaxed tiers) take the streaming kernel, in all
+    six of its modes and both relaxed ones; the batch route's tiles (8 to
+    64 wide) never reach it, as both batch modes keep the tile body."""
     from ssim_tpu_torch.windows import RADIUS
 
     assert RADIUS == ssim_cuda.STREAM_RADIUS
     for mode in ssim_cuda.STREAM_MODES:
         assert ssim_cuda.stream_applies(mode, RADIUS, ssim_cuda.TILE_W)
+    for mode in ssim_cuda.STREAM_RELAXED_MODES:
+        assert ssim_cuda.stream_applies(mode, RADIUS, ssim_cuda.TILE_W, relaxed=True)
     assert ssim_cuda.fit_tile(None, None, RADIUS, precise=True) == (
         ssim_cuda.TILE_H, ssim_cuda.TILE_W)
     for bsz, h, w in [(4096, 64, 64), (8192, 32, 32), (512, 192, 192)]:
@@ -183,32 +216,36 @@ def stream_emulator(tmp_path_factory):
     a = src.index("template <typename T, int kMode, int kSplit>\n__global__")
     b = src.index("// ---------------------------------------------------------------------------\n"
                   "// The main-path modes: row-streaming column strips.")
-    c = src.index("template <typename T, int kMode>\ncudaError_t launch_stream(")
+    c = src.index("template <typename T, int kMode, int kSplit>\ncudaError_t launch_stream(")
     out = tmp_path_factory.mktemp("fwd_stream_emu")
     (out / "ssim_fwd_stream.cu").write_text(src[:a] + src[b:c] + "}  // namespace\n")
     exe = out / "harness"
-    subprocess.run([gxx, "-std=c++20", "-O1", "-ffp-contract=off", "-pthread",
-                    "-I", str(out), "-I", EMU_DIR, "-o", str(exe),
-                    os.path.join(EMU_DIR, "harness.cpp")],
+    # band_mma.cuh: the emulator's (a host model of mma), which includes
+    # the kernels' own from csrc, next on the path.
+    subprocess.run([gxx, "-std=c++20", "-O1", "-ffp-contract=off", "-fno-strict-aliasing",
+                    "-pthread", "-I", str(out), "-I", EMU_DIR, "-I", _build.CSRC_DIR,
+                    "-o", str(exe), os.path.join(EMU_DIR, "harness.cpp")],
                    check=True, capture_output=True, timeout=600)
     return exe
 
 
-def _emulate(exe, mode, a, b, tile, seg, vhalo=None, vmask=(0, 0)):
+def _emulate(exe, mode, a, b, tile, seg, vhalo=None, vmask=(0, 0), relaxed=False,
+             c2=None):
     """The host build of the kernel in `mode` on NumPy (B, H, W) inputs:
     (partials (B, nty*ntx), f64 in the precise modes, or row sums (B, H),
     map or None). The precise modes get the f64 taps and c1, c2 unrounded,
-    as the wrapper passes them."""
+    as the wrapper passes them; relaxed (score and map) runs the relaxed
+    instantiation; c2 replaces the data range's."""
     bsz, h, w = a.shape
     f32 = a.dtype == np.float32
     precise = mode in _EMU_PRECISE_MODES
     dr = 1.0 if f32 else 255.0
     head = np.array([{**_EMU_MODES, **_EMU_PRECISE_MODES}[mode], int(f32), bsz, h, w,
-                     tile[0], tile[1], seg, vhalo is not None, *vmask, int(precise)],
-                    np.int32)
+                     tile[0], tile[1], seg, vhalo is not None, *vmask, int(precise),
+                     int(relaxed)], np.int32)
     ftype = np.float64 if precise else np.float32
-    consts = np.array([(0.01 * dr) ** 2, (0.03 * dr) ** 2, max(131072.0, 4.0 * dr)],
-                      ftype)
+    c2 = (0.03 * dr) ** 2 if c2 is None else c2
+    consts = np.array([(0.01 * dr) ** 2, c2, max(131072.0, 4.0 * dr)], ftype)
     parts = [head, gaussian_taps(ftype, 5, 1.5), consts, a, b, *(vhalo or ())]
     path_in, path_out = f"{exe}.{os.getpid()}.in", f"{exe}.{os.getpid()}.out"
     with open(path_in, "wb") as f:
@@ -387,3 +424,103 @@ def test_stream_kernel_source_precise_matches_twin_on_the_host(stream_emulator, 
         _, oracle_map = reference.compute_ssim(a.astype(np.float64), b.astype(np.float64),
                                                with_map=True, data_range=255.0)
         assert np.abs(got_map.numpy().astype(np.float64) - oracle_map).max() <= 5e-7
+
+
+#: Relaxed cases: (f32, shape, tile, segment). Every width >= MXU_MIN_W, as
+#: the wrappers launch the relaxed mode; the stream rows run in chunks of 8
+#: (ssim_fwd.cu kStreamChunk), whose boundaries fall inside tiles and
+#: segments here.
+_EMU_RELAXED_CASES = {
+    "u8 ragged strip, H one past a segment": (False, (1, 65, 600), (32, 64), 64),
+    "f32 7x64 tiles, segments of 14": (True, (2, 30, 520), (7, 64), 14),
+    "u8 H = 1": (False, (1, 1, 530), (32, 64), 32),
+    "u8 32x128 tiles, 2S+1": (False, (1, 129, 640), (32, 128), 64),
+    "u8 32x32 tiles, one segment": (False, (1, 40, 700), (32, 32), 64),
+    "f32 non-finite on boundaries": (True, (2, 100, 520), (32, 64), 64),
+}
+#: The relaxed tier's tolerances against its twin (chip_smoke.py
+#: RELAXED_TWIN_*) and against the f64 oracle (RELAXED_ORACLE_*, the JAX
+#: tests' envelope).
+_RELAXED_GLOBAL, _RELAXED_PIXEL = 2e-6, 2e-5
+_RELAXED_ORACLE_GLOBAL, _RELAXED_ORACLE_PIXEL = 1e-4, 5e-3
+
+
+@pytest.mark.parametrize("case", list(_EMU_RELAXED_CASES))
+def test_stream_kernel_source_relaxed_matches_twin_on_the_host(stream_emulator, case):
+    """The relaxed streaming instantiation (kScore, kMap: the heavy
+    horizontal blurs as bf16x3 band products, mma.sync modelled on the
+    host), built for the host, against ssim_parts_plain(relaxed=True):
+    within 2e-6 global (never tighter than 2 * 2e-5 / sqrt(npix)) and 2e-5
+    per pixel, NaN over exactly the twin's tiles and partials; a map that
+    differs from the standard tier's; within 1e-4 global and 5e-3 per
+    interior pixel of the f64 oracle. Geometries: a ragged last strip, H
+    one past a segment and 2S + 1, H = 1, 7-row tiles in segments of 14,
+    tiles 32 to 128 wide, u8 and f32, non-finite pixels on a tile edge, a
+    strip's last and first column and a segment's first row."""
+    from ssim_tpu_torch import reference
+
+    f32, shape, tile, seg = _EMU_RELAXED_CASES[case]
+    rng = np.random.default_rng(0x5EF8 + len(case))
+    a, b = _emu_pair(rng, shape, f32)
+    if case.startswith("f32 non-finite"):
+        a[0, seg, 300] = np.nan
+        a[1, seg - 1, 127] = np.inf
+        b[1, 3, 128] = -np.inf
+        a[0, tile[0] - 1, tile[1]] = np.nan
+    dr = 1.0 if f32 else 255.0
+    kw = dict(taps=gaussian_taps(np.float32, 5, 1.5), c1=(0.01 * dr) ** 2,
+              c2=(0.03 * dr) ** 2, clip_bound=max(131072.0, 4.0 * dr),
+              tile_h=tile[0], tile_w=tile[1])
+    at, bt = torch.from_numpy(a), torch.from_numpy(b)
+    npix = shape[1] * shape[2]
+    want, want_map = ssim_cuda.ssim_parts_plain(at, bt, with_map=True, relaxed=True, **kw)
+    _, std_map = ssim_cuda.ssim_parts_plain(at, bt, with_map=True, **kw)
+    for mode in ("score", "map"):
+        got, got_map = _emulate(stream_emulator, mode, a, b, tile, seg, relaxed=True)
+        assert (got_map is None) == (mode == "score")
+        assert torch.equal(got.isnan(), want.isnan()), mode
+        gk = got.double().sum(-1) / npix
+        gp = want.double().sum(-1) / npix
+        fin = ~gp.isnan()
+        assert torch.equal(gk.isnan(), gp.isnan()), mode
+        tol = max(_RELAXED_GLOBAL, 2 * _RELAXED_PIXEL / npix**0.5)
+        if fin.any():
+            assert (gk[fin] - gp[fin]).abs().max().item() <= tol, mode
+    assert torch.equal(got_map.isnan(), want_map.isnan())
+    ok = ~want_map.isnan()
+    assert (got_map[ok] - want_map[ok]).abs().max().item() <= _RELAXED_PIXEL
+    assert (got_map[ok] - std_map[ok]).abs().max().item() > 0
+    if case.startswith("f32 non-finite"):
+        assert got.isnan().any() and not got.isnan().all()  # only the planted tiles
+        return
+    oracle, oracle_map = reference.compute_ssim(a.astype(np.float64), b.astype(np.float64),
+                                                with_map=True, data_range=dr)
+    assert np.abs(gk.numpy() - np.asarray(oracle)).max() <= _RELAXED_ORACLE_GLOBAL
+    inner = (Ellipsis, slice(5, -5), slice(5, -5))
+    if shape[1] > 10:
+        err = np.abs(got_map.numpy()[inner].astype(np.float64) - oracle_map[inner]).max()
+        assert err <= _RELAXED_ORACLE_PIXEL
+
+
+def test_stream_kernel_source_relaxed_mu_planes_are_the_twins(stream_emulator):
+    """The relaxed instantiation's mu_a and mu_b are the f32 symmetric
+    pass's, bit for bit the twin's sym_blur, and only the heavy blurs go
+    through the band products: with c2 = 1e20 the structure term's
+    0.5 sigma + c2 rounds to c2 in the numerator and the denominator alike
+    (every sigma here is under half an ulp of c2), so each map value is
+    (2 mu_a mu_b + c1) c2 / ((mu_a^2 + mu_b^2 + c1) c2), mu alone. The
+    relaxed map then equals the relaxed twin's and the standard twin's bit
+    for bit, u8 and f32, on a ragged strip with 7-row tiles."""
+    c2 = 1e20
+    for f32 in (False, True):
+        rng = np.random.default_rng(0x5EF9 + f32)
+        a, b = _emu_pair(rng, (1, 45, 600), f32)
+        dr = 1.0 if f32 else 255.0
+        kw = dict(taps=gaussian_taps(np.float32, 5, 1.5), c1=(0.01 * dr) ** 2, c2=c2,
+                  clip_bound=max(131072.0, 4.0 * dr), tile_h=7, tile_w=64)
+        at, bt = torch.from_numpy(a), torch.from_numpy(b)
+        _, got = _emulate(stream_emulator, "map", a, b, (7, 64), 28, relaxed=True, c2=c2)
+        _, twin = ssim_cuda.ssim_parts_plain(at, bt, with_map=True, relaxed=True, **kw)
+        _, std = ssim_cuda.ssim_parts_plain(at, bt, with_map=True, **kw)
+        assert torch.isfinite(got).all()
+        assert torch.equal(got, twin) and torch.equal(got, std), f32
