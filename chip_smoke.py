@@ -528,6 +528,15 @@ RELAXED_STREAM_DESIGN = (
     "(a-b)^2 blurs in a shared-memory ring of 2 (2r + 1) rows; 7 blocks/SM); the "
     "components, pooled and batch modes: the tile body")
 
+RELAXED_BWD_STREAM_DESIGN = (
+    "row-streaming column strips, relaxed, at radius 5 (ssim_bwd_relaxed_stream_kernel: "
+    "128 columns, 9 warps, one per 16-column tile of the 144 mid columns; 8 rows a step; "
+    "all sixteen band passes as bf16x3 mma.sync products, the horizontal ones with the "
+    "band as A and the 8 rows as lines, split as loaded from f32, the vertical ones with "
+    "the band as B, their inputs kept split in bf16 rings of 18 rows, ldmatrix / "
+    "stmatrix .trans; 4 barriers per 8 rows; ~108 KB, 2 blocks/SM); other radii: the "
+    "tile kernel")
+
 
 def phase_main(gen, label):
     import ssim_tpu_torch
@@ -915,6 +924,7 @@ def launch_counts():
                 backward=ssim_grad.LAUNCHES,
                 backward_vhalo=ssim_grad.VHALO_LAUNCHES,
                 backward_relaxed=ssim_grad.RELAXED_LAUNCHES,
+                backward_relaxed_stream=ssim_grad.RELAXED_STREAM_LAUNCHES,
                 pad=pad.PAD_LAUNCHES, stream=ssim_cuda.STREAM_LAUNCHES)
 
 
@@ -932,6 +942,7 @@ def zero_counts():
     ssim_cuda.ROWSUM_LAUNCHES = ssim_cuda.ROWSUM_MAP_LAUNCHES = 0
     ssim_cuda.RELAXED_LAUNCHES = ssim_cuda.STREAM_LAUNCHES = 0
     ssim_grad.LAUNCHES = ssim_grad.VHALO_LAUNCHES = ssim_grad.RELAXED_LAUNCHES = 0
+    ssim_grad.RELAXED_STREAM_LAUNCHES = 0
     pad.PAD_LAUNCHES = 0
 
 
@@ -2288,12 +2299,22 @@ def compare_relaxed(name, a, b, oracle=False, **win):
     return max(g_err, p_err), d_std
 
 
-def compare_relaxed_grad(name, a, b, w_s, w_cs, g_map):
+def compare_relaxed_grad(name, a, b, w_s, w_cs, g_map, label):
     """K3 relaxed against its twin and against the standard K3 on the same
-    card tensors; returns the max abs kernel-vs-twin error."""
+    card tensors, its launch the streaming kernel's (by
+    RELAXED_STREAM_LAUNCHES), and both timed in turns (standard, relaxed,
+    relaxed, standard) beside the twin and relaxed_bwd_bound; returns the
+    max abs kernel-vs-twin error and the times."""
+    from ssim_tpu_torch.ops import ssim_grad
     from ssim_tpu_torch.ops.ssim_grad import ssim_grad_cuda
 
+    torch.cuda.synchronize()
+    zero_counts()
     rk = ssim_grad_cuda(a, b, w_s, w_cs, g_map, data_range=1.0, relaxed=True)
+    torch.cuda.synchronize()
+    counts = launch_counts()
+    check(counts == counts_of(backward_relaxed=1, backward_relaxed_stream=1),
+          f"{name}: relaxed K3 launched {counts}, expected the streaming kernel once")
     sk = ssim_grad_cuda(a, b, w_s, w_cs, g_map, data_range=1.0)
     torch.cuda.synchronize()
     rp = grad_twin(a, b, w_s, w_cs, g_map, relaxed=True)
@@ -2304,16 +2325,31 @@ def compare_relaxed_grad(name, a, b, w_s, w_cs, g_map):
           f"{name}: relaxed K3 vs twin {e_twin:.3g} (tol {RELAXED_GRAD_TWIN * scale:.3g})")
     check(0 < e_std <= RELAXED_GRAD_STD * scale,
           f"{name}: relaxed K3 vs standard {e_std:.3g} (tol {RELAXED_GRAD_STD * scale:.3g})")
-    print(f"  {name}: relaxed K3 vs twin {e_twin / scale:.3g} x max|g|, vs the "
-          f"standard K3 {e_std / scale:.3g} x max|g| (max|g| {scale:.3g})", flush=True)
+    print(f"  {name}: relaxed K3 (streaming) vs twin {e_twin / scale:.3g} x max|g|, vs "
+          f"the standard K3 {e_std / scale:.3g} x max|g| (max|g| {scale:.3g})", flush=True)
     del rp, sk, rk
-    return e_twin
+    fn = lambda relaxed: ssim_grad_cuda(a, b, w_s, w_cs, g_map, data_range=1.0,
+                                        relaxed=relaxed)
+    t_s1 = cuda_ms(lambda: fn(False), 10)
+    t_r1 = cuda_ms(lambda: fn(True), 10)
+    t_r2 = cuda_ms(lambda: fn(True), 10)
+    t_s2 = cuda_ms(lambda: fn(False), 10)
+    t_plain = cuda_ms(lambda: grad_twin(a, b, w_s, w_cs, g_map, relaxed=True), 3)
+    bnd, by = relaxed_bwd_bound(tuple(a.shape), g_map is not None)
+    print(f"  {name}: relaxed K3 {t_r1:.4f} / {t_r2:.4f} ms, standard K3 {t_s1:.4f} / "
+          f"{t_s2:.4f} ms in turns (relaxed / standard "
+          f"{min(t_r1, t_r2) / min(t_s1, t_s2):.3f}); twin {t_plain:.3f} ms; bound "
+          f"{bnd:.4f} ms ({by}) | {label}", flush=True)
+    return e_twin, dict(shape=list(a.shape), ms=min(t_r1, t_r2), relaxed_ms=[t_r1, t_r2],
+                        standard_ms=[t_s1, t_s2], plain_ms=t_plain, bound_ms=bnd,
+                        bound_by=by)
 
 
-def phase_relaxed_kernels(gen):
+def phase_relaxed_kernels(gen, label):
     """10a: every relaxed mode against its twin on the card; the forward
     against the f64 oracle on independent random pairs; the standard mode
-    below MXU_MIN_W."""
+    below MXU_MIN_W; K3 relaxed at grad_1080_b4 through the streaming
+    kernel, timed beside the standard K3."""
     from ssim_tpu_torch.ops import ssim_cuda, ssim_grad
 
     print('phase 10a: relaxed modes (accuracy="relaxed") against their twins',
@@ -2431,9 +2467,12 @@ def phase_relaxed_kernels(gen):
     w_s = torch.rand(4, generator=gen, device="cuda") / (shape[1] * shape[2])
     w_cs = torch.rand(4, generator=gen, device="cuda") * 0.3 / (shape[1] * shape[2])
     g_map = torch.randn(shape, generator=gen, device="cuda") * 1e-7
-    e1 = compare_relaxed_grad(f"grad_1080_b4 {shape}", fa, fb, w_s, w_cs, None)
-    e2 = compare_relaxed_grad(f"grad_1080_b4 {shape} g_map", fa, fb, w_s, w_cs, g_map)
-    inputs["grad"] = (fa, fb, w_s, w_cs, g_map)
+    e1, t1 = compare_relaxed_grad(f"grad_1080_b4 {shape}", fa, fb, w_s, w_cs, None,
+                                  label)
+    e2, t2 = compare_relaxed_grad(f"grad_1080_b4 {shape} g_map", fa, fb, w_s, w_cs,
+                                  g_map, label)
+    inputs["grad"] = (fa, fb)
+    inputs["grad_times"] = {"K3 grad_1080_b4": t1, "K3 grad_1080_b4 g_map": t2}
     return err, max(e1, e2), d_std, inputs
 
 
@@ -2444,11 +2483,11 @@ def phase_relaxed_path(gen, inputs):
     from ssim_tpu_torch.ops import ssim_cuda
 
     print('phase 10b: the public path with accuracy="relaxed"', flush=True)
-    fwd = bwd = streamed = 0
+    fwd = bwd = streamed = bwd_streamed = 0
     by_call = {}
 
     def counted(name, fn):
-        nonlocal fwd, bwd, streamed
+        nonlocal fwd, bwd, streamed, bwd_streamed
         torch.cuda.synchronize()
         zero_counts()
         out = fn()
@@ -2457,6 +2496,7 @@ def phase_relaxed_path(gen, inputs):
         by_call[name] = {k: v for k, v in counts.items() if v}
         fwd += counts["relaxed"]
         bwd += counts["backward_relaxed"]
+        bwd_streamed += counts["backward_relaxed_stream"]
         streamed += counts["stream"]
         return out, counts
 
@@ -2504,7 +2544,8 @@ def phase_relaxed_path(gen, inputs):
 
     losses, counts = counted("ssim_loss step", lambda: train(
         lambda x: ssim_tpu_torch.ssim_loss(x, clean, accuracy="relaxed")))
-    check(counts == counts_of(relaxed=3, backward_relaxed=2, stream=3),
+    check(counts == counts_of(relaxed=3, backward_relaxed=2, stream=3,
+                              backward_relaxed_stream=2),
           f"2 relaxed ssim_loss steps (and the final loss) launched {counts}")
     print(f"  2 Adam steps on ssim_loss(accuracy=\"relaxed\") {shape}: 1-SSIM {losses}; "
           f"launches {by_call['ssim_loss step']}", flush=True)
@@ -2523,20 +2564,23 @@ def phase_relaxed_path(gen, inputs):
     losses, counts = counted("ms_ssim step", lambda: train(
         lambda x: 1.0 - ssim_tpu_torch.ms_ssim(x, clean, data_range=1.0,
                                                accuracy="relaxed").mean()))
-    check(counts == counts_of(relaxed=6, components=9, backward_relaxed=4, backward=6),
+    check(counts == counts_of(relaxed=6, components=9, backward_relaxed=4, backward=6,
+                              backward_relaxed_stream=4),
           f"2 relaxed MS-SSIM steps (and the final loss) launched {counts}")
     print(f"  2 Adam steps on 1 - ms_ssim(accuracy=\"relaxed\") {shape}: {losses}; "
           f"launches {by_call['ms_ssim step']}", flush=True)
     check(streamed == 6, f"{streamed} of the public path's relaxed launches streamed, "
           f"expected the 6 kScore / kMap ones")
-    return fwd, bwd, streamed, by_call
+    check(bwd == bwd_streamed == 6, f"{bwd_streamed} of the public path's {bwd} relaxed "
+          f"K3 launches streamed, expected all 6")
+    return fwd, bwd, streamed, bwd_streamed, by_call
 
 
 def phase_relaxed_times(gen, label, inputs):
     """10c: each relaxed mode beside the standard mode on the same input,
     in turns (standard, relaxed, relaxed, standard), the twin and the
-    bound."""
-    from ssim_tpu_torch.ops import ssim_cuda, ssim_grad
+    bound (K3's from 10a); the ssim_loss step, relaxed beside standard."""
+    from ssim_tpu_torch.ops import ssim_cuda
 
     print("phase 10c: times, relaxed beside standard", flush=True)
     fw = lambda **kw: (lambda a, b, relaxed: ssim_cuda.ssim_parts_cuda(
@@ -2597,35 +2641,63 @@ def phase_relaxed_times(gen, label, inputs):
               f"{t_s1:.4f} / {t_s2:.4f} ms (relaxed / standard "
               f"{min(t_r1, t_r2) / min(t_s1, t_s2):.3f}); twin {t_plain:.3f} ms; bound "
               f"{bnd:.4f} ms ({by}) | {label}", flush=True)
-    fa, fb, w_s, w_cs, g_map = inputs["grad"]
-    shape = tuple(fa.shape)
-    for name, g in (("K3 grad_1080_b4", None), ("K3 grad_1080_b4 g_map", g_map)):
-        fn = lambda relaxed: ssim_grad.ssim_grad_cuda(fa, fb, w_s, w_cs, g, data_range=1.0,
-                                                      relaxed=relaxed)
-        t_s1 = cuda_ms(lambda: fn(False), 10)
-        t_r1 = cuda_ms(lambda: fn(True), 10)
-        t_r2 = cuda_ms(lambda: fn(True), 10)
-        t_s2 = cuda_ms(lambda: fn(False), 10)
-        t_plain = cuda_ms(lambda: grad_twin(fa, fb, w_s, w_cs, g, relaxed=True), 3)
-        bnd, by = relaxed_bwd_bound(shape, g is not None)
-        times[name] = dict(shape=list(shape), ms=min(t_r1, t_r2), relaxed_ms=[t_r1, t_r2],
-                           standard_ms=[t_s1, t_s2], plain_ms=t_plain, bound_ms=bnd,
-                           bound_by=by)
-        print(f"  {name} {shape}: relaxed {t_r1:.4f} / {t_r2:.4f} ms, standard "
-              f"{t_s1:.4f} / {t_s2:.4f} ms (relaxed / standard "
-              f"{min(t_r1, t_r2) / min(t_s1, t_s2):.3f}); twin {t_plain:.3f} ms; bound "
-              f"{bnd:.4f} ms ({by}) | {label}", flush=True)
+    # K3's times are 10a's (compare_relaxed_grad).
+    times.update(inputs["grad_times"])
+    fa, fb = inputs["grad"]
+    times["ssim_loss step"] = relaxed_step_times(fa, fb, label)
     return times
 
 
+def relaxed_step_times(clean, noisy, label):
+    """The ssim_loss training step (forward, backward, Adam, clamp, ending
+    in a synchronize) on (4, 1080, 1920) f32, relaxed beside standard:
+    host-clock ms in turns (standard, relaxed, relaxed, standard; median of
+    10), then one trace of five steps each: the device's busy ms per step
+    and K3's ms and share of it."""
+    import ssim_tpu_torch
+
+    x = noisy.clone().requires_grad_()
+    opt = torch.optim.Adam([x], lr=0.02)
+
+    def step(accuracy):
+        opt.zero_grad(set_to_none=True)
+        ssim_tpu_torch.ssim_loss(x, clean, accuracy=accuracy).backward()
+        opt.step()
+        with torch.no_grad():
+            x.clamp_(0.0, 1.0)
+
+    runs = {}
+    for acc in ("standard", "relaxed", "relaxed", "standard"):
+        runs.setdefault(acc, []).append(host_ms(lambda: step(acc), 10))
+    out = {}
+    for acc in ("relaxed", "standard"):
+        busy, window, n_ops, top = device_trace(lambda: step(acc), 5)
+        k3 = k3_ms(top)
+        out[acc] = dict(step_ms=runs[acc], trace_busy_ms=busy, trace_k3_ms=k3,
+                        trace_window_ms=window, trace_ops_per_step=n_ops,
+                        trace_top=top[:6])
+        if busy is None:
+            print(f"  {acc} ssim_loss step: the trace recorded no device activity",
+                  flush=True)
+            continue
+        print(f"  {acc} ssim_loss step {tuple(clean.shape)}: {runs[acc][0]:.3f} / "
+              f"{runs[acc][1]:.3f} ms (host clock, median of 10, in turns); trace of 5 "
+              f"steps: device busy {busy:.4f} ms per step, K3 {k3:.4f} ms "
+              f"({k3 / busy:.1%} of it), {n_ops:.0f} device operations per step | "
+              f"{label}", flush=True)
+    del x, opt
+    return out
+
+
 def phase_relaxed(gen, label):
-    err_fwd, err_bwd, d_std, inputs = phase_relaxed_kernels(gen)
-    fwd, bwd, streamed, by_call = phase_relaxed_path(gen, inputs)
+    err_fwd, err_bwd, d_std, inputs = phase_relaxed_kernels(gen, label)
+    fwd, bwd, streamed, bwd_streamed, by_call = phase_relaxed_path(gen, inputs)
     times = phase_relaxed_times(gen, label, inputs)
     del inputs
     torch.cuda.empty_cache()
     return dict(err_fwd=err_fwd, err_bwd=err_bwd, d_std=d_std, launches_fwd=fwd,
-                launches_bwd=bwd, launches_stream=streamed, by_call=by_call, times=times)
+                launches_bwd=bwd, launches_stream=streamed, launches_bwd_stream=bwd_streamed,
+                by_call=by_call, times=times)
 
 
 # Phase 11: the edge-pad-and-align kernel (K4, csrc/pad.cu). It moves
@@ -3110,7 +3182,8 @@ def main():
            for k in ("ms", "plain_ms", "bound_ms", "bound_by", "shape", "standard_ms")},
         "library_ms": None,
         "relaxed_vs_standard_pixel": relaxed["d_std"],
-        "times": {k: v for k, v in relaxed["times"].items() if not k.startswith("K3")},
+        "times": {k: v for k, v in relaxed["times"].items()
+                  if not k.startswith(("K3", "ssim_loss"))},
     }, {
         "name": "ssim_bwd_relaxed",
         "route": "cuda",
@@ -3118,12 +3191,16 @@ def main():
         "header": "ssim_tpu_torch/csrc/band_mma.cuh",
         "replaces": "ssim_tpu/ops/ssim_grad.py:278 (relaxed: :324-328, :500-516, "
                     ":522-529, :563-567)",
+        "design": RELAXED_BWD_STREAM_DESIGN,
         "launches": relaxed["launches_bwd"],
+        "launches_stream": relaxed["launches_bwd_stream"],
         "max_abs_err": relaxed["err_bwd"],
         **{k: relaxed["times"]["K3 grad_1080_b4"][k]
            for k in ("ms", "plain_ms", "bound_ms", "bound_by", "shape", "standard_ms")},
         "library_ms": None,
         "ms_gmap": relaxed["times"]["K3 grad_1080_b4 g_map"]["ms"],
+        "step_trace_busy_ms": relaxed["times"]["ssim_loss step"]["relaxed"]["trace_busy_ms"],
+        "step_trace_k3_ms": relaxed["times"]["ssim_loss step"]["relaxed"]["trace_k3_ms"],
         "standard_ms_gmap": relaxed["times"]["K3 grad_1080_b4 g_map"]["standard_ms"],
     }, {
         "name": "pad_align",

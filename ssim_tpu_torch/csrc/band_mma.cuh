@@ -27,12 +27,15 @@
 // there, times a zero of the band, would poison the sum) and clamps lines
 // past the valid ones, whose outputs it drops. The band's fragments are
 // made from the taps at the sweep's start, or once per block by a caller
-// that keeps them (the forward's streaming kernel, in shared memory). The
-// mma adds in another order than a chain of IEEE f32 adds, so the kernels
-// are held against their PyTorch twins (band_bf16x3_plain in
-// ops/ssim_cuda.py) at a stated tolerance, not bit for bit. A host build
-// (tests/fwd_stream_emu) defines BAND_MMA_HOST_MODEL and supplies its own
-// model of mma, the one PTX instruction here.
+// that keeps them (the streaming kernels, in shared memory). The relaxed
+// backward's streaming kernel also runs vertical passes with the band as
+// the B operand (make_band_b) on data kept split in shared memory, moved
+// by ldmatrix / stmatrix. The mma adds in another order than a chain of
+// IEEE f32 adds, so the kernels are held against their PyTorch twins
+// (band_bf16x3_plain in ops/ssim_cuda.py) at a stated tolerance, not bit
+// for bit. A host build (tests/fwd_stream_emu) defines BAND_MMA_HOST_MODEL
+// and supplies its own model of mma, ldmatrix and stmatrix, the PTX
+// instructions here.
 
 #pragma once
 
@@ -154,6 +157,73 @@ __device__ __forceinline__ void sweep(const Band<NKS>& bd, int t0, int t1,
     }
   }
 }
+
+// The band as the B operand, for a pass whose 8 outputs lie along the mma's
+// N and its inputs along K (the data is A, 16 lines x 16 inputs): per
+// k-step, B[16 ks + k][n] = taps[16 ks + k - n] (zero outside 0..2r), hi
+// and lo. Register q holds k = 2t + 8q + {0, 1} and n = g (lane = 4g + t),
+// the m16n8k16 layout of B.
+template <int NKS>
+struct BandB {
+  uint32_t hi[NKS][2];
+  uint32_t lo[NKS][2];
+};
+
+template <int NKS>
+__device__ __forceinline__ BandB<NKS> make_band_b(const float* taps, int r) {
+  const int lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3;
+  auto tap = [&](int j) {
+    return (j >= 0 && j <= 2 * r) ? taps[min(max(j, 0), 2 * r)] : 0.0f;
+  };
+  BandB<NKS> bd;
+#pragma unroll
+  for (int ks = 0; ks < NKS; ++ks) {
+#pragma unroll
+    for (int q = 0; q < 2; ++q) {
+      const int j = 16 * ks + 2 * t + 8 * q - g;
+      split2(tap(j), tap(j + 1), bd.hi[ks][q], bd.lo[ks][q]);
+    }
+  }
+  return bd;
+}
+
+// Fragments to and from shared memory, 8 x 8 matrices of b16 (bf16 parts),
+// each row 16 bytes at the address one lane gives (ldmatrix / stmatrix,
+// .trans): lane 8i + j gives row j of matrix i. ldsm_x4_trans fills d[i]
+// with rows 2t, 2t + 1 of matrix i at column g (lane = 4g + t): with rows
+// along the pass and columns across it, the A fragment of 16 lines x 16
+// inputs is matrices {inputs 0-7, lines 0-7}, {0-7, 8-15}, {8-15, 0-7},
+// {8-15, 8-15}. ldsm_x2_trans: matrices 0 and 1 (lanes 0-15 give the
+// rows). stsm_x4_trans stores s[i], an accumulator's pair (row g, columns
+// 2t and 2t + 1) of matrix i, transposed: the matrix's column j to row j.
+#ifdef BAND_MMA_HOST_MODEL
+void ldsm_x4_trans(uint32_t (&d)[4], const void* row);
+void ldsm_x2_trans(uint32_t (&d)[2], const void* row);
+void stsm_x4_trans(void* row, const uint32_t (&s)[4]);
+#else
+__device__ __forceinline__ unsigned smem_addr(const void* p) {
+  return static_cast<unsigned>(__cvta_generic_to_shared(p));
+}
+__device__ __forceinline__ void ldsm_x4_trans(uint32_t (&d)[4], const void* row) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(d[0]), "=r"(d[1]), "=r"(d[2]), "=r"(d[3])
+               : "r"(smem_addr(row))
+               : "memory");
+}
+__device__ __forceinline__ void ldsm_x2_trans(uint32_t (&d)[2], const void* row) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x2.trans.shared.b16 {%0, %1}, [%2];\n"
+               : "=r"(d[0]), "=r"(d[1])
+               : "r"(smem_addr(row))
+               : "memory");
+}
+__device__ __forceinline__ void stsm_x4_trans(void* row, const uint32_t (&s)[4]) {
+  asm volatile("stmatrix.sync.aligned.m8n8.x4.trans.shared.b16 [%0], {%1, %2, %3, %4};\n"
+               :
+               : "r"(smem_addr(row)), "r"(s[0]), "r"(s[1]), "r"(s[2]), "r"(s[3])
+               : "memory");
+}
+#endif
 
 // The same sweep with the band made from the taps (in shared memory) at its
 // start, living only during it, and the data loaded one input at a time:

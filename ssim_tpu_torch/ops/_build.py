@@ -157,8 +157,9 @@ def load_library() -> ctypes.CDLL:
                 p, p, f, f, f, p,
             ]
             lib.ssim_bwd_launch.restype = i
-            # r, gmap, out: blocks per SM of the standard kernel.
-            lib.ssim_bwd_stream_occupancy.argtypes = [i, i, ctypes.POINTER(i)]
+            # relaxed, r, gmap, out: blocks per SM of the streaming
+            # kernel, the standard one or the relaxed one (radius 5).
+            lib.ssim_bwd_stream_occupancy.argtypes = [i, i, i, ctypes.POINTER(i)]
             lib.ssim_bwd_stream_occupancy.restype = i
             # x, out, itemsize, B, H, W, hp, wp, stream.
             lib.pad_align_launch.argtypes = [p, p, i, i, i, i, i, i, p]

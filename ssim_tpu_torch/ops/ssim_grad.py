@@ -12,7 +12,9 @@ Its standard tier streams: one CUDA block per strip of STRIP_W output
 columns and segment of rows (stream_segment picks the segment's length to
 fill the card; stream_blocks lists the blocks), so the TPU's column
 chunking at GRAD_MAX_W = 7680 lanes has no counterpart. The relaxed tier
-keeps one block per default_tile output tile.
+streams the same blocks at radius RADIUS (relaxed_stream_applies: 8 rows
+a step, all sixteen band passes on the tensor cores) and keeps one block
+per default_tile output tile at the other radii.
 
 `ssim_grad_cuda` launches the kernel for CUDA tensors and runs the plain
 twin `ssim_grad_plain` for CPU tensors. The twin is the same algebra in
@@ -63,10 +65,16 @@ TILE_W = 64
 #: those with halo operands; RELAXED_LAUNCHES: the relaxed mode's, with or
 #: without them). The wrapper adds one per launch to one of the three and
 #: nowhere else, so a caller can show that a run went through the kernel
-#: in that mode.
+#: in that mode. RELAXED_STREAM_LAUNCHES rises beside RELAXED_LAUNCHES for
+#: each relaxed launch of the streaming kernel
+#: (ssim_bwd_relaxed_stream_kernel), and only there.
 LAUNCHES = 0
 VHALO_LAUNCHES = 0
 RELAXED_LAUNCHES = 0
+RELAXED_STREAM_LAUNCHES = 0
+
+#: The radius of the relaxed streaming kernel (ssim_bwd.cu kRelR).
+RELAXED_STREAM_RADIUS = RADIUS
 
 
 def grad_cuda_supported(h: int, w: int, radius: int = RADIUS) -> bool:
@@ -98,12 +106,22 @@ def default_tile(radius: int) -> Tuple[int, int]:
     return tile_h, TILE_W
 
 
+def relaxed_stream_applies(radius: int, tile_w: int = TILE_W) -> bool:
+    """Whether a relaxed launch runs the streaming kernel
+    (ssim_bwd_relaxed_stream_kernel), else the relaxed tile kernel: at
+    radius RELAXED_STREAM_RADIUS (windows.RADIUS, every main-path shape)
+    with the NaN tile TILE_W wide, with or without g_map or halo
+    operands."""
+    return radius == RELAXED_STREAM_RADIUS and tile_w == TILE_W
+
+
 def stream_segment(bsz: int, h: int, w: int, radius: int, resident: int) -> int:
-    """The standard kernel's segment rows for (bsz, h, w) at this radius,
-    with `resident` blocks on the card at once: ssim_cuda.stream_segment's
-    model with the NaN tile's height, the 4r-row prologue and a last wave
-    of at most a twentieth of the resident blocks running beside the
-    others."""
+    """A streaming kernel's segment rows for (bsz, h, w) at this radius,
+    with `resident` blocks on the card at once (the standard kernel's, or
+    the relaxed one's, whose blocks advance 8 rows a step over the same
+    rows): ssim_cuda.stream_segment's model with the NaN tile's height, the
+    4r-row prologue and a last wave of at most a twentieth of the resident
+    blocks running beside the others."""
     return ssim_cuda.stream_segment(bsz, h, w, default_tile(radius)[0], 4 * radius,
                                     resident, 1 / 20)
 
@@ -133,16 +151,17 @@ def _taps(radius: int, sigma: float) -> np.ndarray:
 
 
 @functools.lru_cache(maxsize=64)
-def _resident(index: int, radius: int, gmap: bool) -> int:
-    """Standard-kernel blocks that card `index` holds at once at this
-    radius: its SMs times the CUDA runtime's occupancy for the
-    instantiation (ssim_bwd_stream_occupancy)."""
+def _resident(index: int, radius: int, gmap: bool, relaxed: bool = False) -> int:
+    """Streaming-kernel blocks that card `index` holds at once at this
+    radius, the standard kernel's or (relaxed) the relaxed one's: its SMs
+    times the CUDA runtime's occupancy for the instantiation
+    (ssim_bwd_stream_occupancy)."""
     from . import _build
 
     n = ctypes.c_int(0)
     with torch.cuda.device(index):
         err = _build.load_library().ssim_bwd_stream_occupancy(
-            radius, int(gmap), ctypes.byref(n))
+            int(relaxed), radius, int(gmap), ctypes.byref(n))
     if err != 0 or n.value < 1:
         raise RuntimeError(f"ssim_bwd_stream_occupancy failed (cudaError {err}, "
                            f"{n.value} blocks per SM)")
@@ -305,21 +324,22 @@ def ssim_grad_plain(
 def _launch(a, b, w_s, w_cs, g_map, *, taps, c1, c2, clip_bound, vhalo=None,
             vmask=(False, False), relaxed=False, segment=None):
     """Launch the CUDA kernel on (B, H, W) contiguous f32 tensors on one
-    CUDA device; no synchronisation. segment: the standard kernel's segment
+    CUDA device; no synchronisation. segment: a streaming kernel's segment
     rows (stream_segment's choice if None)."""
-    global LAUNCHES, VHALO_LAUNCHES, RELAXED_LAUNCHES
+    global LAUNCHES, VHALO_LAUNCHES, RELAXED_LAUNCHES, RELAXED_STREAM_LAUNCHES
     from . import _build
 
     lib = _build.load_library()
     bsz, h, w = a.shape
     r = len(taps) // 2
     tile_h, tile_w = default_tile(r)
-    if relaxed:
+    streams = not relaxed or relaxed_stream_applies(r, tile_w)
+    if not streams:
         assert smem_bytes(tile_h, tile_w, r) <= _MAX_DYNAMIC_SMEM
         seg, blocks = 0, bsz * -(-h // tile_h) * -(-w // tile_w)
     else:
         seg = segment or stream_segment(
-            bsz, h, w, r, _resident(a.device.index, r, g_map is not None))
+            bsz, h, w, r, _resident(a.device.index, r, g_map is not None, relaxed))
         if seg % tile_h or not tile_h <= seg <= MAX_SEG_TILES * tile_h:
             raise ValueError(f"segment {seg} is not 1-{MAX_SEG_TILES} tiles of "
                              f"{tile_h} rows")
@@ -346,6 +366,7 @@ def _launch(a, b, w_s, w_cs, g_map, *, taps, c1, c2, clip_bound, vhalo=None,
             f"CUDA error {err}")
     if relaxed:
         RELAXED_LAUNCHES += 1
+        RELAXED_STREAM_LAUNCHES += int(streams)
     elif vhalo is None:
         LAUNCHES += 1
     else:
@@ -406,9 +427,11 @@ def ssim_grad_cuda(
 
     relaxed=True (accuracy="relaxed"): at W >= MXU_MIN_W every band pass
     runs as a bf16x3 band product on the tensor cores (RELAXED_LAUNCHES
-    counts the launch), the gradient within ~1e-3 x max|g| of the standard
-    tier's; below it the standard kernel runs, bit for bit (JAX use_mxu,
-    ssim_grad.py:324). It combines with vhalo as in the JAX kernel.
+    counts the launch; RELAXED_STREAM_LAUNCHES too where the streaming
+    kernel runs it, relaxed_stream_applies), the gradient within ~1e-3 x
+    max|g| of the standard tier's; below it the standard kernel runs, bit
+    for bit (JAX use_mxu, ssim_grad.py:324). It combines with vhalo as in
+    the JAX kernel.
     """
     if a.dtype != torch.float32 or b.dtype != torch.float32:
         raise ValueError(

@@ -1,6 +1,6 @@
-"""Times the backward kernel's standard tier on the card, by radius.
+"""Times the backward kernel on the card, by radius.
 
-    python -m ssim_tpu_torch.tools.bwd_times [--segments]
+    python -m ssim_tpu_torch.tools.bwd_times [--segments] [--relaxed]
 
 Times `ssim_grad_cuda` (CUDA events around 20 back-to-back calls, median
 of 3) at (4, 1080, 1920) f32 for radii 4, 5, 6 and 16, with and without a
@@ -15,6 +15,12 @@ PYTHONPATH:
 --segments also times each radius without g_map at every segment length
 the kernel takes up to 512 rows, beside the wrapper's own choice
 (`ssim_grad.stream_segment`).
+
+--relaxed times the relaxed tier instead (`relaxed=True`, every band pass
+on the tensor cores): radius 5, which streams rows
+(`ssim_grad.relaxed_stream_applies`), and radius 4, which runs the tile
+kernel, each with and without g_map; with --segments, radius 5's
+segments.
 """
 
 import argparse
@@ -30,6 +36,7 @@ from ssim_tpu_torch.ops import ssim_grad
 
 SHAPE = (4, 1080, 1920)
 RADII = (4, 5, 6, 16)
+RELAXED_RADII = (5, 4)
 
 
 def card_label():
@@ -61,6 +68,7 @@ def cuda_ms(fn, reps=20, runs=3):
 def main():
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--segments", action="store_true")
+    parser.add_argument("--relaxed", action="store_true")
     args = parser.parse_args()
     if not torch.cuda.is_available():
         print("needs a CUDA card", file=sys.stderr)
@@ -75,25 +83,29 @@ def main():
     w_s = torch.full((SHAPE[0],), 1.0 / (SHAPE[1] * SHAPE[2]), device="cuda")
     w_cs = torch.zeros(SHAPE[0], device="cuda")
     ms = {}
-    for radius in RADII:
-        for name, gmap in ((f"r={radius}", None), (f"r={radius} g_map", g)):
+    radii, tag = (RELAXED_RADII, " relaxed") if args.relaxed else (RADII, "")
+    for radius in radii:
+        for name, gmap in ((f"r={radius}{tag}", None), (f"r={radius}{tag} g_map", g)):
             ms[name] = cuda_ms(lambda: ssim_grad.ssim_grad_cuda(
-                a, b, w_s, w_cs, gmap, data_range=255.0, radius=radius, sigma=1.5))
+                a, b, w_s, w_cs, gmap, data_range=255.0, radius=radius, sigma=1.5,
+                relaxed=args.relaxed))
             print(f"  {name}: {ms[name]:.4f} ms", flush=True)
     if args.segments:
         from ssim_tpu_torch.windows import gaussian_taps
 
-        for radius in RADII:
+        for radius in (radii[:1] if args.relaxed else radii):
             tile_h = ssim_grad.default_tile(radius)[0]
             kw = dict(taps=gaussian_taps(np.float32, radius, 1.5),
-                      c1=(0.01 * 255) ** 2, c2=(0.03 * 255) ** 2, clip_bound=131072.0)
-            resident = ssim_grad._resident(a.device.index, radius, False)
+                      c1=(0.01 * 255) ** 2, c2=(0.03 * 255) ** 2, clip_bound=131072.0,
+                      relaxed=args.relaxed)
+            resident = (ssim_grad._resident(a.device.index, radius, False, True)
+                        if args.relaxed else ssim_grad._resident(a.device.index, radius, False))
             parts = [f"auto {ssim_grad.stream_segment(*SHAPE, radius, resident)}"]
             for seg in range(tile_h, min(512, ssim_grad.MAX_SEG_TILES * tile_h) + 1, tile_h):
                 t = cuda_ms(lambda: ssim_grad._launch(a, b, w_s, w_cs, None,
                                                       segment=seg, **kw))
                 parts.append(f"{seg}: {t:.4f}")
-            print(f"  segments r={radius}: " + ", ".join(parts) + " ms", flush=True)
+            print(f"  segments r={radius}{tag}: " + ", ".join(parts) + " ms", flush=True)
     print(json.dumps({"card": label, "package": ssim_grad.__file__, "ms": ms}))
     return 0
 

@@ -11,45 +11,7 @@
 // run one after another, each with one std::thread per CUDA thread.
 #include "cuda_runtime.h"
 
-#include <barrier>
-#include <cstdio>
-#include <cstdlib>
-#include <mutex>
-#include <thread>
-#include <vector>
-
-thread_local dim3x threadIdx, blockIdx, blockDim;
-static std::barrier<>* g_block;
-static std::barrier<>* g_warp[32];
-static double g_lane[32][32];
-static std::mutex g_atomic;
-
-void __syncthreads() { g_block->arrive_and_wait(); }
-void __syncwarp(unsigned) { g_warp[threadIdx.x / 32]->arrive_and_wait(); }
-template <class V> static V shfl_down(V v, int offset) {
-  const int w = threadIdx.x / 32, l = threadIdx.x % 32;
-  g_lane[w][l] = v;
-  g_warp[w]->arrive_and_wait();
-  const V r = l + offset < 32 ? (V)g_lane[w][l + offset] : v;
-  g_warp[w]->arrive_and_wait();
-  return r;
-}
-float __shfl_down_sync(unsigned, float v, int offset) { return shfl_down(v, offset); }
-double __shfl_down_sync(unsigned, double v, int offset) { return shfl_down(v, offset); }
-double __shfl_xor_sync(unsigned, double v, int lane_mask) {
-  const int w = threadIdx.x / 32, l = threadIdx.x % 32;
-  g_lane[w][l] = v;
-  g_warp[w]->arrive_and_wait();
-  const double r = g_lane[w][l ^ lane_mask];
-  g_warp[w]->arrive_and_wait();
-  return r;
-}
-unsigned atomicOr(unsigned* p, unsigned v) {
-  std::lock_guard<std::mutex> lock(g_atomic);
-  const unsigned old = *p;
-  *p |= v;
-  return old;
-}
+#include "emu_threads.h"
 
 #include "ssim_fwd_stream.cu"  // the kernel's source, cut by the test
 
@@ -83,23 +45,12 @@ static void run(FILE* f, FILE* o, const std::vector<int>& h) {
   constexpr bool kWithMap = M == kMap || M == kRowsumMap || M == kPreciseMap;
   std::vector<P> partials((size_t)B * nty * ntx);
   std::vector<float> map(np), pieces((size_t)B * ntx * H);
-  g_block = new std::barrier<>(kStreamThreads);
-  for (auto& w : g_warp) w = new std::barrier<>(32);
-  for (int blk = 0; blk < B * nseg * nstrip; ++blk) {
-    std::vector<std::thread> threads;
-    for (int t = 0; t < kStreamThreads; ++t) {
-      threads.emplace_back([&, t] {
-        threadIdx = {(unsigned)t, 0, 0};
-        blockIdx = {(unsigned)blk, 0, 0};
-        blockDim = {(unsigned)kStreamThreads, 1, 1};
-        ssim_fwd_stream_kernel<T, M, S>(a.data(), b.data(), partials.data(),
-                                        kWithMap ? map.data() : nullptr, pieces.data(),
-                                        halo, H, W, TH, TW, seg, nstrip, nseg, ntx, nty,
-                                        tp, cc[0], cc[1], (float)cc[2]);
-      });
-    }
-    for (auto& t : threads) t.join();
-  }
+  run_blocks(B * nseg * nstrip, kStreamThreads, [&] {
+    ssim_fwd_stream_kernel<T, M, S>(a.data(), b.data(), partials.data(),
+                                    kWithMap ? map.data() : nullptr, pieces.data(), halo, H,
+                                    W, TH, TW, seg, nstrip, nseg, ntx, nty, tp, cc[0], cc[1],
+                                    (float)cc[2]);
+  });
   if (kRows) {  // rowsum_reduce_kernel's arithmetic
     std::vector<float> rows((size_t)B * H);
     for (int i = 0; i < B; ++i) {

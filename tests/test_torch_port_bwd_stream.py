@@ -1,0 +1,317 @@
+"""The backward kernel's relaxed streaming instantiation
+(ssim_bwd_relaxed_stream_kernel in csrc/ssim_bwd.cu), as far as the CPU can
+hold it: which launches it serves (ops.ssim_grad.relaxed_stream_applies),
+what the wrapper passes the C entry and counts (a stand-in library), the
+segment it picks, and the kernel's own source built for the host by g++
+(tests/fwd_stream_emu: one std::thread per CUDA thread, std::barrier for
+__syncthreads and __syncwarp, host models of mma.sync, ldmatrix and
+stmatrix) against the relaxed twin, ssim_grad_plain(relaxed=True), within
+the card tests' tolerance, NaN tiles exactly. The kernel itself runs only
+on a card: tests/test_torch_port_cuda.py holds it there
+(test_relaxed_backward_*). The twin is held against the JAX package's
+relaxed gradient in tests/test_torch_port_relaxed.py.
+"""
+
+import contextlib
+import os
+import shutil
+import subprocess
+import types
+
+import numpy as np
+import pytest
+import torch
+
+from ssim_tpu_torch.ops import _build, ssim_grad
+from ssim_tpu_torch.windows import RADIUS, gaussian_taps
+
+EMU_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "fwd_stream_emu")
+
+#: The card tests' tolerances (chip_smoke.py RELAXED_GRAD_TWIN and
+#: RELAXED_GRAD_STD): kernel against its relaxed twin, and the relaxed
+#: gradient against the standard one, each times max|g|.
+_GRAD_TWIN, _GRAD_STD = 1e-4, 1e-3
+
+
+def test_relaxed_stream_applies_at_radius_5_only():
+    """The relaxed backward streams at windows.RADIUS (every main-path
+    shape) with the 64-wide NaN tile, the tile every launch there takes;
+    every other radius keeps the relaxed tile kernel."""
+    assert ssim_grad.RELAXED_STREAM_RADIUS == RADIUS == 5
+    assert ssim_grad.default_tile(RADIUS) == (ssim_grad.TILE_H, ssim_grad.TILE_W)
+    for radius in range(1, 17):
+        for tile_w in (32, 64, 128):
+            want = radius == 5 and tile_w == 64
+            assert ssim_grad.relaxed_stream_applies(radius, tile_w) == want
+    assert ssim_grad.relaxed_stream_applies(RADIUS)
+
+
+class _FakeLib:
+    """A stand-in for the kernels' library: records ssim_bwd_launch's
+    arguments and succeeds."""
+
+    def __init__(self):
+        self.calls = []
+
+    def ssim_bwd_launch(self, *args):
+        self.calls.append(args)
+        return 0
+
+
+@pytest.fixture
+def fake_launch(monkeypatch):
+    """_launch on CPU tensors against _FakeLib, the card's occupancy and
+    streams stubbed: 2 relaxed (4 standard) streaming blocks on each of
+    an H100's 132 SMs."""
+    lib = _FakeLib()
+    monkeypatch.setattr(_build, "load_library", lambda: lib)
+    monkeypatch.setattr(ssim_grad, "_resident",
+                        lambda index, radius, gmap, relaxed=False: 132 * (2 if relaxed else 4))
+    monkeypatch.setattr(torch.cuda, "device", lambda d: contextlib.nullcontext())
+    monkeypatch.setattr(torch.cuda, "current_stream",
+                        lambda d=None: types.SimpleNamespace(cuda_stream=0))
+    return lib
+
+
+@pytest.mark.parametrize("radius", [4, 5, 16])
+@pytest.mark.parametrize("relaxed", [False, True])
+def test_launch_routes_and_counts(fake_launch, radius, relaxed):
+    """What the wrapper hands the C entry, and what it counts, per launch:
+    a relaxed launch at radius 5 passes a segment (stream_segment's, at the
+    relaxed occupancy) and adds one to RELAXED_LAUNCHES and
+    RELAXED_STREAM_LAUNCHES; at other radii it passes segment 0 (the tile
+    kernel) and adds to RELAXED_LAUNCHES only; a standard launch passes the
+    standard occupancy's segment and adds to LAUNCHES only. A pinned
+    segment reaches the entry as it is."""
+    bsz, h, w = 4, 1080, 1920
+    a = torch.zeros((bsz, h, w))
+    taps = gaussian_taps(np.float32, radius, 1.5)
+    kw = dict(taps=taps, c1=1e-4, c2=9e-4, clip_bound=131072.0, relaxed=relaxed)
+    before = (ssim_grad.LAUNCHES, ssim_grad.RELAXED_LAUNCHES,
+              ssim_grad.RELAXED_STREAM_LAUNCHES, ssim_grad.VHALO_LAUNCHES)
+    ssim_grad._launch(a, a, torch.ones(bsz), torch.zeros(bsz), None, **kw)
+    ssim_grad._launch(a, a, torch.ones(bsz), torch.zeros(bsz), None, segment=64, **kw)
+    streams = relaxed and radius == 5
+    after = (ssim_grad.LAUNCHES, ssim_grad.RELAXED_LAUNCHES,
+             ssim_grad.RELAXED_STREAM_LAUNCHES, ssim_grad.VHALO_LAUNCHES)
+    want = (0 if relaxed else 2, 2 if relaxed else 0, 2 if streams else 0, 0)
+    assert tuple(x - y for x, y in zip(after, before)) == want
+    (first, pinned) = fake_launch.calls
+    assert first[0] == int(relaxed) and pinned[0] == int(relaxed)
+    tile_h, tile_w = ssim_grad.default_tile(radius)
+    assert first[17:20] == (radius, tile_h, tile_w)
+    seg = first[20]
+    if relaxed and not streams:
+        assert seg == 0 and pinned[20] == 0
+    else:
+        resident = 132 * (2 if relaxed else 4)
+        assert seg == ssim_grad.stream_segment(bsz, h, w, radius, resident)
+        assert seg % tile_h == 0 and pinned[20] == 64
+
+
+def test_launch_rejects_a_segment_off_the_tiles(fake_launch):
+    """The relaxed streaming launch takes whole NaN tiles, 1 to
+    MAX_SEG_TILES of them, as the standard one."""
+    a = torch.zeros((1, 600, 600))
+    kw = dict(taps=gaussian_taps(np.float32, 5, 1.5), c1=1e-4, c2=9e-4,
+              clip_bound=131072.0, relaxed=True)
+    for seg in (48, 16, 32 * (ssim_grad.MAX_SEG_TILES + 1)):
+        with pytest.raises(ValueError):
+            ssim_grad._launch(a, a, torch.ones(1), torch.zeros(1), None, segment=seg, **kw)
+    assert not fake_launch.calls
+
+
+#: Relaxed streaming blocks an H100 holds at once: 2 per SM (~108 KB of
+#: shared memory a block) on each of its 132 SMs.
+H100_RELAXED_RESIDENT = 132 * 2
+
+
+@pytest.mark.parametrize("shape,fill", [((4, 1080, 1920), 0.95), ((4, 2160, 3840), 0.9),
+                                        ((1, 8640, 15360), 0.95), ((4, 540, 960), 0.7)])
+def test_relaxed_segment_fills_the_card(shape, fill):
+    """The segment the relaxed launches get at the H100's relaxed
+    occupancy (the shared model with its 4r-row prologue): whole NaN
+    tiles, 1 to MAX_SEG_TILES of them, ending less than a tile past the
+    image, and blocks that fill the slots of the waves they take (a last
+    wave of a twentieth runs beside the others): at least 90-95% at the
+    main-path shapes, 70% at MS-SSIM's scale 1 (192 blocks, one wave, at
+    3 tiles a segment)."""
+    bsz, h, w = shape
+    seg = ssim_grad.stream_segment(bsz, h, w, 5, H100_RELAXED_RESIDENT)
+    tile_h = ssim_grad.TILE_H
+    assert seg % tile_h == 0 and tile_h <= seg <= ssim_grad.MAX_SEG_TILES * tile_h
+    assert seg < h + tile_h
+    blocks = bsz * -(-h // seg) * -(-w // ssim_grad.STRIP_W)
+    full, rest = divmod(blocks, H100_RELAXED_RESIDENT)
+    waves = full + (rest > H100_RELAXED_RESIDENT / 20 or full == 0)
+    assert blocks / (waves * H100_RELAXED_RESIDENT) >= fill, (shape, seg)
+
+
+@pytest.fixture(scope="module")
+def bwd_emulator(tmp_path_factory):
+    """The relaxed streaming kernel's source (csrc/ssim_bwd.cu up to the
+    standard stream, and the relaxed stream's section without its
+    launchers), its dynamic shared memory pointed at the harness's buffer,
+    built with g++ into a host program; its path."""
+    gxx = shutil.which("g++")
+    if gxx is None:
+        pytest.skip("needs g++ to build the kernel's source for the host")
+    src = open(os.path.join(_build.CSRC_DIR, "ssim_bwd.cu")).read()
+    a = src.index("// Sets a kernel's dynamic shared-memory limit")
+    b = src.index("// ---------------------------------------------------------------------------\n"
+                  "// The relaxed tier at radius 5")
+    c = src.index("template <bool kGmap>\ncudaError_t prepare_relaxed_stream(")
+    body = src[:a] + src[b:c] + "}  // namespace\n"
+    decl = "extern __shared__ __align__(16) unsigned char rel_smem[];"
+    assert body.count(decl) == 1
+    body = body.replace(decl, "unsigned char* rel_smem = g_rel_smem;")
+    out = tmp_path_factory.mktemp("bwd_stream_emu")
+    (out / "ssim_bwd_stream.cu").write_text(body)
+    exe = out / "bwd_harness"
+    # band_mma.cuh: the emulator's (host models of mma, ldmatrix and
+    # stmatrix), which includes the kernels' own from csrc, next on the path.
+    subprocess.run([gxx, "-std=c++20", "-O1", "-ffp-contract=off", "-fno-strict-aliasing",
+                    "-pthread", "-I", str(out), "-I", EMU_DIR, "-I", _build.CSRC_DIR,
+                    "-o", str(exe), os.path.join(EMU_DIR, "bwd_harness.cpp")],
+                   check=True, capture_output=True, timeout=600)
+    return exe
+
+
+_TAPS = gaussian_taps(np.float32, 5, 1.5)
+_KW = dict(taps=_TAPS, c1=1e-4, c2=9e-4, clip_bound=131072.0)
+
+
+def _emulate(exe, a, b, w_s, w_cs, g_map, seg, vhalo=None, vmask=(0, 0)):
+    """The host build of the relaxed streaming kernel on NumPy (B, H, W) f32
+    inputs (data range 1): (da, db), NaN where it wrote nothing."""
+    bsz, h, w = a.shape
+    head = np.array([bsz, h, w, ssim_grad.TILE_H, seg, g_map is not None,
+                     vhalo is not None, *vmask], np.int32)
+    consts = np.array([_KW["c1"], _KW["c2"], _KW["clip_bound"]], np.float32)
+    parts = [head, _TAPS, ssim_grad.fold_coefficients(_TAPS), consts, a, b, w_s, w_cs]
+    parts += ([g_map] if g_map is not None else []) + list(vhalo or ())
+    path_in, path_out = f"{exe}.{os.getpid()}.in", f"{exe}.{os.getpid()}.out"
+    with open(path_in, "wb") as f:
+        for x in parts:
+            f.write(np.ascontiguousarray(x).tobytes())
+    subprocess.run([str(exe), path_in, path_out], check=True, timeout=600)
+    raw = np.fromfile(path_out, np.float32)
+    n = a.size
+    return (torch.from_numpy(raw[:n].reshape(a.shape).copy()),
+            torch.from_numpy(raw[n:].reshape(a.shape).copy()))
+
+
+def _hold(exe, a, b, seg, g_map=None, vhalo=None, vmask=(0, 0), seed=0):
+    """The host build against the relaxed twin on the same inputs: NaN
+    exactly where the twin's is, within _GRAD_TWIN * max|g| elsewhere, and
+    different from the standard twin but within _GRAD_STD * max|g|."""
+    rng = np.random.default_rng(seed)
+    bsz, h, w = a.shape
+    w_s = (rng.random(bsz) / (h * w)).astype(np.float32)
+    w_cs = (0.3 * rng.random(bsz) / (h * w)).astype(np.float32)
+    got = _emulate(exe, a, b, w_s, w_cs, g_map, seg, vhalo, vmask)
+    t = torch.from_numpy
+    kw = dict(_KW)
+    if vhalo is not None:
+        kw.update(vhalo=tuple(t(x) for x in vhalo), vmask=vmask)
+    g = None if g_map is None else t(g_map)
+    want = ssim_grad.ssim_grad_plain(t(a), t(b), t(w_s), t(w_cs), g, relaxed=True, **kw)
+    std = ssim_grad.ssim_grad_plain(t(a), t(b), t(w_s), t(w_cs), g, **kw)
+    fin = [~x.isnan() for x in std]
+    scale = max(float(x[f].abs().max()) for x, f in zip(std, fin) if f.any())
+    for k, p, s, f in zip(got, want, std, fin):
+        assert torch.equal(k.isnan(), p.isnan())
+        if f.any():
+            assert (k[f] - p[f]).abs().max().item() <= _GRAD_TWIN * scale
+            assert 0 < (k[f] - s[f]).abs().max().item() <= _GRAD_STD * scale
+    return got
+
+
+def _pair(rng, shape):
+    a = rng.random(shape).astype(np.float32)
+    return a, np.clip(a + rng.normal(0, 0.1, shape), 0, 1).astype(np.float32)
+
+
+#: (shape, segment, g_map): ragged last strips (W not a multiple of 128;
+#: 3 and 12 columns past the first strip) and last segments (H not a
+#: multiple of the segment), B = 2, segments of 1 and 2 tiles.
+_CASES = {
+    "B = 2, ragged strip and segment": ((2, 70, 200), 32, False),
+    "g_map, 2 tiles a segment": ((1, 75, 140), 64, True),
+    "g_map, B = 2": ((2, 40, 131), 32, True),
+}
+
+
+@pytest.mark.parametrize("case", list(_CASES))
+def test_relaxed_stream_source_matches_twin_on_the_host(bwd_emulator, case):
+    shape, seg, with_g = _CASES[case]
+    rng = np.random.default_rng(0xB5 + len(case))
+    a, b = _pair(rng, shape)
+    g_map = rng.normal(0, 1e-5, shape).astype(np.float32) if with_g else None
+    got = _hold(bwd_emulator, a, b, seg, g_map, seed=len(case))
+    assert all(torch.isfinite(x).all() for x in got)
+
+
+def test_relaxed_stream_source_one_row_on_the_host(bwd_emulator):
+    """H = 1, where both vertical folds land on the one row: the kernel's
+    source is as close to the f64 standard gradient as the relaxed twin is
+    (a one-row image cancels in the weight maps, so kernel and twin each
+    lie up to ~8e-5 x max|g| from it, in different roundings, and may
+    differ from each other by about that), within the tier's 1e-3 x
+    max|g|, and NaN nowhere."""
+    rng = np.random.default_rng(0xB8)
+    a, b = _pair(rng, (2, 1, 260))
+    w_s = np.full(2, 1 / 260, np.float32)
+    w_cs = np.full(2, 0.3 / 260, np.float32)
+    da, db = _emulate(bwd_emulator, a, b, w_s, w_cs, None, 32)
+    t = torch.from_numpy
+    want = ssim_grad.ssim_grad_plain(t(a), t(b), t(w_s), t(w_cs), None, relaxed=True, **_KW)
+    f64 = ssim_grad.ssim_grad_plain(t(a).double(), t(b).double(), t(w_s).double(),
+                                    t(w_cs).double(), None, **_KW)
+    scale = max(float(x.abs().max()) for x in f64)
+    for k, p, d in zip((da, db), want, f64):
+        assert torch.isfinite(k).all()
+        e_kernel = (k.double() - d).abs().max().item()
+        e_twin = (p.double() - d).abs().max().item()
+        assert e_kernel <= max(2 * e_twin, _GRAD_TWIN * scale)
+        assert e_kernel <= _GRAD_STD * scale
+
+
+@pytest.mark.parametrize("flags", [(0, 0), (1, 0), (0, 1), (1, 1)])
+def test_relaxed_stream_source_with_halo_operands_on_the_host(bwd_emulator, flags):
+    """A band of 37 rows (a segment of 32 and a ragged one of 5) of a
+    taller image, its 2r rows above and below as operands, each flag pair:
+    under a set flag the band's edge row is replicated, the loss rows
+    beyond the edge are dropped and the clamp folds onto the edge row; an
+    operand under a set flag is never read (NaN-filled here)."""
+    rng = np.random.default_rng(0xB6 + 2 * flags[0] + flags[1])
+    a, b = _pair(rng, (1, 97, 150))
+    lo, hi = 30, 67
+
+    def ring(x):
+        top = np.full_like(x[:, :10], np.nan) if flags[0] else x[:, lo - 10:lo]
+        bot = np.full_like(x[:, :10], np.nan) if flags[1] else x[:, hi:hi + 10]
+        return np.ascontiguousarray(top), np.ascontiguousarray(bot)
+
+    (a_top, a_bot), (b_top, b_bot) = ring(a), ring(b)
+    got = _hold(bwd_emulator, np.ascontiguousarray(a[:, lo:hi]),
+                np.ascontiguousarray(b[:, lo:hi]), 32, vhalo=(a_top, a_bot, b_top, b_bot),
+                vmask=flags, seed=3)
+    assert all(torch.isfinite(x).all() for x in got)
+
+
+def test_relaxed_stream_source_nonfinite_on_boundaries_on_the_host(bwd_emulator):
+    """Non-finite inputs on a segment's first and last rows, a strip's last
+    and first columns, 2r rows above a segment and the image's last pixel:
+    NaN over exactly the twin's 32 x 64 tiles (those within 2r), nowhere
+    else, and in no other image."""
+    rng = np.random.default_rng(0xB7)
+    a, b = _pair(rng, (3, 70, 260))
+    a[0, 32, 50] = np.nan
+    a[0, 31, 200] = np.inf
+    b[1, 22, 127] = -np.inf
+    a[1, 60, 128] = np.nan
+    b[1, 69, 259] = np.nan
+    got = _hold(bwd_emulator, a, b, 32)
+    assert got[0][0].isnan().any() and got[0][1].isnan().any()
+    assert not got[0][1].isnan().all() and torch.isfinite(got[0][2]).all()

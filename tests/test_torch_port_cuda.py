@@ -982,33 +982,156 @@ def test_relaxed_stream_leaves_other_modes_on_tile_body_on_card(mode):
             before[0], before[1] + 1)
 
 
+def _relaxed_grad(at, bt, w_s, w_cs, g_map, seg=None, radius=5, sigma=1.5, **halo):
+    """K3 relaxed through ssim_grad._launch (the segment pinned where seg is
+    given), checking its counts: RELAXED_LAUNCHES + 1, and
+    RELAXED_STREAM_LAUNCHES + 1 exactly where relaxed_stream_applies; then
+    the standard K3 and the relaxed twin on the same card tensors (data
+    range 1). Returns (kernel, twin, standard)."""
+    kw = dict(taps=gaussian_taps(np.float32, radius, sigma), c1=1e-4, c2=9e-4,
+              clip_bound=131072.0, **halo)
+    counts = lambda: (ssim_grad.LAUNCHES, ssim_grad.VHALO_LAUNCHES,
+                      ssim_grad.RELAXED_LAUNCHES, ssim_grad.RELAXED_STREAM_LAUNCHES)
+    before = counts()
+    got = ssim_grad._launch(at, bt, w_s, w_cs, g_map, relaxed=True, segment=seg, **kw)
+    torch.cuda.synchronize()
+    streams = ssim_grad.relaxed_stream_applies(radius)
+    assert counts() == (before[0], before[1], before[2] + 1, before[3] + streams)
+    std = ssim_grad._launch(at, bt, w_s, w_cs, g_map, **kw)
+    want = ssim_grad.ssim_grad_plain(at, bt, w_s, w_cs, g_map, relaxed=True, **kw)
+    torch.cuda.synchronize()
+    return got, want, std
+
+
+def _hold_relaxed_grad(got, want, std):
+    """Kernel against its relaxed twin: NaN exactly where the twin's is,
+    within _RELAXED_GRAD * max|g| elsewhere; different from the standard
+    K3 and within 1e-3 * max|g| of it."""
+    fin = [~x.isnan() for x in std]
+    scale = max(x[f].abs().max().item() for x, f in zip(std, fin) if f.any())
+    for k, p, s, f in zip(got, want, std, fin):
+        assert torch.equal(k.isnan(), p.isnan())
+        assert torch.equal(k.isnan(), s.isnan())
+        if f.any():
+            assert (k[f] - p[f]).abs().max().item() <= _RELAXED_GRAD * scale
+            assert 0 < (k[f] - s[f]).abs().max().item() <= 1e-3 * scale
+
+
+#: The relaxed stream's geometries (radius 5, NaN tiles 32 x 64): (shape,
+#: segment, or None for the wrapper's): ragged strips (W = 4 x 128 + 5)
+#: and segments, B > 1, segments of 1, 2 and 16 tiles, H = 2S + 1.
+_RELAXED_BWD_CASES = {
+    "wrapper's segment": ((2, 150, 600), None),
+    "1-tile segments, ragged": ((2, 70, 517), 32),
+    "16-tile segments": ((1, 1100, 600), 512),
+    "2S+1": ((2, 129, 640), 64),
+}
+
+
 @pytest.mark.cuda
+@pytest.mark.parametrize("case", list(_RELAXED_BWD_CASES))
 @pytest.mark.parametrize("with_g", [False, True])
-def test_relaxed_backward_matches_twin_on_card(with_g):
-    """The backward kernel's relaxed mode (every band pass split) against
-    its twin, and within 1e-3 * max|g| of the standard kernel."""
+def test_relaxed_backward_matches_twin_on_card(with_g, case):
+    """The backward kernel's relaxed mode (every band pass split; at
+    radius 5 the streaming kernel) against its twin, and within 1e-3 *
+    max|g| of the standard kernel, at the stream's geometries: the public
+    call at the wrapper's segment, then pinned segments."""
     _need_card()
     torch.backends.cuda.matmul.allow_tf32 = False
-    rng = np.random.default_rng(0x61)
-    shape = (2, 150, 600)
+    shape, seg = _RELAXED_BWD_CASES[case]
+    rng = np.random.default_rng(0x61 + len(case))
     a = rng.random(shape, dtype=np.float32)
     b = np.clip(a + rng.normal(0, 0.05, shape), 0, 1).astype(np.float32)
     at, bt = torch.from_numpy(a).cuda(), torch.from_numpy(b).cuda()
     g_map = torch.from_numpy(rng.normal(0, 1e-5, shape).astype(np.float32)).cuda() \
         if with_g else None
+    w_s = torch.full((shape[0],), 1.0 / a[0].size, device="cuda")
+    w_cs = torch.full((shape[0],), 0.2 / a[0].size, device="cuda")
+    if seg is None:
+        before = (ssim_grad.LAUNCHES, ssim_grad.RELAXED_LAUNCHES,
+                  ssim_grad.RELAXED_STREAM_LAUNCHES)
+        rk = ssim_grad.ssim_grad_cuda(at, bt, w_s, w_cs, g_map, data_range=1.0,
+                                      relaxed=True)
+        torch.cuda.synchronize()
+        assert (ssim_grad.LAUNCHES, ssim_grad.RELAXED_LAUNCHES,
+                ssim_grad.RELAXED_STREAM_LAUNCHES) == (before[0], before[1] + 1,
+                                                       before[2] + 1)
+        sk = ssim_grad.ssim_grad_cuda(at, bt, w_s, w_cs, g_map, data_range=1.0)
+        rp = ssim_grad.ssim_grad_plain(at, bt, w_s, w_cs, g_map, relaxed=True,
+                                       **_twin_kw(1.0))
+    else:
+        rk, rp, sk = _relaxed_grad(at, bt, w_s, w_cs, g_map, seg)
+    assert all(torch.isfinite(x).all() for x in rk)
+    _hold_relaxed_grad(rk, rp, sk)
+
+
+@pytest.mark.cuda
+def test_relaxed_backward_nonfinite_on_boundaries_on_card():
+    """The relaxed stream with non-finite pixels on a segment's first and
+    last rows, 2r rows above a segment's first row, a strip's first and
+    last columns and the image's last pixel, in segments of two tiles: NaN
+    over exactly the twin's tiles, in their own image only."""
+    _need_card()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    seg = 64
+    rng = np.random.default_rng(0x65)
+    a = rng.random((3, 2 * seg + 7, 600)).astype(np.float32)
+    b = np.clip(a + rng.normal(0, 0.05, a.shape), 0, 1).astype(np.float32)
+    a[0, seg, 200] = np.nan
+    a[0, seg - 10, 40] = np.nan
+    a[1, seg - 1, 127] = np.inf
+    b[1, 3, 128] = -np.inf
+    b[1, -1, -1] = np.nan
+    at, bt = torch.from_numpy(a).cuda(), torch.from_numpy(b).cuda()
+    w_s = torch.full((3,), 1.0 / a[0].size, device="cuda")
+    w_cs = torch.full((3,), 0.1 / a[0].size, device="cuda")
+    rk, rp, sk = _relaxed_grad(at, bt, w_s, w_cs, None, seg)
+    _hold_relaxed_grad(rk, rp, sk)
+    assert rk[0][0, seg, 0].isnan() and rk[0][1].isnan().any()
+    assert torch.isfinite(rk[0][2]).all() and torch.isfinite(rk[1][2]).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("flags", [(1, 0), (0, 0), (0, 1), (1, 1)])
+def test_relaxed_backward_halo_operands_on_card(flags):
+    """The relaxed stream with halo operands: a band of 137 rows (segments
+    of two tiles) of a 300-row image, its 2r rows above and below as a ring
+    delivers them; flags top, inside, bottom and both."""
+    _need_card()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    rng = np.random.default_rng(0x66 + 2 * flags[0] + flags[1])
+    a = rng.random((2, 300, 600)).astype(np.float32)
+    b = np.clip(a + rng.normal(0, 0.05, a.shape), 0, 1).astype(np.float32)
+    at, bt = torch.from_numpy(a).cuda(), torch.from_numpy(b).cuda()
+    lo, hi = 100, 237
+    band_a, band_b = at[:, lo:hi].contiguous(), bt[:, lo:hi].contiguous()
+    a_top, a_bot = _halo(at, lo, hi, 10, flags)
+    b_top, b_bot = _halo(bt, lo, hi, 10, flags)
+    w_s = torch.full((2,), 1.0 / band_a[0].numel(), device="cuda")
+    w_cs = torch.full((2,), 0.2 / band_a[0].numel(), device="cuda")
+    rk, rp, sk = _relaxed_grad(band_a, band_b, w_s, w_cs, None, 64,
+                               vhalo=(a_top, a_bot, b_top, b_bot), vmask=flags)
+    assert all(torch.isfinite(x).all() for x in rk)
+    _hold_relaxed_grad(rk, rp, sk)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("radius", [4, 16])
+def test_relaxed_backward_other_radii_keep_the_tile_kernel_on_card(radius):
+    """At radii other than 5 a relaxed launch runs the relaxed tile kernel
+    (RELAXED_STREAM_LAUNCHES does not move) and matches its twin."""
+    _need_card()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    rng = np.random.default_rng(0x67 + radius)
+    a = rng.random((2, 150, 600)).astype(np.float32)
+    b = np.clip(a + rng.normal(0, 0.05, a.shape), 0, 1).astype(np.float32)
+    at, bt = torch.from_numpy(a).cuda(), torch.from_numpy(b).cuda()
     w_s = torch.full((2,), 1.0 / a[0].size, device="cuda")
     w_cs = torch.full((2,), 0.2 / a[0].size, device="cuda")
-    before = (ssim_grad.LAUNCHES, ssim_grad.RELAXED_LAUNCHES)
-    rk = ssim_grad.ssim_grad_cuda(at, bt, w_s, w_cs, g_map, data_range=1.0, relaxed=True)
-    torch.cuda.synchronize()
-    assert (ssim_grad.LAUNCHES, ssim_grad.RELAXED_LAUNCHES) == (before[0], before[1] + 1)
-    sk = ssim_grad.ssim_grad_cuda(at, bt, w_s, w_cs, g_map, data_range=1.0)
-    rp = ssim_grad.ssim_grad_plain(at, bt, w_s, w_cs, g_map, relaxed=True, **_twin_kw(1.0))
-    scale = max(x.abs().max().item() for x in sk)
-    for k, p, s in zip(rk, rp, sk):
-        assert torch.isfinite(k).all()
-        assert (k - p).abs().max().item() <= _RELAXED_GRAD * scale
-        assert 0 < (k - s).abs().max().item() <= 1e-3 * scale
+    rk, rp, sk = _relaxed_grad(at, bt, w_s, w_cs, None, radius=radius,
+                               sigma={4: 1.5, 16: 3.0}[radius])
+    assert all(torch.isfinite(x).all() for x in rk)
+    _hold_relaxed_grad(rk, rp, sk)
 
 
 def _pad_input(dtype, shape):
