@@ -34,22 +34,25 @@ Phases, each of which raises on failure (the script then exits non-zero):
    for the device's busy time per step and the backward kernel's part of
    it (phases 6 and 9 likewise for their steps);
 6. MS-SSIM: the forward kernel's components and pooled-components modes
-   against their plain twins (pooled images bit for bit, and for uint8
-   equal to an exact 2x2 mean computed on the host; per-image [sum cs,
-   sum ssim] within the twin tolerance) at tiny and ragged, 1080p x4,
-   1x1024x20480, float-with-NaN (the NaN reaches only its own image and
-   pooled pixel) and custom sigma/k1/k2 shapes; one `compute_ms_ssim` on
-   NumPy uint8 (4, 1080, 1920) with no `device` (exactly 4 pooled and 1
-   components launch, no standard-mode launch, scores within 2e-5 of
-   `impl="torch"`), with every scale of its pyramid held against the
-   twins at its own shape; the gradient of 1 - `ms_ssim` at (4, 1080,
-   1920) f32 against autograd of `impl="torch"` (2e-5 of max|g|); five
-   Adam steps on 1 - `ms_ssim` there (the loss must fall; exactly 25
-   components and 25 backward launches), and the components mode against
-   its twin on the trained pair; then times each mode and its twin at the
-   pyramid's shapes with CUDA events, the whole `compute_ms_ssim` call
-   and a training step with the host clock, traces five steps, and prints
-   the bounds of K5;
+   (row-streaming since the components redesign) against their plain
+   twins (pooled images bit for bit, and for uint8 equal to an exact 2x2
+   mean computed on the host; per-image [sum cs, sum ssim] within the
+   twin tolerance) at tiny and ragged, 1080p x4, 1x1024x20480,
+   float-with-NaN (the NaN reaches only its own image and pooled pixel)
+   and custom sigma/k1/k2 shapes; one `compute_ms_ssim` on NumPy uint8
+   (4, 1080, 1920) with no `device` (exactly 4 pooled and 1 components
+   launch, scales 0 and 1 through the streaming kernel and scales 2-4,
+   under `STREAM_COMP_MIN_PIX`, through the tile body; no standard-mode
+   launch; scores within 2e-5 of `impl="torch"`), with every scale of its pyramid
+   held against the twins at its own shape; the gradient of 1 - `ms_ssim`
+   at (4, 1080, 1920) f32 against autograd of `impl="torch"` (2e-5 of
+   max|g|); five Adam steps on 1 - `ms_ssim` there (the loss must fall;
+   exactly 25 components launches, the 10 of scales 0 and 1 streaming,
+   and 25 backward launches), and the components mode against its twin on the trained
+   pair; then times each mode, the tile body beside it (a pinned 16x256
+   tile) and its twin at the pyramid's shapes with CUDA events and in a
+   trace, the whole `compute_ms_ssim` call and a training step with the
+   host clock, traces five steps, and prints the bounds of K5;
 7. the precise tier (`precision="f64"`): the forward kernel's precise
    modes, with and without the map, against their plain twin (maps bit
    for bit, per-image fp64 scores within 1e-12 relative) at tiny and
@@ -126,8 +129,11 @@ Phases, each of which raises on failure (the script then exits non-zero):
    `ssim_loss(accuracy="relaxed")` (every relaxed forward launch
    streaming) and on 1 - `ms_ssim(accuracy="relaxed")` at (4, 1080,
    1920) and one `compute_ms_ssim(accuracy="relaxed")` at msssim_1080_b4
-   (relaxed at the scales >= 512 wide, standard below, none streaming;
-   within 1e-4 of `impl="torch"`); (c) each relaxed mode beside the
+   (relaxed at the scales >= 512 wide, on the tile body, and standard
+   below, under `STREAM_COMP_MIN_PIX`: the tile body; within 1e-4 of
+   `impl="torch"`); of all these calls' relaxed launches exactly the 6
+   kScore / kMap ones stream, counted launch by launch apart from the
+   standard ones, and no other launch streams; (c) each relaxed mode beside the
    standard mode on the same input with CUDA events (in turns), its twin
    and its bound: kScore and kMap at 1080p x4, 4K x4, 16K x1 and
    1x1024x20480 beside the standard streaming modes;
@@ -486,6 +492,12 @@ def k3_ms(top):
     return sum(ms for name, ms in top if "ssim_bwd" in name)
 
 
+def fwd_ms(top):
+    """The forward kernel's ms per call in a trace's operations (every
+    instantiation of ssim_fwd.cu: the streaming kernel and the tile body)."""
+    return sum(ms for name, ms in top if "ssim_fwd" in name)
+
+
 def kernel_trace_ms(fn, reps, name):
     """Device ms per fn() call of the kernels whose name holds `name`, from
     one torch.profiler trace of reps calls: the kernel alone. Where a
@@ -510,11 +522,19 @@ MAIN_CONFIGS = [("1080p_b4", (4, 1080, 1920)), ("4k_b4", (4, 2160, 3840)),
 
 #: The forward kernel's designs, named in the kernels line: the score,
 #: map and row modes at radius 5 stream rows (ssim_cuda.stream_applies,
-#: counted by ssim_cuda.STREAM_LAUNCHES), and so do the precise modes in
-#: fp64 (PRECISE_STREAM_DESIGN); every other mode keeps the tile body.
+#: counted by ssim_cuda.STREAM_LAUNCHES), and so do the components and
+#: pooled modes (COMP_STREAM_DESIGN) and the precise modes in fp64
+#: (PRECISE_STREAM_DESIGN); every other mode keeps the tile body.
 STREAM_DESIGN = ("row-streaming column strips (ssim_fwd_stream_kernel: 128 columns, "
                  "one thread each, a register window of 2r + 1 rows)")
 TILE_DESIGN = "one block per output tile (ssim_fwd_kernel)"
+COMP_STREAM_DESIGN = (
+    "row-streaming column strips (ssim_fwd_stream_kernel<T, kComponents|kPooled>: 128 "
+    "columns, one thread each, a register window of 2r + 1 rows) with the components "
+    "epilogue: lum and cs per pixel, two warp sums per tile, [sum(cs - 1), sum(ssim - 1)] "
+    "+ n per tile; kPooled keeps the strip's raw input rows in a shared-memory ring of 4 "
+    "and 64 threads pool rows s - 1 and s at each odd output row; 8 blocks/SM); launches "
+    "under STREAM_COMP_MIN_PIX pixels (MS-SSIM scales 2-4): the tile body")
 PRECISE_STREAM_DESIGN = (
     "row-streaming column strips in fp64 (ssim_fwd_stream_kernel<T, kPrecise>: 128 "
     "columns, one thread each; a staged row of two double2 planes, blurred across by "
@@ -928,6 +948,30 @@ def launch_counts():
                 pad=pad.PAD_LAUNCHES, stream=ssim_cuda.STREAM_LAUNCHES)
 
 
+def streamed_by_mode(fn):
+    """fn()'s result and its forward launches that streamed, by mode
+    ("relaxed <mode>" for the relaxed ones; 0 where a mode launched only
+    the tile body): STREAM_LAUNCHES read around each ssim_cuda._launch,
+    which the wrappers look up in the module at each call."""
+    from ssim_tpu_torch.ops import ssim_cuda
+
+    launch, by = ssim_cuda._launch, {}
+
+    def spied(*args, **kw):
+        before = ssim_cuda.STREAM_LAUNCHES
+        out = launch(*args, **kw)
+        key = ("relaxed " if kw.get("relaxed") else "") + kw["mode"]
+        by[key] = by.get(key, 0) + ssim_cuda.STREAM_LAUNCHES - before
+        return out
+
+    ssim_cuda._launch = spied
+    try:
+        out = fn()
+    finally:
+        ssim_cuda._launch = launch
+    return out, by
+
+
 def counts_of(**nonzero):
     """The launch counts with every mode at 0 but those given."""
     return dict(dict.fromkeys(launch_counts(), 0), **nonzero)
@@ -948,9 +992,11 @@ def zero_counts():
 
 def phase_msssim(gen, label):
     import ssim_tpu_torch
+    from ssim_tpu_torch.ops import ssim_cuda
     from ssim_tpu_torch.ops.ssim_cuda import (
         ssim_components_cuda, ssim_components_pooled_cuda,
     )
+    from ssim_tpu_torch.tools.fwd_times import comp_tile_body
 
     print("phase 6: MS-SSIM (components and pooled-components modes)", flush=True)
     # (a) Both modes against their twins.
@@ -984,16 +1030,18 @@ def phase_msssim(gen, label):
     a_np, b_np = a.cpu().numpy(), b.cpu().numpy()
     torch.cuda.synchronize()
     zero_counts()
-    s_np = ssim_tpu_torch.compute_ms_ssim(a_np, b_np)
+    s_np, infer_stream = streamed_by_mode(lambda: ssim_tpu_torch.compute_ms_ssim(a_np, b_np))
     infer = launch_counts()
-    check(infer == counts_of(components=1, pooled=4),
-          f"compute_ms_ssim launches {infer}, expected 4 pooled and 1 components")
+    check(infer == counts_of(components=1, pooled=4, stream=2)
+          and infer_stream == {"pooled": 2, "components": 0},
+          f"compute_ms_ssim launches {infer}, streaming {infer_stream}; expected 4 pooled "
+          f"and 1 components, the pooled ones of scales 0 and 1 streaming")
     s_plain = ssim_tpu_torch.compute_ms_ssim(a_np, b_np, impl="torch")
     d = float(np.abs(s_np - s_plain).max())
     check(s_np.shape == shape[:1] and np.isfinite(s_np).all() and d <= 2e-5,
           f"compute_ms_ssim {s_np} vs impl=torch {s_plain} ({d:.3g})")
-    print(f"  compute_ms_ssim NumPy u8 {shape}, no device: launches {infer}; "
-          f"scores {s_np}; vs impl=\"torch\" on the card {d:.3g}", flush=True)
+    print(f"  compute_ms_ssim NumPy u8 {shape}, no device: launches {infer}, streaming "
+          f"{infer_stream}; scores {s_np}; vs impl=\"torch\" on the card {d:.3g}", flush=True)
     # Each scale of that call's pyramid against the twins at its own shape:
     # the pooled f32 scales 1-3 (scale 1 is held in (a)) and the last.
     scales = [(a, b, 255.0)]
@@ -1041,12 +1089,13 @@ def phase_msssim(gen, label):
 
     torch.cuda.synchronize()
     zero_counts()
-    results = [step() for _ in range(5)]
+    results, train_stream = streamed_by_mode(lambda: [step() for _ in range(5)])
     train = launch_counts()
     losses = [float(loss) for loss, _ in results]
-    check(train == counts_of(components=25, backward=25),
-          f"5 MS-SSIM training steps launched {train}, expected 25 components and "
-          f"25 backward")
+    check(train == counts_of(components=25, backward=25, stream=10)
+          and train_stream == {"components": 10},
+          f"5 MS-SSIM training steps launched {train}, streaming {train_stream}; "
+          f"expected 25 components (the 10 of scales 0 and 1 streaming) and 25 backward")
     check(all(bool(f) for _, f in results), "non-finite gradients in MS-SSIM training")
     check(all(np.isfinite(losses)) and losses[-1] < losses[0],
           f"the MS-SSIM loss did not fall: {losses}")
@@ -1059,10 +1108,11 @@ def phase_msssim(gen, label):
     # (d) Times at the pyramid's shapes: pooled u8 at scale 0, pooled f32
     # at scale 1, components at the last scale (u8 pyramid) and at scale 0
     # of the training pyramid, and components at width 20480 (the width
-    # JAX serves with K2); each mode's twin beside it. Kernel times by
-    # CUDA events around back-to-back calls and, from a profiler trace, of
-    # the kernel alone (at the last scale the events measure the wrapper's
-    # host work, longer than the kernel).
+    # JAX serves with K2); each mode's tile body (a pinned 16x256 tile) and
+    # twin beside it. Kernel times by CUDA events around back-to-back calls
+    # (the streaming kernel and the tile body in turns) and, from a profiler
+    # trace, of the kernel alone (at the last scale the events measure the
+    # wrapper's host work, longer than the kernel).
     modes = [
         ("pooled_u8_scale0", True, scales[0]),
         ("pooled_f32_scale1", True, scales[1]),
@@ -1073,17 +1123,44 @@ def phase_msssim(gen, label):
     times = {}
     for name, pooled, (ta, tb, dr) in modes:
         fn = ssim_components_pooled_cuda if pooled else ssim_components_cuda
-        t_k = cuda_ms(lambda: fn(ta, tb, data_range=dr), 20)
-        t_dev = kernel_trace_ms(lambda: fn(ta, tb, data_range=dr), 20, "ssim_fwd_kernel")
+        tile = lambda: comp_tile_body(ta, tb, pooled, dr)
+        t_t1 = cuda_ms(tile, 20)
+        t_k1 = cuda_ms(lambda: fn(ta, tb, data_range=dr), 20)
+        t_k2 = cuda_ms(lambda: fn(ta, tb, data_range=dr), 20)
+        t_t2 = cuda_ms(tile, 20)
+        t_k = min(t_k1, t_k2)
+        # Both designs' kernels: ssim_fwd_stream_kernel and ssim_fwd_kernel.
+        t_dev = kernel_trace_ms(lambda: fn(ta, tb, data_range=dr), 20, "ssim_fwd")
+        t_tdev = kernel_trace_ms(tile, 20, "ssim_fwd")
         t_p = cuda_ms(lambda: comp_twin(ta, tb, pooled, data_range=dr), 5)
+        # The two designs on the same input: pooled images bit for bit,
+        # per-image means within the twin tolerance (other tile grids).
+        got, ref = fn(ta, tb, data_range=dr), tile()
+        if pooled:
+            check(same(got[1], ref[1]) and same(got[2], ref[2]),
+                  f"{name}: pooled images differ from the tile body's")
+            got, ref = got[0], ref[0]
+        npix = ta.shape[-1] * ta.shape[-2]
+        d = float((got.double().sum(-2) - ref.double().sum(-2)).abs().max()) / npix
+        check(d <= max(TWIN_GLOBAL, 2 * TWIN_PIXEL / npix**0.5),
+              f"{name}: streaming vs tile body means {d:.3g}")
         bnd, by = comp_bound(tuple(ta.shape), ta.element_size(), pooled)
         mpix = ta.numel() / 1e6
-        times[name] = dict(shape=list(ta.shape), ms=t_k, device_ms=t_dev, plain_ms=t_p,
-                           bound_ms=bnd, bound_by=by, mpix_s=mpix / t_k * 1e3)
-        dev = "not recorded" if t_dev is None else f"{t_dev:.4f} ms"
-        print(f"  {name} {tuple(ta.shape)} {ta.dtype}: kernel {t_k:.4f} ms "
-              f"({mpix / t_k * 1e3:.1f} Mpix/s), in the trace {dev}; plain twin "
-              f"{t_p:.4f} ms; bound {bnd:.4f} ms ({by}) | {label}", flush=True)
+        times[name] = dict(shape=list(ta.shape), ms=t_k, turns_ms=[t_k1, t_k2],
+                           device_ms=t_dev, tile_body_ms=[t_t1, t_t2],
+                           tile_body_device_ms=t_tdev, plain_ms=t_p, bound_ms=bnd,
+                           bound_by=by, mpix_s=mpix / t_k * 1e3)
+        dev = lambda t: "not recorded" if t is None else f"{t:.4f} ms"
+        design = ("streaming" if ssim_cuda.stream_applies(
+            "pooled" if pooled else "components", 5, ssim_cuda.TILE_W, npix=ta.numel())
+            else "the tile body, under STREAM_COMP_MIN_PIX")
+        times[name]["design"] = design
+        print(f"  {name} {tuple(ta.shape)} {ta.dtype}: kernel ({design}) {t_k1:.4f} / "
+              f"{t_k2:.4f} ms ({mpix / t_k * 1e3:.1f} Mpix/s), in the trace "
+              f"{dev(t_dev)}; the tile body (16x256) {t_t1:.4f} / {t_t2:.4f} ms, in the "
+              f"trace {dev(t_tdev)} (in turns: tile body, stream, stream, tile body), "
+              f"means {d:.3g} apart; plain twin {t_p:.4f} ms; bound {bnd:.4f} ms ({by}) | "
+              f"{label}", flush=True)
     del scales, wide
     e2e = host_times(lambda: ssim_tpu_torch.compute_ms_ssim(a, b), 10)
     steps = host_times(step, 10)
@@ -1103,7 +1180,9 @@ def phase_msssim(gen, label):
               f"{busy / t_step:.1%} of the untraced step, {busy / window:.1%} of the "
               f"traced window ({window:.3f} ms per step); {n_ops:.0f} device "
               f"operations per step; K3 {k3_ms(top):.4f} ms per step, "
-              f"{k3_ms(top) / t_step:.1%} of the untraced step", flush=True)
+              f"{k3_ms(top) / t_step:.1%} of the untraced step; the components "
+              f"forward {fwd_ms(top):.4f} ms per step ({fwd_ms(top) / busy:.1%} of the "
+              f"device busy time)", flush=True)
         for name, ms in top[:8]:
             print(f"    {ms:.4f} ms  {name[:90]}", flush=True)
 
@@ -1114,11 +1193,13 @@ def phase_msssim(gen, label):
         k5[f"{side}x{side}x{bsz}"] = bound_ms(2 * npix + 4 * bsz, (24 * 5 + 43) * npix)
     print("  K5 bounds " + ", ".join(f"{k} {v[0]:.4f} ms ({v[1]})" for k, v in k5.items())
           + f" | {label}", flush=True)
-    records = dict(times=times, infer=infer, train=train, losses=losses,
+    records = dict(times=times, infer=infer, train=train, infer_stream=infer_stream,
+                   train_stream=train_stream, losses=losses,
                    grad_err=grad_err, grad_scale=grad_scale,
                    compute_ms_ssim_ms=e2e, train_step_ms=steps, trace_busy_ms=busy,
                    trace_window_ms=window, trace_ops_per_step=n_ops,
-                   trace_k3_ms=k3_ms(top), trace_top=top[:8], k5_bounds=k5)
+                   trace_k3_ms=k3_ms(top), trace_fwd_ms=fwd_ms(top), trace_top=top[:8],
+                   k5_bounds=k5)
     return err, records
 
 
@@ -2483,14 +2564,17 @@ def phase_relaxed_path(gen, inputs):
     from ssim_tpu_torch.ops import ssim_cuda
 
     print('phase 10b: the public path with accuracy="relaxed"', flush=True)
-    fwd = bwd = streamed = bwd_streamed = 0
+    fwd = bwd = streamed = relaxed_streamed = bwd_streamed = 0
     by_call = {}
 
     def counted(name, fn):
-        nonlocal fwd, bwd, streamed, bwd_streamed
+        # The relaxed launches that streamed are counted launch by launch,
+        # apart from the standard launches beside them.
+        nonlocal fwd, bwd, streamed, relaxed_streamed, bwd_streamed
         torch.cuda.synchronize()
         zero_counts()
-        out = fn()
+        out, by_mode = streamed_by_mode(fn)
+        relaxed_streamed += sum(v for k, v in by_mode.items() if k.startswith("relaxed"))
         torch.cuda.synchronize()
         counts = launch_counts()
         by_call[name] = {k: v for k, v in counts.items() if v}
@@ -2550,7 +2634,8 @@ def phase_relaxed_path(gen, inputs):
     print(f"  2 Adam steps on ssim_loss(accuracy=\"relaxed\") {shape}: 1-SSIM {losses}; "
           f"launches {by_call['ssim_loss step']}", flush=True)
 
-    # MS-SSIM: scales 0 (1920) and 1 (960) are relaxed, 2-4 standard.
+    # MS-SSIM: scales 0 (1920) and 1 (960) are relaxed (the tile body), 2-4
+    # standard (under STREAM_COMP_MIN_PIX: the tile body).
     a, b = inputs["pooled"]
     ms, counts = counted("compute_ms_ssim", lambda: ssim_tpu_torch.compute_ms_ssim(
         a, b, accuracy="relaxed"))
@@ -2569,11 +2654,16 @@ def phase_relaxed_path(gen, inputs):
           f"2 relaxed MS-SSIM steps (and the final loss) launched {counts}")
     print(f"  2 Adam steps on 1 - ms_ssim(accuracy=\"relaxed\") {shape}: {losses}; "
           f"launches {by_call['ms_ssim step']}", flush=True)
-    check(streamed == 6, f"{streamed} of the public path's relaxed launches streamed, "
-          f"expected the 6 kScore / kMap ones")
+    check(relaxed_streamed == 6, f"{relaxed_streamed} of the public path's {fwd} relaxed "
+          f"launches streamed, expected the 6 kScore / kMap ones")
+    check(streamed == 6, f"{streamed} of the public path's forward launches streamed, "
+          f"expected the 6 relaxed kScore / kMap ones (MS-SSIM's standard scales 2-4 "
+          f"run the tile body)")
     check(bwd == bwd_streamed == 6, f"{bwd_streamed} of the public path's {bwd} relaxed "
           f"K3 launches streamed, expected all 6")
-    return fwd, bwd, streamed, bwd_streamed, by_call
+    print(f"  relaxed launches {fwd}, {relaxed_streamed} of them streaming; all forward "
+          f"launches streaming {streamed}", flush=True)
+    return fwd, bwd, relaxed_streamed, bwd_streamed, by_call
 
 
 def phase_relaxed_times(gen, label, inputs):
@@ -3022,34 +3112,44 @@ def main():
         "name": "ssim_fwd_components",
         "route": "cuda",
         "source": "ssim_tpu_torch/csrc/ssim_fwd.cu",
-        "design": TILE_DESIGN,
+        "design": COMP_STREAM_DESIGN,
         "replaces": "ssim_tpu/ops/ssim_pallas.py:1957 (K1 mode c), "
                     "ssim_tpu/ops/ssim_pallas.py:1364 (K2 components)",
         "launches": ms["infer"]["components"],
+        "launches_stream": ms["infer_stream"]["components"],
         "launches_training": ms["train"]["components"],
+        "launches_stream_training": ms["train_stream"]["components"],
         "max_abs_err": comp_err,
         **{k: ms["times"]["components_f32_train_scale0"][k]
-           for k in ("ms", "device_ms", "plain_ms", "bound_ms", "bound_by", "shape")},
+           for k in ("ms", "turns_ms", "device_ms", "tile_body_ms", "tile_body_device_ms",
+                     "plain_ms", "bound_ms", "bound_by", "shape")},
         "library_ms": None,
         **{f"{k}_last_scale": ms["times"]["components_f32_scale4"][k]
-           for k in ("ms", "device_ms", "plain_ms", "bound_ms", "shape")},
-        "ms_wide": ms["times"]["components_u8_wide"]["ms"],
-        "shape_wide": ms["times"]["components_u8_wide"]["shape"],
+           for k in ("design", "ms", "device_ms", "tile_body_ms", "tile_body_device_ms",
+                     "plain_ms", "bound_ms", "shape")},
+        **{f"{k}_wide": ms["times"]["components_u8_wide"][k]
+           for k in ("ms", "device_ms", "tile_body_ms", "tile_body_device_ms", "plain_ms",
+                     "bound_ms", "shape")},
     }, {
         "name": "ssim_fwd_pooled",
         "route": "cuda",
         "source": "ssim_tpu_torch/csrc/ssim_fwd.cu",
-        "design": TILE_DESIGN,
+        "design": COMP_STREAM_DESIGN,
         "replaces": "ssim_tpu/ops/ssim_pallas.py:2066 (K1 mode d)",
         "launches": ms["infer"]["pooled"],
+        "launches_stream": ms["infer_stream"]["pooled"],
         "max_abs_err": comp_err,
         **{k: ms["times"]["pooled_u8_scale0"][k]
-           for k in ("ms", "device_ms", "plain_ms", "bound_ms", "bound_by", "shape")},
+           for k in ("ms", "turns_ms", "device_ms", "tile_body_ms", "tile_body_device_ms",
+                     "plain_ms", "bound_ms", "bound_by", "shape")},
         "library_ms": None,
-        "ms_f32_scale1": ms["times"]["pooled_f32_scale1"]["ms"],
-        "device_ms_f32_scale1": ms["times"]["pooled_f32_scale1"]["device_ms"],
+        **{f"{k}_f32_scale1": ms["times"]["pooled_f32_scale1"][k]
+           for k in ("ms", "device_ms", "tile_body_ms", "tile_body_device_ms", "plain_ms",
+                     "bound_ms")},
         "compute_ms_ssim_ms": statistics.median(ms["compute_ms_ssim_ms"]),
         "msssim_train_step_ms": statistics.median(ms["train_step_ms"]),
+        "msssim_step_trace_busy_ms": ms["trace_busy_ms"],
+        "msssim_step_trace_fwd_ms": ms["trace_fwd_ms"],
     }, {
         "name": "ssim_fwd_precise",
         "route": "cuda",

@@ -47,15 +47,17 @@
 //   partials per tile, sum(cs - 1) + n_valid and sum(ssim - 1) + n_valid.
 // - kPooled: kComponents plus the 2x2-mean images (B, H/2, W/2) f32 of a
 //   and b, the MS-SSIM pyramid's next scale (ssim_pallas.py:1100-1174).
-//   Each tile pools its own pixels (TH and TW even), from the raw inputs
-//   in device memory, not the sanitised halo: a u8 value converts
-//   exactly, and a NaN in f32 input reaches its own pooled pixel as
-//   _downsample2's reduce_window carries it. Vertical pairs are added
-//   first, then horizontal, then * 0.25; only pooled rows < H/2 and
-//   columns < W/2 are written, so an odd last row or column is dropped
-//   and no row past the image is read. (The Pallas f32 pool fed the
-//   unmasked rows of a ragged tile into a matrix product, which made its
-//   pooled images NaN; reading only rows inside the image repairs that.)
+//   Each block pools its own pixels (TH and TW even; the stream's strips
+//   and segments start at even columns and rows), from the raw inputs, not
+//   the sanitised halo: a u8 value converts exactly, and a NaN in f32
+//   input reaches its own pooled pixel as _downsample2's reduce_window
+//   carries it. Vertical pairs are added first, then horizontal, then *
+//   0.25; only pooled rows < H/2 and columns < W/2 are written, so an odd
+//   last row or column is dropped and no row past the image is read. (The
+//   Pallas f32 pool fed the unmasked rows of a ragged tile into a matrix
+//   product, which made its pooled images NaN; reading only rows inside
+//   the image repairs that.) Both modes stream rows at radius 5 (below);
+//   the relaxed ones and other radii run the tile body.
 // - kBatch / kBatchPrecise (the small-image batch route): one partial
 //   pair per image, [sum(ssim - 1), n = H*W], f32 in kBatch (the JAX
 //   contract's (B, 2)) and f64 in kBatchPrecise (where the TPU writes
@@ -131,9 +133,12 @@
 // traffic (~80 32-bit accesses per output pixel at radius 5) and
 // instruction issue. The tile body measured 30-39 Gpix/s in mode kScore on
 // an H100, the same with and without FMA contraction, and the same with the
-// L2 flushed between launches; the streaming kernel below 62-81 Gpix/s. The pool adds 2 operations and reads the
-// tile's inputs once more, from L1 or L2, where the halo load has just
-// brought them. The precise modes run the ~130 blur operations per pixel
+// L2 flushed between launches; the streaming kernel below 62-81 Gpix/s. The
+// pool adds 2 operations a pixel; the tile body reads the tile's inputs
+// once more, from L1 or L2, where the halo load has just brought them, and
+// the stream keeps them in shared memory as it stages each row. The
+// components modes add a second division and a second tile sum a pixel.
+// The precise modes run the ~130 blur operations per pixel
 // in fp64 (half the f32 rate on an H100; the tile body, which still serves
 // kBatchPrecise and other radii, keeps twice the planes' bytes in shared
 // memory), plus the ~30 fp64 operations of the formula, one of them a
@@ -151,13 +156,17 @@
 // halo rows of a TH-row tile.
 //
 // The main-path modes stream rows instead (ssim_fwd_stream_kernel):
-// kScore, kMap, kRowsum and kRowsumMap (with or without halo operands) in
+// kScore, kMap, kRowsum and kRowsumMap (with or without halo operands) and
+// kComponents and kPooled (the same blurs, step (c)'s epilogue theirs) in
 // f32, kPrecise and kPreciseMap in fp64 (the same body with the blurs'
 // type Blur<kMode>), and relaxed kScore and kMap (kSplit > 0, below), at
-// radius kStreamR = 5 (windows.RADIUS, every main-path shape) and tiles up
-// to kStripW columns wide; every other mode (components, pooled, both
-// batch modes, relaxed or not), radius and tile keeps the tile body
-// (ops/ssim_cuda.py::stream_applies states the rule). A block owns a
+// radius kStreamR = 5 (windows.RADIUS, every main-path shape and MS-SSIM
+// scale) and tiles up to kStripW columns wide; every other mode (both
+// batch modes, relaxed or not; relaxed components and pooled), radius and
+// tile keeps the tile body (ops/ssim_cuda.py::stream_applies states the
+// rule; the components and pooled modes stream only from 2^20 pixels a
+// launch, STREAM_COMP_MIN_PIX: below it a block's serial chain of at least
+// TH + 2r rows outlasts the tile body's parallel tiles). A block owns a
 // strip of kStripW output columns and walks down a segment of S output rows
 // (a multiple of TH, at most kMaxSegTiles tiles, chosen by the wrapper to
 // fill the card), one input row per step, one thread per output column.
@@ -178,11 +187,15 @@
 //      worth of doubles, s_dd in a per-thread shared-memory ring; the step
 //      loop is unrolled by 2r + 1 so each row keeps its register or slot),
 //      the vertical blur down the column, the formula, the map store and
-//      the sums (double in the precise modes);
+//      the sums (double in the precise modes; in the components modes
+//      _l_cs_from_blurs and two sums, cs and ssim, per column and tile,
+//      two warp sums per tile and two partials; kPooled then pools rows
+//      s - 1 and s at each odd output row, 64 threads two columns each,
+//      from the raw rows that (d) keeps in a shared-memory ring of 4);
 //  (d) the next input row staged from registers loaded one step earlier
 //      (sanitised, its own pixels' finiteness noted in a per-block tile
-//      mask) and the row after it loaded, so device-memory latency
-//      overlaps a step's work.
+//      mask; kPooled also keeps its own columns raw) and the row after it
+//      loaded, so device-memory latency overlaps a step's work.
 // The taps are kernel parameters (constant operands once the loops
 // unroll; the f64 taps and unrounded c1, c2 in the precise modes). Vertical
 // recompute falls to (S + 2r) / S. What bounds it, f32: issue (per step
@@ -697,7 +710,9 @@ __global__ void rowsum_reduce_kernel(const float* __restrict__ pieces,
 // at most kMaxSegTiles tiles (the tile mask holds one word per tile row, a
 // bit per tile column); the register window's radius; blocks per SM asked
 // of ptxas: in the f32 modes 8 (64 registers, a few spilled) measured
-// fastest at every main-path shape, against 4 (no spills) to 7; in the
+// fastest at every main-path shape, against 4 (no spills) to 7 (the
+// components modes, whose second sum and pool spill more, measured the same
+// at 7 on an H100 at 1080p x4); in the
 // precise modes 4 (128 registers), with the last kStreamPreciseRing of the
 // window's four signals (s_dd) in a per-thread shared-memory ring, the
 // fastest of the windows measured (PERF.md): all four in registers (176
@@ -931,11 +946,29 @@ __device__ __forceinline__ P ssim_of(const P (&m)[4], P c1, P c2) {
   return num / den;
 }
 
+// _l_cs_from_blurs (ssim_pallas.py:480-490), as the tile body: lum and cs
+// from the four blurs in f32; returns ssim = lum * cs, cs in `cs`.
+__device__ __forceinline__ float components_of(const float (&m)[4], float c1, float c2,
+                                               float& cs) {
+  const float mu_a = m[0], mu_b = m[1], s_ss = m[2], s_dd = m[3];
+  const float mu_a2 = mu_a * mu_a;
+  const float mu_b2 = mu_b * mu_b;
+  const float mu_ab = mu_a * mu_b;
+  const float sigma_ab_x4 = (s_ss - s_dd) - 4.0f * mu_ab;
+  const float sigma_sum_x2 = (s_ss + s_dd) - 2.0f * (mu_a2 + mu_b2);
+  const float lum = (2.0f * mu_ab + c1) / (mu_a2 + mu_b2 + c1);
+  cs = (0.5f * sigma_ab_x4 + c2) / (0.5f * sigma_sum_x2 + c2);
+  return lum * cs;
+}
+
 // kScore / kMap: partials (B, nty * ntx) f32 as the tile body writes them
 // (kSplit > 0: the relaxed modes, kSplit = kStreamSplit); kPrecise /
 // kPreciseMap: the same in f64, the blurs, formula and sums in fp64
 // (Blur<kMode>); kRowsum / kRowsumMap: pieces (B, ntx, H) f32, each tile's
-// piece of each of its rows, for rowsum_reduce_kernel. TH x TW: the tile (TW
+// piece of each of its rows, for rowsum_reduce_kernel; kComponents /
+// kPooled: partials (B, nty * ntx, 2) f32, [sum(cs - 1), sum(ssim - 1)] +
+// n_valid, and in kPooled the 2x2-mean images pool_a, pool_b (B, H/2, W/2)
+// f32 of the block's own rows and columns (TH even). TH x TW: the tile (TW
 // a power of two in [32, kStripW]); S: the segment's rows (a multiple of TH,
 // at most kMaxSegTiles tiles).
 template <typename T, int kMode, int kSplit = 0>
@@ -945,7 +978,8 @@ ssim_fwd_stream_kernel(const T* __restrict__ a, const T* __restrict__ b,
                        float* __restrict__ pieces, Halo<T> halo, int H, int W,
                        int TH, int TW, int S, int nstrip, int nseg, int ntx,
                        int nty, StreamTaps<Blur<kMode>> tp, Blur<kMode> c1,
-                       Blur<kMode> c2, float clip_bound) {
+                       Blur<kMode> c2, float clip_bound, float* __restrict__ pool_a,
+                       float* __restrict__ pool_b) {
   using P = Blur<kMode>;
   constexpr int r = kStreamR;
   constexpr int kP = 2 * r + 1;  // window rows = steps unrolled
@@ -957,19 +991,28 @@ ssim_fwd_stream_kernel(const T* __restrict__ a, const T* __restrict__ b,
   constexpr bool kRows = kMode == kRowsum || kMode == kRowsumMap;
   constexpr int kRing = kStreamRingOf<kMode>;  // signals in the shared ring
   constexpr bool kRelaxed = kSplit > 0;
+  constexpr bool kComp = kMode == kComponents || kMode == kPooled;
+  constexpr bool kPool = kMode == kPooled;
   // Signals in registers (relaxed: mu_a and mu_b; the other two are read
   // from the blurred rows' ring).
   constexpr int kRegS = kRelaxed ? 2 : 4 - kRing;
   // Rows staged ahead of the step that blurs them.
   constexpr int kLead = kRelaxed ? 3 : 1;
   static_assert(kMode == kScore || kMode == kMap ||
-                    (!kRelaxed && (kRows || kMode == kPrecise || kMode == kPreciseMap)),
-                "main-path and precise modes only; relaxed: kScore and kMap");
+                    (!kRelaxed && (kRows || kComp || kMode == kPrecise ||
+                                   kMode == kPreciseMap)),
+                "main-path, components and precise modes only; relaxed: kScore and kMap");
   static_assert(!kRelaxed || kSplit == kStreamSplit, "the band's k-steps at kStreamR");
 
   __shared__ StagedRow<P> s_in[2];          // staged rows, by step parity
   __shared__ P s_red[2][kNT / 32];          // warp sums, by step parity
   __shared__ unsigned s_bad[kMaxSegTiles];  // bit per tile column, word per tile row
+  // The components modes: the cs warp sums, by step parity.
+  __shared__ P s_red_cs[kComp ? 2 * (kNT / 32) : 1];
+  // kPooled: the raw inputs (unsanitised, in f32) of the strip's own
+  // columns, a then b, stream row q in slot q mod 4: step s pools rows s - 1
+  // and s while row s + 1 is staged.
+  __shared__ __align__(16) float s_raw[kPool ? 4 * 2 * kStripW : 1];
   // The window's ring: slot k, signal kRegS + p, this thread's column.
   __shared__ P s_ring[kRing > 0 ? kRing * kP * kNT : 1];
   // Relaxed (instead of s_in): staged row q in slot q mod kStreamStaged of
@@ -1070,6 +1113,16 @@ ssim_fwd_stream_kernel(const T* __restrict__ a, const T* __restrict__ b,
       if (j < vw + 2 * r) {
         float va = to_f32(pa[k]);
         float vb = to_f32(pb[k]);
+        if constexpr (kPool) {
+          // The pool's source: the strip's own columns, raw (a u8 value
+          // converts exactly; an f32 NaN reaches its own pooled pixel).
+          const int xo = j - r;
+          if (xo >= 0 && xo < vw) {
+            float* raw = s_raw + (q & 3) * 2 * kStripW;
+            raw[xo] = va;
+            raw[kStripW + xo] = vb;
+          }
+        }
         if (kFloat) {
           // Poison source: the segment's own pixels, unsanitised (rare path).
           if (!(finite_f32(va) && finite_f32(vb))) {
@@ -1093,7 +1146,8 @@ ssim_fwd_stream_kernel(const T* __restrict__ a, const T* __restrict__ b,
   // The window: the horizontal blurs of the last 2r + 1 stream rows, per
   // signal, the row of stream index q in slot q mod kP; signals kRegS..3 in
   // the shared ring where it has them. acc: this column's sum(ssim - 1) over
-  // the current tile's rows (kScore / kMap / the precise modes).
+  // the current tile's rows (the tile modes), acc_cs its sum(cs - 1) (the
+  // components modes).
   P win[kRegS > 0 ? kRegS : 1][kP];
   auto win_put = [&](int p, int k, P v) {
     if (p >= kRegS) {
@@ -1106,6 +1160,7 @@ ssim_fwd_stream_kernel(const T* __restrict__ a, const T* __restrict__ b,
     return p >= kRegS ? s_ring[(k * kRing + (p - kRegS)) * kNT + tid] : win[p][k];
   };
   P acc = 0;
+  [[maybe_unused]] P acc_cs = 0;
   int trow = 0;  // row within the current tile
   int kt = 0;    // the current tile's row in the segment
   // Warp sums waiting in s_red[(s - 1) & 1] for step s to combine: the
@@ -1140,8 +1195,19 @@ ssim_fwd_stream_kernel(const T* __restrict__ a, const T* __restrict__ b,
         const int vth = min(TH, H - tyg * TH);
         const int vtw = min(TW, W - txg * TW);
         const P nan = (P)__int_as_float(0x7fc00000);
-        partials[((size_t)img * nty + (size_t)tyg) * (size_t)ntx + (size_t)txg] =
-            tile_bad(pend) ? nan : sum + (P)(vth * vtw);
+        if constexpr (kComp) {
+          // [sum(cs - 1), sum(ssim - 1)] + n_valid, NaN in both.
+          const P* red_cs = s_red_cs + ((s - 1) & 1) * (kNT / 32) + tid / 32;
+          P sum_cs = 0;
+          for (int k = 0; k < TW / 32; ++k) sum_cs += red_cs[k];
+          const bool bad = tile_bad(pend);
+          const size_t t = ((size_t)img * nty + (size_t)tyg) * (size_t)ntx + (size_t)txg;
+          partials[2 * t] = bad ? nan : sum_cs + (P)(vth * vtw);
+          partials[2 * t + 1] = bad ? nan : sum + (P)(vth * vtw);
+        } else {
+          partials[((size_t)img * nty + (size_t)tyg) * (size_t)ntx + (size_t)txg] =
+              tile_bad(pend) ? nan : sum + (P)(vth * vtw);
+        }
       }
     }
     pend = -1;
@@ -1244,6 +1310,7 @@ ssim_fwd_stream_kernel(const T* __restrict__ a, const T* __restrict__ b,
         if (s >= 2 * r) {
           const int ly = s - 2 * r;
           P v = 0;
+          [[maybe_unused]] P cs = 0;
           if (col_on) {
             P m[4];
             if constexpr (kRelaxed) {
@@ -1265,7 +1332,11 @@ ssim_fwd_stream_kernel(const T* __restrict__ a, const T* __restrict__ b,
                    },
                    m);
             }
-            v = ssim_of(m, c1, c2);
+            if constexpr (kComp) {
+              v = components_of(m, c1, c2, cs);
+            } else {
+              v = ssim_of(m, c1, c2);
+            }
             if (kWithMap) {
               map[base + (size_t)(y0 + ly) * (size_t)W + (size_t)(x0 + tid)] = (float)v;
             }
@@ -1279,10 +1350,18 @@ ssim_fwd_stream_kernel(const T* __restrict__ a, const T* __restrict__ b,
             pend = ly;
             pend_end = tile_end ? kt : -1;
           } else {
-            if (col_on) acc += v - (P)1;
+            if (col_on) {
+              acc += v - (P)1;
+              if constexpr (kComp) acc_cs += cs - (P)1;
+            }
             if (tile_end) {
               const P w = warp_sum(acc);
               if ((tid & 31) == 0) s_red[s & 1][tid / 32] = w;
+              if constexpr (kComp) {
+                const P wc = warp_sum(acc_cs);
+                if ((tid & 31) == 0) s_red_cs[(s & 1) * (kNT / 32) + tid / 32] = wc;
+                acc_cs = 0;
+              }
               acc = 0;
               pend = kt;
             }
@@ -1301,6 +1380,27 @@ ssim_fwd_stream_kernel(const T* __restrict__ a, const T* __restrict__ b,
           }
         }
 
+        if constexpr (kPool) {
+          // The 2x2 means of the segment's output rows ly - 1 and ly = s - r
+          // (ly odd; S is even, so pooled row (y0 + ly) / 2 is this block's
+          // alone): thread i the strip's columns 2i and 2i + 1. Vertical
+          // pairs first, then horizontal, then * 0.25 (ops/pool.downsample2).
+          const int ly = s - r;
+          const int px = x0 / 2 + tid;
+          if (ly > 0 && (ly & 1) && ly < vh && tid < kStripW / 2 && px < W / 2) {
+            const float* r0 = s_raw + ((s - 1) & 3) * 2 * kStripW + 2 * tid;
+            const float* r1 = s_raw + (s & 3) * 2 * kStripW + 2 * tid;
+            const float2 a0 = *reinterpret_cast<const float2*>(r0);
+            const float2 a1 = *reinterpret_cast<const float2*>(r1);
+            const float2 b0 = *reinterpret_cast<const float2*>(r0 + kStripW);
+            const float2 b1 = *reinterpret_cast<const float2*>(r1 + kStripW);
+            const size_t o = ((size_t)img * (size_t)(H / 2) + (size_t)((y0 + ly) / 2)) *
+                                 (size_t)(W / 2) + (size_t)px;
+            pool_a[o] = ((a0.x + a1.x) + (a0.y + a1.y)) * 0.25f;
+            pool_b[o] = ((b0.x + b1.x) + (b0.y + b1.y)) * 0.25f;
+          }
+        }
+
         // (d) Stream row s + kLead staged from the registers loaded last
         // step; row s + kLead + 1 loaded.
         if (s + kLead < n) {
@@ -1316,12 +1416,13 @@ ssim_fwd_stream_kernel(const T* __restrict__ a, const T* __restrict__ b,
 
 template <typename T, int kMode, int kSplit>
 cudaError_t launch_stream(const void* a, const void* b, void* partials,
-                          void* map, void* scratch, const Halo<T>& halo, int B,
-                          int H, int W, int TH, int TW, int S,
-                          const double* taps_host, double c1, double c2,
+                          void* map, void* pool_a, void* pool_b, void* scratch,
+                          const Halo<T>& halo, int B, int H, int W, int TH, int TW,
+                          int S, const double* taps_host, double c1, double c2,
                           float clip_bound, cudaStream_t stream) {
   using P = Blur<kMode>;
   constexpr bool kRows = kMode == kRowsum || kMode == kRowsumMap;
+  if (kMode == kPooled && ((TH | TW) & 1)) return cudaErrorInvalidValue;
   // The f32 modes round the taps and c1, c2 to float; the precise modes
   // keep the f64 taps and the unrounded constants.
   StreamTaps<P> tp;
@@ -1335,7 +1436,8 @@ cudaError_t launch_stream(const void* a, const void* b, void* partials,
   ssim_fwd_stream_kernel<T, kMode, kSplit><<<(unsigned)blocks, kStreamThreads, 0, stream>>>(
       static_cast<const T*>(a), static_cast<const T*>(b), static_cast<P*>(partials),
       static_cast<float*>(map), static_cast<float*>(scratch), halo, H, W, TH, TW, S,
-      nstrip, nseg, ntx, nty, tp, (P)c1, (P)c2, clip_bound);
+      nstrip, nseg, ntx, nty, tp, (P)c1, (P)c2, clip_bound, static_cast<float*>(pool_a),
+      static_cast<float*>(pool_b));
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess || !kRows) return err;
   const long long n = (long long)B * H;
@@ -1348,21 +1450,21 @@ cudaError_t launch_stream(const void* a, const void* b, void* partials,
 
 template <int kMode, int kSplit>
 cudaError_t launch_stream_typed(int is_float, const void* a, const void* b,
-                                void* partials, void* map, void* scratch,
-                                const void* const* halo, int is_top, int is_bot,
-                                int B, int H, int W, int TH, int TW, int S,
+                                void* partials, void* map, void* pool_a, void* pool_b,
+                                void* scratch, const void* const* halo, int is_top,
+                                int is_bot, int B, int H, int W, int TH, int TW, int S,
                                 const double* taps_host, double c1, double c2,
                                 float clip_bound, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   return is_float
-             ? launch_stream<float, kMode, kSplit>(a, b, partials, map, scratch,
-                                           make_halo<float>(halo, is_top, is_bot),
-                                           B, H, W, TH, TW, S, taps_host, c1,
-                                           c2, clip_bound, s)
+             ? launch_stream<float, kMode, kSplit>(
+                   a, b, partials, map, pool_a, pool_b, scratch,
+                   make_halo<float>(halo, is_top, is_bot), B, H, W, TH, TW, S,
+                   taps_host, c1, c2, clip_bound, s)
              : launch_stream<uint8_t, kMode, kSplit>(
-                   a, b, partials, map, scratch,
-                   make_halo<uint8_t>(halo, is_top, is_bot), B, H, W, TH, TW,
-                   S, taps_host, c1, c2, clip_bound, s);
+                   a, b, partials, map, pool_a, pool_b, scratch,
+                   make_halo<uint8_t>(halo, is_top, is_bot), B, H, W, TH, TW, S,
+                   taps_host, c1, c2, clip_bound, s);
 }
 
 template <typename T, int kMode, int kSplit>
@@ -1473,8 +1575,8 @@ cudaError_t launch_typed(int is_float, const void* a, const void* b,
 // taps widened, or in the precise modes the f64 taps (ssim_cuda._prepare;
 // the other modes round them to float). c1, c2:
 // the stabilising constants (rounded to float by the f32 modes). seg: 0
-// for the tile body, or the streaming kernel's segment rows (modes 0, 1, 4,
-// 5, 8 and 9, relaxed only modes 0 and 1, r = 5, TW in [32, 128], seg a
+// for the tile body, or the streaming kernel's segment rows (modes 0-5, 8
+// and 9, relaxed only modes 0 and 1, r = 5, TW in [32, 128], seg a
 // multiple of TH of at most 16 tiles; anything else is refused). Returns the
 // launch's cudaError_t.
 extern "C" int ssim_fwd_launch(int mode, int relaxed, int is_float,
@@ -1509,11 +1611,12 @@ extern "C" int ssim_fwd_launch(int mode, int relaxed, int is_float,
         H < 1 || W < 1) {
       return cudaErrorInvalidValue;
     }
-#define SSIM_FWD_STREAM(M, S)                                                   \
-  case M:                                                                       \
-    return launch_stream_typed<M, S>(is_float, a, b, partials, map, scratch,    \
-                                     halo, is_top, is_bot, B, H, W, TH, TW, seg, \
-                                     taps_host, c1, c2, clip_bound, stream);
+#define SSIM_FWD_STREAM(M, S)                                                  \
+  case M:                                                                      \
+    return launch_stream_typed<M, S>(is_float, a, b, partials, map, pool_a,    \
+                                     pool_b, scratch, halo, is_top, is_bot, B, \
+                                     H, W, TH, TW, seg, taps_host, c1, c2,     \
+                                     clip_bound, stream);
     if (relaxed) {
       switch (mode) {
         SSIM_FWD_STREAM(kScore, kStreamSplit)
@@ -1529,6 +1632,8 @@ extern "C" int ssim_fwd_launch(int mode, int relaxed, int is_float,
       SSIM_FWD_STREAM(kRowsumMap, 0)
       SSIM_FWD_STREAM(kPrecise, 0)
       SSIM_FWD_STREAM(kPreciseMap, 0)
+      SSIM_FWD_STREAM(kComponents, 0)
+      SSIM_FWD_STREAM(kPooled, 0)
       default:
         return cudaErrorInvalidValue;
     }
@@ -1572,7 +1677,7 @@ extern "C" int ssim_fwd_launch(int mode, int relaxed, int is_float,
 }
 
 // Blocks of the streaming kernel that one SM of the current device holds at
-// once in `mode` (0, 1, 4, 5, 8 or 9; relaxed = 1: 0 or 1) for uint8
+// once in `mode` (0-5, 8 or 9; relaxed = 1: 0 or 1) for uint8
 // (is_float = 0) or float32 inputs: the CUDA runtime's occupancy for the
 // instantiation that ssim_fwd_launch takes with seg > 0. Returns a
 // cudaError_t.
@@ -1597,6 +1702,8 @@ extern "C" int ssim_fwd_stream_occupancy(int mode, int relaxed, int is_float,
     SSIM_FWD_OCC(kRowsumMap, 0)
     SSIM_FWD_OCC(kPrecise, 0)
     SSIM_FWD_OCC(kPreciseMap, 0)
+    SSIM_FWD_OCC(kComponents, 0)
+    SSIM_FWD_OCC(kPooled, 0)
     default:
       return cudaErrorInvalidValue;
   }

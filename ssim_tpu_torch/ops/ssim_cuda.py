@@ -42,9 +42,9 @@ The kernel is `ssim_tpu_torch/csrc/ssim_fwd.cu`. Its partials and NaN
 poison follow one 2-D grid of TILE_H x TILE_W output tiles that covers
 every width, so the TPU's split at 16384 lanes and
 `pooled_components_ok`'s VMEM limits have no counterpart. The main-path
-modes (score, map, the row modes and the precise modes, and the relaxed
-score and map modes, at radius STREAM_RADIUS, tiles up to STRIP_W wide:
-`stream_applies`) run a
+modes (score, map, the row modes, the precise modes and the MS-SSIM
+components and pooled modes, and the relaxed score and map modes, at
+radius STREAM_RADIUS, tiles up to STRIP_W wide: `stream_applies`) run a
 row-streaming kernel, one CUDA block
 per strip of STRIP_W columns and segment of rows (`stream_segment` picks
 the segment's length to fill the card, `stream_blocks` lists the blocks);
@@ -117,18 +117,33 @@ STREAM_LAUNCHES = 0
 #: a block owns a strip of STRIP_W output columns and walks down a segment
 #: of at most MAX_SEG_TILES tiles' rows; its window radius is
 #: STREAM_RADIUS (windows.RADIUS) and it serves the modes STREAM_MODES:
-#: the standard tier's score, map and row modes in f32, and the precise
-#: tier's two modes in fp64 (the same body with double blurs); relaxed, the
-#: modes STREAM_RELAXED_MODES (the heavy horizontal blurs as band products,
-#: a chunk of stream rows at a time).
+#: the standard tier's score, map and row modes and the MS-SSIM components
+#: and pooled modes (the same blurs, another epilogue) in f32, and the
+#: precise tier's two modes in fp64 (the same body with double blurs);
+#: relaxed, the modes STREAM_RELAXED_MODES (the heavy horizontal blurs as
+#: band products, a chunk of stream rows at a time).
 STRIP_W = 128
 MAX_SEG_TILES = 16
 STREAM_RADIUS = 5
-STREAM_MODES = ("score", "map", "rowsum", "rowsum_map", "precise", "precise_map")
+STREAM_MODES = ("score", "map", "rowsum", "rowsum_map", "precise", "precise_map",
+                "components", "pooled")
 STREAM_RELAXED_MODES = ("score", "map")
 #: Rows' worth of fixed cost per block in stream_segment's model (launch,
 #: prologue and the NaN check).
 _BLOCK_OVERHEAD_ROWS = 8
+#: The components and pooled modes stream from this many pixels a launch
+#: (B * H * W) up, and run the tile body below it. A streaming block walks
+#: at least one tile's rows plus 2r, one barrier a row, so a launch that
+#: leaves the card mostly idle waits on that chain: measured on an H100
+#: (kernel time in a profiler trace, tools/fwd_times.py; PERF.md), at the
+#: MS-SSIM scales of msssim_1080_b4 the stream against the tile body took
+#: components 0.054-0.056 / 0.064 ms at 4x540x960 (2.07 Mpix), 0.040 /
+#: 0.026 at 4x270x480 (0.52 Mpix), 0.038-0.039 / 0.015 at 4x135x240 and
+#: 0.040-0.041 / 0.0145 at 4x67x120, pooled 0.064-0.065 / 0.062-0.065,
+#: 0.046 / 0.026, 0.055 / 0.015 and 0.053-0.056 / 0.015; the stream's
+#: floor (~0.040 ms) meets a line through the tile body's times near 1.1
+#: Mpix.
+STREAM_COMP_MIN_PIX = 1 << 20
 
 #: The JAX package's width gate of the relaxed tier (ssim_pallas.py:115,
 #: copied): the tile grid runs the relaxed mode at widths >= MXU_MIN_W and
@@ -226,15 +241,22 @@ def batch_geometry(batch: int, h: int, w: int):
     return tile_h, tile_w, run // tiles, 1
 
 
-def stream_applies(mode: str, radius: int, tile_w: int, relaxed: bool = False) -> bool:
+def stream_applies(mode: str, radius: int, tile_w: int, relaxed: bool = False,
+                   npix: Optional[int] = None) -> bool:
     """Whether a launch in `mode` runs the row-streaming kernel, else the
     tile body: the standard tier's score, map and row modes (with or
-    without halo operands), the precise tier's score and map modes
-    (STREAM_MODES) and the relaxed tier's score and map modes
-    (STREAM_RELAXED_MODES) at radius STREAM_RADIUS with a tile 32 to
-    STRIP_W columns wide. The components, pooled and both batch modes
-    (their 8-64 wide batch tiles), relaxed or not, the other radii and a
-    tile_w of 256 run the tile body."""
+    without halo operands), the precise tier's score and map modes, the
+    standard MS-SSIM components and pooled modes (STREAM_MODES) and the
+    relaxed tier's score and map modes (STREAM_RELAXED_MODES) at radius
+    STREAM_RADIUS with a tile 32 to STRIP_W columns wide. Both batch
+    modes (their 8-64 wide batch tiles), the relaxed components and
+    pooled modes, the other radii and a tile_w of 256 run the tile body.
+    npix: the launch's B * H * W; the components and pooled modes stream
+    only from STREAM_COMP_MIN_PIX pixels (at msssim_1080_b4 scales 0 and
+    1; scales 2-4 run the tile body, measured faster there). None: the
+    rule without the size condition, which a pinned segment asks for."""
+    if npix is not None and mode in ("components", "pooled") and npix < STREAM_COMP_MIN_PIX:
+        return False
     return (mode in (STREAM_RELAXED_MODES if relaxed else STREAM_MODES)
             and radius == STREAM_RADIUS and 32 <= tile_w <= STRIP_W)
 
@@ -681,9 +703,10 @@ def _launch(a, b, *, mode, taps, c1, c2, clip_bound, tile_h, tile_w, ipb=1,
     the row modes' four (B, r, W) halo operands and their two flags.
     relaxed: the mode's relaxed instantiation (score, map, components,
     pooled and batch; the C entry refuses the others). Where
-    stream_applies, the row-streaming kernel runs, with `segment` rows per
-    block (stream_segment's choice if None); the tile body takes no
-    segment.
+    stream_applies at this launch's size, the row-streaming kernel runs,
+    with `segment` rows per block (stream_segment's choice if None); a
+    pinned segment runs it wherever stream_applies without the size
+    condition; the tile body takes no segment.
     Returns the mode's outputs: (partials, map or None) (partials f64 in
     the precise modes, (B, H) row sums in the row modes), (B, K, 2)
     partials, (partials, pooled_a, pooled_b), or the batch modes' (B, 2)
@@ -699,7 +722,7 @@ def _launch(a, b, *, mode, taps, c1, c2, clip_bound, tile_h, tile_w, ipb=1,
     if bsz * nty * ntx > 0x7FFFFFFF:
         raise ValueError(f"{bsz * nty * ntx} tiles exceed one launch's grid")
     r = len(taps) // 2
-    stream = stream_applies(mode, r, tile_w, relaxed)
+    stream = stream_applies(mode, r, tile_w, relaxed, None if segment else bsz * h * w)
     if stream:
         seg = segment or stream_segment(
             bsz, h, w, tile_h, 2 * r,
@@ -1083,7 +1106,10 @@ def ssim_components_cuda(
     Returns (..., K, 2) f32 per-tile sums, [..., 0] of cs and [..., 1] of
     ssim = lum * cs, each as sum(x - 1) + n_valid over the tile's valid
     pixels; means follow by summing over K and dividing by H*W. On a CUDA
-    tensor the kernel is launched; on a CPU tensor the plain twin runs.
+    tensor the kernel is launched (the row-streaming kernel at radius
+    STREAM_RADIUS from STREAM_COMP_MIN_PIX pixels, the tile body below it,
+    at other radii and in the relaxed tier: stream_applies); on a CPU
+    tensor the plain twin runs.
     """
     kw = _components_args(a, b, data_range, radius, sigma, k1, k2)
     squeeze = a.dim() == 2
@@ -1118,6 +1144,7 @@ def ssim_components_pooled_cuda(
     (..., H//2, W//2): (a[2i, 2j] + a[2i+1, 2j]) + (a[2i, 2j+1] +
     a[2i+1, 2j+1]), times 0.25, from the raw inputs (a NaN reaches its own
     pooled pixel), with an odd last row or column dropped. Exact for uint8.
+    The kernel design follows stream_applies, as in ssim_components_cuda.
     """
     kw = _components_args(a, b, data_range, radius, sigma, k1, k2)
     if a.shape[-2] < 2 or a.shape[-1] < 2:

@@ -5,22 +5,26 @@
 Times (CUDA events around 20 back-to-back calls, median of 3) the
 streaming kernel's modes kScore, kMap, kRowsum and kRowsumMap (the row
 modes with halo operands, both flags set, as on one rank), kPrecise,
-kPreciseMap and relaxed kScore and kMap on u8 pairs at 1080p x4, 4K x4,
-16K x1 and 1x1024x20480, and beside them the tile body's modes:
-components and pooled components, relaxed and not, kScore and precise at
-radius 1 and 16 at 1080p x4, batch, relaxed batch and batch precise at
-64x64 x4096. Prints the card's name and power
-limit, then one JSON line {"card": ..., "package": ..., "ms": {...}}. It
-calls only the wrappers' public arguments, so it also times another
-checkout's kernel when run as a file with that checkout's root on
-PYTHONPATH:
+kPreciseMap, relaxed kScore and kMap, and the MS-SSIM components and
+pooled modes on u8 pairs at 1080p x4, 4K x4, 16K x1 and 1x1024x20480;
+the components and pooled modes also on f32 pairs at 1080p x4 and at the
+smaller scales of msssim_1080_b4 (4x540x960 to 4x67x120), there also by
+a profiler trace (the kernel alone: the events measure the wrapper's host
+work at small scales), each beside the tile body (a pinned 16x256 tile,
+in turns: tile body, wrapper, wrapper, tile body); and the tile body's
+modes: relaxed components and pooled, kScore and precise at radius 1 and
+16 at 1080p x4, batch, relaxed batch and batch precise at 64x64 x4096.
+Prints the card's name and power limit, then one JSON line {"card": ...,
+"package": ..., "ms": {...}}. It calls only the wrappers' public
+arguments and ssim_cuda._launch, so it also times another checkout's
+kernel when run as a file with that checkout's root on PYTHONPATH:
 
     PYTHONPATH=/path/to/checkout python ssim_tpu_torch/tools/fwd_times.py
 
---segments also times kScore, kRowsum, kPrecise and relaxed kScore at each
-shape at every segment length the streaming kernel takes (the last two
-where they stream), beside the wrapper's own choice
-(`ssim_cuda.stream_segment`).
+--segments also times kScore, kRowsum, kPrecise, relaxed kScore and the
+components and pooled modes at each shape at every segment length the
+streaming kernel takes (where they stream), beside the wrapper's own
+choice (`ssim_cuda.stream_segment`).
 """
 
 import argparse
@@ -36,6 +40,8 @@ from ssim_tpu_torch.ops import ssim_cuda
 
 SHAPES = (("1080p_b4", (4, 1080, 1920)), ("4k_b4", (4, 2160, 3840)),
           ("16k_b1", (1, 8640, 15360)), ("wide_b1", (1, 1024, 20480)))
+#: The scales of msssim_1080_b4 below the first (bench.py:59).
+MSSSIM_SCALES = ((4, 540, 960), (4, 270, 480), (4, 135, 240), (4, 67, 120))
 
 
 def card_label():
@@ -64,6 +70,23 @@ def cuda_ms(fn, reps=20, runs=3):
     return statistics.median(out)
 
 
+def trace_ms(fn, reps=20):
+    """Device ms per fn() call of the forward kernel (ssim_fwd_stream_kernel
+    or ssim_fwd_kernel) in one torch.profiler trace of reps calls; None
+    when the trace holds none."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    us = [e.time_range.end - e.time_range.start for e in prof.events()
+          if e.device_type == torch.autograd.DeviceType.CUDA and "ssim_fwd" in e.name]
+    return sum(us) / 1e3 / reps if us else None
+
+
 def u8_pair(gen, shape):
     a = torch.randint(0, 256, shape, generator=gen, device="cuda", dtype=torch.int32)
     noise = (torch.randn(shape, generator=gen, device="cuda") * 12).to(torch.int32)
@@ -87,12 +110,60 @@ def main_path_modes(a, b):
         "kPreciseMap": lambda: ssim_cuda.ssim_parts_cuda(a, b, with_map=True, precise=True),
         "relaxed kScore": lambda: ssim_cuda.ssim_parts_cuda(a, b, relaxed=True),
         "relaxed kMap": lambda: ssim_cuda.ssim_parts_cuda(a, b, with_map=True, relaxed=True),
+        "components": lambda: ssim_cuda.ssim_components_cuda(a, b),
+        "pooled": lambda: ssim_cuda.ssim_components_pooled_cuda(a, b),
     }
 
 
+def comp_tile_body(a, b, pooled, data_range):
+    """The components (pooled) mode on the tile body, which a pinned 16x256
+    tile reaches in every checkout (stream_applies is false at tile_w 256;
+    32x256 does not fit a block's shared memory at radius 5): its parts,
+    or (parts, pooled_a, pooled_b)."""
+    kw = ssim_cuda._components_args(a, b, data_range, 5, 1.5, 0.01, 0.03)
+    kw.update(tile_h=16, tile_w=256)
+    return ssim_cuda._launch(a, b, mode="pooled" if pooled else "components", **kw)
+
+
+def comp_modes(a, b, ms, trace=False):
+    """The components and pooled modes on one pair (u8, or f32 in [0, 1])
+    through the wrappers, in turns with the tile body: ms[name] the
+    wrapper's time, ms[name + " tile body"] the 16x256 tile body's (each
+    the lower of the two in turns); with trace, also their kernels' trace
+    times (name + " trace"), and where the package streams the mode, the
+    stream's at a pinned one-tile segment (name + " stream trace": the
+    wrapper's choice where the size condition lets it stream). Prints
+    each."""
+    dr = 1.0 if a.dtype == torch.float32 else 255.0
+    kind = "f32" if a.dtype == torch.float32 else "u8"
+    shape = "x".join(str(n) for n in a.shape)
+    for pooled in (False, True):
+        fn = ssim_cuda.ssim_components_pooled_cuda if pooled else ssim_cuda.ssim_components_cuda
+        call = lambda: fn(a, b, data_range=dr)
+        tile = lambda: comp_tile_body(a, b, pooled, dr)
+        name = f"{'pooled' if pooled else 'components'} {kind} {shape}"
+        t = [cuda_ms(tile), cuda_ms(call), cuda_ms(call), cuda_ms(tile)]
+        ms[name], ms[f"{name} tile body"] = min(t[1:3]), min(t[0], t[3])
+        line = (f"  {name}: {t[1]:.4f} / {t[2]:.4f} ms, tile body (16x256) {t[0]:.4f} / "
+                f"{t[3]:.4f} ms")
+        if trace:
+            ms[f"{name} trace"] = trace_ms(call)
+            ms[f"{name} tile body trace"] = trace_ms(tile)
+            line += (f"; trace {ms[f'{name} trace']} ms, tile body "
+                     f"{ms[f'{name} tile body trace']} ms")
+            mode = "pooled" if pooled else "components"
+            if ssim_cuda.stream_applies(mode, 5, ssim_cuda.TILE_W):
+                kw = ssim_cuda._components_args(a, b, dr, 5, 1.5, 0.01, 0.03)
+                ms[f"{name} stream trace"] = trace_ms(lambda: ssim_cuda._launch(
+                    a, b, mode=mode, segment=ssim_cuda.TILE_H, **kw))
+                line += f", stream {ms[f'{name} stream trace']} ms"
+        print(line, flush=True)
+
+
 def tile_body_modes(gen, a, b):
-    """The tile body's modes at 1080p x4 (batch at 64x64 x4096): name ->
-    call."""
+    """The tile body's modes at 1080p x4 (batch at 64x64 x4096), and the
+    components and pooled modes there under their earlier names (since
+    the components redesign they stream): name -> call."""
     fa, fb = a.float() / 255.0, b.float() / 255.0
     sa, sb = u8_pair(gen, (4096, 64, 64))
     return {
@@ -116,8 +187,9 @@ def tile_body_modes(gen, a, b):
 
 
 def segment_sweep(name, a, b):
-    """kScore, kRowsum, kPrecise and relaxed kScore at every segment the
-    streaming kernel takes (the last two where they stream)."""
+    """kScore, kRowsum, kPrecise, relaxed kScore, components and pooled at
+    every segment the streaming kernel takes (the last four where they
+    stream)."""
     from ssim_tpu_torch.windows import gaussian_taps
 
     bsz, h, w = a.shape
@@ -131,6 +203,9 @@ def segment_sweep(name, a, b):
         runs.append(("precise", dict(taps=gaussian_taps(np.float64, 5, 1.5))))
     if ssim_cuda.stream_applies("score", 5, ssim_cuda.TILE_W, relaxed=True):
         runs.append(("score", dict(relaxed=True, **f32_taps)))
+    for mode in ("components", "pooled"):
+        if ssim_cuda.stream_applies(mode, 5, ssim_cuda.TILE_W):
+            runs.append((mode, f32_taps))
     for mode, extra in runs:
         relaxed = extra.get("relaxed", False)
         resident = (ssim_cuda._stream_resident(a.device.index, mode, False, True) if relaxed
@@ -169,10 +244,17 @@ def main():
             for mode, fn in tile_body_modes(gen, a, b).items():
                 ms[mode] = cuda_ms(fn)
                 print(f"  {mode}: {ms[mode]:.4f} ms", flush=True)
+            comp_modes(a, b, ms)
+            comp_modes(a.float() / 255.0, b.float() / 255.0, ms)
         if args.segments:
             segment_sweep(name, a, b)
         del a, b
         torch.cuda.empty_cache()
+    for shape in MSSSIM_SCALES:
+        a, b = u8_pair(gen, shape)
+        comp_modes(a.float() / 255.0, b.float() / 255.0, ms, trace=True)
+        if args.segments:
+            segment_sweep("x".join(str(n) for n in shape), a, b)
     print(json.dumps({"card": label, "package": ssim_cuda.__file__, "ms": ms}))
     return 0
 

@@ -4,8 +4,10 @@
 // is_bot, precise, relaxed], the taps[11] and [c1, c2, clip_bound] (f64 with
 // precise, else f32), a, b (B*H*W of u8 or f32) and, with has_halo, a_top,
 // a_bot, b_top, b_bot (B*5*W each). OUT receives the partials (B, nty*ntx)
-// (f64 with precise, else f32) or the row sums (B, H) f32, then the map
-// (B, H, W) f32 in the map modes. precise must be 1 exactly in the precise
+// (f64 with precise, else f32; (B, nty*ntx, 2) f32 in the components modes)
+// or the row sums (B, H) f32, then the map (B, H, W) f32 in the map modes,
+// or the pooled images (B, H/2, W/2) f32 of a, then of b, in kPooled.
+// precise must be 1 exactly in the precise
 // modes; relaxed (kScore and kMap only) runs the relaxed instantiation,
 // its band products through band_mma.cuh's host model of mma. The blocks
 // run one after another, each with one std::thread per CUDA thread.
@@ -43,13 +45,16 @@ static void run(FILE* f, FILE* o, const std::vector<int>& h) {
   const int ntx = (W + TW - 1) / TW, nty = (H + TH - 1) / TH;
   constexpr bool kRows = M == kRowsum || M == kRowsumMap;
   constexpr bool kWithMap = M == kMap || M == kRowsumMap || M == kPreciseMap;
-  std::vector<P> partials((size_t)B * nty * ntx);
+  constexpr bool kComp = M == kComponents || M == kPooled;
+  std::vector<P> partials((size_t)B * nty * ntx * (kComp ? 2 : 1));
   std::vector<float> map(np), pieces((size_t)B * ntx * H);
+  const size_t npool = (size_t)B * (H / 2) * (W / 2);
+  std::vector<float> pool_a(npool), pool_b(npool);
   run_blocks(B * nseg * nstrip, kStreamThreads, [&] {
     ssim_fwd_stream_kernel<T, M, S>(a.data(), b.data(), partials.data(),
                                     kWithMap ? map.data() : nullptr, pieces.data(), halo, H,
                                     W, TH, TW, seg, nstrip, nseg, ntx, nty, tp, cc[0], cc[1],
-                                    (float)cc[2]);
+                                    (float)cc[2], pool_a.data(), pool_b.data());
   });
   if (kRows) {  // rowsum_reduce_kernel's arithmetic
     std::vector<float> rows((size_t)B * H);
@@ -65,6 +70,10 @@ static void run(FILE* f, FILE* o, const std::vector<int>& h) {
     fwrite(partials.data(), sizeof(P), partials.size(), o);
   }
   if (kWithMap) fwrite(map.data(), 4, map.size(), o);
+  if (M == kPooled) {
+    fwrite(pool_a.data(), 4, npool, o);
+    fwrite(pool_b.data(), 4, npool, o);
+  }
 }
 
 int main(int argc, char** argv) {
@@ -94,6 +103,8 @@ int main(int argc, char** argv) {
       SSIM_EMU_RUN(kPreciseMap, 0)
       SSIM_EMU_RUN(kRowsum, 0)
       SSIM_EMU_RUN(kRowsumMap, 0)
+      SSIM_EMU_RUN(kComponents, 0)
+      SSIM_EMU_RUN(kPooled, 0)
       default:
         return 2;
     }

@@ -215,18 +215,20 @@ def test_ms_ssim_launches_the_kernels():
     rng = np.random.default_rng(0x59)
     a, b = _pair(rng, (2, 176, 192))
     counts = lambda: np.array([ssim_cuda.LAUNCHES, ssim_cuda.COMPONENTS_LAUNCHES,
-                               ssim_cuda.POOLED_LAUNCHES, ssim_grad.LAUNCHES])
+                               ssim_cuda.POOLED_LAUNCHES, ssim_grad.LAUNCHES,
+                               ssim_cuda.STREAM_LAUNCHES])
     before = counts()
     got = ssim_tpu_torch.compute_ms_ssim(a, b)
     after = counts()
-    assert (after - before).tolist() == [0, 1, 4, 0]
+    # Every scale is under STREAM_COMP_MIN_PIX: the tile body, no stream.
+    assert (after - before).tolist() == [0, 1, 4, 0, 0]
     want = ssim_tpu_torch.compute_ms_ssim(a, b, device="cpu")
     assert np.abs(got - want).max() <= 2e-5
     x = torch.from_numpy(a.astype(np.float32) / 255).cuda().requires_grad_()
     y = torch.from_numpy(b.astype(np.float32) / 255).cuda()
     (1 - ssim_tpu_torch.ms_ssim(x, y, data_range=1.0)).sum().backward()
     torch.cuda.synchronize()
-    assert (counts() - after).tolist() == [0, 5, 0, 5]
+    assert (counts() - after).tolist() == [0, 5, 0, 5, 0]
     assert torch.isfinite(x.grad).all()
 
 
@@ -674,6 +676,164 @@ def test_forward_stream_matches_tile_body_on_card(mode, dtype):
         g_tile = p_tile.double().sum(-1) / npix
         assert (g_str - g_tile).abs().max().item() <= 2e-7
 
+
+def _comp_stream(at, bt, mode, tile, seg):
+    """The components or pooled mode through the row-streaming
+    instantiation at a pinned segment and tile, and its twin, on the same
+    card tensors; the launch adds one to STREAM_LAUNCHES and to the mode's
+    own counter. Returns (the kernel's parts or (parts, pooled_a,
+    pooled_b), the twin's)."""
+    dr = 1.0 if at.dtype == torch.float32 else 255.0
+    kw = dict(_twin_kw(dr), tile_h=tile[0], tile_w=tile[1])
+    assert ssim_cuda.stream_applies(mode, 5, tile[1])
+    count = lambda: (ssim_cuda.STREAM_LAUNCHES, ssim_cuda.COMPONENTS_LAUNCHES,
+                     ssim_cuda.POOLED_LAUNCHES)
+    before = count()
+    got = ssim_cuda._launch(at, bt, mode=mode, segment=seg, **kw)
+    torch.cuda.synchronize()
+    pooled = mode == "pooled"
+    assert count() == (before[0] + 1, before[1] + (not pooled), before[2] + pooled)
+    twin = (ssim_cuda.ssim_components_pooled_plain if pooled
+            else ssim_cuda.ssim_components_plain)(at, bt, **kw)
+    return got, twin
+
+
+def _same(x, y):
+    """Equal bit for bit, NaN where NaN."""
+    return torch.equal(x.isnan(), y.isnan()) and torch.equal(x.nan_to_num(), y.nan_to_num())
+
+
+def _hold_components(got, want, npix, tol=None):
+    """Kernel against twin (or another design): pooled images bit for bit,
+    NaN at the same pixels; per-image mean cs and ssim within max(2e-7,
+    2e-5 / sqrt(npix)) (tol where given), NaN at the same tiles (means of
+    the same images where the tile grids differ). Returns the parts."""
+    if isinstance(got, tuple):
+        for x, y in zip(got[1:], want[1:]):
+            assert _same(x, y)
+        got, want = got[0], want[0]
+    if got.shape == want.shape:
+        assert torch.equal(got.isnan(), want.isnan())
+    mk = got.double().sum(-2).cpu().numpy() / npix
+    mt = want.double().sum(-2).cpu().numpy() / npix
+    assert np.array_equal(np.isnan(mk), np.isnan(mt))
+    tol = max(2e-7, 2e-5 / npix**0.5) if tol is None else tol
+    assert np.nanmax(np.abs(mk - mt), initial=0.0) <= tol
+    return got
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["u8", "f32"])
+@pytest.mark.parametrize("tile", [(32, 32), (32, 64), (64, 128)])
+@pytest.mark.parametrize("case", ["seg-1", "seg", "seg+1", "2seg+1", "ragged_w",
+                                  "odd_h_w", "w<=2r", "h=1", "b=3"])
+def test_components_stream_geometry_on_card(case, tile, dtype):
+    """The components and pooled modes' row streaming at a segment of two
+    tiles: H one short of, equal to and one past the segment and 2S + 1
+    (odd: the last pooled row dropped); W not a multiple of the 128-column
+    strip and odd (the last pooled column dropped), W <= 2r, H = 1
+    (components only: pooling needs H, W >= 2), three images; pinned
+    tiles 32x32, 32x64, 64x128; u8 and f32. Pooled images bit for bit the
+    twin's, mean cs and ssim within the twin tolerance, and the pooled
+    mode's parts equal to the components mode's."""
+    _need_card()
+    seg = 2 * tile[0]
+    bsz, h, w = {"seg-1": (2, seg - 1, 300), "seg": (2, seg, 300),
+                 "seg+1": (2, seg + 1, 300), "2seg+1": (2, 2 * seg + 1, 300),
+                 "ragged_w": (2, seg + 2, 517), "odd_h_w": (2, 2 * seg + 3, 301),
+                 "w<=2r": (2, seg + 1, 9), "h=1": (2, 1, 301),
+                 "b=3": (3, seg + 3, 259)}[case]
+    rng = np.random.default_rng(0x90 + len(case) + tile[1])
+    a, b = (_pair if dtype == "u8" else _float_pair)(rng, (bsz, h, w))
+    at, bt = torch.from_numpy(a).cuda(), torch.from_numpy(b).cuda()
+    got, want = _comp_stream(at, bt, "components", tile, seg)
+    parts = _hold_components(got, want, h * w)
+    assert torch.isfinite(parts).all()
+    if h < 2:
+        return
+    got, want = _comp_stream(at, bt, "pooled", tile, seg)
+    assert _same(_hold_components(got, want, h * w), parts)
+    assert got[1].shape == (bsz, h // 2, w // 2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("tile", [(32, 64), (32, 32), (16, 128)])
+def test_components_stream_nonfinite_on_boundaries_on_card(tile):
+    """Non-finite pixels on a tile edge, a strip's last and first column, a
+    segment's first and last row, 2r rows above an interior segment's
+    first row and the image's last pixel (outside the pooled images, W
+    and H odd): NaN in both partials of exactly the twin's tiles, in their
+    own image only; each NaN or inf reaches its own pooled pixel."""
+    _need_card()
+    seg = 2 * tile[0]
+    rng = np.random.default_rng(0x98 + tile[1])
+    a, b = _float_pair(rng, (3, 2 * seg + 7, 401))
+    a[0, seg, 200] = np.nan
+    a[0, seg - 10, 40] = np.nan
+    a[1, seg - 1, 127] = np.inf
+    b[1, 3, 128] = -np.inf
+    a[2, tile[0] - 1, tile[1]] = np.nan
+    b[2, 2 * seg + 6, 400] = np.nan
+    at, bt = torch.from_numpy(a).cuda(), torch.from_numpy(b).cuda()
+    npix = a.shape[1] * a.shape[2]
+    got, want = _comp_stream(at, bt, "components", tile, seg)
+    parts = _hold_components(got, want, npix)
+    assert parts.isnan().any() and not parts.isnan().all()
+    got, want = _comp_stream(at, bt, "pooled", tile, seg)
+    assert _same(_hold_components(got, want, npix), parts)
+    pa, pb = got[1], got[2]
+    assert pa[0, seg // 2, 100].isnan() and pa[1, seg // 2 - 1, 63].isinf()
+    assert pb[1, 1, 64].isinf() and not pb[2].isnan().any()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["u8", "f32"])
+def test_components_stream_matches_tile_body_on_card(dtype):
+    """The wrappers' components and pooled launches at 1.2 Mpix (over
+    STREAM_COMP_MIN_PIX: the streaming kernel, one STREAM_LAUNCHES each)
+    against the tile body, which a pinned 16x256 tile reaches (no
+    STREAM_LAUNCHES there): pooled images bit for bit, per-image mean cs
+    and ssim within 2e-7 of each other."""
+    _need_card()
+    rng = np.random.default_rng(0x9C)
+    shape = (4, 301, 1001)
+    a, b = (_pair if dtype == "u8" else _float_pair)(rng, shape)
+    at, bt = torch.from_numpy(a).cuda(), torch.from_numpy(b).cuda()
+    dr = 1.0 if dtype == "f32" else 255.0
+    kw = dict(_twin_kw(dr), tile_h=16, tile_w=256)
+    for mode, fn in (("components", ssim_cuda.ssim_components_cuda),
+                     ("pooled", ssim_cuda.ssim_components_pooled_cuda)):
+        before = ssim_cuda.STREAM_LAUNCHES
+        tile = ssim_cuda._launch(at, bt, mode=mode, **kw)
+        torch.cuda.synchronize()
+        assert ssim_cuda.STREAM_LAUNCHES == before
+        got = fn(at, bt, data_range=dr)
+        torch.cuda.synchronize()
+        assert ssim_cuda.STREAM_LAUNCHES == before + 1
+        _hold_components(got, tile, shape[1] * shape[2], tol=2e-7)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["components", "pooled"])
+def test_components_size_condition_on_card(mode):
+    """The wrappers stream the components and pooled modes from
+    STREAM_COMP_MIN_PIX pixels a launch (one STREAM_LAUNCHES) and run the
+    tile body one row below it (none), each against its twin."""
+    _need_card()
+    rng = np.random.default_rng(0x9E)
+    fn = {"components": ssim_cuda.ssim_components_cuda,
+          "pooled": ssim_cuda.ssim_components_pooled_cuda}[mode]
+    for h, streams in ((1024, True), (1023, False)):
+        a, b = _pair(rng, (1, h, 1024))
+        assert (h * 1024 >= ssim_cuda.STREAM_COMP_MIN_PIX) == streams
+        at, bt = torch.from_numpy(a).cuda(), torch.from_numpy(b).cuda()
+        before = ssim_cuda.STREAM_LAUNCHES
+        got = fn(at, bt)
+        torch.cuda.synchronize()
+        assert ssim_cuda.STREAM_LAUNCHES == before + streams
+        want = (ssim_cuda.ssim_components_pooled_plain if mode == "pooled"
+                else ssim_cuda.ssim_components_plain)(at, bt, **_twin_kw(255.0))
+        _hold_components(got, want, h * 1024)
 
 
 def _precise_stream(at, bt, mode, tile, seg):

@@ -131,6 +131,44 @@ def test_stream_segment_at_the_relaxed_occupancy(shape, want, best):
     assert blocks / (-(-blocks // res) * res) >= 0.75
 
 
+#: Components and pooled streaming blocks an H100 holds at once: 8 per SM
+#: (ssim_fwd_stream_occupancy in modes 2 and 3, as the f32 modes) on each of
+#: its 132 SMs.
+H100_COMP_RESIDENT = 132 * 8
+#: The scales of msssim_1080_b4 (bench.py:59): 1080x1920 halved four times,
+#: each the shape of one components or pooled launch.
+MSSSIM_SCALES = [(4, 1080, 1920), (4, 540, 960), (4, 270, 480), (4, 135, 240),
+                 (4, 67, 120)]
+
+
+@pytest.mark.parametrize("shape", MSSSIM_SCALES)
+def test_stream_segment_at_the_msssim_scales(shape):
+    """Each scale of msssim_1080_b4 gets a segment that the streaming
+    kernel's components and pooled modes take, at their occupancy on an
+    H100: 1 to MAX_SEG_TILES whole tiles of the components wrappers' tile
+    height (even, so a pooled block owns whole 2x2 blocks of its rows),
+    less than a tile past the scale; where the one-tile segment gives no
+    more blocks than the card holds (scales 1-4), it is taken. Of these
+    launches only scales 0 and 1 stream (STREAM_COMP_MIN_PIX); a pinned
+    segment streams at any of them."""
+    bsz, h, w = shape
+    kw = ssim_cuda._components_args(torch.zeros(1, 2, 2), torch.zeros(1, 2, 2), 1.0,
+                                    ssim_cuda.STREAM_RADIUS, 1.5, 0.01, 0.03)
+    tile_h = kw["tile_h"]
+    assert tile_h % 2 == 0
+    seg = ssim_cuda.stream_segment(bsz, h, w, tile_h, 2 * ssim_cuda.STREAM_RADIUS,
+                                   H100_COMP_RESIDENT)
+    assert seg % tile_h == 0 and tile_h <= seg <= ssim_cuda.MAX_SEG_TILES * tile_h
+    assert seg < h + tile_h
+    if _blocks(bsz, h, w, tile_h) <= H100_COMP_RESIDENT:
+        assert seg == tile_h, (shape, seg)
+    assert (_blocks(bsz, h, w, tile_h) <= H100_COMP_RESIDENT) == (h <= 540)
+    # The size condition: scales 0 and 1 stream, 2-4 keep the tile body.
+    for mode in ("components", "pooled"):
+        assert ssim_cuda.stream_applies(mode, ssim_cuda.STREAM_RADIUS, kw["tile_w"],
+                                        npix=bsz * h * w) == (h >= 540)
+
+
 @pytest.mark.parametrize("tile", [(32, 32), (32, 64), (64, 128), (7, 64), (1, 32),
                                   (256, 128)])
 def test_stream_blocks_cover_each_pixel_once_with_whole_tiles(tile):
@@ -163,14 +201,17 @@ def test_stream_blocks_cover_each_pixel_once_with_whole_tiles(tile):
 
 @pytest.mark.parametrize("mode", ssim_cuda._MODES)
 def test_stream_applies_to_the_documented_launches(mode):
-    """The streaming kernel takes exactly the score, map and row modes and
-    the precise modes (kPrecise, kPreciseMap) at radius 5 with tiles 32 to
-    128 wide, and relaxed only the score and map modes; every other mode
-    (components, pooled, both batch modes), radius and tile width keeps
-    the tile body."""
-    main = mode in ("score", "map", "rowsum", "rowsum_map", "precise", "precise_map")
+    """The streaming kernel takes exactly the score, map and row modes, the
+    precise modes (kPrecise, kPreciseMap) and the MS-SSIM components and
+    pooled modes at radius 5 with tiles 32 to 128 wide, and relaxed only
+    the score and map modes; every other mode (both batch modes, relaxed
+    components and pooled), radius and tile width keeps the tile body.
+    Given the launch's pixels, the components and pooled modes stream only
+    from STREAM_COMP_MIN_PIX; the other modes take no size condition."""
+    main = mode in ("score", "map", "rowsum", "rowsum_map", "precise", "precise_map",
+                    "components", "pooled")
     assert ssim_cuda.STREAM_MODES == ("score", "map", "rowsum", "rowsum_map",
-                                      "precise", "precise_map")
+                                      "precise", "precise_map", "components", "pooled")
     assert ssim_cuda.STREAM_RELAXED_MODES == ("score", "map")
     for radius in (1, 4, 5, 6, 16):
         for tile_w in (8, 16, 32, 64, 128, 256):
@@ -178,13 +219,20 @@ def test_stream_applies_to_the_documented_launches(mode):
                 served = mode in ("score", "map") if relaxed else main
                 want = served and radius == 5 and 32 <= tile_w <= 128
                 assert ssim_cuda.stream_applies(mode, radius, tile_w, relaxed) == want
+                big, small = ssim_cuda.STREAM_COMP_MIN_PIX, ssim_cuda.STREAM_COMP_MIN_PIX - 1
+                assert ssim_cuda.stream_applies(mode, radius, tile_w, relaxed, big) == want
+                sized = want and mode not in ("components", "pooled")
+                assert ssim_cuda.stream_applies(mode, radius, tile_w, relaxed, small) == sized
+    assert ssim_cuda.STREAM_COMP_MIN_PIX == 1 << 20
 
 
 def test_main_path_defaults_take_the_streaming_kernel():
     """The defaults every main-path call uses (windows.RADIUS, TILE_W, the
-    standard, precise and relaxed tiers) take the streaming kernel, in all
-    six of its modes and both relaxed ones; the batch route's tiles (8 to
-    64 wide) never reach it, as both batch modes keep the tile body."""
+    standard, precise and relaxed tiers; the components wrappers' fixed
+    TILE_H x TILE_W) take the streaming kernel, in all eight of its modes
+    and both relaxed ones, while the relaxed components and pooled modes
+    keep the tile body; the batch route's tiles (8 to 64 wide) never reach
+    it, as both batch modes keep the tile body."""
     from ssim_tpu_torch.windows import RADIUS
 
     assert RADIUS == ssim_cuda.STREAM_RADIUS
@@ -192,6 +240,13 @@ def test_main_path_defaults_take_the_streaming_kernel():
         assert ssim_cuda.stream_applies(mode, RADIUS, ssim_cuda.TILE_W)
     for mode in ssim_cuda.STREAM_RELAXED_MODES:
         assert ssim_cuda.stream_applies(mode, RADIUS, ssim_cuda.TILE_W, relaxed=True)
+    kw = ssim_cuda._components_args(torch.zeros(1, 8, 8, dtype=torch.uint8),
+                                    torch.zeros(1, 8, 8, dtype=torch.uint8),
+                                    255.0, RADIUS, 1.5, 0.01, 0.03)
+    for mode in ("components", "pooled"):
+        assert ssim_cuda.stream_applies(mode, RADIUS, kw["tile_w"])
+        assert not ssim_cuda.stream_applies(mode, RADIUS, kw["tile_w"], relaxed=True)
+    assert kw["tile_h"] % 2 == 0  # the pooled blocks own whole 2x2 blocks
     assert ssim_cuda.fit_tile(None, None, RADIUS, precise=True) == (
         ssim_cuda.TILE_H, ssim_cuda.TILE_W)
     for bsz, h, w in [(4096, 64, 64), (8192, 32, 32), (512, 192, 192)]:
@@ -203,6 +258,7 @@ def test_main_path_defaults_take_the_streaming_kernel():
 EMU_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "fwd_stream_emu")
 _EMU_MODES = {"score": 0, "map": 1, "rowsum": 8, "rowsum_map": 9}
 _EMU_PRECISE_MODES = {"precise": 4, "precise_map": 5}
+_EMU_COMP_MODES = {"components": 2, "pooled": 3}
 
 
 @pytest.fixture(scope="module")
@@ -232,17 +288,19 @@ def stream_emulator(tmp_path_factory):
 def _emulate(exe, mode, a, b, tile, seg, vhalo=None, vmask=(0, 0), relaxed=False,
              c2=None):
     """The host build of the kernel in `mode` on NumPy (B, H, W) inputs:
-    (partials (B, nty*ntx), f64 in the precise modes, or row sums (B, H),
-    map or None). The precise modes get the f64 taps and c1, c2 unrounded,
-    as the wrapper passes them; relaxed (score and map) runs the relaxed
-    instantiation; c2 replaces the data range's."""
+    (partials (B, nty*ntx), f64 in the precise modes, (B, nty*ntx, 2) in
+    the components modes, or row sums (B, H), then the map or, in the
+    pooled mode, the pooled images (pool_a, pool_b), else None). The
+    precise modes get the f64 taps and c1, c2 unrounded, as the wrapper
+    passes them; relaxed (score and map) runs the relaxed instantiation;
+    c2 replaces the data range's."""
     bsz, h, w = a.shape
     f32 = a.dtype == np.float32
     precise = mode in _EMU_PRECISE_MODES
     dr = 1.0 if f32 else 255.0
-    head = np.array([{**_EMU_MODES, **_EMU_PRECISE_MODES}[mode], int(f32), bsz, h, w,
-                     tile[0], tile[1], seg, vhalo is not None, *vmask, int(precise),
-                     int(relaxed)], np.int32)
+    head = np.array([{**_EMU_MODES, **_EMU_PRECISE_MODES, **_EMU_COMP_MODES}[mode],
+                     int(f32), bsz, h, w, tile[0], tile[1], seg, vhalo is not None,
+                     *vmask, int(precise), int(relaxed)], np.int32)
     ftype = np.float64 if precise else np.float32
     c2 = (0.03 * dr) ** 2 if c2 is None else c2
     consts = np.array([(0.01 * dr) ** 2, c2, max(131072.0, 4.0 * dr)], ftype)
@@ -254,12 +312,17 @@ def _emulate(exe, mode, a, b, tile, seg, vhalo=None, vmask=(0, 0), relaxed=False
     subprocess.run([str(exe), path_in, path_out], check=True, timeout=600)
     raw = np.fromfile(path_out, np.uint8)
     n = bsz * h if mode.startswith("rowsum") else bsz * (-(-h // tile[0])) * (-(-w // tile[1]))
-    size = np.dtype(np.float64 if precise else np.float32).itemsize * n
+    comp = mode in _EMU_COMP_MODES
+    size = np.dtype(np.float64 if precise else np.float32).itemsize * n * (2 if comp else 1)
     first = raw[:size].view(np.float64 if precise else np.float32)
-    first = torch.from_numpy(first.reshape(bsz, -1).copy())
-    smap = torch.from_numpy(raw[size:].view(np.float32).reshape(a.shape).copy()) \
-        if mode.endswith("map") else None
-    return first, smap
+    first = torch.from_numpy(first.reshape((bsz, -1, 2) if comp else (bsz, -1)).copy())
+    rest = raw[size:].view(np.float32)
+    if mode.endswith("map"):
+        return first, torch.from_numpy(rest.reshape(a.shape).copy())
+    if mode == "pooled":
+        pooled = torch.from_numpy(rest.reshape(2, bsz, h // 2, w // 2).copy())
+        return first, (pooled[0], pooled[1])
+    return first, None
 
 
 def _emu_pair(rng, shape, f32):
@@ -524,3 +587,72 @@ def test_stream_kernel_source_relaxed_mu_planes_are_the_twins(stream_emulator):
         _, std = ssim_cuda.ssim_parts_plain(at, bt, with_map=True, **kw)
         assert torch.isfinite(got).all()
         assert torch.equal(got, twin) and torch.equal(got, std), f32
+
+
+#: Components and pooled cases: (f32, shape, tile, segment). Odd H and W
+#: (the last pooled row and column dropped), a ragged last strip, H one
+#: past a segment and 2S + 1, W <= 2r, H = 1 (components only: pooling
+#: needs H, W >= 2), tiles 32x32, 32x64 and 64x128.
+_EMU_COMP_CASES = {
+    "u8 ragged strip, odd H and W, H one past a segment": (False, (2, 65, 131), (32, 64), 64),
+    "f32 2S+1, 32x32 tiles": (True, (2, 129, 300), (32, 32), 64),
+    "u8 64x128 tiles, odd W": (False, (2, 129, 301), (64, 128), 128),
+    "u8 W <= 2r": (False, (2, 33, 9), (32, 64), 64),
+    "u8 H = 1": (False, (3, 1, 130), (32, 64), 32),
+    "f32 non-finite on boundaries": (True, (3, 135, 400), (32, 64), 64),
+}
+
+
+@pytest.mark.parametrize("case", list(_EMU_COMP_CASES))
+def test_stream_kernel_source_components_match_twins_on_the_host(stream_emulator, case):
+    """The streaming kernel's components and pooled modes (the stream's
+    blurs with the _l_cs_from_blurs epilogue, two partials per tile; the
+    pooled mode also the 2x2 means of the raw inputs of its own rows and
+    columns), built for the host, against ssim_components_plain and
+    ssim_components_pooled_plain: pooled images bit for bit (NaN at the
+    same pixels), per-image mean cs and ssim within max(2e-7, 2e-5 /
+    sqrt(npix)), NaN in both partials of exactly the twin's tiles, and the
+    pooled mode's partials equal to the components mode's. In f32, NaN and
+    inf on a tile edge, a strip's first and last column, a segment's first
+    and last row, 2r rows above an interior segment and the image's last
+    pixel (which an odd H and W leave out of the pooled images)."""
+    f32, shape, tile, seg = _EMU_COMP_CASES[case]
+    rng = np.random.default_rng(0x5EFA + len(case))
+    a, b = _emu_pair(rng, shape, f32)
+    if case.startswith("f32 non-finite"):
+        a[0, seg, 200] = np.nan
+        a[0, seg - 10, 40] = np.nan
+        a[1, seg - 1, 127] = np.inf
+        b[1, 3, 128] = -np.inf
+        a[2, tile[0] - 1, tile[1]] = np.nan
+        a[2, 40, 255] = np.inf
+        b[2, -1, -1] = np.nan
+    dr = 1.0 if f32 else 255.0
+    kw = dict(taps=gaussian_taps(np.float32, 5, 1.5), c1=(0.01 * dr) ** 2,
+              c2=(0.03 * dr) ** 2, clip_bound=max(131072.0, 4.0 * dr),
+              tile_h=tile[0], tile_w=tile[1])
+    at, bt = torch.from_numpy(a), torch.from_numpy(b)
+    npix = shape[1] * shape[2]
+    want = ssim_cuda.ssim_components_plain(at, bt, **kw)
+    got, none = _emulate(stream_emulator, "components", a, b, tile, seg)
+    assert none is None and got.shape == want.shape
+    assert torch.equal(got.isnan(), want.isnan())
+    gk = got.double().sum(-2) / npix
+    gp = want.double().sum(-2) / npix
+    assert torch.equal(gk.isnan(), gp.isnan())
+    fin = ~gp.isnan()
+    if fin.any():
+        assert (gk[fin] - gp[fin]).abs().max().item() <= max(2e-7, 2e-5 / npix**0.5)
+    if case.startswith("f32 non-finite"):
+        assert got.isnan().any() and not got.isnan().all()  # only the planted tiles
+    if shape[1] < 2:
+        return
+    parts, (pa, pb) = _emulate(stream_emulator, "pooled", a, b, tile, seg)
+    assert torch.equal(parts.isnan(), got.isnan())
+    assert torch.equal(parts.nan_to_num(), got.nan_to_num())
+    for x, want_pool in ((pa, ssim_cuda.downsample2(at)), (pb, ssim_cuda.downsample2(bt))):
+        assert x.shape == want_pool.shape
+        assert torch.equal(x.isnan(), want_pool.isnan())
+        assert torch.equal(x.nan_to_num(), want_pool.nan_to_num())
+    if case.startswith("f32 non-finite"):
+        assert pa[0, seg // 2, 100].isnan() and pa[2, 20, 127].isinf()
