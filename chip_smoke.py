@@ -71,21 +71,26 @@ Phases, each of which raises on failure (the script then exits non-zero):
    oracle route it replaced at (1, 1080, 1920);
 8. batches of small images (the JAX package's packed route): the forward
    kernel's batch modes (kBatch, kBatchPrecise; one partial pair per
-   image) against their twin, against the tile modes' per-image scores
-   and, on the small shapes, against the f64 oracle, at the JAX package's
-   packed-path test shapes, (5, 16, 2048), a tall (2, 8192, 64), (2, 1, 1)
-   and (2, 7, 5), f32 with a NaN in one image (only that image's score is
-   NaN), radius 1 / 16 with custom sigma/k1/k2, and the routed shapes of
-   (c); the route: one `compute_ssim` on NumPy uint8 (4096, 64, 64) with
-   no `device` (exactly one kBatch launch and no other), the same with
-   `precision="f64"` (exactly one kBatchPrecise launch, no call of the
-   oracle), the same with a tile pin in the config (exactly one standard
-   launch), and one Adam step of `ssim_loss` on f32 (256, 64, 64) (one
-   kBatch and one backward launch, the kBatch partials held against the
-   twin; the loss falls); then at 32x32 x8192, 64x64 x4096, 128x128
-   x1024, 192x192 x512 (u8) and precise 64x64 x4096, the batch mode
-   against the tile grid on the same inputs with CUDA events (in turns:
-   tile, batch, batch, tile), `compute_ssim` on both routes (the tile
+   image; at radius 5 the packed row stream, each launch counted by
+   STREAM_LAUNCHES, at radius 1 / 16 the tile body) against their twin,
+   against the tile modes' per-image scores, against the tile body's
+   batch mode (pinned) and, on the small shapes, against the f64 oracle,
+   at the JAX package's packed-path test shapes, (5, 16, 2048), a tall
+   (2, 8192, 64), (3, 50, 1), (2, 1, 1) and (2, 7, 5), f32 with a NaN in
+   one image (only that image's score is NaN), radius 1 / 16 with custom
+   sigma/k1/k2, and the routed shapes of (c); the route: one
+   `compute_ssim` on NumPy uint8 (4096, 64, 64) with no `device` (exactly
+   one kBatch launch, a streaming one, and no other), the same with
+   `precision="f64"` (exactly one kBatchPrecise launch, streaming, no call
+   of the oracle), the same with a tile pin in the config (exactly one
+   standard launch), and one Adam step of `ssim_loss` on f32 (256, 64, 64)
+   (one kBatch launch, streaming, and one backward launch, the kBatch
+   partials held against the twin; the loss falls); then at 32x32 x8192,
+   64x64 x4096, 128x128 x1024, 192x192 x512 (u8) and precise 64x64 x4096,
+   the batch mode against the tile grid and the tile body's batch mode on
+   the same inputs with CUDA events (in turns: tile grid, tile body,
+   batch, batch, tile body, tile grid), each beside its bound (precise:
+   also the FP64-pipe floor), `compute_ssim` on both routes (the tile
    route by a tile pin; in turns) with the host clock, and the twin;
 9. spatial sharding (ssim_tpu_torch.parallel): (a) the forward kernel's
    row modes with halo operands (kRowsum, kRowsumMap) and the backward
@@ -152,8 +157,8 @@ Phases, each of which raises on failure (the script then exits non-zero):
    kernel's output), each beside the bound.
 
 Prints the kernel records as one JSON line (with each kernel's roofline
-bound; each forward entry names the design that ran, STREAM_DESIGN or
-TILE_DESIGN), the card's name and power limit, and last
+bound; each forward entry names the design that ran), the card's name
+and power limit, and last
 `{"ok": true, "device": {...}}`. Inputs are random, made on the device
 from a fixed seed. Imports no JAX. Where it cannot start (no CUDA, or no
 `ssim_tpu_torch` package beside it) it prints one line
@@ -527,7 +532,6 @@ MAIN_CONFIGS = [("1080p_b4", (4, 1080, 1920)), ("4k_b4", (4, 2160, 3840)),
 #: (PRECISE_STREAM_DESIGN); every other mode keeps the tile body.
 STREAM_DESIGN = ("row-streaming column strips (ssim_fwd_stream_kernel: 128 columns, "
                  "one thread each, a register window of 2r + 1 rows)")
-TILE_DESIGN = "one block per output tile (ssim_fwd_kernel)"
 COMP_STREAM_DESIGN = (
     "row-streaming column strips (ssim_fwd_stream_kernel<T, kComponents|kPooled>: 128 "
     "columns, one thread each, a register window of 2r + 1 rows) with the components "
@@ -547,6 +551,17 @@ RELAXED_STREAM_DESIGN = (
     "two rows by the block's 4 warps; mu_a, mu_b in a register window, (a+b)^2 and "
     "(a-b)^2 blurs in a shared-memory ring of 2 (2r + 1) rows; 7 blocks/SM); the "
     "components, pooled and batch modes: the tile body")
+
+BATCH_STREAM_DESIGN = (
+    "packed row-streaming strips (ssim_fwd_batch_stream_kernel: images k to a packed "
+    "row, cut into 128-column strips, each image's piece staged with its own clamped "
+    "columns; one thread a column, a window of 2r + 1 rows (kBatch: 3 signals in "
+    "registers, s_dd in a shared-memory ring, 8 blocks/SM; kBatchPrecise: the precise "
+    "stream's fp64 thread pairs, 4 blocks/SM); an image's clamped rows pushed again, not "
+    "blurred; a block a strip of a packed row, down all its rows or a segment of them "
+    "(ssim_cuda.batch_stream_plan); per-column sums, a segmented warp reduction per "
+    "image, batch_pieces_reduce_kernel where an image spans blocks); relaxed kBatch and "
+    "other radii: the tile body")
 
 RELAXED_BWD_STREAM_DESIGN = (
     "row-streaming column strips, relaxed, at radius 5 (ssim_bwd_relaxed_stream_kernel: "
@@ -1456,11 +1471,28 @@ def batch_twin(a, b, precise, data_range=255.0, radius=5, sigma=1.5, k1=0.01,
     )
 
 
+def batch_tile_body(a, b, precise, data_range=255.0, radius=5, sigma=1.5, k1=0.01,
+                    k2=0.03):
+    """The batch mode on the tile body (ssim_cuda.batch_geometry's tiles,
+    the design the batch modes ran before the packed stream), pinned."""
+    from ssim_tpu_torch.ops import ssim_cuda
+
+    kw = ssim_cuda._prepare(a, b, data_range=data_range, radius=radius, sigma=sigma, k1=k1,
+                            k2=k2, precise=precise)
+    tile_h, tile_w, ipb, groups = ssim_cuda.batch_geometry(*a.shape)
+    return ssim_cuda._launch(a, b, mode="batch_precise" if precise else "batch",
+                             tile_h=tile_h, tile_w=tile_w, ipb=ipb, groups=groups,
+                             tile_body=True, **kw)
+
+
 def compare_batch(name, a, b, *, oracle=None, **kw):
-    """Both batch modes against their twin and against the tile modes'
-    per-image scores on the same card tensors; with oracle=(standard
-    global, precise global), also the f64 oracle. Returns the largest
-    score difference from the twin and each mode's per-image scores."""
+    """Both batch modes against their twin, the tile modes' per-image
+    scores and the tile body's batch mode (pinned) on the same card
+    tensors; at radius 5 each batch launch must be a packed-stream one
+    (STREAM_LAUNCHES), at other radii a tile-body one; with
+    oracle=(standard global, precise global), also the f64 oracle. Returns
+    the largest score difference from the twin and each mode's per-image
+    scores."""
     from ssim_tpu_torch import reference
     from ssim_tpu_torch.ops import ssim_cuda
 
@@ -1468,17 +1500,24 @@ def compare_batch(name, a, b, *, oracle=None, **kw):
     npix = h * w
     allow = a.dtype == torch.float32
     err, got, parts = 0.0, {}, []
+    streams = ssim_cuda.stream_applies("batch", kw.get("radius", 5), 0)
     for precise in (False, True):
+        before = ssim_cuda.STREAM_LAUNCHES
         pk = ssim_cuda.ssim_parts_batch_cuda(a, b, precise=precise, allow_float=allow, **kw)
+        streamed = ssim_cuda.STREAM_LAUNCHES - before
         tk, _ = ssim_cuda.ssim_parts_cuda(a, b, precise=precise, allow_float=allow, **kw)
+        bk = batch_tile_body(a, b, precise, **kw)
         torch.cuda.synchronize()
         tag = "kBatchPrecise" if precise else "kBatch"
+        check(streamed == int(streams), f"{name}: {tag} streamed {streamed} launches, "
+              f"expected {int(streams)}")
         check(tuple(pk.shape) == (bsz, 2)
               and pk.dtype == (torch.float64 if precise else torch.float32),
               f"{name}: {tag} partials {tuple(pk.shape)} {pk.dtype}")
         check(bool((pk[:, 1] == npix).all()), f"{name}: {tag} count column is not {npix}")
         gk = scores(pk, npix)
-        for label, ref in (("twin", batch_twin(a, b, precise, **kw)), ("tile modes", tk)):
+        for label, ref in (("twin", batch_twin(a, b, precise, **kw)), ("tile modes", tk),
+                           ("tile body", bk)):
             gr = scores(ref, npix)
             check(np.array_equal(np.isnan(gk), np.isnan(gr)), f"{name}: {tag} NaN vs {label}")
             diff = np.abs(gk - gr)
@@ -1519,8 +1558,9 @@ def phase_batch(gen, label):
     from ssim_tpu_torch.ops import routing, ssim_cuda
 
     print("phase 8: batches of small images (kBatch / kBatchPrecise)", flush=True)
-    # (a) Both modes against the twin, the tile modes and the oracle. The
-    # routed shapes of (c) are held there, before they are timed.
+    # (a) Both modes against the twin, the tile modes, the tile body's batch
+    # mode and the oracle. The routed shapes of (c) are held there, before
+    # they are timed.
     err = 0.0
     std_oracle = (ORACLE_GLOBAL, PRECISE_GLOBAL)
     for shape in [(4, 64, 64), (3, 33, 47), (2, 30, 200), (5, 11, 11), (3, 50, 1),
@@ -1541,6 +1581,14 @@ def phase_batch(gen, label):
     print("  NaN reaches only image 5; image 6 alone equals image 6 in the batch",
           flush=True)
     err = max(err, e, e1)
+    # A NaN in the first row a block stages (row 0), in warp 3's column.
+    a, b = pair(gen, (4, 64, 64), torch.float32, 1.0)
+    a[1, 0, 40] = float("nan")
+    e2, got = compare_batch("f32 (4, 64, 64) NaN in row 0 of image 1", a, b, data_range=1.0)
+    for precise, g in got.items():
+        check(np.isnan(g[1]) and np.isfinite(np.delete(g, 1)).all(),
+              f"NaN in row 0 (precise={precise}): scores {g}")
+    err = max(err, e2)
     for win in (dict(radius=1, sigma=0.8, k1=0.02, k2=0.05),
                 dict(radius=16, sigma=3.0, k1=0.015, k2=0.04)):
         a, b = pair(gen, (4, 64, 64))
@@ -1579,11 +1627,12 @@ def phase_batch(gen, label):
             config.set_config(old_cfg)
     finally:
         reference.compute_ssim = real_oracle
-    check(route["compute_ssim"] == counts_of(batch=1),
-          f"compute_ssim launches {route['compute_ssim']}, expected 1 kBatch")
-    check(route["compute_ssim_f64"] == counts_of(batch_precise=1),
+    check(route["compute_ssim"] == counts_of(batch=1, stream=1),
+          f"compute_ssim launches {route['compute_ssim']}, expected 1 kBatch (the packed "
+          f"stream)")
+    check(route["compute_ssim_f64"] == counts_of(batch_precise=1, stream=1),
           f'compute_ssim(precision="f64") launches {route["compute_ssim_f64"]}, '
-          f"expected 1 kBatchPrecise")
+          f"expected 1 kBatchPrecise (the packed stream)")
     check(oracle_calls == [], f"the f64 oracle was called: {oracle_calls}")
     check(route["compute_ssim_tile_pin"] == counts_of(standard=1, stream=1),
           f"compute_ssim with a tile pin launches {route['compute_ssim_tile_pin']}, "
@@ -1627,9 +1676,10 @@ def phase_batch(gen, label):
     with torch.no_grad():
         after = ssim_tpu_torch.ssim_loss(x.clamp(0.0, 1.0), clean)
     losses = [loss.detach().item(), after.item()]
-    check(route["ssim_loss_step"] == counts_of(batch=1, backward=1) and len(seen) == 1,
-          f"ssim_loss step launches {route['ssim_loss_step']}, expected 1 kBatch "
-          f"and 1 backward")
+    check(route["ssim_loss_step"] == counts_of(batch=1, backward=1, stream=1)
+          and len(seen) == 1,
+          f"ssim_loss step launches {route['ssim_loss_step']}, expected 1 kBatch (the "
+          f"packed stream) and 1 backward")
     sa, sb, sp = seen[0]
     step_err = float(np.abs(scores(sp, npix) - scores(
         batch_twin(sa, sb, False, data_range=1.0), npix)).max())
@@ -1638,19 +1688,37 @@ def phase_batch(gen, label):
     del seen, sa, sb, sp
     check(finite and all(np.isfinite(losses)) and losses[1] < losses[0],
           f"ssim_loss step: losses {losses}, finite gradient {finite}")
+
+    def step():
+        opt.zero_grad(set_to_none=True)
+        ssim_tpu_torch.ssim_loss(x, clean).backward()
+        opt.step()
+        with torch.no_grad():
+            x.clamp_(0.0, 1.0)
+
+    step_host = host_times(step, 20)
+    step_busy, _, step_ops, _ = device_trace(step, 10)
+    route_step_ms = dict(host_ms=statistics.median(step_host), host_runs=step_host,
+                         trace_busy_ms=step_busy, trace_ops_per_step=step_ops)
     launches = sum(c["batch"] + c["batch_precise"] for c in route.values())
+    launches_stream = sum(c["stream"] for k, c in route.items() if k != "compute_ssim_tile_pin")
     print(f"  compute_ssim NumPy u8 (4096, 64, 64), no device: {route['compute_ssim']}; "
           f"precision=\"f64\": {route['compute_ssim_f64']}, oracle calls 0; tile pin: "
           f"{route['compute_ssim_tile_pin']}; scores on both routes within "
           f"{float(np.abs(s - s_tile).max()):.3g}", flush=True)
     print(f"  ssim_loss Adam step f32 {shape}: {route['ssim_loss_step']}; its kBatch "
           f"partials vs twin {step_err:.3g}; 1-SSIM {losses[0]:.6f} -> "
-          f"{losses[1]:.6f}", flush=True)
+          f"{losses[1]:.6f}; step {route_step_ms['host_ms']:.4f} ms (host clock, median "
+          f"of 20), device busy "
+          f"{'not measured' if step_busy is None else f'{step_busy:.4f} ms'} per step "
+          f"(trace of 10) | {label}", flush=True)
     del x, opt, clean, noisy
 
-    # (c) At the routed shapes: both modes held against the twin and the
-    # tile modes, then the batch mode and the tile grid on the same inputs
-    # (tile, batch, batch, tile), compute_ssim on both routes, the twin.
+    # (c) At the routed shapes: both modes held against the twin, the tile
+    # modes and the tile body, then on the same inputs in turns the tile
+    # grid, the tile body's batch mode (the design before the packed
+    # stream), the batch mode twice, the tile body, the tile grid;
+    # compute_ssim on both routes, the twin.
     times = {}
     for name, shape, precise in BATCH_CONFIGS:
         a, b = pair(gen, shape)
@@ -1659,9 +1727,12 @@ def phase_batch(gen, label):
         prec = dict(precision="f64") if precise else {}
         batch_fn = lambda: ssim_cuda.ssim_parts_batch_cuda(a, b, precise=precise)
         tile_fn = lambda: ssim_cuda.ssim_parts_cuda(a, b, precise=precise)
+        body_fn = lambda: batch_tile_body(a, b, precise)
         t_tile_a = cuda_ms(tile_fn, 20)
+        t_body_a = cuda_ms(body_fn, 20)
         t_batch_a = cuda_ms(batch_fn, 20)
         t_batch_b = cuda_ms(batch_fn, 20)
+        t_body_b = cuda_ms(body_fn, 20)
         t_tile_b = cuda_ms(tile_fn, 20)
         t_plain = cuda_ms(lambda: batch_twin(a, b, precise), 3)
         # compute_ssim on both routes in turns: batch, tile, batch, tile.
@@ -1678,25 +1749,37 @@ def phase_batch(gen, label):
         else:
             bnd, by = fwd_bound(shape, 1, out_bytes=8 * shape[0])
         t_batch, t_tile = min(t_batch_a, t_batch_b), min(t_tile_a, t_tile_b)
+        t_body = min(t_body_a, t_body_b)
         mpix = shape[0] * shape[1] * shape[2] / 1e6
         times[name] = dict(
             shape=list(shape), precise=precise, ms=t_batch, ms_runs=[t_batch_a, t_batch_b],
-            tile_ms=t_tile, tile_ms_runs=[t_tile_a, t_tile_b], plain_ms=t_plain,
-            bound_ms=bnd, bound_by=by,
+            tile_ms=t_tile, tile_ms_runs=[t_tile_a, t_tile_b],
+            tile_body_ms=t_body, tile_body_ms_runs=[t_body_a, t_body_b], plain_ms=t_plain,
+            bound_ms=bnd, bound_by=by, bound_share=bnd / t_batch,
             compute_ssim_ms=statistics.median(e2e), compute_ssim_runs=e2e,
             compute_ssim_tile_ms=statistics.median(e2e_tile),
             compute_ssim_tile_runs=e2e_tile,
         )
+        floor = ""
+        if precise:
+            times[name]["dp_floor_ms"] = precise_dp_floor(shape)
+            times[name]["dp_floor_share"] = times[name]["dp_floor_ms"] / t_batch
+            floor = (f", FP64-pipe floor {times[name]['dp_floor_ms']:.4f} ms "
+                     f"({100 * times[name]['dp_floor_share']:.1f}%)")
         print(f"  {name} {shape}{' precise' if precise else ''}: batch {t_batch_a:.4f} / "
-              f"{t_batch_b:.4f} ms ({mpix / t_batch * 1e3:.1f} Mpix/s), tile grid "
+              f"{t_batch_b:.4f} ms ({mpix / t_batch * 1e3:.1f} Mpix/s), tile body (the "
+              f"earlier design) {t_body_a:.4f} / {t_body_b:.4f} ms, tile grid "
               f"{t_tile_a:.4f} / {t_tile_b:.4f} ms ({mpix / t_tile * 1e3:.1f} Mpix/s), "
-              f"batch / tile {t_batch / t_tile:.3f}; twin {t_plain:.3f} ms; compute_ssim "
+              f"batch / tile grid {t_batch / t_tile:.3f}, batch / tile body "
+              f"{t_batch / t_body:.3f}; twin {t_plain:.3f} ms; compute_ssim "
               f"{statistics.median(e2e):.3f} ms on the batch route, "
               f"{statistics.median(e2e_tile):.3f} ms on the tile route (medians of 20); "
-              f"bound {bnd:.4f} ms ({by}) | {label}", flush=True)
+              f"bound {bnd:.4f} ms ({by}, {100 * bnd / t_batch:.1f}% reached){floor} | "
+              f"{label}", flush=True)
         del a, b
         torch.cuda.empty_cache()
-    return dict(err=err, route=route, launches=launches, losses=losses, times=times)
+    return dict(err=err, route=route, launches=launches, launches_stream=launches_stream,
+                losses=losses, step=route_step_ms, times=times)
 
 
 def ring_halo(x, lo, hi, rows, first, last):
@@ -3185,19 +3268,26 @@ def main():
     }, {
         "name": "ssim_fwd_batch",
         "route": "cuda",
-        "source": "ssim_tpu_torch/csrc/ssim_fwd.cu",
-        "design": TILE_DESIGN,
+        "source": "ssim_tpu_torch/csrc/ssim_fwd_batch.cu",
+        "design": BATCH_STREAM_DESIGN,
         "replaces": "ssim_tpu/ops/ssim_pallas.py:710 (K1 mode e, colsum/pchunk), "
                     "tools/probe_bpack.py:56 (K5)",
         "launches": batch["launches"],
+        "launches_stream": batch["launches_stream"],
         "launches_by_call": batch["route"],
         "max_abs_err": batch["err"],
         **{k: batch["times"]["64x64_b4096"][k]
-           for k in ("ms", "plain_ms", "bound_ms", "bound_by", "shape")},
+           for k in ("ms", "plain_ms", "bound_ms", "bound_by", "bound_share", "shape")},
         "library_ms": None,
         "tile_grid_ms": batch["times"]["64x64_b4096"]["tile_ms"],
+        "tile_body_ms": batch["times"]["64x64_b4096"]["tile_body_ms"],
+        "precise_ms": batch["times"]["64x64_b4096_f64"]["ms"],
+        "precise_bound_ms": batch["times"]["64x64_b4096_f64"]["bound_ms"],
+        "precise_dp_floor_ms": batch["times"]["64x64_b4096_f64"]["dp_floor_ms"],
+        "precise_dp_floor_share": batch["times"]["64x64_b4096_f64"]["dp_floor_share"],
         "times": batch["times"],
         "loss": batch["losses"],
+        "loss_step_ms": batch["step"],
     }, {
         "name": "ssim_fwd_rowsum",
         "route": "cuda",

@@ -62,20 +62,23 @@
 //   pair per image, [sum(ssim - 1), n = H*W], f32 in kBatch (the JAX
 //   contract's (B, 2)) and f64 in kBatchPrecise (where the TPU writes
 //   (B, 3) [hi, lo, n]; both are summed in f64 by the finalize). Each
-//   pixel's SSIM is kScore's (kPrecise's) bit for bit: the same tile body
-//   runs over each image's own grid of tiles, with a tile width the
-//   wrapper picks from the image width (8..64), so a narrow image leaves
-//   few threads idle. A block walks its tiles in series: `ipb` whole
-//   images, or one of `groups` runs of one image's tiles (so a tall image
-//   or a short batch still spreads over the SMs). Each tile's sum is
-//   reduced over the block in the tile modes' type and added to a double
-//   in thread 0; with groups > 1 the runs' doubles go to a scratch array
-//   and batch_reduce_kernel adds each image's runs in order. No atomics:
-//   the partials are deterministic. The TPU packs p images along one lane
-//   row and folds their borders into block-diagonal tap matrices; here the
-//   clamped halo load keeps each image's own borders, a non-finite pixel
-//   poisons its own tile and so its own image's sum, and there are no
-//   padding slots to drop.
+//   pixel's SSIM is kScore's (kPrecise's) bit for bit. At radius 5 both
+//   run the packed row stream (ssim_fwd_batch_stream_kernel in
+//   ssim_fwd_batch.cu, one block a strip of a packed row): the
+//   TPU packs p images along one lane row and folds their borders into
+//   block-diagonal tap matrices; here k images lie side by side in a
+//   packed row cut into 128-column strips, and each image's piece of a
+//   strip is staged with its own clamped columns. The relaxed kBatch and
+//   other radii keep the tile body: it runs over each image's own grid of
+//   tiles, with a tile width the wrapper picks from the image width
+//   (8..64), and a block walks its tiles in series: `ipb` whole images, or
+//   one of `groups` runs of one image's tiles. Each tile's sum is reduced
+//   over the block in the tile modes' type and added to a double in thread
+//   0; with groups > 1 the runs' doubles go to a scratch array and
+//   batch_reduce_kernel adds each image's runs in order. In both designs
+//   no atomics touch the sums (deterministic partials), a non-finite pixel
+//   poisons its own image's sum and no other, and there are no padding
+//   slots to drop.
 //
 // - kRowsum / kRowsumMap (score-only and map spatial sharding,
 //   ssim_tpu_torch/parallel/spatial.py; K1f and K2's rowsum mode, :1080-1090
@@ -140,12 +143,12 @@
 // components modes add a second division and a second tile sum a pixel.
 // The precise modes run the ~130 blur operations per pixel
 // in fp64 (half the f32 rate on an H100; the tile body, which still serves
-// kBatchPrecise and other radii, keeps twice the planes' bytes in shared
-// memory), plus the ~30 fp64 operations of the formula, one of them a
-// division (a short software sequence).
-// The batch modes do the same work per pixel; at widths under 64 the tile
-// grid's 64-wide tiles leave threads idle in both blur passes, which the
-// narrower batch tiles do not.
+// other radii, keeps twice the planes' bytes in shared memory), plus the
+// ~30 fp64 operations of the formula, one of them a division (a short
+// software sequence).
+// The batch modes do the same work per pixel; a 64-wide image fills half
+// of the main-path stream's 128-column strip and walks only H + 2r rows,
+// which the packed stream's full strips and H barriers an image avoid.
 // What the tile body (ssim_fwd_kernel) does about it: each pixel of the
 // halo tile is read from device memory once and converted to f32 on load;
 // both blur passes run out of shared memory with symmetric tap pairs (r + 1
@@ -161,12 +164,14 @@
 // f32, kPrecise and kPreciseMap in fp64 (the same body with the blurs'
 // type Blur<kMode>), and relaxed kScore and kMap (kSplit > 0, below), at
 // radius kStreamR = 5 (windows.RADIUS, every main-path shape and MS-SSIM
-// scale) and tiles up to kStripW columns wide; every other mode (both
-// batch modes, relaxed or not; relaxed components and pooled), radius and
-// tile keeps the tile body (ops/ssim_cuda.py::stream_applies states the
-// rule; the components and pooled modes stream only from 2^20 pixels a
-// launch, STREAM_COMP_MIN_PIX: below it a block's serial chain of at least
-// TH + 2r rows outlasts the tile body's parallel tiles). A block owns a
+// scale) and tiles up to kStripW columns wide; kBatch and kBatchPrecise at
+// radius kStreamR run its steps (b)-(d) over packed rows of images
+// (ssim_fwd_batch_stream_kernel, ssim_fwd_batch.cu); every other mode
+// (relaxed batch, components and pooled), radius and tile keeps the tile body
+// (ops/ssim_cuda.py::stream_applies states the rule; the components and
+// pooled modes stream only from 2^20 pixels a launch, STREAM_COMP_MIN_PIX:
+// below it a block's serial chain of at least TH + 2r rows outlasts the
+// tile body's parallel tiles). A block owns a
 // strip of kStripW output columns and walks down a segment of S output rows
 // (a multiple of TH, at most kMaxSegTiles tiles, chosen by the wrapper to
 // fill the card), one input row per step, one thread per output column.
@@ -249,71 +254,9 @@
 #include <type_traits>
 
 #include "band_mma.cuh"
+#include "fwd_common.cuh"
 
 namespace {
-
-constexpr int kThreads = 256;
-constexpr int kMaxTaps = 33;  // radius <= 16
-
-enum Mode {
-  kScore = 0,
-  kMap = 1,
-  kComponents = 2,
-  kPooled = 3,
-  kPrecise = 4,
-  kPreciseMap = 5,
-  kBatch = 6,
-  kBatchPrecise = 7,
-  kRowsum = 8,
-  kRowsumMap = 9,
-};
-
-// The halo operands of a row band: virtual rows [-r, 0) in at / bt and
-// [H, H + r) in ab / bb, each (B, r, W); all NULL without them. is_top /
-// is_bot: the band holds the image's first / last row, so the clamp
-// applies there and the operand is not read.
-template <typename T>
-struct Halo {
-  const T* at;
-  const T* ab;
-  const T* bt;
-  const T* bb;
-  int is_top;
-  int is_bot;
-};
-
-template <typename T>
-Halo<T> make_halo(const void* const* halo, int is_top, int is_bot) {
-  return Halo<T>{static_cast<const T*>(halo[0]), static_cast<const T*>(halo[1]),
-                 static_cast<const T*>(halo[2]), static_cast<const T*>(halo[3]),
-                 is_top, is_bot};
-}
-
-// The precise modes blur in fp64 with the f64 taps; the others in f32.
-template <int kMode>
-constexpr bool kIsPrecise =
-    kMode == kPrecise || kMode == kPreciseMap || kMode == kBatchPrecise;
-template <int kMode>
-using Blur = typename std::conditional<kIsPrecise<kMode>, double, float>::type;
-
-template <typename P>
-struct Taps {
-  P t[kMaxTaps];
-};
-
-__device__ __forceinline__ float to_f32(uint8_t v) { return (float)v; }
-__device__ __forceinline__ float to_f32(float v) { return v; }
-
-__device__ __forceinline__ bool finite_f32(float v) {
-  return (__float_as_uint(v) & 0x7f800000u) != 0x7f800000u;
-}
-
-// nan_to_num followed by a clip to +-bound (ssim_pallas.py:879-882).
-// NaN is tested first: fmaxf(NaN, x) would return x.
-__device__ __forceinline__ float sanitize(float v, float bound) {
-  if ((__float_as_uint(v) & 0x7fffffffu) > 0x7f800000u) return 0.0f;
-  return fminf(fmaxf(v, -bound), bound);
-}
 
 template <typename T, int kMode, int kSplit>
 __global__ void __launch_bounds__(kThreads)
@@ -703,263 +646,16 @@ __global__ void rowsum_reduce_kernel(const float* __restrict__ pieces,
   rows[i] = (float)s + w;
 }
 
+}  // namespace
+
 // ---------------------------------------------------------------------------
 // The main-path modes: row-streaming column strips.
+// Their constants and steps (b)-(d), which the batch modes' packed
+// stream shares (ssim_fwd_batch.cu), are in fwd_stream.cuh.
 
-// The streaming block: kStripW output columns, one thread each; segments of
-// at most kMaxSegTiles tiles (the tile mask holds one word per tile row, a
-// bit per tile column); the register window's radius; blocks per SM asked
-// of ptxas: in the f32 modes 8 (64 registers, a few spilled) measured
-// fastest at every main-path shape, against 4 (no spills) to 7 (the
-// components modes, whose second sum and pool spill more, measured the same
-// at 7 on an H100 at 1080p x4); in the
-// precise modes 4 (128 registers), with the last kStreamPreciseRing of the
-// window's four signals (s_dd) in a per-thread shared-memory ring, the
-// fastest of the windows measured (PERF.md): all four in registers (176
-// registers of window) fits only 2-3 blocks per SM, and each signal moved
-// to the ring adds 11 shared-memory loads a pixel.
-constexpr int kStripW = 128;
-constexpr int kStreamThreads = kStripW;
-constexpr int kMaxSegTiles = 16;
-constexpr int kStreamR = 5;
-constexpr int kStreamInW = kStripW + 2 * kStreamR;  // staged columns
-constexpr int kStreamBlocks = 8;
-constexpr int kStreamPreciseBlocks = 4;
-constexpr int kStreamPreciseRing = 1;
-// The relaxed modes (kSplit = band_mma::ksteps(kStreamR)): the heavy
-// horizontal blurs of a row as band products whose 8 lines are the strip's
-// 8 column tiles of 16 (kStripW / 16 == 8), one plane by one warp; every
-// other step the block's four warps blur the next two rows, so that no warp
-// issues more than one plane's 6 mma in a step (measured on an H100: the
-// mma cost grows with the number a warp issues in a step, whatever the
-// chains' depth); the window keeps mu_a and mu_b in registers and reads
-// (a+b)^2 and (a-b)^2 from a ring of kStreamRing blurred rows in shared
-// memory (row q in slot q mod kStreamRing: twice the window's rows, so that
-// with s = kP m + k each row's slot is k's and m's parity's). Shared memory:
-// kStreamStaged staged {a, b} rows (one past the staged columns is read, as
-// a product with a zero of the band, from the next row or the ring, all
-// finite), the ring's two planes, the band's fragments and the taps, 29.1 KB
-// a block: 7 blocks on an SM (1 KB reserved each), 72 registers, no spills.
-constexpr int kStreamSplit = band_mma::ksteps(kStreamR);
-constexpr int kStreamRelaxedBlocks = 7;
-constexpr int kStreamStaged = 4;
-constexpr int kStreamRing = 2 * (2 * kStreamR + 1);
-static_assert(kStripW == 16 * 8, "the row's band product takes 8 tiles of 16 columns");
-static_assert((kStreamStaged & (kStreamStaged - 1)) == 0, "a power of two");
+#include "fwd_stream.cuh"
 
-template <int kMode, int kSplit = 0>
-constexpr int kStreamBlocksOf = kSplit > 0              ? kStreamRelaxedBlocks
-                                : kIsPrecise<kMode> ? kStreamPreciseBlocks
-                                                        : kStreamBlocks;
-template <int kMode>
-constexpr int kStreamRingOf = kIsPrecise<kMode> ? kStreamPreciseRing : 0;
-
-template <typename P>
-struct StreamTaps {
-  P t[2 * kStreamR + 1];
-};
-
-// The four signals of one column, in the blur's type.
-template <typename P>
-struct Vec4 {
-  P x, y, z, w;
-};
-
-// A staged row, {a, b, (a+b)^2, (a-b)^2} per staged column: one float4 in
-// the f32 modes; two double2 planes in the precise modes, so that a warp's
-// 16-byte loads of consecutive columns stay conflict-free.
-template <typename P>
-struct StagedRow;
-template <>
-struct StagedRow<float> {
-  float4 v[kStreamInW];
-  __device__ __forceinline__ void put(int j, float va, float vb) {
-    const float sm = va + vb, df = va - vb;
-    v[j] = make_float4(va, vb, sm * sm, df * df);
-  }
-  __device__ __forceinline__ Vec4<float> get(int j) const {
-    const float4 q = v[j];
-    return {q.x, q.y, q.z, q.w};
-  }
-};
-template <>
-struct StagedRow<double> {
-  // One padding column puts sd 16 bytes off ab's banks (mod 32 bytes), so
-  // that a warp reading both planes at every other column is conflict-free.
-  double2 ab[kStreamInW + 1];
-  double2 sd[kStreamInW];
-  // The f32 values widen exactly; the products are formed in double.
-  __device__ __forceinline__ void put(int j, float va, float vb) {
-    const double da = va, db = vb;
-    const double sm = da + db, df = da - db;
-    ab[j] = make_double2(da, db);
-    sd[j] = make_double2(sm * sm, df * df);
-  }
-};
-
-// Symmetric taps over 2r + 1 four-signal values: sum_{d=r..1} t[r-d]
-// (v(-d) + v(d)) + t[r] v(0), per component, v(i) the value at offset i
-// from the centre; the sum starts at the d = r term, as the twin's.
-template <typename P, typename V>
-__device__ __forceinline__ void sym4(const StreamTaps<P>& tp, V&& v, P (&acc)[4]) {
-  constexpr int r = kStreamR;
-  {
-    const P t = tp.t[0];
-    const Vec4<P> lo = v(-r), hi = v(r);
-    acc[0] = t * (lo.x + hi.x);
-    acc[1] = t * (lo.y + hi.y);
-    acc[2] = t * (lo.z + hi.z);
-    acc[3] = t * (lo.w + hi.w);
-  }
-#pragma unroll
-  for (int d = r - 1; d >= 1; --d) {
-    const P t = tp.t[r - d];
-    const Vec4<P> lo = v(-d), hi = v(d);
-    acc[0] += t * (lo.x + hi.x);
-    acc[1] += t * (lo.y + hi.y);
-    acc[2] += t * (lo.z + hi.z);
-    acc[3] += t * (lo.w + hi.w);
-  }
-  const P tc = tp.t[r];
-  const Vec4<P> ce = v(0);
-  acc[0] = acc[0] + tc * ce.x;
-  acc[1] = acc[1] + tc * ce.y;
-  acc[2] = acc[2] + tc * ce.z;
-  acc[3] = acc[3] + tc * ce.w;
-}
-// sym4's sums of two signals (one double2 plane) for two adjacent columns:
-// v points at the staged column 2r to the left of the first, o0 and o1 the
-// results for it and the next, each in sym4's order of operations.
-__device__ __forceinline__ void sym2x2(const StreamTaps<double>& tp, const double2* v,
-                                       double2& o0, double2& o1) {
-  constexpr int r = kStreamR;
-  double2 w[2 * r + 2];
-#pragma unroll
-  for (int i = 0; i < 2 * r + 2; ++i) w[i] = v[i];
-  {
-    const double t = tp.t[0];
-    o0.x = t * (w[0].x + w[2 * r].x);
-    o0.y = t * (w[0].y + w[2 * r].y);
-    o1.x = t * (w[1].x + w[2 * r + 1].x);
-    o1.y = t * (w[1].y + w[2 * r + 1].y);
-  }
-#pragma unroll
-  for (int d = r - 1; d >= 1; --d) {
-    const double t = tp.t[r - d];
-    o0.x += t * (w[r - d].x + w[r + d].x);
-    o0.y += t * (w[r - d].y + w[r + d].y);
-    o1.x += t * (w[r + 1 - d].x + w[r + 1 + d].x);
-    o1.y += t * (w[r + 1 - d].y + w[r + 1 + d].y);
-  }
-  const double tc = tp.t[r];
-  o0.x = o0.x + tc * w[r].x;
-  o0.y = o0.y + tc * w[r].y;
-  o1.x = o1.x + tc * w[r + 1].x;
-  o1.y = o1.y + tc * w[r + 1].y;
-}
-
-// sym4's sums of the two signals {a, b} of one column of the relaxed modes'
-// staged rows: v points at the centre.
-__device__ __forceinline__ void sym2(const StreamTaps<float>& tp, const float2* v,
-                                     float (&acc)[2]) {
-  constexpr int r = kStreamR;
-  {
-    const float t = tp.t[0];
-    const float2 lo = v[-r], hi = v[r];
-    acc[0] = t * (lo.x + hi.x);
-    acc[1] = t * (lo.y + hi.y);
-  }
-#pragma unroll
-  for (int d = r - 1; d >= 1; --d) {
-    const float t = tp.t[r - d];
-    const float2 lo = v[-d], hi = v[d];
-    acc[0] += t * (lo.x + hi.x);
-    acc[1] += t * (lo.y + hi.y);
-  }
-  const float tc = tp.t[r];
-  const float2 ce = v[0];
-  acc[0] = acc[0] + tc * ce.x;
-  acc[1] = acc[1] + tc * ce.y;
-}
-
-// The ring's column of output column c: c with bits 3-4 XORed by its warp
-// (c / 32 mod 4), so that row_pass's stores (8 columns on each of 4 tiles
-// 32 apart) and a warp's reads of its 32 columns are conflict-free.
-__device__ __forceinline__ int ring_col(int c) { return c ^ (8 * ((c >> 5) & 3)); }
-
-// One of the relaxed modes' heavy horizontal blurs of one staged row
-// (kStreamInW {a, b} columns at row) by one warp: band_mma::sweep over one
-// tile of 16 outputs with its 8 lines the strip's 8 tiles (line g reads
-// staged columns 16 g + i, all inside the row or one past it), of (a+b)^2
-// (plane 0) or (a-b)^2 (plane 1), formed as the columns are loaded; the
-// blur of output column c to out[ring_col(c)].
-template <int kSplit>
-__device__ __forceinline__ void row_pass(const float2* row, float* out, int plane,
-                                         const uint4* s_band) {
-  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
-  band_mma::Band<kSplit> bd;
-#pragma unroll
-  for (int ks = 0; ks < kSplit; ++ks) {
-    const uint4 h = s_band[ks * 32 + lane], l = s_band[(kSplit + ks) * 32 + lane];
-    bd.hi[ks][0] = h.x, bd.hi[ks][1] = h.y, bd.hi[ks][2] = h.z, bd.hi[ks][3] = h.w;
-    bd.lo[ks][0] = l.x, bd.lo[ks][1] = l.y, bd.lo[ks][2] = l.z, bd.lo[ks][3] = l.w;
-  }
-  const float2* line = row + 16 * g;
-  band_mma::sweep<1>(
-      bd, 0, 1,
-      [&](int i, float(&v)[2][1]) {
-        // Columns i and i + 1 of the line: {a, b} each, one 16-byte load.
-        const float4 q = *reinterpret_cast<const float4*>(line + i);
-        const float x0 = plane ? q.x - q.y : q.x + q.y;
-        const float x1 = plane ? q.z - q.w : q.z + q.w;
-        v[0][0] = x0 * x0;
-        v[1][0] = x1 * x1;
-      },
-      [&](int, const float(&acc)[1][4]) {
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          out[ring_col(16 * (2 * t + (e & 1)) + g + 8 * (e >> 1))] = acc[0][e];
-        }
-      });
-}
-
-// The sum of v over a warp's lanes, in lane 0: shuffles down by 16 .. 1.
-template <typename P>
-__device__ __forceinline__ P warp_sum(P v) {
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1) v += __shfl_down_sync(0xffffffffu, v, off);
-  return v;
-}
-
-// _ssim_from_blurs (ssim_pallas.py:465-477), as the tile body: in f32, or in
-// native fp64 with c1 and c2 unrounded in the precise modes.
-template <typename P>
-__device__ __forceinline__ P ssim_of(const P (&m)[4], P c1, P c2) {
-  const P mu_a = m[0], mu_b = m[1], s_ss = m[2], s_dd = m[3];
-  const P mu_a2 = mu_a * mu_a;
-  const P mu_b2 = mu_b * mu_b;
-  const P mu_ab = mu_a * mu_b;
-  const P sigma_ab_x4 = (s_ss - s_dd) - (P)4 * mu_ab;
-  const P sigma_sum_x2 = (s_ss + s_dd) - (P)2 * (mu_a2 + mu_b2);
-  const P num = ((P)2 * mu_ab + c1) * ((P)0.5 * sigma_ab_x4 + c2);
-  const P den = (mu_a2 + mu_b2 + c1) * ((P)0.5 * sigma_sum_x2 + c2);
-  return num / den;
-}
-
-// _l_cs_from_blurs (ssim_pallas.py:480-490), as the tile body: lum and cs
-// from the four blurs in f32; returns ssim = lum * cs, cs in `cs`.
-__device__ __forceinline__ float components_of(const float (&m)[4], float c1, float c2,
-                                               float& cs) {
-  const float mu_a = m[0], mu_b = m[1], s_ss = m[2], s_dd = m[3];
-  const float mu_a2 = mu_a * mu_a;
-  const float mu_b2 = mu_b * mu_b;
-  const float mu_ab = mu_a * mu_b;
-  const float sigma_ab_x4 = (s_ss - s_dd) - 4.0f * mu_ab;
-  const float sigma_sum_x2 = (s_ss + s_dd) - 2.0f * (mu_a2 + mu_b2);
-  const float lum = (2.0f * mu_ab + c1) / (mu_a2 + mu_b2 + c1);
-  cs = (0.5f * sigma_ab_x4 + c2) / (0.5f * sigma_sum_x2 + c2);
-  return lum * cs;
-}
+namespace {
 
 // kScore / kMap: partials (B, nty * ntx) f32 as the tile body writes them
 // (kSplit > 0: the relaxed modes, kSplit = kStreamSplit); kPrecise /
@@ -1551,6 +1247,7 @@ cudaError_t launch_typed(int is_float, const void* a, const void* b,
 }
 
 }  // namespace
+
 
 // The C entry for ctypes. mode: 0 = kScore, 1 = kMap, 2 = kComponents,
 // 3 = kPooled, 4 = kPrecise, 5 = kPreciseMap, 6 = kBatch, 7 =

@@ -21,7 +21,8 @@ and `_chunked_overlap_call`, in these of their modes:
   `ssim_components_pooled_plain`;
 - one partial pair per image for batches of small images, standard and
   precise: `ssim_parts_batch_cuda` (`ssim_parts_pallas_bpacked`, whose
-  lane packing has no counterpart here), twin `ssim_parts_batch_plain`;
+  lane packing becomes images side by side in the stream's strips), twin
+  `ssim_parts_batch_plain`;
   the same mode serves the contract of `tools/probe_bpack.py::bpack_parts`;
 - per-row sums of SSIM, with or without the map, of an image or of a row
   band of a taller image whose halo rows arrive as operands (spatial
@@ -49,8 +50,13 @@ row-streaming kernel, one CUDA block
 per strip of STRIP_W columns and segment of rows (`stream_segment` picks
 the segment's length to fill the card, `stream_blocks` lists the blocks);
 every other mode, radius and tile runs the tile body, one block per tile.
-The batch modes walk each image's own grid of narrower tiles inside a
-block (`batch_geometry`).
+Both batch modes at radius STREAM_RADIUS (not relaxed) run a packed
+variant of the row stream: images side by side in packed rows cut into
+strips (`batch_pack`), a block walking one strip of a packed row, down
+all its rows or a segment of them (`batch_stream_plan`,
+`batch_stream_blocks`); the
+relaxed batch mode and other radii walk each image's own grid of
+narrower tiles inside a tile-body block (`batch_geometry`).
 
 Each wrapper launches the kernel for CUDA tensors and runs its plain twin
 for CPU tensors, the counterpart of "compiled on TPU, interpreted
@@ -65,6 +71,7 @@ kernel does not build or launch, it raises.
 
 import ctypes
 import functools
+import math
 from typing import Optional, Tuple
 
 import numpy as np
@@ -98,8 +105,8 @@ _MAX_DYNAMIC_SMEM = 232448 - 256
 #: its precise tier), one counter per mode; RELAXED_LAUNCHES counts the
 #: relaxed launches of every mode, which add to no other counter.
 #: STREAM_LAUNCHES counts the launches that ran the row-streaming kernel
-#: (stream_applies), beside their mode's counter; the mode's other
-#: launches ran the tile body. Each is added to in one place, per launch,
+#: (stream_applies; the batch modes' packed stream too), beside their
+#: mode's counter; the mode's other launches ran the tile body. Each is added to in one place, per launch,
 #: and nowhere else, so a caller can show which modes, and which design,
 #: a run went through.
 LAUNCHES = 0
@@ -128,6 +135,9 @@ STREAM_RADIUS = 5
 STREAM_MODES = ("score", "map", "rowsum", "rowsum_map", "precise", "precise_map",
                 "components", "pooled")
 STREAM_RELAXED_MODES = ("score", "map")
+#: The batch modes, which stream packed rows at STREAM_RADIUS (not relaxed)
+#: whatever the batch tile (ssim_fwd.cu ssim_fwd_batch_stream_kernel).
+STREAM_BATCH_MODES = ("batch", "batch_precise")
 #: Rows' worth of fixed cost per block in stream_segment's model (launch,
 #: prologue and the NaN check).
 _BLOCK_OVERHEAD_ROWS = 8
@@ -161,8 +171,18 @@ PACK_MAX_W = 192
 BPACK_LANES = 4096
 FLOAT_BPACK_LANES = 3072
 
-#: The batch modes' tile area, the tile grid's: its shared memory (68 KB
-#: at radius 5) lets three blocks share an SM.
+#: The packed batch stream (ssim_fwd_batch.cu kBatchPieces): at most
+#: BATCH_MAX_PIECES images meet one strip, each staged with its own clamped
+#: columns (two staged columns a thread).
+BATCH_MAX_PIECES = 12
+#: A batch stream block's fixed cost in rows in batch_stream_plan's model,
+#: fitted to the segment sweeps of `tools/fwd_times.py --batch --packs` on
+#: an H100 (PERF.md).
+_BATCH_BLOCK_OVERHEAD_ROWS = 2
+
+#: The tile body's batch tiles (the relaxed batch mode, other radii): the
+#: tile grid's area, whose shared memory (68 KB at radius 5) lets three
+#: blocks share an SM.
 _BATCH_TILE_AREA = TILE_H * TILE_W
 #: The batch modes aim at about _BATCH_BLOCKS blocks (some ten waves of
 #: three blocks on 132 SMs), each walking at most _BATCH_MAX_RUN tiles:
@@ -224,8 +244,11 @@ def pack_preferred(w: int, batch: int, itemsize: int = 1) -> bool:
 
 
 def batch_geometry(batch: int, h: int, w: int):
-    """The batch modes' launch for a (batch, h, w) input: (tile_h, tile_w,
-    images per block, runs per image). The tile is as wide as the image
+    """The tile body's batch launch for a (batch, h, w) input, which the
+    relaxed batch mode and radii other than STREAM_RADIUS keep (the
+    standard and precise batch modes at STREAM_RADIUS stream packed rows:
+    batch_stream_plan): (tile_h, tile_w, images per block, runs per
+    image). The tile is as wide as the image
     rounded up to a power of two in [8, TILE_W], so a narrow image leaves
     few of a block's threads idle, and holds _BATCH_TILE_AREA pixels (fewer
     for a short image). A block walks about batch * tiles / _BATCH_BLOCKS
@@ -248,13 +271,17 @@ def stream_applies(mode: str, radius: int, tile_w: int, relaxed: bool = False,
     without halo operands), the precise tier's score and map modes, the
     standard MS-SSIM components and pooled modes (STREAM_MODES) and the
     relaxed tier's score and map modes (STREAM_RELAXED_MODES) at radius
-    STREAM_RADIUS with a tile 32 to STRIP_W columns wide. Both batch
-    modes (their 8-64 wide batch tiles), the relaxed components and
-    pooled modes, the other radii and a tile_w of 256 run the tile body.
-    npix: the launch's B * H * W; the components and pooled modes stream
-    only from STREAM_COMP_MIN_PIX pixels (at msssim_1080_b4 scales 0 and
-    1; scales 2-4 run the tile body, measured faster there). None: the
-    rule without the size condition, which a pinned segment asks for."""
+    STREAM_RADIUS with a tile 32 to STRIP_W columns wide; the batch modes
+    (STREAM_BATCH_MODES, kBatch and kBatchPrecise) at radius STREAM_RADIUS,
+    not relaxed, whatever tile_w (their packed stream has no tile). The
+    relaxed batch, components and pooled modes, the other radii and a
+    tile_w of 256 run the tile body. npix: the launch's B * H * W; the
+    components and pooled modes stream only from STREAM_COMP_MIN_PIX
+    pixels (at msssim_1080_b4 scales 0 and 1; scales 2-4 run the tile
+    body, measured faster there). None: the rule without the size
+    condition, which a pinned segment asks for."""
+    if mode in STREAM_BATCH_MODES:
+        return not relaxed and radius == STREAM_RADIUS
     if npix is not None and mode in ("components", "pooled") and npix < STREAM_COMP_MIN_PIX:
         return False
     return (mode in (STREAM_RELAXED_MODES if relaxed else STREAM_MODES)
@@ -299,20 +326,99 @@ def stream_blocks(h: int, w: int, seg: int):
             for j in range(nseg) for i in range(nstrip)]
 
 
+def batch_pack(batch: int, w: int) -> int:
+    """Images of width w side by side in one packed row of the batch
+    modes' stream: where w >= 12 is a multiple of 8, the smallest k whose
+    row k * w is a multiple of STRIP_W columns (whole strips, as the JAX
+    package's bpack_count asks whole lane rows of its p; at most 16); other
+    widths STRIP_W // w (at most BATCH_MAX_PIECES), or 1 above STRIP_W, so
+    that such an image never straddles two strips. At most `batch`. So a
+    strip meets at most BATCH_MAX_PIECES images (at w >= 12, at most
+    127 // w + 2)."""
+    if w >= 12 and w % 8 == 0:
+        k = STRIP_W // math.gcd(w, STRIP_W)
+    else:
+        k = max(1, min(BATCH_MAX_PIECES, STRIP_W // w))
+    return min(k, batch)
+
+
+@functools.lru_cache(maxsize=256)
+def batch_stream_plan(batch: int, h: int, w: int, resident: int):
+    """The batch modes' packed stream for (batch, h, w) with `resident`
+    blocks on the card at once (its SMs times the kernel's occupancy):
+    (k images a packed row, segment rows). Each block takes one strip of
+    one packed row, down all its rows, or, where the packed rows alone give
+    fewer blocks than the card holds, down a segment of them (a multiple of
+    TILE_H). The choice minimises the waves of resident blocks, counted as
+    a fraction (the card starts a block as another ends) but at least one,
+    times a block's rows (its output rows plus 2r) plus a fixed cost."""
+    r = STREAM_RADIUS
+    k = batch_pack(batch, w)
+    blocks = -(-batch // k) * -(-(k * w) // STRIP_W)
+
+    def cost(nseg, rows):
+        return max(1.0, blocks * nseg / resident) * (rows + _BATCH_BLOCK_OVERHEAD_ROWS)
+
+    best = (cost(1, h + 2 * r), h)
+    for seg in range(TILE_H, h, TILE_H):
+        c = cost(-(-h // seg), seg + 2 * r)
+        if c < best[0]:
+            best = (c, seg)
+    return k, best[1]
+
+
+def batch_direct(h: int, w: int, k: int, seg: int) -> bool:
+    """Whether the batch stream's blocks hold their images' every row and
+    column (one segment, each image inside one strip), and so write each
+    image's pair themselves; else they write pieces for a second pass."""
+    return seg >= h and (k * w <= STRIP_W or STRIP_W % w == 0)
+
+
+def batch_stream_blocks(batch: int, h: int, w: int, k: int, seg: int):
+    """The pieces that the batch stream's blocks sum, in block order
+    (strips fastest, then segments, then packed rows): per block a list of
+    (image, y0, y1, x0, x1, slot), its output rows [y0, y1) and columns
+    [x0, x1) of that image, whose sum it writes to slot `slot` (its strip
+    less the image's first) of the image's segment y0 // seg: the kernel's
+    own decoding of blockIdx.x."""
+    nstrip = -(-(k * w) // STRIP_W)
+    nseg = -(-h // seg)
+    out = []
+    for blk in range(nstrip * nseg * -(-batch // k)):
+        strip, rest = blk % nstrip, blk // nstrip
+        sg, g = rest % nseg, rest // nseg
+        x0, y0, y1 = strip * STRIP_W, sg * seg, min(h, (sg + 1) * seg)
+        pieces = []
+        for i in range(x0 // w, min(k, batch - g * k)):
+            lo, hi = max(x0, i * w), min(x0 + STRIP_W, (i + 1) * w)
+            if lo >= hi:
+                break
+            pieces.append((g * k + i, y0, y1, lo - i * w, hi - i * w,
+                           strip - i * w // STRIP_W))
+        out.append(pieces)
+    return out
+
+
 @functools.lru_cache(maxsize=64)
 def _stream_resident(index: int, mode: str, is_float: bool, relaxed: bool = False) -> int:
     """Streaming-kernel blocks that card `index` holds at once in `mode`
-    (relaxed: its relaxed instantiation): its SMs times the CUDA runtime's
-    occupancy for the instantiation (ssim_fwd_stream_occupancy)."""
+    (relaxed: its relaxed instantiation; the batch modes: their packed
+    stream): its SMs times the CUDA runtime's occupancy for the
+    instantiation (ssim_fwd_stream_occupancy, ssim_fwd_batch_occupancy)."""
     from . import _build
 
     n = ctypes.c_int(0)
+    lib = _build.load_library()
     with torch.cuda.device(index):
-        err = _build.load_library().ssim_fwd_stream_occupancy(
-            _MODES.index(mode), int(relaxed), int(is_float), ctypes.byref(n))
+        if mode in STREAM_BATCH_MODES:
+            err = lib.ssim_fwd_batch_occupancy(int(mode == "batch_precise"), int(is_float),
+                                               ctypes.byref(n))
+        else:
+            err = lib.ssim_fwd_stream_occupancy(
+                _MODES.index(mode), int(relaxed), int(is_float), ctypes.byref(n))
     if err != 0 or n.value < 1:
-        raise RuntimeError(f"ssim_fwd_stream_occupancy failed (cudaError {err}, "
-                           f"{n.value} blocks per SM)")
+        raise RuntimeError(f"the streaming kernel's occupancy ({mode}) failed (cudaError "
+                           f"{err}, {n.value} blocks per SM)")
     return torch.cuda.get_device_properties(index).multi_processor_count * n.value
 
 
@@ -696,17 +802,21 @@ _MODES = ("score", "map", "components", "pooled", "precise", "precise_map",
 
 def _launch(a, b, *, mode, taps, c1, c2, clip_bound, tile_h, tile_w, ipb=1,
             groups=1, vhalo=None, vmask=(False, False), relaxed=False,
-            segment=None):
+            segment=None, pack=None, tile_body=False):
     """Launch the CUDA kernel in `mode` (one of _MODES) on (B, H, W)
     contiguous tensors on one CUDA device; no synchronisation. ipb, groups:
-    the batch modes' images per block and runs per image. vhalo, vmask:
-    the row modes' four (B, r, W) halo operands and their two flags.
-    relaxed: the mode's relaxed instantiation (score, map, components,
-    pooled and batch; the C entry refuses the others). Where
+    the tile body's batch modes' images per block and runs per image.
+    vhalo, vmask: the row modes' four (B, r, W) halo operands and their two
+    flags. relaxed: the mode's relaxed instantiation (score, map,
+    components, pooled and batch; the C entry refuses the others). Where
     stream_applies at this launch's size, the row-streaming kernel runs,
     with `segment` rows per block (stream_segment's choice if None); a
     pinned segment runs it wherever stream_applies without the size
-    condition; the tile body takes no segment.
+    condition; the tile body takes no segment. The batch modes' packed
+    stream takes `pack` = (k, segment rows) in place of a segment
+    (batch_stream_plan's choice if None). tile_body: run the tile body
+    whatever stream_applies says (to time or check the two designs side by
+    side).
     Returns the mode's outputs: (partials, map or None) (partials f64 in
     the precise modes, (B, H) row sums in the row modes), (B, K, 2)
     partials, (partials, pooled_a, pooled_b), or the batch modes' (B, 2)
@@ -722,8 +832,20 @@ def _launch(a, b, *, mode, taps, c1, c2, clip_bound, tile_h, tile_w, ipb=1,
     if bsz * nty * ntx > 0x7FFFFFFF:
         raise ValueError(f"{bsz * nty * ntx} tiles exceed one launch's grid")
     r = len(taps) // 2
-    stream = stream_applies(mode, r, tile_w, relaxed, None if segment else bsz * h * w)
-    if stream:
+    batch = mode in STREAM_BATCH_MODES
+    precise = mode in ("precise", "precise_map", "batch_precise")
+    if tile_body and (segment is not None or pack is not None):
+        raise ValueError("the tile body takes no segment or pack")
+    stream = not tile_body and stream_applies(mode, r, tile_w, relaxed,
+                                              None if segment else bsz * h * w)
+    if batch and segment is not None:
+        raise ValueError("the batch modes' stream takes a pack, not a segment")
+    if pack is not None and not (batch and stream):
+        raise ValueError(f"only the batch modes' packed stream takes a pack ({mode}"
+                         f"{', relaxed' if relaxed else ''}, radius {r})")
+    if batch and stream:
+        partials = _launch_batch_stream(lib, a, b, precise, taps, c1, c2, clip_bound, pack)
+    elif stream:
         seg = segment or stream_segment(
             bsz, h, w, tile_h, 2 * r,
             _stream_resident(a.device.index, mode, a.dtype == torch.float32, relaxed))
@@ -735,7 +857,54 @@ def _launch(a, b, *, mode, taps, c1, c2, clip_bound, tile_h, tile_w, ipb=1,
                          f"{', relaxed' if relaxed else ''}) takes no segment")
     else:
         seg = 0
-    batch = mode in ("batch", "batch_precise")
+    comp = mode in ("components", "pooled")
+    rows = mode in ("rowsum", "rowsum_map")
+    if not (batch and stream):
+        partials, ssim_map, pooled = _launch_tile_or_stream(
+            lib, a, b, mode=mode, taps=taps, c1=c1, c2=c2, clip_bound=clip_bound,
+            tile_h=tile_h, tile_w=tile_w, ipb=ipb, groups=groups, vhalo=vhalo,
+            vmask=vmask, relaxed=relaxed, stream=stream, seg=seg)
+    if stream:
+        STREAM_LAUNCHES += 1
+    if relaxed:
+        RELAXED_LAUNCHES += 1
+    elif rows:
+        if mode == "rowsum":
+            ROWSUM_LAUNCHES += 1
+        else:
+            ROWSUM_MAP_LAUNCHES += 1
+    elif batch:
+        if precise:
+            BATCH_PRECISE_LAUNCHES += 1
+        else:
+            BATCH_LAUNCHES += 1
+    elif mode == "pooled":
+        POOLED_LAUNCHES += 1
+    elif comp:
+        COMPONENTS_LAUNCHES += 1
+    elif precise:
+        PRECISE_LAUNCHES += 1
+    else:
+        LAUNCHES += 1
+    if batch:
+        return partials
+    if mode == "pooled":
+        return partials, pooled[0], pooled[1]
+    if comp:
+        return partials
+    return partials, ssim_map
+
+
+def _launch_tile_or_stream(lib, a, b, *, mode, taps, c1, c2, clip_bound, tile_h, tile_w,
+                           ipb, groups, vhalo, vmask, relaxed, stream, seg):
+    """_launch's call of ssim_fwd_launch: the tile body (seg 0) or the
+    row-streaming kernel (seg rows a block) in `mode`. Returns (partials,
+    map or None, (pooled_a, pooled_b) or (None, None)); raises if the C
+    entry refuses the launch."""
+    bsz, h, w = a.shape
+    nty, ntx = tile_grid(h, w, tile_h, tile_w)
+    r = len(taps) // 2
+    batch = mode in STREAM_BATCH_MODES
     comp = mode in ("components", "pooled")
     rows = mode in ("rowsum", "rowsum_map")
     precise = mode in ("precise", "precise_map", "batch_precise")
@@ -775,35 +944,37 @@ def _launch(a, b, *, mode, taps, c1, c2, clip_bound, tile_h, tile_w, ipb=1,
             f"ssim_fwd kernel ({mode}{', relaxed' if relaxed else ''}"
             f"{f', streaming, segment {seg}' if stream else ''}) failed "
             f"with CUDA error {err}")
-    if stream:
-        STREAM_LAUNCHES += 1
-    if relaxed:
-        RELAXED_LAUNCHES += 1
-    elif rows:
-        if mode == "rowsum":
-            ROWSUM_LAUNCHES += 1
-        else:
-            ROWSUM_MAP_LAUNCHES += 1
-    elif batch:
-        if precise:
-            BATCH_PRECISE_LAUNCHES += 1
-        else:
-            BATCH_LAUNCHES += 1
-    elif mode == "pooled":
-        POOLED_LAUNCHES += 1
-    elif comp:
-        COMPONENTS_LAUNCHES += 1
-    elif precise:
-        PRECISE_LAUNCHES += 1
-    else:
-        LAUNCHES += 1
-    if batch:
-        return partials
-    if mode == "pooled":
-        return partials, pooled[0], pooled[1]
-    if comp:
-        return partials
-    return partials, ssim_map
+    return partials, ssim_map, pooled
+
+
+def _launch_batch_stream(lib, a, b, precise, taps, c1, c2, clip_bound, pack):
+    """_launch's call of ssim_fwd_batch_launch: the batch modes' packed
+    stream with pack = (k, segment rows), batch_stream_plan's choice if
+    None. Returns the (B, 2) partials; raises if the plan is out
+    of range or the C entry refuses the launch."""
+    bsz, h, w = a.shape
+    is_float = a.dtype == torch.float32
+    mode = "batch_precise" if precise else "batch"
+    k, seg = pack or batch_stream_plan(
+        bsz, h, w, _stream_resident(a.device.index, mode, is_float))
+    if not (1 <= k <= bsz and 1 <= seg <= h):
+        raise ValueError(f"batch stream plan {(k, seg)} out of range for {(bsz, h, w)}")
+    _check_taps(taps, precise)
+    partials = torch.empty((bsz, 2), device=a.device,
+                           dtype=torch.float64 if precise else torch.float32)
+    pieces = None if batch_direct(h, w, k, seg) else torch.empty(
+        (bsz, -(-h // seg), -(-w // STRIP_W) + 1), dtype=torch.float64, device=a.device)
+    taps_c = (ctypes.c_double * len(taps))(*[float(v) for v in taps])
+    with torch.cuda.device(a.device):
+        err = lib.ssim_fwd_batch_launch(
+            int(precise), int(is_float), a.data_ptr(), b.data_ptr(), partials.data_ptr(),
+            None if pieces is None else pieces.data_ptr(), bsz, h, w, k, seg,
+            ctypes.cast(taps_c, ctypes.c_void_p), c1, c2, clip_bound,
+            torch.cuda.current_stream(a.device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"ssim_fwd kernel ({mode}, packed stream, k {k}, segment "
+                           f"{seg}) failed with CUDA error {err}")
+    return partials
 
 
 def _prepare(a, b, *, data_range, radius, sigma, k1, k2, precise=False):
@@ -1189,6 +1360,18 @@ def ssim_parts_batch_cuda(
     stays H*W. relaxed=True runs the relaxed tier at every width (the JAX
     package applies it to the packed row); it excludes precise. On a CUDA
     tensor the kernel is launched; on a CPU tensor the plain twin runs.
+
+    The design (stream_applies): at radius STREAM_RADIUS, not relaxed, the
+    packed row stream. Images lie k to a packed row (batch_pack: 4 at W =
+    32, 2 at 64 and 192, 1 at 128), cut into STRIP_W-column strips, each
+    image's piece of a strip blurred from its own clamped columns; a block
+    takes a strip of one packed row, down all its rows or a segment of them
+    (batch_stream_plan); each image's sum is its columns' sums
+    reduced in a fixed order, by one block or, where the image spans
+    blocks, by a second pass over their pieces. The relaxed tier and other
+    radii run the tile body over each image's own tiles (batch_geometry).
+    Both count BATCH_LAUNCHES (BATCH_PRECISE_LAUNCHES), the stream also
+    STREAM_LAUNCHES.
     """
     if relaxed and precise:
         raise ValueError(

@@ -1,6 +1,6 @@
 """Times the forward kernel's modes on the card.
 
-    python -m ssim_tpu_torch.tools.fwd_times [--segments]
+    python -m ssim_tpu_torch.tools.fwd_times [--segments] [--batch]
 
 Times (CUDA events around 20 back-to-back calls, median of 3) the
 streaming kernel's modes kScore, kMap, kRowsum and kRowsumMap (the row
@@ -11,9 +11,10 @@ the components and pooled modes also on f32 pairs at 1080p x4 and at the
 smaller scales of msssim_1080_b4 (4x540x960 to 4x67x120), there also by
 a profiler trace (the kernel alone: the events measure the wrapper's host
 work at small scales), each beside the tile body (a pinned 16x256 tile,
-in turns: tile body, wrapper, wrapper, tile body); and the tile body's
+in turns: tile body, wrapper, wrapper, tile body); the tile body's
 modes: relaxed components and pooled, kScore and precise at radius 1 and
-16 at 1080p x4, batch, relaxed batch and batch precise at 64x64 x4096.
+16 at 1080p x4, relaxed batch at 64x64 x4096; and the batch modes as
+--batch times them.
 Prints the card's name and power limit, then one JSON line {"card": ...,
 "package": ..., "ms": {...}}. It calls only the wrappers' public
 arguments and ssim_cuda._launch, so it also times another checkout's
@@ -25,9 +26,25 @@ kernel when run as a file with that checkout's root on PYTHONPATH:
 components and pooled modes at each shape at every segment length the
 streaming kernel takes (where they stream), beside the wrapper's own
 choice (`ssim_cuda.stream_segment`).
+
+--batch times only the batch modes at phase 8's routed shapes (u8
+32x32 x8192, 64x64 x4096, 128x128 x1024, 192x192 x512 and kBatchPrecise
+at 64x64 x4096): the batch wrapper (`ssim_parts_batch_cuda`, whichever
+design the package runs) in turns with the tile grid (`ssim_parts_cuda`
+on the same batch: tile grid, batch, batch, tile grid), and, where the
+package's `_launch` takes `tile_body`, the tile body's batch mode beside
+them, and the packed stream at other segments than `batch_stream_plan`'s
+(`--batch --packs`); run it with another checkout on PYTHONPATH to time
+that checkout's.
+
+--loss times only the ssim_loss training step on phase 8's f32 batch
+(256, 64, 64), which the batch route serves (forward, backward, Adam, a
+clamp, ending in a synchronize): the host clock (median of 20 steps) and
+the device's busy time per step in a torch.profiler trace of 10 steps.
 """
 
 import argparse
+import inspect
 import json
 import statistics
 import subprocess
@@ -40,6 +57,12 @@ from ssim_tpu_torch.ops import ssim_cuda
 
 SHAPES = (("1080p_b4", (4, 1080, 1920)), ("4k_b4", (4, 2160, 3840)),
           ("16k_b1", (1, 8640, 15360)), ("wide_b1", (1, 1024, 20480)))
+#: The batch route's shapes (chip_smoke.BATCH_CONFIGS): name, shape, precise.
+BATCH_SHAPES = (("32x32_b8192", (8192, 32, 32), False),
+                ("64x64_b4096", (4096, 64, 64), False),
+                ("128x128_b1024", (1024, 128, 128), False),
+                ("192x192_b512", (512, 192, 192), False),
+                ("64x64_b4096_f64", (4096, 64, 64), True))
 #: The scales of msssim_1080_b4 below the first (bench.py:59).
 MSSSIM_SCALES = ((4, 540, 960), (4, 270, 480), (4, 135, 240), (4, 67, 120))
 
@@ -161,9 +184,9 @@ def comp_modes(a, b, ms, trace=False):
 
 
 def tile_body_modes(gen, a, b):
-    """The tile body's modes at 1080p x4 (batch at 64x64 x4096), and the
-    components and pooled modes there under their earlier names (since
-    the components redesign they stream): name -> call."""
+    """The tile body's modes at 1080p x4 (relaxed batch at 64x64 x4096),
+    and the components and pooled modes there under their earlier names
+    (since the components redesign they stream): name -> call."""
     fa, fb = a.float() / 255.0, b.float() / 255.0
     sa, sb = u8_pair(gen, (4096, 64, 64))
     return {
@@ -178,12 +201,103 @@ def tile_body_modes(gen, a, b):
                                                          sigma=0.8),
         "precise r=16": lambda: ssim_cuda.ssim_parts_cuda(a, b, precise=True, radius=16,
                                                           sigma=3.0),
-        "batch 64x64_b4096": lambda: ssim_cuda.ssim_parts_batch_cuda(sa, sb),
         "relaxed batch 64x64_b4096": lambda: ssim_cuda.ssim_parts_batch_cuda(
             sa, sb, relaxed=True),
-        "batch precise 64x64_b4096": lambda: ssim_cuda.ssim_parts_batch_cuda(
-            sa, sb, precise=True),
     }
+
+
+def batch_times(gen, ms, packs=False):
+    """The batch modes at BATCH_SHAPES, in turns with the tile grid (and
+    the tile body's batch mode, where this package's _launch can pin it):
+    ms["batch <name>"], ms["batch <name> tile grid"], ms["batch <name> tile
+    body"], each the lower of the two in turns; with packs, the packed
+    stream at one group a block, and at segments of 32 to 96 rows, as
+    ms["batch <name> pack (k, seg)"]. Prints each."""
+    body = "tile_body" in inspect.signature(ssim_cuda._launch).parameters
+    for name, shape, precise in BATCH_SHAPES:
+        a, b = u8_pair(gen, shape)
+        batch = lambda: ssim_cuda.ssim_parts_batch_cuda(a, b, precise=precise)
+        grid = lambda: ssim_cuda.ssim_parts_cuda(a, b, precise=precise)
+        t = [cuda_ms(grid), cuda_ms(batch), cuda_ms(batch), cuda_ms(grid)]
+        ms[f"batch {name}"], ms[f"batch {name} tile grid"] = min(t[1:3]), min(t[0], t[3])
+        line = (f"  batch {name}: {t[1]:.4f} / {t[2]:.4f} ms, tile grid {t[0]:.4f} / "
+                f"{t[3]:.4f} ms")
+        kw = ssim_cuda._prepare(a, b, data_range=255.0, radius=5, sigma=1.5, k1=0.01,
+                                k2=0.03, precise=precise)
+        if body:
+            th, tw, ipb, groups = ssim_cuda.batch_geometry(*shape)
+            tile = lambda: ssim_cuda._launch(
+                a, b, mode="batch_precise" if precise else "batch", tile_h=th, tile_w=tw,
+                ipb=ipb, groups=groups, tile_body=True, **kw)
+            ms[f"batch {name} tile body"] = cuda_ms(tile)
+            line += f", tile body {ms[f'batch {name} tile body']:.4f} ms"
+        print(line, flush=True)
+        if packs:
+            mode = "batch_precise" if precise else "batch"
+            res = ssim_cuda._stream_resident(a.device.index, mode, False)
+            k, seg = ssim_cuda.batch_stream_plan(*shape, res)
+            tries = [(k, shape[1])] + [(k, s) for s in (32, 64, 96) if s < shape[1]]
+            parts = [f"plan {(k, seg)} ({res} resident)"]
+            for pk in tries:
+                t = cuda_ms(lambda: ssim_cuda._launch(
+                    a, b, mode=mode, tile_h=32, tile_w=64, pack=pk, **kw))
+                ms[f"batch {name} pack {pk}"] = t
+                parts.append(f"{pk}: {t:.4f}")
+            print(f"  batch {name} packs: " + ", ".join(parts) + " ms", flush=True)
+        del a, b
+        torch.cuda.empty_cache()
+
+
+def loss_step_times(gen, ms):
+    """The ssim_loss Adam step on f32 (256, 64, 64): ms["loss step host"]
+    (median of 20 steps on the host clock, each ending in a synchronize)
+    and ms["loss step device busy"] (the device's busy time per step in
+    one profiler trace of 10 steps, None if the trace holds none)."""
+    import time
+
+    import ssim_tpu_torch
+    from torch.profiler import ProfilerActivity, profile
+
+    shape = (256, 64, 64)
+    clean = torch.rand(shape, generator=gen, device="cuda")
+    noisy = (clean + 0.15 * torch.randn(shape, generator=gen, device="cuda")).clamp_(0, 1)
+    x = noisy.clone().requires_grad_()
+    opt = torch.optim.Adam([x], lr=0.02)
+
+    def step():
+        opt.zero_grad(set_to_none=True)
+        ssim_tpu_torch.ssim_loss(x, clean).backward()
+        opt.step()
+        with torch.no_grad():
+            x.clamp_(0.0, 1.0)
+        torch.cuda.synchronize()
+
+    for _ in range(3):
+        step()
+    host = []
+    for _ in range(20):
+        t0 = time.perf_counter()
+        step()
+        host.append((time.perf_counter() - t0) * 1e3)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(10):
+            step()
+    # The union of the device's kernel and copy intervals (ranges that
+    # annotate the device timeline, as Optimizer.step, span gaps).
+    spans = sorted((e.time_range.start, e.time_range.end) for e in prof.events()
+                   if e.device_type == torch.autograd.DeviceType.CUDA
+                   and not getattr(e, "is_user_annotation", False))
+    busy, end = 0.0, float("-inf")
+    for start, stop in spans:
+        if stop > end:
+            busy += stop - max(start, end)
+            end = stop
+    ms["loss step host"] = statistics.median(host)
+    ms["loss step device busy"] = busy / 1e3 / 10 if spans else None
+    busy = ms["loss step device busy"]
+    print(f"  ssim_loss step f32 {shape}: host {ms['loss step host']:.4f} ms (median of "
+          f"20), device busy {'not measured' if busy is None else f'{busy:.4f} ms'} per "
+          f"step", flush=True)
 
 
 def segment_sweep(name, a, b):
@@ -226,6 +340,9 @@ def segment_sweep(name, a, b):
 def main():
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--segments", action="store_true")
+    parser.add_argument("--batch", action="store_true")
+    parser.add_argument("--packs", action="store_true")
+    parser.add_argument("--loss", action="store_true")
     args = parser.parse_args()
     if not torch.cuda.is_available():
         print("needs a CUDA card", file=sys.stderr)
@@ -235,6 +352,13 @@ def main():
     gen = torch.Generator(device="cuda")
     gen.manual_seed(1234)
     ms = {}
+    if args.batch or args.loss:
+        if args.batch:
+            batch_times(gen, ms, args.packs)
+        if args.loss:
+            loss_step_times(gen, ms)
+        print(json.dumps({"card": label, "package": ssim_cuda.__file__, "ms": ms}))
+        return 0
     for name, shape in SHAPES:
         a, b = u8_pair(gen, shape)
         for mode, fn in main_path_modes(a, b).items():
@@ -255,6 +379,7 @@ def main():
         comp_modes(a.float() / 255.0, b.float() / 255.0, ms, trace=True)
         if args.segments:
             segment_sweep("x".join(str(n) for n in shape), a, b)
+    batch_times(gen, ms)
     print(json.dumps({"card": label, "package": ssim_cuda.__file__, "ms": ms}))
     return 0
 

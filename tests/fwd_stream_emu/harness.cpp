@@ -9,13 +9,18 @@
 // or the pooled images (B, H/2, W/2) f32 of a, then of b, in kPooled.
 // precise must be 1 exactly in the precise
 // modes; relaxed (kScore and kMap only) runs the relaxed instantiation,
-// its band products through band_mma.cuh's host model of mma. The blocks
-// run one after another, each with one std::thread per CUDA thread.
+// its band products through band_mma.cuh's host model of mma. The batch
+// modes (6 kBatch, 7 kBatchPrecise: ssim_fwd_batch_stream_kernel) read
+// [mode, is_float, B, H, W, k, S, pieces, 0, 0, 0, precise, 0] (pieces: 1
+// for the second pass, batch_pieces_reduce_kernel) and write the (B, 2)
+// partials. The blocks run one after another, each with one std::thread per
+// CUDA thread.
 #include "cuda_runtime.h"
 
 #include "emu_threads.h"
 
 #include "ssim_fwd_stream.cu"  // the kernel's source, cut by the test
+#include "ssim_fwd_batch_kernel.cu"  // the batch modes' kernels, cut by the test
 
 template <class T> static std::vector<T> take(FILE* f, size_t n) {
   std::vector<T> v(n);
@@ -76,13 +81,52 @@ static void run(FILE* f, FILE* o, const std::vector<int>& h) {
   }
 }
 
+template <class T, int M>
+static void run_batch(FILE* f, FILE* o, const std::vector<int>& h) {
+  using P = Blur<M>;
+  const int B = h[2], H = h[3], W = h[4], k = h[5], S = h[6];
+  const auto taps = take<P>(f, 2 * kStreamR + 1);
+  const auto cc = take<P>(f, 3);
+  const size_t np = (size_t)B * H * W;
+  const auto a = take<T>(f, np), b = take<T>(f, np);
+  StreamTaps<P> tp;
+  for (int i = 0; i < 2 * kStreamR + 1; ++i) tp.t[i] = taps[i];
+  const int nstrip = (k * W + kStripW - 1) / kStripW, nseg = (H + S - 1) / S;
+  const int nps = (W + kStripW - 1) / kStripW + 1;
+  std::vector<P> partials((size_t)B * 2);
+  std::vector<double> pieces((size_t)B * nseg * nps);
+  double* pp = h[7] ? pieces.data() : nullptr;
+  run_blocks(nstrip * nseg * ((B + k - 1) / k), kStreamThreads, [&] {
+    ssim_fwd_batch_stream_kernel<T, M>(a.data(), b.data(), partials.data(), pp, B, H, W, k,
+                                       S, nstrip, nseg, nps, tp, cc[0], cc[1], (float)cc[2]);
+  });
+  if (pp) {
+    run_blocks((B + 255) / 256, 256, [&] {
+      batch_pieces_reduce_kernel<P>(pp, partials.data(), B, W, k, nseg, nps,
+                                    (double)H * (double)W);
+    });
+  }
+  fwrite(partials.data(), sizeof(P), partials.size(), o);
+}
+
 int main(int argc, char** argv) {
   if (argc != 3) return 2;
   FILE* f = fopen(argv[1], "rb");
   FILE* o = fopen(argv[2], "wb");
   if (!f || !o) return 2;
   const auto h = take<int>(f, 13);
-  if (h[11] != (h[0] == kPrecise || h[0] == kPreciseMap)) return 2;
+  if (h[11] != (h[0] == kPrecise || h[0] == kPreciseMap || h[0] == kBatchPrecise)) return 2;
+  if (h[0] == kBatch || h[0] == kBatchPrecise) {
+    if (h[0] == kBatch) {
+      if (h[1]) run_batch<float, kBatch>(f, o, h);
+      else run_batch<uint8_t, kBatch>(f, o, h);
+    } else {
+      if (h[1]) run_batch<float, kBatchPrecise>(f, o, h);
+      else run_batch<uint8_t, kBatchPrecise>(f, o, h);
+    }
+    fclose(o);
+    return 0;
+  }
 #define SSIM_EMU_RUN(M, S)                      \
   case M:                                       \
     if (h[1]) run<float, M, S>(f, o, h);        \

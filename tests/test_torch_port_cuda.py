@@ -232,70 +232,178 @@ def test_ms_ssim_launches_the_kernels():
     assert torch.isfinite(x.grad).all()
 
 
+#: The batch modes' shapes on the card: whole images to a block
+#: (64x32x40), one image's rows in segments (3x300x64), phase 8's routed
+#: batches (chip_smoke.BATCH_CONFIGS), its odd shapes and its tall short
+#: batch (2, 8192, 64).
+_BATCH_CARD_SHAPES = [(64, 32, 40), (3, 300, 64), (8192, 32, 32), (4096, 64, 64),
+                      (1024, 128, 128), (512, 192, 192), (256, 64, 64), (4, 64, 64),
+                      (3, 33, 47), (2, 30, 200), (5, 11, 11), (3, 50, 1), (5, 16, 2048),
+                      (2, 8192, 64), (2, 1, 1), (2, 7, 5)]
+
+
+def _batch_tile_body(at, bt, precise, data_range):
+    """The batch mode on the tile body (batch_geometry's tiles), pinned."""
+    kw = ssim_cuda._prepare(at, bt, data_range=data_range, radius=5, sigma=1.5, k1=0.01,
+                            k2=0.03, precise=precise)
+    tile_h, tile_w, ipb, groups = ssim_cuda.batch_geometry(*at.shape)
+    return ssim_cuda._launch(at, bt, mode="batch_precise" if precise else "batch",
+                             tile_h=tile_h, tile_w=tile_w, ipb=ipb, groups=groups,
+                             tile_body=True, **kw)
+
+
+def _hold_batch(name, pk, wants, npix, precise):
+    """Per-image scores of pk against each of wants: 2e-7 (precise 1e-12
+    relative), NaN in the same images."""
+    gk = pk.double().sum(-1).cpu().numpy() / npix
+    for label, want in wants.items():
+        gw = want.double().sum(-1).cpu().numpy() / npix
+        assert np.array_equal(np.isnan(gk), np.isnan(gw)), (name, label)
+        err = np.nanmax(np.abs(gk - gw) / (np.abs(gw) if precise else 1.0), initial=0.0)
+        assert err <= (1e-12 if precise else 2e-7), (name, label, err)
+    return gk
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype,precise", [("u8", False), ("u8", True),
                                            ("f32", False), ("f32", True)])
 def test_batch_modes_match_twin_on_card(dtype, precise):
-    """The batch modes (kBatch, kBatchPrecise) against their twin and the
-    tile modes: one partial pair per image, scores within 2e-7 (precise
-    1e-12 relative), the count exact; whole images to a block (64x32x40)
-    and one image's tiles split over blocks (3x300x64)."""
+    """The batch modes (kBatch, kBatchPrecise) at radius 5, the packed
+    stream (one STREAM_LAUNCHES and one mode launch each), against their
+    twin, the tile modes and the tile body's batch mode: one partial pair
+    per image, scores within 2e-7 (precise 1e-12 relative), the count
+    exact; in f32 a NaN in image 1 reaches only image 1."""
     _need_card()
     rng = np.random.default_rng(0x5B)
-    for shape in ((64, 32, 40), (3, 300, 64)):
+    for shape in _BATCH_CARD_SHAPES:
         if dtype == "u8":
             a, b = _pair(rng, shape)
             data_range = 255.0
         else:
             a = rng.random(shape, dtype=np.float32)
             b = np.clip(a + rng.normal(0, 0.05, shape), 0, 1).astype(np.float32)
-            a[1, 20, 30] = np.nan
+            a[1, shape[1] // 2, shape[2] // 2] = np.nan
             data_range = 1.0
         at, bt = torch.from_numpy(a).cuda(), torch.from_numpy(b).cuda()
         counter = "BATCH_PRECISE_LAUNCHES" if precise else "BATCH_LAUNCHES"
-        before = getattr(ssim_cuda, counter)
+        before = (getattr(ssim_cuda, counter), ssim_cuda.STREAM_LAUNCHES)
         pk = ssim_cuda.ssim_parts_batch_cuda(at, bt, data_range=data_range,
                                              precise=precise, allow_float=dtype == "f32")
         torch.cuda.synchronize()
-        assert getattr(ssim_cuda, counter) == before + 1
+        assert (getattr(ssim_cuda, counter), ssim_cuda.STREAM_LAUNCHES) == (
+            before[0] + 1, before[1] + 1), shape
         assert pk.shape == (shape[0], 2) and pk.is_cuda
         assert pk.dtype == (torch.float64 if precise else torch.float32)
         npix = shape[1] * shape[2]
         assert bool((pk[:, 1] == npix).all())
-        pp = ssim_cuda.ssim_parts_batch_plain(at, bt, precise,
-                                              **_twin_kw(data_range, precise))
-        tk, _ = ssim_cuda.ssim_parts_cuda(at, bt, data_range=data_range, precise=precise,
-                                          allow_float=dtype == "f32")
-        gk = pk.double().sum(-1).cpu().numpy() / npix
-        for want in (pp, tk):
-            gw = want.double().sum(-1).cpu().numpy() / npix
-            assert np.array_equal(np.isnan(gk), np.isnan(gw))
-            err = np.nanmax(np.abs(gk - gw) / (np.abs(gw) if precise else 1.0), initial=0.0)
-            assert err <= (1e-12 if precise else 2e-7)
+        wants = {
+            "twin": ssim_cuda.ssim_parts_batch_plain(at, bt, precise,
+                                                     **_twin_kw(data_range, precise)),
+            "tile modes": ssim_cuda.ssim_parts_cuda(at, bt, data_range=data_range,
+                                                    precise=precise,
+                                                    allow_float=dtype == "f32")[0],
+            "tile body": _batch_tile_body(at, bt, precise, data_range),
+        }
+        gk = _hold_batch(shape, pk, wants, npix, precise)
         if dtype == "f32":
             assert np.isnan(gk[1]) and np.isfinite(np.delete(gk, 1)).all()
 
 
+#: Pinned packs of the batch stream: (shape, (k, segment rows)): a short
+#: last packed row, images straddling strips, 12 narrow images to a strip,
+#: 12 pieces a strip, segments of tall images and of the routed shapes.
+_BATCH_PACKS = [((6, 20, 32), (4, 20)), ((5, 18, 64), (2, 18)),
+                ((3, 12, 192), (2, 12)), ((3, 14, 65), (3, 14)),
+                ((3, 40, 47), (3, 16)), ((18, 7, 5), (12, 7)),
+                ((17, 9, 8), (12, 9)), ((24, 6, 12), (22, 6)),
+                ((3, 10, 128), (1, 10)),
+                ((2, 100, 64), (2, 32)), ((2, 8192, 64), (2, 64)),
+                ((4096, 64, 64), (2, 32)), ((512, 192, 192), (2, 192))]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("precise", [False, True])
+def test_batch_stream_pinned_packs_match_twin_on_card(precise):
+    """The packed stream at pinned (k, segment rows) against the twin: f32
+    with a NaN in image 2 (its neighbours in its packed row and the next
+    stay finite), scores within 2e-7 (precise 1e-12 relative)."""
+    _need_card()
+    rng = np.random.default_rng(0x5E)
+    for shape, pack in _BATCH_PACKS:
+        a = rng.random(shape, dtype=np.float32)
+        b = np.clip(a + rng.normal(0, 0.05, shape), 0, 1).astype(np.float32)
+        a[2 % shape[0], shape[1] - 1, 0] = np.nan
+        at, bt = torch.from_numpy(a).cuda(), torch.from_numpy(b).cuda()
+        kw = ssim_cuda._prepare(at, bt, data_range=1.0, radius=5, sigma=1.5, k1=0.01,
+                                k2=0.03, precise=precise)
+        pk = ssim_cuda._launch(at, bt, mode="batch_precise" if precise else "batch",
+                               tile_h=32, tile_w=64, pack=pack, **kw)
+        want = ssim_cuda.ssim_parts_batch_plain(at, bt, precise, **_twin_kw(1.0, precise))
+        gk = _hold_batch((shape, pack), pk, {"twin": want}, shape[1] * shape[2], precise)
+        bad = 2 % shape[0]
+        assert np.isnan(gk[bad]) and np.isfinite(np.delete(gk, bad)).all()
+
+
+#: NaN pixels in the first row a batch stream block stages, in a column of
+#: a warp other than warp 0 (whose thread clears the block's NaN mask):
+#: (shape, (image, y, x)).
+_BATCH_ROW0_NANS = [((4, 64, 64), (1, 0, 40)), ((8, 32, 32), (5, 0, 31)),
+                    ((3, 16, 192), (1, 0, 100)), ((2, 8192, 64), (1, 32 * 64 - 5, 20))]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("precise", [False, True])
+def test_batch_stream_nan_in_first_staged_row_on_card(precise):
+    """A non-finite pixel in the first row that a block stages (the
+    prologue's, before the block's first step; in (2, 8192, 64) the first
+    halo row of a segment) marks its image, in each of 20 launches: its
+    score is NaN and no other image's is."""
+    _need_card()
+    rng = np.random.default_rng(0x5F)
+    for shape, (img, y, x) in _BATCH_ROW0_NANS:
+        a = rng.random(shape, dtype=np.float32)
+        b = np.clip(a + rng.normal(0, 0.05, shape), 0, 1).astype(np.float32)
+        a[img, y, x] = np.nan
+        at, bt = torch.from_numpy(a).cuda(), torch.from_numpy(b).cuda()
+        for _ in range(20):
+            pk = ssim_cuda.ssim_parts_batch_cuda(at, bt, data_range=1.0, precise=precise,
+                                                 allow_float=True)
+            g = pk[:, 0].cpu().numpy()
+            assert np.isnan(g[img]) and np.isfinite(np.delete(g, img)).all(), (shape, g)
+
+
 @pytest.mark.cuda
 def test_small_batches_launch_the_batch_modes():
+    """compute_ssim on a routed batch launches kBatch (f64: kBatchPrecise)
+    on the packed stream, one STREAM_LAUNCHES each, and the ssim_loss step
+    kBatch and K3; radius 4 and the relaxed tier keep the tile body (no
+    STREAM_LAUNCHES)."""
     _need_card()
     rng = np.random.default_rng(0x5C)
     a, b = _pair(rng, (64, 32, 40))
     counts = lambda: np.array([ssim_cuda.LAUNCHES, ssim_cuda.PRECISE_LAUNCHES,
                                ssim_cuda.BATCH_LAUNCHES, ssim_cuda.BATCH_PRECISE_LAUNCHES,
-                               ssim_grad.LAUNCHES])
+                               ssim_grad.LAUNCHES, ssim_cuda.STREAM_LAUNCHES,
+                               ssim_cuda.RELAXED_LAUNCHES])
     before = counts()
     got = ssim_tpu_torch.compute_ssim(a, b)
     got64 = ssim_tpu_torch.compute_ssim(a, b, precision="f64")
-    assert (counts() - before).tolist() == [0, 0, 1, 1, 0]
+    assert (counts() - before).tolist() == [0, 0, 1, 1, 0, 2, 0]
     want = ssim_tpu_torch.compute_ssim(a, b, device="cpu")
     assert np.abs(got - want).max() <= 2e-7 and np.abs(got64 - want).max() <= 2e-7
+    before = counts()
+    r4 = ssim_tpu_torch.compute_ssim(a, b, radius=4, sigma=1.2)
+    ssim_tpu_torch.compute_ssim(a, b, precision="f64", radius=4, sigma=1.2)
+    ssim_tpu_torch.compute_ssim(a, b, accuracy="relaxed")
+    assert (counts() - before).tolist() == [0, 0, 1, 1, 0, 0, 1]
+    assert np.abs(r4 - ssim_tpu_torch.compute_ssim(a, b, radius=4, sigma=1.2,
+                                                   device="cpu")).max() <= 2e-7
     x = torch.from_numpy(a.astype(np.float32) / 255).cuda().requires_grad_()
     y = torch.from_numpy(b.astype(np.float32) / 255).cuda()
     before = counts()
     ssim_tpu_torch.ssim_loss(x, y).backward()
     torch.cuda.synchronize()
-    assert (counts() - before).tolist() == [0, 0, 1, 0, 1]
+    assert (counts() - before).tolist() == [0, 0, 1, 0, 1, 1, 0]
     assert torch.isfinite(x.grad).all()
 
 

@@ -204,20 +204,26 @@ def test_stream_applies_to_the_documented_launches(mode):
     """The streaming kernel takes exactly the score, map and row modes, the
     precise modes (kPrecise, kPreciseMap) and the MS-SSIM components and
     pooled modes at radius 5 with tiles 32 to 128 wide, and relaxed only
-    the score and map modes; every other mode (both batch modes, relaxed
-    components and pooled), radius and tile width keeps the tile body.
-    Given the launch's pixels, the components and pooled modes stream only
-    from STREAM_COMP_MIN_PIX; the other modes take no size condition."""
+    the score and map modes; both batch modes (kBatch, kBatchPrecise) run
+    its packed variant at radius 5, not relaxed, whatever the batch tile;
+    every other mode (relaxed batch, components and pooled), radius and
+    tile width keeps the tile body. Given the launch's pixels, the
+    components and pooled modes stream only from STREAM_COMP_MIN_PIX; the
+    other modes take no size condition."""
     main = mode in ("score", "map", "rowsum", "rowsum_map", "precise", "precise_map",
                     "components", "pooled")
+    batch = mode in ("batch", "batch_precise")
     assert ssim_cuda.STREAM_MODES == ("score", "map", "rowsum", "rowsum_map",
                                       "precise", "precise_map", "components", "pooled")
     assert ssim_cuda.STREAM_RELAXED_MODES == ("score", "map")
+    assert ssim_cuda.STREAM_BATCH_MODES == ("batch", "batch_precise")
     for radius in (1, 4, 5, 6, 16):
         for tile_w in (8, 16, 32, 64, 128, 256):
             for relaxed in (False, True):
                 served = mode in ("score", "map") if relaxed else main
                 want = served and radius == 5 and 32 <= tile_w <= 128
+                if batch:
+                    want = not relaxed and radius == 5
                 assert ssim_cuda.stream_applies(mode, radius, tile_w, relaxed) == want
                 big, small = ssim_cuda.STREAM_COMP_MIN_PIX, ssim_cuda.STREAM_COMP_MIN_PIX - 1
                 assert ssim_cuda.stream_applies(mode, radius, tile_w, relaxed, big) == want
@@ -231,8 +237,9 @@ def test_main_path_defaults_take_the_streaming_kernel():
     standard, precise and relaxed tiers; the components wrappers' fixed
     TILE_H x TILE_W) take the streaming kernel, in all eight of its modes
     and both relaxed ones, while the relaxed components and pooled modes
-    keep the tile body; the batch route's tiles (8 to 64 wide) never reach
-    it, as both batch modes keep the tile body."""
+    keep the tile body; both batch modes take its packed variant whatever
+    their tile-body tile (8 to 64 wide), the relaxed batch mode keeps the
+    tile body."""
     from ssim_tpu_torch.windows import RADIUS
 
     assert RADIUS == ssim_cuda.STREAM_RADIUS
@@ -251,8 +258,101 @@ def test_main_path_defaults_take_the_streaming_kernel():
         ssim_cuda.TILE_H, ssim_cuda.TILE_W)
     for bsz, h, w in [(4096, 64, 64), (8192, 32, 32), (512, 192, 192)]:
         _, tile_w, _, _ = ssim_cuda.batch_geometry(bsz, h, w)
-        assert not ssim_cuda.stream_applies("batch", RADIUS, tile_w)
-        assert not ssim_cuda.stream_applies("batch_precise", RADIUS, tile_w)
+        assert ssim_cuda.stream_applies("batch", RADIUS, tile_w)
+        assert ssim_cuda.stream_applies("batch_precise", RADIUS, tile_w)
+        assert not ssim_cuda.stream_applies("batch", RADIUS, tile_w, relaxed=True)
+
+
+#: The batch stream's shapes: phase 8's routed batches and its odd ones.
+#: W: 1, 5 and 8 (12 to a strip), 12 (12 pieces a strip), 31 and 33, 32,
+#: 47, 64, 65, 128, 130, 192, 200 and 2048 (several strips an image).
+BATCH_SHAPES = [(8192, 32, 32), (4096, 64, 64), (1024, 128, 128), (512, 192, 192),
+                (256, 64, 64), (4, 64, 64), (3, 33, 47), (2, 30, 200), (5, 11, 11),
+                (3, 50, 1), (5, 16, 2048), (2, 8192, 64), (2, 1, 1), (2, 7, 5),
+                (64, 32, 40), (3, 300, 64), (37, 9, 8), (40, 5, 12), (7, 20, 31),
+                (9, 17, 65), (6, 40, 130)]
+
+
+@pytest.mark.parametrize("shape", BATCH_SHAPES)
+def test_batch_pack_and_plan(shape):
+    """batch_pack: a multiple of 8 from 16 up packs to whole strips (k W a
+    multiple of 128, k <= 16: 4 at W = 32, 2 at 64 and 192, 1 at 128);
+    other widths 128 // W (at most BATCH_MAX_PIECES), or 1 above 128, so
+    that such an image never straddles two strips; never more than the
+    batch; so a strip meets at most BATCH_MAX_PIECES images and k H W <
+    2^31. batch_stream_plan at the H100's f32 and precise occupancies: a
+    block a strip of one packed row, down all its rows or, only where the
+    packed rows alone leave the card idle, a segment (a multiple of
+    TILE_H), as for (2, 8192, 64); at the routed shapes (PERF.md's sweeps)
+    all the rows, at 192x192 x512 segments of 96 rows."""
+    bsz, h, w = shape
+    k = ssim_cuda.batch_pack(bsz, w)
+    assert 1 <= k <= bsz
+    assert k * h * w < 1 << 31
+    if w % 8 == 0 and w >= 12 and k < bsz:
+        assert (k * w) % ssim_cuda.STRIP_W == 0 and k <= 16
+    if w < 12 or w % 8:
+        assert k <= ssim_cuda.BATCH_MAX_PIECES
+        assert k * w <= ssim_cuda.STRIP_W or k == 1
+        if k < bsz and w <= ssim_cuda.STRIP_W:
+            assert k == min(ssim_cuda.BATCH_MAX_PIECES, ssim_cuda.STRIP_W // w)
+    want = {32: 4, 64: 2, 128: 1, 192: 2}
+    if w in want and bsz >= want[w]:
+        assert k == want[w]
+    for resident in (H100_RESIDENT, H100_PRECISE_RESIDENT):
+        k2, seg = ssim_cuda.batch_stream_plan(bsz, h, w, resident)
+        groups = -(-bsz // k)
+        nstrip = -(-(k * w) // ssim_cuda.STRIP_W)
+        assert k2 == k and 1 <= seg <= h
+        if seg < h:
+            assert seg % ssim_cuda.TILE_H == 0
+            assert groups * nstrip < resident
+    assert ssim_cuda.batch_stream_plan(2, 8192, 64, H100_RESIDENT) == (2, 32)
+    for sh, want in [((8192, 32, 32), (4, 32)), ((4096, 64, 64), (2, 64)),
+                     ((1024, 128, 128), (1, 128)), ((512, 192, 192), (2, 96))]:
+        assert ssim_cuda.batch_stream_plan(*sh, H100_RESIDENT) == want
+    assert ssim_cuda.batch_stream_plan(4096, 64, 64, H100_PRECISE_RESIDENT) == (2, 64)
+    assert ssim_cuda.batch_stream_plan(100000, 8, 8, H100_RESIDENT) == (12, 8)
+
+
+@pytest.mark.parametrize("shape", BATCH_SHAPES)
+def test_batch_stream_blocks_cover_each_pixel_once(shape):
+    """The batch stream's blocks (a strip of a packed row down all its rows
+    or a segment of them) cover each pixel of each image exactly once, at
+    every segment the kernel takes here, and at pinned packs wider than
+    batch_pack's; a strip meets at most BATCH_MAX_PIECES images; each
+    (image, segment, slot) is written once and the second pass reads
+    exactly the slots the image's strips fill; and where batch_direct
+    holds, each image lies whole in one block's piece, which writes its
+    pair."""
+    bsz, h, w = shape
+    nps = -(-w // ssim_cuda.STRIP_W) + 1
+    segs = sorted({h, max(1, h // 2), ssim_cuda.TILE_H if h > ssim_cuda.TILE_H else h})
+    packs = sorted({ssim_cuda.batch_pack(bsz, w), min(bsz, 3)})
+    for k in packs:
+        for seg in segs:
+            if bsz * h * w > (1 << 22) and (seg != h or k != packs[0]):
+                continue  # the large shapes: one geometry, to keep the test short
+            blocks = ssim_cuda.batch_stream_blocks(bsz, h, w, k, seg)
+            cover = np.zeros((bsz, h, w), np.int32)
+            slots = {}
+            for pieces in blocks:
+                assert len(pieces) <= ssim_cuda.BATCH_MAX_PIECES
+                for img, y0, y1, x0, x1, slot in pieces:
+                    cover[img, y0:y1, x0:x1] += 1
+                    key = (img, y0 // seg, slot)
+                    assert key not in slots and 0 <= slot < nps
+                    slots[key] = (x0, x1)
+                    if ssim_cuda.batch_direct(h, w, k, seg):
+                        assert (y0, y1, x0, x1) == (0, h, 0, w)
+            assert (cover == 1).all(), (shape, k, seg)
+            for img in range(bsz):
+                i = img % k
+                ns = ((i + 1) * w - 1) // ssim_cuda.STRIP_W - i * w // ssim_cuda.STRIP_W + 1
+                for sg in range(-(-h // seg)):
+                    assert {s for (m, g, s) in slots if m == img and g == sg} == set(range(ns))
+            nstrip = -(-(k * w) // ssim_cuda.STRIP_W)
+            assert len(blocks) == nstrip * -(-h // seg) * -(-bsz // k)
 
 
 EMU_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "fwd_stream_emu")
@@ -263,8 +363,9 @@ _EMU_COMP_MODES = {"components": 2, "pooled": 3}
 
 @pytest.fixture(scope="module")
 def stream_emulator(tmp_path_factory):
-    """The streaming kernel's source (csrc/ssim_fwd.cu without the tile
-    body and the launchers) built with g++ into a host program; its path."""
+    """The streaming kernels' source (csrc/ssim_fwd.cu without the tile
+    body and the launchers, csrc/ssim_fwd_batch.cu without its launchers)
+    built with g++ into a host program; its path."""
     gxx = shutil.which("g++")
     if gxx is None:
         pytest.skip("needs g++ to build the kernel's source for the host")
@@ -274,7 +375,11 @@ def stream_emulator(tmp_path_factory):
                   "// The main-path modes: row-streaming column strips.")
     c = src.index("template <typename T, int kMode, int kSplit>\ncudaError_t launch_stream(")
     out = tmp_path_factory.mktemp("fwd_stream_emu")
-    (out / "ssim_fwd_stream.cu").write_text(src[:a] + src[b:c] + "}  // namespace\n")
+    (out / "ssim_fwd_stream.cu").write_text(src[:a] + "}  // namespace\n" + src[b:c]
+                                            + "}  // namespace\n")
+    src = open(os.path.join(_build.CSRC_DIR, "ssim_fwd_batch.cu")).read()
+    d = src.index("template <typename T, int kMode>\ncudaError_t launch_batch_stream(")
+    (out / "ssim_fwd_batch_kernel.cu").write_text(src[:d] + "}  // namespace\n")
     exe = out / "harness"
     # band_mma.cuh: the emulator's (a host model of mma), which includes
     # the kernels' own from csrc, next on the path.
@@ -656,3 +761,90 @@ def test_stream_kernel_source_components_match_twins_on_the_host(stream_emulator
         assert torch.equal(x.nan_to_num(), want_pool.nan_to_num())
     if case.startswith("f32 non-finite"):
         assert pa[0, seg // 2, 100].isnan() and pa[2, 20, 127].isinf()
+
+
+def _emulate_batch(exe, a, b, precise, pack):
+    """The host build of the batch modes' packed stream (kBatch, or
+    kBatchPrecise with the f64 taps and c1, c2 unrounded) on NumPy (B, H,
+    W) inputs with pack = (k, segment rows), its second pass where
+    batch_direct does not hold: the (B, 2) partials."""
+    bsz, h, w = a.shape
+    f32 = a.dtype == np.float32
+    dr = 1.0 if f32 else 255.0
+    k, seg = pack
+    head = np.array([7 if precise else 6, int(f32), bsz, h, w, k, seg,
+                     int(not ssim_cuda.batch_direct(h, w, k, seg)), 0, 0, 0, int(precise), 0],
+                    np.int32)
+    ftype = np.float64 if precise else np.float32
+    consts = np.array([(0.01 * dr) ** 2, (0.03 * dr) ** 2, max(131072.0, 4.0 * dr)], ftype)
+    path_in, path_out = f"{exe}.{os.getpid()}.in", f"{exe}.{os.getpid()}.out"
+    with open(path_in, "wb") as f:
+        for x in (head, gaussian_taps(ftype, 5, 1.5), consts, a, b):
+            f.write(np.ascontiguousarray(x).tobytes())
+    subprocess.run([str(exe), path_in, path_out], check=True, timeout=600)
+    return torch.from_numpy(np.fromfile(path_out, ftype).reshape(bsz, 2).copy())
+
+
+#: Batch stream cases: (f32, shape, pack (k, segment rows); None:
+#: batch_stream_plan's at the H100's occupancy), NaN pixels (image, y, x).
+_EMU_BATCH_CASES = {
+    "u8 W=32, B not a multiple of k, a short last packed row": (
+        False, (6, 20, 32), (4, 20), ()),
+    "f32 W=64, NaN in one image, not across or into the next packed row": (
+        True, (5, 18, 64), (2, 18), ((2, 17, 63),)),
+    "u8 W=192 straddling strips, a short last packed row": (False, (3, 12, 192), (2, 12), ()),
+    "u8 W=130": (False, (2, 9, 130), None, ()),
+    "f32 W=65 straddling strips, NaN near the strip boundary": (
+        True, (3, 14, 65), (3, 14), ((1, 0, 62),)),
+    "u8 W=47, segments": (False, (3, 40, 47), (3, 16), ()),
+    "u8 W=1": (False, (3, 50, 1), None, ()),
+    "u8 1x1": (False, (2, 1, 1), None, ()),
+    "u8 W=5, 12 to a strip, two packed rows": (False, (18, 7, 5), (12, 7), ()),
+    "u8 W=8, 12 pieces a strip": (False, (17, 9, 8), (12, 9), ()),
+    "u8 W=12, 12 pieces a strip": (False, (24, 6, 12), (22, 6), ()),
+    "f32 W=33": (True, (4, 11, 33), None, ()),
+    "u8 W=31": (False, (5, 13, 31), None, ()),
+    "u8 W=128, one image a packed row": (False, (3, 10, 128), (1, 10), ()),
+    "f32 tall images in segments, NaN in a segment's halo rows": (
+        True, (2, 100, 64), (2, 32), ((1, 33, 0),)),
+    "f32 W=64, NaN in row 0 of image 1, warp 3 (the prologue's staged row)": (
+        True, (4, 16, 64), None, ((1, 0, 40),)),
+    "f32 W=47, two to a strip, NaN in the second": (True, (5, 12, 47), None, ((3, 5, 46),)),
+}
+
+
+@pytest.mark.parametrize("case", list(_EMU_BATCH_CASES))
+def test_batch_stream_source_matches_twin_on_the_host(stream_emulator, case):
+    """The batch modes' packed stream (ssim_fwd_batch_stream_kernel and
+    batch_pieces_reduce_kernel), built for the host, against
+    ssim_parts_batch_plain: per-image scores within 2e-7 (kBatchPrecise
+    within 1e-12 relative), counts exact, NaN in exactly the images that
+    hold a non-finite pixel (never a neighbour in its packed row or the
+    next). Widths 1 to 192: 12 images to a strip, images
+    straddling strips, a short last packed row, tall images in segments,
+    odd widths (the precise thread pairs split across two images), a NaN in
+    the first staged row."""
+    f32, shape, pack, nans = _EMU_BATCH_CASES[case]
+    rng = np.random.default_rng(0x5EFB + len(case))
+    a, b = _emu_pair(rng, shape, f32)
+    for img, y, x in nans:
+        a[img, y, x] = np.nan
+    bsz, h, w = shape
+    dr = 1.0 if f32 else 255.0
+    at, bt = torch.from_numpy(a), torch.from_numpy(b)
+    for precise in (False, True):
+        plan = pack or ssim_cuda.batch_stream_plan(
+            bsz, h, w, H100_PRECISE_RESIDENT if precise else H100_RESIDENT)
+        got = _emulate_batch(stream_emulator, a, b, precise, plan)
+        want = ssim_cuda.ssim_parts_batch_plain(
+            at, bt, precise, taps=gaussian_taps(np.float64 if precise else np.float32, 5, 1.5),
+            c1=(0.01 * dr) ** 2, c2=(0.03 * dr) ** 2, clip_bound=max(131072.0, 4.0 * dr))
+        assert got.dtype == want.dtype
+        assert torch.equal(got[:, 1], want[:, 1]) and (got[:, 1] == h * w).all()
+        bad = sorted({img for img, _, _ in nans})
+        assert torch.isnan(got[:, 0]).nonzero().flatten().tolist() == bad, (precise, plan)
+        gk = got.double().sum(-1).numpy() / (h * w)
+        gp = want.double().sum(-1).numpy() / (h * w)
+        ok = np.isfinite(gp)
+        err = np.abs(gk[ok] - gp[ok]) / (np.abs(gp[ok]) if precise else 1.0)
+        assert err.max(initial=0.0) <= (1e-12 if precise else 2e-7), (precise, plan, err.max())
