@@ -154,11 +154,36 @@ Phases, each of which raises on failure (the script then exits non-zero):
    raise; (c) at 4K x4 the kernel (u8 and f32) with CUDA events and in a
    trace, its twin, and `torch.nn.functional.pad(mode="replicate")` on the
    same f32 input in turns with the kernel (its library call; equal to the
-   kernel's output), each beside the bound.
+   kernel's output), each beside the bound;
+12. the CLI (`ssim_tpu_torch.cli.main`, in this process, its output
+   captured), on files the script writes into a temporary directory: an
+   RGB 1080p and an RGB 4K pair as binary PPM, and 16 RGB 1080p pairs as
+   uncompressed TGA for `--dir`. Every kernel's plain twin is made to
+   raise, and each run's launches are counted from 0: per channel at 1080p
+   (one streaming kScore launch for the (3, H, W) stack; each printed
+   value `compute_ssim` of its plane to the printed digits), `-y` and `-1`
+   (one launch each), `.pfm` and `.tga` maps (the PFM bit for bit
+   `compute_ssim_map`'s maps, the TGA `quantize_map` of them), `--ms` at
+   1080p (4 pooled and 1 components launch, those of >= 2^20 pixels
+   streaming; `compute_ms_ssim` of the luminance), `--relaxed` at 4K (one
+   relaxed launch, streaming), `--downsample=auto` at 4K (one launch;
+   `compute_ssim(..., downsample="auto")` per plane), `--dir --batch=8`
+   (two streaming kScore launches; each line `compute_ssim` of the pair's
+   luminance), `--impl=host` at 1080p (the host library on the CPU, no
+   launch, within 2e-6 of the kernel's scores), PIL made to raise too
+   (the port decodes PPM and TGA itself); then `python3 -m
+   ssim_tpu_torch.cli` as a fresh process (the same output; its wall
+   time) and, by host clock, the median of 5 runs of each call split into
+   decode, compute and map write, `--dir` as pairs/s and Mpix/s, its
+   launches' CUDA-event time over its host time (the launch share), and
+   one torch.profiler trace of `--dir` taken in a fresh process
+   (`chip_smoke.py --trace-dir A B`) for the card's busy share; a trace
+   with no device activity fails the phase.
 
-Prints the kernel records as one JSON line (with each kernel's roofline
-bound; each forward entry names the design that ran), the card's name
-and power limit, and last
+Prints phase 12's launches and times as one JSON line (`{"cli": ...}`),
+the kernel records as one JSON line (with each kernel's roofline bound;
+each forward entry names the design that ran; `launches_cli`: its
+launches in phase 12), the card's name and power limit, and last
 `{"ok": true, "device": {...}}`. Inputs are random, made on the device
 from a fixed seed. Imports no JAX. Where it cannot start (no CUDA, or no
 `ssim_tpu_torch` package beside it) it prints one line
@@ -3100,6 +3125,490 @@ def phase_pad(gen, label):
     return dict(err=err, launches=launches, times=times)
 
 
+# Phase 12: the port's CLI (`python -m ssim_tpu_torch.cli`) on the card, on
+# image files the script writes from the fixed seed: binary PPM pairs for
+# single-pair runs and uncompressed TGA pairs for `--dir` (the directory
+# loader's file filter, which is the JAX one, lists .tga and not .ppm).
+CLI_1080P, CLI_4K = (1080, 1920), (2160, 3840)
+DIR_PAIRS, DIR_BATCH = 16, 8
+CLI_REPS = 5
+# The --dir trace: runs in it, and traces taken while one holds no device
+# activity.
+CLI_TRACE_REPS, CLI_TRACE_TRIES = 3, 3
+# A printed score ("% 7.4f") equals a score computed beside it when it is
+# that score rounded: within half a unit of the last digit, with 1e-7 for
+# two f32 sums of the same pixels in another order (TWIN_GLOBAL).
+PRINT_TOL = 0.5e-4 + 1e-7
+# The host backend (f32 pixels, f64 sums) against the kernel: the f32
+# tier's tolerance against the f64 oracle.
+HOST_TOL = ORACLE_GLOBAL
+
+
+def rgb_pair(gen, hw):
+    """A correlated RGB uint8 pair (H, W, 3), made on the card, as NumPy."""
+    a, b = pair(gen, hw + (3,))
+    return a.cpu().numpy(), b.cpu().numpy()
+
+
+def write_ppm(path, img):
+    """Binary PPM (P6, maxval 255)."""
+    h, w, _ = img.shape
+    with open(path, "wb") as f:
+        f.write(f"P6\n{w} {h}\n255\n".encode())
+        f.write(np.ascontiguousarray(img).tobytes())
+
+
+def write_tga(path, img):
+    """Uncompressed 24-bit TGA (type 2, stored BGR), top-left origin."""
+    import struct
+
+    h, w, _ = img.shape
+    header = struct.pack("<BBBHHBHHHHBB", 0, 0, 2, 0, 0, 0, 0, 0, w, h, 24, 0x20)
+    with open(path, "wb") as f:
+        f.write(header)
+        f.write(np.ascontiguousarray(img[:, :, ::-1]).tobytes())
+
+
+@contextlib.contextmanager
+def no_plain_twins():
+    """Within it every kernel's plain twin raises: the calls must stay on
+    the card."""
+    from ssim_tpu_torch.ops import pad, ssim_cuda, ssim_grad
+
+    names = [(ssim_cuda, n) for n in (
+        "ssim_parts_plain", "ssim_parts_precise_plain", "ssim_parts_batch_plain",
+        "ssim_components_plain", "ssim_components_pooled_plain", "ssim_rows_plain")]
+    names += [(ssim_grad, "ssim_grad_plain"), (pad, "pad_align_plain")]
+    saved = [(mod, name, getattr(mod, name)) for mod, name in names]
+
+    def no_twin(*args, **kw):
+        raise RuntimeError("a plain twin ran on the CLI's path")
+
+    for mod, name, _ in saved:
+        setattr(mod, name, no_twin)
+    try:
+        yield
+    finally:
+        for mod, name, fn in saved:
+            setattr(mod, name, fn)
+
+
+@contextlib.contextmanager
+def no_pil():
+    """Within it the image reader's PIL raises: the PPM and TGA files of
+    phase 12 must be decoded by the port itself."""
+    from ssim_tpu_torch.utils import imageio
+
+    saved = imageio._pil_image
+
+    def no_pil_image(what):
+        raise RuntimeError(f"PIL ran on the CLI's path ({what})")
+
+    imageio._pil_image = no_pil_image
+    try:
+        yield
+    finally:
+        imageio._pil_image = saved
+
+
+def run_cli(args):
+    """cli.main(args) in this process with its output captured; returns
+    the exit code, stdout, stderr, the whole call's host-clock ms, and the
+    stages it spent in: decode (load_image, in this thread or the
+    loader's), compute (engine.compute / compute_ms_ssim, each ending with
+    the scores on the host; their results kept) and map write (save_map);
+    every forward launch (mode, relaxed, streamed, shape), and the card's
+    ms from just before to just after each launch (CUDA events: the
+    kernel, and the wrapper's host work before it is queued, so an upper
+    bound on the kernel's time)."""
+    import io
+
+    import ssim_tpu_torch.models
+    import ssim_tpu_torch.utils
+    from ssim_tpu_torch import cli, engine
+    from ssim_tpu_torch.ops import ssim_cuda
+    from ssim_tpu_torch.utils import dataset
+
+    stages = dict(decode=[], compute=[], write=[], scores=[], launches=[], events=[])
+
+    def timed(stage, fn, keep=False):
+        def spy(*args, **kw):
+            t0 = time.perf_counter()
+            out = fn(*args, **kw)
+            stages[stage].append((time.perf_counter() - t0) * 1e3)
+            if keep:
+                stages["scores"].append(out[0] if isinstance(out, tuple) else out)
+            return out
+        return spy
+
+    launch = ssim_cuda._launch
+
+    def launch_spy(a, b, **kw):
+        before = ssim_cuda.STREAM_LAUNCHES
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = launch(a, b, **kw)
+        end.record()
+        stages["events"].append((start, end))
+        stages["launches"].append((kw["mode"], bool(kw.get("relaxed")),
+                                   ssim_cuda.STREAM_LAUNCHES > before, tuple(a.shape)))
+        return out
+
+    spies = [(ssim_tpu_torch.utils, "load_image", "decode", False),
+             (dataset, "load_image", "decode", False),
+             (engine, "compute", "compute", True),
+             (ssim_tpu_torch.models, "compute_ms_ssim", "compute", True),
+             (ssim_tpu_torch.utils, "save_map", "write", False)]
+    saved = [(mod, name, getattr(mod, name)) for mod, name, _, _ in spies]
+    for mod, name, stage, keep in spies:
+        setattr(mod, name, timed(stage, getattr(mod, name), keep))
+    ssim_cuda._launch = launch_spy
+    out, err = io.StringIO(), io.StringIO()
+    try:
+        with contextlib.redirect_stdout(out), contextlib.redirect_stderr(err):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            rc = cli.main(list(args))
+            torch.cuda.synchronize()
+            total = (time.perf_counter() - t0) * 1e3
+    finally:
+        ssim_cuda._launch = launch
+        for mod, name, fn in saved:
+            setattr(mod, name, fn)
+    launch_ms = sum(start.elapsed_time(end) for start, end in stages["events"])
+    return dict(rc=rc, out=out.getvalue(), err=err.getvalue(), total_ms=total,
+                launch_ms=launch_ms,
+                decode_ms=sum(stages["decode"]), compute_ms=sum(stages["compute"]),
+                write_ms=sum(stages["write"]), scores=stages["scores"],
+                launches=stages["launches"])
+
+
+def cli_checked(name, args, expect_counts):
+    """One run of the CLI with the counts set to 0 just before it and read
+    just after, which must be `expect_counts`; returns the run and its
+    printed rows [(label, value)]."""
+    torch.cuda.synchronize()
+    zero_counts()
+    run = run_cli(args)
+    counts = launch_counts()
+    check(run["rc"] == 0, f"cli {name}: exit {run['rc']}: {run['err'][-2000:]}")
+    check(counts == expect_counts, f"cli {name}: launches {counts}, expected "
+          f"{ {k: v for k, v in expect_counts.items() if v} }")
+    run["counts"] = {k: v for k, v in counts.items() if v}
+    return run, printed_rows(run["out"])
+
+
+def printed_rows(out):
+    """The CLI's printed lines as (label, value): "Channel 0", "Average  ",
+    a file name, or "" for a bare score."""
+    rows = []
+    for line in out.strip().splitlines():
+        label, _, value = line.rpartition(":")
+        rows.append((label, float(value)))
+    return rows
+
+
+def check_printed(name, rows, labels, want):
+    """The printed rows carry `labels` and equal the scores `want`
+    computed beside them, to the printed digits."""
+    check([label for label, _ in rows] == labels, f"cli {name}: lines {rows}")
+    err = max(abs(v - w) for (_, v), w in zip(rows, want))
+    check(err <= PRINT_TOL, f"cli {name}: printed {rows} vs computed {want}")
+    return err
+
+
+def stage_times(args, reps=CLI_REPS):
+    """Host-clock medians over `reps` runs of the CLI: the whole call and
+    its decode, compute and map-write stages, ms; and the launches'
+    CUDA-event ms (run_cli's launch_ms)."""
+    runs = []
+    for _ in range(reps):
+        run = run_cli(args)
+        check(run["rc"] == 0, f"cli {args}: exit {run['rc']}: {run['err'][-2000:]}")
+        runs.append(run)
+    med = {k: statistics.median(r[k] for r in runs)
+           for k in ("total_ms", "decode_ms", "compute_ms", "write_ms", "launch_ms")}
+    med["total_runs_ms"] = [r["total_ms"] for r in runs]
+    return med
+
+
+def phase_cli(gen, label):
+    import shutil
+    import tempfile
+
+    print("phase 12: the CLI (ssim_tpu_torch.cli) on the card, on PPM and TGA files",
+          flush=True)
+    work = tempfile.mkdtemp(prefix="ssim_cli_")
+    try:
+        return cli_runs(gen, label, work)
+    finally:
+        shutil.rmtree(work)
+
+
+def cli_runs(gen, label, work):
+    import ssim_tpu_torch
+    from ssim_tpu_torch.ops import ssim_cuda
+    from ssim_tpu_torch.utils import imageio
+
+    paths, imgs = {}, {}
+    t0 = time.perf_counter()
+    for name, hw in (("1080p", CLI_1080P), ("4k", CLI_4K)):
+        imgs[name] = rgb_pair(gen, hw)
+        paths[name] = [os.path.join(work, f"{name}_{s}.ppm") for s in "ab"]
+        for path, img in zip(paths[name], imgs[name]):
+            write_ppm(path, img)
+    dirs = [os.path.join(work, f"dir_{s}") for s in "ab"]
+    for d in dirs:
+        os.mkdir(d)
+    dir_imgs = {}
+    for i in range(DIR_PAIRS):
+        name = f"frame{i:02d}.tga"
+        dir_imgs[name] = rgb_pair(gen, CLI_1080P)
+        for d, img in zip(dirs, dir_imgs[name]):
+            write_tga(os.path.join(d, name), img)
+    nbytes = sum(os.path.getsize(os.path.join(root, f))
+                 for root, _, fs in os.walk(work) for f in fs)
+    print(f"  wrote {nbytes / 1e6:.0f} MB in {time.perf_counter() - t0:.1f} s: an RGB "
+          f"1080p and an RGB 4K pair (PPM), {DIR_PAIRS} RGB 1080p pairs (TGA); "
+          f"decoded by the port's own PPM / TGA decoder", flush=True)
+    p1, p4 = paths["1080p"], paths["4k"]
+    a1, b1 = imgs["1080p"]
+    a4, b4 = imgs["4k"]
+    compute = lambda a, b, **kw: ssim_tpu_torch.compute_ssim(a, b, **kw)
+    one = counts_of(standard=1, stream=1)
+    res, errs = {}, {}
+    channels = ["Channel 0", "Channel 1", "Channel 2", "Average  "]
+
+    with no_plain_twins(), no_pil():
+        # (a) Per channel at 1080p: one streaming launch for the (3, H, W) stack.
+        run, rows = cli_checked("per channel 1080p", p1, one)
+        want = [compute(a1[:, :, c], b1[:, :, c]) for c in range(3)]
+        want_channels = want + [float(np.mean(want))]
+        errs["per_channel"] = check_printed("per channel 1080p", rows, channels,
+                                            want_channels)
+        kernel_scores = np.asarray(run["scores"][0], np.float64)
+        d = float(np.abs(kernel_scores - want).max())
+        check(d <= TWIN_GLOBAL, f"cli per channel: scores {kernel_scores} vs {want}")
+        per_channel_out = run["out"]
+        res["per_channel_1080p"] = run
+
+        # (b) -y and -1: one launch each.
+        run, rows = cli_checked("-y 1080p", ["-y"] + p1, one)
+        lum = (imageio.luminance_bt601(a1), imageio.luminance_bt601(b1))
+        errs["luminance"] = check_printed("-y", rows, [""], [compute(*lum)])
+        res["luminance_1080p"] = run
+        run, rows = cli_checked("-1 1080p", ["-1"] + p1, one)
+        errs["channel_1"] = check_printed("-1", rows, [""],
+                                          [compute(a1[:, :, 1], b1[:, :, 1])])
+        res["channel1_1080p"] = run
+
+        # (c) Map export: the PFM bit for bit compute_ssim_map's maps, the
+        # TGA quantize_map of them.
+        maps = np.stack([ssim_tpu_torch.compute_ssim_map(a1[:, :, c], b1[:, :, c])[1]
+                         for c in range(3)], axis=-1)
+        for ext in ("pfm", "tga"):
+            mp = os.path.join(work, f"map.{ext}")
+            run, rows = cli_checked(f"map .{ext}", p1 + [mp], one)
+            check_printed(f"map .{ext}", rows, channels, want_channels)
+            if ext == "pfm":
+                got = imageio.load_pfm(mp)
+                check(got.shape == maps.shape and np.array_equal(got, maps),
+                      "cli .pfm map differs from compute_ssim_map's")
+            else:
+                got = imageio.load_image(mp)
+                check(np.array_equal(got, imageio.quantize_map(maps)),
+                      "cli .tga map differs from quantize_map of compute_ssim_map's")
+            res[f"map_{ext}_1080p"] = run
+        print(f"  maps: .pfm {maps.shape} bit for bit compute_ssim_map's per "
+              f"channel; .tga quantize_map of it", flush=True)
+
+        # (d) --ms at 1080p: phase 6's launch kinds, 4 pooled and 1
+        # components; the pooled ones of >= STREAM_COMP_MIN_PIX pixels stream.
+        n_stream, (h, w) = 0, CLI_1080P
+        for _ in range(4):
+            n_stream += h * w >= ssim_cuda.STREAM_COMP_MIN_PIX
+            h, w = h // 2, w // 2
+        run, rows = cli_checked("--ms 1080p", ["--ms"] + p1,
+                                counts_of(components=1, pooled=4, stream=n_stream))
+        errs["ms"] = check_printed("--ms", rows, [""],
+                                   [ssim_tpu_torch.compute_ms_ssim(*lum)])
+        res["ms_1080p"] = run
+
+        # (e) --relaxed at 4K: one relaxed launch, streaming.
+        run, rows = cli_checked("--relaxed 4K", ["--relaxed"] + p4,
+                                counts_of(relaxed=1, stream=1))
+        want = [compute(a4[:, :, c], b4[:, :, c], accuracy="relaxed") for c in range(3)]
+        errs["relaxed"] = check_printed("--relaxed 4K", rows, channels,
+                                        want + [float(np.mean(want))])
+        res["relaxed_4k"] = run
+
+        # (f) --downsample=auto at 4K: pooled on the card (factor 8), one
+        # forward launch on the f32 stack.
+        torch.cuda.synchronize()
+        zero_counts()
+        run = run_cli(["--downsample=auto"] + p4)
+        counts = {k: v for k, v in launch_counts().items() if v}
+        check(run["rc"] == 0 and len(run["launches"]) == 1,
+              f"cli --downsample=auto 4K: exit {run['rc']}, launches {run['launches']}")
+        want = [compute(a4[:, :, c], b4[:, :, c], downsample="auto") for c in range(3)]
+        errs["downsample"] = check_printed("--downsample=auto 4K", printed_rows(run["out"]),
+                                           channels, want + [float(np.mean(want))])
+        run["counts"] = counts
+        res["downsample_auto_4k"] = run
+
+        # (g) --dir --batch=8: each line compute_ssim of the pair's luminance.
+        run, rows = cli_checked("--dir", ["--dir", f"--batch={DIR_BATCH}"] + dirs,
+                                counts_of(standard=2, stream=2))
+        names = sorted(dir_imgs)
+        want = [compute(imageio.luminance_bt601(dir_imgs[n][0]),
+                        imageio.luminance_bt601(dir_imgs[n][1])) for n in names]
+        errs["dir"] = check_printed("--dir", rows, names, want)
+        got = np.concatenate([np.atleast_1d(s) for s in run["scores"]])
+        d = float(np.abs(got - want).max())
+        check(d <= TWIN_GLOBAL, f"cli --dir: scores vs compute_ssim {d:.3g}")
+        designs = []
+        for mode, relaxed, streamed, shape in run["launches"]:
+            check(mode == "score" and not relaxed and streamed
+                  and shape == (DIR_BATCH,) + CLI_1080P,
+                  f"cli --dir launch {mode} relaxed={relaxed} streamed={streamed} {shape}")
+            designs.append(dict(mode=mode, shape=list(shape), design=STREAM_DESIGN))
+        run["designs"] = designs
+        res["dir_1080p"] = run
+        print(f"  --dir --batch={DIR_BATCH}: {DIR_PAIRS} pairs in {len(designs)} launches "
+              f"of kScore on {(DIR_BATCH,) + CLI_1080P} u8, each through {STREAM_DESIGN}; "
+              f"scores vs compute_ssim {d:.3g}", flush=True)
+
+        # (h) --impl=host at 1080p: the host library on the CPU, no launch.
+        run, rows = cli_checked("--impl=host 1080p", ["--impl=host"] + p1,
+                                counts_of())
+        host_scores = np.asarray(run["scores"][0], np.float64)
+        d_host = float(np.abs(host_scores - kernel_scores).max())
+        check(d_host <= HOST_TOL,
+              f"cli --impl=host {host_scores} vs the kernel's {kernel_scores}")
+        res["host_1080p"] = run
+
+    for name, run in res.items():
+        print(f"  {name}: {run['out'].strip().splitlines()}; launches {run['counts']}",
+              flush=True)
+    print(f"  printed vs computed beside them, max {max(errs.values()):.3g} (the "
+          f"printed digits); the kernel's channel scores vs compute_ssim "
+          f"{TWIN_GLOBAL:g} or less; --impl=host vs the kernel {d_host:.3g} "
+          f"(tol {HOST_TOL:g})", flush=True)
+
+    # A fresh process with the build cached: its wall time, and the same output.
+    fresh = []
+    for _ in range(CLI_REPS):
+        t0 = time.perf_counter()
+        out = subprocess.run([sys.executable, "-m", "ssim_tpu_torch.cli"] + p1, cwd=HERE,
+                             capture_output=True, text=True, timeout=300)
+        fresh.append((time.perf_counter() - t0) * 1e3)
+        check(out.returncode == 0 and out.stdout == per_channel_out,
+              f"python -m ssim_tpu_torch.cli: exit {out.returncode}, printed "
+              f"{out.stdout!r}: {out.stderr[-2000:]}")
+    print(f"  python3 -m ssim_tpu_torch.cli on the 1080p pair (a fresh process, the "
+          f"build cached): {', '.join(f'{t:.0f}' for t in fresh)} ms; prints the "
+          f"in-process run's lines", flush=True)
+
+    return dict(res=res, fresh_ms=statistics.median(fresh), fresh_runs_ms=fresh, errs=errs, host_vs_kernel=d_host,
+                launches=cli_launches(res), times=cli_times(p1, p4, dirs, label))
+
+
+def cli_launches(res):
+    """Phase 12's launches by counter, over its checked runs."""
+    total = {}
+    for run in res.values():
+        for k, v in run["counts"].items():
+            total[k] = total.get(k, 0) + v
+    return total
+
+
+def cli_times(p1, p4, dirs, label):
+    """Host-clock medians of 5 runs of each CLI call, split into stages;
+    --dir as pairs/s and Mpix/s, its launch share (the launches'
+    CUDA-event ms over the host-clock ms) and, from one torch.profiler
+    trace of it in a fresh process, the card's busy share (how far
+    decode-ahead keeps the card fed)."""
+    calls = {
+        "per_channel_1080p": p1,
+        "luminance_1080p": ["-y"] + p1,
+        "channel1_1080p": ["-1"] + p1,
+        "map_pfm_1080p": p1 + [os.path.join(os.path.dirname(p1[0]), "t.pfm")],
+        "map_tga_1080p": p1 + [os.path.join(os.path.dirname(p1[0]), "t.tga")],
+        "ms_1080p": ["--ms"] + p1,
+        "per_channel_4k": p4,
+        "relaxed_4k": ["--relaxed"] + p4,
+        "downsample_auto_4k": ["--downsample=auto"] + p4,
+        "dir_1080p": ["--dir", f"--batch={DIR_BATCH}"] + dirs,
+        "host_1080p": ["--impl=host"] + p1,
+    }
+    times = {}
+    with no_plain_twins(), no_pil():
+        for name, args in calls.items():
+            times[name] = stage_times(args)
+    for name, t in times.items():
+        print(f"  {name}: {t['total_ms']:.1f} ms (decode {t['decode_ms']:.1f}, compute "
+              f"{t['compute_ms']:.1f}, map write {t['write_ms']:.1f}; runs "
+              f"{', '.join(f'{x:.1f}' for x in t['total_runs_ms'])}) | {label}", flush=True)
+    t = times["dir_1080p"]
+    t["pairs_per_s"] = DIR_PAIRS / (t["total_ms"] / 1e3)
+    t["mpix_per_s"] = t["pairs_per_s"] * CLI_1080P[0] * CLI_1080P[1] / 1e6
+    t["launch_share"] = t["launch_ms"] / t["total_ms"]
+    out = subprocess.run([sys.executable, os.path.join(HERE, "chip_smoke.py"),
+                          "--trace-dir"] + dirs, cwd=HERE, capture_output=True,
+                         text=True, timeout=600)
+    check(out.returncode == 0 and out.stdout.strip(),
+          f"chip_smoke.py --trace-dir: exit {out.returncode}: {out.stderr[-3000:]}")
+    trace = json.loads(out.stdout.strip().splitlines()[-1])
+    check(trace["busy_ms"] is not None,
+          f"the --dir trace held no device activity in {trace['empty_traces']} tries")
+    t.update(trace_busy_ms=trace["busy_ms"], trace_window_ms=trace["window_ms"],
+             trace_ops=trace["ops"], trace_top=trace["top"],
+             trace_empty_tries=trace["empty_traces"],
+             busy_share=trace["busy_ms"] / trace["window_ms"])
+    print(f"  --dir --batch={DIR_BATCH}, {DIR_PAIRS} RGB 1080p TGA pairs: "
+          f"{t['pairs_per_s']:.1f} pairs/s, {t['mpix_per_s']:.1f} Mpix/s; launch share "
+          f"{t['launch_share']:.2%} (the launches by CUDA events {t['launch_ms']:.3f} ms "
+          f"of {t['total_ms']:.1f} ms); busy share {t['busy_share']:.2%} (one trace of "
+          f"{CLI_TRACE_REPS} runs in a fresh process: the card busy "
+          f"{trace['busy_ms']:.3f} ms of {trace['window_ms']:.1f} ms a run, "
+          f"{trace['ops']:g} device operations a run; "
+          f"{', '.join(f'{n} {ms:.3f} ms' for n, ms in trace['top'])}; "
+          f"{trace['empty_traces']} empty traces before it) | {label}", flush=True)
+    return times
+
+
+def trace_dir_main(dirs):
+    """`chip_smoke.py --trace-dir A B`: one torch.profiler trace of
+    CLI_TRACE_REPS runs of `--dir --batch=8 A B` (cli.main in this fresh
+    process, its output discarded, the plain twins and PIL made to raise),
+    taken again up to CLI_TRACE_TRIES times while it holds no device
+    activity. Prints one JSON line: the device's busy ms and the traced
+    window's host ms a run, the device operations a run, the largest
+    operations' ms a run, and how many traces before it were empty
+    (busy_ms null where all were)."""
+    import io
+
+    from ssim_tpu_torch import cli
+
+    args = ["--dir", f"--batch={DIR_BATCH}"] + dirs
+
+    def run():
+        with contextlib.redirect_stdout(io.StringIO()):
+            rc = cli.main(args)
+        check(rc == 0, f"cli {args}: exit {rc}")
+
+    empty = 0
+    with no_plain_twins(), no_pil():
+        for _ in range(CLI_TRACE_TRIES):
+            busy, window, nops, top = device_trace(run, CLI_TRACE_REPS)
+            if busy is not None:
+                break
+            empty += 1
+    print(json.dumps(dict(busy_ms=busy, window_ms=window, ops=nops, top=top[:6],
+                          empty_traces=empty)), flush=True)
+    return 0
+
+
 def fail_line(error):
     """The one line printed when the script cannot start, before its
     nonzero exit."""
@@ -3146,10 +3655,21 @@ def main():
     spatial = phase_spatial(gen, label)
     relaxed = phase_relaxed(gen, label)
     pad = phase_pad(gen, label)
+    cli = phase_cli(gen, label)
     check("jax" not in sys.modules, "JAX was imported")
 
     ref = records["4k_b4"]
     bwd = train["grad_1080_b4"]
+    cli_launches = cli["launches"]
+    print(json.dumps({"cli": {
+        "launches": cli_launches,
+        "dir_designs": cli["res"]["dir_1080p"]["designs"],
+        "printed_vs_computed": cli["errs"],
+        "host_vs_kernel": cli["host_vs_kernel"],
+        "fresh_process_ms": cli["fresh_ms"],
+        "fresh_process_runs_ms": cli["fresh_runs_ms"],
+        "times": cli["times"],
+    }}))
     print(json.dumps({"kernels": [{
         "name": "ssim_fwd",
         "route": "cuda",
@@ -3159,6 +3679,7 @@ def main():
         "launches": launches,
         "launches_stream": stream_launches,
         "launches_training": train_fwd,
+        "launches_cli": cli_launches.get("standard", 0),
         "max_abs_err": max_err,
         "ms": ref["kernel_ms"],
         "plain_ms": ref["plain_ms"],
@@ -3202,6 +3723,7 @@ def main():
         "launches_stream": ms["infer_stream"]["components"],
         "launches_training": ms["train"]["components"],
         "launches_stream_training": ms["train_stream"]["components"],
+        "launches_cli": cli_launches.get("components", 0),
         "max_abs_err": comp_err,
         **{k: ms["times"]["components_f32_train_scale0"][k]
            for k in ("ms", "turns_ms", "device_ms", "tile_body_ms", "tile_body_device_ms",
@@ -3221,6 +3743,7 @@ def main():
         "replaces": "ssim_tpu/ops/ssim_pallas.py:2066 (K1 mode d)",
         "launches": ms["infer"]["pooled"],
         "launches_stream": ms["infer_stream"]["pooled"],
+        "launches_cli": cli_launches.get("pooled", 0),
         "max_abs_err": comp_err,
         **{k: ms["times"]["pooled_u8_scale0"][k]
            for k in ("ms", "turns_ms", "device_ms", "tile_body_ms", "tile_body_device_ms",
@@ -3367,6 +3890,7 @@ def main():
         "launches": relaxed["launches_fwd"],
         "launches_stream": relaxed["launches_stream"],
         "launches_by_call": relaxed["by_call"],
+        "launches_cli": cli_launches.get("relaxed", 0),
         "max_abs_err": relaxed["err_fwd"],
         **{k: relaxed["times"]["kScore 4k_b4"][k]
            for k in ("ms", "plain_ms", "bound_ms", "bound_by", "shape", "standard_ms")},
@@ -3417,4 +3941,6 @@ def main():
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--trace-dir"]:
+        sys.exit(trace_dir_main(sys.argv[2:]))
     sys.exit(main())

@@ -17,7 +17,12 @@ Counterpart of `ssim_tpu/__init__.py` for the slices ported so far:
   training and MS-SSIM functions: the heavy blurs as bf16x3 band
   products on the tensor cores;
 - the edge-pad-and-align op, `ops.pad_align`, which no SSIM path calls
-  (as in the JAX package).
+  (as in the JAX package);
+- the user surface: the CLI (`python -m ssim_tpu_torch.cli`), the
+  channel policies (`multichannel`), image I/O and the directory loader
+  (`utils.imageio`, `utils.dataset`), profiling hooks (`utils.profiling`)
+  and the native C++ host backend (`impl="host"`, `ops/host.py`, built
+  with g++ at first use; no GPU).
 
 They run through three hand-written CUDA kernels for Hopper, built with
 nvcc at first use: the fused forward (`csrc/ssim_fwd.cu`; standard, map,

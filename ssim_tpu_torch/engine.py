@@ -11,9 +11,11 @@ What differs from the JAX engine:
   caller's choice, as in any PyTorch op), and for NumPy input `cuda`. On a
   machine without a GPU, NumPy input with no `device`, or an explicit
   `cuda`, raises UnsupportedError: the CPU is used only when asked for
-  (`device="cpu"`, or CPU tensors). Only the host oracle needs no device:
-  `impl="reference"`, and the `precision="f64"` calls the kernel does not
-  serve (below).
+  (`device="cpu"`, or CPU tensors). Only the host paths need no device:
+  the oracle (`impl="reference"`, and the `precision="f64"` calls the
+  kernel does not serve, below) and the native host backend
+  (`impl="host"`, `ops/host.py`: uint8 only, the reference window, no
+  downsample, as in the JAX engine).
 - `precision="f64"` is routed as the JAX engine routes it
   (ssim_tpu/engine.py:277-292): impl `cuda`/`auto`, radius <= 16 and a
   pair of one dtype that embeds exactly in f32 (u8, u16, f16, bf16, f32)
@@ -37,6 +39,7 @@ import torch
 
 from .dispatch import Implementation, select_impl
 from .errors import InvalidArgumentError, UnsupportedError
+from .windows import window_is_default
 
 _TORCH_INTS = {
     torch.uint8, torch.int8, torch.int16, torch.int32, torch.int64,
@@ -197,6 +200,10 @@ def _as_tensor(x, device: torch.device) -> torch.Tensor:
     widen exactly to f32 on the host)."""
     if not isinstance(x, torch.Tensor):
         x = np.ascontiguousarray(x)
+        if not x.flags.writeable:
+            # A read-only array (PIL's images are) would be shared by a CPU
+            # tensor that torch assumes writable.
+            x = x.copy()
         if x.dtype.name == "bfloat16":
             x = torch.from_numpy(x.view(np.uint16)).view(torch.bfloat16)
         elif _is_ml_float(x.dtype):
@@ -270,6 +277,12 @@ def compute(
             'accuracy="relaxed" contradicts precision="f64" — pick one tier'
         )
     impl = select_impl(impl)
+    if impl == Implementation.HOST and not window_is_default(radius, sigma, k1, k2):
+        raise InvalidArgumentError(
+            "custom radius/sigma/k1/k2 are unsupported with impl='host' "
+            "(the C backend pins the reference window) — use "
+            "impl='auto'/'cuda'/'torch'"
+        )
     precise = precision == "f64"
     if precise:
         from .ops.routing import precise_routable
@@ -279,6 +292,18 @@ def compute(
             # (the f32 cast would round them first), mixed dtypes,
             # radius > 16 and the other impls.
             impl = Implementation.REFERENCE
+    if impl == Implementation.HOST:
+        if downsample > 1:
+            # Pooled images are float; the uint8-only backend would blame
+            # the caller's (correct) input dtype.
+            raise InvalidArgumentError(
+                "downsample > 1 is unsupported with impl='host' (pooled "
+                "images are float; the host backend is uint8-only) — "
+                "use impl='auto'/'cuda'/'torch'"
+            )
+        from .ops import host
+
+        return host.compute(a, b, with_map=with_map, data_range=data_range)
 
     if impl == Implementation.REFERENCE:
         from . import reference

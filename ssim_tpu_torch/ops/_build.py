@@ -1,5 +1,5 @@
-"""Build and load the port's CUDA kernels (nvcc into a plain C shared
-library, bound with ctypes).
+"""Build and load the port's native libraries, bound with ctypes: the CUDA
+kernels (nvcc into a plain C shared library) and the host backend (g++).
 
 No counterpart in the JAX package: there Mosaic compiles the Pallas
 kernels at trace time. Here `nvcc` compiles `ssim_tpu_torch/csrc/*.cu`
@@ -10,6 +10,11 @@ hash of the sources and flags, so an edited source is rebuilt and an
 unchanged one is loaded as it is. Nothing runs at import time: this
 module is imported on machines without `nvcc` or a GPU, and only
 `load_library` needs them.
+
+The host backend (`ops/host.py`) is `csrc/host/ssim_host.cpp`, built by
+`build_host` with the JAX package's `native/Makefile` flags into the
+same directory, keyed by a hash of its source, compiler and flags, the
+compiler's version and the CPU target that `-march=native` selects.
 """
 
 import ctypes
@@ -176,3 +181,56 @@ def load_library() -> ctypes.CDLL:
             lib.pad_align_launch.restype = i
             _lib = lib
         return _lib
+
+
+HOST_SOURCE = os.path.join(CSRC_DIR, "host", "ssim_host.cpp")
+#: The compiler and flags of `native/Makefile`: g++ from PATH (not $CXX,
+#: which may name a compiler without OpenMP).
+HOST_CXX = "g++"
+HOST_FLAGS = ("-O3", "-march=native", "-fopenmp", "-fPIC", "-std=c++17", "-shared")
+
+
+def _host_target() -> bytes:
+    """The compiler's version and the target that HOST_FLAGS select on
+    this machine (what -march=native resolves to, each ISA extension on or
+    off), so that a build directory carried to another CPU or compiler is
+    not loaded there; empty where the compiler does not run."""
+    out = b""
+    for args in (["--version"], [*HOST_FLAGS, "-Q", "--help=target"]):
+        try:
+            out += subprocess.run([HOST_CXX, *args], stdout=subprocess.PIPE,
+                                  stderr=subprocess.DEVNULL, timeout=60).stdout
+        except (OSError, subprocess.TimeoutExpired):
+            pass
+    return out
+
+
+def host_library_path() -> str:
+    h = hashlib.sha256(" ".join((HOST_CXX,) + HOST_FLAGS).encode())
+    h.update(_host_target())
+    with open(HOST_SOURCE, "rb") as f:
+        h.update(f.read())
+    return os.path.join(BUILD_DIR, f"libssim_host_{h.hexdigest()[:16]}.so")
+
+
+def build_host() -> str:
+    """Compile the host backend unless this digest is already built;
+    returns the library's path. Raises RuntimeError with the compiler's
+    message when the build fails."""
+    out = host_library_path()
+    if os.path.isfile(out):
+        return out
+    os.makedirs(BUILD_DIR, exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as work:
+        tmp = os.path.join(work, "lib.so")
+        cmd = [HOST_CXX, *HOST_FLAGS, "-o", tmp, HOST_SOURCE]
+        try:
+            proc = subprocess.run(cmd, stdout=subprocess.PIPE,
+                                  stderr=subprocess.STDOUT, text=True, timeout=300)
+        except (OSError, subprocess.TimeoutExpired) as e:
+            raise RuntimeError(f"{' '.join(cmd)}: {e}") from None
+        if proc.returncode != 0:
+            raise RuntimeError(
+                f"{HOST_CXX} failed ({proc.returncode}):\n{' '.join(cmd)}\n{proc.stdout}")
+        os.replace(tmp, out)
+    return out

@@ -71,7 +71,11 @@ def test_compute_ssim_legacy_matches_jax(rng):
     bad = ssim_tpu_torch.compute_ssim_legacy(a, b[:-1], device="cpu")
     assert bad == ssim_tpu.compute_ssim_legacy(a, b[:-1]) == -float(errno.EINVAL)
     assert ssim_tpu_torch.compute_ssim_legacy(
-        a, b, impl="host", device="cpu") == -float(errno.ENOSYS)
+        a, b, impl="xla", device="cpu") == -float(errno.ENOSYS)
+    # The host backend is ported: it scores, within the oracle's tolerance.
+    host = ssim_tpu_torch.compute_ssim_legacy(a, b, impl="host")
+    oracle, _ = ssim_tpu_torch.reference.compute_ssim(a, b)
+    assert_close(host, oracle, a.size, base=ORACLE_GLOBAL, pixel=ORACLE_PIXEL)
 
 
 @pytest.mark.parametrize(
@@ -116,8 +120,9 @@ def test_invalid_arguments_raise_einval_like_jax(args, kw):
 
 
 def test_unknown_and_unported_impls_raise_enosys(rng):
+    # The JAX names and unknown ones; "host" is ported (test_torch_port_host).
     a, b = random_pair(rng, 12, 12)
-    for impl in ("xla", "pallas", "host", "avx512"):
+    for impl in ("xla", "pallas", "avx512"):
         with pytest.raises(UnsupportedError) as e:
             ssim_tpu_torch.compute_ssim(a, b, impl=impl, device="cpu")
         assert e.value.errno == errno.ENOSYS
