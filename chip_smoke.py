@@ -178,12 +178,35 @@ Phases, each of which raises on failure (the script then exits non-zero):
    launches' CUDA-event time over its host time (the launch share), and
    one torch.profiler trace of `--dir` taken in a fresh process
    (`chip_smoke.py --trace-dir A B`) for the card's busy share; a trace
-   with no device activity fails the phase.
+   with no device activity fails the phase;
+13. the data-parallel and multi-process layer (`parallel/batch.py`,
+   `parallel/multihost.py`) and the distributed training dry run
+   (`entry.py`), on a one-rank nccl group made by
+   `multihost.initialize("127.0.0.1:<free port>", 1, 0)` and destroyed at
+   the end, every plain twin made to raise and each call's launches
+   counted from 0: (a) `ssim_batch_sharded` ± map and `mean_ssim_sharded`
+   on u8 (8, 2160, 3840) on a ("data",) mesh (one streaming kScore, kMap
+   with the map, each; the partials equal the single-device route's, and
+   their scores `engine.compute`'s, bit for bit; the map, a DTensor, has
+   `compute_ssim_map`'s map as its local block); (b) the same on u8
+   (4096, 64, 64) (one packed batch stream launch; with the map one kMap
+   of the tile grid, the map's route as in JAX); (c) `global_mesh` and
+   `distribute_batch` of (a)'s frames: the calls on the DTensor equal
+   (a)'s bit for bit, and a mesh larger than the world raises; (d) the dry
+   run's step at f32 (4, 1080, 1920) on a (1, 1) ("data", "space") mesh:
+   the train step (the plain loss, SGD, and the kernel eval: one streaming
+   kRowsum with halo operands) and the gradient check (one kRowsum and
+   one K3 halo launch, within 2e-5 x max|g| of autograd of the unsharded
+   plain path), then `dryrun_multichip(1)` on this group; (e) by host
+   clock, median of 10 in turns, each sharded call beside
+   `engine.compute` on the same batch, and the full-width step, also in
+   one torch.profiler trace (device busy ms, K3's share).
 
 Prints phase 12's launches and times as one JSON line (`{"cli": ...}`),
-the kernel records as one JSON line (with each kernel's roofline bound;
-each forward entry names the design that ran; `launches_cli`: its
-launches in phase 12), the card's name and power limit, and last
+phase 13's as one (`{"parallel": ...}`), the kernel records as one JSON
+line (with each kernel's roofline bound; each forward entry names the
+design that ran; `launches_cli`, `launches_parallel`: its launches in
+phases 12 and 13), the card's name and power limit, and last
 `{"ok": true, "device": {...}}`. Inputs are random, made on the device
 from a fixed seed. Imports no JAX. Where it cannot start (no CUDA, or no
 `ssim_tpu_torch` package beside it) it prints one line
@@ -193,6 +216,7 @@ from a fixed seed. Imports no JAX. Where it cannot start (no CUDA, or no
 import contextlib
 import json
 import os
+import socket
 import statistics
 import subprocess
 import sys
@@ -212,6 +236,11 @@ if HERE not in sys.path:
 # the f64 oracle: 2e-6 global (never tighter than 2e-3 / sqrt(npix), the
 # rule of tests/test_pallas.py) and 1e-3 per pixel.
 TWIN_GLOBAL, TWIN_PIXEL, TWIN_PIXEL_R1 = 2e-7, 1e-5, 5e-5
+# Phase 3's first comparison, repeated with fresh pairs at every segment of
+# the streaming kMap (ROADMAP Queue 3, P6: it failed once as the script's
+# first launch and has not been reproduced).
+MAP_REPEAT_SHAPE = (1, 255, 63)
+MAP_REPEATS = 100
 ORACLE_GLOBAL, ORACLE_PIXEL = 2e-6, 1e-3
 # Backward kernel against its twin: 1e-6 * max(1, max|g|) (both round
 # alike, so they are expected to agree exactly); against autograd of the
@@ -370,16 +399,44 @@ def twin(a, b, with_map, data_range=255.0, radius=5, sigma=1.5, k1=0.01, k2=0.03
     )
 
 
-def compare_kernel_to_twin(name, a, b, *, oracle=False, **kw):
-    """Kernel and twin on the same card tensors; returns max abs error."""
+def mismatch_report(a, b, mk, mp, rerun, win):
+    """What a failed kernel-to-twin map comparison shows, for its message:
+    the pixels that differ (their count, images, rows and columns), the
+    kernel and the twin each against the f64 oracle there (which of the two
+    is off), and the kernel run again on the same inputs (whether it
+    repeats)."""
     from ssim_tpu_torch import reference
-    from ssim_tpu_torch.ops.ssim_cuda import ssim_parts_cuda
 
-    npix = a.shape[-1] * a.shape[-2]
-    pk, mk = ssim_parts_cuda(a, b, with_map=True,
-                             allow_float=a.dtype == torch.float32, **kw)
+    idx = ((mk - mp).abs() > TWIN_PIXEL).nonzero().cpu()
+    if idx.shape[0] == 0:
+        return "no map pixel differs (the partials do)"
+    imgs = sorted(set(idx[:, 0].tolist()))
+    _, mo = reference.compute_ssim(a[imgs].cpu().numpy(), b[imgs].cpu().numpy(),
+                                   with_map=True, **win)
+    mo = np.asarray(mo).reshape((len(imgs),) + tuple(a.shape[-2:]))
+    img, ys, xs = idx[:, 0].numpy(), idx[:, 1].numpy(), idx[:, 2].numpy()
+    k = mk.cpu().numpy()[img, ys, xs].astype(np.float64)
+    t = mp.cpu().numpy()[img, ys, xs].astype(np.float64)
+    o = mo[np.searchsorted(imgs, img), ys, xs]
+    again = rerun()
     torch.cuda.synchronize()
-    win = {k: v for k, v in kw.items() if k != "allow_float"}
+    first = [(int(i), int(y), int(x), float(kv), float(tv), float(ov))
+             for i, y, x, kv, tv, ov in list(zip(img, ys, xs, k, t, o))[:4]]
+    return (f"{idx.shape[0]} map pixels differ, images {imgs[:8]}, rows "
+            f"{ys.min()}-{ys.max()} ({len(set(ys.tolist()))} of them), columns "
+            f"{xs.min()}-{xs.max()}; there kernel vs oracle "
+            f"{np.nanmax(np.abs(k - o)):.3g}, twin vs oracle {np.nanmax(np.abs(t - o)):.3g}; "
+            f"the kernel again on the same inputs "
+            f"{float((again - mp).abs().nan_to_num(0.0).max()):.3g} from the twin; first "
+            f"(image, row, column, kernel, twin, oracle): {first}")
+
+
+def twin_errors(name, a, b, pk, mk, win, rerun):
+    """The kernel's partials pk and map mk against the twin on the same
+    inputs; returns (global error, pixel error, the kernel's scores). On a
+    mismatch it raises with mismatch_report's account (rerun() launches the
+    kernel again and returns its map)."""
+    npix = a.shape[-1] * a.shape[-2]
     pp, mp = twin(a, b, True, **win)
     gk, gp = scores(pk, npix), scores(pp, npix)
     check(np.array_equal(np.isnan(gk), np.isnan(gp)), f"{name}: NaN scores differ")
@@ -387,11 +444,30 @@ def compare_kernel_to_twin(name, a, b, *, oracle=False, **kw):
     g_err = float(np.nanmax(np.abs(gk - gp), initial=0.0))
     finite = ~mp.isnan()
     p_err = float((mk[finite] - mp[finite]).abs().max()) if finite.any() else 0.0
-    pixel_tol = TWIN_PIXEL_R1 if kw.get("radius", 5) == 1 else TWIN_PIXEL
+    pixel_tol = TWIN_PIXEL_R1 if win.get("radius", 5) == 1 else TWIN_PIXEL
     g_tol = max(TWIN_GLOBAL, 2 * pixel_tol / npix**0.5)
-    check(g_err <= g_tol and p_err <= pixel_tol,
-          f"{name}: kernel vs twin global {g_err:.3g} (tol {g_tol:.3g}), "
-          f"pixel {p_err:.3g} (tol {pixel_tol:.3g})")
+    if not (g_err <= g_tol and p_err <= pixel_tol):
+        raise RuntimeError(
+            f"{name}: kernel vs twin global {g_err:.3g} (tol {g_tol:.3g}), pixel "
+            f"{p_err:.3g} (tol {pixel_tol:.3g}); "
+            + mismatch_report(a, b, mk, mp, rerun, win))
+    return g_err, p_err, gk
+
+
+def compare_kernel_to_twin(name, a, b, *, oracle=False, **kw):
+    """Kernel and twin on the same card tensors; returns max abs error."""
+    from ssim_tpu_torch import reference
+    from ssim_tpu_torch.ops.ssim_cuda import ssim_parts_cuda
+
+    def run():
+        return ssim_parts_cuda(a, b, with_map=True,
+                               allow_float=a.dtype == torch.float32, **kw)
+
+    npix = a.shape[-1] * a.shape[-2]
+    pk, mk = run()
+    torch.cuda.synchronize()
+    win = {k: v for k, v in kw.items() if k != "allow_float"}
+    g_err, p_err, gk = twin_errors(name, a, b, pk, mk, win, lambda: run()[1])
     line = f"  {name}: kernel vs twin global {g_err:.3g} pixel {p_err:.3g}"
     if oracle:
         wo, mo = reference.compute_ssim(
@@ -407,6 +483,40 @@ def compare_kernel_to_twin(name, a, b, *, oracle=False, **kw):
     return max(g_err, p_err), gk
 
 
+def map_repeats(gen):
+    """Phase 3's first comparison again (ROADMAP Queue 3, P6): the streaming
+    kMap on MAP_REPEAT_SHAPE, MAP_REPEATS fresh pairs at the picker's
+    segment and at each segment it can take (pinned), each held against
+    the twin. Returns the worst (global, pixel) error."""
+    from ssim_tpu_torch.ops import ssim_cuda
+
+    h = MAP_REPEAT_SHAPE[1]
+    th = ssim_cuda.TILE_H
+    top = min(ssim_cuda.MAX_SEG_TILES, -(-h // th)) * th
+    n, worst_g, worst_p = 0, 0.0, 0.0
+    t0 = time.perf_counter()
+    for seg in [None] + list(range(th, top + 1, th)):
+        for i in range(MAP_REPEATS):
+            a, b = pair(gen, MAP_REPEAT_SHAPE)
+            kw = ssim_cuda._tile_kw(a, b, False, None, None, data_range=255.0,
+                                    radius=5, sigma=1.5, k1=0.01, k2=0.03)
+
+            def run():
+                return ssim_cuda._launch(a, b, mode="map", segment=seg, **kw)
+
+            pk, mk = run()
+            torch.cuda.synchronize()
+            g_err, p_err, _ = twin_errors(
+                f"u8 {MAP_REPEAT_SHAPE} kMap, segment {seg or 'picked'}, repeat {i}",
+                a, b, pk, mk, {}, lambda: run()[1])
+            n += 1
+            worst_g, worst_p = max(worst_g, g_err), max(worst_p, p_err)
+    print(f"  u8 {MAP_REPEAT_SHAPE} kMap repeated: {n} fresh pairs, the picker's segment "
+          f"and every one of {th}-{top}: worst global {worst_g:.3g} pixel {worst_p:.3g} "
+          f"({time.perf_counter() - t0:.1f} s)", flush=True)
+    return worst_g, worst_p
+
+
 def phase_kernel(gen):
     print("phase 3: kernel against its plain twin on the card", flush=True)
     err = 0.0
@@ -414,6 +524,8 @@ def phase_kernel(gen):
         a, b = pair(gen, shape)
         e, _ = compare_kernel_to_twin(f"u8 {shape}", a, b, oracle=True)
         err = max(err, e)
+        if shape == MAP_REPEAT_SHAPE:
+            err = max(err, *map_repeats(gen))
     for shape in [(4, 1080, 1920), (1, 1024, 20480)]:
         a, b = pair(gen, shape)
         e, _ = compare_kernel_to_twin(f"u8 {shape}", a, b)
@@ -3182,7 +3294,7 @@ def no_plain_twins():
     saved = [(mod, name, getattr(mod, name)) for mod, name in names]
 
     def no_twin(*args, **kw):
-        raise RuntimeError("a plain twin ran on the CLI's path")
+        raise RuntimeError("a plain twin ran where the kernels must")
 
     for mod, name, _ in saved:
         setattr(mod, name, no_twin)
@@ -3609,6 +3721,237 @@ def trace_dir_main(dirs):
     return 0
 
 
+# Phase 13: the data-parallel and multi-process layer (parallel/batch.py,
+# parallel/multihost.py) and the distributed training dry run (entry.py) on
+# a one-rank nccl group that multihost.initialize makes on a free port of
+# 127.0.0.1. NCCL refuses two ranks on one GPU, so the group has one rank:
+# the gather and the all-reduce are over one rank, and every launch is the
+# same kernel on the same block as the single-device engine's, so the
+# per-image partials equal it bit for bit.
+PAR_FRAMES = (8, 2160, 3840)
+PAR_SMALL = (4096, 64, 64)
+PAR_STEP = (4, 1080, 1920)
+PAR_REPS = 10
+PAR_TRACE_REPS = 3
+PAR_TRACE_TRIES = 3
+
+
+def counted(fn):
+    """(the launch counts of fn() from 0, fn()'s result)."""
+    torch.cuda.synchronize()
+    zero_counts()
+    out = fn()
+    torch.cuda.synchronize()
+    return launch_counts(), out
+
+
+def phase_parallel(gen, label):
+    """Phase 13 on a one-rank nccl group made by `multihost.initialize`,
+    destroyed at the end."""
+    import torch.distributed as dist
+
+    from ssim_tpu_torch.parallel import multihost
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    multihost.initialize(f"127.0.0.1:{port}", 1, 0)
+    try:
+        return parallel_path(gen, label)
+    finally:
+        dist.destroy_process_group()
+
+
+def parallel_path(gen, label):
+    """13(a)-(d) with every plain twin made to raise and each call's
+    launches counted from 0; then (e), the times."""
+    from ssim_tpu_torch.parallel import make_mesh
+
+    print("phase 13: data parallel and multi-process (ssim_batch_sharded, "
+          "mean_ssim_sharded, multihost, the dry run's step) on a one-rank nccl "
+          "group", flush=True)
+    mesh = make_mesh((1,), ("data",))
+    calls, res = {}, {}
+    with no_plain_twins():
+        frames = pair(gen, PAR_FRAMES)
+        small = pair(gen, PAR_SMALL)
+        res["frames"] = parallel_batch_calls("frames", frames, mesh, calls,
+                                             counts_of(standard=1, stream=1))
+        res["small"] = parallel_batch_calls("small", small, mesh, calls,
+                                            counts_of(batch=1, stream=1))
+        res["multihost"] = parallel_multihost(frames, res["frames"], calls)
+        step_inputs, res["step"] = parallel_step(gen, calls)
+    launches = {k: sum(c[k] for c in calls.values()) for k in launch_counts()}
+    times = parallel_times(mesh, frames, small, step_inputs, label)
+    return dict(calls=calls, launches=launches, res=res, times=times)
+
+
+def parallel_batch_calls(name, ab, mesh, calls, one):
+    """ssim_batch_sharded ± map and mean_ssim_sharded on one batch: each
+    call one launch (`one`; with the map, kMap of the tile grid, the map's
+    route as in JAX); the partials equal the single-device route's and
+    their scores engine.compute's, bit for bit; the map's local block
+    equals compute_ssim_map's; the mean that of engine.compute's scores."""
+    import ssim_tpu_torch
+    from ssim_tpu_torch import engine
+    from ssim_tpu_torch.ops.routing import ssim_parts_auto
+    from ssim_tpu_torch.parallel import mean_ssim_sharded, ssim_batch_sharded
+
+    a, b = ab
+    bsz, h, w = a.shape
+    calls[f"{name}_score"], (parts, none) = counted(lambda: ssim_batch_sharded(a, b, mesh))
+    calls[f"{name}_map"], (parts_m, smap) = counted(
+        lambda: ssim_batch_sharded(a, b, mesh, with_map=True))
+    calls[f"{name}_mean"], mean = counted(lambda: mean_ssim_sharded(a, b, mesh))
+    for key in ("score", "mean"):
+        check(calls[f"{name}_{key}"] == one,
+              f"{name} {key}: launches {calls[f'{name}_{key}']}, expected {one}")
+    check(calls[f"{name}_map"] == counts_of(standard=1, stream=1),
+          f"{name} map: launches {calls[f'{name}_map']}, expected one streaming kMap")
+    want_parts, _ = ssim_parts_auto(a, b)
+    want = engine.compute(a, b)[0]
+    got = engine.finalize_mean(parts.cpu().numpy(), h * w)
+    local = smap.to_local()
+    _, want_map = ssim_tpu_torch.compute_ssim_map(a, b)
+    same_map = torch.equal(local.cpu(), torch.from_numpy(np.asarray(want_map)))
+    mean_err = abs(float(mean) - float(np.mean(want)))
+    check(none is None and parts.is_cuda and parts.shape[0] == bsz
+          and torch.equal(parts, want_parts) and np.array_equal(got, want)
+          and mean.dtype == torch.float32 and mean.dim() == 0,
+          f"{name}: partials against the single-device route")
+    check(local.is_cuda and tuple(smap.shape) == (bsz, h, w) and same_map
+          and tuple(smap.full_tensor().shape) == (bsz, h, w),
+          f"{name}: the map's local block against compute_ssim_map's")
+    check(mean_err <= TWIN_GLOBAL, f"{name}: mean {float(mean)} vs {np.mean(want)}")
+    print(f"  {name} u8 {bsz}x{h}x{w}: score {calls[f'{name}_score']['standard']} kScore / "
+          f"{calls[f'{name}_score']['batch']} kBatch, map 1 kMap, mean 1 launch, all "
+          f"streaming; partials equal the single-device route's and their scores "
+          f"engine.compute's bit for bit; the map's block equals compute_ssim_map's; mean "
+          f"{float(mean):.9f} ({mean_err:.3g} from engine.compute's scores)", flush=True)
+    del smap, local, want_map
+    torch.cuda.empty_cache()
+    return dict(mean=float(mean), mean_err=mean_err, partials=parts)
+
+
+def parallel_multihost(frames, ref, calls):
+    """(c): global_mesh and distribute_batch of the frames; the sharded
+    calls on the DTensor equal (a)'s; the mesh's errors."""
+    from ssim_tpu_torch.parallel import mean_ssim_sharded, multihost, ssim_batch_sharded
+
+    gmesh = multihost.global_mesh((1,), ("data",))
+    da, db = (multihost.distribute_batch(x, gmesh) for x in frames)
+    check(tuple(da.shape) == tuple(frames[0].shape) and da.to_local().is_cuda,
+          f"distribute_batch: global shape {tuple(da.shape)}")
+    calls["dtensor_mean"], mean = counted(lambda: mean_ssim_sharded(da, db, gmesh))
+    calls["dtensor_score"], (parts, _) = counted(lambda: ssim_batch_sharded(da, db, gmesh))
+    for key in ("dtensor_mean", "dtensor_score"):
+        check(calls[key] == counts_of(standard=1, stream=1),
+              f"{key}: launches {calls[key]}, expected one streaming kScore")
+    check(float(mean) == ref["mean"] and torch.equal(parts, ref["partials"]),
+          f"on the DTensor: mean {float(mean)} vs {ref['mean']}")
+    try:
+        multihost.global_mesh((2,), ("data",))
+        raised = ""
+    except ValueError as e:
+        raised = str(e)
+    check("need 2 ranks" in raised, "global_mesh((2,)) on one rank must raise 'need 2 ranks'")
+    print(f"  global_mesh((1,)) + distribute_batch of the frames: mean_ssim_sharded and "
+          f"ssim_batch_sharded on the DTensor equal (a)'s bit for bit, one streaming kScore "
+          f"each", flush=True)
+    return dict(mean=float(mean))
+
+
+def parallel_step(gen, calls):
+    """(d): the dry run's step at full width on a (1, 1) ("data", "space")
+    mesh, f32 PAR_STEP: the train step (plain loss, SGD, the kernel eval:
+    one kRowsum with halo) and the gradient check (one kRowsum and one K3
+    halo launch) within 2e-5 x max|g| of autograd of the unsharded plain
+    path; then dryrun_multichip(1) on this group."""
+    from ssim_tpu_torch import entry
+    from ssim_tpu_torch.parallel import make_mesh
+
+    mesh2 = make_mesh((1, 1), ("data", "space"))
+    a = torch.randint(0, 256, PAR_STEP, generator=gen, device="cuda").float() / 255.0
+    b = torch.randint(0, 256, PAR_STEP, generator=gen, device="cuda").float() / 255.0
+    delta = torch.zeros_like(a)
+    big_a, big_b = pair(gen, PAR_STEP, torch.float32, 1.0)
+    calls["step_train"], (new_delta, loss, ev) = counted(
+        lambda: entry.train_step(mesh2, a, b, delta))
+    calls["step_grad"], (err, scale) = counted(lambda: entry.grad_check(mesh2, big_a, big_b))
+    check(calls["step_train"] == counts_of(rowsum=1, stream=1),
+          f"train step: launches {calls['step_train']}, expected one streaming kRowsum")
+    check(calls["step_grad"] == counts_of(rowsum=1, stream=1, backward_vhalo=1),
+          f"gradient check: launches {calls['step_grad']}, expected one streaming "
+          f"kRowsum and one K3 halo launch")
+    res = dict(loss=float(loss), eval_ssim=float(ev), delta_max=float(new_delta.abs().max()),
+               grad_err=err, grad_scale=scale, grad_relerr=err / max(scale, 1e-12))
+    entry.check_dryrun(res)
+    check(res["grad_relerr"] <= GRAD_AUTOGRAD,
+          f"full-width step: sharded gradient {err:.3g} from autograd (max|g| {scale:.3g}; "
+          f"bound {GRAD_AUTOGRAD} x max|g|)")
+    print(f"  dry run's step, f32 {PAR_STEP} on a (1, 1) data x space mesh: loss "
+          f"{res['loss']:.9f}, kernel eval {res['eval_ssim']:.9f}, max|delta| "
+          f"{res['delta_max']:.3g}; train step 1 kRowsum (halo), gradient check 1 kRowsum "
+          f"+ 1 K3 (halo); gradient vs autograd of the plain path {err:.3g} (max|g| "
+          f"{scale:.3g}, {res['grad_relerr']:.3g} relative)", flush=True)
+    calls["dryrun_multichip_1"], small = counted(lambda: entry.dryrun_multichip(1))
+    check(calls["dryrun_multichip_1"] == counts_of(rowsum=2, stream=2, backward_vhalo=1),
+          f"dryrun_multichip(1): launches {calls['dryrun_multichip_1']}")
+    res["dryrun_multichip_1"] = small
+    return (mesh2, a, b, delta, big_a, big_b), res
+
+
+def parallel_times(mesh, frames, small, step_inputs, label):
+    """(e): host clock, median of PAR_REPS, of each sharded call beside
+    engine.compute on the same batch (in turns); the full-width step by
+    host clock and one trace (device busy ms, K3's share)."""
+    from ssim_tpu_torch import engine, entry
+    from ssim_tpu_torch.parallel import mean_ssim_sharded, ssim_batch_sharded
+
+    print("phase 13e: times", flush=True)
+    times = {}
+    for name, (a, b) in (("frames", frames), ("small", small)):
+        npix = a.shape[1] * a.shape[2]
+        fns = {
+            "compute_ms": lambda: engine.compute(a, b),
+            "batch_sharded_ms": lambda: engine.finalize_mean(
+                ssim_batch_sharded(a, b, mesh)[0].cpu().numpy(), npix),
+            "mean_sharded_ms": lambda: float(mean_ssim_sharded(a, b, mesh)),
+        }
+        runs = {k: [] for k in fns}
+        for order in (list(fns), list(fns)[::-1]):
+            for k in order:
+                runs[k] += host_times(fns[k], PAR_REPS // 2)
+        times[name] = {k: statistics.median(v) for k, v in runs.items()}
+        times[name]["runs_ms"] = runs
+        times[name]["shape"] = list(a.shape)
+        t = times[name]
+        print(f"  {name} {tuple(a.shape)}: engine.compute {t['compute_ms']:.3f} ms, "
+              f"ssim_batch_sharded + finalize {t['batch_sharded_ms']:.3f}, "
+              f"mean_ssim_sharded {t['mean_sharded_ms']:.3f} (host clock, median of "
+              f"{PAR_REPS}, in turns) | {label}", flush=True)
+    step = lambda: entry.dryrun_step(*step_inputs)
+    step_runs = host_times(step, PAR_REPS)
+    for _ in range(PAR_TRACE_TRIES):
+        busy, window, nops, top = device_trace(step, PAR_TRACE_REPS)
+        if busy is not None:
+            break
+    check(busy is not None, f"the step's trace held no device activity in "
+                            f"{PAR_TRACE_TRIES} tries")
+    k3 = k3_ms(top)
+    times["step"] = dict(step_ms=statistics.median(step_runs), runs_ms=step_runs,
+                         trace_busy_ms=busy, trace_window_ms=window, trace_ops=nops,
+                         trace_k3_ms=k3, trace_fwd_ms=fwd_ms(top), k3_share=k3 / busy,
+                         trace_top=top[:8], shape=list(PAR_STEP))
+    t = times["step"]
+    print(f"  the dry run's step at {PAR_STEP}: {t['step_ms']:.3f} ms (host clock, median "
+          f"of {PAR_REPS}); trace: device busy {busy:.3f} ms of {window:.3f} ms a step, "
+          f"{nops:g} device operations, K3 {k3:.3f} ms ({t['k3_share']:.1%} of busy), "
+          f"forward kernel {t['trace_fwd_ms']:.3f} ms; "
+          f"{', '.join(f'{n[:40]} {ms:.3f}' for n, ms in top[:5])} | {label}", flush=True)
+    return times
+
+
 def fail_line(error):
     """The one line printed when the script cannot start, before its
     nonzero exit."""
@@ -3656,6 +3999,7 @@ def main():
     relaxed = phase_relaxed(gen, label)
     pad = phase_pad(gen, label)
     cli = phase_cli(gen, label)
+    par = phase_parallel(gen, label)
     check("jax" not in sys.modules, "JAX was imported")
 
     ref = records["4k_b4"]
@@ -3670,6 +4014,16 @@ def main():
         "fresh_process_runs_ms": cli["fresh_runs_ms"],
         "times": cli["times"],
     }}))
+    pres = par["res"]
+    print(json.dumps({"parallel": {
+        "launches": par["launches"],
+        "launches_by_call": par["calls"],
+        "mean_vs_engine": {k: pres[k]["mean_err"] for k in ("frames", "small")},
+        "means": {k: pres[k]["mean"] for k in ("frames", "small", "multihost")},
+        "step": pres["step"],
+        "times": par["times"],
+        "device": label,
+    }}))
     print(json.dumps({"kernels": [{
         "name": "ssim_fwd",
         "route": "cuda",
@@ -3680,6 +4034,8 @@ def main():
         "launches_stream": stream_launches,
         "launches_training": train_fwd,
         "launches_cli": cli_launches.get("standard", 0),
+        "launches_parallel": {k: par["launches"][k]
+                              for k in ("standard", "batch", "rowsum", "stream")},
         "max_abs_err": max_err,
         "ms": ref["kernel_ms"],
         "plain_ms": ref["plain_ms"],
@@ -3693,6 +4049,7 @@ def main():
         "source": "ssim_tpu_torch/csrc/ssim_bwd.cu",
         "replaces": "ssim_tpu/ops/ssim_grad.py:278",
         "launches": train_bwd,
+        "launches_parallel": par["launches"]["backward_vhalo"],
         "max_abs_err": grad_err,
         "ms": bwd["kernel_ms"],
         "plain_ms": bwd["plain_ms"],
@@ -3798,6 +4155,7 @@ def main():
         "launches": batch["launches"],
         "launches_stream": batch["launches_stream"],
         "launches_by_call": batch["route"],
+        "launches_parallel": par["launches"]["batch"],
         "max_abs_err": batch["err"],
         **{k: batch["times"]["64x64_b4096"][k]
            for k in ("ms", "plain_ms", "bound_ms", "bound_by", "bound_share", "shape")},
@@ -3820,6 +4178,7 @@ def main():
         "design": STREAM_DESIGN,
         "launches": spatial["launches"]["rowsum"],
         "launches_stream": spatial["launches"]["stream"],
+        "launches_parallel": par["launches"]["rowsum"],
         "max_abs_err": halo_fwd_err,
         "ms": spatial["times"]["16k_b1"]["rowsum_ms"],
         "plain_ms": spatial["times"]["16k_b1"]["plain_ms"],
@@ -3864,6 +4223,7 @@ def main():
                     "_fwd_mid_band_matrices_vhalo :149, "
                     "_transpose_band_matrices_vhalo :179)",
         "launches": spatial["launches"]["backward_vhalo"],
+        "launches_parallel": par["launches"]["backward_vhalo"],
         "max_abs_err": halo_bwd_err,
         "ms": spatial["times"]["bwd_16k_b1"]["vhalo_ms"],
         "plain_ms": spatial["times"]["bwd_16k_b1"]["plain_ms"],

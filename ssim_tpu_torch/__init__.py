@@ -10,9 +10,15 @@ Counterpart of `ssim_tpu/__init__.py` for the slices ported so far:
   and `ssim_loss`;
 - multi-scale SSIM, `ms_ssim` and `compute_ms_ssim`, for inference and
   training (`models/`);
-- spatial sharding on torch.distributed (`parallel/`): one large image
-  split by rows over a mesh axis, `ssim_spatial_sharded`,
-  `mean_ssim_spatial` and `ssim_grad_spatial_sharded`;
+- distributed execution on torch.distributed (`parallel/`): batches of
+  image pairs split over a mesh axis (`ssim_batch_sharded`,
+  `mean_ssim_sharded`), one large image split by rows
+  (`ssim_spatial_sharded`, `mean_ssim_spatial`,
+  `ssim_grad_spatial_sharded`), and one process per rank
+  (`parallel.multihost`: nccl or gloo, torchrun's environment, DTensor
+  inputs); the entry points `entry.entry` and
+  `entry.dryrun_multichip` (a distributed training step), and runnable
+  examples (`examples/`);
 - the relaxed accuracy tier (`accuracy="relaxed"`) of the eager,
   training and MS-SSIM functions: the heavy blurs as bf16x3 band
   products on the tensor cores;

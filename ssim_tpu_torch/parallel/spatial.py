@@ -7,6 +7,16 @@ rows as the JAX layer does, takes its own row band, and returns the global
 outputs gathered over the axis, so every rank's result is the JAX
 function's.
 
+Each input may instead be a `DTensor` whose rows the axis splits: each
+process's own rows, as the JAX multi-process callers pass
+`make_array_from_process_local_data(NamedSharding(mesh, P(axis, None)),
+...)`. Where its local rows are exactly the band a rank takes (H divisible
+by the axis, bands of at least the rows the function needs; for a batch,
+images split over `batch_axis` or, without one, replicated), they are the
+band, with no gather; any other layout is gathered first. Either way the
+result is the whole-tensor call's, and a gradient reaches the DTensor as
+one (its local block the band's gradient).
+
 The r rows above and below a band come from the neighbouring ranks: one
 stacked point-to-point exchange each way around the axis' ring
 (`torch.distributed.batch_isend_irecv`, the counterpart of `ppermute`).
@@ -41,6 +51,7 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 import torch.distributed as dist
+from torch.distributed.tensor import DTensor
 
 from ..dispatch import Implementation, select_impl
 from ..engine import validate_window
@@ -48,28 +59,13 @@ from ..ops.ssim_cuda import MAX_FUSED_RADIUS, _pad_cols, ssim_rows_cuda
 from ..ops.ssim_grad import grad_cuda_supported, ssim_grad_cuda
 from ..ops.ssim_torch import ssim_from_padded
 from ..windows import RADIUS
-
-
-class _Axis:
-    """One mesh axis as this rank sees it: its process group, size and
-    this rank's index along it."""
-
-    def __init__(self, mesh, axis: str):
-        names = tuple(mesh.mesh_dim_names or ())
-        if axis not in names:
-            raise ValueError(f"the mesh has no axis {axis!r} (its axes: {names})")
-        self.group = mesh.get_group(axis)
-        self.n = dist.get_world_size(self.group)
-        self.k = mesh.get_local_rank(axis)
-
-
-def _mesh_device(mesh) -> torch.device:
-    if mesh.device_type == "cuda":
-        return torch.device("cuda", torch.cuda.current_device())
-    return torch.device(mesh.device_type)
+from .mesh import MeshAxis, dtensor_layout, gather, mesh_device
 
 
 def _as_tensor(x, device) -> torch.Tensor:
+    """x as a tensor on the mesh's device; a DTensor stays as it is."""
+    if isinstance(x, DTensor):
+        return x
     if not isinstance(x, torch.Tensor):
         x = torch.as_tensor(np.asarray(x))
     return x.to(device)
@@ -117,23 +113,14 @@ class _RingShift(torch.autograd.Function):
         return back_next, back_prev, None
 
 
-def _gather(x: torch.Tensor, group, dim: int) -> torch.Tensor:
-    """Every rank's x, concatenated along dim in the group's order."""
-    if dist.get_world_size(group) == 1:
-        return x
-    parts = [torch.empty_like(x) for _ in range(dist.get_world_size(group))]
-    dist.all_gather(parts, x.contiguous(), group=group)
-    return torch.cat(parts, dim=dim)
-
-
 class _Gather(torch.autograd.Function):
-    """_gather whose backward keeps this rank's block of the (replicated)
+    """gather whose backward keeps this rank's block of the (replicated)
     cotangent."""
 
     @staticmethod
     def forward(ctx, x, group, dim):
         ctx.k, ctx.size, ctx.dim = _group_rank(group), x.shape[dim], dim
-        return _gather(x, group, dim)
+        return gather(x, group, dim)
 
     @staticmethod
     def backward(ctx, g):
@@ -157,7 +144,7 @@ class _AllReduceSum(torch.autograd.Function):
         return g, None
 
 
-def _block(x: torch.Tensor, space: _Axis, batch: Optional[_Axis]) -> torch.Tensor:
+def _block(x: torch.Tensor, space: MeshAxis, batch: Optional[MeshAxis]) -> torch.Tensor:
     """This rank's rows of x along `space` (and images along `batch`)."""
     hs = x.shape[-2] // space.n
     x = x.narrow(-2, space.k * hs, hs)
@@ -178,10 +165,31 @@ class _Band(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, g):
-        g = _gather(g, ctx.space.group, -2)
+        g = gather(g, ctx.space.group, -2)
         if ctx.batch is not None:
-            g = _gather(g, ctx.batch.group, 0)
+            g = gather(g, ctx.batch.group, 0)
         return g, None, None
+
+
+def _band(x, mesh, space: MeshAxis, data: Optional[MeshAxis], band_h: int) -> torch.Tensor:
+    """This rank's band of x: band_h rows of x padded with edge rows to
+    band_h * space.n (and its block of images along `data`). A DTensor
+    whose rows `space` splits into bands of exactly band_h rows (and its
+    images `data` splits, or nothing else splits it) gives its local block
+    with no gather; any other DTensor is gathered first. A whole tensor is
+    cut by _Band (whose backward gathers every rank's band gradient)."""
+    if isinstance(x, DTensor):
+        layout = dtensor_layout(x, mesh)
+        want = {space.name: x.dim() - 2}
+        if data is not None:
+            want[data.name] = 0
+        if layout == want and x.shape[-2] == band_h * space.n:
+            return x.to_local().contiguous()
+        x = x.to_local()
+        for axis, dim in layout.items():
+            x = _Gather.apply(x, mesh.get_group(axis), dim)
+    x = _pad_rows_to(x, band_h * space.n)
+    return _Band.apply(x, space, data)
 
 
 def _edge_replica(x: torch.Tensor, row: int, radius: int) -> torch.Tensor:
@@ -278,14 +286,14 @@ def ssim_spatial_sharded(
     """
     validate_window(radius, sigma, k1, k2, data_range)
     radius = int(radius)
-    device = _mesh_device(mesh)
+    device = mesh_device(mesh)
     a, b = _as_tensor(a, device), _as_tensor(b, device)
     if a.dim() != 2 or a.shape != b.shape:
         raise ValueError(
             f"ssim_spatial_sharded takes one (H, W) pair, got "
             f"{tuple(a.shape)} vs {tuple(b.shape)}"
         )
-    space = _Axis(mesh, axis)
+    space = MeshAxis(mesh, axis)
     h = a.shape[-2]
     impl = select_impl("auto" if impl is None else impl)
     float_pair = a.dtype == torch.float32 and b.dtype == torch.float32
@@ -299,10 +307,8 @@ def ssim_spatial_sharded(
     # Every band at least `radius` rows tall, so one neighbour's rows
     # make the whole halo.
     shard_h = max(-(-h // space.n), radius)
-    a = _pad_rows_to(a, shard_h * space.n)
-    b = _pad_rows_to(b, shard_h * space.n)
-    a_s = _Band.apply(a, space, None)
-    b_s = _Band.apply(b, space, None)
+    a_s = _band(a, mesh, space, None, shard_h)
+    b_s = _band(b, mesh, space, None, shard_h)
     if use_kernel:
         vh = _exchange_halo_rows_pair(a_s, b_s, space.group, radius,
                                       edge_replicas=False)
@@ -365,7 +371,7 @@ def mean_ssim_spatial(
     """
     validate_window(radius, sigma, k1, k2, data_range)
     radius = int(radius)
-    device = _mesh_device(mesh)
+    device = mesh_device(mesh)
     a, b = _as_tensor(a, device), _as_tensor(b, device)
     if a.dim() not in (2, 3) or a.shape != b.shape:
         raise ValueError(
@@ -377,7 +383,7 @@ def mean_ssim_spatial(
     h, w = a.shape[-2], a.shape[-1]
     batch = 1 if a.dim() == 2 else a.shape[0]
     n = batch * h * w
-    space = _Axis(mesh, axis)
+    space = MeshAxis(mesh, axis)
     float_pair = a.dtype == torch.float32 and b.dtype == torch.float32
     grad_ok = (
         float_pair
@@ -387,17 +393,21 @@ def mean_ssim_spatial(
     )
     win = dict(data_range=data_range, sigma=sigma, k1=k1, k2=k2)
 
+    use_kernel = (
+        select_impl("auto" if impl is None else impl) == Implementation.CUDA
+        and radius <= MAX_FUSED_RADIUS
+    )
+    data = None
     if a.dim() == 2:
-        def fwd_mean(xa, xb, use_impl=impl):
-            rows, _ = ssim_spatial_sharded(xa, xb, mesh, axis=axis, impl=use_impl,
-                                           radius=radius, **win)
-            return (rows.to(torch.float64).sum() / n).to(torch.float32)
-
         if not grad_ok:
             # The kernels have no autograd of their own: float pairs the
             # sharded backward cannot take ride the plain route, which
             # autograd differentiates; u8 pairs (no gradient) keep impl.
-            return fwd_mean(a, b, "torch" if float_pair else impl)
+            rows, _ = ssim_spatial_sharded(
+                a, b, mesh, axis=axis, impl="torch" if float_pair else impl,
+                radius=radius, **win)
+            return (rows.to(torch.float64).sum() / n).to(torch.float32)
+        fp = True
     else:
         if h % space.n != 0 or h // space.n < radius:
             raise ValueError(
@@ -413,49 +423,44 @@ def mean_ssim_spatial(
                 f"batched mean_ssim_spatial takes uint8 or float32 pairs, "
                 f"got {a.dtype}/{b.dtype}"
             )
-        data = None if batch_axis is None else _Axis(mesh, batch_axis)
+        data = None if batch_axis is None else MeshAxis(mesh, batch_axis)
         if data is not None and batch % data.n:
             raise ValueError(
                 f"B={batch} must divide the {batch_axis!r} axis ({data.n})"
             )
-        groups = [space.group] + ([] if data is None else [data.group])
-        use_kernel = (
-            select_impl("auto" if impl is None else impl) == Implementation.CUDA
-            and radius <= MAX_FUSED_RADIUS
-        )
-
-        def fwd_mean(xa, xb):
-            xa_s = _Band.apply(xa, space, data)
-            xb_s = _Band.apply(xb, space, data)
-            if use_kernel:
-                vh = _exchange_halo_rows_pair(xa_s, xb_s, space.group, radius,
-                                              edge_replicas=False)
-                rows, _ = ssim_rows_cuda(
-                    xa_s, xb_s, allow_float=fp, radius=radius,
-                    vhalo=vh, vmask=_vmask_flags(space.group), **win,
-                )
-            else:
-                rows, _ = _plain_band(xa_s, xb_s, space.group, radius, False, win)
-            total = _AllReduceSum.apply(rows.to(torch.float64).sum(), groups)
-            return (total / n).to(torch.float32)
-
-        if not fp or not use_kernel:
-            # u8 has no gradient; the plain route is differentiable as it is.
-            return fwd_mean(a, b)
-        if not grad_ok:
+        if fp and use_kernel and not grad_ok:
             raise ValueError(
                 f"batched differentiable mean_ssim_spatial needs shards "
                 f">= {2 * radius} rows and w > {radius} (got {h}x{w} over "
                 f"{space.n} shards); use fewer shards"
             )
+    groups = [space.group] + ([] if data is None else [data.group])
+    a_s = _band(a, mesh, space, data, h // space.n)
+    b_s = _band(b, mesh, space, data, h // space.n)
 
-    def bwd(xa, xb, g):
-        return ssim_grad_spatial_sharded(
-            xa, xb, mesh, axis=axis, batch_axis=batch_axis,
-            w_s=g.to(torch.float32) / n, radius=radius, **win,
-        )
+    def fwd_mean(xa_s, xb_s):
+        if use_kernel:
+            vh = _exchange_halo_rows_pair(xa_s, xb_s, space.group, radius,
+                                          edge_replicas=False)
+            rows, _ = ssim_rows_cuda(
+                xa_s, xb_s, allow_float=fp, radius=radius,
+                vhalo=vh, vmask=_vmask_flags(space.group), **win,
+            )
+        else:
+            rows, _ = _plain_band(xa_s, xb_s, space.group, radius, False, win)
+        total = _AllReduceSum.apply(rows.to(torch.float64).sum(), groups)
+        return (total / n).to(torch.float32)
 
-    return _SpatialMean.apply(a, b, fwd_mean, bwd)
+    if a.dim() == 3 and not (fp and use_kernel):
+        # u8 has no gradient; the plain route is differentiable as it is.
+        return fwd_mean(a_s, b_s)
+
+    def bwd(xa_s, xb_s, g):
+        return _grad_bands(xa_s, xb_s, space, g.to(torch.float32) / n, radius, win)
+
+    # On the bands: each band's gradient goes back through _band (gathered
+    # for a whole tensor, as the DTensor's local block for a DTensor).
+    return _SpatialMean.apply(a_s, b_s, fwd_mean, bwd)
 
 
 def ssim_grad_spatial_sharded(
@@ -490,7 +495,7 @@ def ssim_grad_spatial_sharded(
     """
     validate_window(radius, sigma, k1, k2, data_range)
     radius = int(radius)
-    device = _mesh_device(mesh)
+    device = mesh_device(mesh)
     a, b = _as_tensor(a, device), _as_tensor(b, device)
     if a.dim() not in (2, 3) or a.shape != b.shape:
         raise ValueError(
@@ -504,7 +509,7 @@ def ssim_grad_spatial_sharded(
             f"float32 pairs required (u8 has no gradient), got "
             f"{a.dtype}/{b.dtype}"
         )
-    space = _Axis(mesh, axis)
+    space = MeshAxis(mesh, axis)
     h, w = a.shape[-2], a.shape[-1]
     if not grad_cuda_supported(h, w, radius):
         raise ValueError(
@@ -523,19 +528,26 @@ def ssim_grad_spatial_sharded(
             "w_s must be a scalar (per-image weights would need their own "
             f"sharding), got shape {tuple(w_arr.shape)}"
         )
-    data = None if batch_axis is None else _Axis(mesh, batch_axis)
+    data = None if batch_axis is None else MeshAxis(mesh, batch_axis)
     if data is not None and a.shape[0] % data.n:
         raise ValueError(f"B={a.shape[0]} must divide the {batch_axis!r} axis ({data.n})")
     with torch.no_grad():
-        a_s, b_s = _block(a, space, data), _block(b, space, data)
-        vh = _exchange_halo_rows_pair(a_s, b_s, space.group, m, edge_replicas=False)
-        da, db = ssim_grad_cuda(
-            a_s, b_s, w_arr, 0.0, radius=radius, vhalo=vh,
-            vmask=_vmask_flags(space.group), data_range=data_range,
-            sigma=sigma, k1=k1, k2=k2,
-        )
+        a_s = _band(a, mesh, space, data, h // space.n)
+        b_s = _band(b, mesh, space, data, h // space.n)
+        da, db = _grad_bands(a_s, b_s, space, w_arr, radius,
+                             dict(data_range=data_range, sigma=sigma, k1=k1, k2=k2))
         out = []
         for g in (da, db):
-            g = _gather(g, space.group, -2)
-            out.append(g if data is None else _gather(g, data.group, 0))
+            g = gather(g, space.group, -2)
+            out.append(g if data is None else gather(g, data.group, 0))
     return out[0], out[1]
+
+
+def _grad_bands(a_s, b_s, space: MeshAxis, w_arr, radius: int, win):
+    """The backward kernel's halo mode on this rank's bands, with the
+    2*radius neighbour rows each side exchanged over the ring: the bands'
+    gradients (see ssim_grad_spatial_sharded)."""
+    m = 2 * radius
+    vh = _exchange_halo_rows_pair(a_s, b_s, space.group, m, edge_replicas=False)
+    return ssim_grad_cuda(a_s, b_s, w_arr, 0.0, radius=radius, vhalo=vh,
+                          vmask=_vmask_flags(space.group), **win)

@@ -641,12 +641,17 @@ def test_make_mesh_needs_a_process_group():
 
 
 def test_parallel_imports_without_jax():
-    """ssim_tpu_torch.parallel imports with JAX blocked and pulls in no
+    """ssim_tpu_torch.parallel (batch.py and multihost.py with it), the
+    entry points and the examples import with JAX blocked and pull in no
     module of ssim_tpu."""
     repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
     code = (
         "import sys; sys.modules['jax'] = None\n"
         "import ssim_tpu_torch.parallel\n"
+        "import ssim_tpu_torch.parallel.batch, ssim_tpu_torch.parallel.multihost\n"
+        "import ssim_tpu_torch.entry\n"
+        "import ssim_tpu_torch.examples.sample, ssim_tpu_torch.examples.training\n"
+        "import ssim_tpu_torch.examples.distributed\n"
         "assert not any(m == 'ssim_tpu' or m.startswith('ssim_tpu.') "
         "for m in sys.modules), 'ssim_tpu was imported'\n"
         "print('ok')\n"
