@@ -200,13 +200,35 @@ Phases, each of which raises on failure (the script then exits non-zero):
    plain path), then `dryrun_multichip(1)` on this group; (e) by host
    clock, median of 10 in turns, each sharded call beside
    `engine.compute` on the same batch, and the full-width step, also in
-   one torch.profiler trace (device busy ms, K3's share).
+   one torch.profiler trace (device busy ms, K3's share);
+14. the testing layer (`ssim_tpu_torch.testing`) on a one-rank nccl group
+   made as in phase 13, every plain twin made to raise on the card: (a)
+   each devicebench runner (cuda ± map, precise, relaxed; auto on the
+   batch route; grad; msssim; spatial; torch) on a small input: the
+   launches read around its CUDA-graph capture (each wrapper called once
+   by the eager warm-up and once by the capture, none by the replays),
+   five replays equal to the same five iterations run eagerly on the
+   card, bit for bit, and within the f32 tier (2e-6 per pixel and
+   iteration; relaxed 1e-4; grad 1e-6 x max|g| per element) of the runner
+   on the CPU; (b) `device_throughput` on each of bench.py's 17
+   configurations (pallas -> cuda, xla -> torch; bench.py's shapes and
+   iters), no failure caught, each call's launches counted from 0; (c)
+   each configuration whose shape an earlier phase times with CUDA
+   events: its Mpix/s between 0.5x and 1.05x of the kernel's rate alone
+   (the wrapper's call captured alone in a CUDA graph, CUDA events around
+   20 replays: its device time with no host work);
+   (d) `report.run_report()` on the card over a synthetic suite written
+   with PIL under the suite's file names (the cuda row within 2e-6
+   global and 1e-3 per pixel of the oracle; both device columns finite).
 
 Prints phase 12's launches and times as one JSON line (`{"cli": ...}`),
-phase 13's as one (`{"parallel": ...}`), the kernel records as one JSON
-line (with each kernel's roofline bound; each forward entry names the
-design that ran; `launches_cli`, `launches_parallel`: its launches in
-phases 12 and 13), the card's name and power limit, and last
+phase 13's as one (`{"parallel": ...}`), phase 14's as one
+(`{"devicebench": ...}`: Mpix/s by configuration, whether each runner
+ran as a graph, the ratios to the kernels alone, the card), the kernel
+records as one JSON line (with each kernel's roofline bound; each
+forward entry names the design that ran; `launches_cli`,
+`launches_parallel`, `launches_devicebench`: its launches in phases 12,
+13 and 14's captures), the card's name and power limit, and last
 `{"ok": true, "device": {...}}`. Inputs are random, made on the device
 from a fixed seed. Imports no JAX. Where it cannot start (no CUDA, or no
 `ssim_tpu_torch` package beside it) it prints one line
@@ -3952,6 +3974,316 @@ def parallel_times(mesh, frames, small, step_inputs, label):
     return times
 
 
+# Phase 14: the testing layer (ssim_tpu_torch.testing) on the card.
+#: bench.py's configurations (bench.py:26-61), with bench.py's shapes and
+#: iters, the JAX names pallas -> cuda and xla -> torch. The data a
+#: `benchmark` PR takes as its cells; not cells yet.
+DEVICEBENCH_CONFIGS = [
+    ("cuda_4k_nomap", dict(impl="cuda", with_map=False, batch=4, h=2160, w=3840, iters=128)),
+    ("cuda_4k_map", dict(impl="cuda", with_map=True, batch=4, h=2160, w=3840, iters=128)),
+    ("cuda_1080_nomap", dict(impl="cuda", with_map=False)),
+    ("cuda_1080_map", dict(impl="cuda", with_map=True)),
+    ("cuda_8k_nomap", dict(impl="cuda", with_map=False, batch=1, h=4320, w=7680, iters=64)),
+    ("cuda_16k_nomap", dict(impl="cuda", with_map=False, batch=1, h=8640, w=15360,
+                            iters=16)),
+    ("cuda_4k_f64mode", dict(impl="cuda", with_map=False, batch=4, h=2160, w=3840, iters=64,
+                             precise=True)),
+    ("cuda_4k_f64_float", dict(impl="cuda", with_map=False, batch=4, h=2160, w=3840,
+                               iters=64, precise=True, float_input=True,
+                               call_kwargs={"allow_float": True})),
+    ("cuda_4k_relaxed", dict(impl="cuda", with_map=False, batch=4, h=2160, w=3840,
+                             iters=128, relaxed=True)),
+    ("auto_64sq_b4096", dict(impl="auto", with_map=False, batch=4096, h=64, w=64, iters=32)),
+    ("auto_128sq_b1024", dict(impl="auto", with_map=False, batch=1024, h=128, w=128,
+                              iters=64)),
+    ("auto_128sq_b1024_map", dict(impl="auto", with_map=True, batch=1024, h=128, w=128,
+                                  iters=48)),
+    ("auto_64sq_b4096_f64", dict(impl="auto", with_map=False, batch=4096, h=64, w=64,
+                                 iters=16, precise=True)),
+    ("grad_1080_b4", dict(impl="grad", batch=4, h=1080, w=1920, iters=48)),
+    ("grad_1080_b4_relaxed", dict(impl="grad", batch=4, h=1080, w=1920, iters=48,
+                                  relaxed=True)),
+    ("msssim_1080_b4", dict(impl="msssim", batch=4, h=1080, w=1920, iters=48)),
+    ("torch_1080_nomap", dict(impl="torch", with_map=False, iters=24)),
+]
+
+#: The launches of one iteration of each configuration: device_throughput
+#: calls the wrappers twice (the eager warm-up, then the capture); the
+#: replays call none. msssim at 1080p x4: 4 pooled and 1 components launch,
+#: scales 0 and 1 streaming (STREAM_COMP_MIN_PIX).
+DEVICEBENCH_LAUNCHES = {
+    "cuda_4k_relaxed": dict(relaxed=1, stream=1),
+    "cuda_4k_f64mode": dict(precise=1, stream=1),
+    "cuda_4k_f64_float": dict(precise=1, stream=1),
+    "auto_64sq_b4096": dict(batch=1, stream=1),
+    "auto_128sq_b1024": dict(batch=1, stream=1),
+    "auto_64sq_b4096_f64": dict(batch_precise=1, stream=1),
+    "grad_1080_b4": dict(backward=1),
+    "grad_1080_b4_relaxed": dict(backward_relaxed=1, backward_relaxed_stream=1),
+    "msssim_1080_b4": dict(pooled=4, components=1, stream=2),
+    "torch_1080_nomap": {},
+}
+
+#: 14(a): each runner on a small input, from the graph, eagerly on the
+#: card and on the CPU; (name, impl, with_map, options, shape, f32, the
+#: launches one iteration makes).
+RUNNER_CASES = [
+    ("cuda", "cuda", False, {}, (2, 270, 480), False, dict(standard=1, stream=1)),
+    ("cuda_map", "cuda", True, {}, (2, 270, 480), False, dict(standard=1, stream=1)),
+    ("cuda_precise", "cuda", False, dict(precise=True), (2, 270, 480), False,
+     dict(precise=1, stream=1)),
+    ("cuda_relaxed", "cuda", False, dict(relaxed=True), (1, 270, 640), False,
+     dict(relaxed=1, stream=1)),
+    ("auto", "auto", False, {}, (256, 64, 64), False, dict(batch=1, stream=1)),
+    ("grad", "grad", False, {}, (2, 270, 480), True, dict(backward=1)),
+    ("msssim", "msssim", False, {}, (2, 270, 480), False, dict(pooled=4, components=1)),
+    ("spatial", "spatial", False, {}, (2, 270, 480), False, dict(rowsum=1, stream=1)),
+    ("torch", "torch", False, {}, (2, 270, 480), False, {}),
+]
+RUNNER_ITERS = 5
+#: 14(c): a configuration's Mpix/s over pixels / (its kernel's ms alone).
+VS_KERNEL_MIN, VS_KERNEL_MAX = 0.5, 1.05
+
+
+def graph_ms(fn, reps=20):
+    """Device ms of one fn() call with no host work in it: fn captured
+    once in a CUDA graph (after one eager call), then cuda_ms of the
+    graph's replays. Events around back-to-back eager calls read the
+    host's work where it is as long as the kernel (the batch wrappers',
+    ~0.2 ms)."""
+    fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        fn()
+    return cuda_ms(graph.replay, reps)
+
+
+def kernel_alone_calls():
+    """14(c): the configurations whose shape an earlier phase times with
+    CUDA events, each with the wrapper call that is its kernel alone."""
+    from ssim_tpu_torch.ops import ssim_cuda, ssim_grad
+
+    fwd, batch = ssim_cuda.ssim_parts_cuda, ssim_cuda.ssim_parts_batch_cuda
+    return {
+        "cuda_4k_nomap": lambda a, b: fwd(a, b),
+        "cuda_4k_map": lambda a, b: fwd(a, b, with_map=True),
+        "cuda_16k_nomap": lambda a, b: fwd(a, b),
+        "cuda_4k_f64mode": lambda a, b: fwd(a, b, precise=True),
+        "cuda_4k_relaxed": lambda a, b: fwd(a, b, relaxed=True),
+        "auto_64sq_b4096": lambda a, b: batch(a, b),
+        "auto_128sq_b1024": lambda a, b: batch(a, b),
+        "auto_64sq_b4096_f64": lambda a, b: batch(a, b, precise=True),
+        "grad_1080_b4": lambda a, b: ssim_grad.ssim_grad_cuda(a, b, 1.0, 0.0),
+        "grad_1080_b4_relaxed": lambda a, b: ssim_grad.ssim_grad_cuda(a, b, 1.0, 0.0,
+                                                                      relaxed=True),
+    }
+
+
+def phase_testing(gen, label):
+    """Phase 14 on a one-rank nccl group made by `multihost.initialize`,
+    destroyed at the end."""
+    import torch.distributed as dist
+
+    from ssim_tpu_torch.parallel import multihost
+
+    print("phase 14: the testing layer (ssim_tpu_torch.testing: devicebench's CUDA-graph "
+          "loop, the report) on a one-rank nccl group", flush=True)
+    t0 = time.perf_counter()
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    multihost.initialize(f"127.0.0.1:{port}", 1, 0)
+    try:
+        runners, launches = testing_runners(gen, label)
+        bench, counts, vs_kernel = testing_bench(gen, label)
+    finally:
+        dist.destroy_process_group()
+    rep = testing_report(label)
+    return dict(runners=runners, launches=launches, bench=bench, counts=counts,
+                vs_kernel=vs_kernel, report=rep, seconds=time.perf_counter() - t0)
+
+
+def testing_runners(gen, label):
+    """14(a): each runner's graph (its launches read around the capture:
+    each wrapper called twice, by the eager warm-up and by the capture;
+    none by the replays) against the same iterations run eagerly on the
+    card (bit for bit) and on the CPU (RUNNER_TOL). Returns the results
+    and the launches of every capture, counted from 0."""
+    from ssim_tpu_torch.testing import devicebench
+
+    res, total = {}, dict.fromkeys(launch_counts(), 0)
+    for name, impl, with_map, opts, shape, f32, one in RUNNER_CASES:
+        a, b = pair(gen, shape, torch.float32 if f32 else torch.uint8,
+                    1.0 if f32 else 255.0)
+        if f32:  # grad's inputs are pixel values, as device_throughput makes them
+            a, b = (a * 255.0).round_(), (b * 255.0).round_()
+        with no_plain_twins():
+            run = devicebench.make_runner(impl, with_map, device="cuda", **opts)
+            check(run.graph, f"{name}: the runner on the card has no graph")
+            captured, _ = counted(lambda: run.capture(a, b))
+            replayed, g = counted(lambda: run(a, b, RUNNER_ITERS))
+            e = run.eager(a, b, RUNNER_ITERS)
+        want = counts_of(**{k: 2 * v for k, v in one.items()})
+        check(captured == want, f"{name}: launches around the capture {captured}, "
+                                f"expected {want}")
+        check(not any(replayed.values()), f"{name}: the replays called a wrapper: "
+                                          f"{replayed}")
+        check(np.isfinite(g) and g == e, f"{name}: graph {g!r} vs eager {e!r} on the card")
+        cpu = devicebench.make_runner(impl, with_map, device="cpu", **opts)(
+            a.cpu(), b.cpu(), RUNNER_ITERS)
+        # The card against the CPU: per iteration and summed value, the
+        # f32 tier's global bound (relaxed: its tier's) for each pixel's
+        # SSIM, and for each MS-SSIM or mean; the backward twin's bound for
+        # each of grad's da + db at one pixel of an image.
+        if impl == "grad":
+            from ssim_tpu_torch.ops import ssim_grad
+
+            da, db = ssim_grad.ssim_grad_cuda(a, b, 1.0, 0.0, data_range=255.0)
+            scale = max(1.0, float(da.abs().max()), float(db.abs().max()))
+            tol = GRAD_TWIN * scale * 2 * shape[0]
+        elif impl in ("msssim", "spatial"):
+            tol = ORACLE_GLOBAL * shape[0]
+        else:
+            tol = (RELAXED_ORACLE_GLOBAL if opts.get("relaxed") else ORACLE_GLOBAL) * a.numel()
+        tol *= RUNNER_ITERS
+        check(abs(g - cpu) <= tol, f"{name}: card {g!r} vs CPU {cpu!r} (tolerance {tol:.3g})")
+        for k, v in captured.items():
+            total[k] += v
+        res[name] = dict(shape=list(shape), graph_loop=run.graph, graph=g, cpu=cpu,
+                         err_cpu=abs(g - cpu), tol=tol,
+                         launches_per_iteration={k: v for k, v in one.items()})
+        print(f"  {name} {shape}: graph {g!r} == eager on the card; CPU {cpu!r} "
+              f"(|diff| {abs(g - cpu):.3g} <= {tol:.3g}); capture launches "
+              f"{ {k: v for k, v in captured.items() if v} } | {label}", flush=True)
+    return res, total
+
+
+def testing_bench(gen, label):
+    """14(b): device_throughput on every configuration of bench.py, no
+    failure caught; each call's launches counted from 0 (warm-up and
+    capture: twice one iteration's). 14(c): where an earlier phase times
+    the configuration's kernel, the kernel alone timed right after it on a
+    pair of its shape (graph_ms: the wrapper's call with no host work, as
+    the loop replays it); the configuration's Mpix/s over that rate held
+    to [VS_KERNEL_MIN, VS_KERNEL_MAX]."""
+    from ssim_tpu_torch.testing import devicebench
+
+    alone_calls = kernel_alone_calls()
+    bench, counts, ratios = {}, {}, {}
+    for name, kw in DEVICEBENCH_CONFIGS:
+        t0 = time.perf_counter()
+        one = DEVICEBENCH_LAUNCHES.get(name, dict(standard=1, stream=1))
+        with contextlib.ExitStack() as stack:
+            if kw["impl"] != "torch":  # the torch configuration is the plain path
+                stack.enter_context(no_plain_twins())
+            counts[name], mpix = counted(lambda: devicebench.device_throughput(**kw))
+            if name in alone_calls:
+                shape = (kw.get("batch", 8), kw.get("h", 1080), kw.get("w", 1920))
+                a, b = pair(gen, shape)
+                if kw["impl"] == "grad":  # f32 pixel values, as device_throughput's
+                    a, b = a.float(), b.float()
+                ms = graph_ms(lambda: alone_calls[name](a, b))
+                del a, b
+        want = counts_of(**{k: 2 * v for k, v in one.items()})
+        check(counts[name] == want, f"{name}: launches {counts[name]}, expected {want}")
+        check(np.isfinite(mpix) and mpix > 0, f"{name}: {mpix} Mpix/s")
+        bench[name] = mpix
+        alone = ""
+        if name in alone_calls:
+            rate = shape[0] * shape[1] * shape[2] / ms / 1e3
+            ratios[name] = mpix / rate
+            alone = (f"; the kernel alone {rate:.1f} Mpix/s ({ms:.4f} ms): "
+                     f"{ratios[name]:.3f}")
+        print(f"  {name}: {mpix:.1f} Mpix/s{alone} ({time.perf_counter() - t0:.1f} s) | "
+              f"{label}", flush=True)
+        if name in ratios:
+            check(VS_KERNEL_MIN <= ratios[name] <= VS_KERNEL_MAX,
+                  f"{name}: {ratios[name]:.3f} of the kernel alone, outside "
+                  f"[{VS_KERNEL_MIN}, {VS_KERNEL_MAX}]")
+        torch.cuda.empty_cache()
+    return bench, counts, ratios
+
+
+def write_suite(root, seed=SEED):
+    """A synthetic suite under the reference suite's file names: six gray
+    256 x 256 Einstein PNGs (a smooth image and five distortions), the RGB
+    640 x 360 big_buck_bunny PNG and its JPEGs at quality 0 (1), 50 and
+    100, from a seed."""
+    from PIL import Image
+
+    rng = np.random.default_rng(seed)
+    y, x = np.mgrid[0:256, 0:256]
+    ref = 128 + 60 * np.sin(x / 9.0) * np.cos(y / 13.0) + rng.normal(0, 10, (256, 256))
+    ref = np.clip(ref, 0, 255).astype(np.uint8)
+    Image.fromarray(ref).save(os.path.join(root, "einstein.png"))
+    distort = {
+        "meanshift.png": ref.astype(np.int32) + 12,
+        "contrast.png": (ref.astype(np.float64) - 128) * 0.6 + 128,
+        "impulse.png": np.where(rng.random(ref.shape) < 0.03, 255, ref),
+        "blur.png": (ref.astype(np.float64) + np.roll(ref, 1, 0) + np.roll(ref, 1, 1)
+                     + np.roll(ref, -1, 0) + np.roll(ref, -1, 1)) / 5,
+        "jpg.png": ref.astype(np.float64) + rng.normal(0, 9, ref.shape),
+    }
+    for name, img in distort.items():
+        Image.fromarray(np.clip(img, 0, 255).astype(np.uint8)).save(os.path.join(root, name))
+    y, x = np.mgrid[0:360, 0:640]
+    png = np.stack([128 + 80 * np.sin(x / (7.0 + 3 * c)) * np.cos(y / 11.0)
+                    for c in range(3)], axis=-1) + rng.normal(0, 6, (360, 640, 3))
+    png = Image.fromarray(np.clip(png, 0, 255).astype(np.uint8))
+    png.save(os.path.join(root, "big_buck_bunny_360_07806.png"))
+    for q in (0, 50, 100):
+        png.save(os.path.join(root, f"big_buck_bunny_360_07806_{q:02d}.jpg"),
+                 quality=max(q, 1))
+
+
+def testing_report(label):
+    """14(d): run_report(quick=False) on the card over a synthetic suite
+    (SSIM_TPU_IMAGES_DIR pointed at it): the cuda row within 2e-6 global
+    and 1e-3 per pixel of the oracle, both cuda device columns finite."""
+    import io
+    import shutil
+    import tempfile
+
+    from ssim_tpu_torch.testing import report
+
+    work = tempfile.mkdtemp(prefix="ssim_report_")
+    saved = os.environ.get("SSIM_TPU_IMAGES_DIR")
+    try:
+        write_suite(work)
+        os.environ["SSIM_TPU_IMAGES_DIR"] = work
+        out = io.StringIO()
+        t0 = time.perf_counter()
+        with no_plain_twins():
+            rc = report.run_report(quick=False, out=out, device="cuda")
+        seconds = time.perf_counter() - t0
+    finally:
+        if saved is None:
+            os.environ.pop("SSIM_TPU_IMAGES_DIR", None)
+        else:
+            os.environ["SSIM_TPU_IMAGES_DIR"] = saved
+        shutil.rmtree(work)
+    text = out.getvalue()
+    print("\n".join("  | " + line for line in text.splitlines()), flush=True)
+    check(rc == 0, f"run_report returned {rc}")
+    lines = text.splitlines()
+    check(lines[0].startswith("backend: cuda ("), f"report backend line {lines[0]!r}")
+    rows = {}
+    for title in ("Accuracy vs float64 oracle", "Throughput (Mpix/s)"):
+        for line in lines[lines.index(title) + 2:]:
+            cells = [c.strip() for c in line.split("|")]
+            if len(cells) != 5:
+                break
+            rows[(title[:3], cells[0])] = [float(c) for c in cells[1:]]
+    acc, thr = rows[("Acc", "cuda")], rows[("Thr", "cuda")]
+    check(acc[1] <= ORACLE_GLOBAL and acc[3] <= ORACLE_PIXEL,
+          f"report: cuda max global {acc[1]}, max pixel {acc[3]}")
+    check(all(np.isfinite(v) and v > 0 for v in thr), f"report: cuda throughput {thr}")
+    return dict(seconds=seconds, backend=lines[0], accuracy={k[1]: v for k, v in rows.items()
+                                                             if k[0] == "Acc"},
+                throughput={k[1]: v for k, v in rows.items() if k[0] == "Thr"})
+
+
 def fail_line(error):
     """The one line printed when the script cannot start, before its
     nonzero exit."""
@@ -4000,6 +4332,7 @@ def main():
     pad = phase_pad(gen, label)
     cli = phase_cli(gen, label)
     par = phase_parallel(gen, label)
+    testing = phase_testing(gen, label)
     check("jax" not in sys.modules, "JAX was imported")
 
     ref = records["4k_b4"]
@@ -4024,6 +4357,18 @@ def main():
         "times": par["times"],
         "device": label,
     }}))
+    print(json.dumps({"devicebench": {
+        **testing["bench"],
+        "graph": {c[1]: testing["runners"][c[0]]["graph_loop"] for c in RUNNER_CASES},
+        "vs_kernel": testing["vs_kernel"],
+        "launches_by_config": {k: {m: n for m, n in v.items() if n}
+                               for k, v in testing["counts"].items()},
+        "runners": testing["runners"],
+        "report": testing["report"],
+        "phase_s": testing["seconds"],
+        "device": label,
+    }}))
+    tl = testing["launches"]
     print(json.dumps({"kernels": [{
         "name": "ssim_fwd",
         "route": "cuda",
@@ -4036,6 +4381,7 @@ def main():
         "launches_cli": cli_launches.get("standard", 0),
         "launches_parallel": {k: par["launches"][k]
                               for k in ("standard", "batch", "rowsum", "stream")},
+        "launches_devicebench": tl["standard"],
         "max_abs_err": max_err,
         "ms": ref["kernel_ms"],
         "plain_ms": ref["plain_ms"],
@@ -4050,6 +4396,7 @@ def main():
         "replaces": "ssim_tpu/ops/ssim_grad.py:278",
         "launches": train_bwd,
         "launches_parallel": par["launches"]["backward_vhalo"],
+        "launches_devicebench": tl["backward"],
         "max_abs_err": grad_err,
         "ms": bwd["kernel_ms"],
         "plain_ms": bwd["plain_ms"],
@@ -4081,6 +4428,7 @@ def main():
         "launches_training": ms["train"]["components"],
         "launches_stream_training": ms["train_stream"]["components"],
         "launches_cli": cli_launches.get("components", 0),
+        "launches_devicebench": tl["components"],
         "max_abs_err": comp_err,
         **{k: ms["times"]["components_f32_train_scale0"][k]
            for k in ("ms", "turns_ms", "device_ms", "tile_body_ms", "tile_body_device_ms",
@@ -4101,6 +4449,7 @@ def main():
         "launches": ms["infer"]["pooled"],
         "launches_stream": ms["infer_stream"]["pooled"],
         "launches_cli": cli_launches.get("pooled", 0),
+        "launches_devicebench": tl["pooled"],
         "max_abs_err": comp_err,
         **{k: ms["times"]["pooled_u8_scale0"][k]
            for k in ("ms", "turns_ms", "device_ms", "tile_body_ms", "tile_body_device_ms",
@@ -4122,6 +4471,7 @@ def main():
                     "ssim_tpu/ops/ssim_pallas.py:1364 (K2 precise)",
         "launches": prec_launches,
         "launches_stream": prec["launches_stream"],
+        "launches_devicebench": tl["precise"],
         "max_abs_err": prec_err,
         **{k: prec["4k_b4"][k]
            for k in ("ms", "plain_ms", "bound_ms", "bound_by", "shape")},
@@ -4156,6 +4506,7 @@ def main():
         "launches_stream": batch["launches_stream"],
         "launches_by_call": batch["route"],
         "launches_parallel": par["launches"]["batch"],
+        "launches_devicebench": tl["batch"],
         "max_abs_err": batch["err"],
         **{k: batch["times"]["64x64_b4096"][k]
            for k in ("ms", "plain_ms", "bound_ms", "bound_by", "bound_share", "shape")},
@@ -4179,6 +4530,7 @@ def main():
         "launches": spatial["launches"]["rowsum"],
         "launches_stream": spatial["launches"]["stream"],
         "launches_parallel": par["launches"]["rowsum"],
+        "launches_devicebench": tl["rowsum"],
         "max_abs_err": halo_fwd_err,
         "ms": spatial["times"]["16k_b1"]["rowsum_ms"],
         "plain_ms": spatial["times"]["16k_b1"]["plain_ms"],
@@ -4205,6 +4557,7 @@ def main():
         "launches": spatial["launches"]["rowsum"] + spatial["launches"]["rowsum_map"],
         "launches_stream": spatial["launches"]["stream"],
         "launches_map": spatial["launches"]["rowsum_map"],
+        "launches_devicebench": tl["rowsum"],
         "max_abs_err": halo_fwd_err,
         "ms": spatial["times"]["16k_b1"]["rowsum_map_ms"],
         "plain_ms": spatial["times"]["16k_b1"]["plain_ms"],
@@ -4251,6 +4604,7 @@ def main():
         "launches_stream": relaxed["launches_stream"],
         "launches_by_call": relaxed["by_call"],
         "launches_cli": cli_launches.get("relaxed", 0),
+        "launches_devicebench": tl["relaxed"],
         "max_abs_err": relaxed["err_fwd"],
         **{k: relaxed["times"]["kScore 4k_b4"][k]
            for k in ("ms", "plain_ms", "bound_ms", "bound_by", "shape", "standard_ms")},
@@ -4268,6 +4622,7 @@ def main():
         "design": RELAXED_BWD_STREAM_DESIGN,
         "launches": relaxed["launches_bwd"],
         "launches_stream": relaxed["launches_bwd_stream"],
+        "launches_devicebench": tl["backward_relaxed"],
         "max_abs_err": relaxed["err_bwd"],
         **{k: relaxed["times"]["K3 grad_1080_b4"][k]
            for k in ("ms", "plain_ms", "bound_ms", "bound_by", "shape", "standard_ms")},
@@ -4282,6 +4637,7 @@ def main():
         "source": "ssim_tpu_torch/csrc/pad.cu",
         "replaces": "ssim_tpu/ops/pad.py:55",
         "launches": pad["launches"],
+        "launches_devicebench": tl["pad"],
         "max_abs_err": pad["err"],
         **{k: pad["times"]["float32"][k]
            for k in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "shape",

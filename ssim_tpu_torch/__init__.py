@@ -1,6 +1,6 @@
 """ssim_tpu_torch — the PyTorch and CUDA port of ssim_tpu.
 
-Counterpart of `ssim_tpu/__init__.py` for the slices ported so far:
+Counterpart of `ssim_tpu/__init__.py`:
 
 - the eager API (`compute_ssim`, `compute_ssim_map`, `compute_ssim_legacy`)
   on uint8 and float images, single or batched, at the standard f32 tier
@@ -28,7 +28,11 @@ Counterpart of `ssim_tpu/__init__.py` for the slices ported so far:
   channel policies (`multichannel`), image I/O and the directory loader
   (`utils.imageio`, `utils.dataset`), profiling hooks (`utils.profiling`)
   and the native C++ host backend (`impl="host"`, `ops/host.py`, built
-  with g++ at first use; no GPU).
+  with g++ at first use; no GPU);
+- the testing layer (`testing/`): the frozen ground-truth scalars, the
+  steady-state throughput harness (`testing.devicebench`, a CUDA-graph
+  loop on the card) and the accuracy and throughput report
+  (`python -m ssim_tpu_torch.testing.report`).
 
 They run through three hand-written CUDA kernels for Hopper, built with
 nvcc at first use: the fused forward (`csrc/ssim_fwd.cu`; standard, map,
