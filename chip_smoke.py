@@ -709,7 +709,21 @@ RELAXED_STREAM_DESIGN = (
     "products over the strip's 8 tiles, one plane of one row per warp, every other step "
     "two rows by the block's 4 warps; mu_a, mu_b in a register window, (a+b)^2 and "
     "(a-b)^2 blurs in a shared-memory ring of 2 (2r + 1) rows; 7 blocks/SM); the "
-    "components, pooled and batch modes: the tile body")
+    "components and pooled modes: RELAXED_COMP_STREAM_DESIGN; kBatch: "
+    "RELAXED_BATCH_STREAM_DESIGN")
+RELAXED_COMP_STREAM_DESIGN = (
+    "the relaxed row stream with the components epilogue (ssim_fwd_stream_kernel<T, "
+    "kComponents|kPooled, 2>: the relaxed kScore body, two warp sums per tile; kPooled "
+    "keeps the strip's raw rows in a shared-memory ring of 4 and pools the last two "
+    "rows staged at each odd output row; 6 blocks/SM); launches under "
+    "STREAM_RELAXED_COMP_MIN_PIX pixels (MS-SSIM scale 1): the tile body")
+RELAXED_BATCH_STREAM_DESIGN = (
+    "the packed row stream, relaxed (ssim_fwd_batch_stream_kernel<T, kBatch, 2>: the "
+    "relaxed stream's steps over packed rows; the heavy blurs as bf16x3 band products "
+    "whose 8 lines are the strip's tiles where each lies in one image (W a multiple of "
+    "16, or one image a strip), else the staged row's own tiles (two sweeps), each "
+    "output read at its staged centre; an image's clamped rows copy the row before; one "
+    "barrier a push; 6 blocks/SM)")
 
 BATCH_STREAM_DESIGN = (
     "packed row-streaming strips (ssim_fwd_batch_stream_kernel: images k to a packed "
@@ -719,8 +733,8 @@ BATCH_STREAM_DESIGN = (
     "stream's fp64 thread pairs, 4 blocks/SM); an image's clamped rows pushed again, not "
     "blurred; a block a strip of a packed row, down all its rows or a segment of them "
     "(ssim_cuda.batch_stream_plan); per-column sums, a segmented warp reduction per "
-    "image, batch_pieces_reduce_kernel where an image spans blocks); relaxed kBatch and "
-    "other radii: the tile body")
+    "image, batch_pieces_reduce_kernel where an image spans blocks); relaxed kBatch: "
+    "RELAXED_BATCH_STREAM_DESIGN; other radii: the tile body")
 
 RELAXED_BWD_STREAM_DESIGN = (
     "row-streaming column strips, relaxed, at radius 5 (ssim_bwd_relaxed_stream_kernel: "
@@ -2668,6 +2682,199 @@ def compare_relaxed_grad(name, a, b, w_s, w_cs, g_map, label):
                         bound_by=by)
 
 
+# The relaxed components, pooled and batch streams' comparisons repeated on
+# fresh pairs, at the picker's segment (pack) and pinned ones in turn: a
+# race in a stream shows as one that fails.
+RELAXED_REPEATS = 100
+
+
+def relaxed_mismatch(got, want, tol, rerun):
+    """What a failed relaxed comparison shows, for its message: the entries
+    of got that differ from want by more than tol or in NaN (their count,
+    the first indices with kernel and twin there), and the kernel run again
+    on the same inputs (rerun() returns what got holds): whether it
+    repeats."""
+    bad = ((got - want).abs() > tol) | (got.isnan() != want.isnan())
+    idx = bad.nonzero().cpu()
+    again = rerun()
+    torch.cuda.synchronize()
+    first = [(tuple(int(v) for v in i), float(got[tuple(i)]), float(want[tuple(i)]))
+             for i in idx[:4]]
+    return (f"{idx.shape[0]} of {got.numel()} entries differ by more than {tol:.3g}, first "
+            f"(index, kernel, twin): {first}; the kernel again on the same inputs "
+            f"{float((again - want).abs().nan_to_num(0.0).max()):.3g} from the twin, "
+            f"{float((again - got).abs().nan_to_num(0.0).max()):.3g} from its first run")
+
+
+def relaxed_comp_errors(name, a, b, pooled, run):
+    """run(): a relaxed components launch on a, b (pooled: (parts, pooled_a,
+    pooled_b)), held against the relaxed twin: per-image [mean cs, mean
+    ssim] within the tier's global bound, NaN in the twin's tiles, pooled
+    images bit for bit. On a mismatch it raises with relaxed_mismatch's
+    account of the tiles (or pooled pixels); returns the global error."""
+    dr = 1.0 if a.dtype == torch.float32 else 255.0
+    out = run()
+    torch.cuda.synchronize()
+    tw = comp_twin(a, b, pooled, data_range=dr, relaxed=True)
+    parts, want = (out[0], tw[0]) if pooled else (out, tw)
+    npix = a.shape[-1] * a.shape[-2]
+    tol = max(RELAXED_TWIN_GLOBAL, 2 * RELAXED_TWIN_PIXEL / npix**0.5)
+    gk, gp = parts.double().sum(-2) / npix, want.double().sum(-2) / npix
+    err = float((gk - gp).abs().nan_to_num(0.0).max())
+    if not (torch.equal(parts.isnan(), want.isnan()) and err <= tol):
+        # A tile's sums: TILE_H x TILE_W pixels, each within the pixel bound.
+        raise RuntimeError(
+            f"{name}: relaxed kernel vs twin global {err:.3g} (tol {tol:.3g}); tiles: "
+            + relaxed_mismatch(parts, want, RELAXED_TWIN_PIXEL * 32 * 64,
+                               lambda: run()[0] if pooled else run()))
+    if pooled:
+        for i in (1, 2):
+            if not same(out[i], tw[i]):
+                raise RuntimeError(f"{name}: pooled image {'ab'[i - 1]} differs from the "
+                                   f"twin's: " + relaxed_mismatch(out[i], tw[i], 0.0,
+                                                                  lambda: run()[i]))
+    return err
+
+
+def relaxed_batch_errors(name, a, b, run):
+    """run(): a relaxed kBatch launch on a, b, held against the relaxed
+    twin: per-image scores within the tier's global bound, NaN in the same
+    images, counts exact. On a mismatch it raises with relaxed_mismatch's
+    account of the images; returns the global error."""
+    dr = 1.0 if a.dtype == torch.float32 else 255.0
+    out = run()
+    torch.cuda.synchronize()
+    want = batch_twin(a, b, False, data_range=dr, relaxed=True)
+    npix = a.shape[-1] * a.shape[-2]
+    tol = max(RELAXED_TWIN_GLOBAL, 2 * RELAXED_TWIN_PIXEL / npix**0.5)
+    gk, gp = out[:, 0].double() / npix, want[:, 0].double() / npix
+    err = float((gk - gp).abs().nan_to_num(0.0).max())
+    if not (torch.equal(out[:, 1], want[:, 1]) and torch.equal(gk.isnan(), gp.isnan())
+            and err <= tol):
+        raise RuntimeError(
+            f"{name}: relaxed kBatch vs twin global {err:.3g} (tol {tol:.3g}); images: "
+            + relaxed_mismatch(gk, gp, tol, lambda: run()[:, 0].double() / npix))
+    return err
+
+
+def relaxed_comp_pinned(gen):
+    """The relaxed components and pooled streams at pinned segments
+    (ssim_cuda._launch(segment=...)), one streaming launch each: odd H and
+    W with H one past a segment (u8), and f32 with NaN pixels in image 1 of
+    2 and a value past the clip bound in image 0 (its pooled pixel raw).
+    Returns the worst global error."""
+    from ssim_tpu_torch.ops import ssim_cuda
+
+    worst = 0.0
+    a, b = pair(gen, (2, 65, 601))
+    fa, fb = pair(gen, (2, 69, 777), torch.float32, 1.0)
+    fa[1, 40, 300] = fa[1, 31, 127] = float("nan")
+    fa[0, 21, 129] = 3e5
+    for name, (x, y) in (("u8 (2, 65, 601)", (a, b)), ("f32 NaN, clipped (2, 69, 777)",
+                                                         (fa, fb))):
+        dr = 1.0 if x.dtype == torch.float32 else 255.0
+        kw = ssim_cuda._components_args(x, y, dr, 5, 1.5, 0.01, 0.03)
+        for seg in (32, 64, 96):
+            for mode in ("components", "pooled"):
+                zero_counts()
+                e = relaxed_comp_errors(
+                    f"{name} relaxed {mode}, segment {seg}", x, y, mode == "pooled",
+                    lambda: ssim_cuda._launch(x, y, mode=mode, relaxed=True, segment=seg,
+                                              **kw))
+                counts = launch_counts()
+                check(counts == counts_of(relaxed=1, stream=1),
+                      f"{name} relaxed {mode}, segment {seg}: launched {counts}")
+                worst = max(worst, e)
+    print(f"  relaxed kComponents / kPooled (streaming) at pinned segments 32, 64, 96: u8 "
+          f"(2, 65, 601), f32 (2, 69, 777) with NaN in image 1 and a clipped value in image "
+          f"0: worst global {worst:.3g} from the twin, pooled images bit for bit", flush=True)
+    return worst
+
+
+def relaxed_batch_pinned(gen):
+    """The relaxed kBatch stream at pinned packs (ssim_cuda._launch(pack=
+    ...)), one streaming launch each: widths whose 16-column tiles straddle
+    two images (24, 40, 100, 1: the staged row's tiles) and aligned ones
+    (32, 192: the strip's tiles), images straddling strips, segments; u8,
+    and f32 with a NaN in image 1. Returns the worst global error."""
+    from ssim_tpu_torch.ops import ssim_cuda
+
+    worst = 0.0
+    for shape, pack in (((40, 20, 24), (5, 20)), ((30, 33, 40), (3, 16)),
+                        ((9, 21, 100), (3, 21)), ((64, 32, 32), (4, 32)),
+                        ((16, 192, 192), (2, 96)), ((7, 50, 1), (7, 50))):
+        for dtype in (torch.uint8, torch.float32):
+            a, b = pair(gen, shape, dtype, 1.0 if dtype == torch.float32 else 255.0)
+            if dtype == torch.float32:
+                a[1, shape[1] // 2, shape[2] - 1] = float("nan")
+            dr = 1.0 if dtype == torch.float32 else 255.0
+            kw = ssim_cuda._prepare(a, b, data_range=dr, radius=5, sigma=1.5, k1=0.01,
+                                    k2=0.03)
+            th, tw, ipb, groups = ssim_cuda.batch_geometry(*shape)
+            name = f"{'f32 NaN in image 1' if dtype == torch.float32 else 'u8'} {shape}"
+            zero_counts()
+            e = relaxed_batch_errors(
+                f"{name} pack {pack}", a, b,
+                lambda: ssim_cuda._launch(a, b, mode="batch", relaxed=True, pack=pack,
+                                          tile_h=th, tile_w=tw, ipb=ipb, groups=groups, **kw))
+            counts = launch_counts()
+            check(counts == counts_of(relaxed=1, stream=1),
+                  f"{name} relaxed kBatch, pack {pack}: launched {counts}")
+            worst = max(worst, e)
+    print(f"  relaxed kBatch (packed stream) at pinned packs, W = 24, 40, 100, 1 (straddling "
+          f"tiles) and 32, 192 (aligned), u8 and f32 with a NaN: worst global {worst:.3g} "
+          f"from the twin, NaN in exactly the planted images", flush=True)
+    return worst
+
+
+def relaxed_repeats(gen):
+    """The new relaxed streams' comparisons on RELAXED_REPEATS fresh pairs
+    each: kComponents (f32) and kPooled (u8, then f32) at (2, 256, 1024),
+    at the picker's segment and pinned 32, 64 and 128 in turn; kBatch on
+    (300, 40, 40) (tiles straddle images) and (128, 64, 64), at the plan's
+    pack and segments of 16 and 32 in turn. Returns the worst error."""
+    from ssim_tpu_torch.ops import ssim_cuda
+
+    t0 = time.perf_counter()
+    worst, n = 0.0, 0
+    shape = (2, 256, 1024)
+    for mode, dtype, reps in (("components", torch.float32, RELAXED_REPEATS),
+                              ("pooled", torch.uint8, RELAXED_REPEATS // 2),
+                              ("pooled", torch.float32, RELAXED_REPEATS // 2)):
+        f32 = dtype == torch.float32
+        res = ssim_cuda._stream_resident(torch.cuda.current_device(), mode, f32, True)
+        segs = [ssim_cuda.stream_segment(*shape, ssim_cuda.TILE_H, 10, res), 32, 64, 128]
+        for i in range(reps):
+            a, b = pair(gen, shape, dtype, 1.0 if f32 else 255.0)
+            kw = ssim_cuda._components_args(a, b, 1.0 if f32 else 255.0, 5, 1.5, 0.01, 0.03)
+            seg = segs[i % len(segs)]
+            e = relaxed_comp_errors(
+                f"{'f32' if f32 else 'u8'} {shape} relaxed {mode}, segment {seg}, repeat {i}",
+                a, b, mode == "pooled",
+                lambda: ssim_cuda._launch(a, b, mode=mode, relaxed=True, segment=seg, **kw))
+            worst, n = max(worst, e), n + 1
+    for shape in ((300, 40, 40), (128, 64, 64)):
+        res = ssim_cuda._stream_resident(torch.cuda.current_device(), "batch", False, True)
+        k, _ = ssim_cuda.batch_stream_plan(*shape, res)
+        packs = [None, (k, 16), (k, 32)]
+        th, tw, ipb, groups = ssim_cuda.batch_geometry(*shape)
+        for i in range(RELAXED_REPEATS // 2):
+            a, b = pair(gen, shape)
+            kw = ssim_cuda._prepare(a, b, data_range=255.0, radius=5, sigma=1.5, k1=0.01,
+                                    k2=0.03)
+            pk = packs[i % len(packs)]
+            e = relaxed_batch_errors(
+                f"u8 {shape} relaxed kBatch, pack {pk or 'planned'}, repeat {i}", a, b,
+                lambda: ssim_cuda._launch(a, b, mode="batch", relaxed=True, pack=pk,
+                                          tile_h=th, tile_w=tw, ipb=ipb, groups=groups, **kw))
+            worst, n = max(worst, e), n + 1
+    print(f"  relaxed kComponents / kPooled / kBatch streams repeated: {n} fresh pairs "
+          f"({RELAXED_REPEATS} a stream), the picker's segment (pack) and pinned ones in "
+          f"turn: worst global {worst:.3g} from the twin ({time.perf_counter() - t0:.1f} s)",
+          flush=True)
+    return worst
+
+
 def phase_relaxed_kernels(gen, label):
     """10a: every relaxed mode against its twin on the card; the forward
     against the f64 oracle on independent random pairs; the standard mode
@@ -2706,67 +2913,92 @@ def phase_relaxed_kernels(gen, label):
         e, d = compare_relaxed(f"{name} {shape}", *inputs[name], **win)
         err, d_std = max(err, e), max(d_std, d)
 
-    # Components (f32) and pooled components (u8) at (4, 1080, 1920).
-    shape = (4, 1080, 1920)
-    npix = shape[1] * shape[2]
-    for pooled, dtype in ((False, torch.float32), (True, torch.uint8)):
-        a, b = pair(gen, shape, dtype, 1.0 if dtype == torch.float32 else 255.0)
-        dr = 1.0 if dtype == torch.float32 else 255.0
+    # The relaxed components (f32) and pooled (u8) modes at (4, 1080, 1920)
+    # through the wrappers: one streaming launch each (from
+    # STREAM_RELAXED_COMP_MIN_PIX pixels); components and pooled f32 at
+    # MS-SSIM scale 1 (4, 540, 960), under it: the tile body. Against the
+    # relaxed twin and the standard mode (pooled images equal to both bit for
+    # bit).
+    for pooled, dtype, shape, streams in ((False, torch.float32, (4, 1080, 1920), 1),
+                                          (True, torch.uint8, (4, 1080, 1920), 1),
+                                          (False, torch.float32, (4, 540, 960), 0),
+                                          (True, torch.float32, (4, 540, 960), 0)):
+        f32 = dtype == torch.float32
+        dr = 1.0 if f32 else 255.0
+        a, b = pair(gen, shape, dtype, dr)
         fn = (ssim_cuda.ssim_components_pooled_cuda if pooled
               else ssim_cuda.ssim_components_cuda)
+        mode = "kPooled" if pooled else "kComponents"
+        name = f"{mode} {'f32' if f32 else 'u8'} {shape}"
         torch.cuda.synchronize()
         zero_counts()
-        rk = fn(a, b, data_range=dr, relaxed=True)
+        e = relaxed_comp_errors(f"{name} relaxed", a, b, pooled,
+                                lambda: fn(a, b, data_range=dr, relaxed=True))
+        counts = launch_counts()
+        check(counts == counts_of(relaxed=1, stream=streams),
+              f"{name} relaxed launched {counts}, expected "
+              f"{'the streaming kernel' if streams else 'the tile body'} once")
+        rk, sk = fn(a, b, data_range=dr, relaxed=True), fn(a, b, data_range=dr)
         torch.cuda.synchronize()
-        check(launch_counts() == counts_of(relaxed=1),
-              f"{'kPooled' if pooled else 'kComponents'} relaxed launched {launch_counts()}, "
-              f"expected the tile body")
-        sk = fn(a, b, data_range=dr)
-        torch.cuda.synchronize()
-        rp = comp_twin(a, b, pooled, data_range=dr, relaxed=True)
         parts = (lambda x: x[0] if pooled else x)
-        means = [parts(x).double().sum(-2) / npix for x in (rk, sk, rp)]
-        e = float((means[0] - means[2]).abs().max())
-        d = float((means[0] - means[1]).abs().max())
-        check(e <= RELAXED_TWIN_GLOBAL and d > 0,
-              f"{'kPooled' if pooled else 'kComponents'} relaxed: vs twin {e:.3g}, "
-              f"vs standard {d:.3g}")
+        npix = shape[1] * shape[2]
+        d = float((parts(rk).double().sum(-2) / npix
+                   - parts(sk).double().sum(-2) / npix).abs().max())
+        check(d > 0, f"{name} relaxed equals the standard mode")
         if pooled:
-            check(same(rk[1], sk[1]) and same(rk[2], sk[2]) and same(rk[1], rp[1]),
-                  "kPooled relaxed: pooled images differ from the standard mode's")
-        print(f"  {'kPooled u8' if pooled else 'kComponents f32'} {shape}: per-image "
-              f"[mean cs, mean ssim] relaxed vs twin {e:.3g}, vs the standard mode "
-              f"{d:.3g}" + ("; pooled images equal the standard mode's bit for bit"
-                            if pooled else ""), flush=True)
+            check(same(rk[1], sk[1]) and same(rk[2], sk[2]),
+                  f"{name} relaxed: pooled images differ from the standard mode's")
+        print(f"  {name} ({'streaming' if streams else 'tile body'}): per-image [mean cs, "
+              f"mean ssim] relaxed vs twin {e:.3g}, vs the standard mode {d:.3g}"
+              + ("; pooled images equal the twin's and the standard mode's bit for bit"
+                 if pooled else ""), flush=True)
         err = max(err, e)
-        inputs["pooled" if pooled else "components"] = (a, b)
+        if shape == (4, 1080, 1920):
+            inputs["pooled" if pooled else "components"] = (a, b)
+        elif pooled:
+            inputs["pooled_f32_scale1"] = (a, b)
+    err = max(err, relaxed_comp_pinned(gen))
 
-    # kBatch at 64^2 x4096 (independent images), against its twin, the
-    # standard kBatch and, for 32 of the images, the f64 oracle.
+    # kBatch at 64^2 x4096 (independent images) through the wrapper: one
+    # packed-stream launch; against its twin, the standard kBatch and, for 32
+    # of the images, the f64 oracle; the relaxed tile body (which radii other
+    # than 5 launch) on the same images against the twin; then at pinned
+    # packs.
     from ssim_tpu_torch import reference
 
     a, b = indep_pair(gen, (4096, 64, 64))
     torch.cuda.synchronize()
     zero_counts()
-    rk = ssim_cuda.ssim_parts_batch_cuda(a, b, relaxed=True)
-    torch.cuda.synchronize()
+    e = relaxed_batch_errors("u8 independent (4096, 64, 64)", a, b,
+                             lambda: ssim_cuda.ssim_parts_batch_cuda(a, b, relaxed=True))
+    check(launch_counts() == counts_of(relaxed=1, stream=1),
+          f"kBatch relaxed launched {launch_counts()}, expected the packed stream once")
+    kw = ssim_cuda._prepare(a, b, data_range=255.0, radius=5, sigma=1.5, k1=0.01, k2=0.03)
+    th, tw, ipb, groups = ssim_cuda.batch_geometry(*a.shape)
+    zero_counts()
+    e_body = relaxed_batch_errors(
+        "u8 independent (4096, 64, 64) tile body", a, b,
+        lambda: ssim_cuda._launch(a, b, mode="batch", relaxed=True, tile_body=True, tile_h=th,
+                                  tile_w=tw, ipb=ipb, groups=groups, **kw))
     check(launch_counts() == counts_of(relaxed=1),
-          f"kBatch relaxed launched {launch_counts()}, expected the tile body")
+          f"kBatch relaxed tile body launched {launch_counts()}, expected it once")
+    rk = ssim_cuda.ssim_parts_batch_cuda(a, b, relaxed=True)
     sk = ssim_cuda.ssim_parts_batch_cuda(a, b)
     torch.cuda.synchronize()
-    rp = batch_twin(a, b, False, relaxed=True)
-    gk, gs, gp = (x[:, 0].double() / 4096 for x in (rk, sk, rp))
-    e, d = float((gk - gp).abs().max()), float((gk - gs).abs().max())
+    gk, gs = (x[:, 0].double() / 4096 for x in (rk, sk))
+    d = float((gk - gs).abs().max())
     an, bn = a[:32].cpu().numpy(), b[:32].cpu().numpy()
     o = max(abs(float(gk[i]) + 1.0 - reference.compute_ssim(an[i], bn[i])[0])
             for i in range(32))
-    check(e <= RELAXED_TWIN_GLOBAL and d > 0 and o <= RELAXED_ORACLE_GLOBAL,
-          f"kBatch relaxed: vs twin {e:.3g}, vs standard {d:.3g}, vs oracle {o:.3g}")
-    print(f"  kBatch u8 independent (4096, 64, 64): per-image score relaxed vs twin "
-          f"{e:.3g}, vs standard kBatch {d:.3g}; 32 images vs the f64 oracle {o:.3g}",
-          flush=True)
-    err = max(err, e)
+    check(d > 0 and o <= RELAXED_ORACLE_GLOBAL,
+          f"kBatch relaxed: vs standard {d:.3g}, vs oracle {o:.3g}")
+    print(f"  kBatch u8 independent (4096, 64, 64) (packed stream): per-image score relaxed "
+          f"vs twin {e:.3g}, vs standard kBatch {d:.3g}; 32 images vs the f64 oracle {o:.3g}; "
+          f"the relaxed tile body vs twin {e_body:.3g}", flush=True)
+    err = max(err, e, e_body)
     inputs["batch"] = (a, b)
+    err = max(err, relaxed_batch_pinned(gen))
+    err = max(err, relaxed_repeats(gen))
 
     # Below MXU_MIN_W the relaxed call launches the standard mode and equals it.
     a, b = pair(gen, (1, 256, 448))
@@ -2807,16 +3039,18 @@ def phase_relaxed_path(gen, inputs):
 
     print('phase 10b: the public path with accuracy="relaxed"', flush=True)
     fwd = bwd = streamed = relaxed_streamed = bwd_streamed = 0
-    by_call = {}
+    by_call, streamed_modes = {}, {}
 
     def counted(name, fn):
         # The relaxed launches that streamed are counted launch by launch,
-        # apart from the standard launches beside them.
+        # apart from the standard launches beside them, and by mode.
         nonlocal fwd, bwd, streamed, relaxed_streamed, bwd_streamed
         torch.cuda.synchronize()
         zero_counts()
         out, by_mode = streamed_by_mode(fn)
         relaxed_streamed += sum(v for k, v in by_mode.items() if k.startswith("relaxed"))
+        for k, v in by_mode.items():
+            streamed_modes[k] = streamed_modes.get(k, 0) + v
         torch.cuda.synchronize()
         counts = launch_counts()
         by_call[name] = {k: v for k, v in counts.items() if v}
@@ -2876,12 +3110,13 @@ def phase_relaxed_path(gen, inputs):
     print(f"  2 Adam steps on ssim_loss(accuracy=\"relaxed\") {shape}: 1-SSIM {losses}; "
           f"launches {by_call['ssim_loss step']}", flush=True)
 
-    # MS-SSIM: scales 0 (1920) and 1 (960) are relaxed (the tile body), 2-4
-    # standard (under STREAM_COMP_MIN_PIX: the tile body).
+    # MS-SSIM: scales 0 (1920) and 1 (960) are relaxed, scale 0 streaming
+    # (STREAM_RELAXED_COMP_MIN_PIX), scale 1 (4x540x960) on the tile body;
+    # scales 2-4 standard (under STREAM_COMP_MIN_PIX: the tile body).
     a, b = inputs["pooled"]
     ms, counts = counted("compute_ms_ssim", lambda: ssim_tpu_torch.compute_ms_ssim(
         a, b, accuracy="relaxed"))
-    check(counts == counts_of(relaxed=2, pooled=2, components=1),
+    check(counts == counts_of(relaxed=2, pooled=2, components=1, stream=1),
           f"compute_ms_ssim(accuracy='relaxed') launches {counts}")
     want = ssim_tpu_torch.compute_ms_ssim(a, b, impl="torch")
     d = float(np.abs(np.asarray(ms) - np.asarray(want)).max())
@@ -2892,26 +3127,48 @@ def phase_relaxed_path(gen, inputs):
         lambda x: 1.0 - ssim_tpu_torch.ms_ssim(x, clean, data_range=1.0,
                                                accuracy="relaxed").mean()))
     check(counts == counts_of(relaxed=6, components=9, backward_relaxed=4, backward=6,
-                              backward_relaxed_stream=4),
+                              backward_relaxed_stream=4, stream=3),
           f"2 relaxed MS-SSIM steps (and the final loss) launched {counts}")
     print(f"  2 Adam steps on 1 - ms_ssim(accuracy=\"relaxed\") {shape}: {losses}; "
           f"launches {by_call['ms_ssim step']}", flush=True)
-    check(relaxed_streamed == 6, f"{relaxed_streamed} of the public path's {fwd} relaxed "
-          f"launches streamed, expected the 6 kScore / kMap ones")
-    check(streamed == 6, f"{streamed} of the public path's forward launches streamed, "
-          f"expected the 6 relaxed kScore / kMap ones (MS-SSIM's standard scales 2-4 "
-          f"run the tile body)")
+
+    # The batch route: compute_ssim(accuracy="relaxed") on the routed u8
+    # batch, one relaxed kBatch on the packed stream.
+    a, b = inputs["batch"]
+    s, counts = counted("compute_ssim batch",
+                        lambda: ssim_tpu_torch.compute_ssim(a, b, accuracy="relaxed"))
+    check(counts == counts_of(relaxed=1, stream=1),
+          f"compute_ssim(accuracy='relaxed') on (4096, 64, 64) launched {counts}")
+    want = batch_twin(a, b, False, relaxed=True)[:, 0].double().cpu().numpy() / 4096 + 1.0
+    d = float(np.abs(np.asarray(s, np.float64) - want).max())
+    check(d <= RELAXED_TWIN_GLOBAL, f"compute_ssim relaxed batch vs the twin {d:.3g}")
+    print(f"  compute_ssim(accuracy=\"relaxed\") u8 (4096, 64, 64): launches "
+          f"{by_call['compute_ssim batch']}; {d:.3g} from the twin", flush=True)
+    want_modes = {"relaxed score": 6, "relaxed pooled": 1, "relaxed components": 3,
+                  "relaxed batch": 1}
+    got_modes = {k: v for k, v in streamed_modes.items() if k.startswith("relaxed")}
+    check(got_modes == want_modes, f"the public path's relaxed launches streamed by mode "
+          f"{got_modes}, expected {want_modes}")
+    check(relaxed_streamed == 11, f"{relaxed_streamed} of the public path's {fwd} relaxed "
+          f"launches streamed, expected 11: 6 kScore (3 compute_ssim, 3 ssim_loss), "
+          f"compute_ms_ssim's scale-0 kPooled, the MS-SSIM steps' 3 scale-0 kComponents, "
+          f"the batch route's kBatch")
+    check(streamed == relaxed_streamed, f"{streamed} of the public path's forward launches "
+          f"streamed, expected the {relaxed_streamed} relaxed ones (MS-SSIM's standard "
+          f"scales 2-4 run the tile body)")
     check(bwd == bwd_streamed == 6, f"{bwd_streamed} of the public path's {bwd} relaxed "
           f"K3 launches streamed, expected all 6")
-    print(f"  relaxed launches {fwd}, {relaxed_streamed} of them streaming; all forward "
-          f"launches streaming {streamed}", flush=True)
-    return fwd, bwd, relaxed_streamed, bwd_streamed, by_call
+    print(f"  relaxed launches {fwd}, {relaxed_streamed} of them streaming ({got_modes}); "
+          f"all forward launches streaming {streamed}", flush=True)
+    return fwd, bwd, relaxed_streamed, bwd_streamed, by_call, got_modes
 
 
 def phase_relaxed_times(gen, label, inputs):
-    """10c: each relaxed mode beside the standard mode on the same input,
-    in turns (standard, relaxed, relaxed, standard), the twin and the
-    bound (K3's from 10a); the ssim_loss step, relaxed beside standard."""
+    """10c: relaxed kScore and kMap beside the standard mode on the same
+    input, in turns (standard, relaxed, relaxed, standard), the twin and
+    the bound; the components, pooled and batch streams beside their tile
+    body too (relaxed_stream_times); K3's from 10a; the ssim_loss step,
+    relaxed beside standard."""
     from ssim_tpu_torch.ops import ssim_cuda
 
     print("phase 10c: times, relaxed beside standard", flush=True)
@@ -2936,18 +3193,6 @@ def phase_relaxed_times(gen, label, inputs):
          relaxed_fwd_bound((1, 1024, 20480), 1)),
         ("kMap wide_b1 (K2)", inputs["wide_b1"], fw(with_map=True), True,
          relaxed_fwd_bound((1, 1024, 20480), 1, out_bytes=map_bytes((1, 1024, 20480)))),
-        ("kComponents f32 1080p_b4", inputs["components"],
-         lambda a, b, relaxed: ssim_cuda.ssim_components_cuda(
-             a, b, data_range=1.0, relaxed=relaxed), None,
-         relaxed_fwd_bound((4, 1080, 1920), 4, extra_ops=2,
-                           out_bytes=8 * 4 * 34 * 30)),
-        ("kPooled u8 1080p_b4", inputs["pooled"],
-         lambda a, b, relaxed: ssim_cuda.ssim_components_pooled_cuda(a, b, relaxed=relaxed),
-         None, relaxed_fwd_bound((4, 1080, 1920), 1, extra_ops=4,
-                                 out_bytes=8 * 4 * 34 * 30 + 8 * 4 * 540 * 960)),
-        ("kBatch u8 64x64_b4096", inputs["batch"],
-         lambda a, b, relaxed: ssim_cuda.ssim_parts_batch_cuda(a, b, relaxed=relaxed),
-         None, relaxed_fwd_bound((4096, 64, 64), 1, out_bytes=8 * 4096)),
     ]
     times = {}
     for name, (a, b), fn, with_map, (bnd, by) in cases:
@@ -2955,16 +3200,8 @@ def phase_relaxed_times(gen, label, inputs):
         t_r1 = cuda_ms(lambda: fn(a, b, True), 20)
         t_r2 = cuda_ms(lambda: fn(a, b, True), 20)
         t_s2 = cuda_ms(lambda: fn(a, b, False), 20)
-        if name.startswith("kComponents"):
-            plain = lambda: comp_twin(a, b, False, data_range=1.0, relaxed=True)
-        elif name.startswith("kPooled"):
-            plain = lambda: comp_twin(a, b, True, relaxed=True)
-        elif name.startswith("kBatch"):
-            plain = lambda: batch_twin(a, b, False, relaxed=True)
-        else:
-            dr = 1.0 if a.dtype == torch.float32 else 255.0
-            plain = lambda: twin(a, b, bool(with_map), data_range=dr, relaxed=True)
-        t_plain = cuda_ms(plain, 3)
+        dr = 1.0 if a.dtype == torch.float32 else 255.0
+        t_plain = cuda_ms(lambda: twin(a, b, with_map, data_range=dr, relaxed=True), 3)
         shape = list(a.shape)
         times[name] = dict(shape=shape, ms=min(t_r1, t_r2), relaxed_ms=[t_r1, t_r2],
                            standard_ms=[t_s1, t_s2], plain_ms=t_plain, bound_ms=bnd,
@@ -2973,10 +3210,85 @@ def phase_relaxed_times(gen, label, inputs):
               f"{t_s1:.4f} / {t_s2:.4f} ms (relaxed / standard "
               f"{min(t_r1, t_r2) / min(t_s1, t_s2):.3f}); twin {t_plain:.3f} ms; bound "
               f"{bnd:.4f} ms ({by}) | {label}", flush=True)
+    times.update(relaxed_stream_times(label, inputs))
     # K3's times are 10a's (compare_relaxed_grad).
     times.update(inputs["grad_times"])
     fa, fb = inputs["grad"]
     times["ssim_loss step"] = relaxed_step_times(fa, fb, label)
+    return times
+
+
+def relaxed_stream_times(label, inputs):
+    """10c: the relaxed components, pooled and batch streams, each in turns
+    with its relaxed tile body (_launch(tile_body=True), the design before
+    the streams) and the standard mode's stream on the same input (tile
+    body, relaxed, standard, standard, relaxed, tile body), the twin and
+    the bound; at MS-SSIM scale 1 (pooled f32 4x540x960, under
+    STREAM_RELAXED_COMP_MIN_PIX) the wrapper runs the tile body and the
+    stream is timed pinned at the picker's segment beside it."""
+    from ssim_tpu_torch.ops import ssim_cuda
+
+    def comp(pooled, dr):
+        mode = "pooled" if pooled else "components"
+
+        def launch(a, b, design):
+            kw = ssim_cuda._components_args(a, b, dr, 5, 1.5, 0.01, 0.03)
+            if design == "standard":
+                return ssim_cuda._launch(a, b, mode=mode, **kw)
+            if design == "tile body":
+                return ssim_cuda._launch(a, b, mode=mode, relaxed=True, tile_body=True, **kw)
+            res = ssim_cuda._stream_resident(a.device.index, mode,
+                                             a.dtype == torch.float32, True)
+            seg = ssim_cuda.stream_segment(*a.shape, kw["tile_h"], 10, res)
+            return ssim_cuda._launch(a, b, mode=mode, relaxed=True, segment=seg, **kw)
+        return launch
+
+    def batch(a, b, design):
+        kw = ssim_cuda._prepare(a, b, data_range=255.0, radius=5, sigma=1.5, k1=0.01, k2=0.03)
+        th, tw, ipb, groups = ssim_cuda.batch_geometry(*a.shape)
+        geo = dict(tile_h=th, tile_w=tw, ipb=ipb, groups=groups)
+        if design == "standard":
+            return ssim_cuda._launch(a, b, mode="batch", **geo, **kw)
+        return ssim_cuda._launch(a, b, mode="batch", relaxed=True,
+                                 tile_body=design == "tile body", **geo, **kw)
+
+    comp_parts = lambda shape: 8 * shape[0] * -(-shape[1] // 32) * -(-shape[2] // 64)
+    pooled_out = lambda shape: comp_parts(shape) + 8 * shape[0] * (shape[1] // 2) * (
+        shape[2] // 2)
+    cases = [
+        ("kComponents f32 1080p_b4", inputs["components"], comp(False, 1.0),
+         lambda a, b: comp_twin(a, b, False, data_range=1.0, relaxed=True),
+         relaxed_fwd_bound((4, 1080, 1920), 4, extra_ops=2,
+                           out_bytes=comp_parts((4, 1080, 1920)))),
+        ("kPooled u8 1080p_b4", inputs["pooled"], comp(True, 255.0),
+         lambda a, b: comp_twin(a, b, True, relaxed=True),
+         relaxed_fwd_bound((4, 1080, 1920), 1, extra_ops=4,
+                           out_bytes=pooled_out((4, 1080, 1920)))),
+        ("kPooled f32 4x540x960 (MS-SSIM scale 1)", inputs["pooled_f32_scale1"],
+         comp(True, 1.0), lambda a, b: comp_twin(a, b, True, data_range=1.0, relaxed=True),
+         relaxed_fwd_bound((4, 540, 960), 4, extra_ops=4, out_bytes=pooled_out((4, 540, 960)))),
+        ("kBatch u8 64x64_b4096", inputs["batch"], batch,
+         lambda a, b: batch_twin(a, b, False, relaxed=True),
+         relaxed_fwd_bound((4096, 64, 64), 1, out_bytes=8 * 4096)),
+    ]
+    times = {}
+    for name, (a, b), launch, plain, (bnd, by) in cases:
+        t = {d: [] for d in ("tile body", "stream", "standard")}
+        for d in ("tile body", "stream", "standard", "standard", "stream", "tile body"):
+            t[d].append(cuda_ms(lambda: launch(a, b, d), 20))
+        t_plain = cuda_ms(lambda: plain(a, b), 3)
+        best = min(t["stream"])
+        times[name] = dict(shape=list(a.shape), ms=best, stream_ms=t["stream"],
+                           tile_body_ms=t["tile body"], standard_ms=t["standard"],
+                           plain_ms=t_plain, bound_ms=bnd, bound_by=by,
+                           bound_share=bnd / best)
+        print(f"  {name} {tuple(a.shape)}: relaxed stream {t['stream'][0]:.4f} / "
+              f"{t['stream'][1]:.4f} ms, relaxed tile body {t['tile body'][0]:.4f} / "
+              f"{t['tile body'][1]:.4f} (stream / tile body "
+              f"{best / min(t['tile body']):.3f}), standard stream {t['standard'][0]:.4f} / "
+              f"{t['standard'][1]:.4f} (relaxed / standard {best / min(t['standard']):.3f}); "
+              f"twin {t_plain:.3f} ms; bound {bnd:.4f} ms ({by}, {bnd / best:.1%} reached) | "
+              f"{label}", flush=True)
     return times
 
 
@@ -3023,13 +3335,13 @@ def relaxed_step_times(clean, noisy, label):
 
 def phase_relaxed(gen, label):
     err_fwd, err_bwd, d_std, inputs = phase_relaxed_kernels(gen, label)
-    fwd, bwd, streamed, bwd_streamed, by_call = phase_relaxed_path(gen, inputs)
+    fwd, bwd, streamed, bwd_streamed, by_call, modes = phase_relaxed_path(gen, inputs)
     times = phase_relaxed_times(gen, label, inputs)
     del inputs
     torch.cuda.empty_cache()
     return dict(err_fwd=err_fwd, err_bwd=err_bwd, d_std=d_std, launches_fwd=fwd,
                 launches_bwd=bwd, launches_stream=streamed, launches_bwd_stream=bwd_streamed,
-                by_call=by_call, times=times)
+                launches_stream_by_mode=modes, by_call=by_call, times=times)
 
 
 # Phase 11: the edge-pad-and-align kernel (K4, csrc/pad.cu). It moves
@@ -4612,6 +4924,41 @@ def main():
         "relaxed_vs_standard_pixel": relaxed["d_std"],
         "times": {k: v for k, v in relaxed["times"].items()
                   if not k.startswith(("K3", "ssim_loss"))},
+    }, {
+        "name": "ssim_fwd_relaxed_components",
+        "route": "cuda",
+        "source": "ssim_tpu_torch/csrc/ssim_fwd.cu",
+        "design": RELAXED_COMP_STREAM_DESIGN,
+        "header": "ssim_tpu_torch/csrc/band_mma.cuh",
+        "replaces": "ssim_tpu/ops/ssim_pallas.py:1957 (K1 mode c), "
+                    "ssim_tpu/ops/ssim_pallas.py:2066 (K1 mode d), relaxed (lane_mode "
+                    "mxu3x, ssim_tpu/ops/ssim_pallas.py:118, :168)",
+        "launches": (relaxed["launches_stream_by_mode"]["relaxed components"]
+                     + relaxed["launches_stream_by_mode"]["relaxed pooled"]),
+        "launches_by_mode": {k: v for k, v in relaxed["launches_stream_by_mode"].items()
+                             if k in ("relaxed components", "relaxed pooled")},
+        "max_abs_err": relaxed["err_fwd"],
+        **{k: relaxed["times"]["kComponents f32 1080p_b4"][k]
+           for k in ("ms", "plain_ms", "bound_ms", "bound_by", "shape", "stream_ms",
+                     "tile_body_ms", "standard_ms")},
+        "library_ms": None,
+        "pooled_u8": relaxed["times"]["kPooled u8 1080p_b4"],
+        "pooled_f32_scale1": relaxed["times"]["kPooled f32 4x540x960 (MS-SSIM scale 1)"],
+    }, {
+        "name": "ssim_fwd_relaxed_batch",
+        "route": "cuda",
+        "source": "ssim_tpu_torch/csrc/ssim_fwd_batch.cu",
+        "design": RELAXED_BATCH_STREAM_DESIGN,
+        "header": "ssim_tpu_torch/csrc/band_mma.cuh",
+        "replaces": "ssim_tpu/ops/ssim_pallas.py:710 (K1 mode e, colsum/pchunk, driven by "
+                    "ssim_parts_pallas_bpacked :2334), relaxed (ssim_tpu/ops/ssim_pallas.py:"
+                    "2284-2291, :118, :168)",
+        "launches": relaxed["launches_stream_by_mode"]["relaxed batch"],
+        "max_abs_err": relaxed["err_fwd"],
+        **{k: relaxed["times"]["kBatch u8 64x64_b4096"][k]
+           for k in ("ms", "plain_ms", "bound_ms", "bound_by", "shape", "stream_ms",
+                     "tile_body_ms", "standard_ms")},
+        "library_ms": None,
     }, {
         "name": "ssim_bwd_relaxed",
         "route": "cuda",

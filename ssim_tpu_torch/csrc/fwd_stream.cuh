@@ -46,15 +46,23 @@ constexpr int kStreamPreciseRing = 1;
 // a block: 7 blocks on an SM (1 KB reserved each), 72 registers, no spills.
 constexpr int kStreamSplit = band_mma::ksteps(kStreamR);
 constexpr int kStreamRelaxedBlocks = 7;
+// The relaxed components and pooled modes (the relaxed score and map's
+// body with the components epilogue; kPooled's raw ring adds 4 KB): 6
+// blocks per SM (80 registers, 4 bytes spilled in f32) measured 4-7% faster
+// than 7 (72 registers) for the components mode at 1080p x4 and 3 x 1080p
+// on an H100 (PERF.md).
+constexpr int kStreamRelaxedCompBlocks = 6;
 constexpr int kStreamStaged = 4;
 constexpr int kStreamRing = 2 * (2 * kStreamR + 1);
 static_assert(kStripW == 16 * 8, "the row's band product takes 8 tiles of 16 columns");
 static_assert((kStreamStaged & (kStreamStaged - 1)) == 0, "a power of two");
 
 template <int kMode, int kSplit = 0>
-constexpr int kStreamBlocksOf = kSplit > 0              ? kStreamRelaxedBlocks
-                                : kIsPrecise<kMode> ? kStreamPreciseBlocks
-                                                        : kStreamBlocks;
+constexpr int kStreamBlocksOf =
+    kSplit > 0 ? (kMode == kComponents || kMode == kPooled ? kStreamRelaxedCompBlocks
+                                                           : kStreamRelaxedBlocks)
+    : kIsPrecise<kMode> ? kStreamPreciseBlocks
+                        : kStreamBlocks;
 template <int kMode>
 constexpr int kStreamRingOf = kIsPrecise<kMode> ? kStreamPreciseRing : 0;
 
@@ -192,15 +200,17 @@ __device__ __forceinline__ void sym2(const StreamTaps<float>& tp, const float2* 
 // 32 apart) and a warp's reads of its 32 columns are conflict-free.
 __device__ __forceinline__ int ring_col(int c) { return c ^ (8 * ((c >> 5) & 3)); }
 
-// One of the relaxed modes' heavy horizontal blurs of one staged row
-// (kStreamInW {a, b} columns at row) by one warp: band_mma::sweep over one
-// tile of 16 outputs with its 8 lines the strip's 8 tiles (line g reads
-// staged columns 16 g + i, all inside the row or one past it), of (a+b)^2
-// (plane 0) or (a-b)^2 (plane 1), formed as the columns are loaded; the
-// blur of output column c to out[ring_col(c)].
-template <int kSplit>
+// One of the relaxed modes' heavy horizontal blurs of one staged row ({a, b}
+// columns at row) by one warp: band_mma::sweep over one tile of 16 outputs
+// with 8 lines, line g reading staged columns line_at(g) + i (even: 16-byte
+// loads), of (a+b)^2 (plane 0) or (a-b)^2 (plane 1), formed as the columns
+// are loaded; output m of line n goes to strip column c = col_of(16 n + m)
+// (-1: none), out[ring_col(c)]. The main-path stream's lines are the strip's
+// 8 tiles (line_at(g) = 16 g, col_of(o) = o: every read inside the row or
+// one past it); the batch stream's come from its line tables.
+template <int kSplit, typename LineAt, typename ColOf>
 __device__ __forceinline__ void row_pass(const float2* row, float* out, int plane,
-                                         const uint4* s_band) {
+                                         const uint4* s_band, LineAt line_at, ColOf col_of) {
   const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
   band_mma::Band<kSplit> bd;
 #pragma unroll
@@ -209,7 +219,7 @@ __device__ __forceinline__ void row_pass(const float2* row, float* out, int plan
     bd.hi[ks][0] = h.x, bd.hi[ks][1] = h.y, bd.hi[ks][2] = h.z, bd.hi[ks][3] = h.w;
     bd.lo[ks][0] = l.x, bd.lo[ks][1] = l.y, bd.lo[ks][2] = l.z, bd.lo[ks][3] = l.w;
   }
-  const float2* line = row + 16 * g;
+  const float2* line = row + line_at(g);
   band_mma::sweep<1>(
       bd, 0, 1,
       [&](int i, float(&v)[2][1]) {
@@ -223,9 +233,17 @@ __device__ __forceinline__ void row_pass(const float2* row, float* out, int plan
       [&](int, const float(&acc)[1][4]) {
 #pragma unroll
         for (int e = 0; e < 4; ++e) {
-          out[ring_col(16 * (2 * t + (e & 1)) + g + 8 * (e >> 1))] = acc[0][e];
+          const int c = col_of(16 * (2 * t + (e & 1)) + g + 8 * (e >> 1));
+          if (c >= 0) out[ring_col(c)] = acc[0][e];
         }
       });
+}
+// The main-path stream's lines: the strip's 8 tiles.
+template <int kSplit>
+__device__ __forceinline__ void row_pass(const float2* row, float* out, int plane,
+                                         const uint4* s_band) {
+  row_pass<kSplit>(row, out, plane, s_band, [](int g) { return 16 * g; },
+                   [](int o) { return o; });
 }
 
 // The sum of v over a warp's lanes, in lane 0: shuffles down by 16 .. 1.

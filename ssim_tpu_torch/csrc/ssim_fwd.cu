@@ -56,8 +56,8 @@
 //   last row or column is dropped and no row past the image is read. (The
 //   Pallas f32 pool fed the unmasked rows of a ragged tile into a matrix
 //   product, which made its pooled images NaN; reading only rows inside
-//   the image repairs that.) Both modes stream rows at radius 5 (below);
-//   the relaxed ones and other radii run the tile body.
+//   the image repairs that.) Both modes stream rows at radius 5 (below),
+//   in the relaxed tier too; other radii run the tile body.
 // - kBatch / kBatchPrecise (the small-image batch route): one partial
 //   pair per image, [sum(ssim - 1), n = H*W], f32 in kBatch (the JAX
 //   contract's (B, 2)) and f64 in kBatchPrecise (where the TPU writes
@@ -68,8 +68,9 @@
 //   TPU packs p images along one lane row and folds their borders into
 //   block-diagonal tap matrices; here k images lie side by side in a
 //   packed row cut into 128-column strips, and each image's piece of a
-//   strip is staged with its own clamped columns. The relaxed kBatch and
-//   other radii keep the tile body: it runs over each image's own grid of
+//   strip is staged with its own clamped columns; the relaxed kBatch too
+//   (its heavy blurs as band products, ssim_fwd_batch.cu). Other radii
+//   keep the tile body: it runs over each image's own grid of
 //   tiles, with a tile width the wrapper picks from the image width
 //   (8..64), and a block walks its tiles in series: `ipb` whole images, or
 //   one of `groups` runs of one image's tiles. Each tile's sum is reduced
@@ -102,9 +103,10 @@
 //   the clamped columns are staged, so one band serves every tile. What
 //   bounds it: per pixel the standard modes' f32 work less the heavy
 //   passes' 6r + 4 operations, plus 3 (2r + 1) multiply-adds per split blur
-//   at the bf16 tensor-core rate (counted in chip_smoke.py). kScore and
-//   kMap at radius 5 stream rows (ssim_fwd_stream_kernel, below); the
-//   other relaxed modes, radii and tiles run the tile body, which makes
+//   at the bf16 tensor-core rate (counted in chip_smoke.py). kScore, kMap,
+//   kComponents and kPooled at radius 5 stream rows (ssim_fwd_stream_kernel,
+//   below), and kBatch streams packed rows (ssim_fwd_batch.cu); other
+//   radii and tiles run the tile body, which makes
 //   the split in registers as each k-step of data is loaded, once per
 //   sweep, and so adds no shared memory (three blocks per SM, as the
 //   standard modes), and whose relaxed mu pass loads as many shared-memory
@@ -162,16 +164,17 @@
 // kScore, kMap, kRowsum and kRowsumMap (with or without halo operands) and
 // kComponents and kPooled (the same blurs, step (c)'s epilogue theirs) in
 // f32, kPrecise and kPreciseMap in fp64 (the same body with the blurs'
-// type Blur<kMode>), and relaxed kScore and kMap (kSplit > 0, below), at
-// radius kStreamR = 5 (windows.RADIUS, every main-path shape and MS-SSIM
-// scale) and tiles up to kStripW columns wide; kBatch and kBatchPrecise at
-// radius kStreamR run its steps (b)-(d) over packed rows of images
-// (ssim_fwd_batch_stream_kernel, ssim_fwd_batch.cu); every other mode
-// (relaxed batch, components and pooled), radius and tile keeps the tile body
+// type Blur<kMode>), and relaxed kScore, kMap, kComponents and kPooled
+// (kSplit > 0, below), at radius kStreamR = 5 (windows.RADIUS, every
+// main-path shape and MS-SSIM scale) and tiles up to kStripW columns wide;
+// kBatch (either tier) and kBatchPrecise at radius kStreamR run its steps
+// (b)-(d) over packed rows of images (ssim_fwd_batch_stream_kernel,
+// ssim_fwd_batch.cu); every other radius and tile keeps the tile body
 // (ops/ssim_cuda.py::stream_applies states the rule; the components and
-// pooled modes stream only from 2^20 pixels a launch, STREAM_COMP_MIN_PIX:
-// below it a block's serial chain of at least TH + 2r rows outlasts the
-// tile body's parallel tiles). A block owns a
+// pooled modes stream only from 2^20 pixels a launch, STREAM_COMP_MIN_PIX,
+// relaxed from 2^22, STREAM_RELAXED_COMP_MIN_PIX: below them a block's
+// serial chain of at least TH + 2r rows outlasts the tile body's parallel
+// tiles). A block owns a
 // strip of kStripW output columns and walks down a segment of S output rows
 // (a multiple of TH, at most kMaxSegTiles tiles, chosen by the wrapper to
 // fill the card), one input row per step, one thread per output column.
@@ -194,9 +197,10 @@
 //      the vertical blur down the column, the formula, the map store and
 //      the sums (double in the precise modes; in the components modes
 //      _l_cs_from_blurs and two sums, cs and ssim, per column and tile,
-//      two warp sums per tile and two partials; kPooled then pools rows
-//      s - 1 and s at each odd output row, 64 threads two columns each,
-//      from the raw rows that (d) keeps in a shared-memory ring of 4);
+//      two warp sums per tile and two partials; kPooled then pools the
+//      last two rows staged (s - 1 and s; relaxed, three ahead, s + 1 and
+//      s + 2) at each odd output row, 64 threads two columns each, from
+//      the raw rows that (d) keeps in a shared-memory ring of 4);
 //  (d) the next input row staged from registers loaded one step earlier
 //      (sanitised, its own pixels' finiteness noted in a per-block tile
 //      mask; kPooled also keeps its own columns raw) and the row after it
@@ -221,7 +225,9 @@
 // computed ahead, every other step for the next two rows, each row and
 // plane by one warp as a bf16x3 band product whose 8 lines are the strip's
 // 8 column tiles of 16 (12 mma.sync a row), into a shared-memory ring of
-// 2 (2r + 1) blurred rows that the vertical pass reads at static offsets.
+// 2 (2r + 1) blurred rows that the vertical pass reads at static offsets;
+// the components and pooled modes add their epilogue to the same steps
+// (6 blocks per SM, 80 registers: kStreamRelaxedCompBlocks).
 // What bounds it: the mma. Measured on an H100, the mma a warp issues in a
 // step hold its block at the step's barrier, in proportion to their number
 // rather than to the chains' depth; so the 24 mma of two steps' rows go to
@@ -694,10 +700,10 @@ ssim_fwd_stream_kernel(const T* __restrict__ a, const T* __restrict__ b,
   constexpr int kRegS = kRelaxed ? 2 : 4 - kRing;
   // Rows staged ahead of the step that blurs them.
   constexpr int kLead = kRelaxed ? 3 : 1;
-  static_assert(kMode == kScore || kMode == kMap ||
-                    (!kRelaxed && (kRows || kComp || kMode == kPrecise ||
-                                   kMode == kPreciseMap)),
-                "main-path, components and precise modes only; relaxed: kScore and kMap");
+  static_assert(kMode == kScore || kMode == kMap || kComp ||
+                    (!kRelaxed && (kRows || kMode == kPrecise || kMode == kPreciseMap)),
+                "main-path, components and precise modes only; relaxed: kScore, kMap, "
+                "kComponents and kPooled");
   static_assert(!kRelaxed || kSplit == kStreamSplit, "the band's k-steps at kStreamR");
 
   __shared__ StagedRow<P> s_in[2];          // staged rows, by step parity
@@ -706,8 +712,9 @@ ssim_fwd_stream_kernel(const T* __restrict__ a, const T* __restrict__ b,
   // The components modes: the cs warp sums, by step parity.
   __shared__ P s_red_cs[kComp ? 2 * (kNT / 32) : 1];
   // kPooled: the raw inputs (unsanitised, in f32) of the strip's own
-  // columns, a then b, stream row q in slot q mod 4: step s pools rows s - 1
-  // and s while row s + 1 is staged.
+  // columns, a then b, stream row q in slot q mod 4: step s pools rows
+  // s + kLead - 2 and s + kLead - 1 while row s + kLead is staged (slot
+  // (s + kLead - 4) mod 4, read at step s - 2 or before).
   __shared__ __align__(16) float s_raw[kPool ? 4 * 2 * kStripW : 1];
   // The window's ring: slot k, signal kRegS + p, this thread's column.
   __shared__ P s_ring[kRing > 0 ? kRing * kP * kNT : 1];
@@ -1077,15 +1084,16 @@ ssim_fwd_stream_kernel(const T* __restrict__ a, const T* __restrict__ b,
         }
 
         if constexpr (kPool) {
-          // The 2x2 means of the segment's output rows ly - 1 and ly = s - r
-          // (ly odd; S is even, so pooled row (y0 + ly) / 2 is this block's
-          // alone): thread i the strip's columns 2i and 2i + 1. Vertical
-          // pairs first, then horizontal, then * 0.25 (ops/pool.downsample2).
-          const int ly = s - r;
+          // The 2x2 means of the segment's output rows ly - 1 and ly = s +
+          // kLead - 1 - r, the last two rows staged (ly odd; S is even, so
+          // pooled row (y0 + ly) / 2 is this block's alone): thread i the
+          // strip's columns 2i and 2i + 1. Vertical pairs first, then
+          // horizontal, then * 0.25 (ops/pool.downsample2).
+          const int ly = s + kLead - 1 - r;
           const int px = x0 / 2 + tid;
           if (ly > 0 && (ly & 1) && ly < vh && tid < kStripW / 2 && px < W / 2) {
-            const float* r0 = s_raw + ((s - 1) & 3) * 2 * kStripW + 2 * tid;
-            const float* r1 = s_raw + (s & 3) * 2 * kStripW + 2 * tid;
+            const float* r0 = s_raw + ((s + kLead - 2) & 3) * 2 * kStripW + 2 * tid;
+            const float* r1 = s_raw + ((s + kLead - 1) & 3) * 2 * kStripW + 2 * tid;
             const float2 a0 = *reinterpret_cast<const float2*>(r0);
             const float2 a1 = *reinterpret_cast<const float2*>(r1);
             const float2 b0 = *reinterpret_cast<const float2*>(r0 + kStripW);
@@ -1273,7 +1281,7 @@ cudaError_t launch_typed(int is_float, const void* a, const void* b,
 // the other modes round them to float). c1, c2:
 // the stabilising constants (rounded to float by the f32 modes). seg: 0
 // for the tile body, or the streaming kernel's segment rows (modes 0-5, 8
-// and 9, relaxed only modes 0 and 1, r = 5, TW in [32, 128], seg a
+// and 9, relaxed modes 0-3, r = 5, TW in [32, 128], seg a
 // multiple of TH of at most 16 tiles; anything else is refused). Returns the
 // launch's cudaError_t.
 extern "C" int ssim_fwd_launch(int mode, int relaxed, int is_float,
@@ -1303,7 +1311,9 @@ extern "C" int ssim_fwd_launch(int mode, int relaxed, int is_float,
     return cudaErrorInvalidValue;
   }
   if (seg != 0) {
-    if ((relaxed && mode != kScore && mode != kMap) || r != kStreamR || TW < 32 ||
+    if ((relaxed && mode != kScore && mode != kMap && mode != kComponents &&
+         mode != kPooled) ||
+        r != kStreamR || TW < 32 ||
         TW > kStripW || seg < TH || seg % TH != 0 || seg / TH > kMaxSegTiles ||
         H < 1 || W < 1) {
       return cudaErrorInvalidValue;
@@ -1318,6 +1328,8 @@ extern "C" int ssim_fwd_launch(int mode, int relaxed, int is_float,
       switch (mode) {
         SSIM_FWD_STREAM(kScore, kStreamSplit)
         SSIM_FWD_STREAM(kMap, kStreamSplit)
+        SSIM_FWD_STREAM(kComponents, kStreamSplit)
+        SSIM_FWD_STREAM(kPooled, kStreamSplit)
         default:
           return cudaErrorInvalidValue;
       }
@@ -1374,7 +1386,7 @@ extern "C" int ssim_fwd_launch(int mode, int relaxed, int is_float,
 }
 
 // Blocks of the streaming kernel that one SM of the current device holds at
-// once in `mode` (0-5, 8 or 9; relaxed = 1: 0 or 1) for uint8
+// once in `mode` (0-5, 8 or 9; relaxed = 1: 0-3) for uint8
 // (is_float = 0) or float32 inputs: the CUDA runtime's occupancy for the
 // instantiation that ssim_fwd_launch takes with seg > 0. Returns a
 // cudaError_t.
@@ -1388,6 +1400,8 @@ extern "C" int ssim_fwd_stream_occupancy(int mode, int relaxed, int is_float,
     switch (mode) {
       SSIM_FWD_OCC(kScore, kStreamSplit)
       SSIM_FWD_OCC(kMap, kStreamSplit)
+      SSIM_FWD_OCC(kComponents, kStreamSplit)
+      SSIM_FWD_OCC(kPooled, kStreamSplit)
       default:
         return cudaErrorInvalidValue;
     }

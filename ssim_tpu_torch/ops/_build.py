@@ -151,15 +151,16 @@ def load_library() -> ctypes.CDLL:
                 i, i, i, i, i, p, d, d, f, p,
             ]
             lib.ssim_fwd_launch.restype = i
-            # The batch modes' packed stream: precise, is_float, a, b,
-            # partials, pieces (or NULL), B, H, W, k, segment rows, taps,
+            # The batch modes' packed stream: precise, relaxed, is_float, a,
+            # b, partials, pieces (or NULL), B, H, W, k, segment rows, taps,
             # c1, c2, clip_bound, stream.
             lib.ssim_fwd_batch_launch.argtypes = [
-                i, i, p, p, p, p, i, i, i, i, i, p, d, d, f, p,
+                i, i, i, p, p, p, p, i, i, i, i, i, p, d, d, f, p,
             ]
             lib.ssim_fwd_batch_launch.restype = i
-            # precise, is_float, out: blocks per SM of the batch stream.
-            lib.ssim_fwd_batch_occupancy.argtypes = [i, i, ctypes.POINTER(i)]
+            # precise, relaxed, is_float, out: blocks per SM of the batch
+            # stream.
+            lib.ssim_fwd_batch_occupancy.argtypes = [i, i, i, ctypes.POINTER(i)]
             lib.ssim_fwd_batch_occupancy.restype = i
             # mode, relaxed, is_float, out: blocks per SM of the streaming
             # forward.

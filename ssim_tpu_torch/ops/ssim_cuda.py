@@ -128,15 +128,17 @@ STREAM_LAUNCHES = 0
 #: and pooled modes (the same blurs, another epilogue) in f32, and the
 #: precise tier's two modes in fp64 (the same body with double blurs);
 #: relaxed, the modes STREAM_RELAXED_MODES (the heavy horizontal blurs as
-#: band products, a chunk of stream rows at a time).
+#: band products, two rows every other stream row; the relaxed batch mode
+#: on the packed stream).
 STRIP_W = 128
 MAX_SEG_TILES = 16
 STREAM_RADIUS = 5
 STREAM_MODES = ("score", "map", "rowsum", "rowsum_map", "precise", "precise_map",
                 "components", "pooled")
-STREAM_RELAXED_MODES = ("score", "map")
-#: The batch modes, which stream packed rows at STREAM_RADIUS (not relaxed)
-#: whatever the batch tile (ssim_fwd.cu ssim_fwd_batch_stream_kernel).
+STREAM_RELAXED_MODES = ("score", "map", "components", "pooled", "batch")
+#: The batch modes, which stream packed rows at STREAM_RADIUS (kBatch in
+#: both tiers, kBatchPrecise) whatever the batch tile
+#: (ssim_fwd_batch.cu ssim_fwd_batch_stream_kernel).
 STREAM_BATCH_MODES = ("batch", "batch_precise")
 #: Rows' worth of fixed cost per block in stream_segment's model (launch,
 #: prologue and the NaN check).
@@ -154,6 +156,19 @@ _BLOCK_OVERHEAD_ROWS = 8
 #: floor (~0.040 ms) meets a line through the tile body's times near 1.1
 #: Mpix.
 STREAM_COMP_MIN_PIX = 1 << 20
+#: The same threshold for the relaxed components and pooled modes (their
+#: row stream carries the relaxed tier's mma steps, longer than the
+#: standard ones), one for both dtypes. Measured on an H100 (kernel time
+#: in a profiler trace, `tools/fwd_times.py --relaxed`, two runs; PERF.md),
+#: relaxed stream / relaxed tile body: at 2x1080x1920 (4.15 Mpix)
+#: components f32 0.127 / 0.128 ms, pooled f32 0.169-0.171 / 0.137-0.138,
+#: pooled u8 0.095-0.096 / 0.120; at 3x1080x1920 0.146-0.148 / 0.186-0.188,
+#: 0.174-0.176 / 0.198, 0.142-0.150 / 0.174-0.176; at 2.07 Mpix (4x540x960,
+#: MS-SSIM scale 1) 0.065-0.067 / 0.063, 0.071-0.072 / 0.066-0.067, 0.063 /
+#: 0.063 (1x1080x1920 pooled u8 0.055 / 0.063-0.064). So the rule trades
+#: pooled u8 from 2.07 to 4.19 Mpix, which streams as fast to 20% faster,
+#: for pooled f32 at 4.15 Mpix, which streams 23-24% slower.
+STREAM_RELAXED_COMP_MIN_PIX = 1 << 22
 
 #: The JAX package's width gate of the relaxed tier (ssim_pallas.py:115,
 #: copied): the tile grid runs the relaxed mode at widths >= MXU_MIN_W and
@@ -180,7 +195,7 @@ BATCH_MAX_PIECES = 12
 #: an H100 (PERF.md).
 _BATCH_BLOCK_OVERHEAD_ROWS = 2
 
-#: The tile body's batch tiles (the relaxed batch mode, other radii): the
+#: The tile body's batch tiles (the batch modes at other radii): the
 #: tile grid's area, whose shared memory (68 KB at radius 5) lets three
 #: blocks share an SM.
 _BATCH_TILE_AREA = TILE_H * TILE_W
@@ -244,11 +259,10 @@ def pack_preferred(w: int, batch: int, itemsize: int = 1) -> bool:
 
 
 def batch_geometry(batch: int, h: int, w: int):
-    """The tile body's batch launch for a (batch, h, w) input, which the
-    relaxed batch mode and radii other than STREAM_RADIUS keep (the
-    standard and precise batch modes at STREAM_RADIUS stream packed rows:
-    batch_stream_plan): (tile_h, tile_w, images per block, runs per
-    image). The tile is as wide as the image
+    """The tile body's batch launch for a (batch, h, w) input, which radii
+    other than STREAM_RADIUS keep (the batch modes at STREAM_RADIUS, in
+    every tier, stream packed rows: batch_stream_plan): (tile_h, tile_w,
+    images per block, runs per image). The tile is as wide as the image
     rounded up to a power of two in [8, TILE_W], so a narrow image leaves
     few of a block's threads idle, and holds _BATCH_TILE_AREA pixels (fewer
     for a short image). A block walks about batch * tiles / _BATCH_BLOCKS
@@ -270,19 +284,21 @@ def stream_applies(mode: str, radius: int, tile_w: int, relaxed: bool = False,
     tile body: the standard tier's score, map and row modes (with or
     without halo operands), the precise tier's score and map modes, the
     standard MS-SSIM components and pooled modes (STREAM_MODES) and the
-    relaxed tier's score and map modes (STREAM_RELAXED_MODES) at radius
-    STREAM_RADIUS with a tile 32 to STRIP_W columns wide; the batch modes
-    (STREAM_BATCH_MODES, kBatch and kBatchPrecise) at radius STREAM_RADIUS,
-    not relaxed, whatever tile_w (their packed stream has no tile). The
-    relaxed batch, components and pooled modes, the other radii and a
-    tile_w of 256 run the tile body. npix: the launch's B * H * W; the
-    components and pooled modes stream only from STREAM_COMP_MIN_PIX
-    pixels (at msssim_1080_b4 scales 0 and 1; scales 2-4 run the tile
-    body, measured faster there). None: the rule without the size
-    condition, which a pinned segment asks for."""
+    relaxed tier's score, map, components and pooled modes
+    (STREAM_RELAXED_MODES) at radius STREAM_RADIUS with a tile 32 to
+    STRIP_W columns wide; the batch modes (STREAM_BATCH_MODES, kBatch in
+    both tiers and kBatchPrecise) at radius STREAM_RADIUS whatever tile_w
+    (their packed stream has no tile). The other radii and a tile_w of
+    256 run the tile body. npix: the launch's B * H * W; the components
+    and pooled modes stream only from STREAM_COMP_MIN_PIX pixels (at
+    msssim_1080_b4 scales 0 and 1; scales 2-4 run the tile body, measured
+    faster there), relaxed from STREAM_RELAXED_COMP_MIN_PIX (scale 0).
+    None: the rule without the size condition, which a pinned segment asks
+    for."""
     if mode in STREAM_BATCH_MODES:
-        return not relaxed and radius == STREAM_RADIUS
-    if npix is not None and mode in ("components", "pooled") and npix < STREAM_COMP_MIN_PIX:
+        return radius == STREAM_RADIUS and (not relaxed or mode in STREAM_RELAXED_MODES)
+    least = STREAM_RELAXED_COMP_MIN_PIX if relaxed else STREAM_COMP_MIN_PIX
+    if npix is not None and mode in ("components", "pooled") and npix < least:
         return False
     return (mode in (STREAM_RELAXED_MODES if relaxed else STREAM_MODES)
             and radius == STREAM_RADIUS and 32 <= tile_w <= STRIP_W)
@@ -403,16 +419,16 @@ def batch_stream_blocks(batch: int, h: int, w: int, k: int, seg: int):
 def _stream_resident(index: int, mode: str, is_float: bool, relaxed: bool = False) -> int:
     """Streaming-kernel blocks that card `index` holds at once in `mode`
     (relaxed: its relaxed instantiation; the batch modes: their packed
-    stream): its SMs times the CUDA runtime's occupancy for the
-    instantiation (ssim_fwd_stream_occupancy, ssim_fwd_batch_occupancy)."""
+    stream, relaxed or not): its SMs times the CUDA runtime's occupancy for
+    the instantiation (ssim_fwd_stream_occupancy, ssim_fwd_batch_occupancy)."""
     from . import _build
 
     n = ctypes.c_int(0)
     lib = _build.load_library()
     with torch.cuda.device(index):
         if mode in STREAM_BATCH_MODES:
-            err = lib.ssim_fwd_batch_occupancy(int(mode == "batch_precise"), int(is_float),
-                                               ctypes.byref(n))
+            err = lib.ssim_fwd_batch_occupancy(int(mode == "batch_precise"), int(relaxed),
+                                               int(is_float), ctypes.byref(n))
         else:
             err = lib.ssim_fwd_stream_occupancy(
                 _MODES.index(mode), int(relaxed), int(is_float), ctypes.byref(n))
@@ -844,7 +860,8 @@ def _launch(a, b, *, mode, taps, c1, c2, clip_bound, tile_h, tile_w, ipb=1,
         raise ValueError(f"only the batch modes' packed stream takes a pack ({mode}"
                          f"{', relaxed' if relaxed else ''}, radius {r})")
     if batch and stream:
-        partials = _launch_batch_stream(lib, a, b, precise, taps, c1, c2, clip_bound, pack)
+        partials = _launch_batch_stream(lib, a, b, precise, relaxed, taps, c1, c2,
+                                        clip_bound, pack)
     elif stream:
         seg = segment or stream_segment(
             bsz, h, w, tile_h, 2 * r,
@@ -947,16 +964,17 @@ def _launch_tile_or_stream(lib, a, b, *, mode, taps, c1, c2, clip_bound, tile_h,
     return partials, ssim_map, pooled
 
 
-def _launch_batch_stream(lib, a, b, precise, taps, c1, c2, clip_bound, pack):
+def _launch_batch_stream(lib, a, b, precise, relaxed, taps, c1, c2, clip_bound, pack):
     """_launch's call of ssim_fwd_batch_launch: the batch modes' packed
-    stream with pack = (k, segment rows), batch_stream_plan's choice if
-    None. Returns the (B, 2) partials; raises if the plan is out
-    of range or the C entry refuses the launch."""
+    stream (relaxed: the relaxed kBatch's) with pack = (k, segment rows),
+    batch_stream_plan's choice at the instantiation's occupancy if None.
+    Returns the (B, 2) partials; raises if the plan is out of range or the
+    C entry refuses the launch."""
     bsz, h, w = a.shape
     is_float = a.dtype == torch.float32
     mode = "batch_precise" if precise else "batch"
     k, seg = pack or batch_stream_plan(
-        bsz, h, w, _stream_resident(a.device.index, mode, is_float))
+        bsz, h, w, _stream_resident(a.device.index, mode, is_float, relaxed))
     if not (1 <= k <= bsz and 1 <= seg <= h):
         raise ValueError(f"batch stream plan {(k, seg)} out of range for {(bsz, h, w)}")
     _check_taps(taps, precise)
@@ -967,13 +985,14 @@ def _launch_batch_stream(lib, a, b, precise, taps, c1, c2, clip_bound, pack):
     taps_c = (ctypes.c_double * len(taps))(*[float(v) for v in taps])
     with torch.cuda.device(a.device):
         err = lib.ssim_fwd_batch_launch(
-            int(precise), int(is_float), a.data_ptr(), b.data_ptr(), partials.data_ptr(),
+            int(precise), int(relaxed), int(is_float), a.data_ptr(), b.data_ptr(),
+            partials.data_ptr(),
             None if pieces is None else pieces.data_ptr(), bsz, h, w, k, seg,
             ctypes.cast(taps_c, ctypes.c_void_p), c1, c2, clip_bound,
             torch.cuda.current_stream(a.device).cuda_stream)
     if err != 0:
-        raise RuntimeError(f"ssim_fwd kernel ({mode}, packed stream, k {k}, segment "
-                           f"{seg}) failed with CUDA error {err}")
+        raise RuntimeError(f"ssim_fwd kernel ({mode}{', relaxed' if relaxed else ''}, packed "
+                           f"stream, k {k}, segment {seg}) failed with CUDA error {err}")
     return partials
 
 
@@ -1278,9 +1297,9 @@ def ssim_components_cuda(
     ssim = lum * cs, each as sum(x - 1) + n_valid over the tile's valid
     pixels; means follow by summing over K and dividing by H*W. On a CUDA
     tensor the kernel is launched (the row-streaming kernel at radius
-    STREAM_RADIUS from STREAM_COMP_MIN_PIX pixels, the tile body below it,
-    at other radii and in the relaxed tier: stream_applies); on a CPU
-    tensor the plain twin runs.
+    STREAM_RADIUS from STREAM_COMP_MIN_PIX pixels, relaxed from
+    STREAM_RELAXED_COMP_MIN_PIX, the tile body below them and at other
+    radii: stream_applies); on a CPU tensor the plain twin runs.
     """
     kw = _components_args(a, b, data_range, radius, sigma, k1, k2)
     squeeze = a.dim() == 2
@@ -1361,15 +1380,15 @@ def ssim_parts_batch_cuda(
     package applies it to the packed row); it excludes precise. On a CUDA
     tensor the kernel is launched; on a CPU tensor the plain twin runs.
 
-    The design (stream_applies): at radius STREAM_RADIUS, not relaxed, the
-    packed row stream. Images lie k to a packed row (batch_pack: 4 at W =
+    The design (stream_applies): at radius STREAM_RADIUS, in either tier,
+    the packed row stream (relaxed: its heavy blurs as band products). Images lie k to a packed row (batch_pack: 4 at W =
     32, 2 at 64 and 192, 1 at 128), cut into STRIP_W-column strips, each
     image's piece of a strip blurred from its own clamped columns; a block
     takes a strip of one packed row, down all its rows or a segment of them
     (batch_stream_plan); each image's sum is its columns' sums
     reduced in a fixed order, by one block or, where the image spans
-    blocks, by a second pass over their pieces. The relaxed tier and other
-    radii run the tile body over each image's own tiles (batch_geometry).
+    blocks, by a second pass over their pieces. Other radii run the tile
+    body over each image's own tiles (batch_geometry).
     Both count BATCH_LAUNCHES (BATCH_PRECISE_LAUNCHES), the stream also
     STREAM_LAUNCHES.
     """

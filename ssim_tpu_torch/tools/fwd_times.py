@@ -1,6 +1,6 @@
 """Times the forward kernel's modes on the card.
 
-    python -m ssim_tpu_torch.tools.fwd_times [--segments] [--batch]
+    python -m ssim_tpu_torch.tools.fwd_times [--segments] [--batch] [--relaxed]
 
 Times (CUDA events around 20 back-to-back calls, median of 3) the
 streaming kernel's modes kScore, kMap, kRowsum and kRowsumMap (the row
@@ -12,9 +12,9 @@ smaller scales of msssim_1080_b4 (4x540x960 to 4x67x120), there also by
 a profiler trace (the kernel alone: the events measure the wrapper's host
 work at small scales), each beside the tile body (a pinned 16x256 tile,
 in turns: tile body, wrapper, wrapper, tile body); the tile body's
-modes: relaxed components and pooled, kScore and precise at radius 1 and
-16 at 1080p x4, relaxed batch at 64x64 x4096; and the batch modes as
---batch times them.
+modes: kScore and precise at radius 1 and 16 at 1080p x4, and the relaxed
+components, pooled and batch modes (whichever design the package runs);
+and the batch modes as --batch times them.
 Prints the card's name and power limit, then one JSON line {"card": ...,
 "package": ..., "ms": {...}}. It calls only the wrappers' public
 arguments and ssim_cuda._launch, so it also times another checkout's
@@ -36,6 +36,20 @@ package's `_launch` takes `tile_body`, the tile body's batch mode beside
 them, and the packed stream at other segments than `batch_stream_plan`'s
 (`--batch --packs`); run it with another checkout on PYTHONPATH to time
 that checkout's.
+
+--relaxed times only the relaxed components, pooled and batch modes: the
+components (f32) and pooled (u8 and f32) modes at 1080p x4, the relaxed
+MS-SSIM scale 1 (4x540x960) and the one-frame scales that straddle
+STREAM_COMP_MIN_PIX (2x540x960, 1x1080x1920, 1x540x960), each through
+the row-streaming kernel at the wrapper's segment (pinned, so it streams
+at any size), the relaxed tile body (`_launch(tile_body=True)`) and the
+standard stream, in turns (tile body, relaxed, standard, standard,
+relaxed, tile body; events, and a profiler trace of the kernel alone); a
+segment sweep of both at 1080p x4; then the relaxed batch at the routed
+shapes (RELAXED_BATCH_SHAPES: the batch route's, and widths whose packed
+strips straddle 16-column tiles) in turns with its tile body and the
+standard packed stream, and at other packs. Where the package's relaxed
+modes do not stream, "relaxed" times what its wrapper launches.
 
 --loss times only the ssim_loss training step on phase 8's f32 batch
 (256, 64, 64), which the batch route serves (forward, backward, Adam, a
@@ -184,9 +198,10 @@ def comp_modes(a, b, ms, trace=False):
 
 
 def tile_body_modes(gen, a, b):
-    """The tile body's modes at 1080p x4 (relaxed batch at 64x64 x4096),
-    and the components and pooled modes there under their earlier names
-    (since the components redesign they stream): name -> call."""
+    """The tile body's modes at 1080p x4, and under their earlier names the
+    modes that since ran the tile body and now stream (the components and
+    pooled modes, the relaxed ones and the relaxed batch at 64x64 x4096):
+    name -> call."""
     fa, fb = a.float() / 255.0, b.float() / 255.0
     sa, sb = u8_pair(gen, (4096, 64, 64))
     return {
@@ -300,6 +315,107 @@ def loss_step_times(gen, ms):
           f"step", flush=True)
 
 
+#: --relaxed: the components and pooled launches the relaxed tier makes at
+#: W >= 512 (msssim_1080_b4 scales 0 and 1, one-frame pyramids), around
+#: STREAM_COMP_MIN_PIX.
+RELAXED_COMP_SHAPES = ((4, 1080, 1920), (3, 1080, 1920), (2, 1080, 1920), (4, 540, 960),
+                       (2, 540, 960), (1, 1080, 1920), (1, 540, 960))
+
+
+#: --relaxed: the relaxed batch at the batch route's shapes (BATCH_SHAPES)
+#: and at routed widths that are not multiples of 16, whose packed strips
+#: hold 16-column tiles straddling two images (the stream's lines are then
+#: the staged row's own tiles, one or two sweeps: 12, 24, 40, 50, 60, 120,
+#: 184) or one image a strip (100).
+RELAXED_BATCH_SHAPES = tuple((n, s) for n, s, precise in BATCH_SHAPES if not precise) + (
+    ("12x12_b16384", (16384, 12, 12)), ("24x24_b8192", (8192, 24, 24)),
+    ("40x40_b4096", (4096, 40, 40)), ("50x50_b4096", (4096, 50, 50)),
+    ("60x60_b4096", (4096, 60, 60)), ("100x100_b1024", (1024, 100, 100)),
+    ("120x120_b1024", (1024, 120, 120)), ("184x184_b512", (512, 184, 184)))
+
+
+def relaxed_times(gen, ms):
+    """The relaxed components, pooled and batch modes (see --relaxed):
+    ms["relaxed <mode> <kind> <shape>"] and its " tile body" and
+    " standard" beside it, each the lower of two in turns; " trace" where
+    traced; ms["relaxed <mode> segments 1080p_b4"] the sweep; the batch
+    as ms["relaxed batch <name>"] with " tile body", " standard" and
+    " pack (k, seg)"."""
+    for shape in RELAXED_COMP_SHAPES:
+        npix = shape[0] * shape[1] * shape[2]
+        a, b = u8_pair(gen, shape)
+        fa, fb = a.float() / 255.0, b.float() / 255.0
+        for mode, x, y in (("components", fa, fb), ("pooled", a, b), ("pooled", fa, fb)):
+            dr = 1.0 if x.dtype == torch.float32 else 255.0
+            kw = ssim_cuda._components_args(x, y, dr, 5, 1.5, 0.01, 0.03)
+            streams = ssim_cuda.stream_applies(mode, 5, kw["tile_w"], relaxed=True)
+            seg = None
+            if streams:
+                res = ssim_cuda._stream_resident(x.device.index, mode,
+                                                 x.dtype == torch.float32, True)
+                seg = ssim_cuda.stream_segment(*shape, kw["tile_h"], 10, res)
+            rel = lambda: ssim_cuda._launch(x, y, mode=mode, relaxed=True, segment=seg, **kw)
+            body = lambda: ssim_cuda._launch(x, y, mode=mode, relaxed=True, tile_body=True,
+                                             **kw)
+            std = lambda: ssim_cuda._launch(x, y, mode=mode, **kw)
+            t = [cuda_ms(f) for f in (body, rel, std, std, rel, body)]
+            kind = "f32" if x.dtype == torch.float32 else "u8"
+            name = f"relaxed {mode} {kind} {'x'.join(str(n) for n in shape)}"
+            ms[name] = min(t[1], t[4])
+            ms[f"{name} tile body"] = min(t[0], t[5])
+            ms[f"{name} standard"] = min(t[2], t[3])
+            line = (f"  {name}: {t[1]:.4f} / {t[4]:.4f} ms (segment {seg}), tile body "
+                    f"{t[0]:.4f} / {t[5]:.4f}, standard {t[2]:.4f} / {t[3]:.4f}")
+            if npix <= 1 << 23:
+                ms[f"{name} trace"] = trace_ms(rel)
+                ms[f"{name} tile body trace"] = trace_ms(body)
+                line += (f"; trace {ms[f'{name} trace']}, tile body "
+                         f"{ms[f'{name} tile body trace']}")
+            print(line, flush=True)
+            if shape == (4, 1080, 1920) and streams and kind == ("u8" if mode == "pooled"
+                                                                 else "f32"):
+                parts = []
+                for k in range(1, ssim_cuda.MAX_SEG_TILES + 1):
+                    sg = k * kw["tile_h"]
+                    tk = cuda_ms(lambda: ssim_cuda._launch(x, y, mode=mode, relaxed=True,
+                                                           segment=sg, **kw))
+                    ms[f"relaxed {mode} segments 1080p_b4 {sg}"] = tk
+                    parts.append(f"{sg}: {tk:.4f}")
+                print(f"  segments relaxed {mode} {kind} 1080p_b4 (picker {seg}): "
+                      + ", ".join(parts) + " ms", flush=True)
+        del a, b, fa, fb
+        torch.cuda.empty_cache()
+    for name, shape in RELAXED_BATCH_SHAPES:
+        a, b = u8_pair(gen, shape)
+        kw = ssim_cuda._prepare(a, b, data_range=255.0, radius=5, sigma=1.5, k1=0.01,
+                                k2=0.03)
+        th, tw, ipb, groups = ssim_cuda.batch_geometry(*shape)
+        geo = dict(tile_h=th, tile_w=tw, ipb=ipb, groups=groups)
+        rel = lambda: ssim_cuda.ssim_parts_batch_cuda(a, b, relaxed=True)
+        body = lambda: ssim_cuda._launch(a, b, mode="batch", relaxed=True, tile_body=True,
+                                         **geo, **kw)
+        std = lambda: ssim_cuda.ssim_parts_batch_cuda(a, b)
+        t = [cuda_ms(f) for f in (body, rel, std, std, rel, body)]
+        key = f"relaxed batch {name}"
+        ms[key], ms[f"{key} tile body"] = min(t[1], t[4]), min(t[0], t[5])
+        ms[f"{key} standard"] = min(t[2], t[3])
+        line = (f"  {key}: {t[1]:.4f} / {t[4]:.4f} ms, tile body {t[0]:.4f} / {t[5]:.4f}, "
+                f"standard {t[2]:.4f} / {t[3]:.4f}")
+        if ssim_cuda.stream_applies("batch", 5, tw, relaxed=True):
+            res = ssim_cuda._stream_resident(a.device.index, "batch", False, True)
+            k, seg = ssim_cuda.batch_stream_plan(*shape, res)
+            parts = []
+            for pk in [(k, shape[1])] + [(k, s) for s in (32, 64, 96) if s < shape[1]]:
+                tk = cuda_ms(lambda: ssim_cuda._launch(a, b, mode="batch", relaxed=True,
+                                                       pack=pk, **geo, **kw))
+                ms[f"{key} pack {pk}"] = tk
+                parts.append(f"{pk}: {tk:.4f}")
+            line += f"; plan {(k, seg)} ({res} resident), packs " + ", ".join(parts)
+        print(line, flush=True)
+        del a, b
+        torch.cuda.empty_cache()
+
+
 def segment_sweep(name, a, b):
     """kScore, kRowsum, kPrecise, relaxed kScore, components and pooled at
     every segment the streaming kernel takes (the last four where they
@@ -343,6 +459,7 @@ def main():
     parser.add_argument("--batch", action="store_true")
     parser.add_argument("--packs", action="store_true")
     parser.add_argument("--loss", action="store_true")
+    parser.add_argument("--relaxed", action="store_true")
     args = parser.parse_args()
     if not torch.cuda.is_available():
         print("needs a CUDA card", file=sys.stderr)
@@ -352,6 +469,11 @@ def main():
     gen = torch.Generator(device="cuda")
     gen.manual_seed(1234)
     ms = {}
+    if args.relaxed:
+        torch.backends.cuda.matmul.allow_tf32 = False
+        relaxed_times(gen, ms)
+        print(json.dumps({"card": label, "package": ssim_cuda.__file__, "ms": ms}))
+        return 0
     if args.batch or args.loss:
         if args.batch:
             batch_times(gen, ms, args.packs)

@@ -8,11 +8,12 @@
 // or the row sums (B, H) f32, then the map (B, H, W) f32 in the map modes,
 // or the pooled images (B, H/2, W/2) f32 of a, then of b, in kPooled.
 // precise must be 1 exactly in the precise
-// modes; relaxed (kScore and kMap only) runs the relaxed instantiation,
-// its band products through band_mma.cuh's host model of mma. The batch
-// modes (6 kBatch, 7 kBatchPrecise: ssim_fwd_batch_stream_kernel) read
-// [mode, is_float, B, H, W, k, S, pieces, 0, 0, 0, precise, 0] (pieces: 1
-// for the second pass, batch_pieces_reduce_kernel) and write the (B, 2)
+// modes; relaxed (kScore, kMap, kComponents and kPooled) runs the relaxed
+// instantiation, its band products through band_mma.cuh's host model of
+// mma. The batch modes (6 kBatch, 7 kBatchPrecise:
+// ssim_fwd_batch_stream_kernel) read [mode, is_float, B, H, W, k, S,
+// pieces, 0, 0, 0, precise, relaxed] (pieces: 1 for the second pass,
+// batch_pieces_reduce_kernel; relaxed: kBatch only) and write the (B, 2)
 // partials. The blocks run one after another, each with one std::thread per
 // CUDA thread.
 #include "cuda_runtime.h"
@@ -81,7 +82,7 @@ static void run(FILE* f, FILE* o, const std::vector<int>& h) {
   }
 }
 
-template <class T, int M>
+template <class T, int M, int K>
 static void run_batch(FILE* f, FILE* o, const std::vector<int>& h) {
   using P = Blur<M>;
   const int B = h[2], H = h[3], W = h[4], k = h[5], S = h[6];
@@ -97,7 +98,7 @@ static void run_batch(FILE* f, FILE* o, const std::vector<int>& h) {
   std::vector<double> pieces((size_t)B * nseg * nps);
   double* pp = h[7] ? pieces.data() : nullptr;
   run_blocks(nstrip * nseg * ((B + k - 1) / k), kStreamThreads, [&] {
-    ssim_fwd_batch_stream_kernel<T, M>(a.data(), b.data(), partials.data(), pp, B, H, W, k,
+    ssim_fwd_batch_stream_kernel<T, M, K>(a.data(), b.data(), partials.data(), pp, B, H, W, k,
                                        S, nstrip, nseg, nps, tp, cc[0], cc[1], (float)cc[2]);
   });
   if (pp) {
@@ -117,12 +118,17 @@ int main(int argc, char** argv) {
   const auto h = take<int>(f, 13);
   if (h[11] != (h[0] == kPrecise || h[0] == kPreciseMap || h[0] == kBatchPrecise)) return 2;
   if (h[0] == kBatch || h[0] == kBatchPrecise) {
-    if (h[0] == kBatch) {
-      if (h[1]) run_batch<float, kBatch>(f, o, h);
-      else run_batch<uint8_t, kBatch>(f, o, h);
+    if (h[0] == kBatch && h[12]) {
+      if (h[1]) run_batch<float, kBatch, kStreamSplit>(f, o, h);
+      else run_batch<uint8_t, kBatch, kStreamSplit>(f, o, h);
+    } else if (h[0] == kBatch) {
+      if (h[1]) run_batch<float, kBatch, 0>(f, o, h);
+      else run_batch<uint8_t, kBatch, 0>(f, o, h);
+    } else if (!h[12]) {
+      if (h[1]) run_batch<float, kBatchPrecise, 0>(f, o, h);
+      else run_batch<uint8_t, kBatchPrecise, 0>(f, o, h);
     } else {
-      if (h[1]) run_batch<float, kBatchPrecise>(f, o, h);
-      else run_batch<uint8_t, kBatchPrecise>(f, o, h);
+      return 2;
     }
     fclose(o);
     return 0;
@@ -136,6 +142,8 @@ int main(int argc, char** argv) {
     switch (h[0]) {
       SSIM_EMU_RUN(kScore, kStreamSplit)
       SSIM_EMU_RUN(kMap, kStreamSplit)
+      SSIM_EMU_RUN(kComponents, kStreamSplit)
+      SSIM_EMU_RUN(kPooled, kStreamSplit)
       default:
         return 2;
     }

@@ -374,10 +374,10 @@ def test_batch_stream_nan_in_first_staged_row_on_card(precise):
 
 @pytest.mark.cuda
 def test_small_batches_launch_the_batch_modes():
-    """compute_ssim on a routed batch launches kBatch (f64: kBatchPrecise)
-    on the packed stream, one STREAM_LAUNCHES each, and the ssim_loss step
-    kBatch and K3; radius 4 and the relaxed tier keep the tile body (no
-    STREAM_LAUNCHES)."""
+    """compute_ssim on a routed batch launches kBatch (f64: kBatchPrecise;
+    relaxed: the relaxed kBatch) on the packed stream, one STREAM_LAUNCHES
+    each, and the ssim_loss step kBatch and K3; radius 4 keeps the tile
+    body (no STREAM_LAUNCHES)."""
     _need_card()
     rng = np.random.default_rng(0x5C)
     a, b = _pair(rng, (64, 32, 40))
@@ -395,7 +395,7 @@ def test_small_batches_launch_the_batch_modes():
     r4 = ssim_tpu_torch.compute_ssim(a, b, radius=4, sigma=1.2)
     ssim_tpu_torch.compute_ssim(a, b, precision="f64", radius=4, sigma=1.2)
     ssim_tpu_torch.compute_ssim(a, b, accuracy="relaxed")
-    assert (counts() - before).tolist() == [0, 0, 1, 1, 0, 0, 1]
+    assert (counts() - before).tolist() == [0, 0, 1, 1, 0, 1, 1]
     assert np.abs(r4 - ssim_tpu_torch.compute_ssim(a, b, radius=4, sigma=1.2,
                                                    device="cpu")).max() <= 2e-7
     x = torch.from_numpy(a.astype(np.float32) / 255).cuda().requires_grad_()
@@ -1221,33 +1221,177 @@ def test_relaxed_stream_geometry_on_card(case, tile):
         assert mk[2, 3, 128].isnan()
 
 
+#: Relaxed components and pooled streams at pinned segments: (f32, shape,
+#: tile, segment rows), NaN pixels (image, y, x): H one past a segment and
+#: 2S + 1, odd H and W, H = 3, a ragged last strip, NaN in one image of two.
+_RELAXED_COMP_STREAM_CASES = {
+    "u8 odd H and W, seg+1": (False, (2, 65, 601), (32, 64), 64, ()),
+    "u8 2seg+1, 32x128 tiles": (False, (1, 129, 640), (32, 128), 64, ()),
+    "f32 NaN in image 1 of 2, 32x32 tiles": (True, (2, 69, 777), (32, 32), 32,
+                                            ((1, 40, 300), (1, 31, 127))),
+    "f32 H = 3": (True, (2, 3, 530), (32, 64), 128, ()),
+    "u8 1080p x4, the wrappers' tile, 4 tiles a segment": (
+        False, (4, 1080, 1920), (ssim_cuda.TILE_H, ssim_cuda.TILE_W), 4 * ssim_cuda.TILE_H,
+        ()),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", list(_RELAXED_COMP_STREAM_CASES))
+def test_relaxed_components_stream_matches_twin_on_card(case):
+    """The relaxed components and pooled modes through the row-streaming
+    kernel at a pinned segment (one STREAM_LAUNCHES and one
+    RELAXED_LAUNCHES each) against ssim_components_plain(relaxed=True) and
+    downsample2: per-image mean cs and ssim within 2e-6 (never tighter than
+    2 * 2e-5 / sqrt(npix)), NaN in exactly the twin's tiles, the pooled
+    mode's partials equal to the components mode's, pooled images bit for
+    bit."""
+    _need_card()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    f32, shape, tile, seg, nans = _RELAXED_COMP_STREAM_CASES[case]
+    rng = np.random.default_rng(0x90 + len(case))
+    a, b = (_float_pair if f32 else _pair)(rng, shape)
+    for img, y, x in nans:
+        a[img, y, x] = np.nan
+    at, bt = torch.from_numpy(a).cuda(), torch.from_numpy(b).cuda()
+    dr = 1.0 if f32 else 255.0
+    kw = dict(_twin_kw(dr), tile_h=tile[0], tile_w=tile[1])
+    npix = shape[1] * shape[2]
+    before = (ssim_cuda.STREAM_LAUNCHES, ssim_cuda.RELAXED_LAUNCHES)
+    parts = ssim_cuda._launch(at, bt, mode="components", relaxed=True, segment=seg, **kw)
+    pparts, pa, pb = ssim_cuda._launch(at, bt, mode="pooled", relaxed=True, segment=seg,
+                                       **kw)
+    torch.cuda.synchronize()
+    assert (ssim_cuda.STREAM_LAUNCHES, ssim_cuda.RELAXED_LAUNCHES) == (
+        before[0] + 2, before[1] + 2)
+    want = ssim_cuda.ssim_components_plain(at, bt, relaxed=True, **kw)
+    assert torch.equal(parts.isnan(), want.isnan())
+    gk, gp = parts.double().sum(-2) / npix, want.double().sum(-2) / npix
+    fin = ~gp.isnan()
+    tol = max(_RELAXED_GLOBAL, 2 * _RELAXED_PIXEL / npix**0.5)
+    assert (gk[fin] - gp[fin]).abs().max().item() <= tol
+    assert torch.equal(pparts.isnan(), parts.isnan())
+    assert torch.equal(pparts.nan_to_num(), parts.nan_to_num())
+    for x, y in ((pa, ssim_cuda.downsample2(at)), (pb, ssim_cuda.downsample2(bt))):
+        assert torch.equal(x.isnan(), y.isnan())
+        assert torch.equal(x.nan_to_num(), y.nan_to_num())
+    if nans:
+        assert gk[1].isnan().all() and not gk[0].isnan().any()
+
+
+#: Relaxed batch stream packs: (shape, (k, segment rows)): widths whose
+#: 16-column tiles straddle two images (24, 40, 100) and aligned ones (32,
+#: 64, 128, 192), images straddling strips, segments.
+_RELAXED_BATCH_STREAM_CASES = [
+    ((40, 20, 24), (5, 20)), ((30, 33, 40), (3, 16)), ((9, 40, 100), (1, 40)),
+    ((9, 21, 100), (3, 21)), ((64, 32, 32), (4, 32)), ((64, 64, 64), (2, 64)),
+    ((8, 128, 128), (1, 32)), ((8, 192, 192), (2, 96)), ((7, 50, 1), (7, 50)),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,pack", _RELAXED_BATCH_STREAM_CASES)
+def test_relaxed_batch_stream_matches_twin_on_card(shape, pack):
+    """The relaxed kBatch through the packed stream at a pinned pack (one
+    STREAM_LAUNCHES and one RELAXED_LAUNCHES) against
+    ssim_parts_batch_plain(relaxed=True): per-image scores within 2e-6
+    (never tighter than 2 * 2e-5 / sqrt(H W)), counts exact; in f32 a NaN
+    in one image poisons its sum and no other."""
+    _need_card()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    rng = np.random.default_rng(0x98 + shape[2])
+    bsz, h, w = shape
+    for f32 in (False, True):
+        a, b = (_float_pair if f32 else _pair)(rng, shape)
+        if f32:
+            a[1, h // 2, w - 1] = np.nan
+        at, bt = torch.from_numpy(a).cuda(), torch.from_numpy(b).cuda()
+        dr = 1.0 if f32 else 255.0
+        tile_h, tile_w, ipb, groups = ssim_cuda.batch_geometry(*shape)
+        before = (ssim_cuda.STREAM_LAUNCHES, ssim_cuda.RELAXED_LAUNCHES)
+        got = ssim_cuda._launch(at, bt, mode="batch", relaxed=True, pack=pack, tile_h=tile_h,
+                                tile_w=tile_w, ipb=ipb, groups=groups, **_twin_kw(dr))
+        torch.cuda.synchronize()
+        assert (ssim_cuda.STREAM_LAUNCHES, ssim_cuda.RELAXED_LAUNCHES) == (
+            before[0] + 1, before[1] + 1)
+        want = ssim_cuda.ssim_parts_batch_plain(at, bt, relaxed=True, **_twin_kw(dr))
+        assert torch.equal(got[:, 1], want[:, 1])
+        bad = torch.isnan(got[:, 0]).nonzero().flatten().tolist()
+        assert bad == ([1] if f32 else []), bad
+        gk, gp = got[:, 0].double() / (h * w), want[:, 0].double() / (h * w)
+        ok = ~gp.isnan()
+        tol = max(_RELAXED_GLOBAL, 2 * _RELAXED_PIXEL / (h * w) ** 0.5)
+        assert (gk[ok] - gp[ok]).abs().max().item() <= tol, (f32, shape, pack)
+
+
+def _like_relaxed_twin(mode, got, want, npix):
+    """A relaxed components, pooled or batch launch's outputs (card) against
+    the wrapper's on the CPU tensors (the relaxed twin): per-image scores
+    within 2e-6 (never tighter than 2 * 2e-5 / sqrt(npix)), NaN in the same
+    images, pixel counts exact, pooled images bit for bit."""
+    if mode == "pooled":
+        for x, y in zip(got[1:], want[1:]):
+            assert torch.equal(x.cpu(), y)
+        got, want = got[0], want[0]
+    if mode == "batch":
+        assert torch.equal(got[:, 1].cpu(), want[:, 1])
+        gk, gp = got[:, 0].double().cpu(), want[:, 0].double()
+    else:
+        gk, gp = got.double().sum(-2).cpu(), want.double().sum(-2)
+    assert torch.equal(gk.isnan(), gp.isnan())
+    ok = ~gp.isnan()
+    tol = max(_RELAXED_GLOBAL, 2 * _RELAXED_PIXEL / npix**0.5)
+    assert ((gk[ok] - gp[ok]).abs() / npix).max().item() <= tol
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("mode", ["components", "pooled", "batch"])
 def test_relaxed_stream_leaves_other_modes_on_tile_body_on_card(mode):
-    """The relaxed components, pooled and batch modes keep the tile body:
-    one RELAXED_LAUNCHES each and no STREAM_LAUNCHES, as do relaxed score
-    and map at radius 1 and 16 and with a 256-wide tile."""
+    """What keeps the tile body in the relaxed tier: the components and
+    pooled modes under STREAM_RELAXED_COMP_MIN_PIX pixels a launch and the
+    batch mode at radius 4, one RELAXED_LAUNCHES each and no
+    STREAM_LAUNCHES, as do relaxed score and map at radius 1 and 16 and
+    with a 256-wide tile; the components and pooled launches from
+    STREAM_RELAXED_COMP_MIN_PIX (and the batch at radius 5) stream. Each
+    launch matches the relaxed twin (the wrapper on the CPU tensors)."""
     _need_card()
+    torch.backends.cuda.matmul.allow_tf32 = False
     rng = np.random.default_rng(0x63)
     shape = (64, 40, 48) if mode == "batch" else (2, 130, 700)
-    a, b = _pair(rng, shape)
-    at, bt = torch.from_numpy(a).cuda(), torch.from_numpy(b).cuda()
     fn = {"components": ssim_cuda.ssim_components_cuda,
           "pooled": ssim_cuda.ssim_components_pooled_cuda,
           "batch": ssim_cuda.ssim_parts_batch_cuda}[mode]
-    before = (ssim_cuda.STREAM_LAUNCHES, ssim_cuda.RELAXED_LAUNCHES)
-    fn(at, bt, relaxed=True)
-    torch.cuda.synchronize()
-    assert (ssim_cuda.STREAM_LAUNCHES, ssim_cuda.RELAXED_LAUNCHES) == (
-        before[0], before[1] + 1)
-    wa, wb = (torch.from_numpy(x).cuda() for x in _pair(rng, (1, 130, 700)))
+    assert shape[0] * shape[1] * shape[2] < ssim_cuda.STREAM_COMP_MIN_PIX
+    assert 2 * 1080 * 1920 < ssim_cuda.STREAM_RELAXED_COMP_MIN_PIX <= 4 * 1100 * 1000
+
+    def launched(shape, streams, **window):
+        a, b = _pair(rng, shape)
+        before = (ssim_cuda.STREAM_LAUNCHES, ssim_cuda.RELAXED_LAUNCHES)
+        got = fn(torch.from_numpy(a).cuda(), torch.from_numpy(b).cuda(), relaxed=True,
+                 **window)
+        torch.cuda.synchronize()
+        assert (ssim_cuda.STREAM_LAUNCHES, ssim_cuda.RELAXED_LAUNCHES) == (
+            before[0] + streams, before[1] + 1)
+        want = fn(torch.from_numpy(a), torch.from_numpy(b), relaxed=True, **window)
+        _like_relaxed_twin(mode, got, want, shape[1] * shape[2])
+
+    launched(shape, 0, **(dict(radius=4, sigma=1.2) if mode == "batch" else {}))
+    if mode != "batch":
+        # Above STREAM_COMP_MIN_PIX, under the relaxed threshold: the tile body.
+        launched((2, 1080, 1920), 0)
+    launched((64, 40, 48) if mode == "batch" else (4, 1100, 1000), 1)
+    a, b = _pair(rng, (1, 130, 700))
+    wa, wb = torch.from_numpy(a).cuda(), torch.from_numpy(b).cuda()
     for window in (dict(radius=1, sigma=0.8), dict(radius=16, sigma=3.0),
                    dict(tile_h=8, tile_w=256)):
         before = (ssim_cuda.STREAM_LAUNCHES, ssim_cuda.RELAXED_LAUNCHES)
-        ssim_cuda.ssim_parts_cuda(wa, wb, with_map=True, relaxed=True, **window)
+        pk, mk = ssim_cuda.ssim_parts_cuda(wa, wb, with_map=True, relaxed=True, **window)
         torch.cuda.synchronize()
         assert (ssim_cuda.STREAM_LAUNCHES, ssim_cuda.RELAXED_LAUNCHES) == (
             before[0], before[1] + 1)
+        pp, mp = ssim_cuda.ssim_parts_cuda(torch.from_numpy(a), torch.from_numpy(b),
+                                           with_map=True, relaxed=True, **window)
+        _hold_relaxed(pk.cpu(), mk.cpu(), pp, mp, 130 * 700)
 
 
 def _relaxed_grad(at, bt, w_s, w_cs, g_map, seg=None, radius=5, sigma=1.5, **halo):
