@@ -11,8 +11,10 @@ Phases, each of which raises on failure (the script then exits non-zero):
    time and the ptxas report;
 3. forward kernel against its plain PyTorch twin on the card, score and
    map, at tiny, ragged, 1080p, over-16384-wide, float-with-NaN, radius
-   1/16 and small-image-batch shapes, and against the f64 oracle on the
-   small ones;
+   1/3/8/16 and small-image-batch shapes, and against the f64 oracle on
+   the small ones, every output poisoned with NaN before the launch
+   (`poisoned_outputs`, the unwritten-output check of ROADMAP Queue 3,
+   P6) and every launch through the row stream (its counter);
 4. the main path: one `compute_ssim` on NumPy input with no `device`
    (it must run on the card), then `compute_ssim` and `compute_ssim_map`
    on uint8 batches at 1080p x4, 4K x4 and 16K UHD x1, which must go
@@ -56,10 +58,10 @@ Phases, each of which raises on failure (the script then exits non-zero):
 7. the precise tier (`precision="f64"`): the forward kernel's precise
    modes, with and without the map, against their plain twin (maps bit
    for bit, per-image fp64 scores within 1e-12 relative) at tiny and
-   ragged, 1080p x4, 1x1024x20480, float-with-NaN, radius 1/16 with
+   ragged, 1080p x4, 1x1024x20480, float-with-NaN, radius 1/3/8/16 with
    custom sigma/k1/k2 and uint16 shapes, and against the f64 oracle on
-   the small ones (each radius-5 launch through the fp64 streaming
-   kernel, the radius 1/16 ones through the tile body); one
+   the small ones (each launch through the fp64 streaming kernel, at the
+   other radii its runtime-radius instantiation); one
    `compute_ssim(precision="f64")` on NumPy uint8 (4, 1080, 1920) with
    no `device` (exactly one precise launch, the streaming kernel's, no
    other launch, no call of the oracle), then `compute_ssim` at the three
@@ -72,13 +74,15 @@ Phases, each of which raises on failure (the script then exits non-zero):
 8. batches of small images (the JAX package's packed route): the forward
    kernel's batch modes (kBatch, kBatchPrecise; one partial pair per
    image; at radius 5 the packed row stream, each launch counted by
-   STREAM_LAUNCHES, at radius 1 / 16 the tile body) against their twin,
+   STREAM_LAUNCHES, at the CUSTOM_WINDOWS radii 1, 3, 8 and 16 the tile
+   body) against their twin,
    against the tile modes' per-image scores, against the tile body's
    batch mode (pinned) and, on the small shapes, against the f64 oracle,
    at the JAX package's packed-path test shapes, (5, 16, 2048), a tall
    (2, 8192, 64), (3, 50, 1), (2, 1, 1) and (2, 7, 5), f32 with a NaN in
-   one image (only that image's score is NaN), radius 1 / 16 with custom
-   sigma/k1/k2, and the routed shapes of (c); the route: one
+   one image (only that image's score is NaN), the CUSTOM_WINDOWS (radii
+   1, 3, 8, 16 with custom sigma/k1/k2), and the routed shapes of (c);
+   the route: one
    `compute_ssim` on NumPy uint8 (4096, 64, 64) with no `device` (exactly
    one kBatch launch, a streaming one, and no other), the same with
    `precision="f64"` (exactly one kBatchPrecise launch, streaming, no call
@@ -98,8 +102,9 @@ Phases, each of which raises on failure (the script then exits non-zero):
    the rows a mesh ring delivers (the other end's rows at the image's
    edges, which the kernels must replace on their flags), at 4K x4 in 4
    bands (u8 and f32), 1080p x4 in 3 bands and in bands of 523, 20, 35
-   and 502 rows, radius 1 / 16 with custom sigma/k1/k2, f32 with a NaN
-   in a neighbour's rows, and NaN-filled operands under a set flag (not
+   and 502 rows, the CUSTOM_WINDOWS (radii 1, 3, 8, 16 with custom
+   sigma/k1/k2; every launch streaming), f32 with a NaN in a neighbour's
+   rows, and NaN-filled operands under a set flag (not
    read); the bands concatenated against the unsharded kernels (the same
    map and the same rows as kMap and kRowsum; gradients against the
    unsharded backward); (b) on a one-rank nccl mesh (a file:// store in a
@@ -219,7 +224,19 @@ Phases, each of which raises on failure (the script then exits non-zero):
    20 replays: its device time with no host work);
    (d) `report.run_report()` on the card over a synthetic suite written
    with PIL under the suite's file names (the cuda row within 2e-6
-   global and 1e-3 per pixel of the oracle; both device columns finite).
+   global and 1e-3 per pixel of the oracle; both device columns finite);
+15. the forward's row stream at a runtime radius (ssim_fwd_stream_rt.cu):
+   (a) all eight of its modes at every radius 1-16 but 5 against their
+   twins, outputs poisoned, at the segment the wrapper picks (u8, and f32
+   with NaN and inf; the row modes with halo operands of r rows), and at
+   radii 1, 8 and 16 on a u8 pair 16500 wide (K2's widths); (b)
+   `compute_ssim` with custom windows (radii 1, 3, 8 and 16; score, map,
+   precision="f64") on NumPy uint8 4K x4 with no `device`, each call's
+   launches counted from 0 (one forward launch, streaming), scores and
+   maps against the twin; (c) the stream and the tile body in turns at
+   radii 1, 3, 4, 6, 8 and 16 (`tools/fwd_times.radius_times`: u8 kScore
+   and kMap at 4K x4, kPrecise at 4K x4, kComponents f32 at 1080p x4,
+   kRowsum at 16K) beside each bound, and the twin at radius 8.
 
 Prints phase 12's launches and times as one JSON line (`{"cli": ...}`),
 phase 13's as one (`{"parallel": ...}`), phase 14's as one
@@ -263,6 +280,13 @@ TWIN_GLOBAL, TWIN_PIXEL, TWIN_PIXEL_R1 = 2e-7, 1e-5, 5e-5
 # first launch and has not been reproduced).
 MAP_REPEAT_SHAPE = (1, 255, 63)
 MAP_REPEATS = 100
+# The custom windows that phases 3, 7, 8 and 9a hold against the twins: the
+# forward's row stream serves radius 5 with its window in registers and
+# the others at a radius read at run time (ssim_fwd_stream_rt.cu).
+CUSTOM_WINDOWS = (dict(radius=1, sigma=0.8, k1=0.02, k2=0.05),
+                  dict(radius=3, sigma=1.2, k1=0.01, k2=0.03),
+                  dict(radius=8, sigma=2.5, k1=0.01, k2=0.03),
+                  dict(radius=16, sigma=3.0, k1=0.015, k2=0.04))
 ORACLE_GLOBAL, ORACLE_PIXEL = 2e-6, 1e-3
 # Backward kernel against its twin: 1e-6 * max(1, max|g|) (both round
 # alike, so they are expected to agree exactly); against autograd of the
@@ -476,21 +500,66 @@ def twin_errors(name, a, b, pk, mk, win, rerun):
     return g_err, p_err, gk
 
 
+class poisoned_outputs:
+    """An unwritten-output check by hand (ROADMAP Queue 3, P6; the card's
+    machine refuses compute-sanitizer): inside the block every
+    floating-point tensor that torch.empty makes on the card, as the
+    wrappers make their outputs and scratch, is filled with NaN first, so a
+    partial, row piece or map pixel the kernel never writes shows as a
+    mismatch with the twin, where the caching allocator could otherwise
+    hand back a block that held an earlier launch's right answer. `count`:
+    the tensors poisoned."""
+
+    def __enter__(self):
+        self.real, self.count = torch.empty, 0
+
+        def empty(*args, **kw):
+            x = self.real(*args, **kw)
+            if x.is_cuda and x.is_floating_point():
+                x.fill_(float("nan"))
+                self.count += 1
+            return x
+
+        torch.empty = empty
+        return self
+
+    def __exit__(self, *exc):
+        torch.empty = self.real
+
+
+def poisoned(fn):
+    """fn() with its outputs poisoned (poisoned_outputs); checks that at
+    least one was."""
+    with poisoned_outputs() as p:
+        out = fn()
+    check(p.count > 0, "no output was poisoned before the launch")
+    return out
+
+
 def compare_kernel_to_twin(name, a, b, *, oracle=False, **kw):
-    """Kernel and twin on the same card tensors; returns max abs error."""
+    """Kernel and twin on the same card tensors, the kernel's outputs
+    poisoned with NaN before its launch; the launch must take the row
+    stream (its STREAM_LAUNCHES: the map mode streams at every radius
+    1-16 at the default tile). Returns max abs error and the kernel's
+    scores."""
     from ssim_tpu_torch import reference
+    from ssim_tpu_torch.ops import ssim_cuda
     from ssim_tpu_torch.ops.ssim_cuda import ssim_parts_cuda
 
     def run():
-        return ssim_parts_cuda(a, b, with_map=True,
-                               allow_float=a.dtype == torch.float32, **kw)
+        return poisoned(lambda: ssim_parts_cuda(a, b, with_map=True,
+                                                allow_float=a.dtype == torch.float32, **kw))
 
     npix = a.shape[-1] * a.shape[-2]
+    stream = ssim_cuda.STREAM_LAUNCHES
     pk, mk = run()
     torch.cuda.synchronize()
+    check(ssim_cuda.STREAM_LAUNCHES - stream == 1,
+          f"{name}: {ssim_cuda.STREAM_LAUNCHES - stream} streaming launches, expected 1")
     win = {k: v for k, v in kw.items() if k != "allow_float"}
     g_err, p_err, gk = twin_errors(name, a, b, pk, mk, win, lambda: run()[1])
-    line = f"  {name}: kernel vs twin global {g_err:.3g} pixel {p_err:.3g}"
+    line = (f"  {name}: kernel (streaming, outputs poisoned) "
+            f"vs twin global {g_err:.3g} pixel {p_err:.3g}")
     if oracle:
         wo, mo = reference.compute_ssim(
             a.cpu().numpy(), b.cpu().numpy(), with_map=True, **win)
@@ -524,7 +593,8 @@ def map_repeats(gen):
                                     radius=5, sigma=1.5, k1=0.01, k2=0.03)
 
             def run():
-                return ssim_cuda._launch(a, b, mode="map", segment=seg, **kw)
+                return poisoned(lambda: ssim_cuda._launch(a, b, mode="map", segment=seg,
+                                                          **kw))
 
             pk, mk = run()
             torch.cuda.synchronize()
@@ -562,8 +632,7 @@ def phase_kernel(gen):
                                     oracle=True, data_range=1.0)
     check(abs(g1[0] - g[1]) <= TWIN_GLOBAL, f"image 1 alone {g1[0]} vs in batch {g[1]}")
     err = max(err, e, e1)
-    for win in (dict(radius=1, sigma=0.8, k1=0.02, k2=0.05),
-                dict(radius=16, sigma=3.0, k1=0.015, k2=0.04)):
+    for win in CUSTOM_WINDOWS:
         a, b = pair(gen, (2, 300, 500))
         e, _ = compare_kernel_to_twin(f"u8 (2, 300, 500) {win}", a, b,
                                       oracle=True, **win)
@@ -736,6 +805,12 @@ BATCH_STREAM_DESIGN = (
     "image, batch_pieces_reduce_kernel where an image spans blocks); relaxed kBatch: "
     "RELAXED_BATCH_STREAM_DESIGN; other radii: the tile body")
 
+RT_STREAM_DESIGN = (
+    "the row stream at a radius read at run time (ssim_fwd_stream_kernel<T, mode, 0, 0>, "
+    "ssim_fwd_stream_rt.cu: radius 1-16 but 5): the same strips, segments and steps as "
+    "at radius 5, the window's 2r + 1 rows of all four signals in a ring in dynamic "
+    "shared memory, one step a loop iteration, the taps in shared memory; 8 blocks/SM "
+    "at radii 1-4 down to 3 at 13-16 (precise 4 to 1)")
 RELAXED_BWD_STREAM_DESIGN = (
     "row-streaming column strips, relaxed, at radius 5 (ssim_bwd_relaxed_stream_kernel: "
     "128 columns, 9 warps, one per 16-column tile of the 144 mid columns; 8 rows a step; "
@@ -1136,20 +1211,22 @@ def launch_counts():
                 pad=pad.PAD_LAUNCHES, stream=ssim_cuda.STREAM_LAUNCHES)
 
 
-def streamed_by_mode(fn):
+def streamed_by_mode(fn, key=None):
     """fn()'s result and its forward launches that streamed, by mode
     ("relaxed <mode>" for the relaxed ones; 0 where a mode launched only
-    the tile body): STREAM_LAUNCHES read around each ssim_cuda._launch,
-    which the wrappers look up in the module at each call."""
+    the tile body), or by key(launch keywords): STREAM_LAUNCHES read
+    around each ssim_cuda._launch, which the wrappers look up in the
+    module at each call."""
     from ssim_tpu_torch.ops import ssim_cuda
 
     launch, by = ssim_cuda._launch, {}
+    key = key or (lambda kw: ("relaxed " if kw.get("relaxed") else "") + kw["mode"])
 
     def spied(*args, **kw):
         before = ssim_cuda.STREAM_LAUNCHES
         out = launch(*args, **kw)
-        key = ("relaxed " if kw.get("relaxed") else "") + kw["mode"]
-        by[key] = by.get(key, 0) + ssim_cuda.STREAM_LAUNCHES - before
+        k = key(kw)
+        by[k] = by.get(k, 0) + ssim_cuda.STREAM_LAUNCHES - before
         return out
 
     ssim_cuda._launch = spied
@@ -1407,8 +1484,8 @@ def compare_precise(name, a, b, *, oracle=None, **kw):
     """Both precise modes (through ops.routing.ssim_parts_auto, which casts
     u16 to f32 as the engine's route does) and the twin on the same card
     tensors; with oracle=(global, pixel), also the f64 oracle. Both
-    launches must take the fp64 streaming kernel at radius 5 and the tile
-    body at other radii (STREAM_LAUNCHES). Returns the largest score or
+    launches must take the fp64 streaming kernel, which serves every
+    radius 1-16 at the default tile (STREAM_LAUNCHES). Returns the largest score or
     map difference from the twin, the kernel's per-image scores and the
     twin's. The default tile is pinned, so that the router keeps a batch
     of small images, which it would send to the batch modes (phase 8), on
@@ -1423,10 +1500,9 @@ def compare_precise(name, a, b, *, oracle=None, **kw):
     pk, none = ssim_parts_auto(a, b, precise=True, **tile, **kw)
     pkm, mk = ssim_parts_auto(a, b, with_map=True, precise=True, **tile, **kw)
     torch.cuda.synchronize()
-    want = 2 if kw.get("radius", 5) == ssim_cuda.STREAM_RADIUS else 0
-    check(ssim_cuda.STREAM_LAUNCHES - stream == want,
+    check(ssim_cuda.STREAM_LAUNCHES - stream == 2,
           f"{name}: {ssim_cuda.STREAM_LAUNCHES - stream} of 2 precise launches took the "
-          f"streaming kernel, expected {want}")
+          f"streaming kernel")
     check(none is None and pk.dtype == pkm.dtype == torch.float64,
           f"{name}: partials {pk.dtype}/{pkm.dtype}")
     af, bf = (a, b) if a.dtype == torch.uint8 else (a.float(), b.float())
@@ -1439,7 +1515,7 @@ def compare_precise(name, a, b, *, oracle=None, **kw):
     err = float(np.nanmax(np.abs(gk - gp), initial=0.0))
     check(rel <= PRECISE_REL, f"{name}: precise kernel vs twin {rel:.3g} relative "
           f"(tol {PRECISE_REL:g})")
-    line = (f"  {name}: precise kernel ({'streaming' if want else 'tile body'}) vs "
+    line = (f"  {name}: precise kernel (streaming) vs "
             f"twin: maps bit for bit, scores {rel:.3g} relative")
     if oracle is not None:
         wo, mo = reference.compute_ssim(
@@ -1488,8 +1564,7 @@ def phase_precise(gen, label):
                                 oracle=(PRECISE_GLOBAL, PRECISE_PIXEL))
     check(abs(g1[0] - g[1]) <= PRECISE_REL, f"image 1 alone {g1[0]} vs in batch {g[1]}")
     err = max(err, e, e1)
-    for win in (dict(radius=1, sigma=0.8, k1=0.02, k2=0.05),
-                dict(radius=16, sigma=3.0, k1=0.015, k2=0.04)):
+    for win in CUSTOM_WINDOWS:
         a, b = pair(gen, (2, 300, 500))
         e, _, _ = compare_precise(f"u8 (2, 300, 500) {win}", a, b,
                                   oracle=(DOUBLE_GLOBAL, DOUBLE_PIXEL), **win)
@@ -1673,7 +1748,8 @@ def compare_batch(name, a, b, *, oracle=None, **kw):
     npix = h * w
     allow = a.dtype == torch.float32
     err, got, parts = 0.0, {}, []
-    streams = ssim_cuda.stream_applies("batch", kw.get("radius", 5), 0)
+    # The packed batch stream serves radius 5 only; other radii the tile body.
+    streams = kw.get("radius", 5) == 5
     for precise in (False, True):
         before = ssim_cuda.STREAM_LAUNCHES
         pk = ssim_cuda.ssim_parts_batch_cuda(a, b, precise=precise, allow_float=allow, **kw)
@@ -1762,8 +1838,7 @@ def phase_batch(gen, label):
         check(np.isnan(g[1]) and np.isfinite(np.delete(g, 1)).all(),
               f"NaN in row 0 (precise={precise}): scores {g}")
     err = max(err, e2)
-    for win in (dict(radius=1, sigma=0.8, k1=0.02, k2=0.05),
-                dict(radius=16, sigma=3.0, k1=0.015, k2=0.04)):
+    for win in CUSTOM_WINDOWS:
         a, b = pair(gen, (4, 64, 64))
         e, _ = compare_batch(f"u8 (4, 64, 64) {win}", a, b,
                              oracle=(ORACLE_GLOBAL, DOUBLE_GLOBAL), **win)
@@ -2008,6 +2083,7 @@ def bands_fwd(name, a, b, splits, **win):
     row_tol = TWIN_PIXEL_R1 * w if r == 1 else TWIN_PIXEL * w
     pix_tol = TWIN_PIXEL_R1 if r == 1 else TWIN_PIXEL
     err, rows_all, maps_all = 0.0, [], []
+    stream = ssim_cuda.STREAM_LAUNCHES
     for i, (lo, hi) in enumerate(splits):
         flags = (i == 0, i == len(splits) - 1)
         a_s, b_s = a[:, lo:hi].contiguous(), b[:, lo:hi].contiguous()
@@ -2035,6 +2111,11 @@ def bands_fwd(name, a, b, splits, **win):
     rows_rs, _ = ssim_cuda.ssim_rows_cuda(a, b, allow_float=allow, **win)
     rows_u = ssim_cuda.row_sums_plain(map_u)
     torch.cuda.synchronize()
+    # kRowsum and kRowsumMap a band, kMap and kRowsum unsharded: every one
+    # streams at every radius 1-16.
+    want = 2 * len(splits) + 2
+    check(ssim_cuda.STREAM_LAUNCHES - stream == want,
+          f"{name}: {ssim_cuda.STREAM_LAUNCHES - stream} streaming launches, expected {want}")
     rows_tw, _ = rows_twin(a, b, None, (False, False), **win)
     e_whole = finite_err(rows_rs, rows_tw, f"{name} unsharded kRowsum")
     check(e_whole <= row_tol,
@@ -2174,8 +2255,7 @@ def phase_spatial_kernels(gen):
     e, _ = bands_bwd("1080p x4 f32 in 3 bands, w_cs", af, bf, even_splits(1080, 3),
                      1.0, 0.2)
     bwd_err = max(bwd_err, e)
-    for win in (dict(radius=1, sigma=0.8, k1=0.02, k2=0.05),
-                dict(radius=16, sigma=3.0, k1=0.015, k2=0.04)):
+    for win in CUSTOM_WINDOWS:
         a2, b2 = pair(gen, (2, 540, 1000))
         e, _ = bands_fwd("u8", a2, b2, even_splits(540, 3), **win)
         fwd_err = max(fwd_err, e)
@@ -4595,6 +4675,262 @@ def testing_report(label):
                                                              if k[0] == "Acc"},
                 throughput={k[1]: v for k, v in rows.items() if k[0] == "Thr"})
 
+# ---------------------------------------------------------------------------
+# Phase 15: the forward's row stream at a runtime radius.
+
+RT_MODES = ("score", "map", "rowsum", "rowsum_map", "precise", "precise_map",
+            "components", "pooled")
+# The main path's custom windows: compute_ssim on NumPy 4K x4 u8 frames.
+RT_MAIN_RADII = (1, 3, 8, 16)
+RT_MAIN_SHAPE = (4, 2160, 3840)
+# The kernels line's figures: kScore on 4K x4 u8 at this radius.
+RT_LINE_RADIUS = 8
+
+
+def rt_kw(a, mode, radius, sigma):
+    """The launch's and the twin's keywords for `mode` at radius (f64 taps
+    in the precise modes)."""
+    from ssim_tpu_torch.ops import ssim_cuda
+
+    dr = 1.0 if a.dtype == torch.float32 else 255.0
+    precise = mode.startswith("precise")
+    return dict(taps=ssim_cuda.gaussian_taps(np.float64 if precise else np.float32, radius,
+                                             sigma),
+                c1=(0.01 * dr) ** 2, c2=(0.03 * dr) ** 2, clip_bound=max(131072.0, 4.0 * dr),
+                tile_h=ssim_cuda.TILE_H, tile_w=ssim_cuda.TILE_W)
+
+
+def rt_twin(a, b, mode, kw, **halo):
+    """The plain twin of `mode` on the same card tensors, returned as
+    ssim_cuda._launch returns the kernel's outputs."""
+    from ssim_tpu_torch.ops import ssim_cuda
+
+    if mode.startswith("rowsum"):
+        return ssim_cuda.ssim_rows_plain(a, b, with_map=mode == "rowsum_map", **halo, **kw)
+    if mode.startswith("precise"):
+        return ssim_cuda.ssim_parts_precise_plain(a, b, with_map=mode == "precise_map", **kw)
+    if mode == "pooled":
+        return ssim_cuda.ssim_components_pooled_plain(a, b, **kw)
+    if mode == "components":
+        return ssim_cuda.ssim_components_plain(a, b, **kw)
+    return ssim_cuda.ssim_parts_plain(a, b, with_map=mode == "map", **kw)
+
+
+def rt_errors(name, mode, got, want, shape):
+    """A runtime-radius launch against its twin: maps and pooled images bit
+    for bit (NaN at the same pixels), NaN at the same partials, scores
+    within TWIN_GLOBAL (never tighter than 2 TWIN_PIXEL / sqrt(npix); 5e-5
+    per pixel at radius 1 as elsewhere), row sums within W TWIN_PIXEL,
+    precise scores within PRECISE_REL relative. Returns the largest
+    absolute score or row error."""
+    npix = shape[-2] * shape[-1]
+    if mode in ("components", "pooled"):
+        if mode == "pooled":
+            for x, y in zip(got[1:], want[1:]):
+                check(same(x, y), f"{name}: pooled images differ from the twin's")
+            got, want = got[0], want[0]
+        check(torch.equal(got.isnan(), want.isnan()), f"{name}: NaN tiles differ")
+        gk = got.double().sum(-2).cpu().numpy() / npix
+        gp = want.double().sum(-2).cpu().numpy() / npix
+        err = float(np.nanmax(np.abs(gk - gp), initial=0.0))
+        tol = max(TWIN_GLOBAL, 2 * TWIN_PIXEL / npix**0.5)
+        check(err <= tol, f"{name}: components vs twin {err:.3g} (tol {tol:.3g})")
+        return err
+    (pk, mk), (pp, mp) = got, want
+    if mp is not None:
+        check(same(mk, mp), f"{name}: the map differs from the twin's")
+    check(torch.equal(pk.isnan(), pp.isnan()), f"{name}: NaN partials differ")
+    if mode.startswith("rowsum"):
+        ok = ~pp.isnan()
+        err = float((pk[ok] - pp[ok]).abs().max()) if ok.any() else 0.0
+        check(err <= TWIN_PIXEL * shape[-1], f"{name}: rows vs twin {err:.3g}")
+        return err / shape[-1]
+    gk, gp = scores(pk, npix), scores(pp, npix)
+    err = float(np.nanmax(np.abs(gk - gp), initial=0.0))
+    if mode.startswith("precise"):
+        rel = float(np.nanmax(np.abs(gk - gp) / np.abs(gp), initial=0.0))
+        check(rel <= PRECISE_REL, f"{name}: precise vs twin {rel:.3g} relative")
+    else:
+        tol = max(TWIN_GLOBAL, 2 * TWIN_PIXEL / npix**0.5)
+        check(err <= tol, f"{name}: scores vs twin {err:.3g} (tol {tol:.3g})")
+    return err
+
+
+def rt_launches(fn):
+    """fn()'s result and its forward launches at a radius other than 5 that
+    streamed (streamed_by_mode by radius)."""
+    out, by = streamed_by_mode(fn, key=lambda kw: len(kw["taps"]) // 2)
+    return out, sum(n for r, n in by.items() if r != 5)
+
+
+def phase_radius(gen, label):
+    """Phase 15: (a) the runtime-radius instantiation in all eight modes at
+    every radius 1-16 but 5 against the twins, outputs poisoned, at the
+    segment the wrapper picks pinned (u8 and f32 with NaN and inf), the row
+    modes with halo operands of r rows, every launch streaming (no rule
+    keeps the tile body there); beside it the tile body (pinned), which
+    still serves a tile_w of 256, in the same eight modes at every radius
+    1-16 at the tile fit_tile gives a 32 x 256 setting, outputs poisoned,
+    against the twin at that tile; (b) the main path: compute_ssim with
+    custom windows on NumPy 4K x4 u8, counts from 0 (one forward launch a
+    call, streaming), scores and the map against the twin;
+    (c) the stream and the tile body in turns at radii 1, 3, 4, 6, 8, 16
+    (tools/fwd_times.radius_times) beside each bound, and the twin's time
+    at RT_LINE_RADIUS."""
+    import ssim_tpu_torch
+    from ssim_tpu_torch.ops import ssim_cuda
+    from ssim_tpu_torch.tools import fwd_times
+
+    print("phase 15: the forward's row stream at a runtime radius "
+          "(ssim_fwd_stream_rt.cu)", flush=True)
+    t0 = time.perf_counter()
+    sigma = fwd_times.RADIUS_SIGMA.__getitem__
+    err, checked, body_err, body_checked = 0.0, 0, 0.0, 0
+    # (a) Every mode at every radius.
+    u8 = pair(gen, (2, 301, 517))
+    f32 = pair(gen, (2, 133, 300), torch.float32, 1.0)
+    f32[0][0, 31, 64] = float("nan")
+    f32[1][1, 70, 127] = float("inf")
+    for radius in range(1, ssim_cuda.MAX_FUSED_RADIUS + 1):
+        for mode in RT_MODES:
+            body_tile = ssim_cuda.fit_tile(32, 256, radius, mode.startswith("precise"))
+            for a, b in (u8, f32):
+                kw = rt_kw(a, mode, radius, sigma(radius))
+                halo = {}
+                if mode.startswith("rowsum"):
+                    h = a.shape[1]
+                    halo = dict(vhalo=(a[:, h - radius:].contiguous(),
+                                       a[:, :radius].contiguous(),
+                                       b[:, h - radius:].contiguous(),
+                                       b[:, :radius].contiguous()), vmask=(0, 1))
+                # The tile body, pinned, at the tile a tile_w 256 setting gets.
+                kt = dict(kw, tile_h=body_tile[0], tile_w=body_tile[1])
+                before = ssim_cuda.STREAM_LAUNCHES
+                got = poisoned(lambda: ssim_cuda._launch(a, b, mode=mode, tile_body=True,
+                                                         **halo, **kt))
+                torch.cuda.synchronize()
+                check(ssim_cuda.STREAM_LAUNCHES == before,
+                      f"{mode} radius {radius}: the pinned tile body streamed")
+                body_err = max(body_err, rt_errors(
+                    f"tile body {body_tile} {mode} {a.dtype} radius {radius}", mode, got,
+                    rt_twin(a, b, mode, kt, **halo), a.shape))
+                body_checked += 1
+                if radius == ssim_cuda.STREAM_RADIUS:
+                    continue
+                res = ssim_cuda._stream_resident(a.device.index, mode,
+                                                 a.dtype == torch.float32, False, radius)
+                seg = ssim_cuda.stream_segment(*a.shape, kw["tile_h"], 2 * radius, res)
+                before = ssim_cuda.STREAM_LAUNCHES
+                got = poisoned(lambda: ssim_cuda._launch(a, b, mode=mode, segment=seg,
+                                                         **halo, **kw))
+                torch.cuda.synchronize()
+                check(ssim_cuda.STREAM_LAUNCHES == before + 1,
+                      f"{mode} radius {radius}: the pinned launch did not stream")
+                want = rt_twin(a, b, mode, kw, **halo)
+                err = max(err, rt_errors(f"{mode} {a.dtype} radius {radius}", mode, got,
+                                         want, a.shape))
+                checked += 1
+    # Wider than the TPU kernel's 16384 lanes (K2's widths): the same grid.
+    wide = pair(gen, (1, 70, 16500))
+    for radius in (1, 8, 16):
+        for mode in RT_MODES:
+            kw = rt_kw(wide[0], mode, radius, sigma(radius))
+            before = ssim_cuda.STREAM_LAUNCHES
+            got = poisoned(lambda: ssim_cuda._launch(*wide, mode=mode, **kw))
+            torch.cuda.synchronize()
+            check(ssim_cuda.STREAM_LAUNCHES == before + 1,
+                  f"{mode} radius {radius} (1, 70, 16500): the launch did not stream")
+            err = max(err, rt_errors(f"{mode} u8 (1, 70, 16500) radius {radius}", mode, got,
+                                     rt_twin(*wide, mode, kw), wide[0].shape))
+            checked += 1
+    print(f"  {checked} streaming launches (8 modes, radii 1-16 but 5, u8 (2, 301, 517) "
+          f"and f32 (2, 133, 300) with NaN and inf, row modes with halo operands of r rows; "
+          f"radii 1, 8, 16 on u8 (1, 70, 16500)), outputs poisoned: all match the twins, "
+          f"largest score / row error {err:.3g}; the tile body (pinned, fit_tile(32, 256)) "
+          f"in the same modes at radii 1-16: {body_checked} launches, outputs poisoned, all "
+          f"match the twins, largest error {body_err:.3g}", flush=True)
+    del u8, f32, wide
+
+    # (b) The main path.
+    a, b = pair(gen, RT_MAIN_SHAPE)
+    a_np, b_np = a.cpu().numpy(), b.cpu().numpy()
+    launches, calls = 0, {}
+    for radius in RT_MAIN_RADII:
+        win = dict(radius=radius, sigma=sigma(radius))
+        for extra in (dict(), dict(with_map=True), dict(precision="f64")):
+            zero_counts()
+            got, n = rt_launches(lambda: ssim_tpu_torch.compute_ssim(a_np, b_np, **win,
+                                                                      **extra))
+            counts = {k: v for k, v in launch_counts().items() if v}
+            mode = ("precise" if extra.get("precision") else
+                    "map" if extra.get("with_map") else "score")
+            check(n == 1 and counts.get("stream", 0) == 1
+                  and counts.get("precise" if mode == "precise" else "standard") == 1
+                  and sum(counts.values()) == 2,
+                  f"compute_ssim radius {radius} {extra}: launches {counts}, runtime-radius "
+                  f"streams {n}, expected 1")
+            launches += n
+            calls[f"r{radius} {mode}"] = counts
+            kw = rt_kw(a, mode, radius, win["sigma"])
+            pp, mp = rt_twin(a, b, mode, kw)
+            g_twin = scores(pp, a.shape[1] * a.shape[2])
+            if extra.get("with_map"):
+                check(torch.equal(torch.from_numpy(np.asarray(got[1])), mp.cpu()),
+                      f"compute_ssim radius {radius}: the map differs from the twin's")
+                got = got[0]
+            got = np.asarray(got, np.float64)
+            e = float(np.abs(got - g_twin).max())
+            tol = (PRECISE_REL * float(np.abs(g_twin).max()) if mode == "precise"
+                   else TWIN_GLOBAL)
+            check(got.shape == (RT_MAIN_SHAPE[0],) and e <= tol,
+                  f"compute_ssim radius {radius} {extra}: {got} vs the twin {g_twin}")
+            err = max(err, e)
+            del pp, mp
+    print(f"  compute_ssim NumPy u8 {RT_MAIN_SHAPE}, no device, radii {RT_MAIN_RADII}, "
+          f"score / map / f64: {launches} runtime-radius streaming launches; "
+          f"{calls}", flush=True)
+
+    # (c) Times.
+    ms = {}
+    fwd_times.radius_times(gen, ms)
+    times = {}
+    for name, mode, shape, is_f32 in fwd_times.RADIUS_CASES:
+        bsz, h, w = shape
+        npix = bsz * h * w
+        tiles = bsz * -(-h // 32) * -(-w // 64)
+        for radius in fwd_times.RADII:
+            if mode == "precise":
+                bnd, by = precise_bound(shape, 1, radius=radius)
+            elif mode == "components":
+                bnd, by = comp_bound(shape, 4, False, radius=radius)
+            elif mode == "map":
+                bnd, by = fwd_bound(shape, 1, radius=radius, out_bytes=4 * tiles + 4 * npix)
+            elif mode == "rowsum":
+                bnd, by = fwd_bound(shape, 1, radius=radius,
+                                    out_bytes=4 * bsz * h + 4 * radius * bsz * w)
+            else:
+                bnd, by = fwd_bound(shape, 1, radius=radius)
+            key = f"{name} r{radius}"
+            times[key] = dict(ms=ms[key], tile_body_ms=ms[f"{key} tile body"],
+                              segment=ms[f"{key} segment"], bound_ms=bnd, bound_by=by,
+                              shape=list(shape))
+            print(f"  {key}: stream {ms[key]:.4f} ms, tile body "
+                  f"{ms[f'{key} tile body']:.4f} ms (stream / tile body "
+                  f"{ms[key] / ms[f'{key} tile body']:.3f}), bound {bnd:.4f} ms ({by}) | "
+                  f"{label}", flush=True)
+    a, b = pair(gen, RT_MAIN_SHAPE)
+    kw = rt_kw(a, "score", RT_LINE_RADIUS, sigma(RT_LINE_RADIUS))
+    line = dict(times[f"kScore 4k_b4 r{RT_LINE_RADIUS}"])
+    line["plain_ms"] = cuda_ms(lambda: rt_twin(a, b, "score", kw), 3)
+    print(f"  kScore 4k_b4 r{RT_LINE_RADIUS}: twin {line['plain_ms']:.3f} ms", flush=True)
+    del a, b
+    torch.cuda.empty_cache()
+    seconds = time.perf_counter() - t0
+    print(f"  phase 15: {seconds:.1f} s", flush=True)
+    return dict(err=err, launches=launches, calls=calls, times=times, line=line,
+                checked=checked, body_err=body_err, body_checked=body_checked,
+                seconds=seconds)
+
 
 def fail_line(error):
     """The one line printed when the script cannot start, before its
@@ -4645,6 +4981,7 @@ def main():
     cli = phase_cli(gen, label)
     par = phase_parallel(gen, label)
     testing = phase_testing(gen, label)
+    radius = phase_radius(gen, label)
     check("jax" not in sys.modules, "JAX was imported")
 
     ref = records["4k_b4"]
@@ -4978,6 +5315,26 @@ def main():
         "step_trace_busy_ms": relaxed["times"]["ssim_loss step"]["relaxed"]["trace_busy_ms"],
         "step_trace_k3_ms": relaxed["times"]["ssim_loss step"]["relaxed"]["trace_k3_ms"],
         "standard_ms_gmap": relaxed["times"]["K3 grad_1080_b4 g_map"]["standard_ms"],
+    }, {
+        "name": "ssim_fwd_stream_rt",
+        "route": "cuda",
+        "source": "ssim_tpu_torch/csrc/ssim_fwd_stream_rt.cu",
+        "header": "ssim_tpu_torch/csrc/fwd_stream_kernel.cuh",
+        "design": RT_STREAM_DESIGN,
+        "replaces": "ssim_tpu/ops/ssim_pallas.py:710, ssim_tpu/ops/ssim_pallas.py:1364 "
+                    "(a custom window: radius 1-16 but 5)",
+        "launches": radius["launches"],
+        "launches_by_call": radius["calls"],
+        "max_abs_err": radius["err"],
+        **{k: radius["line"][k]
+           for k in ("ms", "plain_ms", "bound_ms", "bound_by", "shape", "tile_body_ms",
+                     "segment")},
+        "radius": RT_LINE_RADIUS,
+        "library_ms": None,
+        "checked_launches": radius["checked"],
+        "tile_body_checked_launches": radius["body_checked"],
+        "tile_body_max_abs_err": radius["body_err"],
+        "times": radius["times"],
     }, {
         "name": "pad_align",
         "route": "cuda",

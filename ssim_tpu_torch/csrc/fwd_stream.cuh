@@ -57,6 +57,15 @@ constexpr int kStreamRing = 2 * (2 * kStreamR + 1);
 static_assert(kStripW == 16 * 8, "the row's band product takes 8 tiles of 16 columns");
 static_assert((kStreamStaged & (kStreamStaged - 1)) == 0, "a power of two");
 
+// The runtime-radius instantiation (kR = 0, ssim_fwd_stream_rt.cu): any
+// radius from 1 to kMaxStreamR, the window's 2r + 1 rows of all four
+// signals in a ring in dynamic shared memory (ssim_fwd_stream_rt.cu
+// stream_rt_smem_bytes), the taps in shared memory; the blocks per SM asked
+// of ptxas as at kStreamR (64 registers, 128 in the precise modes; no
+// spills), which the ring's size lowers from radius 6 up: on an H100 8 at
+// radii 1-4 to 3 at 13-16, precise 4 to 1 (PERF.md).
+constexpr int kMaxStreamR = kMaxTaps / 2;
+
 template <int kMode, int kSplit = 0>
 constexpr int kStreamBlocksOf =
     kSplit > 0 ? (kMode == kComponents || kMode == kPooled ? kStreamRelaxedCompBlocks
@@ -66,10 +75,33 @@ constexpr int kStreamBlocksOf =
 template <int kMode>
 constexpr int kStreamRingOf = kIsPrecise<kMode> ? kStreamPreciseRing : 0;
 
-template <typename P>
+// The stream's taps, kernel parameters: the 2 kR + 1 of the register-window
+// radius; with kR = 0 up to kMaxTaps and the radius r itself.
+template <typename P, int kR = kStreamR>
 struct StreamTaps {
-  P t[2 * kStreamR + 1];
+  P t[2 * kR + 1];
 };
+template <typename P>
+struct StreamTaps<P, 0> {
+  P t[kMaxTaps];
+  int r;
+};
+// The radius of a StreamTaps: with kR > 0 an object whose type carries the
+// value (so the kernel's code, written for a runtime radius, folds as
+// written for kR), else the runtime tp.r.
+template <int kR>
+struct StreamRadius {
+  __host__ __device__ constexpr operator int() const { return kR; }
+};
+template <typename P, int kR>
+__host__ __device__ __forceinline__ constexpr StreamRadius<kR> stream_radius(
+    const StreamTaps<P, kR>&) {
+  return {};
+}
+template <typename P>
+__host__ __device__ __forceinline__ int stream_radius(const StreamTaps<P, 0>& tp) {
+  return tp.r;
+}
 
 // The four signals of one column, in the blur's type.
 template <typename P>
@@ -108,16 +140,21 @@ struct StagedRow<double, N> {
     ab[j] = make_double2(da, db);
     sd[j] = make_double2(sm * sm, df * df);
   }
+  __device__ __forceinline__ Vec4<double> get(int j) const {
+    const double2 p = ab[j], q = sd[j];
+    return {p.x, p.y, q.x, q.y};
+  }
 };
 
 // Symmetric taps over 2r + 1 four-signal values: sum_{d=r..1} t[r-d]
 // (v(-d) + v(d)) + t[r] v(0), per component, v(i) the value at offset i
-// from the centre; the sum starts at the d = r term, as the twin's.
-template <typename P, typename V>
-__device__ __forceinline__ void sym4(const StreamTaps<P>& tp, V&& v, P (&acc)[4]) {
-  constexpr int r = kStreamR;
+// from the centre, tap(i) the tap t[i]; the sum starts at the d = r term,
+// as the twin's. r: a StreamRadius (the loop unrolled) or an int (the
+// runtime-radius instantiation: a loop).
+template <typename P, typename R, typename Tap, typename V>
+__device__ __forceinline__ void sym4(R r, Tap&& tap, V&& v, P (&acc)[4]) {
   {
-    const P t = tp.t[0];
+    const P t = tap(0);
     const Vec4<P> lo = v(-r), hi = v(r);
     acc[0] = t * (lo.x + hi.x);
     acc[1] = t * (lo.y + hi.y);
@@ -126,19 +163,24 @@ __device__ __forceinline__ void sym4(const StreamTaps<P>& tp, V&& v, P (&acc)[4]
   }
 #pragma unroll
   for (int d = r - 1; d >= 1; --d) {
-    const P t = tp.t[r - d];
+    const P t = tap(r - d);
     const Vec4<P> lo = v(-d), hi = v(d);
     acc[0] += t * (lo.x + hi.x);
     acc[1] += t * (lo.y + hi.y);
     acc[2] += t * (lo.z + hi.z);
     acc[3] += t * (lo.w + hi.w);
   }
-  const P tc = tp.t[r];
+  const P tc = tap(r);
   const Vec4<P> ce = v(0);
   acc[0] = acc[0] + tc * ce.x;
   acc[1] = acc[1] + tc * ce.y;
   acc[2] = acc[2] + tc * ce.z;
   acc[3] = acc[3] + tc * ce.w;
+}
+// sym4 with the kernel parameters' taps at the register window's radius.
+template <typename P, typename V>
+__device__ __forceinline__ void sym4(const StreamTaps<P>& tp, V&& v, P (&acc)[4]) {
+  sym4(stream_radius(tp), [&](int i) { return tp.t[i]; }, v, acc);
 }
 // sym4's sums of two signals (one double2 plane) for two adjacent columns:
 // v points at the staged column 2r to the left of the first, o0 and o1 the

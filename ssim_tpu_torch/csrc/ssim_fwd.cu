@@ -56,8 +56,8 @@
 //   last row or column is dropped and no row past the image is read. (The
 //   Pallas f32 pool fed the unmasked rows of a ragged tile into a matrix
 //   product, which made its pooled images NaN; reading only rows inside
-//   the image repairs that.) Both modes stream rows at radius 5 (below),
-//   in the relaxed tier too; other radii run the tile body.
+//   the image repairs that.) Both modes stream rows (below) at every radius,
+//   relaxed at radius 5; the relaxed tier's other radii run the tile body.
 // - kBatch / kBatchPrecise (the small-image batch route): one partial
 //   pair per image, [sum(ssim - 1), n = H*W], f32 in kBatch (the JAX
 //   contract's (B, 2)) and f64 in kBatchPrecise (where the TPU writes
@@ -145,7 +145,7 @@
 // components modes add a second division and a second tile sum a pixel.
 // The precise modes run the ~130 blur operations per pixel
 // in fp64 (half the f32 rate on an H100; the tile body, which still serves
-// other radii, keeps twice the planes' bytes in shared memory), plus the
+// tile_w 256, keeps twice the planes' bytes in shared memory), plus the
 // ~30 fp64 operations of the formula, one of them a division (a short
 // software sequence).
 // The batch modes do the same work per pixel; a 64-wide image fills half
@@ -164,12 +164,17 @@
 // kScore, kMap, kRowsum and kRowsumMap (with or without halo operands) and
 // kComponents and kPooled (the same blurs, step (c)'s epilogue theirs) in
 // f32, kPrecise and kPreciseMap in fp64 (the same body with the blurs'
-// type Blur<kMode>), and relaxed kScore, kMap, kComponents and kPooled
-// (kSplit > 0, below), at radius kStreamR = 5 (windows.RADIUS, every
-// main-path shape and MS-SSIM scale) and tiles up to kStripW columns wide;
-// kBatch (either tier) and kBatchPrecise at radius kStreamR run its steps
-// (b)-(d) over packed rows of images (ssim_fwd_batch_stream_kernel,
-// ssim_fwd_batch.cu); every other radius and tile keeps the tile body
+// type Blur<kMode>) at every radius, and relaxed kScore, kMap, kComponents
+// and kPooled (kSplit > 0, below) at radius kStreamR = 5 (windows.RADIUS,
+// every main-path shape and MS-SSIM scale), with tiles up to kStripW
+// columns wide. At kStreamR the window is in registers (these
+// instantiations, below); any other radius, a custom window, runs
+// ssim_fwd_stream_rt.cu's instantiation with the radius read at run time
+// and the window in a ring in shared memory (measured faster than the tile
+// body at every radius 1-16, PERF.md). kBatch (either tier) and
+// kBatchPrecise at radius kStreamR run its steps (b)-(d) over packed rows
+// of images (ssim_fwd_batch_stream_kernel, ssim_fwd_batch.cu); the relaxed
+// and batch modes at other radii and tile_w 256 keep the tile body
 // (ops/ssim_cuda.py::stream_applies states the rule; the components and
 // pooled modes stream only from 2^20 pixels a launch, STREAM_COMP_MIN_PIX,
 // relaxed from 2^22, STREAM_RELAXED_COMP_MIN_PIX: below them a block's
@@ -636,22 +641,6 @@ __global__ void batch_reduce_kernel(const double* __restrict__ scratch,
   partials[2 * (size_t)img + 1] = (Out)n;
 }
 
-// The row modes' second pass: each row's ntx pieces added in order, in
-// double, rounded to f32, plus W in f32 (rows + w, ssim_pallas.py:1328-1330).
-// One thread per row.
-__global__ void rowsum_reduce_kernel(const float* __restrict__ pieces,
-                                     float* __restrict__ rows, int B, int ntx,
-                                     int H, float w) {
-  const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= (long long)B * H) return;
-  const int img = (int)(i / H);
-  const int y = (int)(i - (long long)img * H);
-  const float* p = pieces + (size_t)img * ntx * (size_t)H + (size_t)y;
-  double s = 0.0;
-  for (int t = 0; t < ntx; ++t) s += p[(size_t)t * H];
-  rows[i] = (float)s + w;
-}
-
 }  // namespace
 
 // ---------------------------------------------------------------------------
@@ -660,463 +649,9 @@ __global__ void rowsum_reduce_kernel(const float* __restrict__ pieces,
 // stream shares (ssim_fwd_batch.cu), are in fwd_stream.cuh.
 
 #include "fwd_stream.cuh"
+#include "fwd_stream_kernel.cuh"
 
 namespace {
-
-// kScore / kMap: partials (B, nty * ntx) f32 as the tile body writes them
-// (kSplit > 0: the relaxed modes, kSplit = kStreamSplit); kPrecise /
-// kPreciseMap: the same in f64, the blurs, formula and sums in fp64
-// (Blur<kMode>); kRowsum / kRowsumMap: pieces (B, ntx, H) f32, each tile's
-// piece of each of its rows, for rowsum_reduce_kernel; kComponents /
-// kPooled: partials (B, nty * ntx, 2) f32, [sum(cs - 1), sum(ssim - 1)] +
-// n_valid, and in kPooled the 2x2-mean images pool_a, pool_b (B, H/2, W/2)
-// f32 of the block's own rows and columns (TH even). TH x TW: the tile (TW
-// a power of two in [32, kStripW]); S: the segment's rows (a multiple of TH,
-// at most kMaxSegTiles tiles).
-template <typename T, int kMode, int kSplit = 0>
-__global__ void __launch_bounds__(kStreamThreads, kStreamBlocksOf<kMode, kSplit>)
-ssim_fwd_stream_kernel(const T* __restrict__ a, const T* __restrict__ b,
-                       Blur<kMode>* __restrict__ partials, float* __restrict__ map,
-                       float* __restrict__ pieces, Halo<T> halo, int H, int W,
-                       int TH, int TW, int S, int nstrip, int nseg, int ntx,
-                       int nty, StreamTaps<Blur<kMode>> tp, Blur<kMode> c1,
-                       Blur<kMode> c2, float clip_bound, float* __restrict__ pool_a,
-                       float* __restrict__ pool_b) {
-  using P = Blur<kMode>;
-  constexpr int r = kStreamR;
-  constexpr int kP = 2 * r + 1;  // window rows = steps unrolled
-  constexpr int kNT = kStreamThreads;
-  constexpr int kInW = kStreamInW;
-  constexpr int kLoads = (kInW + kNT - 1) / kNT;
-  constexpr bool kFloat = sizeof(T) == 4;
-  constexpr bool kWithMap = kMode == kMap || kMode == kRowsumMap || kMode == kPreciseMap;
-  constexpr bool kRows = kMode == kRowsum || kMode == kRowsumMap;
-  constexpr int kRing = kStreamRingOf<kMode>;  // signals in the shared ring
-  constexpr bool kRelaxed = kSplit > 0;
-  constexpr bool kComp = kMode == kComponents || kMode == kPooled;
-  constexpr bool kPool = kMode == kPooled;
-  // Signals in registers (relaxed: mu_a and mu_b; the other two are read
-  // from the blurred rows' ring).
-  constexpr int kRegS = kRelaxed ? 2 : 4 - kRing;
-  // Rows staged ahead of the step that blurs them.
-  constexpr int kLead = kRelaxed ? 3 : 1;
-  static_assert(kMode == kScore || kMode == kMap || kComp ||
-                    (!kRelaxed && (kRows || kMode == kPrecise || kMode == kPreciseMap)),
-                "main-path, components and precise modes only; relaxed: kScore, kMap, "
-                "kComponents and kPooled");
-  static_assert(!kRelaxed || kSplit == kStreamSplit, "the band's k-steps at kStreamR");
-
-  __shared__ StagedRow<P> s_in[2];          // staged rows, by step parity
-  __shared__ P s_red[2][kNT / 32];          // warp sums, by step parity
-  __shared__ unsigned s_bad[kMaxSegTiles];  // bit per tile column, word per tile row
-  // The components modes: the cs warp sums, by step parity.
-  __shared__ P s_red_cs[kComp ? 2 * (kNT / 32) : 1];
-  // kPooled: the raw inputs (unsanitised, in f32) of the strip's own
-  // columns, a then b, stream row q in slot q mod 4: step s pools rows
-  // s + kLead - 2 and s + kLead - 1 while row s + kLead is staged (slot
-  // (s + kLead - 4) mod 4, read at step s - 2 or before).
-  __shared__ __align__(16) float s_raw[kPool ? 4 * 2 * kStripW : 1];
-  // The window's ring: slot k, signal kRegS + p, this thread's column.
-  __shared__ P s_ring[kRing > 0 ? kRing * kP * kNT : 1];
-  // Relaxed (instead of s_in): staged row q in slot q mod kStreamStaged of
-  // s_ab, followed by the ring, s_hres: the horizontal blurs of (a+b)^2,
-  // then of (a-b)^2, of row q in slot q mod kStreamRing, kStripW columns
-  // (ring_col) a slot; the band's fragments, per lane (hi then lo, one
-  // uint4 per k-step); the taps, for make_band.
-  constexpr int kAbFloats = 2 * kStreamStaged * kStreamInW;
-  constexpr int kRingFloats = 2 * kStreamRing * kStripW;
-  __shared__ __align__(16) float s_rel[kRelaxed ? kAbFloats + kRingFloats : 1];
-  [[maybe_unused]] float2* s_ab = reinterpret_cast<float2*>(s_rel);
-  [[maybe_unused]] float* s_hres = s_rel + kAbFloats;
-  __shared__ uint4 s_band[kRelaxed ? 2 * kSplit * 32 : 1];
-  __shared__ float s_taps[kRelaxed ? kP : 1];
-
-  const int tid = threadIdx.x;
-  if (tid < kMaxSegTiles) s_bad[tid] = 0u;
-  if constexpr (kRelaxed) {
-    // Zeros in the columns no row is staged to and in the ring, which
-    // row_pass reads past a row's staged columns (times zeros of the band:
-    // they must be finite).
-    for (int i = tid; i < kAbFloats + kRingFloats; i += kNT) s_rel[i] = 0.0f;
-    if (tid == 0) {
-#pragma unroll
-      for (int k = 0; k < kP; ++k) s_taps[k] = tp.t[k];
-    }
-  }
-  // Before the prologue's stage(0), which may mark tiles in s_bad.
-  __syncthreads();
-  if constexpr (kRelaxed) {
-    if (tid < 32) {
-      const band_mma::Band<kSplit> bd = band_mma::make_band<kSplit>(s_taps, r);
-#pragma unroll
-      for (int ks = 0; ks < kSplit; ++ks) {
-        s_band[ks * 32 + tid] = make_uint4(bd.hi[ks][0], bd.hi[ks][1], bd.hi[ks][2],
-                                           bd.hi[ks][3]);
-        s_band[(kSplit + ks) * 32 + tid] = make_uint4(bd.lo[ks][0], bd.lo[ks][1],
-                                                      bd.lo[ks][2], bd.lo[ks][3]);
-      }
-    }
-  }
-
-  int blk = blockIdx.x;
-  const int strip = blk % nstrip;
-  blk /= nstrip;
-  const int seg = blk % nseg;
-  const int img = blk / nseg;
-  const int x0 = strip * kStripW;
-  const int y0 = seg * S;
-  const int vw = min(kStripW, W - x0);  // valid output columns
-  const int vh = min(S, H - y0);        // valid output rows
-  const size_t base = (size_t)img * (size_t)H * (size_t)W;
-  const int n = vh + 2 * r;  // stream rows: virtual row y0 - r + q
-  const bool col_on = tid < vw;  // this thread's output column x0 + tid
-  const int tcol = tid / TW;     // its tile column in the strip
-  const bool lead = tid == tcol * TW && col_on;  // combines its tile's sums
-  const int txg = x0 / TW + tcol;  // its tile column in the image
-  const int ty_base = y0 / TH;     // the segment's first tile row
-
-  // Staging: stream row q loaded into registers (fetch), then staged
-  // (stage). Staged column j is image column x0 - r + j, clamped.
-  T pa[kLoads], pb[kLoads];
-  int gxl[kLoads];
-#pragma unroll
-  for (int q = 0; q < kLoads; ++q) {
-    gxl[q] = min(max(x0 - r + tid + q * kNT, 0), W - 1);
-  }
-  auto fetch = [&](int q) {
-    const int vi = y0 - r + q;
-    const T* ra;
-    const T* rb;
-    if (kRows && vi < 0 && halo.at != nullptr && !halo.is_top) {
-      const size_t o = ((size_t)img * r + (size_t)(vi + r)) * (size_t)W;
-      ra = halo.at + o;
-      rb = halo.bt + o;
-    } else if (kRows && vi >= H && halo.ab != nullptr && !halo.is_bot) {
-      const size_t o = ((size_t)img * r + (size_t)(vi - H)) * (size_t)W;
-      ra = halo.ab + o;
-      rb = halo.bb + o;
-    } else {
-      const size_t o = base + (size_t)min(max(vi, 0), H - 1) * (size_t)W;
-      ra = a + o;
-      rb = b + o;
-    }
-#pragma unroll
-    for (int k = 0; k < kLoads; ++k) {
-      if (tid + k * kNT < vw + 2 * r) {
-        pa[k] = __ldg(ra + gxl[k]);
-        pb[k] = __ldg(rb + gxl[k]);
-      }
-    }
-  };
-  auto stage = [&](int q) {
-    const int ly = q - r;  // the segment's output row this input row is
-#pragma unroll
-    for (int k = 0; k < kLoads; ++k) {
-      const int j = tid + k * kNT;
-      if (j < vw + 2 * r) {
-        float va = to_f32(pa[k]);
-        float vb = to_f32(pb[k]);
-        if constexpr (kPool) {
-          // The pool's source: the strip's own columns, raw (a u8 value
-          // converts exactly; an f32 NaN reaches its own pooled pixel).
-          const int xo = j - r;
-          if (xo >= 0 && xo < vw) {
-            float* raw = s_raw + (q & 3) * 2 * kStripW;
-            raw[xo] = va;
-            raw[kStripW + xo] = vb;
-          }
-        }
-        if (kFloat) {
-          // Poison source: the segment's own pixels, unsanitised (rare path).
-          if (!(finite_f32(va) && finite_f32(vb))) {
-            const int xo = j - r;
-            if (ly >= 0 && ly < vh && xo >= 0 && xo < vw) {
-              atomicOr(&s_bad[ly / TH], 1u << (xo / TW));
-            }
-          }
-          va = sanitize(va, clip_bound);
-          vb = sanitize(vb, clip_bound);
-        }
-        if constexpr (kRelaxed) {
-          s_ab[(q & (kStreamStaged - 1)) * kStreamInW + j] = make_float2(va, vb);
-        } else {
-          s_in[q & 1].put(j, va, vb);
-        }
-      }
-    }
-  };
-
-  // The window: the horizontal blurs of the last 2r + 1 stream rows, per
-  // signal, the row of stream index q in slot q mod kP; signals kRegS..3 in
-  // the shared ring where it has them. acc: this column's sum(ssim - 1) over
-  // the current tile's rows (the tile modes), acc_cs its sum(cs - 1) (the
-  // components modes).
-  P win[kRegS > 0 ? kRegS : 1][kP];
-  auto win_put = [&](int p, int k, P v) {
-    if (p >= kRegS) {
-      s_ring[(k * kRing + (p - kRegS)) * kNT + tid] = v;
-    } else {
-      win[p][k] = v;
-    }
-  };
-  auto win_get = [&](int p, int k) -> P {
-    return p >= kRegS ? s_ring[(k * kRing + (p - kRegS)) * kNT + tid] : win[p][k];
-  };
-  P acc = 0;
-  [[maybe_unused]] P acc_cs = 0;
-  int trow = 0;  // row within the current tile
-  int kt = 0;    // the current tile's row in the segment
-  // Warp sums waiting in s_red[(s - 1) & 1] for step s to combine: the
-  // tile row (tile modes) or the output row (row modes), else -1; and in
-  // the row modes the tile row that ended there, else -1.
-  int pend = -1, pend_end = -1;
-
-  auto tile_bad = [&](int t) -> bool {
-    return kFloat && ((s_bad[t] >> tcol) & 1u);
-  };
-  // Step s's combine of the warp sums written in step s - 1: the tile's
-  // warps in order.
-  auto combine = [&](int s) {
-    if (pend < 0) return;
-    const P* red = s_red[(s - 1) & 1] + tid / 32;
-    if (lead) {
-      P sum = 0;
-      for (int k = 0; k < TW / 32; ++k) sum += red[k];
-      if constexpr (kRows) {
-        const size_t prow = ((size_t)img * ntx + (size_t)txg) * (size_t)H;
-        pieces[prow + (size_t)(y0 + pend)] = sum;
-        if (pend_end >= 0 && tile_bad(pend_end)) {
-          // The tile ended at this row and holds a non-finite pixel: NaN
-          // over its rows' pieces, after their finite writes (this thread's).
-          const int ty0 = y0 + pend_end * TH;
-          for (int y = ty0; y <= y0 + pend; ++y) {
-            pieces[prow + (size_t)y] = __int_as_float(0x7fc00000);
-          }
-        }
-      } else {
-        const int tyg = ty_base + pend;
-        const int vth = min(TH, H - tyg * TH);
-        const int vtw = min(TW, W - txg * TW);
-        const P nan = (P)__int_as_float(0x7fc00000);
-        if constexpr (kComp) {
-          // [sum(cs - 1), sum(ssim - 1)] + n_valid, NaN in both.
-          const P* red_cs = s_red_cs + ((s - 1) & 1) * (kNT / 32) + tid / 32;
-          P sum_cs = 0;
-          for (int k = 0; k < TW / 32; ++k) sum_cs += red_cs[k];
-          const bool bad = tile_bad(pend);
-          const size_t t = ((size_t)img * nty + (size_t)tyg) * (size_t)ntx + (size_t)txg;
-          partials[2 * t] = bad ? nan : sum_cs + (P)(vth * vtw);
-          partials[2 * t + 1] = bad ? nan : sum + (P)(vth * vtw);
-        } else {
-          partials[((size_t)img * nty + (size_t)tyg) * (size_t)ntx + (size_t)txg] =
-              tile_bad(pend) ? nan : sum + (P)(vth * vtw);
-        }
-      }
-    }
-    pend = -1;
-    pend_end = -1;
-  };
-
-  // Prologue: stream rows 0 .. kLead - 1 staged, row kLead loading (n >=
-  // 2r + 1 rows).
-  fetch(0);
-  stage(0);
-  if constexpr (kRelaxed) {
-#pragma unroll
-    for (int q = 1; q < kLead; ++q) {
-      fetch(q);
-      stage(q);
-    }
-  }
-  if (n > kLead) fetch(kLead);
-  __syncthreads();
-  if constexpr (kRelaxed) {
-    // Row 0's heavy blurs, warp p plane p; each even step s then blurs rows
-    // s + 1 and s + 2.
-    if (tid < 64) {
-      const int plane = tid >> 5;
-      row_pass<kSplit>(s_ab, s_hres + plane * kStreamRing * kStripW, plane, s_band);
-    }
-    __syncthreads();
-  }
-
-  for (int s0 = 0; s0 < n; s0 += kP) {
-    // Relaxed: the ring's slots of rows s0 + d, d >= 0 in hr0 + d, d < 0 in
-    // hr1 + d (kStripW floats a slot, this thread's column).
-    [[maybe_unused]] const float* hr0 = nullptr;
-    [[maybe_unused]] const float* hr1 = nullptr;
-    if constexpr (kRelaxed) {
-      const int par = (s0 / kP) & 1;
-      hr0 = s_hres + (par ? kP : 0) * kStripW + ring_col(tid);
-      hr1 = s_hres + (par ? kP : 2 * kP) * kStripW + ring_col(tid);
-    }
-#pragma unroll
-    for (int k = 0; k < kP; ++k) {
-      const int s = s0 + k;
-      if (s < n) {
-        if constexpr (kRelaxed) {
-          // Even steps: rows s + 1 and s + 2's heavy blurs into their ring
-          // slots, row s + 1 + w / 2's plane w % 2 by warp w. Both rows were
-          // staged before the last barrier; steps from s + 1 read them, and
-          // each slot's last reader was step s - 2r or earlier.
-          if ((s & 1) == 0) {
-            const int q = s + 1 + (tid >> 6), plane = (tid >> 5) & 1;
-            if (q < n) {
-              row_pass<kSplit>(s_ab + (q & (kStreamStaged - 1)) * kStreamInW,
-                               s_hres + (plane * kStreamRing + q % kStreamRing) * kStripW,
-                               plane, s_band);
-            }
-          }
-        }
-        // (a) The warp sums of the step before.
-        combine(s);
-
-        // (b) Stream row s: horizontal blur into the window's slot k.
-        if constexpr (kIsPrecise<kMode>) {
-          // A thread pair blurs two columns: the even thread the (a, b)
-          // plane, the odd one the ((a+b)^2, (a-b)^2) plane, each for both
-          // columns; then each passes the other its column's half (every
-          // lane takes part in the shuffle).
-          const StagedRow<P>& row = s_in[s & 1];
-          const bool odd = tid & 1;
-          double2 o0, o1;
-          sym2x2(tp, (odd ? row.sd : row.ab) + (tid & ~1), o0, o1);
-          const double2 give = odd ? o0 : o1;
-          const double2 got = make_double2(__shfl_xor_sync(0xffffffffu, give.x, 1),
-                                           __shfl_xor_sync(0xffffffffu, give.y, 1));
-          const double2 ab = odd ? got : o0, sd = odd ? o1 : got;
-          if (col_on) {
-            win_put(0, k, ab.x);
-            win_put(1, k, ab.y);
-            win_put(2, k, sd.x);
-            win_put(3, k, sd.y);
-          }
-        } else if (col_on) {
-          if constexpr (kRelaxed) {
-            // mu_a, mu_b by the f32 symmetric pass ((a+b)^2 and (a-b)^2:
-            // row_pass, in the ring).
-            float h[2];
-            sym2(tp, s_ab + (s & (kStreamStaged - 1)) * kStreamInW + tid + r, h);
-            win_put(0, k, h[0]);
-            win_put(1, k, h[1]);
-          } else {
-            const StagedRow<P>& row = s_in[s & 1];
-            P h[4];
-            sym4(tp, [&](int i) { return row.get(tid + r + i); }, h);
-#pragma unroll
-            for (int p = 0; p < 4; ++p) win_put(p, k, h[p]);
-          }
-        }
-
-        // (c) Output row ly = s - 2r from stream rows s - 2r .. s (ages 2r
-        // .. 0: the row of age j in slot (k - j) mod kP).
-        if (s >= 2 * r) {
-          const int ly = s - 2 * r;
-          P v = 0;
-          [[maybe_unused]] P cs = 0;
-          if (col_on) {
-            P m[4];
-            if constexpr (kRelaxed) {
-              sym4(tp,
-                   [&](int i) {
-                     const int sl = (k - r + i + 2 * kP) % kP;
-                     const int d = k - r + i;  // row s0 + d
-                     const float* h = (d >= 0 ? hr0 : hr1) + d * kStripW;
-                     return Vec4<P>{win_get(0, sl), win_get(1, sl), h[0],
-                                    h[kStreamRing * kStripW]};
-                   },
-                   m);
-            } else {
-              sym4(tp,
-                   [&](int i) {
-                     const int sl = (k - r + i + 2 * kP) % kP;
-                     return Vec4<P>{win_get(0, sl), win_get(1, sl), win_get(2, sl),
-                                    win_get(3, sl)};
-                   },
-                   m);
-            }
-            if constexpr (kComp) {
-              v = components_of(m, c1, c2, cs);
-            } else {
-              v = ssim_of(m, c1, c2);
-            }
-            if (kWithMap) {
-              map[base + (size_t)(y0 + ly) * (size_t)W + (size_t)(x0 + tid)] = (float)v;
-            }
-          }
-          const bool tile_end = ++trow == TH || ly == vh - 1;
-          if constexpr (kRows) {
-            // The tile body's row piece: (ssim - 1) of each column, each
-            // warp's 32 columns by shuffles (idle columns add 0).
-            const float w = warp_sum(col_on ? v - 1.0f : 0.0f);
-            if ((tid & 31) == 0) s_red[s & 1][tid / 32] = w;
-            pend = ly;
-            pend_end = tile_end ? kt : -1;
-          } else {
-            if (col_on) {
-              acc += v - (P)1;
-              if constexpr (kComp) acc_cs += cs - (P)1;
-            }
-            if (tile_end) {
-              const P w = warp_sum(acc);
-              if ((tid & 31) == 0) s_red[s & 1][tid / 32] = w;
-              if constexpr (kComp) {
-                const P wc = warp_sum(acc_cs);
-                if ((tid & 31) == 0) s_red_cs[(s & 1) * (kNT / 32) + tid / 32] = wc;
-                acc_cs = 0;
-              }
-              acc = 0;
-              pend = kt;
-            }
-          }
-          if (tile_end) {
-            if (kWithMap && kFloat && col_on && tile_bad(kt)) {
-              // NaN over the tile's map rows in this column, after their
-              // finite writes (rare path).
-              for (int y = y0 + kt * TH; y <= y0 + ly; ++y) {
-                map[base + (size_t)y * (size_t)W + (size_t)(x0 + tid)] =
-                    __int_as_float(0x7fc00000);
-              }
-            }
-            trow = 0;
-            ++kt;
-          }
-        }
-
-        if constexpr (kPool) {
-          // The 2x2 means of the segment's output rows ly - 1 and ly = s +
-          // kLead - 1 - r, the last two rows staged (ly odd; S is even, so
-          // pooled row (y0 + ly) / 2 is this block's alone): thread i the
-          // strip's columns 2i and 2i + 1. Vertical pairs first, then
-          // horizontal, then * 0.25 (ops/pool.downsample2).
-          const int ly = s + kLead - 1 - r;
-          const int px = x0 / 2 + tid;
-          if (ly > 0 && (ly & 1) && ly < vh && tid < kStripW / 2 && px < W / 2) {
-            const float* r0 = s_raw + ((s + kLead - 2) & 3) * 2 * kStripW + 2 * tid;
-            const float* r1 = s_raw + ((s + kLead - 1) & 3) * 2 * kStripW + 2 * tid;
-            const float2 a0 = *reinterpret_cast<const float2*>(r0);
-            const float2 a1 = *reinterpret_cast<const float2*>(r1);
-            const float2 b0 = *reinterpret_cast<const float2*>(r0 + kStripW);
-            const float2 b1 = *reinterpret_cast<const float2*>(r1 + kStripW);
-            const size_t o = ((size_t)img * (size_t)(H / 2) + (size_t)((y0 + ly) / 2)) *
-                                 (size_t)(W / 2) + (size_t)px;
-            pool_a[o] = ((a0.x + a1.x) + (a0.y + a1.y)) * 0.25f;
-            pool_b[o] = ((b0.x + b1.x) + (b0.y + b1.y)) * 0.25f;
-          }
-        }
-
-        // (d) Stream row s + kLead staged from the registers loaded last
-        // step; row s + kLead + 1 loaded.
-        if (s + kLead < n) {
-          stage(s + kLead);
-          if (s + (kLead + 1) < n) fetch(s + (kLead + 1));
-        }
-        __syncthreads();
-      }
-    }
-  }
-  combine(n);
-}
 
 template <typename T, int kMode, int kSplit>
 cudaError_t launch_stream(const void* a, const void* b, void* partials,
@@ -1256,6 +791,16 @@ cudaError_t launch_typed(int is_float, const void* a, const void* b,
 
 }  // namespace
 
+// ssim_fwd_stream_rt.cu: the streaming launches at other radii.
+extern "C" int ssim_fwd_stream_rt_launch(int mode, int is_float, const void* a,
+                                         const void* b, void* partials, void* map,
+                                         void* pool_a, void* pool_b, void* scratch,
+                                         const void* const* halo, int is_top, int is_bot,
+                                         int B, int H, int W, int r, int TH, int TW,
+                                         int seg, const double* taps_host, double c1,
+                                         double c2, float clip_bound, void* stream);
+extern "C" int ssim_fwd_stream_rt_occupancy(int mode, int is_float, int r,
+                                            int* blocks_per_sm);
 
 // The C entry for ctypes. mode: 0 = kScore, 1 = kMap, 2 = kComponents,
 // 3 = kPooled, 4 = kPrecise, 5 = kPreciseMap, 6 = kBatch, 7 =
@@ -1281,9 +826,10 @@ cudaError_t launch_typed(int is_float, const void* a, const void* b,
 // the other modes round them to float). c1, c2:
 // the stabilising constants (rounded to float by the f32 modes). seg: 0
 // for the tile body, or the streaming kernel's segment rows (modes 0-5, 8
-// and 9, relaxed modes 0-3, r = 5, TW in [32, 128], seg a
-// multiple of TH of at most 16 tiles; anything else is refused). Returns the
-// launch's cudaError_t.
+// and 9 at any radius, r = 5 in the register-window instantiations, else
+// ssim_fwd_stream_rt.cu's runtime radius; relaxed modes 0-3 at r = 5 only;
+// TW in [32, 128], seg a multiple of TH of at most 16 tiles; anything else
+// is refused). Returns the launch's cudaError_t.
 extern "C" int ssim_fwd_launch(int mode, int relaxed, int is_float,
                                const void* a, const void* b, void* partials,
                                void* map,
@@ -1313,10 +859,15 @@ extern "C" int ssim_fwd_launch(int mode, int relaxed, int is_float,
   if (seg != 0) {
     if ((relaxed && mode != kScore && mode != kMap && mode != kComponents &&
          mode != kPooled) ||
-        r != kStreamR || TW < 32 ||
+        (relaxed && r != kStreamR) || batch || r < 1 || r > kMaxStreamR || TW < 32 ||
         TW > kStripW || seg < TH || seg % TH != 0 || seg / TH > kMaxSegTiles ||
         H < 1 || W < 1) {
       return cudaErrorInvalidValue;
+    }
+    if (r != kStreamR) {
+      return ssim_fwd_stream_rt_launch(mode, is_float, a, b, partials, map, pool_a, pool_b,
+                                       scratch, halo, is_top, is_bot, B, H, W, r, TH, TW,
+                                       seg, taps_host, c1, c2, clip_bound, stream);
     }
 #define SSIM_FWD_STREAM(M, S)                                                  \
   case M:                                                                      \
@@ -1386,12 +937,16 @@ extern "C" int ssim_fwd_launch(int mode, int relaxed, int is_float,
 }
 
 // Blocks of the streaming kernel that one SM of the current device holds at
-// once in `mode` (0-5, 8 or 9; relaxed = 1: 0-3) for uint8
-// (is_float = 0) or float32 inputs: the CUDA runtime's occupancy for the
-// instantiation that ssim_fwd_launch takes with seg > 0. Returns a
-// cudaError_t.
-extern "C" int ssim_fwd_stream_occupancy(int mode, int relaxed, int is_float,
+// once in `mode` (0-5, 8 or 9; relaxed = 1: 0-3, r = 5) at radius r for
+// uint8 (is_float = 0) or float32 inputs: the CUDA runtime's occupancy for
+// the instantiation that ssim_fwd_launch takes with seg > 0 (at r != 5 with
+// its dynamic shared memory at r). Returns a cudaError_t.
+extern "C" int ssim_fwd_stream_occupancy(int mode, int relaxed, int is_float, int r,
                                          int* blocks_per_sm) {
+  if (r != kStreamR) {
+    return relaxed ? cudaErrorInvalidValue
+                   : ssim_fwd_stream_rt_occupancy(mode, is_float, r, blocks_per_sm);
+  }
 #define SSIM_FWD_OCC(M, S)                                                \
   case M:                                                                 \
     return is_float ? stream_occupancy<float, M, S>(blocks_per_sm)        \

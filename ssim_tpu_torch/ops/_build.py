@@ -162,9 +162,9 @@ def load_library() -> ctypes.CDLL:
             # stream.
             lib.ssim_fwd_batch_occupancy.argtypes = [i, i, i, ctypes.POINTER(i)]
             lib.ssim_fwd_batch_occupancy.restype = i
-            # mode, relaxed, is_float, out: blocks per SM of the streaming
-            # forward.
-            lib.ssim_fwd_stream_occupancy.argtypes = [i, i, i, ctypes.POINTER(i)]
+            # mode, relaxed, is_float, r, out: blocks per SM of the
+            # streaming forward at radius r.
+            lib.ssim_fwd_stream_occupancy.argtypes = [i, i, i, i, ctypes.POINTER(i)]
             lib.ssim_fwd_stream_occupancy.restype = i
             # The backward entry takes the NaN tile (TH, TW) and the
             # standard kernel's segment rows S.

@@ -44,12 +44,15 @@ poison follow one 2-D grid of TILE_H x TILE_W output tiles that covers
 every width, so the TPU's split at 16384 lanes and
 `pooled_components_ok`'s VMEM limits have no counterpart. The main-path
 modes (score, map, the row modes, the precise modes and the MS-SSIM
-components and pooled modes, and the relaxed score and map modes, at
-radius STREAM_RADIUS, tiles up to STRIP_W wide: `stream_applies`) run a
-row-streaming kernel, one CUDA block
-per strip of STRIP_W columns and segment of rows (`stream_segment` picks
-the segment's length to fill the card, `stream_blocks` lists the blocks);
-every other mode, radius and tile runs the tile body, one block per tile.
+components and pooled modes at every radius to MAX_FUSED_RADIUS, and the
+relaxed score, map, components and pooled modes at radius STREAM_RADIUS,
+tiles up to STRIP_W wide: `stream_applies`) run a row-streaming kernel,
+one CUDA block per strip of STRIP_W columns and segment of rows
+(`stream_segment` picks the segment's length to fill the card at the
+instantiation's occupancy, `stream_blocks` lists the blocks); at
+STREAM_RADIUS its window of 2r + 1 rows is in registers, at other radii
+in a ring in shared memory (ssim_fwd_stream_rt.cu). Every other mode,
+radius and tile runs the tile body, one block per tile.
 Both batch modes at radius STREAM_RADIUS (not relaxed) run a packed
 variant of the row stream: images side by side in packed rows cut into
 strips (`batch_pack`), a block walking one strip of a packed row, down
@@ -120,16 +123,18 @@ ROWSUM_MAP_LAUNCHES = 0
 RELAXED_LAUNCHES = 0
 STREAM_LAUNCHES = 0
 
-#: The row-streaming kernel (ssim_fwd.cu kStripW, kMaxSegTiles, kStreamR):
+#: The row-streaming kernel (fwd_stream.cuh kStripW, kMaxSegTiles, kStreamR):
 #: a block owns a strip of STRIP_W output columns and walks down a segment
-#: of at most MAX_SEG_TILES tiles' rows; its window radius is
-#: STREAM_RADIUS (windows.RADIUS) and it serves the modes STREAM_MODES:
+#: of at most MAX_SEG_TILES tiles' rows; it serves the modes STREAM_MODES:
 #: the standard tier's score, map and row modes and the MS-SSIM components
 #: and pooled modes (the same blurs, another epilogue) in f32, and the
-#: precise tier's two modes in fp64 (the same body with double blurs);
-#: relaxed, the modes STREAM_RELAXED_MODES (the heavy horizontal blurs as
-#: band products, two rows every other stream row; the relaxed batch mode
-#: on the packed stream).
+#: precise tier's two modes in fp64 (the same body with double blurs), at
+#: STREAM_RADIUS (windows.RADIUS) with its window in registers and at every
+#: other radius to MAX_FUSED_RADIUS with its window in a ring in shared
+#: memory (ssim_fwd_stream_rt.cu, the radius read at run time);
+#: relaxed, the modes STREAM_RELAXED_MODES at STREAM_RADIUS only (the heavy
+#: horizontal blurs as band products, two rows every other stream row; the
+#: relaxed batch mode on the packed stream).
 STRIP_W = 128
 MAX_SEG_TILES = 16
 STREAM_RADIUS = 5
@@ -282,26 +287,30 @@ def stream_applies(mode: str, radius: int, tile_w: int, relaxed: bool = False,
                    npix: Optional[int] = None) -> bool:
     """Whether a launch in `mode` runs the row-streaming kernel, else the
     tile body: the standard tier's score, map and row modes (with or
-    without halo operands), the precise tier's score and map modes, the
-    standard MS-SSIM components and pooled modes (STREAM_MODES) and the
-    relaxed tier's score, map, components and pooled modes
-    (STREAM_RELAXED_MODES) at radius STREAM_RADIUS with a tile 32 to
-    STRIP_W columns wide; the batch modes (STREAM_BATCH_MODES, kBatch in
-    both tiers and kBatchPrecise) at radius STREAM_RADIUS whatever tile_w
-    (their packed stream has no tile). The other radii and a tile_w of
-    256 run the tile body. npix: the launch's B * H * W; the components
-    and pooled modes stream only from STREAM_COMP_MIN_PIX pixels (at
-    msssim_1080_b4 scales 0 and 1; scales 2-4 run the tile body, measured
-    faster there), relaxed from STREAM_RELAXED_COMP_MIN_PIX (scale 0).
-    None: the rule without the size condition, which a pinned segment asks
-    for."""
+    without halo operands), the precise tier's score and map modes and the
+    standard MS-SSIM components and pooled modes (STREAM_MODES) at every
+    radius the fused kernel serves (1 to MAX_FUSED_RADIUS), and the relaxed
+    tier's score, map, components and pooled modes (STREAM_RELAXED_MODES)
+    at radius STREAM_RADIUS, each with a tile 32 to STRIP_W columns wide;
+    the batch modes (STREAM_BATCH_MODES, kBatch in both tiers and
+    kBatchPrecise) at radius STREAM_RADIUS whatever tile_w (their packed
+    stream has no tile). The relaxed and batch modes at other radii and a
+    tile_w of 256 run the tile body. npix: the launch's B * H * W; the
+    components and pooled modes stream only from STREAM_COMP_MIN_PIX
+    pixels (at msssim_1080_b4 scales 0 and 1; scales 2-4 run the tile
+    body, measured faster there), relaxed from STREAM_RELAXED_COMP_MIN_PIX
+    (scale 0). None: the rule without the size condition, which a pinned
+    segment asks for."""
     if mode in STREAM_BATCH_MODES:
         return radius == STREAM_RADIUS and (not relaxed or mode in STREAM_RELAXED_MODES)
     least = STREAM_RELAXED_COMP_MIN_PIX if relaxed else STREAM_COMP_MIN_PIX
     if npix is not None and mode in ("components", "pooled") and npix < least:
         return False
-    return (mode in (STREAM_RELAXED_MODES if relaxed else STREAM_MODES)
-            and radius == STREAM_RADIUS and 32 <= tile_w <= STRIP_W)
+    if relaxed:
+        served = mode in STREAM_RELAXED_MODES and radius == STREAM_RADIUS
+    else:
+        served = mode in STREAM_MODES and 1 <= radius <= MAX_FUSED_RADIUS
+    return served and 32 <= tile_w <= STRIP_W
 
 
 @functools.lru_cache(maxsize=256)
@@ -415,12 +424,15 @@ def batch_stream_blocks(batch: int, h: int, w: int, k: int, seg: int):
     return out
 
 
-@functools.lru_cache(maxsize=64)
-def _stream_resident(index: int, mode: str, is_float: bool, relaxed: bool = False) -> int:
+@functools.lru_cache(maxsize=256)
+def _stream_resident(index: int, mode: str, is_float: bool, relaxed: bool = False,
+                     radius: int = STREAM_RADIUS) -> int:
     """Streaming-kernel blocks that card `index` holds at once in `mode`
-    (relaxed: its relaxed instantiation; the batch modes: their packed
-    stream, relaxed or not): its SMs times the CUDA runtime's occupancy for
-    the instantiation (ssim_fwd_stream_occupancy, ssim_fwd_batch_occupancy)."""
+    at `radius` (relaxed: its relaxed instantiation; the batch modes: their
+    packed stream, relaxed or not; another radius than STREAM_RADIUS: the
+    runtime-radius instantiation with its ring's shared memory at that
+    radius): its SMs times the CUDA runtime's occupancy for the
+    instantiation (ssim_fwd_stream_occupancy, ssim_fwd_batch_occupancy)."""
     from . import _build
 
     n = ctypes.c_int(0)
@@ -431,10 +443,10 @@ def _stream_resident(index: int, mode: str, is_float: bool, relaxed: bool = Fals
                                                int(is_float), ctypes.byref(n))
         else:
             err = lib.ssim_fwd_stream_occupancy(
-                _MODES.index(mode), int(relaxed), int(is_float), ctypes.byref(n))
+                _MODES.index(mode), int(relaxed), int(is_float), int(radius), ctypes.byref(n))
     if err != 0 or n.value < 1:
-        raise RuntimeError(f"the streaming kernel's occupancy ({mode}) failed (cudaError "
-                           f"{err}, {n.value} blocks per SM)")
+        raise RuntimeError(f"the streaming kernel's occupancy ({mode}, radius {radius}) "
+                           f"failed (cudaError {err}, {n.value} blocks per SM)")
     return torch.cuda.get_device_properties(index).multi_processor_count * n.value
 
 
@@ -865,7 +877,7 @@ def _launch(a, b, *, mode, taps, c1, c2, clip_bound, tile_h, tile_w, ipb=1,
     elif stream:
         seg = segment or stream_segment(
             bsz, h, w, tile_h, 2 * r,
-            _stream_resident(a.device.index, mode, a.dtype == torch.float32, relaxed))
+            _stream_resident(a.device.index, mode, a.dtype == torch.float32, relaxed, r))
         if seg % tile_h or not tile_h <= seg <= MAX_SEG_TILES * tile_h:
             raise ValueError(f"segment {seg} is not 1-{MAX_SEG_TILES} tiles of "
                              f"{tile_h} rows")
@@ -1131,7 +1143,7 @@ def ssim_parts_cuda(
     formula and the tile sums in native fp64 (the JAX kernel blurs in f32
     with f32 taps), and partials (..., K) f64, one per tile. Like the
     standard tier it runs the row-streaming kernel where stream_applies
-    (radius 5, tiles 32 to 128 wide), else the tile body.
+    (every radius, tiles 32 to 128 wide), else the tile body.
     The JAX kernel's precise mode writes 2K f32 partials (df32 hi, lo +
     e); engine.finalize_mean sums either in f64, so the score is the same
     quantity. The map is the f32 rounding of the fp64 values.
@@ -1159,8 +1171,8 @@ def ssim_parts_cuda(
     launch), ~2^-17 relative per blur, inside the JAX tests' envelope of
     1e-4 global and 5e-3 per pixel against the f64 oracle; below it the
     standard mode runs, bit for bit. Like the standard tier it runs the
-    row-streaming kernel where stream_applies (radius 5, tiles 32 to 128
-    wide), else the tile body. It excludes precise and the row modes
+    row-streaming kernel where stream_applies (relaxed: radius 5, tiles 32
+    to 128 wide), else the tile body. It excludes precise and the row modes
     (rowsum, vhalo), as the sharded layer never asks for it.
     """
     if relaxed and precise:
@@ -1296,10 +1308,11 @@ def ssim_components_cuda(
     Returns (..., K, 2) f32 per-tile sums, [..., 0] of cs and [..., 1] of
     ssim = lum * cs, each as sum(x - 1) + n_valid over the tile's valid
     pixels; means follow by summing over K and dividing by H*W. On a CUDA
-    tensor the kernel is launched (the row-streaming kernel at radius
-    STREAM_RADIUS from STREAM_COMP_MIN_PIX pixels, relaxed from
-    STREAM_RELAXED_COMP_MIN_PIX, the tile body below them and at other
-    radii: stream_applies); on a CPU tensor the plain twin runs.
+    tensor the kernel is launched (the row-streaming kernel from
+    STREAM_COMP_MIN_PIX pixels, relaxed from STREAM_RELAXED_COMP_MIN_PIX at
+    radius STREAM_RADIUS, the tile body below them and at the relaxed
+    tier's other radii: stream_applies); on a CPU tensor the plain twin
+    runs.
     """
     kw = _components_args(a, b, data_range, radius, sigma, k1, k2)
     squeeze = a.dim() == 2

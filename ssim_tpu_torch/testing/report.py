@@ -13,9 +13,10 @@ Every implementation but the oracle runs through `engine.compute` on
 computes on the CPU whatever the device). The device columns come from
 `devicebench.device_throughput` at (2, 1080, 1920): `cuda` on a CUDA
 device, `torch` off it, neither with --quick (the JAX rule: the fused
-kernel measured where it is compiled, the plain path elsewhere). One
-deliberate change from the JAX report: a failed device measurement is
-not printed as nan but propagates, so the report exits nonzero.
+kernel measured where it is compiled, the plain path elsewhere). Two
+deliberate changes from the JAX report: a failed device measurement is
+not printed as nan but propagates, so the report exits nonzero; and each
+pair's eager time is the least of TIMED_PASSES passes, not one call's.
 """
 
 import argparse
@@ -26,6 +27,17 @@ import time
 from collections import defaultdict
 
 import numpy as np
+
+#: Least time each implementation runs the suite untimed before it is timed.
+WARMUP_SECONDS = 0.5
+#: Timed passes over the suite per implementation and map setting; each
+#: pair's eager time is the least of its passes' (as timeit takes the least
+#: of its repeats). On a host whose cores other processes load, the host
+#: backend's OpenMP team (a thread per core) stalls for 10-150 ms on most
+#: calls whatever their order, and the least of 20 still finds a call
+#: whose team ran at once (on an 8-core virtual machine beside 30 busy
+#: processes: 0.1 Mpix/s, where one pass printed 0.0).
+TIMED_PASSES = 20
 
 
 def _suite_pairs(images_dir: str, quick: bool):
@@ -78,7 +90,7 @@ def run_report(quick: bool = False, out=sys.stdout, *, device="cuda"):
     impls = [i for i in available_impls() if i != Implementation.REFERENCE]
     gerr = defaultdict(list)
     perr = defaultdict(list)
-    ticks = defaultdict(float)
+    ticks = {}
     pixels = defaultdict(int)
 
     pairs = list(_suite_pairs(images_dir, quick))
@@ -87,19 +99,38 @@ def run_report(quick: bool = False, out=sys.stdout, *, device="cuda"):
         oracle[name] = reference.compute_ssim(a, b, with_map=True)
 
     for impl in impls:
+        # Untimed passes over the suite first, with and without the map, at
+        # least one and for at least WARMUP_SECONDS, as
+        # devicebench.device_throughput runs its loops before it times
+        # them: what an implementation pays at its first calls of either
+        # kind stays out of its rate. The host backend's OpenMP team took
+        # 10-100 ms a call on small images for its first calls of a process
+        # on an 8-core virtual machine (up to about a second of calls),
+        # then ~0.1 ms.
+        warm_until = time.perf_counter() + WARMUP_SECONDS
+        while True:
+            for with_map in (False, True):
+                for _, a, b in pairs:
+                    engine.compute(a, b, with_map=with_map, impl=impl.value, device=device)
+            if time.perf_counter() >= warm_until:
+                break
         for with_map in (False, True):
             key = (impl, with_map)
-            for name, a, b in pairs:
-                want, want_map = oracle[name]
-                t0 = time.perf_counter()
-                got, got_map = engine.compute(a, b, with_map=with_map,
-                                              impl=impl.value, device=device)
-                t1 = time.perf_counter()
-                ticks[key] += t1 - t0
-                pixels[key] += a.size
-                gerr[impl].append(abs(float(got) - want))
-                if with_map:
-                    perr[impl].append(np.abs(got_map - want_map).max())
+            best = {}
+            for timed_pass in range(TIMED_PASSES):
+                for name, a, b in pairs:
+                    t0 = time.perf_counter()
+                    got, got_map = engine.compute(a, b, with_map=with_map,
+                                                  impl=impl.value, device=device)
+                    t1 = time.perf_counter()
+                    best[name] = min(best.get(name, np.inf), t1 - t0)
+                    if timed_pass == 0:
+                        want, want_map = oracle[name]
+                        pixels[key] += a.size
+                        gerr[impl].append(abs(float(got) - want))
+                        if with_map:
+                            perr[impl].append(np.abs(got_map - want_map).max())
+            ticks[key] = sum(best.values())
 
     out.write(f"backend: {_backend_line(device)}\n\n")
     out.write("Accuracy vs float64 oracle\n")

@@ -11,7 +11,11 @@ built, for example this checkout's and another's:
 Runs `cuobjdump -sass` on both (on a machine with the CUDA toolkit), splits
 each into its kernels, keeps each instruction's text (not its address or
 encoding) and drops the per-file hash of the anonymous namespace from the
-kernels' names, then prints the kernels found in only one build and those
+kernels' names (and the row stream's radius argument at 5, `kR =
+kStreamR` of `ssim_fwd_stream_kernel<T, mode, split, kR>` and its
+`StreamTaps<P, kR>`, so that a build from before that argument existed
+compares kernel by kernel; between two later builds the rewrite changes
+nothing), then prints the kernels found in only one build and those
 whose instructions differ (with --lines N, the first N lines of each
 one's unified diff), and one JSON line {"equal": n, "differ": [...],
 "only_a": [...], "only_b": [...]}. Exit status 0 either way.
@@ -28,6 +32,11 @@ import sys
 #: _GLOBAL__N__<hash>_<len>_<file>_<hash>.
 _ANON = re.compile(r"\d+_GLOBAL__N__[0-9a-f]{8}_\d+_\w+?_[0-9a-f]{8}")
 _INSN = re.compile(r"/\*[0-9a-f]{4,}\*/\s+(.*?)\s*;")
+#: The row stream's register-window radius as a template argument, in the
+#: kernel's name and in its StreamTaps parameter (by value or as a
+#: reference to the template argument), for builds from before it.
+_RADIUS_ARG = ((re.compile(r"(22ssim_fwd_stream_kernelI\w(?:Li\d+E){2})Li5EE"), r"\1E"),
+               (re.compile(r"(10StreamTapsIS\w*?_)(?:XT2_E|Li5E)"), r"\1"))
 
 
 def cuobjdump():
@@ -45,6 +54,8 @@ def kernels(lib):
     for line in out.splitlines():
         if "Function : " in line:
             name = _ANON.sub("N_", line.split("Function : ", 1)[1].strip())
+            for pattern, repl in _RADIUS_ARG:
+                name = pattern.sub(repl, name)
             funcs[name] = []
         elif name is not None:
             m = _INSN.search(line)

@@ -7,6 +7,7 @@
 #include "cuda_runtime.h"
 
 #include <barrier>
+#include <cstring>
 #include <cstdio>
 #include <cstdlib>
 #include <mutex>
@@ -54,18 +55,40 @@ unsigned atomicOr(unsigned* p, unsigned v) {
   return old;
 }
 
+// A block's shared memory, as CUDA leaves it uninitialised: an arena that
+// run_blocks fills with 0xff bytes (NaN in f32 and f64) before each block.
+// A source whose __shared__ arrays the test has rewritten as
+// emu_shared(bytes) takes them from its first kEmuStatic bytes, in the
+// order each thread declares them (the same in every thread, so the same
+// addresses), and its dynamic shared memory from emu_dynamic_shared().
+constexpr size_t kEmuStatic = 1 << 17, kEmuDynamic = 1 << 18;
+alignas(16) static unsigned char g_shared_arena[kEmuStatic + kEmuDynamic];
+static thread_local size_t g_shared_used;
+void* emu_shared(size_t bytes) {
+  const size_t at = (g_shared_used + 15) & ~size_t(15);
+  g_shared_used = at + bytes;
+  if (g_shared_used > kEmuStatic) {
+    fprintf(stderr, "the block's static shared memory exceeds the arena\n");
+    exit(1);
+  }
+  return g_shared_arena + at;
+}
+unsigned char* emu_dynamic_shared() { return g_shared_arena + kEmuStatic; }
+
 // Runs kernel() once per block of nblocks, blocks one after another, each
-// with nthreads std::threads.
+// with nthreads std::threads, its shared memory NaN first.
 template <class K> void run_blocks(int nblocks, int nthreads, K&& kernel) {
   g_block = new std::barrier<>(nthreads);
   for (auto& w : g_warp) w = new std::barrier<>(32);
   for (int blk = 0; blk < nblocks; ++blk) {
+    std::memset(g_shared_arena, 0xff, sizeof(g_shared_arena));
     std::vector<std::thread> threads;
     for (int t = 0; t < nthreads; ++t) {
       threads.emplace_back([&, t, blk] {
         threadIdx = {(unsigned)t, 0, 0};
         blockIdx = {(unsigned)blk, 0, 0};
         blockDim = {(unsigned)nthreads, 1, 1};
+        g_shared_used = 0;
         kernel();
       });
     }

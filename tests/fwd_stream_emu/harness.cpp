@@ -1,9 +1,16 @@
 // Runs ssim_fwd_stream_kernel's source on the host (see cuda_runtime.h):
 //   harness IN OUT
 // IN holds int32 [mode, is_float, B, H, W, TH, TW, S, has_halo, is_top,
-// is_bot, precise, relaxed], the taps[11] and [c1, c2, clip_bound] (f64 with
-// precise, else f32), a, b (B*H*W of u8 or f32) and, with has_halo, a_top,
-// a_bot, b_top, b_bot (B*5*W each). OUT receives the partials (B, nty*ntx)
+// is_bot, precise, relaxed, r], the taps[2r + 1] and [c1, c2, clip_bound]
+// (f64 with precise, else f32), a, b (B*H*W of u8 or f32) and, with
+// has_halo, a_top, a_bot, b_top, b_bot (B*r*W each). r = 5 runs the
+// register-window instantiations, any other radius (1 to 16) the
+// runtime-radius one (kR = 0). Every output buffer starts as NaN, and the
+// block's shared memory is NaN (bytes 0xff) at each block's start
+// (emu_threads.h: the test rewrites the kernels' __shared__ arrays into its
+// arena), so an entry the kernel never writes, or a shared value it reads
+// before writing, shows as a mismatch.
+// OUT receives the partials (B, nty*ntx)
 // (f64 with precise, else f32; (B, nty*ntx, 2) f32 in the components modes)
 // or the row sums (B, H) f32, then the map (B, H, W) f32 in the map modes,
 // or the pooled images (B, H/2, W/2) f32 of a, then of b, in kPooled.
@@ -12,13 +19,15 @@
 // instantiation, its band products through band_mma.cuh's host model of
 // mma. The batch modes (6 kBatch, 7 kBatchPrecise:
 // ssim_fwd_batch_stream_kernel) read [mode, is_float, B, H, W, k, S,
-// pieces, 0, 0, 0, precise, relaxed] (pieces: 1 for the second pass,
+// pieces, 0, 0, 0, precise, relaxed, 5] (pieces: 1 for the second pass,
 // batch_pieces_reduce_kernel; relaxed: kBatch only) and write the (B, 2)
 // partials. The blocks run one after another, each with one std::thread per
 // CUDA thread.
 #include "cuda_runtime.h"
 
 #include "emu_threads.h"
+
+#include <limits>
 
 #include "ssim_fwd_stream.cu"  // the kernel's source, cut by the test
 #include "ssim_fwd_batch_kernel.cu"  // the batch modes' kernels, cut by the test
@@ -32,35 +41,42 @@ template <class T> static std::vector<T> take(FILE* f, size_t n) {
   return v;
 }
 
-template <class T, int M, int S>
+template <class T, int M, int S, int R>
 static void run(FILE* f, FILE* o, const std::vector<int>& h) {
   using P = Blur<M>;
-  const int B = h[2], H = h[3], W = h[4], TH = h[5], TW = h[6], seg = h[7];
-  const auto taps = take<P>(f, 2 * kStreamR + 1);
+  const int B = h[2], H = h[3], W = h[4], TH = h[5], TW = h[6], seg = h[7], r = h[13];
+  const auto taps = take<P>(f, 2 * r + 1);
   const auto cc = take<P>(f, 3);
   const size_t np = (size_t)B * H * W;
   const auto a = take<T>(f, np), b = take<T>(f, np);
   std::vector<T> ops[4];
-  if (h[8]) for (auto& x : ops) x = take<T>(f, (size_t)B * kStreamR * W);
+  if (h[8]) for (auto& x : ops) x = take<T>(f, (size_t)B * r * W);
   const Halo<T> halo{h[8] ? ops[0].data() : nullptr, h[8] ? ops[1].data() : nullptr,
                      h[8] ? ops[2].data() : nullptr, h[8] ? ops[3].data() : nullptr,
                      h[9], h[10]};
-  StreamTaps<P> tp;
-  for (int k = 0; k < 2 * kStreamR + 1; ++k) tp.t[k] = taps[k];
+  StreamTaps<P, R> tp{};
+  for (int k = 0; k < 2 * r + 1; ++k) tp.t[k] = taps[k];
+  if constexpr (R == 0) tp.r = r;
   const int nstrip = (W + kStripW - 1) / kStripW, nseg = (H + seg - 1) / seg;
   const int ntx = (W + TW - 1) / TW, nty = (H + TH - 1) / TH;
   constexpr bool kRows = M == kRowsum || M == kRowsumMap;
   constexpr bool kWithMap = M == kMap || M == kRowsumMap || M == kPreciseMap;
   constexpr bool kComp = M == kComponents || M == kPooled;
-  std::vector<P> partials((size_t)B * nty * ntx * (kComp ? 2 : 1));
-  std::vector<float> map(np), pieces((size_t)B * ntx * H);
+  const P pnan = std::numeric_limits<P>::quiet_NaN();
+  const float fnan = std::numeric_limits<float>::quiet_NaN();
+  std::vector<P> partials((size_t)B * nty * ntx * (kComp ? 2 : 1), pnan);
+  std::vector<float> map(np, fnan), pieces((size_t)B * ntx * H, fnan);
   const size_t npool = (size_t)B * (H / 2) * (W / 2);
-  std::vector<float> pool_a(npool), pool_b(npool);
+  std::vector<float> pool_a(npool, fnan), pool_b(npool, fnan);
+  if (R == 0 && (size_t)(2 * r + 1) * kStreamThreads * 4 * sizeof(P) > kEmuDynamic) {
+    fprintf(stderr, "the ring exceeds the dynamic shared memory\n");
+    exit(1);
+  }
   run_blocks(B * nseg * nstrip, kStreamThreads, [&] {
-    ssim_fwd_stream_kernel<T, M, S>(a.data(), b.data(), partials.data(),
-                                    kWithMap ? map.data() : nullptr, pieces.data(), halo, H,
-                                    W, TH, TW, seg, nstrip, nseg, ntx, nty, tp, cc[0], cc[1],
-                                    (float)cc[2], pool_a.data(), pool_b.data());
+    ssim_fwd_stream_kernel<T, M, S, R>(a.data(), b.data(), partials.data(),
+                                       kWithMap ? map.data() : nullptr, pieces.data(), halo,
+                                       H, W, TH, TW, seg, nstrip, nseg, ntx, nty, tp, cc[0],
+                                       cc[1], (float)cc[2], pool_a.data(), pool_b.data());
   });
   if (kRows) {  // rowsum_reduce_kernel's arithmetic
     std::vector<float> rows((size_t)B * H);
@@ -94,8 +110,8 @@ static void run_batch(FILE* f, FILE* o, const std::vector<int>& h) {
   for (int i = 0; i < 2 * kStreamR + 1; ++i) tp.t[i] = taps[i];
   const int nstrip = (k * W + kStripW - 1) / kStripW, nseg = (H + S - 1) / S;
   const int nps = (W + kStripW - 1) / kStripW + 1;
-  std::vector<P> partials((size_t)B * 2);
-  std::vector<double> pieces((size_t)B * nseg * nps);
+  std::vector<P> partials((size_t)B * 2, std::numeric_limits<P>::quiet_NaN());
+  std::vector<double> pieces((size_t)B * nseg * nps, std::numeric_limits<double>::quiet_NaN());
   double* pp = h[7] ? pieces.data() : nullptr;
   run_blocks(nstrip * nseg * ((B + k - 1) / k), kStreamThreads, [&] {
     ssim_fwd_batch_stream_kernel<T, M, K>(a.data(), b.data(), partials.data(), pp, B, H, W, k,
@@ -115,9 +131,11 @@ int main(int argc, char** argv) {
   FILE* f = fopen(argv[1], "rb");
   FILE* o = fopen(argv[2], "wb");
   if (!f || !o) return 2;
-  const auto h = take<int>(f, 13);
+  const auto h = take<int>(f, 14);
   if (h[11] != (h[0] == kPrecise || h[0] == kPreciseMap || h[0] == kBatchPrecise)) return 2;
+  if (h[13] < 1 || h[13] > kMaxStreamR || (h[13] != kStreamR && h[12])) return 2;
   if (h[0] == kBatch || h[0] == kBatchPrecise) {
+    if (h[13] != kStreamR) return 2;
     if (h[0] == kBatch && h[12]) {
       if (h[1]) run_batch<float, kBatch, kStreamSplit>(f, o, h);
       else run_batch<uint8_t, kBatch, kStreamSplit>(f, o, h);
@@ -133,12 +151,26 @@ int main(int argc, char** argv) {
     fclose(o);
     return 0;
   }
-#define SSIM_EMU_RUN(M, S)                      \
+#define SSIM_EMU_RUN_R(M, S, R)                 \
   case M:                                       \
-    if (h[1]) run<float, M, S>(f, o, h);        \
-    else run<uint8_t, M, S>(f, o, h);           \
+    if (h[1]) run<float, M, S, R>(f, o, h);     \
+    else run<uint8_t, M, S, R>(f, o, h);        \
     break;
-  if (h[12]) {
+#define SSIM_EMU_RUN(M, S) SSIM_EMU_RUN_R(M, S, kStreamR)
+  if (h[13] != kStreamR) {
+    switch (h[0]) {
+      SSIM_EMU_RUN_R(kScore, 0, 0)
+      SSIM_EMU_RUN_R(kMap, 0, 0)
+      SSIM_EMU_RUN_R(kPrecise, 0, 0)
+      SSIM_EMU_RUN_R(kPreciseMap, 0, 0)
+      SSIM_EMU_RUN_R(kRowsum, 0, 0)
+      SSIM_EMU_RUN_R(kRowsumMap, 0, 0)
+      SSIM_EMU_RUN_R(kComponents, 0, 0)
+      SSIM_EMU_RUN_R(kPooled, 0, 0)
+      default:
+        return 2;
+    }
+  } else if (h[12]) {
     switch (h[0]) {
       SSIM_EMU_RUN(kScore, kStreamSplit)
       SSIM_EMU_RUN(kMap, kStreamSplit)

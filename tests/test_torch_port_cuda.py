@@ -1582,3 +1582,162 @@ def test_pad_align_launches_the_kernel():
     torch.cuda.synchronize()
     assert pad.PAD_LAUNCHES == before + 1
     assert out.is_cuda and torch.equal(out, pad.pad_align_plain(xt, 96, 384))
+
+
+_RT_SIGMA = {1: 0.8, 3: 1.2, 16: 3.0}
+_RT_MODES = ("score", "map", "rowsum", "rowsum_map", "precise", "precise_map",
+             "components", "pooled")
+
+
+def _rt_stream(at, bt, mode, radius, tile, seg, **halo):
+    """The forward kernel in `mode` at a runtime radius (the instantiation
+    ssim_fwd_stream_rt.cu serves) at a pinned segment and tile, and its
+    twin, on the same card tensors; the launch adds one to STREAM_LAUNCHES.
+    Returns (the kernel's outputs, the twin's), as _launch and the twins
+    return them."""
+    dr = 1.0 if at.dtype == torch.float32 else 255.0
+    precise = mode.startswith("precise")
+    kw = dict(taps=gaussian_taps(np.float64 if precise else np.float32, radius,
+                                 _RT_SIGMA[radius]),
+              c1=(0.01 * dr) ** 2, c2=(0.03 * dr) ** 2, clip_bound=max(131072.0, 4.0 * dr),
+              tile_h=tile[0], tile_w=tile[1])
+    assert radius != ssim_cuda.STREAM_RADIUS
+    assert ssim_cuda.stream_applies(mode, radius, tile[1])
+    before = ssim_cuda.STREAM_LAUNCHES
+    got = ssim_cuda._launch(at, bt, mode=mode, segment=seg, **halo, **kw)
+    torch.cuda.synchronize()
+    assert ssim_cuda.STREAM_LAUNCHES == before + 1
+    if mode.startswith("rowsum"):
+        want = ssim_cuda.ssim_rows_plain(at, bt, with_map=mode == "rowsum_map", **halo, **kw)
+    elif precise:
+        want = ssim_cuda.ssim_parts_precise_plain(at, bt, with_map=mode == "precise_map",
+                                                  **kw)
+    elif mode == "pooled":
+        want = ssim_cuda.ssim_components_pooled_plain(at, bt, **kw)
+    elif mode == "components":
+        want = ssim_cuda.ssim_components_plain(at, bt, **kw)
+    else:
+        want = ssim_cuda.ssim_parts_plain(at, bt, with_map=mode == "map", **kw)
+    return got, want
+
+
+def _hold_rt(mode, got, want, shape):
+    if mode.startswith("precise"):
+        _hold_precise(got, want, shape)
+    elif mode in ("components", "pooled"):
+        _hold_components(got, want, shape[-2] * shape[-1])
+    else:
+        _hold_forward(got, want, shape, rows=mode.startswith("rowsum"))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("radius", [1, 3, 16])
+@pytest.mark.parametrize("dtype", ["u8", "f32"])
+@pytest.mark.parametrize("case", ["seg+1", "2seg+1", "ragged_w", "w<=2r", "nan", "wide"])
+def test_runtime_radius_stream_matches_twins_on_card(case, dtype, radius):
+    """The row stream at a runtime radius (1, 3 and 16: the window's 2r + 1
+    rows in a ring in shared memory) in all eight of its modes against the
+    twins, at a segment of two 32-row tiles: H one past the segment and
+    2S + 1, a ragged last strip, W <= 2r, W over the TPU's 16384 lanes (K2's
+    widths, the same grid), and NaN and inf on a tile edge, a strip
+    boundary and 2r rows above the second segment (f32; u8 has none).
+    Maps and pooled images bit for bit, partials within the twin tolerance,
+    precise scores within 1e-12 relative."""
+    _need_card()
+    tile, seg = (32, 64), 64
+    bsz, h, w = {"seg+1": (2, seg + 1, 300), "2seg+1": (1, 2 * seg + 1, 260),
+                 "ragged_w": (2, seg + 1, 517), "w<=2r": (2, seg + 3, 9),
+                 "nan": (2, 2 * seg + 5, 300), "wide": (1, seg + 1, 16500)}[case]
+    rng = np.random.default_rng(0xB0 + radius + len(case))
+    a, b = (_pair if dtype == "u8" else _float_pair)(rng, (bsz, h, w))
+    if case == "nan" and dtype == "f32":
+        a[0, 31, 64] = np.nan
+        b[1, 40, 127] = np.inf
+        a[1, seg - 2 * radius, 128] = np.nan
+    at, bt = torch.from_numpy(a).cuda(), torch.from_numpy(b).cuda()
+    for mode in _RT_MODES:
+        got, want = _rt_stream(at, bt, mode, radius, tile, seg)
+        _hold_rt(mode, got, want, at.shape)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("radius", [1, 3, 16])
+@pytest.mark.parametrize("flags", [(0, 0), (1, 0), (0, 1), (1, 1)])
+def test_runtime_radius_row_modes_with_halo_on_card(radius, flags):
+    """The row modes at a runtime radius with halo operands of r rows, each
+    flag pair, a band of 97 rows of a 300-row f32 image in segments of two
+    tiles, NaN-filled operands under a set flag (never read)."""
+    _need_card()
+    rng = np.random.default_rng(0xB8 + radius)
+    a, b = _float_pair(rng, (2, 300, 517))
+    lo, hi = 100, 197
+    at, bt = torch.from_numpy(a).cuda(), torch.from_numpy(b).cuda()
+    top, bot = _halo(at, lo, hi, radius, flags)
+    btop, bbot = _halo(bt, lo, hi, radius, flags)
+    if flags[0]:
+        top = torch.full_like(top, float("nan"))
+    if flags[1]:
+        bbot = torch.full_like(bbot, float("nan"))
+    halo = dict(vhalo=(top, bot, btop, bbot), vmask=flags)
+    band_a, band_b = at[:, lo:hi].contiguous(), bt[:, lo:hi].contiguous()
+    for mode in ("rowsum", "rowsum_map"):
+        got, want = _rt_stream(band_a, band_b, mode, radius, (32, 64), 64, **halo)
+        _hold_rt(mode, got, want, band_a.shape)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("radius", [1, 3, 16])
+def test_runtime_radius_public_calls_stream_on_card(radius):
+    """compute_ssim with a custom window on the card takes the row stream
+    (one STREAM_LAUNCHES a call) in the standard and precise tiers and the
+    map, and agrees with the same call on the CPU (the twins) within the
+    twin tolerance."""
+    _need_card()
+    rng = np.random.default_rng(0xBC + radius)
+    a, b = _pair(rng, (2, 300, 500))
+    win = dict(radius=radius, sigma=_RT_SIGMA[radius])
+    for extra in (dict(), dict(precision="f64"), dict(with_map=True)):
+        before = ssim_cuda.STREAM_LAUNCHES
+        got = ssim_tpu_torch.compute_ssim(a, b, **win, **extra)
+        torch.cuda.synchronize()
+        assert ssim_cuda.STREAM_LAUNCHES == before + 1, (extra, radius)
+        want = ssim_tpu_torch.compute_ssim(a, b, device="cpu", **win, **extra)
+        if extra.get("with_map"):
+            assert np.array_equal(np.asarray(got[1]), np.asarray(want[1]))
+            got, want = got[0], want[0]
+        assert np.abs(np.asarray(got) - np.asarray(want)).max() <= 2e-7
+
+
+#: The runtime-radius instantiations' static shared memory (ptxas, sm_90a:
+#: kPooled's raw ring adds 4 KB, the precise modes stage f64 rows), the
+#: runtime's 1 KB a block and an H100 SM's 228 KB; the blocks per SM the
+#: registers allow (64 a thread, 128 in the precise modes).
+_RT_STATIC = {"pooled": 9488, "precise": 10672, "precise_map": 10672}
+_RT_STATIC_F32 = 5360
+_SM_SMEM, _BLOCK_RESERVED = 233472, 1024
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", _RT_MODES)
+def test_runtime_radius_occupancy_is_the_rings_shared_memory(mode):
+    """The CUDA runtime's occupancy for the runtime-radius stream
+    (ssim_cuda._stream_resident over the SMs) is what its shared memory
+    allows on an H100, the ring of 2r + 1 rows of four signals (f64 in the
+    precise modes) a thread beside the static arrays, under the
+    registers' cap, at every radius but 5, u8 and f32: the model
+    tests/test_torch_port_fwd_stream.py's H100_RT_BLOCKS follows."""
+    _need_card()
+    props = torch.cuda.get_device_properties(0)
+    if "H100" not in props.name:
+        pytest.skip(f"the model is an H100's ({props.name})")
+    precise = mode.startswith("precise")
+    cap = 4 if precise else 8
+    static = _RT_STATIC.get(mode, _RT_STATIC_F32)
+    for radius in range(1, ssim_cuda.MAX_FUSED_RADIUS + 1):
+        if radius == ssim_cuda.STREAM_RADIUS:
+            continue
+        ring = (2 * radius + 1) * ssim_cuda.STRIP_W * 4 * (8 if precise else 4)
+        want = min(cap, _SM_SMEM // (static + _BLOCK_RESERVED + ring))
+        for is_float in (False, True):
+            got = ssim_cuda._stream_resident(0, mode, is_float, False, radius)
+            assert got == want * props.multi_processor_count, (mode, radius, is_float, got)

@@ -14,6 +14,7 @@ tests/test_torch_port_kernel.py and tests/test_torch_port_spatial.py.
 """
 
 import os
+import re
 import shutil
 import subprocess
 
@@ -102,6 +103,46 @@ def test_stream_segment_at_the_precise_occupancy(shape, want):
     assert seg == want
     blocks = _blocks(bsz, h, w, seg)
     assert blocks / (-(-blocks // res) * res) >= 0.9
+
+
+#: The runtime-radius stream's blocks per SM on an H100 at radius 1-16 (5:
+#: the register-window kernel's), read with ssim_fwd_stream_occupancy:
+#: kScore, kMap, the row and the components modes (u8 and f32), kPooled
+#: (its raw ring adds 4 KB), the precise modes. Registers cap them at 8
+#: (64 a thread) and 4 (128); the ring's 2r + 1 slots lower them from radius
+#: 6 (precise from 6 too). tests/test_torch_port_cuda.py
+#: (test_runtime_radius_occupancy_is_the_rings_shared_memory) holds the
+#: card's occupancy query against the shared-memory model that gives them.
+H100_RT_BLOCKS = {
+    "score": [8, 8, 8, 8, 8, 7, 6, 5, 5, 4, 4, 4, 3, 3, 3, 3],
+    "pooled": [8, 8, 8, 8, 8, 6, 5, 5, 4, 4, 4, 3, 3, 3, 3, 2],
+    "precise": [4, 4, 4, 4, 4, 3, 3, 2, 2, 2, 2, 2, 1, 1, 1, 1],
+}
+
+
+@pytest.mark.parametrize("radius", [1, 3, 8, 16])
+@pytest.mark.parametrize("shape", [(4, 2160, 3840), (4, 1080, 1920), (1, 8640, 15360),
+                                   (2, 540, 1000)])
+def test_stream_segment_at_the_runtime_radius_occupancy(shape, radius):
+    """At a runtime radius the wrapper's segment comes from the same model
+    with the prologue 2r and the instantiation's occupancy at that radius:
+    1 to MAX_SEG_TILES whole tiles, less than a tile past the image, the
+    one-tile segment where it gives no more blocks than the card holds;
+    a pick that takes more than one wave fills at least 75% of the slots
+    of the waves it takes (f32 and precise)."""
+    bsz, h, w = shape
+    tile_h = ssim_cuda.TILE_H
+    for mode in ("score", "precise"):
+        res = 132 * H100_RT_BLOCKS[mode][radius - 1]
+        seg = ssim_cuda.stream_segment(bsz, h, w, tile_h, 2 * radius, res)
+        assert seg % tile_h == 0 and tile_h <= seg <= ssim_cuda.MAX_SEG_TILES * tile_h
+        assert seg < h + tile_h
+        if _blocks(bsz, h, w, tile_h) <= res:
+            assert seg == tile_h, (mode, seg)
+            continue
+        blocks = _blocks(bsz, h, w, seg)
+        if blocks > res:
+            assert blocks / (-(-blocks // res) * res) >= 0.75, (mode, radius, seg)
 
 
 #: Relaxed streaming blocks an H100 holds at once: 7 per SM (72 registers,
@@ -213,13 +254,16 @@ def test_stream_blocks_cover_each_pixel_once_with_whole_tiles(tile):
 def test_stream_applies_to_the_documented_launches(mode):
     """The streaming kernel takes exactly the score, map and row modes, the
     precise modes (kPrecise, kPreciseMap) and the MS-SSIM components and
-    pooled modes at radius 5 with tiles 32 to 128 wide, and relaxed the
-    score, map, components and pooled modes; both batch modes (kBatch,
-    kBatchPrecise) and the relaxed kBatch run its packed variant at radius
-    5, whatever the batch tile; every other radius and tile width keeps
-    the tile body. Given the launch's pixels, the components and pooled
-    modes stream only from STREAM_COMP_MIN_PIX, relaxed from
-    STREAM_RELAXED_COMP_MIN_PIX; the other modes take no size condition."""
+    pooled modes at every radius 1 to MAX_FUSED_RADIUS (radius 5 in its
+    register-window instantiations, the others in the runtime-radius one)
+    with tiles 32 to 128 wide, and relaxed the score, map, components and
+    pooled modes at radius 5; both batch modes (kBatch, kBatchPrecise) and
+    the relaxed kBatch run its packed variant at radius 5, whatever the
+    batch tile; the relaxed and batch modes at other radii, and tile width
+    256, keep the tile body, as does a radius the kernel does not serve.
+    Given the launch's pixels, the components and pooled modes stream only
+    from STREAM_COMP_MIN_PIX, relaxed from STREAM_RELAXED_COMP_MIN_PIX; the
+    other modes take no size condition."""
     main = mode in ("score", "map", "rowsum", "rowsum_map", "precise", "precise_map",
                     "components", "pooled")
     batch = mode in ("batch", "batch_precise")
@@ -227,11 +271,12 @@ def test_stream_applies_to_the_documented_launches(mode):
                                       "precise", "precise_map", "components", "pooled")
     assert ssim_cuda.STREAM_RELAXED_MODES == ("score", "map", "components", "pooled", "batch")
     assert ssim_cuda.STREAM_BATCH_MODES == ("batch", "batch_precise")
-    for radius in (1, 4, 5, 6, 16):
+    for radius in (0, 1, 2, 3, 4, 5, 6, 8, 11, 16, 17):
         for tile_w in (8, 16, 32, 64, 128, 256):
             for relaxed in (False, True):
                 served = mode in ("score", "map", "components", "pooled") if relaxed else main
-                want = served and radius == 5 and 32 <= tile_w <= 128
+                radii = (5,) if relaxed else range(1, ssim_cuda.MAX_FUSED_RADIUS + 1)
+                want = served and radius in radii and 32 <= tile_w <= 128
                 if batch:
                     # kBatchPrecise has no relaxed form (the wrapper refuses it).
                     want = radius == 5 and not (relaxed and mode == "batch_precise")
@@ -377,22 +422,55 @@ _EMU_COMP_MODES = {"components": 2, "pooled": 3}
 @pytest.fixture(scope="module")
 def stream_emulator(tmp_path_factory):
     """The streaming kernels' source (csrc/ssim_fwd.cu without the tile
-    body and the launchers, csrc/ssim_fwd_batch.cu without its launchers)
-    built with g++ into a host program; its path."""
+    body and the launchers, csrc/ssim_fwd_batch.cu without its launchers,
+    csrc/fwd_stream_kernel.cuh with its dynamic shared memory pointed at
+    the harness's buffer) built with g++ into a host program; its path."""
+    return _build_emulator(tmp_path_factory.mktemp("fwd_stream_emu"))
+
+
+#: The runtime-radius instantiation's dynamic shared memory, as the
+#: kernel declares it, and the harness's stand-in.
+_DYN_DECL = "extern __shared__ __align__(16) unsigned char fwd_stream_smem[];"
+_DYN_HOST = "unsigned char* fwd_stream_smem = emu_dynamic_shared();"
+#: A static __shared__ declaration: type, name, array bounds.
+_SHARED = re.compile(r"__shared__\s+(?:__align__\(\d+\)\s+)?([^;\[]+?)\s+(\w+)\s*"
+                     r"((?:\[[^\]]*\])*)\s*;")
+
+
+def _host_shared(text):
+    """The source with each static __shared__ array taken from the
+    harness's shared-memory arena (emu_threads.h emu_shared), which is NaN
+    at each block's start as CUDA's is uninitialised, and its dynamic one
+    from the arena's dynamic part."""
+    assert text.count("extern __shared__") == text.count(_DYN_DECL)
+    text = text.replace(_DYN_DECL, _DYN_HOST)
+    return _SHARED.sub(lambda m: (f"using {m[2]}__emu_t = {m[1]}{m[3]}; {m[2]}__emu_t& {m[2]} = "
+                                  f"*static_cast<{m[2]}__emu_t*>(emu_shared("
+                                  f"sizeof({m[2]}__emu_t)));"), text)
+
+
+def _build_emulator(out, edit=None):
+    """Build the harness into directory `out`; edit(name, text) may change
+    the text of each source copied there ("ssim_fwd_stream.cu",
+    "ssim_fwd_batch_kernel.cu", "fwd_stream_kernel.cuh") first."""
     gxx = shutil.which("g++")
     if gxx is None:
         pytest.skip("needs g++ to build the kernel's source for the host")
+    edit = edit or (lambda name, text: text)
     src = open(os.path.join(_build.CSRC_DIR, "ssim_fwd.cu")).read()
     a = src.index("template <typename T, int kMode, int kSplit>\n__global__")
     b = src.index("// ---------------------------------------------------------------------------\n"
                   "// The main-path modes: row-streaming column strips.")
     c = src.index("template <typename T, int kMode, int kSplit>\ncudaError_t launch_stream(")
-    out = tmp_path_factory.mktemp("fwd_stream_emu")
-    (out / "ssim_fwd_stream.cu").write_text(src[:a] + "}  // namespace\n" + src[b:c]
-                                            + "}  // namespace\n")
+    (out / "ssim_fwd_stream.cu").write_text(_host_shared(edit(
+        "ssim_fwd_stream.cu", src[:a] + "}  // namespace\n" + src[b:c] + "}  // namespace\n")))
     src = open(os.path.join(_build.CSRC_DIR, "ssim_fwd_batch.cu")).read()
     d = src.index("template <typename T, int kMode, int kSplit>\ncudaError_t launch_batch_stream(")
-    (out / "ssim_fwd_batch_kernel.cu").write_text(src[:d] + "}  // namespace\n")
+    (out / "ssim_fwd_batch_kernel.cu").write_text(_host_shared(edit(
+        "ssim_fwd_batch_kernel.cu", src[:d] + "}  // namespace\n")))
+    src = open(os.path.join(_build.CSRC_DIR, "fwd_stream_kernel.cuh")).read()
+    assert src.count(_DYN_DECL) == 1
+    (out / "fwd_stream_kernel.cuh").write_text(_host_shared(edit("fwd_stream_kernel.cuh", src)))
     exe = out / "harness"
     # band_mma.cuh: the emulator's (a host model of mma), which includes
     # the kernels' own from csrc, next on the path.
@@ -404,8 +482,9 @@ def stream_emulator(tmp_path_factory):
 
 
 def _emulate(exe, mode, a, b, tile, seg, vhalo=None, vmask=(0, 0), relaxed=False,
-             c2=None):
-    """The host build of the kernel in `mode` on NumPy (B, H, W) inputs:
+             c2=None, radius=5, sigma=1.5):
+    """The host build of the kernel in `mode` on NumPy (B, H, W) inputs at
+    radius (the runtime-radius instantiation where it is not 5) and sigma:
     (partials (B, nty*ntx), f64 in the precise modes, (B, nty*ntx, 2) in
     the components modes, or row sums (B, H), then the map or, in the
     pooled mode, the pooled images (pool_a, pool_b), else None). The
@@ -418,11 +497,11 @@ def _emulate(exe, mode, a, b, tile, seg, vhalo=None, vmask=(0, 0), relaxed=False
     dr = 1.0 if f32 else 255.0
     head = np.array([{**_EMU_MODES, **_EMU_PRECISE_MODES, **_EMU_COMP_MODES}[mode],
                      int(f32), bsz, h, w, tile[0], tile[1], seg, vhalo is not None,
-                     *vmask, int(precise), int(relaxed)], np.int32)
+                     *vmask, int(precise), int(relaxed), radius], np.int32)
     ftype = np.float64 if precise else np.float32
     c2 = (0.03 * dr) ** 2 if c2 is None else c2
     consts = np.array([(0.01 * dr) ** 2, c2, max(131072.0, 4.0 * dr)], ftype)
-    parts = [head, gaussian_taps(ftype, 5, 1.5), consts, a, b, *(vhalo or ())]
+    parts = [head, gaussian_taps(ftype, radius, sigma), consts, a, b, *(vhalo or ())]
     path_in, path_out = f"{exe}.{os.getpid()}.in", f"{exe}.{os.getpid()}.out"
     with open(path_in, "wb") as f:
         for x in parts:
@@ -515,11 +594,11 @@ def test_stream_kernel_source_row_modes_with_halo_on_the_host(stream_emulator, f
                    vhalo=(a_top, a_bot, b_top, b_bot), vmask=flags)
 
 
-def _hold_emulated(exe, a, b, tile, seg, vhalo=None, vmask=(0, 0)):
+def _hold_emulated(exe, a, b, tile, seg, vhalo=None, vmask=(0, 0), radius=5, sigma=1.5):
     """Each of the kernel's modes (only the row modes with halo operands)
-    against its twin on the same inputs."""
+    against its twin on the same inputs, at radius and sigma."""
     dr = 1.0 if a.dtype == np.float32 else 255.0
-    kw = dict(taps=gaussian_taps(np.float32, 5, 1.5), c1=(0.01 * dr) ** 2,
+    kw = dict(taps=gaussian_taps(np.float32, radius, sigma), c1=(0.01 * dr) ** 2,
               c2=(0.03 * dr) ** 2, clip_bound=max(131072.0, 4.0 * dr),
               tile_h=tile[0], tile_w=tile[1])
     at, bt = torch.from_numpy(a), torch.from_numpy(b)
@@ -527,7 +606,8 @@ def _hold_emulated(exe, a, b, tile, seg, vhalo=None, vmask=(0, 0)):
         vhalo=tuple(torch.from_numpy(x) for x in vhalo), vmask=vmask)
     npix = a.shape[1] * a.shape[2]
     for mode in ("rowsum", "rowsum_map") if vhalo else tuple(_EMU_MODES):
-        got, got_map = _emulate(exe, mode, a, b, tile, seg, vhalo, vmask)
+        got, got_map = _emulate(exe, mode, a, b, tile, seg, vhalo, vmask, radius=radius,
+                                sigma=sigma)
         if mode.startswith("rowsum"):
             want, want_map = ssim_cuda.ssim_rows_plain(at, bt, with_map=True, **halo, **kw)
         else:
@@ -788,7 +868,7 @@ def _emulate_batch(exe, a, b, precise, pack, relaxed=False):
     k, seg = pack
     head = np.array([7 if precise else 6, int(f32), bsz, h, w, k, seg,
                      int(not ssim_cuda.batch_direct(h, w, k, seg)), 0, 0, 0, int(precise),
-                     int(relaxed)], np.int32)
+                     int(relaxed), 5], np.int32)
     ftype = np.float64 if precise else np.float32
     consts = np.array([(0.01 * dr) ** 2, (0.03 * dr) ** 2, max(131072.0, 4.0 * dr)], ftype)
     path_in, path_out = f"{exe}.{os.getpid()}.in", f"{exe}.{os.getpid()}.out"
@@ -1006,3 +1086,160 @@ def test_batch_stream_source_relaxed_matches_twin_on_the_host(stream_emulator, c
                                               b[i].astype(np.float64), data_range=dr)[0]
                        for i in range(bsz) if i not in bad])
     assert np.abs(gk[ok] + 1.0 - oracle).max() <= _RELAXED_ORACLE_GLOBAL
+
+
+#: The runtime-radius instantiation's cases: (radius, sigma, f32, shape,
+#: tile, segment). Widths over one strip with a ragged last strip, odd
+#: heights, H one past a segment, W <= 2r at radius 16, u8 and f32.
+_EMU_RT_CASES = {
+    "r1 u8 ragged strips, odd H": (1, 0.8, False, (2, 67, 300), (32, 64), 64),
+    "r1 f32 32x32 tiles": (1, 0.8, True, (1, 33, 131), (32, 32), 32),
+    "r3 u8 odd H, H one past a segment": (3, 1.2, False, (2, 65, 261), (32, 64), 64),
+    "r3 f32 64x128 tiles": (3, 1.2, True, (1, 71, 257), (64, 128), 128),
+    "r4 u8 7x64 tiles, segments of 14": (4, 1.5, False, (1, 30, 200), (7, 64), 14),
+    "r4 f32 odd H and W": (4, 1.5, True, (2, 41, 133), (32, 64), 64),
+    "r6 u8 2S+1": (6, 2.0, False, (1, 129, 140), (32, 64), 64),
+    "r6 f32 32x32 tiles": (6, 2.0, True, (1, 35, 300), (32, 32), 32),
+    "r16 u8 W <= 2r": (16, 3.0, False, (2, 45, 9), (32, 64), 64),
+    "r16 f32 ragged strips, odd H": (16, 3.0, True, (1, 69, 261), (32, 64), 64),
+}
+
+
+@pytest.mark.parametrize("case", list(_EMU_RT_CASES))
+def test_stream_kernel_source_runtime_radius_matches_twins_on_the_host(stream_emulator,
+                                                                       case):
+    """The runtime-radius instantiation (kR = 0: the radius read at run
+    time, the window's 2r + 1 rows in a ring in shared memory, the taps in
+    shared memory), built for the host, in all eight of its modes against
+    the twins at radii 1, 3, 4, 6 and 16: kScore, kMap, kRowsum and
+    kRowsumMap (maps bit for bit, NaN over exactly the twin's tiles, row
+    sums within W * 1e-5, scores within 2e-7), kPrecise and kPreciseMap
+    (maps bit for bit, scores within 1e-12 relative), kComponents and
+    kPooled (mean cs and ssim within max(2e-7, 2e-5 / sqrt(npix)), pooled
+    images bit for bit). Outputs start as NaN and shared memory is NaN at
+    each block's start, so an entry never written fails. f32 cases hold a
+    NaN and an inf on a tile edge and a strip boundary."""
+    radius, sigma, f32, shape, tile, seg = _EMU_RT_CASES[case]
+    rng = np.random.default_rng(0x5F20 + len(case))
+    a, b = _emu_pair(rng, shape, f32)
+    if f32:
+        a[0, tile[0] - 1, min(tile[1], shape[2] - 1)] = np.nan
+        b[-1, shape[1] // 2, min(127, shape[2] - 1)] = np.inf
+    _hold_emulated(stream_emulator, a, b, tile, seg, radius=radius, sigma=sigma)
+    dr = 1.0 if f32 else 255.0
+    at, bt = torch.from_numpy(a), torch.from_numpy(b)
+    npix = shape[1] * shape[2]
+    consts = dict(c1=(0.01 * dr) ** 2, c2=(0.03 * dr) ** 2,
+                  clip_bound=max(131072.0, 4.0 * dr), tile_h=tile[0], tile_w=tile[1])
+    kw64 = dict(taps=gaussian_taps(np.float64, radius, sigma), **consts)
+    for mode in _EMU_PRECISE_MODES:
+        got, got_map = _emulate(stream_emulator, mode, a, b, tile, seg, radius=radius,
+                                sigma=sigma)
+        want, want_map = ssim_cuda.ssim_parts_precise_plain(
+            at, bt, with_map=mode == "precise_map", **kw64)
+        assert got.dtype == want.dtype == torch.float64
+        if mode == "precise_map":
+            assert torch.equal(got_map.isnan(), want_map.isnan())
+            assert torch.equal(got_map.nan_to_num(), want_map.nan_to_num())
+        assert torch.equal(got.isnan(), want.isnan())
+        gk, gp = got.sum(-1).numpy() / npix, want.sum(-1).numpy() / npix
+        assert np.nanmax(np.abs(gk - gp) / np.abs(gp), initial=0.0) <= 1e-12, mode
+    kw32 = dict(taps=gaussian_taps(np.float32, radius, sigma), **consts)
+    want = ssim_cuda.ssim_components_plain(at, bt, **kw32)
+    got, _ = _emulate(stream_emulator, "components", a, b, tile, seg, radius=radius,
+                      sigma=sigma)
+    assert torch.equal(got.isnan(), want.isnan())
+    gk, gp = got.double().sum(-2) / npix, want.double().sum(-2) / npix
+    fin = ~gp.isnan()
+    if fin.any():
+        assert (gk[fin] - gp[fin]).abs().max().item() <= max(2e-7, 2e-5 / npix**0.5)
+    if tile[0] % 2 == 0:
+        parts, (pa, pb) = _emulate(stream_emulator, "pooled", a, b, tile, seg,
+                                   radius=radius, sigma=sigma)
+        assert torch.equal(parts.isnan(), got.isnan())
+        assert torch.equal(parts.nan_to_num(), got.nan_to_num())
+        for x, y in ((pa, ssim_cuda.downsample2(at)), (pb, ssim_cuda.downsample2(bt))):
+            assert torch.equal(x.isnan(), y.isnan()) and torch.equal(x.nan_to_num(),
+                                                                     y.nan_to_num())
+    if f32:
+        assert got.isnan().any() and not got.isnan().all()  # only the planted tiles
+
+
+@pytest.mark.parametrize("radius,sigma,flags", [(1, 0.8, (0, 0)), (3, 1.2, (1, 0)),
+                                                (6, 2.0, (0, 1)), (16, 3.0, (1, 1))])
+def test_stream_kernel_source_runtime_radius_row_modes_with_halo(stream_emulator, radius,
+                                                                   sigma, flags):
+    """The runtime-radius instantiation's row modes with halo operands of r
+    rows, a band of 61 rows of a 200-row image, each flag pair: the
+    operands' rows read in place of the clamp where a flag is clear, and
+    NaN-filled operands under a set flag never read; f32 with a NaN in the
+    band (its tile's rows NaN) and one in the rows the top operand holds
+    (operand rows poison nothing)."""
+    f32 = flags != (1, 0)
+    rng = np.random.default_rng(0x5F30 + radius)
+    a, b = _emu_pair(rng, (2, 200, 300), f32)
+    lo, hi = 60, 121
+    if f32:
+        a[1, 100, 140] = np.nan
+        a[0, lo - 1, 30] = np.nan
+
+    def ring(x):
+        top = x[:, -radius:] if flags[0] else x[:, lo - radius:lo]
+        bot = x[:, :radius] if flags[1] else x[:, hi:hi + radius]
+        return np.ascontiguousarray(top), np.ascontiguousarray(bot)
+
+    (a_top, a_bot), (b_top, b_bot) = ring(a), ring(b)
+    if f32 and flags[0]:
+        a_top = np.full_like(a_top, np.nan)
+    if f32 and flags[1]:
+        b_bot = np.full_like(b_bot, np.nan)
+    _hold_emulated(stream_emulator, np.ascontiguousarray(a[:, lo:hi]),
+                   np.ascontiguousarray(b[:, lo:hi]), (32, 64), 32,
+                   vhalo=(a_top, a_bot, b_top, b_bot), vmask=flags, radius=radius,
+                   sigma=sigma)
+
+
+#: The P6 check's mutations of the kernel source: (file, the text, its
+#: replacement). Each leaves one output entry or one shared array unwritten.
+_SKIP_STORE = {
+    "a map store skipped (runtime radius)": (
+        "fwd_stream_kernel.cuh",
+        "map[base + (size_t)(y0 + ly) * (size_t)W + (size_t)(x0 + tid)] = (float)v;",
+        "if (y0 + ly != 3 || x0 + tid != 130) "
+        "map[base + (size_t)(y0 + ly) * (size_t)W + (size_t)(x0 + tid)] = (float)v;"),
+    "a tile partial skipped": (
+        "fwd_stream_kernel.cuh",
+        "          partials[((size_t)img * nty + (size_t)tyg) * (size_t)ntx + (size_t)txg] =",
+        "          if (tyg != 1 || txg != 2) "
+        "partials[((size_t)img * nty + (size_t)tyg) * (size_t)ntx + (size_t)txg] ="),
+    "the tile mask left uninitialised": (
+        "fwd_stream_kernel.cuh",
+        "  if (tid < kMaxSegTiles) s_bad[tid] = 0u;\n",
+        "\n"),
+}
+
+
+@pytest.mark.parametrize("mutation", list(_SKIP_STORE))
+def test_emulator_poison_shows_an_unwritten_output(tmp_path, mutation):
+    """The P6 check (ROADMAP Queue 3): the harness fills every output with
+    NaN and shared memory with NaN bytes at each block's start, so a kernel
+    that leaves one map pixel or one partial unwritten, or reads a shared
+    array it never initialised, fails the comparison with its twin, where
+    outputs that start as zeros or as an earlier right answer could hide
+    it. Built from a copy of the source with one store skipped, the
+    standard modes at radius 5 and 3 fail; the unmutated build passes them
+    (the other tests)."""
+    name, old, new = _SKIP_STORE[mutation]
+
+    def edit(fname, text):
+        if fname == name:
+            assert text.count(old) == 1, mutation
+            return text.replace(old, new)
+        return text
+
+    exe = _build_emulator(tmp_path, edit)
+    rng = np.random.default_rng(0x5F40)
+    a, b = _emu_pair(rng, (1, 70, 300), True)  # f32: the tile mask is read
+    for radius, sigma in ((5, 1.5), (3, 1.2)):
+        with pytest.raises(AssertionError):
+            _hold_emulated(exe, a, b, (32, 64), 64, radius=radius, sigma=sigma)
