@@ -236,7 +236,17 @@ Phases, each of which raises on failure (the script then exits non-zero):
    maps against the twin; (c) the stream and the tile body in turns at
    radii 1, 3, 4, 6, 8 and 16 (`tools/fwd_times.radius_times`: u8 kScore
    and kMap at 4K x4, kPrecise at 4K x4, kComponents f32 at 1080p x4,
-   kRowsum at 16K) beside each bound, and the twin at radius 8.
+   kRowsum at 16K) beside each bound, and the twin at radius 8. The relaxed
+   tier likewise: (a) its four forward modes at every radius 1-16 but 5
+   and its tile body at `fit_tile(32, 256)`, relaxed K3 at its k-step
+   edges ± g_map and with halo operands, all poisoned, against the twins;
+   (b) relaxed `compute_ssim` with custom windows, three relaxed
+   `ssim_loss` steps at radius 9 on f32 1080p x4 (each step's forward and
+   K3 launch poisoned and held against its twin), and the relaxed
+   components and pooled wrappers on msssim_1080_b4's scale-0 pair at
+   radii 9 and 16, each call's launches counted from 0 (streaming but at
+   radius 16, where the measured rule keeps the relaxed tile body);
+   (c) the relaxed stream and tile body in turns, K3 beside its bound.
 
 Prints phase 12's launches and times as one JSON line (`{"cli": ...}`),
 phase 13's as one (`{"parallel": ...}`), phase 14's as one
@@ -503,28 +513,29 @@ def twin_errors(name, a, b, pk, mk, win, rerun):
 class poisoned_outputs:
     """An unwritten-output check by hand (ROADMAP Queue 3, P6; the card's
     machine refuses compute-sanitizer): inside the block every
-    floating-point tensor that torch.empty makes on the card, as the
-    wrappers make their outputs and scratch, is filled with NaN first, so a
-    partial, row piece or map pixel the kernel never writes shows as a
+    floating-point tensor that torch.empty or torch.empty_like makes on the
+    card, as the wrappers make their outputs and scratch (the backward its
+    da and db with empty_like), is filled with NaN first, so a partial, row
+    piece, map pixel or gradient the kernel never writes shows as a
     mismatch with the twin, where the caching allocator could otherwise
     hand back a block that held an earlier launch's right answer. `count`:
     the tensors poisoned."""
 
     def __enter__(self):
-        self.real, self.count = torch.empty, 0
+        self.real, self.real_like, self.count = torch.empty, torch.empty_like, 0
 
-        def empty(*args, **kw):
-            x = self.real(*args, **kw)
+        def poison(x):
             if x.is_cuda and x.is_floating_point():
                 x.fill_(float("nan"))
                 self.count += 1
             return x
 
-        torch.empty = empty
+        torch.empty = lambda *args, **kw: poison(self.real(*args, **kw))
+        torch.empty_like = lambda *args, **kw: poison(self.real_like(*args, **kw))
         return self
 
     def __exit__(self, *exc):
-        torch.empty = self.real
+        torch.empty, torch.empty_like = self.real, self.real_like
 
 
 def poisoned(fn):
@@ -720,8 +731,8 @@ def device_trace(fn, reps):
 
 def k3_ms(top):
     """The backward kernel's ms per call in a trace's operations (every
-    instantiation of ssim_bwd.cu: the standard tier's stream kernel, the
-    relaxed tile kernel)."""
+    instantiation of ssim_bwd.cu and ssim_bwd_relaxed_rt.cu: the standard
+    and the relaxed stream kernels)."""
     return sum(ms for name, ms in top if "ssim_bwd" in name)
 
 
@@ -817,8 +828,23 @@ RELAXED_BWD_STREAM_DESIGN = (
     "all sixteen band passes as bf16x3 mma.sync products, the horizontal ones with the "
     "band as A and the 8 rows as lines, split as loaded from f32, the vertical ones with "
     "the band as B, their inputs kept split in bf16 rings of 18 rows, ldmatrix / "
-    "stmatrix .trans; 4 barriers per 8 rows; ~108 KB, 2 blocks/SM); other radii: the "
-    "tile kernel")
+    "stmatrix .trans; 4 barriers per 8 rows; ~108 KB, 2 blocks/SM); other radii: "
+    "RT_RELAXED_BWD_DESIGN")
+RT_RELAXED_FWD_DESIGN = (
+    "the relaxed row stream at a radius read at run time (ssim_fwd_stream_kernel<T, mode, "
+    "ksteps(r), 0>, ssim_fwd_stream_rt_relaxed.cu: kScore, kMap, kComponents, kPooled, "
+    "radius 1-16 but 5): the radius-5 stream's steps (the heavy blurs of two rows every "
+    "other step as bf16x3 band products by the block's 4 warps, 2 or 3 k-steps) with the "
+    "runtime-radius stream's window: a ring of 2r + 1 rows of four signals, one float4 a "
+    "column, in dynamic shared memory, beside 4 staged {a, b} rows and the heavy blurs "
+    "of 4 rows; 7 blocks/SM (6 components / pooled) at small radii down to 2 at 16")
+RT_RELAXED_BWD_DESIGN = (
+    "the relaxed backward stream at a radius read at run time "
+    "(ssim_bwd_relaxed_rt_kernel<kG, kSW, gmap>, ssim_bwd_relaxed_rt.cu, "
+    "bwd_relaxed_stream.cuh: radius 1-16 but 5): radius 5's body, rings of 8 + 2r rows, "
+    "the k-steps of its group of radii (horizontal 2 up to r = 8, 3 above; vertical 1, 2, "
+    "2, 3 by groups of 4 radii), a strip of 128 columns (radii 1-4, 12-15) or one "
+    "64-column NaN tile (6-11, 16: ssim_grad.RELAXED_STRIP_W, measured), 2 or 1 blocks/SM")
 
 
 def phase_main(gen, label):
@@ -1207,7 +1233,6 @@ def launch_counts():
                 backward=ssim_grad.LAUNCHES,
                 backward_vhalo=ssim_grad.VHALO_LAUNCHES,
                 backward_relaxed=ssim_grad.RELAXED_LAUNCHES,
-                backward_relaxed_stream=ssim_grad.RELAXED_STREAM_LAUNCHES,
                 pad=pad.PAD_LAUNCHES, stream=ssim_cuda.STREAM_LAUNCHES)
 
 
@@ -1242,6 +1267,12 @@ def counts_of(**nonzero):
     return dict(dict.fromkeys(launch_counts(), 0), **nonzero)
 
 
+def counts_of_nonzero(**counts):
+    """counts without its zeros: what {k: v for k, v in launch_counts()
+    .items() if v} reads when exactly these launched."""
+    return {k: v for k, v in counts.items() if v}
+
+
 def zero_counts():
     from ssim_tpu_torch.ops import pad, ssim_cuda, ssim_grad
 
@@ -1251,7 +1282,6 @@ def zero_counts():
     ssim_cuda.ROWSUM_LAUNCHES = ssim_cuda.ROWSUM_MAP_LAUNCHES = 0
     ssim_cuda.RELAXED_LAUNCHES = ssim_cuda.STREAM_LAUNCHES = 0
     ssim_grad.LAUNCHES = ssim_grad.VHALO_LAUNCHES = ssim_grad.RELAXED_LAUNCHES = 0
-    ssim_grad.RELAXED_STREAM_LAUNCHES = 0
     pad.PAD_LAUNCHES = 0
 
 
@@ -2681,8 +2711,11 @@ def compare_relaxed(name, a, b, oracle=False, **win):
     pk, mk = ssim_parts_cuda(a, b, with_map=True, relaxed=True, allow_float=f32, **win)
     torch.cuda.synchronize()
     counts = launch_counts()
-    # At radius 5 both relaxed launches stream; radii 1 and 16 keep the tile body.
-    streamed = 2 if win.get("radius", 5) == 5 else 0
+    # Both relaxed launches stream at radius 5 (compiled in) and 1 (phase
+    # 10a's custom window; the runtime-radius relaxed stream,
+    # ssim_fwd_stream_rt_relaxed.cu); at 16 the measured rule
+    # (ssim_cuda.STREAM_RELAXED_TILE_RADII) keeps the relaxed tile body.
+    streamed = 0 if win.get("radius") == 16 else 2
     check(counts == counts_of(relaxed=2, stream=streamed),
           f"{name}: relaxed kScore / kMap launched {counts}, expected {streamed} streaming")
     _, ms = ssim_parts_cuda(a, b, with_map=True, allow_float=f32, **win)
@@ -2700,7 +2733,7 @@ def compare_relaxed(name, a, b, oracle=False, **win):
           f"pixel {p_err:.3g} (tol {RELAXED_TWIN_PIXEL:.3g})")
     d_std = max_finite(mk, ms)
     check(d_std > 0, f"{name}: the relaxed map equals the standard one")
-    line = (f"  {name}: relaxed kScore / kMap ({'streaming' if streamed else 'tile body'}) "
+    line = (f"  {name}: relaxed kScore / kMap (streaming) "
             f"vs twin global {g_err:.3g} pixel {p_err:.3g}; vs the standard map {d_std:.3g}")
     if oracle:
         r = win.get("radius", 5)
@@ -2718,8 +2751,8 @@ def compare_relaxed(name, a, b, oracle=False, **win):
 
 def compare_relaxed_grad(name, a, b, w_s, w_cs, g_map, label):
     """K3 relaxed against its twin and against the standard K3 on the same
-    card tensors, its launch the streaming kernel's (by
-    RELAXED_STREAM_LAUNCHES), and both timed in turns (standard, relaxed,
+    card tensors, its launch the streaming kernel's (one RELAXED_LAUNCHES:
+    the relaxed tier's one design), and both timed in turns (standard, relaxed,
     relaxed, standard) beside the twin and relaxed_bwd_bound; returns the
     max abs kernel-vs-twin error and the times."""
     from ssim_tpu_torch.ops import ssim_grad
@@ -2730,7 +2763,7 @@ def compare_relaxed_grad(name, a, b, w_s, w_cs, g_map, label):
     rk = ssim_grad_cuda(a, b, w_s, w_cs, g_map, data_range=1.0, relaxed=True)
     torch.cuda.synchronize()
     counts = launch_counts()
-    check(counts == counts_of(backward_relaxed=1, backward_relaxed_stream=1),
+    check(counts == counts_of(backward_relaxed=1),
           f"{name}: relaxed K3 launched {counts}, expected the streaming kernel once")
     sk = ssim_grad_cuda(a, b, w_s, w_cs, g_map, data_range=1.0)
     torch.cuda.synchronize()
@@ -3118,13 +3151,13 @@ def phase_relaxed_path(gen, inputs):
     from ssim_tpu_torch.ops import ssim_cuda
 
     print('phase 10b: the public path with accuracy="relaxed"', flush=True)
-    fwd = bwd = streamed = relaxed_streamed = bwd_streamed = 0
+    fwd = bwd = streamed = relaxed_streamed = 0
     by_call, streamed_modes = {}, {}
 
     def counted(name, fn):
         # The relaxed launches that streamed are counted launch by launch,
         # apart from the standard launches beside them, and by mode.
-        nonlocal fwd, bwd, streamed, relaxed_streamed, bwd_streamed
+        nonlocal fwd, bwd, streamed, relaxed_streamed
         torch.cuda.synchronize()
         zero_counts()
         out, by_mode = streamed_by_mode(fn)
@@ -3136,7 +3169,6 @@ def phase_relaxed_path(gen, inputs):
         by_call[name] = {k: v for k, v in counts.items() if v}
         fwd += counts["relaxed"]
         bwd += counts["backward_relaxed"]
-        bwd_streamed += counts["backward_relaxed_stream"]
         streamed += counts["stream"]
         return out, counts
 
@@ -3184,8 +3216,7 @@ def phase_relaxed_path(gen, inputs):
 
     losses, counts = counted("ssim_loss step", lambda: train(
         lambda x: ssim_tpu_torch.ssim_loss(x, clean, accuracy="relaxed")))
-    check(counts == counts_of(relaxed=3, backward_relaxed=2, stream=3,
-                              backward_relaxed_stream=2),
+    check(counts == counts_of(relaxed=3, backward_relaxed=2, stream=3),
           f"2 relaxed ssim_loss steps (and the final loss) launched {counts}")
     print(f"  2 Adam steps on ssim_loss(accuracy=\"relaxed\") {shape}: 1-SSIM {losses}; "
           f"launches {by_call['ssim_loss step']}", flush=True)
@@ -3207,7 +3238,7 @@ def phase_relaxed_path(gen, inputs):
         lambda x: 1.0 - ssim_tpu_torch.ms_ssim(x, clean, data_range=1.0,
                                                accuracy="relaxed").mean()))
     check(counts == counts_of(relaxed=6, components=9, backward_relaxed=4, backward=6,
-                              backward_relaxed_stream=4, stream=3),
+                              stream=3),
           f"2 relaxed MS-SSIM steps (and the final loss) launched {counts}")
     print(f"  2 Adam steps on 1 - ms_ssim(accuracy=\"relaxed\") {shape}: {losses}; "
           f"launches {by_call['ms_ssim step']}", flush=True)
@@ -3236,11 +3267,11 @@ def phase_relaxed_path(gen, inputs):
     check(streamed == relaxed_streamed, f"{streamed} of the public path's forward launches "
           f"streamed, expected the {relaxed_streamed} relaxed ones (MS-SSIM's standard "
           f"scales 2-4 run the tile body)")
-    check(bwd == bwd_streamed == 6, f"{bwd_streamed} of the public path's {bwd} relaxed "
-          f"K3 launches streamed, expected all 6")
+    check(bwd == 6, f"the public path's relaxed K3 launches {bwd}, expected 6 (every one "
+          f"streams: the relaxed tier's one design)")
     print(f"  relaxed launches {fwd}, {relaxed_streamed} of them streaming ({got_modes}); "
           f"all forward launches streaming {streamed}", flush=True)
-    return fwd, bwd, relaxed_streamed, bwd_streamed, by_call, got_modes
+    return fwd, bwd, relaxed_streamed, by_call, got_modes
 
 
 def phase_relaxed_times(gen, label, inputs):
@@ -3415,12 +3446,12 @@ def relaxed_step_times(clean, noisy, label):
 
 def phase_relaxed(gen, label):
     err_fwd, err_bwd, d_std, inputs = phase_relaxed_kernels(gen, label)
-    fwd, bwd, streamed, bwd_streamed, by_call, modes = phase_relaxed_path(gen, inputs)
+    fwd, bwd, streamed, by_call, modes = phase_relaxed_path(gen, inputs)
     times = phase_relaxed_times(gen, label, inputs)
     del inputs
     torch.cuda.empty_cache()
     return dict(err_fwd=err_fwd, err_bwd=err_bwd, d_std=d_std, launches_fwd=fwd,
-                launches_bwd=bwd, launches_stream=streamed, launches_bwd_stream=bwd_streamed,
+                launches_bwd=bwd, launches_stream=streamed,
                 launches_stream_by_mode=modes, by_call=by_call, times=times)
 
 
@@ -4411,7 +4442,7 @@ DEVICEBENCH_LAUNCHES = {
     "auto_128sq_b1024": dict(batch=1, stream=1),
     "auto_64sq_b4096_f64": dict(batch_precise=1, stream=1),
     "grad_1080_b4": dict(backward=1),
-    "grad_1080_b4_relaxed": dict(backward_relaxed=1, backward_relaxed_stream=1),
+    "grad_1080_b4_relaxed": dict(backward_relaxed=1),
     "msssim_1080_b4": dict(pooled=4, components=1, stream=2),
     "torch_1080_nomap": {},
 }
@@ -4763,6 +4794,404 @@ def rt_launches(fn):
     return out, sum(n for r, n in by.items() if r != 5)
 
 
+# The relaxed tier at a runtime radius (phase 15a-c): the forward's four
+# relaxed modes, K3 relaxed at the k-step edges (horizontal passes 2 k-steps
+# up to radius 8 and 3 above, vertical ones 1 / 2 / 3 at radii up to 4 / 12
+# / 16), the main path's relaxed custom windows and the kernels line's
+# figures (relaxed kScore 4K x4 at RT_LINE_RADIUS, K3 at RT_RELAXED_LINE_RADIUS).
+RT_RELAXED_MODES = ("score", "map", "components", "pooled")
+RT_RELAXED_GRAD_RADII = (1, 3, 4, 8, 9, 12, 13, 16)
+RT_RELAXED_LINE_RADIUS = 9
+RT_RELAXED_STEPS = 3
+
+
+def rt_relaxed_kw(a, radius, sigma, tile=None):
+    """The relaxed launch's and twin's keywords at radius (tile: the
+    default TILE_H x TILE_W)."""
+    from ssim_tpu_torch.ops import ssim_cuda
+
+    dr = 1.0 if a.dtype == torch.float32 else 255.0
+    th, tw = tile or (ssim_cuda.TILE_H, ssim_cuda.TILE_W)
+    return dict(taps=ssim_cuda.gaussian_taps(np.float32, radius, sigma), c1=(0.01 * dr) ** 2,
+                c2=(0.03 * dr) ** 2, clip_bound=max(131072.0, 4.0 * dr), tile_h=th, tile_w=tw)
+
+
+def rt_relaxed_twin(a, b, mode, kw):
+    """The relaxed twin of `mode`, returned as ssim_cuda._launch returns the
+    kernel's outputs."""
+    from ssim_tpu_torch.ops import ssim_cuda
+
+    if mode == "pooled":
+        return ssim_cuda.ssim_components_pooled_plain(a, b, relaxed=True, **kw)
+    if mode == "components":
+        return ssim_cuda.ssim_components_plain(a, b, relaxed=True, **kw)
+    return ssim_cuda.ssim_parts_plain(a, b, with_map=mode == "map", relaxed=True, **kw)
+
+
+def rt_relaxed_errors(name, mode, got, want, shape, rerun):
+    """A relaxed launch against its relaxed twin: per-image scores (mean cs
+    and ssim in the components modes) within RELAXED_TWIN_GLOBAL (never
+    tighter than 2 RELAXED_TWIN_PIXEL / sqrt(npix)), NaN at the same
+    partials, maps within RELAXED_TWIN_PIXEL (NaN at the same pixels),
+    pooled images bit for bit. A failed comparison prints relaxed_mismatch
+    (rerun(): the launch again). Returns the largest score error."""
+    npix = shape[-2] * shape[-1]
+    tol = max(RELAXED_TWIN_GLOBAL, 2 * RELAXED_TWIN_PIXEL / npix**0.5)
+    if mode in ("components", "pooled"):
+        if mode == "pooled":
+            for x, y in zip(got[1:], want[1:]):
+                check(same(x, y), f"{name}: pooled images differ from the twin's")
+            got, want = got[0], want[0]
+            again = lambda: rerun()[0].double().sum(-2) / npix
+        else:
+            again = lambda: rerun().double().sum(-2) / npix
+        gk, gp = got.double().sum(-2) / npix, want.double().sum(-2) / npix
+    else:
+        (pk, mk), (pp, mp) = got, want
+        if mp is not None and not (torch.equal(mk.isnan(), mp.isnan())
+                                   and max_finite(mk, mp) <= RELAXED_TWIN_PIXEL):
+            raise RuntimeError(f"{name}: map vs twin: " + relaxed_mismatch(
+                mk, mp, RELAXED_TWIN_PIXEL, lambda: rerun()[1]))
+        gk, gp = pk.double().sum(-1) / npix, pp.double().sum(-1) / npix
+        again = lambda: rerun()[0].double().sum(-1) / npix
+    err = max_finite(gk, gp)
+    if not (torch.equal(gk.isnan(), gp.isnan()) and err <= tol):
+        raise RuntimeError(f"{name}: scores vs twin (tol {tol:.3g}): "
+                           + relaxed_mismatch(gk, gp, tol, again))
+    return err
+
+
+def radius_relaxed_kernels(gen):
+    """15a, relaxed: the forward's four relaxed modes at every radius 1-16
+    but 5 (u8, and f32 with NaN and inf), poisoned, at the segment the
+    picker gives at the relaxed occupancy pinned (each must stream: one
+    STREAM_LAUNCHES and one RELAXED_LAUNCHES a launch), and the relaxed tile
+    body pinned at fit_tile(32, 256) at radii 1-16 (which tile_w 256 still
+    reaches); then K3 relaxed at RT_RELAXED_GRAD_RADII, with and without
+    g_map and once with halo operands, poisoned, every launch streaming,
+    against its twin and the standard K3. Returns (forward error, tile body
+    error, K3 error / max|g|, launches checked by kind)."""
+    from ssim_tpu_torch.ops import ssim_cuda, ssim_grad
+    from ssim_tpu_torch.tools import fwd_times
+
+    sigma = fwd_times.RADIUS_SIGMA.__getitem__
+    err, body_err, checked = 0.0, 0.0, dict(stream=0, tile_body=0, k3=0)
+    u8 = pair(gen, (2, 301, 517))
+    f32 = pair(gen, (2, 133, 300), torch.float32, 1.0)
+    f32[0][0, 31, 64] = float("nan")
+    f32[1][1, 70, 127] = float("inf")
+    for radius in range(1, ssim_cuda.MAX_FUSED_RADIUS + 1):
+        body_tile = ssim_cuda.fit_tile(32, 256, radius)
+        for mode in RT_RELAXED_MODES:
+            for a, b in (u8, f32):
+                name = f"relaxed {mode} {a.dtype} radius {radius}"
+                kt = rt_relaxed_kw(a, radius, sigma(radius), body_tile)
+                run = lambda: ssim_cuda._launch(a, b, mode=mode, relaxed=True, tile_body=True,
+                                                **kt)
+                before = ssim_cuda.STREAM_LAUNCHES
+                got = poisoned(run)
+                torch.cuda.synchronize()
+                check(ssim_cuda.STREAM_LAUNCHES == before,
+                      f"{name}: the pinned relaxed tile body streamed")
+                body_err = max(body_err, rt_relaxed_errors(
+                    f"tile body {body_tile} {name}", mode, got,
+                    rt_relaxed_twin(a, b, mode, kt), a.shape, run))
+                checked["tile_body"] += 1
+                if radius == ssim_cuda.STREAM_RADIUS:
+                    continue
+                kw = rt_relaxed_kw(a, radius, sigma(radius))
+                res = ssim_cuda._stream_resident(a.device.index, mode,
+                                                 a.dtype == torch.float32, True, radius)
+                seg = ssim_cuda.stream_segment(*a.shape, kw["tile_h"], 2 * radius, res)
+                run = lambda: ssim_cuda._launch(a, b, mode=mode, relaxed=True, segment=seg,
+                                                **kw)
+                before = (ssim_cuda.STREAM_LAUNCHES, ssim_cuda.RELAXED_LAUNCHES)
+                got = poisoned(run)
+                torch.cuda.synchronize()
+                check((ssim_cuda.STREAM_LAUNCHES, ssim_cuda.RELAXED_LAUNCHES)
+                      == (before[0] + 1, before[1] + 1),
+                      f"{name}: the pinned relaxed launch did not stream")
+                err = max(err, rt_relaxed_errors(name, mode, got,
+                                                 rt_relaxed_twin(a, b, mode, kw), a.shape,
+                                                 run))
+                checked["stream"] += 1
+    del u8, f32
+
+    # K3 relaxed at the k-step edges, with a NaN (its tiles NaN in both).
+    a, b = pair(gen, (2, 200, 600), torch.float32, 1.0)
+    a[1, 100, 250] = float("nan")
+    w_s = torch.rand(2, generator=gen, device="cuda") / (200 * 600)
+    w_cs = torch.rand(2, generator=gen, device="cuda") * 0.3 / (200 * 600)
+    g_map = torch.randn(a.shape, generator=gen, device="cuda") * 1e-6
+    grad_err = 0.0
+    runs = [(r, g, {}) for r in RT_RELAXED_GRAD_RADII for g in (None, g_map)]
+    band = (slice(None), slice(40, 160))
+    halo_r = RT_RELAXED_LINE_RADIUS
+    halo = dict(vhalo=tuple(x[:, s].contiguous() for x in (a, b)
+                            for s in (slice(40 - 2 * halo_r, 40), slice(160, 160 + 2 * halo_r))),
+                vmask=(0, 0))
+    runs.append((halo_r, None, halo))
+    for radius, gm, extra in runs:
+        x, y = (a[band].contiguous(), b[band].contiguous()) if extra else (a, b)
+        name = (f"K3 relaxed radius {radius}{' g_map' if gm is not None else ''}"
+                f"{' halo operands' if extra else ''}")
+        kw = dict(taps=ssim_grad._taps(radius, float(sigma(radius))), c1=1e-4, c2=9e-4,
+                  clip_bound=131072.0, **extra)
+        before = ssim_grad.RELAXED_LAUNCHES
+        run = lambda: ssim_grad._launch(x, y, w_s, w_cs, gm, relaxed=True, **kw)
+        got = poisoned(run)
+        torch.cuda.synchronize()
+        check(ssim_grad.RELAXED_LAUNCHES == before + 1,
+              f"{name}: the launch did not stream (RELAXED_LAUNCHES)")
+        want = ssim_grad.ssim_grad_plain(x, y, w_s, w_cs, gm, relaxed=True, **kw)
+        std = ssim_grad._launch(x, y, w_s, w_cs, gm, **kw)
+        torch.cuda.synchronize()
+        scale = max(float(t[~t.isnan()].abs().max()) for t in std)
+        for k, p_, s_, what in zip(got, want, std, ("da", "db")):
+            e_twin, e_std = max_finite(k, p_), max_finite(k, s_)
+            if not (torch.equal(k.isnan(), p_.isnan()) and e_twin <= RELAXED_GRAD_TWIN * scale):
+                raise RuntimeError(f"{name} {what} vs twin: " + relaxed_mismatch(
+                    k, p_, RELAXED_GRAD_TWIN * scale,
+                    lambda: run()[0 if what == "da" else 1]))
+            check(0 < e_std <= RELAXED_GRAD_STD * scale,
+                  f"{name} {what}: vs the standard K3 {e_std / scale:.3g} x max|g|")
+            grad_err = max(grad_err, e_twin / scale)
+        checked["k3"] += 1
+    return err, body_err, grad_err, checked
+
+
+def captured(module, fn):
+    """fn()'s result and, for each module._launch call in it (the wrappers
+    look it up in the module at each call), its tensor arguments cloned
+    before the launch, its keywords, its outputs (launched with the
+    outputs poisoned, poisoned_outputs) cloned after it, and a rerun() of
+    it on the clones."""
+    launch, seen = module._launch, []
+
+    def spied(*args, **kw):
+        kept = [x.clone() if isinstance(x, torch.Tensor) else x for x in args]
+        out = poisoned(lambda: launch(*args, **kw))
+        torch.cuda.synchronize()
+        flat = lambda o: (tuple(flat(x) for x in o) if isinstance(o, (tuple, list))
+                          else o.clone() if isinstance(o, torch.Tensor) else o)
+        seen.append((kept, kw, flat(out), lambda: launch(*kept, **kw)))
+        return out
+
+    module._launch = spied
+    try:
+        out = fn()
+    finally:
+        module._launch = launch
+    return out, seen
+
+
+def twin_window(kw):
+    """A forward launch's keywords as its twin takes them."""
+    return {k: kw[k] for k in ("taps", "c1", "c2", "clip_bound", "tile_h", "tile_w")}
+
+
+def radius_relaxed_path(gen, a_np, b_np):
+    """15b, relaxed: compute_ssim(accuracy="relaxed") with the custom windows
+    RT_MAIN_RADII on NumPy 4K x4 u8 (score and map); RT_RELAXED_STEPS Adam
+    steps of ssim_loss(accuracy="relaxed") at RT_RELAXED_LINE_RADIUS on f32
+    (4, 1080, 1920), each step's forward and K3 launch, outputs poisoned,
+    held against their twins on the same card tensors; and the relaxed
+    components and pooled wrappers on msssim_1080_b4's scale-0 pair at
+    RT_RELAXED_LINE_RADIUS and at 16 (compute_ms_ssim keeps radius 5, as
+    the JAX package's does, so a custom radius reaches these modes through
+    the wrappers), against their twins (pooled images bit for bit). Counts
+    from 0 before each call; each check states its streaming count: one a
+    launch but at radius 16, where the measured rule
+    (STREAM_RELAXED_TILE_RADII) keeps the relaxed tile body. Returns (forward launches streaming at a radius other
+    than 5, backward launches, calls, largest error, largest K3 error /
+    max|g|)."""
+    import ssim_tpu_torch
+    from ssim_tpu_torch.ops import ssim_cuda, ssim_grad
+    from ssim_tpu_torch.tools import fwd_times
+
+    sigma = fwd_times.RADIUS_SIGMA.__getitem__
+    fwd, bwd, calls, err, grad_err = 0, 0, {}, 0.0, 0.0
+    a, b = torch.from_numpy(a_np).cuda(), torch.from_numpy(b_np).cuda()
+    npix = a.shape[1] * a.shape[2]
+    for radius in RT_MAIN_RADII:
+        win = dict(radius=radius, sigma=sigma(radius))
+        for extra in (dict(), dict(with_map=True)):
+            # The measured rule (STREAM_RELAXED_TILE_RADII) keeps the relaxed
+            # tile body for kScore / kMap at 16 alone.
+            streams = 0 if radius == 16 else 1
+            zero_counts()
+            got, n = rt_launches(lambda: ssim_tpu_torch.compute_ssim(
+                a_np, b_np, accuracy="relaxed", **win, **extra))
+            counts = {k: v for k, v in launch_counts().items() if v}
+            check(n == streams and counts == counts_of_nonzero(relaxed=1, stream=streams),
+                  f"relaxed compute_ssim radius {radius} {extra}: launches {counts}, "
+                  f"runtime-radius streams {n}, expected {streams}")
+            fwd += n
+            calls[f"relaxed r{radius}{' map' if extra else ''}"] = counts
+            pp, mp = rt_relaxed_twin(a, b, "map", rt_relaxed_kw(a, radius, win["sigma"]))
+            if extra:
+                check(max_finite(torch.from_numpy(np.asarray(got[1])), mp.cpu())
+                      <= RELAXED_TWIN_PIXEL,
+                      f"relaxed compute_ssim radius {radius}: the map vs the twin's")
+                got = got[0]
+            e = float(np.abs(np.asarray(got, np.float64) - scores(pp, npix)).max())
+            check(e <= max(RELAXED_TWIN_GLOBAL, 2 * RELAXED_TWIN_PIXEL / npix**0.5),
+                  f"relaxed compute_ssim radius {radius}: {got} vs the twin's")
+            err = max(err, e)
+            del pp, mp
+    del a, b
+    # Training with a custom window, relaxed: each step's forward and K3,
+    # launched with their outputs poisoned, against their twins.
+    radius = RT_RELAXED_LINE_RADIUS
+    shape = (4, 1080, 1920)
+    clean, noisy = pair(gen, shape, torch.float32, 1.0)
+    x = noisy.clone().requires_grad_()
+    opt = torch.optim.Adam([x], lr=1e-3)
+    losses, fwd_seen, bwd_seen = [], [], []
+
+    def step():
+        opt.zero_grad()
+        loss = ssim_tpu_torch.ssim_loss(x, clean, accuracy="relaxed", radius=radius,
+                                        sigma=sigma(radius))
+        loss.backward()
+        return loss
+
+    zero_counts()
+    for _ in range(RT_RELAXED_STEPS):
+        (loss, seen_b), seen_f = captured(ssim_cuda, lambda: captured(ssim_grad, step))
+        fwd_seen += seen_f
+        bwd_seen += seen_b
+        opt.step()
+        with torch.no_grad():
+            x.clamp_(0.0, 1.0)
+        losses.append(float(loss.detach()))
+    torch.cuda.synchronize()
+    counts = {k: v for k, v in launch_counts().items() if v}
+    n = RT_RELAXED_STEPS
+    check(counts == counts_of_nonzero(relaxed=n, stream=n, backward_relaxed=n)
+          and len(fwd_seen) == len(bwd_seen) == n
+          and all(np.isfinite(losses)) and losses[-1] < losses[0],
+          f"relaxed ssim_loss radius {radius}: launches {counts}, losses {losses}")
+    for i, (args, kw, got, rerun) in enumerate(fwd_seen):
+        check(kw.get("relaxed") and len(kw["taps"]) == 2 * radius + 1,
+              f"relaxed ssim_loss step {i}: its forward launch {kw.get('mode')} was not "
+              f"relaxed at radius {radius}")
+        want = rt_relaxed_twin(args[0], args[1], kw["mode"], twin_window(kw))
+        err = max(err, rt_relaxed_errors(f"relaxed ssim_loss step {i} forward", kw["mode"],
+                                         got, want, args[0].shape, rerun))
+    for i, (args, kw, got, rerun) in enumerate(bwd_seen):
+        name = f"relaxed ssim_loss step {i} K3 {tuple(args[0].shape)} radius {radius}"
+        check(kw.get("relaxed") and len(kw["taps"]) == 2 * radius + 1,
+              f"{name}: the launch was not relaxed at radius {radius}")
+        want = ssim_grad.ssim_grad_plain(*args, **kw)
+        torch.cuda.synchronize()
+        scale = max(float(t[~t.isnan()].abs().max()) for t in want)
+        for k, p_, what in zip(got, want, ("da", "db")):
+            e_twin = max_finite(k, p_)
+            if not (torch.equal(k.isnan(), p_.isnan()) and e_twin <= RELAXED_GRAD_TWIN * scale):
+                raise RuntimeError(f"{name} {what} vs twin: " + relaxed_mismatch(
+                    k, p_, RELAXED_GRAD_TWIN * scale,
+                    lambda: rerun()[0 if what == "da" else 1]))
+            grad_err = max(grad_err, e_twin / scale)
+        del want
+    fwd += n
+    bwd += n
+    calls[f"relaxed ssim_loss r{radius} x{n}"] = counts
+    del clean, noisy, x, opt, fwd_seen, bwd_seen
+    # The MS-SSIM scale-0 modes at a custom window on msssim_1080_b4's pair:
+    # pooled on u8, components on f32 (the pyramid's input dtypes).
+    a8, b8 = pair(gen, shape)
+    af, bf = a8.float() / 255.0, b8.float() / 255.0
+    wrappers = (("pooled", ssim_cuda.ssim_components_pooled_cuda, a8, b8, 255.0),
+                ("components", ssim_cuda.ssim_components_cuda, af, bf, 1.0))
+    for mode, wrapper, p, q, dr in wrappers:
+        # Both stream at radius 9; the measured rule keeps the relaxed tile
+        # body for both at 16.
+        for radius, streams in ((RT_RELAXED_LINE_RADIUS, 1), (16, 0)):
+            name = f"relaxed {mode} {p.dtype} {shape} radius {radius}"
+            zero_counts()
+            _, seen = captured(ssim_cuda, lambda: wrapper(
+                p, q, data_range=dr, radius=radius, sigma=sigma(radius), relaxed=True))
+            counts = {k: v for k, v in launch_counts().items() if v}
+            check(counts == counts_of_nonzero(relaxed=1, stream=streams) and len(seen) == 1,
+                  f"{name}: launches {counts}, expected one, {streams} streaming")
+            args, kw, got, rerun = seen[0]
+            want = rt_relaxed_twin(args[0], args[1], mode, twin_window(kw))
+            err = max(err, rt_relaxed_errors(name, mode, got, want, shape, rerun))
+            fwd += streams
+            calls[name] = counts
+            del want, got, seen
+    del a8, b8, af, bf
+    torch.cuda.empty_cache()
+    return fwd, bwd, calls, err, grad_err
+
+
+def radius_relaxed_times(gen, label):
+    """15c, relaxed: the relaxed forward stream and its tile body in turns
+    (tools/fwd_times.radius_times, RELAXED_RADIUS_CASES) at fwd_times.RADII,
+    and K3 relaxed at grad_1080_b4 at RT_RELAXED_GRAD_RADII, each beside its
+    bound (relaxed_fwd_bound, relaxed_bwd_bound); the twins' times at the
+    kernels line's radii."""
+    from ssim_tpu_torch.ops import ssim_grad
+    from ssim_tpu_torch.tools import fwd_times
+
+    sigma = fwd_times.RADIUS_SIGMA.__getitem__
+    ms, times = {}, {}
+    fwd_times.radius_times(gen, ms, cases=fwd_times.RELAXED_RADIUS_CASES, relaxed=True)
+    for name, mode, shape, f32 in fwd_times.RELAXED_RADIUS_CASES:
+        bsz, h, w = shape
+        item = 4 if f32 else 1
+        for radius in fwd_times.RADII:
+            if mode == "pooled":
+                bnd, by = relaxed_fwd_bound(shape, item, radius, 4,
+                                            8 * bsz * -(-h // 32) * -(-w // 64)
+                                            + 2 * bsz * h * w)
+            elif mode == "components":
+                bnd, by = relaxed_fwd_bound(shape, item, radius, 2,
+                                            8 * bsz * -(-h // 32) * -(-w // 64))
+            else:
+                bnd, by = relaxed_fwd_bound(shape, item, radius)
+            key = f"{name} r{radius}"
+            times[key] = dict(ms=ms[key], tile_body_ms=ms[f"{key} tile body"],
+                              segment=ms[f"{key} segment"], bound_ms=bnd, bound_by=by,
+                              shape=list(shape))
+            print(f"  {key}: stream {ms[key]:.4f} ms, tile body {ms[f'{key} tile body']:.4f} "
+                  f"ms (stream / tile body {ms[key] / ms[f'{key} tile body']:.3f}), bound "
+                  f"{bnd:.4f} ms ({by}) | {label}", flush=True)
+    shape = (4, 1080, 1920)
+    a, b = pair(gen, shape, torch.float32, 1.0)
+    w_s = torch.full((4,), 1.0 / (shape[1] * shape[2]), device="cuda")
+    w_cs = torch.zeros(4, device="cuda")
+    for radius in RT_RELAXED_GRAD_RADII:
+        fn = lambda: ssim_grad.ssim_grad_cuda(a, b, w_s, w_cs, None, data_range=1.0,
+                                              radius=radius, sigma=sigma(radius),
+                                              relaxed=True)
+        t = [cuda_ms(fn, 10), cuda_ms(fn, 10)]
+        bnd, by = relaxed_bwd_bound(shape, False, radius)
+        key = f"K3 relaxed grad_1080_b4 r{radius}"
+        times[key] = dict(ms=min(t), runs_ms=t, bound_ms=bnd, bound_by=by, shape=list(shape),
+                          strip=ssim_grad.relaxed_strip_w(radius))
+        print(f"  {key}: {t[0]:.4f} / {t[1]:.4f} ms (strip "
+              f"{ssim_grad.relaxed_strip_w(radius)}), bound {bnd:.4f} ms ({by}) | {label}",
+              flush=True)
+    radius = RT_RELAXED_LINE_RADIUS
+    kw = dict(taps=ssim_grad._taps(radius, float(sigma(radius))), c1=1e-4, c2=9e-4,
+              clip_bound=131072.0)
+    bwd_line = dict(times[f"K3 relaxed grad_1080_b4 r{radius}"], radius=radius)
+    bwd_line["plain_ms"] = cuda_ms(lambda: ssim_grad.ssim_grad_plain(
+        a, b, w_s, w_cs, None, relaxed=True, **kw), 3)
+    del a, b
+    a, b = pair(gen, RT_MAIN_SHAPE)
+    fwd_line = dict(times[f"relaxed kScore 4k_b4 r{RT_LINE_RADIUS}"], radius=RT_LINE_RADIUS)
+    kw = rt_relaxed_kw(a, RT_LINE_RADIUS, sigma(RT_LINE_RADIUS))
+    fwd_line["plain_ms"] = cuda_ms(lambda: rt_relaxed_twin(a, b, "score", kw), 3)
+    print(f"  relaxed kScore 4k_b4 r{RT_LINE_RADIUS}: twin {fwd_line['plain_ms']:.3f} ms; "
+          f"K3 relaxed grad_1080_b4 r{radius}: twin {bwd_line['plain_ms']:.3f} ms", flush=True)
+    del a, b
+    torch.cuda.empty_cache()
+    return times, fwd_line, bwd_line
+
+
 def phase_radius(gen, label):
     """Phase 15: (a) the runtime-radius instantiation in all eight modes at
     every radius 1-16 but 5 against the twins, outputs poisoned, at the
@@ -4776,7 +5205,9 @@ def phase_radius(gen, label):
     call, streaming), scores and the map against the twin;
     (c) the stream and the tile body in turns at radii 1, 3, 4, 6, 8, 16
     (tools/fwd_times.radius_times) beside each bound, and the twin's time
-    at RT_LINE_RADIUS."""
+    at RT_LINE_RADIUS. The relaxed tier likewise (radius_relaxed_kernels,
+    radius_relaxed_path, radius_relaxed_times): its forward modes and K3
+    at a runtime radius, the main path's relaxed custom windows, times."""
     import ssim_tpu_torch
     from ssim_tpu_torch.ops import ssim_cuda
     from ssim_tpu_torch.tools import fwd_times
@@ -4850,6 +5281,15 @@ def phase_radius(gen, label):
           f"in the same modes at radii 1-16: {body_checked} launches, outputs poisoned, all "
           f"match the twins, largest error {body_err:.3g}", flush=True)
     del u8, f32, wide
+    rel_err, rel_body_err, rel_grad_err, rel_checked = radius_relaxed_kernels(gen)
+    print(f"  relaxed: {rel_checked['stream']} streaming launches (score, map, components, "
+          f"pooled; radii 1-16 but 5; u8 and f32 with NaN and inf), outputs poisoned: all "
+          f"match the relaxed twins, largest score error {rel_err:.3g}; the relaxed tile body "
+          f"(pinned, fit_tile(32, 256)) at radii 1-16: {rel_checked['tile_body']} "
+          f"launches, largest error {rel_body_err:.3g}; K3 relaxed at radii "
+          f"{RT_RELAXED_GRAD_RADII} +- g_map and at {RT_RELAXED_LINE_RADIUS} with halo "
+          f"operands: {rel_checked['k3']} streaming launches, poisoned, within "
+          f"{rel_grad_err:.3g} x max|g| of the twin", flush=True)
 
     # (b) The main path.
     a, b = pair(gen, RT_MAIN_SHAPE)
@@ -4889,6 +5329,15 @@ def phase_radius(gen, label):
     print(f"  compute_ssim NumPy u8 {RT_MAIN_SHAPE}, no device, radii {RT_MAIN_RADII}, "
           f"score / map / f64: {launches} runtime-radius streaming launches; "
           f"{calls}", flush=True)
+    rel_fwd, rel_bwd, rel_calls, rel_path_err, rel_path_grad_err = radius_relaxed_path(
+        gen, a_np, b_np)
+    print(f"  relaxed: compute_ssim (score, map) at radii {RT_MAIN_RADII}, "
+          f"{RT_RELAXED_STEPS} ssim_loss steps at radius {RT_RELAXED_LINE_RADIUS} on f32 "
+          f"(4, 1080, 1920) (each step's forward and K3 poisoned, against their twins: K3 "
+          f"within {rel_path_grad_err:.3g} x max|g|), the components / pooled wrappers at "
+          f"msssim_1080_b4 scale 0, radii {RT_RELAXED_LINE_RADIUS} and 16: {rel_fwd} relaxed "
+          f"forward and {rel_bwd} relaxed K3 runtime-radius streaming launches, largest "
+          f"score error {rel_path_err:.3g}; {rel_calls}", flush=True)
 
     # (c) Times.
     ms = {}
@@ -4925,11 +5374,17 @@ def phase_radius(gen, label):
     print(f"  kScore 4k_b4 r{RT_LINE_RADIUS}: twin {line['plain_ms']:.3f} ms", flush=True)
     del a, b
     torch.cuda.empty_cache()
+    rel_times, rel_fwd_line, rel_bwd_line = radius_relaxed_times(gen, label)
     seconds = time.perf_counter() - t0
     print(f"  phase 15: {seconds:.1f} s", flush=True)
     return dict(err=err, launches=launches, calls=calls, times=times, line=line,
                 checked=checked, body_err=body_err, body_checked=body_checked,
-                seconds=seconds)
+                seconds=seconds, relaxed=dict(
+                    err=max(rel_err, rel_path_err), body_err=rel_body_err,
+                    grad_err=max(rel_grad_err, rel_path_grad_err),
+                    checked=rel_checked, launches_fwd=rel_fwd, launches_bwd=rel_bwd,
+                    calls=rel_calls, times=rel_times, fwd_line=rel_fwd_line,
+                    bwd_line=rel_bwd_line))
 
 
 def fail_line(error):
@@ -5305,7 +5760,6 @@ def main():
                     ":522-529, :563-567)",
         "design": RELAXED_BWD_STREAM_DESIGN,
         "launches": relaxed["launches_bwd"],
-        "launches_stream": relaxed["launches_bwd_stream"],
         "launches_devicebench": tl["backward_relaxed"],
         "max_abs_err": relaxed["err_bwd"],
         **{k: relaxed["times"]["K3 grad_1080_b4"][k]
@@ -5335,6 +5789,43 @@ def main():
         "tile_body_checked_launches": radius["body_checked"],
         "tile_body_max_abs_err": radius["body_err"],
         "times": radius["times"],
+    }, {
+        "name": "ssim_fwd_stream_rt_relaxed",
+        "route": "cuda",
+        "source": "ssim_tpu_torch/csrc/ssim_fwd_stream_rt_relaxed.cu",
+        "header": "ssim_tpu_torch/csrc/fwd_stream_kernel.cuh",
+        "design": RT_RELAXED_FWD_DESIGN,
+        "replaces": "ssim_tpu/ops/ssim_pallas.py:168 (_make_hpass_mxu, exact=False), "
+                    "ssim_tpu/ops/ssim_pallas.py:710, ssim_tpu/ops/ssim_pallas.py:1409 "
+                    "(relaxed, a custom window: radius 1-16 but 5)",
+        "launches": radius["relaxed"]["launches_fwd"],
+        "launches_by_call": radius["relaxed"]["calls"],
+        "max_abs_err": radius["relaxed"]["err"],
+        **{k: radius["relaxed"]["fwd_line"][k]
+           for k in ("ms", "plain_ms", "bound_ms", "bound_by", "shape", "tile_body_ms",
+                     "segment", "radius")},
+        "library_ms": None,
+        "checked_launches": radius["relaxed"]["checked"]["stream"],
+        "tile_body_checked_launches": radius["relaxed"]["checked"]["tile_body"],
+        "tile_body_max_abs_err": radius["relaxed"]["body_err"],
+        "times": {k: v for k, v in radius["relaxed"]["times"].items()
+                  if not k.startswith("K3")},
+    }, {
+        "name": "ssim_bwd_relaxed_rt",
+        "route": "cuda",
+        "source": "ssim_tpu_torch/csrc/ssim_bwd_relaxed_rt.cu",
+        "header": "ssim_tpu_torch/csrc/bwd_relaxed_stream.cuh",
+        "design": RT_RELAXED_BWD_DESIGN,
+        "replaces": "ssim_tpu/ops/ssim_grad.py:278 (relaxed :324-328, :500-516; a custom "
+                    "window: radius 1-16 but 5)",
+        "launches": radius["relaxed"]["launches_bwd"],
+        "max_abs_err": radius["relaxed"]["grad_err"],
+        "max_abs_err_unit": "max|g|",
+        **{k: radius["relaxed"]["bwd_line"][k]
+           for k in ("ms", "plain_ms", "bound_ms", "bound_by", "shape", "strip", "radius")},
+        "library_ms": None,
+        "checked_launches": radius["relaxed"]["checked"]["k3"],
+        "times": {k: v for k, v in radius["relaxed"]["times"].items() if k.startswith("K3")},
     }, {
         "name": "pad_align",
         "route": "cuda",

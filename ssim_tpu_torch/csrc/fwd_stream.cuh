@@ -63,8 +63,23 @@ static_assert((kStreamStaged & (kStreamStaged - 1)) == 0, "a power of two");
 // stream_rt_smem_bytes), the taps in shared memory; the blocks per SM asked
 // of ptxas as at kStreamR (64 registers, 128 in the precise modes; no
 // spills), which the ring's size lowers from radius 6 up: on an H100 8 at
-// radii 1-4 to 3 at 13-16, precise 4 to 1 (PERF.md).
+// radii 1-4 to 3 at 13-16, precise 4 to 1 (PERF.md). The relaxed modes'
+// runtime-radius instantiations (kSplit = band_mma::ksteps(r), 2 up to
+// radius 8 and 3 above, ssim_fwd_stream_rt_relaxed.cu) keep the standard
+// one's ring of 2r + 1 rows of four signals, mu_a and mu_b from the f32
+// pass and (a+b)^2, (a-b)^2 from the band products, and before it in
+// dynamic shared memory the kStreamStaged staged {a, b} rows (kStripW + 2
+// kMaxStreamR columns each, so that a band product's reads stay inside a
+// row) and the heavy blurs of kStreamRtHres rows (two planes of kStripW
+// floats, ring_col order): the row a step reads and the two an even step
+// blurs ahead.
 constexpr int kMaxStreamR = kMaxTaps / 2;
+constexpr int kStreamRtHres = 4;
+constexpr int kStreamRtAbBytes = 8 * kStreamStaged * (kStripW + 2 * kMaxStreamR);
+constexpr int kStreamRtHresBytes = 4 * 2 * kStreamRtHres * kStripW;
+__host__ __device__ constexpr size_t stream_rt_relaxed_smem_bytes(int r) {
+  return kStreamRtAbBytes + kStreamRtHresBytes + (size_t)(2 * r + 1) * kStreamThreads * 16;
+}
 
 template <int kMode, int kSplit = 0>
 constexpr int kStreamBlocksOf =
@@ -214,27 +229,31 @@ __device__ __forceinline__ void sym2x2(const StreamTaps<double>& tp, const doubl
 }
 
 // sym4's sums of the two signals {a, b} of one column of the relaxed modes'
-// staged rows: v points at the centre.
-__device__ __forceinline__ void sym2(const StreamTaps<float>& tp, const float2* v,
-                                     float (&acc)[2]) {
-  constexpr int r = kStreamR;
+// staged rows: v points at the centre; r and tap as sym4's.
+template <typename R, typename Tap>
+__device__ __forceinline__ void sym2(R r, Tap&& tap, const float2* v, float (&acc)[2]) {
   {
-    const float t = tp.t[0];
+    const float t = tap(0);
     const float2 lo = v[-r], hi = v[r];
     acc[0] = t * (lo.x + hi.x);
     acc[1] = t * (lo.y + hi.y);
   }
 #pragma unroll
   for (int d = r - 1; d >= 1; --d) {
-    const float t = tp.t[r - d];
+    const float t = tap(r - d);
     const float2 lo = v[-d], hi = v[d];
     acc[0] += t * (lo.x + hi.x);
     acc[1] += t * (lo.y + hi.y);
   }
-  const float tc = tp.t[r];
+  const float tc = tap(r);
   const float2 ce = v[0];
   acc[0] = acc[0] + tc * ce.x;
   acc[1] = acc[1] + tc * ce.y;
+}
+// sym2 with the kernel parameters' taps at the register window's radius.
+__device__ __forceinline__ void sym2(const StreamTaps<float>& tp, const float2* v,
+                                     float (&acc)[2]) {
+  sym2(stream_radius(tp), [&](int i) { return tp.t[i]; }, v, acc);
 }
 
 // The ring's column of output column c: c with bits 3-4 XORed by its warp

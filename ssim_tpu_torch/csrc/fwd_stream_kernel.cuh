@@ -36,10 +36,14 @@ __global__ void rowsum_reduce_kernel(const float* __restrict__ pieces,
 // a power of two in [32, kStripW]); S: the segment's rows (a multiple of TH,
 // at most kMaxSegTiles tiles). kR: the window's radius, kStreamR (the
 // window in registers, the step loop unrolled by 2r + 1), or 0: the radius
-// tp.r, 1 to kMaxStreamR, read at run time (the standard and precise modes
-// only): the window's 2r + 1 rows of all four signals in a ring in dynamic
-// shared memory (stream_rt_smem_bytes), one step a loop iteration, the taps
-// in shared memory; the same operations in the same order.
+// tp.r, 1 to kMaxStreamR, read at run time: the window's 2r + 1 rows of all
+// four signals in a ring in dynamic shared memory (stream_rt_smem_bytes),
+// one step a loop iteration, the taps in shared memory; the same operations
+// in the same order. Relaxed with kR = 0 (kSplit = band_mma::ksteps(r)):
+// the staged rows, the heavy blurs of the next rows and the same ring in
+// dynamic shared memory (stream_rt_relaxed_smem_bytes), the ring's four
+// signals mu_a, mu_b from the f32 pass and (a+b)^2, (a-b)^2 from the band
+// products.
 template <typename T, int kMode, int kSplit = 0, int kR = kStreamR>
 __global__ void __launch_bounds__(kStreamThreads, kStreamBlocksOf<kMode, kSplit>)
 ssim_fwd_stream_kernel(const T* __restrict__ a, const T* __restrict__ b,
@@ -73,8 +77,9 @@ ssim_fwd_stream_kernel(const T* __restrict__ a, const T* __restrict__ b,
                     (!kRelaxed && (kRows || kMode == kPrecise || kMode == kPreciseMap)),
                 "main-path, components and precise modes only; relaxed: kScore, kMap, "
                 "kComponents and kPooled");
-  static_assert(!kRelaxed || (kSplit == kStreamSplit && kR == kStreamR),
-                "the band's k-steps at kStreamR");
+  static_assert(!kRelaxed || (kR == kStreamR ? kSplit == kStreamSplit
+                                             : kRt && (kSplit == 2 || kSplit == 3)),
+                "the band's k-steps: kStreamSplit at kStreamR, ksteps(r) at a runtime r");
 
   __shared__ StagedRow<P, kInW> s_in[2];    // staged rows, by step parity
   __shared__ P s_red[2][kNT / 32];          // warp sums, by step parity
@@ -92,22 +97,31 @@ ssim_fwd_stream_kernel(const T* __restrict__ a, const T* __restrict__ b,
   // s_ab, followed by the ring, s_hres: the horizontal blurs of (a+b)^2,
   // then of (a-b)^2, of row q in slot q mod kStreamRing, kStripW columns
   // (ring_col) a slot; the band's fragments, per lane (hi then lo, one
-  // uint4 per k-step); the taps, for make_band.
-  constexpr int kAbFloats = 2 * kStreamStaged * kStreamInW;
+  // uint4 per k-step); the taps, for make_band. With kRt all in dynamic
+  // shared memory (below).
+  constexpr int kAbW = kRt ? kInW : kStreamInW;  // s_ab's row pitch
+  constexpr int kAbFloats = 2 * kStreamStaged * kAbW;
   constexpr int kRingFloats = 2 * kStreamRing * kStripW;
-  __shared__ __align__(16) float s_rel[kRelaxed ? kAbFloats + kRingFloats : 1];
+  __shared__ __align__(16) float s_rel[kRelaxed && !kRt ? kAbFloats + kRingFloats : 1];
   [[maybe_unused]] float2* s_ab = reinterpret_cast<float2*>(s_rel);
   [[maybe_unused]] float* s_hres = s_rel + kAbFloats;
   __shared__ uint4 s_band[kRelaxed ? 2 * kSplit * 32 : 1];
-  __shared__ float s_taps[kRelaxed ? kP : 1];
+  __shared__ float s_taps[kRelaxed && !kRt ? kP : 1];
   // kRt: the taps, and the window's ring, this thread's column of slot k at
   // rt_ring[k * kNT + tid], a Vec4 of the blurs' type (f32: one float4;
   // fp64: two double2, mu_a and mu_b then s_ss and s_dd, kNT apart).
+  // Relaxed: s_ab, then s_hres (the heavy blurs of row q in slot q mod
+  // kStreamRtHres of each plane), then the ring.
   __shared__ P s_rtaps[kRt ? kMaxTaps : 1];
   [[maybe_unused]] unsigned char* rt_ring = nullptr;
   if constexpr (kRt) {
     extern __shared__ __align__(16) unsigned char fwd_stream_smem[];
     rt_ring = fwd_stream_smem;
+    if constexpr (kRelaxed) {
+      s_ab = reinterpret_cast<float2*>(fwd_stream_smem);
+      s_hres = reinterpret_cast<float*>(fwd_stream_smem + kStreamRtAbBytes);
+      rt_ring = fwd_stream_smem + kStreamRtAbBytes + kStreamRtHresBytes;
+    }
   }
 
   const int tid = threadIdx.x;
@@ -115,7 +129,12 @@ ssim_fwd_stream_kernel(const T* __restrict__ a, const T* __restrict__ b,
   if constexpr (kRt) {
     if (tid < 2 * r + 1) s_rtaps[tid] = tp.t[tid];
   }
-  if constexpr (kRelaxed) {
+  if constexpr (kRelaxed && kRt) {
+    // Zeros in the columns no row is staged to, which row_pass reads (times
+    // zeros of the band: they must be finite); a row's reads end inside it.
+    float* ab = reinterpret_cast<float*>(s_ab);
+    for (int i = tid; i < kAbFloats; i += kNT) ab[i] = 0.0f;
+  } else if constexpr (kRelaxed) {
     // Zeros in the columns no row is staged to and in the ring, which
     // row_pass reads past a row's staged columns (times zeros of the band:
     // they must be finite).
@@ -129,7 +148,9 @@ ssim_fwd_stream_kernel(const T* __restrict__ a, const T* __restrict__ b,
   __syncthreads();
   if constexpr (kRelaxed) {
     if (tid < 32) {
-      const band_mma::Band<kSplit> bd = band_mma::make_band<kSplit>(s_taps, r);
+      const float* taps = s_taps;
+      if constexpr (kRt) taps = s_rtaps;
+      const band_mma::Band<kSplit> bd = band_mma::make_band<kSplit>(taps, r);
 #pragma unroll
       for (int ks = 0; ks < kSplit; ++ks) {
         s_band[ks * 32 + tid] = make_uint4(bd.hi[ks][0], bd.hi[ks][1], bd.hi[ks][2],
@@ -220,7 +241,7 @@ ssim_fwd_stream_kernel(const T* __restrict__ a, const T* __restrict__ b,
           vb = sanitize(vb, clip_bound);
         }
         if constexpr (kRelaxed) {
-          s_ab[(q & (kStreamStaged - 1)) * kStreamInW + j] = make_float2(va, vb);
+          s_ab[(q & (kStreamStaged - 1)) * kAbW + j] = make_float2(va, vb);
         } else {
           s_in[q & 1].put(j, va, vb);
         }
@@ -340,7 +361,8 @@ ssim_fwd_stream_kernel(const T* __restrict__ a, const T* __restrict__ b,
     // s + 1 and s + 2.
     if (tid < 64) {
       const int plane = tid >> 5;
-      row_pass<kSplit>(s_ab, s_hres + plane * kStreamRing * kStripW, plane, s_band);
+      row_pass<kSplit>(s_ab, s_hres + plane * (kRt ? kStreamRtHres : kStreamRing) * kStripW,
+                       plane, s_band);
     }
     __syncthreads();
   }
@@ -350,7 +372,7 @@ ssim_fwd_stream_kernel(const T* __restrict__ a, const T* __restrict__ b,
     // hr1 + d (kStripW floats a slot, this thread's column).
     [[maybe_unused]] const float* hr0 = nullptr;
     [[maybe_unused]] const float* hr1 = nullptr;
-    if constexpr (kRelaxed) {
+    if constexpr (kRelaxed && !kRt) {
       const int par = (s0 / kP) & 1;
       hr0 = s_hres + (par ? kP : 0) * kStripW + ring_col(tid);
       hr1 = s_hres + (par ? kP : 2 * kP) * kStripW + ring_col(tid);
@@ -367,8 +389,12 @@ ssim_fwd_stream_kernel(const T* __restrict__ a, const T* __restrict__ b,
           if ((s & 1) == 0) {
             const int q = s + 1 + (tid >> 6), plane = (tid >> 5) & 1;
             if (q < n) {
-              row_pass<kSplit>(s_ab + (q & (kStreamStaged - 1)) * kStreamInW,
-                               s_hres + (plane * kStreamRing + q % kStreamRing) * kStripW,
+              // kRt: row q's slot of s_hres, q mod kStreamRtHres (4: rows
+              // s + 1 and s + 2 written while step s reads row s's).
+              const int slot = kRt ? q & (kStreamRtHres - 1) : q % kStreamRing;
+              row_pass<kSplit>(s_ab + (q & (kStreamStaged - 1)) * kAbW,
+                               s_hres + (plane * (kRt ? kStreamRtHres : kStreamRing) + slot) *
+                                            kStripW,
                                plane, s_band);
             }
           }
@@ -382,12 +408,24 @@ ssim_fwd_stream_kernel(const T* __restrict__ a, const T* __restrict__ b,
           // pairs below keep 2r + 2 staged values in registers, which a
           // runtime radius cannot).
           if (col_on) {
-            const StagedRow<P, kInW>& row = s_in[s & 1];
-            P h[4];
-            sym4(
-                r, [&](int i) { return s_rtaps[i]; },
-                [&](int i) { return row.get(tid + r + i); }, h);
-            rt_put(rt_slot, h);
+            if constexpr (kRelaxed) {
+              // mu_a, mu_b by the f32 symmetric pass; (a+b)^2 and (a-b)^2
+              // blurred by row_pass, from s_hres.
+              float mu[2];
+              sym2(
+                  r, [&](int i) { return s_rtaps[i]; },
+                  s_ab + (s & (kStreamStaged - 1)) * kAbW + tid + r, mu);
+              const float* hh = s_hres + (s & (kStreamRtHres - 1)) * kStripW + ring_col(tid);
+              const P h[4] = {mu[0], mu[1], hh[0], hh[kStreamRtHres * kStripW]};
+              rt_put(rt_slot, h);
+            } else {
+              const StagedRow<P, kInW>& row = s_in[s & 1];
+              P h[4];
+              sym4(
+                  r, [&](int i) { return s_rtaps[i]; },
+                  [&](int i) { return row.get(tid + r + i); }, h);
+              rt_put(rt_slot, h);
+            }
           }
         } else if constexpr (kIsPrecise<kMode>) {
           // A thread pair blurs two columns: the even thread the (a, b)
@@ -413,7 +451,7 @@ ssim_fwd_stream_kernel(const T* __restrict__ a, const T* __restrict__ b,
             // mu_a, mu_b by the f32 symmetric pass ((a+b)^2 and (a-b)^2:
             // row_pass, in the ring).
             float h[2];
-            sym2(tp, s_ab + (s & (kStreamStaged - 1)) * kStreamInW + tid + r, h);
+            sym2(tp, s_ab + (s & (kStreamStaged - 1)) * kAbW + tid + r, h);
             win_put(0, k, h[0]);
             win_put(1, k, h[1]);
           } else {

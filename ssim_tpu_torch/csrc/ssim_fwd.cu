@@ -57,7 +57,7 @@
 //   Pallas f32 pool fed the unmasked rows of a ragged tile into a matrix
 //   product, which made its pooled images NaN; reading only rows inside
 //   the image repairs that.) Both modes stream rows (below) at every radius,
-//   relaxed at radius 5; the relaxed tier's other radii run the tile body.
+//   relaxed too.
 // - kBatch / kBatchPrecise (the small-image batch route): one partial
 //   pair per image, [sum(ssim - 1), n = H*W], f32 in kBatch (the JAX
 //   contract's (B, 2)) and f64 in kBatchPrecise (where the TPU writes
@@ -104,9 +104,11 @@
 //   bounds it: per pixel the standard modes' f32 work less the heavy
 //   passes' 6r + 4 operations, plus 3 (2r + 1) multiply-adds per split blur
 //   at the bf16 tensor-core rate (counted in chip_smoke.py). kScore, kMap,
-//   kComponents and kPooled at radius 5 stream rows (ssim_fwd_stream_kernel,
-//   below), and kBatch streams packed rows (ssim_fwd_batch.cu); other
-//   radii and tiles run the tile body, which makes
+//   kComponents and kPooled stream rows at every radius
+//   (ssim_fwd_stream_kernel, below; radius 5 in registers, the others in
+//   ssim_fwd_stream_rt_relaxed.cu), and kBatch streams packed rows at radius
+//   5 (ssim_fwd_batch.cu); kBatch at other radii and tile_w 256 run the tile
+//   body, which makes
 //   the split in registers as each k-step of data is loaded, once per
 //   sweep, and so adds no shared memory (three blocks per SM, as the
 //   standard modes), and whose relaxed mu pass loads as many shared-memory
@@ -164,17 +166,20 @@
 // kScore, kMap, kRowsum and kRowsumMap (with or without halo operands) and
 // kComponents and kPooled (the same blurs, step (c)'s epilogue theirs) in
 // f32, kPrecise and kPreciseMap in fp64 (the same body with the blurs'
-// type Blur<kMode>) at every radius, and relaxed kScore, kMap, kComponents
-// and kPooled (kSplit > 0, below) at radius kStreamR = 5 (windows.RADIUS,
-// every main-path shape and MS-SSIM scale), with tiles up to kStripW
-// columns wide. At kStreamR the window is in registers (these
-// instantiations, below); any other radius, a custom window, runs
-// ssim_fwd_stream_rt.cu's instantiation with the radius read at run time
-// and the window in a ring in shared memory (measured faster than the tile
-// body at every radius 1-16, PERF.md). kBatch (either tier) and
-// kBatchPrecise at radius kStreamR run its steps (b)-(d) over packed rows
-// of images (ssim_fwd_batch_stream_kernel, ssim_fwd_batch.cu); the relaxed
-// and batch modes at other radii and tile_w 256 keep the tile body
+// type Blur<kMode>) and relaxed kScore, kMap, kComponents and kPooled
+// (kSplit > 0, below) at every radius, with tiles up to kStripW columns
+// wide. At kStreamR = 5 (windows.RADIUS, every main-path shape and MS-SSIM
+// scale) the window is in registers (these instantiations, below); any
+// other radius, a custom window, runs ssim_fwd_stream_rt.cu's
+// instantiation (ssim_fwd_stream_rt_relaxed.cu's, relaxed) with the radius
+// read at run time and the window in a ring in shared memory (the standard
+// and precise instantiations measured faster than the tile body at every
+// radius 1-16; the relaxed ones lose at some radii, mostly kPooled on u8,
+// where stream_applies keeps the tile body: STREAM_RELAXED_TILE_RADII,
+// PERF.md). kBatch (either
+// tier) and kBatchPrecise at radius kStreamR run its steps (b)-(d) over
+// packed rows of images (ssim_fwd_batch_stream_kernel, ssim_fwd_batch.cu);
+// the batch modes at other radii and tile_w 256 keep the tile body
 // (ops/ssim_cuda.py::stream_applies states the rule; the components and
 // pooled modes stream only from 2^20 pixels a launch, STREAM_COMP_MIN_PIX,
 // relaxed from 2^22, STREAM_RELAXED_COMP_MIN_PIX: below them a block's
@@ -801,6 +806,15 @@ extern "C" int ssim_fwd_stream_rt_launch(int mode, int is_float, const void* a,
                                          double c2, float clip_bound, void* stream);
 extern "C" int ssim_fwd_stream_rt_occupancy(int mode, int is_float, int r,
                                             int* blocks_per_sm);
+// ssim_fwd_stream_rt_relaxed.cu: the relaxed streaming launches at other radii.
+extern "C" int ssim_fwd_stream_rt_relaxed_launch(int mode, int is_float, const void* a,
+                                                 const void* b, void* partials, void* map,
+                                                 void* pool_a, void* pool_b, int B, int H,
+                                                 int W, int r, int TH, int TW, int seg,
+                                                 const double* taps_host, double c1,
+                                                 double c2, float clip_bound, void* stream);
+extern "C" int ssim_fwd_stream_rt_relaxed_occupancy(int mode, int is_float, int r,
+                                                    int* blocks_per_sm);
 
 // The C entry for ctypes. mode: 0 = kScore, 1 = kMap, 2 = kComponents,
 // 3 = kPooled, 4 = kPrecise, 5 = kPreciseMap, 6 = kBatch, 7 =
@@ -827,9 +841,10 @@ extern "C" int ssim_fwd_stream_rt_occupancy(int mode, int is_float, int r,
 // the stabilising constants (rounded to float by the f32 modes). seg: 0
 // for the tile body, or the streaming kernel's segment rows (modes 0-5, 8
 // and 9 at any radius, r = 5 in the register-window instantiations, else
-// ssim_fwd_stream_rt.cu's runtime radius; relaxed modes 0-3 at r = 5 only;
-// TW in [32, 128], seg a multiple of TH of at most 16 tiles; anything else
-// is refused). Returns the launch's cudaError_t.
+// ssim_fwd_stream_rt.cu's runtime radius; relaxed modes 0-3 likewise, their
+// other radii in ssim_fwd_stream_rt_relaxed.cu; TW in [32, 128], seg a
+// multiple of TH of at most 16 tiles; anything else is refused). Returns
+// the launch's cudaError_t.
 extern "C" int ssim_fwd_launch(int mode, int relaxed, int is_float,
                                const void* a, const void* b, void* partials,
                                void* map,
@@ -859,10 +874,15 @@ extern "C" int ssim_fwd_launch(int mode, int relaxed, int is_float,
   if (seg != 0) {
     if ((relaxed && mode != kScore && mode != kMap && mode != kComponents &&
          mode != kPooled) ||
-        (relaxed && r != kStreamR) || batch || r < 1 || r > kMaxStreamR || TW < 32 ||
+        batch || r < 1 || r > kMaxStreamR || TW < 32 ||
         TW > kStripW || seg < TH || seg % TH != 0 || seg / TH > kMaxSegTiles ||
         H < 1 || W < 1) {
       return cudaErrorInvalidValue;
+    }
+    if (r != kStreamR && relaxed) {
+      return ssim_fwd_stream_rt_relaxed_launch(mode, is_float, a, b, partials, map, pool_a,
+                                               pool_b, B, H, W, r, TH, TW, seg, taps_host,
+                                               c1, c2, clip_bound, stream);
     }
     if (r != kStreamR) {
       return ssim_fwd_stream_rt_launch(mode, is_float, a, b, partials, map, pool_a, pool_b,
@@ -937,14 +957,14 @@ extern "C" int ssim_fwd_launch(int mode, int relaxed, int is_float,
 }
 
 // Blocks of the streaming kernel that one SM of the current device holds at
-// once in `mode` (0-5, 8 or 9; relaxed = 1: 0-3, r = 5) at radius r for
-// uint8 (is_float = 0) or float32 inputs: the CUDA runtime's occupancy for
-// the instantiation that ssim_fwd_launch takes with seg > 0 (at r != 5 with
-// its dynamic shared memory at r). Returns a cudaError_t.
+// once in `mode` (0-5, 8 or 9; relaxed = 1: 0-3) at radius r for uint8
+// (is_float = 0) or float32 inputs: the CUDA runtime's occupancy for the
+// instantiation that ssim_fwd_launch takes with seg > 0 (at r != 5 with its
+// dynamic shared memory at r). Returns a cudaError_t.
 extern "C" int ssim_fwd_stream_occupancy(int mode, int relaxed, int is_float, int r,
                                          int* blocks_per_sm) {
   if (r != kStreamR) {
-    return relaxed ? cudaErrorInvalidValue
+    return relaxed ? ssim_fwd_stream_rt_relaxed_occupancy(mode, is_float, r, blocks_per_sm)
                    : ssim_fwd_stream_rt_occupancy(mode, is_float, r, blocks_per_sm);
   }
 #define SSIM_FWD_OCC(M, S)                                                \

@@ -166,16 +166,16 @@ def load_library() -> ctypes.CDLL:
             # streaming forward at radius r.
             lib.ssim_fwd_stream_occupancy.argtypes = [i, i, i, i, ctypes.POINTER(i)]
             lib.ssim_fwd_stream_occupancy.restype = i
-            # The backward entry takes the NaN tile (TH, TW) and the
-            # standard kernel's segment rows S.
+            # The backward entry takes the NaN tile (TH, TW), the
+            # streaming kernels' segment rows S and strip columns SW.
             lib.ssim_bwd_launch.argtypes = [
-                i, p, p, p, p, p, p, p, p, p, p, p, i, i, i, i, i, i, i, i, i,
+                i, p, p, p, p, p, p, p, p, p, p, p, i, i, i, i, i, i, i, i, i, i,
                 p, p, f, f, f, p,
             ]
             lib.ssim_bwd_launch.restype = i
-            # relaxed, r, gmap, out: blocks per SM of the streaming
-            # kernel, the standard one or the relaxed one (radius 5).
-            lib.ssim_bwd_stream_occupancy.argtypes = [i, i, i, ctypes.POINTER(i)]
+            # relaxed, r, gmap, strip columns, out: blocks per SM of the
+            # streaming kernel, the standard one or the relaxed one.
+            lib.ssim_bwd_stream_occupancy.argtypes = [i, i, i, i, ctypes.POINTER(i)]
             lib.ssim_bwd_stream_occupancy.restype = i
             # x, out, itemsize, B, H, W, hp, wp, stream.
             lib.pad_align_launch.argtypes = [p, p, i, i, i, i, i, i, p]

@@ -37,28 +37,31 @@ and `_chunked_overlap_call`, in these of their modes:
   always on the batch route). The two heavy horizontal blurs, of
   (a+b)^2 and (a-b)^2, run as bf16x3 band products on the tensor cores;
   their twin is `band_bf16x3_plain`, the rest of each twin as it is.
-  The relaxed score and map modes stream rows like the standard ones.
+  The relaxed score, map, components and pooled modes stream rows like
+  the standard ones, at every radius but where the relaxed tile body was
+  measured faster (STREAM_RELAXED_TILE_RADII).
 
 The kernel is `ssim_tpu_torch/csrc/ssim_fwd.cu`. Its partials and NaN
 poison follow one 2-D grid of TILE_H x TILE_W output tiles that covers
 every width, so the TPU's split at 16384 lanes and
 `pooled_components_ok`'s VMEM limits have no counterpart. The main-path
 modes (score, map, the row modes, the precise modes and the MS-SSIM
-components and pooled modes at every radius to MAX_FUSED_RADIUS, and the
-relaxed score, map, components and pooled modes at radius STREAM_RADIUS,
-tiles up to STRIP_W wide: `stream_applies`) run a row-streaming kernel,
+components and pooled modes, and the relaxed score, map, components and
+pooled modes, at every radius to MAX_FUSED_RADIUS with tiles up to STRIP_W
+wide, the relaxed ones but at STREAM_RELAXED_TILE_RADII: `stream_applies`)
+run a row-streaming kernel,
 one CUDA block per strip of STRIP_W columns and segment of rows
 (`stream_segment` picks the segment's length to fill the card at the
 instantiation's occupancy, `stream_blocks` lists the blocks); at
 STREAM_RADIUS its window of 2r + 1 rows is in registers, at other radii
-in a ring in shared memory (ssim_fwd_stream_rt.cu). Every other mode,
-radius and tile runs the tile body, one block per tile.
-Both batch modes at radius STREAM_RADIUS (not relaxed) run a packed
+in a ring in shared memory (ssim_fwd_stream_rt.cu, relaxed
+ssim_fwd_stream_rt_relaxed.cu). Every other mode, radius and tile runs the
+tile body, one block per tile.
+Both batch modes at radius STREAM_RADIUS (and the relaxed kBatch) run a packed
 variant of the row stream: images side by side in packed rows cut into
 strips (`batch_pack`), a block walking one strip of a packed row, down
 all its rows or a segment of them (`batch_stream_plan`,
-`batch_stream_blocks`); the
-relaxed batch mode and other radii walk each image's own grid of
+`batch_stream_blocks`); other radii walk each image's own grid of
 narrower tiles inside a tile-body block (`batch_geometry`).
 
 Each wrapper launches the kernel for CUDA tensors and runs its plain twin
@@ -132,9 +135,10 @@ STREAM_LAUNCHES = 0
 #: STREAM_RADIUS (windows.RADIUS) with its window in registers and at every
 #: other radius to MAX_FUSED_RADIUS with its window in a ring in shared
 #: memory (ssim_fwd_stream_rt.cu, the radius read at run time);
-#: relaxed, the modes STREAM_RELAXED_MODES at STREAM_RADIUS only (the heavy
-#: horizontal blurs as band products, two rows every other stream row; the
-#: relaxed batch mode on the packed stream).
+#: relaxed, the modes STREAM_RELAXED_MODES at every radius as well (the
+#: heavy horizontal blurs as band products, two rows every other stream row;
+#: other radii than STREAM_RADIUS in ssim_fwd_stream_rt_relaxed.cu; the
+#: relaxed batch mode on the packed stream, at STREAM_RADIUS only).
 STRIP_W = 128
 MAX_SEG_TILES = 16
 STREAM_RADIUS = 5
@@ -174,6 +178,25 @@ STREAM_COMP_MIN_PIX = 1 << 20
 #: pooled u8 from 2.07 to 4.19 Mpix, which streams as fast to 20% faster,
 #: for pooled f32 at 4.15 Mpix, which streams 23-24% slower.
 STREAM_RELAXED_COMP_MIN_PIX = 1 << 22
+#: The radii at which a relaxed launch of a given size (stream_applies'
+#: npix) keeps the relaxed tile body in its (mode, f32 input), where the
+#: runtime-radius relaxed stream (ssim_fwd_stream_rt_relaxed.cu) serves it
+#: but lost to the tile body. Measured on an H100 (`tools/fwd_times.py
+#: --relaxed-radii`: stream and tile body in turns, the lower of two runs
+#: each, radii 1-16; PERF.md §6), the stream's time over the tile body's:
+#: kScore and kMap u8 4K x4 0.76-0.94x at radii 1-15, 1.05-1.06x at 16;
+#: kComponents f32 1080p x4 0.78-0.97x but 1.03x at 2 and 16; kPooled u8
+#: 1080p x4 0.93-0.94x at 8 and 9, 1.06-1.29x at every other radius but 5
+#: (the stream takes about the f32 time, the u8 tile body less); kPooled
+#: f32 0.78-0.98x but 1.05-1.09x at 2, 15 and 16. kScore and kMap on f32
+#: and kComponents on u8, not measured, take the other dtype's radii.
+STREAM_RELAXED_TILE_RADII = {
+    ("score", False): (16,), ("score", True): (16,),
+    ("map", False): (16,), ("map", True): (16,),
+    ("components", False): (2, 16), ("components", True): (2, 16),
+    ("pooled", False): (1, 2, 3, 4, 6, 7, 10, 11, 12, 13, 14, 15, 16),
+    ("pooled", True): (2, 15, 16),
+}
 
 #: The JAX package's width gate of the relaxed tier (ssim_pallas.py:115,
 #: copied): the tile grid runs the relaxed mode at widths >= MXU_MIN_W and
@@ -284,38 +307,41 @@ def batch_geometry(batch: int, h: int, w: int):
 
 
 def stream_applies(mode: str, radius: int, tile_w: int, relaxed: bool = False,
-                   npix: Optional[int] = None) -> bool:
+                   npix: Optional[int] = None, is_float: bool = False) -> bool:
     """Whether a launch in `mode` runs the row-streaming kernel, else the
     tile body: the standard tier's score, map and row modes (with or
     without halo operands), the precise tier's score and map modes and the
-    standard MS-SSIM components and pooled modes (STREAM_MODES) at every
-    radius the fused kernel serves (1 to MAX_FUSED_RADIUS), and the relaxed
-    tier's score, map, components and pooled modes (STREAM_RELAXED_MODES)
-    at radius STREAM_RADIUS, each with a tile 32 to STRIP_W columns wide;
-    the batch modes (STREAM_BATCH_MODES, kBatch in both tiers and
+    standard MS-SSIM components and pooled modes (STREAM_MODES), and the
+    relaxed tier's score, map, components and pooled modes
+    (STREAM_RELAXED_MODES), at every radius the fused kernel serves (1 to
+    MAX_FUSED_RADIUS), each with a tile 32 to STRIP_W columns wide; the
+    batch modes (STREAM_BATCH_MODES, kBatch in both tiers and
     kBatchPrecise) at radius STREAM_RADIUS whatever tile_w (their packed
-    stream has no tile). The relaxed and batch modes at other radii and a
-    tile_w of 256 run the tile body. npix: the launch's B * H * W; the
+    stream has no tile). The batch modes at other radii, and the others at
+    a tile_w of 256, run the tile body. npix: the launch's B * H * W; the
     components and pooled modes stream only from STREAM_COMP_MIN_PIX
     pixels (at msssim_1080_b4 scales 0 and 1; scales 2-4 run the tile
     body, measured faster there), relaxed from STREAM_RELAXED_COMP_MIN_PIX
-    (scale 0). None: the rule without the size condition, which a pinned
-    segment asks for."""
+    (scale 0); and a relaxed launch given its size keeps the relaxed tile
+    body at the radii STREAM_RELAXED_TILE_RADII names for its mode and
+    input dtype (is_float: f32), where the tile body was measured faster.
+    None: the rule without these conditions, which a pinned segment asks
+    for."""
     if mode in STREAM_BATCH_MODES:
         return radius == STREAM_RADIUS and (not relaxed or mode in STREAM_RELAXED_MODES)
     least = STREAM_RELAXED_COMP_MIN_PIX if relaxed else STREAM_COMP_MIN_PIX
     if npix is not None and mode in ("components", "pooled") and npix < least:
         return False
-    if relaxed:
-        served = mode in STREAM_RELAXED_MODES and radius == STREAM_RADIUS
-    else:
-        served = mode in STREAM_MODES and 1 <= radius <= MAX_FUSED_RADIUS
-    return served and 32 <= tile_w <= STRIP_W
+    if npix is not None and relaxed and radius in STREAM_RELAXED_TILE_RADII.get(
+            (mode, is_float), ()):
+        return False
+    served = mode in (STREAM_RELAXED_MODES if relaxed else STREAM_MODES)
+    return served and 1 <= radius <= MAX_FUSED_RADIUS and 32 <= tile_w <= STRIP_W
 
 
 @functools.lru_cache(maxsize=256)
 def stream_segment(bsz: int, h: int, w: int, tile_h: int, prologue: int,
-                   resident: int, tail: float = 0.0) -> int:
+                   resident: int, tail: float = 0.0, strip_w: int = STRIP_W) -> int:
     """A row-streaming kernel's segment rows for (bsz, h, w) with tile
     height tile_h, `prologue` input rows read above the segment's first
     output row before it (2r in the forward, 4r in the backward) and
@@ -326,9 +352,10 @@ def stream_segment(bsz: int, h: int, w: int, tile_h: int, prologue: int,
     partial wave costs a whole one, unless it holds at most `tail` of the
     resident blocks: then it runs beside the others (the backward, 1/20,
     measured so on an H100; the forward's sweeps fit no such allowance,
-    PERF.md). Short segments fill the card, long ones recompute fewer halo
+    PERF.md). strip_w: a block's columns (the relaxed backward's narrower
+    strip). Short segments fill the card, long ones recompute fewer halo
     rows."""
-    nstrip = -(-w // STRIP_W)
+    nstrip = -(-w // strip_w)
     best = None
     for k in range(1, MAX_SEG_TILES + 1):
         seg = k * tile_h
@@ -865,7 +892,8 @@ def _launch(a, b, *, mode, taps, c1, c2, clip_bound, tile_h, tile_w, ipb=1,
     if tile_body and (segment is not None or pack is not None):
         raise ValueError("the tile body takes no segment or pack")
     stream = not tile_body and stream_applies(mode, r, tile_w, relaxed,
-                                              None if segment else bsz * h * w)
+                                              None if segment else bsz * h * w,
+                                              a.dtype == torch.float32)
     if batch and segment is not None:
         raise ValueError("the batch modes' stream takes a pack, not a segment")
     if pack is not None and not (batch and stream):

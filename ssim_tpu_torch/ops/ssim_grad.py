@@ -12,9 +12,9 @@ Its standard tier streams: one CUDA block per strip of STRIP_W output
 columns and segment of rows (stream_segment picks the segment's length to
 fill the card; stream_blocks lists the blocks), so the TPU's column
 chunking at GRAD_MAX_W = 7680 lanes has no counterpart. The relaxed tier
-streams the same blocks at radius RADIUS (relaxed_stream_applies: 8 rows
-a step, all sixteen band passes on the tensor cores) and keeps one block
-per default_tile output tile at the other radii.
+streams rows too, at every radius 1 to MAX_FUSED_RADIUS (8 rows a step,
+all sixteen band passes on the tensor cores), in strips of
+relaxed_strip_w(radius) columns.
 
 `ssim_grad_cuda` launches the kernel for CUDA tensors and runs the plain
 twin `ssim_grad_plain` for CPU tensors. The twin is the same algebra in
@@ -43,16 +43,14 @@ import torch
 from ..windows import RADIUS, SIGMA, gaussian_taps
 from . import ssim_cuda
 from .ssim_cuda import (
-    _MAX_DYNAMIC_SMEM, MAX_FUSED_RADIUS, MAX_SEG_TILES, STRIP_W, _pad_cols,
+    MAX_FUSED_RADIUS, MAX_SEG_TILES, STRIP_W, _pad_cols,
     _tile_reduce, band_bf16x3_plain, hpass4, relaxed_applies, splice_rows,
     stream_blocks, sym_blur,
 )
 from .ssim_torch import _pad_edge
 
-#: Default output tile of the relaxed kernel, shrunk at large radii until
-#: its block's shared memory fits (default_tile). It is also the NaN tile of
-#: both tiers: a non-finite input poisons the gradients of the tiles within
-#: 2r of it.
+#: The NaN tile of both tiers (default_tile; half as tall at radius 16): a
+#: non-finite input poisons the gradients of the tiles within 2r of it.
 TILE_H = 32
 TILE_W = 64
 
@@ -65,16 +63,13 @@ TILE_W = 64
 #: those with halo operands; RELAXED_LAUNCHES: the relaxed mode's, with or
 #: without them). The wrapper adds one per launch to one of the three and
 #: nowhere else, so a caller can show that a run went through the kernel
-#: in that mode. RELAXED_STREAM_LAUNCHES rises beside RELAXED_LAUNCHES for
-#: each relaxed launch of the streaming kernel
-#: (ssim_bwd_relaxed_stream_kernel), and only there.
+#: in that mode. Both tiers have one design each, a row stream, so every
+#: launch counted is a streaming one (the relaxed stream compiles radius 5
+#: in, ssim_bwd.cu, and reads the others at run time,
+#: ssim_bwd_relaxed_rt.cu).
 LAUNCHES = 0
 VHALO_LAUNCHES = 0
 RELAXED_LAUNCHES = 0
-RELAXED_STREAM_LAUNCHES = 0
-
-#: The radius of the relaxed streaming kernel (ssim_bwd.cu kRelR).
-RELAXED_STREAM_RADIUS = RADIUS
 
 
 def grad_cuda_supported(h: int, w: int, radius: int = RADIUS) -> bool:
@@ -84,46 +79,56 @@ def grad_cuda_supported(h: int, w: int, radius: int = RADIUS) -> bool:
     return w > radius and h >= 1 and 1 <= radius <= MAX_FUSED_RADIUS
 
 
-def smem_bytes(tile_h: int, tile_w: int, radius: int) -> int:
-    """Dynamic shared memory of one block (ssim_bwd.cu's region_x_floats +
-    region_y_floats): the a/b halo tile with a 2r margin or, later, the
-    four weight maps on the r-margin mid region; plus the four horizontally
-    blurred planes, later the four vertical adjoints."""
-    r = radius
-    halo = 2 * (tile_h + 4 * r) * (tile_w + 4 * r)
-    mid = 4 * (tile_h + 2 * r) * (tile_w + 2 * r)
-    planes = 4 * (tile_h + 4 * r) * (tile_w + 2 * r)
-    return 4 * (max(halo, mid) + planes)
-
-
 def default_tile(radius: int) -> Tuple[int, int]:
-    """TILE_H x TILE_W, with the height halved (down to 8) while the
-    block's shared memory does not fit: 32x64 up to radius 15, 16x64 at
-    radius 16."""
-    tile_h = TILE_H
-    while tile_h > 8 and smem_bytes(tile_h, TILE_W, radius) > _MAX_DYNAMIC_SMEM:
-        tile_h //= 2
-    return tile_h, TILE_W
+    """The NaN tile at this radius, which also sets the streaming kernels'
+    segments (whole tiles): TILE_H x TILE_W, 32x64 up to radius 15 and
+    16x64 at radius 16."""
+    return (TILE_H // 2 if radius == MAX_FUSED_RADIUS else TILE_H), TILE_W
 
 
-def relaxed_stream_applies(radius: int, tile_w: int = TILE_W) -> bool:
-    """Whether a relaxed launch runs the streaming kernel
-    (ssim_bwd_relaxed_stream_kernel), else the relaxed tile kernel: at
-    radius RELAXED_STREAM_RADIUS (windows.RADIUS, every main-path shape)
-    with the NaN tile TILE_W wide, with or without g_map or halo
-    operands."""
-    return radius == RELAXED_STREAM_RADIUS and tile_w == TILE_W
+#: The relaxed stream's strip at each radius 1-16 (bwd_relaxed_stream.cuh
+#: kSW), measured on an H100 at grad_1080_b4 (`tools/bwd_times.py --relaxed
+#: --strips`, PERF.md): 128 columns at radii 1-5 (0.30-0.34 ms, 2 blocks
+#: per SM, against 0.48-0.59 ms at 64) and 12-15 (0.68-0.78 ms, one block of
+#: 10 warps, against 1.04-1.20 ms at 64, one block of 6); one 64-column NaN
+#: tile at 6-11 (0.60-0.68 ms, 2 blocks per SM, 2-4% faster than 128, one
+#: block) and at 16, where a 128-column block's rings no longer fit.
+RELAXED_STRIP_W = {r: STRIP_W if r <= 5 or 12 <= r <= 15 else TILE_W
+                   for r in range(1, MAX_FUSED_RADIUS + 1)}
 
 
-def stream_segment(bsz: int, h: int, w: int, radius: int, resident: int) -> int:
+def relaxed_strip_w(radius: int) -> int:
+    """The relaxed streaming kernel's strip columns at this radius
+    (RELAXED_STRIP_W)."""
+    return RELAXED_STRIP_W[radius]
+
+
+def relaxed_smem_bytes(radius: int, strip_w: int) -> int:
+    """Dynamic shared memory of one relaxed streaming block at this radius
+    and strip (bwd_relaxed_stream.cuh rel_smem_bytes): the staged rows,
+    later the vertical adjoints (8 rows of float2 {a, b}, or 4 planes x 8
+    rows of f32, at the geometry's pitches); two rings of 8 + 2r rows of 4
+    planes x {hi, lo} x 16 bf16 per warp; the folds' f32 sums (2 x 4
+    planes per mid column); the band's fragments."""
+    groups = 1 + (radius + 3) // 4
+    kh = 2 if groups <= 3 else 3
+    kv = (groups + 1) // 2
+    warps = strip_w // 16 + kh - 1
+    xv = max(8 * 8 * (strip_w + 32 * kh - 24), 16 * 8 * (strip_w + 16 * kh - 8))
+    rings = 2 * warps * 4 * 2 * (8 + 2 * radius) * 16 * 2
+    return xv + rings + 4 * 2 * 4 * 16 * warps + (16 * kh + 8 * kv) * 2 * 32
+
+
+def stream_segment(bsz: int, h: int, w: int, radius: int, resident: int,
+                   strip_w: int = STRIP_W) -> int:
     """A streaming kernel's segment rows for (bsz, h, w) at this radius,
     with `resident` blocks on the card at once (the standard kernel's, or
     the relaxed one's, whose blocks advance 8 rows a step over the same
-    rows): ssim_cuda.stream_segment's model with the NaN tile's height, the
-    4r-row prologue and a last wave of at most a twentieth of the resident
-    blocks running beside the others."""
+    rows) and strips of strip_w columns: ssim_cuda.stream_segment's model
+    with the NaN tile's height, the 4r-row prologue and a last wave of at
+    most a twentieth of the resident blocks running beside the others."""
     return ssim_cuda.stream_segment(bsz, h, w, default_tile(radius)[0], 4 * radius,
-                                    resident, 1 / 20)
+                                    resident, 1 / 20, strip_w)
 
 
 def fold_coefficients(taps: np.ndarray) -> np.ndarray:
@@ -151,17 +156,18 @@ def _taps(radius: int, sigma: float) -> np.ndarray:
 
 
 @functools.lru_cache(maxsize=64)
-def _resident(index: int, radius: int, gmap: bool, relaxed: bool = False) -> int:
+def _resident(index: int, radius: int, gmap: bool, relaxed: bool = False,
+              strip_w: int = STRIP_W) -> int:
     """Streaming-kernel blocks that card `index` holds at once at this
-    radius, the standard kernel's or (relaxed) the relaxed one's: its SMs
-    times the CUDA runtime's occupancy for the instantiation
-    (ssim_bwd_stream_occupancy)."""
+    radius, the standard kernel's or (relaxed) the relaxed one's at a strip
+    of strip_w columns: its SMs times the CUDA runtime's occupancy for the
+    instantiation (ssim_bwd_stream_occupancy)."""
     from . import _build
 
     n = ctypes.c_int(0)
     with torch.cuda.device(index):
         err = _build.load_library().ssim_bwd_stream_occupancy(
-            int(relaxed), radius, int(gmap), ctypes.byref(n))
+            int(relaxed), radius, int(gmap), strip_w, ctypes.byref(n))
     if err != 0 or n.value < 1:
         raise RuntimeError(f"ssim_bwd_stream_occupancy failed (cudaError {err}, "
                            f"{n.value} blocks per SM)")
@@ -322,28 +328,29 @@ def ssim_grad_plain(
 
 
 def _launch(a, b, w_s, w_cs, g_map, *, taps, c1, c2, clip_bound, vhalo=None,
-            vmask=(False, False), relaxed=False, segment=None):
+            vmask=(False, False), relaxed=False, segment=None, strip_w=None):
     """Launch the CUDA kernel on (B, H, W) contiguous f32 tensors on one
-    CUDA device; no synchronisation. segment: a streaming kernel's segment
-    rows (stream_segment's choice if None)."""
-    global LAUNCHES, VHALO_LAUNCHES, RELAXED_LAUNCHES, RELAXED_STREAM_LAUNCHES
+    CUDA device; no synchronisation. segment: the streaming kernel's
+    segment rows (stream_segment's choice if None); strip_w: the relaxed
+    one's strip (relaxed_strip_w's if None)."""
+    global LAUNCHES, VHALO_LAUNCHES, RELAXED_LAUNCHES
     from . import _build
 
     lib = _build.load_library()
     bsz, h, w = a.shape
     r = len(taps) // 2
     tile_h, tile_w = default_tile(r)
-    streams = not relaxed or relaxed_stream_applies(r, tile_w)
-    if not streams:
-        assert smem_bytes(tile_h, tile_w, r) <= _MAX_DYNAMIC_SMEM
-        seg, blocks = 0, bsz * -(-h // tile_h) * -(-w // tile_w)
-    else:
-        seg = segment or stream_segment(
-            bsz, h, w, r, _resident(a.device.index, r, g_map is not None, relaxed))
-        if seg % tile_h or not tile_h <= seg <= MAX_SEG_TILES * tile_h:
-            raise ValueError(f"segment {seg} is not 1-{MAX_SEG_TILES} tiles of "
-                             f"{tile_h} rows")
-        blocks = bsz * -(-h // seg) * -(-w // STRIP_W)
+    sw = STRIP_W
+    if relaxed:
+        sw = strip_w or relaxed_strip_w(r)
+    elif strip_w not in (None, STRIP_W):
+        raise ValueError(f"the standard stream's strip is {STRIP_W} columns")
+    seg = segment or stream_segment(
+        bsz, h, w, r, _resident(a.device.index, r, g_map is not None, relaxed, sw), sw)
+    if seg % tile_h or not tile_h <= seg <= MAX_SEG_TILES * tile_h:
+        raise ValueError(f"segment {seg} is not 1-{MAX_SEG_TILES} tiles of "
+                         f"{tile_h} rows")
+    blocks = bsz * -(-h // seg) * -(-w // sw)
     if blocks > 0x7FFFFFFF:
         raise ValueError(f"{blocks} blocks exceed one launch's grid")
     taps_c, fold_c = _c_window(np.asarray(taps, np.float32).tobytes())
@@ -355,7 +362,7 @@ def _launch(a, b, w_s, w_cs, g_map, *, taps, c1, c2, clip_bound, vhalo=None,
             None if g_map is None else g_map.data_ptr(),
             da.data_ptr(), db.data_ptr(),
             *((None,) * 4 if vhalo is None else (x.data_ptr() for x in vhalo)),
-            int(vmask[0]), int(vmask[1]), bsz, h, w, r, tile_h, tile_w, seg,
+            int(vmask[0]), int(vmask[1]), bsz, h, w, r, tile_h, tile_w, seg, sw,
             ctypes.cast(taps_c, ctypes.c_void_p),
             ctypes.cast(fold_c, ctypes.c_void_p), c1, c2, clip_bound,
             torch.cuda.current_stream(a.device).cuda_stream,
@@ -366,7 +373,6 @@ def _launch(a, b, w_s, w_cs, g_map, *, taps, c1, c2, clip_bound, vhalo=None,
             f"CUDA error {err}")
     if relaxed:
         RELAXED_LAUNCHES += 1
-        RELAXED_STREAM_LAUNCHES += int(streams)
     elif vhalo is None:
         LAUNCHES += 1
     else:
@@ -427,8 +433,7 @@ def ssim_grad_cuda(
 
     relaxed=True (accuracy="relaxed"): at W >= MXU_MIN_W every band pass
     runs as a bf16x3 band product on the tensor cores (RELAXED_LAUNCHES
-    counts the launch; RELAXED_STREAM_LAUNCHES too where the streaming
-    kernel runs it, relaxed_stream_applies), the gradient within ~1e-3 x
+    counts the launch of the relaxed stream), the gradient within ~1e-3 x
     max|g| of the standard tier's; below it the standard kernel runs, bit
     for bit (JAX use_mxu, ssim_grad.py:324). It combines with vhalo as in
     the JAX kernel.

@@ -1,6 +1,7 @@
 """Times the backward kernel on the card, by radius.
 
-    python -m ssim_tpu_torch.tools.bwd_times [--segments] [--relaxed]
+    python -m ssim_tpu_torch.tools.bwd_times [--segments] [--relaxed [--radii R,...]
+                                             [--strips]]
 
 Times `ssim_grad_cuda` (CUDA events around 20 back-to-back calls, median
 of 3) at (4, 1080, 1920) f32 for radii 4, 5, 6 and 16, with and without a
@@ -17,13 +18,18 @@ the kernel takes up to 512 rows, beside the wrapper's own choice
 (`ssim_grad.stream_segment`).
 
 --relaxed times the relaxed tier instead (`relaxed=True`, every band pass
-on the tensor cores): radius 5, which streams rows
-(`ssim_grad.relaxed_stream_applies`), and radius 4, which runs the tile
-kernel, each with and without g_map; with --segments, radius 5's
-segments.
+on the tensor cores) at radii 5 and 4 (RELAXED_RADII; --radii R,... for
+others, also without --relaxed), each with and without g_map, through
+`ssim_grad_cuda` (whatever design the package runs there: run it with a
+parent checkout on PYTHONPATH, in turns with this one, to time that
+checkout's). --strips (with --relaxed) also times the relaxed stream at
+each strip it takes (128 and 64 columns, where the package builds the
+block and it fits), pinned, beside its occupancy: "r=4 relaxed strip 64".
+With --segments, the first radius's segments.
 """
 
 import argparse
+import inspect
 import json
 import statistics
 import subprocess
@@ -33,10 +39,12 @@ import numpy as np
 import torch
 
 from ssim_tpu_torch.ops import ssim_grad
+from ssim_tpu_torch.windows import gaussian_taps
 
 SHAPE = (4, 1080, 1920)
 RADII = (4, 5, 6, 16)
 RELAXED_RADII = (5, 4)
+STRIPS = (128, 64)
 
 
 def card_label():
@@ -69,6 +77,8 @@ def main():
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--segments", action="store_true")
     parser.add_argument("--relaxed", action="store_true")
+    parser.add_argument("--radii", type=lambda x: tuple(int(v) for v in x.split(",")))
+    parser.add_argument("--strips", action="store_true")
     args = parser.parse_args()
     if not torch.cuda.is_available():
         print("needs a CUDA card", file=sys.stderr)
@@ -84,23 +94,40 @@ def main():
     w_cs = torch.zeros(SHAPE[0], device="cuda")
     ms = {}
     radii, tag = (RELAXED_RADII, " relaxed") if args.relaxed else (RADII, "")
+    radii = args.radii or radii
+    strips = args.strips and "strip_w" in inspect.signature(ssim_grad._launch).parameters
     for radius in radii:
+        kw = dict(taps=gaussian_taps(np.float32, radius, 1.5), c1=(0.01 * 255) ** 2,
+                  c2=(0.03 * 255) ** 2, clip_bound=131072.0, relaxed=args.relaxed)
         for name, gmap in ((f"r={radius}{tag}", None), (f"r={radius}{tag} g_map", g)):
             ms[name] = cuda_ms(lambda: ssim_grad.ssim_grad_cuda(
                 a, b, w_s, w_cs, gmap, data_range=255.0, radius=radius, sigma=1.5,
                 relaxed=args.relaxed))
             print(f"  {name}: {ms[name]:.4f} ms", flush=True)
+        if strips:
+            for sw in STRIPS:
+                try:
+                    res = ssim_grad._resident(a.device.index, radius, False, True, sw)
+                except RuntimeError:
+                    print(f"  r={radius}{tag} strip {sw}: not built or does not fit",
+                          flush=True)
+                    continue
+                seg = ssim_grad.stream_segment(*SHAPE, radius, res, sw)
+                name = f"r={radius}{tag} strip {sw}"
+                ms[name] = cuda_ms(lambda: ssim_grad._launch(a, b, w_s, w_cs, None,
+                                                             strip_w=sw, **kw))
+                ms[f"{name} resident"] = res
+                print(f"  {name}: {ms[name]:.4f} ms ({res} resident, segment {seg})",
+                      flush=True)
     if args.segments:
-        from ssim_tpu_torch.windows import gaussian_taps
-
         for radius in (radii[:1] if args.relaxed else radii):
             tile_h = ssim_grad.default_tile(radius)[0]
             kw = dict(taps=gaussian_taps(np.float32, radius, 1.5),
                       c1=(0.01 * 255) ** 2, c2=(0.03 * 255) ** 2, clip_bound=131072.0,
                       relaxed=args.relaxed)
-            resident = (ssim_grad._resident(a.device.index, radius, False, True)
-                        if args.relaxed else ssim_grad._resident(a.device.index, radius, False))
-            parts = [f"auto {ssim_grad.stream_segment(*SHAPE, radius, resident)}"]
+            sw = ssim_grad.relaxed_strip_w(radius) if args.relaxed else ssim_grad.STRIP_W
+            resident = ssim_grad._resident(a.device.index, radius, False, args.relaxed, sw)
+            parts = [f"auto {ssim_grad.stream_segment(*SHAPE, radius, resident, sw)}"]
             for seg in range(tile_h, min(512, ssim_grad.MAX_SEG_TILES * tile_h) + 1, tile_h):
                 t = cuda_ms(lambda: ssim_grad._launch(a, b, w_s, w_cs, None,
                                                       segment=seg, **kw))

@@ -1,6 +1,7 @@
 """Times the forward kernel's modes on the card.
 
     python -m ssim_tpu_torch.tools.fwd_times [--segments] [--batch] [--relaxed] [--radii]
+                                             [--relaxed-radii]
 
 Times (CUDA events around 20 back-to-back calls, median of 3) the
 streaming kernel's modes kScore, kMap, kRowsum and kRowsumMap (the row
@@ -60,6 +61,12 @@ one rank) at 16K x1 (RADIUS_CASES). The stream runs at the segment
 stream_segment picks at its occupancy at that radius, pinned, so that it
 streams whatever stream_applies says; the tile body is pinned with
 _launch(tile_body=True).
+
+--relaxed-radii times the relaxed tier's row stream at every radius 1-16
+(ssim_fwd_stream_rt_relaxed.cu, radius 5's own stream at 5) the same way,
+in turns with the relaxed tile body: u8 kScore and kMap at 4K x4,
+kComponents on f32 and kPooled on u8 and f32 at 1080p x4
+(RELAXED_RULE_CASES), the data of ssim_cuda.STREAM_RELAXED_TILE_RADII.
 
 --loss times only the ssim_loss training step on phase 8's f32 batch
 (256, 64, 64), which the batch route serves (forward, backward, Adam, a
@@ -434,17 +441,27 @@ RADIUS_CASES = (("kScore 4k_b4", "score", (4, 2160, 3840), False),
                 ("kPrecise 4k_b4", "precise", (4, 2160, 3840), False),
                 ("kComponents f32 1080p_b4", "components", (4, 1080, 1920), True),
                 ("kRowsum 16k_b1", "rowsum", (1, 8640, 15360), False))
+#: --relaxed-radii: the relaxed launches timed at each radius.
+RELAXED_RADIUS_CASES = (("relaxed kScore 4k_b4", "score", (4, 2160, 3840), False),
+                        ("relaxed kComponents f32 1080p_b4", "components", (4, 1080, 1920),
+                         True),
+                        ("relaxed kPooled 1080p_b4", "pooled", (4, 1080, 1920), False))
+#: --relaxed-radii, at every radius 1-16: those, kMap and kPooled on f32 (the
+#: pyramid's scale 1 of a u8 4K x4 pair).
+RELAXED_RULE_CASES = RELAXED_RADIUS_CASES + (
+    ("relaxed kMap 4k_b4", "map", (4, 2160, 3840), False),
+    ("relaxed kPooled f32 1080p_b4", "pooled", (4, 1080, 1920), True))
 #: The window's sigma at each radius 1-16: the tests' and chip_smoke.py's
 #: custom windows at 1, 3, 4, 6, 8 and 16, else 0.3 r + 0.3 up to 3.0.
 RADIUS_SIGMA = {r: min(3.0, round(0.3 * r + 0.3, 2)) for r in range(1, 17)}
 RADIUS_SIGMA.update({1: 0.8, 3: 1.2, 4: 1.5, 6: 2.0, 8: 2.5, 16: 3.0})
 
 
-def radius_launches(a, b, mode, radius):
+def radius_launches(a, b, mode, radius, relaxed=False):
     """(stream, tile body, segment): _launch calls of `mode` at `radius` on
     one pair (u8, or f32 in [0, 1]), the stream at stream_segment's pick
     for its occupancy at that radius (pinned), the tile body pinned; the
-    row modes with both halo flags set."""
+    row modes with both halo flags set; relaxed: the relaxed tier's."""
     from ssim_tpu_torch.windows import gaussian_taps
 
     h = a.shape[-2]
@@ -454,28 +471,30 @@ def radius_launches(a, b, mode, radius):
                                  RADIUS_SIGMA[radius]),
               c1=(0.01 * dr) ** 2, c2=(0.03 * dr) ** 2, clip_bound=max(131072.0, 4.0 * dr),
               tile_h=ssim_cuda.TILE_H, tile_w=ssim_cuda.TILE_W)
+    if relaxed:
+        kw["relaxed"] = True
     if mode.startswith("rowsum"):
         kw.update(vhalo=(a[..., h - radius:, :].contiguous(), a[..., :radius, :].contiguous(),
                          b[..., h - radius:, :].contiguous(), b[..., :radius, :].contiguous()),
                   vmask=(1, 1))
-    res = ssim_cuda._stream_resident(a.device.index, mode, a.dtype == torch.float32, False,
+    res = ssim_cuda._stream_resident(a.device.index, mode, a.dtype == torch.float32, relaxed,
                                      radius)
     seg = ssim_cuda.stream_segment(*a.shape, ssim_cuda.TILE_H, 2 * radius, res)
     return (lambda: ssim_cuda._launch(a, b, mode=mode, segment=seg, **kw),
             lambda: ssim_cuda._launch(a, b, mode=mode, tile_body=True, **kw), seg)
 
 
-def radius_times(gen, ms, radii=RADII, cases=RADIUS_CASES, reps=10):
-    """The row stream against the tile body at each radius (see --radii):
-    ms["<name> r<radius>"] the stream's ms and " tile body" the tile
-    body's, each the lower of two in turns, " segment" the stream's
-    segment. Prints each."""
+def radius_times(gen, ms, radii=RADII, cases=RADIUS_CASES, reps=10, relaxed=False):
+    """The row stream against the tile body at each radius (see --radii;
+    relaxed: --relaxed-radii): ms["<name> r<radius>"] the stream's ms and
+    " tile body" the tile body's, each the lower of two in turns,
+    " segment" the stream's segment. Prints each."""
     for name, mode, shape, f32 in cases:
         a, b = u8_pair(gen, shape)
         if f32:
             a, b = a.float() / 255.0, b.float() / 255.0
         for radius in radii:
-            stream, body, seg = radius_launches(a, b, mode, radius)
+            stream, body, seg = radius_launches(a, b, mode, radius, relaxed)
             t = [cuda_ms(f, reps) for f in (body, stream, stream, body)]
             key = f"{name} r{radius}"
             ms[key], ms[f"{key} tile body"] = min(t[1:3]), min(t[0], t[3])
@@ -531,6 +550,7 @@ def main():
     parser.add_argument("--loss", action="store_true")
     parser.add_argument("--relaxed", action="store_true")
     parser.add_argument("--radii", action="store_true")
+    parser.add_argument("--relaxed-radii", action="store_true")
     args = parser.parse_args()
     if not torch.cuda.is_available():
         print("needs a CUDA card", file=sys.stderr)
@@ -543,6 +563,12 @@ def main():
     if args.relaxed:
         torch.backends.cuda.matmul.allow_tf32 = False
         relaxed_times(gen, ms)
+        print(json.dumps({"card": label, "package": ssim_cuda.__file__, "ms": ms}))
+        return 0
+    if args.relaxed_radii:
+        torch.backends.cuda.matmul.allow_tf32 = False
+        radius_times(gen, ms, radii=range(1, ssim_cuda.MAX_FUSED_RADIUS + 1),
+                     cases=RELAXED_RULE_CASES, relaxed=True)
         print(json.dumps({"card": label, "package": ssim_cuda.__file__, "ms": ms}))
         return 0
     if args.radii:

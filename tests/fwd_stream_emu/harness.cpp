@@ -5,7 +5,7 @@
 // (f64 with precise, else f32), a, b (B*H*W of u8 or f32) and, with
 // has_halo, a_top, a_bot, b_top, b_bot (B*r*W each). r = 5 runs the
 // register-window instantiations, any other radius (1 to 16) the
-// runtime-radius one (kR = 0). Every output buffer starts as NaN, and the
+// runtime-radius ones (kR = 0; relaxed with kSplit = band_mma::ksteps(r)). Every output buffer starts as NaN, and the
 // block's shared memory is NaN (bytes 0xff) at each block's start
 // (emu_threads.h: the test rewrites the kernels' __shared__ arrays into its
 // arena), so an entry the kernel never writes, or a shared value it reads
@@ -68,7 +68,9 @@ static void run(FILE* f, FILE* o, const std::vector<int>& h) {
   std::vector<float> map(np, fnan), pieces((size_t)B * ntx * H, fnan);
   const size_t npool = (size_t)B * (H / 2) * (W / 2);
   std::vector<float> pool_a(npool, fnan), pool_b(npool, fnan);
-  if (R == 0 && (size_t)(2 * r + 1) * kStreamThreads * 4 * sizeof(P) > kEmuDynamic) {
+  const size_t dynamic = S > 0 ? stream_rt_relaxed_smem_bytes(r)
+                               : (size_t)(2 * r + 1) * kStreamThreads * 4 * sizeof(P);
+  if (R == 0 && dynamic > kEmuDynamic) {
     fprintf(stderr, "the ring exceeds the dynamic shared memory\n");
     exit(1);
   }
@@ -133,7 +135,7 @@ int main(int argc, char** argv) {
   if (!f || !o) return 2;
   const auto h = take<int>(f, 14);
   if (h[11] != (h[0] == kPrecise || h[0] == kPreciseMap || h[0] == kBatchPrecise)) return 2;
-  if (h[13] < 1 || h[13] > kMaxStreamR || (h[13] != kStreamR && h[12])) return 2;
+  if (h[13] < 1 || h[13] > kMaxStreamR) return 2;
   if (h[0] == kBatch || h[0] == kBatchPrecise) {
     if (h[13] != kStreamR) return 2;
     if (h[0] == kBatch && h[12]) {
@@ -157,7 +159,25 @@ int main(int argc, char** argv) {
     else run<uint8_t, M, S, R>(f, o, h);        \
     break;
 #define SSIM_EMU_RUN(M, S) SSIM_EMU_RUN_R(M, S, kStreamR)
-  if (h[13] != kStreamR) {
+  if (h[13] != kStreamR && h[12]) {
+    const bool two = band_mma::ksteps(h[13]) == 2;
+#define SSIM_EMU_RUN_RT_RELAXED(M)                                  \
+  case M:                                                           \
+    if (two && h[1]) run<float, M, 2, 0>(f, o, h);                  \
+    else if (two) run<uint8_t, M, 2, 0>(f, o, h);                   \
+    else if (h[1]) run<float, M, 3, 0>(f, o, h);                    \
+    else run<uint8_t, M, 3, 0>(f, o, h);                            \
+    break;
+    switch (h[0]) {
+      SSIM_EMU_RUN_RT_RELAXED(kScore)
+      SSIM_EMU_RUN_RT_RELAXED(kMap)
+      SSIM_EMU_RUN_RT_RELAXED(kComponents)
+      SSIM_EMU_RUN_RT_RELAXED(kPooled)
+      default:
+        return 2;
+    }
+#undef SSIM_EMU_RUN_RT_RELAXED
+  } else if (h[13] != kStreamR) {
     switch (h[0]) {
       SSIM_EMU_RUN_R(kScore, 0, 0)
       SSIM_EMU_RUN_R(kMap, 0, 0)

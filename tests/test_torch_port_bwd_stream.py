@@ -1,6 +1,8 @@
-"""The backward kernel's relaxed streaming instantiation
-(ssim_bwd_relaxed_stream_kernel in csrc/ssim_bwd.cu), as far as the CPU can
-hold it: which launches it serves (ops.ssim_grad.relaxed_stream_applies),
+"""The backward kernel's relaxed streaming kernels (csrc/bwd_relaxed_stream.cuh:
+ssim_bwd_relaxed_stream_kernel, radius 5 compiled in, and
+ssim_bwd_relaxed_rt_kernel, the other radii read at run time), as far as
+the CPU can
+hold it: the radii and strips it serves (ops.ssim_grad.relaxed_strip_w),
 what the wrapper passes the C entry and counts (a stand-in library), the
 segment it picks, and the kernel's own source built for the host by g++
 (tests/fwd_stream_emu: one std::thread per CUDA thread, std::barrier for
@@ -34,16 +36,25 @@ _GRAD_TWIN, _GRAD_STD = 1e-4, 1e-3
 
 
 def test_relaxed_stream_applies_at_radius_5_only():
-    """The relaxed backward streams at windows.RADIUS (every main-path
-    shape) with the 64-wide NaN tile, the tile every launch there takes;
-    every other radius keeps the relaxed tile kernel."""
-    assert ssim_grad.RELAXED_STREAM_RADIUS == RADIUS == 5
+    """The relaxed backward's stream rule, once radius 5's alone, now its
+    one design: every radius the fused kernel serves (1-16; radius 5,
+    windows.RADIUS, compiled in, the others read at run time) takes the
+    64-wide NaN tile (default_tile) and a strip from the measured table
+    (relaxed_strip_w): 128 columns at radii 1-5 and 12-15, one 64-column
+    NaN tile at 6-11 and 16, the H100 sweep's choice; radius 0 and 17 are
+    not served."""
+    assert RADIUS == 5
     assert ssim_grad.default_tile(RADIUS) == (ssim_grad.TILE_H, ssim_grad.TILE_W)
-    for radius in range(1, 17):
-        for tile_w in (32, 64, 128):
-            want = radius == 5 and tile_w == 64
-            assert ssim_grad.relaxed_stream_applies(radius, tile_w) == want
-    assert ssim_grad.relaxed_stream_applies(RADIUS)
+    assert sorted(ssim_grad.RELAXED_STRIP_W) == list(range(1, 17))
+    for radius in range(0, 18):
+        served = 1 <= radius <= 16
+        assert ssim_grad.grad_cuda_supported(64, 1920, radius) == served
+        if served:
+            assert ssim_grad.default_tile(radius)[1] == ssim_grad.TILE_W
+            want_w = 128 if radius <= 5 or 12 <= radius <= 15 else 64
+            assert ssim_grad.relaxed_strip_w(radius) == want_w
+            assert want_w % ssim_grad.default_tile(radius)[1] == 0
+    assert ssim_grad.relaxed_strip_w(RADIUS) == ssim_grad.STRIP_W
 
 
 class _FakeLib:
@@ -66,7 +77,8 @@ def fake_launch(monkeypatch):
     lib = _FakeLib()
     monkeypatch.setattr(_build, "load_library", lambda: lib)
     monkeypatch.setattr(ssim_grad, "_resident",
-                        lambda index, radius, gmap, relaxed=False: 132 * (2 if relaxed else 4))
+                        lambda index, radius, gmap, relaxed=False, strip_w=128:
+                        132 * (2 if relaxed else 4))
     monkeypatch.setattr(torch.cuda, "device", lambda d: contextlib.nullcontext())
     monkeypatch.setattr(torch.cuda, "current_stream",
                         lambda d=None: types.SimpleNamespace(cuda_stream=0))
@@ -77,36 +89,31 @@ def fake_launch(monkeypatch):
 @pytest.mark.parametrize("relaxed", [False, True])
 def test_launch_routes_and_counts(fake_launch, radius, relaxed):
     """What the wrapper hands the C entry, and what it counts, per launch:
-    a relaxed launch at radius 5 passes a segment (stream_segment's, at the
-    relaxed occupancy) and adds one to RELAXED_LAUNCHES and
-    RELAXED_STREAM_LAUNCHES; at other radii it passes segment 0 (the tile
-    kernel) and adds to RELAXED_LAUNCHES only; a standard launch passes the
-    standard occupancy's segment and adds to LAUNCHES only. A pinned
-    segment reaches the entry as it is."""
+    a relaxed launch at every radius passes a segment (stream_segment's,
+    at the relaxed occupancy and relaxed_strip_w's strip) and its strip,
+    and adds one to RELAXED_LAUNCHES; a
+    standard launch passes the standard occupancy's segment and the
+    128-column strip and adds to LAUNCHES only. A pinned segment reaches
+    the entry as it is."""
     bsz, h, w = 4, 1080, 1920
     a = torch.zeros((bsz, h, w))
     taps = gaussian_taps(np.float32, radius, 1.5)
     kw = dict(taps=taps, c1=1e-4, c2=9e-4, clip_bound=131072.0, relaxed=relaxed)
-    before = (ssim_grad.LAUNCHES, ssim_grad.RELAXED_LAUNCHES,
-              ssim_grad.RELAXED_STREAM_LAUNCHES, ssim_grad.VHALO_LAUNCHES)
+    before = (ssim_grad.LAUNCHES, ssim_grad.RELAXED_LAUNCHES, ssim_grad.VHALO_LAUNCHES)
     ssim_grad._launch(a, a, torch.ones(bsz), torch.zeros(bsz), None, **kw)
     ssim_grad._launch(a, a, torch.ones(bsz), torch.zeros(bsz), None, segment=64, **kw)
-    streams = relaxed and radius == 5
-    after = (ssim_grad.LAUNCHES, ssim_grad.RELAXED_LAUNCHES,
-             ssim_grad.RELAXED_STREAM_LAUNCHES, ssim_grad.VHALO_LAUNCHES)
-    want = (0 if relaxed else 2, 2 if relaxed else 0, 2 if streams else 0, 0)
+    after = (ssim_grad.LAUNCHES, ssim_grad.RELAXED_LAUNCHES, ssim_grad.VHALO_LAUNCHES)
+    want = (0 if relaxed else 2, 2 if relaxed else 0, 0)
     assert tuple(x - y for x, y in zip(after, before)) == want
     (first, pinned) = fake_launch.calls
     assert first[0] == int(relaxed) and pinned[0] == int(relaxed)
     tile_h, tile_w = ssim_grad.default_tile(radius)
     assert first[17:20] == (radius, tile_h, tile_w)
-    seg = first[20]
-    if relaxed and not streams:
-        assert seg == 0 and pinned[20] == 0
-    else:
-        resident = 132 * (2 if relaxed else 4)
-        assert seg == ssim_grad.stream_segment(bsz, h, w, radius, resident)
-        assert seg % tile_h == 0 and pinned[20] == 64
+    seg, strip = first[20], first[21]
+    assert strip == pinned[21] == (ssim_grad.relaxed_strip_w(radius) if relaxed else 128)
+    resident = 132 * (2 if relaxed else 4)
+    assert seg == ssim_grad.stream_segment(bsz, h, w, radius, resident, strip)
+    assert seg % tile_h == 0 and pinned[20] == 64
 
 
 def test_launch_rejects_a_segment_off_the_tiles(fake_launch):
@@ -149,24 +156,24 @@ def test_relaxed_segment_fills_the_card(shape, fill):
 
 @pytest.fixture(scope="module")
 def bwd_emulator(tmp_path_factory):
-    """The relaxed streaming kernel's source (csrc/ssim_bwd.cu up to the
-    standard stream, and the relaxed stream's section without its
-    launchers), its dynamic shared memory pointed at the harness's buffer,
+    """The relaxed streaming kernels' source (csrc/bwd_common.cuh and
+    csrc/bwd_relaxed_stream.cuh, each without its host code, and the
+    kernels' body, csrc/bwd_relaxed_stream_body.cuh), its dynamic shared
+    memory pointed at the harness's arena (NaN at each block's start),
     built with g++ into a host program; its path."""
     gxx = shutil.which("g++")
     if gxx is None:
         pytest.skip("needs g++ to build the kernel's source for the host")
-    src = open(os.path.join(_build.CSRC_DIR, "ssim_bwd.cu")).read()
-    a = src.index("// Sets a kernel's dynamic shared-memory limit")
-    b = src.index("// ---------------------------------------------------------------------------\n"
-                  "// The relaxed tier at radius 5")
-    c = src.index("template <bool kGmap>\ncudaError_t prepare_relaxed_stream(")
-    body = src[:a] + src[b:c] + "}  // namespace\n"
-    decl = "extern __shared__ __align__(16) unsigned char rel_smem[];"
-    assert body.count(decl) == 1
-    body = body.replace(decl, "unsigned char* rel_smem = g_rel_smem;")
     out = tmp_path_factory.mktemp("bwd_stream_emu")
-    (out / "ssim_bwd_stream.cu").write_text(body)
+    decl = "extern __shared__ __align__(16) unsigned char rel_smem[];"
+    for name, host in (("bwd_common.cuh", "// Host code from here"),
+                       ("bwd_relaxed_stream.cuh", "// Launchers from here"),
+                       ("bwd_relaxed_stream_body.cuh", None)):
+        src = open(os.path.join(_build.CSRC_DIR, name)).read()
+        body = src[:src.index(host)] + "}  // namespace\n" if host else src
+        assert body.count(decl) == (name == "bwd_relaxed_stream_body.cuh")
+        (out / name).write_text(body.replace(decl, "unsigned char* rel_smem = "
+                                                   "emu_dynamic_shared();"))
     exe = out / "bwd_harness"
     # band_mma.cuh: the emulator's (host models of mma, ldmatrix and
     # stmatrix), which includes the kernels' own from csrc, next on the path.
@@ -181,14 +188,27 @@ _TAPS = gaussian_taps(np.float32, 5, 1.5)
 _KW = dict(taps=_TAPS, c1=1e-4, c2=9e-4, clip_bound=131072.0)
 
 
-def _emulate(exe, a, b, w_s, w_cs, g_map, seg, vhalo=None, vmask=(0, 0)):
+def _window(radius):
+    """The taps at radius (fwd_times.RADIUS_SIGMA's sigma; radius 5 the
+    default window)."""
+    from ssim_tpu_torch.tools.fwd_times import RADIUS_SIGMA
+
+    return _TAPS if radius == 5 else gaussian_taps(np.float32, radius, RADIUS_SIGMA[radius])
+
+
+def _emulate(exe, a, b, w_s, w_cs, g_map, seg, vhalo=None, vmask=(0, 0), radius=5,
+             strip_w=None):
     """The host build of the relaxed streaming kernel on NumPy (B, H, W) f32
-    inputs (data range 1): (da, db), NaN where it wrote nothing."""
+    inputs (data range 1) at radius (its taps _window's) and a strip of
+    strip_w columns (relaxed_strip_w's if None), the NaN tile default_tile's:
+    (da, db), NaN where it wrote nothing."""
     bsz, h, w = a.shape
-    head = np.array([bsz, h, w, ssim_grad.TILE_H, seg, g_map is not None,
-                     vhalo is not None, *vmask], np.int32)
+    taps = _window(radius)
+    head = np.array([bsz, h, w, ssim_grad.default_tile(radius)[0], seg, g_map is not None,
+                     vhalo is not None, *vmask, radius,
+                     strip_w or ssim_grad.relaxed_strip_w(radius)], np.int32)
     consts = np.array([_KW["c1"], _KW["c2"], _KW["clip_bound"]], np.float32)
-    parts = [head, _TAPS, ssim_grad.fold_coefficients(_TAPS), consts, a, b, w_s, w_cs]
+    parts = [head, taps, ssim_grad.fold_coefficients(taps), consts, a, b, w_s, w_cs]
     parts += ([g_map] if g_map is not None else []) + list(vhalo or ())
     path_in, path_out = f"{exe}.{os.getpid()}.in", f"{exe}.{os.getpid()}.out"
     with open(path_in, "wb") as f:
@@ -201,7 +221,8 @@ def _emulate(exe, a, b, w_s, w_cs, g_map, seg, vhalo=None, vmask=(0, 0)):
             torch.from_numpy(raw[n:].reshape(a.shape).copy()))
 
 
-def _hold(exe, a, b, seg, g_map=None, vhalo=None, vmask=(0, 0), seed=0):
+def _hold(exe, a, b, seg, g_map=None, vhalo=None, vmask=(0, 0), seed=0, radius=5,
+          strip_w=None):
     """The host build against the relaxed twin on the same inputs: NaN
     exactly where the twin's is, within _GRAD_TWIN * max|g| elsewhere, and
     different from the standard twin but within _GRAD_STD * max|g|."""
@@ -209,9 +230,9 @@ def _hold(exe, a, b, seg, g_map=None, vhalo=None, vmask=(0, 0), seed=0):
     bsz, h, w = a.shape
     w_s = (rng.random(bsz) / (h * w)).astype(np.float32)
     w_cs = (0.3 * rng.random(bsz) / (h * w)).astype(np.float32)
-    got = _emulate(exe, a, b, w_s, w_cs, g_map, seg, vhalo, vmask)
+    got = _emulate(exe, a, b, w_s, w_cs, g_map, seg, vhalo, vmask, radius, strip_w)
     t = torch.from_numpy
-    kw = dict(_KW)
+    kw = dict(_KW, taps=_window(radius))
     if vhalo is not None:
         kw.update(vhalo=tuple(t(x) for x in vhalo), vmask=vmask)
     g = None if g_map is None else t(g_map)
@@ -315,3 +336,86 @@ def test_relaxed_stream_source_nonfinite_on_boundaries_on_the_host(bwd_emulator)
     got = _hold(bwd_emulator, a, b, 32)
     assert got[0][0].isnan().any() and got[0][1].isnan().any()
     assert not got[0][1].isnan().all() and torch.isfinite(got[0][2]).all()
+
+
+#: The runtime-radius instantiations' cases (the k-step edges: radii 4/5,
+#: 8/9, 12/13, and 1 and 16; the strip each instantiation has): (radius, strip, shape, segment,
+#: g_map, planted non-finite pixels (image, y, x)). Ragged strips, B = 2,
+#: segments of one and two tiles, the 16 x 64 NaN tile at radius 16, radius
+#: 5 through the runtime-radius kernel at the 64-column strip.
+_RT_CASES = {
+    "r1 strip 128, g_map": (1, 128, (1, 20, 140), 32, True, ()),
+    "r4 strip 128, NaN": (4, 128, (2, 37, 130), 32, False, ((1, 20, 127),)),
+    "r5 strip 64": (5, 64, (1, 30, 130), 32, False, ()),
+    "r6 strip 64": (6, 64, (1, 26, 70), 32, False, ()),
+    "r8 strip 64, g_map": (8, 64, (1, 40, 70), 32, True, ()),
+    "r9 strip 64, NaN on a strip boundary": (9, 64, (1, 40, 130), 32, False, ((0, 33, 64),)),
+    "r12 strip 128": (12, 128, (1, 33, 140), 32, False, ()),
+    "r11 strip 64, two segments": (11, 64, (1, 40, 70), 32, False, ()),
+    "r13 strip 128, two segments": (13, 128, (1, 40, 140), 32, False, ()),
+    "r16 strip 64, g_map": (16, 64, (1, 20, 70), 16, True, ()),
+}
+
+
+@pytest.mark.parametrize("case", list(_RT_CASES))
+def test_relaxed_runtime_radius_source_matches_twin_on_the_host(bwd_emulator, case):
+    """The runtime-radius relaxed stream (kR = 0: the radius read at run
+    time, kG = rel_groups(r) of 8-row groups a vertical pass reads, 128- or
+    64-column strips), built for the host, against the relaxed twin at each
+    k-step edge: within 1e-4 x max|g|, different from the standard twin
+    and within 1e-3 x max|g| of it, NaN over exactly the twin's tiles; its
+    outputs and shared memory start as NaN."""
+    radius, strip, shape, seg, with_g, planted = _RT_CASES[case]
+    rng = np.random.default_rng(0xBA + radius)
+    a, b = _pair(rng, shape)
+    for img, y, x in planted:
+        a[img, y, x] = np.nan
+    g_map = rng.normal(0, 1e-5, shape).astype(np.float32) if with_g else None
+    da, db = _hold(bwd_emulator, a, b, seg, g_map, seed=radius, radius=radius, strip_w=strip)
+    assert all(bool(x.isnan().any()) == bool(planted) for x in (da, db))
+
+
+@pytest.mark.parametrize("radius,strip,flags", [(3, 128, (1, 0)), (13, 64, (0, 1))])
+def test_relaxed_runtime_radius_source_with_halo_operands_on_the_host(bwd_emulator, radius,
+                                                                      strip, flags):
+    """The runtime-radius relaxed stream with halo operands of 2r rows: a
+    band of 2r + 4 rows of a taller image, the operands read where a flag
+    is clear and never read (NaN-filled) where it is set."""
+    rng = np.random.default_rng(0xBB + radius)
+    a, b = _pair(rng, (1, 6 * radius + 30, 70))
+    lo, hi = 2 * radius + 3, 4 * radius + 7
+
+    def ring(x):
+        top = np.full_like(x[:, :2 * radius], np.nan) if flags[0] else x[:, lo - 2 * radius:lo]
+        bot = np.full_like(x[:, :2 * radius], np.nan) if flags[1] else x[:, hi:hi + 2 * radius]
+        return np.ascontiguousarray(top), np.ascontiguousarray(bot)
+
+    (a_top, a_bot), (b_top, b_bot) = ring(a), ring(b)
+    got = _hold(bwd_emulator, np.ascontiguousarray(a[:, lo:hi]),
+                np.ascontiguousarray(b[:, lo:hi]), 32, vhalo=(a_top, a_bot, b_top, b_bot),
+                vmask=flags, seed=radius, radius=radius, strip_w=strip)
+    assert all(torch.isfinite(x).all() for x in got)
+
+
+def test_relaxed_runtime_radius_source_one_row_on_the_host(bwd_emulator):
+    """H = 1 at radius 9 (three horizontal k-steps, two vertical ones):
+    both vertical folds land on the one row; within 1e-3 x max|g| of the
+    f64 standard gradient, as close as the relaxed twin within 1e-4 x
+    max|g|, and NaN nowhere."""
+    rng = np.random.default_rng(0xBC)
+    a, b = _pair(rng, (2, 1, 100))
+    w_s = np.full(2, 1 / 100, np.float32)
+    w_cs = np.full(2, 0.3 / 100, np.float32)
+    da, db = _emulate(bwd_emulator, a, b, w_s, w_cs, None, 32, radius=9)
+    t = torch.from_numpy
+    kw = dict(_KW, taps=_window(9))
+    want = ssim_grad.ssim_grad_plain(t(a), t(b), t(w_s), t(w_cs), None, relaxed=True, **kw)
+    f64 = ssim_grad.ssim_grad_plain(t(a).double(), t(b).double(), t(w_s).double(),
+                                    t(w_cs).double(), None, **kw)
+    scale = max(float(x.abs().max()) for x in f64)
+    for k, p, d in zip((da, db), want, f64):
+        assert torch.isfinite(k).all()
+        e_kernel = (k.double() - d).abs().max().item()
+        e_twin = (p.double() - d).abs().max().item()
+        assert e_kernel <= max(2 * e_twin, _GRAD_TWIN * scale)
+        assert e_kernel <= _GRAD_STD * scale

@@ -1350,10 +1350,12 @@ def test_relaxed_stream_leaves_other_modes_on_tile_body_on_card(mode):
     """What keeps the tile body in the relaxed tier: the components and
     pooled modes under STREAM_RELAXED_COMP_MIN_PIX pixels a launch and the
     batch mode at radius 4, one RELAXED_LAUNCHES each and no
-    STREAM_LAUNCHES, as do relaxed score and map at radius 1 and 16 and
-    with a 256-wide tile; the components and pooled launches from
-    STREAM_RELAXED_COMP_MIN_PIX (and the batch at radius 5) stream. Each
-    launch matches the relaxed twin (the wrapper on the CPU tensors)."""
+    STREAM_LAUNCHES, as do relaxed score and map with a 256-wide tile; the
+    components and pooled launches from STREAM_RELAXED_COMP_MIN_PIX (and
+    the batch at radius 5) stream, as do relaxed score and map at radius 1
+    (the runtime-radius relaxed stream); at radius 16 the measured rule
+    (STREAM_RELAXED_TILE_RADII) keeps them on the tile body. Each launch
+    matches the relaxed twin (the wrapper on the CPU tensors)."""
     _need_card()
     torch.backends.cuda.matmul.allow_tf32 = False
     rng = np.random.default_rng(0x63)
@@ -1382,13 +1384,13 @@ def test_relaxed_stream_leaves_other_modes_on_tile_body_on_card(mode):
     launched((64, 40, 48) if mode == "batch" else (4, 1100, 1000), 1)
     a, b = _pair(rng, (1, 130, 700))
     wa, wb = torch.from_numpy(a).cuda(), torch.from_numpy(b).cuda()
-    for window in (dict(radius=1, sigma=0.8), dict(radius=16, sigma=3.0),
-                   dict(tile_h=8, tile_w=256)):
+    for window, streams in ((dict(radius=1, sigma=0.8), 1), (dict(radius=16, sigma=3.0), 0),
+                            (dict(tile_h=8, tile_w=256), 0)):
         before = (ssim_cuda.STREAM_LAUNCHES, ssim_cuda.RELAXED_LAUNCHES)
         pk, mk = ssim_cuda.ssim_parts_cuda(wa, wb, with_map=True, relaxed=True, **window)
         torch.cuda.synchronize()
         assert (ssim_cuda.STREAM_LAUNCHES, ssim_cuda.RELAXED_LAUNCHES) == (
-            before[0], before[1] + 1)
+            before[0] + streams, before[1] + 1)
         pp, mp = ssim_cuda.ssim_parts_cuda(torch.from_numpy(a), torch.from_numpy(b),
                                            with_map=True, relaxed=True, **window)
         _hold_relaxed(pk.cpu(), mk.cpu(), pp, mp, 130 * 700)
@@ -1396,19 +1398,18 @@ def test_relaxed_stream_leaves_other_modes_on_tile_body_on_card(mode):
 
 def _relaxed_grad(at, bt, w_s, w_cs, g_map, seg=None, radius=5, sigma=1.5, **halo):
     """K3 relaxed through ssim_grad._launch (the segment pinned where seg is
-    given), checking its counts: RELAXED_LAUNCHES + 1, and
-    RELAXED_STREAM_LAUNCHES + 1 exactly where relaxed_stream_applies; then
-    the standard K3 and the relaxed twin on the same card tensors (data
-    range 1). Returns (kernel, twin, standard)."""
+    given), checking its counts: RELAXED_LAUNCHES + 1 (every relaxed launch
+    streams, the relaxed tier's one design); then the
+    standard K3 and the relaxed twin on the same card tensors (data range
+    1). Returns (kernel, twin, standard)."""
     kw = dict(taps=gaussian_taps(np.float32, radius, sigma), c1=1e-4, c2=9e-4,
               clip_bound=131072.0, **halo)
     counts = lambda: (ssim_grad.LAUNCHES, ssim_grad.VHALO_LAUNCHES,
-                      ssim_grad.RELAXED_LAUNCHES, ssim_grad.RELAXED_STREAM_LAUNCHES)
+                      ssim_grad.RELAXED_LAUNCHES)
     before = counts()
     got = ssim_grad._launch(at, bt, w_s, w_cs, g_map, relaxed=True, segment=seg, **kw)
     torch.cuda.synchronize()
-    streams = ssim_grad.relaxed_stream_applies(radius)
-    assert counts() == (before[0], before[1], before[2] + 1, before[3] + streams)
+    assert counts() == (before[0], before[1], before[2] + 1)
     std = ssim_grad._launch(at, bt, w_s, w_cs, g_map, **kw)
     want = ssim_grad.ssim_grad_plain(at, bt, w_s, w_cs, g_map, relaxed=True, **kw)
     torch.cuda.synchronize()
@@ -1460,14 +1461,12 @@ def test_relaxed_backward_matches_twin_on_card(with_g, case):
     w_s = torch.full((shape[0],), 1.0 / a[0].size, device="cuda")
     w_cs = torch.full((shape[0],), 0.2 / a[0].size, device="cuda")
     if seg is None:
-        before = (ssim_grad.LAUNCHES, ssim_grad.RELAXED_LAUNCHES,
-                  ssim_grad.RELAXED_STREAM_LAUNCHES)
+        before = (ssim_grad.LAUNCHES, ssim_grad.RELAXED_LAUNCHES)
         rk = ssim_grad.ssim_grad_cuda(at, bt, w_s, w_cs, g_map, data_range=1.0,
                                       relaxed=True)
         torch.cuda.synchronize()
-        assert (ssim_grad.LAUNCHES, ssim_grad.RELAXED_LAUNCHES,
-                ssim_grad.RELAXED_STREAM_LAUNCHES) == (before[0], before[1] + 1,
-                                                       before[2] + 1)
+        assert (ssim_grad.LAUNCHES, ssim_grad.RELAXED_LAUNCHES) == (before[0],
+                                                                    before[1] + 1)
         sk = ssim_grad.ssim_grad_cuda(at, bt, w_s, w_cs, g_map, data_range=1.0)
         rp = ssim_grad.ssim_grad_plain(at, bt, w_s, w_cs, g_map, relaxed=True,
                                        **_twin_kw(1.0))
@@ -1530,8 +1529,10 @@ def test_relaxed_backward_halo_operands_on_card(flags):
 @pytest.mark.cuda
 @pytest.mark.parametrize("radius", [4, 16])
 def test_relaxed_backward_other_radii_keep_the_tile_kernel_on_card(radius):
-    """At radii other than 5 a relaxed launch runs the relaxed tile kernel
-    (RELAXED_STREAM_LAUNCHES does not move) and matches its twin."""
+    """At radii other than 5, which once kept the relaxed tile kernel, a
+    relaxed launch runs the runtime-radius stream (RELAXED_LAUNCHES rises
+    by one, at radius 16 on the 64-column strip) and
+    matches its twin."""
     _need_card()
     torch.backends.cuda.matmul.allow_tf32 = False
     rng = np.random.default_rng(0x67 + radius)
@@ -1741,3 +1742,106 @@ def test_runtime_radius_occupancy_is_the_rings_shared_memory(mode):
         for is_float in (False, True):
             got = ssim_cuda._stream_resident(0, mode, is_float, False, radius)
             assert got == want * props.multi_processor_count, (mode, radius, is_float, got)
+
+
+_RT_RELAXED_SIGMA = {1: 0.8, 4: 1.5, 8: 2.5, 9: 2.5, 12: 3.0, 13: 3.0, 16: 3.0}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("radius", [1, 8, 9, 16])
+@pytest.mark.parametrize("dtype", ["u8", "f32"])
+def test_relaxed_runtime_radius_stream_matches_twins_on_card(dtype, radius):
+    """The relaxed tier's row stream at a runtime radius
+    (ssim_fwd_stream_rt_relaxed.cu: two band k-steps at radii 1 and 8,
+    three at 9 and 16) in its four modes at a pinned segment, one
+    STREAM_LAUNCHES and one RELAXED_LAUNCHES a launch, against the relaxed
+    twins: a ragged last strip, H one past the segment, and in f32 NaN and
+    inf on a tile edge and a strip boundary of image 0 (image 1 finite).
+    Partials within 2e-6, maps within 2e-5, pooled images bit for bit."""
+    _need_card()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    rng = np.random.default_rng(0xC0 + radius)
+    a, b = (_pair if dtype == "u8" else _float_pair)(rng, (2, 65, 640))
+    if dtype == "f32":
+        a[0, 31, 64] = np.nan
+        b[0, 40, 127] = np.inf
+    dr = 1.0 if dtype == "f32" else 255.0
+    kw = dict(taps=gaussian_taps(np.float32, radius, _RT_RELAXED_SIGMA[radius]),
+              c1=(0.01 * dr) ** 2, c2=(0.03 * dr) ** 2, clip_bound=max(131072.0, 4.0 * dr),
+              tile_h=32, tile_w=64)
+    at, bt = torch.from_numpy(a).cuda(), torch.from_numpy(b).cuda()
+    for mode in ("score", "map", "components", "pooled"):
+        before = (ssim_cuda.STREAM_LAUNCHES, ssim_cuda.RELAXED_LAUNCHES)
+        got = ssim_cuda._launch(at, bt, mode=mode, relaxed=True, segment=64, **kw)
+        torch.cuda.synchronize()
+        assert (ssim_cuda.STREAM_LAUNCHES, ssim_cuda.RELAXED_LAUNCHES) == (
+            before[0] + 1, before[1] + 1), mode
+        ac, bc = torch.from_numpy(a), torch.from_numpy(b)
+        if mode in ("score", "map"):
+            pp, mp = ssim_cuda.ssim_parts_plain(ac, bc, with_map=True, relaxed=True, **kw)
+            _hold_relaxed(got[0].cpu(), None if mode == "score" else got[1].cpu(), pp,
+                          None if mode == "score" else mp, 65 * 640)
+        elif mode == "components":
+            _like_relaxed_twin(mode, got, ssim_cuda.ssim_components_plain(
+                ac, bc, relaxed=True, **kw), 65 * 640)
+        else:
+            want = ssim_cuda.ssim_components_pooled_plain(ac, bc, relaxed=True, **kw)
+            _like_relaxed_twin("components", got[0], want[0], 65 * 640)
+            for x, y in zip(got[1:], want[1:]):  # bit for bit, NaN at the same pixels
+                x = x.cpu()
+                assert torch.equal(x.isnan(), y.isnan())
+                assert torch.equal(x.nan_to_num(), y.nan_to_num())
+
+
+#: The relaxed runtime-radius forward's static shared memory (ptxas, sm_90a;
+#: by band k-steps, 2 or 3: the band's fragments; kPooled's raw ring adds 4
+#: KB) and the blocks per SM its registers allow (72 a thread, 80 in the
+#: components modes: kStreamBlocksOf).
+_RT_RELAXED_STATIC = {("score", 2): 2224, ("score", 3): 3248, ("components", 2): 2256,
+                      ("components", 3): 3280, ("pooled", 2): 6352, ("pooled", 3): 7376}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["score", "components", "pooled"])
+def test_relaxed_runtime_radius_occupancy_is_its_shared_memory(mode):
+    """The CUDA runtime's occupancy for the relaxed runtime-radius forward
+    (u8; f32's static arrays are 64 bytes larger) at every radius but 5 is
+    what its shared memory allows on an H100: the staged rows, the heavy
+    blurs of 4 rows and the ring of 2r + 1 float4 rows a thread
+    (stream_rt_relaxed_smem_bytes) beside the static arrays, under the
+    registers' cap."""
+    _need_card()
+    props = torch.cuda.get_device_properties(0)
+    if "H100" not in props.name:
+        pytest.skip(f"the model is an H100's ({props.name})")
+    cap = 7 if mode == "score" else 6
+    for radius in range(1, ssim_cuda.MAX_FUSED_RADIUS + 1):
+        if radius == ssim_cuda.STREAM_RADIUS:
+            continue
+        ksteps = 2 if radius <= 8 else 3
+        dyn = 8 * 4 * 160 + 4 * 2 * 4 * 128 + (2 * radius + 1) * 128 * 16
+        static = _RT_RELAXED_STATIC[(mode, ksteps)]
+        want = min(cap, _SM_SMEM // (static + _BLOCK_RESERVED + dyn))
+        got = ssim_cuda._stream_resident(0, mode, False, True, radius)
+        assert got == want * props.multi_processor_count, (mode, radius, got)
+
+
+@pytest.mark.cuda
+def test_relaxed_backward_occupancy_is_its_shared_memory():
+    """The CUDA runtime's occupancy for the relaxed backward stream at every
+    radius and its strip (ssim_grad.relaxed_strip_w), with and without
+    g_map, is what its shared memory allows on an H100
+    (ssim_grad.relaxed_smem_bytes, 16 bytes of static arrays), under the
+    registers' cap of 2 blocks (96 registers a thread at 128 columns, up to
+    160 at 64)."""
+    _need_card()
+    props = torch.cuda.get_device_properties(0)
+    if "H100" not in props.name:
+        pytest.skip(f"the model is an H100's ({props.name})")
+    for radius in range(1, ssim_cuda.MAX_FUSED_RADIUS + 1):
+        sw = ssim_grad.relaxed_strip_w(radius)
+        smem = ssim_grad.relaxed_smem_bytes(radius, sw)
+        want = min(2, _SM_SMEM // (16 + _BLOCK_RESERVED + smem))
+        for gmap in (False, True):
+            got = ssim_grad._resident(0, radius, gmap, True, sw)
+            assert got == want * props.multi_processor_count, (radius, sw, gmap, got)

@@ -254,16 +254,18 @@ def test_stream_blocks_cover_each_pixel_once_with_whole_tiles(tile):
 def test_stream_applies_to_the_documented_launches(mode):
     """The streaming kernel takes exactly the score, map and row modes, the
     precise modes (kPrecise, kPreciseMap) and the MS-SSIM components and
-    pooled modes at every radius 1 to MAX_FUSED_RADIUS (radius 5 in its
-    register-window instantiations, the others in the runtime-radius one)
-    with tiles 32 to 128 wide, and relaxed the score, map, components and
-    pooled modes at radius 5; both batch modes (kBatch, kBatchPrecise) and
-    the relaxed kBatch run its packed variant at radius 5, whatever the
-    batch tile; the relaxed and batch modes at other radii, and tile width
-    256, keep the tile body, as does a radius the kernel does not serve.
+    pooled modes, and relaxed the score, map, components and pooled modes,
+    at every radius 1 to MAX_FUSED_RADIUS (radius 5 in its register-window
+    instantiations, the others in the runtime-radius ones) with tiles 32
+    to 128 wide; both batch modes (kBatch, kBatchPrecise) and the relaxed
+    kBatch run its packed variant at radius 5, whatever the batch tile; the
+    batch modes at other radii, and tile width 256, keep the tile body, as
+    does a radius the kernel does not serve.
     Given the launch's pixels, the components and pooled modes stream only
     from STREAM_COMP_MIN_PIX, relaxed from STREAM_RELAXED_COMP_MIN_PIX; the
-    other modes take no size condition."""
+    other modes take no size condition; and a relaxed launch so given keeps
+    the tile body at the radii STREAM_RELAXED_TILE_RADII names for its mode
+    and input dtype."""
     main = mode in ("score", "map", "rowsum", "rowsum_map", "precise", "precise_map",
                     "components", "pooled")
     batch = mode in ("batch", "batch_precise")
@@ -275,7 +277,7 @@ def test_stream_applies_to_the_documented_launches(mode):
         for tile_w in (8, 16, 32, 64, 128, 256):
             for relaxed in (False, True):
                 served = mode in ("score", "map", "components", "pooled") if relaxed else main
-                radii = (5,) if relaxed else range(1, ssim_cuda.MAX_FUSED_RADIUS + 1)
+                radii = range(1, ssim_cuda.MAX_FUSED_RADIUS + 1)
                 want = served and radius in radii and 32 <= tile_w <= 128
                 if batch:
                     # kBatchPrecise has no relaxed form (the wrapper refuses it).
@@ -283,12 +285,43 @@ def test_stream_applies_to_the_documented_launches(mode):
                 assert ssim_cuda.stream_applies(mode, radius, tile_w, relaxed) == want
                 big = (ssim_cuda.STREAM_RELAXED_COMP_MIN_PIX if relaxed
                        else ssim_cuda.STREAM_COMP_MIN_PIX)
-                assert ssim_cuda.stream_applies(mode, radius, tile_w, relaxed, big) == want
-                sized = want and mode not in ("components", "pooled")
-                assert ssim_cuda.stream_applies(mode, radius, tile_w, relaxed,
-                                                big - 1) == sized
+                for is_float in (False, True):
+                    kept = relaxed and radius in ssim_cuda.STREAM_RELAXED_TILE_RADII.get(
+                        (mode, is_float), ())
+                    assert ssim_cuda.stream_applies(mode, radius, tile_w, relaxed, big,
+                                                    is_float) == (want and not kept)
+                    sized = want and not kept and mode not in ("components", "pooled")
+                    assert ssim_cuda.stream_applies(mode, radius, tile_w, relaxed,
+                                                    big - 1, is_float) == sized
     assert ssim_cuda.STREAM_COMP_MIN_PIX == 1 << 20
     assert ssim_cuda.STREAM_RELAXED_COMP_MIN_PIX == 1 << 22
+
+
+def test_relaxed_tile_radii_are_the_measured_rule():
+    """The radii at which a routed relaxed launch keeps the relaxed tile
+    body (STREAM_RELAXED_TILE_RADII), as the H100 sweep measured them
+    (ssim_cuda's comment, PERF.md): kScore and kMap at 16, kComponents at
+    2 and 16, kPooled on u8 at every radius but 5, 8 and 9, kPooled on f32
+    at 2, 15 and 16, for each input dtype; never radius 5 (its own
+    register-window stream), never a batch mode, and the size-free rule (a
+    pinned segment) streams at every one of them."""
+    table = ssim_cuda.STREAM_RELAXED_TILE_RADII
+    every = set(range(1, 17))
+    want = {"score": ({16}, {16}), "map": ({16}, {16}),
+            "components": ({2, 16}, {2, 16}),
+            "pooled": (every - {5, 8, 9}, {2, 15, 16})}
+    assert set(table) == {(m, f) for m in want for f in (False, True)}
+    for (mode, is_float), radii in table.items():
+        assert set(radii) == want[mode][is_float]
+        assert ssim_cuda.STREAM_RADIUS not in radii
+        for radius in radii:
+            assert ssim_cuda.stream_applies(mode, radius, ssim_cuda.TILE_W, True)
+            assert not ssim_cuda.stream_applies(mode, radius, ssim_cuda.TILE_W, True,
+                                                1 << 30, is_float)
+            assert ssim_cuda.stream_applies(mode, radius, ssim_cuda.TILE_W, False,
+                                            1 << 30, is_float)
+    assert ssim_cuda.stream_applies("pooled", 9, ssim_cuda.TILE_W, True, 1 << 30)
+    assert ssim_cuda.stream_applies("components", 9, ssim_cuda.TILE_W, True, 1 << 30, True)
 
 
 def test_main_path_defaults_take_the_streaming_kernel():
@@ -1197,6 +1230,86 @@ def test_stream_kernel_source_runtime_radius_row_modes_with_halo(stream_emulator
                    np.ascontiguousarray(b[:, lo:hi]), (32, 64), 32,
                    vhalo=(a_top, a_bot, b_top, b_bot), vmask=flags, radius=radius,
                    sigma=sigma)
+
+
+#: The relaxed runtime-radius instantiations' cases (kSplit =
+#: band_mma::ksteps(r): 2 at radii 1 and 8, 3 at 9 and 16): (radius, sigma,
+#: f32, shape, tile, segment, planted pixels (image, y, x, value)). Widths
+#: over a strip with a ragged last one, odd H and W, H one past a segment,
+#: a one-row image, W <= 2r at radius 16, NaN and inf on a tile edge and a
+#: strip boundary, a finite value past the clip bound.
+_EMU_RT_RELAXED_CASES = {
+    "r1 u8 ragged strip, odd H and W": (1, 0.8, False, (2, 33, 301), (32, 64), 32, ()),
+    "r1 f32 one row": (1, 0.8, True, (2, 1, 200), (32, 64), 32, ()),
+    "r8 f32 NaN and inf, 32x32 tiles": (
+        8, 2.5, True, (2, 41, 260), (32, 32), 32,
+        ((0, 31, 64, np.nan), (1, 20, 127, np.inf), (0, 5, 129, 3e5))),
+    "r9 u8 H one past a segment, 32x128 tiles": (9, 2.5, False, (1, 65, 257), (32, 128), 64,
+                                                  ()),
+    "r16 u8 W <= 2r": (16, 3.0, False, (2, 40, 30), (32, 64), 32, ()),
+    "r16 f32 NaN on a strip boundary": (16, 3.0, True, (1, 50, 260), (32, 64), 64,
+                                         ((0, 33, 128, np.nan),)),
+}
+
+
+@pytest.mark.parametrize("case", list(_EMU_RT_RELAXED_CASES))
+def test_stream_kernel_source_relaxed_runtime_radius_matches_twins_on_the_host(
+        stream_emulator, case):
+    """The relaxed tier's runtime-radius instantiations (kR = 0, kSplit =
+    band_mma::ksteps(r): the staged rows and one ring of mu_a, mu_b and the
+    heavy blurs in dynamic shared memory, the band products through the
+    host model of mma.sync), built for the host, in their four modes
+    against the relaxed twins at radii 1, 8, 9 and 16: kScore and kMap
+    within 2e-6 global (never tighter than 2 * 2e-5 / sqrt(npix)) and 2e-5
+    per pixel, NaN over exactly the twin's tiles, a map that differs from
+    the standard twin's; kComponents and kPooled within the same global
+    bound, pooled images bit for bit. Outputs start as NaN and shared
+    memory is NaN at each block's start, so an entry never written, or a
+    ring slot read before it is written, fails."""
+    radius, sigma, f32, shape, tile, seg, planted = _EMU_RT_RELAXED_CASES[case]
+    rng = np.random.default_rng(0x5F50 + len(case))
+    a, b = _emu_pair(rng, shape, f32)
+    for img, y, x, v in planted:
+        a[img, y, x] = v
+    dr = 1.0 if f32 else 255.0
+    kw = dict(taps=gaussian_taps(np.float32, radius, sigma), c1=(0.01 * dr) ** 2,
+              c2=(0.03 * dr) ** 2, clip_bound=max(131072.0, 4.0 * dr), tile_h=tile[0],
+              tile_w=tile[1])
+    at, bt = torch.from_numpy(a), torch.from_numpy(b)
+    npix = shape[1] * shape[2]
+    tol = max(_RELAXED_GLOBAL, 2 * _RELAXED_PIXEL / npix**0.5)
+    want, want_map = ssim_cuda.ssim_parts_plain(at, bt, with_map=True, relaxed=True, **kw)
+    _, std_map = ssim_cuda.ssim_parts_plain(at, bt, with_map=True, **kw)
+    for mode in ("score", "map"):
+        got, got_map = _emulate(stream_emulator, mode, a, b, tile, seg, relaxed=True,
+                                radius=radius, sigma=sigma)
+        assert torch.equal(got.isnan(), want.isnan()), mode
+        gk, gp = got.double().sum(-1) / npix, want.double().sum(-1) / npix
+        fin = ~gp.isnan()
+        if fin.any():
+            assert (gk[fin] - gp[fin]).abs().max().item() <= tol, mode
+    assert torch.equal(got_map.isnan(), want_map.isnan())
+    ok = ~want_map.isnan()
+    assert (got_map[ok] - want_map[ok]).abs().max().item() <= _RELAXED_PIXEL
+    assert (got_map[ok] - std_map[ok]).abs().max().item() > 0
+    want_c = ssim_cuda.ssim_components_plain(at, bt, relaxed=True, **kw)
+    got_c, _ = _emulate(stream_emulator, "components", a, b, tile, seg, relaxed=True,
+                        radius=radius, sigma=sigma)
+    assert torch.equal(got_c.isnan(), want_c.isnan())
+    gk, gp = got_c.double().sum(-2) / npix, want_c.double().sum(-2) / npix
+    fin = ~gp.isnan()
+    if fin.any():
+        assert (gk[fin] - gp[fin]).abs().max().item() <= tol
+    if planted:
+        assert got_c.isnan().any() and not got_c.isnan().all()  # only the planted tiles
+    if shape[1] >= 2:
+        parts, (pa, pb) = _emulate(stream_emulator, "pooled", a, b, tile, seg, relaxed=True,
+                                   radius=radius, sigma=sigma)
+        assert torch.equal(parts.isnan(), got_c.isnan())
+        assert torch.equal(parts.nan_to_num(), got_c.nan_to_num())
+        for x, y in ((pa, ssim_cuda.downsample2(at)), (pb, ssim_cuda.downsample2(bt))):
+            assert torch.equal(x.isnan(), y.isnan()) and torch.equal(x.nan_to_num(),
+                                                                     y.nan_to_num())
 
 
 #: The P6 check's mutations of the kernel source: (file, the text, its

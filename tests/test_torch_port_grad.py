@@ -35,7 +35,7 @@ import ssim_tpu
 import ssim_tpu_torch
 from ssim_tpu.ops.ssim_grad import grad_pallas_supported, ssim_grad_pallas
 from ssim_tpu_torch import reference
-from ssim_tpu_torch.ops import ssim_grad
+from ssim_tpu_torch.ops import ssim_cuda, ssim_grad
 from ssim_tpu_torch.ops.ssim_grad import grad_cuda_supported, ssim_grad_cuda
 from ssim_tpu_torch.ops.ssim_torch import _pad_edge, blur_separable, ssim_parts_torch
 from ssim_tpu_torch.windows import gaussian_taps
@@ -318,11 +318,15 @@ def test_argument_guards():
 
 @pytest.mark.parametrize("radius", [1, 5, 15, 16])
 def test_default_tile_fits_shared_memory(radius):
-    """The kernel's one tile per radius fits a block's shared memory: 32x64
-    up to radius 15, 16x64 at radius 16."""
+    """The NaN tile per radius, 32x64 up to radius 15 and 16x64 at radius
+    16, and the relaxed stream's block at that radius and its strip fits a
+    block's shared memory (radius 5: the ~108 KB of its two blocks an SM)."""
     tile_h, tile_w = ssim_grad.default_tile(radius)
     assert (tile_h, tile_w) == ((16, 64) if radius == 16 else (32, 64))
-    assert ssim_grad.smem_bytes(tile_h, tile_w, radius) <= ssim_grad._MAX_DYNAMIC_SMEM
+    smem = ssim_grad.relaxed_smem_bytes(radius, ssim_grad.relaxed_strip_w(radius))
+    assert smem <= ssim_cuda._MAX_DYNAMIC_SMEM
+    if radius == 5:
+        assert smem == 110080
 
 
 @pytest.mark.parametrize("radius", [1, 5, 16])

@@ -230,6 +230,53 @@ def test_ssim_loss_relaxed_gradient():
     assert not np.array_equal(g1, g0)
 
 
+@pytest.mark.parametrize("radius,sigma", [(3, 1.2), (9, 2.5)])
+def test_compute_ssim_relaxed_custom_window_against_jax_and_oracle(radius, sigma):
+    """compute_ssim(accuracy="relaxed") with a custom window (radius 3: two
+    horizontal k-steps of the band, 9: three), u8 at W >= MXU_MIN_W, against
+    the f64 oracle (1e-4 global, 5e-3 per interior map pixel) and JAX's
+    compute_ssim with impl="xla" at the same window (1e-4); the map is not
+    the standard tier's."""
+    rng = np.random.default_rng(0x94 + radius)
+    a, b = _u8(rng, (2, 45, 600))
+    win = dict(radius=radius, sigma=sigma)
+    g, m = ssim_tpu_torch.compute_ssim(a, b, with_map=True, device="cpu",
+                                       accuracy="relaxed", **win)
+    g0, m0 = ssim_tpu_torch.compute_ssim(a, b, with_map=True, device="cpu", **win)
+    want, want_map = reference.compute_ssim(a, b, with_map=True, **win)
+    jx = np.asarray(jax_compute_ssim(a, b, impl="xla", **win))
+    assert np.abs(np.asarray(g) - np.asarray(want)).max() < 1e-4
+    assert np.abs(np.asarray(g) - jx).max() < 1e-4
+    inner = (Ellipsis, slice(radius, -radius), slice(radius, -radius))
+    assert np.abs(m[inner] - want_map[inner]).max() < 5e-3
+    assert not np.array_equal(m, m0)
+
+
+@pytest.mark.parametrize("radius,sigma", [(3, 1.2), (9, 2.5)])
+def test_ssim_loss_relaxed_gradient_custom_window(radius, sigma):
+    """The relaxed gradient with a custom window (radii 3 and 9: one and two
+    vertical k-steps, two and three horizontal ones of the backward's band
+    passes) at W >= MXU_MIN_W against JAX's gradient with impl="xla" at the
+    same window and the port's standard one, within 1e-3 x max|g|, and not
+    the standard one."""
+    rng = np.random.default_rng(0x95 + radius)
+    a, b = float_pair(rng, (48, 560))
+    grads = []
+    for accuracy in ("relaxed", "standard"):
+        x = torch.from_numpy(a).requires_grad_()
+        ssim_tpu_torch.ssim_loss(x, torch.from_numpy(b), device="cpu", accuracy=accuracy,
+                                 radius=radius, sigma=sigma).backward()
+        grads.append(x.grad.numpy())
+    g1, g0 = grads
+    gj = np.asarray(jax.grad(lambda x: jax_ssim_loss(
+        x, jnp.asarray(b), data_range=1.0, impl="xla", radius=radius,
+        sigma=sigma))(jnp.asarray(a)))
+    scale = np.abs(gj).max()
+    assert np.abs(g1 - gj).max() <= 1e-3 * scale
+    assert np.abs(g1 - g0).max() <= 1e-3 * scale
+    assert not np.array_equal(g1, g0)
+
+
 def test_backward_relaxed_with_halo_operands():
     """The relaxed flag is orthogonal to the halo mode: a band with its
     operands, relaxed, stays within 1e-3 x max|g| of the standard band and
