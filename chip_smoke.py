@@ -814,8 +814,16 @@ BATCH_STREAM_DESIGN = (
     "blurred; a block a strip of a packed row, down all its rows or a segment of them "
     "(ssim_cuda.batch_stream_plan); per-column sums, a segmented warp reduction per "
     "image, batch_pieces_reduce_kernel where an image spans blocks); relaxed kBatch: "
-    "RELAXED_BATCH_STREAM_DESIGN; other radii: the tile body")
+    "RELAXED_BATCH_STREAM_DESIGN; other radii: RT_BATCH_DESIGN")
 
+RT_BATCH_DESIGN = (
+    "the packed row stream at a radius read at run time (ssim_fwd_batch_stream_kernel<T, "
+    "mode, kSplit, 0>, ssim_fwd_batch_rt.cu: kBatch, kBatchPrecise and the relaxed kBatch "
+    "with kSplit = ksteps(r), radius 1-16 but 5): radius 5's packed strips, pushes and "
+    "sums, the staged rows sized for the pack's pieces and the window's 2r + 1 pushes of "
+    "four signals (one float4, fp64 two double2, a column) in dynamic shared memory, each "
+    "thread blurring its own column, the taps in shared memory; relaxed: 4 staged {a, b} "
+    "rows, the heavy blurs of 4 pushes, up to four sweeps of the staged row's tiles")
 RT_STREAM_DESIGN = (
     "the row stream at a radius read at run time (ssim_fwd_stream_kernel<T, mode, 0, 0>, "
     "ssim_fwd_stream_rt.cu: radius 1-16 but 5): the same strips, segments and steps as "
@@ -1763,11 +1771,35 @@ def batch_tile_body(a, b, precise, data_range=255.0, radius=5, sigma=1.5, k1=0.0
                              tile_body=True, **kw)
 
 
+def batch_stream_pinned(a, b, precise, relaxed=False, data_range=255.0, radius=5, sigma=1.5,
+                        k1=0.01, k2=0.03):
+    """The batch mode on the packed stream at batch_stream_plan's pack,
+    pinned (so it streams where the measured rule would keep the tile
+    body)."""
+    from ssim_tpu_torch.ops import ssim_cuda
+
+    bsz, h, w = a.shape
+    mode = "batch_precise" if precise else "batch"
+    kw = ssim_cuda._prepare(a, b, data_range=data_range, radius=radius, sigma=sigma, k1=k1,
+                            k2=k2, precise=precise)
+    k = ssim_cuda.batch_pack(bsz, w)
+    res = ssim_cuda._stream_resident(a.device.index, mode, a.dtype == torch.float32, relaxed,
+                                     radius, w, k)
+    pack = ssim_cuda.batch_stream_plan(bsz, h, w, res, radius)
+    tile_h, tile_w, ipb, groups = ssim_cuda.batch_geometry(bsz, h, w)
+    return ssim_cuda._launch(a, b, mode=mode, tile_h=tile_h, tile_w=tile_w, ipb=ipb,
+                             groups=groups, relaxed=relaxed, pack=pack, **kw)
+
+
 def compare_batch(name, a, b, *, oracle=None, **kw):
-    """Both batch modes against their twin, the tile modes' per-image
+    """Both batch modes, their outputs poisoned before the launch
+    (poisoned_outputs), against their twin, the tile modes' per-image
     scores and the tile body's batch mode (pinned) on the same card
-    tensors; at radius 5 each batch launch must be a packed-stream one
-    (STREAM_LAUNCHES), at other radii a tile-body one; with
+    tensors; each batch launch must take the design the rule gives
+    (STREAM_LAUNCHES: the packed stream, ssim_fwd_batch.cu at radius 5,
+    ssim_fwd_batch_rt.cu's runtime radius at the others, but the tile body
+    at the radii ssim_cuda.STREAM_BATCH_TILE_RADII names, where the stream
+    is also launched pinned and held against the twin); with
     oracle=(standard global, precise global), also the f64 oracle. Returns
     the largest score difference from the twin and each mode's per-image
     scores."""
@@ -1778,25 +1810,35 @@ def compare_batch(name, a, b, *, oracle=None, **kw):
     npix = h * w
     allow = a.dtype == torch.float32
     err, got, parts = 0.0, {}, []
-    # The packed batch stream serves radius 5 only; other radii the tile body.
-    streams = kw.get("radius", 5) == 5
     for precise in (False, True):
+        mode = "batch_precise" if precise else "batch"
+        streams = ssim_cuda.stream_applies(mode, kw.get("radius", 5), ssim_cuda.TILE_W,
+                                           npix=bsz * npix, is_float=allow, width=w)
         before = ssim_cuda.STREAM_LAUNCHES
-        pk = ssim_cuda.ssim_parts_batch_cuda(a, b, precise=precise, allow_float=allow, **kw)
+        pk = poisoned(lambda: ssim_cuda.ssim_parts_batch_cuda(a, b, precise=precise,
+                                                              allow_float=allow, **kw))
         streamed = ssim_cuda.STREAM_LAUNCHES - before
-        tk, _ = ssim_cuda.ssim_parts_cuda(a, b, precise=precise, allow_float=allow, **kw)
-        bk = batch_tile_body(a, b, precise, **kw)
-        torch.cuda.synchronize()
         tag = "kBatchPrecise" if precise else "kBatch"
         check(streamed == int(streams), f"{name}: {tag} streamed {streamed} launches, "
               f"expected {int(streams)}")
+        tk, _ = ssim_cuda.ssim_parts_cuda(a, b, precise=precise, allow_float=allow, **kw)
+        if streams:
+            other, bk = "tile body", batch_tile_body(a, b, precise, **kw)
+        else:
+            # The rule kept the tile body: the stream, pinned, is held too.
+            before = ssim_cuda.STREAM_LAUNCHES
+            other, bk = "pinned stream", poisoned(lambda: batch_stream_pinned(a, b, precise,
+                                                                              **kw))
+            check(ssim_cuda.STREAM_LAUNCHES == before + 1,
+                  f"{name}: {tag} pinned stream did not stream")
+        torch.cuda.synchronize()
         check(tuple(pk.shape) == (bsz, 2)
               and pk.dtype == (torch.float64 if precise else torch.float32),
               f"{name}: {tag} partials {tuple(pk.shape)} {pk.dtype}")
         check(bool((pk[:, 1] == npix).all()), f"{name}: {tag} count column is not {npix}")
         gk = scores(pk, npix)
         for label, ref in (("twin", batch_twin(a, b, precise, **kw)), ("tile modes", tk),
-                           ("tile body", bk)):
+                           (other, bk)):
             gr = scores(ref, npix)
             check(np.array_equal(np.isnan(gk), np.isnan(gr)), f"{name}: {tag} NaN vs {label}")
             diff = np.abs(gk - gr)
@@ -1820,6 +1862,104 @@ def compare_batch(name, a, b, *, oracle=None, **kw):
             parts.append(f"{'precise' if precise else 'standard'} vs f64 oracle {o:.3g}")
     print(f"  {name}: " + ", ".join(parts) + " (precise relative)", flush=True)
     return err, got
+
+
+# The batch modes with a custom window (phase 8(a)): the odd shapes of
+# 8(a) at every window of CUSTOM_WINDOWS (the oracle where a call holds at
+# most BATCH_ORACLE_PIX pixels), a NaN image, and the relaxed kBatch at an
+# aligned width (64: the strip's 16-column tiles) and a straddling one (40:
+# the staged row's tiles).
+BATCH_ODD_SHAPES = [(3, 33, 47), (2, 30, 200), (5, 11, 11), (3, 50, 1), (5, 16, 2048),
+                    (2, 8192, 64), (2, 1, 1), (2, 7, 5)]
+BATCH_ORACLE_PIX = 1 << 17
+RELAXED_BATCH_RT_SHAPES = ((256, 64, 64), (256, 40, 40))
+BATCH_RT_SEED = SEED + 8
+
+
+def batch_custom_windows(gen):
+    """8(a) at the runtime radius: compare_batch (both modes poisoned, on
+    the design the measured rule gives, against the twin, the tile modes,
+    the other design pinned and the f64 oracle) on BATCH_ODD_SHAPES at each
+    of CUSTOM_WINDOWS; an f32 batch with a NaN in image 5 at radius 16 (NaN
+    there alone, and image 6 alone equal to image 6 in the batch); the
+    relaxed kBatch, poisoned, at RELAXED_BATCH_RT_SHAPES and each custom
+    window (the wrapper's launch, and the stream pinned where the rule
+    keeps the tile body) against its relaxed twin and its relaxed tile
+    body (pinned), differing from the standard kBatch, and 16 images
+    within the tier's bound of the f64 oracle. Returns the largest
+    standard error from the twin."""
+    from ssim_tpu_torch import reference
+    from ssim_tpu_torch.ops import ssim_cuda
+
+    err, rel_err, body_err, n = 0.0, 0.0, 0.0, 0
+    for win in CUSTOM_WINDOWS:
+        for shape in BATCH_ODD_SHAPES:
+            a, b = pair(gen, shape)
+            held = shape[0] * shape[1] * shape[2] <= BATCH_ORACLE_PIX
+            e, _ = compare_batch(f"u8 {shape} radius {win['radius']}", a, b,
+                                 oracle=(ORACLE_GLOBAL, DOUBLE_GLOBAL) if held else None, **win)
+            err = max(err, e)
+            n += 2
+    win = CUSTOM_WINDOWS[-1]
+    a, b = pair(gen, (64, 64, 64), torch.float32, 1.0)
+    a[5, 40, 17] = float("nan")
+    e, got = compare_batch(f"f32 (64, 64, 64) NaN in image 5, radius {win['radius']}", a, b,
+                           data_range=1.0, **win)
+    _, alone = compare_batch(f"f32 image 6 alone, radius {win['radius']}", a[6:7].contiguous(),
+                             b[6:7].contiguous(), data_range=1.0, **win)
+    for precise, g in got.items():
+        check(np.isnan(g[5]) and np.isfinite(np.delete(g, 5)).all()
+              and alone[precise][0] == g[6],
+              f"radius {win['radius']} NaN isolation (precise={precise}): scores {g}")
+    err = max(err, e)
+    n += 4
+    for shape in RELAXED_BATCH_RT_SHAPES:
+        a, b = pair(gen, shape)
+        for win in CUSTOM_WINDOWS:
+            name = f"relaxed kBatch u8 {shape} radius {win['radius']}"
+            kw = ssim_cuda._prepare(a, b, data_range=255.0, **win)
+            th, tw, ipb, groups = ssim_cuda.batch_geometry(*shape)
+            streams = int(ssim_cuda.stream_applies("batch", win["radius"], ssim_cuda.TILE_W,
+                                                   True, shape[0] * shape[1] * shape[2],
+                                                   width=shape[2]))
+            before = (ssim_cuda.STREAM_LAUNCHES, ssim_cuda.RELAXED_LAUNCHES)
+            run = lambda: ssim_cuda.ssim_parts_batch_cuda(a, b, relaxed=True, **win)
+            rk = poisoned(run)
+            torch.cuda.synchronize()
+            check((ssim_cuda.STREAM_LAUNCHES, ssim_cuda.RELAXED_LAUNCHES)
+                  == (before[0] + streams, before[1] + 1),
+                  f"{name}: {ssim_cuda.STREAM_LAUNCHES - before[0]} streaming launches, "
+                  f"expected {streams}")
+            rel_err = max(rel_err, relaxed_batch_errors(name, a, b, lambda: rk, **win))
+            if not streams:
+                # The rule kept the tile body: the stream, pinned, is held too.
+                before = ssim_cuda.STREAM_LAUNCHES
+                rel_err = max(rel_err, relaxed_batch_errors(
+                    f"{name} pinned stream", a, b, lambda: poisoned(
+                        lambda: batch_stream_pinned(a, b, False, relaxed=True, **win)), **win))
+                check(ssim_cuda.STREAM_LAUNCHES == before + 1,
+                      f"{name}: the pinned stream did not stream")
+            body_err = max(body_err, relaxed_batch_errors(
+                f"{name} tile body", a, b, lambda: poisoned(lambda: ssim_cuda._launch(
+                    a, b, mode="batch", relaxed=True, tile_body=True, tile_h=th, tile_w=tw,
+                    ipb=ipb, groups=groups, **kw)), **win))
+            sk = ssim_cuda.ssim_parts_batch_cuda(a, b, **win)
+            torch.cuda.synchronize()
+            npix = shape[1] * shape[2]
+            gk, gs = (x[:, 0].double().cpu().numpy() / npix for x in (rk, sk))
+            an, bn = a[:16].cpu().numpy(), b[:16].cpu().numpy()
+            o = max(abs(gk[i] + 1.0 - reference.compute_ssim(an[i], bn[i], **win)[0])
+                    for i in range(16))
+            check(np.abs(gk - gs).max() > 0 and o <= RELAXED_ORACLE_GLOBAL,
+                  f"{name}: vs standard {np.abs(gk - gs).max():.3g}, vs oracle {o:.3g}")
+            n += 1
+    print(f"  custom windows (radii {[w['radius'] for w in CUSTOM_WINDOWS]}): {n} batch "
+          f"calls, each with the runtime-radius packed stream held (the wrapper's launch, or "
+          f"pinned where the measured rule keeps the tile body), outputs poisoned: the odd "
+          f"shapes of 8(a), an f32 NaN image at radius 16, the relaxed kBatch at W = 64 and "
+          f"40; largest error from the twin {err:.3g} (relaxed {rel_err:.3g}, its tile body "
+          f"{body_err:.3g})", flush=True)
+    return err
 
 
 BATCH_CONFIGS = [("32x32_b8192", (8192, 32, 32), False),
@@ -1873,6 +2013,10 @@ def phase_batch(gen, label):
         e, _ = compare_batch(f"u8 (4, 64, 64) {win}", a, b,
                              oracle=(ORACLE_GLOBAL, DOUBLE_GLOBAL), **win)
         err = max(err, e)
+    # Its own generator, so that every later phase draws the inputs it drew
+    # before these checks existed.
+    err_rt = batch_custom_windows(torch.Generator(device="cuda").manual_seed(BATCH_RT_SEED))
+    err = max(err, err_rt)
 
     # (b) The route: compute_ssim on NumPy u8 with no device, in both
     # tiers and with a tile pin; one ssim_loss step on an f32 batch.
@@ -2056,8 +2200,9 @@ def phase_batch(gen, label):
               f"{label}", flush=True)
         del a, b
         torch.cuda.empty_cache()
-    return dict(err=err, route=route, launches=launches, launches_stream=launches_stream,
-                losses=losses, step=route_step_ms, times=times)
+    return dict(err=err, err_rt=err_rt, route=route, launches=launches,
+                launches_stream=launches_stream, losses=losses, step=route_step_ms,
+                times=times)
 
 
 def ring_halo(x, lo, hi, rows, first, last):
@@ -2849,15 +2994,16 @@ def relaxed_comp_errors(name, a, b, pooled, run):
     return err
 
 
-def relaxed_batch_errors(name, a, b, run):
+def relaxed_batch_errors(name, a, b, run, **win):
     """run(): a relaxed kBatch launch on a, b, held against the relaxed
-    twin: per-image scores within the tier's global bound, NaN in the same
+    twin (at the window win: radius, sigma, k1, k2; radius 5 by default):
+    per-image scores within the tier's global bound, NaN in the same
     images, counts exact. On a mismatch it raises with relaxed_mismatch's
     account of the images; returns the global error."""
     dr = 1.0 if a.dtype == torch.float32 else 255.0
     out = run()
     torch.cuda.synchronize()
-    want = batch_twin(a, b, False, data_range=dr, relaxed=True)
+    want = batch_twin(a, b, False, data_range=dr, relaxed=True, **win)
     npix = a.shape[-1] * a.shape[-2]
     tol = max(RELAXED_TWIN_GLOBAL, 2 * RELAXED_TWIN_PIXEL / npix**0.5)
     gk, gp = out[:, 0].double() / npix, want[:, 0].double() / npix
@@ -5192,6 +5338,141 @@ def radius_relaxed_times(gen, label):
     return times, fwd_line, bwd_line
 
 
+# The batch modes at a runtime radius (phase 15d): compute_ssim on the
+# routed batch at RT_MAIN_RADII, one ssim_loss step at RT_LINE_RADIUS, then
+# times (tools/fwd_times.batch_radius_times) at fwd_times.RADII.
+RT_BATCH_SHAPE = (4096, 64, 64)
+RT_BATCH_STEP_SHAPE = (256, 64, 64)
+
+
+def batch_rt_bound(shape, radius, precise=False, relaxed=False, itemsize=1):
+    """The bound of a batch launch on (B, H, W) inputs of itemsize bytes at
+    radius: one partial pair per image (f32, f64 in kBatchPrecise)."""
+    if precise:
+        return precise_bound(shape, itemsize, radius=radius, out_bytes=16 * shape[0])
+    if relaxed:
+        return relaxed_fwd_bound(shape, itemsize, radius, out_bytes=8 * shape[0])
+    return fwd_bound(shape, itemsize, radius=radius, out_bytes=8 * shape[0])
+
+
+def radius_batch(gen, label):
+    """15d: the batch route with a custom window, every plain twin made to
+    raise (no_plain_twins) while the calls run: compute_ssim on NumPy u8
+    RT_BATCH_SHAPE (the routed batch) at RT_MAIN_RADII in the standard,
+    f64 and relaxed tiers, counts from 0 (one batch launch each, on the
+    runtime-radius packed stream but where the measured rule,
+    ssim_cuda.STREAM_BATCH_TILE_RADII, keeps the tile body; phase 8(a)
+    holds the stream there), the scores against the twin; one
+    ssim_loss Adam step on f32 RT_BATCH_STEP_SHAPE at RT_LINE_RADIUS, its
+    forward launch (outputs poisoned, captured) against the twin; then the
+    stream and the tile body in turns (tools/fwd_times.batch_radius_times)
+    at fwd_times.RADII beside each bound, and the twin's time at
+    RT_LINE_RADIUS. Returns a dict: launches, calls, err, times, line."""
+    import ssim_tpu_torch
+    from ssim_tpu_torch.ops import ssim_cuda
+    from ssim_tpu_torch.tools import fwd_times
+
+    sigma = fwd_times.RADIUS_SIGMA.__getitem__
+    a, b = pair(gen, RT_BATCH_SHAPE)
+    a_np, b_np = a.cpu().numpy(), b.cpu().numpy()
+    npix = RT_BATCH_SHAPE[1] * RT_BATCH_SHAPE[2]
+    launches, calls, err = 0, {}, 0.0
+    tiers = (("standard", {}, "batch", False), ("f64", dict(precision="f64"), "batch_precise",
+                                                 False),
+             ("relaxed", dict(accuracy="relaxed"), "relaxed", True))
+    for radius in RT_MAIN_RADII:
+        win = dict(radius=radius, sigma=sigma(radius))
+        for tier, extra, counter, relaxed in tiers:
+            # The measured rule (stream_applies) decides stream or tile body.
+            streams = int(ssim_cuda.stream_applies(
+                "batch_precise" if tier == "f64" else "batch", radius, ssim_cuda.TILE_W,
+                relaxed, int(np.prod(RT_BATCH_SHAPE)), width=RT_BATCH_SHAPE[2]))
+            want_counts = counts_of_nonzero(**{counter: 1}, stream=streams)
+            zero_counts()
+            with no_plain_twins():
+                got = ssim_tpu_torch.compute_ssim(a_np, b_np, **win, **extra)
+            counts = {k: v for k, v in launch_counts().items() if v}
+            check(counts == want_counts,
+                  f"batch compute_ssim radius {radius} {tier}: launches {counts}, expected "
+                  f"{want_counts}")
+            launches += streams
+            calls[f"r{radius} {tier}"] = counts
+            g_twin = scores(batch_twin(a, b, tier == "f64", relaxed=tier == "relaxed",
+                                       **win), npix)
+            got = np.asarray(got, np.float64)
+            e = float(np.abs(got - g_twin).max())
+            tol = (PRECISE_REL * float(np.abs(g_twin).max()) if tier == "f64" else
+                   max(RELAXED_TWIN_GLOBAL, 2 * RELAXED_TWIN_PIXEL / npix**0.5)
+                   if tier == "relaxed" else TWIN_GLOBAL)
+            check(got.shape == (RT_BATCH_SHAPE[0],) and e <= tol,
+                  f"batch compute_ssim radius {radius} {tier}: {e:.3g} from the twin "
+                  f"(tol {tol:.3g})")
+            err = max(err, e)
+    # One training step with a custom window on the batch route.
+    radius = RT_LINE_RADIUS
+    clean = torch.rand(RT_BATCH_STEP_SHAPE, generator=gen, device="cuda")
+    noisy = (clean + 0.15 * torch.randn(RT_BATCH_STEP_SHAPE, generator=gen,
+                                        device="cuda")).clamp_(0, 1)
+    x = noisy.clone().requires_grad_()
+    opt = torch.optim.Adam([x], lr=0.02)
+    zero_counts()
+    with no_plain_twins():
+        loss, seen = captured(ssim_cuda, lambda: ssim_tpu_torch.ssim_loss(
+            x, clean, radius=radius, sigma=sigma(radius)))
+        loss.backward()
+        opt.step()
+    counts = {k: v for k, v in launch_counts().items() if v}
+    with torch.no_grad():
+        after = ssim_tpu_torch.ssim_loss(x.clamp(0.0, 1.0), clean, radius=radius,
+                                         sigma=sigma(radius))
+    losses = [float(loss.detach()), float(after)]
+    streams = int(ssim_cuda.stream_applies("batch", radius, ssim_cuda.TILE_W, False,
+                                           int(np.prod(RT_BATCH_STEP_SHAPE)), True,
+                                           RT_BATCH_STEP_SHAPE[2]))
+    check(counts == counts_of_nonzero(batch=1, backward=1, stream=streams) and len(seen) == 1
+          and bool(torch.isfinite(x.grad).all()) and losses[1] < losses[0],
+          f"batch ssim_loss step radius {radius}: launches {counts}, losses {losses}")
+    args, kw, got, _ = seen[0]
+    check(kw["mode"] == "batch" and len(kw["taps"]) == 2 * radius + 1,
+          f"batch ssim_loss step: its launch {kw['mode']} at {len(kw['taps']) // 2}")
+    step_npix = RT_BATCH_STEP_SHAPE[1] * RT_BATCH_STEP_SHAPE[2]
+    e = float(np.abs(scores(got, step_npix) - scores(batch_twin(
+        args[0], args[1], False, data_range=1.0, radius=radius, sigma=sigma(radius)),
+        step_npix)).max())
+    check(e <= TWIN_GLOBAL, f"batch ssim_loss step radius {radius}: vs twin {e:.3g}")
+    err = max(err, e)
+    launches += streams
+    calls[f"ssim_loss r{radius}"] = counts
+    print(f"  batch route, radius != 5: compute_ssim NumPy u8 {RT_BATCH_SHAPE} at radii "
+          f"{RT_MAIN_RADII} (standard, f64, relaxed) and an ssim_loss step on f32 "
+          f"{RT_BATCH_STEP_SHAPE} at radius {radius} (1-SSIM {losses[0]:.6f} -> "
+          f"{losses[1]:.6f}), the twins made to raise: {launches} runtime-radius packed "
+          f"stream launches, largest error from the twin {err:.3g}; {calls}", flush=True)
+    del x, opt, clean, noisy, seen, args, got
+
+    ms = {}
+    fwd_times.batch_radius_times(gen, ms, radii=fwd_times.RADII)
+    times = {}
+    for name, shape, precise, relaxed, f32 in fwd_times.BATCH_RADIUS_CASES:
+        for radius in fwd_times.RADII:
+            bnd, by = batch_rt_bound(shape, radius, precise, relaxed, 4 if f32 else 1)
+            key = f"{name} r{radius}"
+            times[key] = dict(ms=ms[key], tile_body_ms=ms[f"{key} tile body"],
+                              pack=ms[f"{key} pack"], bound_ms=bnd, bound_by=by,
+                              shape=list(shape))
+            print(f"  {key}: stream {ms[key]:.4f} ms, tile body {ms[f'{key} tile body']:.4f} "
+                  f"ms (stream / tile body {ms[key] / ms[f'{key} tile body']:.3f}), bound "
+                  f"{bnd:.4f} ms ({by}) | {label}", flush=True)
+    line = dict(times[f"kBatch 64x64_b4096 r{RT_LINE_RADIUS}"], radius=RT_LINE_RADIUS)
+    win = dict(radius=RT_LINE_RADIUS, sigma=sigma(RT_LINE_RADIUS))
+    line["plain_ms"] = cuda_ms(lambda: batch_twin(a, b, False, **win), 3)
+    print(f"  kBatch 64x64_b4096 r{RT_LINE_RADIUS}: twin {line['plain_ms']:.3f} ms", flush=True)
+    del a, b
+    torch.cuda.empty_cache()
+    return dict(launches=launches, calls=calls, err=err, times=times, line=line,
+                losses=losses)
+
+
 def phase_radius(gen, label):
     """Phase 15: (a) the runtime-radius instantiation in all eight modes at
     every radius 1-16 but 5 against the twins, outputs poisoned, at the
@@ -5207,7 +5488,10 @@ def phase_radius(gen, label):
     (tools/fwd_times.radius_times) beside each bound, and the twin's time
     at RT_LINE_RADIUS. The relaxed tier likewise (radius_relaxed_kernels,
     radius_relaxed_path, radius_relaxed_times): its forward modes and K3
-    at a runtime radius, the main path's relaxed custom windows, times."""
+    at a runtime radius, the main path's relaxed custom windows, times;
+    (d) the batch modes on the runtime-radius packed stream (radius_batch;
+    their kernels are held in phase 8(a)): the batch route's public calls
+    with custom windows, times."""
     import ssim_tpu_torch
     from ssim_tpu_torch.ops import ssim_cuda
     from ssim_tpu_torch.tools import fwd_times
@@ -5375,11 +5659,12 @@ def phase_radius(gen, label):
     del a, b
     torch.cuda.empty_cache()
     rel_times, rel_fwd_line, rel_bwd_line = radius_relaxed_times(gen, label)
+    batch = radius_batch(gen, label)
     seconds = time.perf_counter() - t0
     print(f"  phase 15: {seconds:.1f} s", flush=True)
     return dict(err=err, launches=launches, calls=calls, times=times, line=line,
                 checked=checked, body_err=body_err, body_checked=body_checked,
-                seconds=seconds, relaxed=dict(
+                seconds=seconds, batch=batch, relaxed=dict(
                     err=max(rel_err, rel_path_err), body_err=rel_body_err,
                     grad_err=max(rel_grad_err, rel_path_grad_err),
                     checked=rel_checked, launches_fwd=rel_fwd, launches_bwd=rel_bwd,
@@ -5603,7 +5888,10 @@ def main():
         "name": "ssim_fwd_batch",
         "route": "cuda",
         "source": "ssim_tpu_torch/csrc/ssim_fwd_batch.cu",
+        "header": "ssim_tpu_torch/csrc/fwd_batch_kernel.cuh",
         "design": BATCH_STREAM_DESIGN,
+        "runtime_radius": "ssim_fwd_batch_rt",
+        "launches_rt": radius["batch"]["launches"],
         "replaces": "ssim_tpu/ops/ssim_pallas.py:710 (K1 mode e, colsum/pchunk), "
                     "tools/probe_bpack.py:56 (K5)",
         "launches": batch["launches"],
@@ -5789,6 +6077,24 @@ def main():
         "tile_body_checked_launches": radius["body_checked"],
         "tile_body_max_abs_err": radius["body_err"],
         "times": radius["times"],
+    }, {
+        "name": "ssim_fwd_batch_rt",
+        "route": "cuda",
+        "source": "ssim_tpu_torch/csrc/ssim_fwd_batch_rt.cu",
+        "header": "ssim_tpu_torch/csrc/fwd_batch_kernel.cuh",
+        "design": RT_BATCH_DESIGN,
+        "replaces": "ssim_tpu/ops/ssim_pallas.py:710 (K1 mode e, colsum/pchunk, driven by "
+                    "ssim_parts_pallas_bpacked :2334; relaxed :2284-2291), a custom window: "
+                    "radius 1-16 but 5",
+        "launches": radius["batch"]["launches"],
+        "launches_by_call": radius["batch"]["calls"],
+        "max_abs_err": max(radius["batch"]["err"], batch["err_rt"]),
+        **{k: radius["batch"]["line"][k]
+           for k in ("ms", "plain_ms", "bound_ms", "bound_by", "shape", "tile_body_ms",
+                     "pack", "radius")},
+        "library_ms": None,
+        "loss": radius["batch"]["losses"],
+        "times": radius["batch"]["times"],
     }, {
         "name": "ssim_fwd_stream_rt_relaxed",
         "route": "cuda",

@@ -1,8 +1,8 @@
 // The row stream's constants and steps: the strip, the staged row, the
 // symmetric blurs of steps (b) and (c), the warp sum and the formulas.
-// Included by ssim_fwd.cu (ssim_fwd_stream_kernel, the main-path modes) and
-// ssim_fwd_batch.cu (ssim_fwd_batch_stream_kernel, the batch modes), each a
-// translation unit of its own.
+// Included by fwd_stream_kernel.cuh (ssim_fwd_stream_kernel, the main-path
+// modes) and fwd_batch_kernel.cuh (ssim_fwd_batch_stream_kernel, the batch
+// modes), and through them by each translation unit of the forward.
 #pragma once
 
 #include "band_mma.cuh"

@@ -62,15 +62,18 @@
 //   pair per image, [sum(ssim - 1), n = H*W], f32 in kBatch (the JAX
 //   contract's (B, 2)) and f64 in kBatchPrecise (where the TPU writes
 //   (B, 3) [hi, lo, n]; both are summed in f64 by the finalize). Each
-//   pixel's SSIM is kScore's (kPrecise's) bit for bit. At radius 5 both
-//   run the packed row stream (ssim_fwd_batch_stream_kernel in
-//   ssim_fwd_batch.cu, one block a strip of a packed row): the
+//   pixel's SSIM is kScore's (kPrecise's) bit for bit. At every radius
+//   both run the packed row stream (ssim_fwd_batch_stream_kernel,
+//   fwd_batch_kernel.cuh: ssim_fwd_batch.cu at radius 5,
+//   ssim_fwd_batch_rt.cu at the others; one block a strip of a packed
+//   row): the
 //   TPU packs p images along one lane row and folds their borders into
 //   block-diagonal tap matrices; here k images lie side by side in a
 //   packed row cut into 128-column strips, and each image's piece of a
 //   strip is staged with its own clamped columns; the relaxed kBatch too
-//   (its heavy blurs as band products, ssim_fwd_batch.cu). Other radii
-//   keep the tile body: it runs over each image's own grid of
+//   (its heavy blurs as band products). The tile body, which a pinned
+//   launch still reaches (_launch(tile_body=True)), runs over each
+//   image's own grid of
 //   tiles, with a tile width the wrapper picks from the image width
 //   (8..64), and a block walks its tiles in series: `ipb` whole images, or
 //   one of `groups` runs of one image's tiles. Each tile's sum is reduced
@@ -106,9 +109,9 @@
 //   at the bf16 tensor-core rate (counted in chip_smoke.py). kScore, kMap,
 //   kComponents and kPooled stream rows at every radius
 //   (ssim_fwd_stream_kernel, below; radius 5 in registers, the others in
-//   ssim_fwd_stream_rt_relaxed.cu), and kBatch streams packed rows at radius
-//   5 (ssim_fwd_batch.cu); kBatch at other radii and tile_w 256 run the tile
-//   body, which makes
+//   ssim_fwd_stream_rt_relaxed.cu), and kBatch streams packed rows at every
+//   radius (ssim_fwd_batch.cu, ssim_fwd_batch_rt.cu); tile_w 256 runs the
+//   tile body, which makes
 //   the split in registers as each k-step of data is loaded, once per
 //   sweep, and so adds no shared memory (three blocks per SM, as the
 //   standard modes), and whose relaxed mu pass loads as many shared-memory
@@ -177,9 +180,9 @@
 // radius 1-16; the relaxed ones lose at some radii, mostly kPooled on u8,
 // where stream_applies keeps the tile body: STREAM_RELAXED_TILE_RADII,
 // PERF.md). kBatch (either
-// tier) and kBatchPrecise at radius kStreamR run its steps (b)-(d) over
-// packed rows of images (ssim_fwd_batch_stream_kernel, ssim_fwd_batch.cu);
-// the batch modes at other radii and tile_w 256 keep the tile body
+// tier) and kBatchPrecise run its steps (b)-(d) over packed rows of images
+// at every radius (ssim_fwd_batch_stream_kernel, fwd_batch_kernel.cuh);
+// tile_w 256 keeps the tile body
 // (ops/ssim_cuda.py::stream_applies states the rule; the components and
 // pooled modes stream only from 2^20 pixels a launch, STREAM_COMP_MIN_PIX,
 // relaxed from 2^22, STREAM_RELAXED_COMP_MIN_PIX: below them a block's

@@ -152,15 +152,15 @@ def load_library() -> ctypes.CDLL:
             ]
             lib.ssim_fwd_launch.restype = i
             # The batch modes' packed stream: precise, relaxed, is_float, a,
-            # b, partials, pieces (or NULL), B, H, W, k, segment rows, taps,
-            # c1, c2, clip_bound, stream.
+            # b, partials, pieces (or NULL), B, H, W, k, segment rows, r,
+            # taps, c1, c2, clip_bound, stream.
             lib.ssim_fwd_batch_launch.argtypes = [
-                i, i, i, p, p, p, p, i, i, i, i, i, p, d, d, f, p,
+                i, i, i, p, p, p, p, i, i, i, i, i, i, p, d, d, f, p,
             ]
             lib.ssim_fwd_batch_launch.restype = i
-            # precise, relaxed, is_float, out: blocks per SM of the batch
-            # stream.
-            lib.ssim_fwd_batch_occupancy.argtypes = [i, i, i, ctypes.POINTER(i)]
+            # precise, relaxed, is_float, r, W, k, out: blocks per SM of the
+            # batch stream at radius r for W-wide images packed k to a row.
+            lib.ssim_fwd_batch_occupancy.argtypes = [i, i, i, i, i, i, ctypes.POINTER(i)]
             lib.ssim_fwd_batch_occupancy.restype = i
             # mode, relaxed, is_float, r, out: blocks per SM of the
             # streaming forward at radius r.

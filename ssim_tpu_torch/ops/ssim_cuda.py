@@ -57,12 +57,15 @@ STREAM_RADIUS its window of 2r + 1 rows is in registers, at other radii
 in a ring in shared memory (ssim_fwd_stream_rt.cu, relaxed
 ssim_fwd_stream_rt_relaxed.cu). Every other mode, radius and tile runs the
 tile body, one block per tile.
-Both batch modes at radius STREAM_RADIUS (and the relaxed kBatch) run a packed
-variant of the row stream: images side by side in packed rows cut into
-strips (`batch_pack`), a block walking one strip of a packed row, down
-all its rows or a segment of them (`batch_stream_plan`,
-`batch_stream_blocks`); other radii walk each image's own grid of
-narrower tiles inside a tile-body block (`batch_geometry`).
+Both batch modes (and the relaxed kBatch) run a packed variant of the
+row stream at every radius to MAX_FUSED_RADIUS (ssim_fwd_batch.cu at
+STREAM_RADIUS, ssim_fwd_batch_rt.cu at the others): images side by side
+in packed rows cut into strips (`batch_pack`), a block walking one strip
+of a packed row, down all its rows or a segment of them
+(`batch_stream_plan`, `batch_stream_blocks`), but at the radii where the
+tile body's batch branch, each image's own grid of narrower tiles inside
+a tile-body block (`batch_geometry`), was measured faster
+(`STREAM_BATCH_TILE_RADII`).
 
 Each wrapper launches the kernel for CUDA tensors and runs its plain twin
 for CPU tensors, the counterpart of "compiled on TPU, interpreted
@@ -138,16 +141,17 @@ STREAM_LAUNCHES = 0
 #: relaxed, the modes STREAM_RELAXED_MODES at every radius as well (the
 #: heavy horizontal blurs as band products, two rows every other stream row;
 #: other radii than STREAM_RADIUS in ssim_fwd_stream_rt_relaxed.cu; the
-#: relaxed batch mode on the packed stream, at STREAM_RADIUS only).
+#: relaxed batch mode on the packed stream, at every radius as well).
 STRIP_W = 128
 MAX_SEG_TILES = 16
 STREAM_RADIUS = 5
 STREAM_MODES = ("score", "map", "rowsum", "rowsum_map", "precise", "precise_map",
                 "components", "pooled")
 STREAM_RELAXED_MODES = ("score", "map", "components", "pooled", "batch")
-#: The batch modes, which stream packed rows at STREAM_RADIUS (kBatch in
+#: The batch modes, which stream packed rows at every radius (kBatch in
 #: both tiers, kBatchPrecise) whatever the batch tile
-#: (ssim_fwd_batch.cu ssim_fwd_batch_stream_kernel).
+#: (ssim_fwd_batch_stream_kernel: ssim_fwd_batch.cu at STREAM_RADIUS,
+#: ssim_fwd_batch_rt.cu's runtime radius at the others).
 STREAM_BATCH_MODES = ("batch", "batch_precise")
 #: Rows' worth of fixed cost per block in stream_segment's model (launch,
 #: prologue and the NaN check).
@@ -198,6 +202,53 @@ STREAM_RELAXED_TILE_RADII = {
     ("pooled", True): (2, 15, 16),
 }
 
+#: The width classes of the batch rule (STREAM_BATCH_TILE_RADII): a batch
+#: of width w takes the class of the first edge at or above w, the last
+#: above them all. The edges are the tile body's tile widths
+#: (batch_geometry: 8 or 16, 32, 64 and 128 columns, two tiles a row from
+#: 129 to PACK_MAX_W), which set how full its tiles are and so its cost.
+BATCH_RULE_WIDTHS = (16, 32, 64, 128, 192)
+
+
+def batch_width_class(w: int) -> int:
+    """The class of the batch rule that a batch of width w reads: the first
+    of BATCH_RULE_WIDTHS at or above w, the last above them all."""
+    return next((e for e in BATCH_RULE_WIDTHS if w <= e), BATCH_RULE_WIDTHS[-1])
+
+
+#: The radii at which a routed batch launch (stream_applies given its size
+#: and width) keeps the tile body's batch branch, by (mode, relaxed, f32
+#: input, width class), where the runtime-radius packed stream
+#: (ssim_fwd_batch_rt.cu) serves it but took at least the tile body's time
+#: at some measured width of the class. Measured on an H100
+#: (`tools/fwd_times.py --batch --radii`: stream and tile body in turns,
+#: the lower of two runs each, radii 1-16, every mode on u8 and f32 at 14
+#: widths from 8 to 192, batch_tile_rule; PERF.md §6), the stream's time
+#: over the tile body's: kBatch 0.31-0.96x but 1.04-1.06x at 32x32 r = 16;
+#: kBatchPrecise 0.38-0.99x at widths 40-192 but 1.04-1.06x at 64x64 r =
+#: 13-16 (u8) and 1.05x at 120x120 r = 12, 0.37-0.99x at 8-24 but 1.00-1.40x
+#: at radii 7, 8 and 11-16, 0.95-1.54x at 32x32 (the tile body's tiles
+#: full); the relaxed kBatch 0.26-0.92x at 8-16, 40 and 48, 1.03-1.05x at
+#: 24x24 r = 13-15, 0.70-1.38x at 32, 64 and 96-192.
+STREAM_BATCH_TILE_RADII = {
+    ("batch", False, False, 32): (16,),
+    ("batch", False, True, 32): (16,),
+    ("batch_precise", False, False, 16): (7, 8, 11, 12, 13, 14, 15, 16),
+    ("batch_precise", False, True, 16): (7, 8, 11, 12, 13, 14, 15, 16),
+    ("batch_precise", False, False, 32): (2, 3, 4, 6, 7, 8, 9, 10, 11, 12, 13, 14, 15, 16),
+    ("batch_precise", False, True, 32): (2, 3, 4, 6, 7, 8, 9, 10, 12, 13, 14, 15, 16),
+    ("batch_precise", False, False, 64): (13, 14, 15, 16),
+    ("batch_precise", False, False, 128): (12,),
+    ("batch", True, False, 32): (6, 7, 8, 10, 11, 12, 13, 14, 15, 16),
+    ("batch", True, True, 32): (14, 15),
+    ("batch", True, False, 64): (1, 2, 3, 4, 6, 7, 10, 11, 12, 13, 14, 15, 16),
+    ("batch", True, True, 64): (2, 4, 6, 7, 14, 15),
+    ("batch", True, False, 128): (1, 2, 3, 4, 6, 7, 8, 9, 10, 11, 12, 13, 14, 15, 16),
+    ("batch", True, True, 128): (1, 2, 3, 4, 6, 7, 10, 11, 12, 14, 15, 16),
+    ("batch", True, False, 192): (2, 3, 4, 6, 7, 14, 15, 16),
+    ("batch", True, True, 192): (6, 7, 14, 15, 16),
+}
+
 #: The JAX package's width gate of the relaxed tier (ssim_pallas.py:115,
 #: copied): the tile grid runs the relaxed mode at widths >= MXU_MIN_W and
 #: the standard one below it; the batch route always runs it (JAX applies
@@ -223,7 +274,7 @@ BATCH_MAX_PIECES = 12
 #: an H100 (PERF.md).
 _BATCH_BLOCK_OVERHEAD_ROWS = 2
 
-#: The tile body's batch tiles (the batch modes at other radii): the
+#: The tile body's batch tiles (STREAM_BATCH_TILE_RADII, or pinned): the
 #: tile grid's area, whose shared memory (68 KB at radius 5) lets three
 #: blocks share an SM.
 _BATCH_TILE_AREA = TILE_H * TILE_W
@@ -287,10 +338,11 @@ def pack_preferred(w: int, batch: int, itemsize: int = 1) -> bool:
 
 
 def batch_geometry(batch: int, h: int, w: int):
-    """The tile body's batch launch for a (batch, h, w) input, which radii
-    other than STREAM_RADIUS keep (the batch modes at STREAM_RADIUS, in
-    every tier, stream packed rows: batch_stream_plan): (tile_h, tile_w,
-    images per block, runs per image). The tile is as wide as the image
+    """The tile body's batch launch for a (batch, h, w) input, which runs
+    at the radii STREAM_BATCH_TILE_RADII names and where _launch pins the
+    tile body (the batch modes stream packed rows at the others, in every
+    tier: batch_stream_plan): (tile_h, tile_w, images per block, runs per
+    image). The tile is as wide as the image
     rounded up to a power of two in [8, TILE_W], so a narrow image leaves
     few of a block's threads idle, and holds _BATCH_TILE_AREA pixels (fewer
     for a short image). A block walks about batch * tiles / _BATCH_BLOCKS
@@ -307,7 +359,8 @@ def batch_geometry(batch: int, h: int, w: int):
 
 
 def stream_applies(mode: str, radius: int, tile_w: int, relaxed: bool = False,
-                   npix: Optional[int] = None, is_float: bool = False) -> bool:
+                   npix: Optional[int] = None, is_float: bool = False,
+                   width: Optional[int] = None) -> bool:
     """Whether a launch in `mode` runs the row-streaming kernel, else the
     tile body: the standard tier's score, map and row modes (with or
     without halo operands), the precise tier's score and map modes and the
@@ -316,9 +369,12 @@ def stream_applies(mode: str, radius: int, tile_w: int, relaxed: bool = False,
     (STREAM_RELAXED_MODES), at every radius the fused kernel serves (1 to
     MAX_FUSED_RADIUS), each with a tile 32 to STRIP_W columns wide; the
     batch modes (STREAM_BATCH_MODES, kBatch in both tiers and
-    kBatchPrecise) at radius STREAM_RADIUS whatever tile_w (their packed
-    stream has no tile). The batch modes at other radii, and the others at
-    a tile_w of 256, run the tile body. npix: the launch's B * H * W; the
+    kBatchPrecise) at every radius 1 to MAX_FUSED_RADIUS whatever tile_w
+    (their packed stream has no tile), but given the launch's size and its
+    images' width at the radii STREAM_BATCH_TILE_RADII names for its
+    (mode, relaxed, input dtype, batch_width_class(width)), where the
+    batch tile body was measured faster. The others at a
+    tile_w of 256 run the tile body. npix: the launch's B * H * W; the
     components and pooled modes stream only from STREAM_COMP_MIN_PIX
     pixels (at msssim_1080_b4 scales 0 and 1; scales 2-4 run the tile
     body, measured faster there), relaxed from STREAM_RELAXED_COMP_MIN_PIX
@@ -328,7 +384,12 @@ def stream_applies(mode: str, radius: int, tile_w: int, relaxed: bool = False,
     None: the rule without these conditions, which a pinned segment asks
     for."""
     if mode in STREAM_BATCH_MODES:
-        return radius == STREAM_RADIUS and (not relaxed or mode in STREAM_RELAXED_MODES)
+        if npix is not None and width is None:
+            raise ValueError("the batch modes' rule reads the images' width")
+        if npix is not None and radius in STREAM_BATCH_TILE_RADII.get(
+                (mode, relaxed, is_float, batch_width_class(width)), ()):
+            return False
+        return 1 <= radius <= MAX_FUSED_RADIUS and (not relaxed or mode in STREAM_RELAXED_MODES)
     least = STREAM_RELAXED_COMP_MIN_PIX if relaxed else STREAM_COMP_MIN_PIX
     if npix is not None and mode in ("components", "pooled") and npix < least:
         return False
@@ -395,25 +456,26 @@ def batch_pack(batch: int, w: int) -> int:
 
 
 @functools.lru_cache(maxsize=256)
-def batch_stream_plan(batch: int, h: int, w: int, resident: int):
-    """The batch modes' packed stream for (batch, h, w) with `resident`
-    blocks on the card at once (its SMs times the kernel's occupancy):
-    (k images a packed row, segment rows). Each block takes one strip of
-    one packed row, down all its rows, or, where the packed rows alone give
-    fewer blocks than the card holds, down a segment of them (a multiple of
-    TILE_H). The choice minimises the waves of resident blocks, counted as
-    a fraction (the card starts a block as another ends) but at least one,
-    times a block's rows (its output rows plus 2r) plus a fixed cost."""
-    r = STREAM_RADIUS
+def batch_stream_plan(batch: int, h: int, w: int, resident: int,
+                      radius: int = STREAM_RADIUS):
+    """The batch modes' packed stream for (batch, h, w) at `radius` with
+    `resident` blocks on the card at once (its SMs times the kernel's
+    occupancy at that radius): (k images a packed row, segment rows). Each
+    block takes one strip of one packed row, down all its rows, or, where
+    the packed rows alone give fewer blocks than the card holds, down a
+    segment of them (a multiple of TILE_H). The choice minimises the waves
+    of resident blocks, counted as a fraction (the card starts a block as
+    another ends) but at least one, times a block's rows (its output rows
+    plus 2r) plus a fixed cost."""
     k = batch_pack(batch, w)
     blocks = -(-batch // k) * -(-(k * w) // STRIP_W)
 
     def cost(nseg, rows):
         return max(1.0, blocks * nseg / resident) * (rows + _BATCH_BLOCK_OVERHEAD_ROWS)
 
-    best = (cost(1, h + 2 * r), h)
+    best = (cost(1, h + 2 * radius), h)
     for seg in range(TILE_H, h, TILE_H):
-        c = cost(-(-h // seg), seg + 2 * r)
+        c = cost(-(-h // seg), seg + 2 * radius)
         if c < best[0]:
             best = (c, seg)
     return k, best[1]
@@ -453,13 +515,15 @@ def batch_stream_blocks(batch: int, h: int, w: int, k: int, seg: int):
 
 @functools.lru_cache(maxsize=256)
 def _stream_resident(index: int, mode: str, is_float: bool, relaxed: bool = False,
-                     radius: int = STREAM_RADIUS) -> int:
+                     radius: int = STREAM_RADIUS, w: int = 1, k: int = 1) -> int:
     """Streaming-kernel blocks that card `index` holds at once in `mode`
     at `radius` (relaxed: its relaxed instantiation; the batch modes: their
-    packed stream, relaxed or not; another radius than STREAM_RADIUS: the
-    runtime-radius instantiation with its ring's shared memory at that
-    radius): its SMs times the CUDA runtime's occupancy for the
-    instantiation (ssim_fwd_stream_occupancy, ssim_fwd_batch_occupancy)."""
+    packed stream, relaxed or not, for images of width w packed k to a
+    row, which size the runtime-radius instantiation's staged rows; another
+    radius than STREAM_RADIUS: the runtime-radius instantiation with its
+    shared memory at that radius): its SMs times the CUDA runtime's
+    occupancy for the instantiation (ssim_fwd_stream_occupancy,
+    ssim_fwd_batch_occupancy)."""
     from . import _build
 
     n = ctypes.c_int(0)
@@ -467,7 +531,8 @@ def _stream_resident(index: int, mode: str, is_float: bool, relaxed: bool = Fals
     with torch.cuda.device(index):
         if mode in STREAM_BATCH_MODES:
             err = lib.ssim_fwd_batch_occupancy(int(mode == "batch_precise"), int(relaxed),
-                                               int(is_float), ctypes.byref(n))
+                                               int(is_float), int(radius), int(w), int(k),
+                                               ctypes.byref(n))
         else:
             err = lib.ssim_fwd_stream_occupancy(
                 _MODES.index(mode), int(relaxed), int(is_float), int(radius), ctypes.byref(n))
@@ -869,7 +934,8 @@ def _launch(a, b, *, mode, taps, c1, c2, clip_bound, tile_h, tile_w, ipb=1,
     pinned segment runs it wherever stream_applies without the size
     condition; the tile body takes no segment. The batch modes' packed
     stream takes `pack` = (k, segment rows) in place of a segment
-    (batch_stream_plan's choice if None). tile_body: run the tile body
+    (batch_stream_plan's choice if None), and a pinned pack runs it as a
+    pinned segment does. tile_body: run the tile body
     whatever stream_applies says (to time or check the two designs side by
     side).
     Returns the mode's outputs: (partials, map or None) (partials f64 in
@@ -892,8 +958,8 @@ def _launch(a, b, *, mode, taps, c1, c2, clip_bound, tile_h, tile_w, ipb=1,
     if tile_body and (segment is not None or pack is not None):
         raise ValueError("the tile body takes no segment or pack")
     stream = not tile_body and stream_applies(mode, r, tile_w, relaxed,
-                                              None if segment else bsz * h * w,
-                                              a.dtype == torch.float32)
+                                              None if segment or pack else bsz * h * w,
+                                              a.dtype == torch.float32, w)
     if batch and segment is not None:
         raise ValueError("the batch modes' stream takes a pack, not a segment")
     if pack is not None and not (batch and stream):
@@ -1006,15 +1072,17 @@ def _launch_tile_or_stream(lib, a, b, *, mode, taps, c1, c2, clip_bound, tile_h,
 
 def _launch_batch_stream(lib, a, b, precise, relaxed, taps, c1, c2, clip_bound, pack):
     """_launch's call of ssim_fwd_batch_launch: the batch modes' packed
-    stream (relaxed: the relaxed kBatch's) with pack = (k, segment rows),
-    batch_stream_plan's choice at the instantiation's occupancy if None.
-    Returns the (B, 2) partials; raises if the plan is out of range or the
-    C entry refuses the launch."""
+    stream (relaxed: the relaxed kBatch's) at the taps' radius with pack =
+    (k, segment rows), batch_stream_plan's choice at the instantiation's
+    occupancy if None. Returns the (B, 2) partials; raises if the plan is
+    out of range or the C entry refuses the launch."""
     bsz, h, w = a.shape
+    r = len(taps) // 2
     is_float = a.dtype == torch.float32
     mode = "batch_precise" if precise else "batch"
     k, seg = pack or batch_stream_plan(
-        bsz, h, w, _stream_resident(a.device.index, mode, is_float, relaxed))
+        bsz, h, w, _stream_resident(a.device.index, mode, is_float, relaxed, r, w,
+                                    batch_pack(bsz, w)), r)
     if not (1 <= k <= bsz and 1 <= seg <= h):
         raise ValueError(f"batch stream plan {(k, seg)} out of range for {(bsz, h, w)}")
     _check_taps(taps, precise)
@@ -1027,12 +1095,13 @@ def _launch_batch_stream(lib, a, b, precise, relaxed, taps, c1, c2, clip_bound, 
         err = lib.ssim_fwd_batch_launch(
             int(precise), int(relaxed), int(is_float), a.data_ptr(), b.data_ptr(),
             partials.data_ptr(),
-            None if pieces is None else pieces.data_ptr(), bsz, h, w, k, seg,
+            None if pieces is None else pieces.data_ptr(), bsz, h, w, k, seg, r,
             ctypes.cast(taps_c, ctypes.c_void_p), c1, c2, clip_bound,
             torch.cuda.current_stream(a.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"ssim_fwd kernel ({mode}{', relaxed' if relaxed else ''}, packed "
-                           f"stream, k {k}, segment {seg}) failed with CUDA error {err}")
+                           f"stream, radius {r}, k {k}, segment {seg}) failed with CUDA "
+                           f"error {err}")
     return partials
 
 
@@ -1421,17 +1490,21 @@ def ssim_parts_batch_cuda(
     package applies it to the packed row); it excludes precise. On a CUDA
     tensor the kernel is launched; on a CPU tensor the plain twin runs.
 
-    The design (stream_applies): at radius STREAM_RADIUS, in either tier,
-    the packed row stream (relaxed: its heavy blurs as band products). Images lie k to a packed row (batch_pack: 4 at W =
-    32, 2 at 64 and 192, 1 at 128), cut into STRIP_W-column strips, each
-    image's piece of a strip blurred from its own clamped columns; a block
-    takes a strip of one packed row, down all its rows or a segment of them
-    (batch_stream_plan); each image's sum is its columns' sums
-    reduced in a fixed order, by one block or, where the image spans
-    blocks, by a second pass over their pieces. Other radii run the tile
-    body over each image's own tiles (batch_geometry).
-    Both count BATCH_LAUNCHES (BATCH_PRECISE_LAUNCHES), the stream also
-    STREAM_LAUNCHES.
+    The design (stream_applies): at every radius, in either tier, the
+    packed row stream (relaxed: its heavy blurs as band products; at radii
+    other than STREAM_RADIUS its runtime-radius instantiation), but the
+    tile body over each image's own tiles (batch_geometry) at the radii
+    STREAM_BATCH_TILE_RADII names for the images' width class, where it
+    measured faster. Images lie
+    k to a packed row (batch_pack: 4 at W = 32, 2 at 64 and 192, 1 at
+    128), cut into STRIP_W-column strips, each image's piece of a strip
+    blurred from its own clamped columns; a block takes a strip of one
+    packed row, down all its rows or a segment of them
+    (batch_stream_plan); each image's sum is its columns' sums reduced in
+    a fixed order, by one block or, where the image spans blocks, by a
+    second pass over their pieces.
+    Each launch counts BATCH_LAUNCHES (BATCH_PRECISE_LAUNCHES; relaxed:
+    RELAXED_LAUNCHES), the stream's also STREAM_LAUNCHES.
     """
     if relaxed and precise:
         raise ValueError(

@@ -1,7 +1,7 @@
 """Times the forward kernel's modes on the card.
 
     python -m ssim_tpu_torch.tools.fwd_times [--segments] [--batch] [--relaxed] [--radii]
-                                             [--relaxed-radii]
+                                             [--relaxed-radii] [--batch --radii]
 
 Times (CUDA events around 20 back-to-back calls, median of 3) the
 streaming kernel's modes kScore, kMap, kRowsum and kRowsumMap (the row
@@ -61,6 +61,18 @@ one rank) at 16K x1 (RADIUS_CASES). The stream runs at the segment
 stream_segment picks at its occupancy at that radius, pinned, so that it
 streams whatever stream_applies says; the tile body is pinned with
 _launch(tile_body=True).
+
+--batch --radii times the batch modes' packed stream at every radius
+1-16 (ssim_fwd_batch_rt.cu's runtime radius, radius 5's own stream at 5)
+in turns with the tile body's batch branch (tile body, stream, stream,
+tile body; both pinned: the stream at batch_stream_plan's pack for its
+occupancy at that radius, the tile body with _launch(tile_body=True) at
+batch_geometry's tiles), the data of ssim_cuda.STREAM_BATCH_TILE_RADII
+(BATCH_RULE_CASES: kBatch, kBatchPrecise and the relaxed kBatch on u8
+and f32 pairs at each width of BATCH_RULE_SHAPES, among them
+BATCH_RADIUS_CASES), each beside its bound (chip_smoke.py's fwd_bound,
+precise_bound, relaxed_fwd_bound, imported from the checkout's root: run
+it from there); then the rule those times give (batch_tile_rule).
 
 --relaxed-radii times the relaxed tier's row stream at every radius 1-16
 (ssim_fwd_stream_rt_relaxed.cu, radius 5's own stream at 5) the same way,
@@ -505,6 +517,107 @@ def radius_times(gen, ms, radii=RADII, cases=RADIUS_CASES, reps=10, relaxed=Fals
         torch.cuda.empty_cache()
 
 
+#: --batch --radii: (name, shape, precise, relaxed, f32 input), u8 pairs
+#: (f32: the same pairs / 255).
+BATCH_RADIUS_CASES = (("kBatch 32x32_b8192", (8192, 32, 32), False, False, False),
+                      ("kBatch 64x64_b4096", (4096, 64, 64), False, False, False),
+                      ("kBatch 192x192_b512", (512, 192, 192), False, False, False),
+                      ("kBatchPrecise 64x64_b4096", (4096, 64, 64), True, False, False),
+                      ("relaxed kBatch 64x64_b4096", (4096, 64, 64), False, True, False),
+                      ("relaxed kBatch 40x40_b4096", (4096, 40, 40), False, True, False))
+#: --batch --radii: the widths of ssim_cuda's batch rule, each at a batch
+#: of 4-19 Mpix (B, H, W), from 2 to 5 widths in each of its width classes
+#: (ssim_cuda.BATCH_RULE_WIDTHS: the tile body's tile width).
+BATCH_RULE_SHAPES = ((131072, 8, 8), (65536, 12, 12), (32768, 16, 16), (8192, 24, 24),
+                     (8192, 32, 32), (4096, 40, 40), (4096, 48, 48), (4096, 64, 64),
+                     (1024, 96, 96), (1024, 100, 100), (1024, 120, 120), (1024, 128, 128),
+                     (512, 160, 160), (512, 192, 192))
+#: --batch --radii: (name, shape, precise, relaxed, f32 input), every batch
+#: mode on u8 and f32 at each of BATCH_RULE_SHAPES.
+BATCH_RULE_CASES = tuple(
+    (f"{tag}{' f32' if f32 else ''} {h}x{w}_b{bsz}", (bsz, h, w), precise, relaxed, f32)
+    for bsz, h, w in BATCH_RULE_SHAPES
+    for tag, precise, relaxed in (("kBatch", False, False), ("kBatchPrecise", True, False),
+                                  ("relaxed kBatch", False, True))
+    for f32 in (False, True))
+assert set(BATCH_RADIUS_CASES) <= set(BATCH_RULE_CASES)
+
+
+def batch_radius_launches(a, b, radius, precise=False, relaxed=False, pack=None):
+    """(stream, tile body, pack): _launch calls of the batch mode at
+    `radius` on one pair (u8, or f32 in [0, 1]), the packed stream pinned
+    at `pack` (k, segment rows), batch_stream_plan's for its occupancy at
+    that radius if None, the tile body pinned at batch_geometry's
+    tiles."""
+    from ssim_tpu_torch.windows import gaussian_taps
+
+    bsz, h, w = a.shape
+    f32 = a.dtype == torch.float32
+    dr = 1.0 if f32 else 255.0
+    mode = "batch_precise" if precise else "batch"
+    th, tw, ipb, groups = ssim_cuda.batch_geometry(bsz, h, w)
+    kw = dict(taps=gaussian_taps(np.float64 if precise else np.float32, radius,
+                                 RADIUS_SIGMA[radius]),
+              c1=(0.01 * dr) ** 2, c2=(0.03 * dr) ** 2, clip_bound=max(131072.0, 4.0 * dr),
+              tile_h=th, tile_w=tw, ipb=ipb, groups=groups, relaxed=relaxed)
+    if pack is None:
+        k = ssim_cuda.batch_pack(bsz, w)
+        res = ssim_cuda._stream_resident(a.device.index, mode, f32, relaxed, radius, w, k)
+        pack = ssim_cuda.batch_stream_plan(bsz, h, w, res, radius)
+    return (lambda: ssim_cuda._launch(a, b, mode=mode, pack=pack, **kw),
+            lambda: ssim_cuda._launch(a, b, mode=mode, tile_body=True, **kw), pack)
+
+
+def batch_radius_times(gen, ms, radii=range(1, ssim_cuda.MAX_FUSED_RADIUS + 1),
+                       cases=BATCH_RADIUS_CASES, reps=10):
+    """The batch modes' packed stream against the tile body at each radius
+    (see --batch --radii): ms["<name> r<radius>"] the stream's ms and
+    " tile body" the tile body's, each the lower of two in turns, " pack"
+    the stream's (k, segment rows). Prints each."""
+    for name, shape, precise, relaxed, f32 in cases:
+        a, b = u8_pair(gen, shape)
+        if f32:
+            a, b = a.float() / 255.0, b.float() / 255.0
+        for radius in radii:
+            stream, body, pack = batch_radius_launches(a, b, radius, precise, relaxed)
+            t = [cuda_ms(f, reps) for f in (body, stream, stream, body)]
+            key = f"{name} r{radius}"
+            ms[key], ms[f"{key} tile body"] = min(t[1:3]), min(t[0], t[3])
+            ms[f"{key} pack"] = list(pack)
+            print(f"  {key}: stream {t[1]:.4f} / {t[2]:.4f} ms (pack {pack}), tile body "
+                  f"{t[0]:.4f} / {t[3]:.4f} ms", flush=True)
+        del a, b
+        torch.cuda.empty_cache()
+
+
+def batch_tile_rule(ms, cases=BATCH_RULE_CASES, radii=range(1, ssim_cuda.MAX_FUSED_RADIUS + 1)):
+    """The batch rule that batch_radius_times' ms give: {(mode, relaxed,
+    f32 input, width class): radii}, each radius other than STREAM_RADIUS
+    at which the stream took at least the tile body's time at some width
+    of the class (ssim_cuda.batch_width_class) in that mode, tier and
+    input dtype."""
+    rule = {}
+    for name, (bsz, h, w), precise, relaxed, f32 in cases:
+        key = ("batch_precise" if precise else "batch", relaxed, f32,
+               ssim_cuda.batch_width_class(w))
+        lost = rule.setdefault(key, set())
+        lost.update(r for r in radii if r != ssim_cuda.STREAM_RADIUS
+                    and ms[f"{name} r{r}"] >= ms[f"{name} r{r} tile body"])
+    return {key: tuple(sorted(v)) for key, v in sorted(rule.items()) if v}
+
+
+def batch_radius_bounds(radii=range(1, ssim_cuda.MAX_FUSED_RADIUS + 1),
+                        cases=BATCH_RADIUS_CASES):
+    """{"<name> r<radius>": (bound ms, "bytes" or "operations")} for the
+    batch radius cases (one partial pair per image out), from
+    chip_smoke.batch_rt_bound (fwd_bound, precise_bound, relaxed_fwd_bound)."""
+    import chip_smoke
+
+    return {f"{name} r{radius}": chip_smoke.batch_rt_bound(shape, radius, precise, relaxed,
+                                                           4 if f32 else 1)
+            for name, shape, precise, relaxed, f32 in cases for radius in radii}
+
+
 def segment_sweep(name, a, b):
     """kScore, kRowsum, kPrecise, relaxed kScore, components and pooled at
     every segment the streaming kernel takes (the last four where they
@@ -569,6 +682,16 @@ def main():
         torch.backends.cuda.matmul.allow_tf32 = False
         radius_times(gen, ms, radii=range(1, ssim_cuda.MAX_FUSED_RADIUS + 1),
                      cases=RELAXED_RULE_CASES, relaxed=True)
+        print(json.dumps({"card": label, "package": ssim_cuda.__file__, "ms": ms}))
+        return 0
+    if args.batch and args.radii:
+        torch.backends.cuda.matmul.allow_tf32 = False
+        batch_radius_times(gen, ms, cases=BATCH_RULE_CASES)
+        for key, (bnd, by) in batch_radius_bounds(cases=BATCH_RULE_CASES).items():
+            ms[f"{key} bound"] = bnd
+            print(f"  {key}: stream / tile body {ms[key] / ms[f'{key} tile body']:.3f}, bound "
+                  f"{bnd:.4f} ms ({by})", flush=True)
+        print("  STREAM_BATCH_TILE_RADII measured:", batch_tile_rule(ms), flush=True)
         print(json.dumps({"card": label, "package": ssim_cuda.__file__, "ms": ms}))
         return 0
     if args.radii:

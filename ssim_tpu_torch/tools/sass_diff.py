@@ -11,8 +11,9 @@ built, for example this checkout's and another's:
 Runs `cuobjdump -sass` on both (on a machine with the CUDA toolkit), splits
 each into its kernels, keeps each instruction's text (not its address or
 encoding) and drops the per-file hash of the anonymous namespace from the
-kernels' names (and the row stream's radius argument at 5, `kR =
-kStreamR` of `ssim_fwd_stream_kernel<T, mode, split, kR>` and its
+kernels' names (and the row streams' radius argument at 5, `kR =
+kStreamR` of `ssim_fwd_stream_kernel<T, mode, split, kR>` and
+`ssim_fwd_batch_stream_kernel<T, mode, split, kR>` and their
 `StreamTaps<P, kR>`, so that a build from before that argument existed
 compares kernel by kernel; between two later builds the rewrite changes
 nothing), then prints the kernels found in only one build and those
@@ -32,10 +33,11 @@ import sys
 #: _GLOBAL__N__<hash>_<len>_<file>_<hash>.
 _ANON = re.compile(r"\d+_GLOBAL__N__[0-9a-f]{8}_\d+_\w+?_[0-9a-f]{8}")
 _INSN = re.compile(r"/\*[0-9a-f]{4,}\*/\s+(.*?)\s*;")
-#: The row stream's register-window radius as a template argument, in the
-#: kernel's name and in its StreamTaps parameter (by value or as a
+#: The row streams' register-window radius as a template argument, in the
+#: kernels' names and in their StreamTaps parameter (by value or as a
 #: reference to the template argument), for builds from before it.
 _RADIUS_ARG = ((re.compile(r"(22ssim_fwd_stream_kernelI\w(?:Li\d+E){2})Li5EE"), r"\1E"),
+               (re.compile(r"(28ssim_fwd_batch_stream_kernelI\w(?:Li\d+E){2})Li5EE"), r"\1E"),
                (re.compile(r"(10StreamTapsIS\w*?_)(?:XT2_E|Li5E)"), r"\1"))
 
 

@@ -19,8 +19,10 @@
 // instantiation, its band products through band_mma.cuh's host model of
 // mma. The batch modes (6 kBatch, 7 kBatchPrecise:
 // ssim_fwd_batch_stream_kernel) read [mode, is_float, B, H, W, k, S,
-// pieces, 0, 0, 0, precise, relaxed, 5] (pieces: 1 for the second pass,
-// batch_pieces_reduce_kernel; relaxed: kBatch only) and write the (B, 2)
+// pieces, 0, 0, 0, precise, relaxed, r] (pieces: 1 for the second pass,
+// batch_pieces_reduce_kernel; relaxed: kBatch only; r = 5 the
+// register-window instantiations, any other radius the runtime-radius ones,
+// relaxed with kSplit = band_mma::ksteps(r)) and write the (B, 2)
 // partials. The blocks run one after another, each with one std::thread per
 // CUDA thread.
 #include "cuda_runtime.h"
@@ -30,7 +32,7 @@
 #include <limits>
 
 #include "ssim_fwd_stream.cu"  // the kernel's source, cut by the test
-#include "ssim_fwd_batch_kernel.cu"  // the batch modes' kernels, cut by the test
+#include "fwd_batch_kernel.cuh"  // the batch modes' kernels, rewritten by the test
 
 template <class T> static std::vector<T> take(FILE* f, size_t n) {
   std::vector<T> v(n);
@@ -100,24 +102,30 @@ static void run(FILE* f, FILE* o, const std::vector<int>& h) {
   }
 }
 
-template <class T, int M, int K>
+template <class T, int M, int K, int R>
 static void run_batch(FILE* f, FILE* o, const std::vector<int>& h) {
   using P = Blur<M>;
-  const int B = h[2], H = h[3], W = h[4], k = h[5], S = h[6];
-  const auto taps = take<P>(f, 2 * kStreamR + 1);
+  const int B = h[2], H = h[3], W = h[4], k = h[5], S = h[6], r = h[13];
+  const auto taps = take<P>(f, 2 * r + 1);
   const auto cc = take<P>(f, 3);
   const size_t np = (size_t)B * H * W;
   const auto a = take<T>(f, np), b = take<T>(f, np);
-  StreamTaps<P> tp;
-  for (int i = 0; i < 2 * kStreamR + 1; ++i) tp.t[i] = taps[i];
+  StreamTaps<P, R> tp{};
+  for (int i = 0; i < 2 * r + 1; ++i) tp.t[i] = taps[i];
+  if constexpr (R == 0) tp.r = r;
+  if (R == 0 && batch_rt_layout<P, K>(r, W, k).bytes > kEmuDynamic) {
+    fprintf(stderr, "the staged rows and the ring exceed the dynamic shared memory\n");
+    exit(1);
+  }
   const int nstrip = (k * W + kStripW - 1) / kStripW, nseg = (H + S - 1) / S;
   const int nps = (W + kStripW - 1) / kStripW + 1;
   std::vector<P> partials((size_t)B * 2, std::numeric_limits<P>::quiet_NaN());
   std::vector<double> pieces((size_t)B * nseg * nps, std::numeric_limits<double>::quiet_NaN());
   double* pp = h[7] ? pieces.data() : nullptr;
   run_blocks(nstrip * nseg * ((B + k - 1) / k), kStreamThreads, [&] {
-    ssim_fwd_batch_stream_kernel<T, M, K>(a.data(), b.data(), partials.data(), pp, B, H, W, k,
-                                       S, nstrip, nseg, nps, tp, cc[0], cc[1], (float)cc[2]);
+    ssim_fwd_batch_stream_kernel<T, M, K, R>(a.data(), b.data(), partials.data(), pp, B, H, W,
+                                             k, S, nstrip, nseg, nps, tp, cc[0], cc[1],
+                                             (float)cc[2]);
   });
   if (pp) {
     run_blocks((B + 255) / 256, 256, [&] {
@@ -126,6 +134,33 @@ static void run_batch(FILE* f, FILE* o, const std::vector<int>& h) {
     });
   }
   fwrite(partials.data(), sizeof(P), partials.size(), o);
+}
+
+// The batch modes at radius h[13]: the register-window instantiations at
+// kStreamR, else the runtime-radius ones (relaxed: kSplit = ksteps(r)).
+template <int R>
+static int run_batch_modes(FILE* f, FILE* o, const std::vector<int>& h) {
+  if (h[0] == kBatch && h[12]) {
+    if constexpr (R == 0) {
+      const bool two = band_mma::ksteps(h[13]) == 2;
+      if (two && h[1]) run_batch<float, kBatch, 2, 0>(f, o, h);
+      else if (two) run_batch<uint8_t, kBatch, 2, 0>(f, o, h);
+      else if (h[1]) run_batch<float, kBatch, 3, 0>(f, o, h);
+      else run_batch<uint8_t, kBatch, 3, 0>(f, o, h);
+    } else {
+      if (h[1]) run_batch<float, kBatch, kStreamSplit, R>(f, o, h);
+      else run_batch<uint8_t, kBatch, kStreamSplit, R>(f, o, h);
+    }
+  } else if (h[0] == kBatch) {
+    if (h[1]) run_batch<float, kBatch, 0, R>(f, o, h);
+    else run_batch<uint8_t, kBatch, 0, R>(f, o, h);
+  } else if (!h[12]) {
+    if (h[1]) run_batch<float, kBatchPrecise, 0, R>(f, o, h);
+    else run_batch<uint8_t, kBatchPrecise, 0, R>(f, o, h);
+  } else {
+    return 2;
+  }
+  return 0;
 }
 
 int main(int argc, char** argv) {
@@ -137,21 +172,10 @@ int main(int argc, char** argv) {
   if (h[11] != (h[0] == kPrecise || h[0] == kPreciseMap || h[0] == kBatchPrecise)) return 2;
   if (h[13] < 1 || h[13] > kMaxStreamR) return 2;
   if (h[0] == kBatch || h[0] == kBatchPrecise) {
-    if (h[13] != kStreamR) return 2;
-    if (h[0] == kBatch && h[12]) {
-      if (h[1]) run_batch<float, kBatch, kStreamSplit>(f, o, h);
-      else run_batch<uint8_t, kBatch, kStreamSplit>(f, o, h);
-    } else if (h[0] == kBatch) {
-      if (h[1]) run_batch<float, kBatch, 0>(f, o, h);
-      else run_batch<uint8_t, kBatch, 0>(f, o, h);
-    } else if (!h[12]) {
-      if (h[1]) run_batch<float, kBatchPrecise, 0>(f, o, h);
-      else run_batch<uint8_t, kBatchPrecise, 0>(f, o, h);
-    } else {
-      return 2;
-    }
+    const int rc = h[13] == kStreamR ? run_batch_modes<kStreamR>(f, o, h)
+                                     : run_batch_modes<0>(f, o, h);
     fclose(o);
-    return 0;
+    return rc;
   }
 #define SSIM_EMU_RUN_R(M, S, R)                 \
   case M:                                       \

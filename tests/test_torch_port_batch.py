@@ -158,16 +158,22 @@ def test_identical_pairs_sum_to_zero(precise):
     np.testing.assert_array_equal(engine.finalize_mean(parts, 32 * 32), np.ones(5))
 
 
-@pytest.mark.parametrize("radius,sigma,k1,k2", [(3, 0.9, 0.02, 0.05), (8, 2.5, 0.01, 0.03)])
-def test_custom_window_matches_bpacked(radius, sigma, k1, k2):
+@pytest.mark.parametrize("radius,sigma,k1,k2,relaxed", [
+    (1, 0.8, 0.02, 0.05, False), (3, 0.9, 0.02, 0.05, False), (8, 2.5, 0.01, 0.03, False),
+    (16, 3.0, 0.015, 0.04, False), (9, 2.5, 0.01, 0.03, True)])
+def test_custom_window_matches_bpacked(radius, sigma, k1, k2, relaxed):
+    """A custom window on the batch route (the packed row stream at every
+    radius; relaxed: its heavy blurs as band products) against the JAX
+    packed path in the same tier: per-image scores within 2e-6; against
+    the f64 oracle within 2e-6 (relaxed: 1e-4, the tier's envelope)."""
     h, w, batch = 40, 96, 3
     a, b = _batch(0x63 + radius, batch, h, w)
     window = dict(radius=radius, sigma=sigma, k1=k1, k2=k2)
-    got = _scores(_port(a, b, **window), h * w)
-    want = _scores(jax_pallas.ssim_parts_pallas_bpacked(a, b, interpret=True, **window),
-                   h * w)
+    got = _scores(_port(a, b, relaxed=relaxed, **window), h * w)
+    want = _scores(jax_pallas.ssim_parts_pallas_bpacked(a, b, interpret=True,
+                                                        relaxed=relaxed, **window), h * w)
     assert np.abs(got - want).max() < 2e-6
-    assert np.abs(got - _oracle(a, b, **window)).max() < 2e-6
+    assert np.abs(got - _oracle(a, b, **window)).max() < (1e-4 if relaxed else 2e-6)
 
 
 @pytest.mark.parametrize("precise", [False, True])

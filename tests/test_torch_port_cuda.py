@@ -344,6 +344,49 @@ def test_batch_stream_pinned_packs_match_twin_on_card(precise):
         assert np.isnan(gk[bad]) and np.isfinite(np.delete(gk, bad)).all()
 
 
+#: The runtime-radius batch stream's radii on the card: the band's k-step
+#: edge (8 / 9) and the ends.
+_BATCH_RT_RADII = {1: 0.8, 8: 2.5, 9: 2.5, 16: 3.0}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("radius", list(_BATCH_RT_RADII))
+def test_batch_stream_runtime_radius_matches_twin_on_card(radius):
+    """The packed stream at a runtime radius (ssim_fwd_batch_rt.cu) in
+    kBatch, kBatchPrecise and the relaxed kBatch at the pinned packs of
+    _BATCH_PACKS (whole images to a block, images straddling strips, 12
+    pieces a strip, segments and the second pass), one STREAM_LAUNCHES a
+    launch, against the twins at that radius: f32 with a NaN in image 2
+    (no other image NaN), scores within 2e-7 (precise 1e-12 relative;
+    relaxed 2e-6)."""
+    _need_card()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    rng = np.random.default_rng(0x60 + radius)
+    sigma = _BATCH_RT_RADII[radius]
+    for shape, pack in _BATCH_PACKS:
+        a = rng.random(shape, dtype=np.float32)
+        b = np.clip(a + rng.normal(0, 0.05, shape), 0, 1).astype(np.float32)
+        a[2 % shape[0], shape[1] - 1, 0] = np.nan
+        at, bt = torch.from_numpy(a).cuda(), torch.from_numpy(b).cuda()
+        for precise, relaxed in ((False, False), (True, False), (False, True)):
+            kw = ssim_cuda._prepare(at, bt, data_range=1.0, radius=radius, sigma=sigma,
+                                    k1=0.01, k2=0.03, precise=precise)
+            before = ssim_cuda.STREAM_LAUNCHES
+            pk = ssim_cuda._launch(at, bt, mode="batch_precise" if precise else "batch",
+                                   tile_h=32, tile_w=64, pack=pack, relaxed=relaxed, **kw)
+            torch.cuda.synchronize()
+            assert ssim_cuda.STREAM_LAUNCHES == before + 1, (shape, pack)
+            want = ssim_cuda.ssim_parts_batch_plain(at, bt, precise, relaxed=relaxed, **kw)
+            npix = shape[1] * shape[2]
+            if relaxed:
+                _like_relaxed_twin("batch", pk, want.cpu(), npix)
+                gk = pk[:, 0].cpu().numpy()
+            else:
+                gk = _hold_batch((shape, pack, radius), pk, {"twin": want}, npix, precise)
+            bad = 2 % shape[0]
+            assert np.isnan(gk[bad]) and np.isfinite(np.delete(gk, bad)).all()
+
+
 #: NaN pixels in the first row a batch stream block stages, in a column of
 #: a warp other than warp 0 (whose thread clears the block's NaN mask):
 #: (shape, (image, y, x)).
@@ -376,8 +419,8 @@ def test_batch_stream_nan_in_first_staged_row_on_card(precise):
 def test_small_batches_launch_the_batch_modes():
     """compute_ssim on a routed batch launches kBatch (f64: kBatchPrecise;
     relaxed: the relaxed kBatch) on the packed stream, one STREAM_LAUNCHES
-    each, and the ssim_loss step kBatch and K3; radius 4 keeps the tile
-    body (no STREAM_LAUNCHES)."""
+    each, and the ssim_loss step kBatch and K3; at radius 4 both batch
+    modes stream too (the runtime-radius packed stream)."""
     _need_card()
     rng = np.random.default_rng(0x5C)
     a, b = _pair(rng, (64, 32, 40))
@@ -395,7 +438,7 @@ def test_small_batches_launch_the_batch_modes():
     r4 = ssim_tpu_torch.compute_ssim(a, b, radius=4, sigma=1.2)
     ssim_tpu_torch.compute_ssim(a, b, precision="f64", radius=4, sigma=1.2)
     ssim_tpu_torch.compute_ssim(a, b, accuracy="relaxed")
-    assert (counts() - before).tolist() == [0, 0, 1, 1, 0, 1, 1]
+    assert (counts() - before).tolist() == [0, 0, 1, 1, 0, 3, 1]
     assert np.abs(r4 - ssim_tpu_torch.compute_ssim(a, b, radius=4, sigma=1.2,
                                                    device="cpu")).max() <= 2e-7
     x = torch.from_numpy(a.astype(np.float32) / 255).cuda().requires_grad_()
@@ -1349,7 +1392,8 @@ def _like_relaxed_twin(mode, got, want, npix):
 def test_relaxed_stream_leaves_other_modes_on_tile_body_on_card(mode):
     """What keeps the tile body in the relaxed tier: the components and
     pooled modes under STREAM_RELAXED_COMP_MIN_PIX pixels a launch and the
-    batch mode at radius 4, one RELAXED_LAUNCHES each and no
+    batch mode on u8 at radius 4 (the measured rule,
+    STREAM_BATCH_TILE_RADII), one RELAXED_LAUNCHES each and no
     STREAM_LAUNCHES, as do relaxed score and map with a 256-wide tile; the
     components and pooled launches from STREAM_RELAXED_COMP_MIN_PIX (and
     the batch at radius 5) stream, as do relaxed score and map at radius 1

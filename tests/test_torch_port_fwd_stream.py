@@ -13,6 +13,7 @@ per-pixel values and partials the JAX package's kernel holds in
 tests/test_torch_port_kernel.py and tests/test_torch_port_spatial.py.
 """
 
+import itertools
 import os
 import re
 import shutil
@@ -250,6 +251,11 @@ def test_stream_blocks_cover_each_pixel_once_with_whole_tiles(tile):
                     assert (blk == blk[0, 0]).all(), (h, w, seg, ty, tx)
 
 
+#: Image widths that the routing tests read the batch rule at: at least
+#: one in each class of ssim_cuda.BATCH_RULE_WIDTHS and one above them.
+_RULE_WIDTHS = (8, 32, 48, 100, 160, 300)
+
+
 @pytest.mark.parametrize("mode", ssim_cuda._MODES)
 def test_stream_applies_to_the_documented_launches(mode):
     """The streaming kernel takes exactly the score, map and row modes, the
@@ -258,14 +264,17 @@ def test_stream_applies_to_the_documented_launches(mode):
     at every radius 1 to MAX_FUSED_RADIUS (radius 5 in its register-window
     instantiations, the others in the runtime-radius ones) with tiles 32
     to 128 wide; both batch modes (kBatch, kBatchPrecise) and the relaxed
-    kBatch run its packed variant at radius 5, whatever the batch tile; the
-    batch modes at other radii, and tile width 256, keep the tile body, as
-    does a radius the kernel does not serve.
+    kBatch run its packed variant at every radius 1 to MAX_FUSED_RADIUS
+    (ssim_fwd_batch_rt.cu's runtime radius but at 5), whatever the batch
+    tile; tile width 256 keeps the tile body, as does a radius the kernel
+    does not serve.
     Given the launch's pixels, the components and pooled modes stream only
     from STREAM_COMP_MIN_PIX, relaxed from STREAM_RELAXED_COMP_MIN_PIX; the
-    other modes take no size condition; and a relaxed launch so given keeps
+    other modes take no size condition; a relaxed launch so given keeps
     the tile body at the radii STREAM_RELAXED_TILE_RADII names for its mode
-    and input dtype."""
+    and input dtype, and a batch launch at the radii
+    STREAM_BATCH_TILE_RADII names for its mode, tier, input dtype and
+    width class (a batch launch given its size and no width raises)."""
     main = mode in ("score", "map", "rowsum", "rowsum_map", "precise", "precise_map",
                     "components", "pooled")
     batch = mode in ("batch", "batch_precise")
@@ -281,18 +290,23 @@ def test_stream_applies_to_the_documented_launches(mode):
                 want = served and radius in radii and 32 <= tile_w <= 128
                 if batch:
                     # kBatchPrecise has no relaxed form (the wrapper refuses it).
-                    want = radius == 5 and not (relaxed and mode == "batch_precise")
+                    want = radius in radii and not (relaxed and mode == "batch_precise")
                 assert ssim_cuda.stream_applies(mode, radius, tile_w, relaxed) == want
                 big = (ssim_cuda.STREAM_RELAXED_COMP_MIN_PIX if relaxed
                        else ssim_cuda.STREAM_COMP_MIN_PIX)
-                for is_float in (False, True):
+                for is_float, width in itertools.product((False, True), _RULE_WIDTHS):
                     kept = relaxed and radius in ssim_cuda.STREAM_RELAXED_TILE_RADII.get(
                         (mode, is_float), ())
+                    kept |= radius in ssim_cuda.STREAM_BATCH_TILE_RADII.get(
+                        (mode, relaxed, is_float, ssim_cuda.batch_width_class(width)), ())
                     assert ssim_cuda.stream_applies(mode, radius, tile_w, relaxed, big,
-                                                    is_float) == (want and not kept)
+                                                    is_float, width) == (want and not kept)
                     sized = want and not kept and mode not in ("components", "pooled")
                     assert ssim_cuda.stream_applies(mode, radius, tile_w, relaxed,
-                                                    big - 1, is_float) == sized
+                                                    big - 1, is_float, width) == sized
+                if batch:
+                    with pytest.raises(ValueError, match="width"):
+                        ssim_cuda.stream_applies(mode, radius, tile_w, relaxed, big)
     assert ssim_cuda.STREAM_COMP_MIN_PIX == 1 << 20
     assert ssim_cuda.STREAM_RELAXED_COMP_MIN_PIX == 1 << 22
 
@@ -322,6 +336,62 @@ def test_relaxed_tile_radii_are_the_measured_rule():
                                             1 << 30, is_float)
     assert ssim_cuda.stream_applies("pooled", 9, ssim_cuda.TILE_W, True, 1 << 30)
     assert ssim_cuda.stream_applies("components", 9, ssim_cuda.TILE_W, True, 1 << 30, True)
+
+
+def test_batch_tile_radii_are_the_measured_rule():
+    """The radii at which a routed batch launch keeps the tile body
+    (STREAM_BATCH_TILE_RADII), as the H100 sweep at 14 widths from 8 to 192
+    measured them (ssim_cuda's comment, PERF.md), by mode, tier, input
+    dtype and width class (batch_width_class: the tile body's tile width,
+    16, 32, 64, 128, then 192 and above): kBatch at 32 on r = 16 alone;
+    kBatchPrecise at most radii from 2 at 32, at 7, 8 and 11-16 at 16, on
+    u8 at 13-16 at 64 and at 12 at 128; the relaxed kBatch at most radii on
+    u8 from 32 up, fewer on f32; never radius 5 (its own register-window
+    stream). The size-free rule (a pinned pack) streams at each of them,
+    and each entry is read at every width of its class and no other."""
+    table = ssim_cuda.STREAM_BATCH_TILE_RADII
+    every = set(range(1, 17))
+    assert ssim_cuda.BATCH_RULE_WIDTHS == (16, 32, 64, 128, 192)
+    assert [ssim_cuda.batch_width_class(w) for w in (1, 16, 17, 32, 33, 64, 65, 128, 129,
+                                                     192, 193, 4096)] == \
+        [16, 16, 32, 32, 64, 64, 128, 128, 192, 192, 192, 192]
+    want = {("batch", False, False, 32): {16}, ("batch", False, True, 32): {16},
+            ("batch_precise", False, False, 16): {7, 8, 11, 12, 13, 14, 15, 16},
+            ("batch_precise", False, True, 16): {7, 8, 11, 12, 13, 14, 15, 16},
+            ("batch_precise", False, False, 32): every - {1, 5},
+            ("batch_precise", False, True, 32): every - {1, 5, 11},
+            ("batch_precise", False, False, 64): {13, 14, 15, 16},
+            ("batch_precise", False, False, 128): {12},
+            ("batch", True, False, 32): every - {1, 2, 3, 4, 5, 9},
+            ("batch", True, True, 32): {14, 15},
+            ("batch", True, False, 64): every - {5, 8, 9},
+            ("batch", True, True, 64): {2, 4, 6, 7, 14, 15},
+            ("batch", True, False, 128): every - {5},
+            ("batch", True, True, 128): every - {5, 8, 9, 13},
+            ("batch", True, False, 192): {2, 3, 4, 6, 7, 14, 15, 16},
+            ("batch", True, True, 192): {6, 7, 14, 15, 16}}
+    assert {k: set(v) for k, v in table.items()} == want
+    for (mode, relaxed, is_float, cls), radii in table.items():
+        assert ssim_cuda.STREAM_RADIUS not in radii
+        lo = max((e for e in ssim_cuda.BATCH_RULE_WIDTHS if e < cls), default=0)
+        for radius in radii:
+            assert ssim_cuda.stream_applies(mode, radius, ssim_cuda.TILE_W, relaxed)
+            for w in (lo + 1, cls):
+                assert not ssim_cuda.stream_applies(mode, radius, ssim_cuda.TILE_W, relaxed,
+                                                    1 << 30, is_float, w)
+            for w in (lo, cls + 1):
+                if w and ssim_cuda.batch_width_class(w) != cls:
+                    assert ssim_cuda.stream_applies(
+                        mode, radius, ssim_cuda.TILE_W, relaxed, 1 << 30, is_float, w) == (
+                        radius not in table.get(
+                            (mode, relaxed, is_float, ssim_cuda.batch_width_class(w)), ()))
+    for radius in every - {16}:
+        for is_float, w in itertools.product((False, True), _RULE_WIDTHS):
+            assert ssim_cuda.stream_applies("batch", radius, ssim_cuda.TILE_W, False, 1 << 30,
+                                            is_float, w)
+    assert ssim_cuda.stream_applies("batch_precise", 12, ssim_cuda.TILE_W, False, 1 << 30,
+                                    False, 192)
+    assert ssim_cuda.stream_applies("batch", 8, ssim_cuda.TILE_W, True, 1 << 30, False, 40)
 
 
 def test_main_path_defaults_take_the_streaming_kernel():
@@ -364,6 +434,11 @@ BATCH_SHAPES = [(8192, 32, 32), (4096, 64, 64), (1024, 128, 128), (512, 192, 192
                 (9, 17, 65), (6, 40, 130)]
 
 
+#: The runtime-radius batch stream's radii that the pack, plan and block
+#: tests hold.
+_BATCH_RADII = (1, 3, 8, 16)
+
+
 @pytest.mark.parametrize("shape", BATCH_SHAPES)
 def test_batch_pack_and_plan(shape):
     """batch_pack: a multiple of 8 from 16 up packs to whole strips (k W a
@@ -375,7 +450,10 @@ def test_batch_pack_and_plan(shape):
     block a strip of one packed row, down all its rows or, only where the
     packed rows alone leave the card idle, a segment (a multiple of
     TILE_H), as for (2, 8192, 64); at the routed shapes (PERF.md's sweeps)
-    all the rows, at 192x192 x512 segments of 96 rows."""
+    all the rows, at 192x192 x512 segments of 96 rows. At radius 5 and at
+    radii 1, 3, 8 and 16 (the runtime-radius stream) the same pack, and
+    segments of the same kind, each block's rows counted with its 2r
+    prologue; radius 5 is the default."""
     bsz, h, w = shape
     k = ssim_cuda.batch_pack(bsz, w)
     assert 1 <= k <= bsz
@@ -390,14 +468,17 @@ def test_batch_pack_and_plan(shape):
     want = {32: 4, 64: 2, 128: 1, 192: 2}
     if w in want and bsz >= want[w]:
         assert k == want[w]
-    for resident in (H100_RESIDENT, H100_PRECISE_RESIDENT):
-        k2, seg = ssim_cuda.batch_stream_plan(bsz, h, w, resident)
-        groups = -(-bsz // k)
-        nstrip = -(-(k * w) // ssim_cuda.STRIP_W)
-        assert k2 == k and 1 <= seg <= h
-        if seg < h:
-            assert seg % ssim_cuda.TILE_H == 0
-            assert groups * nstrip < resident
+    for resident in (H100_RESIDENT, H100_PRECISE_RESIDENT, 132 * 2, 132):
+        for radius in (*_BATCH_RADII, ssim_cuda.STREAM_RADIUS):
+            k2, seg = ssim_cuda.batch_stream_plan(bsz, h, w, resident, radius)
+            groups = -(-bsz // k)
+            nstrip = -(-(k * w) // ssim_cuda.STRIP_W)
+            assert k2 == k and 1 <= seg <= h
+            if seg < h:
+                assert seg % ssim_cuda.TILE_H == 0
+                assert groups * nstrip < resident
+        assert ssim_cuda.batch_stream_plan(bsz, h, w, resident) == \
+            ssim_cuda.batch_stream_plan(bsz, h, w, resident, ssim_cuda.STREAM_RADIUS)
     assert ssim_cuda.batch_stream_plan(2, 8192, 64, H100_RESIDENT) == (2, 32)
     for sh, want in [((8192, 32, 32), (4, 32)), ((4096, 64, 64), (2, 64)),
                      ((1024, 128, 128), (1, 128)), ((512, 192, 192), (2, 96))]:
@@ -415,7 +496,10 @@ def test_batch_stream_blocks_cover_each_pixel_once(shape):
     (image, segment, slot) is written once and the second pass reads
     exactly the slots the image's strips fill; and where batch_direct
     holds, each image lies whole in one block's piece, which writes its
-    pair."""
+    pair. At radii 1, 3, 8 and 16 each block's staged columns (its pieces'
+    columns plus r on either side of each) fit the runtime-radius
+    instantiation's staged rows (batch_rt_layout: 128 + 2r min(k, 127 // W
+    + 2) columns) and its four loads a thread."""
     bsz, h, w = shape
     nps = -(-w // ssim_cuda.STRIP_W) + 1
     segs = sorted({h, max(1, h // 2), ssim_cuda.TILE_H if h > ssim_cuda.TILE_H else h})
@@ -429,6 +513,10 @@ def test_batch_stream_blocks_cover_each_pixel_once(shape):
             slots = {}
             for pieces in blocks:
                 assert len(pieces) <= ssim_cuda.BATCH_MAX_PIECES
+                for radius in _BATCH_RADII:
+                    staged = sum(x1 - x0 + 2 * radius for _, _, _, x0, x1, _ in pieces)
+                    cols = ssim_cuda.STRIP_W + 2 * radius * min(k, 127 // w + 2)
+                    assert staged <= cols <= 4 * ssim_cuda.STRIP_W, (radius, k, pieces)
                 for img, y0, y1, x0, x1, slot in pieces:
                     cover[img, y0:y1, x0:x1] += 1
                     key = (img, y0 // seg, slot)
@@ -455,8 +543,8 @@ _EMU_COMP_MODES = {"components": 2, "pooled": 3}
 @pytest.fixture(scope="module")
 def stream_emulator(tmp_path_factory):
     """The streaming kernels' source (csrc/ssim_fwd.cu without the tile
-    body and the launchers, csrc/ssim_fwd_batch.cu without its launchers,
-    csrc/fwd_stream_kernel.cuh with its dynamic shared memory pointed at
+    body and the launchers, csrc/fwd_batch_kernel.cuh and
+    csrc/fwd_stream_kernel.cuh with their dynamic shared memory pointed at
     the harness's buffer) built with g++ into a host program; its path."""
     return _build_emulator(tmp_path_factory.mktemp("fwd_stream_emu"))
 
@@ -485,7 +573,7 @@ def _host_shared(text):
 def _build_emulator(out, edit=None):
     """Build the harness into directory `out`; edit(name, text) may change
     the text of each source copied there ("ssim_fwd_stream.cu",
-    "ssim_fwd_batch_kernel.cu", "fwd_stream_kernel.cuh") first."""
+    "fwd_batch_kernel.cuh", "fwd_stream_kernel.cuh") first."""
     gxx = shutil.which("g++")
     if gxx is None:
         pytest.skip("needs g++ to build the kernel's source for the host")
@@ -497,13 +585,10 @@ def _build_emulator(out, edit=None):
     c = src.index("template <typename T, int kMode, int kSplit>\ncudaError_t launch_stream(")
     (out / "ssim_fwd_stream.cu").write_text(_host_shared(edit(
         "ssim_fwd_stream.cu", src[:a] + "}  // namespace\n" + src[b:c] + "}  // namespace\n")))
-    src = open(os.path.join(_build.CSRC_DIR, "ssim_fwd_batch.cu")).read()
-    d = src.index("template <typename T, int kMode, int kSplit>\ncudaError_t launch_batch_stream(")
-    (out / "ssim_fwd_batch_kernel.cu").write_text(_host_shared(edit(
-        "ssim_fwd_batch_kernel.cu", src[:d] + "}  // namespace\n")))
-    src = open(os.path.join(_build.CSRC_DIR, "fwd_stream_kernel.cuh")).read()
-    assert src.count(_DYN_DECL) == 1
-    (out / "fwd_stream_kernel.cuh").write_text(_host_shared(edit("fwd_stream_kernel.cuh", src)))
+    for name in ("fwd_batch_kernel.cuh", "fwd_stream_kernel.cuh"):
+        src = open(os.path.join(_build.CSRC_DIR, name)).read()
+        assert src.count(_DYN_DECL) == 1
+        (out / name).write_text(_host_shared(edit(name, src)))
     exe = out / "harness"
     # band_mma.cuh: the emulator's (a host model of mma), which includes
     # the kernels' own from csrc, next on the path.
@@ -889,11 +974,12 @@ def test_stream_kernel_source_components_match_twins_on_the_host(stream_emulator
         assert pa[0, seg // 2, 100].isnan() and pa[2, 20, 127].isinf()
 
 
-def _emulate_batch(exe, a, b, precise, pack, relaxed=False):
+def _emulate_batch(exe, a, b, precise, pack, relaxed=False, radius=5, sigma=1.5):
     """The host build of the batch modes' packed stream (kBatch, or
     kBatchPrecise with the f64 taps and c1, c2 unrounded, or with relaxed
     the relaxed kBatch) on NumPy (B, H, W) inputs with pack = (k, segment
-    rows), its second pass where batch_direct does not hold: the (B, 2)
+    rows) at radius (the runtime-radius instantiation where it is not 5)
+    and sigma, its second pass where batch_direct does not hold: the (B, 2)
     partials."""
     bsz, h, w = a.shape
     f32 = a.dtype == np.float32
@@ -901,12 +987,12 @@ def _emulate_batch(exe, a, b, precise, pack, relaxed=False):
     k, seg = pack
     head = np.array([7 if precise else 6, int(f32), bsz, h, w, k, seg,
                      int(not ssim_cuda.batch_direct(h, w, k, seg)), 0, 0, 0, int(precise),
-                     int(relaxed), 5], np.int32)
+                     int(relaxed), radius], np.int32)
     ftype = np.float64 if precise else np.float32
     consts = np.array([(0.01 * dr) ** 2, (0.03 * dr) ** 2, max(131072.0, 4.0 * dr)], ftype)
     path_in, path_out = f"{exe}.{os.getpid()}.in", f"{exe}.{os.getpid()}.out"
     with open(path_in, "wb") as f:
-        for x in (head, gaussian_taps(ftype, 5, 1.5), consts, a, b):
+        for x in (head, gaussian_taps(ftype, radius, sigma), consts, a, b):
             f.write(np.ascontiguousarray(x).tobytes())
     subprocess.run([str(exe), path_in, path_out], check=True, timeout=600)
     return torch.from_numpy(np.fromfile(path_out, ftype).reshape(bsz, 2).copy())
