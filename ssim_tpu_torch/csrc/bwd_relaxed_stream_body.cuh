@@ -162,7 +162,8 @@
     for (int ks = 0; ks < kKh; ++ks) {
       uint32_t ah[4], al[4];
       band_a_of(ks, ah, al);
-      // Row g, input columns 16 (warp + ks) + 2t, + 1 and + 8, + 9.
+      // Row g, input columns 16 (warp + ks) + 2t, + 1 and + 8, + 9: a row's
+      // reads end inside it (kInW, RelGeom's "the horizontal blur's reads").
       const float2* src = xin + g * kInW + 16 * (warp + ks) + 2 * t;
       uint32_t bh[4][2], bl[4][2];
 #pragma unroll
@@ -192,7 +193,7 @@
   // (e >> 1), output row0 + 2t + (e & 1). With kG odd the last k-step's
   // rows 8-15 lie past the inputs (zeros of the band) and are not loaded;
   // rows read past 2r + 7 wrap onto other rows of the ring (finite, times
-  // zeros of the band).
+  // zeros of the band): the warp's own ring, which no other warp writes.
   auto vpass = [&](uint16_t* mine, int row0, float(&acc)[4][4]) {
     uint32_t bh[kKv][2], bl[kKv][2];
 #pragma unroll
@@ -354,6 +355,8 @@
       band_a_of(ks, ah, al);
 #pragma unroll
       for (int p = 0; p < 4; ++p) {
+        // A row's reads end inside it (kVtW, RelGeom's "the horizontal
+        // adjoint's reads").
         const float* src = vt + (p * C + g) * kVtW + 16 * (warp + ks) + 2 * t;
         const float2 v0 = *reinterpret_cast<const float2*>(src);
         const float2 v1 = *reinterpret_cast<const float2*>(src + 8);

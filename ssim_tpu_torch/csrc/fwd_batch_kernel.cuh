@@ -32,7 +32,7 @@ constexpr int kBatchRun = 32;
 // an H100 (PERF.md).
 constexpr int kBatchBlocks = 8;
 constexpr int kBatchRing = 1;
-// The relaxed kBatch (kSplit = kStreamSplit): 34.2 KB of shared memory
+// The relaxed kBatch (kSplit = kStreamSplit): 34.7 KB of shared memory
 // (the staged {a, b} rows, the ring of heavy blurs, the band, the line
 // tables and the column sums), 6 blocks per SM.
 constexpr int kBatchRelaxedBlocks = 6;
@@ -50,11 +50,15 @@ constexpr int kBatchRingOf = kIsPrecise<kMode> ? kStreamPreciseRing : kBatchRing
 // are not contiguous: the lines are the staged row's own tiles of 16
 // (outputs at staged columns, up to kBatchLines of them, two sweeps), and
 // each strip column reads its output at its staged centre. kBatchAbW staged
-// columns a row: the last line starts at most at column 16 (kBatchLines -
-// 1) and reads kStreamSplit k-steps of 16; the columns past a row's staged
-// ones stay zero (finite, times the band's zeros).
+// columns a row: a sweep reads all 8 of its lines, so the second sweep's
+// last line (line 15, past the kBatchLines that hold outputs) starts at
+// column 16 * 15 and reads kStreamSplit k-steps of 16; every line's reads
+// end inside its row, and the columns past a row's staged ones stay zero
+// (finite, times the band's zeros). A pitch of 16 (kBatchLines - 1 +
+// kStreamSplit) put line 15's last 16 reads in the next row's slot, which
+// the push stages in the same step: a race between warps.
 constexpr int kBatchLines = (kBatchInW - 2 * kStreamR + 15) / 16;
-constexpr int kBatchAbW = 16 * (kBatchLines - 1 + kStreamSplit);
+constexpr int kBatchAbW = 16 * (2 * 8 - 1 + kStreamSplit);
 static_assert(kBatchLines <= 16, "two sweeps of 8 lines");
 // The runtime-radius instantiation's line tables: at radius 16 and 12
 // pieces a strip the staged row's tiles number 30, four sweeps of 8.
@@ -524,6 +528,8 @@ ssim_fwd_batch_stream_kernel(const T* __restrict__ a, const T* __restrict__ b,
               float* out = s_hres + (plane * (kRt ? kStreamRtHres : kStreamRing) +
                                      (kRt ? q & (kStreamRtHres - 1) : q % kStreamRing)) *
                                         kStripW;
+              // A row's reads end inside it (ab_w: kBatchAbW, or
+              // batch_rt_layout's pitch), so none meets a row staged now.
               const float2* row = s_ab + slot(q) * ab_w;
               for (int grp = 0; grp < ngroups; ++grp) {
                 const int* lofs = s_lofs + 8 * grp;

@@ -40,11 +40,17 @@ constexpr int kStreamPreciseRing = 1;
 // (a+b)^2 and (a-b)^2 from a ring of kStreamRing blurred rows in shared
 // memory (row q in slot q mod kStreamRing: twice the window's rows, so that
 // with s = kP m + k each row's slot is k's and m's parity's). Shared memory:
-// kStreamStaged staged {a, b} rows (one past the staged columns is read, as
-// a product with a zero of the band, from the next row or the ring, all
-// finite), the ring's two planes, the band's fragments and the taps, 29.1 KB
-// a block: 7 blocks on an SM (1 KB reserved each), 72 registers, no spills.
+// kStreamStaged staged {a, b} rows of kStreamAbW columns (a band product's
+// line g reads columns 16 g .. 16 (g + kStreamSplit) - 1, so line 7's reads
+// end at column 143 of its own row: the kStreamInW staged columns, then
+// zeros, which meet zeros of the band), the ring's two planes, the band's
+// fragments and the taps, 29.3 KB a block: 7 blocks on an SM (1 KB reserved
+// each), 72 registers, no spills. A pitch of kStreamInW put those last 6
+// reads in the next row's slot, which step (d) stages in the same step: a
+// race between warps.
 constexpr int kStreamSplit = band_mma::ksteps(kStreamR);
+constexpr int kStreamAbW = kStripW - 16 + 16 * kStreamSplit;
+static_assert(kStreamAbW >= kStreamInW, "a staged row holds its staged columns");
 constexpr int kStreamRelaxedBlocks = 7;
 // The relaxed components and pooled modes (the relaxed score and map's
 // body with the components epilogue; kPooled's raw ring adds 4 KB): 6

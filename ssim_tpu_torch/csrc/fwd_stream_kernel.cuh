@@ -99,7 +99,8 @@ ssim_fwd_stream_kernel(const T* __restrict__ a, const T* __restrict__ b,
   // (ring_col) a slot; the band's fragments, per lane (hi then lo, one
   // uint4 per k-step); the taps, for make_band. With kRt all in dynamic
   // shared memory (below).
-  constexpr int kAbW = kRt ? kInW : kStreamInW;  // s_ab's row pitch
+  // s_ab's row pitch: every line of a band product reads inside its row.
+  constexpr int kAbW = kRt ? kInW : kStreamAbW;
   constexpr int kAbFloats = 2 * kStreamStaged * kAbW;
   constexpr int kRingFloats = 2 * kStreamRing * kStripW;
   __shared__ __align__(16) float s_rel[kRelaxed && !kRt ? kAbFloats + kRingFloats : 1];
@@ -129,16 +130,13 @@ ssim_fwd_stream_kernel(const T* __restrict__ a, const T* __restrict__ b,
   if constexpr (kRt) {
     if (tid < 2 * r + 1) s_rtaps[tid] = tp.t[tid];
   }
-  if constexpr (kRelaxed && kRt) {
+  if constexpr (kRelaxed) {
     // Zeros in the columns no row is staged to, which row_pass reads (times
     // zeros of the band: they must be finite); a row's reads end inside it.
     float* ab = reinterpret_cast<float*>(s_ab);
     for (int i = tid; i < kAbFloats; i += kNT) ab[i] = 0.0f;
-  } else if constexpr (kRelaxed) {
-    // Zeros in the columns no row is staged to and in the ring, which
-    // row_pass reads past a row's staged columns (times zeros of the band:
-    // they must be finite).
-    for (int i = tid; i < kAbFloats + kRingFloats; i += kNT) s_rel[i] = 0.0f;
+  }
+  if constexpr (kRelaxed && !kRt) {
     if (tid == 0) {
 #pragma unroll
       for (int k = 0; k < kP; ++k) s_taps[k] = tp.t[k];
@@ -392,6 +390,8 @@ ssim_fwd_stream_kernel(const T* __restrict__ a, const T* __restrict__ b,
               // kRt: row q's slot of s_hres, q mod kStreamRtHres (4: rows
               // s + 1 and s + 2 written while step s reads row s's).
               const int slot = kRt ? q & (kStreamRtHres - 1) : q % kStreamRing;
+              // Row q's reads end inside its slot (kAbW), so none meets row
+              // s + kLead, which (d) stages in this step.
               row_pass<kSplit>(s_ab + (q & (kStreamStaged - 1)) * kAbW,
                                s_hres + (plane * (kRt ? kStreamRtHres : kStreamRing) + slot) *
                                             kStripW,

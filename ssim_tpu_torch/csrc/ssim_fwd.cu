@@ -245,7 +245,7 @@
 // step hold its block at the step's barrier, in proportion to their number
 // rather than to the chains' depth; so the 24 mma of two steps' rows go to
 // all four warps at once, and a block stages rows three ahead
-// (29.1 KB of shared memory, 7 blocks per SM, 72 registers: a window of
+// (29.3 KB of shared memory, 7 blocks per SM, 72 registers: a window of
 // all four signals in registers beside the mma's fragments spilled most
 // of it to local memory at 8 blocks, PERF.md). A non-finite own
 // pixel poisons its TH x TW tile: the tile's map rows are overwritten with

@@ -56,7 +56,7 @@
 // 40, 50, 60, 120, 184) the stream took 0.45-0.84x the relaxed tile body
 // (PERF.md). A push that repeats the row before it (the clamped rows above
 // row 0 and below row H - 1) copies that push's blurs, its own column of the
-// ring and its window registers; every push ends with a barrier. 34.2 KB of
+// ring and its window registers; every push ends with a barrier. 34.7 KB of
 // shared memory, 6 blocks per SM. What bounds it: the relaxed stream's step
 // (the mma a warp issues in a step hold its block at the barrier).
 

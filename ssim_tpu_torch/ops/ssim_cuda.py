@@ -622,7 +622,31 @@ def _band_matrix(t: tuple) -> torch.Tensor:
     return torch.from_numpy(m)
 
 
-def band_bf16x3_plain(x: torch.Tensor, t, n: int, dim: int = -1) -> torch.Tensor:
+#: The ulps that band_bf16x3_plain's nudge moves each operand: the relaxed
+#: kernels' band products hold an operand up to two ulps from the twin's
+#: (an H100 sweep of the relaxed K3: one entry that no one-ulp nudge
+#: reaches, PERF.md §6, P8).
+SPLIT_NUDGE_ULPS = 2
+
+
+def _nudged(x: torch.Tensor, nudge) -> torch.Tensor:
+    """x moved SPLIT_NUDGE_ULPS ulps (torch.nextafter, once an ulp): "up",
+    "down", or, with a torch.Generator on x's device, each element up or
+    down at random."""
+    inf = torch.tensor(float("inf"), device=x.device)
+    if nudge == "up":
+        target = inf
+    elif nudge == "down":
+        target = -inf
+    else:
+        up = torch.rand(x.shape, generator=nudge, device=x.device) < 0.5
+        target = torch.where(up, inf, -inf)
+    for _ in range(SPLIT_NUDGE_ULPS):
+        x = torch.nextafter(x, target)
+    return x
+
+
+def band_bf16x3_plain(x: torch.Tensor, t, n: int, dim: int = -1, nudge=None) -> torch.Tensor:
     """The relaxed tier's band pass: out[k] = sum_j t[j] * x[k + j] along
     `dim` (n outputs from n + 2r inputs), as band products of 64 + 2r input
     columns into 64 output columns with both operands split into bf16
@@ -630,9 +654,13 @@ def band_bf16x3_plain(x: torch.Tensor, t, n: int, dim: int = -1) -> torch.Tensor
     is dropped (ssim_pallas.py:_make_hpass_mxu(exact=False), :205-219;
     the kernels' band_mma.cuh). The matrix products need TF32 off on a
     card (torch.backends.cuda.matmul.allow_tf32 = False), or the lo parts
-    round away."""
+    round away. nudge (checks only; ssim_grad.split_sensitivity): x moved
+    SPLIT_NUDGE_ULPS ulps before its split (_nudged), as a kernel whose
+    earlier sums added in another order may hold it."""
     r = len(t) // 2
     x = x.movedim(dim, -1)
+    if nudge is not None:
+        x = _nudged(x, nudge)
     nch = -(-n // _BAND_OUT)
     x = torch.nn.functional.pad(x, (0, nch * _BAND_OUT - n))
     h1, h2 = _bf16_split(_band_matrix(tuple(float(v) for v in t)).to(x.device))

@@ -175,16 +175,16 @@ def _resident(index: int, radius: int, gmap: bool, relaxed: bool = False,
 
 
 def _adjoint(x: torch.Tensor, t, cl, dim: int, n: int, fold_lo: bool = True,
-             fold_hi: bool = True, relaxed: bool = False) -> torch.Tensor:
+             fold_hi: bool = True, relaxed: bool = False, nudge=None) -> torch.Tensor:
     """Transpose of the clamped 1-D blur along `dim`: x holds the weights on
     the image plus an r margin that is zero outside the image (n + 2r
     entries); returns the n image positions. The plain part is the
     zero-extended symmetric blur (relaxed: band_bf16x3_plain); positions 0
     and n-1 add the folded clamp mass sum_{x<r} cl[x] * w(x) and
     sum_{x<r} cl[x] * w(n-1-x) in f32 (only where fold_lo / fold_hi: a
-    band's edge without a neighbour)."""
+    band's edge without a neighbour). nudge: band_bf16x3_plain's."""
     r = len(t) // 2
-    acc = band_bf16x3_plain(x, t, n, dim) if relaxed else sym_blur(x, t, dim, n)
+    acc = band_bf16x3_plain(x, t, n, dim, nudge) if relaxed else sym_blur(x, t, dim, n)
     corr_lo = corr_hi = None
     for g in range(r):
         lo = cl[g] * x.narrow(dim, r + g, 1)
@@ -247,6 +247,7 @@ def ssim_grad_plain(
     vhalo=None,
     vmask=(False, False),
     relaxed: bool = False,
+    nudge=None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """The kernel's plain twin on (B, H, W) f32 tensors, on any device.
     w_s, w_cs: (B,) f32; g_map: (B, H, W) f32 or None. vhalo: four
@@ -256,7 +257,9 @@ def ssim_grad_plain(
     the kernel's vhalo mode; no g_map with them. relaxed: the relaxed
     mode's, every band pass (stage 1's four horizontal and four vertical
     blurs, stage 2's four vertical and four horizontal adjoints) as
-    band_bf16x3_plain, the clamp folds in f32. Returns (da, db)."""
+    band_bf16x3_plain, the clamp folds in f32; nudge (relaxed, checks only):
+    each band pass's operand moved ssim_cuda.SPLIT_NUDGE_ULPS ulps before its split
+    (band_bf16x3_plain). Returns (da, db)."""
     bsz, h, w = a.shape
     r = len(taps) // 2
     tile_h, tile_w = default_tile(r)
@@ -282,7 +285,8 @@ def ssim_grad_plain(
     if relaxed:
         s, dif = ae + be, ae - be
         u, v, s2, d2 = (
-            band_bf16x3_plain(band_bf16x3_plain(x, t, w + 2 * r), t, h + 2 * r, 1)
+            band_bf16x3_plain(band_bf16x3_plain(x, t, w + 2 * r, nudge=nudge), t, h + 2 * r, 1,
+                              nudge)
             for x in (ae, be, s * s, dif * dif)
         )
     else:
@@ -307,8 +311,8 @@ def ssim_grad_plain(
 
     # Stage 2: the transposed clamped blur, vertical then horizontal.
     tu, tv, tss, tdd = (
-        _adjoint(_adjoint(m, t, cl, 1, h, is_top, is_bot, relaxed), t, cl, 2,
-                 w, relaxed=relaxed)
+        _adjoint(_adjoint(m, t, cl, 1, h, is_top, is_bot, relaxed, nudge), t, cl, 2,
+                 w, relaxed=relaxed, nudge=nudge)
         for m in maps
     )
     s = af + bf
@@ -325,6 +329,53 @@ def ssim_grad_plain(
         tile_w, 2)[:, :h, :w]
     nan = torch.full_like(da, float("nan"))
     return torch.where(px_bad, nan, da), torch.where(px_bad, nan, db)
+
+
+def split_sensitivity(a, b, w_s, w_cs, g_map, *, seed: int = 0, **kw):
+    """The relaxed twin, ssim_grad_plain(relaxed=True, **kw), and s(p), its
+    sensitivity to its bf16x3 split: the largest distance, entry by entry,
+    of three nudged twins from it (every band pass's operand moved
+    ssim_cuda.SPLIT_NUDGE_ULPS ulps up before its bf16 split, all down,
+    and each element a random way from a generator seeded with seed). A
+    kernel whose sums add in another order holds such operands ulps apart
+    from the twin's, and where the split's low part then rounds the other
+    way the gradient's cancellation amplifies a 2^-16 relative step: s(p)
+    measures that at p. Used by the checks of the relaxed K3 against its
+    twin, never on the main path. Returns ((da, db), (s_da, s_db)), NaN
+    where the twin is."""
+    want = ssim_grad_plain(a, b, w_s, w_cs, g_map, relaxed=True, **kw)
+    gen = torch.Generator(device=a.device).manual_seed(seed)
+    sens = [torch.zeros_like(x) for x in want]
+    for nudge in ("up", "down", gen):
+        moved = ssim_grad_plain(a, b, w_s, w_cs, g_map, relaxed=True, nudge=nudge, **kw)
+        sens = [torch.fmax(s, (m - x).abs()) for s, m, x in zip(sens, moved, want)]
+    return want, tuple(torch.where(x.isnan(), x, s) for s, x in zip(sens, want))
+
+
+#: The relaxed K3 against its twin, entry by entry: RELAXED_GRAD_TWIN x
+#: max|g| + RELAXED_GRAD_KAPPA x s(p), s(p) split_sensitivity's. Kernel and
+#: twin add in other orders, so they hold a band pass's operand ulps apart;
+#: where the split's low part then rounds the other way, a 2^-16 relative
+#: step, the gradient's cancellation amplifies it, and s(p) is what that
+#: step costs at p. Where the split is not sensitive (s(p) = 0) the bound
+#: is RELAXED_GRAD_TWIN x max|g|. kappa = 4 is about twice the largest that
+#: an H100 sweep of 300 seeds at radii 1, 3, 8 and 16, +- g_map, needed
+#: (chip_smoke.py phase 15e: 1.77, at radius 1; PERF.md §6, P8).
+RELAXED_GRAD_TWIN = 1e-4
+RELAXED_GRAD_KAPPA = 4.0
+
+
+def relaxed_grad_holds(k, p, scale, sens):
+    """Whether the relaxed K3's output k holds to its twin's p, for the
+    checks (never the main path): NaN exactly where p is, and every other
+    entry within RELAXED_GRAD_TWIN x scale + RELAXED_GRAD_KAPPA x sens
+    (split_sensitivity's s(p) at k's entries). Returns (holds, the
+    per-entry bound)."""
+    bound = RELAXED_GRAD_TWIN * scale + RELAXED_GRAD_KAPPA * sens
+    if not torch.equal(k.isnan(), p.isnan()):
+        return False, bound
+    # NaN where both are: never above a bound.
+    return not bool(((k - p).abs() > bound).any()), bound
 
 
 def _launch(a, b, w_s, w_cs, g_map, *, taps, c1, c2, clip_bound, vhalo=None,

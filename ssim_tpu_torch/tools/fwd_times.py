@@ -38,8 +38,10 @@ them, and the packed stream at other segments than `batch_stream_plan`'s
 (`--batch --packs`); run it with another checkout on PYTHONPATH to time
 that checkout's.
 
---relaxed times only the relaxed components, pooled and batch modes: the
-components (f32) and pooled (u8 and f32) modes at 1080p x4, the relaxed
+--relaxed prints the blocks per SM of the relaxed instantiations at radius
+5 (RELAXED_OCCUPANCY), then times only the relaxed components, pooled and
+batch modes: the components (f32) and pooled (u8 and f32) modes at 1080p
+x4, the relaxed
 MS-SSIM scale 1 (4x540x960) and the one-frame scales that straddle
 STREAM_COMP_MIN_PIX (2x540x960, 1x1080x1920, 1x540x960), each through
 the row-streaming kernel at the wrapper's segment (pinned, so it streams
@@ -363,6 +365,24 @@ RELAXED_BATCH_SHAPES = tuple((n, s) for n, s, precise in BATCH_SHAPES if not pre
     ("120x120_b1024", (1024, 120, 120)), ("184x184_b512", (512, 184, 184)))
 
 
+#: --relaxed: the relaxed instantiations at radius 5 whose blocks per SM it
+#: prints, (mode, W, k): the row stream's modes, and the packed stream for
+#: 64-wide images packed two to a row.
+RELAXED_OCCUPANCY = (("score", 1, 1), ("map", 1, 1), ("components", 1, 1),
+                     ("pooled", 1, 1), ("batch", 64, 2))
+
+
+def relaxed_blocks_per_sm():
+    """{"relaxed <mode> <u8|f32>": blocks one SM holds} of RELAXED_OCCUPANCY,
+    on u8 and f32, from the package's occupancy query
+    (ssim_cuda._stream_resident over the card's SMs)."""
+    dev = torch.cuda.current_device()
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    return {f"relaxed {mode} {'f32' if f32 else 'u8'}":
+            ssim_cuda._stream_resident(dev, mode, f32, True, 5, w, k) // sms
+            for mode, w, k in RELAXED_OCCUPANCY for f32 in (False, True)}
+
+
 def relaxed_times(gen, ms):
     """The relaxed components, pooled and batch modes (see --relaxed):
     ms["relaxed <mode> <kind> <shape>"] and its " tile body" and
@@ -675,8 +695,12 @@ def main():
     ms = {}
     if args.relaxed:
         torch.backends.cuda.matmul.allow_tf32 = False
+        blocks = relaxed_blocks_per_sm()
+        print("  blocks per SM: " + ", ".join(f"{k} {v}" for k, v in blocks.items()),
+              flush=True)
         relaxed_times(gen, ms)
-        print(json.dumps({"card": label, "package": ssim_cuda.__file__, "ms": ms}))
+        print(json.dumps({"card": label, "package": ssim_cuda.__file__,
+                          "blocks_per_sm": blocks, "ms": ms}))
         return 0
     if args.relaxed_radii:
         torch.backends.cuda.matmul.allow_tf32 = False

@@ -24,15 +24,19 @@ import numpy as np
 import pytest
 import torch
 
+from test_torch_port_fwd_stream import _host_shared
+
 from ssim_tpu_torch.ops import _build, ssim_grad
 from ssim_tpu_torch.windows import RADIUS, gaussian_taps
 
 EMU_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "fwd_stream_emu")
 
-#: The card tests' tolerances (chip_smoke.py RELAXED_GRAD_TWIN and
-#: RELAXED_GRAD_STD): kernel against its relaxed twin, and the relaxed
-#: gradient against the standard one, each times max|g|.
-_GRAD_TWIN, _GRAD_STD = 1e-4, 1e-3
+#: The card tests' tolerances: kernel against its relaxed twin
+#: (ssim_grad.RELAXED_GRAD_TWIN; per entry also kappa times the twin's
+#: sensitivity to its bf16x3 split, ssim_grad.relaxed_grad_holds), and the
+#: relaxed gradient against the standard one (chip_smoke.py
+#: RELAXED_GRAD_STD), each times max|g|.
+_GRAD_TWIN, _GRAD_STD = ssim_grad.RELAXED_GRAD_TWIN, 1e-3
 
 
 def test_relaxed_stream_applies_at_radius_5_only():
@@ -154,34 +158,64 @@ def test_relaxed_segment_fills_the_card(shape, fill):
     assert blocks / (waves * H100_RELAXED_RESIDENT) >= fill, (shape, seg)
 
 
-@pytest.fixture(scope="module")
-def bwd_emulator(tmp_path_factory):
-    """The relaxed streaming kernels' source (csrc/bwd_common.cuh and
-    csrc/bwd_relaxed_stream.cuh, each without its host code, and the
-    kernels' body, csrc/bwd_relaxed_stream_body.cuh), its dynamic shared
-    memory pointed at the harness's arena (NaN at each block's start),
-    built with g++ into a host program; its path."""
+#: The kernels' dynamic shared memory, as each declares it, and the
+#: harness's stand-in (emu_threads.h emu_dynamic_shared: the arena's
+#: dynamic part, NaN at each block's start).
+_REL_DYN = ("extern __shared__ __align__(16) unsigned char rel_smem[];",
+            "unsigned char* rel_smem = emu_dynamic_shared();")
+_STD_DYN = ("extern __shared__ float4 stream_smem[];",
+            "float4* stream_smem = reinterpret_cast<float4*>(emu_dynamic_shared());")
+
+
+def _build_bwd_emulator(out, harness="bwd_harness.cpp", edit=None, flags=()):
+    """Build a backward harness into directory `out`: bwd_harness.cpp (the
+    relaxed stream) or bwd_std_harness.cpp (the standard tier's
+    ssim_bwd_stream_kernel). The kernels' source is copied there first:
+    csrc/bwd_common.cuh and csrc/bwd_relaxed_stream.cuh, each without its
+    host code, the relaxed kernels' body, csrc/bwd_relaxed_stream_body.cuh,
+    and csrc/ssim_bwd.cu up to its launchers (as ssim_bwd_stream.cu), each
+    __shared__ array a piece of the harness's arena (NaN at each block's
+    start, as CUDA leaves shared memory uninitialised); edit(name, text) may
+    change each text first, flags are added to g++'s command line
+    (tests/test_torch_port_racecheck.py: -fsanitize=thread). Its path."""
     gxx = shutil.which("g++")
     if gxx is None:
         pytest.skip("needs g++ to build the kernel's source for the host")
-    out = tmp_path_factory.mktemp("bwd_stream_emu")
-    decl = "extern __shared__ __align__(16) unsigned char rel_smem[];"
-    for name, host in (("bwd_common.cuh", "// Host code from here"),
-                       ("bwd_relaxed_stream.cuh", "// Launchers from here"),
-                       ("bwd_relaxed_stream_body.cuh", None)):
+    edit = edit or (lambda name, text: text)
+    for name, host, dyn in (
+            ("bwd_common.cuh", "// Host code from here", None),
+            ("bwd_relaxed_stream.cuh", "// Launchers from here", None),
+            ("bwd_relaxed_stream_body.cuh", None, _REL_DYN),
+            ("ssim_bwd.cu", "// The instantiation's dynamic shared memory at radius r", _STD_DYN)):
         src = open(os.path.join(_build.CSRC_DIR, name)).read()
         body = src[:src.index(host)] + "}  // namespace\n" if host else src
-        assert body.count(decl) == (name == "bwd_relaxed_stream_body.cuh")
-        (out / name).write_text(body.replace(decl, "unsigned char* rel_smem = "
-                                                   "emu_dynamic_shared();"))
-    exe = out / "bwd_harness"
+        if dyn:
+            assert body.count(dyn[0]) == 1
+            body = body.replace(dyn[0], dyn[1])
+        (out / name.replace("ssim_bwd.cu", "ssim_bwd_stream.cu")).write_text(
+            _host_shared(edit(name, body)))
+    exe = out / harness.replace(".cpp", "")
     # band_mma.cuh: the emulator's (host models of mma, ldmatrix and
     # stmatrix), which includes the kernels' own from csrc, next on the path.
     subprocess.run([gxx, "-std=c++20", "-O1", "-ffp-contract=off", "-fno-strict-aliasing",
                     "-pthread", "-I", str(out), "-I", EMU_DIR, "-I", _build.CSRC_DIR,
-                    "-o", str(exe), os.path.join(EMU_DIR, "bwd_harness.cpp")],
+                    *flags, "-o", str(exe), os.path.join(EMU_DIR, harness)],
                    check=True, capture_output=True, timeout=600)
     return exe
+
+
+@pytest.fixture(scope="module")
+def bwd_emulator(tmp_path_factory):
+    """The relaxed streaming kernels' source built for the host
+    (_build_bwd_emulator); its path."""
+    return _build_bwd_emulator(tmp_path_factory.mktemp("bwd_stream_emu"))
+
+
+@pytest.fixture(scope="module")
+def bwd_std_emulator(tmp_path_factory):
+    """The standard tier's streaming kernel's source built for the host
+    (_build_bwd_emulator, bwd_std_harness.cpp); its path."""
+    return _build_bwd_emulator(tmp_path_factory.mktemp("bwd_std_emu"), "bwd_std_harness.cpp")
 
 
 _TAPS = gaussian_taps(np.float32, 5, 1.5)
@@ -224,8 +258,9 @@ def _emulate(exe, a, b, w_s, w_cs, g_map, seg, vhalo=None, vmask=(0, 0), radius=
 def _hold(exe, a, b, seg, g_map=None, vhalo=None, vmask=(0, 0), seed=0, radius=5,
           strip_w=None):
     """The host build against the relaxed twin on the same inputs: NaN
-    exactly where the twin's is, within _GRAD_TWIN * max|g| elsewhere, and
-    different from the standard twin but within _GRAD_STD * max|g|."""
+    exactly where the twin's is, within the derived bound elsewhere
+    (ssim_grad.relaxed_grad_holds), and different from the standard twin
+    but within _GRAD_STD * max|g|."""
     rng = np.random.default_rng(seed)
     bsz, h, w = a.shape
     w_s = (rng.random(bsz) / (h * w)).astype(np.float32)
@@ -236,14 +271,13 @@ def _hold(exe, a, b, seg, g_map=None, vhalo=None, vmask=(0, 0), seed=0, radius=5
     if vhalo is not None:
         kw.update(vhalo=tuple(t(x) for x in vhalo), vmask=vmask)
     g = None if g_map is None else t(g_map)
-    want = ssim_grad.ssim_grad_plain(t(a), t(b), t(w_s), t(w_cs), g, relaxed=True, **kw)
+    want, sens = ssim_grad.split_sensitivity(t(a), t(b), t(w_s), t(w_cs), g, **kw)
     std = ssim_grad.ssim_grad_plain(t(a), t(b), t(w_s), t(w_cs), g, **kw)
     fin = [~x.isnan() for x in std]
     scale = max(float(x[f].abs().max()) for x, f in zip(std, fin) if f.any())
-    for k, p, s, f in zip(got, want, std, fin):
-        assert torch.equal(k.isnan(), p.isnan())
+    for k, p, sp, s, f in zip(got, want, sens, std, fin):
+        assert ssim_grad.relaxed_grad_holds(k, p, scale, sp)[0]
         if f.any():
-            assert (k[f] - p[f]).abs().max().item() <= _GRAD_TWIN * scale
             assert 0 < (k[f] - s[f]).abs().max().item() <= _GRAD_STD * scale
     return got
 
@@ -419,3 +453,183 @@ def test_relaxed_runtime_radius_source_one_row_on_the_host(bwd_emulator):
         e_twin = (p.double() - d).abs().max().item()
         assert e_kernel <= max(2 * e_twin, _GRAD_TWIN * scale)
         assert e_kernel <= _GRAD_STD * scale
+
+
+#: The standard tier's bound against its twin (chip_smoke.py's backward
+#: checks): 1e-6 x max(1, max|g|); NaN over exactly the twin's tiles.
+_STD_TWIN = 1e-6
+
+
+def _hold_std(exe, a, b, seg, g_map=None, vhalo=None, vmask=(0, 0), seed=0, radius=5):
+    """The host build of the standard tier's stream (ssim_bwd_stream_kernel)
+    against ssim_grad_plain on the same inputs: NaN exactly where the
+    twin's is, within _STD_TWIN x max(1, max|g|) elsewhere. Returns (da,
+    db)."""
+    rng = np.random.default_rng(seed)
+    bsz, h, w = a.shape
+    w_s = (rng.random(bsz) / (h * w)).astype(np.float32)
+    w_cs = (0.3 * rng.random(bsz) / (h * w)).astype(np.float32)
+    got = _emulate(exe, a, b, w_s, w_cs, g_map, seg, vhalo, vmask, radius, ssim_grad.STRIP_W)
+    t = torch.from_numpy
+    kw = dict(_KW, taps=_window(radius))
+    if vhalo is not None:
+        kw.update(vhalo=tuple(t(x) for x in vhalo), vmask=vmask)
+    g = None if g_map is None else t(g_map)
+    want = ssim_grad.ssim_grad_plain(t(a), t(b), t(w_s), t(w_cs), g, **kw)
+    fin = [~x.isnan() for x in want]
+    scale = max([1.0] + [float(x[f].abs().max()) for x, f in zip(want, fin) if f.any()])
+    for k, p, f in zip(got, want, fin):
+        assert torch.equal(k.isnan(), p.isnan())
+        if f.any():
+            assert (k[f] - p[f]).abs().max().item() <= _STD_TWIN * scale
+    return got
+
+
+def _halo_band(rng, shape, lo, hi, radius, flags):
+    """A band [lo, hi) of a random pair and its halo operands of 2r rows
+    (NaN-filled under a set flag: never read): (a, b, vhalo)."""
+    a, b = _pair(rng, shape)
+
+    def ring(x):
+        top = (np.full_like(x[:, :2 * radius], np.nan) if flags[0]
+               else x[:, lo - 2 * radius:lo])
+        bot = (np.full_like(x[:, :2 * radius], np.nan) if flags[1]
+               else x[:, hi:hi + 2 * radius])
+        return np.ascontiguousarray(top), np.ascontiguousarray(bot)
+
+    (a_top, a_bot), (b_top, b_bot) = ring(a), ring(b)
+    return (np.ascontiguousarray(a[:, lo:hi]), np.ascontiguousarray(b[:, lo:hi]),
+            (a_top, a_bot, b_top, b_bot))
+
+
+#: The standard tier's cases: (radius, shape, segment, g_map, planted
+#: non-finite pixels (image, y, x, value)). Radius 5 runs the
+#: register-window instantiation, the others the runtime-radius one (kR =
+#: 0); ragged strips and segments, B = 2 and 3, segments of 1 and 2 tiles,
+#: the 16 x 64 NaN tile at radius 16, non-finite inputs on a segment's first
+#: and last rows, a strip's last and first columns, 2r rows above a segment
+#: and the image's last pixel.
+_STD_CASES = {
+    "r5 B = 2, ragged strip and segment": (5, (2, 70, 200), 32, False, ()),
+    "r5 g_map, 2 tiles a segment": (5, (1, 75, 140), 64, True, ()),
+    "r5 non-finite on boundaries": (5, (3, 70, 260), 32, False,
+                                    ((0, 32, 50, np.nan), (0, 31, 200, np.inf),
+                                     (1, 22, 127, -np.inf), (1, 60, 128, np.nan),
+                                     (1, 69, 259, np.nan))),
+    "r3 g_map, NaN in row 0": (3, (1, 40, 140), 32, True, ((0, 0, 70, np.nan),)),
+    "r16 ragged, 16-row tiles": (16, (2, 37, 150), 16, False, ()),
+    "r1 g_map, W < a strip": (1, (1, 33, 60), 32, True, ()),
+}
+
+
+@pytest.mark.parametrize("case", list(_STD_CASES))
+def test_standard_stream_source_matches_twin_on_the_host(bwd_std_emulator, case):
+    """The standard tier's backward stream (ssim_bwd_stream_kernel: at radius
+    5 the weight maps' window in registers, elsewhere the runtime-radius
+    instantiation with both windows as rings), built for the host, against
+    ssim_grad_plain: within 1e-6 x max(1, max|g|), the card's bound, NaN
+    over exactly the twin's tiles (only where a non-finite input lies), with
+    and without g_map."""
+    radius, shape, seg, with_g, planted = _STD_CASES[case]
+    rng = np.random.default_rng(0xC0 + len(case))
+    a, b = _pair(rng, shape)
+    for img, y, x, v in planted:
+        a[img, y, x] = v
+    g_map = rng.normal(0, 1e-5, shape).astype(np.float32) if with_g else None
+    da, db = _hold_std(bwd_std_emulator, a, b, seg, g_map, seed=len(case), radius=radius)
+    assert all(bool(x.isnan().any()) == bool(planted) for x in (da, db))
+    if planted:
+        assert not da.isnan().all()
+
+
+@pytest.mark.parametrize("radius,flags", [(5, (0, 0)), (5, (1, 0)), (5, (0, 1)), (5, (1, 1)),
+                                          (3, (1, 0)), (16, (0, 1))])
+def test_standard_stream_source_with_halo_operands_on_the_host(bwd_std_emulator, radius,
+                                                               flags):
+    """The standard tier's stream with halo operands of 2r rows, each flag
+    pair at radius 5 and two at runtime radii: a band of 2r + 27 rows of a
+    taller image (a segment of 32 and a ragged one), the operands read
+    where a flag is clear and never read (NaN-filled) where it is set."""
+    rng = np.random.default_rng(0xC8 + 2 * flags[0] + flags[1] + radius)
+    lo = 2 * radius + 3
+    a, b, vhalo = _halo_band(rng, (1, 6 * radius + 60, 150), lo, lo + 2 * radius + 27,
+                             radius, flags)
+    got = _hold_std(bwd_std_emulator, a, b, 32 if radius < 16 else 16, vhalo=vhalo,
+                    vmask=flags, seed=radius, radius=radius)
+    assert all(torch.isfinite(x).all() for x in got)
+
+
+def test_split_sensitivity_covers_a_nudged_twin_and_not_a_moved_entry():
+    """ssim_grad.split_sensitivity at radius 1 (P8's radius): s(p) is the
+    largest distance of three nudged twins (every band pass's operand
+    SPLIT_NUDGE_ULPS ulps up, down, or each element a random way) from the
+    twin, NaN where the
+    twin is, zero nowhere it matters to the bound's tests; so a twin nudged
+    up holds the derived bound (kappa >= 1), and the twin with one
+    well-conditioned entry (the smallest s(p) among those with |g| over
+    half of max|g|) moved by 3e-4 x max|g| fails it, as the card's negative
+    control (chip_smoke.py relaxed_grad_sweep) must."""
+    from ssim_tpu_torch.ops import ssim_cuda
+
+    x = torch.tensor([1.5, -3.5, 0.375])  # inside their binades: one ulp each way alike
+    ulp = torch.nextafter(x.abs(), torch.tensor(float("inf"))) - x.abs()
+    n = ssim_cuda.SPLIT_NUDGE_ULPS
+    assert torch.equal(ssim_cuda._nudged(x, "up") - x, n * ulp)
+    assert torch.equal(x - ssim_cuda._nudged(x, "down"), n * ulp)
+    moved = ssim_cuda._nudged(x, torch.Generator().manual_seed(0)) - x
+    assert torch.equal(moved.abs(), n * ulp)
+    rng = np.random.default_rng(0xBD)
+    a, b = _pair(rng, (2, 40, 140))
+    a[1, 20, 70] = np.nan
+    w_s = (rng.random(2) / (40 * 140)).astype(np.float32)
+    w_cs = (0.3 * rng.random(2) / (40 * 140)).astype(np.float32)
+    t = torch.from_numpy
+    args = (t(a), t(b), t(w_s), t(w_cs), None)
+    kw = dict(_KW, taps=_window(1))
+    want, sens = ssim_grad.split_sensitivity(*args, **kw)
+    twin = ssim_grad.ssim_grad_plain(*args, relaxed=True, **kw)
+    up = ssim_grad.ssim_grad_plain(*args, relaxed=True, nudge="up", **kw)
+    std = ssim_grad.ssim_grad_plain(*args, **kw)
+    scale = max(float(x[~x.isnan()].abs().max()) for x in std)
+    assert ssim_grad.RELAXED_GRAD_KAPPA >= 1
+    for w_, tw, u, s in zip(want, twin, up, sens):
+        assert torch.equal(w_.nan_to_num(), tw.nan_to_num()) and torch.equal(s.isnan(),
+                                                                              w_.isnan())
+        fin = ~w_.isnan()
+        assert (s[fin] >= 0).all() and (s[fin] > 0).any()
+        assert ((u - w_).abs()[fin] <= s[fin]).all()
+        assert ssim_grad.relaxed_grad_holds(u, w_, scale, s)[0]
+        big = w_.abs().nan_to_num(0.0) > 0.5 * scale
+        idx = torch.where(big, s.nan_to_num(float("inf")), float("inf")).argmin()
+        moved = w_.clone()
+        moved.view(-1)[idx] += 3e-4 * scale
+        assert not ssim_grad.relaxed_grad_holds(moved, w_, scale, s)[0]
+
+
+@pytest.mark.parametrize("radius", [1, 8])
+def test_twin_without_its_low_parts_fails_the_derived_bound(monkeypatch, radius):
+    """A lower-precision control of the derived bound, as phase 15e's on the
+    card (chip_smoke.py hi_parts_only): the relaxed twin with every band
+    pass's bf16 low parts dropped, one bf16 product instead of three, put
+    in the kernel's place, fails ssim_grad.relaxed_grad_holds on each image
+    and output, at radius 1 (where s(p) is largest) and 8."""
+    from ssim_tpu_torch.ops import ssim_cuda
+
+    rng = np.random.default_rng(0xBE + radius)
+    a, b = _pair(rng, (2, 48, 150))
+    a[1, 24, 70] = np.nan
+    w_s = (rng.random(2) / (48 * 150)).astype(np.float32)
+    w_cs = (0.3 * rng.random(2) / (48 * 150)).astype(np.float32)
+    t = torch.from_numpy
+    args = (t(a), t(b), t(w_s), t(w_cs), t(rng.normal(0, 1e-6, a.shape).astype(np.float32)))
+    kw = dict(_KW, taps=_window(radius))
+    want, sens = ssim_grad.split_sensitivity(*args, **kw)
+    std = ssim_grad.ssim_grad_plain(*args, **kw)
+    split = ssim_cuda._bf16_split
+    monkeypatch.setattr(ssim_cuda, "_bf16_split",
+                        lambda x: (split(x)[0], torch.zeros_like(x)))
+    lower = ssim_grad.ssim_grad_plain(*args, relaxed=True, **kw)
+    for j in range(2):
+        scale = max(float(x[j].nan_to_num(0.0).abs().max()) for x in std)
+        for low, p, sp in zip(lower, want, sens):
+            assert ssim_grad.relaxed_grad_holds(low[j], p[j], scale, sp[j])[0] is False
