@@ -5857,16 +5857,245 @@ def phase_radius(gen, label):
     torch.cuda.empty_cache()
     rel_times, rel_fwd_line, rel_bwd_line = radius_relaxed_times(gen, label)
     batch = radius_batch(gen, label)
+    std = radius_std(label)
     seconds = time.perf_counter() - t0
     print(f"  phase 15: {seconds:.1f} s", flush=True)
     return dict(err=err, launches=launches, calls=calls, times=times, line=line,
                 checked=checked, body_err=body_err, body_checked=body_checked,
-                seconds=seconds, batch=batch, relaxed=dict(
+                seconds=seconds, batch=batch, std=std, relaxed=dict(
                     err=max(rel_err, rel_path_err), body_err=rel_body_err,
                     grad_err=max(rel_grad_err, rel_path_grad_err),
                     checked=rel_checked, launches_fwd=rel_fwd, launches_bwd=rel_bwd,
                     calls=rel_calls, times=rel_times, fwd_line=rel_fwd_line,
                     bwd_line=rel_bwd_line))
+
+
+# Phase 15f: the standard K3 at a runtime radius (ssim_bwd_rt.cu): (a) every
+# design built at every radius 1-16 but 5 (the routed one and the other,
+# pinned) against the twin, poisoned, +- g_map, f32 with NaN and inf, halo
+# operands at radii 3 and 16; (b) RT_STD_STEPS standard ssim_loss steps at
+# RT_STD_LINE_RADIUS on f32 (4, 1080, 1920), each K3 launch caught and held
+# against its twin; (c) times at grad_1080_b4 at RT_STD_GRAD_RADII +-
+# g_map beside the bound, the relaxed K3 and the blocks per SM. Its inputs
+# come from a generator of its own (RT_STD_SEED), so later phases draw what
+# they drew before.
+RT_STD_SEED = SEED + 9
+RT_STD_GRAD_RADII = (1, 3, 4, 6, 8, 9, 12, 16)
+RT_STD_LINE_RADIUS = 9
+RT_STD_STEPS = 3
+RT_STD_BWD_DESIGN = (
+    "the standard backward at a radius other than 5 (ssim_bwd_rt.cu): at "
+    "ssim_grad.STD_WINDOW_RADII (1-4, measured faster there) radius 5's one-pass stream with "
+    "that radius compiled in (ssim_bwd_stream_kernel<r, gmap>, bwd_std_stream.cuh: the weight "
+    "maps' window in registers, 6 blocks/SM at r = 1, 4 at 2-4), elsewhere the two-pass "
+    "stream (bwd_std_rt.cuh): pass A (ssim_bwd_rt_weights_kernel<gmap>: 128 mid columns a "
+    "block, one thread each, two staged rows a step and a ring of 2r + 2 rows of the "
+    "horizontal blurs in shared memory) writes the weight maps as one float4 a mid-grid "
+    "position to scratch and marks NaN tiles in a per-tile mask; pass B "
+    "(ssim_bwd_rt_adjoint_kernel: 128 output columns and 128 + 2r threads a block, a ring of "
+    "2r + 2 map rows) takes both adjoints and da/db; two rows a step share the vertical "
+    "windows' loads, the taps come from the kernel's parameters, running ring slots, no "
+    "division a step; 5 blocks/SM at radii 6-7 down to 2 at 13-16")
+
+
+def std_grad_designs(radius):
+    """The standard K3 designs built at this radius, (two_pass, routed):
+    the two-pass stream everywhere, the one-pass stream at
+    ssim_grad.STD_WINDOW_RADII."""
+    from ssim_tpu_torch.ops import ssim_grad
+
+    built = [True] + ([False] if radius in ssim_grad.STD_WINDOW_RADII else [])
+    return [(two, two == ssim_grad.std_two_pass(radius)) for two in built]
+
+
+def hold_std_grad(name, got, want):
+    """Kernel against twin: NaN exactly where the twin's is, within
+    GRAD_TWIN x max(1, max|g|) elsewhere. Returns the error / max(1, max|g|)."""
+    scale = 1.0
+    for k, p in zip(got, want):
+        check(torch.equal(k.isnan(), p.isnan()), f"{name}: NaN gradients differ")
+        fin = ~p.isnan()
+        if fin.any():
+            scale = max(scale, float(p[fin].abs().max()))
+    err = max(max_finite(k, p) for k, p in zip(got, want))
+    check(err <= GRAD_TWIN * scale,
+          f"{name}: backward kernel vs twin {err:.3g} (tol {GRAD_TWIN * scale:.3g})")
+    return err / scale
+
+
+def radius_std_kernels(gen):
+    """15f(a): every standard K3 design built at every radius 1-16 but 5, the
+    routed one and (pinned) the other, +- g_map, on f32 (2, 133, 300) with
+    a NaN and an inf, outputs and shared memory poisoned, each launch
+    counted (LAUNCHES; TWO_PASS_LAUNCHES for the two-pass stream) and held
+    against the twin; then halo operands at radii 3 and 16 under three flag
+    pairs, each design. Returns (largest error / max(1, max|g|), launches
+    checked by design)."""
+    from ssim_tpu_torch.ops import ssim_grad
+    from ssim_tpu_torch.tools import fwd_times
+
+    sigma = fwd_times.RADIUS_SIGMA.__getitem__
+    a, b = pair(gen, (2, 133, 300), torch.float32, 1.0)
+    a[0, 31, 64] = float("nan")
+    b[1, 70, 127] = float("inf")
+    w_s = torch.rand(2, generator=gen, device="cuda") + 0.5
+    w_cs = torch.rand(2, generator=gen, device="cuda") * 0.3
+    g = torch.randn(a.shape, generator=gen, device="cuda")
+    err, checked = 0.0, {"two-pass": 0, "one-pass": 0}
+
+    def run(name, x, y, gm, two, routed, **extra):
+        kw = dict(taps=ssim_grad._taps(radius, float(sigma(radius))), c1=1e-4, c2=9e-4,
+                  clip_bound=131072.0, **extra)
+        pin = {} if routed else dict(two_pass=two)
+        counter = "VHALO_LAUNCHES" if extra else "LAUNCHES"
+        before = (getattr(ssim_grad, counter), ssim_grad.TWO_PASS_LAUNCHES)
+        got = poisoned(lambda: ssim_grad._launch(x, y, w_s, w_cs, gm, **pin, **kw))
+        torch.cuda.synchronize()
+        check((getattr(ssim_grad, counter), ssim_grad.TWO_PASS_LAUNCHES)
+              == (before[0] + 1, before[1] + two), f"{name}: launches not counted as expected")
+        want = ssim_grad.ssim_grad_plain(x, y, w_s, w_cs, gm, **kw)
+        checked["two-pass" if two else "one-pass"] += 1
+        return hold_std_grad(name, got, want)
+
+    for radius in range(1, ssim_grad.MAX_FUSED_RADIUS + 1):
+        if radius == ssim_grad.RADIUS:
+            continue
+        for two, routed in std_grad_designs(radius):
+            design = "two-pass" if two else "one-pass"
+            for gm in (None, g):
+                name = (f"standard K3 {design}{'' if routed else ' (pinned)'} radius "
+                        f"{radius}{' g_map' if gm is not None else ''}")
+                err = max(err, run(name, a, b, gm, two, routed))
+    for radius in (3, 16):
+        lo = 2 * radius + 3
+        hi = lo + 40
+        x, y = a[:, lo:hi].contiguous(), b[:, lo:hi].contiguous()
+        vhalo = tuple(t[:, s].contiguous() for t in (a, b)
+                      for s in (slice(lo - 2 * radius, lo), slice(hi, hi + 2 * radius)))
+        for flags in ((0, 0), (1, 0), (0, 1)):
+            for two, routed in std_grad_designs(radius):
+                name = (f"standard K3 {'two-pass' if two else 'one-pass'} radius {radius} halo "
+                        f"operands {flags}")
+                err = max(err, run(name, x, y, None, two, routed, vhalo=vhalo, vmask=flags))
+    return err, checked
+
+
+def radius_std_path(gen):
+    """15f(b): RT_STD_STEPS Adam steps of the standard ssim_loss at
+    RT_STD_LINE_RADIUS on f32 (4, 1080, 1920), counts from 0: one standard
+    forward launch (streaming) and one K3 launch (the two-pass stream) a
+    step; each K3 launch, outputs and shared memory poisoned, held against
+    its twin on its own inputs (cloned before it). Returns (K3 launches,
+    largest error / max(1, max|g|), counts)."""
+    import ssim_tpu_torch
+    from ssim_tpu_torch.ops import ssim_grad
+    from ssim_tpu_torch.tools import fwd_times
+
+    radius = RT_STD_LINE_RADIUS
+    clean, noisy = pair(gen, (4, 1080, 1920), torch.float32, 1.0)
+    x = noisy.clone().requires_grad_()
+    opt = torch.optim.Adam([x], lr=1e-3)
+    losses, seen, err = [], [], 0.0
+
+    def step():
+        opt.zero_grad()
+        loss = ssim_tpu_torch.ssim_loss(x, clean, radius=radius,
+                                        sigma=fwd_times.RADIUS_SIGMA[radius])
+        loss.backward()
+        return loss
+
+    zero_counts()
+    two0 = ssim_grad.TWO_PASS_LAUNCHES
+    for _ in range(RT_STD_STEPS):
+        loss, got = captured(ssim_grad, step)
+        seen += got
+        opt.step()
+        with torch.no_grad():
+            x.clamp_(0.0, 1.0)
+        losses.append(float(loss.detach()))
+    torch.cuda.synchronize()
+    counts = {k: v for k, v in launch_counts().items() if v}
+    n = RT_STD_STEPS
+    two = ssim_grad.TWO_PASS_LAUNCHES - two0
+    check(counts == counts_of_nonzero(standard=n, stream=n, backward=n) and two == n
+          and len(seen) == n and all(np.isfinite(losses)) and losses[-1] < losses[0],
+          f"ssim_loss radius {radius}: launches {counts}, two-pass {two}, losses {losses}")
+    for i, (args, kw, got, _) in enumerate(seen):
+        name = f"ssim_loss step {i} K3 {tuple(args[0].shape)} radius {radius}"
+        check(len(kw["taps"]) == 2 * radius + 1 and not kw.get("relaxed"),
+              f"{name}: not a standard launch at radius {radius}")
+        twin_kw = {k: v for k, v in kw.items() if k not in ("segment", "relaxed")}
+        err = max(err, hold_std_grad(name, got, ssim_grad.ssim_grad_plain(*args, **twin_kw)))
+    return two, err, dict(counts, two_pass=two)
+
+
+def radius_std_times(gen, label):
+    """15f(c): the routed standard K3 at grad_1080_b4 (f32 (4, 1080, 1920))
+    at RT_STD_GRAD_RADII +- g_map, two runs of CUDA events around 10
+    back-to-back calls, beside bwd_bound, the relaxed K3 on the same inputs
+    and the runtime's blocks per SM; the twin's time at
+    RT_STD_LINE_RADIUS. Returns (times, the kernels line's figures)."""
+    from ssim_tpu_torch.ops import ssim_grad
+    from ssim_tpu_torch.tools import fwd_times
+
+    sigma = fwd_times.RADIUS_SIGMA.__getitem__
+    shape = (4, 1080, 1920)
+    a, b = pair(gen, shape, torch.float32, 1.0)
+    w_s = torch.full((4,), 1.0 / (shape[1] * shape[2]), device="cuda")
+    w_cs = torch.zeros(4, device="cuda")
+    g = torch.randn(shape, generator=gen, device="cuda") * 1e-7
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    times = {}
+    for radius in RT_STD_GRAD_RADII:
+        rel = lambda: ssim_grad.ssim_grad_cuda(a, b, w_s, w_cs, None, data_range=1.0,
+                                               radius=radius, sigma=sigma(radius),
+                                               relaxed=True)
+        t_rel = cuda_ms(rel, 10)
+        for gm in (None, g):
+            fn = lambda: ssim_grad.ssim_grad_cuda(a, b, w_s, w_cs, gm, data_range=1.0,
+                                                  radius=radius, sigma=sigma(radius))
+            t = [cuda_ms(fn, 10), cuda_ms(fn, 10)]
+            bnd, by = bwd_bound(shape, gm is not None, radius)
+            key = f"K3 grad_1080_b4 r{radius}{' g_map' if gm is not None else ''}"
+            times[key] = dict(
+                ms=min(t), runs_ms=t, bound_ms=bnd, bound_by=by, shape=list(shape),
+                design="two-pass" if ssim_grad.std_two_pass(radius) else "one-pass",
+                blocks_per_sm=ssim_grad._resident(a.device.index, radius, gm is not None) // sms,
+                relaxed_ms=t_rel if gm is None else None)
+            print(f"  {key}: {t[0]:.4f} / {t[1]:.4f} ms ({times[key]['design']}, "
+                  f"{times[key]['blocks_per_sm']} blocks/SM), bound {bnd:.4f} ms ({by})"
+                  + (f", relaxed K3 {t_rel:.4f} ms" if gm is None else "") + f" | {label}",
+                  flush=True)
+    radius = RT_STD_LINE_RADIUS
+    kw = dict(taps=ssim_grad._taps(radius, float(sigma(radius))), c1=1e-4, c2=9e-4,
+              clip_bound=131072.0)
+    line = dict(times[f"K3 grad_1080_b4 r{radius}"], radius=radius)
+    line["plain_ms"] = cuda_ms(lambda: ssim_grad.ssim_grad_plain(a, b, w_s, w_cs, None, **kw), 3)
+    print(f"  K3 grad_1080_b4 r{radius}: twin {line['plain_ms']:.3f} ms", flush=True)
+    del a, b, g
+    torch.cuda.empty_cache()
+    return times, line
+
+
+def radius_std(label):
+    """Phase 15f (radius_std_kernels, radius_std_path, radius_std_times) from
+    its own generator (RT_STD_SEED)."""
+    gen = torch.Generator(device="cuda").manual_seed(RT_STD_SEED)
+    t0 = time.perf_counter()
+    err, checked = radius_std_kernels(gen)
+    print(f"  standard K3 at a runtime radius: {checked['two-pass']} two-pass and "
+          f"{checked['one-pass']} one-pass launches (radii 1-16 but 5 +- g_map, the routed "
+          f"design and the other pinned; halo operands at 3 and 16), poisoned: all match the "
+          f"twin, largest error {err:.3g} x max(1, max|g|)", flush=True)
+    launches, path_err, counts = radius_std_path(gen)
+    print(f"  {RT_STD_STEPS} standard ssim_loss steps at radius {RT_STD_LINE_RADIUS} on f32 "
+          f"(4, 1080, 1920): {launches} two-pass K3 launches, each poisoned and within "
+          f"{path_err:.3g} x max(1, max|g|) of its twin; {counts}", flush=True)
+    times, line = radius_std_times(gen, label)
+    seconds = time.perf_counter() - t0
+    print(f"  phase 15f: {seconds:.1f} s", flush=True)
+    return dict(err=max(err, path_err), checked=checked, launches=launches, counts=counts,
+                times=times, line=line, seconds=seconds)
 
 
 # Phase 15e (ROADMAP Queue 3, P8): phase 15a's relaxed K3 inputs (f32 (2,
@@ -6338,6 +6567,14 @@ def main():
         "msssim_train_step_ms": statistics.median(ms["train_step_ms"]),
         "msssim_step_trace_busy_ms": ms["trace_busy_ms"],
         "msssim_step_trace_k3_ms": ms["trace_k3_ms"],
+        "runtime_radius": {
+            "design": RT_STD_BWD_DESIGN,
+            "launches": radius["std"]["launches"],
+            "checked_launches": radius["std"]["checked"],
+            "max_abs_err": radius["std"]["err"],
+            "max_abs_err_unit": "max(1, max|g|)",
+            "times": radius["std"]["times"],
+        },
         "launches_msssim_training": ms["train"]["backward"],
         "msssim_grad_vs_autograd": ms["grad_err"],
         "msssim_grad_max": ms["grad_scale"],
@@ -6652,6 +6889,22 @@ def main():
         "tile_body_max_abs_err": radius["relaxed"]["body_err"],
         "times": {k: v for k, v in radius["relaxed"]["times"].items()
                   if not k.startswith("K3")},
+    }, {
+        "name": "ssim_bwd_rt",
+        "route": "cuda",
+        "source": "ssim_tpu_torch/csrc/ssim_bwd_rt.cu",
+        "header": "ssim_tpu_torch/csrc/bwd_std_rt.cuh",
+        "design": RT_STD_BWD_DESIGN,
+        "replaces": "ssim_tpu/ops/ssim_grad.py:278 (a custom window: radius 1-16 but 5)",
+        "launches": radius["std"]["launches"],
+        "max_abs_err": radius["std"]["err"],
+        "max_abs_err_unit": "max(1, max|g|)",
+        **{k: radius["std"]["line"][k]
+           for k in ("ms", "plain_ms", "bound_ms", "bound_by", "shape", "radius", "design",
+                     "blocks_per_sm", "relaxed_ms")},
+        "library_ms": None,
+        "checked_launches": radius["std"]["checked"],
+        "times": radius["std"]["times"],
     }, {
         "name": "ssim_bwd_relaxed_rt",
         "route": "cuda",

@@ -134,11 +134,11 @@ __device__ __forceinline__ void poison_tiles(unsigned bad, float* da, float* db,
 // tests/fwd_stream_emu, takes what is above).
 
 // Sets a kernel's dynamic shared-memory limit once per instantiation,
-// device and size (the largest asked so far), not on every launch.
+// device and size (the largest asked so far), not on every launch; at every
+// size, for the kernel's static arrays count against the default 48 KB too.
 template <typename Kernel>
 cudaError_t allow_smem(Kernel kernel, size_t bytes, int (&done)[64],
                        std::mutex& mu) {
-  if (bytes <= 48 * 1024) return cudaSuccess;
   int dev = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err != cudaSuccess) return err;

@@ -167,16 +167,21 @@ def load_library() -> ctypes.CDLL:
             lib.ssim_fwd_stream_occupancy.argtypes = [i, i, i, i, ctypes.POINTER(i)]
             lib.ssim_fwd_stream_occupancy.restype = i
             # The backward entry takes the NaN tile (TH, TW), the
-            # streaming kernels' segment rows S and strip columns SW.
+            # streaming kernels' segment rows S and strip columns SW, and
+            # the scratch of the standard two-pass stream (or NULL).
             lib.ssim_bwd_launch.argtypes = [
                 i, p, p, p, p, p, p, p, p, p, p, p, i, i, i, i, i, i, i, i, i, i,
-                p, p, f, f, f, p,
+                p, p, p, f, f, f, p,
             ]
             lib.ssim_bwd_launch.restype = i
             # relaxed, r, gmap, strip columns, out: blocks per SM of the
             # streaming kernel, the standard one or the relaxed one.
             lib.ssim_bwd_stream_occupancy.argtypes = [i, i, i, i, ctypes.POINTER(i)]
             lib.ssim_bwd_stream_occupancy.restype = i
+            # r, gmap, two_pass, out: blocks per SM of the standard stream
+            # at a radius other than 5, the two-pass one or the one-pass one.
+            lib.ssim_bwd_std_rt_occupancy.argtypes = [i, i, i, ctypes.POINTER(i)]
+            lib.ssim_bwd_std_rt_occupancy.restype = i
             # x, out, itemsize, B, H, W, hp, wp, stream.
             lib.pad_align_launch.argtypes = [p, p, i, i, i, i, i, i, p]
             lib.pad_align_launch.restype = i

@@ -11,7 +11,10 @@ returns (dL/da, dL/db). The kernel is `ssim_tpu_torch/csrc/ssim_bwd.cu`.
 Its standard tier streams: one CUDA block per strip of STRIP_W output
 columns and segment of rows (stream_segment picks the segment's length to
 fill the card; stream_blocks lists the blocks), so the TPU's column
-chunking at GRAD_MAX_W = 7680 lanes has no counterpart. The relaxed tier
+chunking at GRAD_MAX_W = 7680 lanes has no counterpart; in one pass at
+radius 5 and STD_WINDOW_RADII (the weight maps' window in registers), in
+two at every other radius (`csrc/bwd_std_rt.cuh`: the weight maps into a
+scratch map on the mid grid, then the adjoints from it). The relaxed tier
 streams rows too, at every radius 1 to MAX_FUSED_RADIUS (8 rows a step,
 all sixteen band passes on the tensor cores), in strips of
 relaxed_strip_w(radius) columns.
@@ -63,13 +66,17 @@ TILE_W = 64
 #: those with halo operands; RELAXED_LAUNCHES: the relaxed mode's, with or
 #: without them). The wrapper adds one per launch to one of the three and
 #: nowhere else, so a caller can show that a run went through the kernel
-#: in that mode. Both tiers have one design each, a row stream, so every
-#: launch counted is a streaming one (the relaxed stream compiles radius 5
-#: in, ssim_bwd.cu, and reads the others at run time,
-#: ssim_bwd_relaxed_rt.cu).
+#: in that mode. Every launch counted is a streaming one: the standard
+#: tier's one-pass stream (radius 5, ssim_bwd.cu, and STD_WINDOW_RADII,
+#: ssim_bwd_rt.cu) or its two-pass stream (every other radius,
+#: ssim_bwd_rt.cu), the relaxed stream (radius 5 compiled in, ssim_bwd.cu,
+#: the others read at run time, ssim_bwd_relaxed_rt.cu).
 LAUNCHES = 0
 VHALO_LAUNCHES = 0
 RELAXED_LAUNCHES = 0
+#: Of the standard launches (LAUNCHES or VHALO_LAUNCHES), those of the
+#: two-pass stream (std_two_pass).
+TWO_PASS_LAUNCHES = 0
 
 
 def grad_cuda_supported(h: int, w: int, radius: int = RADIUS) -> bool:
@@ -119,6 +126,65 @@ def relaxed_smem_bytes(radius: int, strip_w: int) -> int:
     return xv + rings + 4 * 2 * 4 * 16 * warps + (16 * kh + 8 * kv) * 2 * 32
 
 
+#: The radii at which ssim_bwd_rt.cu builds, and the wrapper routes, the
+#: standard tier's one-pass stream with the weight maps' window in
+#: registers (radius 5's design, bwd_std_stream.cuh; radius 5 itself is
+#: ssim_bwd.cu's): measured faster there than the two-pass stream on an
+#: H100 (`tools/bwd_times.py --radii ... --designs`, PERF.md §6), which
+#: serves every other radius.
+STD_WINDOW_RADII = (1, 2, 3, 4)
+
+
+def std_two_pass(radius: int) -> bool:
+    """Whether a standard launch at this radius runs the two-pass stream
+    (pass A's weight maps through a scratch map on the mid grid, then pass
+    B's adjoints): every radius but 5 and STD_WINDOW_RADII."""
+    return radius != RADIUS and radius not in STD_WINDOW_RADII
+
+
+#: Shared memory an SM of an H100 holds, and what the runtime reserves a
+#: block (the occupancy models below).
+SM_SMEM, BLOCK_RESERVED = 233472, 1024
+
+
+def std_smem_bytes(radius: int, two_pass: bool = True) -> Tuple[int, ...]:
+    """Dynamic shared memory a block of the standard stream takes at this
+    radius: the two-pass stream's pass A and pass B (bwd_std_rt.cuh
+    rt_smem_a / rt_smem_b, two rows a step: A two groups of two staged rows
+    of STRIP_W + 2r float4 and a ring of 2r + 2 float4 rows of STRIP_W
+    threads; B two groups of two vertical-adjoint rows and a ring of 2r + 2
+    rows, float4 each, of STRIP_W + 2r threads), or (two_pass False) the
+    one-pass stream's one block (bwd_std_stream.cuh
+    stream_smem_floats: two staged rows over STRIP_W + 4r columns, two
+    vertical-adjoint rows and the horizontal blurs' ring of 2r + 1 rows of
+    its 160 threads, float4 each, and a ring of 2r + 3 rows of the strip's
+    {a, b})."""
+    if two_pass:
+        nt = STRIP_W + 2 * radius
+        return (16 * (4 * (STRIP_W + 2 * radius) + (2 * radius + 2) * STRIP_W),
+                16 * (2 * radius + 6) * nt)
+    threads = STRIP_W + 2 * MAX_FUSED_RADIUS
+    return (4 * (8 * (STRIP_W + 4 * radius) + 8 * threads + 2 * (2 * radius + 3) * STRIP_W
+                 + 4 * (2 * radius + 1) * threads),)
+
+
+def std_blocks_per_sm(radius: int, two_pass: bool = True) -> int:
+    """Blocks of the standard stream an H100's SM holds at this radius by
+    its shared memory alone (SM_SMEM over each block's dynamic bytes and
+    BLOCK_RESERVED; the two-pass stream has no static arrays), the fewer of
+    the two passes'; the registers may cap it lower."""
+    return min(SM_SMEM // (n + BLOCK_RESERVED) for n in std_smem_bytes(radius, two_pass))
+
+
+def std_rt_scratch_bytes(bsz: int, h: int, w: int, radius: int) -> int:
+    """Scratch of the two-pass stream (bwd_std_rt.cuh rt_map_bytes +
+    rt_mask_bytes): pass A's weight maps, one float4 a position of the mid
+    grid (h + 2r) x (w + 2r), then one word a NaN tile (default_tile)."""
+    tile_h, tile_w = default_tile(radius)
+    return (16 * bsz * (h + 2 * radius) * (w + 2 * radius)
+            + 4 * bsz * -(-h // tile_h) * -(-w // tile_w))
+
+
 def stream_segment(bsz: int, h: int, w: int, radius: int, resident: int,
                    strip_w: int = STRIP_W) -> int:
     """A streaming kernel's segment rows for (bsz, h, w) at this radius,
@@ -157,17 +223,24 @@ def _taps(radius: int, sigma: float) -> np.ndarray:
 
 @functools.lru_cache(maxsize=64)
 def _resident(index: int, radius: int, gmap: bool, relaxed: bool = False,
-              strip_w: int = STRIP_W) -> int:
+              strip_w: int = STRIP_W, two_pass: Optional[bool] = None) -> int:
     """Streaming-kernel blocks that card `index` holds at once at this
     radius, the standard kernel's or (relaxed) the relaxed one's at a strip
     of strip_w columns: its SMs times the CUDA runtime's occupancy for the
-    instantiation (ssim_bwd_stream_occupancy)."""
+    instantiation (ssim_bwd_stream_occupancy: at a standard radius other
+    than 5 the design the launch routes there; two_pass pins one,
+    ssim_bwd_std_rt_occupancy)."""
     from . import _build
 
     n = ctypes.c_int(0)
+    lib = _build.load_library()
     with torch.cuda.device(index):
-        err = _build.load_library().ssim_bwd_stream_occupancy(
-            int(relaxed), radius, int(gmap), strip_w, ctypes.byref(n))
+        if two_pass is None or relaxed or radius == RADIUS:
+            err = lib.ssim_bwd_stream_occupancy(int(relaxed), radius, int(gmap), strip_w,
+                                                ctypes.byref(n))
+        else:
+            err = lib.ssim_bwd_std_rt_occupancy(radius, int(gmap), int(two_pass),
+                                                ctypes.byref(n))
     if err != 0 or n.value < 1:
         raise RuntimeError(f"ssim_bwd_stream_occupancy failed (cudaError {err}, "
                            f"{n.value} blocks per SM)")
@@ -379,12 +452,15 @@ def relaxed_grad_holds(k, p, scale, sens):
 
 
 def _launch(a, b, w_s, w_cs, g_map, *, taps, c1, c2, clip_bound, vhalo=None,
-            vmask=(False, False), relaxed=False, segment=None, strip_w=None):
+            vmask=(False, False), relaxed=False, segment=None, strip_w=None,
+            two_pass=None):
     """Launch the CUDA kernel on (B, H, W) contiguous f32 tensors on one
     CUDA device; no synchronisation. segment: the streaming kernel's
     segment rows (stream_segment's choice if None); strip_w: the relaxed
-    one's strip (relaxed_strip_w's if None)."""
-    global LAUNCHES, VHALO_LAUNCHES, RELAXED_LAUNCHES
+    one's strip (relaxed_strip_w's if None); two_pass (standard, radius
+    other than 5): the two-pass stream or the one-pass one where it is
+    built (std_two_pass's choice if None)."""
+    global LAUNCHES, VHALO_LAUNCHES, RELAXED_LAUNCHES, TWO_PASS_LAUNCHES
     from . import _build
 
     lib = _build.load_library()
@@ -396,8 +472,17 @@ def _launch(a, b, w_s, w_cs, g_map, *, taps, c1, c2, clip_bound, vhalo=None,
         sw = strip_w or relaxed_strip_w(r)
     elif strip_w not in (None, STRIP_W):
         raise ValueError(f"the standard stream's strip is {STRIP_W} columns")
-    seg = segment or stream_segment(
-        bsz, h, w, r, _resident(a.device.index, r, g_map is not None, relaxed, sw), sw)
+    two = not relaxed and (std_two_pass(r) if two_pass is None else two_pass)
+    if two and r == RADIUS:
+        raise ValueError(f"radius {RADIUS} has the one-pass stream only")
+    if not relaxed and not two and r != RADIUS and r not in STD_WINDOW_RADII:
+        raise ValueError(f"no one-pass stream is built at radius {r}")
+    if segment is None:
+        pin = () if two_pass is None or relaxed else (two,)
+        segment = stream_segment(
+            bsz, h, w, r, _resident(a.device.index, r, g_map is not None, relaxed, sw, *pin),
+            sw)
+    seg = segment
     if seg % tile_h or not tile_h <= seg <= MAX_SEG_TILES * tile_h:
         raise ValueError(f"segment {seg} is not 1-{MAX_SEG_TILES} tiles of "
                          f"{tile_h} rows")
@@ -407,6 +492,8 @@ def _launch(a, b, w_s, w_cs, g_map, *, taps, c1, c2, clip_bound, vhalo=None,
     taps_c, fold_c = _c_window(np.asarray(taps, np.float32).tobytes())
     da = torch.empty_like(a)
     db = torch.empty_like(a)
+    scratch = (torch.empty(std_rt_scratch_bytes(bsz, h, w, r), dtype=torch.uint8,
+                           device=a.device) if two else None)
     with torch.cuda.device(a.device):
         err = lib.ssim_bwd_launch(
             int(relaxed), a.data_ptr(), b.data_ptr(), w_s.data_ptr(), w_cs.data_ptr(),
@@ -414,6 +501,7 @@ def _launch(a, b, w_s, w_cs, g_map, *, taps, c1, c2, clip_bound, vhalo=None,
             da.data_ptr(), db.data_ptr(),
             *((None,) * 4 if vhalo is None else (x.data_ptr() for x in vhalo)),
             int(vmask[0]), int(vmask[1]), bsz, h, w, r, tile_h, tile_w, seg, sw,
+            None if scratch is None else scratch.data_ptr(),
             ctypes.cast(taps_c, ctypes.c_void_p),
             ctypes.cast(fold_c, ctypes.c_void_p), c1, c2, clip_bound,
             torch.cuda.current_stream(a.device).cuda_stream,
@@ -428,6 +516,7 @@ def _launch(a, b, w_s, w_cs, g_map, *, taps, c1, c2, clip_bound, vhalo=None,
         LAUNCHES += 1
     else:
         VHALO_LAUNCHES += 1
+    TWO_PASS_LAUNCHES += two
     return da, db
 
 

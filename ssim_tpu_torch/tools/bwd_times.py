@@ -1,7 +1,7 @@
 """Times the backward kernel on the card, by radius.
 
-    python -m ssim_tpu_torch.tools.bwd_times [--segments] [--relaxed [--radii R,...]
-                                             [--strips]]
+    python -m ssim_tpu_torch.tools.bwd_times [--segments] [--radii R,... [--designs]]
+                                             [--relaxed [--radii R,...] [--strips]]
 
 Times `ssim_grad_cuda` (CUDA events around 20 back-to-back calls, median
 of 3) at (4, 1080, 1920) f32 for radii 4, 5, 6 and 16, with and without a
@@ -16,6 +16,14 @@ PYTHONPATH:
 --segments also times each radius without g_map at every segment length
 the kernel takes up to 512 rows, beside the wrapper's own choice
 (`ssim_grad.stream_segment`).
+
+--radii R,... (without --relaxed) times the standard tier at those radii
+instead, with and without g_map, each beside its blocks per SM (the CUDA
+runtime's occupancy for the design the package routes there: the one-pass
+stream at STD_WINDOW_RADII, the two-pass stream at the other radii but
+5); --designs also times each standard design built at each radius,
+pinned (`_launch(two_pass=)`: "r=8 two-pass", "r=3 one-pass"), with its
+blocks per SM.
 
 --relaxed times the relaxed tier instead (`relaxed=True`, every band pass
 on the tensor cores) at radii 5 and 4 (RELAXED_RADII; --radii R,... for
@@ -79,6 +87,7 @@ def main():
     parser.add_argument("--relaxed", action="store_true")
     parser.add_argument("--radii", type=lambda x: tuple(int(v) for v in x.split(",")))
     parser.add_argument("--strips", action="store_true")
+    parser.add_argument("--designs", action="store_true")
     args = parser.parse_args()
     if not torch.cuda.is_available():
         print("needs a CUDA card", file=sys.stderr)
@@ -96,6 +105,7 @@ def main():
     radii, tag = (RELAXED_RADII, " relaxed") if args.relaxed else (RADII, "")
     radii = args.radii or radii
     strips = args.strips and "strip_w" in inspect.signature(ssim_grad._launch).parameters
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
     for radius in radii:
         kw = dict(taps=gaussian_taps(np.float32, radius, 1.5), c1=(0.01 * 255) ** 2,
                   c2=(0.03 * 255) ** 2, clip_bound=131072.0, relaxed=args.relaxed)
@@ -103,7 +113,25 @@ def main():
             ms[name] = cuda_ms(lambda: ssim_grad.ssim_grad_cuda(
                 a, b, w_s, w_cs, gmap, data_range=255.0, radius=radius, sigma=1.5,
                 relaxed=args.relaxed))
-            print(f"  {name}: {ms[name]:.4f} ms", flush=True)
+            extra = ""
+            if args.radii and not args.relaxed:
+                ms[f"{name} blocks_per_sm"] = blocks = ssim_grad._resident(
+                    a.device.index, radius, gmap is not None) // sms
+                extra = f" ({blocks} blocks/SM)"
+            print(f"  {name}: {ms[name]:.4f} ms{extra}", flush=True)
+        if args.designs and not args.relaxed and hasattr(ssim_grad, "std_two_pass"):
+            for two in (True, False):
+                if radius == 5 or not (two or radius in ssim_grad.STD_WINDOW_RADII):
+                    continue
+                design = "two-pass" if two else "one-pass"
+                for name, gmap in ((f"r={radius} {design}", None),
+                                   (f"r={radius} {design} g_map", g)):
+                    ms[name] = cuda_ms(lambda: ssim_grad._launch(a, b, w_s, w_cs, gmap,
+                                                                 two_pass=two, **kw))
+                    ms[f"{name} blocks_per_sm"] = blocks = ssim_grad._resident(
+                        a.device.index, radius, gmap is not None, False, ssim_grad.STRIP_W,
+                        two) // sms
+                    print(f"  {name}: {ms[name]:.4f} ms ({blocks} blocks/SM)", flush=True)
         if strips:
             for sw in STRIPS:
                 try:

@@ -14,6 +14,7 @@
 #define __device__
 #define __host__
 #define __forceinline__ inline
+#define __grid_constant__
 #define __shared__ static
 #define __launch_bounds__(...)
 #define __align__(n) __attribute__((aligned(n)))

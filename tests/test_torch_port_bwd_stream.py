@@ -165,18 +165,21 @@ _REL_DYN = ("extern __shared__ __align__(16) unsigned char rel_smem[];",
             "unsigned char* rel_smem = emu_dynamic_shared();")
 _STD_DYN = ("extern __shared__ float4 stream_smem[];",
             "float4* stream_smem = reinterpret_cast<float4*>(emu_dynamic_shared());")
+_RT_DYN = ("extern __shared__ float4 bwd_rt_smem[];",
+           "float4* bwd_rt_smem = reinterpret_cast<float4*>(emu_dynamic_shared());")
 
 
 def _build_bwd_emulator(out, harness="bwd_harness.cpp", edit=None, flags=()):
     """Build a backward harness into directory `out`: bwd_harness.cpp (the
-    relaxed stream) or bwd_std_harness.cpp (the standard tier's
-    ssim_bwd_stream_kernel). The kernels' source is copied there first:
-    csrc/bwd_common.cuh and csrc/bwd_relaxed_stream.cuh, each without its
-    host code, the relaxed kernels' body, csrc/bwd_relaxed_stream_body.cuh,
-    and csrc/ssim_bwd.cu up to its launchers (as ssim_bwd_stream.cu), each
-    __shared__ array a piece of the harness's arena (NaN at each block's
-    start, as CUDA leaves shared memory uninitialised); edit(name, text) may
-    change each text first, flags are added to g++'s command line
+    relaxed stream) or bwd_std_harness.cpp (the standard tier's streams,
+    the one-pass ssim_bwd_stream_kernel and the two-pass one). The kernels'
+    source is copied there first: csrc/bwd_common.cuh,
+    csrc/bwd_relaxed_stream.cuh, csrc/bwd_std_stream.cuh and
+    csrc/bwd_std_rt.cuh, each without its host code, and the relaxed
+    kernels' body, csrc/bwd_relaxed_stream_body.cuh, each __shared__ array
+    a piece of the harness's arena (NaN at each block's start, as CUDA
+    leaves shared memory uninitialised); edit(name, text) may change each
+    text first, flags are added to g++'s command line
     (tests/test_torch_port_racecheck.py: -fsanitize=thread). Its path."""
     gxx = shutil.which("g++")
     if gxx is None:
@@ -186,14 +189,14 @@ def _build_bwd_emulator(out, harness="bwd_harness.cpp", edit=None, flags=()):
             ("bwd_common.cuh", "// Host code from here", None),
             ("bwd_relaxed_stream.cuh", "// Launchers from here", None),
             ("bwd_relaxed_stream_body.cuh", None, _REL_DYN),
-            ("ssim_bwd.cu", "// The instantiation's dynamic shared memory at radius r", _STD_DYN)):
+            ("bwd_std_stream.cuh", "// Launchers from here", _STD_DYN),
+            ("bwd_std_rt.cuh", "// Launchers from here", _RT_DYN)):
         src = open(os.path.join(_build.CSRC_DIR, name)).read()
         body = src[:src.index(host)] + "}  // namespace\n" if host else src
         if dyn:
-            assert body.count(dyn[0]) == 1
+            assert body.count(dyn[0]) >= 1
             body = body.replace(dyn[0], dyn[1])
-        (out / name.replace("ssim_bwd.cu", "ssim_bwd_stream.cu")).write_text(
-            _host_shared(edit(name, body)))
+        (out / name).write_text(_host_shared(edit(name, body)))
     exe = out / harness.replace(".cpp", "")
     # band_mma.cuh: the emulator's (host models of mma, ldmatrix and
     # stmatrix), which includes the kernels' own from csrc, next on the path.
@@ -231,16 +234,19 @@ def _window(radius):
 
 
 def _emulate(exe, a, b, w_s, w_cs, g_map, seg, vhalo=None, vmask=(0, 0), radius=5,
-             strip_w=None):
-    """The host build of the relaxed streaming kernel on NumPy (B, H, W) f32
-    inputs (data range 1) at radius (its taps _window's) and a strip of
-    strip_w columns (relaxed_strip_w's if None), the NaN tile default_tile's:
-    (da, db), NaN where it wrote nothing."""
+             strip_w=None, two_pass=None, dump=None):
+    """A host build of a backward stream on NumPy (B, H, W) f32 inputs
+    (data range 1) at radius (its taps _window's) and a strip of strip_w
+    columns (relaxed_strip_w's if None), the NaN tile default_tile's: (da,
+    db), NaN where it wrote nothing. two_pass (the standard harness only):
+    the two-pass stream or the one-pass one; dump: a path the two-pass
+    stream's scratch (tile mask, weight maps) is written to."""
     bsz, h, w = a.shape
     taps = _window(radius)
     head = np.array([bsz, h, w, ssim_grad.default_tile(radius)[0], seg, g_map is not None,
                      vhalo is not None, *vmask, radius,
-                     strip_w or ssim_grad.relaxed_strip_w(radius)], np.int32)
+                     strip_w or ssim_grad.relaxed_strip_w(radius),
+                     *(() if two_pass is None else (two_pass,))], np.int32)
     consts = np.array([_KW["c1"], _KW["c2"], _KW["clip_bound"]], np.float32)
     parts = [head, taps, ssim_grad.fold_coefficients(taps), consts, a, b, w_s, w_cs]
     parts += ([g_map] if g_map is not None else []) + list(vhalo or ())
@@ -248,7 +254,8 @@ def _emulate(exe, a, b, w_s, w_cs, g_map, seg, vhalo=None, vmask=(0, 0), radius=
     with open(path_in, "wb") as f:
         for x in parts:
             f.write(np.ascontiguousarray(x).tobytes())
-    subprocess.run([str(exe), path_in, path_out], check=True, timeout=600)
+    subprocess.run([str(exe), path_in, path_out, *([str(dump)] if dump else [])], check=True,
+                   timeout=600)
     raw = np.fromfile(path_out, np.float32)
     n = a.size
     return (torch.from_numpy(raw[:n].reshape(a.shape).copy()),
@@ -460,16 +467,19 @@ def test_relaxed_runtime_radius_source_one_row_on_the_host(bwd_emulator):
 _STD_TWIN = 1e-6
 
 
-def _hold_std(exe, a, b, seg, g_map=None, vhalo=None, vmask=(0, 0), seed=0, radius=5):
-    """The host build of the standard tier's stream (ssim_bwd_stream_kernel)
-    against ssim_grad_plain on the same inputs: NaN exactly where the
-    twin's is, within _STD_TWIN x max(1, max|g|) elsewhere. Returns (da,
-    db)."""
+def _hold_std(exe, a, b, seg, g_map=None, vhalo=None, vmask=(0, 0), seed=0, radius=5,
+              two_pass=None):
+    """The host build of the standard tier's stream (the routed one at this
+    radius, ssim_grad.std_two_pass, or the one two_pass names) against
+    ssim_grad_plain on the same inputs: NaN exactly where the twin's is,
+    within _STD_TWIN x max(1, max|g|) elsewhere. Returns (da, db)."""
     rng = np.random.default_rng(seed)
     bsz, h, w = a.shape
     w_s = (rng.random(bsz) / (h * w)).astype(np.float32)
     w_cs = (0.3 * rng.random(bsz) / (h * w)).astype(np.float32)
-    got = _emulate(exe, a, b, w_s, w_cs, g_map, seg, vhalo, vmask, radius, ssim_grad.STRIP_W)
+    two = ssim_grad.std_two_pass(radius) if two_pass is None else two_pass
+    got = _emulate(exe, a, b, w_s, w_cs, g_map, seg, vhalo, vmask, radius, ssim_grad.STRIP_W,
+                   int(two))
     t = torch.from_numpy
     kw = dict(_KW, taps=_window(radius))
     if vhalo is not None:

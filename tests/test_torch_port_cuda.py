@@ -1889,3 +1889,72 @@ def test_relaxed_backward_occupancy_is_its_shared_memory():
         for gmap in (False, True):
             got = ssim_grad._resident(0, radius, gmap, True, sw)
             assert got == want * props.multi_processor_count, (radius, sw, gmap, got)
+
+
+#: The standard K3 at a radius other than 5: the blocks the two-pass
+#: stream's registers allow an SM (5: pass A's 82-91 registers, 4 warps a
+#: block, and pass B's 72, 5 warps; it has no static shared memory, its
+#: taps and fold mass are read from the kernel's parameters); the one-pass
+#: stream's at STD_WINDOW_RADII (160 threads, up to 96 registers: 59-61 at
+#: radius 1, 75-95 at 2-4; 16 bytes of static shared memory).
+_STD_RT_CAP = 5
+_STD_WINDOW_CAP = {1: 6, 2: 4, 3: 4, 4: 4}
+
+
+@pytest.mark.cuda
+def test_standard_runtime_radius_occupancy_is_its_shared_memory():
+    """The CUDA runtime's occupancy for the standard K3 at every radius but
+    5, with and without g_map, in the design the launch routes there: the
+    two-pass stream's (the fewer of its two passes') is what its
+    shared-memory model (ssim_grad.std_smem_bytes) allows on an H100
+    beside the static arrays, under the registers' cap, and at least 2
+    blocks (10 warps) at every radius; the one-pass stream's at
+    STD_WINDOW_RADII likewise (ssim_grad.std_smem_bytes(r, False))."""
+    _need_card()
+    props = torch.cuda.get_device_properties(0)
+    if "H100" not in props.name:
+        pytest.skip(f"the model is an H100's ({props.name})")
+    for radius in range(1, ssim_cuda.MAX_FUSED_RADIUS + 1):
+        if radius == ssim_cuda.STREAM_RADIUS:
+            continue
+        two = ssim_grad.std_two_pass(radius)
+        if two:
+            want = min(_STD_RT_CAP, ssim_grad.std_blocks_per_sm(radius))
+        else:
+            (dyn,) = ssim_grad.std_smem_bytes(radius, False)
+            want = min(_STD_WINDOW_CAP[radius], _SM_SMEM // (16 + _BLOCK_RESERVED + dyn))
+        assert want >= 2
+        for gmap in (False, True):
+            got = ssim_grad._resident(0, radius, gmap)
+            assert got == want * props.multi_processor_count, (radius, two, gmap, got)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("radius", [1, 3, 8, 12])
+def test_standard_two_pass_pinned_matches_twin_on_card(radius):
+    """The two-pass stream pinned (also at radii 1 and 3, where the one-pass
+    stream is routed) and at its routed radii 8 and 12: a ragged last strip
+    and segment, H one past two segments, g_map, a NaN on a strip boundary
+    and an inf in image 1; NaN over exactly the twin's tiles, within 1e-6 x
+    max(1, max|g|), one TWO_PASS_LAUNCHES a launch."""
+    _need_card()
+    rng = np.random.default_rng(0x65 + radius)
+    seg = ssim_grad.default_tile(radius)[0]
+    a = rng.random((2, 2 * seg + 1, 300)).astype(np.float32)
+    b = np.clip(a + rng.normal(0, 0.05, a.shape), 0, 1).astype(np.float32)
+    a[0, seg, 128] = np.nan
+    b[1, 3, 299] = np.inf
+    at, bt = torch.from_numpy(a).cuda(), torch.from_numpy(b).cuda()
+    g = torch.from_numpy(rng.normal(0, 1, a.shape).astype(np.float32)).cuda()
+    w_s = torch.tensor([0.7, -0.3], device="cuda")
+    w_cs = torch.tensor([0.1, 0.25], device="cuda")
+    kw = dict(taps=gaussian_taps(np.float32, radius, 0.5 + radius / 4), c1=1e-4, c2=9e-4,
+              clip_bound=131072.0)
+    for g_map in (None, g):
+        before = ssim_grad.TWO_PASS_LAUNCHES
+        da, db = ssim_grad._launch(at, bt, w_s, w_cs, g_map, segment=seg, two_pass=True, **kw)
+        torch.cuda.synchronize()
+        assert ssim_grad.TWO_PASS_LAUNCHES == before + 1
+        pa, pb = ssim_grad.ssim_grad_plain(at, bt, w_s, w_cs, g_map, **kw)
+        assert da.isnan().any() and not da.isnan().all()
+        _hold_backward(da, db, pa, pb)
